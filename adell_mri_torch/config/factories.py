@@ -22,6 +22,7 @@ def _unet_kwargs(cfg: Dict[str, Any], n_classes: int) -> Dict[str, Any]:
         norm_type=cfg.get("norm_type", "instance"),
         dropout_param=cfg.get("dropout_param", 0.0),
         activation_fn=cfg.get("activation_fn", "swish"),
+        in_channels=int(cfg.get("n_channels", 1)),
         n_classes=n_classes,
         depth=tuple(cfg.get("depth", (16, 32, 64))),
         kernel_sizes=tuple(cfg.get("kernel_sizes", (3, 3, 3))),

@@ -1,0 +1,81 @@
+"""
+Network-config parsing for U-Net training.
+
+Counterpart of ``load_yaml``, ``build_compound_loss``, ``parse_config_unet``
+and ``_TRAINING_KEYS`` in ``adell_mri_tpu/config/parsing.py``: a config file
+holds hyperparameters and a ``loss_fn`` mapping of loss name -> params that
+becomes a ``CompoundLoss``.
+"""
+
+import inspect
+from typing import Any, Dict, Tuple
+
+import yaml
+
+from adell_mri_torch.models.segmentation.losses import (
+    CompoundLoss,
+    loss_factory,
+)
+
+# keys consumed by the training loop rather than the network constructor
+_TRAINING_KEYS = (
+    "learning_rate",
+    "batch_size",
+    "weight_decay",
+    "loss_fn",
+    "momentum",
+    "optimizer",
+)
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def build_compound_loss(
+    loss_spec: Dict[str, Dict[str, Any]],
+    n_classes: int = 2,
+    param_overrides: Dict[str, Any] = None,
+) -> CompoundLoss:
+    """``{"dice": {...}, "focal": {...}}`` -> CompoundLoss, binary or
+    categorical by ``n_classes``. ``param_overrides`` (e.g. ``--loss_gamma``)
+    go into every member loss whose signature takes the key."""
+    kind = "categorical" if n_classes > 2 else "binary"
+    losses = {}
+    for name, params in (loss_spec or {"dice": {}}).items():
+        fn = loss_factory[kind][name]
+        params = dict(params or {})
+        for k, v in (param_overrides or {}).items():
+            if v is not None and k in inspect.signature(fn).parameters:
+                params[k] = v
+        losses[name] = {"fn": fn, "params": params}
+    return CompoundLoss(losses)
+
+
+def parse_config_unet(
+    config_file: str,
+    n_keys: int = 1,
+    n_classes: int = 2,
+    loss_param_overrides: Dict[str, Any] = None,
+) -> Tuple[Dict[str, Any], CompoundLoss]:
+    """Loads a U-Net config, splits training keys from network keys,
+    scales ``n_channels`` by the number of image keys and builds the
+    loss."""
+    config = load_yaml(config_file)
+    config["n_channels"] = int(config.get("n_channels", 1)) * n_keys
+    loss = build_compound_loss(
+        config.get("loss_fn", {"dice": {}}), n_classes,
+        param_overrides=loss_param_overrides,
+    )
+    network_config = {
+        k: v for k, v in config.items() if k not in _TRAINING_KEYS
+    }
+    training_config = {
+        k: v for k, v in config.items() if k in _TRAINING_KEYS
+    }
+    return {
+        "network": network_config,
+        "training": training_config,
+        "n_classes": n_classes,
+    }, loss

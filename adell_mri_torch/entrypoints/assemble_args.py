@@ -4,7 +4,9 @@ Declarative CLI argument registry, the keys the ported entry points use.
 The port's own copy of ``Parser`` and of those entries of
 ``argument_factory`` from ``adell_mri_tpu/entrypoints/assemble_args.py``;
 flag names and defaults match, except ``--dev``, which defaults to
-``cuda``. ``--params_from``/``--overrides`` are not ported yet.
+``cuda``. ``--params_from``/``--overrides`` are not ported yet. The
+entries under "parsed, not ported yet" exist so that an entry point can
+refuse them by name (``reject_unported``).
 """
 
 import argparse
@@ -45,6 +47,135 @@ argument_factory: Dict[str, Dict[str, Any]] = {
         default="unet", choices=["unet"], help="Segmentation architecture"
     ),
     "precision": dict(type=str, default="32", help="Precision: 32|bf16"),
+    # training
+    "mask_keys": dict(
+        default=None, nargs="+", help="Mask keys in dataset JSON"
+    ),
+    "adc_keys": dict(
+        default=None, nargs="+",
+        help="Keys of ADC maps (conditionally rescaled)",
+    ),
+    "positive_labels": dict(
+        default=None, nargs="+", help="Labels considered positive"
+    ),
+    "cache_rate": dict(
+        default=1.0, type=float, help="Fraction of dataset cached in RAM"
+    ),
+    "val_from_train": dict(
+        default=None, type=float, help="Fraction of train used for val"
+    ),
+    "n_folds": dict(default=5, type=int, help="Number of validation folds"),
+    "target_spacing": dict(
+        default=None, nargs="+", type=float, help="Target spacing"
+    ),
+    "pad_size": dict(default=None, nargs="+", type=int, help="Pad size"),
+    "crop_size": dict(default=None, nargs="+", type=int, help="Crop size"),
+    "random_crop_size": dict(
+        default=None, nargs="+", type=int, help="Random crop size"
+    ),
+    "config_file": dict(required=True, help="Network YAML config"),
+    "n_workers": dict(
+        default=0, type=int, help="No. of workers (prefetch depth here)"
+    ),
+    "seed": dict(default=42, type=int, help="Random seed"),
+    "max_epochs": dict(default=100, type=int, help="Maximum epochs"),
+    "warmup_steps": dict(
+        default=0.0, type=float, help="Warmup steps/epochs"
+    ),
+    "start_decay": dict(default=None, type=float, help="When decay starts"),
+    "augment": dict(
+        default=[], nargs="+",
+        help="Augmentation flags (ported: intensity noise affine shear flip)",
+    ),
+    "dropout_param": dict(default=0.0, type=float, help="Dropout parameter"),
+    "batch_size": dict(type=int, default=None, help="Batch size"),
+    "learning_rate": dict(type=float, default=None, help="Learning rate"),
+    "loss_gamma": dict(
+        default=None, type=float, help="Focal gamma routed into losses"
+    ),
+    "loss_comb": dict(
+        default=None, type=float,
+        help="Hybrid/unified focal combination weight (lam)",
+    ),
+    "steps_per_epoch": dict(
+        default=None, type=int, help="Cap on train batches per epoch"
+    ),
+    "dataset_iterations_per_epoch": dict(
+        default=1.0, type=float,
+        help="Number of dataset iterations per training epoch",
+    ),
+    "samples_per_epoch": dict(
+        default=None, type=int,
+        help="Training samples per epoch (drawn with replacement)",
+    ),
+    "optimizer": dict(default="sgd", type=str, help="Optimizer name"),
+    "gradient_clip_val": dict(
+        default=None, type=float, help="Gradient clipping value"
+    ),
+    "check_val_every_n_epoch": dict(
+        default=1, type=int, help="Val frequency"
+    ),
+    "monitor": dict(default="val_loss", help="Metric to monitor"),
+    "metric_path": dict(default="metrics.csv", help="CSV metrics output path"),
+    # parsed, not ported yet
+    "skip_keys": dict(default=None, nargs="+", help="not ported yet"),
+    "feature_keys": dict(default=None, nargs="+", help="not ported yet"),
+    "filter_on_keys": dict(default=[], nargs="+", help="not ported yet"),
+    "filter_is_optional": dict(action="store_true", help="not ported yet"),
+    "possible_labels": dict(default=None, nargs="+", help="not ported yet"),
+    "excluded_ids": dict(default=None, nargs="+", help="not ported yet"),
+    "excluded_ids_from_training_data": dict(
+        default=None, nargs="+", help="not ported yet"
+    ),
+    "cache_dir": dict(default=None, help="not ported yet"),
+    "subsample_size": dict(default=None, type=int, help="not ported yet"),
+    "subsample_training_data": dict(
+        default=None, type=float, help="not ported yet"
+    ),
+    "folds": dict(default=None, nargs="+", help="not ported yet"),
+    "resize_size": dict(
+        default=None, nargs="+", type=int, help="not ported yet"
+    ),
+    "lr_encoder": dict(default=None, type=float, help="not ported yet"),
+    "validation_samples_per_epoch": dict(
+        default=None, type=int, help="not ported yet"
+    ),
+    "sliding_window_val": dict(action="store_true", help="not ported yet"),
+    "accumulate_grad_batches": dict(
+        default=1, type=int, help="not ported yet"
+    ),
+    "check_nan_loss": dict(action="store_true", help="not ported yet"),
+    "early_stopping": dict(default=None, type=int, help="not ported yet"),
+    "constant_ratio": dict(default=None, type=float, help="not ported yet"),
+    "resume_from_last": dict(action="store_true", help="not ported yet"),
+    "logger_type": dict(default=None, help="not ported yet"),
+    "project_name": dict(default=None, help="not ported yet"),
+    "summary_name": dict(default=None, help="not ported yet"),
+    "summary_dir": dict(default="summaries", help="not ported yet"),
+    "tracking_uri": dict(default=None, help="not ported yet"),
+    "log_model": dict(action="store_true", help="not ported yet"),
+    "delete_checkpoints": dict(action="store_true", help="not ported yet"),
+    "bottleneck_classification": dict(
+        action="store_true", help="not ported yet"
+    ),
+    "deep_supervision": dict(action="store_true", help="not ported yet"),
+    "picai_eval": dict(action="store_true", help="not ported yet"),
+    "swa": dict(action="store_true", help="not ported yet"),
+    "profile_dir": dict(default=None, help="not ported yet"),
+    "semi_supervised": dict(action="store_true", help="not ported yet"),
+    "semi_sl_weight": dict(type=float, default=0.01, help="not ported yet"),
+    "missing_to_empty": dict(default=None, nargs="+", help="not ported yet"),
+    "remat": dict(action="store_true", help="not ported yet"),
+    "remat_policy": dict(type=str, default=None, help="not ported yet"),
+    "res_config_file": dict(default=None, help="not ported yet"),
+    "encoder_checkpoint": dict(
+        default=None, nargs="+", help="not ported yet"
+    ),
+    "exclude_from_state_dict": dict(
+        default=None, nargs="+", help="not ported yet"
+    ),
+    "freeze_regex": dict(default=None, nargs="+", help="not ported yet"),
+    "not_freeze_regex": dict(default=None, nargs="+", help="not ported yet"),
 }
 
 
@@ -63,3 +194,12 @@ class Parser(argparse.ArgumentParser):
             spec.update(overrides)
             self.add_argument("--" + rename, dest=rename, **spec)
         return self
+
+    def reject_unported(self, args, keys):
+        """Raises ``NotImplementedError`` for each of ``keys`` whose value
+        differs from its default."""
+        given = [k for k in keys if getattr(args, k) != self.get_default(k)]
+        if given:
+            raise NotImplementedError(
+                f"flags {['--' + k for k in given]} are not ported yet"
+            )

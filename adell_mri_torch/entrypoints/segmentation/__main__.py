@@ -1,9 +1,10 @@
-"""Segmentation mode dispatch (so far: ``predict``)."""
+"""Segmentation mode dispatch (so far: ``train``, ``predict``)."""
 
 import importlib
 
 supported_modes = {
     "predict": "adell_mri_torch.entrypoints.segmentation.predict",
+    "train": "adell_mri_torch.entrypoints.segmentation.train",
 }
 
 

@@ -1,0 +1,364 @@
+"""
+``python -m adell_mri_torch segmentation train``.
+
+Counterpart of ``adell_mri_tpu/entrypoints/segmentation/train.py``:
+dataset JSON -> config -> folds -> per fold [transforms -> cached dataset
+-> sampler -> loaders -> network -> optimizer and schedule -> fit], with
+a checkpoint directory per fold whose ``metadata.json`` lets
+``segmentation predict`` rebuild the model and the transforms.
+
+Ported: the 3D U-Net (``--segmentation_net_type unet``), whole-volume
+training (crop size = volume size), the augmentation flags intensity,
+noise, affine, shear and flip, sgd/adam/adamw under cosine annealing with
+warmup, bf16 or f32 compute. Every other flag is parsed and raises
+``NotImplementedError`` when given a value other than its default.
+"""
+
+import json
+import logging
+from typing import List
+
+import numpy as np
+import torch
+
+from adell_mri_torch.config.factories import get_segmentation_network
+from adell_mri_torch.config.parsing import parse_config_unet
+from adell_mri_torch.data import Dataset
+from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
+from adell_mri_torch.data.samplers import RandomSampler
+from adell_mri_torch.device import use_device
+from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.train.checkpoints import CheckpointManager
+from adell_mri_torch.train.logging_utils import MetricLogger
+from adell_mri_torch.train.loop import TrainLoop
+from adell_mri_torch.train.optim import get_optimizer
+from adell_mri_torch.train.precision import compute_dtype
+from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
+from adell_mri_torch.train.state import TrainState
+from adell_mri_torch.train.steps import (
+    make_eval_step,
+    make_segmentation_step,
+    make_train_step,
+)
+from adell_mri_torch.transforms.host import (
+    get_spacing_quantile,
+    spacing_values_from_dataset_json,
+)
+from adell_mri_torch.transforms.pipeline import (
+    AugmentPolicy,
+    SegmentationTransforms,
+)
+
+logger = logging.getLogger(__name__)
+
+ARG_KEYS = [
+    "dataset_json",
+    "image_keys",
+    "mask_keys",
+    "adc_keys",
+    "positive_labels",
+    "cache_rate",
+    "val_from_train",
+    "n_folds",
+    "target_spacing",
+    "pad_size",
+    "crop_size",
+    "random_crop_size",
+    "config_file",
+    "dev",
+    "n_workers",
+    "seed",
+    "max_epochs",
+    "warmup_steps",
+    "start_decay",
+    "n_classes",
+    "augment",
+    "dropout_param",
+    "batch_size",
+    "learning_rate",
+    "loss_gamma",
+    "loss_comb",
+    "steps_per_epoch",
+    "dataset_iterations_per_epoch",
+    "samples_per_epoch",
+    "optimizer",
+    "precision",
+    "gradient_clip_val",
+    "check_val_every_n_epoch",
+    "checkpoint_dir",
+    "checkpoint_name",
+    "monitor",
+    "metric_path",
+    "segmentation_net_type",
+]
+UNPORTED_KEYS = [
+    "skip_keys",
+    "feature_keys",
+    "filter_on_keys",
+    "filter_is_optional",
+    "possible_labels",
+    "excluded_ids",
+    "excluded_ids_from_training_data",
+    "cache_dir",
+    "subsample_size",
+    "subsample_training_data",
+    "folds",
+    "resize_size",
+    "lr_encoder",
+    "validation_samples_per_epoch",
+    "sliding_window_val",
+    "accumulate_grad_batches",
+    "check_nan_loss",
+    "early_stopping",
+    "constant_ratio",
+    "resume_from_last",
+    "logger_type",
+    "project_name",
+    "summary_name",
+    "summary_dir",
+    "tracking_uri",
+    "log_model",
+    "delete_checkpoints",
+    "bottleneck_classification",
+    "deep_supervision",
+    "picai_eval",
+    "swa",
+    "profile_dir",
+    "semi_supervised",
+    "semi_sl_weight",
+    "missing_to_empty",
+    "remat",
+    "remat_policy",
+    "checkpoint",
+    "res_config_file",
+    "encoder_checkpoint",
+    "exclude_from_state_dict",
+    "freeze_regex",
+    "not_freeze_regex",
+]
+
+
+def kfold_split(n: int, n_folds: int, seed: int):
+    """Shuffled K-fold over ``range(n)``: the splits of scikit-learn's
+    ``KFold(n_folds, shuffle=True, random_state=seed)``, which the JAX
+    package uses (the first ``n % n_folds`` folds hold one more)."""
+    if n_folds > n:
+        raise ValueError(f"{n_folds} folds need at least {n_folds} cases")
+    order = np.arange(n)
+    np.random.RandomState(seed).shuffle(order)
+    sizes = np.full(n_folds, n // n_folds)
+    sizes[: n % n_folds] += 1
+    start = 0
+    for size in sizes:
+        test = np.zeros(n, bool)
+        test[order[start:start + size]] = True
+        start += size
+        yield np.flatnonzero(~test), np.flatnonzero(test)
+
+
+def get_folds(pids: List[str], n_folds: int, seed: int, val_fraction=None):
+    """K-fold split; with ``n_folds <= 1`` one split whose validation share
+    is ``val_fraction`` (0.2 by default)."""
+    pids_arr = np.asarray(pids)
+    if n_folds <= 1:
+        idx = np.random.default_rng(seed).permutation(len(pids_arr))
+        frac = 0.2 if val_fraction is None else val_fraction
+        n_val = max(1, int(frac * len(pids_arr)))
+        return [
+            (pids_arr[idx[n_val:]].tolist(), pids_arr[idx[:n_val]].tolist())
+        ]
+    if val_fraction is not None:
+        logger.warning(
+            "--val_from_train only applies with --n_folds <= 1; k-fold "
+            "validation splits are 1/n_folds"
+        )
+    return [
+        (pids_arr[tr].tolist(), pids_arr[va].tolist())
+        for tr, va in kfold_split(len(pids_arr), n_folds, seed)
+    ]
+
+
+def main(arguments):
+    parser = Parser(prog="adell segmentation train")
+    parser.add_argument_by_key(ARG_KEYS + UNPORTED_KEYS)
+    args = parser.parse_args(arguments)
+    parser.reject_unported(args, UNPORTED_KEYS)
+    if args.segmentation_net_type != "unet":
+        raise NotImplementedError(
+            f"--segmentation_net_type {args.segmentation_net_type} is not "
+            "ported yet"
+        )
+    device = use_device(args.dev)
+    compute_dtype(args.precision)  # an unknown precision fails here
+
+    data = Dataset(args.dataset_json)
+    label_keys = list(args.mask_keys or [])
+    presence = list(args.image_keys) + label_keys
+    pids = [
+        p for p in data.keys() if all(k in data[p] for k in presence)
+    ]
+    if not pids:
+        raise ValueError("no samples left after filtering")
+
+    config, loss_fn = parse_config_unet(
+        args.config_file, n_keys=len(args.image_keys),
+        n_classes=args.n_classes,
+        loss_param_overrides={"gamma": args.loss_gamma, "lam": args.loss_comb},
+    )
+    net_cfg = config["network"]
+    train_cfg = config["training"]
+    batch_size = args.batch_size or train_cfg.get("batch_size", 2)
+    learning_rate = args.learning_rate or train_cfg.get("learning_rate", 1e-3)
+    weight_decay = train_cfg.get("weight_decay", 0.0)
+    if args.dropout_param:
+        net_cfg["dropout_param"] = args.dropout_param
+    net_cfg["bottleneck_classification"] = False
+    net_cfg["deep_supervision"] = False
+
+    target_spacing = args.target_spacing
+    if target_spacing is None:
+        spacings = spacing_values_from_dataset_json(
+            {p: data[p] for p in pids}, args.image_keys[0], n=32
+        )
+        if spacings:
+            target_spacing = get_spacing_quantile(spacings)
+            logger.info("inferred target spacing: %s", target_spacing)
+
+    base_size = args.pad_size or args.crop_size
+    if base_size is None:
+        raise ValueError("one of --pad_size/--crop_size is required")
+    crop_size = args.random_crop_size or args.crop_size
+    if crop_size is not None and tuple(crop_size) != tuple(base_size):
+        raise NotImplementedError(
+            "random crops smaller than the volume are not ported yet"
+        )
+    if int(net_cfg.get("spatial_dimensions", 3)) != 3:
+        raise NotImplementedError("2D networks are not ported yet")
+
+    folds = get_folds(pids, args.n_folds, args.seed, args.val_from_train)
+    metric_logger = MetricLogger(csv_path=args.metric_path)
+    positive_labels = [int(x) for x in (args.positive_labels or [1])]
+    mode = "min" if "loss" in args.monitor else "max"
+
+    for fold_idx, (train_pids, val_pids) in enumerate(folds):
+        logger.info(
+            "fold %d: %d train / %d val", fold_idx, len(train_pids),
+            len(val_pids),
+        )
+        transforms = SegmentationTransforms(
+            image_keys=args.image_keys,
+            label_keys=label_keys,
+            target_spacing=target_spacing,
+            target_size=base_size,
+            adc_keys=args.adc_keys or (),
+            positive_labels=positive_labels,
+            # segmentation training: rotation-only affine, flips on all
+            # three axes (the reference's seg factory)
+            augmentations=AugmentPolicy.from_flags(
+                args.augment, scale_range=0.0, flip_axes=(0, 1, 2)
+            ),
+        )
+        load_fn = transforms.load_fn()
+
+        def datalist(keys):
+            return [{**data[k], "identifier": k} for k in keys]
+
+        train_ds = CachedVolumeDataset(
+            datalist(train_pids), load_fn, cache_rate=args.cache_rate
+        )
+        val_ds = CachedVolumeDataset(
+            datalist(val_pids), load_fn, cache_rate=args.cache_rate
+        )
+        sampler = RandomSampler(len(train_ds), seed=args.seed)
+        if args.samples_per_epoch is not None:
+            sampler.set_n_samples(args.samples_per_epoch)
+        elif (args.dataset_iterations_per_epoch or 1.0) != 1.0:
+            sampler.set_n_samples(max(
+                1, int(len(train_ds) * args.dataset_iterations_per_epoch)
+            ))
+        train_loader = DataLoader(
+            train_ds, sampler=sampler, batch_size=batch_size,
+            drop_last=True, prefetch=max(args.n_workers, 2),
+        )
+        val_loader = DataLoader(
+            val_ds, batch_size=max(1, min(batch_size, len(val_ds))),
+            drop_last=True, prefetch=1,
+        )
+
+        torch.manual_seed(args.seed)
+        model = get_segmentation_network(
+            args.segmentation_net_type, net_cfg, n_classes=args.n_classes
+        ).to(device)
+
+        steps_per_epoch = max(len(train_loader), 1)
+        if args.steps_per_epoch:
+            steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
+        schedule = cosine_annealing_with_warmup(
+            learning_rate,
+            t_max=args.max_epochs * steps_per_epoch,
+            n_warmup_steps=args.warmup_steps * steps_per_epoch
+            if args.warmup_steps >= 1 else args.warmup_steps,
+            start_decay=args.start_decay,
+        )
+        state = TrainState.create(
+            model,
+            lambda params: get_optimizer(
+                args.optimizer, learning_rate=schedule,
+                weight_decay=weight_decay, clip_norm=args.gradient_clip_val,
+                params=params,
+            ),
+        )
+        ckpt = CheckpointManager(
+            args.checkpoint_dir,
+            name=args.checkpoint_name or "segmentation",
+            fold=fold_idx,
+            monitor=args.monitor,
+            mode=mode,
+            metadata={
+                "network_config": net_cfg,
+                "transform_arguments": {
+                    "image_keys": list(args.image_keys),
+                    "skip_keys": [],
+                    "feature_keys": [],
+                    "label_keys": label_keys,
+                    "target_spacing": target_spacing,
+                    "target_size": list(base_size),
+                    "resize_size": None,
+                    "crop_size": list(crop_size) if crop_size else None,
+                    "adc_keys": list(args.adc_keys or ()),
+                    "positive_labels": positive_labels,
+                },
+                "train_pids": train_pids,
+                "val_pids": val_pids,
+                "n_classes": args.n_classes,
+                "net_type": args.segmentation_net_type,
+            },
+        )
+        ckpt.begin_run()
+        step_kwargs = dict(n_classes=args.n_classes, precision=args.precision)
+        train_step = make_train_step(
+            make_segmentation_step(model, loss_fn, train=True, **step_kwargs)
+        )
+        eval_step = make_eval_step(
+            make_segmentation_step(model, loss_fn, train=False, **step_kwargs)
+        )
+        loop = TrainLoop(
+            train_step=train_step,
+            eval_step=eval_step,
+            augment_fn=transforms.augment,
+            device=device,
+            max_epochs=args.max_epochs,
+            check_val_every_n_epoch=args.check_val_every_n_epoch,
+            monitor=args.monitor,
+            ckpt_manager=ckpt,
+            metric_logger=metric_logger,
+            seed=args.seed + fold_idx,
+            steps_per_epoch=args.steps_per_epoch,
+        )
+        state, history = loop.fit(state, train_loader, val_loader)
+        final = history[-1] if history else {}
+        metric_logger.log_metrics(
+            final, step=args.max_epochs, fold=fold_idx, phase="final"
+        )
+        logger.info("fold %d done: %s", fold_idx,
+                    json.dumps(final, default=float))

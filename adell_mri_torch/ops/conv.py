@@ -7,7 +7,8 @@ among TPU lowerings (z2d, im2col, Pallas, ...); none of them is carried
 over. Here:
 
 - a stride-1 3x3x3 SAME conv goes to the hand-written Hopper kernel
-  ``conv3d_igemm`` at every shape (its plain version on CPU tensors);
+  ``conv3d_igemm`` at every shape, its input gradient too
+  (``conv3d_igemm_train``; the plain version on CPU tensors);
 - any other conv (the strided downsample convs with their explicit
   symmetric pads, other kernel sizes) is ``F.conv3d`` on a channels-last
   view, as the JAX package computes them outside any Pallas kernel;
@@ -30,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from adell_mri_torch.ops.kernels.conv import conv3d_igemm
+from adell_mri_torch.ops.kernels.conv import conv3d_igemm_train
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -45,13 +46,21 @@ def _same_pads(spatial, k, strides):
     return pads
 
 
+def lecun_normal_(w, fan_in: int):
+    """flax's ``lecun_normal``, the JAX package's kernel initialiser: a
+    normal truncated at two standard deviations, scaled to variance
+    ``1 / fan_in``."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
 def conv3d(x, w, bias=None, strides=(1, 1, 1), padding: Padding = "SAME"):
     """x [B,D,H,W,Cin], w [kd,kh,kw,Cin,Cout]; ``padding`` is "SAME" or
     per-axis (low, high) pairs."""
     k = tuple(w.shape[:3])
     strides = tuple(strides)
     if k == (3, 3, 3) and strides == (1, 1, 1) and padding == "SAME":
-        return conv3d_igemm(x.contiguous(), w, bias)
+        return conv3d_igemm_train(x.contiguous(), w, bias)
     if padding == "SAME":
         pads = _same_pads(x.shape[1:4], k, strides)
     else:
@@ -83,8 +92,7 @@ class Conv3d(nn.Module):
             torch.empty(tuple(kernel_size) + (in_channels, out_channels))
         )
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        fan_in = in_channels * self.weight.shape[:3].numel()
-        nn.init.normal_(self.weight, std=fan_in**-0.5)
+        lecun_normal_(self.weight, in_channels * self.weight.shape[:3].numel())
 
     def forward(self, x):
         return conv3d(x, self.weight, self.bias, self.strides, self.padding)
@@ -119,7 +127,8 @@ class ConvTranspose3d(nn.Module):
             torch.empty((in_channels,) + tuple(kernel_size) + (out_channels,))
         )
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        nn.init.normal_(self.weight, std=in_channels**-0.5)
+        fan_in = in_channels * self.weight.shape[1:4].numel()
+        lecun_normal_(self.weight, fan_in)
 
     def forward(self, x):
         return conv_transpose_block(x, self.weight, self.bias)
@@ -133,7 +142,7 @@ class Pointwise(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        nn.init.normal_(self.weight, std=in_channels**-0.5)
+        lecun_normal_(self.weight, in_channels)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

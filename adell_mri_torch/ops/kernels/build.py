@@ -98,12 +98,25 @@ def _compile(nvcc: str, sources, out_path: Path) -> str:
     return "\n".join(log)
 
 
+_SIGNATURES = {
+    # x, w, bias, out, B, D, H, W, Cin, Cout, stream
+    "adell_conv3d_igemm": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    ),
+    # x, out, par, seed, B, n, noise, rician, n_sm, stream
+    "adell_intensity_aug": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ),
+}
+
+
 def _bind(lib):
-    sig = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    for name in ("adell_conv3d_igemm_bf16", "adell_conv3d_igemm_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = sig
-        fn.restype = ctypes.c_int
+    for stem, sig in _SIGNATURES.items():
+        for suffix in ("_bf16", "_f32"):
+            fn = getattr(lib, stem + suffix)
+            fn.argtypes = sig
+            fn.restype = ctypes.c_int
     return lib
 
 

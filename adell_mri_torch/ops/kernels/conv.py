@@ -13,6 +13,14 @@ the H100 and what its design does about that.
 ``conv3d_igemm`` launches the kernel for CUDA tensors and runs the plain
 version, ``conv3d_igemm_reference``, only for CPU tensors. Unlike the TPU
 kernel it has no shape gate: every Cin/Cout and spatial size is taken.
+
+``conv3d_igemm_train`` is the differentiable form, mirroring
+``_conv3d_im2col_bwd`` in ``adell_mri_tpu/ops/conv.py`` for stride 1 and
+SAME: dx is the same kernel (``conv3d_igemm_dx``) on the cotangent with
+the spatially flipped, channel-swapped weight; dW is the patch tensor
+contracted with the cotangent in one ``torch.matmul`` (the JAX package
+computes it outside any Pallas kernel too); dbias is the cotangent's sum.
+On CPU tensors forward and backward both take the plain version.
 """
 
 import torch
@@ -70,21 +78,13 @@ def _check(x, w, bias):
         raise ValueError("conv3d_igemm takes tensors below 2**31 elements")
 
 
-def conv3d_igemm(x, w, bias=None):
-    """x [B,D,H,W,Cin], w [3,3,3,Cin,Cout], bias [Cout] or None, one dtype
-    (bf16 or f32). Stride-1 SAME conv with f32 accumulation, returned in
-    the input dtype. CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
-    if x.device.type == "cpu":
-        return conv3d_igemm_reference(x, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3d_igemm runs on cuda or cpu, not {x.device}")
+def _launch(x, w, bias):
     _check(x, w, bias)
     b, d, h, w_sz, cin = x.shape
     cout = w.shape[-1]
     out = torch.empty((b, d, h, w_sz, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return out, False
     launcher = getattr(load_library(), _LAUNCHERS[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -95,9 +95,104 @@ def conv3d_igemm(x, w, bias=None):
         )
     if rc != 0:
         raise RuntimeError(f"conv3d_igemm launch failed: cudaError {rc}")
-    conv3d_igemm.launches += 1
+    return out, True
+
+
+def _on_card(x, name):
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def conv3d_igemm(x, w, bias=None):
+    """x [B,D,H,W,Cin], w [3,3,3,Cin,Cout], bias [Cout] or None, one dtype
+    (bf16 or f32). Stride-1 SAME conv with f32 accumulation, returned in
+    the input dtype. CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    if not _on_card(x, "conv3d_igemm"):
+        return conv3d_igemm_reference(x, w, bias)
+    out, launched = _launch(x, w, bias)
+    conv3d_igemm.launches += launched
     return out
 
 
-#: kernel launches since the last reset (set to 0 to start a count)
+#: forward launches since the last reset (set to 0 to start a count)
 conv3d_igemm.launches = 0
+
+
+def conv3d_igemm_dx(g, w):
+    """Input gradient of the stride-1 SAME conv: the same kernel on the
+    cotangent ``g`` [B,D,H,W,Cout] with ``w`` flipped in space and its
+    channel axes swapped (``[3,3,3,Cout,Cin]``). Counted apart from the
+    forward launches."""
+    w_rot = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+    if not _on_card(g, "conv3d_igemm_dx"):
+        return conv3d_igemm_reference(g, w_rot)
+    dx, launched = _launch(g, w_rot, None)
+    conv3d_igemm_dx.launches += launched
+    return dx
+
+
+#: backward (dx) launches since the last reset
+conv3d_igemm_dx.launches = 0
+
+
+def conv3d_weight_grad(x, g):
+    """dW [3,3,3,Cin,Cout] of the stride-1 SAME conv: the padded input's
+    patch tensor [V, 27*Cin] contracted with ``g`` [V, Cout] over the
+    voxels in one product (f32 accumulation rounded once to x's dtype). The
+    patch tensor is transient: 27x the input, 3.6 GB at the flagship stem
+    in bf16."""
+    b, d, h, w_sz, cin = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    # [B,D,H,W,Cin,3,3,3] -> [B,D,H,W,3,3,3,Cin]: k = tap*Cin + ci, the
+    # row-major flattening of the weight
+    patches = (
+        xp.unfold(1, 3, 1).unfold(2, 3, 1).unfold(3, 3, 1)
+        .permute(0, 1, 2, 3, 5, 6, 7, 4)
+        .reshape(-1, 27 * cin)
+    )
+    # bf16 products summed in f32 and rounded once, as the JAX package's
+    # preferred_element_type=f32: cuBLAS may otherwise reduce its split-K
+    # partial sums in bf16
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        dw = torch.matmul(patches.t(), g.reshape(-1, g.shape[-1]))
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    return dw.reshape(3, 3, 3, cin, g.shape[-1])
+
+
+class _Conv3dIgemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = bias is not None
+        return conv3d_igemm(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_igemm_dx(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_weight_grad(x, g).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1, 2, 3), dtype=torch.float32).to(g.dtype)
+        return dx, dw, db
+
+
+def conv3d_igemm_train(x, w, bias=None):
+    """``conv3d_igemm`` with a gradient: K1 for the forward and for dx."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, bias)
+    )
+    if not needs_grad:
+        return conv3d_igemm(x, w, bias)
+    return _Conv3dIgemm.apply(x, w, bias)

@@ -1,16 +1,39 @@
 """
-The flagship serving case, shared by ``chip_smoke.py`` and the profiler.
+The flagship serving case and training step, shared by ``chip_smoke.py``
+and the profilers.
 
-The flagship U-Net (``bench.py``'s configuration) in bf16 with weights
-drawn from a seed, and a 256x256x64 single-channel case served through
-``SegmentationInference`` with a 128x128x32 window at stride 0.5 in
-micro-batches of 4: 27 tiles in 7 window batches.
+Serving: the flagship U-Net (``bench.py``'s configuration) in bf16 with
+weights drawn from a seed, and a 256x256x64 single-channel case served
+through ``SegmentationInference`` with a 128x128x32 window at stride 0.5
+in micro-batches of 4: 27 tiles in 7 window batches.
+
+Training: the same U-Net with f32 master weights from a seed, a batch of
+4 volumes of 128x128x32 made on the card, the CLI's augmentation
+(``--augment intensity noise affine flip``: rotation-only affine, flips
+on all three axes), the default ``dice`` loss, Nesterov SGD (momentum
+0.99) under cosine annealing, bf16 or f32 compute.
 """
+
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from adell_mri_torch.config.factories import get_segmentation_network
+from adell_mri_torch.config.parsing import build_compound_loss
 from adell_mri_torch.inference import SegmentationInference
+from adell_mri_torch.train.optim import get_optimizer
+from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
+from adell_mri_torch.train.state import TrainState
+from adell_mri_torch.train.steps import (
+    make_eval_step,
+    make_segmentation_step,
+    make_train_step,
+)
+from adell_mri_torch.transforms.pipeline import (
+    AugmentPolicy,
+    SegmentationTransforms,
+)
 
 FLAGSHIP = dict(
     spatial_dimensions=3,
@@ -47,3 +70,61 @@ def make_inference(model):
         lambda m, x: m(x.to(dtype)).float(), [model],
         sliding_window_size=WINDOW, stride=0.5, batch_size=BATCH,
     )
+
+
+AUGMENT_FLAGS = ("intensity", "noise", "affine", "flip")
+
+
+def make_train_batch(seed: int, device="cuda", batch=BATCH, shape=WINDOW):
+    """A learnable synthetic batch on the card: per volume a bright
+    ellipsoid (the label) at a random centre over a noisy background,
+    min-max scaled as the loader scales images. image [B, *shape, 1],
+    label [B, *shape]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    grid = torch.stack(torch.meshgrid(
+        *[torch.arange(s, device=device, dtype=torch.float32)
+          for s in shape], indexing="ij"), -1)
+    size = torch.tensor(shape, device=device, dtype=torch.float32)
+    centres = size * (0.35 + 0.3 * torch.rand((batch, 3), generator=g,
+                                              device=device))
+    radii = size / 5
+    dist = (((grid[None] - centres[:, None, None, None]) / radii) ** 2)
+    label = (dist.sum(-1) <= 1.0).float()
+    noise = torch.randn((batch,) + tuple(shape), generator=g, device=device)
+    image = 0.3 + 0.4 * label + 0.1 * noise
+    lo = image.amin(dim=(1, 2, 3), keepdim=True)
+    hi = image.amax(dim=(1, 2, 3), keepdim=True)
+    return {"image": ((image - lo) / (hi - lo))[..., None], "label": label}
+
+
+@dataclass
+class Trainer:
+    state: TrainState
+    train_step: Callable
+    eval_step: Callable
+    loss_and_metrics: Callable
+    transforms: SegmentationTransforms
+
+
+def make_trainer(seed: int, precision: str, device="cuda",
+                 learning_rate: float = 1e-3, t_max: int = 100):
+    """The flagship U-Net (f32 master weights from ``seed``) with its
+    train and eval steps, optimizer and augmentation."""
+    torch.manual_seed(seed)
+    model = get_segmentation_network("unet", FLAGSHIP, n_classes=2)
+    model = model.to(device)
+    loss_fn = build_compound_loss({"dice": {}}, n_classes=2)
+    schedule = cosine_annealing_with_warmup(learning_rate, t_max=t_max)
+    state = TrainState.create(
+        model, lambda p: get_optimizer("sgd", schedule, params=p)
+    )
+    lm = make_segmentation_step(model, loss_fn, precision=precision)
+    eval_lm = make_segmentation_step(model, loss_fn, train=False,
+                                     precision=precision)
+    transforms = SegmentationTransforms(
+        augmentations=AugmentPolicy.from_flags(
+            AUGMENT_FLAGS, scale_range=0.0, flip_axes=(0, 1, 2)
+        )
+    )
+    return Trainer(state, make_train_step(lm), make_eval_step(eval_lm), lm,
+                   transforms)

@@ -1,0 +1,121 @@
+"""
+Where the time of one training step goes, on the GPU.
+
+    python -m adell_mri_torch.tools.profile_train
+
+Trains the flagship U-Net (f32 master weights from seed 0, bf16 compute,
+the CLI's augmentation, dice loss, Nesterov SGD) on a batch of 4 volumes
+of 128x128x32 made on the card, as ``chip_smoke.py`` phase 8 does. After
+one warm-up step it times three steps with the host clock, then runs one
+more under ``torch.profiler`` and prints the device time by kernel group,
+the device-busy share of a step's wall time, the peak device memory and
+the top kernels. The full table goes to ``chiprun_out/profile_train.txt``.
+"""
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from adell_mri_torch.tools.flagship import make_train_batch, make_trainer
+
+# kernel-name substrings -> group, first match wins (cuDNN's conv kernels
+# also carry "gemm", so they come before the matmuls)
+GROUPS = (
+    ("conv3d_igemm", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
+    ("intensity_aug", "intensity_aug (K3: fused intensity augmentation)"),
+    ("fft", "FFT (Gibbs ringing)"),
+    ("fprop", "cuDNN convs (stride-2, forward and backward)"),
+    ("dgrad", "cuDNN convs (stride-2, forward and backward)"),
+    ("wgrad", "cuDNN convs (stride-2, forward and backward)"),
+    ("conv", "cuDNN convs (stride-2, forward and backward)"),
+    ("gemm", "matmuls (dW patch products, transposed convs, 1x1)"),
+    ("nvjet", "matmuls (dW patch products, transposed convs, 1x1)"),
+    ("CatArrayBatchedCopy", "concatenation"),
+    ("reduce_kernel", "reductions (norm statistics, sums)"),
+    ("index", "gathers (warp)"),
+    ("elementwise", "elementwise (norms, swish, casts, patch copies)"),
+)
+
+
+def _self_device_us(evt):
+    return float(evt.self_device_time_total)
+
+
+def main(out_path="chiprun_out/profile_train.txt", precision="bf16"):
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    batch = make_train_batch(0)
+    tr = make_trainer(0, precision)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        aug = tr.transforms.augment(gen, batch)
+        tr.state, _ = tr.train_step(tr.state, aug)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    # kernels only: a CPU-side op also reports the device time of the
+    # kernels it launched, so summing both would count that time twice
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0
+    ]
+    total_us = sum(_self_device_us(e) for e in events)
+    if total_us <= 0:
+        print("profile_train: the profiler saw no device time",
+              file=sys.stderr)
+        return 1
+    groups = {}
+    for e in events:
+        label = next(
+            (lab for key, lab in GROUPS if key in e.key), "other"
+        )
+        groups[label] = groups.get(label, 0.0) + _self_device_us(e)
+    top = sorted(events, key=_self_device_us, reverse=True)[:15]
+    device_s = total_us / 1e6
+    summary = {
+        "device": torch.cuda.get_device_name(0),
+        "precision": precision,
+        "wall_s_per_step": wall,
+        "profiled_step_wall_s": profiled_wall,
+        "device_busy_s_per_step": device_s,
+        "device_busy_share": device_s / min(wall),
+        "peak_memory_gb": peak_gb,
+        "groups_ms": {k: v / 1e3 for k, v in sorted(
+            groups.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": [
+            [e.key[:80], _self_device_us(e) / 1e3, e.count] for e in top
+        ],
+    }
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=50))
+    for k, v in summary["groups_ms"].items():
+        print(f"  {v:9.3f} ms  {100 * v / (total_us / 1e3):5.1f} %  {k}")
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

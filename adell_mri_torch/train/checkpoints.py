@@ -4,13 +4,17 @@ Torch-native checkpoint directories.
 Counterpart of ``adell_mri_tpu/train/checkpoints.py`` (``CheckpointManager``)
 with the same run layout and sidecar files: ``{root}/{name}_fold{k}/``
 holds ``metadata.json`` (``network_config``, ``transform_arguments``,
-``n_classes``, ``net_type``, ...), ``best.json`` (``{"step", "value"}``)
-and the weights as one ``model.pt`` state dict. Reading the JAX package's
-orbax directories needs JAX and is not done here; a JAX UNet's parameters
-come in through ``interop/from_flax.py``.
+``n_classes``, ``net_type``, ``monitor``, ``mode``, ...), ``best.json``
+(``{"step", "value"}``) and the weights as one ``model.pt`` state dict.
+Training keeps in ``model.pt`` the weights of the best monitored epoch
+(the latest, until a monitored value exists), the ones ``best.json``
+names, so prediction serves what the JAX package's ``best_step`` would.
+Reading the JAX package's orbax directories needs JAX and is not done
+here; a JAX UNet's parameters come in through ``interop/from_flax.py``.
 """
 
 import json
+import math
 import os
 from typing import Any, Dict, Optional
 
@@ -26,12 +30,27 @@ class CheckpointManager:
         name: str = "model",
         fold: int = 0,
         metadata: Optional[Dict[str, Any]] = None,
+        monitor: Optional[str] = None,
+        mode: str = "min",
     ):
         self.dir = os.path.abspath(os.path.join(root, f"{name}_fold{fold}"))
+        self.monitor = monitor
+        self.mode = mode
         if metadata is not None:
             self.save_metadata(metadata)
 
+    def begin_run(self):
+        """A fresh training run drops a ``best.json`` left by an earlier
+        run, which would otherwise win every comparison."""
+        path = os.path.join(self.dir, "best.json")
+        if os.path.exists(path):
+            os.remove(path)
+
     def save_metadata(self, metadata: Dict[str, Any]):
+        if self.monitor is not None:
+            # predict --fold -1 reads the comparison direction from here
+            metadata = {"monitor": self.monitor, "mode": self.mode,
+                        **metadata}
         os.makedirs(self.dir, exist_ok=True)
         with open(os.path.join(self.dir, "metadata.json"), "w") as f:
             json.dump(metadata, f, default=str, indent=1)
@@ -57,6 +76,37 @@ class CheckpointManager:
         if value is not None:
             with open(os.path.join(self.dir, "best.json"), "w") as f:
                 json.dump({"step": step, "value": float(value)}, f)
+
+    def _best_value(self) -> Optional[float]:
+        path = os.path.join(self.dir, "best.json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            value = float(json.load(f)["value"])
+        return None if math.isnan(value) else value
+
+    def save_epoch(
+        self,
+        step: int,
+        state_dict: Dict[str, torch.Tensor],
+        metrics: Dict[str, float],
+    ):
+        """End-of-epoch save through the monitor: the weights are written
+        when the monitored metric improves on ``best.json`` (a NaN never
+        does), and while no monitored value has been recorded yet."""
+        value = metrics.get(self.monitor)
+        best = self._best_value()
+        if value is None or math.isnan(value):
+            if not os.path.exists(os.path.join(self.dir, "best.json")):
+                self.save(state_dict, step=step)
+            return
+        better = (
+            best is None
+            or (self.mode == "min" and value < best)
+            or (self.mode == "max" and value > best)
+        )
+        if better:
+            self.save(state_dict, step=step, value=value)
 
     def load_state_dict(self) -> Dict[str, torch.Tensor]:
         path = os.path.join(self.dir, MODEL_FILE)

@@ -1,18 +1,52 @@
 """
-Host-side deterministic preprocessing for prediction.
+Host-side deterministic preprocessing for training and prediction.
 
-The port's own copy of ``resample_to_spec``, ``area_resize`` and
-``center_crop_pad`` from ``adell_mri_tpu/transforms/host.py``. The
-resample is one ``scipy.ndimage.map_coordinates`` call per volume (the
-JAX package's scipy path; its optional native resampler is not used).
+The port's own copy of ``resample_to_spec``, ``area_resize``,
+``center_crop_pad``, the spacing-inference helpers and ``make_load_fn``
+from ``adell_mri_tpu/transforms/host.py``. The resample is one
+``scipy.ndimage.map_coordinates`` call per volume (the JAX package's scipy
+path; its optional native resampler is not used).
 """
 
-from typing import Optional, Sequence
+import logging
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy import ndimage
 
-from adell_mri_torch.data.nifti import NiftiImage
+from adell_mri_torch.data.nifti import NiftiImage, read_nifti, reorient_to_ras
+
+logger = logging.getLogger(__name__)
+
+#: ADC maps above 1e3 are rescaled by this factor instead of min-max scaled
+ADC_FACTOR = -2 / 3
+
+
+def spacing_values_from_dataset_json(
+    dataset: Dict[str, dict], key: str, n: Optional[int] = None
+) -> List[Tuple[float, ...]]:
+    """Voxel spacings of the first ``n`` entries' ``key`` images, read
+    from their NIfTI headers."""
+    spacings = []
+    for i, (pid, entry) in enumerate(dataset.items()):
+        if n is not None and i >= n:
+            break
+        if key not in entry:
+            continue
+        try:
+            img = read_nifti(entry[key])
+        except (OSError, ValueError) as e:
+            logger.warning("spacing read failed for %s: %s", pid, e)
+            continue
+        spacings.append(tuple(float(s) for s in img.spacing))
+    return spacings
+
+
+def get_spacing_quantile(
+    spacings: List[Tuple[float, ...]], q: float = 0.5
+) -> List[float]:
+    """Per-axis quantile of spacings."""
+    return [float(x) for x in np.quantile(np.asarray(spacings), q, axis=0)]
 
 
 def resample_to_spec(
@@ -101,3 +135,58 @@ def center_crop_pad(vol: np.ndarray, target: Sequence[int]) -> np.ndarray:
             sl[ax] = slice(lo, lo + t)
             vol = vol[tuple(sl)]
     return vol
+
+
+def make_load_fn(
+    image_keys: Sequence[str],
+    label_keys: Optional[Sequence[str]] = None,
+    target_spacing: Optional[Sequence[float]] = None,
+    target_size: Optional[Sequence[int]] = None,
+    adc_keys: Sequence[str] = (),
+    positive_labels: Sequence[int] = (1,),
+):
+    """The cached, deterministic part of a training sample: each image key
+    read, RAS-oriented, resampled once to (``target_spacing``,
+    ``target_size``) and min-max scaled (ADC keys conditionally rescaled
+    instead), stacked channels-last; the label keys resampled with
+    nearest, combined by max and binarized by ``positive_labels`` (the
+    JAX trainer's label mode). 4D inputs, resize and the foreground
+    indices of random crops are not ported yet."""
+    label_keys = list(label_keys or [])
+
+    def read(path):
+        img = reorient_to_ras(read_nifti(path))
+        if img.data.ndim > 3:
+            raise NotImplementedError(
+                f"{path}: 4D NIfTI inputs are not ported yet"
+            )
+        return img
+
+    def load_fn(entry: Dict) -> Dict:
+        channels = []
+        for key in image_keys:
+            vol = resample_to_spec(read(entry[key]), target_spacing,
+                                   target_size)
+            if key in adc_keys:
+                if vol.max() > 1e3:
+                    vol = vol * ADC_FACTOR
+            else:
+                lo, hi = vol.min(), vol.max()
+                vol = (vol - lo) / max(hi - lo, 1e-6)
+            channels.append(vol[..., None])
+        sample = {
+            "image": np.concatenate(channels, axis=-1).astype(np.float32),
+            "identifier": entry.get("identifier", ""),
+        }
+        if label_keys:
+            lab = np.stack([
+                resample_to_spec(read(entry[key]), target_spacing,
+                                 target_size, interp_order=0)
+                for key in label_keys
+            ]).max(axis=0)
+            lab = np.isin(np.round(lab).astype(np.int32),
+                          np.asarray(positive_labels))
+            sample["label"] = lab.astype(np.float32)
+        return sample
+
+    return load_fn

@@ -1,0 +1,240 @@
+"""
+Device-side spatial augmentation: one affine warp as a gather.
+
+Counterpart of the gather path of ``adell_mri_tpu/transforms/spatial.py``
+(``sample_volume``, ``affine_coords``, ``warp_affine``, the matrix
+builders, ``random_flip``, ``random_flip_with_matrix``, ``compose_flips``).
+The JAX package's separable shear warp serves only its TPU; off the TPU it
+takes this gather path, and so does the port. All geometry composes into
+one homogeneous matrix mapping output voxel -> input voxel, applied by one
+trilinear (or nearest) gather.
+
+Volumes are channels-last ``[*S, C]``; matrices are (ndim+1)^2 in voxel
+units. Random draws come from an explicit ``torch.Generator`` on the
+volume's device.
+"""
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+
+def sample_volume(vol, coords, method: str = "linear", cval: float = 0.0):
+    """Samples ``vol`` [*S, C] at fractional voxel ``coords`` [ndim, *out_S],
+    trilinear (``"linear"``) or nearest (half to even, as ``jnp.round``).
+    Points outside [0, s-1] on any axis take ``cval``."""
+    ndim = coords.shape[0]
+    spatial = vol.shape[:ndim]
+    in_bounds = torch.ones(coords.shape[1:], dtype=torch.bool,
+                           device=coords.device)
+    for d in range(ndim):
+        in_bounds &= (coords[d] >= 0) & (coords[d] <= spatial[d] - 1)
+    if method == "nearest":
+        idx = [
+            torch.round(coords[d]).long().clamp(0, spatial[d] - 1)
+            for d in range(ndim)
+        ]
+        out = vol[tuple(idx)]
+    else:
+        lo_f = [torch.floor(coords[d]) for d in range(ndim)]
+        frac = [coords[d] - lo_f[d] for d in range(ndim)]
+        lo = [lo_f[d].long().clamp(0, spatial[d] - 1) for d in range(ndim)]
+        hi = [(lo[d] + 1).clamp(0, spatial[d] - 1) for d in range(ndim)]
+        out = 0.0
+        for corner in range(2**ndim):
+            idx, w = [], 1.0
+            for d in range(ndim):
+                if corner >> d & 1:
+                    idx.append(hi[d])
+                    w = w * frac[d]
+                else:
+                    idx.append(lo[d])
+                    w = w * (1.0 - frac[d])
+            out = out + vol[tuple(idx)] * w[..., None]
+    return torch.where(
+        in_bounds[..., None], out,
+        torch.as_tensor(cval, dtype=vol.dtype, device=vol.device),
+    )
+
+
+def affine_coords(matrix, out_shape: Sequence[int]):
+    """Homogeneous matrix -> input coordinates [ndim, *out_shape] of every
+    output voxel."""
+    ndim = len(out_shape)
+    n_vox = math.prod(int(s) for s in out_shape)
+    dev = matrix.device
+    grids = torch.meshgrid(
+        *[torch.arange(s, dtype=torch.float32, device=dev)
+          for s in out_shape],
+        indexing="ij",
+    )
+    flat = torch.stack(
+        [g.reshape(-1) for g in grids]
+        + [torch.ones((n_vox,), dtype=torch.float32, device=dev)]
+    )
+    mapped = matrix.float() @ flat
+    return mapped[:ndim].reshape((ndim,) + tuple(out_shape))
+
+
+def warp_affine(
+    vol,
+    matrix,
+    out_shape: Optional[Sequence[int]] = None,
+    method: str = "linear",
+    cval: float = 0.0,
+):
+    """Output voxel o samples the input at ``matrix @ o``. (The JAX
+    package's elastic ``displacement`` is not ported yet.)"""
+    out_shape = tuple(out_shape or vol.shape[:-1])
+    coords = affine_coords(matrix, out_shape)
+    return sample_volume(vol, coords, method=method, cval=cval)
+
+
+# -- matrix builders ----------------------------------------------------------
+
+
+def _homogeneous(ndim: int, linear, translation):
+    m = torch.eye(ndim + 1, dtype=torch.float32, device=linear.device)
+    m[:ndim, :ndim] = linear
+    m[:ndim, ndim] = translation
+    return m
+
+
+def center_matrix(shape: Sequence[int], sign: float = 1.0, device=None):
+    ndim = len(shape)
+    c = torch.tensor([(s - 1) / 2.0 for s in shape], device=device)
+    return _homogeneous(ndim, torch.eye(ndim, device=device), sign * c)
+
+
+def rotation_matrix(ndim: int, angles):
+    """angles: [1] for 2D, [3] for 3D (about each axis pair);
+    rot = Rx @ Ry @ Rz."""
+    dev = angles.device
+    c, s = torch.cos(angles), torch.sin(angles)
+    if ndim == 2:
+        rot = torch.stack([torch.stack([c[0], -s[0]]),
+                           torch.stack([s[0], c[0]])])
+    else:
+        one = torch.ones((), device=dev)
+        zero = torch.zeros((), device=dev)
+
+        def mat(rows):
+            return torch.stack([torch.stack(r) for r in rows])
+
+        rx = mat([[one, zero, zero], [zero, c[0], -s[0]],
+                  [zero, s[0], c[0]]])
+        ry = mat([[c[1], zero, s[1]], [zero, one, zero],
+                  [-s[1], zero, c[1]]])
+        rz = mat([[c[2], -s[2], zero], [s[2], c[2], zero],
+                  [zero, zero, one]])
+        rot = rx @ ry @ rz
+    return _homogeneous(ndim, rot, torch.zeros(ndim, device=dev))
+
+
+def scale_shear_matrix(ndim: int, scales, shears=None):
+    """Diagonal scales; shears fill the off-diagonals row-major (MONAI's
+    convention)."""
+    lin = torch.diag(scales)
+    if shears is not None:
+        k = 0
+        for i in range(ndim):
+            for j in range(ndim):
+                if i != j:
+                    lin[i, j] = shears[k]
+                    k += 1
+    return _homogeneous(ndim, lin, torch.zeros(ndim, device=scales.device))
+
+
+def _per_axis(v, n: int, device):
+    """Scalar or per-axis bounds (tensor, list or number) as a [n] tensor."""
+    v = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    return (v[:n] if v.numel() > 1 else v).expand(n)
+
+
+def _uniform(generator, bound, device):
+    """Uniform in [-bound, bound], elementwise."""
+    u = torch.rand(bound.shape, generator=generator, device=device)
+    return (2.0 * u - 1.0) * bound
+
+
+def random_affine_matrix(
+    generator,
+    shape: Sequence[int],
+    rotate_range=0.0,
+    scale_range=0.0,
+    shear_range=0.0,
+    translate_range=0.0,
+    device=None,
+):
+    """A centred random affine: rotation, scale and shear about the
+    volume centre, then a translation (a fraction of the shape)."""
+    ndim = len(shape)
+    n_angles = 1 if ndim == 2 else 3
+    angles = _uniform(generator, _per_axis(rotate_range, n_angles, device),
+                      device)
+    scales = 1.0 + _uniform(generator, _per_axis(scale_range, ndim, device),
+                            device)
+    shears = _uniform(
+        generator, _per_axis(shear_range, ndim * (ndim - 1), device), device
+    )
+    trans = _uniform(
+        generator, _per_axis(translate_range, ndim, device), device
+    ) * torch.tensor(shape, dtype=torch.float32, device=device)
+    m = (
+        center_matrix(shape, +1.0, device)
+        @ rotation_matrix(ndim, angles)
+        @ scale_shear_matrix(ndim, scales, shears)
+        @ center_matrix(shape, -1.0, device)
+    )
+    m[:ndim, ndim] += trans
+    return m
+
+
+# -- flips --------------------------------------------------------------------
+
+
+def _bernoulli(generator, prob: float, n: int, device):
+    return torch.rand((n,), generator=generator, device=device) < prob
+
+
+def random_flip(generator, vol, axes: Sequence[int], prob: float = 0.5):
+    """Flips each spatial axis in ``axes`` with probability ``prob``."""
+    gates = _bernoulli(generator, prob, len(axes), vol.device)
+    for i, ax in enumerate(axes):
+        vol = torch.where(gates[i], torch.flip(vol, dims=(ax,)), vol)
+    return vol
+
+
+def random_flip_with_matrix(
+    generator, vol, axes: Sequence[int], ndim: int, prob: float = 0.5
+):
+    """``random_flip`` that also returns the reflection matrix mapping
+    output voxel -> input voxel."""
+    gates = _bernoulli(generator, prob, len(axes), vol.device)
+    for i, ax in enumerate(axes):
+        vol = torch.where(gates[i], torch.flip(vol, dims=(ax,)), vol)
+    return vol, _flip_matrix(gates, vol.shape[:ndim], axes)
+
+
+def _flip_matrix(gates, shape: Sequence[int], axes: Sequence[int]):
+    """Reflection of each axis whose gate is set, about the volume centre
+    (i -> (s-1) - i)."""
+    ndim = len(shape)
+    dev = gates.device
+    diag = torch.ones(ndim, device=dev)
+    trans = torch.zeros(ndim, device=dev)
+    for i, d in enumerate(axes):
+        diag[d] = torch.where(gates[i], -1.0, 1.0)
+        trans[d] = torch.where(gates[i], float(shape[d] - 1), 0.0)
+    return _homogeneous(ndim, torch.diag(diag), trans)
+
+
+def compose_flips(
+    generator, matrix, shape: Sequence[int], axes: Sequence[int],
+    prob: float = 0.5,
+):
+    """Folds per-axis random reflections into a warp matrix, so the warp
+    realizes the flips and no separate pass over the volume is needed."""
+    gates = _bernoulli(generator, prob, len(axes), matrix.device)
+    return matrix @ _flip_matrix(gates, shape, axes)

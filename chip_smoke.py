@@ -19,7 +19,23 @@ failure:
    same U-Net on the plain conv path, and every conv shape of that batch is
    timed against its plain version and its bound;
 5. CLI: ``python -m adell_mri_torch segmentation predict --dev cuda
-   --precision bf16`` on a two-case synthetic NIfTI cohort.
+   --precision bf16`` on a two-case synthetic NIfTI cohort;
+6. intensity kernel vs plain: ``intensity_aug`` (K3, and K2 as its B=1
+   call) against ``intensity_aug_reference`` at [4,128,128,32,1], bf16
+   and f32: the noise-free chain exactly, the noise by its moments, the
+   sigma=0 sample of a Rician call not rectified; timed against its bound;
+7. conv backward vs plain: for every stride-1 conv shape of the flagship
+   forward at B=4, dx/dW/dbias of ``conv3d_igemm_train`` against autograd
+   through ``conv3d_igemm_reference``, f32 (TF32 off) and bf16; the dx
+   launches timed against their bound;
+8. training: the flagship U-Net (seed 0, bf16, augmentation on, B=4 at
+   128x128x32) takes one warm-up step and 5 timed steps with the launch
+   counts reset just before; every parameter gets a finite, non-zero
+   gradient; ten steps on one batch without augmentation lower the loss;
+   one f32 step matches the plain conv path;
+9. CLI: ``segmentation train --dev cuda --precision bf16`` on a 4-case
+   synthetic cohort at the flagship size (one epoch of 2 steps), then
+   ``segmentation predict --dev cuda`` on the checkpoint it wrote.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -41,7 +57,11 @@ WORK_DIR = ROOT / "build" / "chip_smoke"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 CONVS_PER_FORWARD = 31
+# dx launches per training step: every stride-1 conv but the stem's first,
+# whose input is the image
+CONVS_DX_PER_STEP = 30
 WINDOW_BATCHES = 7
+TIMED_STEPS = 5
 
 
 def log(*args):
@@ -49,18 +69,31 @@ def log(*args):
 
 
 def time_ms(fn, reps=5):
+    """Device ms of one call of ``fn``: the calls are queued behind a
+    spinning kernel, so the events time the card's work and not the host's
+    dispatch. The spin grows until the host has queued every call before
+    the card reaches the first event."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 1 << 21
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        if cycles >= 1 << 30:
+            raise RuntimeError("time_ms: the host did not get ahead of the "
+                               "card; fn waits on the card")
+        cycles <<= 2
 
 
 def conv_bound(b, spatial, cin, cout, dtype):
@@ -122,6 +155,24 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     if not row["ok"]:
         raise AssertionError(f"conv3d_igemm disagrees with plain: {row}")
     return row
+
+
+class plain_convs:
+    """Within the block the U-Net's stride-1 convs take the plain version
+    (autograd through ``F.conv3d``) instead of the kernel."""
+
+    def __enter__(self):
+        import adell_mri_torch.ops.conv as conv_mod
+        from adell_mri_torch.ops.kernels.conv import conv3d_igemm_reference
+
+        self.real = conv_mod.conv3d_igemm_train
+        conv_mod.conv3d_igemm_train = conv3d_igemm_reference
+
+    def __exit__(self, *exc):
+        import adell_mri_torch.ops.conv as conv_mod
+
+        conv_mod.conv3d_igemm_train = self.real
+        return False
 
 
 def phase_device():
@@ -231,7 +282,6 @@ def phase_window_batch(model_bf16, case):
     import torch
 
     import adell_mri_torch.ops.conv as conv_mod
-    from adell_mri_torch.ops.kernels.conv import conv3d_igemm_reference
     from adell_mri_torch.tools.flagship import make_model
 
     crops = _first_window_batch(case)
@@ -260,12 +310,8 @@ def phase_window_batch(model_bf16, case):
             got = model(crops.to(dtype)).float()
             for h in hooks:
                 h.remove()
-            real = conv_mod.conv3d_igemm
-            conv_mod.conv3d_igemm = conv3d_igemm_reference
-            try:
+            with plain_convs():
                 want = model(crops.to(dtype)).float()
-            finally:
-                conv_mod.conv3d_igemm = real
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         name = str(dtype).split(".")[1]
@@ -385,6 +431,494 @@ def phase_cli(model):
     return dict(seconds=secs)
 
 
+# -- training slice -----------------------------------------------------------
+
+# f32 operations per element of the intensity chain (sub, div, max, log,
+# mul, exp, mul, add, mul, add), and per noisy element on top of it:
+# Rician two Box-Muller normals (5 each) and the magnitude (7), Gaussian
+# one normal and a multiply-add
+INTENSITY_OPS = {"chain": 10, "rician": 17, "gaussian": 7}
+
+
+def intensity_bound(x, sigma, rician):
+    """Least time of one fused intensity pass over x: bytes (x read once,
+    the output written once, the [B, 6] f32 parameters and the seed) over
+    HBM bandwidth against its f32 operations (the noise counted only for
+    samples whose sigma is above 0) over the f32 rate."""
+    n = x[0].numel()
+    nbytes = 2 * x.numel() * x.element_size() + 24 * x.shape[0] + 8
+    noisy = int((sigma > 0).sum())
+    per = INTENSITY_OPS["rician" if rician else "gaussian"]
+    ops = x.numel() * INTENSITY_OPS["chain"] + noisy * n * per
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def _noise_moments(out, clean):
+    d = (out.float() - clean.float()).reshape(-1)
+    return float(d.mean()), float(d.std())
+
+
+def _check_noise(name, got, want, clean):
+    """The noise of the kernel (Philox) and of the plain version
+    (torch.randn) are different draws of one distribution: their means
+    must agree within 6 standard errors of a difference of two means, and
+    their standard deviations within 1 % (about 20 standard errors at 2M
+    elements, still far below a wrong sigma or a wrong normal)."""
+    mg, sg = _noise_moments(got, clean)
+    mw, sw = _noise_moments(want, clean)
+    n = got.numel()
+    tol_mean = 6 * (2.0 ** 0.5) * sw / n ** 0.5
+    tol_std = 0.01 * sw
+    ok = abs(mg - mw) <= tol_mean and abs(sg - sw) <= tol_std
+    log(f"  {name}: noise mean {mg:.3e} vs plain {mw:.3e} (tol "
+        f"{tol_mean:.1e}), std {sg:.5f} vs {sw:.5f} (tol {tol_std:.1e})")
+    if not ok:
+        raise AssertionError(f"{name}: noise moments disagree")
+    return dict(mean=mg, plain_mean=mw, tol_mean=tol_mean, std=sg,
+                plain_std=sw, tol_std=tol_std)
+
+
+def phase_intensity():
+    """K3 (and K2 as its B=1 call) against the plain version at the
+    flagship batch, bf16 and f32."""
+    import torch
+
+    from adell_mri_torch.ops.kernels import intensity as ki
+    from adell_mri_torch.tools.flagship import BATCH, WINDOW
+
+    log("[intensity vs plain] [4,128,128,32,1]")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    x32 = torch.rand((BATCH,) + WINDOW + (1,), generator=g, device=dev)
+    lo = x32.amin(dim=(1, 2, 3, 4))
+    hi = x32.amax(dim=(1, 2, 3, 4))
+    fixed = torch.tensor(
+        [[0.7, 1.0, 0.0], [1.0, 1.05, 0.05], [1.3, 0.95, -0.05],
+         [1.5, 1.0, 0.02]], device=dev,
+    )
+    seed = torch.tensor([1234], dtype=torch.int64, device=dev)
+    rows = {}
+
+    def par_for(sig):
+        return torch.stack([lo, hi, fixed[:, 0], fixed[:, 1], fixed[:, 2],
+                            sig], dim=1).contiguous()
+
+    zero = torch.zeros(BATCH, device=dev)
+    noisy = torch.full((BATCH,), 0.02, device=dev)
+    ki.fused_intensity_aug.launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x = x32.to(dtype)
+        par0 = par_for(zero)
+        clean = ki.intensity_aug_reference(seed, x, par0, False, False)
+        scale = max(float(clean.float().abs().max()), 1.0)
+        # f32: libm-level differences of log/exp only; bf16: both round
+        # one f32 result, one ulp of the output scale apart at most
+        tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * scale
+        errs = []
+        for noise, rician in ((False, False), (True, True), (True, False)):
+            got = ki.intensity_aug(seed, x, par0, rician=rician, noise=noise)
+            torch.cuda.synchronize()
+            errs.append(float((got.float() - clean.float()).abs().max()))
+        err = max(errs)
+        log(f"  K3 {name} sigma=0: max abs err {err:.3g} (tol {tol:.3g})")
+        if not err <= tol:
+            raise AssertionError(f"intensity_aug {name} sigma=0: {errs}")
+        par = par_for(noisy)
+        moments = {}
+        for rician in (True, False):
+            kind = "rician" if rician else "gaussian"
+            got = ki.intensity_aug(seed, x, par, rician=rician, noise=True)
+            want = ki.intensity_aug_reference(5, x, par, rician, True)
+            moments[kind] = _check_noise(f"K3 {name} {kind}", got, want,
+                                         clean)
+        # one sample without noise beside noisy ones, on data with
+        # negative voxels: the Rician magnitude must not rectify it
+        xn = (x32 - 0.5).to(dtype)
+        lon, hin = xn.float().amin(dim=(1, 2, 3, 4)), xn.float().amax(
+            dim=(1, 2, 3, 4))
+        parn = torch.stack([lon, hin, torch.ones_like(lon),
+                            torch.ones_like(lon), torch.zeros_like(lon),
+                            torch.tensor([0.0, 0.02, 0.02, 0.02],
+                                         device=dev)], dim=1).contiguous()
+        got = ki.intensity_aug(seed, xn, parn, rician=True, noise=True)
+        cleann = ki.intensity_aug_reference(seed, xn, parn, False, False)
+        torch.cuda.synchronize()
+        err0 = float((got[0].float() - cleann[0].float()).abs().max())
+        if not (err0 <= tol and float(got[0].min()) < 0.0
+                and float(got[1:].min()) >= 0.0):
+            raise AssertionError(
+                f"sigma=0 sample of a Rician call changed: err {err0}, "
+                f"min {float(got[0].min())}"
+            )
+        log(f"  K3 {name} sigma=0 sample beside noisy ones: err {err0:.3g},"
+            f" min {float(got[0].min()):.3f} (kept negative)")
+        # the main path's call: Rician, every sample noisy (the most work)
+        bound, bound_by = intensity_bound(x, noisy, True)
+        t = time_ms(lambda: ki.intensity_aug(seed, x, par, True, True), 20)
+        tp = time_ms(lambda: ki.intensity_aug_reference(5, x, par, True,
+                                                        True), 5)
+        log(f"  K3 {name}: kernel {t:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by})")
+        # K2: the scalar call on one volume
+        x1 = x[0]
+        p1 = dict(lo=float(lo[0]), hi=float(hi[0]), gamma=1.3, scale=0.95,
+                  shift=-0.05)
+        got1 = ki.fused_intensity_aug(7, x1, sigma=0.0, **p1)
+        par1 = torch.tensor([[p1["lo"], p1["hi"], p1["gamma"], p1["scale"],
+                              p1["shift"], 0.0]], device=dev)
+        clean1 = ki.intensity_aug_reference(7, x1[None], par1, False,
+                                            False)[0]
+        torch.cuda.synchronize()
+        err1 = float((got1.float() - clean1.float()).abs().max())
+        if not err1 <= tol:
+            raise AssertionError(f"fused_intensity_aug {name}: {err1}")
+        got1n = ki.fused_intensity_aug(7, x1, sigma=0.02, rician=True, **p1)
+        par1n = par1.clone()
+        par1n[0, 5] = 0.02
+        want1n = ki.intensity_aug_reference(9, x1[None], par1n, True,
+                                            True)[0]
+        m1 = _check_noise(f"K2 {name} rician", got1n, want1n, clean1)
+        b1, b1_by = intensity_bound(x1[None], par1n[:, 5], True)
+        # the kernel alone: the scalar call's packing of its parameters
+        # into device tensors is host work and copies, not the kernel
+        t1 = time_ms(lambda: ki.intensity_aug(seed, x1[None], par1n, True,
+                                              True), 20)
+        tp1 = time_ms(lambda: ki.intensity_aug_reference(
+            9, x1[None], par1n, True, True), 5)
+        log(f"  K2 {name} (B=1): err {err1:.3g} (tol {tol:.3g}), kernel "
+            f"{t1:.4f} ms, plain {tp1:.4f} ms, bound {b1:.4f} ms ({b1_by})")
+        rows[name] = dict(
+            k3=dict(max_abs_err=err, tol=tol, moments=moments,
+                    sigma0_sample_err=err0, ms=t, plain_ms=tp,
+                    bound_ms=bound, bound_by=bound_by),
+            k2=dict(max_abs_err=err1, tol=tol, moments=m1, ms=t1,
+                    plain_ms=tp1, bound_ms=b1, bound_by=b1_by),
+        )
+    rows["k2_launches"] = ki.fused_intensity_aug.launches
+    return rows
+
+
+def conv_dx_bound(b, spatial, cin, cout, dtype):
+    """Least time of the dx launch of a cin->cout conv: a cout->cin
+    stride-1 conv of the cotangent."""
+    return conv_bound(b, spatial, cout, cin, dtype)
+
+
+def phase_conv_backward(shapes):
+    """dx/dW/dbias of the Function against autograd through the plain
+    version at every stride-1 conv shape of the flagship forward (B=4),
+    and the dx launches timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from adell_mri_torch.ops.kernels.conv import (
+        conv3d_igemm_dx,
+        conv3d_igemm_reference,
+        conv3d_igemm_train,
+    )
+
+    log("[conv backward vs plain] flagship shapes, B=4")
+    rows = []
+    for i, ((xs, cout), count) in enumerate(sorted(shapes.items())):
+        b, spatial, cin = xs[0], xs[1:4], xs[4]
+        # the stem's first conv reads the image: no dx on the main path
+        dx_count = count - (1 if cin == 1 and cout == 1 else 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            g = torch.Generator(device="cuda").manual_seed(200 + i)
+            x = torch.randn(xs, generator=g, device="cuda").to(dtype)
+            w = torch.randn((3, 3, 3, cin, cout), generator=g, device="cuda")
+            w = (w / (27 * cin) ** 0.5).to(dtype)
+            bias = (0.1 * torch.randn(cout, generator=g,
+                                      device="cuda")).to(dtype)
+            gy = torch.randn((b, *spatial, cout), generator=g,
+                             device="cuda").to(dtype)
+            got, want = [], []
+            for fn, out in ((conv3d_igemm_train, got),
+                            (conv3d_igemm_reference, want)):
+                leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+                y = fn(*leaves)
+                out.extend(torch.autograd.grad(y, leaves, gy))
+            torch.cuda.synchronize()
+            errs, tols = [], []
+            # f32: summation order only, TF32 off (1e-3 of the scale);
+            # bf16: dx, dW and dbias each round one f32 sum on both sides,
+            # so one ulp, 2^-7 of the scale
+            rel = 1e-3 if dtype == torch.float32 else 2.0**-7
+            for part, gt, wt in zip(("dx", "dw", "db"), got, want):
+                scale = max(float(wt.float().abs().max()), 1e-30)
+                err = float((gt.float() - wt.float()).abs().max())
+                errs.append(err)
+                tols.append(rel * scale)
+            ok = all(e <= t for e, t in zip(errs, tols))
+            row = dict(shape=[b, *spatial, cin, cout], dtype=name,
+                       count=count, dx_count=dx_count,
+                       errs=dict(zip(("dx", "dw", "db"), errs)),
+                       tols=dict(zip(("dx", "dw", "db"), tols)), ok=ok)
+            if dtype == torch.bfloat16:
+                w_rot = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+                gc, wc = gy.permute(0, 4, 1, 2, 3), w_rot.permute(
+                    4, 3, 0, 1, 2)
+                bound, bound_by = conv_dx_bound(b, spatial, cin, cout, name)
+                row.update(
+                    ms=time_ms(lambda: conv3d_igemm_dx(gy, w)),
+                    plain_ms=time_ms(
+                        lambda: conv3d_igemm_reference(gy, w_rot)),
+                    library_ms=time_ms(
+                        lambda: F.conv3d(gc, wc, padding=1)),
+                    bound_ms=bound, bound_by=bound_by,
+                )
+            log(f"  {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name}: "
+                + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, e, t in
+                            zip(("dx", "dw", "db"), errs, tols))
+                + (f"; dx kernel {row['ms']:.3f} ms, plain "
+                   f"{row['plain_ms']:.3f}, F.conv3d {row['library_ms']:.3f},"
+                   f" bound {row['bound_ms']:.4f} ({row['bound_by']})"
+                   if "ms" in row else ""))
+            if not ok:
+                raise AssertionError(f"conv backward disagrees: {row}")
+            rows.append(row)
+    timed = [r for r in rows if "ms" in r]
+    totals = {
+        k: sum(r[k] * r["dx_count"] for r in timed)
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+    }
+    by_bytes = sum(r["bound_ms"] * r["dx_count"] for r in timed
+                   if r["bound_by"] == "bytes")
+    totals["bound_by"] = (
+        "bytes" if by_bytes > totals["bound_ms"] / 2 else "operations"
+    )
+    worst = max(timed, key=lambda r: r["errs"]["dx"] / r["tols"]["dx"])
+    totals.update(max_abs_err=worst["errs"]["dx"], tol=worst["tols"]["dx"])
+    log(f"  per training step ({CONVS_DX_PER_STEP} dx launches, bf16): kernel"
+        f" {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
+        f"F.conv3d {totals['library_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
+    return rows, totals
+
+
+def _grad_norm(grads):
+    import torch
+
+    return float(torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])))
+
+
+def phase_training():
+    """The flagship trainer on the card: the gradient repair check, the
+    counted and timed steps, a loss that falls, and f32 parity with the
+    plain conv path."""
+    import torch
+
+    from adell_mri_torch.ops.kernels import conv as kconv
+    from adell_mri_torch.ops.kernels import intensity as ki
+    from adell_mri_torch.tools.flagship import (
+        BATCH,
+        make_train_batch,
+        make_trainer,
+    )
+
+    batch = make_train_batch(0)
+    tr = make_trainer(0, "bf16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    names = list(tr.state.params)
+
+    # the repair: every parameter gets a finite, non-zero gradient
+    loss, _ = tr.loss_and_metrics(tr.state.params,
+                                  tr.transforms.augment(gen, batch))
+    grads = torch.autograd.grad(loss, [tr.state.params[k] for k in names])
+    bad = [k for k, gr in zip(names, grads)
+           if not bool(torch.isfinite(gr).all()) or float(gr.abs().max()) == 0]
+    log(f"[training] bf16 gradients: {len(names)} parameters, "
+        f"{len(names) - len(bad)} finite and non-zero")
+    if bad:
+        raise AssertionError(f"zero or non-finite gradients: {bad}")
+    del grads, loss
+
+    def step():
+        aug = tr.transforms.augment(gen, batch)
+        tr.state, metrics = tr.train_step(tr.state, aug)
+        return metrics
+
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    kconv.conv3d_igemm.launches = 0
+    kconv.conv3d_igemm_dx.launches = 0
+    ki.intensity_aug.launches = 0
+    secs, losses = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = dict(
+        conv3d_igemm=kconv.conv3d_igemm.launches,
+        conv3d_igemm_dx=kconv.conv3d_igemm_dx.launches,
+        intensity_aug=ki.intensity_aug.launches,
+    )
+    want = dict(conv3d_igemm=CONVS_PER_FORWARD * TIMED_STEPS,
+                conv3d_igemm_dx=CONVS_DX_PER_STEP * TIMED_STEPS,
+                intensity_aug=TIMED_STEPS)
+    per_step = {k: v / TIMED_STEPS for k, v in launches.items()}
+    med = sorted(secs)[len(secs) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[training] bf16, B={BATCH} at 128x128x32, augmentation on: warm-up "
+        f"{warm:.3f} s, then {', '.join(f'{s:.4f}' for s in secs)} s per "
+        f"step ({BATCH / med:.2f} volumes/s at the median); launches per "
+        f"step {per_step}; losses {losses}; peak memory {peak_gb:.1f} GB")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    del tr
+
+    # ten steps on one batch, no augmentation: the loss falls
+    tr = make_trainer(0, "bf16", learning_rate=1e-2)
+    before = float(tr.eval_step(tr.state.params, batch)["loss"])
+    for _ in range(10):
+        tr.state, _ = tr.train_step(tr.state, batch)
+    after = float(tr.eval_step(tr.state.params, batch)["loss"])
+    log(f"[training] ten steps on one batch (no augmentation, lr 1e-2): "
+        f"loss {before:.5f} -> {after:.5f}")
+    if not after < before:
+        raise AssertionError(f"loss did not fall: {before} -> {after}")
+    del tr
+
+    # one f32 step on the kernel against the plain conv path
+    tr = make_trainer(0, None)
+    params = [tr.state.params[k] for k in names]
+    counts = (kconv.conv3d_igemm.launches, kconv.conv3d_igemm_dx.launches)
+    loss_k, _ = tr.loss_and_metrics(tr.state.params, batch)
+    grads_k = torch.autograd.grad(loss_k, params)
+    f32_launches = (kconv.conv3d_igemm.launches - counts[0],
+                    kconv.conv3d_igemm_dx.launches - counts[1])
+    with plain_convs():
+        loss_p, _ = tr.loss_and_metrics(tr.state.params, batch)
+        grads_p = torch.autograd.grad(loss_p, params)
+    norm_k, norm_p = _grad_norm(grads_k), _grad_norm(grads_p)
+    # the largest gradient difference against the largest gradient, for
+    # the record: the two paths do differ (per parameter this would be
+    # noise, since a conv bias ahead of an instance norm has a zero
+    # gradient)
+    worst_rel = max(float((gk - gp).abs().max())
+                    for gk, gp in zip(grads_k, grads_p)) / max(
+        float(gp.abs().max()) for gp in grads_p)
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    log(f"[training] f32 step, kernel ({f32_launches[0]} forward and "
+        f"{f32_launches[1]} dx launches) vs plain conv path: loss "
+        f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_rel:.2e}, "
+        f"tol 1e-4), gradient norm {norm_k:.6g} vs {norm_p:.6g} (rel "
+        f"{norm_rel:.2e}, tol 1e-3); largest gradient difference "
+        f"{worst_rel:.2e} of the largest gradient")
+    if f32_launches != (CONVS_PER_FORWARD, CONVS_DX_PER_STEP):
+        raise AssertionError(f"f32 step launches {f32_launches}")
+    if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
+        raise AssertionError("f32 step disagrees with the plain conv path")
+    del tr
+    return dict(
+        warmup_s=warm, seconds_per_step=secs, volumes_per_s=BATCH / med,
+        launches=launches, launches_per_step=per_step, losses=losses,
+        peak_memory_gb=peak_gb, n_params=len(names),
+        fixed_batch_loss=[before, after],
+        f32_parity=dict(loss=loss_k, plain_loss=loss_p,
+                        loss_rel=loss_rel, grad_norm=norm_k,
+                        plain_grad_norm=norm_p, grad_norm_rel=norm_rel,
+                        worst_param_rel=worst_rel, launches=f32_launches),
+    )
+
+
+def phase_train_cli():
+    """A 4-case cohort at the flagship size through ``segmentation train
+    --dev cuda`` (one epoch of 2 steps at B=4), then ``segmentation
+    predict --dev cuda`` on the checkpoint it wrote."""
+    import numpy as np
+
+    from adell_mri_torch.data.nifti import read_nifti, write_nifti
+    from adell_mri_torch.tools.flagship import FLAGSHIP, WINDOW
+
+    work = WORK_DIR / "train_cli"
+    work.mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    affine = np.diag([-0.5, -0.5, 3.0, 1.0])
+    grid = np.stack(np.meshgrid(*[np.arange(s) for s in WINDOW],
+                                indexing="ij"), -1)
+    ds = {}
+    for i in range(4):
+        centre = np.asarray(WINDOW) * rng.uniform(0.35, 0.65, 3)
+        mask = (((grid - centre) / (np.asarray(WINDOW) / 5)) ** 2).sum(-1)
+        mask = (mask <= 1.0).astype(np.float32)
+        img = 100 + 80 * mask + 10 * rng.normal(size=WINDOW)
+        paths = {}
+        for key, data in (("image", img.astype(np.float32)), ("mask", mask)):
+            paths[key] = str(work / f"case_{i}_{key}.nii.gz")
+            write_nifti(paths[key], data, affine)
+        ds[f"case_{i}"] = paths
+    (work / "ds.json").write_text(json.dumps(ds))
+    # JSON is YAML
+    (work / "unet.json").write_text(json.dumps(
+        {**FLAGSHIP, "n_channels": 1, "loss_fn": {"dice": {}}}))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+
+    def run(args, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "adell_mri_torch", "segmentation", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=600, env=env,
+        )
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:])
+            log(proc.stderr[-6000:])
+            raise RuntimeError(f"{what} CLI exited {proc.returncode}")
+        return secs
+
+    ckpt = work / "ckpt"
+    train_s = run([
+        "train", "--dataset_json", str(work / "ds.json"),
+        "--image_keys", "image", "--mask_keys", "mask",
+        "--config_file", str(work / "unet.json"),
+        "--pad_size", *map(str, WINDOW), "--target_spacing", "0.5", "0.5",
+        "3.0", "--batch_size", "4", "--max_epochs", "1",
+        "--samples_per_epoch", "8", "--steps_per_epoch", "2",
+        "--n_folds", "1", "--augment", "intensity", "noise", "affine",
+        "flip", "--precision", "bf16", "--dev", "cuda", "--seed", "0",
+        "--checkpoint_dir", str(ckpt), "--metric_path",
+        str(work / "metrics.csv"),
+    ], "train")
+    fold = ckpt / "segmentation_fold0"
+    meta = json.loads((fold / "metadata.json").read_text())
+    if not (fold / "model.pt").is_file() or meta["n_classes"] != 2:
+        raise AssertionError(f"train wrote {sorted(os.listdir(fold))}")
+    pred = work / "pred"
+    predict_s = run([
+        "predict", "--dataset_json", str(work / "ds.json"),
+        "--checkpoint_dir", str(ckpt), "--output_path", str(pred),
+        "--dev", "cuda", "--precision", "bf16", "--sliding_window_size",
+        *map(str, WINDOW),
+    ], "predict")
+    for pid in ds:
+        img = read_nifti(str(pred / f"{pid}_prob.nii.gz"))
+        ok = (img.data.shape == WINDOW and np.isfinite(img.data).all()
+              and img.data.min() >= 0.0 and img.data.max() <= 1.0)
+        if not ok:
+            raise AssertionError(f"{pid}: shape {img.data.shape}, range "
+                                 f"[{img.data.min()}, {img.data.max()}]")
+    rows = (work / "metrics.csv").read_text().splitlines()
+    log(f"[cli] train --dev cuda --precision bf16: 1 epoch of 2 steps at "
+        f"B=4 in {train_s:.2f} s; predict on its checkpoint: 4 cases in "
+        f"{predict_s:.2f} s (process start, import and build included); "
+        f"{len(rows) - 1} metric rows")
+    return dict(train_s=train_s, predict_s=predict_s, metric_rows=rows)
+
+
 def main():
     try:
         import torch
@@ -411,33 +945,63 @@ def main():
     window_rows, shapes = phase_window_batch(model, serving.pop("case"))
     path_rows, totals = phase_path_shapes(shapes)
     cli = phase_cli(model)
+    intensity_rows = phase_intensity()
+    bwd_rows, dx_totals = phase_conv_backward(shapes)
+    training = phase_training()
+    train_cli = phase_train_cli()
 
-    kernel = {
-        "name": "conv3d_igemm",
-        "route": "cuda",
-        "source": "adell_mri_torch/csrc/conv3d_igemm.cu",
-        "replaces": "adell_mri_tpu/ops/pallas/conv.py:60",
-        "launches": serving["launches"],
-        "max_abs_err": totals["max_abs_err"],
-        "max_err": totals["max_abs_err"],
-        "tol": totals["tol"],
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": totals["bound_by"],
-        "library_ms": totals["library_ms"],
-        "per": "window batch of 4 at 128x128x32 (31 convs), bf16",
+    def entry(name, source, replaces, launches, row, per, library_ms):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "tol": row["tol"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": library_ms, "per": per,
+        }
+
+    launches = training["launches"]
+    k3, k2 = intensity_rows["float32"]["k3"], intensity_rows["float32"]["k2"]
+    kernels = [
+        entry("conv3d_igemm", "adell_mri_torch/csrc/conv3d_igemm.cu",
+              "adell_mri_tpu/ops/pallas/conv.py:60",
+              launches["conv3d_igemm"], totals,
+              "window batch of 4 at 128x128x32 (31 convs), bf16; launches "
+              "in the 5 timed training steps",
+              totals["library_ms"]),
+        entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
+              "adell_mri_tpu/ops/pallas/conv.py:60",
+              launches["conv3d_igemm_dx"], dx_totals,
+              "the 30 dx launches of one training step (B=4 at 128x128x32),"
+              " bf16; library: F.conv3d of the cotangent",
+              dx_totals["library_ms"]),
+        entry("intensity_aug_batch", "adell_mri_torch/csrc/intensity_aug.cu",
+              "adell_mri_tpu/ops/pallas/intensity.py:155",
+              launches["intensity_aug"], k3,
+              "one call at [4,128,128,32,1] f32, Rician, every sample "
+              "noisy; no single PyTorch call computes it", None),
+        entry("intensity_aug", "adell_mri_torch/csrc/intensity_aug.cu",
+              "adell_mri_tpu/ops/pallas/intensity.py:49",
+              intensity_rows["k2_launches"], k2,
+              "the B=1 call of the same kernel at [128,128,32,1] f32, "
+              "Rician; launches: the B=1 calls of phase 6 (the training "
+              "path runs the kernel at B=4 only); no single PyTorch call "
+              "computes it", None),
+    ]
+    kernels[0]["launches_by_path"] = {
+        "serving": serving["launches"], "training": launches["conv3d_igemm"],
     }
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, build_s=build_s,
         kernel_vs_plain=kernel_rows, serving=serving,
         window_batch=window_rows, main_path_convs=path_rows,
-        kernel=kernel, cli=cli,
-        total_s=time.perf_counter() - t_start,
+        cli=cli, intensity=intensity_rows, conv_backward=bwd_rows,
+        conv_dx_per_step=dx_totals, training=training, train_cli=train_cli,
+        kernels=kernels, total_s=time.perf_counter() - t_start,
     ), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -15,7 +15,12 @@ import pytest
 import torch
 
 import adell_mri_tpu.ops.pallas.conv as pconv_mod
-from adell_mri_tpu.ops.conv import TpuConv, TpuConvTranspose, conv3d_xla
+from adell_mri_tpu.ops.conv import (
+    TpuConv,
+    TpuConvTranspose,
+    conv3d_im2col_trainable,
+    conv3d_xla,
+)
 from adell_mri_torch.interop.from_flax import from_flax
 from adell_mri_torch.ops import conv as tconv
 from adell_mri_torch.ops.kernels import conv as kconv
@@ -89,6 +94,73 @@ def test_igemm_wrapper_takes_plain_path_on_cpu():
     assert (got16.float() - got).abs().max() < 0.1
 
 
+def _grads(fn, x, w, b, g):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    return torch.autograd.grad(fn(*leaves), leaves, torch.from_numpy(g))
+
+
+@pytest.mark.parametrize(
+    "x_shape,cout", [((2, 5, 6, 4, 3), 4), ((1, 4, 3, 5, 1), 6)]
+)
+def test_igemm_gradient_matches_autograd_and_jax(x_shape, cout):
+    """The Function's dx (the plain version on the flipped, channel-swapped
+    weight), dW (patch product) and dbias against autograd through
+    ``F.conv3d`` and against the JAX package's hand-written conv VJP."""
+    x, w, b = _inputs(7, x_shape, cout)
+    g = np.random.default_rng(8).normal(
+        size=x_shape[:4] + (cout,)).astype(np.float32)
+    got = _grads(kconv.conv3d_igemm_train, x, w, b, g)
+    want = _grads(kconv.conv3d_igemm_reference, x, w, b, g)
+    _, vjp = jax.vjp(
+        lambda xx, ww: conv3d_im2col_trainable(xx, ww, (1, 1, 1), "SAME"),
+        jnp.asarray(x), jnp.asarray(w),
+    )
+    jdx, jdw = vjp(jnp.asarray(g))
+    for name, t, r in zip(("dx", "dw", "db"), got, want):
+        scale = float(r.abs().max())
+        # f32 sums of the same products in different orders
+        assert float((t - r).abs().max()) <= 1e-5 * scale, name
+    for t, j in ((got[0], jdx), (got[1], jdw)):
+        scale = float(np.abs(np.asarray(j)).max())
+        assert float(np.abs(t.numpy() - np.asarray(j)).max()) <= (
+            1e-5 * scale)
+
+
+def test_igemm_gradient_skips_dx_of_a_leaf_input():
+    x, w, b = _inputs(9, (1, 4, 4, 4, 2), 3)
+    wt = torch.from_numpy(w).requires_grad_()
+    y = kconv.conv3d_igemm_train(torch.from_numpy(x), wt, torch.from_numpy(b))
+    (dw,) = torch.autograd.grad(y.sum(), [wt])
+    assert dw.shape == wt.shape
+    # without a gradient to take, no Function is recorded
+    with torch.no_grad():
+        y = kconv.conv3d_igemm_train(torch.from_numpy(x), wt)
+    assert y.grad_fn is None
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+def test_weight_grad_sums_bf16_in_f32(monkeypatch, reduced):
+    """dW's product runs with cuBLAS's bf16 reduced-precision reduction off
+    (f32 sums, rounded once) and gives the caller's setting back."""
+    matmul = torch.backends.cuda.matmul
+    seen = []
+    real = torch.matmul
+
+    def spy(*args):
+        seen.append(matmul.allow_bf16_reduced_precision_reduction)
+        return real(*args)
+
+    monkeypatch.setattr(matmul, "allow_bf16_reduced_precision_reduction",
+                        reduced)
+    monkeypatch.setattr(torch, "matmul", spy)
+    x, _, _ = _inputs(10, (1, 4, 4, 4, 2), 3)
+    g = torch.ones((1, 4, 4, 4, 3))
+    dw = kconv.conv3d_weight_grad(torch.from_numpy(x), g)
+    assert dw.shape == (3, 3, 3, 2, 3)
+    assert seen == [False]
+    assert matmul.allow_bf16_reduced_precision_reduction is reduced
+
+
 def test_igemm_wrapper_rejects_bad_inputs():
     x = torch.zeros(1, 4, 4, 4, 3)
     with pytest.raises(ValueError):
@@ -146,3 +218,25 @@ def test_transposed_conv_matches_tpu_conv_transpose(kernel):
         got = tm(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() < TOL
+
+
+@pytest.mark.parametrize(
+    "module,fan_in",
+    [
+        (lambda: tconv.Conv3d(16, 8, (3, 3, 3)), 16 * 27),
+        (lambda: tconv.ConvTranspose3d(32, 8, (2, 2, 2)), 32 * 8),
+        (lambda: tconv.Pointwise(64, 40), 64),
+    ],
+)
+def test_initialisers_match_flax_lecun_normal(module, fan_in):
+    """The port draws its kernels as the JAX package does: a normal
+    truncated at two standard deviations with variance 1/fan_in."""
+    torch.manual_seed(0)
+    w = module().weight.detach().numpy().ravel()
+    ref = np.asarray(jax.nn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), (fan_in, 4000))).ravel()
+    # sample std of a few thousand draws: within 5 % of each other
+    assert abs(w.std() - ref.std()) < 0.05 * ref.std()
+    bound = 2 * fan_in**-0.5 / 0.87962566103423978
+    assert np.abs(w).max() <= bound + 1e-6
+    assert np.abs(ref).max() <= bound + 1e-6

@@ -1,17 +1,20 @@
 """
-The port's CUDA kernel against its plain version, on the card.
+The port's CUDA kernels against their plain versions, on the card.
 
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. Run them
 on the card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_cuda.py`` (the shared conftest imports JAX, which the
 card's machine does not need). Tolerances as in ``chip_smoke.py``: one
-bf16 ulp of the output scale for bf16, 1e-4 of it for f32.
+bf16 ulp of the output scale for bf16 (both sides sum in f32 and round
+once), 1e-4 of it for f32; for the gradients one bf16 ulp and 1e-3 in f32
+with TF32 off.
 """
 
 import pytest
 import torch
 
 from adell_mri_torch.ops.kernels import conv as kconv
+from adell_mri_torch.ops.kernels import intensity as kint
 
 
 @pytest.fixture
@@ -21,9 +24,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     saved = torch.backends.cudnn.allow_tf32
+    saved_mm = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     yield torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = saved
+    torch.backends.cuda.matmul.allow_tf32 = saved_mm
 
 
 @pytest.mark.gpu
@@ -61,3 +67,77 @@ def test_conv3d_igemm_rejects_strided_input(cuda):
     x = torch.zeros((1, 4, 4, 4, 8), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
         kconv.conv3d_igemm(x, torch.zeros((3, 3, 3, 8, 8), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "shape", [(2, 5, 6, 7, 3, 5), (1, 8, 8, 4, 32, 1), (2, 6, 6, 6, 16, 40)]
+)
+def test_conv3d_igemm_gradient_matches_plain(cuda, shape, dtype):
+    """The repair: the kernel's Function gives dx (on the kernel), dW and
+    dbias equal to autograd through the plain version."""
+    b, d, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((b, d, h, w, cin), generator=g, device=cuda).to(dtype)
+    wt = (torch.randn((3, 3, 3, cin, cout), generator=g, device=cuda)
+          / (27 * cin) ** 0.5).to(dtype)
+    bias = torch.randn(cout, generator=g, device=cuda).to(dtype)
+    gy = torch.randn((b, d, h, w, cout), generator=g, device=cuda).to(dtype)
+    grads = []
+    for fn in (kconv.conv3d_igemm_train, kconv.conv3d_igemm_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, wt, bias)]
+        y = fn(*leaves)
+        before = kconv.conv3d_igemm_dx.launches
+        grads.append(torch.autograd.grad(y, leaves, gy))
+        if fn is kconv.conv3d_igemm_train:
+            assert y.grad_fn is not None
+            assert kconv.conv3d_igemm_dx.launches == before + 1
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert got.dtype == dtype and got.shape == want.shape
+        scale = max(float(want.float().abs().max()), 1e-30)
+        rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-3
+        assert float((got.float() - want.float()).abs().max()) <= rel * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_intensity_aug_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = (torch.rand((3, 16, 16, 8, 1), generator=g, device=cuda)
+         - 0.3).to(dtype)
+    xf = x.float()
+    par = torch.stack([
+        xf.amin(dim=(1, 2, 3, 4)), xf.amax(dim=(1, 2, 3, 4)),
+        torch.tensor([0.7, 1.0, 1.4], device=cuda),
+        torch.tensor([1.0, 1.1, 0.9], device=cuda),
+        torch.tensor([0.0, 0.05, -0.05], device=cuda),
+        torch.tensor([0.0, 0.05, 0.05], device=cuda),
+    ], dim=1).contiguous()
+    seed = torch.tensor([7], dtype=torch.int64, device=cuda)
+    before = kint.intensity_aug.launches
+    clean = kint.intensity_aug(seed, x, par, noise=False)
+    noisy = kint.intensity_aug(seed, x, par, rician=True)
+    assert kint.intensity_aug.launches == before + 2
+    want = kint.intensity_aug_reference(seed, x, par, False, False)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * max(
+        float(want.float().abs().max()), 1.0)
+    assert float((clean.float() - want.float()).abs().max()) <= tol
+    # sample 0 has sigma 0: untouched by the Rician magnitude
+    assert torch.equal(noisy[0], clean[0]) and float(noisy[0].min()) < 0
+    assert float(noisy[1:].min()) >= 0
+    resid = (noisy[1:].float() - clean[1:].float()).abs()
+    assert 0 < float(resid.mean()) < 0.2
+
+
+@pytest.mark.gpu
+def test_intensity_aug_rejects_bad_inputs(cuda):
+    seed = torch.tensor([1], dtype=torch.int64, device=cuda)
+    par = torch.zeros((1, 6), device=cuda)
+    with pytest.raises(ValueError):
+        kint.intensity_aug(seed, torch.zeros((1, 6), device=cuda), par)
+    with pytest.raises(ValueError):
+        kint.intensity_aug(seed, torch.zeros((1, 8), device=cuda),
+                           torch.zeros((2, 6), device=cuda))

@@ -52,6 +52,8 @@ def test_port_import_loads_no_jax():
         "import adell_mri_torch\n"
         "import adell_mri_torch.__main__\n"
         "import adell_mri_torch.entrypoints.segmentation.predict\n"
+        "import adell_mri_torch.entrypoints.segmentation.train\n"
+        "import adell_mri_torch.tools.profile_train\n"
         "import adell_mri_torch.interop.from_flax\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

@@ -1,0 +1,113 @@
+"""
+The port's training entry point on the CPU.
+
+``segmentation train --dev cpu`` takes one step on a 2-case 16x16x8
+synthetic cohort and writes a checkpoint whose metadata carries what the
+JAX package's trainer records; ``segmentation predict --dev cpu`` serves
+it. ``--dev`` defaults to cuda and raises where there is no GPU; flags
+that are not ported raise ``NotImplementedError``.
+"""
+
+import csv
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from adell_mri_torch.__main__ import main as cli_main
+from adell_mri_torch.data import nifti as tnifti
+from adell_mri_torch.entrypoints.segmentation import train as ttrain
+
+LPS = np.diag([-1.0, -1.0, 2.0, 1.0])
+CONFIG = {
+    "spatial_dimensions": 3, "conv_type": "regular",
+    "link_type": "residual", "upscale_type": "transpose",
+    "norm_type": "instance", "activation_fn": "swish", "depth": [4, 4, 8],
+    "kernel_sizes": [3, 3, 3], "strides": [2, 2, 2], "learning_rate": 0.01,
+    "loss_fn": {"dice": {}, "focal": {"gamma": 1.0}},
+}
+
+
+@pytest.fixture(scope="module")
+def cohort(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_cohort")
+    rng = np.random.default_rng(0)
+    ds = {}
+    for i in range(2):
+        img = rng.normal(size=(16, 16, 8)).astype(np.float32)
+        mask = np.zeros((16, 16, 8), np.float32)
+        mask[4:10, 5:12, 2:6] = 1.0
+        paths = {}
+        for key, data in (("T2", img), ("mask", mask)):
+            paths[key] = str(root / f"case_{i}_{key}.nii.gz")
+            tnifti.write_nifti(paths[key], data, LPS)
+        ds[f"case_{i}"] = paths
+    (root / "ds.json").write_text(json.dumps(ds))
+    (root / "unet.json").write_text(json.dumps(CONFIG))
+    return root
+
+
+def _train_args(root, ckpt, *extra):
+    return [
+        "--dataset_json", str(root / "ds.json"), "--image_keys", "T2",
+        "--mask_keys", "mask", "--config_file", str(root / "unet.json"),
+        "--pad_size", "16", "16", "8", "--target_spacing", "1", "1", "2",
+        "--batch_size", "1", "--max_epochs", "1", "--n_folds", "1",
+        "--augment", "intensity", "noise", "affine", "flip",
+        "--checkpoint_dir", str(ckpt), "--metric_path",
+        str(ckpt / "metrics.csv"), *extra,
+    ]
+
+
+def test_train_then_predict_on_cpu(cohort):
+    ckpt = cohort / "ckpt"
+    cli_main(["segmentation", "train", *_train_args(cohort, ckpt,
+                                                    "--dev", "cpu")])
+    fold = ckpt / "segmentation_fold0"
+    assert sorted(os.listdir(fold)) == ["best.json", "metadata.json",
+                                        "model.pt"]
+    meta = json.loads((fold / "metadata.json").read_text())
+    # the fields the JAX trainer writes, so that predict can rebuild
+    assert {"network_config", "transform_arguments", "train_pids",
+            "val_pids", "n_classes", "net_type", "monitor", "mode"} <= set(
+        meta)
+    assert meta["transform_arguments"]["target_size"] == [16, 16, 8]
+    assert len(meta["train_pids"]) == len(meta["val_pids"]) == 1
+    best = json.loads((fold / "best.json").read_text())
+    assert best["step"] == 1 and np.isfinite(best["value"])
+    with open(ckpt / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert {r["metric"] for r in rows} >= {"loss", "dice", "val_loss"}
+    state = torch.load(fold / "model.pt", weights_only=True)
+    assert all(bool(torch.isfinite(v).all()) for v in state.values())
+
+    out = cohort / "pred"
+    cli_main(["segmentation", "predict", "--dataset_json",
+              str(cohort / "ds.json"), "--checkpoint_dir", str(ckpt),
+              "--output_path", str(out), "--dev", "cpu"])
+    for i in range(2):
+        pred = tnifti.read_nifti(str(out / f"case_{i}_prob.nii.gz")).data
+        assert pred.shape == (16, 16, 8)
+        assert np.isfinite(pred).all()
+        assert pred.min() >= 0.0 and pred.max() <= 1.0
+
+
+def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        ttrain.main(_train_args(cohort, cohort / "ckpt_cuda"))
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--deep_supervision"], ["--swa"], ["--random_crop_size", "8", "8",
+                                         "4"],
+     ["--augment", "blur"], ["--optimizer", "lamb"],
+     ["--resize_size", "8", "8", "4"], ["--early_stopping", "3"]],
+)
+def test_train_unported_flags_raise(cohort, flags):
+    with pytest.raises(NotImplementedError):
+        ttrain.main(_train_args(cohort, cohort / "ckpt_x", "--dev", "cpu",
+                                *flags))
