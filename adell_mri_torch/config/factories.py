@@ -2,14 +2,18 @@
 Network factory: config dict + net-type string -> the port's module.
 
 Counterpart of ``get_segmentation_network`` in
-``adell_mri_tpu/config/factories.py``, for ``net_type="unet"``; the same
-config keys and defaults reach the port's ``UNet``, which raises for the
-options it does not serve yet.
+``adell_mri_tpu/config/factories.py``, for ``net_type`` "unet", "unetr"
+and "monai_unetr"; the same config keys, fallbacks and defaults reach the
+port's ``UNet`` and ``UNETR``, which raise for the options they do not
+serve yet. A flax module learns its input size at the first call; the
+port's UNETR needs it when it is built (``image_size``, and ``n_channels``
+from the config).
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 from adell_mri_torch.models.segmentation.unet import UNet
+from adell_mri_torch.models.segmentation.unetr import UNETR
 
 
 def _unet_kwargs(cfg: Dict[str, Any], n_classes: int) -> Dict[str, Any]:
@@ -42,12 +46,49 @@ def _unet_kwargs(cfg: Dict[str, Any], n_classes: int) -> Dict[str, Any]:
     )
 
 
+def _unetr_kwargs(cfg: Dict[str, Any], n_classes: int) -> Dict[str, Any]:
+    return dict(
+        in_channels=int(cfg.get("n_channels", 1)),
+        spatial_dimensions=cfg.get("spatial_dimensions", 3),
+        n_classes=n_classes,
+        patch_size=tuple(cfg.get("patch_size", (8, 8, 8))),
+        embed_dim=cfg.get(
+            "embed_dim", cfg.get("hidden_dim", cfg.get("embedding_size", 192))
+        ),
+        n_blocks=cfg.get("n_blocks", cfg.get("number_of_blocks", 8)),
+        n_heads=cfg.get("n_heads", cfg.get("number_of_attention_heads", 6)),
+        feature_size=cfg.get("feature_size", 16),
+        norm_type=cfg.get("norm_type", "instance"),
+        dropout_param=cfg.get("dropout_param", cfg.get("dropout_rate", 0.0)),
+        skip_conditioning=cfg.get("skip_conditioning"),
+        feature_conditioning=cfg.get("feature_conditioning"),
+        feature_conditioning_params=cfg.get("feature_conditioning_params"),
+        bottleneck_classification=cfg.get("bottleneck_classification", False),
+        deep_supervision=cfg.get("deep_supervision", False),
+    )
+
+
 def get_segmentation_network(
-    net_type: str, network_config: Dict[str, Any], n_classes: int = 2
+    net_type: str,
+    network_config: Dict[str, Any],
+    n_classes: int = 2,
+    image_size: Optional[Sequence[int]] = None,
 ):
-    if net_type != "unet":
-        raise NotImplementedError(
-            f"segmentation net_type {net_type!r} is not ported yet (the "
-            "port has 'unet')"
+    """``image_size``: the spatial size of the volumes the network will
+    see; UNETR is built for it, the U-Net ignores it."""
+    if net_type == "unet":
+        return UNet(**_unet_kwargs(dict(network_config), n_classes))
+    if net_type in ("unetr", "monai_unetr"):
+        if image_size is None:
+            raise ValueError(
+                f"net_type {net_type!r} needs image_size: its positional "
+                "embedding fixes the token count"
+            )
+        return UNETR(
+            image_size=tuple(image_size),
+            **_unetr_kwargs(dict(network_config), n_classes),
         )
-    return UNet(**_unet_kwargs(dict(network_config), n_classes))
+    raise NotImplementedError(
+        f"segmentation net_type {net_type!r} is not ported yet (the port "
+        "has 'unet', 'unetr' and 'monai_unetr')"
+    )

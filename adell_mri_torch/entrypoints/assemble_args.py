@@ -44,7 +44,10 @@ argument_factory: Dict[str, Dict[str, Any]] = {
         default="probability", help="probability (else a thresholded mask)"
     ),
     "segmentation_net_type": dict(
-        default="unet", choices=["unet"], help="Segmentation architecture"
+        default="unet",
+        choices=["unet", "unetpp", "brunet", "unetr", "swin", "monai_unetr",
+                 "monai_swin"],
+        help="Segmentation architecture",
     ),
     "precision": dict(type=str, default="32", help="Precision: 32|bf16"),
     # training

@@ -2,8 +2,10 @@
 ``python -m adell_mri_torch segmentation predict``.
 
 Counterpart of ``adell_mri_tpu/entrypoints/segmentation/predict.py`` for
-unconditioned 3D checkpoints: the transforms are rebuilt from the
-checkpoint's metadata, the volume runs through the sliding window, flip
+unconditioned 3D checkpoints: the network (``net_type``: U-Net or UNETR)
+and the transforms are rebuilt from the checkpoint's metadata, the volume
+runs through the sliding window (UNETR takes the whole volume as one
+window: its positional embedding fixes the size), flip
 TTA and checkpoint ensembling, the prediction is resampled back to the
 source geometry and written as NIfTI in the background. Conditioned and
 2D checkpoints, ``--mc_iterations`` and ``--extract_lesions`` are not
@@ -193,8 +195,10 @@ def main(arguments):
         managers = [mngr]
     models = []
     for m in managers:
+        # UNETR is built for the volume size it was trained at
         model = get_segmentation_network(
-            net_type, net_cfg, n_classes=n_classes
+            net_type, net_cfg, n_classes=n_classes,
+            image_size=t_args.get("target_size"),
         )
         model.load_state_dict(m.load_state_dict())
         models.append(model.to(device=device, dtype=dtype).eval())

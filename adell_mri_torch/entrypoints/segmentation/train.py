@@ -7,8 +7,10 @@ dataset JSON -> config -> folds -> per fold [transforms -> cached dataset
 a checkpoint directory per fold whose ``metadata.json`` lets
 ``segmentation predict`` rebuild the model and the transforms.
 
-Ported: the 3D U-Net (``--segmentation_net_type unet``), whole-volume
-training (crop size = volume size), the augmentation flags intensity,
+Ported: the 3D U-Net and UNETR (``--segmentation_net_type unet``,
+``unetr`` or ``monai_unetr``; UNETR is built for the ``--pad_size``
+volume), whole-volume training (crop size = volume size), dropout drawn
+from a generator seeded with ``--seed``, the augmentation flags intensity,
 noise, affine, shear and flip, sgd/adam/adamw under cosine annealing with
 warmup, bf16 or f32 compute. Every other flag is parsed and raises
 ``NotImplementedError`` when given a value other than its default.
@@ -28,6 +30,7 @@ from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
 from adell_mri_torch.data.samplers import RandomSampler
 from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.checkpoints import CheckpointManager
 from adell_mri_torch.train.logging_utils import MetricLogger
 from adell_mri_torch.train.loop import TrainLoop
@@ -51,6 +54,7 @@ from adell_mri_torch.transforms.pipeline import (
 
 logger = logging.getLogger(__name__)
 
+NET_TYPES = ("unet", "unetr", "monai_unetr")
 ARG_KEYS = [
     "dataset_json",
     "image_keys",
@@ -183,10 +187,10 @@ def main(arguments):
     parser.add_argument_by_key(ARG_KEYS + UNPORTED_KEYS)
     args = parser.parse_args(arguments)
     parser.reject_unported(args, UNPORTED_KEYS)
-    if args.segmentation_net_type != "unet":
+    if args.segmentation_net_type not in NET_TYPES:
         raise NotImplementedError(
             f"--segmentation_net_type {args.segmentation_net_type} is not "
-            "ported yet"
+            f"ported yet (the port has {', '.join(NET_TYPES)})"
         )
     device = use_device(args.dev)
     compute_dtype(args.precision)  # an unknown precision fails here
@@ -287,8 +291,13 @@ def main(arguments):
 
         torch.manual_seed(args.seed)
         model = get_segmentation_network(
-            args.segmentation_net_type, net_cfg, n_classes=args.n_classes
+            args.segmentation_net_type, net_cfg, n_classes=args.n_classes,
+            image_size=base_size,
         ).to(device)
+        seed_dropout(
+            model,
+            torch.Generator(device=device).manual_seed(args.seed + fold_idx),
+        )
 
         steps_per_epoch = max(len(train_loader), 1)
         if args.steps_per_epoch:

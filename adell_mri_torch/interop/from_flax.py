@@ -1,23 +1,29 @@
 """
-Moves a JAX UNet's parameters into the port.
+Moves a JAX UNet's or UNETR's parameters into the port.
 
-The port's module names keep the JAX tree paths (``enc_{i}``,
-``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``),
-so each flax leaf ``a/b/kernel`` becomes the port key ``a.b.weight`` and
-``a/b/bias`` becomes ``a.b.bias``. Only the layouts change:
+The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
+``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
+UNETR's ``LinearEmbedding_0``, ``TransformerBlockStack_0/block_{i}``,
+``proj_{i}_{u}``, ``bn_proj``, ``dec_{i}/ConvTranspose_0``), so each flax
+leaf ``a/b/kernel`` becomes the port key ``a.b.weight``, ``a/b/bias``
+becomes ``a.b.bias``, a LayerNorm's ``a/b/scale`` becomes ``a.b.weight``,
+and the token parameters (``pos_embedding``, ``class_token``,
+``registers``) keep their names. Only the layouts change:
 
 - a 3D conv kernel ``[kd,kh,kw,Cin,Cout]`` stays as it is (the port's
   ``Conv3d`` and its kernel read that layout);
 - a 1x1 conv kernel ``[1,1,1,Cin,Cout]`` or a Dense kernel ``[Cin,Cout]``
   becomes ``[Cout,Cin]`` (the port's ``Pointwise``);
-- a transposed conv kernel (module ``up_{i}``) is spatially FLIPPED, since
-  flax's ConvTranspose applies its kernel flipped
+- a transposed conv kernel (a module named ``up_{i}``, ``proj_{i}_{u}``
+  or ``ConvTranspose_{i}``) is spatially FLIPPED, since flax's
+  ConvTranspose applies its kernel flipped
   (``adell_mri_tpu/ops/conv.py:conv_transpose_block``), and becomes
   ``[Cin,kd,kh,kw,Cout]``.
 
 Instance norm has no parameters, so it has no keys on either side.
 """
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -33,8 +39,13 @@ def _flatten(tree: Mapping, prefix=()):
             yield path, np.asarray(value)
 
 
+# the modules that are transposed convs, by the name that owns the kernel
+_TRANSPOSED = re.compile(r"^(up_\d+|proj_\d+_\d+|ConvTranspose_\d+)$")
+_TOKEN_PARAMS = ("pos_embedding", "class_token", "registers")
+
+
 def _convert_kernel(path, k: np.ndarray) -> np.ndarray:
-    if path[0].startswith("up_"):
+    if len(path) >= 2 and _TRANSPOSED.match(path[-2]):
         k = np.flip(k, axis=tuple(range(k.ndim - 2)))
         return np.moveaxis(k, -2, 0)
     if k.ndim == 2:
@@ -54,6 +65,10 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             arr, key = _convert_kernel(path, leaf), "weight"
         elif name == "bias":
             arr, key = leaf, "bias"
+        elif name == "scale":
+            arr, key = leaf, "weight"
+        elif name in _TOKEN_PARAMS:
+            arr, key = leaf, name
         else:
             raise KeyError(f"no port counterpart for {'/'.join(path)}")
         state[".".join(path[:-1] + (key,))] = torch.from_numpy(

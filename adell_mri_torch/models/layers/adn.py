@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from adell_mri_torch.models.layers.activations import get_activation
+from adell_mri_torch.models.layers.dropout import Dropout
 
 
 class InstanceNorm(nn.Module):
@@ -45,8 +46,8 @@ class InstanceNorm(nn.Module):
 
 class ActDropNorm(nn.Module):
     """Norm, then dropout, then activation: the JAX package's default
-    "NDA" order, the one every call site uses. Dropout is ``nn.Dropout``,
-    active only in training mode."""
+    "NDA" order, the one every call site uses. Dropout is the port's
+    ``Dropout`` (explicit generator), active only in training mode."""
 
     def __init__(
         self,
@@ -66,7 +67,7 @@ class ActDropNorm(nn.Module):
                 f"dropout_type {dropout_type!r} is not ported yet"
             )
         self.norm = InstanceNorm()
-        self.dropout = nn.Dropout(dropout_param) if dropout_param > 0 else None
+        self.dropout = Dropout(dropout_param) if dropout_param > 0 else None
         self.act = get_activation(act_fn)
 
     def forward(self, x):

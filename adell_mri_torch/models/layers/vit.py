@@ -1,0 +1,380 @@
+"""
+Vision transformer layers.
+
+Counterpart of ``adell_mri_tpu/models/layers/vit.py``:
+``sinusoidal_positions``, ``MultiHeadAttention``, ``TransformerBlock``,
+``TransformerBlockStack``, ``LinearEmbedding`` and ``ViT``. Submodule and
+parameter names keep the JAX tree paths (``q``, ``k``, ``v``, ``proj``,
+``q_norm``, ``k_norm``, ``LayerNorm_{0,1}``, ``MultiHeadAttention_0``,
+``Dense_{i}``, ``block_{i}``, ``Conv_0``, ``embed_norm``,
+``pos_embedding``, ``class_token``, ``registers``), so
+``interop/from_flax.py`` maps a JAX checkpoint key for key. flax modules
+learn their input sizes at the first call; these take them as constructor
+arguments. Every LayerNorm has eps 1e-5. ``FactorizedViT``, ``SeqPool``,
+the SWIN classes and ``SliceLinearEmbedding`` are not ported yet.
+"""
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from adell_mri_torch.models.layers.blocks import _tuple
+from adell_mri_torch.models.layers.dropout import Dropout
+from adell_mri_torch.ops.conv import Conv3d, lecun_normal_
+from adell_mri_torch.ops.kernels.attention import flash_attention
+
+# token count from which unbiased, dropout-free attention goes to the
+# blockwise kernel instead of the materialised softmax: the JAX package's
+# dispatch, kept as it is (where the two cross over on the H100 has not
+# been measured)
+FLASH_MIN_TOKENS = 2048
+
+
+def sinusoidal_positions(n: int, dim: int) -> torch.Tensor:
+    pos = torch.arange(n, dtype=torch.float32)[:, None]
+    half = (dim + 1) // 2
+    div = torch.exp(
+        torch.arange(half, dtype=torch.float32) * (-math.log(10000.0) / half)
+    )
+    pe = torch.zeros((n, dim))
+    pe[:, 0::2] = torch.sin(pos * div)[:, : pe[:, 0::2].shape[1]]
+    pe[:, 1::2] = torch.cos(pos * div)[:, : pe[:, 1::2].shape[1]]
+    return pe
+
+
+def _dense(in_features: int, out_features: int) -> nn.Linear:
+    """flax's ``Dense``: lecun-normal kernel, zero bias."""
+    layer = nn.Linear(in_features, out_features)
+    lecun_normal_(layer.weight, in_features)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+def _token_param(*shape) -> nn.Parameter:
+    """flax's ``truncated_normal(0.02)``: cut at two standard deviations."""
+    return nn.Parameter(
+        nn.init.trunc_normal_(torch.empty(shape), std=0.02, a=-0.04, b=0.04)
+    )
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with an optional additive ``bias`` on the
+    scores. Unbiased attention without active dropout on ``[B, N, C]``
+    input with at least ``FLASH_MIN_TOKENS`` tokens goes through
+    ``flash_attention`` (the hand-written kernels on CUDA tensors);
+    everything else materialises the softmax in plain PyTorch, as the JAX
+    package computes it outside any kernel. ``qk_norm``: one
+    ``LayerNorm(head_dim)`` for q and one for k, shared across heads,
+    applied after the head split."""
+
+    def __init__(
+        self,
+        dim: int,
+        n_heads: int,
+        head_dim: Optional[int] = None,
+        dropout: float = 0.0,
+        use_flash: bool = True,
+        qk_norm: bool = True,
+        kv_dim: Optional[int] = None,
+    ):
+        super().__init__()
+        self.n_heads = n_heads
+        self.head_dim = head_dim or dim // n_heads
+        self.use_flash = use_flash
+        inner = self.head_dim * n_heads
+        kv_dim = dim if kv_dim is None else kv_dim
+        self.q = _dense(dim, inner)
+        self.k = _dense(kv_dim, inner)
+        self.v = _dense(kv_dim, inner)
+        self.q_norm = self.k_norm = None
+        if qk_norm:
+            self.q_norm = nn.LayerNorm(self.head_dim, eps=1e-5)
+            self.k_norm = nn.LayerNorm(self.head_dim, eps=1e-5)
+        self.dropout = Dropout(dropout) if dropout > 0 else None
+        self.proj = _dense(inner, dim)
+
+    def forward(self, q_in, kv_in=None, bias=None):
+        kv_in = q_in if kv_in is None else kv_in
+        hd = self.head_dim
+
+        def split(x):
+            return x.reshape(x.shape[:-1] + (self.n_heads, hd))
+
+        q = split(self.q(q_in))
+        k, v = split(self.k(kv_in)), split(self.v(kv_in))
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        dropping = self.dropout is not None and self.training
+        flash_ok = (
+            self.use_flash
+            and bias is None
+            and not dropping
+            and q_in.dim() == 3
+            and q_in.shape[1] >= FLASH_MIN_TOKENS
+        )
+        # [..., N, H, Dh] -> [..., H, N, Dh]
+        q, k, v = (t.transpose(-2, -3) for t in (q, k, v))
+        if flash_ok:
+            out = flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous()
+            )
+        else:
+            attn = torch.matmul(
+                q.float(), k.float().transpose(-1, -2)
+            ) / math.sqrt(hd)
+            if bias is not None:
+                attn = attn + bias
+            attn = torch.softmax(attn, dim=-1).to(v.dtype)
+            if dropping:
+                attn = self.dropout(attn)
+            out = torch.matmul(attn.float(), v.float())
+        out = out.to(q_in.dtype).transpose(-2, -3)
+        return self.proj(out.reshape(out.shape[:-2] + (hd * self.n_heads,)))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN attention + MLP block with the exact (erf) GELU.
+    ``mlp_structure`` gives the hidden widths and overrides ``mlp_ratio``;
+    ``attention_dim`` is the total attention width (token dim when
+    None)."""
+
+    def __init__(
+        self,
+        dim: int,
+        n_heads: int,
+        mlp_ratio: float = 4.0,
+        dropout: float = 0.0,
+        moe_experts: int = 0,
+        mlp_structure: Optional[Sequence[int]] = None,
+        qk_norm: bool = True,
+        attention_dim: Optional[int] = None,
+    ):
+        super().__init__()
+        if moe_experts > 0:
+            raise NotImplementedError(
+                "mixture-of-experts transformer blocks are not ported yet"
+            )
+        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
+        self.MultiHeadAttention_0 = MultiHeadAttention(
+            dim, n_heads,
+            head_dim=attention_dim // n_heads if attention_dim else None,
+            dropout=dropout, qk_norm=qk_norm,
+        )
+        self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-5)
+        widths = (
+            tuple(mlp_structure) if mlp_structure
+            else (int(dim * mlp_ratio),)
+        )
+        self.n_hidden = len(widths)
+        in_features = dim
+        for i, width in enumerate(widths):
+            self.add_module(f"Dense_{i}", _dense(in_features, width))
+            in_features = width
+        self.add_module(f"Dense_{self.n_hidden}", _dense(in_features, dim))
+        self.dropout = Dropout(dropout) if dropout > 0 else None
+
+    def forward(self, x, bias=None):
+        x = x + self.MultiHeadAttention_0(self.LayerNorm_0(x), bias=bias)
+        y = self.LayerNorm_1(x)
+        for i in range(self.n_hidden):
+            y = F.gelu(getattr(self, f"Dense_{i}")(y))
+            if self.dropout is not None:
+                y = self.dropout(y)
+        return x + getattr(self, f"Dense_{self.n_hidden}")(y)
+
+
+class TransformerBlockStack(nn.Module):
+    """``n_blocks`` blocks; with ``return_at`` also the outputs of those
+    blocks (the UNETR skips)."""
+
+    def __init__(
+        self,
+        dim: int,
+        n_blocks: int,
+        n_heads: int,
+        mlp_ratio: float = 4.0,
+        dropout: float = 0.0,
+        moe_experts: int = 0,
+        mlp_structure: Optional[Sequence[int]] = None,
+        qk_norm: bool = True,
+        attention_dim: Optional[int] = None,
+    ):
+        super().__init__()
+        self.n_blocks = n_blocks
+        for i in range(n_blocks):
+            self.add_module(f"block_{i}", TransformerBlock(
+                dim, n_heads, mlp_ratio, dropout, moe_experts=moe_experts,
+                mlp_structure=mlp_structure, qk_norm=qk_norm,
+                attention_dim=attention_dim,
+            ))
+
+    def forward(self, x, return_at: Optional[Sequence[int]] = None):
+        outs = []
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block_{i}")(x)
+            if return_at is not None and i in return_at:
+                outs.append(x)
+        if return_at is not None:
+            return x, outs
+        return x
+
+
+class LinearEmbedding(nn.Module):
+    """Patchify + embed + [class token] + [registers] + positional
+    embedding: ``[B, *S, C]`` -> tokens ``[B, N(+extra), E]``. The
+    positional embedding fixes the token count, so the module is built for
+    one ``spatial`` size and one ``in_channels``. ``embed_method``
+    "convolutional" (3D only: a kernel == stride VALID conv) or "linear"
+    (patches flattened as ``(*patch, C)``, any rank)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        spatial: Sequence[int],
+        patch_size: Sequence[int],
+        embed_dim: int = 256,
+        embed_method: str = "linear",
+        use_class_token: bool = False,
+        n_registers: int = 0,
+        learnable_embedding: bool = True,
+        dropout: float = 0.0,
+        channel_to_token: bool = False,
+        embed_norm: bool = False,
+    ):
+        super().__init__()
+        spatial = tuple(int(s) for s in spatial)
+        ndim = len(spatial)
+        if isinstance(patch_size, (list, tuple)):
+            p = tuple(int(v) for v in patch_size)[:ndim]
+            if len(p) < ndim:
+                p = p + (p[-1],) * (ndim - len(p))
+        else:
+            p = _tuple(patch_size, ndim)
+        self.patch = p
+        self.grid = tuple(s // pi for s, pi in zip(spatial, p))
+        self.embed_dim = embed_dim
+        self.channel_to_token = channel_to_token
+        self.embed_method = embed_method
+        self.embed_norm = None
+        if channel_to_token:
+            n_tok = in_channels
+            self.Dense_0 = _dense(math.prod(spatial), embed_dim)
+        elif embed_method == "convolutional":
+            if ndim != 3:
+                raise NotImplementedError(
+                    "the convolutional patch embedding is ported for 3D "
+                    "inputs"
+                )
+            n_tok = math.prod(self.grid)
+            self.Conv_0 = Conv3d(
+                in_channels, embed_dim, p, strides=p, padding="VALID"
+            )
+        elif embed_method == "linear":
+            n_tok = math.prod(self.grid)
+            features = math.prod(p) * in_channels
+            if embed_norm:
+                self.embed_norm = nn.LayerNorm(features, eps=1e-5)
+            self.Dense_0 = _dense(features, embed_dim)
+        else:
+            raise ValueError(f"unknown embed_method {embed_method!r}")
+        if learnable_embedding:
+            self.pos_embedding = _token_param(1, n_tok, embed_dim)
+        else:
+            self.register_buffer(
+                "sinusoidal", sinusoidal_positions(n_tok, embed_dim)[None],
+                persistent=False,
+            )
+        self.class_token = (
+            _token_param(1, 1, embed_dim) if use_class_token else None
+        )
+        self.registers = (
+            _token_param(1, n_registers, embed_dim) if n_registers > 0
+            else None
+        )
+        self.dropout = Dropout(dropout) if dropout > 0 else None
+
+    @staticmethod
+    def n_patches(spatial, patch_size):
+        return math.prod(s // p for s, p in zip(spatial, patch_size))
+
+    def forward(self, x):
+        b = x.shape[0]
+        if self.channel_to_token:
+            tokens = self.Dense_0(
+                x.reshape(b, -1, x.shape[-1]).transpose(1, 2)
+            )
+        elif self.embed_method == "convolutional":
+            tokens = self.Conv_0(x).reshape(b, -1, self.embed_dim)
+        else:
+            ndim = len(self.grid)
+            shape = [b]
+            for g, pi in zip(self.grid, self.patch):
+                shape += [g, pi]
+            y = x.reshape(shape + [x.shape[-1]])
+            # [B, g0, p0, g1, p1, (g2, p2), C] -> [B, g..., p..., C]
+            order = (
+                [0]
+                + [1 + 2 * d for d in range(ndim)]
+                + [2 + 2 * d for d in range(ndim)]
+                + [1 + 2 * ndim]
+            )
+            y = y.permute(order).reshape(b, math.prod(self.grid), -1)
+            if self.embed_norm is not None:
+                y = self.embed_norm(y)
+            tokens = self.Dense_0(y)
+        pos = (
+            self.pos_embedding if hasattr(self, "pos_embedding")
+            else self.sinusoidal
+        )
+        tokens = tokens + pos.to(tokens.dtype)
+        extra = [
+            t.to(tokens.dtype).expand(b, -1, -1)
+            for t in (self.class_token, self.registers) if t is not None
+        ]
+        if extra:
+            tokens = torch.cat(extra + [tokens], dim=1)
+        if self.dropout is not None:
+            tokens = self.dropout(tokens)
+        return tokens
+
+
+class ViT(nn.Module):
+    """Embedding + transformer stack."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        spatial: Sequence[int],
+        patch_size: Sequence[int],
+        embed_dim: int = 256,
+        n_blocks: int = 4,
+        n_heads: int = 4,
+        mlp_ratio: float = 4.0,
+        dropout: float = 0.0,
+        embed_method: str = "linear",
+        use_class_token: bool = False,
+        n_registers: int = 0,
+        moe_experts: int = 0,
+        learnable_embedding: bool = True,
+        embed_norm: bool = False,
+        mlp_structure: Optional[Sequence[int]] = None,
+    ):
+        super().__init__()
+        self.LinearEmbedding_0 = LinearEmbedding(
+            in_channels, spatial, patch_size, embed_dim=embed_dim,
+            embed_method=embed_method, use_class_token=use_class_token,
+            n_registers=n_registers, dropout=dropout,
+            learnable_embedding=learnable_embedding, embed_norm=embed_norm,
+        )
+        self.TransformerBlockStack_0 = TransformerBlockStack(
+            embed_dim, n_blocks, n_heads, mlp_ratio, dropout,
+            moe_experts=moe_experts, mlp_structure=mlp_structure,
+        )
+
+    def forward(self, x, return_at: Optional[Sequence[int]] = None):
+        return self.TransformerBlockStack_0(
+            self.LinearEmbedding_0(x), return_at=return_at
+        )

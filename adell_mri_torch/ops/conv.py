@@ -10,8 +10,10 @@ over. Here:
   ``conv3d_igemm`` at every shape, its input gradient too
   (``conv3d_igemm_train``; the plain version on CPU tensors);
 - any other conv (the strided downsample convs with their explicit
-  symmetric pads, other kernel sizes) is ``F.conv3d`` on a channels-last
-  view, as the JAX package computes them outside any Pallas kernel;
+  symmetric pads, the kernel == stride VALID patchify conv of the
+  transformer embedding, other kernel sizes) is ``F.conv3d`` on a
+  channels-last view, as the JAX package computes them outside any Pallas
+  kernel;
 - the kernel == stride transposed conv is one matmul plus a depth-to-space
   rearrange;
 - a 1x1 conv is a plain product over the channel axis (``Pointwise``).
@@ -55,14 +57,16 @@ def lecun_normal_(w, fan_in: int):
 
 
 def conv3d(x, w, bias=None, strides=(1, 1, 1), padding: Padding = "SAME"):
-    """x [B,D,H,W,Cin], w [kd,kh,kw,Cin,Cout]; ``padding`` is "SAME" or
-    per-axis (low, high) pairs."""
+    """x [B,D,H,W,Cin], w [kd,kh,kw,Cin,Cout]; ``padding`` is "SAME",
+    "VALID" (none) or per-axis (low, high) pairs."""
     k = tuple(w.shape[:3])
     strides = tuple(strides)
     if k == (3, 3, 3) and strides == (1, 1, 1) and padding == "SAME":
         return conv3d_igemm_train(x.contiguous(), w, bias)
     if padding == "SAME":
         pads = _same_pads(x.shape[1:4], k, strides)
+    elif padding == "VALID":
+        pads = [(0, 0)] * 3
     else:
         pads = [tuple(p) for p in padding]
     xc = x.permute(0, 4, 1, 2, 3)

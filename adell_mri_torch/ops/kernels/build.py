@@ -108,6 +108,21 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     ),
+    # q, k, v, out, m, l, BH, Nq, Nkv, D, scale, stream
+    "adell_flash_fwd": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    ),
+    # q, k, v, dout, lse, delta, dq, BH, Nq, Nkv, D, scale, stream
+    "adell_flash_bwd_dq": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    ),
+    # q, k, v, dout, lse, delta, dk, dv, BH, Nq, Nkv, D, scale, stream
+    "adell_flash_bwd_dkv": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    ),
 }
 
 

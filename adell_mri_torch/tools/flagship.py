@@ -1,26 +1,38 @@
 """
-The flagship serving case and training step, shared by ``chip_smoke.py``
-and the profilers.
+The serving cases and training steps at full width, shared by
+``chip_smoke.py`` and the profilers. ``name`` picks the model.
 
-Serving: the flagship U-Net (``bench.py``'s configuration) in bf16 with
-weights drawn from a seed, and a 256x256x64 single-channel case served
+``"unet"``, the flagship U-Net (``bench.py``'s configuration). Serving:
+bf16 with weights drawn from a seed, a 256x256x64 single-channel case
 through ``SegmentationInference`` with a 128x128x32 window at stride 0.5
-in micro-batches of 4: 27 tiles in 7 window batches.
+in micro-batches of 4: 27 tiles in 7 window batches. Training: f32 master
+weights from a seed, a batch of 4 volumes of 128x128x32 made on the card,
+the default ``dice`` loss.
 
-Training: the same U-Net with f32 master weights from a seed, a batch of
-4 volumes of 128x128x32 made on the card, the CLI's augmentation
-(``--augment intensity noise affine flip``: rotation-only affine, flips
-on all three axes), the default ``dice`` loss, Nesterov SGD (momentum
-0.99) under cosine annealing, bf16 or f32 compute.
+``"unetr"``, ``sample_configs/unetr.yaml`` as it stands (patch 16x16x8,
+embedding 512, 8 blocks, 8 heads, all of it) on 256x256x64 inputs: 2048
+tokens, the count from which attention goes to the flash kernels.
+Serving: bf16, the whole case as one window (the positional embedding
+fixes the token count). Training: 2 whole volumes, the yaml's dice + focal
+loss, and ``dropout_rate`` 0: with dropout on, attention in training mode
+leaves the kernels for the materialised softmax, as in the JAX package.
+
+Both train with the CLI's augmentation (``--augment intensity noise affine
+flip``: rotation-only affine, flips on all three axes), Nesterov SGD
+(momentum 0.99) under cosine annealing, bf16 or f32 compute.
 """
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable
 
 import torch
 
 from adell_mri_torch.config.factories import get_segmentation_network
-from adell_mri_torch.config.parsing import build_compound_loss
+from adell_mri_torch.config.parsing import (
+    build_compound_loss,
+    parse_config_unet,
+)
 from adell_mri_torch.inference import SegmentationInference
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
@@ -50,13 +62,44 @@ FLAGSHIP = dict(
 WINDOW = (128, 128, 32)
 CASE = (256, 256, 64)
 BATCH = 4
+UNETR_YAML = (
+    Path(__file__).resolve().parents[2] / "sample_configs" / "unetr.yaml"
+)
+UNETR_BATCH = 2
 
 
-def make_model(seed: int, dtype, device="cuda"):
-    """The flagship U-Net with weights drawn from ``seed``, in eval mode."""
+@dataclass(frozen=True)
+class ModelSpec:
+    net_type: str
+    network_config: dict
+    loss: dict
+    window: tuple  # serving window; also the size of a training volume
+    serve_batch: int
+    train_batch: int
+
+
+def model_spec(name: str) -> ModelSpec:
+    if name == "unet":
+        return ModelSpec("unet", FLAGSHIP, {"dice": {}}, WINDOW, BATCH, BATCH)
+    if name == "unetr":
+        config, _ = parse_config_unet(str(UNETR_YAML))
+        network = {**config["network"], "dropout_rate": 0.0}
+        return ModelSpec("unetr", network, config["training"]["loss_fn"],
+                         CASE, 1, UNETR_BATCH)
+    raise ValueError(f"unknown model {name!r}: 'unet' or 'unetr'")
+
+
+def _network(spec: ModelSpec):
+    return get_segmentation_network(
+        spec.net_type, spec.network_config, n_classes=2,
+        image_size=spec.window,
+    )
+
+
+def make_model(seed: int, dtype, device="cuda", name: str = "unet"):
+    """The model with weights drawn from ``seed``, in eval mode."""
     torch.manual_seed(seed)
-    model = get_segmentation_network("unet", FLAGSHIP, n_classes=2)
-    return model.to(device=device, dtype=dtype).eval()
+    return _network(model_spec(name)).to(device=device, dtype=dtype).eval()
 
 
 def make_case(seed: int, device="cuda"):
@@ -64,11 +107,13 @@ def make_case(seed: int, device="cuda"):
     return torch.rand(CASE + (1,), generator=g, device=device)
 
 
-def make_inference(model):
+def make_inference(model, name: str = "unet"):
+    spec = model_spec(name)
     dtype = next(model.parameters()).dtype
     return SegmentationInference(
         lambda m, x: m(x.to(dtype)).float(), [model],
-        sliding_window_size=WINDOW, stride=0.5, batch_size=BATCH,
+        sliding_window_size=spec.window, stride=0.5,
+        batch_size=spec.serve_batch,
     )
 
 
@@ -107,13 +152,14 @@ class Trainer:
 
 
 def make_trainer(seed: int, precision: str, device="cuda",
-                 learning_rate: float = 1e-3, t_max: int = 100):
-    """The flagship U-Net (f32 master weights from ``seed``) with its
-    train and eval steps, optimizer and augmentation."""
+                 learning_rate: float = 1e-3, t_max: int = 100,
+                 name: str = "unet"):
+    """The model (f32 master weights from ``seed``) with its train and
+    eval steps, optimizer and augmentation."""
+    spec = model_spec(name)
     torch.manual_seed(seed)
-    model = get_segmentation_network("unet", FLAGSHIP, n_classes=2)
-    model = model.to(device)
-    loss_fn = build_compound_loss({"dice": {}}, n_classes=2)
+    model = _network(spec).to(device)
+    loss_fn = build_compound_loss(spec.loss, n_classes=2)
     schedule = cosine_annealing_with_warmup(learning_rate, t_max=t_max)
     state = TrainState.create(
         model, lambda p: get_optimizer("sgd", schedule, params=p)

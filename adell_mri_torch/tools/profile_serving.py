@@ -1,15 +1,16 @@
 """
 Where the time of one served case goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_serving
+    python -m adell_mri_torch.tools.profile_serving [unet|unetr]
 
-Serves the flagship U-Net (bf16, weights from seed 0) over a 256x256x64
-case through ``SegmentationInference`` (window 128x128x32, stride 0.5,
-micro-batch 4), as ``chip_smoke.py`` does. After one warm-up case it times
-three cases with the host clock, then runs one more under
-``torch.profiler`` and prints the device time by kernel group, the
-device-busy share of a case's wall time, and the top kernels. The full
-table goes to ``chiprun_out/profile_serving.txt``.
+Serves the model (bf16, weights from seed 0) over a 256x256x64 case
+through ``SegmentationInference`` as ``chip_smoke.py`` does: the flagship
+U-Net with a 128x128x32 window at stride 0.5 in micro-batches of 4, or
+UNETR (``sample_configs/unetr.yaml``) with the whole case as one window.
+After one warm-up case it times three cases with the host clock, then runs
+one more under ``torch.profiler`` and prints the device time by kernel
+group, the device-busy share of a case's wall time, and the top kernels.
+The full table goes to ``chiprun_out/profile_serving_{model}.txt``.
 """
 
 import json
@@ -30,6 +31,7 @@ from adell_mri_torch.tools.flagship import (
 # kernel-name substrings -> group, first match wins (cuDNN's implicit-GEMM
 # conv kernels carry "fprop" or "conv" and also "gemm", so they come first)
 GROUPS = (
+    ("flash_fwd", "flash_attention_fwd (K4/K5)"),
     ("conv3d_igemm", "conv3d_igemm (stride-1 3x3x3 convs)"),
     ("CatArrayBatchedCopy", "concatenation"),
     ("reduce_kernel", "reductions (instance-norm statistics)"),
@@ -37,6 +39,7 @@ GROUPS = (
     ("conv", "cuDNN convs (stride-2 downsampling)"),
     ("gemm", "matmuls (transposed convs, 1x1)"),
     ("nvjet", "matmuls (transposed convs, 1x1)"),
+    ("layer_norm", "layer norms"),
     ("elementwise", "elementwise (norm apply, swish, casts, overlap-add)"),
 )
 
@@ -45,11 +48,12 @@ def _self_device_us(evt):
     return float(evt.self_device_time_total)
 
 
-def main(out_path="chiprun_out/profile_serving.txt"):
+def main(name="unet", out_path=None):
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1
-    infer = make_inference(make_model(0, torch.bfloat16))
+    out_path = out_path or f"chiprun_out/profile_serving_{name}.txt"
+    infer = make_inference(make_model(0, torch.bfloat16, name=name), name)
     case = make_case(1)
     with torch.inference_mode():
         infer(case)
@@ -86,6 +90,7 @@ def main(out_path="chiprun_out/profile_serving.txt"):
     device_s = total_us / 1e6
     summary = {
         "device": torch.cuda.get_device_name(0),
+        "model": name,
         "wall_s_per_case": wall,
         "device_busy_s_per_case": device_s,
         "device_busy_share": device_s / min(wall),
@@ -105,4 +110,4 @@ def main(out_path="chiprun_out/profile_serving.txt"):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:2]))

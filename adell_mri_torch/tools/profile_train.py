@@ -1,15 +1,18 @@
 """
 Where the time of one training step goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_train
+    python -m adell_mri_torch.tools.profile_train [unet|unetr]
 
-Trains the flagship U-Net (f32 master weights from seed 0, bf16 compute,
-the CLI's augmentation, dice loss, Nesterov SGD) on a batch of 4 volumes
-of 128x128x32 made on the card, as ``chip_smoke.py`` phase 8 does. After
-one warm-up step it times three steps with the host clock, then runs one
-more under ``torch.profiler`` and prints the device time by kernel group,
-the device-busy share of a step's wall time, the peak device memory and
-the top kernels. The full table goes to ``chiprun_out/profile_train.txt``.
+Trains the model (f32 master weights from seed 0, bf16 compute, the CLI's
+augmentation, Nesterov SGD) on a batch made on the card, as
+``chip_smoke.py`` does: the flagship U-Net on 4 volumes of 128x128x32 with
+the dice loss, or UNETR (``sample_configs/unetr.yaml``, dropout 0) on 2
+volumes of 256x256x64 with the yaml's dice + focal loss. After one warm-up
+step it times three steps with the host clock, then runs one more under
+``torch.profiler`` and prints the device time by kernel group, the
+device-busy share of a step's wall time, the peak device memory and the
+top kernels. The full table goes to
+``chiprun_out/profile_train_{model}.txt``.
 """
 
 import json
@@ -21,11 +24,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from adell_mri_torch.tools.flagship import make_train_batch, make_trainer
+from adell_mri_torch.tools.flagship import (
+    make_train_batch,
+    make_trainer,
+    model_spec,
+)
 
 # kernel-name substrings -> group, first match wins (cuDNN's conv kernels
 # also carry "gemm", so they come before the matmuls)
 GROUPS = (
+    ("flash_fwd", "flash_attention_fwd (K4/K5)"),
+    ("flash_bwd_dq", "flash_attention_bwd_dq (K6)"),
+    ("flash_bwd_dkv", "flash_attention_bwd_dkv (K7)"),
     ("conv3d_igemm", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
     ("intensity_aug", "intensity_aug (K3: fused intensity augmentation)"),
     ("fft", "FFT (Gibbs ringing)"),
@@ -38,6 +48,7 @@ GROUPS = (
     ("CatArrayBatchedCopy", "concatenation"),
     ("reduce_kernel", "reductions (norm statistics, sums)"),
     ("index", "gathers (warp)"),
+    ("layer_norm", "layer norms"),
     ("elementwise", "elementwise (norms, swish, casts, patch copies)"),
 )
 
@@ -46,12 +57,14 @@ def _self_device_us(evt):
     return float(evt.self_device_time_total)
 
 
-def main(out_path="chiprun_out/profile_train.txt", precision="bf16"):
+def main(name="unet", out_path=None, precision="bf16"):
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
-    batch = make_train_batch(0)
-    tr = make_trainer(0, precision)
+    out_path = out_path or f"chiprun_out/profile_train_{name}.txt"
+    spec = model_spec(name)
+    batch = make_train_batch(0, batch=spec.train_batch, shape=spec.window)
+    tr = make_trainer(0, precision, name=name)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def step():
@@ -96,6 +109,7 @@ def main(out_path="chiprun_out/profile_train.txt", precision="bf16"):
     device_s = total_us / 1e6
     summary = {
         "device": torch.cuda.get_device_name(0),
+        "model": name,
         "precision": precision,
         "wall_s_per_step": wall,
         "profiled_step_wall_s": profiled_wall,
@@ -118,4 +132,4 @@ def main(out_path="chiprun_out/profile_train.txt", precision="bf16"):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:2]))

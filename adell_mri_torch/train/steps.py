@@ -6,7 +6,10 @@ Counterpart of ``make_segmentation_step``, ``make_train_step`` and
 options: no deep supervision, no bottleneck classification, no
 conditioning. A step runs the model as a function of its parameters
 (``torch.func.functional_call``) under the mixed-precision policy, so the
-f32 master parameters receive the gradients.
+f32 master parameters receive the gradients. ``train`` puts the model in
+training or eval mode for the call (dropout; a model's ``Dropout`` layers
+draw from the generator ``models/layers/dropout.py:seed_dropout`` gave
+them).
 """
 
 from typing import Callable, Dict, Optional

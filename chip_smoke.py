@@ -35,7 +35,28 @@ failure:
    one f32 step matches the plain conv path;
 9. CLI: ``segmentation train --dev cuda --precision bf16`` on a 4-case
    synthetic cohort at the flagship size (one epoch of 2 steps), then
-   ``segmentation predict --dev cuda`` on the checkpoint it wrote.
+   ``segmentation predict --dev cuda`` on the checkpoint it wrote;
+10. attention kernels vs plain: ``flash_attention_fwd`` (out, m, l),
+    ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` against their
+    plain versions at q, k, v [1,8,2048,64] and [2,8,2048,64] (UNETR's
+    serving and training shapes), a ragged shape (Nq 2050, Nkv 2311) and
+    head dim 32, bf16 and f32; timed beside their bounds, the plain
+    versions and ``F.scaled_dot_product_attention`` (a yardstick the port
+    never calls);
+11. UNETR serving: ``sample_configs/unetr.yaml`` at full width in bf16
+    from seeded weights serves one 256x256x64 case as one window through
+    ``SegmentationInference``: 8 forward-attention launches and 9 conv
+    launches per case; the same case through the kernels' plain versions
+    agrees;
+12. UNETR training: B=2 whole volumes, bf16, augmentation on, dropout 0:
+    a warm-up step and timed steps with 8 forward, 8 dQ and 8 dK/dV
+    launches each; every parameter gets a finite, non-zero gradient; an
+    f32 step (B=1) matches the plain versions in loss and gradient norm;
+    ten steps on one batch lower the loss;
+13. CLI: ``segmentation train --segmentation_net_type unetr --dev cuda
+    --precision bf16`` with a dropout-0 copy of the yaml on a 4-case
+    cohort at 256x256x64 (one epoch of 2 steps at B=2), then ``segmentation
+    predict`` on what it wrote.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -62,6 +83,16 @@ CONVS_PER_FORWARD = 31
 CONVS_DX_PER_STEP = 30
 WINDOW_BATCHES = 7
 TIMED_STEPS = 5
+# UNETR (sample_configs/unetr.yaml on 256x256x64): 8 blocks of 8 heads of
+# dim 64 over 2048 tokens; 9 stride-1 3x3x3 convs per forward, all but the
+# one that reads the image with a dx launch in training
+UNETR_BLOCKS = 8
+UNETR_HEADS = 8
+UNETR_TOKENS = 2048
+UNETR_HEAD_DIM = 64
+UNETR_CONVS = 9
+UNETR_CONVS_DX = 8
+UNETR_TIMED_STEPS = 3
 
 
 def log(*args):
@@ -157,21 +188,34 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     return row
 
 
-class plain_convs:
-    """Within the block the U-Net's stride-1 convs take the plain version
-    (autograd through ``F.conv3d``) instead of the kernel."""
+class plain_kernels:
+    """Within the block the models' stride-1 convs take the plain version
+    (autograd through ``F.conv3d``) and their flash attention the plain
+    forward (autograd through the materialised softmax) instead of the
+    kernels."""
 
     def __enter__(self):
+        import adell_mri_torch.models.layers.vit as vit_mod
         import adell_mri_torch.ops.conv as conv_mod
+        from adell_mri_torch.ops.kernels.attention import (
+            flash_attention_fwd_reference,
+        )
         from adell_mri_torch.ops.kernels.conv import conv3d_igemm_reference
 
-        self.real = conv_mod.conv3d_igemm_train
+        def plain_attention(q, k, v, scale=None):
+            if scale is None:
+                scale = q.shape[-1] ** -0.5
+            return flash_attention_fwd_reference(q, k, v, scale)[0]
+
+        self.real = (conv_mod.conv3d_igemm_train, vit_mod.flash_attention)
         conv_mod.conv3d_igemm_train = conv3d_igemm_reference
+        vit_mod.flash_attention = plain_attention
 
     def __exit__(self, *exc):
+        import adell_mri_torch.models.layers.vit as vit_mod
         import adell_mri_torch.ops.conv as conv_mod
 
-        conv_mod.conv3d_igemm_train = self.real
+        conv_mod.conv3d_igemm_train, vit_mod.flash_attention = self.real
         return False
 
 
@@ -310,7 +354,7 @@ def phase_window_batch(model_bf16, case):
             got = model(crops.to(dtype)).float()
             for h in hooks:
                 h.remove()
-            with plain_convs():
+            with plain_kernels():
                 want = model(crops.to(dtype)).float()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -798,7 +842,7 @@ def phase_training():
     grads_k = torch.autograd.grad(loss_k, params)
     f32_launches = (kconv.conv3d_igemm.launches - counts[0],
                     kconv.conv3d_igemm_dx.launches - counts[1])
-    with plain_convs():
+    with plain_kernels():
         loss_p, _ = tr.loss_and_metrics(tr.state.params, batch)
         grads_p = torch.autograd.grad(loss_p, params)
     norm_k, norm_p = _grad_norm(grads_k), _grad_norm(grads_p)
@@ -919,6 +963,459 @@ def phase_train_cli():
     return dict(train_s=train_s, predict_s=predict_s, metric_rows=rows)
 
 
+# -- transformer slice --------------------------------------------------------
+
+# products per kernel: forward q k^T and p v; dQ adds dO v^T and ds k to
+# q k^T; dK/dV q k^T, dO v^T, p^T dO and ds^T q
+ATTENTION_PRODUCTS = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}
+
+
+def attention_bound(kind, b, h, nq, nkv, d, dtype):
+    """Least time of one attention kernel: its bytes (every input read
+    once, every output written once; the row statistics are f32) over HBM
+    bandwidth against 2 * Nq * Nkv * D FLOPs per product over the peak
+    rate of the dtype."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    q_t, kv_t, rows = b * h * nq * d, b * h * nkv * d, b * h * nq * 4
+    nbytes = {
+        "fwd": itemsize * (2 * q_t + 2 * kv_t) + 2 * rows,
+        "bwd_dq": itemsize * (3 * q_t + 2 * kv_t) + 2 * rows,
+        "bwd_dkv": itemsize * (2 * q_t + 4 * kv_t) + 2 * rows,
+    }[kind]
+    flops = ATTENTION_PRODUCTS[kind] * 2 * b * h * nq * nkv * d
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    bound_by = "bytes" if t_bytes > t_flops else "operations"
+    return max(t_bytes, t_flops), bound_by
+
+
+def compare_attention(shape, dtype, seed, timed):
+    """The three kernels against their plain versions on the card at one
+    shape (B, H, Nq, Nkv, D); with ``timed`` also their device times, the
+    plain versions' and ``F.scaled_dot_product_attention``'s."""
+    import torch
+    import torch.nn.functional as F
+
+    from adell_mri_torch.ops.kernels import attention as ka
+
+    b, h, nq, nkv, d = shape
+    name = str(dtype).split(".")[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(n):
+        return torch.randn((b, h, n, d), generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v, g = draw(nq), draw(nkv), draw(nkv), draw(nq)
+    scale = d ** -0.5
+    out, m, l = ka.flash_attention_fwd(q, k, v)
+    w_out, w_m, w_l = ka.flash_attention_fwd_reference(q, k, v, scale)
+    # both backward sides take the plain forward's rows
+    lse, delta = ka.backward_rows(w_out, w_m, w_l, g)
+    dq = ka.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale)
+    dk, dv = ka.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
+    w_dq = ka.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta, scale)
+    w_dk, w_dv = ka.flash_attention_bwd_dkv_reference(
+        q, k, v, g, lse, delta, scale)
+    torch.cuda.synchronize()
+
+    def err_of(got, want):
+        return float((got.float() - want.float()).abs().max())
+
+    def scale_of(want, floor):
+        return max(float(want.float().abs().max()), floor)
+
+    # f32: summation order only (2e-5 of the scale forward, 1e-4 backward,
+    # whose sums run over both sequences). bf16: kernel and plain version
+    # both round p and ds to bf16 once before the second product (the
+    # kernel against its running maximum, the plain version against the
+    # final one) and the result once: one bf16 ulp, 2^-7 of the scale.
+    # m is a maximum of f32 sums of exact products, l a sum of exp: 1e-4.
+    bf16 = dtype == torch.bfloat16
+    rel_f, rel_b = (2.0**-7, 2.0**-7) if bf16 else (2e-5, 1e-4)
+    checks = {
+        "out": (err_of(out, w_out), rel_f * scale_of(w_out, 1.0)),
+        "m": (err_of(m, w_m), 1e-4 * scale_of(w_m, 1.0)),
+        "l": (float(((l - w_l) / w_l).abs().max()), 1e-4),
+        "dq": (err_of(dq, w_dq), rel_b * scale_of(w_dq, 1e-30)),
+        "dk": (err_of(dk, w_dk), rel_b * scale_of(w_dk, 1e-30)),
+        "dv": (err_of(dv, w_dv), rel_b * scale_of(w_dv, 1e-30)),
+    }
+    ok = all(e <= t for e, t in checks.values())
+    row = dict(shape=list(shape), dtype=name, ok=ok,
+               errs={n: e for n, (e, _) in checks.items()},
+               tols={n: t for n, (_, t) in checks.items()})
+    log(f"  attention B={b} H={h} Nq={nq} Nkv={nkv} D={d} {name}: "
+        + ", ".join(f"{n} {e:.3g} (tol {t:.3g})"
+                    for n, (e, t) in checks.items()))
+    if not ok:
+        raise AssertionError(f"attention kernels disagree with plain: {row}")
+    if not timed:
+        return row
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        y = F.scaled_dot_product_attention(*leaves)
+        torch.autograd.grad(y, leaves, g)
+
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    lib_both = time_ms(sdpa_fwd_bwd)
+    args = (q, k, v, g, lse, delta, scale)
+    times = {
+        "fwd": dict(
+            ms=time_ms(lambda: ka.flash_attention_fwd(q, k, v)),
+            plain_ms=time_ms(
+                lambda: ka.flash_attention_fwd_reference(q, k, v, scale)),
+            library_ms=lib_fwd,
+            max_abs_err=checks["out"][0], tol=checks["out"][1]),
+        "bwd_dq": dict(
+            ms=time_ms(lambda: ka.flash_attention_bwd_dq(*args)),
+            plain_ms=time_ms(
+                lambda: ka.flash_attention_bwd_dq_reference(*args)),
+            library_ms=lib_both,
+            max_abs_err=checks["dq"][0], tol=checks["dq"][1]),
+        "bwd_dkv": dict(
+            ms=time_ms(lambda: ka.flash_attention_bwd_dkv(*args)),
+            plain_ms=time_ms(
+                lambda: ka.flash_attention_bwd_dkv_reference(*args)),
+            library_ms=lib_both,
+            max_abs_err=max(checks["dk"][0], checks["dv"][0]),
+            tol=min(checks["dk"][1], checks["dv"][1])),
+    }
+    for kind, t in times.items():
+        t["bound_ms"], t["bound_by"] = attention_bound(
+            kind, b, h, nq, nkv, d, name)
+        log(f"    {kind}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{t['library_ms']:.4f} ms ("
+            f"{'forward' if kind == 'fwd' else 'forward + backward'}), "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    row["times"] = times
+    return row
+
+
+def phase_attention():
+    """Phase 10. Returns every row and the timed bf16 rows at the serving
+    (B=1) and training (B=2) shapes."""
+    import torch
+
+    log("[attention vs plain] UNETR's shapes, a ragged one, head dim 32")
+    rows, main = [], {}
+    main_shape = (UNETR_HEADS, UNETR_TOKENS, UNETR_TOKENS, UNETR_HEAD_DIM)
+    cases = [
+        ((1,) + main_shape, True), ((2,) + main_shape, True),
+        ((1, UNETR_HEADS, 2050, 2311, UNETR_HEAD_DIM), False),
+        ((1, 6, UNETR_TOKENS, UNETR_TOKENS, 32), False),
+    ]
+    for i, (shape, timed) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            row = compare_attention(shape, dtype, 300 + i, timed)
+            rows.append(row)
+            if timed and dtype == torch.bfloat16:
+                main[shape[0]] = row["times"]
+    return rows, main
+
+
+def _launch_counts():
+    from adell_mri_torch.ops.kernels import attention as ka
+    from adell_mri_torch.ops.kernels import conv as kconv
+    from adell_mri_torch.ops.kernels import intensity as ki
+
+    return dict(
+        flash_attention_fwd=ka.flash_attention_fwd.launches,
+        flash_attention_bwd_dq=ka.flash_attention_bwd_dq.launches,
+        flash_attention_bwd_dkv=ka.flash_attention_bwd_dkv.launches,
+        conv3d_igemm=kconv.conv3d_igemm.launches,
+        conv3d_igemm_dx=kconv.conv3d_igemm_dx.launches,
+        intensity_aug=ki.intensity_aug.launches,
+    )
+
+
+def _reset_counts():
+    from adell_mri_torch.ops.kernels import attention as ka
+    from adell_mri_torch.ops.kernels import conv as kconv
+    from adell_mri_torch.ops.kernels import intensity as ki
+
+    for fn in (ka.flash_attention_fwd, ka.flash_attention_bwd_dq,
+               ka.flash_attention_bwd_dkv, kconv.conv3d_igemm,
+               kconv.conv3d_igemm_dx, ki.intensity_aug):
+        fn.launches = 0
+
+
+def phase_unetr_serving():
+    """Phase 11: one warm-up case, the counted case, two more timed, and
+    the same case through the kernels' plain versions."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        CASE,
+        make_case,
+        make_inference,
+        make_model,
+    )
+
+    model = make_model(0, torch.bfloat16, name="unetr")
+    infer = make_inference(model, "unetr")
+    case = make_case(1)
+    secs = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        infer(case)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = infer(case)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = _launch_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            infer(case)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        with plain_kernels():
+            want = infer(case)
+        torch.cuda.synchronize()
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches.update(flash_attention_fwd=UNETR_BLOCKS,
+                         conv3d_igemm=UNETR_CONVS)
+    err = float((out - want).abs().max())
+    lo, hi = float(out.min()), float(out.max())
+    # bf16: one-ulp rounding flips in 8 attention blocks and 9 convs,
+    # renormalised by layer and instance norms, move a probability by well
+    # under 5e-2 (the U-Net's window-batch tolerance)
+    tol = 5e-2
+    log(f"[unetr serving] {'x'.join(map(str, CASE))} case, one window: "
+        f"launches {launches}; warm-up {warm:.3f} s, then "
+        f"{', '.join(f'{s:.4f}' for s in secs)} s per case; kernels vs "
+        f"plain versions: max abs err {err:.3g} (tol {tol})")
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches}, want {want_launches}")
+    if tuple(out.shape) != CASE + (1,):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()) or lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"probabilities not in [0, 1]: {lo}, {hi}")
+    if not err <= tol:
+        raise AssertionError(f"UNETR disagrees with its plain path: {err}")
+    return dict(launches=launches, warmup_s=warm, seconds_per_case=secs,
+                prob_range=[lo, hi], max_abs_err=err, tol=tol)
+
+
+def phase_unetr_training():
+    """Phase 12: the UNETR trainer on the card."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        CASE,
+        UNETR_BATCH,
+        make_train_batch,
+        make_trainer,
+    )
+
+    batch = make_train_batch(0, batch=UNETR_BATCH, shape=CASE)
+    tr = make_trainer(0, "bf16", name="unetr")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    names = list(tr.state.params)
+
+    loss, _ = tr.loss_and_metrics(tr.state.params,
+                                  tr.transforms.augment(gen, batch))
+    grads = torch.autograd.grad(loss, [tr.state.params[k] for k in names])
+    bad = [k for k, gr in zip(names, grads)
+           if not bool(torch.isfinite(gr).all()) or float(gr.abs().max()) == 0]
+    log(f"[unetr training] bf16 gradients: {len(names)} parameters, "
+        f"{len(names) - len(bad)} finite and non-zero")
+    if bad:
+        raise AssertionError(f"zero or non-finite gradients: {bad}")
+    del grads, loss
+
+    def step():
+        aug = tr.transforms.augment(gen, batch)
+        tr.state, metrics = tr.train_step(tr.state, aug)
+        return metrics
+
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    secs, losses = [], []
+    for _ in range(UNETR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = _launch_counts()
+    per_step = dict(
+        flash_attention_fwd=UNETR_BLOCKS, flash_attention_bwd_dq=UNETR_BLOCKS,
+        flash_attention_bwd_dkv=UNETR_BLOCKS, conv3d_igemm=UNETR_CONVS,
+        conv3d_igemm_dx=UNETR_CONVS_DX, intensity_aug=1,
+    )
+    want = {k: v * UNETR_TIMED_STEPS for k, v in per_step.items()}
+    med = sorted(secs)[len(secs) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[unetr training] bf16, B={UNETR_BATCH} at "
+        f"{'x'.join(map(str, CASE))}, augmentation on, dropout 0: warm-up "
+        f"{warm:.3f} s, then {', '.join(f'{s:.4f}' for s in secs)} s per "
+        f"step ({UNETR_BATCH / med:.2f} volumes/s at the median); launches "
+        f"in {UNETR_TIMED_STEPS} steps {launches}; losses {losses}; peak "
+        f"memory {peak_gb:.1f} GB")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    del tr
+
+    tr = make_trainer(0, "bf16", learning_rate=1e-2, name="unetr")
+    before = float(tr.eval_step(tr.state.params, batch)["loss"])
+    for _ in range(10):
+        tr.state, _ = tr.train_step(tr.state, batch)
+    after = float(tr.eval_step(tr.state.params, batch)["loss"])
+    log(f"[unetr training] ten steps on one batch (no augmentation, lr "
+        f"1e-2): loss {before:.5f} -> {after:.5f}")
+    if not after < before:
+        raise AssertionError(f"loss did not fall: {before} -> {after}")
+    del tr
+
+    # one f32 step on the kernels against the plain versions, on one
+    # volume: the f32 dW patch tensor of the widest full-size conv is
+    # 14.5 GB a sample
+    tr = make_trainer(0, None, name="unetr")
+    one = {k: v[:1] for k, v in batch.items()}
+    params = [tr.state.params[k] for k in names]
+    _reset_counts()
+    loss_k, _ = tr.loss_and_metrics(tr.state.params, one)
+    grads_k = torch.autograd.grad(loss_k, params)
+    f32_launches = _launch_counts()
+    with plain_kernels():
+        loss_p, _ = tr.loss_and_metrics(tr.state.params, one)
+        grads_p = torch.autograd.grad(loss_p, params)
+    norm_k, norm_p = _grad_norm(grads_k), _grad_norm(grads_p)
+    worst_rel = max(float((gk - gp).abs().max())
+                    for gk, gp in zip(grads_k, grads_p)) / max(
+        float(gp.abs().max()) for gp in grads_p)
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    log(f"[unetr training] f32 step (B=1), kernels ({f32_launches}) vs "
+        f"plain versions: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
+        f"{loss_rel:.2e}, tol 1e-4), gradient norm {norm_k:.6g} vs "
+        f"{norm_p:.6g} (rel {norm_rel:.2e}, tol 1e-3); largest gradient "
+        f"difference {worst_rel:.2e} of the largest gradient")
+    if f32_launches != {**per_step, "intensity_aug": 0}:
+        raise AssertionError(f"f32 step launches {f32_launches}")
+    if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
+        raise AssertionError("f32 step disagrees with the plain versions")
+    del tr
+    return dict(
+        warmup_s=warm, seconds_per_step=secs,
+        volumes_per_s=UNETR_BATCH / med, launches=launches, losses=losses,
+        peak_memory_gb=peak_gb, n_params=len(names),
+        fixed_batch_loss=[before, after],
+        f32_parity=dict(loss=loss_k, plain_loss=loss_p, loss_rel=loss_rel,
+                        grad_norm=norm_k, plain_grad_norm=norm_p,
+                        grad_norm_rel=norm_rel, worst_param_rel=worst_rel,
+                        launches=f32_launches),
+    )
+
+
+def phase_unetr_cli():
+    """Phase 13: a 4-case cohort at 256x256x64 through ``segmentation train
+    --segmentation_net_type unetr --dev cuda`` with a dropout-0 copy of
+    ``sample_configs/unetr.yaml`` (one epoch of 2 steps at B=2), then
+    ``segmentation predict --dev cuda`` on the checkpoint it wrote."""
+    import numpy as np
+    import yaml
+
+    from adell_mri_torch.data.nifti import read_nifti, write_nifti
+    from adell_mri_torch.tools.flagship import CASE, UNETR_YAML
+
+    work = WORK_DIR / "unetr_cli"
+    work.mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    affine = np.diag([-0.5, -0.5, 3.0, 1.0])
+    axes = [np.arange(s, dtype=np.float32) for s in CASE]
+    ds = {}
+    for i in range(4):
+        centre = np.asarray(CASE) * rng.uniform(0.35, 0.65, 3)
+        radii = np.asarray(CASE) / 5
+        dist = sum(
+            (((a - c) / r) ** 2).reshape(
+                [-1 if j == d else 1 for j in range(3)])
+            for d, (a, c, r) in enumerate(zip(axes, centre, radii))
+        )
+        mask = (dist <= 1.0).astype(np.float32)
+        img = (100 + 80 * mask + 10 * rng.standard_normal(
+            CASE, dtype=np.float32)).astype(np.float32)
+        paths = {}
+        for key, data in (("image", img), ("mask", mask)):
+            paths[key] = str(work / f"case_{i}_{key}.nii.gz")
+            write_nifti(paths[key], data, affine)
+        ds[f"case_{i}"] = paths
+    (work / "ds.json").write_text(json.dumps(ds))
+    config = yaml.safe_load(UNETR_YAML.read_text())
+    # with dropout on, attention in training mode leaves the kernels
+    config["dropout_rate"] = 0.0
+    (work / "unetr.yaml").write_text(yaml.safe_dump(config))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+
+    def run(args, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "adell_mri_torch", "segmentation", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=600, env=env,
+        )
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:])
+            log(proc.stderr[-6000:])
+            raise RuntimeError(f"{what} CLI exited {proc.returncode}")
+        return secs
+
+    ckpt = work / "ckpt"
+    train_s = run([
+        "train", "--segmentation_net_type", "unetr",
+        "--dataset_json", str(work / "ds.json"),
+        "--image_keys", "image", "--mask_keys", "mask",
+        "--config_file", str(work / "unetr.yaml"),
+        "--pad_size", *map(str, CASE), "--target_spacing", "0.5", "0.5",
+        "3.0", "--batch_size", "2", "--max_epochs", "1",
+        "--samples_per_epoch", "4", "--steps_per_epoch", "2",
+        "--n_folds", "1", "--augment", "intensity", "noise", "affine",
+        "flip", "--precision", "bf16", "--dev", "cuda", "--seed", "0",
+        "--checkpoint_dir", str(ckpt), "--metric_path",
+        str(work / "metrics.csv"),
+    ], "unetr train")
+    fold = ckpt / "segmentation_fold0"
+    meta = json.loads((fold / "metadata.json").read_text())
+    if not (fold / "model.pt").is_file() or meta["net_type"] != "unetr":
+        raise AssertionError(f"train wrote {sorted(os.listdir(fold))}, "
+                             f"net_type {meta.get('net_type')}")
+    pred = work / "pred"
+    predict_s = run([
+        "predict", "--dataset_json", str(work / "ds.json"),
+        "--checkpoint_dir", str(ckpt), "--output_path", str(pred),
+        "--dev", "cuda", "--precision", "bf16",
+    ], "unetr predict")
+    for pid in ds:
+        img = read_nifti(str(pred / f"{pid}_prob.nii.gz"))
+        ok = (img.data.shape == CASE and np.isfinite(img.data).all()
+              and img.data.min() >= 0.0 and img.data.max() <= 1.0)
+        if not ok:
+            raise AssertionError(f"{pid}: shape {img.data.shape}, range "
+                                 f"[{img.data.min()}, {img.data.max()}]")
+    rows = (work / "metrics.csv").read_text().splitlines()
+    log(f"[unetr cli] train --segmentation_net_type unetr --dev cuda "
+        f"--precision bf16: 1 epoch of 2 steps at B=2 in {train_s:.2f} s; "
+        f"predict on its checkpoint: 4 cases in {predict_s:.2f} s (process "
+        f"start, import and build included); {len(rows) - 1} metric rows")
+    return dict(train_s=train_s, predict_s=predict_s, metric_rows=rows)
+
+
 def main():
     try:
         import torch
@@ -949,6 +1446,10 @@ def main():
     bwd_rows, dx_totals = phase_conv_backward(shapes)
     training = phase_training()
     train_cli = phase_train_cli()
+    attention_rows, attention = phase_attention()
+    unetr_serving = phase_unetr_serving()
+    unetr_training = phase_unetr_training()
+    unetr_cli = phase_unetr_cli()
 
     def entry(name, source, replaces, launches, row, per, library_ms):
         return {
@@ -960,24 +1461,38 @@ def main():
             "library_ms": library_ms, "per": per,
         }
 
-    launches = training["launches"]
+    # launches of each main path, counted from 0 just before it was driven
+    by_path = {
+        "unet_serving": {"conv3d_igemm": serving["launches"]},
+        "unet_training": training["launches"],
+        "unetr_serving": unetr_serving["launches"],
+        "unetr_training": unetr_training["launches"],
+    }
+
+    def launches_of(name):
+        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
+        return sum(paths.values()), paths
+
     k3, k2 = intensity_rows["float32"]["k3"], intensity_rows["float32"]["k2"]
+    flash = "adell_mri_torch/csrc/flash_attention.cu"
+    pallas_attention = "adell_mri_tpu/ops/pallas/attention.py"
     kernels = [
         entry("conv3d_igemm", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
-              launches["conv3d_igemm"], totals,
-              "window batch of 4 at 128x128x32 (31 convs), bf16; launches "
-              "in the 5 timed training steps",
+              launches_of("conv3d_igemm")[0], totals,
+              "window batch of 4 at 128x128x32 (the U-Net's 31 convs), "
+              "bf16; launches: the U-Net's served case and 5 training "
+              "steps, UNETR's served case and 3 training steps",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
-              launches["conv3d_igemm_dx"], dx_totals,
-              "the 30 dx launches of one training step (B=4 at 128x128x32),"
-              " bf16; library: F.conv3d of the cotangent",
+              launches_of("conv3d_igemm_dx")[0], dx_totals,
+              "the 30 dx launches of one U-Net training step (B=4 at "
+              "128x128x32), bf16; library: F.conv3d of the cotangent",
               dx_totals["library_ms"]),
         entry("intensity_aug_batch", "adell_mri_torch/csrc/intensity_aug.cu",
               "adell_mri_tpu/ops/pallas/intensity.py:155",
-              launches["intensity_aug"], k3,
+              launches_of("intensity_aug")[0], k3,
               "one call at [4,128,128,32,1] f32, Rician, every sample "
               "noisy; no single PyTorch call computes it", None),
         entry("intensity_aug", "adell_mri_torch/csrc/intensity_aug.cu",
@@ -987,10 +1502,35 @@ def main():
               "Rician; launches: the B=1 calls of phase 6 (the training "
               "path runs the kernel at B=4 only); no single PyTorch call "
               "computes it", None),
+        entry("flash_attention_fwd", flash,
+              f"{pallas_attention}:49 and :151",
+              launches_of("flash_attention_fwd")[0], attention[1]["fwd"],
+              "one call at q, k, v [1,8,2048,64] bf16 (UNETR serving; 8 per "
+              "case; training runs it at B=2, 8 per step); library: "
+              "F.scaled_dot_product_attention forward",
+              attention[1]["fwd"]["library_ms"]),
+        entry("flash_attention_bwd_dq", flash, f"{pallas_attention}:300",
+              launches_of("flash_attention_bwd_dq")[0],
+              attention[2]["bwd_dq"],
+              "one call at [2,8,2048,64] bf16 (UNETR training; 8 per step); "
+              "library: F.scaled_dot_product_attention forward + backward, "
+              "which also computes dK and dV",
+              attention[2]["bwd_dq"]["library_ms"]),
+        entry("flash_attention_bwd_dkv", flash, f"{pallas_attention}:355",
+              launches_of("flash_attention_bwd_dkv")[0],
+              attention[2]["bwd_dkv"],
+              "one call at [2,8,2048,64] bf16 (UNETR training; 8 per step); "
+              "library: F.scaled_dot_product_attention forward + backward, "
+              "which also computes dQ",
+              attention[2]["bwd_dkv"]["library_ms"]),
     ]
-    kernels[0]["launches_by_path"] = {
-        "serving": serving["launches"], "training": launches["conv3d_igemm"],
-    }
+    for k in kernels:
+        k["launches_by_path"] = launches_of({
+            "intensity_aug_batch": "intensity_aug",
+        }.get(k["name"], k["name"]))[1]
+    # K2 is the B=1 call of K3's kernel: no main path runs it at B=1
+    kernels[3]["launches_by_path"] = {
+        "intensity_phase": kernels[3]["launches"]}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, build_s=build_s,
@@ -998,6 +1538,8 @@ def main():
         window_batch=window_rows, main_path_convs=path_rows,
         cli=cli, intensity=intensity_rows, conv_backward=bwd_rows,
         conv_dx_per_step=dx_totals, training=training, train_cli=train_cli,
+        attention=attention_rows, unetr_serving=unetr_serving,
+        unetr_training=unetr_training, unetr_cli=unetr_cli,
         kernels=kernels, total_s=time.perf_counter() - t_start,
     ), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

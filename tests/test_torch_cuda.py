@@ -7,12 +7,17 @@ tests/test_torch_cuda.py`` (the shared conftest imports JAX, which the
 card's machine does not need). Tolerances as in ``chip_smoke.py``: one
 bf16 ulp of the output scale for bf16 (both sides sum in f32 and round
 once), 1e-4 of it for f32; for the gradients one bf16 ulp and 1e-3 in f32
-with TF32 off.
+with TF32 off. The attention kernels: 2e-5 (forward) and 1e-4 (backward)
+of the scale in f32 (summation order); one bf16 ulp (2^-7) of the scale in
+bf16, where kernel and plain version both round p and ds to bf16 once, the
+kernel against its running maximum and the plain version against the final
+one.
 """
 
 import pytest
 import torch
 
+from adell_mri_torch.ops.kernels import attention as kattn
 from adell_mri_torch.ops.kernels import conv as kconv
 from adell_mri_torch.ops.kernels import intensity as kint
 
@@ -141,3 +146,104 @@ def test_intensity_aug_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         kint.intensity_aug(seed, torch.zeros((1, 8), device=cuda),
                            torch.zeros((2, 6), device=cuda))
+
+
+# (B, H, Nq, Nkv, D): tile multiples, ragged Nq != Nkv, head dim 32, tiny
+ATTENTION_SHAPES = [
+    (1, 2, 256, 256, 64),
+    (2, 3, 130, 203, 64),
+    (1, 2, 100, 64, 32),
+    (1, 1, 5, 3, 32),
+]
+
+
+def _attention_inputs(shape, dtype, device, seed):
+    b, h, nq, nkv, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(n):
+        return torch.randn((b, h, n, d), generator=g, device=device).to(dtype)
+
+    return draw(nq), draw(nkv), draw(nkv), draw(nq)
+
+
+def _within(got, want, rel):
+    scale = max(float(want.float().abs().max()), 1e-30)
+    return float((got.float() - want.float()).abs().max()) <= rel * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES, ids=str)
+def test_flash_attention_fwd_matches_plain(cuda, shape, dtype):
+    q, k, v, _ = _attention_inputs(shape, dtype, cuda, 3)
+    scale = shape[-1] ** -0.5
+    before = kattn.flash_attention_fwd.launches
+    out, m, l = kattn.flash_attention_fwd(q, k, v)
+    assert kattn.flash_attention_fwd.launches == before + 1
+    want, wm, wl = kattn.flash_attention_fwd_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert m.shape == l.shape == q.shape[:3] + (1,)
+    rel = 2.0**-7 if dtype == torch.bfloat16 else 2e-5
+    assert float((out.float() - want.float()).abs().max()) <= rel * max(
+        float(want.float().abs().max()), 1.0)
+    assert float((m - wm).abs().max()) <= 1e-4
+    assert float(((l - wl) / wl).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES, ids=str)
+def test_flash_attention_bwd_matches_plain(cuda, shape, dtype):
+    q, k, v, g = _attention_inputs(shape, dtype, cuda, 4)
+    scale = shape[-1] ** -0.5
+    out, m, l = kattn.flash_attention_fwd_reference(q, k, v, scale)
+    lse, delta = kattn.backward_rows(out, m, l, g)
+    before = (kattn.flash_attention_bwd_dq.launches,
+              kattn.flash_attention_bwd_dkv.launches)
+    dq = kattn.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale)
+    dk, dv = kattn.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
+    assert (kattn.flash_attention_bwd_dq.launches,
+            kattn.flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    wq = kattn.flash_attention_bwd_dq_reference(
+        q, k, v, g, lse, delta, scale)
+    wk, wv = kattn.flash_attention_bwd_dkv_reference(
+        q, k, v, g, lse, delta, scale)
+    torch.cuda.synchronize()
+    rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+    for got, want in ((dq, wq), (dk, wk), (dv, wv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _within(got, want, rel)
+
+
+@pytest.mark.gpu
+def test_flash_attention_gradient_matches_autograd(cuda):
+    """The Function's dq, dk, dv (f32) against autograd through the
+    materialised softmax."""
+    q, k, v, g = _attention_inputs((1, 2, 300, 170, 64), torch.float32,
+                                   cuda, 5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    y = kattn.flash_attention(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, g)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        kattn.attention_reference(*ref_leaves), ref_leaves, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _within(a, b, 1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_attention_rejects_bad_inputs(cuda):
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError):
+        kattn.flash_attention_fwd(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError):
+        kattn.flash_attention_fwd(q[..., :48].contiguous(),
+                                  q[..., :48].contiguous(),
+                                  q[..., :48].contiguous())
+    with pytest.raises(TypeError):
+        kattn.flash_attention_fwd(q, q.bfloat16(), q)

@@ -54,6 +54,10 @@ def test_port_import_loads_no_jax():
         "import adell_mri_torch.entrypoints.segmentation.predict\n"
         "import adell_mri_torch.entrypoints.segmentation.train\n"
         "import adell_mri_torch.tools.profile_train\n"
+        "import adell_mri_torch.tools.profile_serving\n"
+        "import adell_mri_torch.ops.kernels.attention\n"
+        "import adell_mri_torch.models.layers.vit\n"
+        "import adell_mri_torch.models.segmentation.unetr\n"
         "import adell_mri_torch.interop.from_flax\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

@@ -201,6 +201,57 @@ def test_predict_cli_cpu_matches_jax(cohort):
         assert np.abs(got.data - want).max() < 1e-5
 
 
+UNETR_CONFIG = {
+    "patch_size": [8, 8, 4], "embedding_size": 32, "number_of_blocks": 4,
+    "n_heads": 4, "feature_size": 4, "dropout_rate": 0.1, "n_channels": 1,
+}
+
+
+def test_predict_cli_unetr_matches_jax(cohort):
+    """A UNETR checkpoint (``net_type`` in its metadata) is rebuilt for
+    the checkpoint's target size and serves the whole volume as one
+    window; 1e-4 against the JAX UNETR on the same weights (the
+    tolerance of the model's own parity test: a transformer's f32 sums in
+    two frameworks)."""
+    import jax.numpy as jnp
+
+    from adell_mri_tpu.config.factories import get_segmentation_network
+
+    root, t_args = cohort["root"], cohort["t_args"]
+    jm = get_segmentation_network("unetr", UNETR_CONFIG, n_classes=2)
+    params = random_flax_params(jm, jnp.zeros((1, 24, 24, 12, 1)), seed=12)
+    CheckpointManager(
+        str(root / "unetr_ckpt"), name="segmentation", fold=0,
+        metadata={"network_config": UNETR_CONFIG, "n_classes": 2,
+                  "transform_arguments": t_args, "net_type": "unetr"},
+    ).save(from_flax(params), step=1, value=0.5)
+    out = str(root / "out_unetr")
+    # the flag's default names another net type: the metadata decides
+    tpredict.main([
+        "--dataset_json", cohort["ds_path"], "--checkpoint_dir",
+        str(root / "unetr_ckpt"), "--output_path", out, "--dev", "cpu",
+        "--prediction_ids", "case_0",
+    ])
+    raw = jnifti.read_nifti(cohort["ds"]["case_0"]["T2"])
+    img = jnifti.reorient_to_ras(raw)
+    vol = jhost.resample_to_spec(
+        img, t_args["target_spacing"], t_args["target_size"]
+    )
+    vol = (vol - vol.min()) / max(vol.max() - vol.min(), 1e-6)
+    prob = jm.apply(
+        {"params": params}, jnp.asarray(vol[None, ..., None], jnp.float32)
+    )[0]
+    want = jnifti.reorient_from_ras(
+        jpredict._invert_geometry(
+            np.asarray(prob)[0, ..., 0], img, t_args["target_spacing"]
+        ),
+        raw.affine,
+    )
+    got = tnifti.read_nifti(os.path.join(out, "case_0_prob.nii.gz")).data
+    assert got.shape == raw.data.shape
+    assert np.abs(got - want).max() < 1e-4
+
+
 def test_predict_cli_binary_mask(cohort):
     root, ds_path = cohort["root"], cohort["ds_path"]
     out = str(root / "out_mask")

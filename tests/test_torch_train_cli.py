@@ -94,6 +94,58 @@ def test_train_then_predict_on_cpu(cohort):
         assert pred.min() >= 0.0 and pred.max() <= 1.0
 
 
+UNETR_CONFIG = {
+    "patch_size": [8, 8, 4], "embedding_size": 32, "number_of_blocks": 4,
+    "n_heads": 4, "feature_size": 4, "dropout_rate": 0.1,
+    "norm_type": "instance", "n_channels": 1, "learning_rate": 0.005,
+    "batch_size": 1, "weight_decay": 0.0005,
+    "loss_fn": {"dice": {"eps": 1.0e-6}, "focal": {"gamma": 0.0}},
+}
+
+
+def test_unetr_train_then_predict_on_cpu(cohort):
+    """``--segmentation_net_type unetr`` with the keys of
+    ``sample_configs/unetr.yaml`` at narrow widths (dropout on): the
+    checkpoint records the net type, and predict rebuilds the UNETR from
+    it for the volume size it was trained at."""
+    import yaml
+
+    # YAML proper: PyYAML reads JSON's "1e-06" as a string
+    (cohort / "unetr.yaml").write_text(yaml.safe_dump(UNETR_CONFIG))
+    ckpt = cohort / "ckpt_unetr"
+    args = _train_args(cohort, ckpt, "--dev", "cpu",
+                       "--segmentation_net_type", "unetr")
+    args[args.index("--config_file") + 1] = str(cohort / "unetr.yaml")
+    cli_main(["segmentation", "train", *args])
+    fold = ckpt / "segmentation_fold0"
+    meta = json.loads((fold / "metadata.json").read_text())
+    assert meta["net_type"] == "unetr"
+    assert meta["network_config"]["patch_size"] == [8, 8, 4]
+    state = torch.load(fold / "model.pt", weights_only=True)
+    assert "LinearEmbedding_0.pos_embedding" in state
+    assert tuple(state["LinearEmbedding_0.pos_embedding"].shape) == (1, 8, 32)
+    assert all(bool(torch.isfinite(v).all()) for v in state.values())
+    with open(ckpt / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert {r["metric"] for r in rows} >= {"loss", "dice", "val_loss"}
+
+    out = cohort / "pred_unetr"
+    cli_main(["segmentation", "predict", "--dataset_json",
+              str(cohort / "ds.json"), "--checkpoint_dir", str(ckpt),
+              "--output_path", str(out), "--dev", "cpu"])
+    for i in range(2):
+        pred = tnifti.read_nifti(str(out / f"case_{i}_prob.nii.gz")).data
+        assert pred.shape == (16, 16, 8)
+        assert np.isfinite(pred).all()
+        assert pred.min() >= 0.0 and pred.max() <= 1.0
+
+
+def test_train_unknown_net_type_raises(cohort):
+    with pytest.raises(NotImplementedError, match="unetr"):
+        ttrain.main(_train_args(cohort, cohort / "ckpt_y", "--dev", "cpu",
+                                "--segmentation_net_type", "swin"))
+
+
 def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--dev cpu"):
