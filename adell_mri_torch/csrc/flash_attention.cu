@@ -1,11 +1,12 @@
 // Blockwise (flash) softmax attention for Hopper: forward, dQ and dK/dV.
 //
 // Replaces the four TPU kernels of adell_mri_tpu/ops/pallas/attention.py:
-//   flash_fwd_kernel     <- _flash_kernel_vmem and _flash_kernel (one function:
-//                           the VMEM-resident variant only worked around a TPU
-//                           compile-service fault)
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel
+//   flash_fwd_{bf16,f32}_kernel     <- _flash_kernel_vmem and _flash_kernel
+//                                      (one function: the VMEM-resident
+//                                      variant only worked around a TPU
+//                                      compile-service fault)
+//   flash_bwd_dq_kernel             <- _bwd_dq_kernel
+//   flash_bwd_dkv_{bf16,f32}_kernel <- _bwd_dkv_kernel
 //
 // q [BH, Nq, D], k and v [BH, Nkv, D], contiguous; Nq may differ from Nkv; no
 // mask, no causal option. Same arithmetic as the Pallas bodies: the products
@@ -29,16 +30,51 @@
 // What bounds them on the H100: operations. At [1, 8, 2048, 64] in bf16 the
 // forward does 8.6 GFLOP on 8.5 MB (about 1000 FLOP per byte, the card's
 // ridge is 295), so the tensor cores bound it (8.7 us at 989 TFLOP/s); dQ
-// does 1.5x and dK/dV 2x that work on the same bytes. The design feeds the
-// tensor cores (bf16 WMMA 16x16x16, f32 accumulators) and never writes the
-// N x N matrix to device memory: scores, p and ds live in shared memory.
-// It is the simple version: the accumulators sit in shared memory between
-// tiles (WMMA's register layout is opaque, and the row rescale needs rows),
-// loads do not overlap the products (no cp.async, TMA or wgmma), and the
-// products wait at block barriers. That is where the gap to the bound is.
+// does 1.5x and dK/dV 2x that work on the same bytes. None of them writes
+// the N x N matrix to device memory.
 //
-// The f32 path is plain FMA on the same tiles (no TF32), for exact
-// comparisons and f32 training.
+// The bf16 forward and dK/dV (flash_fwd_bf16_kernel, flash_bwd_dkv_bf16_kernel)
+// are built on what only this card has (wgmma.cuh):
+//   - products are warpgroup `wgmma` m64nNk16 with the f32 sums in registers.
+//     The register layout is documented, so a thread knows its rows: the
+//     forward's row maximum and row sum are two shuffles inside a quad, the
+//     running output is rescaled in its own registers, and p (ds) is rounded
+//     to bf16 and handed to the second product as its A operand straight from
+//     registers. Scores, p, ds and the accumulators never touch shared memory;
+//   - dK/dV computes the transposed tiles, s^T = k q^T and dp^T = v dO^T, so
+//     that its accumulator rows are the block's own key rows: p^T and ds^T
+//     are elementwise (lse and delta belong to columns and come from a small
+//     shared array), nothing is reduced, and dK, dV stay in registers for the
+//     whole loop;
+//   - what never changes inside a block is read once: the forward holds its
+//     64 query rows in registers as the A operand of q k^T, dK/dV keeps its K
+//     and V tiles in shared memory for the whole loop;
+//   - the tiles that stream (K, V in the forward; Q, dO, lse, delta in dK/dV)
+//     arrive through a ring of shared-memory stages (3 and 4) filled by
+//     cp.async, in the 128-byte (64-byte at head dim 32) swizzle that wgmma's
+//     descriptors name, so the next tiles load while this one multiplies.
+//     One block barrier a tile is all that is left;
+//   - in the forward p v of tile u - 1 runs while the exponentials of tile u
+//     are taken; the copy code has a branch-free path for whole tiles and
+//     addresses computed once a thread (it was half of the loop);
+//   - exp is one ex2 with scale * log2(e) folded into the argument (the
+//     wrapper refuses a scale that is not positive).
+// What ptxas allows shaped the loops: it serializes every wgmma of a kernel
+// (a note in the build log, no error) when the groups committed depend on a
+// branch, so first and last turns are peeled; and it ends a wgmma stage, by
+// placing the wait there, at the first branch or warp shuffle after it, so
+// only straight-line arithmetic can overlap a product: the row maxima, which
+// shuffle, run with nothing in flight. What is left to a later change: q k^T
+// of the next tile does not overlap the softmax of this one (only the other
+// warpgroups of the SM fill that gap: four blocks of one warpgroup fit);
+// two warpgroups that alternate under named barriers, a producer warp with
+// TMA and a persistent grid are the known answers.
+//
+// dQ (flash_bwd_dq_kernel) is still the first, simple design: bf16 WMMA
+// 16x16x16 with accumulators, scores and ds in shared memory, synchronous
+// loads and four block barriers a tile. The f32 path of all three is plain
+// FMA on the same shared-memory tiles (no TF32), for exact comparisons and
+// f32 training.
 //
 // C interface (loaded with ctypes): each launcher enqueues one kernel on the
 // given stream and returns cudaGetLastError().
@@ -48,6 +84,8 @@
 #include <mma.h>
 
 #include <type_traits>
+
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -215,14 +253,16 @@ struct Layout {
 };
 static_assert(BQ == BK, "the layout sizes Q-side and KV-side tiles alike");
 
-// ------------------------------------------------------------- forward ---
+// ------------------------------------------------------- forward, f32 ---
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     int n_q, int n_kv, float scale) {
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out,
+                         float* __restrict__ m_out, float* __restrict__ l_out,
+                         int n_q, int n_kv, float scale) {
+  using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver carve{smem};
@@ -352,15 +392,19 @@ __global__ void __launch_bounds__(THREADS)
                        nullptr);
 }
 
-// --------------------------------------------------------------- dK/dV ---
+// --------------------------------------------------------- dK/dV, f32 ---
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int n_q, int n_kv, float scale) {
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int n_q, int n_kv, float scale) {
+  using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver carve{smem};
@@ -421,19 +465,499 @@ __global__ void __launch_bounds__(THREADS)
                        nullptr);
 }
 
+// ------------------------------------------------------ forward, bf16 ---
+
+// Tuning knobs (tools/tune_attention.py builds the variants): warpgroups a
+// block and ring stages of each Hopper kernel.
+#ifndef ADELL_FWD_WARPGROUPS
+#define ADELL_FWD_WARPGROUPS 1
+#endif
+#ifndef ADELL_FWD_STAGES
+#define ADELL_FWD_STAGES 3
+#endif
+#ifndef ADELL_DKV_WARPGROUPS
+#define ADELL_DKV_WARPGROUPS 1
+#endif
+#ifndef ADELL_DKV_STAGES
+#define ADELL_DKV_STAGES 4
+#endif
+
+// A block is NWG warpgroups, each owning 64 query rows, which it keeps in
+// registers as the A operand of q k^T; K and V tiles of 64 rows stream
+// through a ring of STAGES stages that all of the block's threads fill.
+// Shared memory: the ring.
+template <int D>
+struct FwdPlan {
+  static constexpr int NWG = ADELL_FWD_WARPGROUPS;
+  static constexpr int STAGES = ADELL_FWD_STAGES;
+  static_assert(STAGES >= 2, "a stage in use and one in flight");
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int ROWS = 64 * NWG;  // query rows per block
+  static constexpr int STAGE_BYTES = 2 * hopper::Tile<D>::BYTES;
+  // 1024 more: the kernel rounds its base up to the swizzle's alignment
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
+};
+
+// The online softmax of one 64 x 64 score tile held in registers, in two
+// halves. The first takes the new running maximum m (in units of s, the raw
+// q k^T) and returns in a_lo, a_hi what the rows' earlier sums must be
+// scaled by; it shuffles inside the quad, and ptxas ends a wgmma stage at a
+// shuffle, so no product may be in flight here. c = scale * log2(e) > 0;
+// with MASKED, columns from valid_cols on count as minus infinity (the
+// sequence's last tile).
+template <bool MASKED>
+__device__ __forceinline__ void softmax_max(float (&s)[32], float c,
+                                            int valid_cols, int col0,
+                                            float& m_lo, float& m_hi,
+                                            float& a_lo, float& a_hi) {
+  using namespace hopper;
+  if (MASKED) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if ((i / 4) * 8 + col0 + (i % 2) >= valid_cols) s[i] = NEG;
+  }
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if ((i / 2) % 2)
+      mx_hi = fmaxf(mx_hi, s[i]);
+    else
+      mx_lo = fmaxf(mx_lo, s[i]);
+  }
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  a_lo = exp2_approx((m_lo - mx_lo) * c);
+  a_hi = exp2_approx((m_hi - mx_hi) * c);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+}
+
+// The second half: s becomes p = exp(scale (s - m)) and l takes this
+// thread's share of the row sums. Plain arithmetic, which may run while a
+// product of other registers is in flight.
+__device__ __forceinline__ void softmax_exp(float (&s)[32], float c,
+                                            float m_lo, float m_hi,
+                                            float a_lo, float a_hi,
+                                            float& l_lo, float& l_hi) {
+  using namespace hopper;
+  const float off_lo = -m_lo * c, off_hi = -m_hi * c;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if ((i / 2) % 2) {
+      s[i] = exp2_approx(fmaf(s[i], c, off_hi));
+      sum_hi += s[i];
+    } else {
+      s[i] = exp2_approx(fmaf(s[i], c, off_lo));
+      sum_lo += s[i];
+    }
+  }
+  l_lo = l_lo * a_lo + sum_lo;
+  l_hi = l_hi * a_hi + sum_hi;
+}
+
+// p of a score tile, rounded to bf16, as the A operand of p v.
+__device__ __forceinline__ void pack_tile(uint32_t (&pa)[4][4],
+                                          const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// The ring moves in steps: step u holds K tile u and V tile u - 1, which is
+// what one turn of the loop consumes: q k^T of tile u, its row maxima, then
+// p v of tile u - 1, which runs while the exponentials of tile u are taken.
+template <int D>
+__global__ void __launch_bounds__(FwdPlan<D>::THREADS)
+    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ m_out, float* __restrict__ l_out,
+                          int n_q, int n_kv, float scale) {
+  using namespace hopper;
+  using P = FwdPlan<D>;
+  using T = Tile<D>;
+  constexpr int NT = P::THREADS, STAGES = P::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sKV = (smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  // this thread's accumulator rows (of the warpgroup's 64) and first column
+  const int row_lo = (tid % 128) / 32 * 16 + lane / 4;
+  const int col0 = (lane % 4) * 2;
+  const int bh = blockIdx.y, q0 = blockIdx.x * P::ROWS;
+  const __nv_bfloat16* qb = q + (size_t)bh * n_q * D;
+  const __nv_bfloat16* kb = k + (size_t)bh * n_kv * D;
+  const __nv_bfloat16* vb = v + (size_t)bh * n_kv * D;
+  const int n_tiles = (n_kv + 63) / 64;
+
+  const TileLoader<D, NT> loader(tid);
+  // steps are loaded, and used, in order: two stage counters walk the ring
+  int load_stage = 0, use_stage = 0;
+  // one group per step, empty past the end, so that the wait counts groups
+  auto load_step = [&](int u) {
+    if (u <= n_tiles) {
+      const uint32_t st = sKV + load_stage * P::STAGE_BYTES;
+      if (u < n_tiles) loader.load(st, kb, u * 64, n_kv);
+      if (u > 0) loader.load(st + T::BYTES, vb, (u - 1) * 64, n_kv);
+    }
+    load_stage = load_stage + 1 == STAGES ? 0 : load_stage + 1;
+    cp_async_commit();
+  };
+  // Step u has landed for every thread, and every warpgroup is done with
+  // step u - 1, whose stage the next load overwrites.
+  auto step_ready = [&](int u) {
+    cp_async_wait<STAGES - 2>();
+    fence_async_proxy();
+    __syncthreads();
+    load_step(u + STAGES - 1);
+    const uint32_t st = sKV + use_stage * P::STAGE_BYTES;
+    use_stage = use_stage + 1 == STAGES ? 0 : use_stage + 1;
+    return st;
+  };
+#pragma unroll
+  for (int u = 0; u < STAGES - 1; ++u) load_step(u);
+
+  // this thread's part of its warpgroup's 64 query rows, as the A operand
+  // of the D / 16 k-steps of q k^T; rows past the end are zeros
+  const int r_lo = q0 + wg * 64 + row_lo, r_hi = r_lo + 8;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r % 2 ? r_hi : r_lo;
+      const int col = 16 * kk + 8 * (r / 2) + col0;
+      qa[kk][r] = row < n_q ? *reinterpret_cast<const uint32_t*>(
+                                  qb + (size_t)row * D + col)
+                            : 0u;
+    }
+  auto start_qk = [&](float(&s)[32], uint32_t st) {
+    const uint64_t desc_k = T::desc(st);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_rs_n64(s, qa[kk], desc_k + kk * T::K_STEP, kk > 0);
+    wg_commit();
+  };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running maximum of q k^T and this thread's share of the running sum,
+  // for rows row_lo (lo) and row_lo + 8 (hi)
+  float m_lo = NEG, m_hi = NEG, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
+  const float c = scale * LOG2E;
+  float s[32];
+  uint32_t pa[4][4];
+
+  auto start_pv = [&](uint32_t st) {
+    const uint64_t desc_v = T::desc(st + T::BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(o, pa[kk], desc_v + kk * T::MN_STEP);
+    wg_commit();
+  };
+
+  // One turn. The exponentials hide p v; q k^T is waited for at once,
+  // because the maxima that follow it shuffle.
+  auto turn = [&](int u, auto first, auto masked) {
+    const uint32_t st = step_ready(u);
+    wg_fence();
+    start_qk(s, st);
+    wg_wait<0>();
+    reg_fence(s);
+    softmax_max<decltype(masked)::value>(s, c, n_kv - u * 64, col0, m_lo,
+                                         m_hi, a_lo, a_hi);
+    if (!decltype(first)::value) {
+      wg_fence();
+      start_pv(st);
+    }
+    softmax_exp(s, c, m_lo, m_hi, a_lo, a_hi, l_lo, l_hi);
+    if (!decltype(first)::value) {
+      wg_wait<0>();
+      reg_fence(o);
+      reg_fence(pa);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i / 2) % 2 ? a_hi : a_lo;
+    }
+    pack_tile(pa, s);
+  };
+  // only the last tile is masked; the first has no p v to start
+  if (n_tiles == 1) {
+    turn(0, std::true_type{}, std::true_type{});
+  } else {
+    turn(0, std::true_type{}, std::false_type{});
+    for (int u = 1; u < n_tiles - 1; ++u)
+      turn(u, std::false_type{}, std::false_type{});
+    turn(n_tiles - 1, std::false_type{}, std::true_type{});
+  }
+  {
+    const uint32_t st = step_ready(n_tiles);
+    wg_fence();
+    start_pv(st);
+    wg_wait<0>();
+    reg_fence(o);
+  }
+  cp_async_wait<0>();
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  if (lane % 4 == 0) {
+    if (r_lo < n_q) {
+      m_out[(size_t)bh * n_q + r_lo] = m_lo * scale;
+      l_out[(size_t)bh * n_q + r_lo] = l_lo;
+    }
+    if (r_hi < n_q) {
+      m_out[(size_t)bh * n_q + r_hi] = m_hi * scale;
+      l_out[(size_t)bh * n_q + r_hi] = l_hi;
+    }
+  }
+  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  __nv_bfloat16* ob = out + (size_t)bh * n_q * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r_lo < n_q)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r_lo * D + col) =
+          pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+    if (r_hi < n_q)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r_hi * D + col) =
+          pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+  }
+}
+
+// -------------------------------------------------------- dK/dV, bf16 ---
+
+// A block is NWG warpgroups, each owning 64 key rows whose K and V tiles
+// stay in shared memory; Q, dO, lse and delta tiles of 64 query rows stream
+// through the ring. Shared memory: K tiles, V tiles, the ring's Q and dO
+// tiles, then the ring's lse and delta rows.
+template <int D>
+struct DkvPlan {
+  static constexpr int NWG = ADELL_DKV_WARPGROUPS;
+  static constexpr int STAGES = ADELL_DKV_STAGES;
+  static_assert(STAGES >= 2, "a stage in use and one in flight");
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int ROWS = 64 * NWG;  // key rows per block
+  static constexpr int STAGE_BYTES = 2 * hopper::Tile<D>::BYTES;
+  static constexpr int ROW_STAGE_BYTES = 2 * 64 * 4;  // lse and delta
+  static constexpr int SMEM = 2 * NWG * hopper::Tile<D>::BYTES +
+                              STAGES * (STAGE_BYTES + ROW_STAGE_BYTES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvPlan<D>::THREADS)
+    flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int n_q,
+                              int n_kv, float scale) {
+  using namespace hopper;
+  using P = DkvPlan<D>;
+  using T = Tile<D>;
+  constexpr int NT = P::THREADS, STAGES = P::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + P::NWG * T::BYTES;
+  const uint32_t sQdO = sV + P::NWG * T::BYTES;
+  const uint32_t sRows = sQdO + STAGES * P::STAGE_BYTES;
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int row_lo = (tid % 128) / 32 * 16 + lane / 4;
+  const int col0 = (lane % 4) * 2;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * P::ROWS;
+  const __nv_bfloat16* qb = q + (size_t)bh * n_q * D;
+  const __nv_bfloat16* dob = dout + (size_t)bh * n_q * D;
+  const float* lse_b = lse + (size_t)bh * n_q;
+  const float* delta_b = delta + (size_t)bh * n_q;
+  const int n_tiles = (n_q + 63) / 64;
+
+  const TileLoader<D, NT> loader(tid);
+  auto load_q = [&](int t) {
+    if (t < n_tiles) {
+      const int stage = t % STAGES, r0 = t * 64;
+      const uint32_t st = sQdO + stage * P::STAGE_BYTES;
+      loader.load(st, qb, r0, n_q);
+      loader.load(st + T::BYTES, dob, r0, n_q);
+      // 64 lse and 64 delta values; zeros past the end, which keep p and ds
+      // finite there (the zero rows of Q and dO then add nothing)
+      if (tid < 128) {
+        const int r = tid % 64;
+        const bool ok = r0 + r < n_q;
+        const float* src = (tid < 64 ? lse_b : delta_b) + (ok ? r0 + r : 0);
+        cp_async_4(sRows + stage * P::ROW_STAGE_BYTES + tid * 4, src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int w = 0; w < P::NWG; ++w) {
+    loader.load(sK + w * T::BYTES, k + (size_t)bh * n_kv * D, kv0 + w * 64,
+                n_kv);
+    loader.load(sV + w * T::BYTES, v + (size_t)bh * n_kv * D, kv0 + w * 64,
+                n_kv);
+  }
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_q(t);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const float c = scale * LOG2E;
+  const uint64_t desc_k = T::desc(sK + wg * T::BYTES);
+  const uint64_t desc_v = T::desc(sV + wg * T::BYTES);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    fence_async_proxy();
+    __syncthreads();
+    load_q(t + STAGES - 1);
+    const int stage = t % STAGES;
+    const uint32_t st = sQdO + stage * P::STAGE_BYTES;
+    const uint64_t desc_q = T::desc(st), desc_do = T::desc(st + T::BYTES);
+    const float* lse_s = rows + stage * (P::ROW_STAGE_BYTES / 4);
+    const float* delta_s = lse_s + 64;
+
+    // s^T = k q^T and dp^T = v dO^T: rows are this warpgroup's key rows,
+    // columns the tile's query rows
+    float st_acc[32], dpt_acc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(st_acc, desc_k + kk * T::K_STEP, desc_q + kk * T::K_STEP,
+                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dpt_acc, desc_v + kk * T::K_STEP, desc_do + kk * T::K_STEP,
+                   kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(st_acc);
+    reg_fence(dpt_acc);
+
+    // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale, in place
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + 8 * j + col0);
+      const float2 de =
+          *reinterpret_cast<const float2*>(delta_s + 8 * j + col0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float lse_c = (e % 2 ? ls.y : ls.x) * LOG2E;
+        const float delta_c = e % 2 ? de.y : de.x;
+        const float p = exp2_approx(fmaf(st_acc[i], c, -lse_c));
+        st_acc[i] = p;
+        dpt_acc[i] = p * (dpt_acc[i] - delta_c) * scale;
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] =
+            pack_bf16(st_acc[8 * kk + 2 * r], st_acc[8 * kk + 2 * r + 1]);
+        dsa[kk][r] =
+            pack_bf16(dpt_acc[8 * kk + 2 * r], dpt_acc[8 * kk + 2 * r + 1]);
+      }
+    // dv += p^T dO and dk += ds^T q: the contraction runs down the tiles' rows
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(dv_acc, pa[kk], desc_do + kk * T::MN_STEP);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(dk_acc, dsa[kk], desc_q + kk * T::MN_STEP);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+  }
+  cp_async_wait<0>();
+
+  const int r_lo = kv0 + wg * 64 + row_lo, r_hi = r_lo + 8;
+  __nv_bfloat16* dkb = dk + (size_t)bh * n_kv * D;
+  __nv_bfloat16* dvb = dv + (size_t)bh * n_kv * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r_lo < n_kv) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)r_lo * D + col) =
+          pack_bf16(dk_acc[4 * j], dk_acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)r_lo * D + col) =
+          pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+    }
+    if (r_hi < n_kv) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)r_hi * D + col) =
+          pack_bf16(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)r_hi * D + col) =
+          pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+    }
+  }
+}
+
 // ----------------------------------------------------------- launchers ---
+
+// Grid, block and shared memory of each kernel: forward and dK/dV take the
+// Hopper kernels for bf16 and the shared-memory kernels for f32.
+template <typename T, int D>
+struct Launch {
+  static constexpr bool HOPPER = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int FWD_ROWS = HOPPER ? FwdPlan<D>::ROWS : BQ;
+  static constexpr int FWD_THREADS = HOPPER ? FwdPlan<D>::THREADS : THREADS;
+  static constexpr int FWD_SMEM = HOPPER ? FwdPlan<D>::SMEM : Layout<T, D>::FWD;
+  static constexpr int DQ_ROWS = BQ;
+  static constexpr int DQ_THREADS = THREADS;
+  static constexpr int DQ_SMEM = Layout<T, D>::DQ;
+  static constexpr int DKV_ROWS = HOPPER ? DkvPlan<D>::ROWS : BK;
+  static constexpr int DKV_THREADS = HOPPER ? DkvPlan<D>::THREADS : THREADS;
+  static constexpr int DKV_SMEM = HOPPER ? DkvPlan<D>::SMEM : Layout<T, D>::DKV;
+};
+
+// The kernel of each input type, chosen by overload.
+template <int D>
+auto fwd_kernel(__nv_bfloat16) {
+  return flash_fwd_bf16_kernel<D>;
+}
+template <int D>
+auto fwd_kernel(float) {
+  return flash_fwd_f32_kernel<D>;
+}
+template <int D>
+auto dkv_kernel(__nv_bfloat16) {
+  return flash_bwd_dkv_bf16_kernel<D>;
+}
+template <int D>
+auto dkv_kernel(float) {
+  return flash_bwd_dkv_f32_kernel<D>;
+}
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* m, void* l, int bh, int n_q, int n_kv, float scale,
                cudaStream_t st) {
-  auto kernel = flash_fwd_kernel<T, D>;
-  constexpr int bytes = Layout<T, D>::FWD;
+  using L = Launch<T, D>;
+  auto kernel = fwd_kernel<D>(T());
   cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::FWD_SMEM);
   if (rc != cudaSuccess) return (int)rc;
-  dim3 grid((n_q + BQ - 1) / BQ, bh);
-  kernel<<<grid, THREADS, bytes, st>>>(
+  dim3 grid((n_q + L::FWD_ROWS - 1) / L::FWD_ROWS, bh);
+  kernel<<<grid, L::FWD_THREADS, L::FWD_SMEM, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(m),
       static_cast<float*>(l), n_q, n_kv, scale);
@@ -444,13 +968,13 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int n_q,
               int n_kv, float scale, cudaStream_t st) {
+  using L = Launch<T, D>;
   auto kernel = flash_bwd_dq_kernel<T, D>;
-  constexpr int bytes = Layout<T, D>::DQ;
   cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DQ_SMEM);
   if (rc != cudaSuccess) return (int)rc;
-  dim3 grid((n_q + BQ - 1) / BQ, bh);
-  kernel<<<grid, THREADS, bytes, st>>>(
+  dim3 grid((n_q + L::DQ_ROWS - 1) / L::DQ_ROWS, bh);
+  kernel<<<grid, L::DQ_THREADS, L::DQ_SMEM, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -462,18 +986,33 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int n_q, int n_kv, float scale, cudaStream_t st) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  constexpr int bytes = Layout<T, D>::DKV;
+  using L = Launch<T, D>;
+  auto kernel = dkv_kernel<D>(T());
   cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DKV_SMEM);
   if (rc != cudaSuccess) return (int)rc;
-  dim3 grid((n_kv + BK - 1) / BK, bh);
-  kernel<<<grid, THREADS, bytes, st>>>(
+  dim3 grid((n_kv + L::DKV_ROWS - 1) / L::DKV_ROWS, bh);
+  kernel<<<grid, L::DKV_THREADS, L::DKV_SMEM, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv, scale);
   return (int)cudaGetLastError();
+}
+
+// out[0..2]: rows of the output a block owns, threads a block, bytes of
+// dynamic shared memory, of kernel kind (0 forward, 1 dQ, 2 dK/dV).
+template <typename T, int D>
+int plan_of(int kind, int* out) {
+  using L = Launch<T, D>;
+  const int plans[3][3] = {
+      {L::FWD_ROWS, L::FWD_THREADS, L::FWD_SMEM},
+      {L::DQ_ROWS, L::DQ_THREADS, L::DQ_SMEM},
+      {L::DKV_ROWS, L::DKV_THREADS, L::DKV_SMEM},
+  };
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i) out[i] = plans[kind][i];
+  return 0;
 }
 
 // The head dims the kernels are built for; the wrapper refuses the rest.
@@ -510,6 +1049,12 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <typename T>
+int plan(int kind, int d, int* out) {
+  ADELL_DISPATCH_HEAD_DIM(d, (plan_of<T, 32>(kind, out)),
+                          (plan_of<T, 64>(kind, out)))
+}
+
+template <typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int bh,
             int n_q, int n_kv, int d, float scale, void* stream) {
@@ -543,6 +1088,9 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
       int n_q, int n_kv, int d, float scale, void* stream) {                  \
     return bwd_dkv<T>(q, k, v, dout, lse, delta, dk, dv, bh, n_q, n_kv, d,    \
                       scale, stream);                                         \
+  }                                                                           \
+  extern "C" int adell_flash_plan_##SUFFIX(int kind, int d, int* out) {       \
+    return plan<T>(kind, d, out);                                             \
   }
 
 ADELL_FLASH_ENTRY_POINTS(bf16, __nv_bfloat16)

@@ -18,9 +18,14 @@ written to device memory. All three are bound by operations on the H100
 (about 1000 FLOP per byte at ``[1, 8, 2048, 64]`` in bf16, against the
 card's ridge of 295): the least times there are 8.7 us, 13.0 us and
 17.4 us at 989 TFLOP/s. A block owns a 64-row tile of its output and loops
-over the other sequence inside the block, with bf16 tensor-core products
-(f32 FMA for f32 inputs) and f32 sums; the source's header says what the
-simple design leaves on the table.
+over the other sequence inside the block. In bf16 the forward and dK/dV
+are Hopper kernels: warpgroup ``wgmma`` products whose sums, scores, p and
+ds stay in registers (dK/dV on transposed tiles, so it reduces nothing),
+fed by a ``cp.async`` ring of swizzled shared-memory tiles with one block
+barrier a tile. Still to be redesigned the same way: dQ (bf16 WMMA through
+shared-memory accumulators) and the f32 path of all three (plain FMA, kept
+for exact comparisons). ``launch_plan`` mirrors the launchers' grids and
+shared-memory sizes; the source's header says what bounds each design.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch;
 for CPU tensors, and only for them, it runs its plain PyTorch version,
@@ -38,6 +43,52 @@ from adell_mri_torch.ops.kernels.conv import _on_card
 
 HEAD_DIMS = (32, 64)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
+#: most dynamic shared memory a block may ask for on the H100
+MAX_SMEM = 232448
+
+
+def launch_plan(stem, dtype, bh, n_q, n_kv, d):
+    """What the C launcher of ``adell_flash_{stem}`` does with a shape:
+    ``grid`` (blocks along the sequence the kernel owns, B * H), ``threads``
+    a block and dynamic shared-memory ``smem`` bytes. It repeats the
+    layouts of ``csrc/flash_attention.cu`` (``FwdPlan``, ``DkvPlan``,
+    ``Layout``), whose ``adell_flash_plan_*`` the card tests hold it to.
+    A block owns 64 rows: query rows for ``fwd`` and ``bwd_dq``, key rows
+    for ``bwd_dkv``."""
+    if stem not in _KINDS:
+        raise ValueError(f"launch_plan: stem must be one of {_KINDS}")
+    if d not in HEAD_DIMS or dtype not in _SUFFIX:
+        raise ValueError(f"launch_plan: no kernel for D={d}, {dtype}")
+    rows, threads = 64, 128
+    if dtype == torch.bfloat16 and stem != "bwd_dq":
+        # wgmma kernels: 64-row swizzled bf16 tiles, 1024 bytes of slack to
+        # align them; forward: a ring of 3 (K, V) stages (Q is in
+        # registers); dK/dV: its K and V tiles, a ring of 4 (Q, dO) stages
+        # and 4 x (lse, delta) rows of 64 f32
+        tile = 64 * d * 2
+        smem = {
+            "fwd": 3 * 2 * tile,
+            "bwd_dkv": 2 * tile + 4 * (2 * tile + 2 * 64 * 4),
+        }[stem] + 1024
+    else:
+        # shared-memory kernels: tiles in the input type with padded rows,
+        # f32 score and accumulator tiles, each rounded up to 128 bytes
+        item, pad = (2, 8) if dtype == torch.bfloat16 else (4, 1)
+
+        def r128(n):
+            return (n + 127) // 128 * 128
+
+        t_in, t_p = r128(64 * (d + pad) * item), r128(64 * (64 + pad) * item)
+        t_s, t_o, row = r128(64 * 68 * 4), r128(64 * (d + 4) * 4), 256
+        smem = {
+            "fwd": 3 * t_in + t_s + t_p + t_o + row,
+            "bwd_dq": 4 * t_in + 2 * t_s + t_p + t_o,
+            "bwd_dkv": 4 * t_in + 2 * t_s + 2 * t_p + 2 * t_o,
+        }[stem]
+    owned = n_kv if stem == "bwd_dkv" else n_q
+    return dict(grid=(-(-owned // rows), bh), rows=rows, threads=threads,
+                smem=smem)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -89,9 +140,12 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale):
 # -- wrappers -----------------------------------------------------------------
 
 
-def _check(name, q, k, v, rows=(), dout=None):
-    """Shapes, types, devices and layout the kernels take. ``rows``: f32
-    ``[B, H, Nq, 1]`` statistics; ``dout``: shaped and typed like q."""
+def _check(name, q, k, v, rows=(), dout=None, scale=None):
+    """Shapes, types, devices, layout and scale the kernels take. ``rows``:
+    f32 ``[B, H, Nq, 1]`` statistics; ``dout``: shaped and typed like q."""
+    if scale is not None and not 0.0 < float(scale) < float("inf"):
+        # the Hopper kernels take the row maximum before they scale
+        raise ValueError(f"{name} takes a positive finite scale, got {scale}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(
             f"{name}: q and k must be [B, H, N, D], got {tuple(q.shape)} "
@@ -115,6 +169,8 @@ def _check(name, q, k, v, rows=(), dout=None):
         raise TypeError(f"{name} takes bf16 or f32, got {q.dtype}")
     if b * h > 65535:
         raise ValueError(f"{name} takes B * H <= 65535, got {b * h}")
+    if max(nq, k.shape[2]) > 2**31 - 128:
+        raise ValueError(f"{name}: sequence too long for 32-bit tile indices")
     tensors = [("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype)]
     if dout is not None:
         if dout.shape != q.shape:
@@ -147,6 +203,10 @@ def _launch(stem, q, tensors, n_kv, scale):
     b, h, nq, d = q.shape
     if b * h * nq == 0:
         return False
+    plan = launch_plan(stem, q.dtype, b * h, nq, n_kv, d)
+    if plan["smem"] > MAX_SMEM:
+        raise ValueError(f"flash_attention {stem}: {plan['smem']} bytes of "
+                         f"shared memory a block, the card gives {MAX_SMEM}")
     fn = getattr(load_library(), f"adell_flash_{stem}_{_SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -165,7 +225,7 @@ def flash_attention_fwd(q, k, v, scale=None):
         scale = q.shape[-1] ** -0.5
     if not _on_card(q, "flash_attention_fwd"):
         return flash_attention_fwd_reference(q, k, v, scale)
-    _check("flash_attention_fwd", q, k, v)
+    _check("flash_attention_fwd", q, k, v, scale=scale)
     out = torch.empty_like(q)
     m = torch.empty(q.shape[:3] + (1,), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -186,7 +246,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale):
         return flash_attention_bwd_dq_reference(
             q, k, v, dout, lse, delta, scale
         )
-    _check("flash_attention_bwd_dq", q, k, v, (lse, delta), dout)
+    _check("flash_attention_bwd_dq", q, k, v, (lse, delta), dout, scale)
     dq = torch.empty_like(q)
     flash_attention_bwd_dq.launches += _launch(
         "bwd_dq", q, (q, k, v, dout, lse, delta, dq), k.shape[2], scale
@@ -203,7 +263,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale):
         return flash_attention_bwd_dkv_reference(
             q, k, v, dout, lse, delta, scale
         )
-    _check("flash_attention_bwd_dkv", q, k, v, (lse, delta), dout)
+    _check("flash_attention_bwd_dkv", q, k, v, (lse, delta), dout, scale)
     # without query rows no block runs, and the sums over them are 0
     alloc = torch.empty_like if q.shape[2] else torch.zeros_like
     dk, dv = alloc(k), alloc(v)

@@ -4,9 +4,10 @@ Builds the port's CUDA kernels with ``nvcc`` and loads them with ``ctypes``.
 Every ``*.cu`` under ``adell_mri_torch/csrc/`` is compiled for Hopper
 (``sm_90a``) into one shared library with a plain C interface,
 ``build/adell_kernels/libadell_kernels.so`` at the repository root, at
-first use. Sources compile in parallel (one ``nvcc`` each) and link once.
-The library is rebuilt whenever the sources' content hash changes. A
-failed build raises with the compiler's output; nothing falls back.
+first use. Sources compile in parallel (one ``nvcc`` each, with ``csrc/``
+on the include path for its ``*.cuh`` headers) and link once. The library
+is rebuilt whenever the content hash of the sources and headers changes.
+A failed build raises with the compiler's output; nothing falls back.
 """
 
 import ctypes
@@ -37,9 +38,15 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def _source_hash(sources) -> str:
+def _headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _source_hash(sources, headers=()) -> str:
+    """Hash of everything a build reads: sources, the headers they may
+    include, and the flags."""
     h = hashlib.sha256()
-    for path in sources:
+    for path in (*sources, *headers):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -67,7 +74,8 @@ def _compile(nvcc: str, sources, out_path: Path) -> str:
         procs = []
         for src in sources:
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
+                   "-o", str(obj)]
             procs.append(
                 (src, obj, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -123,6 +131,10 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p]
     ),
+    # kind (0 fwd, 1 dq, 2 dkv), D, out[3]: rows a block, threads, smem bytes
+    "adell_flash_plan": (
+        [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    ),
 }
 
 
@@ -147,7 +159,7 @@ def load_library():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         lib_path = BUILD_DIR / LIB_NAME
         stamp = BUILD_DIR / "sources.sha256"
-        digest = _source_hash(sources)
+        digest = _source_hash(sources, _headers())
         fresh = (
             lib_path.exists()
             and stamp.exists()

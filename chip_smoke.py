@@ -8,7 +8,8 @@ failure:
 
 1. device: the card's name and power limit;
 2. build: every CUDA source of the port, compiled with ``nvcc`` into
-   ``build/adell_kernels/`` (seconds printed);
+   ``build/adell_kernels/`` (seconds printed); ptxas must report no spill
+   and no serialized ``wgmma`` for the Hopper attention kernels;
 3. kernel vs plain: ``conv3d_igemm`` against ``conv3d_igemm_reference``
    at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off), with
    times beside ``F.conv3d`` (cuDNN, a yardstick the port never calls);
@@ -39,10 +40,13 @@ failure:
 10. attention kernels vs plain: ``flash_attention_fwd`` (out, m, l),
     ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` against their
     plain versions at q, k, v [1,8,2048,64] and [2,8,2048,64] (UNETR's
-    serving and training shapes), a ragged shape (Nq 2050, Nkv 2311) and
-    head dim 32, bf16 and f32; timed beside their bounds, the plain
-    versions and ``F.scaled_dot_product_attention`` (a yardstick the port
-    never calls);
+    serving and training shapes), a ragged shape (Nq 2050, Nkv 2311),
+    head dim 32, either sequence at the edges of the 64-row tiles (1, 63,
+    64, 65, 127, 128, 129 tokens against 2048) and B x H of 1 x 1 and
+    4 x 8, bf16 and f32; the bf16 forward and dK/dV bit-equal over two
+    runs; timed beside their bounds, the plain versions and
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls:
+    forward, forward + backward, and by difference its backward alone);
 11. UNETR serving: ``sample_configs/unetr.yaml`` at full width in bf16
     from seeded weights serves one 256x256x64 case as one window through
     ``SegmentationInference``: 8 forward-attention launches and 9 conv
@@ -93,6 +97,8 @@ UNETR_HEAD_DIM = 64
 UNETR_CONVS = 9
 UNETR_CONVS_DX = 8
 UNETR_TIMED_STEPS = 3
+# sequence lengths around the attention kernels' 64-row tiles
+ATTENTION_TILE_EDGES = (1, 63, 64, 65, 127, 128, 129)
 
 
 def log(*args):
@@ -241,8 +247,33 @@ def phase_build():
     build.load_library()
     secs = time.perf_counter() - t0
     log(f"[build] {secs:.2f} s (nvcc {build.build_info['seconds']})")
-    log(build.build_info["log"])
+    build_log = (build.BUILD_DIR / "build.log").read_text()
+    log(build_log)
+    check_hopper_build(build_log)
     return secs
+
+
+def check_hopper_build(build_log):
+    """ptxas must keep the bf16 forward and dK/dV kernels whole: no spilled
+    registers, and no note (C75xx) that it serialized their ``wgmma``
+    products, which would undo their overlap without failing anything."""
+    lines = build_log.splitlines()
+    faults = [ln for ln in lines if "wgmma" in ln and "serialized" in ln]
+    for i, ln in enumerate(lines):
+        if "Function properties" in ln and "_bf16_kernel" in ln \
+                and "flash_" in ln and "0 bytes spill stores, 0 bytes " \
+                "spill loads" not in lines[i + 1]:
+            faults.append(ln + lines[i + 1])
+    if faults:
+        raise AssertionError("the Hopper attention kernels did not build "
+                             "as designed:\n" + "\n".join(faults))
+    n = sum("flash_" in ln and "_bf16_kernel" in ln
+            and "Function properties" in ln for ln in lines)
+    if n == 0:
+        raise AssertionError("no ptxas lines for the Hopper attention "
+                             "kernels in the build log")
+    log(f"  Hopper attention kernels: {n} ptxas entries, no spills, no "
+        "serialized wgmma")
 
 
 def phase_kernels():
@@ -1031,14 +1062,19 @@ def compare_attention(shape, dtype, seed, timed):
     # kernel against its running maximum, the plain version against the
     # final one) and the result once: one bf16 ulp, 2^-7 of the scale.
     # m is a maximum of f32 sums of exact products, l a sum of exp: 1e-4.
+    # With a single key the softmax is constant, so dq and dk vanish in exact
+    # arithmetic and what either side returns is the f32 rounding of
+    # dp - delta: their scale has a floor of 1e-2 of dv's, far below it at
+    # every other shape.
     bf16 = dtype == torch.bfloat16
     rel_f, rel_b = (2.0**-7, 2.0**-7) if bf16 else (2e-5, 1e-4)
+    grad_floor = 1e-2 * scale_of(w_dv, 1e-30)
     checks = {
         "out": (err_of(out, w_out), rel_f * scale_of(w_out, 1.0)),
         "m": (err_of(m, w_m), 1e-4 * scale_of(w_m, 1.0)),
         "l": (float(((l - w_l) / w_l).abs().max()), 1e-4),
-        "dq": (err_of(dq, w_dq), rel_b * scale_of(w_dq, 1e-30)),
-        "dk": (err_of(dk, w_dk), rel_b * scale_of(w_dk, 1e-30)),
+        "dq": (err_of(dq, w_dq), rel_b * scale_of(w_dq, grad_floor)),
+        "dk": (err_of(dk, w_dk), rel_b * scale_of(w_dk, grad_floor)),
         "dv": (err_of(dv, w_dv), rel_b * scale_of(w_dv, 1e-30)),
     }
     ok = all(e <= t for e, t in checks.values())
@@ -1062,6 +1098,8 @@ def compare_attention(shape, dtype, seed, timed):
     with torch.no_grad():
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     lib_both = time_ms(sdpa_fwd_bwd)
+    # the library's backward alone (dQ, dK and dV in one call), by difference
+    lib_bwd = lib_both - lib_fwd
     args = (q, k, v, g, lse, delta, scale)
     times = {
         "fwd": dict(
@@ -1074,13 +1112,13 @@ def compare_attention(shape, dtype, seed, timed):
             ms=time_ms(lambda: ka.flash_attention_bwd_dq(*args)),
             plain_ms=time_ms(
                 lambda: ka.flash_attention_bwd_dq_reference(*args)),
-            library_ms=lib_both,
+            library_ms=lib_both, library_bwd_ms=lib_bwd,
             max_abs_err=checks["dq"][0], tol=checks["dq"][1]),
         "bwd_dkv": dict(
             ms=time_ms(lambda: ka.flash_attention_bwd_dkv(*args)),
             plain_ms=time_ms(
                 lambda: ka.flash_attention_bwd_dkv_reference(*args)),
-            library_ms=lib_both,
+            library_ms=lib_both, library_bwd_ms=lib_bwd,
             max_abs_err=max(checks["dk"][0], checks["dv"][0]),
             tol=min(checks["dk"][1], checks["dv"][1])),
     }
@@ -1090,10 +1128,45 @@ def compare_attention(shape, dtype, seed, timed):
         log(f"    {kind}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
             f"{t['library_ms']:.4f} ms ("
-            f"{'forward' if kind == 'fwd' else 'forward + backward'}), "
-            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+            f"{'forward' if kind == 'fwd' else 'forward + backward'}"
+            + ("" if kind == "fwd" else f"; backward alone {lib_bwd:.4f} ms")
+            + f"), bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    both = times["bwd_dq"]["ms"] + times["bwd_dkv"]["ms"]
+    log(f"    bwd_dq + bwd_dkv: {both:.4f} ms against the library's "
+        f"backward alone {lib_bwd:.4f} ms ({both / lib_bwd:.2f}x)")
     row["times"] = times
     return row
+
+
+def attention_twice(shape, seed):
+    """The bf16 forward and dK/dV run twice on the same inputs must give
+    the same bits: every output element has one owner, nothing is atomic."""
+    import torch
+
+    from adell_mri_torch.ops.kernels import attention as ka
+
+    b, h, nq, nkv, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (
+        torch.randn((b, h, n, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+        for n in (nq, nkv, nkv, nq)
+    )
+    scale = d ** -0.5
+    runs = []
+    for _ in range(2):
+        out, m, l = ka.flash_attention_fwd(q, k, v, scale)
+        lse, delta = ka.backward_rows(out, m, l, g)
+        runs.append((out, m, l, *ka.flash_attention_bwd_dkv(
+            q, k, v, g, lse, delta, scale)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"  attention B={b} H={h} Nq={nq} Nkv={nkv} D={d} bfloat16 twice: "
+        f"out, m, l, dk, dv bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"attention kernels differ between two runs at "
+                             f"{shape}")
+    return dict(shape=list(shape), bit_equal=same)
 
 
 def phase_attention():
@@ -1101,7 +1174,8 @@ def phase_attention():
     (B=1) and training (B=2) shapes."""
     import torch
 
-    log("[attention vs plain] UNETR's shapes, a ragged one, head dim 32")
+    log("[attention vs plain] UNETR's shapes, a ragged one, head dim 32, "
+        "the edges of the 64-row tiles, B x H of 1 x 1 and 4 x 8")
     rows, main = [], {}
     main_shape = (UNETR_HEADS, UNETR_TOKENS, UNETR_TOKENS, UNETR_HEAD_DIM)
     cases = [
@@ -1109,12 +1183,26 @@ def phase_attention():
         ((1, UNETR_HEADS, 2050, 2311, UNETR_HEAD_DIM), False),
         ((1, 6, UNETR_TOKENS, UNETR_TOKENS, 32), False),
     ]
+    # untimed: either sequence at the edges of a tile against 2048 tokens,
+    # head dim 32 ragged, a grid that leaves the card idle and one that
+    # overfills a wave of blocks
+    for n in ATTENTION_TILE_EDGES:
+        cases.append(((1, 2, n, UNETR_TOKENS, UNETR_HEAD_DIM), False))
+        cases.append(((1, 2, UNETR_TOKENS, n, UNETR_HEAD_DIM), False))
+    cases += [
+        ((1, 3, 2050, 2311, 32), False),
+        ((1, 1, UNETR_TOKENS, UNETR_TOKENS, UNETR_HEAD_DIM), False),
+        ((4, 8, UNETR_TOKENS, UNETR_TOKENS, UNETR_HEAD_DIM), False),
+        ((4, 8, 1000, 1100, 32), False),
+    ]
     for i, (shape, timed) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             row = compare_attention(shape, dtype, 300 + i, timed)
             rows.append(row)
             if timed and dtype == torch.bfloat16:
                 main[shape[0]] = row["times"]
+    rows.append(attention_twice((2,) + main_shape, 400))
+    rows.append(attention_twice((1, 3, 2050, 2311, 32), 401))
     return rows, main
 
 
@@ -1514,16 +1602,22 @@ def main():
               attention[2]["bwd_dq"],
               "one call at [2,8,2048,64] bf16 (UNETR training; 8 per step); "
               "library: F.scaled_dot_product_attention forward + backward, "
-              "which also computes dK and dV",
+              "which also computes dK and dV; library_bwd_ms: that minus "
+              "its forward",
               attention[2]["bwd_dq"]["library_ms"]),
         entry("flash_attention_bwd_dkv", flash, f"{pallas_attention}:355",
               launches_of("flash_attention_bwd_dkv")[0],
               attention[2]["bwd_dkv"],
               "one call at [2,8,2048,64] bf16 (UNETR training; 8 per step); "
               "library: F.scaled_dot_product_attention forward + backward, "
-              "which also computes dQ",
+              "which also computes dQ; library_bwd_ms: that minus its "
+              "forward",
               attention[2]["bwd_dkv"]["library_ms"]),
     ]
+    # dQ and dK/dV together are the library's backward alone
+    for k in kernels[5:7]:
+        k["library_bwd_ms"] = attention[2][
+            k["name"].replace("flash_attention_", "")]["library_bwd_ms"]
     for k in kernels:
         k["launches_by_path"] = launches_of({
             "intensity_aug_batch": "intensity_aug",

@@ -179,3 +179,59 @@ def test_check_refuses_what_the_kernels_do_not_take(case):
         torch.zeros((1, 2, 12, 64)), torch.zeros((1, 2, 12, 64)),
         [torch.zeros((1, 2, 8, 1))],
     )
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan"), float("inf")])
+def test_check_refuses_a_scale_that_is_not_positive(scale):
+    """The Hopper kernels take the row maximum before they scale."""
+    q = torch.zeros((1, 2, 8, 64))
+    k = torch.zeros((1, 2, 12, 64))
+    with pytest.raises(ValueError, match="positive finite scale"):
+        tattn._check("flash_attention", q, k, k, scale=scale)
+    tattn._check("flash_attention", q, k, k, scale=0.125)
+
+
+# (stem, dtype, D) -> dynamic shared memory of a block, from the layouts of
+# csrc/flash_attention.cu worked out by hand
+PLAN_SMEM = {
+    ("fwd", torch.bfloat16, 64): 3 * 2 * 8192 + 1024,
+    ("fwd", torch.bfloat16, 32): 3 * 2 * 4096 + 1024,
+    ("bwd_dkv", torch.bfloat16, 64): 2 * 8192 + 4 * (2 * 8192 + 512) + 1024,
+    ("bwd_dkv", torch.bfloat16, 32): 2 * 4096 + 4 * (2 * 4096 + 512) + 1024,
+    ("bwd_dq", torch.bfloat16, 64): 98304,
+    ("fwd", torch.float32, 64): 101632,
+    ("bwd_dkv", torch.float32, 64): 4 * 16640 + 4 * 17408 + 2 * 16640,
+}
+
+
+@pytest.mark.parametrize("key", list(PLAN_SMEM), ids=str)
+def test_launch_plan_sizes(key):
+    stem, dtype, d = key
+    plan = tattn.launch_plan(stem, dtype, 16, 2050, 2311, d)
+    owned = 2311 if stem == "bwd_dkv" else 2050
+    assert plan["grid"] == (-(-owned // 64), 16)
+    assert (plan["rows"], plan["threads"]) == (64, 128)
+    assert plan["smem"] == PLAN_SMEM[key]
+    assert plan["smem"] <= tattn.MAX_SMEM
+
+
+def test_hopper_kernels_fit_more_blocks_than_the_first_design():
+    """Why the rewrite: 227 KB of shared memory an SM held one dK/dV block
+    of the shared-memory design; the wgmma design fits two, the forward
+    four."""
+    sm = 233472
+    for stem, blocks in (("fwd", 4), ("bwd_dkv", 2)):
+        smem = tattn.launch_plan(stem, torch.bfloat16, 8, 2048, 2048,
+                                 64)["smem"]
+        assert sm // (smem + 1024) == blocks
+    old_dkv = 124928
+    assert sm // (old_dkv + 1024) == 1
+
+
+@pytest.mark.parametrize("bad", ["stem", "head_dim", "dtype"])
+def test_launch_plan_refuses_what_has_no_kernel(bad):
+    args = dict(stem="fwd", dtype=torch.bfloat16, bh=1, n_q=8, n_kv=8, d=64)
+    args.update({"stem": {"stem": "bwd"}, "head_dim": {"d": 128},
+                 "dtype": {"dtype": torch.float16}}[bad])
+    with pytest.raises(ValueError):
+        tattn.launch_plan(**args)

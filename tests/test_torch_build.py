@@ -1,0 +1,70 @@
+"""
+The host side of ``ops/kernels/build.py``: what it hashes and how it calls
+``nvcc``.
+No compiler and no card are needed: the build is driven with a stand-in
+``nvcc`` that records its arguments.
+"""
+
+import stat
+
+from adell_mri_torch.ops.kernels import build
+
+
+def test_port_sources_and_headers_are_found():
+    names = {p.name for p in build._sources()}
+    assert {"conv3d_igemm.cu", "intensity_aug.cu",
+            "flash_attention.cu"} <= names
+    assert "wgmma.cuh" in {p.name for p in build._headers()}
+
+
+def test_hash_follows_a_header(tmp_path, monkeypatch):
+    """A changed header must rebuild: the hash covers ``*.cuh`` content."""
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("#define N 1\n")
+    first = build._source_hash(build._sources(), build._headers())
+    assert first == build._source_hash(build._sources(), build._headers())
+    (tmp_path / "h.cuh").write_text("#define N 2\n")
+    second = build._source_hash(build._sources(), build._headers())
+    assert second != first
+    # the sources alone hash to something else: the header is in it
+    assert build._source_hash(build._sources()) not in (first, second)
+
+
+def test_hash_follows_the_flags(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    (tmp_path / "a.cu").write_text("int x;\n")
+    before = build._source_hash(build._sources(), build._headers())
+    monkeypatch.setattr(build, "NVCC_FLAGS", [*build.NVCC_FLAGS, "-DX=1"])
+    assert build._source_hash(build._sources(), build._headers()) != before
+
+
+def test_compile_puts_csrc_on_the_include_path(tmp_path, monkeypatch):
+    """One compiler call per source with ``-I csrc`` and the Hopper target,
+    then one link."""
+    csrc, out = tmp_path / "csrc", tmp_path / "out"
+    csrc.mkdir()
+    out.mkdir()
+    (csrc / "a.cu").write_text("")
+    (csrc / "b.cu").write_text("")
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        'while [ $# -gt 0 ]; do\n'
+        '  if [ "$1" = "-o" ]; then touch "$2"; fi\n'
+        "  shift\n"
+        "done\n"
+    )
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    build._compile(str(nvcc), build._sources(), out / build.LIB_NAME)
+    lines = calls.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in ln]
+    assert len(compiles) == 2 and len(lines) == 3
+    for ln in compiles:
+        assert f"-I {csrc}" in ln and "arch=compute_90a,code=sm_90a" in ln
+    assert "-shared" in lines[-1] and "-lcuda" not in lines[-1]
+    assert (out / build.LIB_NAME).exists()
