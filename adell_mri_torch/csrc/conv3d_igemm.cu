@@ -1,30 +1,65 @@
-// Implicit-GEMM 3x3x3 stride-1 SAME 3D convolution forward, channels-last.
+// 3x3x3 stride-1 SAME 3D convolution forward, channels-last, for Hopper.
 //
 // Replaces adell_mri_tpu/ops/pallas/conv.py:_kernel (the TPU's implicit-GEMM
-// conv, called from conv3d_pallas_raw). Same function, new design:
+// conv, called from conv3d_pallas_raw). Same function:
 //
 //   out[b,z,y,x,co] = bias[co] + sum_{tap,ci} x[b,z+dz,y+dy,x+dx,ci] * w[tap,ci,co]
 //
-// read as a GEMM with M = B*D*H*W output voxels, N = Cout and K = 27*Cin,
-// k = tap*Cin + ci. That K order is the row-major flattening of the weight
-// [3,3,3,Cin,Cout], so the weight is already the [K, N] matrix. As on the
-// TPU, the [M, K] patch matrix never exists in device memory: each block
-// gathers its tile of shifted input rows into shared memory, zero-filling
-// taps that fall outside the volume (the SAME border), per element, so a
-// tile may cross row, slab and batch edges freely.
+// a GEMM with M = B*D*H*W output voxels, N = Cout and K = 27*Cin, k = tap*Cin
+// + ci, the row-major flattening of the weight [3,3,3,Cin,Cout]. As on the
+// TPU, the [M, K] patch matrix never exists in device memory. The input
+// gradient (dx) is the same function of the cotangent and the flipped,
+// channel-swapped weight, so it launches the same kernels.
 //
-// What bounds it on the H100: at the flagship's widths most of these convs
-// are above the card's ridge point (989 TFLOP/s bf16 over 3.35 TB/s, about
-// 295 FLOP per byte). The 32->32 stem conv at B=4, 128x128x32 does 116
-// GFLOP on 268 MB of input and output (430 FLOP/byte), so the tensor cores
-// bound it; only the Cin=1 convs are memory-bound. The design therefore
-// (1) feeds the tensor cores (bf16 WMMA 16x16x16 with f32 accumulation),
-// (2) never writes the 27x-larger patch matrix to memory, and (3) reads the
-// input with 16-byte vector loads when Cin is a multiple of 8. It does not
-// yet overlap loads with math (no cp.async/TMA pipeline, no wgmma): that is
-// where the remaining gap to the bound is.
+// What bounds it on the H100: operations. At the flagship's widths the convs
+// do 2*Cin*Cout FLOP per voxel and tap; the 32->32 conv at B=4, 128x128x32
+// does 116 GFLOP on 268 MB (430 FLOP/byte, the card's ridge is 295), and the
+// 1306 GFLOP of a window batch need 1.32 ms at 989 TFLOP/s. Only the Cin=1
+// stems are bound by bytes. A conv that reloads its shifted input rows for
+// every tap does only Cout FLOP per byte it loads: at Cout = 32 the tensor
+// cores at half rate would need about 15 TB/s from L2, at Cout = 16 about 30.
+// So reuse across taps, not the GEMM, decides the speed.
 //
-// The f32 path is plain FMA (no TF32), for exact comparisons and f32 serving.
+// conv3d_wgmma_bf16_kernel (bf16, Cin a multiple of 16, Cout of 8; the main
+// path's convs but the Cin=1 stems) is built for that:
+//   - a block owns a BOX of output voxels, (tz, ty, tx) with tz*ty*tx = 64
+//     per warpgroup (4x4x8 at the U-Net's 32-wide levels); the wrapper picks
+//     it from (D, H, W), and ragged boxes at the volume's edges are computed
+//     and not stored;
+//   - the block loads the box's input HALO, (tz+2)(ty+2)(tx+2) voxel rows of
+//     one channel chunk (16, 32 or 64 channels), once, with 16-byte cp.async
+//     copies that zero-fill rows outside the volume (the SAME border is data,
+//     never a skipped product). The 27 taps read their shifted rows from
+//     shared memory: 360 halo rows serve 27 x 128 tap rows (9.6x less load
+//     traffic than a gather per tap). Halo rows are padded by 16 bytes, so
+//     eight consecutive rows fall on distinct banks;
+//   - the A operand of a tap, 16 output rows by 16 channels a warp, goes to
+//     registers with ldmatrix at each row's shifted address (a per-lane
+//     address takes any row mapping, which a descriptor over a shifted tile
+//     cannot), and `wgmma` m64nNk16 takes A from registers and B, the tap's
+//     weight rows, from shared memory MN-major (tnspB), as the weight lies;
+//     sums stay in registers, N is the whole (padded) Cout of the block
+//     (16, 32, 64 or 128, one m64n128k16 product; Cout = 256 is two N
+//     blocks, which tune_conv measured 2.8x faster than one of 256);
+//   - weight slabs of G taps (G*Cin_chunk*N >= 2048, so a barrier is paid
+//     for enough products) stream through a ring of cp.async stages, and
+//     with more than one channel chunk the halo is double-buffered: the next
+//     chunk's halo loads while this one multiplies. The ring's lead caps G
+//     (Plan), so that halo is never loaded late or over the one in use;
+//   - a thread's halo row, box voxel and output offsets are computed once;
+//     in the loop a tap's shift is an add of constants, nothing is divided;
+//   - each tap's products are one group, waited for one tap later, so a
+//     tap's ldmatrix and the ring's barrier run while the previous tap's
+//     products are in flight; A registers alternate between two sets. First
+//     and last turns are fixed by unrolling, so the groups in flight never
+//     depend on a branch (ptxas would serialize every wgmma);
+//   - the epilogue adds the bias in f32 to the register sums and rounds once
+//     to bf16, as the plain version does.
+//
+// conv3d_igemm_bf16_kernel (the first design: a gathered patch tile, WMMA
+// 16x16x16, synchronous loads) keeps the bf16 convs the new kernel does not
+// take (the Cin=1 stems, which bytes bound). The f32 path is plain FMA (no
+// TF32), for exact comparisons and f32 training.
 //
 // C interface (loaded with ctypes): each launcher enqueues one kernel on the
 // given stream and returns cudaGetLastError().
@@ -33,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -301,6 +338,321 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// --------------------------------------------------------- bf16, Hopper ---
+
+// Tuning knobs (tools/tune_conv.py builds the variants): warpgroups a block
+// (64 output voxels each), weight ring stages, and the products a ring stage
+// must hold (G * CK * NB) before a barrier is paid for it.
+#ifndef ADELL_CONV_WARPGROUPS
+#define ADELL_CONV_WARPGROUPS 2
+#endif
+#ifndef ADELL_CONV_STAGES
+#define ADELL_CONV_STAGES 4
+#endif
+#ifndef ADELL_CONV_TAP_WORK
+#define ADELL_CONV_TAP_WORK 2048
+#endif
+
+namespace box {
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// The launch's geometry: the volume, the box a block owns and its halo.
+struct Geometry {
+  int D, H, W, Cin, Cout;
+  int tz, ty, tx;      // box
+  int nbz, nby, nbx;   // boxes along each axis
+  int hy, hx;          // halo extents along y and x (ty + 2, tx + 2)
+  int halo_rows;       // (tz + 2) * hy * hx
+  int n_chunks;        // Cin / CK
+};
+
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may have
+
+// Shared memory and threads of the kernel for a channel chunk CK and an N
+// block NB. Weight slabs of G taps fill a ring stage; G is the fewest taps
+// (of 1, 3, 9, 27) whose products G * CK * NB reach ADELL_CONV_TAP_WORK
+// (2048) a barrier, but no more than leaves a chunk STAGES - 2 ring steps:
+// the ring loads that far ahead, and the next chunk's halo goes with the
+// load of its first step, so a chunk of fewer steps would have its halo
+// loaded late, or into the buffer the chunk before it still reads.
+template <int CK, int NB>
+struct Plan {
+  static constexpr int NWG = ADELL_CONV_WARPGROUPS;
+  static constexpr int STAGES = ADELL_CONV_STAGES;
+  static_assert(STAGES >= 3, "a stage in use, one in flight, one loading");
+  static_assert(NWG == 1 || NWG == 2, "one or two warpgroups");
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int VOXELS = 64 * NWG;  // output voxels a block (its box)
+  static constexpr int ROW_BYTES = 2 * CK + 16;  // halo row, padded
+  static constexpr int WORK = ADELL_CONV_TAP_WORK;
+  static constexpr int G_WORK = CK * NB >= WORK       ? 1
+                                : 3 * CK * NB >= WORK ? 3
+                                : 9 * CK * NB >= WORK ? 9
+                                                      : 27;
+  static constexpr int AHEAD = STAGES - 2;     // ring steps loaded ahead
+  static constexpr int G_RING = 27 / AHEAD >= 27 ? 27
+                                : 27 / AHEAD >= 9 ? 9
+                                : 27 / AHEAD >= 3 ? 3
+                                                  : 1;
+  static constexpr int G = G_WORK < G_RING ? G_WORK : G_RING;
+  static constexpr int STEPS = 27 / G;         // ring steps a chunk
+  static_assert(STEPS >= AHEAD, "a chunk must outlast the ring's lead");
+  static constexpr int NT = NB > 64 ? 64 : NB; // width of a weight atom
+  static constexpr int SLAB = CK * NB * 2;     // one tap's weight rows
+  static constexpr int STAGE_BYTES = round_up(G * SLAB, 1024);
+  static int smem(int halo_rows, int n_chunks) {
+    const int bufs = n_chunks > 1 ? 2 : 1;
+    return STAGES * STAGE_BYTES + bufs * round_up(halo_rows * ROW_BYTES, 128) +
+           1024;
+  }
+  // the most halo rows whose buffers fit beside the ring
+  static int max_halo_rows(int n_chunks) {
+    const int bufs = n_chunks > 1 ? 2 : 1;
+    const int room = (MAX_SMEM - smem(0, n_chunks)) / bufs / 128 * 128;
+    return room / ROW_BYTES;
+  }
+};
+
+// v, hidden from the optimizer: the fully unrolled tap loop would otherwise
+// keep 27 per-tap offsets (shared and device addresses) live across the
+// chunk loop, about 100 registers and spills; recomputing one is an add or
+// two.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// d (+)= A B for one k-step of one tap: N = NB from the tap's MN-major
+// weight slab at shared address slab (CK rows of each 64-wide atom).
+template <int CK, int NB>
+__device__ __forceinline__ void tap_product(float (&d)[NB / 2],
+                                            const uint32_t (&a)[4],
+                                            uint32_t slab, int kk) {
+  using namespace hopper;
+  using T = Tile<(NB > 64 ? 64 : NB)>;
+  const uint32_t k_off = kk * 16 * T::ROW_BYTES;
+  if constexpr (NB <= 64)
+    wgmma_rs_mn(d, a, T::desc(slab + k_off));
+  else  // two 64-wide atoms, CK rows apart
+    wgmma_rs_mn(d, a, T::desc(slab + k_off, CK * T::ROW_BYTES));
+}
+
+template <int CK, int NB>
+__global__ void __launch_bounds__(Plan<CK, NB>::THREADS)
+    conv3d_wgmma_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                             const __nv_bfloat16* __restrict__ w,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ out, Geometry s) {
+  using namespace hopper;
+  using P = Plan<CK, NB>;
+  using T = Tile<P::NT>;
+  constexpr int NTH = P::THREADS, G = P::G, STAGES = P::STAGES;
+  constexpr int KSTEPS = CK / 16;
+  constexpr int CPR = CK / 8;   // 16-byte chunks of a halo row
+  constexpr int WCH = NB / 8;   // 16-byte chunks of a weight row
+  constexpr int ACH = P::NT / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sW = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sHalo = sW + STAGES * P::STAGE_BYTES;
+  const uint32_t halo_bytes = box::round_up(s.halo_rows * P::ROW_BYTES, 128);
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wrow = tid / 128 * 64 + (tid % 128) / 32 * 16;  // warp's 1st row
+  int blk = blockIdx.x;
+  const int x0 = blk % s.nbx * s.tx;
+  blk /= s.nbx;
+  const int y0 = blk % s.nby * s.ty;
+  blk /= s.nby;
+  const int z0 = blk % s.nbz * s.tz;
+  const int b = blk / s.nbz;
+  const int n0 = blockIdx.y * NB;
+  const int cin = s.Cin, cout = s.Cout;
+  const size_t vol = (size_t)s.D * s.H * s.W;
+
+  // Chunk c of the halo: row (hz, hy, hx) is voxel (z0 + hz - 1, ...).
+  auto load_halo = [&](int c, uint32_t buf) {
+    const __nv_bfloat16* xc = x + (size_t)b * vol * cin + c * CK;
+    for (int i = tid; i < s.halo_rows * CPR; i += NTH) {
+      const int row = i / CPR, ch = i % CPR;
+      const int hx = row % s.hx, t2 = row / s.hx;
+      const int hy = t2 % s.hy, hz = t2 / s.hy;
+      const int gz = z0 + hz - 1, gy = y0 + hy - 1, gx = x0 + hx - 1;
+      const bool ok = (unsigned)gz < (unsigned)s.D &&
+                      (unsigned)gy < (unsigned)s.H &&
+                      (unsigned)gx < (unsigned)s.W;
+      const size_t v = ok ? ((size_t)gz * s.H + gy) * s.W + gx : 0;
+      cp_async_16(buf + row * P::ROW_BYTES + ch * 16, xc + v * cin + ch * 8,
+                  ok);
+    }
+  };
+  // Weight rows of taps t0 .. t0 + G - 1 of chunk c; zeros when !live (a
+  // step past the end, which no product reads) and past Cout.
+  auto load_w = [&](int c, int t0, uint32_t st, bool live) {
+#pragma unroll
+    for (int i0 = 0; i0 < G * CK * WCH; i0 += NTH) {
+      // recomputed each step: hoisted, these offsets took the registers
+      // that N = 128 at 64 channels needs
+      const int i = i0 + opaque(tid);
+      if (G * CK * WCH % NTH == 0 || i < G * CK * WCH) {
+        const int g = i / (CK * WCH), r = i / WCH % CK, j = i % WCH;
+        const int col = n0 + j * 8;
+        const bool ok = live && col < cout;
+        const size_t row = (size_t)(t0 + g) * opaque(cin) + c * CK + r;
+        cp_async_16(st + g * P::SLAB + j / ACH * CK * T::ROW_BYTES +
+                        T::offset(r, j % ACH),
+                    w + (ok ? row * cout + col : 0), ok);
+      }
+    }
+  };
+
+  // this lane's ldmatrix row (of its warp's 16) and its halo address
+  const int arow = wrow + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int vz = arow / (s.ty * s.tx), vy = arow / s.tx % s.ty;
+  const int vx = arow % s.tx;
+  const uint32_t a_off =
+      (((vz + 1) * s.hy + vy + 1) * s.hx + vx + 1) * P::ROW_BYTES +
+      (lane >> 4) * 16;
+  const int plane = s.hy * s.hx * P::ROW_BYTES, line = s.hx * P::ROW_BYTES;
+
+  int load_stage = 0, use_stage = 0;
+  auto next = [](int st) { return st + 1 == STAGES ? 0 : st + 1; };
+  // prologue: the first chunk's halo and the first STAGES - 2 steps
+  load_halo(0, sHalo);
+#pragma unroll
+  for (int u = 0; u < STAGES - 2; ++u) {
+    const int c = u / P::STEPS, t0 = u % P::STEPS * G;
+    load_w(c, t0, sW + load_stage * P::STAGE_BYTES, c < s.n_chunks);
+    load_stage = next(load_stage);
+    cp_async_commit();
+  }
+
+  float acc[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.f;
+  uint32_t a[2][KSTEPS][4];
+
+  for (int c = 0; c < s.n_chunks; ++c) {
+    const uint32_t halo = sHalo + (c & 1) * halo_bytes + a_off;
+#pragma unroll
+    for (int j = 0; j < P::STEPS; ++j) {
+      // step c * STEPS + j has landed; every thread is done with step - 2
+      cp_async_wait<STAGES - 3>();
+      fence_async_proxy();
+      __syncthreads();
+      const int ahead = j + STAGES - 2;  // the step loaded now
+      const int lc = c + ahead / P::STEPS, lj = ahead % P::STEPS;
+      const bool live = lc < s.n_chunks;
+      if (lj == 0 && live) load_halo(lc, sHalo + (lc & 1) * halo_bytes);
+      load_w(lc, lj * G, sW + load_stage * P::STAGE_BYTES, live);
+      load_stage = next(load_stage);
+      cp_async_commit();
+      const uint32_t st = sW + use_stage * P::STAGE_BYTES;
+      use_stage = next(use_stage);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int t = j * G + g;
+        const int shift = (t / 9 - 1) * opaque(plane) +
+                          (t / 3 % 3 - 1) * opaque(line) +
+                          (t % 3 - 1) * P::ROW_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldmatrix_x4(a[t & 1][kk], halo + shift + kk * 32);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          tap_product<CK, NB>(acc, a[t & 1][kk], st + g * P::SLAB, kk);
+        wg_commit();
+        if (t == 26)
+          wg_wait<0>();
+        else
+          wg_wait<1>();
+      }
+    }
+  }
+  cp_async_wait<0>();
+  reg_fence(acc);
+
+  // rows 16 w + lane / 4 and that + 8 of the warp's accumulator
+  const int r_lo = wrow + lane / 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_lo + 8 * h;
+    const int oz = z0 + r / (s.ty * s.tx), oy = y0 + r / s.tx % s.ty;
+    const int ox = x0 + r % s.tx;
+    if (oz >= s.D || oy >= s.H || ox >= s.W) continue;
+    __nv_bfloat16* o =
+        out + ((size_t)b * vol + ((size_t)oz * s.H + oy) * s.W + ox) * cout;
+#pragma unroll
+    for (int q = 0; q < NB / 8; ++q) {
+      const int col = n0 + 8 * q + 2 * (lane % 4);
+      if (col >= cout) continue;
+      float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
+      if (bias != nullptr) {
+        v0 += __bfloat162float(bias[col]);
+        v1 += __bfloat162float(bias[col + 1]);
+      }
+      *reinterpret_cast<uint32_t*>(o + col) = pack_bf16(v0, v1);
+    }
+  }
+}
+
+template <int CK, int NB>
+int launch(const void* x, const void* w, const void* bias, void* out, int B,
+           const Geometry& s, cudaStream_t st) {
+  using P = Plan<CK, NB>;
+  auto kernel = conv3d_wgmma_bf16_kernel<CK, NB>;
+  const int smem = P::smem(s.halo_rows, s.n_chunks);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  dim3 grid((unsigned)B * s.nbz * s.nby * s.nbx, (s.Cout + NB - 1) / NB);
+  kernel<<<grid, P::THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), s);
+  return (int)cudaGetLastError();
+}
+
+template <int CK, int NB>
+int limits_of(int n_chunks, int* out) {
+  out[0] = Plan<CK, NB>::VOXELS;
+  out[1] = Plan<CK, NB>::max_halo_rows(n_chunks);
+  return 0;
+}
+
+// The channel chunk of the halo (the largest of 64, 32, 16 that divides
+// Cin) and the N block (Cout padded to 16, 32, 64 or 128; a wider Cout
+// takes several blocks of 128).
+int chunk_of(int Cin) { return Cin % 64 == 0 ? 64 : Cin % 32 == 0 ? 32 : 16; }
+int n_block_of(int Cout) {
+  return Cout <= 16 ? 16 : Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128;
+}
+
+// The (CK, NB) pairs the kernel is built for.
+#define ADELL_CONV_DISPATCH(CK, NB, CALL)                  \
+  switch (CK * 1000 + NB) {                                \
+    case 16016: return CALL(16, 16);                       \
+    case 16032: return CALL(16, 32);                       \
+    case 16064: return CALL(16, 64);                       \
+    case 16128: return CALL(16, 128);                      \
+    case 32016: return CALL(32, 16);                       \
+    case 32032: return CALL(32, 32);                       \
+    case 32064: return CALL(32, 64);                       \
+    case 32128: return CALL(32, 128);                      \
+    case 64016: return CALL(64, 16);                       \
+    case 64032: return CALL(64, 32);                       \
+    case 64064: return CALL(64, 64);                       \
+    case 64128: return CALL(64, 128);                      \
+    default: return (int)cudaErrorInvalidValue;            \
+  }
+
+}  // namespace box
+
 ConvShape make_shape(int B, int D, int H, int W, int Cin, int Cout) {
   ConvShape s;
   s.D = D;
@@ -347,4 +699,51 @@ extern "C" int adell_conv3d_igemm_f32(const void* x, const void* w,
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(out), s);
   return (int)cudaGetLastError();
+}
+
+// The Hopper kernel (bf16, Cin a multiple of 16, Cout of 8): the box
+// (tz, ty, tx) comes from the wrapper (ops/kernels/conv.py: plan_box), within
+// the limits that adell_conv3d_wgmma_limits gives.
+extern "C" int adell_conv3d_wgmma_bf16(const void* x, const void* w,
+                                       const void* bias, void* out, int B,
+                                       int D, int H, int W, int Cin, int Cout,
+                                       int tz, int ty, int tx, void* stream) {
+  using box::Geometry;
+  if (tz < 1 || ty < 1 || tx < 1 ||
+      tz * ty * tx != 64 * ADELL_CONV_WARPGROUPS || Cin % 16 || Cout % 8)
+    return (int)cudaErrorInvalidValue;
+  const int ck = box::chunk_of(Cin), nb = box::n_block_of(Cout);
+  Geometry s;
+  s.D = D;
+  s.H = H;
+  s.W = W;
+  s.Cin = Cin;
+  s.Cout = Cout;
+  s.tz = tz;
+  s.ty = ty;
+  s.tx = tx;
+  s.nbz = (D + tz - 1) / tz;
+  s.nby = (H + ty - 1) / ty;
+  s.nbx = (W + tx - 1) / tx;
+  s.hy = ty + 2;
+  s.hx = tx + 2;
+  s.halo_rows = (tz + 2) * s.hy * s.hx;
+  s.n_chunks = Cin / ck;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define ADELL_CONV_LAUNCH(CK, NB) \
+  box::launch<CK, NB>(x, w, bias, out, B, s, st)
+  ADELL_CONV_DISPATCH(ck, nb, ADELL_CONV_LAUNCH)
+#undef ADELL_CONV_LAUNCH
+}
+
+// What the wrapper needs to pick a box for Cin -> Cout: out[0], the output
+// voxels of a box (64 a warpgroup); out[1], the most halo rows that fit in
+// shared memory beside the weight ring.
+extern "C" int adell_conv3d_wgmma_limits(int Cin, int Cout, int* out) {
+  if (Cin < 16 || Cin % 16 || Cout < 8 || Cout % 8)
+    return (int)cudaErrorInvalidValue;
+  const int ck = box::chunk_of(Cin), nb = box::n_block_of(Cout);
+#define ADELL_CONV_LIMITS(CK, NB) box::limits_of<CK, NB>(Cin / CK, out)
+  ADELL_CONV_DISPATCH(ck, nb, ADELL_CONV_LIMITS)
+#undef ADELL_CONV_LIMITS
 }

@@ -5,7 +5,7 @@
 //                                      (one function: the VMEM-resident
 //                                      variant only worked around a TPU
 //                                      compile-service fault)
-//   flash_bwd_dq_kernel             <- _bwd_dq_kernel
+//   flash_bwd_dq_{bf16,f32}_kernel  <- _bwd_dq_kernel
 //   flash_bwd_dkv_{bf16,f32}_kernel <- _bwd_dkv_kernel
 //
 // q [BH, Nq, D], k and v [BH, Nkv, D], contiguous; Nq may differ from Nkv; no
@@ -33,8 +33,9 @@
 // does 1.5x and dK/dV 2x that work on the same bytes. None of them writes
 // the N x N matrix to device memory.
 //
-// The bf16 forward and dK/dV (flash_fwd_bf16_kernel, flash_bwd_dkv_bf16_kernel)
-// are built on what only this card has (wgmma.cuh):
+// The bf16 kernels (flash_fwd_bf16_kernel, flash_bwd_dq_bf16_kernel,
+// flash_bwd_dkv_bf16_kernel) are built on what only this card has
+// (wgmma.cuh):
 //   - products are warpgroup `wgmma` m64nNk16 with the f32 sums in registers.
 //     The register layout is documented, so a thread knows its rows: the
 //     forward's row maximum and row sum are two shuffles inside a quad, the
@@ -47,9 +48,11 @@
 //     shared array), nothing is reduced, and dK, dV stay in registers for the
 //     whole loop;
 //   - what never changes inside a block is read once: the forward holds its
-//     64 query rows in registers as the A operand of q k^T, dK/dV keeps its K
-//     and V tiles in shared memory for the whole loop;
-//   - the tiles that stream (K, V in the forward; Q, dO, lse, delta in dK/dV)
+//     64 query rows in registers as the A operand of q k^T, dQ its Q and dO
+//     rows as the A operands of q k^T and dO v^T (and lse, delta of its rows),
+//     dK/dV keeps its K and V tiles in shared memory for the whole loop;
+//   - the tiles that stream (K, V in the forward and dQ; Q, dO, lse, delta in
+//     dK/dV)
 //     arrive through a ring of shared-memory stages (3 and 4) filled by
 //     cp.async, in the 128-byte (64-byte at head dim 32) swizzle that wgmma's
 //     descriptors name, so the next tiles load while this one multiplies.
@@ -70,60 +73,41 @@
 // two warpgroups that alternate under named barriers, a producer warp with
 // TMA and a persistent grid are the known answers.
 //
-// dQ (flash_bwd_dq_kernel) is still the first, simple design: bf16 WMMA
-// 16x16x16 with accumulators, scores and ds in shared memory, synchronous
-// loads and four block barriers a tile. The f32 path of all three is plain
-// FMA on the same shared-memory tiles (no TF32), for exact comparisons and
-// f32 training.
+// dQ is the product the others are not: it needs no reduction across
+// threads (lse and delta are known per row, so p = exp2(s c - lse') and ds =
+// p (dp - delta) scale are straight-line arithmetic), so ptxas has no
+// shuffle at which to end a stage. Its turn u starts q k^T and dO v^T of
+// tile u, then dq += ds k of tile u - 1 (ds from registers, K MN-major from
+// the same ring tile that served q k^T K-major), waits for the first group
+// only, and takes p and ds of tile u while ds k runs. K and V tiles stay in
+// the ring one turn longer for that, so the ring has at least 3 stages.
+// Each dq element has one owner (no atomics; a fused dQ + dK/dV kernel
+// would need them). What bounds it now: three products on the tensor cores
+// and one barrier a tile, as in the forward.
+//
+// The f32 path of all three is plain FMA on shared-memory tiles (no TF32),
+// for exact comparisons and f32 training.
 //
 // C interface (loaded with ctypes): each launcher enqueues one kernel on the
 // given stream and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <type_traits>
 
 #include "wgmma.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // key/value rows per tile
 constexpr int THREADS = 128;  // 4 warps; two threads share a score row
-constexpr int NWARPS = THREADS / 32;
-constexpr int CPAD = 4;  // f32 tiles: rows stay 16-byte multiples for WMMA
+constexpr int PAD = 1;   // an odd f32 row length spreads a column over banks
+constexpr int CPAD = 4;  // score and accumulator tiles
 constexpr float NEG = -1e30f;
 
 static_assert(THREADS == 2 * BQ, "two threads per score row");
-
-// Row padding of the tiles held in the input type: bf16 rows must stay
-// 16-byte multiples for WMMA and the vector loads; an odd f32 row length
-// spreads a column over all banks.
-template <typename T>
-struct Pad;
-template <>
-struct Pad<__nv_bfloat16> {
-  static constexpr int V = 8;
-};
-template <>
-struct Pad<float> {
-  static constexpr int V = 1;
-};
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __host__ __device__ constexpr int round128(int bytes) {
   return (bytes + 127) / 128 * 128;
@@ -145,28 +129,17 @@ struct Carver {
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(T* tile, int ld, const T* g,
                                           int row0, int n_rows) {
-  if constexpr (sizeof(T) == 2) {
-    constexpr int CH = D / 8;  // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
-      int r = idx / CH, c = (idx % CH) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < n_rows)
-        v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + c);
-      *reinterpret_cast<uint4*>(tile + r * ld + c) = v;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
-      int r = idx / D, c = idx % D;
-      tile[r * ld + c] =
-          (row0 + r < n_rows) ? g[(size_t)(row0 + r) * D + c] : T(0);
-    }
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
+    int r = idx / D, c = idx % D;
+    tile[r * ld + c] =
+        (row0 + r < n_rows) ? g[(size_t)(row0 + r) * D + c] : T(0);
   }
 }
 
 // Writes the first rows (< n_rows - row0) of an f32 shared tile to a
 // [n_rows, D] matrix, each row divided by row_div[r] when given.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void store_tile(T* g, int row0, int n_rows,
+template <int D, int ROWS>
+__device__ __forceinline__ void store_tile(float* g, int row0, int n_rows,
                                            const float* tile, int ld,
                                            const float* row_div) {
   for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
@@ -174,7 +147,7 @@ __device__ __forceinline__ void store_tile(T* g, int row0, int n_rows,
     if (row0 + r < n_rows) {
       float v = tile[r * ld + c];
       if (row_div != nullptr) v = v / row_div[r];
-      g[(size_t)(row0 + r) * D + c] = from_f<T>(v);
+      g[(size_t)(row0 + r) * D + c] = v;
     }
   }
 }
@@ -183,43 +156,10 @@ __device__ __forceinline__ void zero_tile(float* tile, int n) {
   for (int idx = threadIdx.x; idx < n; idx += THREADS) tile[idx] = 0.f;
 }
 
-// C[M, N] (+)= A[M, K] B[K, N] on tiles in shared memory, by the whole block.
-// TA: A is stored transposed (A(i, k) at A[k * lda + i]); TB likewise
-// (B(k, j) at B[j * ldb + k]). ACC adds to what C holds.
-// bf16: each warp takes 16x16 tiles of C through the tensor cores.
-template <int M, int N, int K, bool TA, bool TB, bool ACC>
-__device__ __forceinline__ void tile_mma(float* C, int ldc,
-                                         const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* B, int ldb) {
-  using LA = typename std::conditional<TA, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<TB, wmma::col_major,
-                                       wmma::row_major>::type;
-  constexpr int TN = N / 16, TILES = (M / 16) * TN;
-  const int warp = threadIdx.x / 32;
-  for (int tile = warp; tile < TILES; tile += NWARPS) {
-    const int i0 = (tile / TN) * 16, j0 = (tile % TN) * 16;
-    float* cp = C + i0 * ldc + j0;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (ACC)
-      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-      wmma::load_matrix_sync(a, TA ? A + k0 * lda + i0 : A + i0 * lda + k0,
-                             lda);
-      wmma::load_matrix_sync(b, TB ? B + j0 * ldb + k0 : B + k0 * ldb + j0,
-                             ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// f32: one FMA chain per element of C.
+// C[M, N] (+)= A[M, K] B[K, N] on f32 tiles in shared memory, by the whole
+// block. TA: A is stored transposed (A(i, k) at A[k * lda + i]); TB likewise
+// (B(k, j) at B[j * ldb + k]). ACC adds to what C holds. One FMA chain per
+// element of C.
 template <int M, int N, int K, bool TA, bool TB, bool ACC>
 __device__ __forceinline__ void tile_mma(float* C, int ldc, const float* A,
                                          int lda, const float* B, int ldb) {
@@ -234,12 +174,12 @@ __device__ __forceinline__ void tile_mma(float* C, int ldc, const float* A,
   }
 }
 
-// Shared-memory layout of each kernel, in one place for the kernel (which
-// carves it) and the launcher (which asks for its size).
+// Shared-memory layout of each f32 kernel, in one place for the kernel
+// (which carves it) and the launcher (which asks for its size).
 template <typename T, int D>
 struct Layout {
-  static constexpr int LD = D + Pad<T>::V;    // q, k, v, dO tiles
-  static constexpr int PLD = BK + Pad<T>::V;  // p, ds tiles (input type)
+  static constexpr int LD = D + PAD;    // q, k, v, dO tiles
+  static constexpr int PLD = BK + PAD;  // p, ds tiles
   static constexpr int SLD = BK + CPAD;       // score tiles (f32)
   static constexpr int OLD = D + CPAD;        // accumulators (f32)
   static constexpr int IN_TILE = round128(BQ * LD * (int)sizeof(T));
@@ -307,7 +247,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int c = half; c < BK; c += 2) {
       float p = expf(srow[c] - m_new);
       sum += p;
-      Ps[row * L::PLD + c] = from_f<T>(p);
+      Ps[row * L::PLD + c] = p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     const float alpha = expf(m_run - m_new);
@@ -329,18 +269,22 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncthreads();
-  store_tile<T, D, BQ>(out + (size_t)bh * n_q * D, q0, n_q, Os, L::OLD, Ls);
+  store_tile<D, BQ>(out + (size_t)bh * n_q * D, q0, n_q, Os, L::OLD, Ls);
 }
 
 // ------------------------------------------------------------------ dQ ---
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int n_q, int n_kv, float scale) {
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int n_q, int n_kv,
+                            float scale) {
+  using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver carve{smem};
@@ -381,14 +325,14 @@ __global__ void __launch_bounds__(THREADS)
         float p = expf(Ss[row * L::SLD + c] * scale - lse_r);
         ds = p * (dPs[row * L::SLD + c] - delta_r) * scale;
       }
-      dSs[row * L::PLD + c] = from_f<T>(ds);
+      dSs[row * L::PLD + c] = ds;
     }
     __syncthreads();
     tile_mma<BQ, D, BK, false, false, true>(dQs, L::OLD, dSs, L::PLD, Ks,
                                             L::LD);
     __syncthreads();
   }
-  store_tile<T, D, BQ>(dq + (size_t)bh * n_q * D, q0, n_q, dQs, L::OLD,
+  store_tile<D, BQ>(dq + (size_t)bh * n_q * D, q0, n_q, dQs, L::OLD,
                        nullptr);
 }
 
@@ -448,8 +392,8 @@ __global__ void __launch_bounds__(THREADS)
         p = expf(Ss[row * L::SLD + c] * scale - lse_r);
         ds = p * (dPs[row * L::SLD + c] - delta_r) * scale;
       }
-      Ps[row * L::PLD + c] = from_f<T>(p);
-      dSs[row * L::PLD + c] = from_f<T>(ds);
+      Ps[row * L::PLD + c] = p;
+      dSs[row * L::PLD + c] = ds;
     }
     __syncthreads();
     // dv += p^T dO and dk += ds^T q: the tiles hold p and ds as [q, kv]
@@ -459,9 +403,9 @@ __global__ void __launch_bounds__(THREADS)
                                            L::LD);
     __syncthreads();
   }
-  store_tile<T, D, BK>(dk + (size_t)bh * n_kv * D, kv0, n_kv, dKs, L::OLD,
+  store_tile<D, BK>(dk + (size_t)bh * n_kv * D, kv0, n_kv, dKs, L::OLD,
                        nullptr);
-  store_tile<T, D, BK>(dv + (size_t)bh * n_kv * D, kv0, n_kv, dVs, L::OLD,
+  store_tile<D, BK>(dv + (size_t)bh * n_kv * D, kv0, n_kv, dVs, L::OLD,
                        nullptr);
 }
 
@@ -474,6 +418,12 @@ __global__ void __launch_bounds__(THREADS)
 #endif
 #ifndef ADELL_FWD_STAGES
 #define ADELL_FWD_STAGES 3
+#endif
+#ifndef ADELL_DQ_WARPGROUPS
+#define ADELL_DQ_WARPGROUPS 1
+#endif
+#ifndef ADELL_DQ_STAGES
+#define ADELL_DQ_STAGES 3
 #endif
 #ifndef ADELL_DKV_WARPGROUPS
 #define ADELL_DKV_WARPGROUPS 1
@@ -734,6 +684,198 @@ __global__ void __launch_bounds__(FwdPlan<D>::THREADS)
   }
 }
 
+
+// ----------------------------------------------------------- dQ, bf16 ---
+
+// A block is NWG warpgroups, each owning 64 query rows, whose Q and dO it
+// keeps in registers as the A operands of q k^T and dO v^T; K and V tiles of
+// 64 rows stream through a ring of STAGES stages. A tile stays in the ring
+// one turn longer than in the forward: ds k of tile u runs in turn u + 1.
+template <int D>
+struct DqPlan {
+  static constexpr int NWG = ADELL_DQ_WARPGROUPS;
+  static constexpr int STAGES = ADELL_DQ_STAGES;
+  static_assert(STAGES >= 3, "tiles u - 1 and u in use, one loading");
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int ROWS = 64 * NWG;  // query rows per block
+  static constexpr int STAGE_BYTES = 2 * hopper::Tile<D>::BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
+};
+
+// Turn u: q k^T and dO v^T of tile u (one group), then dq += ds k of tile
+// u - 1 (a second group), which runs while p and ds of tile u are taken:
+// p = exp(s scale - lse) and ds = p (dp - delta) scale need no reduction
+// across threads, so nothing but straight-line arithmetic stands between
+// the products. The same K tile serves q k^T K-major and ds k MN-major.
+template <int D>
+__global__ void __launch_bounds__(DqPlan<D>::THREADS)
+    flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int n_q,
+                             int n_kv, float scale) {
+  using namespace hopper;
+  using P = DqPlan<D>;
+  using T = Tile<D>;
+  constexpr int NT = P::THREADS, STAGES = P::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sKV = (smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int row_lo = (tid % 128) / 32 * 16 + lane / 4;
+  const int col0 = (lane % 4) * 2;
+  const int bh = blockIdx.y, q0 = blockIdx.x * P::ROWS;
+  const __nv_bfloat16* qb = q + (size_t)bh * n_q * D;
+  const __nv_bfloat16* dob = dout + (size_t)bh * n_q * D;
+  const __nv_bfloat16* kb = k + (size_t)bh * n_kv * D;
+  const __nv_bfloat16* vb = v + (size_t)bh * n_kv * D;
+  const int n_tiles = (n_kv + 63) / 64;
+
+  const TileLoader<D, NT> loader(tid);
+  int load_stage = 0, use_stage = 0;
+  // one group per tile, empty past the end, so that the waits count groups
+  auto load_tile = [&](int u) {
+    if (u < n_tiles) {
+      const uint32_t st = sKV + load_stage * P::STAGE_BYTES;
+      loader.load(st, kb, u * 64, n_kv);
+      loader.load(st + T::BYTES, vb, u * 64, n_kv);
+    }
+    load_stage = load_stage + 1 == STAGES ? 0 : load_stage + 1;
+    cp_async_commit();
+  };
+  // Tile u has landed for every thread, and every warpgroup is done with
+  // tile u - 2, whose stage the next load overwrites.
+  auto tile_ready = [&](int u) {
+    cp_async_wait<STAGES - 3>();
+    fence_async_proxy();
+    __syncthreads();
+    load_tile(u + STAGES - 2);
+    const uint32_t st = sKV + use_stage * P::STAGE_BYTES;
+    use_stage = use_stage + 1 == STAGES ? 0 : use_stage + 1;
+    return st;
+  };
+#pragma unroll
+  for (int u = 0; u < STAGES - 2; ++u) load_tile(u);
+
+  // this thread's part of its warpgroup's 64 rows of Q and dO, as A
+  // operands; rows past the end are zeros, with lse = delta = 0 there
+  const int r_lo = q0 + wg * 64 + row_lo, r_hi = r_lo + 8;
+  uint32_t qa[D / 16][4], da[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r % 2 ? r_hi : r_lo;
+      const size_t off = (size_t)row * D + 16 * kk + 8 * (r / 2) + col0;
+      qa[kk][r] =
+          row < n_q ? *reinterpret_cast<const uint32_t*>(qb + off) : 0u;
+      da[kk][r] =
+          row < n_q ? *reinterpret_cast<const uint32_t*>(dob + off) : 0u;
+    }
+  const float* lse_b = lse + (size_t)bh * n_q;
+  const float* delta_b = delta + (size_t)bh * n_q;
+  const float lse_lo = r_lo < n_q ? lse_b[r_lo] * LOG2E : 0.f;
+  const float lse_hi = r_hi < n_q ? lse_b[r_hi] * LOG2E : 0.f;
+  const float del_lo = r_lo < n_q ? delta_b[r_lo] : 0.f;
+  const float del_hi = r_hi < n_q ? delta_b[r_hi] : 0.f;
+  const float c = scale * LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t dsa[4][4];
+
+  auto start_s_dp = [&](uint32_t st) {
+    const uint64_t desc_k = T::desc(st), desc_v = T::desc(st + T::BYTES);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_rs_n64(s, qa[kk], desc_k + kk * T::K_STEP, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_rs_n64(dp, da[kk], desc_v + kk * T::K_STEP, kk > 0);
+    wg_commit();
+  };
+  auto start_dq = [&](uint32_t st_prev) {
+    const uint64_t desc_k = T::desc(st_prev);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(acc, dsa[kk], desc_k + kk * T::MN_STEP);
+    wg_commit();
+  };
+  // ds of a tile in place of dp, from the f32 sums; with MASKED, columns
+  // from valid_cols on are zeros (the sequence's last tile)
+  auto take_ds = [&](int valid_cols, auto masked) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = (i / 2) % 2;
+      const float p = exp2_approx(fmaf(s[i], c, -(hi ? lse_hi : lse_lo)));
+      float ds = p * (dp[i] - (hi ? del_hi : del_lo)) * scale;
+      if (decltype(masked)::value && (i / 4) * 8 + col0 + (i % 2) >= valid_cols)
+        ds = 0.f;
+      dp[i] = ds;
+    }
+  };
+  auto pack_ds = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        dsa[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+  };
+
+  // One turn; the first has no ds k to start, only the last is masked.
+  uint32_t st_prev = 0;
+  auto turn = [&](int u, auto first, auto masked) {
+    const uint32_t st = tile_ready(u);
+    wg_fence();
+    start_s_dp(st);
+    if (!decltype(first)::value) start_dq(st_prev);
+    if (decltype(first)::value)
+      wg_wait<0>();
+    else
+      wg_wait<1>();
+    reg_fence(s);
+    reg_fence(dp);
+    take_ds(n_kv - u * 64, masked);
+    if (!decltype(first)::value) {
+      wg_wait<0>();
+      reg_fence(acc);
+      reg_fence(dsa);
+    }
+    pack_ds();
+    st_prev = st;
+  };
+  if (n_tiles == 1) {
+    turn(0, std::true_type{}, std::true_type{});
+  } else {
+    turn(0, std::true_type{}, std::false_type{});
+    for (int u = 1; u < n_tiles - 1; ++u)
+      turn(u, std::false_type{}, std::false_type{});
+    turn(n_tiles - 1, std::false_type{}, std::true_type{});
+  }
+  wg_fence();
+  start_dq(st_prev);
+  wg_wait<0>();
+  reg_fence(acc);
+  cp_async_wait<0>();
+
+  __nv_bfloat16* dqb = dq + (size_t)bh * n_q * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r_lo < n_q)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)r_lo * D + col) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (r_hi < n_q)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)r_hi * D + col) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
 // -------------------------------------------------------- dK/dV, bf16 ---
 
 // A block is NWG warpgroups, each owning 64 key rows whose K and V tiles
@@ -913,20 +1055,20 @@ __global__ void __launch_bounds__(DkvPlan<D>::THREADS)
 
 // ----------------------------------------------------------- launchers ---
 
-// Grid, block and shared memory of each kernel: forward and dK/dV take the
-// Hopper kernels for bf16 and the shared-memory kernels for f32.
+// Grid, block and shared memory of each kernel: all three take the Hopper
+// kernels for bf16 and the shared-memory kernels for f32.
 template <typename T, int D>
 struct Launch {
   static constexpr bool HOPPER = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int FWD_ROWS = HOPPER ? FwdPlan<D>::ROWS : BQ;
   static constexpr int FWD_THREADS = HOPPER ? FwdPlan<D>::THREADS : THREADS;
-  static constexpr int FWD_SMEM = HOPPER ? FwdPlan<D>::SMEM : Layout<T, D>::FWD;
-  static constexpr int DQ_ROWS = BQ;
-  static constexpr int DQ_THREADS = THREADS;
-  static constexpr int DQ_SMEM = Layout<T, D>::DQ;
+  static constexpr int FWD_SMEM = HOPPER ? FwdPlan<D>::SMEM : Layout<float, D>::FWD;
+  static constexpr int DQ_ROWS = HOPPER ? DqPlan<D>::ROWS : BQ;
+  static constexpr int DQ_THREADS = HOPPER ? DqPlan<D>::THREADS : THREADS;
+  static constexpr int DQ_SMEM = HOPPER ? DqPlan<D>::SMEM : Layout<float, D>::DQ;
   static constexpr int DKV_ROWS = HOPPER ? DkvPlan<D>::ROWS : BK;
   static constexpr int DKV_THREADS = HOPPER ? DkvPlan<D>::THREADS : THREADS;
-  static constexpr int DKV_SMEM = HOPPER ? DkvPlan<D>::SMEM : Layout<T, D>::DKV;
+  static constexpr int DKV_SMEM = HOPPER ? DkvPlan<D>::SMEM : Layout<float, D>::DKV;
 };
 
 // The kernel of each input type, chosen by overload.
@@ -937,6 +1079,14 @@ auto fwd_kernel(__nv_bfloat16) {
 template <int D>
 auto fwd_kernel(float) {
   return flash_fwd_f32_kernel<D>;
+}
+template <int D>
+auto dq_kernel(__nv_bfloat16) {
+  return flash_bwd_dq_bf16_kernel<D>;
+}
+template <int D>
+auto dq_kernel(float) {
+  return flash_bwd_dq_f32_kernel<D>;
 }
 template <int D>
 auto dkv_kernel(__nv_bfloat16) {
@@ -969,7 +1119,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int n_q,
               int n_kv, float scale, cudaStream_t st) {
   using L = Launch<T, D>;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = dq_kernel<D>(T());
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DQ_SMEM);
   if (rc != cudaSuccess) return (int)rc;

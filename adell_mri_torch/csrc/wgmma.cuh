@@ -4,9 +4,10 @@
 // themselves as inline PTX.
 //
 // A tile is 64 rows of D bf16 values (D = 64: 128-byte rows, D = 32: 64-byte
-// rows), rows back to back, with the 16-byte chunks of each row permuted by
-// the swizzle the descriptor names (128-byte rows: chunk ^ (row % 8); 64-byte
-// rows: chunk ^ ((row / 2) % 4)). The swizzle is a function of the shared
+// rows, D = 16: 32-byte rows), rows back to back, with the 16-byte chunks of
+// each row permuted by the swizzle the descriptor names (128-byte rows:
+// chunk ^ (row % 8); 64-byte rows: chunk ^ ((row / 2) % 4); 32-byte rows:
+// chunk ^ ((row / 4) % 2)). The swizzle is a function of the shared
 // address, so a tile starts at a multiple of 1024 bytes. One tile serves both
 // operand forms:
 //   K-major  (the contraction runs along a row): a k-step of 16 values is 32
@@ -84,7 +85,7 @@ __device__ __forceinline__ void fence_async_proxy() {
 
 template <int D>
 struct Tile {
-  static_assert(D == 32 || D == 64, "rows of 64 or 128 bytes");
+  static_assert(D == 16 || D == 32 || D == 64, "rows of 32, 64 or 128 bytes");
   static constexpr int ROW_BYTES = 2 * D;
   static constexpr int BYTES = 64 * ROW_BYTES;
   static constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
@@ -95,17 +96,21 @@ struct Tile {
   // Byte offset of chunk c of row r. Rows may run past 64: tiles stacked back
   // to back continue the pattern.
   __device__ __forceinline__ static uint32_t offset(int r, int c) {
-    const int x = D == 64 ? (r & 7) : ((r >> 1) & 3);
+    const int x = D == 64 ? (r & 7) : D == 32 ? ((r >> 1) & 3) : ((r >> 2) & 1);
     return r * ROW_BYTES + ((c ^ x) << 4);
   }
 
   // Matrix descriptor of the tile at shared address addr (1024-aligned):
-  // start address, leading offset (unused by swizzled layouts of one atom's
-  // width: 1), stride between 8-row groups, swizzle mode (1: 128 B, 2: 64 B).
-  __device__ __forceinline__ static uint64_t desc(uint32_t addr) {
+  // start address, leading offset, stride between 8-row groups, swizzle
+  // mode (1: 128 B, 2: 64 B, 3: 32 B). The leading offset is unused by a
+  // layout one swizzle atom wide (1); an MN-major operand two atoms wide
+  // (n128 from two 128-byte tiles) reads its second atom lbo bytes on.
+  __device__ __forceinline__ static uint64_t desc(uint32_t addr,
+                                                  uint32_t lbo = 16) {
     constexpr uint64_t sbo = (8 * ROW_BYTES) >> 4;
-    constexpr uint64_t mode = D == 64 ? 1 : 2;
-    return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+    constexpr uint64_t mode = D == 64 ? 1 : D == 32 ? 2 : 3;
+    return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+           (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
            (sbo << 32) | (mode << 62);
   }
 };
@@ -178,11 +183,24 @@ __device__ __forceinline__ void reg_fence(float (&x)[R]) {
 }
 
 // The same for the A operand of products that read it from registers.
-__device__ __forceinline__ void reg_fence(uint32_t (&x)[4][4]) {
+template <int K>
+__device__ __forceinline__ void reg_fence(uint32_t (&x)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory into the A-operand registers
+// of one k-step: lane l names the 16-byte row (l % 8) + 8 ((l / 8) % 2) of
+// its warp's 16 rows, half l / 16 of the step's 16 values. Each lane's
+// address is its own, so the rows may lie anywhere.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
 }
 
 #define ADELL_ACC8(d, i)                                                   \
@@ -265,6 +283,49 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[16],
       "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
       "}\n"
       : ADELL_ACC8(d, 0), ADELL_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 16] += A[64 x 16] B[16 x 16], as above (32-byte rows).
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : ADELL_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128]: B two 64-column MN-major atoms of
+// 128-byte rows, the second lbo bytes after the first (Tile<64>::desc's
+// lbo).
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : ADELL_ACC8(d, 0), ADELL_ACC8(d, 8), ADELL_ACC8(d, 16),
+        ADELL_ACC8(d, 24), ADELL_ACC8(d, 32), ADELL_ACC8(d, 40),
+        ADELL_ACC8(d, 48), ADELL_ACC8(d, 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 

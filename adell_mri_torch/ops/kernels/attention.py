@@ -18,14 +18,15 @@ written to device memory. All three are bound by operations on the H100
 (about 1000 FLOP per byte at ``[1, 8, 2048, 64]`` in bf16, against the
 card's ridge of 295): the least times there are 8.7 us, 13.0 us and
 17.4 us at 989 TFLOP/s. A block owns a 64-row tile of its output and loops
-over the other sequence inside the block. In bf16 the forward and dK/dV
-are Hopper kernels: warpgroup ``wgmma`` products whose sums, scores, p and
-ds stay in registers (dK/dV on transposed tiles, so it reduces nothing),
-fed by a ``cp.async`` ring of swizzled shared-memory tiles with one block
-barrier a tile. Still to be redesigned the same way: dQ (bf16 WMMA through
-shared-memory accumulators) and the f32 path of all three (plain FMA, kept
-for exact comparisons). ``launch_plan`` mirrors the launchers' grids and
-shared-memory sizes; the source's header says what bounds each design.
+over the other sequence inside the block. In bf16 all three are Hopper
+kernels: warpgroup ``wgmma`` products whose sums, scores, p and ds stay in
+registers (dK/dV on transposed tiles, so it reduces nothing; dQ, which
+reduces nothing either, runs ds k of one tile while p and ds of the next
+are taken), fed by a ``cp.async`` ring of swizzled shared-memory tiles
+with one block barrier a tile. The f32 path of all three is plain FMA on
+shared-memory tiles, kept for exact comparisons. ``launch_plan`` mirrors
+the launchers' grids and shared-memory sizes; the source's header says
+what bounds each design.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch;
 for CPU tensors, and only for them, it runs its plain PyTorch version,
@@ -52,8 +53,9 @@ def launch_plan(stem, dtype, bh, n_q, n_kv, d):
     """What the C launcher of ``adell_flash_{stem}`` does with a shape:
     ``grid`` (blocks along the sequence the kernel owns, B * H), ``threads``
     a block and dynamic shared-memory ``smem`` bytes. It repeats the
-    layouts of ``csrc/flash_attention.cu`` (``FwdPlan``, ``DkvPlan``,
-    ``Layout``), whose ``adell_flash_plan_*`` the card tests hold it to.
+    layouts of ``csrc/flash_attention.cu`` (``FwdPlan``, ``DqPlan``,
+    ``DkvPlan``, ``Layout``), whose ``adell_flash_plan_*`` the card tests
+    hold it to.
     A block owns 64 rows: query rows for ``fwd`` and ``bwd_dq``, key rows
     for ``bwd_dkv``."""
     if stem not in _KINDS:
@@ -61,20 +63,21 @@ def launch_plan(stem, dtype, bh, n_q, n_kv, d):
     if d not in HEAD_DIMS or dtype not in _SUFFIX:
         raise ValueError(f"launch_plan: no kernel for D={d}, {dtype}")
     rows, threads = 64, 128
-    if dtype == torch.bfloat16 and stem != "bwd_dq":
+    if dtype == torch.bfloat16:
         # wgmma kernels: 64-row swizzled bf16 tiles, 1024 bytes of slack to
-        # align them; forward: a ring of 3 (K, V) stages (Q is in
-        # registers); dK/dV: its K and V tiles, a ring of 4 (Q, dO) stages
-        # and 4 x (lse, delta) rows of 64 f32
+        # align them; forward and dQ: a ring of 3 (K, V) stages (Q, and dQ's
+        # dO, are in registers); dK/dV: its K and V tiles, a ring of 4
+        # (Q, dO) stages and 4 x (lse, delta) rows of 64 f32
         tile = 64 * d * 2
         smem = {
             "fwd": 3 * 2 * tile,
+            "bwd_dq": 3 * 2 * tile,
             "bwd_dkv": 2 * tile + 4 * (2 * tile + 2 * 64 * 4),
         }[stem] + 1024
     else:
-        # shared-memory kernels: tiles in the input type with padded rows,
-        # f32 score and accumulator tiles, each rounded up to 128 bytes
-        item, pad = (2, 8) if dtype == torch.bfloat16 else (4, 1)
+        # f32 shared-memory kernels: tiles with rows padded by one value,
+        # score and accumulator tiles, each rounded up to 128 bytes
+        item, pad = 4, 1
 
         def r128(n):
             return (n + 127) // 128 * 128

@@ -138,12 +138,29 @@ _SIGNATURES = {
 }
 
 
+# entry points of one name (no f32 twin)
+_SINGLE = {
+    # x, w, bias, out, B, D, H, W, Cin, Cout, tz, ty, tx, stream
+    "adell_conv3d_wgmma_bf16": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    ),
+    # Cin, Cout, out[2]: voxels a box, most halo rows
+    "adell_conv3d_wgmma_limits": (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    ),
+}
+
+
 def _bind(lib):
     for stem, sig in _SIGNATURES.items():
         for suffix in ("_bf16", "_f32"):
             fn = getattr(lib, stem + suffix)
             fn.argtypes = sig
             fn.restype = ctypes.c_int
+    for name, sig in _SINGLE.items():
+        fn = getattr(lib, name)
+        fn.argtypes = sig
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -1,18 +1,29 @@
 """
-3x3x3 stride-1 SAME 3D convolution forward on a hand-written Hopper kernel.
+3x3x3 stride-1 SAME 3D convolution forward on hand-written Hopper kernels.
 
-Counterpart of ``adell_mri_tpu/ops/pallas/conv.py``: the CUDA kernel in
-``adell_mri_torch/csrc/conv3d_igemm.cu`` replaces that module's ``_kernel``
-(the TPU implicit-GEMM conv). It is an implicit GEMM over M = B*D*H*W
-voxels, N = Cout and K = 27*Cin whose patch matrix is gathered tile by
-tile into shared memory and never written to device memory, with bf16
-tensor-core products (f32 FMA for f32 inputs), f32 accumulation and the
-bias fused into the epilogue. The source's header says what bounds it on
-the H100 and what its design does about that.
+Counterpart of ``adell_mri_tpu/ops/pallas/conv.py``: the CUDA kernels in
+``adell_mri_torch/csrc/conv3d_igemm.cu`` replace that module's ``_kernel``
+(the TPU implicit-GEMM conv). Both are implicit GEMMs over M = B*D*H*W
+voxels, N = Cout and K = 27*Cin whose patch matrix never reaches device
+memory, with f32 sums and the bias fused into the epilogue. Two routes,
+chosen by ``conv_route``:
 
-``conv3d_igemm`` launches the kernel for CUDA tensors and runs the plain
-version, ``conv3d_igemm_reference``, only for CPU tensors. Unlike the TPU
-kernel it has no shape gate: every Cin/Cout and spatial size is taken.
+- ``"wgmma"`` (bf16, Cin a multiple of 16, Cout of 8: every conv of the
+  main paths but the Cin=1 stems): a block owns a box of output voxels
+  (``plan_box``, within the launcher's limits: ``wgmma_box``), loads its
+  input halo into shared memory once per channel chunk and runs the 27
+  taps from there as ``wgmma`` products with A from registers (``ldmatrix``
+  at each row's shifted address) and the weight streamed through a
+  ``cp.async`` ring;
+- ``"igemm"`` (the rest: bf16 stems, f32): the first kernel, which gathers a
+  patch tile per k-step (WMMA in bf16, FMA in f32).
+
+The source's header says what bounds each on the H100 and what its design
+does about that. ``conv3d_igemm`` launches a kernel for CUDA tensors and
+runs the plain version, ``conv3d_igemm_reference``, only for CPU tensors.
+Unlike the TPU kernel it has no shape gate: every Cin/Cout and spatial size
+is taken. Its ``launches`` counts every launch, ``wgmma_launches`` those of
+the ``"wgmma"`` route (``conv3d_igemm_dx`` likewise).
 
 ``conv3d_igemm_train`` is the differentiable form, mirroring
 ``_conv3d_im2col_bwd`` in ``adell_mri_tpu/ops/conv.py`` for stride 1 and
@@ -23,6 +34,9 @@ computes it outside any Pallas kernel too); dbias is the cotangent's sum.
 On CPU tensors forward and backward both take the plain version.
 """
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +46,55 @@ _LAUNCHERS = {
     torch.bfloat16: "adell_conv3d_igemm_bf16",
     torch.float32: "adell_conv3d_igemm_f32",
 }
+
+
+def conv_route(dtype, cin, cout):
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with Cin a
+    multiple of 16 and Cout a multiple of 8, ``"igemm"`` otherwise."""
+    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
+        return "wgmma"
+    return "igemm"
+
+
+@functools.lru_cache(maxsize=None)
+def plan_box(d, h, w, voxels, max_halo_rows=None):
+    """The box ``(tz, ty, tx)`` of ``voxels`` output voxels (powers of two)
+    a block owns: fewest boxes over the volume first (ragged boxes compute
+    voxels that are not stored), then the smallest halo ``(tz + 2) (ty + 2)
+    (tx + 2)``, then the widest x, whose rows lie side by side in memory.
+    Boxes whose halo has more than ``max_halo_rows`` rows are left out."""
+    best = None
+    n = voxels.bit_length() - 1
+    if 1 << n != voxels:
+        raise ValueError(f"plan_box: {voxels} voxels is not a power of two")
+    for ez in range(n + 1):
+        for ey in range(n + 1 - ez):
+            tz, ty, tx = 1 << ez, 1 << ey, 1 << (n - ez - ey)
+            halo = (tz + 2) * (ty + 2) * (tx + 2)
+            if max_halo_rows is not None and halo > max_halo_rows:
+                continue
+            boxes = -(-d // tz) * -(-h // ty) * -(-w // tx)
+            key = (boxes, halo, -tx, -ty)
+            if best is None or key < best[0]:
+                best = (key, (tz, ty, tx))
+    if best is None:
+        raise ValueError(f"plan_box: no box of {voxels} voxels has a halo "
+                         f"of at most {max_halo_rows} rows")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_box(lib, d, h, w, cin, cout):
+    """The box of a ``"wgmma"`` launch over a ``d x h x w`` volume: the
+    launcher owns the kernel's shared-memory layout and gives the box's
+    voxel count and the most halo rows that fit beside its weight ring
+    (``adell_conv3d_wgmma_limits``); ``plan_box`` picks from those. Cached,
+    so a launch pays for it once a shape."""
+    got = (ctypes.c_int * 2)()
+    rc = lib.adell_conv3d_wgmma_limits(cin, cout, got)
+    if rc != 0:
+        raise ValueError(f"wgmma_box: no kernel for {cin}->{cout}")
+    return plan_box(d, h, w, got[0], got[1])
 
 
 def conv3d_igemm_reference(x, w, bias=None):
@@ -79,23 +142,36 @@ def _check(x, w, bias):
 
 
 def _launch(x, w, bias):
+    """Launches the routed kernel; returns the output and the route (None
+    when there was nothing to compute)."""
     _check(x, w, bias)
     b, d, h, w_sz, cin = x.shape
     cout = w.shape[-1]
     out = torch.empty((b, d, h, w_sz, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out, False
-    launcher = getattr(load_library(), _LAUNCHERS[x.dtype])
+        return out, None
+    lib = load_library()
+    route = conv_route(x.dtype, cin, cout)
+    ptrs = (x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = launcher(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            out.data_ptr(), b, d, h, w_sz, cin, cout, stream,
-        )
+        if route == "wgmma":
+            box = wgmma_box(lib, d, h, w_sz, cin, cout)
+            rc = lib.adell_conv3d_wgmma_bf16(
+                *ptrs, b, d, h, w_sz, cin, cout, *box, stream)
+        else:
+            rc = getattr(lib, _LAUNCHERS[x.dtype])(
+                *ptrs, b, d, h, w_sz, cin, cout, stream)
     if rc != 0:
-        raise RuntimeError(f"conv3d_igemm launch failed: cudaError {rc}")
-    return out, True
+        raise RuntimeError(
+            f"conv3d_igemm ({route}) launch failed: cudaError {rc}")
+    return out, route
+
+
+def _count(fn, route):
+    fn.launches += route is not None
+    fn.wgmma_launches += route == "wgmma"
 
 
 def _on_card(x, name):
@@ -113,13 +189,15 @@ def conv3d_igemm(x, w, bias=None):
     plain version."""
     if not _on_card(x, "conv3d_igemm"):
         return conv3d_igemm_reference(x, w, bias)
-    out, launched = _launch(x, w, bias)
-    conv3d_igemm.launches += launched
+    out, route = _launch(x, w, bias)
+    _count(conv3d_igemm, route)
     return out
 
 
-#: forward launches since the last reset (set to 0 to start a count)
+#: forward launches since the last reset (set to 0 to start a count), and
+#: those of them that took the "wgmma" route
 conv3d_igemm.launches = 0
+conv3d_igemm.wgmma_launches = 0
 
 
 def conv3d_igemm_dx(g, w):
@@ -130,13 +208,14 @@ def conv3d_igemm_dx(g, w):
     w_rot = w.flip(0, 1, 2).transpose(3, 4).contiguous()
     if not _on_card(g, "conv3d_igemm_dx"):
         return conv3d_igemm_reference(g, w_rot)
-    dx, launched = _launch(g, w_rot, None)
-    conv3d_igemm_dx.launches += launched
+    dx, route = _launch(g, w_rot, None)
+    _count(conv3d_igemm_dx, route)
     return dx
 
 
-#: backward (dx) launches since the last reset
+#: backward (dx) launches since the last reset, and the "wgmma" route's
 conv3d_igemm_dx.launches = 0
+conv3d_igemm_dx.wgmma_launches = 0
 
 
 def conv3d_weight_grad(x, g):

@@ -2,12 +2,13 @@
 Times build variants of the Hopper attention kernels on the card.
 
 ``csrc/flash_attention.cu`` takes the number of warpgroups a block and of
-ring stages of the bf16 forward and dK/dV kernels from four macros
-(``ADELL_FWD_WARPGROUPS``, ``ADELL_FWD_STAGES``, ``ADELL_DKV_WARPGROUPS``,
-``ADELL_DKV_STAGES``), whose defaults are the shipped choice. This tool
-rebuilds the library once per variant (one process each, the defines
-appended to ``build.NVCC_FLAGS``, which the build hashes), holds both
-kernels against their plain versions and times them at UNETR's shapes,
+ring stages of the bf16 forward, dQ and dK/dV kernels from six macros
+(``ADELL_FWD_WARPGROUPS``, ``ADELL_FWD_STAGES``, ``ADELL_DQ_WARPGROUPS``,
+``ADELL_DQ_STAGES``, ``ADELL_DKV_WARPGROUPS``, ``ADELL_DKV_STAGES``),
+whose defaults are the shipped choice. This tool rebuilds the library once
+per variant (one process each, the defines appended to
+``build.NVCC_FLAGS``, which the build hashes), holds the three kernels
+against their plain versions and times them at UNETR's shapes,
 q, k, v ``[B, 8, 2048, 64]`` bf16, B = 1 and 2. The default is timed first
 and last, so the table shows the run's spread.
 
@@ -26,9 +27,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 VARIANTS = [
     {},
-    {"ADELL_FWD_WARPGROUPS": 2, "ADELL_DKV_WARPGROUPS": 2},
-    {"ADELL_FWD_STAGES": 2, "ADELL_DKV_STAGES": 2},
-    {"ADELL_FWD_STAGES": 4, "ADELL_DKV_STAGES": 3},
+    {"ADELL_FWD_WARPGROUPS": 2, "ADELL_DQ_WARPGROUPS": 2,
+     "ADELL_DKV_WARPGROUPS": 2},
+    {"ADELL_FWD_STAGES": 2, "ADELL_DQ_STAGES": 4, "ADELL_DKV_STAGES": 2},
+    {"ADELL_FWD_STAGES": 4, "ADELL_DQ_STAGES": 5, "ADELL_DKV_STAGES": 3},
     {"ADELL_FWD_WARPGROUPS": 2, "ADELL_FWD_STAGES": 4,
      "ADELL_DKV_WARPGROUPS": 2, "ADELL_DKV_STAGES": 3},
     {},
@@ -51,7 +53,7 @@ def measure(defines):
     build.NVCC_FLAGS += [f"-D{k}={v}" for k, v in defines.items()]
     lib = build.load_library()
     row = {"defines": defines, "plan": {}, "ms": {}, "max_abs_err": {}}
-    for kind, stem in ((0, "fwd"), (2, "bwd_dkv")):
+    for kind, stem in ((0, "fwd"), (1, "bwd_dq"), (2, "bwd_dkv")):
         plan = (ctypes.c_int * 3)()
         lib.adell_flash_plan_bf16(kind, 64, plan)
         row["plan"][stem] = dict(zip(("rows", "threads", "smem"), plan))
@@ -67,11 +69,14 @@ def measure(defines):
         w_out, w_m, w_l = ka.flash_attention_fwd_reference(q, k, v, scale)
         lse, delta = ka.backward_rows(w_out, w_m, w_l, g)
         args = (q, k, v, g, lse, delta, scale)
+        dq = ka.flash_attention_bwd_dq(*args)
         dk, dv = ka.flash_attention_bwd_dkv(*args)
+        w_dq = ka.flash_attention_bwd_dq_reference(*args)
         w_dk, w_dv = ka.flash_attention_bwd_dkv_reference(*args)
         torch.cuda.synchronize()
         errs = {
             "out": (out.float() - w_out.float()).abs().max(),
+            "dq": (dq.float() - w_dq.float()).abs().max(),
             "dk": (dk.float() - w_dk.float()).abs().max(),
             "dv": (dv.float() - w_dv.float()).abs().max(),
         }
@@ -79,6 +84,8 @@ def measure(defines):
         row["ms"][b] = {
             "fwd": time_ms(lambda: ka.flash_attention_fwd(q, k, v, scale),
                            reps=20),
+            "bwd_dq": time_ms(lambda: ka.flash_attention_bwd_dq(*args),
+                              reps=20),
             "bwd_dkv": time_ms(lambda: ka.flash_attention_bwd_dkv(*args),
                                reps=20),
         }
@@ -116,7 +123,9 @@ def main():
         print(
             f"{json.dumps(defines) if defines else 'default'}: fwd "
             f"{plan['fwd']} B=1 {ms['1']['fwd']:.4f} ms, B=2 "
-            f"{ms['2']['fwd']:.4f} ms; dK/dV {plan['bwd_dkv']} B=1 "
+            f"{ms['2']['fwd']:.4f} ms; dQ {plan['bwd_dq']} B=1 "
+            f"{ms['1']['bwd_dq']:.4f} ms, B=2 {ms['2']['bwd_dq']:.4f} ms; "
+            f"dK/dV {plan['bwd_dkv']} B=1 "
             f"{ms['1']['bwd_dkv']:.4f} ms, B=2 {ms['2']['bwd_dkv']:.4f} ms; "
             f"errors {row['max_abs_err']['2']}",
             flush=True,

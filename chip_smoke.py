@@ -9,14 +9,18 @@ failure:
 1. device: the card's name and power limit;
 2. build: every CUDA source of the port, compiled with ``nvcc`` into
    ``build/adell_kernels/`` (seconds printed); ptxas must report no spill
-   and no serialized ``wgmma`` for the Hopper attention kernels;
+   and no serialized ``wgmma`` for the Hopper kernels (conv, attention);
 3. kernel vs plain: ``conv3d_igemm`` against ``conv3d_igemm_reference``
-   at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off), with
+   at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off), and in
+   bf16 at shapes that reach every route and edge of the wgmma conv (UNETR's
+   256x256x64 16- and 32-channel convs, ragged 7x9x5 volumes at 16->16 and
+   48->24, 256->256, Cin 8 on the igemm route), each row with its route, with
    times beside ``F.conv3d`` (cuDNN, a yardstick the port never calls);
 4. serving: the flagship U-Net in bf16 from seeded random weights serves
    a 256x256x64 case through ``SegmentationInference`` (window 128x128x32,
    stride 0.5, micro-batch 4: 27 tiles in 7 window batches); the kernel's
-   launch count must rise by 31 x 7; one window batch is compared with the
+   launch count must rise by 31 x 7, 29 x 7 of them on the wgmma route (all
+   but the two Cin=1 stems); one window batch is compared with the
    same U-Net on the plain conv path, and every conv shape of that batch is
    timed against its plain version and its bound;
 5. CLI: ``python -m adell_mri_torch segmentation predict --dev cuda
@@ -31,7 +35,9 @@ failure:
    launches timed against their bound;
 8. training: the flagship U-Net (seed 0, bf16, augmentation on, B=4 at
    128x128x32) takes one warm-up step and 5 timed steps with the launch
-   counts reset just before; every parameter gets a finite, non-zero
+   counts reset just before (per step 29 of 31 forward and 29 of 30 dx
+   launches on the wgmma route: the dx of 1->32 has one output channel);
+   every parameter gets a finite, non-zero
    gradient; ten steps on one batch without augmentation lower the loss;
    one f32 step matches the plain conv path;
 9. CLI: ``segmentation train --dev cuda --precision bf16`` on a 4-case
@@ -43,18 +49,20 @@ failure:
     serving and training shapes), a ragged shape (Nq 2050, Nkv 2311),
     head dim 32, either sequence at the edges of the 64-row tiles (1, 63,
     64, 65, 127, 128, 129 tokens against 2048) and B x H of 1 x 1 and
-    4 x 8, bf16 and f32; the bf16 forward and dK/dV bit-equal over two
+    4 x 8, bf16 and f32; the bf16 forward, dQ and dK/dV bit-equal over two
     runs; timed beside their bounds, the plain versions and
     ``F.scaled_dot_product_attention`` (a yardstick the port never calls:
     forward, forward + backward, and by difference its backward alone);
 11. UNETR serving: ``sample_configs/unetr.yaml`` at full width in bf16
     from seeded weights serves one 256x256x64 case as one window through
     ``SegmentationInference``: 8 forward-attention launches and 9 conv
-    launches per case; the same case through the kernels' plain versions
+    launches per case (8 on the wgmma route); the same case through the
+    kernels' plain versions
     agrees;
 12. UNETR training: B=2 whole volumes, bf16, augmentation on, dropout 0:
     a warm-up step and timed steps with 8 forward, 8 dQ and 8 dK/dV
-    launches each; every parameter gets a finite, non-zero gradient; an
+    launches each, and 8 of 9 conv and 8 of 8 dx launches on the wgmma
+    route; every parameter gets a finite, non-zero gradient; an
     f32 step (B=1) matches the plain versions in loss and gradient norm;
     ten steps on one batch lower the loss;
 13. CLI: ``segmentation train --segmentation_net_type unetr --dev cuda
@@ -85,6 +93,10 @@ CONVS_PER_FORWARD = 31
 # dx launches per training step: every stride-1 conv but the stem's first,
 # whose input is the image
 CONVS_DX_PER_STEP = 30
+# of those, the launches on the wgmma route: all but the Cin=1 stems (two
+# forward convs) and the dx of 1->32, whose output has one channel
+CONVS_WGMMA_PER_FORWARD = 29
+CONVS_DX_WGMMA_PER_STEP = 29
 WINDOW_BATCHES = 7
 TIMED_STEPS = 5
 # UNETR (sample_configs/unetr.yaml on 256x256x64): 8 blocks of 8 heads of
@@ -96,6 +108,9 @@ UNETR_TOKENS = 2048
 UNETR_HEAD_DIM = 64
 UNETR_CONVS = 9
 UNETR_CONVS_DX = 8
+# all but the image's 1->16 conv take the wgmma route, every dx does
+UNETR_CONVS_WGMMA = 8
+UNETR_CONVS_DX_WGMMA = 8
 UNETR_TIMED_STEPS = 3
 # sequence lengths around the attention kernels' 64-row tiles
 ATTENTION_TILE_EDGES = (1, 63, 64, 65, 127, 128, 129)
@@ -156,6 +171,7 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     from adell_mri_torch.ops.kernels.conv import (
         conv3d_igemm,
         conv3d_igemm_reference,
+        conv_route,
     )
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -163,7 +179,12 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     w = torch.randn((3, 3, 3, cin, cout), generator=g, device="cuda")
     w = (w / (27 * cin) ** 0.5).to(dtype)
     bias = (0.1 * torch.randn(cout, generator=g, device="cuda")).to(dtype)
+    route = conv_route(dtype, cin, cout)
+    before = conv3d_igemm.wgmma_launches
     got = conv3d_igemm(x, w, bias)
+    if conv3d_igemm.wgmma_launches - before != (route == "wgmma"):
+        raise AssertionError(f"{cin}->{cout} {dtype} did not take the "
+                             f"{route} route")
     want = conv3d_igemm_reference(x, w, bias)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
@@ -176,7 +197,8 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     name = str(dtype).split(".")[1]
     bound, bound_by = conv_bound(b, spatial, cin, cout, name)
     row = dict(
-        shape=[b, *spatial, cin, cout], dtype=name, max_abs_err=err,
+        shape=[b, *spatial, cin, cout], dtype=name, route=route,
+        max_abs_err=err,
         tol=tol, ok=err <= tol,
         ms=time_ms(lambda: conv3d_igemm(x, w, bias), reps),
         plain_ms=time_ms(lambda: conv3d_igemm_reference(x, w, bias), reps),
@@ -184,7 +206,8 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
         bound_ms=bound, bound_by=bound_by,
     )
     log(
-        f"  conv {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name}: "
+        f"  conv {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name} "
+        f"({route}): "
         f"err {err:.3g} (tol {tol:.3g}) kernel {row['ms']:.3f} ms, "
         f"plain {row['plain_ms']:.3f} ms, F.conv3d {row['library_ms']:.3f} "
         f"ms, bound {bound:.4f} ms ({bound_by})"
@@ -253,27 +276,35 @@ def phase_build():
     return secs
 
 
+# the kernels built on wgmma, whose ptxas lines the build phase checks
+HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                  "flash_bwd_dkv_bf16_kernel", "conv3d_wgmma_bf16_kernel")
+
+
 def check_hopper_build(build_log):
-    """ptxas must keep the bf16 forward and dK/dV kernels whole: no spilled
-    registers, and no note (C75xx) that it serialized their ``wgmma``
-    products, which would undo their overlap without failing anything."""
+    """ptxas must keep the Hopper kernels whole: no spilled registers, and
+    no note (C75xx) that it serialized their ``wgmma`` products, which would
+    undo their overlap without failing anything. Every one of them must
+    have its ptxas entries."""
     lines = build_log.splitlines()
     faults = [ln for ln in lines if "wgmma" in ln and "serialized" in ln]
+    seen = dict.fromkeys(HOPPER_KERNELS, 0)
     for i, ln in enumerate(lines):
-        if "Function properties" in ln and "_bf16_kernel" in ln \
-                and "flash_" in ln and "0 bytes spill stores, 0 bytes " \
-                "spill loads" not in lines[i + 1]:
-            faults.append(ln + lines[i + 1])
-    if faults:
-        raise AssertionError("the Hopper attention kernels did not build "
-                             "as designed:\n" + "\n".join(faults))
-    n = sum("flash_" in ln and "_bf16_kernel" in ln
-            and "Function properties" in ln for ln in lines)
-    if n == 0:
-        raise AssertionError("no ptxas lines for the Hopper attention "
-                             "kernels in the build log")
-    log(f"  Hopper attention kernels: {n} ptxas entries, no spills, no "
-        "serialized wgmma")
+        if "Function properties" not in ln:
+            continue
+        for name in HOPPER_KERNELS:
+            if name in ln:
+                seen[name] += 1
+                if "0 bytes spill stores, 0 bytes spill loads" \
+                        not in lines[i + 1]:
+                    faults.append(ln + lines[i + 1])
+    missing = [k for k, n in seen.items() if n == 0]
+    if faults or missing:
+        raise AssertionError("the Hopper kernels did not build as designed:"
+                             "\n" + "\n".join(faults)
+                             + f"\nno ptxas lines for {missing}")
+    log(f"  Hopper kernels: ptxas entries {seen}, no spills, no serialized "
+        "wgmma")
 
 
 def phase_kernels():
@@ -283,7 +314,7 @@ def phase_kernels():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    log("[kernel vs plain] flagship shapes, B=4")
+    log("[kernel vs plain] flagship shapes, B=4; the wgmma route's edges")
     rows = []
     shapes = [
         (WINDOW, 1, 1), (WINDOW, 1, 32), (WINDOW, 32, 32), (WINDOW, 64, 32),
@@ -292,6 +323,17 @@ def phase_kernels():
     for i, (spatial, cin, cout) in enumerate(shapes):
         for dtype in (torch.bfloat16, torch.float32):
             rows.append(compare_conv(4, spatial, cin, cout, dtype, seed=i))
+    # bf16 only: a 64-channel full-size conv, UNETR's 16-wide full-size
+    # convs, ragged volumes (a chunk of 16 three times, a Cout padded from
+    # 24 to 32), and Cin 8, which takes the igemm route
+    edges = [
+        (4, WINDOW, 64, 64), (1, (256, 256, 64), 32, 16),
+        (1, (256, 256, 64), 16, 16), (1, (7, 9, 5), 16, 16),
+        (1, (7, 9, 5), 48, 24), (4, WINDOW, 8, 32),
+    ]
+    for i, (b, spatial, cin, cout) in enumerate(edges):
+        rows.append(compare_conv(b, spatial, cin, cout, torch.bfloat16,
+                                 seed=50 + i))
     return rows
 
 
@@ -311,22 +353,27 @@ def phase_serving(model):
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         kconv.conv3d_igemm.launches = 0
+        kconv.conv3d_igemm.wgmma_launches = 0
         t0 = time.perf_counter()
         out = infer(case)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         launches = kconv.conv3d_igemm.launches
+        wgmma = kconv.conv3d_igemm.wgmma_launches
         for _ in range(2):
             t0 = time.perf_counter()
             infer(case)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
     want = CONVS_PER_FORWARD * WINDOW_BATCHES
+    want_wgmma = CONVS_WGMMA_PER_FORWARD * WINDOW_BATCHES
     log(f"[serving] {'x'.join(map(str, CASE))} case: conv3d_igemm launches "
-        f"{launches} (want {want}); warm-up {warm:.3f} s, then "
+        f"{launches} (want {want}), {wgmma} on the wgmma route (want "
+        f"{want_wgmma}); warm-up {warm:.3f} s, then "
         f"{', '.join(f'{s:.4f}' for s in secs)} s per case")
-    if launches != want:
-        raise AssertionError(f"conv3d_igemm launched {launches}, not {want}")
+    if (launches, wgmma) != (want, want_wgmma):
+        raise AssertionError(f"conv3d_igemm launched {launches}, "
+                             f"{wgmma} wgmma, not {want}, {want_wgmma}")
     if tuple(out.shape) != CASE + (1,):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -334,8 +381,8 @@ def phase_serving(model):
     lo, hi = float(out.min()), float(out.max())
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"probabilities outside [0, 1]: {lo}, {hi}")
-    return dict(launches=launches, warmup_s=warm, seconds_per_case=secs,
-                prob_range=[lo, hi], case=case)
+    return dict(launches=launches, wgmma_launches=wgmma, warmup_s=warm,
+                seconds_per_case=secs, prob_range=[lo, hi], case=case)
 
 
 def _first_window_batch(case):
@@ -693,6 +740,7 @@ def phase_conv_backward(shapes):
         conv3d_igemm_dx,
         conv3d_igemm_reference,
         conv3d_igemm_train,
+        conv_route,
     )
 
     log("[conv backward vs plain] flagship shapes, B=4")
@@ -730,6 +778,7 @@ def phase_conv_backward(shapes):
                 tols.append(rel * scale)
             ok = all(e <= t for e, t in zip(errs, tols))
             row = dict(shape=[b, *spatial, cin, cout], dtype=name,
+                       dx_route=conv_route(dtype, cout, cin),
                        count=count, dx_count=dx_count,
                        errs=dict(zip(("dx", "dw", "db"), errs)),
                        tols=dict(zip(("dx", "dw", "db"), tols)), ok=ok)
@@ -746,7 +795,8 @@ def phase_conv_backward(shapes):
                         lambda: F.conv3d(gc, wc, padding=1)),
                     bound_ms=bound, bound_by=bound_by,
                 )
-            log(f"  {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name}: "
+            log(f"  {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name} "
+                f"(dx {row['dx_route']}): "
                 + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, e, t in
                             zip(("dx", "dw", "db"), errs, tols))
                 + (f"; dx kernel {row['ms']:.3f} ms, plain "
@@ -789,7 +839,6 @@ def phase_training():
     import torch
 
     from adell_mri_torch.ops.kernels import conv as kconv
-    from adell_mri_torch.ops.kernels import intensity as ki
     from adell_mri_torch.tools.flagship import (
         BATCH,
         make_train_batch,
@@ -822,9 +871,7 @@ def phase_training():
     step()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    kconv.conv3d_igemm.launches = 0
-    kconv.conv3d_igemm_dx.launches = 0
-    ki.intensity_aug.launches = 0
+    _reset_counts()
     secs, losses = [], []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
@@ -832,13 +879,12 @@ def phase_training():
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
-    launches = dict(
-        conv3d_igemm=kconv.conv3d_igemm.launches,
-        conv3d_igemm_dx=kconv.conv3d_igemm_dx.launches,
-        intensity_aug=ki.intensity_aug.launches,
-    )
+    launches = {k: v for k, v in _launch_counts().items()
+                if not k.startswith("flash_")}
     want = dict(conv3d_igemm=CONVS_PER_FORWARD * TIMED_STEPS,
+                conv3d_igemm_wgmma=CONVS_WGMMA_PER_FORWARD * TIMED_STEPS,
                 conv3d_igemm_dx=CONVS_DX_PER_STEP * TIMED_STEPS,
+                conv3d_igemm_dx_wgmma=CONVS_DX_WGMMA_PER_STEP * TIMED_STEPS,
                 intensity_aug=TIMED_STEPS)
     per_step = {k: v / TIMED_STEPS for k, v in launches.items()}
     med = sorted(secs)[len(secs) // 2]
@@ -868,11 +914,15 @@ def phase_training():
     # one f32 step on the kernel against the plain conv path
     tr = make_trainer(0, None)
     params = [tr.state.params[k] for k in names]
-    counts = (kconv.conv3d_igemm.launches, kconv.conv3d_igemm_dx.launches)
+    counts = (kconv.conv3d_igemm.launches, kconv.conv3d_igemm_dx.launches,
+              kconv.conv3d_igemm.wgmma_launches
+              + kconv.conv3d_igemm_dx.wgmma_launches)
     loss_k, _ = tr.loss_and_metrics(tr.state.params, batch)
     grads_k = torch.autograd.grad(loss_k, params)
     f32_launches = (kconv.conv3d_igemm.launches - counts[0],
-                    kconv.conv3d_igemm_dx.launches - counts[1])
+                    kconv.conv3d_igemm_dx.launches - counts[1],
+                    kconv.conv3d_igemm.wgmma_launches
+                    + kconv.conv3d_igemm_dx.wgmma_launches - counts[2])
     with plain_kernels():
         loss_p, _ = tr.loss_and_metrics(tr.state.params, batch)
         grads_p = torch.autograd.grad(loss_p, params)
@@ -893,7 +943,8 @@ def phase_training():
         f"tol 1e-4), gradient norm {norm_k:.6g} vs {norm_p:.6g} (rel "
         f"{norm_rel:.2e}, tol 1e-3); largest gradient difference "
         f"{worst_rel:.2e} of the largest gradient")
-    if f32_launches != (CONVS_PER_FORWARD, CONVS_DX_PER_STEP):
+    # f32 never takes the wgmma route
+    if f32_launches != (CONVS_PER_FORWARD, CONVS_DX_PER_STEP, 0):
         raise AssertionError(f"f32 step launches {f32_launches}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("f32 step disagrees with the plain conv path")
@@ -1139,7 +1190,7 @@ def compare_attention(shape, dtype, seed, timed):
 
 
 def attention_twice(shape, seed):
-    """The bf16 forward and dK/dV run twice on the same inputs must give
+    """The bf16 forward, dQ and dK/dV run twice on the same inputs must give
     the same bits: every output element has one owner, nothing is atomic."""
     import torch
 
@@ -1157,12 +1208,14 @@ def attention_twice(shape, seed):
     for _ in range(2):
         out, m, l = ka.flash_attention_fwd(q, k, v, scale)
         lse, delta = ka.backward_rows(out, m, l, g)
-        runs.append((out, m, l, *ka.flash_attention_bwd_dkv(
-            q, k, v, g, lse, delta, scale)))
+        runs.append((out, m, l,
+                     ka.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),
+                     *ka.flash_attention_bwd_dkv(
+                         q, k, v, g, lse, delta, scale)))
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(*runs))
     log(f"  attention B={b} H={h} Nq={nq} Nkv={nkv} D={d} bfloat16 twice: "
-        f"out, m, l, dk, dv bit-equal: {same}")
+        f"out, m, l, dq, dk, dv bit-equal: {same}")
     if not same:
         raise AssertionError(f"attention kernels differ between two runs at "
                              f"{shape}")
@@ -1216,7 +1269,9 @@ def _launch_counts():
         flash_attention_bwd_dq=ka.flash_attention_bwd_dq.launches,
         flash_attention_bwd_dkv=ka.flash_attention_bwd_dkv.launches,
         conv3d_igemm=kconv.conv3d_igemm.launches,
+        conv3d_igemm_wgmma=kconv.conv3d_igemm.wgmma_launches,
         conv3d_igemm_dx=kconv.conv3d_igemm_dx.launches,
+        conv3d_igemm_dx_wgmma=kconv.conv3d_igemm_dx.wgmma_launches,
         intensity_aug=ki.intensity_aug.launches,
     )
 
@@ -1230,6 +1285,8 @@ def _reset_counts():
                ka.flash_attention_bwd_dkv, kconv.conv3d_igemm,
                kconv.conv3d_igemm_dx, ki.intensity_aug):
         fn.launches = 0
+    kconv.conv3d_igemm.wgmma_launches = 0
+    kconv.conv3d_igemm_dx.wgmma_launches = 0
 
 
 def phase_unetr_serving():
@@ -1269,7 +1326,8 @@ def phase_unetr_serving():
         torch.cuda.synchronize()
     want_launches = dict.fromkeys(launches, 0)
     want_launches.update(flash_attention_fwd=UNETR_BLOCKS,
-                         conv3d_igemm=UNETR_CONVS)
+                         conv3d_igemm=UNETR_CONVS,
+                         conv3d_igemm_wgmma=UNETR_CONVS_WGMMA)
     err = float((out - want).abs().max())
     lo, hi = float(out.min()), float(out.max())
     # bf16: one-ulp rounding flips in 8 attention blocks and 9 convs,
@@ -1341,7 +1399,9 @@ def phase_unetr_training():
     per_step = dict(
         flash_attention_fwd=UNETR_BLOCKS, flash_attention_bwd_dq=UNETR_BLOCKS,
         flash_attention_bwd_dkv=UNETR_BLOCKS, conv3d_igemm=UNETR_CONVS,
-        conv3d_igemm_dx=UNETR_CONVS_DX, intensity_aug=1,
+        conv3d_igemm_wgmma=UNETR_CONVS_WGMMA,
+        conv3d_igemm_dx=UNETR_CONVS_DX,
+        conv3d_igemm_dx_wgmma=UNETR_CONVS_DX_WGMMA, intensity_aug=1,
     )
     want = {k: v * UNETR_TIMED_STEPS for k, v in per_step.items()}
     med = sorted(secs)[len(secs) // 2]
@@ -1394,7 +1454,10 @@ def phase_unetr_training():
         f"{loss_rel:.2e}, tol 1e-4), gradient norm {norm_k:.6g} vs "
         f"{norm_p:.6g} (rel {norm_rel:.2e}, tol 1e-3); largest gradient "
         f"difference {worst_rel:.2e} of the largest gradient")
-    if f32_launches != {**per_step, "intensity_aug": 0}:
+    # f32 never takes the wgmma route
+    if f32_launches != {**per_step, "intensity_aug": 0,
+                        "conv3d_igemm_wgmma": 0,
+                        "conv3d_igemm_dx_wgmma": 0}:
         raise AssertionError(f"f32 step launches {f32_launches}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("f32 step disagrees with the plain versions")
@@ -1551,7 +1614,8 @@ def main():
 
     # launches of each main path, counted from 0 just before it was driven
     by_path = {
-        "unet_serving": {"conv3d_igemm": serving["launches"]},
+        "unet_serving": {"conv3d_igemm": serving["launches"],
+                         "conv3d_igemm_wgmma": serving["wgmma_launches"]},
         "unet_training": training["launches"],
         "unetr_serving": unetr_serving["launches"],
         "unetr_training": unetr_training["launches"],
@@ -1622,6 +1686,11 @@ def main():
         k["launches_by_path"] = launches_of({
             "intensity_aug_batch": "intensity_aug",
         }.get(k["name"], k["name"]))[1]
+    # K1's launches by route: the wgmma kernel and the gathered-tile one
+    for k in kernels[:2]:
+        wgmma = launches_of(k["name"] + "_wgmma")[0]
+        k["launches_by_route"] = {"wgmma": wgmma,
+                                  "igemm": k["launches"] - wgmma}
     # K2 is the B=1 call of K3's kernel: no main path runs it at B=1
     kernels[3]["launches_by_path"] = {
         "intensity_phase": kernels[3]["launches"]}

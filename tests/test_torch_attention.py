@@ -198,7 +198,9 @@ PLAN_SMEM = {
     ("fwd", torch.bfloat16, 32): 3 * 2 * 4096 + 1024,
     ("bwd_dkv", torch.bfloat16, 64): 2 * 8192 + 4 * (2 * 8192 + 512) + 1024,
     ("bwd_dkv", torch.bfloat16, 32): 2 * 4096 + 4 * (2 * 4096 + 512) + 1024,
-    ("bwd_dq", torch.bfloat16, 64): 98304,
+    ("bwd_dq", torch.bfloat16, 64): 3 * 2 * 8192 + 1024,
+    ("bwd_dq", torch.bfloat16, 32): 3 * 2 * 4096 + 1024,
+    ("bwd_dq", torch.float32, 64): 4 * 16640 + 2 * 17408 + 16640 + 17408,
     ("fwd", torch.float32, 64): 101632,
     ("bwd_dkv", torch.float32, 64): 4 * 16640 + 4 * 17408 + 2 * 16640,
 }
@@ -218,9 +220,9 @@ def test_launch_plan_sizes(key):
 def test_hopper_kernels_fit_more_blocks_than_the_first_design():
     """Why the rewrite: 227 KB of shared memory an SM held one dK/dV block
     of the shared-memory design; the wgmma design fits two, the forward
-    four."""
+    and dQ four."""
     sm = 233472
-    for stem, blocks in (("fwd", 4), ("bwd_dkv", 2)):
+    for stem, blocks in (("fwd", 4), ("bwd_dq", 4), ("bwd_dkv", 2)):
         smem = tattn.launch_plan(stem, torch.bfloat16, 8, 2048, 2048,
                                  64)["smem"]
         assert sm // (smem + 1024) == blocks

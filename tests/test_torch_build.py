@@ -17,6 +17,40 @@ def test_port_sources_and_headers_are_found():
     assert "wgmma.cuh" in {p.name for p in build._headers()}
 
 
+def test_every_included_header_is_hashed():
+    """Each ``#include "..."`` of a port source names a header under
+    ``csrc/`` that the build hashes: the conv and attention kernels share
+    ``wgmma.cuh``, so a change to it rebuilds both."""
+    import re
+
+    headers = {p.name for p in build._headers()}
+    included = set()
+    for src in build._sources():
+        included |= set(re.findall(r'#include "([^"]+)"', src.read_text()))
+    assert included and included <= headers
+    for name in ("conv3d_igemm.cu", "flash_attention.cu"):
+        assert '#include "wgmma.cuh"' in (build.CSRC_DIR / name).read_text()
+
+
+def test_single_entry_points_have_signatures():
+    """The conv's Hopper entry points have no f32 twin and are bound by
+    name with as many arguments as the source declares: 14 for the
+    launcher, pointers as pointers."""
+    import ctypes
+    import re
+
+    sig = build._SINGLE["adell_conv3d_wgmma_bf16"]
+    assert len(sig) == 14
+    assert sig[:4] == [ctypes.c_void_p] * 4 and sig[-1] is ctypes.c_void_p
+    source = (build.CSRC_DIR / "conv3d_igemm.cu").read_text()
+    declared = dict(
+        (m.group(1), m.group(2).count(",") + 1)
+        for m in re.finditer(r'extern "C" int (adell_conv3d_wgmma\w*)'
+                             r"\(([^)]*)\)", source)
+    )
+    assert declared == {name: len(s) for name, s in build._SINGLE.items()}
+
+
 def test_hash_follows_a_header(tmp_path, monkeypatch):
     """A changed header must rebuild: the hash covers ``*.cuh`` content."""
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)

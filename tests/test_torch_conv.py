@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import adell_mri_tpu.ops.pallas.conv as pconv_mod
 from adell_mri_tpu.ops.conv import (
@@ -240,3 +242,212 @@ def test_initialisers_match_flax_lecun_normal(module, fan_in):
     bound = 2 * fan_in**-0.5 / 0.87962566103423978
     assert np.abs(w).max() <= bound + 1e-6
     assert np.abs(ref).max() <= bound + 1e-6
+
+
+# -- the Hopper route: routing, boxes and the box/halo/tap decomposition ----
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cin", [1, 8, 16, 48, 64, 256])
+@pytest.mark.parametrize("cout", [1, 16, 24, 256])
+def test_conv_route(dtype, cin, cout):
+    """bf16 with Cin a multiple of 16 and Cout of 8 takes the wgmma kernel;
+    the stems (Cin 1), Cin 8 and every f32 conv take the igemm kernel."""
+    want = ("wgmma" if dtype == torch.bfloat16 and cin % 16 == 0
+            and cout % 8 == 0 else "igemm")
+    assert kconv.conv_route(dtype, cin, cout) == want
+
+
+def _box_cover(d, h, w, box):
+    """How often each output voxel falls in a box of the grid."""
+    tz, ty, tx = box
+    counts = np.zeros((d, h, w), dtype=np.int64)
+    for z0 in range(0, d, tz):
+        for y0 in range(0, h, ty):
+            for x0 in range(0, w, tx):
+                counts[z0:z0 + tz, y0:y0 + ty, x0:x0 + tx] += 1
+    return counts
+
+
+#: output voxels of the shipped build's box (two warpgroups of 64)
+BOX = 128
+
+
+def _halo_limit(cin, cout, stages=4, work=2048):
+    """The most halo rows of the shipped build (``Plan`` in
+    ``csrc/conv3d_igemm.cu``), worked out in Python: a channel chunk of the
+    largest of 64, 32, 16 dividing Cin, an N block of Cout padded to 16, 32,
+    64 or 128, G taps a ring stage (products G * ck * nb reach ``work``; the
+    ring's lead of ``stages - 2`` steps caps G at 9), ``stages`` stages
+    rounded to 1024 bytes, 1024 bytes of alignment, and two halo buffers of
+    rows of 2 ck + 16 bytes when Cin has several chunks. The card tests hold
+    ``adell_conv3d_wgmma_limits`` to it."""
+    ck = next(c for c in (64, 32, 16) if cin % c == 0)
+    nb = next(n for n in (16, 32, 64, 128) if n >= min(cout, 128))
+    g = next(g for g in (1, 3, 9) if g * ck * nb >= work or g == 9)
+    stage = -(-g * ck * nb * 2 // 1024) * 1024
+    bufs = 2 if cin > ck else 1
+    room = (232448 - stages * stage - 1024) // bufs // 128 * 128
+    return room // (2 * ck + 16)
+
+
+class _Limits:
+    """Stands in for the library: ``adell_conv3d_wgmma_limits`` answers
+    (voxels, halo rows) for Cin and Cout multiples of 16 and 8 (by default
+    those of the shipped build), and counts its calls."""
+
+    def __init__(self, voxels=BOX, rows=None):
+        self.voxels, self.rows, self.calls = voxels, rows, 0
+
+    def adell_conv3d_wgmma_limits(self, cin, cout, out):
+        self.calls += 1
+        if cin % 16 or cout % 8:
+            return 1
+        out[0] = self.voxels
+        out[1] = _halo_limit(cin, cout) if self.rows is None else self.rows
+        return 0
+
+
+def _check_plan(b, d, h, w, cin, cout):
+    """The box of a launch covers every output voxel once, has the build's
+    voxel count and a halo within the shared memory left beside the ring."""
+    box = kconv.wgmma_box(_Limits(), d, h, w, cin, cout)
+    tz, ty, tx = box
+    assert tz * ty * tx == BOX
+    assert (_box_cover(d, h, w, box) == 1).all()
+    assert (tz + 2) * (ty + 2) * (tx + 2) <= _halo_limit(cin, cout)
+    return box
+
+
+# the main paths' shapes (U-Net levels at B=4, UNETR levels at B=1, their
+# dx with Cin and Cout swapped) and ragged volumes
+PLAN_SHAPES = [
+    (4, 128, 128, 32, 32, 32), (4, 128, 128, 32, 64, 32),
+    (4, 64, 64, 16, 64, 64), (4, 32, 32, 8, 128, 64),
+    (4, 16, 16, 4, 256, 256), (4, 16, 16, 4, 128, 256),
+    (4, 8, 8, 2, 128, 256), (4, 8, 8, 2, 256, 128),
+    (1, 256, 256, 64, 32, 16), (1, 256, 256, 64, 16, 32),
+    (1, 32, 32, 8, 256, 128), (1, 7, 9, 5, 16, 16), (1, 7, 9, 5, 48, 24),
+    (2, 3, 5, 7, 16, 8), (1, 1, 1, 1, 64, 64),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_wgmma_plan_covers_every_voxel_once(shape):
+    _check_plan(*shape)
+
+
+@pytest.mark.parametrize(
+    "spatial,box",
+    [((128, 128, 32), (4, 4, 8)), ((64, 64, 16), (4, 4, 8)),
+     ((16, 16, 4), (4, 8, 4)), ((8, 8, 2), (8, 8, 2)),
+     ((256, 256, 64), (4, 4, 8))],
+)
+def test_plan_box_picks_the_smallest_halo(spatial, box):
+    """No ragged box at the main paths' levels, and the halo of 360 rows of
+    a near-cubic box (400 at 8x8x2, whose whole level is one box)."""
+    assert kconv.plan_box(*spatial, BOX) == box
+
+
+def test_wgmma_smem_by_hand():
+    """Halo limits worked out by hand: 256->256 has four chunks of 64 and
+    four 16 KB stages of one tap, so two buffers of 144-byte rows share
+    232448 - 1024 - 65536 bytes (576 rows, the tightest of the build);
+    32->32 one buffer of 80-byte rows beside four 6 KB stages of three taps;
+    48->24 three chunks of 16 (48-byte rows) beside four 9 KB stages of nine
+    taps, as many as the ring's lead allows."""
+    assert _halo_limit(256, 256) == 82944 // 144 == 576
+    assert _halo_limit(32, 32) == (232448 - 4 * 6144 - 1024) // 80 == 2585
+    assert _halo_limit(48, 24) == (232448 - 4 * 9216 - 1024) // 2 // 48
+    assert _halo_limit(16, 16) == _halo_limit(16, 16, work=8192)
+
+
+def test_wgmma_box_asks_the_launcher_once_a_shape():
+    """The box follows the launcher's limits, and a launch at a shape seen
+    before costs a cache lookup, not a plan."""
+    lib = _Limits(BOX, 360)
+    assert kconv.wgmma_box(lib, 128, 128, 32, 32, 32) == (4, 4, 8)
+    assert kconv.wgmma_box(lib, 128, 128, 32, 32, 32) == (4, 4, 8)
+    assert lib.calls == 1
+    assert kconv.wgmma_box(_Limits(64, 1000), 16, 16, 4, 64, 64) == (
+        4, 4, 4)
+    # no box of 128 voxels has a halo under 360 rows; Cin 8 has no kernel
+    with pytest.raises(ValueError):
+        kconv.wgmma_box(_Limits(BOX, 300), 64, 64, 16, 16, 16)
+    with pytest.raises(ValueError):
+        kconv.wgmma_box(lib, 8, 8, 8, 8, 16)
+
+
+def test_plan_box_respects_a_halo_cap():
+    assert kconv.plan_box(7, 9, 5, BOX, max_halo_rows=360) in (
+        (4, 4, 8), (4, 8, 4), (8, 4, 4))
+    with pytest.raises(ValueError):
+        kconv.plan_box(8, 8, 8, BOX, max_halo_rows=100)
+    with pytest.raises(ValueError):
+        kconv.plan_box(8, 8, 8, 96)
+
+
+@settings(max_examples=40, deadline=None)
+@given(
+    d=st.integers(1, 40), h=st.integers(1, 40), w=st.integers(1, 40),
+    cin=st.sampled_from([16, 32, 48, 64, 96, 128, 256]),
+    cout=st.integers(1, 32).map(lambda n: 8 * n),
+)
+def test_wgmma_plan_property(d, h, w, cin, cout):
+    _check_plan(1, d, h, w, cin, cout)
+
+
+def emulate_wgmma_conv(x, w, bias):
+    """The wgmma kernel's decomposition in numpy (f32): for each box of
+    ``wgmma_box`` and each channel chunk, the halo (zeros outside the
+    volume) is cut once, and each of the 27 taps multiplies the halo rows shifted by the
+    tap with that tap's weight rows; ragged boxes are computed and cropped."""
+    b, d, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    tz, ty, tx = kconv.wgmma_box(_Limits(), d, h, wd, cin, cout)
+    # the launcher's channel chunk: the largest of 64, 32, 16 dividing Cin
+    ck = next(c for c in (64, 32, 16) if cin % c == 0)
+    nz, ny, nx = -(-d // tz), -(-h // ty), -(-wd // tx)
+    xp = np.zeros((b, nz * tz + 2, ny * ty + 2, nx * tx + 2, cin), np.float32)
+    xp[:, 1:d + 1, 1:h + 1, 1:wd + 1] = x
+    out = np.zeros((b, nz * tz, ny * ty, nx * tx, cout), np.float32)
+    for bi in range(b):
+        for z0 in range(0, nz * tz, tz):
+            for y0 in range(0, ny * ty, ty):
+                for x0 in range(0, nx * tx, tx):
+                    acc = np.zeros((tz * ty * tx, cout), np.float32)
+                    for c0 in range(0, cin, ck):
+                        halo = xp[bi, z0:z0 + tz + 2, y0:y0 + ty + 2,
+                                  x0:x0 + tx + 2, c0:c0 + ck]
+                        for t in range(27):
+                            dz, dy, dx = t // 9, t // 3 % 3, t % 3
+                            rows = halo[dz:dz + tz, dy:dy + ty, dx:dx + tx]
+                            acc += rows.reshape(-1, ck) @ w[dz, dy, dx,
+                                                            c0:c0 + ck]
+                    out[bi, z0:z0 + tz, y0:y0 + ty, x0:x0 + tx] = (
+                        acc.reshape(tz, ty, tx, cout))
+    return out[:, :d, :h, :wd] + bias
+
+
+@pytest.mark.parametrize("x_shape,cout", [((2, 7, 9, 5, 48), 24),
+                                          ((1, 5, 6, 10, 32), 16)])
+def test_box_halo_emulation_matches_reference_and_jax(x_shape, cout):
+    x, w, b = _inputs(11, x_shape, cout)
+    got = emulate_wgmma_conv(x, w, b)
+    want = kconv.conv3d_igemm_reference(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)
+    ).numpy()
+    jax_want = np.asarray(conv3d_xla(jnp.asarray(x), jnp.asarray(w))) + b
+    # f32 sums of the same products in different orders
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.abs(got - jax_want).max() <= 1e-5 * np.abs(jax_want).max()
+
+
+def test_wgmma_route_counts_nothing_on_the_cpu():
+    x, w, b = _inputs(12, (1, 4, 4, 8, 16), 16)
+    xt, wt, bt = (torch.from_numpy(a).bfloat16() for a in (x, w, b))
+    before = (kconv.conv3d_igemm.wgmma_launches,
+              kconv.conv3d_igemm_dx.wgmma_launches)
+    y = kconv.conv3d_igemm_train(xt.requires_grad_(), wt, bt)
+    y.float().sum().backward()
+    assert (kconv.conv3d_igemm.wgmma_launches,
+            kconv.conv3d_igemm_dx.wgmma_launches) == before

@@ -68,6 +68,75 @@ def test_conv3d_igemm_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 7, 9, 5, 16, 16),
+        (1, 7, 9, 5, 48, 24),
+        (2, 8, 8, 2, 128, 256),
+        (1, 5, 6, 10, 32, 16),
+        (2, 6, 6, 6, 64, 64),
+        (1, 9, 4, 3, 256, 8),
+    ],
+)
+def test_conv3d_wgmma_route_matches_plain(cuda, shape):
+    """The Hopper route (bf16, Cin a multiple of 16, Cout of 8) at ragged
+    volumes, chunked channels and padded N blocks, forward and dx."""
+    b, d, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((b, d, h, w, cin), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    wt = (torch.randn((3, 3, 3, cin, cout), generator=g, device=cuda)
+          / (27 * cin) ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(cout, generator=g, device=cuda).to(torch.bfloat16)
+    gy = torch.randn((b, d, h, w, cout), generator=g,
+                     device=cuda).to(torch.bfloat16)
+    before = (kconv.conv3d_igemm.wgmma_launches,
+              kconv.conv3d_igemm_dx.wgmma_launches)
+    got = kconv.conv3d_igemm(x, wt, bias)
+    dx = kconv.conv3d_igemm_dx(gy, wt)
+    assert kconv.conv3d_igemm.wgmma_launches == before[0] + 1
+    want = kconv.conv3d_igemm_reference(x, wt, bias)
+    w_rot = wt.flip(0, 1, 2).transpose(3, 4).contiguous()
+    want_dx = kconv.conv3d_igemm_reference(gy, w_rot)
+    torch.cuda.synchronize()
+    if cout % 16 == 0:
+        assert kconv.conv3d_igemm_dx.wgmma_launches == before[1] + 1
+    for a, r in ((got, want), (dx, want_dx)):
+        scale = max(float(r.float().abs().max()), 1.0)
+        assert float((a.float() - r.float()).abs().max()) <= 2.0**-7 * scale
+
+
+@pytest.mark.gpu
+def test_wgmma_limits_are_the_launchers(cuda):
+    """``adell_conv3d_wgmma_limits`` of the shipped build, worked out by
+    hand: the CPU tests' box and tightest halo limit (256->256); 32->32, a
+    ring of four 6 KB stages beside one buffer of 80-byte rows; 48->24,
+    three chunks of 16 (two buffers of 48-byte rows) and four 9 KB stages
+    of nine taps. The launcher takes the box ``wgmma_box`` picks and
+    refuses one of another size."""
+    import ctypes
+
+    from adell_mri_torch.ops.kernels.build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 2)()
+    for cin, cout, want in [(256, 256, [128, 576]), (32, 32, [128, 2585]),
+                            (48, 24, [128, 2026])]:
+        assert lib.adell_conv3d_wgmma_limits(cin, cout, got) == 0
+        assert list(got) == want
+    assert lib.adell_conv3d_wgmma_limits(8, 16, got) != 0
+    assert kconv.wgmma_box(lib, 16, 16, 4, 256, 256) == (4, 8, 4)
+    x = torch.zeros((1, 4, 4, 8, 16), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 16, 16), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.adell_conv3d_wgmma_bf16(
+        x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 1, 4, 4, 8, 16, 16,
+        2, 4, 8, stream) != 0
+
+
+@pytest.mark.gpu
 def test_conv3d_igemm_rejects_strided_input(cuda):
     x = torch.zeros((1, 4, 4, 4, 8), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
@@ -267,14 +336,16 @@ def test_flash_attention_rejects_bad_inputs(cuda):
 @pytest.mark.parametrize("shape", [(2, 8, 2048, 2048, 64),
                                    (1, 3, 2050, 2311, 32)], ids=str)
 def test_flash_attention_bf16_is_bit_equal_from_run_to_run(cuda, shape):
-    """Every output element has one owner and no atomics: forward and
+    """Every output element has one owner and no atomics: forward, dQ and
     dK/dV give the same bits twice."""
     q, k, v, g = _attention_inputs(shape, torch.bfloat16, cuda, 6)
     scale = shape[-1] ** -0.5
     first = kattn.flash_attention_fwd(q, k, v, scale)
     lse, delta = kattn.backward_rows(*first, g)
+    first += (kattn.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),)
     first += kattn.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
     again = kattn.flash_attention_fwd(q, k, v, scale)
+    again += (kattn.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),)
     again += kattn.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
     torch.cuda.synchronize()
     for a, b in zip(first, again):
