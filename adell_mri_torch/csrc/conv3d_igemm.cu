@@ -56,10 +56,35 @@
 //   - the epilogue adds the bias in f32 to the register sums and rounds once
 //     to bf16, as the plain version does.
 //
+// conv3d_narrow_kernel (bf16 and f32, min(Cin, Cout) <= 4 and max(Cin,
+// Cout) <= 64: the Cin = 1 stems 1->1, 1->32 and UNETR's 1->16, the Cout = 1
+// dx 32->1, multi-sequence stems such as 3->32 and their dx) is bound by
+// bytes: at Cin = 1 a conv does 27*Cout FLOP per input element, and 1->32 at
+// B=4, 128x128x32 moves 138 MB (41 us at 3.35 TB/s) for 3.62 GFLOP. A GEMM
+// pads these shapes (K = 27 to 32, N = 1 to 8 or 32) and gathers each patch
+// element apart. This kernel reads each input byte once from device memory
+// and writes each output byte once:
+//   - a block owns a box of NZ x ty x 32 output voxels; a lane owns one x, a
+//     warp one y, a thread NZ = 4 voxels along z and COT output channels (1,
+//     4 or 8; warps of the same voxels take the other channel slices);
+//   - the box's input halo, zero outside the volume, goes to shared memory
+//     once per vector of CIV channels (1, 4, or 16 bytes), in the input type;
+//     the weight, 27*Cin*Cout f32 values (27 KB at most), stays there for the
+//     block and a warp reads one address of it at a time (a broadcast);
+//   - a thread reads the NZ + 2 halo rows of each (dy, dx) column once and
+//     uses them for the three dz taps; lanes read neighbouring rows;
+//   - sums are exact products in f32 registers, bias added and rounded once,
+//     as in the plain version; no atomics, so bf16 outputs are the same bits
+//     every run; outputs of 4 or 8 channels leave as 8- or 16-byte stores.
+// It multiplies with f32 FMA, not mma.sync: 1->32, 32->1 and 1->16 each do
+// 3.62 GFLOP, 54 us at 67 TFLOP/s, within 1.3x of their 41-43 us bytes
+// bound; one template then serves bf16 and f32 with the same arithmetic, and
+// nothing is padded to a tensor-core tile (N = Cout = 1 would be 8).
+//
 // conv3d_igemm_bf16_kernel (the first design: a gathered patch tile, WMMA
-// 16x16x16, synchronous loads) keeps the bf16 convs the new kernel does not
-// take (the Cin=1 stems, which bytes bound). The f32 path is plain FMA (no
-// TF32), for exact comparisons and f32 training.
+// 16x16x16, synchronous loads) keeps the bf16 convs neither Hopper kernel
+// takes (Cin 5 to 15 and the like). The f32 path is plain FMA (no TF32),
+// for exact comparisons and f32 training.
 //
 // C interface (loaded with ctypes): each launcher enqueues one kernel on the
 // given stream and returns cudaGetLastError().
@@ -653,6 +678,496 @@ int n_block_of(int Cout) {
 
 }  // namespace box
 
+// ------------------------------------------------------- narrow, Hopper ---
+
+namespace narrow {
+
+constexpr int TX = 32;      // output voxels of a warp along x, one a lane
+// Output voxels of a thread along z. tune_conv measured 8 no faster than 4
+// (the weight loads it halves do not bound the kernel).
+constexpr int NZ = 4;
+// Blocks an SM holds at once, a register cap of 128: tune_conv measured 2
+// about 10 % faster than 1 on every narrow class.
+constexpr int MIN_BLOCKS = 2;
+constexpr int HX = TX + 2;  // halo extent along x
+constexpr int MAX_CH = 64;  // the wider side of a narrow conv
+constexpr int MAX_NARROW = 4;
+
+// Whether Cin -> Cout is a narrow conv: one side of at most 4 channels, the
+// other of at most 64.
+__host__ __device__ constexpr bool takes(int cin, int cout) {
+  return cin >= 1 && cout >= 1 && (cin < cout ? cin : cout) <= MAX_NARROW &&
+         (cin > cout ? cin : cout) <= MAX_CH;
+}
+
+// Element access of the two types, on their raw bits.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  using raw = uint16_t;
+  __device__ __forceinline__ static float f32(uint16_t v) {
+    return __uint_as_float((uint32_t)v << 16);  // exact
+  }
+  __device__ __forceinline__ static uint16_t round(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+template <>
+struct Elem<float> {
+  using raw = uint32_t;
+  __device__ __forceinline__ static float f32(uint32_t v) {
+    return __uint_as_float(v);
+  }
+  __device__ __forceinline__ static uint32_t round(float v) {
+    return __float_as_uint(v);
+  }
+};
+
+// One load or store of BYTES bytes.
+template <int BYTES>
+struct Word;
+template <>
+struct Word<2> { using type = uint16_t; };
+template <>
+struct Word<4> { using type = uint32_t; };
+template <>
+struct Word<8> { using type = uint2; };
+template <>
+struct Word<16> { using type = uint4; };
+
+// A word's 32-bit parts, and a word from them (no type punning: the
+// optimizer may keep either side in registers).
+__device__ __forceinline__ uint32_t part(uint32_t v, int) { return v; }
+__device__ __forceinline__ uint32_t part(const uint2& v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ uint32_t part(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+template <typename V>
+__device__ __forceinline__ V make_word(const uint32_t* u);
+template <>
+__device__ __forceinline__ uint32_t make_word<uint32_t>(const uint32_t* u) {
+  return u[0];
+}
+template <>
+__device__ __forceinline__ uint2 make_word<uint2>(const uint32_t* u) {
+  return make_uint2(u[0], u[1]);
+}
+template <>
+__device__ __forceinline__ uint4 make_word<uint4>(const uint32_t* u) {
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// N raw elements (N * size a power of two, at most 16 bytes) as one word.
+template <int N, typename R>
+__device__ __forceinline__ typename Word<N * (int)sizeof(R)>::type word_of(
+    const R* e) {
+  constexpr int BYTES = N * (int)sizeof(R);
+  if constexpr (BYTES == 2) {
+    return e[0];
+  } else {
+    uint32_t u[BYTES / 4];
+#pragma unroll
+    for (int i = 0; i < BYTES / 4; ++i) {
+      if constexpr (sizeof(R) == 4)
+        u[i] = (uint32_t)e[i];
+      else
+        u[i] = (uint32_t)e[2 * i] | (uint32_t)e[2 * i + 1] << 16;
+    }
+    return make_word<typename Word<BYTES>::type>(u);
+  }
+}
+
+// Stores N raw elements as words of at most 16 bytes (dst aligned to them).
+template <int N, typename R>
+__device__ __forceinline__ void store_raw(R* dst, const R (&e)[N]) {
+  constexpr int BYTES = N * (int)sizeof(R);
+  constexpr int WB = BYTES > 16 ? 16 : BYTES;  // bytes a store
+  constexpr int EPS = WB / (int)sizeof(R);     // elements a store
+  using V = typename Word<WB>::type;
+#pragma unroll
+  for (int p = 0; p < N / EPS; ++p)
+    reinterpret_cast<V*>(dst)[p] = word_of<EPS>(e + p * EPS);
+}
+
+// N elements of T, one word of shared memory, as floats (exact).
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const typename Elem<T>::raw* src,
+                                         float (&f)[N]) {
+  using R = typename Elem<T>::raw;
+  constexpr int BYTES = N * (int)sizeof(R);
+  if constexpr (BYTES == 2) {
+    f[0] = Elem<T>::f32(*src);
+  } else {
+    const auto w = *reinterpret_cast<const typename Word<BYTES>::type*>(src);
+#pragma unroll
+    for (int i = 0; i < BYTES / 4; ++i) {
+      const uint32_t u = part(w, i);
+      if constexpr (sizeof(R) == 4) {
+        f[i] = __uint_as_float(u);
+      } else {
+        f[2 * i] = __uint_as_float(u << 16);
+        f[2 * i + 1] = __uint_as_float(u & 0xffff0000u);
+      }
+    }
+  }
+}
+
+// N floats of shared memory (16-byte aligned where N >= 4).
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float (&v)[N]) {
+  if constexpr (N == 1) {
+    v[0] = p[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  }
+}
+
+// The launch's geometry. A block is cs x TX x ty threads, the channel slice
+// (which COT output channels) fastest, then x, then y, so that a warp's
+// stores cover whole output rows side by side; a thread owns NZ voxels
+// along z of one (y, x). The box is NZ x ty x TX voxels.
+struct Shape {
+  int D, H, W, Cin, Cout;
+  int cin_s;   // Cin padded to whole vectors of CIV channels
+  int cout_p;  // Cout padded to whole slices of COT channels
+  int ty, cs;  // warp rows, channel slices
+  int nbz, nby, nbx, boxes;
+};
+
+// Halo vectors a thread loads for one box and chunk (the most of any plan:
+// a box of 8 warp rows over 256 threads).
+constexpr int PREFETCH = ((NZ + 2) * 10 * HX + 255) / 256;
+
+// out = bias + sum over taps and channels of x * w, channels-last, SAME
+// zeros, exact products summed in f32 registers, rounded once. A block
+// walks boxes (box += gridDim.x) and, in each, the input channels CIV at a
+// time. The weight (f32, zero past Cin and Cout) is loaded to shared memory
+// once a block. The halo of a (box, chunk) step is double-buffered: a
+// thread issues the loads of its share of the next step's halo into
+// registers before it computes this step, and stores them to the other
+// buffer after, so device-memory latency hides behind the taps. Each thread
+// reads its (NZ + 2) halo rows of a (dy, dx) column once for the three dz
+// taps. Lanes read neighbouring rows (no bank conflicts) and a warp reads
+// one weight address at a time (a broadcast).
+template <typename T, int CIV, int COT>
+__global__ void __launch_bounds__(256, MIN_BLOCKS)
+    conv3d_narrow_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         const T* __restrict__ bias, T* __restrict__ out,
+                         Shape s) {
+  using E = Elem<T>;
+  using R = typename E::raw;
+  using V = typename Word<CIV * (int)sizeof(R)>::type;  // one halo vector
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wn = 27 * s.cin_s * s.cout_p;
+  const int hy = s.ty + 2;
+  const int rows = (NZ + 2) * hy * HX;
+  const int plane = hy * HX;
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [27][cin_s][cout_p]
+  R* halo0 = reinterpret_cast<R*>(smem_raw + box::round_up(wn * 4, 16));
+  R* halo1 = halo0 + box::round_up(rows * CIV, 8);
+  const R* xr = reinterpret_cast<const R*>(x);
+  const R* wr = reinterpret_cast<const R*>(w);
+
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int slice = tid % s.cs, lane = tid / s.cs % TX;
+  const int wy = tid / s.cs / TX;
+  const size_t vol = (size_t)s.D * s.H * s.W;
+  const bool whole = s.Cin % CIV == 0;  // vectors lie whole in memory
+  const int chunks = s.cin_s / CIV;
+
+  if (s.cin_s == s.Cin && s.cout_p == s.Cout) {
+    for (int i = tid; i < wn; i += nth) ws[i] = E::f32(wr[i]);
+  } else {
+    for (int i = tid; i < wn; i += nth) {
+      const int co = i % s.cout_p, r = i / s.cout_p;
+      const int ci = r % s.cin_s, tap = r / s.cin_s;
+      ws[i] = ci < s.Cin && co < s.Cout
+                  ? E::f32(wr[((size_t)tap * s.Cin + ci) * s.Cout + co])
+                  : 0.f;
+    }
+  }
+  // halo row r is (hz, hy, hx) = (r / plane, r / HX % hy, r % HX); the
+  // quotient by plane is taken from a float reciprocal, exact for r below
+  // 2^16 (a halo has at most a few thousand rows)
+  const float inv_plane = 1.f / (float)plane;
+
+  int b = 0, z0 = 0, y0 = 0, x0 = 0;  // the box being computed
+  auto locate = [&](int bx, int& bb, int& zz, int& yy, int& xx) {
+    xx = bx % s.nbx * TX;
+    bx /= s.nbx;
+    yy = bx % s.nby * s.ty;
+    bx /= s.nby;
+    zz = bx % s.nbz * NZ;
+    bb = bx / s.nbz;
+  };
+  // the halo vectors of (box bx, channels c0 ..) this thread loads
+  V pf[PREFETCH];
+  auto fetch = [&](int bx, int c0) {
+    int bb, zz, yy, xx;
+    locate(bx, bb, zz, yy, xx);
+    const R* xb = xr + (size_t)bb * vol * s.Cin + c0;
+#pragma unroll
+    for (int k = 0; k < PREFETCH; ++k) {
+      const int r = tid + k * nth;
+      if (r >= rows) break;
+      const int hz = (int)(((float)r + 0.5f) * inv_plane);
+      const int rem = r - hz * plane;
+      const int gz = zz + hz - 1;
+      const int gy = yy + rem / HX - 1;
+      const int gx = xx + rem % HX - 1;
+      const bool ok = (unsigned)gz < (unsigned)s.D &&
+                      (unsigned)gy < (unsigned)s.H &&
+                      (unsigned)gx < (unsigned)s.W;
+      const R* src =
+          xb + (ok ? ((size_t)gz * s.H + gy) * s.W + gx : 0) * s.Cin;
+      if (ok && whole) {
+        pf[k] = *reinterpret_cast<const V*>(src);
+      } else {
+        R v[CIV];
+#pragma unroll
+        for (int c = 0; c < CIV; ++c)
+          v[c] = ok && c0 + c < s.Cin ? src[c] : (R)0;
+        pf[k] = word_of<CIV>(v);
+      }
+    }
+  };
+  auto put = [&](R* buf) {
+#pragma unroll
+    for (int k = 0; k < PREFETCH; ++k) {
+      const int r = tid + k * nth;
+      if (r >= rows) break;
+      *reinterpret_cast<V*>(buf + (size_t)r * CIV) = pf[k];
+    }
+  };
+
+  int bx = blockIdx.x, chunk = 0;
+  if (bx >= s.boxes) return;
+  fetch(bx, 0);
+  put(halo0);
+  __syncthreads();
+  locate(bx, b, z0, y0, x0);
+  const int co0 = slice * COT;
+  float acc[NZ][COT];
+#pragma unroll
+  for (int n = 0; n < NZ; ++n)
+#pragma unroll
+    for (int j = 0; j < COT; ++j) acc[n][j] = 0.f;
+  R* cur = halo0;
+  R* other = halo1;
+
+  while (true) {
+    // the next step of this block: the next chunk, or the next box's first
+    const bool last = chunk + 1 == chunks;
+    const int nbx = last ? bx + gridDim.x : bx;
+    const int nchunk = last ? 0 : chunk + 1;
+    const bool more = nbx < s.boxes;
+    if (more) fetch(nbx, nchunk * CIV);
+
+    // hidden from the optimizer, so the 27 tap offsets are not hoisted out
+    // of the step loop into registers
+    const int tap_stride = box::opaque(s.cin_s * s.cout_p);
+    const float* wc = ws + chunk * CIV * s.cout_p + co0;
+    const R* hb = cur + (size_t)(wy * HX + lane) * CIV;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        float h[NZ + 2][CIV];
+#pragma unroll
+        for (int k = 0; k < NZ + 2; ++k)
+          load_f32<T>(hb + (size_t)(k * plane + dy * HX + dx) * CIV, h[k]);
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz) {
+          const float* wt = wc + (dz * 9 + dy * 3 + dx) * tap_stride;
+          if constexpr (COT == 1) {
+            // one output channel: the CIV weights of the tap lie side by side
+            float wv[CIV];
+            load_floats(wt, wv);
+#pragma unroll
+            for (int c = 0; c < CIV; ++c)
+#pragma unroll
+              for (int n = 0; n < NZ; ++n)
+                acc[n][0] = fmaf(h[n + dz][c], wv[c], acc[n][0]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < CIV; ++c) {
+              float wv[COT];
+              load_floats(wt + c * s.cout_p, wv);
+#pragma unroll
+              for (int n = 0; n < NZ; ++n)
+#pragma unroll
+                for (int j = 0; j < COT; ++j)
+                  acc[n][j] = fmaf(h[n + dz][c], wv[j], acc[n][j]);
+            }
+          }
+        }
+      }
+    }
+
+    if (last) {
+      const int ox = x0 + lane, oy = y0 + wy;
+      if (ox < s.W && oy < s.H) {
+        float bv[COT];
+#pragma unroll
+        for (int j = 0; j < COT; ++j) {
+          const int co = co0 + j;
+          bv[j] = bias != nullptr && co < s.Cout
+                      ? E::f32(reinterpret_cast<const R*>(bias)[co])
+                      : 0.f;
+        }
+        R* ob = reinterpret_cast<R*>(out) +
+                ((size_t)b * vol + (size_t)oy * s.W + ox) * s.Cout + co0;
+        const bool full = s.Cout % COT == 0;  // whole, aligned vectors
+#pragma unroll
+        for (int n = 0; n < NZ; ++n) {
+          const int oz = z0 + n;
+          if (oz >= s.D) break;
+          R v[COT];
+#pragma unroll
+          for (int j = 0; j < COT; ++j) v[j] = E::round(acc[n][j] + bv[j]);
+          R* o = ob + (size_t)oz * s.H * s.W * s.Cout;
+          if (full) {
+            store_raw(o, v);
+          } else {
+#pragma unroll
+            for (int j = 0; j < COT; ++j)
+              if (co0 + j < s.Cout) o[j] = v[j];
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NZ; ++n)
+#pragma unroll
+        for (int j = 0; j < COT; ++j) acc[n][j] = 0.f;
+    }
+    if (!more) break;
+    put(other);
+    __syncthreads();  // the next step's halo is in; this one is read
+    R* t = cur;
+    cur = other;
+    other = t;
+    bx = nbx;
+    chunk = nchunk;
+    if (last) locate(bx, b, z0, y0, x0);
+  }
+}
+
+// The decomposition for Cin -> Cout in elements of `esize` bytes: channels
+// a halo vector (1 at Cin = 1, 4 up to Cin = 4, then 16 bytes), output
+// channels a thread (1, 4 up to Cout = 4, then 8), channel slices, warp rows
+// (8 warps a block where the slices allow), and the shared memory: the
+// weight and two halo buffers.
+struct Plan {
+  int civ, cot, cs, ty, cin_s, cout_p, threads, smem;
+};
+
+inline Plan plan_of(int esize, int Cin, int Cout) {
+  Plan p;
+  p.civ = Cin == 1 ? 1 : Cin <= 4 ? 4 : 16 / esize;
+  p.cot = Cout == 1 ? 1 : Cout <= 4 ? 4 : 8;
+  p.cs = (Cout + p.cot - 1) / p.cot;
+  p.ty = p.cs >= 8 ? 1 : 8 / p.cs;
+  p.cin_s = box::round_up(Cin, p.civ);
+  p.cout_p = p.cot == 1 ? 1 : p.cs * p.cot;
+  p.threads = TX * p.ty * p.cs;
+  const int rows = (NZ + 2) * (p.ty + 2) * HX;
+  p.smem = box::round_up(27 * p.cin_s * p.cout_p * 4, 16) +
+           2 * box::round_up(rows * p.civ, 8) * esize;
+  return p;
+}
+
+// One block a box up to as many as fit on the card at once; each walks its
+// boxes from there.
+template <typename T, int CIV, int COT>
+int launch(const void* x, const void* w, const void* bias, void* out,
+           const Shape& s, const Plan& p, cudaStream_t st) {
+  auto kernel = conv3d_narrow_kernel<T, CIV, COT>;
+  const int rows = (NZ + 2) * (p.ty + 2) * HX;
+  if (rows > PREFETCH * p.threads) return (int)cudaErrorInvalidValue;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (rc != cudaSuccess) return (int)rc;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess ||
+      (rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev)) != cudaSuccess ||
+      (rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, p.threads, p.smem)) != cudaSuccess)
+    return (int)rc;
+  const int cap = sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(s.boxes < cap ? s.boxes : cap);
+  kernel<<<blocks, p.threads, p.smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(bias), static_cast<T*>(out), s);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_narrow(const void* x, const void* w, const void* bias, void* out,
+                  int B, int D, int H, int W, int Cin, int Cout,
+                  cudaStream_t st) {
+  if (!takes(Cin, Cout) || B < 1 || D < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of((int)sizeof(T), Cin, Cout);
+  Shape s;
+  s.D = D;
+  s.H = H;
+  s.W = W;
+  s.Cin = Cin;
+  s.Cout = Cout;
+  s.cin_s = p.cin_s;
+  s.cout_p = p.cout_p;
+  s.ty = p.ty;
+  s.cs = p.cs;
+  s.nbz = (D + NZ - 1) / NZ;
+  s.nby = (H + p.ty - 1) / p.ty;
+  s.nbx = (W + TX - 1) / TX;
+  const long long boxes = (long long)B * s.nbz * s.nby * s.nbx;
+  if (boxes >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  s.boxes = (int)boxes;
+  switch (p.civ * 100 + p.cot) {
+    case 101: return launch<T, 1, 1>(x, w, bias, out, s, p, st);
+    case 104: return launch<T, 1, 4>(x, w, bias, out, s, p, st);
+    case 108: return launch<T, 1, 8>(x, w, bias, out, s, p, st);
+    case 401: return launch<T, 4, 1>(x, w, bias, out, s, p, st);
+    case 404: return launch<T, 4, 4>(x, w, bias, out, s, p, st);
+    case 408: return launch<T, 4, 8>(x, w, bias, out, s, p, st);
+    case 801:
+    case 804:
+      // 16-byte vectors of eight channels: bf16 only
+      if constexpr (sizeof(T) == 2) {
+        if (p.cot == 1) return launch<T, 8, 1>(x, w, bias, out, s, p, st);
+        return launch<T, 8, 4>(x, w, bias, out, s, p, st);
+      }
+      return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int plan_narrow(int esize, int Cin, int Cout, int* out) {
+  if (!takes(Cin, Cout)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of(esize, Cin, Cout);
+  out[0] = NZ;
+  out[1] = p.ty;
+  out[2] = TX;
+  out[3] = p.cot;
+  out[4] = p.cs;
+  out[5] = p.civ;
+  return 0;
+}
+
+}  // namespace narrow
+
 ConvShape make_shape(int B, int D, int H, int W, int Cin, int Cout) {
   ConvShape s;
   s.D = D;
@@ -699,6 +1214,36 @@ extern "C" int adell_conv3d_igemm_f32(const void* x, const void* w,
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(out), s);
   return (int)cudaGetLastError();
+}
+
+// The narrow kernel (min(Cin, Cout) <= 4, max(Cin, Cout) <= 64; bf16 and
+// f32): cudaErrorInvalidValue outside that set.
+extern "C" int adell_conv3d_narrow_bf16(const void* x, const void* w,
+                                        const void* bias, void* out, int B,
+                                        int D, int H, int W, int Cin,
+                                        int Cout, void* stream) {
+  return narrow::launch_narrow<__nv_bfloat16>(
+      x, w, bias, out, B, D, H, W, Cin, Cout,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+extern "C" int adell_conv3d_narrow_f32(const void* x, const void* w,
+                                       const void* bias, void* out, int B,
+                                       int D, int H, int W, int Cin, int Cout,
+                                       void* stream) {
+  return narrow::launch_narrow<float>(x, w, bias, out, B, D, H, W, Cin, Cout,
+                                      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The narrow kernel's decomposition of Cin -> Cout: out[0..2], the box (z,
+// y, x voxels); out[3], output channels a thread; out[4], threads sharing a
+// voxel (channel slices); out[5], input channels a halo vector.
+extern "C" int adell_conv3d_narrow_plan_bf16(int Cin, int Cout, int* out) {
+  return narrow::plan_narrow(2, Cin, Cout, out);
+}
+
+extern "C" int adell_conv3d_narrow_plan_f32(int Cin, int Cout, int* out) {
+  return narrow::plan_narrow(4, Cin, Cout, out);
 }
 
 // The Hopper kernel (bf16, Cin a multiple of 16, Cout of 8): the box

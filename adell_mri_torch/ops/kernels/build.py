@@ -111,6 +111,14 @@ _SIGNATURES = {
     "adell_conv3d_igemm": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     ),
+    # x, w, bias, out, B, D, H, W, Cin, Cout, stream
+    "adell_conv3d_narrow": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    ),
+    # Cin, Cout, out[6]: box z, y, x; channels a thread; slices; vector
+    "adell_conv3d_narrow_plan": (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    ),
     # x, out, par, seed, B, n, noise, rician, n_sm, stream
     "adell_intensity_aug": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]

@@ -5,25 +5,32 @@ Counterpart of ``adell_mri_tpu/ops/pallas/conv.py``: the CUDA kernels in
 ``adell_mri_torch/csrc/conv3d_igemm.cu`` replace that module's ``_kernel``
 (the TPU implicit-GEMM conv). Both are implicit GEMMs over M = B*D*H*W
 voxels, N = Cout and K = 27*Cin whose patch matrix never reaches device
-memory, with f32 sums and the bias fused into the epilogue. Two routes,
+memory, with f32 sums and the bias fused into the epilogue. Three routes,
 chosen by ``conv_route``:
 
-- ``"wgmma"`` (bf16, Cin a multiple of 16, Cout of 8: every conv of the
-  main paths but the Cin=1 stems): a block owns a box of output voxels
+- ``"narrow"`` (bf16 or f32, one side of at most 4 channels and the other
+  of at most 64: the Cin=1 stems, the Cout=1 input gradient, multi-sequence
+  stems such as 3->32): bound by bytes, so a block loads its box's input
+  halo into shared memory once per vector of channels and sums the 27
+  taps with f32 FMA from there, the weight resident beside it;
+- ``"wgmma"`` (bf16, Cin a multiple of 16, Cout of 8: every other conv of
+  the main paths): a block owns a box of output voxels
   (``plan_box``, within the launcher's limits: ``wgmma_box``), loads its
   input halo into shared memory once per channel chunk and runs the 27
   taps from there as ``wgmma`` products with A from registers (``ldmatrix``
   at each row's shifted address) and the weight streamed through a
   ``cp.async`` ring;
-- ``"igemm"`` (the rest: bf16 stems, f32): the first kernel, which gathers a
-  patch tile per k-step (WMMA in bf16, FMA in f32).
+- ``"igemm"`` (the rest: bf16 widths between the two, wide f32 convs): the
+  first kernel, which gathers a patch tile per k-step (WMMA in bf16, FMA in
+  f32).
 
 The source's header says what bounds each on the H100 and what its design
 does about that. ``conv3d_igemm`` launches a kernel for CUDA tensors and
 runs the plain version, ``conv3d_igemm_reference``, only for CPU tensors.
 Unlike the TPU kernel it has no shape gate: every Cin/Cout and spatial size
-is taken. Its ``launches`` counts every launch, ``wgmma_launches`` those of
-the ``"wgmma"`` route (``conv3d_igemm_dx`` likewise).
+is taken. Its ``launches`` counts every launch, ``wgmma_launches`` and
+``narrow_launches`` those of the two Hopper routes (``conv3d_igemm_dx``
+likewise).
 
 ``conv3d_igemm_train`` is the differentiable form, mirroring
 ``_conv3d_im2col_bwd`` in ``adell_mri_tpu/ops/conv.py`` for stride 1 and
@@ -48,9 +55,22 @@ _LAUNCHERS = {
 }
 
 
+_NARROW_LAUNCHERS = {
+    torch.bfloat16: "adell_conv3d_narrow_bf16",
+    torch.float32: "adell_conv3d_narrow_f32",
+}
+#: the narrow route's widths: one side at most NARROW, the other MAX_NARROW
+NARROW, MAX_NARROW = 4, 64
+
+
 def conv_route(dtype, cin, cout):
-    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with Cin a
-    multiple of 16 and Cout a multiple of 8, ``"igemm"`` otherwise."""
+    """The kernel a CUDA call takes: ``"narrow"`` when one side has at most
+    4 channels and the other at most 64 (either dtype); else ``"wgmma"``
+    for bf16 with Cin a multiple of 16 and Cout a multiple of 8; else
+    ``"igemm"``. The first two are disjoint: Cin <= 4 is no multiple of 16,
+    Cout <= 4 none of 8."""
+    if min(cin, cout) <= NARROW and max(cin, cout) <= MAX_NARROW:
+        return "narrow"
     if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
         return "wgmma"
     return "igemm"
@@ -160,6 +180,9 @@ def _launch(x, w, bias):
             box = wgmma_box(lib, d, h, w_sz, cin, cout)
             rc = lib.adell_conv3d_wgmma_bf16(
                 *ptrs, b, d, h, w_sz, cin, cout, *box, stream)
+        elif route == "narrow":
+            rc = getattr(lib, _NARROW_LAUNCHERS[x.dtype])(
+                *ptrs, b, d, h, w_sz, cin, cout, stream)
         else:
             rc = getattr(lib, _LAUNCHERS[x.dtype])(
                 *ptrs, b, d, h, w_sz, cin, cout, stream)
@@ -172,6 +195,7 @@ def _launch(x, w, bias):
 def _count(fn, route):
     fn.launches += route is not None
     fn.wgmma_launches += route == "wgmma"
+    fn.narrow_launches += route == "narrow"
 
 
 def _on_card(x, name):
@@ -195,9 +219,10 @@ def conv3d_igemm(x, w, bias=None):
 
 
 #: forward launches since the last reset (set to 0 to start a count), and
-#: those of them that took the "wgmma" route
+#: those of them that took the "wgmma" and the "narrow" route
 conv3d_igemm.launches = 0
 conv3d_igemm.wgmma_launches = 0
+conv3d_igemm.narrow_launches = 0
 
 
 def conv3d_igemm_dx(g, w):
@@ -213,9 +238,10 @@ def conv3d_igemm_dx(g, w):
     return dx
 
 
-#: backward (dx) launches since the last reset, and the "wgmma" route's
+#: backward (dx) launches since the last reset, and the two Hopper routes'
 conv3d_igemm_dx.launches = 0
 conv3d_igemm_dx.wgmma_launches = 0
+conv3d_igemm_dx.narrow_launches = 0
 
 
 def conv3d_weight_grad(x, g):

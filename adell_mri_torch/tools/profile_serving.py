@@ -34,6 +34,7 @@ GROUPS = (
     ("flash_fwd", "flash_attention_fwd (K4/K5)"),
     ("conv3d_igemm", "conv3d_igemm (stride-1 3x3x3 convs)"),
     ("conv3d_wgmma", "conv3d_igemm (stride-1 3x3x3 convs)"),
+    ("conv3d_narrow", "conv3d_igemm (stride-1 3x3x3 convs)"),
     ("CatArrayBatchedCopy", "concatenation"),
     ("reduce_kernel", "reductions (instance-norm statistics)"),
     ("fprop", "cuDNN convs (stride-2 downsampling)"),

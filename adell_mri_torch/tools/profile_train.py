@@ -38,6 +38,7 @@ GROUPS = (
     ("flash_bwd_dkv", "flash_attention_bwd_dkv (K7)"),
     ("conv3d_igemm", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
     ("conv3d_wgmma", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
+    ("conv3d_narrow", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
     ("intensity_aug", "intensity_aug (K3: fused intensity augmentation)"),
     ("fft", "FFT (Gibbs ringing)"),
     ("fprop", "cuDNN convs (stride-2, forward and backward)"),

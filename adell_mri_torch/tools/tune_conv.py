@@ -1,18 +1,20 @@
 """
-Times build variants of the Hopper conv kernel (K1) on the card.
+Times build variants of the Hopper conv kernels (K1) on the card.
 
-``csrc/conv3d_igemm.cu`` takes the warpgroups a block (64 output voxels
-each, so the box size), the weight ring's stages and the products a ring
-stage holds from three macros (``ADELL_CONV_WARPGROUPS``,
+``csrc/conv3d_igemm.cu`` takes the wgmma kernel's warpgroups a block (64
+output voxels each, so the box size), the weight ring's stages and the
+products a ring stage holds from three macros (``ADELL_CONV_WARPGROUPS``,
 ``ADELL_CONV_STAGES``, ``ADELL_CONV_TAP_WORK``), whose defaults are the
 shipped choice. This tool rebuilds the library once per variant (one
 process each, the defines appended to ``build.NVCC_FLAGS``, which the
 build hashes), holds the forward and the dx launch of each main-path conv
 shape class against the plain version, and times them: the flagship
-U-Net's 31 convs of one window batch (B=4 at 128x128x32) and UNETR's 9
-convs of one 256x256x64 case (B=1), bf16. Ragged volumes with several
-small channel chunks (``EDGE_CONVS``) are checked too, so that a variant
-whose ring breaks there is not timed as valid. Each class also gets the
+U-Net's 31 convs of one window batch (B=4 at 128x128x32), UNETR's 9
+convs of one 256x256x64 case (B=1), and the stems of a three-sequence
+U-Net (``STEM_CONVS``), bf16, with the narrow route's share of each
+total. Ragged volumes with several small channel chunks and narrow ragged
+shapes (``EDGE_CONVS``) are checked too, so that a variant that breaks
+there is not timed as valid. Each class also gets the
 host time to issue one forward launch (``host_us``: the wrapper's checks,
 plan and allocation). The default is timed first and last, so the table
 shows the run's spread.
@@ -70,13 +72,22 @@ UNETR_CONVS = [
     (1, (64, 64, 16), 128, 64, 1), (1, (64, 64, 16), 64, 64, 1),
     (1, (32, 32, 8), 256, 128, 1), (1, (32, 32, 8), 128, 128, 1),
 ]
+# the stems of a U-Net on three sequences (segmentation train --image_keys
+# T2W HBV ADC): 3->3 reads the images, 3->32 has a 32->3 dx
+STEM_CONVS = [
+    (4, (128, 128, 32), 3, 3, 1), (4, (128, 128, 32), 3, 32, 1),
+]
 # ragged volumes whose channels come in several chunks of 16 or 32: they
-# reach the ring's chunk changes at the fewest steps a chunk (not timed)
+# reach the ring's chunk changes at the fewest steps a chunk; and ragged
+# narrow convs (not timed)
 EDGE_CONVS = [
     (1, (7, 9, 5), 48, 24, 0), (1, (7, 9, 5), 48, 32, 0),
     (2, (12, 10, 9), 96, 32, 0), (1, (7, 9, 5), 16, 16, 0),
+    (1, (7, 9, 5), 1, 16, 0), (1, (7, 9, 5), 3, 8, 0),
+    (1, (7, 9, 5), 24, 1, 0),
 ]
-MODELS = {"unet": UNET_CONVS, "unetr": UNETR_CONVS, "edges": EDGE_CONVS}
+MODELS = {"unet": UNET_CONVS, "unetr": UNETR_CONVS, "stems": STEM_CONVS,
+          "edges": EDGE_CONVS}
 
 
 def host_us(fn, reps=50):
@@ -122,7 +133,7 @@ def measure(defines, root=ROOT):
            "totals": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for model, convs in MODELS.items():
-        fwd = dx = 0.0
+        fwd = dx = fwd_narrow = dx_narrow = 0.0
         for i, (b, spatial, cin, cout, count) in enumerate(convs):
             x = torch.randn((b, *spatial, cin), generator=gen,
                             device="cuda").to(torch.bfloat16)
@@ -148,6 +159,10 @@ def measure(defines, root=ROOT):
                 timed and i > 0) else None
             fwd += (ms or 0.0) * count
             dx += (dx_ms or 0.0) * count
+            if route(cin, cout) == "narrow":
+                fwd_narrow += (ms or 0.0) * count
+            if route(cout, cin) == "narrow":
+                dx_narrow += (dx_ms or 0.0) * count
             row["shapes"].append(dict(
                 model=model, shape=[b, *spatial, cin, cout], count=count,
                 route=route(cin, cout), dx_route=route(cout, cin),
@@ -156,7 +171,9 @@ def measure(defines, root=ROOT):
                 ok=all(e <= t for e, t in errs), ms=ms, dx_ms=dx_ms,
                 host_us=host_us(lambda: kc.conv3d_igemm(x, w)),
             ))
-        row["totals"][model] = {"fwd_ms": fwd, "dx_ms": dx}
+        row["totals"][model] = {"fwd_ms": fwd, "dx_ms": dx,
+                                "fwd_narrow_ms": fwd_narrow,
+                                "dx_narrow_ms": dx_narrow}
     # host time to issue the forward launches of one window batch
     row["totals"]["unet"]["host_us"] = sum(
         r["host_us"] * r["count"] for r in row["shapes"]
@@ -210,7 +227,12 @@ def main():
             f"batch {t['unet']['fwd_ms']:.3f} ms, dx per step "
             f"{t['unet']['dx_ms']:.3f} ms; UNETR case "
             f"{t['unetr']['fwd_ms']:.3f} ms, dx per step "
-            f"{t['unetr']['dx_ms']:.3f} ms; host {t['unet']['host_us']:.0f} "
+            f"{t['unetr']['dx_ms']:.3f} ms; narrow route: U-Net "
+            f"{t['unet']['fwd_narrow_ms']:.3f} + "
+            f"{t['unet']['dx_narrow_ms']:.3f} ms, UNETR "
+            f"{t['unetr']['fwd_narrow_ms']:.3f} ms, three-sequence stems "
+            f"{t['stems']['fwd_ms']:.3f} + {t['stems']['dx_ms']:.3f} ms; "
+            f"host {t['unet']['host_us']:.0f} "
             f"us to issue a window batch; beyond tolerance: {bad}",
             flush=True,
         )

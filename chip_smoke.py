@@ -11,16 +11,21 @@ failure:
    ``build/adell_kernels/`` (seconds printed); ptxas must report no spill
    and no serialized ``wgmma`` for the Hopper kernels (conv, attention);
 3. kernel vs plain: ``conv3d_igemm`` against ``conv3d_igemm_reference``
-   at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off), and in
-   bf16 at shapes that reach every route and edge of the wgmma conv (UNETR's
+   at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off), in bf16
+   at shapes that reach every route and edge of the wgmma conv (UNETR's
    256x256x64 16- and 32-channel convs, ragged 7x9x5 volumes at 16->16 and
-   48->24, 256->256, Cin 8 on the igemm route), each row with its route, with
-   times beside ``F.conv3d`` (cuDNN, a yardstick the port never calls);
+   48->24, 256->256, Cin 8 on the igemm route), and in bf16 and f32 at the
+   narrow route's shapes (the U-Net stems and the 32->1 dx, UNETR's 1->16 at
+   B=1 and 2, the multi-sequence stems 3->3, 3->32 and their 32->3 dx,
+   ragged 7x9x5 at 1->16, 3->8 and 24->1; bf16 bit-equal over two runs),
+   each row with its route read from the route counters, with times beside
+   ``F.conv3d`` (cuDNN, a yardstick the port never calls);
 4. serving: the flagship U-Net in bf16 from seeded random weights serves
    a 256x256x64 case through ``SegmentationInference`` (window 128x128x32,
    stride 0.5, micro-batch 4: 27 tiles in 7 window batches); the kernel's
-   launch count must rise by 31 x 7, 29 x 7 of them on the wgmma route (all
-   but the two Cin=1 stems); one window batch is compared with the
+   launch count must rise by 31 x 7, 29 x 7 of them on the wgmma route and
+   2 x 7 (the two Cin=1 stems) on the narrow route, none on the igemm
+   route; one window batch is compared with the
    same U-Net on the plain conv path, and every conv shape of that batch is
    timed against its plain version and its bound;
 5. CLI: ``python -m adell_mri_torch segmentation predict --dev cuda
@@ -32,11 +37,15 @@ failure:
 7. conv backward vs plain: for every stride-1 conv shape of the flagship
    forward at B=4, dx/dW/dbias of ``conv3d_igemm_train`` against autograd
    through ``conv3d_igemm_reference``, f32 (TF32 off) and bf16; the dx
-   launches timed against their bound;
+   launches timed against their bound; dW (``conv3d_weight_grad``, the
+   patch tensor times the cotangent) timed beside cuDNN's weight gradient
+   (a yardstick the port never calls) and its bound, with the bytes its
+   call adds to peak memory;
 8. training: the flagship U-Net (seed 0, bf16, augmentation on, B=4 at
    128x128x32) takes one warm-up step and 5 timed steps with the launch
-   counts reset just before (per step 29 of 31 forward and 29 of 30 dx
-   launches on the wgmma route: the dx of 1->32 has one output channel);
+   counts reset just before (per step 29 + 2 of 31 forward and 29 + 1 of 30
+   dx launches on the wgmma + narrow routes: the stems and the dx of 1->32,
+   whose output has one channel, take the narrow one);
    every parameter gets a finite, non-zero
    gradient; ten steps on one batch without augmentation lower the loss;
    one f32 step matches the plain conv path;
@@ -56,13 +65,14 @@ failure:
 11. UNETR serving: ``sample_configs/unetr.yaml`` at full width in bf16
     from seeded weights serves one 256x256x64 case as one window through
     ``SegmentationInference``: 8 forward-attention launches and 9 conv
-    launches per case (8 on the wgmma route); the same case through the
-    kernels' plain versions
+    launches per case (8 on the wgmma route, the image's 1->16 on the narrow
+    one); the same case through the kernels' plain versions
     agrees;
 12. UNETR training: B=2 whole volumes, bf16, augmentation on, dropout 0:
     a warm-up step and timed steps with 8 forward, 8 dQ and 8 dK/dV
-    launches each, and 8 of 9 conv and 8 of 8 dx launches on the wgmma
-    route; every parameter gets a finite, non-zero gradient; an
+    launches each, 8 + 1 of 9 conv launches on the wgmma + narrow routes and
+    8 of 8 dx on the wgmma route; every parameter gets a finite, non-zero
+    gradient; an
     f32 step (B=1) matches the plain versions in loss and gradient norm;
     ten steps on one batch lower the loss;
 13. CLI: ``segmentation train --segmentation_net_type unetr --dev cuda
@@ -94,9 +104,12 @@ CONVS_PER_FORWARD = 31
 # whose input is the image
 CONVS_DX_PER_STEP = 30
 # of those, the launches on the wgmma route: all but the Cin=1 stems (two
-# forward convs) and the dx of 1->32, whose output has one channel
+# forward convs) and the dx of 1->32, whose output has one channel; those
+# three take the narrow route, and no bf16 conv of a main path the igemm one
 CONVS_WGMMA_PER_FORWARD = 29
 CONVS_DX_WGMMA_PER_STEP = 29
+CONVS_NARROW_PER_FORWARD = 2
+CONVS_DX_NARROW_PER_STEP = 1
 WINDOW_BATCHES = 7
 TIMED_STEPS = 5
 # UNETR (sample_configs/unetr.yaml on 256x256x64): 8 blocks of 8 heads of
@@ -108,9 +121,11 @@ UNETR_TOKENS = 2048
 UNETR_HEAD_DIM = 64
 UNETR_CONVS = 9
 UNETR_CONVS_DX = 8
-# all but the image's 1->16 conv take the wgmma route, every dx does
+# all but the image's 1->16 conv (the narrow route) take the wgmma route,
+# every dx does
 UNETR_CONVS_WGMMA = 8
 UNETR_CONVS_DX_WGMMA = 8
+UNETR_CONVS_NARROW = 1
 UNETR_TIMED_STEPS = 3
 # sequence lengths around the attention kernels' 64-row tiles
 ATTENTION_TILE_EDGES = (1, 63, 64, 65, 127, 128, 129)
@@ -164,7 +179,9 @@ def conv_bound(b, spatial, cin, cout, dtype):
 
 def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     """Kernel vs plain on the card at one shape: max abs error, its
-    tolerance, and the times of kernel, plain version and cuDNN."""
+    tolerance, and the times of kernel, plain version and cuDNN. The route
+    is read from the route counters; a bf16 narrow conv runs twice and must
+    give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -180,12 +197,20 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     w = (w / (27 * cin) ** 0.5).to(dtype)
     bias = (0.1 * torch.randn(cout, generator=g, device="cuda")).to(dtype)
     route = conv_route(dtype, cin, cout)
-    before = conv3d_igemm.wgmma_launches
+    before = (conv3d_igemm.wgmma_launches, conv3d_igemm.narrow_launches)
     got = conv3d_igemm(x, w, bias)
-    if conv3d_igemm.wgmma_launches - before != (route == "wgmma"):
+    taken = (conv3d_igemm.wgmma_launches - before[0],
+             conv3d_igemm.narrow_launches - before[1])
+    if taken != (route == "wgmma", route == "narrow"):
         raise AssertionError(f"{cin}->{cout} {dtype} did not take the "
-                             f"{route} route")
+                             f"{route} route: {taken}")
     want = conv3d_igemm_reference(x, w, bias)
+    same = None
+    if route == "narrow" and dtype == torch.bfloat16:
+        same = torch.equal(got, conv3d_igemm(x, w, bias))
+        if not same:
+            raise AssertionError(f"{cin}->{cout} bf16 differs between two "
+                                 "runs")
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
@@ -198,7 +223,7 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     bound, bound_by = conv_bound(b, spatial, cin, cout, name)
     row = dict(
         shape=[b, *spatial, cin, cout], dtype=name, route=route,
-        max_abs_err=err,
+        max_abs_err=err, bit_equal=same,
         tol=tol, ok=err <= tol,
         ms=time_ms(lambda: conv3d_igemm(x, w, bias), reps),
         plain_ms=time_ms(lambda: conv3d_igemm_reference(x, w, bias), reps),
@@ -208,7 +233,9 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     log(
         f"  conv {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name} "
         f"({route}): "
-        f"err {err:.3g} (tol {tol:.3g}) kernel {row['ms']:.3f} ms, "
+        f"err {err:.3g} (tol {tol:.3g}"
+        + ("" if same is None else ", bit-equal over two runs")
+        + f") kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.3f} ms, F.conv3d {row['library_ms']:.3f} "
         f"ms, bound {bound:.4f} ms ({bound_by})"
     )
@@ -334,6 +361,19 @@ def phase_kernels():
     for i, (b, spatial, cin, cout) in enumerate(edges):
         rows.append(compare_conv(b, spatial, cin, cout, torch.bfloat16,
                                  seed=50 + i))
+    # the narrow route in bf16 and f32 (1->1 and 1->32 are above): the
+    # Cout = 1 dx of 1->32, UNETR's image conv at B=1 and 2, multi-sequence
+    # stems and their dx, ragged volumes
+    narrow = [
+        (4, WINDOW, 32, 1), (1, (256, 256, 64), 1, 16),
+        (2, (256, 256, 64), 1, 16), (4, WINDOW, 3, 3), (4, WINDOW, 3, 32),
+        (4, WINDOW, 32, 3), (1, (7, 9, 5), 1, 16), (1, (7, 9, 5), 3, 8),
+        (1, (7, 9, 5), 24, 1),
+    ]
+    for i, (b, spatial, cin, cout) in enumerate(narrow):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(compare_conv(b, spatial, cin, cout, dtype,
+                                     seed=70 + i))
     return rows
 
 
@@ -352,14 +392,14 @@ def phase_serving(model):
         infer(case)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        kconv.conv3d_igemm.launches = 0
-        kconv.conv3d_igemm.wgmma_launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         out = infer(case)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         launches = kconv.conv3d_igemm.launches
         wgmma = kconv.conv3d_igemm.wgmma_launches
+        narrow = kconv.conv3d_igemm.narrow_launches
         for _ in range(2):
             t0 = time.perf_counter()
             infer(case)
@@ -367,13 +407,17 @@ def phase_serving(model):
             secs.append(time.perf_counter() - t0)
     want = CONVS_PER_FORWARD * WINDOW_BATCHES
     want_wgmma = CONVS_WGMMA_PER_FORWARD * WINDOW_BATCHES
+    want_narrow = CONVS_NARROW_PER_FORWARD * WINDOW_BATCHES
+    igemm = launches - wgmma - narrow
     log(f"[serving] {'x'.join(map(str, CASE))} case: conv3d_igemm launches "
         f"{launches} (want {want}), {wgmma} on the wgmma route (want "
-        f"{want_wgmma}); warm-up {warm:.3f} s, then "
+        f"{want_wgmma}), {narrow} on the narrow route (want {want_narrow}),"
+        f" {igemm} on the igemm route (want 0); warm-up {warm:.3f} s, then "
         f"{', '.join(f'{s:.4f}' for s in secs)} s per case")
-    if (launches, wgmma) != (want, want_wgmma):
+    if (launches, wgmma, narrow) != (want, want_wgmma, want_narrow):
         raise AssertionError(f"conv3d_igemm launched {launches}, "
-                             f"{wgmma} wgmma, not {want}, {want_wgmma}")
+                             f"{wgmma} wgmma, {narrow} narrow, not {want}, "
+                             f"{want_wgmma}, {want_narrow}")
     if tuple(out.shape) != CASE + (1,):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -381,7 +425,8 @@ def phase_serving(model):
     lo, hi = float(out.min()), float(out.max())
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"probabilities outside [0, 1]: {lo}, {hi}")
-    return dict(launches=launches, wgmma_launches=wgmma, warmup_s=warm,
+    return dict(launches=launches, wgmma_launches=wgmma,
+                narrow_launches=narrow, warmup_s=warm,
                 seconds_per_case=secs, prob_range=[lo, hi], case=case)
 
 
@@ -729,10 +774,58 @@ def conv_dx_bound(b, spatial, cin, cout, dtype):
     return conv_bound(b, spatial, cout, cin, dtype)
 
 
+def weight_grad_bound(b, spatial, cin, cout, dtype):
+    """Least time of dW for one stride-1 3x3x3 conv: x and the cotangent
+    read once and dW written once over HBM bandwidth, against 2 V 27 Cin
+    Cout FLOP over the peak rate of the dtype."""
+    vox = b * spatial[0] * spatial[1] * spatial[2]
+    itemsize = 2 if dtype == "bfloat16" else 4
+    nbytes = itemsize * (vox * cin + vox * cout + 27 * cin * cout)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_flops = 2 * vox * 27 * cin * cout / PEAK_FLOPS[dtype] * 1e3
+    bound_by = "bytes" if t_bytes > t_flops else "operations"
+    return max(t_bytes, t_flops), bound_by
+
+
+def time_weight_grad(x, gy, w):
+    """dW of the port (``conv3d_weight_grad``: the patch tensor times the
+    cotangent) against cuDNN's weight gradient, a yardstick the port never
+    calls (``aten.convolution_backward`` with output mask (False, True,
+    False) on channels-last views), with the bytes the port's call adds to
+    the peak of allocated memory."""
+    import torch
+
+    from adell_mri_torch.ops.kernels.conv import conv3d_weight_grad
+
+    gc, xc = gy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3)
+    wc = w.permute(4, 3, 0, 1, 2)
+
+    def library():
+        return torch.ops.aten.convolution_backward(
+            gc, xc, wc, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
+            [0, 0, 0], 1, [False, True, False])[1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dw = conv3d_weight_grad(x, gy)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    lib_dw = library().permute(2, 3, 4, 1, 0)
+    scale = max(float(dw.float().abs().max()), 1e-30)
+    return dict(
+        dw_ms=time_ms(lambda: conv3d_weight_grad(x, gy)),
+        dw_library_ms=time_ms(library),
+        dw_peak_bytes=peak,
+        dw_library_rel_diff=float((lib_dw.float() - dw.float()).abs().max())
+        / scale,
+    )
+
+
 def phase_conv_backward(shapes):
     """dx/dW/dbias of the Function against autograd through the plain
     version at every stride-1 conv shape of the flagship forward (B=4),
-    and the dx launches timed."""
+    the dx launches timed, and dW timed beside cuDNN's and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -795,6 +888,9 @@ def phase_conv_backward(shapes):
                         lambda: F.conv3d(gc, wc, padding=1)),
                     bound_ms=bound, bound_by=bound_by,
                 )
+                row.update(time_weight_grad(x, gy, w))
+                row["dw_bound_ms"], row["dw_bound_by"] = weight_grad_bound(
+                    b, spatial, cin, cout, name)
             log(f"  {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name} "
                 f"(dx {row['dx_route']}): "
                 + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, e, t in
@@ -803,6 +899,12 @@ def phase_conv_backward(shapes):
                    f"{row['plain_ms']:.3f}, F.conv3d {row['library_ms']:.3f},"
                    f" bound {row['bound_ms']:.4f} ({row['bound_by']})"
                    if "ms" in row else ""))
+            if "dw_ms" in row:
+                log(f"    dW: {row['dw_ms']:.3f} ms, cuDNN "
+                    f"{row['dw_library_ms']:.3f} ms (rel diff "
+                    f"{row['dw_library_rel_diff']:.2g}), bound "
+                    f"{row['dw_bound_ms']:.4f} ms ({row['dw_bound_by']}), "
+                    f"peak {row['dw_peak_bytes'] / 1e9:.2f} GB")
             if not ok:
                 raise AssertionError(f"conv backward disagrees: {row}")
             rows.append(row)
@@ -818,11 +920,43 @@ def phase_conv_backward(shapes):
     )
     worst = max(timed, key=lambda r: r["errs"]["dx"] / r["tols"]["dx"])
     totals.update(max_abs_err=worst["errs"]["dx"], tol=worst["tols"]["dx"])
+    # dW of every conv of a step (the stem's first too)
+    totals["dw"] = {
+        k: sum(r[k] * r["count"] for r in timed)
+        for k in ("dw_ms", "dw_library_ms", "dw_bound_ms")
+    }
+    totals["dw"]["dw_peak_bytes"] = max(r["dw_peak_bytes"] for r in timed)
     log(f"  per training step ({CONVS_DX_PER_STEP} dx launches, bf16): kernel"
         f" {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
         f"F.conv3d {totals['library_ms']:.3f} ms, bound "
-        f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
+        f"{totals['bound_ms']:.4f} ms ({totals['bound_by']}); dW of the "
+        f"{CONVS_PER_FORWARD} convs {totals['dw']['dw_ms']:.3f} ms, cuDNN "
+        f"{totals['dw']['dw_library_ms']:.3f} ms, bound "
+        f"{totals['dw']['dw_bound_ms']:.4f} ms, largest peak "
+        f"{totals['dw']['dw_peak_bytes'] / 1e9:.2f} GB")
     return rows, totals
+
+
+def narrow_step_row(path_rows, bwd_rows):
+    """The narrow route's share of one U-Net training step: its forward
+    launches (phase 4's window-batch shapes) and its dx launches (phase
+    7's), in bf16, times and bounds summed by count, the worst error
+    against its tolerance."""
+    parts = [(r, r["count"], r["max_abs_err"], r["tol"]) for r in path_rows
+             if r["route"] == "narrow"]
+    parts += [(r, r["dx_count"], r["errs"]["dx"], r["tols"]["dx"])
+              for r in bwd_rows
+              if r["dx_route"] == "narrow" and "ms" in r and r["dx_count"]]
+    row = {k: sum(r[k] * n for r, n, _, _ in parts)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_bytes = sum(r["bound_ms"] * n for r, n, _, _ in parts
+                   if r["bound_by"] == "bytes")
+    row["bound_by"] = ("bytes" if by_bytes > row["bound_ms"] / 2
+                       else "operations")
+    _, _, err, tol = max(parts, key=lambda p: p[2] / p[3])
+    row.update(max_abs_err=err, tol=tol, launches_per_step=sum(
+        n for _, n, _, _ in parts))
+    return row
 
 
 def _grad_norm(grads):
@@ -883,8 +1017,11 @@ def phase_training():
                 if not k.startswith("flash_")}
     want = dict(conv3d_igemm=CONVS_PER_FORWARD * TIMED_STEPS,
                 conv3d_igemm_wgmma=CONVS_WGMMA_PER_FORWARD * TIMED_STEPS,
+                conv3d_igemm_narrow=CONVS_NARROW_PER_FORWARD * TIMED_STEPS,
                 conv3d_igemm_dx=CONVS_DX_PER_STEP * TIMED_STEPS,
                 conv3d_igemm_dx_wgmma=CONVS_DX_WGMMA_PER_STEP * TIMED_STEPS,
+                conv3d_igemm_dx_narrow=CONVS_DX_NARROW_PER_STEP
+                * TIMED_STEPS,
                 intensity_aug=TIMED_STEPS)
     per_step = {k: v / TIMED_STEPS for k, v in launches.items()}
     med = sorted(secs)[len(secs) // 2]
@@ -894,7 +1031,8 @@ def phase_training():
         f"step ({BATCH / med:.2f} volumes/s at the median); launches per "
         f"step {per_step}; losses {losses}; peak memory {peak_gb:.1f} GB")
     if launches != want:
-        raise AssertionError(f"launches {launches}, want {want}")
+        raise AssertionError(f"launches {launches}, want {want} (no bf16 "
+                             "conv on the igemm route)")
     if not all(l == l and abs(l) < float("inf") for l in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     del tr
@@ -914,15 +1052,18 @@ def phase_training():
     # one f32 step on the kernel against the plain conv path
     tr = make_trainer(0, None)
     params = [tr.state.params[k] for k in names]
-    counts = (kconv.conv3d_igemm.launches, kconv.conv3d_igemm_dx.launches,
-              kconv.conv3d_igemm.wgmma_launches
-              + kconv.conv3d_igemm_dx.wgmma_launches)
+
+    def f32_counts():
+        return (kconv.conv3d_igemm.launches, kconv.conv3d_igemm_dx.launches,
+                kconv.conv3d_igemm.wgmma_launches
+                + kconv.conv3d_igemm_dx.wgmma_launches,
+                kconv.conv3d_igemm.narrow_launches
+                + kconv.conv3d_igemm_dx.narrow_launches)
+
+    counts = f32_counts()
     loss_k, _ = tr.loss_and_metrics(tr.state.params, batch)
     grads_k = torch.autograd.grad(loss_k, params)
-    f32_launches = (kconv.conv3d_igemm.launches - counts[0],
-                    kconv.conv3d_igemm_dx.launches - counts[1],
-                    kconv.conv3d_igemm.wgmma_launches
-                    + kconv.conv3d_igemm_dx.wgmma_launches - counts[2])
+    f32_launches = tuple(a - b for a, b in zip(f32_counts(), counts))
     with plain_kernels():
         loss_p, _ = tr.loss_and_metrics(tr.state.params, batch)
         grads_p = torch.autograd.grad(loss_p, params)
@@ -943,8 +1084,9 @@ def phase_training():
         f"tol 1e-4), gradient norm {norm_k:.6g} vs {norm_p:.6g} (rel "
         f"{norm_rel:.2e}, tol 1e-3); largest gradient difference "
         f"{worst_rel:.2e} of the largest gradient")
-    # f32 never takes the wgmma route
-    if f32_launches != (CONVS_PER_FORWARD, CONVS_DX_PER_STEP, 0):
+    # f32 never takes the wgmma route; its stems and Cout = 1 dx the narrow
+    if f32_launches != (CONVS_PER_FORWARD, CONVS_DX_PER_STEP, 0,
+                        CONVS_NARROW_PER_FORWARD + CONVS_DX_NARROW_PER_STEP):
         raise AssertionError(f"f32 step launches {f32_launches}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("f32 step disagrees with the plain conv path")
@@ -1270,8 +1412,10 @@ def _launch_counts():
         flash_attention_bwd_dkv=ka.flash_attention_bwd_dkv.launches,
         conv3d_igemm=kconv.conv3d_igemm.launches,
         conv3d_igemm_wgmma=kconv.conv3d_igemm.wgmma_launches,
+        conv3d_igemm_narrow=kconv.conv3d_igemm.narrow_launches,
         conv3d_igemm_dx=kconv.conv3d_igemm_dx.launches,
         conv3d_igemm_dx_wgmma=kconv.conv3d_igemm_dx.wgmma_launches,
+        conv3d_igemm_dx_narrow=kconv.conv3d_igemm_dx.narrow_launches,
         intensity_aug=ki.intensity_aug.launches,
     )
 
@@ -1285,8 +1429,9 @@ def _reset_counts():
                ka.flash_attention_bwd_dkv, kconv.conv3d_igemm,
                kconv.conv3d_igemm_dx, ki.intensity_aug):
         fn.launches = 0
-    kconv.conv3d_igemm.wgmma_launches = 0
-    kconv.conv3d_igemm_dx.wgmma_launches = 0
+    for fn in (kconv.conv3d_igemm, kconv.conv3d_igemm_dx):
+        fn.wgmma_launches = 0
+        fn.narrow_launches = 0
 
 
 def phase_unetr_serving():
@@ -1327,7 +1472,8 @@ def phase_unetr_serving():
     want_launches = dict.fromkeys(launches, 0)
     want_launches.update(flash_attention_fwd=UNETR_BLOCKS,
                          conv3d_igemm=UNETR_CONVS,
-                         conv3d_igemm_wgmma=UNETR_CONVS_WGMMA)
+                         conv3d_igemm_wgmma=UNETR_CONVS_WGMMA,
+                         conv3d_igemm_narrow=UNETR_CONVS_NARROW)
     err = float((out - want).abs().max())
     lo, hi = float(out.min()), float(out.max())
     # bf16: one-ulp rounding flips in 8 attention blocks and 9 convs,
@@ -1400,8 +1546,10 @@ def phase_unetr_training():
         flash_attention_fwd=UNETR_BLOCKS, flash_attention_bwd_dq=UNETR_BLOCKS,
         flash_attention_bwd_dkv=UNETR_BLOCKS, conv3d_igemm=UNETR_CONVS,
         conv3d_igemm_wgmma=UNETR_CONVS_WGMMA,
+        conv3d_igemm_narrow=UNETR_CONVS_NARROW,
         conv3d_igemm_dx=UNETR_CONVS_DX,
-        conv3d_igemm_dx_wgmma=UNETR_CONVS_DX_WGMMA, intensity_aug=1,
+        conv3d_igemm_dx_wgmma=UNETR_CONVS_DX_WGMMA,
+        conv3d_igemm_dx_narrow=0, intensity_aug=1,
     )
     want = {k: v * UNETR_TIMED_STEPS for k, v in per_step.items()}
     med = sorted(secs)[len(secs) // 2]
@@ -1454,7 +1602,7 @@ def phase_unetr_training():
         f"{loss_rel:.2e}, tol 1e-4), gradient norm {norm_k:.6g} vs "
         f"{norm_p:.6g} (rel {norm_rel:.2e}, tol 1e-3); largest gradient "
         f"difference {worst_rel:.2e} of the largest gradient")
-    # f32 never takes the wgmma route
+    # f32 never takes the wgmma route; the image's 1->16 the narrow one
     if f32_launches != {**per_step, "intensity_aug": 0,
                         "conv3d_igemm_wgmma": 0,
                         "conv3d_igemm_dx_wgmma": 0}:
@@ -1615,7 +1763,8 @@ def main():
     # launches of each main path, counted from 0 just before it was driven
     by_path = {
         "unet_serving": {"conv3d_igemm": serving["launches"],
-                         "conv3d_igemm_wgmma": serving["wgmma_launches"]},
+                         "conv3d_igemm_wgmma": serving["wgmma_launches"],
+                         "conv3d_igemm_narrow": serving["narrow_launches"]},
         "unet_training": training["launches"],
         "unetr_serving": unetr_serving["launches"],
         "unetr_training": unetr_training["launches"],
@@ -1686,14 +1835,29 @@ def main():
         k["launches_by_path"] = launches_of({
             "intensity_aug_batch": "intensity_aug",
         }.get(k["name"], k["name"]))[1]
-    # K1's launches by route: the wgmma kernel and the gathered-tile one
+    # K1's launches by route: the wgmma kernel, the narrow one and the
+    # gathered-tile one
     for k in kernels[:2]:
         wgmma = launches_of(k["name"] + "_wgmma")[0]
-        k["launches_by_route"] = {"wgmma": wgmma,
-                                  "igemm": k["launches"] - wgmma}
+        narrow = launches_of(k["name"] + "_narrow")[0]
+        k["launches_by_route"] = {"wgmma": wgmma, "narrow": narrow,
+                                  "igemm": k["launches"] - wgmma - narrow}
     # K2 is the B=1 call of K3's kernel: no main path runs it at B=1
     kernels[3]["launches_by_path"] = {
         "intensity_phase": kernels[3]["launches"]}
+    # the narrow kernel on its own: forward and dx launches of every path
+    narrow = narrow_step_row(path_rows, bwd_rows)
+    kernels.append(entry(
+        "conv3d_narrow", "adell_mri_torch/csrc/conv3d_igemm.cu",
+        "adell_mri_tpu/ops/pallas/conv.py:60",
+        launches_of("conv3d_igemm_narrow")[0]
+        + launches_of("conv3d_igemm_dx_narrow")[0], narrow,
+        "the narrow launches of one U-Net training step (B=4 at "
+        "128x128x32, bf16): the stems 1->1 and 1->32 and the 32->1 dx; "
+        "library: F.conv3d at the same shapes", narrow["library_ms"]))
+    kernels[-1]["launches_by_path"] = {
+        p: c.get("conv3d_igemm_narrow", 0)
+        + c.get("conv3d_igemm_dx_narrow", 0) for p, c in by_path.items()}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, build_s=build_s,

@@ -51,6 +51,32 @@ def test_single_entry_points_have_signatures():
     assert declared == {name: len(s) for name, s in build._SINGLE.items()}
 
 
+def test_paired_entry_points_have_signatures():
+    """The conv's entry points with a bf16 and an f32 twin are bound with as
+    many arguments as the source declares for both: the narrow launcher
+    takes 11 (pointers and the stream as pointers), its plan 3."""
+    import ctypes
+    import re
+
+    source = (build.CSRC_DIR / "conv3d_igemm.cu").read_text()
+    declared = {}
+    for m in re.finditer(r'extern "C" int (adell_\w+)_(bf16|f32)'
+                         r"\(([^)]*)\)", source):
+        declared.setdefault(m.group(1), {})[m.group(2)] = (
+            m.group(3).count(",") + 1)
+    paired = {stem: n["bf16"] for stem, n in declared.items()
+              if n.keys() == {"bf16", "f32"} and n["bf16"] == n["f32"]}
+    assert paired == {stem: len(sig) for stem, sig
+                      in build._SIGNATURES.items()
+                      if stem.startswith("adell_conv3d")}
+    assert set(paired) == {"adell_conv3d_igemm", "adell_conv3d_narrow",
+                           "adell_conv3d_narrow_plan"}
+    sig = build._SIGNATURES["adell_conv3d_narrow"]
+    assert len(sig) == 11
+    assert sig[:4] == [ctypes.c_void_p] * 4 and sig[-1] is ctypes.c_void_p
+    assert len(build._SIGNATURES["adell_conv3d_narrow_plan"]) == 3
+
+
 def test_hash_follows_a_header(tmp_path, monkeypatch):
     """A changed header must rebuild: the hash covers ``*.cuh`` content."""
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)

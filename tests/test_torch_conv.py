@@ -247,13 +247,20 @@ def test_initialisers_match_flax_lecun_normal(module, fan_in):
 # -- the Hopper route: routing, boxes and the box/halo/tap decomposition ----
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cin", [1, 8, 16, 48, 64, 256])
-@pytest.mark.parametrize("cout", [1, 16, 24, 256])
+@pytest.mark.parametrize("cin", [1, 3, 8, 16, 48, 64, 256])
+@pytest.mark.parametrize("cout", [1, 3, 16, 24, 128, 256])
 def test_conv_route(dtype, cin, cout):
-    """bf16 with Cin a multiple of 16 and Cout of 8 takes the wgmma kernel;
-    the stems (Cin 1), Cin 8 and every f32 conv take the igemm kernel."""
-    want = ("wgmma" if dtype == torch.bfloat16 and cin % 16 == 0
-            and cout % 8 == 0 else "igemm")
+    """Either dtype with one side of at most 4 channels and the other of at
+    most 64 takes the narrow kernel (the stems, the Cout = 1 dx); of the
+    rest, bf16 with Cin a multiple of 16 and Cout of 8 takes the wgmma
+    kernel, and the others (Cin 8, Cin 1 with Cout 128, wide f32) the
+    igemm kernel."""
+    if min(cin, cout) <= 4 and max(cin, cout) <= 64:
+        want = "narrow"
+    elif dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
+        want = "wgmma"
+    else:
+        want = "igemm"
     assert kconv.conv_route(dtype, cin, cout) == want
 
 
@@ -451,3 +458,156 @@ def test_wgmma_route_counts_nothing_on_the_cpu():
     y.float().sum().backward()
     assert (kconv.conv3d_igemm.wgmma_launches,
             kconv.conv3d_igemm_dx.wgmma_launches) == before
+
+
+# -- the narrow route: its decomposition, emulated -------------------------
+
+def narrow_plan(itemsize, cin, cout):
+    """The narrow launcher's decomposition (``plan_of`` in
+    ``csrc/conv3d_igemm.cu``), worked out in Python: a box of 4 x ty x 32
+    voxels (z, y, x); a thread owns 4 voxels along z at one (y, x) and
+    ``cot`` output channels (1, 4 up to Cout 4, else 8), ``cs`` threads
+    share a voxel; the halo comes in vectors of ``civ`` channels (1 at Cin
+    1, 4 up to Cin 4, else 16 bytes); 8 warps a block where the slices
+    allow. The card tests hold ``adell_conv3d_narrow_plan`` to
+    ``NARROW_PLANS``."""
+    civ = 1 if cin == 1 else 4 if cin <= 4 else 16 // itemsize
+    cot = 1 if cout == 1 else 4 if cout <= 4 else 8
+    cs = -(-cout // cot)
+    ty = 1 if cs >= 8 else 8 // cs
+    return (4, ty, 32, cot, cs, civ)
+
+
+#: (itemsize, Cin, Cout) -> (tz, ty, tx, cot, cs, civ), worked out by hand
+NARROW_PLANS = {
+    (2, 1, 1): (4, 8, 32, 1, 1, 1), (2, 1, 32): (4, 2, 32, 8, 4, 1),
+    (2, 32, 1): (4, 8, 32, 1, 1, 8), (4, 32, 1): (4, 8, 32, 1, 1, 4),
+    (2, 1, 16): (4, 4, 32, 8, 2, 1), (2, 3, 3): (4, 8, 32, 4, 1, 4),
+    (2, 3, 32): (4, 2, 32, 8, 4, 4), (2, 32, 3): (4, 8, 32, 4, 1, 8),
+    (4, 4, 64): (4, 1, 32, 8, 8, 4), (2, 24, 1): (4, 8, 32, 1, 1, 8),
+    (2, 1, 24): (4, 2, 32, 8, 3, 1),
+}
+
+
+def test_narrow_plan_by_hand():
+    for (itemsize, cin, cout), plan in NARROW_PLANS.items():
+        assert narrow_plan(itemsize, cin, cout) == plan
+
+
+def emulate_narrow_conv(x, w, bias, itemsize):
+    """The narrow kernel's decomposition in numpy (f32): for each box of
+    ``narrow_plan`` and each vector of ``civ`` input channels, the halo
+    (zeros outside the volume and past Cin) is cut once; for each (dy, dx)
+    column a thread takes its 6 halo rows along z and uses them for the
+    three dz taps, summing channel by channel into the 4 voxels and ``cot``
+    channels it owns. Returns the output and how often each output element
+    was stored (ragged boxes and channel slices past Cout are computed and
+    not stored)."""
+    b, d, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    tz, ty, tx, cot, cs, civ = narrow_plan(itemsize, cin, cout)
+    cin_s, cout_p = -(-cin // civ) * civ, cs * cot
+    nz, ny, nx = -(-d // tz), -(-h // ty), -(-wd // tx)
+    xp = np.zeros((b, nz * tz + 2, ny * ty + 2, nx * tx + 2, cin_s),
+                  np.float32)
+    xp[:, 1:d + 1, 1:h + 1, 1:wd + 1, :cin] = x
+    wp = np.zeros((3, 3, 3, cin_s, cout_p), np.float32)
+    wp[..., :cin, :cout] = w
+    out = np.zeros((b, d, h, wd, cout), np.float32)
+    stored = np.zeros(out.shape, np.int64)
+    for bi in range(b):
+        for z0 in range(0, nz * tz, tz):
+            for y0 in range(0, ny * ty, ty):
+                for x0 in range(0, nx * tx, tx):
+                    # every thread of the box at once: [z, y, x, channel]
+                    acc = np.zeros((tz, ty, tx, cout_p), np.float32)
+                    for c0 in range(0, cin_s, civ):
+                        halo = xp[bi, z0:z0 + tz + 2, y0:y0 + ty + 2,
+                                  x0:x0 + tx + 2, c0:c0 + civ]
+                        for dy in range(3):
+                            for dx in range(3):
+                                col = halo[:, dy:dy + ty, dx:dx + tx]
+                                for dz in range(3):
+                                    for c in range(civ):
+                                        acc += (col[dz:dz + tz, ..., c, None]
+                                                * wp[dz, dy, dx, c0 + c])
+                    zs, ys = min(tz, d - z0), min(ty, h - y0)
+                    xs = min(tx, wd - x0)
+                    for s in range(cs):
+                        cols = slice(s * cot, min((s + 1) * cot, cout))
+                        out[bi, z0:z0 + zs, y0:y0 + ys, x0:x0 + xs,
+                            cols] = acc[:zs, :ys, :xs, cols] + bias[cols]
+                        stored[bi, z0:z0 + zs, y0:y0 + ys, x0:x0 + xs,
+                               cols] += 1
+    return out, stored
+
+
+NARROW_SHAPES = [(1, 7, 9, 5), (2, 3, 5, 7), (1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("cin,cout", [(1, 16), (3, 8), (24, 1), (32, 3),
+                                      (1, 1), (4, 64), (64, 4), (1, 24)])
+@pytest.mark.parametrize("spatial", NARROW_SHAPES, ids=str)
+def test_narrow_decomposition_stores_every_output_once(spatial, cin, cout,
+                                                       itemsize):
+    x, w, b = _inputs(13, spatial + (cin,), cout)
+    _, stored = emulate_narrow_conv(x, w, b, itemsize)
+    assert (stored == 1).all()
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("x_shape,cout", [((1, 7, 9, 5, 1), 16),
+                                          ((2, 3, 5, 7, 3), 8),
+                                          ((1, 7, 9, 5, 24), 1),
+                                          ((2, 3, 5, 7, 32), 3)])
+def test_narrow_emulation_matches_reference_and_jax(x_shape, cout, itemsize):
+    x, w, b = _inputs(14, x_shape, cout)
+    got, _ = emulate_narrow_conv(x, w, b, itemsize)
+    want = kconv.conv3d_igemm_reference(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)
+    ).numpy()
+    jax_want = np.asarray(conv3d_xla(jnp.asarray(x), jnp.asarray(w))) + b
+    # f32 sums of the same products in different orders
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.abs(got - jax_want).max() <= 1e-5 * np.abs(jax_want).max()
+
+
+@pytest.mark.parametrize("x_shape,cout", [((1, 3, 128, 8, 1), 16),
+                                          ((1, 3, 128, 8, 32), 1)])
+def test_narrow_reference_matches_pallas_interpret(x_shape, cout):
+    """The narrow route's plain path against the TPU kernel, which takes
+    Cin = 1 and Cout = 1, run in interpret mode."""
+    x, w, _ = _inputs(15, x_shape, cout)
+    real = pconv_mod.pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return real(*args, **kwargs)
+
+    pconv_mod.pl.pallas_call = patched
+    try:
+        want = np.asarray(
+            pconv_mod.conv3d_pallas_raw(jnp.asarray(x), jnp.asarray(w))
+        )
+    finally:
+        pconv_mod.pl.pallas_call = real
+    got = kconv.conv3d_igemm_reference(
+        torch.from_numpy(x), torch.from_numpy(w)
+    ).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < TOL
+
+
+def test_narrow_route_counts_nothing_on_the_cpu():
+    x, w, b = _inputs(16, (1, 4, 4, 8, 1), 32)
+    for dtype in (torch.bfloat16, torch.float32):
+        xt, wt, bt = (torch.from_numpy(a).to(dtype) for a in (x, w, b))
+        before = (kconv.conv3d_igemm.narrow_launches,
+                  kconv.conv3d_igemm_dx.narrow_launches,
+                  kconv.conv3d_igemm.launches)
+        y = kconv.conv3d_igemm_train(xt.requires_grad_(), wt, bt)
+        y.float().sum().backward()
+        assert (kconv.conv3d_igemm.narrow_launches,
+                kconv.conv3d_igemm_dx.narrow_launches,
+                kconv.conv3d_igemm.launches) == before

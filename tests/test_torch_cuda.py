@@ -136,6 +136,115 @@ def test_wgmma_limits_are_the_launchers(cuda):
         2, 4, 8, stream) != 0
 
 
+# chip_smoke.py's narrow rows (B, D, H, W, Cin, Cout): the U-Net stems and
+# the dx of 1->32 at B=4, UNETR's image conv at B=1 and 2, multi-sequence
+# stems, ragged volumes
+NARROW_SHAPES = [
+    (4, 128, 128, 32, 1, 1), (4, 128, 128, 32, 1, 32),
+    (4, 128, 128, 32, 32, 1), (1, 256, 256, 64, 1, 16),
+    (2, 256, 256, 64, 1, 16), (4, 128, 128, 32, 3, 3),
+    (4, 128, 128, 32, 3, 32), (4, 128, 128, 32, 32, 3),
+    (1, 7, 9, 5, 1, 16), (1, 7, 9, 5, 3, 8), (1, 7, 9, 5, 24, 1),
+]
+
+
+def _narrow_inputs(shape, dtype, device, seed):
+    b, d, h, w, cin, cout = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, d, h, w, cin), generator=g, device=device).to(dtype)
+    wt = (torch.randn((3, 3, 3, cin, cout), generator=g, device=device)
+          / (27 * cin) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(cout, generator=g, device=device)).to(dtype)
+    gy = torch.randn((b, d, h, w, cout), generator=g,
+                     device=device).to(dtype)
+    return x, wt, bias, gy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", NARROW_SHAPES, ids=str)
+def test_conv3d_narrow_route_matches_plain(cuda, shape, dtype):
+    """The narrow kernel, forward and dx (whose Cout -> Cin is narrow too),
+    against the plain version; in bf16 the same bits from two runs."""
+    x, wt, bias, gy = _narrow_inputs(shape, dtype, cuda, 8)
+    before = (kconv.conv3d_igemm.narrow_launches,
+              kconv.conv3d_igemm_dx.narrow_launches)
+    got = [kconv.conv3d_igemm(x, wt, bias), kconv.conv3d_igemm_dx(gy, wt)]
+    assert (kconv.conv3d_igemm.narrow_launches,
+            kconv.conv3d_igemm_dx.narrow_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    again = [kconv.conv3d_igemm(x, wt, bias), kconv.conv3d_igemm_dx(gy, wt)]
+    w_rot = wt.flip(0, 1, 2).transpose(3, 4).contiguous()
+    want = [kconv.conv3d_igemm_reference(x, wt, bias),
+            kconv.conv3d_igemm_reference(gy, w_rot)]
+    torch.cuda.synchronize()
+    rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+    for a, a2, r in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == r.shape
+        scale = max(float(r.float().abs().max()), 1.0)
+        assert float((a.float() - r.float()).abs().max()) <= rel * scale
+        if dtype == torch.bfloat16:
+            assert torch.equal(a, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", NARROW_SHAPES, ids=str)
+def test_conv3d_narrow_gradient_matches_plain(cuda, shape, dtype):
+    """dx (on the narrow kernel), dW and dbias of ``conv3d_igemm_train``
+    against autograd through the plain version."""
+    x, wt, bias, gy = _narrow_inputs(shape, dtype, cuda, 9)
+    grads = []
+    for fn in (kconv.conv3d_igemm_train, kconv.conv3d_igemm_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, wt, bias)]
+        y = fn(*leaves)
+        before = kconv.conv3d_igemm_dx.narrow_launches
+        grads.append(torch.autograd.grad(y, leaves, gy))
+        if fn is kconv.conv3d_igemm_train:
+            assert kconv.conv3d_igemm_dx.narrow_launches == before + 1
+    torch.cuda.synchronize()
+    rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-3
+    for got, want in zip(*grads):
+        scale = max(float(want.float().abs().max()), 1e-30)
+        assert float((got.float() - want.float()).abs().max()) <= rel * scale
+
+
+#: (itemsize, Cin, Cout) -> (tz, ty, tx, cot, cs, civ), worked out by hand
+#: (the table of tests/test_torch_conv.py, whose numpy emulation follows it)
+NARROW_PLANS = {
+    (2, 1, 1): (4, 8, 32, 1, 1, 1), (2, 1, 32): (4, 2, 32, 8, 4, 1),
+    (2, 32, 1): (4, 8, 32, 1, 1, 8), (4, 32, 1): (4, 8, 32, 1, 1, 4),
+    (2, 1, 16): (4, 4, 32, 8, 2, 1), (2, 3, 3): (4, 8, 32, 4, 1, 4),
+    (2, 3, 32): (4, 2, 32, 8, 4, 4), (2, 32, 3): (4, 8, 32, 4, 1, 8),
+    (4, 4, 64): (4, 1, 32, 8, 8, 4), (2, 24, 1): (4, 8, 32, 1, 1, 8),
+    (2, 1, 24): (4, 2, 32, 8, 3, 1),
+}
+
+
+@pytest.mark.gpu
+def test_narrow_plan_is_the_launchers(cuda):
+    """``adell_conv3d_narrow_plan`` gives the decomposition the CPU tests
+    emulate, and the launchers refuse convs outside the narrow set."""
+    import ctypes
+
+    from adell_mri_torch.ops.kernels.build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 6)()
+    for (itemsize, cin, cout), plan in NARROW_PLANS.items():
+        fn = (lib.adell_conv3d_narrow_plan_bf16 if itemsize == 2
+              else lib.adell_conv3d_narrow_plan_f32)
+        assert fn(cin, cout, got) == 0
+        assert tuple(got) == plan
+    x = torch.zeros((1, 4, 4, 8, 8), dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for cin, cout in ((8, 8), (1, 128), (65, 1)):
+        assert lib.adell_conv3d_narrow_plan_bf16(cin, cout, got) != 0
+        assert lib.adell_conv3d_narrow_bf16(
+            x.data_ptr(), x.data_ptr(), None, x.data_ptr(), 1, 4, 4, 8, cin,
+            cout, stream) != 0
+
+
 @pytest.mark.gpu
 def test_conv3d_igemm_rejects_strided_input(cuda):
     x = torch.zeros((1, 4, 4, 4, 8), device=cuda).transpose(1, 2)
