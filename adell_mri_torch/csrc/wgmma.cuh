@@ -203,6 +203,21 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
       : "memory");
 }
 
+// The same with each 8 x 8 matrix transposed on the way: lane l names the
+// 16-byte row of matrix l / 8, and a thread receives the elements of the
+// transposed matrices. An A operand whose rows (M) lie contiguous in shared
+// memory and whose k runs down the rows reads this way: matrix i holds rows
+// 8 (i % 2) .. + 7 and k 8 (i / 2) .. + 7 of the warp's 16 x 16 step.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
 #define ADELL_ACC8(d, i)                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])

@@ -156,6 +156,19 @@ _SINGLE = {
     "adell_conv3d_wgmma_limits": (
         [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     ),
+    # x, g, workspace, dW, B, D, H, W, Cin, Cout, tz, ty, tx, SMs, stream
+    "adell_conv3d_wgrad_bf16": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    ),
+    # Cin, Cout, out[2]: voxels a box, most halo rows
+    "adell_conv3d_wgrad_limits": (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    ),
+    # B, D, H, W, Cin, Cout, tz, ty, tx, SMs, out[13]: the decomposition
+    # (WgradPlan)
+    "adell_conv3d_wgrad_plan": (
+        [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+    ),
 }
 
 

@@ -35,14 +35,38 @@ likewise).
 ``conv3d_igemm_train`` is the differentiable form, mirroring
 ``_conv3d_im2col_bwd`` in ``adell_mri_tpu/ops/conv.py`` for stride 1 and
 SAME: dx is the same kernel (``conv3d_igemm_dx``) on the cotangent with
-the spatially flipped, channel-swapped weight; dW is the patch tensor
-contracted with the cotangent in one ``torch.matmul`` (the JAX package
-computes it outside any Pallas kernel too); dbias is the cotangent's sum.
-On CPU tensors forward and backward both take the plain version.
+the spatially flipped, channel-swapped weight; dW is ``conv3d_weight_grad``;
+dbias is the cotangent's sum. On CPU tensors forward and backward both take
+the plain version.
+
+dW (``conv3d_weight_grad``) has two routes, chosen by ``wgrad_route``:
+
+- ``"wgmma"`` (bf16, Cin a multiple of 16, Cout of 8, Cout <= 256: the
+  classes of the forward's wgmma route): the hand-written kernel of
+  ``csrc/conv3d_wgrad.cu``, the forward's box and halo with the GEMM turned
+  around (rows (tap, ci) of dW, columns Cout, the box's voxels the
+  contraction). As for the forward, ``plan_box`` picks the box within the
+  limits the launcher gives (``wgmma_box`` with
+  ``adell_conv3d_wgrad_limits``); the launcher owns the rest of the
+  decomposition: a block takes T 64-row tiles of one channel chunk and an
+  N block and walks a range of boxes; the voxels are split S ways into f32
+  partials in a workspace that a second kernel sums in a fixed order and
+  rounds once (no atomics). ``adell_conv3d_wgrad_plan`` reports it,
+  ``wgrad_plan`` mirrors it for the CPU tests. The patch tensor never
+  exists;
+- ``"patches"`` (the rest: Cin < 16, as at the stems, whose patch tensor is
+  27 single channels, and f32): the padded input's patch tensor ``[V, 27
+  Cin]`` times the cotangent in one product with f32 sums, the JAX
+  package's own formulation outside Pallas. It is also the plain version
+  (``conv3d_weight_grad_reference``), the kernel's oracle.
+
+Its counters are ``launches`` (the kernel) and ``patch_calls`` (CUDA calls
+of the patch route); CPU tensors count neither.
 """
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -104,14 +128,16 @@ def plan_box(d, h, w, voxels, max_halo_rows=None):
 
 
 @functools.lru_cache(maxsize=None)
-def wgmma_box(lib, d, h, w, cin, cout):
+def wgmma_box(lib, d, h, w, cin, cout, limits="adell_conv3d_wgmma_limits"):
     """The box of a ``"wgmma"`` launch over a ``d x h x w`` volume: the
     launcher owns the kernel's shared-memory layout and gives the box's
     voxel count and the most halo rows that fit beside its weight ring
-    (``adell_conv3d_wgmma_limits``); ``plan_box`` picks from those. Cached,
-    so a launch pays for it once a shape."""
+    (``limits``: ``adell_conv3d_wgmma_limits``, or the wgrad kernel's
+    ``adell_conv3d_wgrad_limits``, beside its cotangent tiles);
+    ``plan_box`` picks from those. Cached, so a launch pays for it once a
+    shape."""
     got = (ctypes.c_int * 2)()
-    rc = lib.adell_conv3d_wgmma_limits(cin, cout, got)
+    rc = getattr(lib, limits)(cin, cout, got)
     if rc != 0:
         raise ValueError(f"wgmma_box: no kernel for {cin}->{cout}")
     return plan_box(d, h, w, got[0], got[1])
@@ -244,12 +270,12 @@ conv3d_igemm_dx.wgmma_launches = 0
 conv3d_igemm_dx.narrow_launches = 0
 
 
-def conv3d_weight_grad(x, g):
-    """dW [3,3,3,Cin,Cout] of the stride-1 SAME conv: the padded input's
-    patch tensor [V, 27*Cin] contracted with ``g`` [V, Cout] over the
-    voxels in one product (f32 accumulation rounded once to x's dtype). The
-    patch tensor is transient: 27x the input, 3.6 GB at the flagship stem
-    in bf16."""
+def conv3d_weight_grad_reference(x, g):
+    """Plain version of dW [3,3,3,Cin,Cout] of the stride-1 SAME conv: the
+    padded input's patch tensor [V, 27*Cin] contracted with ``g`` [V, Cout]
+    over the voxels in one product (f32 accumulation rounded once to x's
+    dtype). The patch tensor is transient: 27x the input, 3.6 GB at the
+    flagship's 32-channel top level in bf16."""
     b, d, h, w_sz, cin = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
     # [B,D,H,W,Cin,3,3,3] -> [B,D,H,W,3,3,3,Cin]: k = tap*Cin + ci, the
@@ -270,6 +296,169 @@ def conv3d_weight_grad(x, g):
     finally:
         matmul.allow_bf16_reduced_precision_reduction = reduced
     return dw.reshape(3, 3, 3, cin, g.shape[-1])
+
+
+def wgrad_route(dtype, cin, cout):
+    """The route of a CUDA dW call: ``"wgmma"`` (the kernel) for bf16 with
+    Cin a multiple of 16, Cout a multiple of 8 and Cout <= 256, else
+    ``"patches"`` (the patch product). Chosen by the class alone."""
+    if (dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0
+            and cout <= 256):
+        return "wgmma"
+    return "patches"
+
+
+#: voxels of a wgrad box, and the shipped build of ``csrc/conv3d_wgrad.cu``
+#: (its macros' defaults), for the Python mirror of its plan
+WGRAD_VOXELS, WGRAD_WARPGROUPS, WGRAD_STAGES = 256, 2, 2
+WGRAD_ACC, WGRAD_WAVES, WGRAD_MAX_SMEM = 128, 2, 232448
+
+
+class WgradPlan(NamedTuple):
+    """The wgrad launch's decomposition, in the order
+    ``adell_conv3d_wgrad_plan`` reports it."""
+
+    tz: int
+    ty: int
+    tx: int
+    ck: int        # channels of a chunk (its halo)
+    nb: int        # N block
+    t: int         # 64-row tiles a warpgroup
+    nwg: int       # warpgroups a block
+    tiles: int     # 64-row tiles of a chunk's 27 * ck rows
+    groups: int    # groups of nwg * t tiles a chunk
+    n_blocks: int
+    splits: int    # S: voxel ranges
+    boxes: int     # boxes of the batch
+    smem: int      # shared-memory bytes a block
+
+    def split_range(self, s):
+        """The boxes ``[start, stop)`` of split ``s``."""
+        return s * self.boxes // self.splits, (s + 1) * self.boxes // self.splits
+
+
+def _wgrad_blocking(cin, cout):
+    """The N block (Cout padded to 16, 32 or 64, wider Couts in blocks of
+    64); the channel chunk, the widest of 64, 32, 16 dividing Cin whose 27
+    * ck rows (64-row tiles shared by two warpgroups) fit 128 accumulator
+    registers a thread at N / 2 a tile, else 16; its tiles; T, the tiles a
+    warpgroup."""
+    if wgrad_route(torch.bfloat16, cin, cout) != "wgmma":
+        raise ValueError(f"wgrad: no kernel for {cin}->{cout}")
+    nb = next(n for n in (16, 32, 64) if n >= min(cout, 64))
+
+    def chunk_tiles(ck):  # 64-row tiles of a chunk's 27 * ck rows
+        return -(-27 * ck // 64)
+
+    def tiles_of(ck):  # a warpgroup's share of them, as registers allow
+        share = -(-chunk_tiles(ck) // WGRAD_WARPGROUPS)
+        return max(min(WGRAD_ACC // (nb // 2), share), 1)
+
+    ck = next((c for c in (64, 32) if cin % c == 0 and tiles_of(c)
+               * WGRAD_WARPGROUPS >= chunk_tiles(c)), 16)
+    return nb, ck, chunk_tiles(ck), tiles_of(ck)
+
+
+def wgrad_limits(cin, cout):
+    """``adell_conv3d_wgrad_limits`` for the shipped build, worked out in
+    Python: the voxels of a box and the most halo rows of a chunk that fit
+    beside the cotangent tile in each of two stages."""
+    nb, ck, _, _ = _wgrad_blocking(cin, cout)
+    room = ((WGRAD_MAX_SMEM - 1024) // WGRAD_STAGES
+            - WGRAD_VOXELS * nb * 2) // 1024 * 1024
+    return WGRAD_VOXELS, room // (2 * ck + 16)
+
+
+def wgrad_plan(b, d, h, w, cin, cout, n_sm=132):
+    """The wgrad launch's decomposition (``plan_of`` in
+    ``csrc/conv3d_wgrad.cu``) for the shipped build, worked out in Python:
+    the box from ``plan_box`` within ``wgrad_limits``; the blocking of
+    ``_wgrad_blocking``; S the fewest splits that give two blocks an SM, at
+    most one a box."""
+    nb, ck, tiles, t = _wgrad_blocking(cin, cout)
+    tz, ty, tx = plan_box(d, h, w, *wgrad_limits(cin, cout))
+    boxes = b * -(-d // tz) * -(-h // ty) * -(-w // tx)
+    groups = -(-tiles // (WGRAD_WARPGROUPS * t))
+    n_blocks = -(-cout // nb)
+    blocks = cin // ck * groups * n_blocks
+    splits = min(max(-(-WGRAD_WAVES * n_sm // blocks), 1), boxes)
+    halo = (tz + 2) * (ty + 2) * (tx + 2) * (2 * ck + 16)
+    smem = (WGRAD_STAGES * (WGRAD_VOXELS * nb * 2 + -(-halo // 1024) * 1024)
+            + 1024)
+    return WgradPlan(tz, ty, tx, ck, nb, t, WGRAD_WARPGROUPS, tiles, groups,
+                     n_blocks, splits, boxes, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def launcher_wgrad_plan(lib, b, d, h, w, cin, cout, n_sm):
+    """The decomposition of a launch: the box from ``wgmma_box`` within the
+    launcher's limits, the rest as ``adell_conv3d_wgrad_plan`` reports it
+    for that box, cached per shape (the wrapper sizes the workspace from its
+    S)."""
+    box = wgmma_box(lib, d, h, w, cin, cout, "adell_conv3d_wgrad_limits")
+    got = (ctypes.c_int * 13)()
+    rc = lib.adell_conv3d_wgrad_plan(b, d, h, w, cin, cout, *box, n_sm, got)
+    if rc != 0:
+        raise ValueError(f"wgrad: no kernel for {cin}->{cout} at "
+                         f"{(b, d, h, w)}")
+    return WgradPlan(*got)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_wgrad(x, g):
+    b, d, h, w_sz, cin = x.shape
+    cout = g.shape[-1]
+    for name, t in (("x", x), ("g", g)):
+        if t.dtype != torch.bfloat16 or t.device != x.device:
+            raise TypeError(f"wgrad: {name} must be bf16 on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"wgrad: {name} must be contiguous and "
+                             "16-byte aligned")
+    if tuple(g.shape[:4]) != tuple(x.shape[:4]):
+        raise ValueError(f"wgrad: g {tuple(g.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    dw = torch.empty((3, 3, 3, cin, cout), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return dw.zero_()
+    lib = load_library()
+    n_sm = _sm_count(x.device.index if x.device.index is not None
+                     else torch.cuda.current_device())
+    plan = launcher_wgrad_plan(lib, b, d, h, w_sz, cin, cout, n_sm)
+    ws = torch.empty((plan.splits, 27 * cin, cout), dtype=torch.float32,
+                     device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.adell_conv3d_wgrad_bf16(
+            x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), b, d,
+            h, w_sz, cin, cout, plan.tz, plan.ty, plan.tx, n_sm, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3d_weight_grad launch failed: cudaError {rc}")
+    return dw
+
+
+def conv3d_weight_grad(x, g):
+    """dW [3,3,3,Cin,Cout] of the stride-1 SAME conv of x [B,D,H,W,Cin] with
+    cotangent g [B,D,H,W,Cout] (f32 sums rounded once to x's dtype). CUDA
+    tensors take the route of ``wgrad_route``: the wgrad kernel, or the
+    patch product for the classes it does not take; CPU tensors take the
+    plain version."""
+    if not _on_card(x, "conv3d_weight_grad"):
+        return conv3d_weight_grad_reference(x, g)
+    if wgrad_route(x.dtype, x.shape[-1], g.shape[-1]) == "patches":
+        conv3d_weight_grad.patch_calls += 1
+        return conv3d_weight_grad_reference(x, g)
+    dw = _launch_wgrad(x, g)
+    conv3d_weight_grad.launches += x.numel() > 0
+    return dw
+
+
+#: wgrad kernel launches and patch-route CUDA calls since the last reset
+conv3d_weight_grad.launches = 0
+conv3d_weight_grad.patch_calls = 0
 
 
 class _Conv3dIgemm(torch.autograd.Function):

@@ -36,6 +36,8 @@ GROUPS = (
     ("flash_fwd", "flash_attention_fwd (K4/K5)"),
     ("flash_bwd_dq", "flash_attention_bwd_dq (K6)"),
     ("flash_bwd_dkv", "flash_attention_bwd_dkv (K7)"),
+    ("conv3d_wgrad", "conv3d_wgrad (dW of K1's backward, with its "
+     "reduction)"),
     ("conv3d_igemm", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
     ("conv3d_wgmma", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
     ("conv3d_narrow", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
@@ -45,13 +47,16 @@ GROUPS = (
     ("dgrad", "cuDNN convs (stride-2, forward and backward)"),
     ("wgrad", "cuDNN convs (stride-2, forward and backward)"),
     ("conv", "cuDNN convs (stride-2, forward and backward)"),
-    ("gemm", "matmuls (dW patch products, transposed convs, 1x1)"),
-    ("nvjet", "matmuls (dW patch products, transposed convs, 1x1)"),
+    ("gemm", "matmuls (the stems' dW patch products, transposed convs, "
+     "1x1)"),
+    ("nvjet", "matmuls (the stems' dW patch products, transposed convs, "
+     "1x1)"),
     ("CatArrayBatchedCopy", "concatenation"),
     ("reduce_kernel", "reductions (norm statistics, sums)"),
     ("index", "gathers (warp)"),
     ("layer_norm", "layer norms"),
-    ("elementwise", "elementwise (norms, swish, casts, patch copies)"),
+    ("elementwise", "elementwise (norms, swish, casts, the stems' patch "
+     "copies)"),
 )
 
 

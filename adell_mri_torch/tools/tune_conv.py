@@ -1,20 +1,27 @@
 """
-Times build variants of the Hopper conv kernels (K1) on the card.
+Times build variants of the Hopper conv kernels (K1 and its dW) on the card.
 
 ``csrc/conv3d_igemm.cu`` takes the wgmma kernel's warpgroups a block (64
 output voxels each, so the box size), the weight ring's stages and the
 products a ring stage holds from three macros (``ADELL_CONV_WARPGROUPS``,
-``ADELL_CONV_STAGES``, ``ADELL_CONV_TAP_WORK``), whose defaults are the
+``ADELL_CONV_STAGES``, ``ADELL_CONV_TAP_WORK``); ``csrc/conv3d_wgrad.cu``
+takes the wgrad kernel's warpgroups a block, box buffers, accumulator
+registers a thread (so T, the tiles a warpgroup) and the blocks an SM its
+voxel split aims for (``ADELL_WGRAD_WARPGROUPS``, ``ADELL_WGRAD_STAGES``,
+``ADELL_WGRAD_ACC``, ``ADELL_WGRAD_WAVES``). Their defaults are the
 shipped choice. This tool rebuilds the library once per variant (one
 process each, the defines appended to ``build.NVCC_FLAGS``, which the
-build hashes), holds the forward and the dx launch of each main-path conv
-shape class against the plain version, and times them: the flagship
+build hashes), holds the forward, the dx launch and the dW of each
+main-path conv shape class against the plain version, and times them:
+the flagship
 U-Net's 31 convs of one window batch (B=4 at 128x128x32), UNETR's 9
 convs of one 256x256x64 case (B=1), and the stems of a three-sequence
 U-Net (``STEM_CONVS``), bf16, with the narrow route's share of each
 total. Ragged volumes with several small channel chunks and narrow ragged
 shapes (``EDGE_CONVS``) are checked too, so that a variant that breaks
-there is not timed as valid. Each class also gets the
+there is not timed as valid. dW (``conv3d_weight_grad``: the wgrad kernel
+on its classes, the patch product on the others) is summed per model over
+every conv and over the kernel's classes. Each class also gets the
 host time to issue one forward launch (``host_us``: the wrapper's checks,
 plan and allocation). The default is timed first and last, so the table
 shows the run's spread.
@@ -46,6 +53,17 @@ VARIANTS = [
     {"ADELL_CONV_TAP_WORK": 8192},
     # all 27 taps of a 16-channel chunk in one stage: a chunk is one step
     {"ADELL_CONV_STAGES": 3, "ADELL_CONV_TAP_WORK": 8192},
+    {},
+]
+# the wgrad kernel's variants (--variants wgrad)
+WGRAD_VARIANTS = [
+    {},
+    {"ADELL_WGRAD_STAGES": 1},
+    {"ADELL_WGRAD_STAGES": 3},
+    {"ADELL_WGRAD_WARPGROUPS": 1},
+    {"ADELL_WGRAD_ACC": 64},
+    {"ADELL_WGRAD_WAVES": 1},
+    {"ADELL_WGRAD_WAVES": 4},
     {},
 ]
 
@@ -107,8 +125,8 @@ def host_us(fn, reps=50):
 
 def measure(defines, root=ROOT):
     """Builds the checkout at ``root`` with ``defines`` and returns, for
-    every shape class, the routes, the largest errors of the forward and
-    the dx against the plain version, their device ms (not for
+    every shape class, the routes, the largest errors of the forward, the
+    dx and dW against the plain version, their device ms (not for
     ``EDGE_CONVS``) and the host us of a forward launch, with per-model
     totals."""
     import torch
@@ -129,11 +147,21 @@ def measure(defines, root=ROOT):
             return "igemm"
         return kc.conv_route(torch.bfloat16, cin, cout)
 
+    # a checkout from before the wgrad kernel has dW on the patch product
+    # alone, which is then its own plain version
+    def dw_route(cin, cout):
+        if not hasattr(kc, "wgrad_route"):
+            return "patches"
+        return kc.wgrad_route(torch.bfloat16, cin, cout)
+
+    dw_plain = getattr(kc, "conv3d_weight_grad_reference",
+                       kc.conv3d_weight_grad)
+
     row = {"defines": defines, "root": str(root), "shapes": [],
            "totals": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for model, convs in MODELS.items():
-        fwd = dx = fwd_narrow = dx_narrow = 0.0
+        fwd = dx = fwd_narrow = dx_narrow = dw = dw_wgmma = 0.0
         for i, (b, spatial, cin, cout, count) in enumerate(convs):
             x = torch.randn((b, *spatial, cin), generator=gen,
                             device="cuda").to(torch.bfloat16)
@@ -152,13 +180,23 @@ def measure(defines, root=ROOT):
                 err = float((got.float() - want.float()).abs().max())
                 tol = 2.0**-7 * max(float(want.float().abs().max()), 1.0)
                 errs.append((err, tol))
+            got, want = kc.conv3d_weight_grad(x, g), dw_plain(x, g)
+            torch.cuda.synchronize()
+            # dW: one ulp of its own scale (both round an f32 sum once)
+            errs.append((float((got.float() - want.float()).abs().max()),
+                         2.0**-7 * float(want.float().abs().max())))
             timed = count > 0
             ms = time_ms(lambda: kc.conv3d_igemm(x, w)) if timed else None
             # the first conv of a model reads the image: no dx
             dx_ms = time_ms(lambda: kc.conv3d_igemm_dx(g, w)) if (
                 timed and i > 0) else None
+            dw_ms = time_ms(lambda: kc.conv3d_weight_grad(x, g)) if (
+                timed) else None
             fwd += (ms or 0.0) * count
             dx += (dx_ms or 0.0) * count
+            dw += (dw_ms or 0.0) * count
+            if dw_route(cin, cout) == "wgmma":
+                dw_wgmma += (dw_ms or 0.0) * count
             if route(cin, cout) == "narrow":
                 fwd_narrow += (ms or 0.0) * count
             if route(cout, cin) == "narrow":
@@ -168,12 +206,15 @@ def measure(defines, root=ROOT):
                 route=route(cin, cout), dx_route=route(cout, cin),
                 max_abs_err=errs[0][0], tol=errs[0][1],
                 dx_max_abs_err=errs[1][0], dx_tol=errs[1][1],
+                dw_route=dw_route(cin, cout), dw_max_abs_err=errs[2][0],
+                dw_tol=errs[2][1], dw_ms=dw_ms,
                 ok=all(e <= t for e, t in errs), ms=ms, dx_ms=dx_ms,
                 host_us=host_us(lambda: kc.conv3d_igemm(x, w)),
             ))
         row["totals"][model] = {"fwd_ms": fwd, "dx_ms": dx,
                                 "fwd_narrow_ms": fwd_narrow,
-                                "dx_narrow_ms": dx_narrow}
+                                "dx_narrow_ms": dx_narrow, "dw_ms": dw,
+                                "dw_wgmma_ms": dw_wgmma}
     # host time to issue the forward launches of one window batch
     row["totals"]["unet"]["host_us"] = sum(
         r["host_us"] * r["count"] for r in row["shapes"]
@@ -186,7 +227,8 @@ def main():
     parser.add_argument("--one", help="JSON of one variant's defines: "
                         "measure it in this process and print the row")
     parser.add_argument("--variants", help="JSON list of defines to time "
-                        "instead of the built-in list")
+                        "instead of the built-in list, or 'wgrad' for the "
+                        "wgrad kernel's list")
     parser.add_argument("--root", default=str(ROOT), help="with --one: "
                         "the checkout whose kernels to build and time")
     parser.add_argument("--compare", help="another checkout: time its "
@@ -199,7 +241,9 @@ def main():
         other = str(Path(args.compare).resolve())
         runs = [({}, other), ({}, str(ROOT)), ({}, str(ROOT)), ({}, other)]
     else:
-        variants = json.loads(args.variants) if args.variants else VARIANTS
+        variants = (WGRAD_VARIANTS if args.variants == "wgrad"
+                    else json.loads(args.variants) if args.variants
+                    else VARIANTS)
         runs = [(v, str(ROOT)) for v in variants]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -232,14 +276,17 @@ def main():
             f"{t['unet']['dx_narrow_ms']:.3f} ms, UNETR "
             f"{t['unetr']['fwd_narrow_ms']:.3f} ms, three-sequence stems "
             f"{t['stems']['fwd_ms']:.3f} + {t['stems']['dx_ms']:.3f} ms; "
+            f"dW: U-Net step {t['unet']['dw_ms']:.3f} ms (wgrad kernel's "
+            f"classes {t['unet']['dw_wgmma_ms']:.3f}), UNETR at B=1 "
+            f"{t['unetr']['dw_ms']:.3f} ms ({t['unetr']['dw_wgmma_ms']:.3f}); "
             f"host {t['unet']['host_us']:.0f} "
             f"us to issue a window batch; beyond tolerance: {bad}",
             flush=True,
         )
         for r in row["shapes"]:
             print(f"  {r['model']} {r['shape']} x{r['count']} {r['route']}: "
-                  f"{r['ms']} ms, dx {r['dx_ms']}, host {r['host_us']:.1f} "
-                  "us", flush=True)
+                  f"{r['ms']} ms, dx {r['dx_ms']}, dW ({r['dw_route']}) "
+                  f"{r['dw_ms']}, host {r['host_us']:.1f} us", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     name = "tune_conv_compare.json" if args.compare else "tune_conv.json"

@@ -9,7 +9,8 @@ failure:
 1. device: the card's name and power limit;
 2. build: every CUDA source of the port, compiled with ``nvcc`` into
    ``build/adell_kernels/`` (seconds printed); ptxas must report no spill
-   and no serialized ``wgmma`` for the Hopper kernels (conv, attention);
+   and no serialized ``wgmma`` for the Hopper kernels (conv forward and
+   dx, wgrad, attention);
 3. kernel vs plain: ``conv3d_igemm`` against ``conv3d_igemm_reference``
    at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off), in bf16
    at shapes that reach every route and edge of the wgmma conv (UNETR's
@@ -37,15 +38,19 @@ failure:
 7. conv backward vs plain: for every stride-1 conv shape of the flagship
    forward at B=4, dx/dW/dbias of ``conv3d_igemm_train`` against autograd
    through ``conv3d_igemm_reference``, f32 (TF32 off) and bf16; the dx
-   launches timed against their bound; dW (``conv3d_weight_grad``, the
-   patch tensor times the cotangent) timed beside cuDNN's weight gradient
-   (a yardstick the port never calls) and its bound, with the bytes its
-   call adds to peak memory;
+   launches timed against their bound; dW (``conv3d_weight_grad``: the
+   wgrad kernel on 29 of the 31 classes, the patch product on the stems)
+   against its plain version (the patch product) within one bf16 ulp and,
+   on the kernel, bit-equal over two runs, timed beside the plain version,
+   cuDNN's weight gradient (a yardstick the port never calls) and its
+   bound, with the bytes each adds to peak memory, summed per step over
+   the kernel's 29 and all 31;
 8. training: the flagship U-Net (seed 0, bf16, augmentation on, B=4 at
    128x128x32) takes one warm-up step and 5 timed steps with the launch
    counts reset just before (per step 29 + 2 of 31 forward and 29 + 1 of 30
    dx launches on the wgmma + narrow routes: the stems and the dx of 1->32,
-   whose output has one channel, take the narrow one);
+   whose output has one channel, take the narrow one; 29 wgrad launches
+   and 2 patch products for dW);
    every parameter gets a finite, non-zero
    gradient; ten steps on one batch without augmentation lower the loss;
    one f32 step matches the plain conv path;
@@ -71,8 +76,10 @@ failure:
 12. UNETR training: B=2 whole volumes, bf16, augmentation on, dropout 0:
     a warm-up step and timed steps with 8 forward, 8 dQ and 8 dK/dV
     launches each, 8 + 1 of 9 conv launches on the wgmma + narrow routes and
-    8 of 8 dx on the wgmma route; every parameter gets a finite, non-zero
-    gradient; an
+    8 of 8 dx on the wgmma route, 8 wgrad launches and 1 patch product
+    for dW; one step at the yaml's B=4 with the same launches, its peak
+    memory beside B=2's and a finite loss; every parameter gets a finite,
+    non-zero gradient; an
     f32 step (B=1) matches the plain versions in loss and gradient norm;
     ten steps on one batch lower the loss;
 13. CLI: ``segmentation train --segmentation_net_type unetr --dev cuda
@@ -110,6 +117,10 @@ CONVS_WGMMA_PER_FORWARD = 29
 CONVS_DX_WGMMA_PER_STEP = 29
 CONVS_NARROW_PER_FORWARD = 2
 CONVS_DX_NARROW_PER_STEP = 1
+# dW per training step: the wgrad kernel takes the classes of the wgmma
+# route (29), the stems 1->1 and 1->32 the patch product
+CONVS_WGRAD_PER_STEP = 29
+CONVS_WGRAD_PATCHES_PER_STEP = 2
 WINDOW_BATCHES = 7
 TIMED_STEPS = 5
 # UNETR (sample_configs/unetr.yaml on 256x256x64): 8 blocks of 8 heads of
@@ -126,6 +137,10 @@ UNETR_CONVS_DX = 8
 UNETR_CONVS_WGMMA = 8
 UNETR_CONVS_DX_WGMMA = 8
 UNETR_CONVS_NARROW = 1
+# dW: the wgrad kernel for the 8 convs of 16 channels and more, the patch
+# product for the image's 1->16
+UNETR_CONVS_WGRAD = 8
+UNETR_CONVS_WGRAD_PATCHES = 1
 UNETR_TIMED_STEPS = 3
 # sequence lengths around the attention kernels' 64-row tiles
 ATTENTION_TILE_EDGES = (1, 63, 64, 65, 127, 128, 129)
@@ -305,7 +320,8 @@ def phase_build():
 
 # the kernels built on wgmma, whose ptxas lines the build phase checks
 HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
-                  "flash_bwd_dkv_bf16_kernel", "conv3d_wgmma_bf16_kernel")
+                  "flash_bwd_dkv_bf16_kernel", "conv3d_wgmma_bf16_kernel",
+                  "conv3d_wgrad_bf16_kernel")
 
 
 def check_hopper_build(build_log):
@@ -443,6 +459,24 @@ def _first_window_batch(case):
     ])
 
 
+def conv_recorder(shapes):
+    """A forward pre-hook that counts, in ``shapes``, each stride-1 SAME
+    3x3x3 conv of the port (``ops.conv.Conv3d``) by its input shape and
+    Cout; other modules pass."""
+    import adell_mri_torch.ops.conv as conv_mod
+
+    def record(module, inputs):
+        if not isinstance(module, conv_mod.Conv3d):
+            return
+        w = module.weight
+        if (tuple(w.shape[:3]) == (3, 3, 3) and module.strides == (1, 1, 1)
+                and module.padding == "SAME"):
+            key = (tuple(inputs[0].shape), int(w.shape[-1]))
+            shapes[key] = shapes.get(key, 0) + 1
+
+    return record
+
+
 def phase_window_batch(model_bf16, case):
     """One window batch through the U-Net on the kernel and on the plain
     conv path (bf16 and f32), and the conv shapes that batch runs."""
@@ -453,13 +487,7 @@ def phase_window_batch(model_bf16, case):
 
     crops = _first_window_batch(case)
     shapes = {}
-
-    def record(module, inputs):
-        w = module.weight
-        if (tuple(w.shape[:3]) == (3, 3, 3) and module.strides == (1, 1, 1)
-                and module.padding == "SAME"):
-            key = (tuple(inputs[0].shape), int(w.shape[-1]))
-            shapes[key] = shapes.get(key, 0) + 1
+    record = conv_recorder(shapes)
 
     rows = []
     # bf16: one-ulp rounding flips in 31 convs, renormalised by the
@@ -788,38 +816,113 @@ def weight_grad_bound(b, spatial, cin, cout, dtype):
 
 
 def time_weight_grad(x, gy, w):
-    """dW of the port (``conv3d_weight_grad``: the patch tensor times the
-    cotangent) against cuDNN's weight gradient, a yardstick the port never
-    calls (``aten.convolution_backward`` with output mask (False, True,
-    False) on channels-last views), with the bytes the port's call adds to
-    the peak of allocated memory."""
+    """dW of the port (``conv3d_weight_grad``: the wgrad kernel on its
+    classes, the patch product on the others), its route read from the
+    counters, against its plain version (``conv3d_weight_grad_reference``,
+    the patch product) within one bf16 ulp of the scale and, on the kernel's
+    route, bit-equal over two runs; timed beside the plain version and
+    cuDNN's weight gradient, a yardstick the port never calls
+    (``aten.convolution_backward`` with output mask (False, True, False) on
+    channels-last views), with the bytes each of the port's call and the
+    plain version adds to the peak of allocated memory."""
     import torch
 
-    from adell_mri_torch.ops.kernels.conv import conv3d_weight_grad
+    from adell_mri_torch.ops.kernels.conv import (
+        conv3d_weight_grad,
+        conv3d_weight_grad_reference,
+        wgrad_route,
+    )
 
     gc, xc = gy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3)
     wc = w.permute(4, 3, 0, 1, 2)
+    route = wgrad_route(x.dtype, x.shape[-1], gy.shape[-1])
 
     def library():
         return torch.ops.aten.convolution_backward(
             gc, xc, wc, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
             [0, 0, 0], 1, [False, True, False])[1]
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    dw = conv3d_weight_grad(x, gy)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
+    def with_peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    counts = (conv3d_weight_grad.launches, conv3d_weight_grad.patch_calls)
+    dw, peak = with_peak(lambda: conv3d_weight_grad(x, gy))
+    taken = (conv3d_weight_grad.launches - counts[0],
+             conv3d_weight_grad.patch_calls - counts[1])
+    if taken != (route == "wgmma", route == "patches"):
+        raise AssertionError(f"dW {tuple(x.shape)} -> {gy.shape[-1]} did "
+                             f"not take the {route} route: {taken}")
+    want, plain_peak = with_peak(
+        lambda: conv3d_weight_grad_reference(x, gy))
+    same = (torch.equal(dw, conv3d_weight_grad(x, gy))
+            if route == "wgmma" else None)
     lib_dw = library().permute(2, 3, 4, 1, 0)
-    scale = max(float(dw.float().abs().max()), 1e-30)
-    return dict(
+    scale = max(float(want.float().abs().max()), 1e-30)
+    err = float((dw.float() - want.float()).abs().max())
+    # both sum exact bf16 products in f32 and round once: one ulp
+    tol = 2.0**-7 * scale
+    row = dict(
+        dw_route=route, dw_max_abs_err=err, dw_tol=tol, dw_bit_equal=same,
         dw_ms=time_ms(lambda: conv3d_weight_grad(x, gy)),
+        dw_plain_ms=time_ms(lambda: conv3d_weight_grad_reference(x, gy)),
         dw_library_ms=time_ms(library),
-        dw_peak_bytes=peak,
-        dw_library_rel_diff=float((lib_dw.float() - dw.float()).abs().max())
+        dw_peak_bytes=peak, dw_plain_peak_bytes=plain_peak,
+        dw_library_rel_diff=float((lib_dw.float() - want.float()).abs().max())
         / scale,
     )
+    if not err <= tol or same is False:
+        raise AssertionError(f"dW disagrees with its plain version: {row}")
+    return row
+
+
+def log_dw(row):
+    """One class's dW line: route, error, times, bound and added peaks."""
+    log(f"    dW ({row['dw_route']}): err {row['dw_max_abs_err']:.3g} (tol "
+        f"{row['dw_tol']:.3g}"
+        + (", bit-equal over two runs" if row["dw_bit_equal"] else "")
+        + f") {row['dw_ms']:.4f} ms, patch product "
+        f"{row['dw_plain_ms']:.3f} ms, cuDNN {row['dw_library_ms']:.4f} ms "
+        f"(rel diff {row['dw_library_rel_diff']:.2g}), bound "
+        f"{row['dw_bound_ms']:.4f} ms ({row['dw_bound_by']}), peak "
+        f"{row['dw_peak_bytes'] / 1e9:.3f} GB (patch product "
+        f"{row['dw_plain_peak_bytes'] / 1e9:.2f} GB)")
+
+
+def log_dw_totals(totals, step):
+    """The per-step dW totals over the kernel's classes and over all."""
+    for key, what in (("dw_wgmma", " on the wgrad kernel"), ("dw", "")):
+        t = totals[key]
+        log(f"  dW of the {step} {t['convs']} convs{what}: "
+            f"{t['dw_ms']:.3f} ms, patch product {t['dw_plain_ms']:.3f} ms, "
+            f"cuDNN {t['dw_library_ms']:.3f} ms, bound "
+            f"{t['dw_bound_ms']:.4f} ms; largest added peak "
+            f"{t['dw_peak_bytes'] / 1e9:.3f} GB (patch product "
+            f"{t['dw_plain_peak_bytes'] / 1e9:.2f} GB)")
+
+
+def dw_totals(rows):
+    """dW summed over a step's convs (each class times its count): kernel,
+    plain version, library and bound ms, the worst error against its
+    tolerance, the largest added peaks."""
+    out = {k: sum(r[k] * r["count"] for r in rows)
+           for k in ("dw_ms", "dw_plain_ms", "dw_library_ms",
+                     "dw_bound_ms")}
+    by_bytes = sum(r["dw_bound_ms"] * r["count"] for r in rows
+                   if r["dw_bound_by"] == "bytes")
+    out["dw_bound_by"] = ("bytes" if by_bytes > out["dw_bound_ms"] / 2
+                          else "operations")
+    worst = max(rows, key=lambda r: r["dw_max_abs_err"] / r["dw_tol"])
+    out.update(dw_max_abs_err=worst["dw_max_abs_err"], dw_tol=worst["dw_tol"],
+               convs=sum(r["count"] for r in rows),
+               dw_peak_bytes=max(r["dw_peak_bytes"] for r in rows),
+               dw_plain_peak_bytes=max(r["dw_plain_peak_bytes"]
+                                       for r in rows))
+    return out
 
 
 def phase_conv_backward(shapes):
@@ -900,11 +1003,7 @@ def phase_conv_backward(shapes):
                    f" bound {row['bound_ms']:.4f} ({row['bound_by']})"
                    if "ms" in row else ""))
             if "dw_ms" in row:
-                log(f"    dW: {row['dw_ms']:.3f} ms, cuDNN "
-                    f"{row['dw_library_ms']:.3f} ms (rel diff "
-                    f"{row['dw_library_rel_diff']:.2g}), bound "
-                    f"{row['dw_bound_ms']:.4f} ms ({row['dw_bound_by']}), "
-                    f"peak {row['dw_peak_bytes'] / 1e9:.2f} GB")
+                log_dw(row)
             if not ok:
                 raise AssertionError(f"conv backward disagrees: {row}")
             rows.append(row)
@@ -920,20 +1019,57 @@ def phase_conv_backward(shapes):
     )
     worst = max(timed, key=lambda r: r["errs"]["dx"] / r["tols"]["dx"])
     totals.update(max_abs_err=worst["errs"]["dx"], tol=worst["tols"]["dx"])
-    # dW of every conv of a step (the stem's first too)
-    totals["dw"] = {
-        k: sum(r[k] * r["count"] for r in timed)
-        for k in ("dw_ms", "dw_library_ms", "dw_bound_ms")
-    }
-    totals["dw"]["dw_peak_bytes"] = max(r["dw_peak_bytes"] for r in timed)
+    # dW of every conv of a step (the stem's first too), and of those the
+    # wgrad kernel takes
+    totals["dw"] = dw_totals(timed)
+    totals["dw_wgmma"] = dw_totals(
+        [r for r in timed if r["dw_route"] == "wgmma"])
+    if (totals["dw"]["convs"], totals["dw_wgmma"]["convs"]) != (
+            CONVS_PER_FORWARD, CONVS_WGRAD_PER_STEP):
+        raise AssertionError(f"dW classes: {totals['dw']['convs']} convs, "
+                             f"{totals['dw_wgmma']['convs']} on the kernel")
     log(f"  per training step ({CONVS_DX_PER_STEP} dx launches, bf16): kernel"
         f" {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
         f"F.conv3d {totals['library_ms']:.3f} ms, bound "
-        f"{totals['bound_ms']:.4f} ms ({totals['bound_by']}); dW of the "
-        f"{CONVS_PER_FORWARD} convs {totals['dw']['dw_ms']:.3f} ms, cuDNN "
-        f"{totals['dw']['dw_library_ms']:.3f} ms, bound "
-        f"{totals['dw']['dw_bound_ms']:.4f} ms, largest peak "
-        f"{totals['dw']['dw_peak_bytes'] / 1e9:.2f} GB")
+        f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
+    log_dw_totals(totals, "U-Net step's")
+    return rows, totals
+
+
+def unetr_weight_grad(shapes):
+    """dW at the stride-1 conv classes of a UNETR training step (B=2,
+    bf16), as the step gives them to ``conv3d_weight_grad``: each held
+    against its plain version (one ulp; bit-equal over two runs on the
+    kernel) and timed beside cuDNN and its bound, with per-step totals
+    over the kernel's 8 and all 9."""
+    import torch
+
+    rows = []
+    for i, ((xs, cout), count) in enumerate(sorted(shapes.items())):
+        b, spatial, cin = xs[0], xs[1:4], xs[4]
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        x = torch.randn(xs, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((3, 3, 3, cin, cout), generator=g, device="cuda")
+             / (27 * cin) ** 0.5).to(torch.bfloat16)
+        gy = torch.randn((b, *spatial, cout), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        row = dict(shape=[b, *spatial, cin, cout], count=count)
+        row.update(time_weight_grad(x, gy, w))
+        row["dw_bound_ms"], row["dw_bound_by"] = weight_grad_bound(
+            b, spatial, cin, cout, "bfloat16")
+        log(f"  {b}x{'x'.join(map(str, spatial))} {cin}->{cout} x{count}")
+        log_dw(row)
+        rows.append(row)
+        del x, w, gy
+    torch.cuda.empty_cache()
+    totals = dict(dw=dw_totals(rows), dw_wgmma=dw_totals(
+        [r for r in rows if r["dw_route"] == "wgmma"]))
+    if (totals["dw"]["convs"], totals["dw_wgmma"]["convs"]) != (
+            UNETR_CONVS, UNETR_CONVS_WGRAD):
+        raise AssertionError(f"UNETR dW classes: {totals['dw']['convs']} "
+                             f"convs, {totals['dw_wgmma']['convs']} on the "
+                             "kernel")
+    log_dw_totals(totals, "UNETR step's")
     return rows, totals
 
 
@@ -1005,6 +1141,7 @@ def phase_training():
     step()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     secs, losses = [], []
     for _ in range(TIMED_STEPS):
@@ -1021,6 +1158,9 @@ def phase_training():
                 conv3d_igemm_dx=CONVS_DX_PER_STEP * TIMED_STEPS,
                 conv3d_igemm_dx_wgmma=CONVS_DX_WGMMA_PER_STEP * TIMED_STEPS,
                 conv3d_igemm_dx_narrow=CONVS_DX_NARROW_PER_STEP
+                * TIMED_STEPS,
+                conv3d_weight_grad=CONVS_WGRAD_PER_STEP * TIMED_STEPS,
+                conv3d_weight_grad_patches=CONVS_WGRAD_PATCHES_PER_STEP
                 * TIMED_STEPS,
                 intensity_aug=TIMED_STEPS)
     per_step = {k: v / TIMED_STEPS for k, v in launches.items()}
@@ -1058,7 +1198,9 @@ def phase_training():
                 kconv.conv3d_igemm.wgmma_launches
                 + kconv.conv3d_igemm_dx.wgmma_launches,
                 kconv.conv3d_igemm.narrow_launches
-                + kconv.conv3d_igemm_dx.narrow_launches)
+                + kconv.conv3d_igemm_dx.narrow_launches,
+                kconv.conv3d_weight_grad.launches,
+                kconv.conv3d_weight_grad.patch_calls)
 
     counts = f32_counts()
     loss_k, _ = tr.loss_and_metrics(tr.state.params, batch)
@@ -1079,14 +1221,17 @@ def phase_training():
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     norm_rel = abs(norm_k - norm_p) / norm_p
     log(f"[training] f32 step, kernel ({f32_launches[0]} forward and "
-        f"{f32_launches[1]} dx launches) vs plain conv path: loss "
+        f"{f32_launches[1]} dx launches, {f32_launches[5]} dW patch "
+        f"products) vs plain conv path: loss "
         f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_rel:.2e}, "
         f"tol 1e-4), gradient norm {norm_k:.6g} vs {norm_p:.6g} (rel "
         f"{norm_rel:.2e}, tol 1e-3); largest gradient difference "
         f"{worst_rel:.2e} of the largest gradient")
-    # f32 never takes the wgmma route; its stems and Cout = 1 dx the narrow
+    # f32 never takes the wgmma route; its stems and Cout = 1 dx the narrow;
+    # its every dW the patch product
     if f32_launches != (CONVS_PER_FORWARD, CONVS_DX_PER_STEP, 0,
-                        CONVS_NARROW_PER_FORWARD + CONVS_DX_NARROW_PER_STEP):
+                        CONVS_NARROW_PER_FORWARD + CONVS_DX_NARROW_PER_STEP,
+                        0, CONVS_PER_FORWARD):
         raise AssertionError(f"f32 step launches {f32_launches}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("f32 step disagrees with the plain conv path")
@@ -1416,6 +1561,8 @@ def _launch_counts():
         conv3d_igemm_dx=kconv.conv3d_igemm_dx.launches,
         conv3d_igemm_dx_wgmma=kconv.conv3d_igemm_dx.wgmma_launches,
         conv3d_igemm_dx_narrow=kconv.conv3d_igemm_dx.narrow_launches,
+        conv3d_weight_grad=kconv.conv3d_weight_grad.launches,
+        conv3d_weight_grad_patches=kconv.conv3d_weight_grad.patch_calls,
         intensity_aug=ki.intensity_aug.launches,
     )
 
@@ -1432,6 +1579,8 @@ def _reset_counts():
     for fn in (kconv.conv3d_igemm, kconv.conv3d_igemm_dx):
         fn.wgmma_launches = 0
         fn.narrow_launches = 0
+    kconv.conv3d_weight_grad.launches = 0
+    kconv.conv3d_weight_grad.patch_calls = 0
 
 
 def phase_unetr_serving():
@@ -1499,10 +1648,12 @@ def phase_unetr_serving():
 def phase_unetr_training():
     """Phase 12: the UNETR trainer on the card."""
     import torch
+    import yaml
 
     from adell_mri_torch.tools.flagship import (
         CASE,
         UNETR_BATCH,
+        UNETR_YAML,
         make_train_batch,
         make_trainer,
     )
@@ -1512,8 +1663,15 @@ def phase_unetr_training():
     gen = torch.Generator(device="cuda").manual_seed(0)
     names = list(tr.state.params)
 
-    loss, _ = tr.loss_and_metrics(tr.state.params,
-                                  tr.transforms.augment(gen, batch))
+    # the step's conv classes, recorded from its forward
+    shapes = {}
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        conv_recorder(shapes))
+    try:
+        loss, _ = tr.loss_and_metrics(tr.state.params,
+                                      tr.transforms.augment(gen, batch))
+    finally:
+        hook.remove()
     grads = torch.autograd.grad(loss, [tr.state.params[k] for k in names])
     bad = [k for k, gr in zip(names, grads)
            if not bool(torch.isfinite(gr).all()) or float(gr.abs().max()) == 0]
@@ -1522,6 +1680,9 @@ def phase_unetr_training():
     if bad:
         raise AssertionError(f"zero or non-finite gradients: {bad}")
     del grads, loss
+    log(f"[unetr dW vs plain] the step's conv classes, B={UNETR_BATCH}, "
+        "bf16")
+    dw_rows, dw_step = unetr_weight_grad(shapes)
 
     def step():
         aug = tr.transforms.augment(gen, batch)
@@ -1549,7 +1710,9 @@ def phase_unetr_training():
         conv3d_igemm_narrow=UNETR_CONVS_NARROW,
         conv3d_igemm_dx=UNETR_CONVS_DX,
         conv3d_igemm_dx_wgmma=UNETR_CONVS_DX_WGMMA,
-        conv3d_igemm_dx_narrow=0, intensity_aug=1,
+        conv3d_igemm_dx_narrow=0, conv3d_weight_grad=UNETR_CONVS_WGRAD,
+        conv3d_weight_grad_patches=UNETR_CONVS_WGRAD_PATCHES,
+        intensity_aug=1,
     )
     want = {k: v * UNETR_TIMED_STEPS for k, v in per_step.items()}
     med = sorted(secs)[len(secs) // 2]
@@ -1564,7 +1727,30 @@ def phase_unetr_training():
         raise AssertionError(f"launches {launches}, want {want}")
     if not all(l == l and abs(l) < float("inf") for l in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    del tr
+
+    # one step at the yaml's batch size (4), dropout 0 as above
+    big_batch = yaml.safe_load(UNETR_YAML.read_text())["batch_size"]
+    big = make_train_batch(1, batch=big_batch, shape=CASE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    aug = tr.transforms.augment(gen, big)
+    tr.state, metrics = tr.train_step(tr.state, aug)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    big_loss = float(metrics["loss"])
+    big_peak = torch.cuda.max_memory_allocated() / 1e9
+    big_launches = _launch_counts()
+    log(f"[unetr training] one step at the yaml's B={big_batch}: "
+        f"{big_s:.4f} s, loss {big_loss:.5f}, peak memory {big_peak:.2f} GB "
+        f"(B={UNETR_BATCH}: {peak_gb:.2f} GB); launches {big_launches}")
+    if big_launches != per_step:
+        raise AssertionError(f"B={big_batch} launches {big_launches}, want "
+                             f"{per_step}")
+    if not abs(big_loss) < float("inf"):
+        raise AssertionError(f"B={big_batch} loss {big_loss}")
+    del tr, big, aug
 
     tr = make_trainer(0, "bf16", learning_rate=1e-2, name="unetr")
     before = float(tr.eval_step(tr.state.params, batch)["loss"])
@@ -1602,10 +1788,12 @@ def phase_unetr_training():
         f"{loss_rel:.2e}, tol 1e-4), gradient norm {norm_k:.6g} vs "
         f"{norm_p:.6g} (rel {norm_rel:.2e}, tol 1e-3); largest gradient "
         f"difference {worst_rel:.2e} of the largest gradient")
-    # f32 never takes the wgmma route; the image's 1->16 the narrow one
+    # f32 never takes the wgmma route, and its dW the patch product; the
+    # image's 1->16 takes the narrow one
     if f32_launches != {**per_step, "intensity_aug": 0,
                         "conv3d_igemm_wgmma": 0,
-                        "conv3d_igemm_dx_wgmma": 0}:
+                        "conv3d_igemm_dx_wgmma": 0, "conv3d_weight_grad": 0,
+                        "conv3d_weight_grad_patches": UNETR_CONVS}:
         raise AssertionError(f"f32 step launches {f32_launches}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("f32 step disagrees with the plain versions")
@@ -1614,6 +1802,9 @@ def phase_unetr_training():
         warmup_s=warm, seconds_per_step=secs,
         volumes_per_s=UNETR_BATCH / med, launches=launches, losses=losses,
         peak_memory_gb=peak_gb, n_params=len(names),
+        dw_classes=dw_rows, dw_per_step=dw_step,
+        yaml_batch=dict(batch=big_batch, seconds=big_s, loss=big_loss,
+                        peak_memory_gb=big_peak, launches=big_launches),
         fixed_batch_loss=[before, after],
         f32_parity=dict(loss=loss_k, plain_loss=loss_p, loss_rel=loss_rel,
                         grad_norm=norm_k, plain_grad_norm=norm_p,
@@ -1858,6 +2049,31 @@ def main():
     kernels[-1]["launches_by_path"] = {
         p: c.get("conv3d_igemm_narrow", 0)
         + c.get("conv3d_igemm_dx_narrow", 0) for p, c in by_path.items()}
+    # dW: the wgrad kernel's 29 launches of a U-Net step, and all 31 dW
+    wg, dw_all = dx_totals["dw_wgmma"], dx_totals["dw"]
+    kernels.append(entry(
+        "conv3d_wgrad", "adell_mri_torch/csrc/conv3d_wgrad.cu",
+        "adell_mri_tpu/ops/conv.py:170",
+        launches_of("conv3d_weight_grad")[0],
+        dict(max_abs_err=wg["dw_max_abs_err"], tol=wg["dw_tol"],
+             ms=wg["dw_ms"], plain_ms=wg["dw_plain_ms"],
+             bound_ms=wg["dw_bound_ms"], bound_by=wg["dw_bound_by"]),
+        "the dW half of _conv3d_im2col_bwd (K1's custom VJP, XLA in the "
+        "JAX package): the 29 wgrad launches of one U-Net training step "
+        "(B=4 at 128x128x32, bf16); plain: the patch product; library: "
+        "cuDNN's weight gradient (aten.convolution_backward)",
+        wg["dw_library_ms"]))
+    kernels[-1]["launches_by_path"] = launches_of("conv3d_weight_grad")[1]
+    kernels[-1]["patch_calls_by_path"] = launches_of(
+        "conv3d_weight_grad_patches")[1]
+    step_keys = ("convs", "dw_ms", "dw_plain_ms", "dw_library_ms",
+                 "dw_bound_ms", "dw_max_abs_err", "dw_tol", "dw_peak_bytes",
+                 "dw_plain_peak_bytes")
+    kernels[-1]["step_all_dw"] = {k: dw_all[k] for k in step_keys}
+    # UNETR's step at B=2: the kernel's 8 dW and all 9
+    kernels[-1]["unetr_step"] = {
+        part: {k: unetr_training["dw_per_step"][part][k] for k in step_keys}
+        for part in ("dw_wgmma", "dw")}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, build_s=build_s,

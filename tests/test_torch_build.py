@@ -12,7 +12,7 @@ from adell_mri_torch.ops.kernels import build
 
 def test_port_sources_and_headers_are_found():
     names = {p.name for p in build._sources()}
-    assert {"conv3d_igemm.cu", "intensity_aug.cu",
+    assert {"conv3d_igemm.cu", "conv3d_wgrad.cu", "intensity_aug.cu",
             "flash_attention.cu"} <= names
     assert "wgmma.cuh" in {p.name for p in build._headers()}
 
@@ -32,23 +32,55 @@ def test_every_included_header_is_hashed():
         assert '#include "wgmma.cuh"' in (build.CSRC_DIR / name).read_text()
 
 
+def _declared(pattern):
+    """Entry points of the port's sources whose name matches ``pattern``,
+    with the number of arguments each declares."""
+    import re
+
+    declared = {}
+    for src in build._sources():
+        for m in re.finditer(r'extern "C" int (' + pattern + r")"
+                             r"\(([^)]*)\)", src.read_text()):
+            declared[m.group(1)] = m.group(2).count(",") + 1
+    return declared
+
+
 def test_single_entry_points_have_signatures():
     """The conv's Hopper entry points have no f32 twin and are bound by
     name with as many arguments as the source declares: 14 for the
     launcher, pointers as pointers."""
     import ctypes
-    import re
 
     sig = build._SINGLE["adell_conv3d_wgmma_bf16"]
     assert len(sig) == 14
     assert sig[:4] == [ctypes.c_void_p] * 4 and sig[-1] is ctypes.c_void_p
-    source = (build.CSRC_DIR / "conv3d_igemm.cu").read_text()
-    declared = dict(
-        (m.group(1), m.group(2).count(",") + 1)
-        for m in re.finditer(r'extern "C" int (adell_conv3d_wgmma\w*)'
-                             r"\(([^)]*)\)", source)
-    )
+    declared = _declared(r"adell_conv3d_w\w*")
     assert declared == {name: len(s) for name, s in build._SINGLE.items()}
+
+
+def test_wgrad_entry_points_have_signatures():
+    """The wgrad kernel's launcher (x, g, workspace, dW, then B, D, H, W,
+    Cin, Cout, the box and the SM count, then the stream), its limits query
+    (Cin, Cout and the output array, as the forward's) and its plan query
+    (ten ints and the output array) live in their own source and are bound
+    with the arguments it declares."""
+    import ctypes
+
+    assert "conv3d_wgrad.cu" in {p.name for p in build._sources()}
+    declared = _declared(r"adell_conv3d_wgrad\w*")
+    assert declared == {"adell_conv3d_wgrad_bf16": 15,
+                        "adell_conv3d_wgrad_limits": 3,
+                        "adell_conv3d_wgrad_plan": 11}
+    sig = build._SINGLE["adell_conv3d_wgrad_bf16"]
+    assert sig[:4] == [ctypes.c_void_p] * 4 and sig[-1] is ctypes.c_void_p
+    assert sig[4:14] == [ctypes.c_int] * 10
+    assert (build._SINGLE["adell_conv3d_wgrad_limits"]
+            == build._SINGLE["adell_conv3d_wgmma_limits"])
+    plan = build._SINGLE["adell_conv3d_wgrad_plan"]
+    assert plan[:10] == [ctypes.c_int] * 10
+    assert plan[10] == ctypes.POINTER(ctypes.c_int)
+    assert '#include "wgmma.cuh"' in (
+        build.CSRC_DIR / "conv3d_wgrad.cu").read_text()
 
 
 def test_paired_entry_points_have_signatures():

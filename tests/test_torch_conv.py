@@ -611,3 +611,236 @@ def test_narrow_route_counts_nothing_on_the_cpu():
         assert (kconv.conv3d_igemm.narrow_launches,
                 kconv.conv3d_igemm_dx.narrow_launches,
                 kconv.conv3d_igemm.launches) == before
+
+
+# -- dW: the wgrad route and its decomposition, emulated --------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cin", [1, 3, 8, 16, 48, 64, 256])
+@pytest.mark.parametrize("cout", [1, 4, 8, 24, 32, 256, 264])
+def test_wgrad_route(dtype, cin, cout):
+    """bf16 with Cin a multiple of 16, Cout of 8 and Cout <= 256 takes the
+    wgrad kernel; the stems (Cin 1, 3), Cin 8, Cout 1 or 4, Cout past 256
+    and every f32 call take the patch product."""
+    want = ("wgmma" if dtype == torch.bfloat16 and cin % 16 == 0
+            and cout % 8 == 0 and cout <= 256 else "patches")
+    assert kconv.wgrad_route(dtype, cin, cout) == want
+    # the kernel's classes are the forward's wgmma classes
+    if want == "wgmma":
+        assert kconv.conv_route(dtype, cin, cout) == "wgmma"
+
+
+def _wgrad_rows(plan, cin):
+    """How often each dW row (tap, ci) is stored by the blocks of the
+    plan: chunk c, group, warpgroup and tile give 64 rows (tap, ci_local)
+    of the chunk, rows past its 27 * ck are not stored."""
+    counts = np.zeros((27, cin), np.int64)
+    for c in range(cin // plan.ck):
+        for grp in range(plan.groups):
+            for wg in range(plan.nwg):
+                for t in range(plan.t):
+                    tile = (grp * plan.nwg + wg) * plan.t + t
+                    for r in range(tile * 64, tile * 64 + 64):
+                        if r // plan.ck < 27:
+                            counts[r // plan.ck, c * plan.ck + r % plan.ck] += 1
+    return counts
+
+
+def _check_wgrad_plan(b, d, h, w, cin, cout, n_sm=132):
+    plan = kconv.wgrad_plan(b, d, h, w, cin, cout, n_sm)
+    box = (plan.tz, plan.ty, plan.tx)
+    assert plan.tz * plan.ty * plan.tx == kconv.WGRAD_VOXELS
+    # the forward's box policy, within the limits of the wgrad kernel
+    voxels, max_halo = kconv.wgrad_limits(cin, cout)
+    assert box == kconv.plan_box(d, h, w, voxels, max_halo)
+    assert (plan.tz + 2) * (plan.ty + 2) * (plan.tx + 2) <= max_halo
+    # every voxel once across the boxes, every box once across the splits
+    assert (_box_cover(d, h, w, box) == 1).all()
+    assert plan.boxes == b * (-(-d // plan.tz) * -(-h // plan.ty)
+                              * -(-w // plan.tx))
+    seen = np.zeros(plan.boxes, np.int64)
+    for s in range(plan.splits):
+        start, stop = plan.split_range(s)
+        assert start < stop
+        seen[start:stop] += 1
+    assert (seen == 1).all()
+    # every (tap, ci) row once across the M groups, every column once
+    assert (_wgrad_rows(plan, cin) == 1).all()
+    assert plan.n_blocks * plan.nb >= cout > (plan.n_blocks - 1) * plan.nb
+    # the sums fit the register budget, the buffers the shared memory
+    assert plan.t * plan.nb // 2 <= kconv.WGRAD_ACC or plan.t == 1
+    assert plan.smem <= kconv.WGRAD_MAX_SMEM
+    blocks = cin // plan.ck * plan.groups * plan.n_blocks
+    assert plan.splits == min(plan.boxes, max(1, -(-2 * n_sm // blocks)))
+    return plan
+
+
+# the U-Net's dW classes at B=4, UNETR's at B=2, ragged volumes with several
+# channel chunks, a card of few SMs (one split)
+WGRAD_PLAN_SHAPES = [
+    (4, 128, 128, 32, 32, 32), (4, 128, 128, 32, 64, 32),
+    (4, 128, 128, 32, 64, 64), (4, 64, 64, 16, 32, 32),
+    (4, 32, 32, 8, 128, 128), (4, 16, 16, 4, 256, 256),
+    (4, 16, 16, 4, 256, 128), (4, 8, 8, 2, 128, 256),
+    (2, 256, 256, 64, 32, 16), (2, 256, 256, 64, 16, 16),
+    (1, 7, 9, 5, 48, 24), (2, 12, 10, 9, 96, 32), (1, 7, 9, 5, 16, 8),
+    (1, 1, 1, 1, 64, 64), (3, 5, 6, 10, 32, 136),
+]
+
+
+@pytest.mark.parametrize("shape", WGRAD_PLAN_SHAPES, ids=str)
+def test_wgrad_plan_covers_every_voxel_and_row_once(shape):
+    _check_wgrad_plan(*shape)
+
+
+def test_wgrad_plan_by_hand():
+    """32->32 at B=4, 128x128x32: N 32 (16 registers a tile), so a chunk of
+    32 channels, whose 14 tiles of 64 rows (two taps a tile) two
+    warpgroups hold at 7 tiles (112 registers); one group, so 264 splits
+    fill 132 SMs twice, over 8192 boxes of 4x8x8; two stages of a 16 KB
+    cotangent tile and a 600-row halo of 80-byte rows. 64->64: N 64 leaves
+    a chunk of 16 (7 tiles, 4 a warpgroup at 32 registers), four chunks,
+    66 splits. 256->256 at 16x16x4: 16 chunks of 16 by 4 N blocks of 64,
+    5 splits of 16 boxes of 8x8x4."""
+    p = kconv.wgrad_plan(4, 128, 128, 32, 32, 32)
+    assert p == (4, 8, 8, 32, 32, 7, 2, 14, 1, 1, 264, 8192,
+                 2 * (16384 + 48128) + 1024)
+    # half the shared memory a stage, less the 16 KB tile, in whole KB:
+    # 99328 bytes, 1241 rows of 80 bytes
+    assert kconv.wgrad_limits(32, 32) == (256, 1241)
+    p = kconv.wgrad_plan(4, 128, 128, 32, 64, 64)
+    assert (p.ck, p.nb, p.t, p.tiles, p.groups, p.splits) == (
+        16, 64, 4, 7, 1, 66)
+    p = kconv.wgrad_plan(4, 16, 16, 4, 256, 256)
+    assert (p.ck, p.nb, p.t, p.groups, p.n_blocks, p.splits, p.boxes) == (
+        16, 64, 4, 1, 4, 5, 16)
+    assert (p.tz, p.ty, p.tx) == (8, 8, 4)
+    assert p.smem == 2 * (32768 + 29696) + 1024
+    # UNETR's 32->16: N 16 lets a chunk of 32 through (7 tiles a
+    # warpgroup, 56 registers)
+    p = kconv.wgrad_plan(2, 256, 256, 64, 32, 16)
+    assert (p.ck, p.nb, p.t, p.groups) == (32, 16, 7, 1)
+    assert kconv.wgrad_plan(4, 32, 32, 8, 128, 16).ck == 64
+    with pytest.raises(ValueError):
+        kconv.wgrad_plan(1, 8, 8, 8, 8, 16)
+    with pytest.raises(ValueError):
+        kconv.wgrad_limits(16, 264)
+
+
+@settings(max_examples=30, deadline=None)
+@given(
+    b=st.integers(1, 3), d=st.integers(1, 40), h=st.integers(1, 40),
+    w=st.integers(1, 40),
+    cin=st.sampled_from([16, 32, 48, 64, 96, 128, 256]),
+    cout=st.integers(1, 32).map(lambda n: 8 * n),
+    n_sm=st.sampled_from([1, 8, 132]),
+)
+def test_wgrad_plan_property(b, d, h, w, cin, cout, n_sm):
+    _check_wgrad_plan(b, d, h, w, cin, cout, n_sm)
+
+
+def emulate_wgrad(x, g, n_sm=132):
+    """The wgrad kernel's decomposition in f32 (x, g: float32 arrays,
+    bf16-valued for a bf16 run): each split walks its boxes; for each box
+    the input halo (zeros outside the volume) and the cotangent tile (zero
+    rows outside it) are cut once, and every tap's rows of dW take the halo
+    rows shifted by the tap times the tile. The splits' f32 partials are
+    summed in order."""
+    b, d, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    plan = kconv.wgrad_plan(b, d, h, wd, cin, cout, n_sm)
+    tz, ty, tx = plan.tz, plan.ty, plan.tx
+    nz, ny, nx = -(-d // tz), -(-h // ty), -(-wd // tx)
+    xp = np.zeros((b, nz * tz + 2, ny * ty + 2, nx * tx + 2, cin), np.float32)
+    xp[:, 1:d + 1, 1:h + 1, 1:wd + 1] = x
+    gp = np.zeros((b, nz * tz, ny * ty, nx * tx, cout), np.float32)
+    gp[:, :d, :h, :wd] = g
+    parts = np.zeros((plan.splits, 27, cin, cout), np.float32)
+    for s in range(plan.splits):
+        for box in range(*plan.split_range(s)):
+            bi, rest = divmod(box, nz * ny * nx)
+            bz, rest = divmod(rest, ny * nx)
+            by, bx = divmod(rest, nx)
+            z0, y0, x0 = bz * tz, by * ty, bx * tx
+            halo = xp[bi, z0:z0 + tz + 2, y0:y0 + ty + 2, x0:x0 + tx + 2]
+            tile = gp[bi, z0:z0 + tz, y0:y0 + ty, x0:x0 + tx].reshape(
+                -1, cout)
+            for t in range(27):
+                dz, dy, dx = t // 9, t // 3 % 3, t % 3
+                rows = halo[dz:dz + tz, dy:dy + ty, dx:dx + tx]
+                parts[s, t] += rows.reshape(-1, cin).T @ tile
+    total = parts[0].copy()
+    for s in range(1, plan.splits):
+        total += parts[s]
+    return total.reshape(3, 3, 3, cin, cout)
+
+
+WGRAD_EMULATION_SHAPES = [((1, 7, 9, 5, 48), 24), ((2, 3, 5, 7, 16), 8),
+                          ((1, 5, 6, 10, 32), 16)]
+
+
+def _wgrad_inputs(seed, x_shape, cout):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=x_shape).astype(np.float32)
+    g = rng.normal(size=x_shape[:4] + (cout,)).astype(np.float32)
+    return x, g
+
+
+def _jax_dw(x, g, dtype):
+    xj, gj = jnp.asarray(x, dtype), jnp.asarray(g, dtype)
+    wj = jnp.zeros((3, 3, 3, x.shape[-1], g.shape[-1]), dtype)
+    _, vjp = jax.vjp(
+        lambda ww: conv3d_im2col_trainable(xj, ww, (1, 1, 1), "SAME"), wj)
+    return np.asarray(vjp(gj)[0].astype(jnp.float32))
+
+
+@pytest.mark.parametrize("n_sm", [132, 1])
+@pytest.mark.parametrize("x_shape,cout", WGRAD_EMULATION_SHAPES, ids=str)
+def test_wgrad_emulation_matches_reference_and_jax_f32(x_shape, cout, n_sm):
+    x, g = _wgrad_inputs(17, x_shape, cout)
+    got = emulate_wgrad(x, g, n_sm)
+    want = kconv.conv3d_weight_grad_reference(
+        torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    jax_want = _jax_dw(x, g, jnp.float32)
+    # f32 sums of the same products in different orders
+    for ref in (want, jax_want):
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("x_shape,cout", WGRAD_EMULATION_SHAPES, ids=str)
+def test_wgrad_emulation_matches_reference_and_jax_bf16(x_shape, cout):
+    """bf16 inputs: exact products summed in f32 by split, the splits
+    summed in order and rounded once to bf16, as the kernel does; the plain
+    version and the JAX VJP round their f32 sums once too, so the three
+    differ by at most one bf16 ulp (2^-7) of the scale."""
+    x, g = _wgrad_inputs(18, x_shape, cout)
+    xb, gb = (torch.from_numpy(a).bfloat16() for a in (x, g))
+    got = torch.from_numpy(
+        emulate_wgrad(xb.float().numpy(), gb.float().numpy())
+    ).bfloat16().float().numpy()
+    want = kconv.conv3d_weight_grad_reference(xb, gb).float().numpy()
+    jax_want = _jax_dw(xb.float().numpy(), gb.float().numpy(), jnp.bfloat16)
+    for ref in (want, jax_want):
+        assert np.abs(got - ref).max() <= 2.0**-7 * np.abs(ref).max()
+
+
+def test_weight_grad_takes_plain_path_on_cpu():
+    """On CPU tensors the wrapper is the plain version and counts neither a
+    launch nor a patch call, on either route's classes; the Function's dW
+    goes through it."""
+    for x_shape, cout, dtype in (((1, 4, 5, 6, 16), 8, torch.bfloat16),
+                                 ((1, 4, 5, 6, 1), 32, torch.bfloat16),
+                                 ((1, 4, 5, 6, 16), 8, torch.float32)):
+        x, g = (torch.from_numpy(a).to(dtype)
+                for a in _wgrad_inputs(19, x_shape, cout))
+        before = (kconv.conv3d_weight_grad.launches,
+                  kconv.conv3d_weight_grad.patch_calls)
+        got = kconv.conv3d_weight_grad(x, g)
+        assert torch.equal(got, kconv.conv3d_weight_grad_reference(x, g))
+        w = torch.zeros((3, 3, 3, x_shape[-1], cout), dtype=dtype,
+                        requires_grad=True)
+        y = kconv.conv3d_igemm_train(x, w)
+        (dw,) = torch.autograd.grad(y, [w], g)
+        assert torch.equal(dw, got)
+        assert (kconv.conv3d_weight_grad.launches,
+                kconv.conv3d_weight_grad.patch_calls) == before

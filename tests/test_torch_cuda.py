@@ -284,6 +284,113 @@ def test_conv3d_igemm_gradient_matches_plain(cuda, shape, dtype):
         assert float((got.float() - want.float()).abs().max()) <= rel * scale
 
 
+# dW classes (B, D, H, W, Cin, Cout): the U-Net's at B=4 (its three
+# 128x128x32 classes, two levels below), UNETR's full-size ones at B=1,
+# ragged volumes with several channel chunks, a padded N block, two N
+# blocks of 128, and a volume smaller than one box
+WGRAD_SHAPES = [
+    (4, 128, 128, 32, 32, 32), (4, 128, 128, 32, 64, 32),
+    (4, 128, 128, 32, 64, 64), (4, 64, 64, 16, 32, 32),
+    (4, 16, 16, 4, 256, 256), (4, 8, 8, 2, 128, 256),
+    (1, 256, 256, 64, 32, 16), (1, 256, 256, 64, 16, 16),
+    (1, 7, 9, 5, 48, 24), (2, 12, 10, 9, 96, 32), (1, 7, 9, 5, 16, 8),
+    (3, 5, 6, 10, 32, 136), (1, 1, 2, 3, 64, 64),
+]
+
+
+def _wgrad_inputs(shape, device, seed):
+    b, d, h, w, cin, cout = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, d, h, w, cin), generator=g,
+                    device=device).to(torch.bfloat16)
+    gy = torch.randn((b, d, h, w, cout), generator=g,
+                     device=device).to(torch.bfloat16)
+    return x, gy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WGRAD_SHAPES, ids=str)
+def test_conv3d_wgrad_matches_plain(cuda, shape):
+    """The wgrad kernel against the patch product (both f32 sums rounded
+    once: one bf16 ulp of the scale), and the same bits from two runs."""
+    x, gy = _wgrad_inputs(shape, cuda, 10)
+    before = (kconv.conv3d_weight_grad.launches,
+              kconv.conv3d_weight_grad.patch_calls)
+    got = kconv.conv3d_weight_grad(x, gy)
+    assert (kconv.conv3d_weight_grad.launches,
+            kconv.conv3d_weight_grad.patch_calls) == (before[0] + 1,
+                                                      before[1])
+    again = kconv.conv3d_weight_grad(x, gy)
+    want = kconv.conv3d_weight_grad_reference(x, gy)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    scale = max(float(want.float().abs().max()), 1e-30)
+    assert float((got.float() - want.float()).abs().max()) <= 2.0**-7 * scale
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_wgrad_plan_is_the_launchers(cuda):
+    """``adell_conv3d_wgrad_limits`` gives the limits that
+    ``wgrad_limits`` works out, and ``adell_conv3d_wgrad_plan`` the
+    decomposition that ``wgrad_plan`` (the CPU tests' emulation) works out,
+    on this card and on one of 132 SMs; both refuse classes outside the
+    kernel's, and the plan refuses a box that is not 256 voxels or whose
+    halo does not fit."""
+    import ctypes
+
+    from adell_mri_torch.ops.kernels.build import load_library
+
+    lib = load_library()
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    limits = (ctypes.c_int * 2)()
+    for shape in WGRAD_SHAPES:
+        assert lib.adell_conv3d_wgrad_limits(*shape[4:], limits) == 0
+        assert tuple(limits) == kconv.wgrad_limits(*shape[4:])
+        for sms in (n_sm, 132, 1):
+            assert kconv.launcher_wgrad_plan(lib, *shape, sms) == (
+                kconv.wgrad_plan(*shape, sms))
+    got = (ctypes.c_int * 13)()
+    for cin, cout in ((8, 16), (16, 4), (16, 264), (1, 32)):
+        assert lib.adell_conv3d_wgrad_limits(cin, cout, limits) != 0
+        assert lib.adell_conv3d_wgrad_plan(1, 8, 8, 8, cin, cout, 4, 8, 8,
+                                           132, got) != 0
+    # 32->32 takes at most 1241 halo rows: 3 x 3 x 258 do not fit
+    for box in ((4, 8, 4), (4, 8, 16), (1, 1, 256)):
+        assert lib.adell_conv3d_wgrad_plan(1, 8, 8, 8, 32, 32, *box, 132,
+                                           got) != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 6, 6, 6, 16, 40), (1, 7, 9, 5, 48, 24),
+                                   (1, 8, 8, 4, 32, 1), (2, 5, 6, 7, 3, 5)],
+                         ids=str)
+def test_weight_grad_function_matches_plain(cuda, shape):
+    """The Function's dW in bf16 on the card: the kernel for its classes,
+    the patch product for the others (Cout 1, Cin 3), each counted, and
+    equal to autograd through the plain version within one bf16 ulp."""
+    x, gy = _wgrad_inputs(shape, cuda, 11)
+    cin, cout = shape[-2:]
+    wt = (torch.randn((3, 3, 3, cin, cout), device=cuda)
+          / (27 * cin) ** 0.5).to(torch.bfloat16)
+    route = kconv.wgrad_route(torch.bfloat16, cin, cout)
+    grads = []
+    for fn in (kconv.conv3d_igemm_train, kconv.conv3d_igemm_reference):
+        w = wt.clone().requires_grad_()
+        y = fn(x, w)
+        before = (kconv.conv3d_weight_grad.launches,
+                  kconv.conv3d_weight_grad.patch_calls)
+        grads.append(torch.autograd.grad(y, [w], gy)[0])
+        if fn is kconv.conv3d_igemm_train:
+            assert (kconv.conv3d_weight_grad.launches - before[0],
+                    kconv.conv3d_weight_grad.patch_calls - before[1]) == (
+                (1, 0) if route == "wgmma" else (0, 1))
+    torch.cuda.synchronize()
+    got, want = grads
+    scale = max(float(want.float().abs().max()), 1e-30)
+    assert float((got.float() - want.float()).abs().max()) <= 2.0**-7 * scale
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_intensity_aug_matches_plain(cuda, dtype):
