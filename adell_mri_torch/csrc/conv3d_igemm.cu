@@ -83,8 +83,10 @@
 //
 // conv3d_igemm_bf16_kernel (the first design: a gathered patch tile, WMMA
 // 16x16x16, synchronous loads) keeps the bf16 convs neither Hopper kernel
-// takes (Cin 5 to 15 and the like). The f32 path is plain FMA (no TF32),
-// for exact comparisons and f32 training.
+// takes (Cin 5 to 15 and the like); conv3d_igemm_f32_kernel, the same
+// design in plain f32 FMA, the f32 convs that neither the narrow kernel
+// nor the 3xTF32 one (csrc/conv3d_tf32.cu) takes (a width that is not a
+// multiple of 8).
 //
 // C interface (loaded with ctypes): each launcher enqueues one kernel on the
 // given stream and returns cudaGetLastError().

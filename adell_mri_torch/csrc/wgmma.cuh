@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the bf16 attention kernels: swizzled
-// 64-row tiles in shared memory, asynchronous copies into them, the matrix
+// Hopper (sm_90a) building blocks of the port's wgmma kernels (attention,
+// conv forward and dx in bf16 and 3xTF32, wgrad): swizzled 64-row tiles in
+// shared memory, asynchronous copies into them, the matrix
 // descriptors that `wgmma` reads them through, and the warpgroup products
 // themselves as inline PTX.
 //
@@ -342,6 +343,62 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[64],
         ADELL_ACC8(d, 24), ADELL_ACC8(d, 32), ADELL_ACC8(d, 40),
         ADELL_ACC8(d, 48), ADELL_ACC8(d, 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// TF32 products, d[64 x N] (+)= A[64 x 8] B[N x 8]^T: A from registers
+// (four TF32 values a thread, in f32's format: rows l / 4 and l / 4 + 8 of
+// the warp's 16, k l % 4 and l % 4 + 4, the fragment ldmatrix_x4 loads from
+// 32 bytes of f32 rows), B a K-major tile in shared memory (TF32 has no
+// MN-major form); acc == 0 overwrites d. N = 16, 32 and 64 by the
+// accumulator's size.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : ADELL_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : ADELL_ACC8(d, 0), ADELL_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : ADELL_ACC8(d, 0), ADELL_ACC8(d, 8), ADELL_ACC8(d, 16),
+        ADELL_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
 }
 
 // ------------------------------------------------------------ arithmetic ---

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adell_mri_torch.ops.kernels.conv import same_conv_weights
+
 
 def sliding_window_grid(
     spatial: Sequence[int],
@@ -107,7 +109,9 @@ def sliding_window_inference(
 ) -> torch.Tensor:
     """Runs ``fn`` ([b, *window, C] -> [b, *window, C_out]) over every tile
     of ``vol`` [*S, C] in micro-batches of ``batch_size`` and averages the
-    overlaps in f32. The accumulator takes C_out from the first batch."""
+    overlaps in f32. The accumulator takes C_out from the first batch.
+    ``fn`` must not change its conv weights: the 3xTF32 conv prepares each
+    weight once for all the micro-batches (``same_conv_weights``)."""
     window = tuple(int(w) for w in window)
     vol, orig_spatial = _pad_to_window(vol, window)
     spatial = tuple(vol.shape[:-1])
@@ -115,21 +119,23 @@ def sliding_window_inference(
         spatial, window, stride_frac, batch_size, stride=stride
     )
     acc = None
-    for start in range(0, len(positions), batch_size):
-        pos = positions[start:start + batch_size]
-        slices = [
-            tuple(slice(int(s), int(s) + w) for s, w in zip(p, window))
-            for p in pos
-        ]
-        preds = fn(torch.stack([vol[sl] for sl in slices])).float()
-        if acc is None:
-            acc = torch.zeros(
-                spatial + (preds.shape[-1],), dtype=torch.float32,
-                device=preds.device,
-            )
-        for sl, pred, v in zip(slices, preds, valid[start:start + batch_size]):
-            if v > 0:  # padding tiles carry weight 0
-                acc[sl] += pred
+    with same_conv_weights():
+        for start in range(0, len(positions), batch_size):
+            pos = positions[start:start + batch_size]
+            slices = [
+                tuple(slice(int(s), int(s) + w) for s, w in zip(p, window))
+                for p in pos
+            ]
+            preds = fn(torch.stack([vol[sl] for sl in slices])).float()
+            if acc is None:
+                acc = torch.zeros(
+                    spatial + (preds.shape[-1],), dtype=torch.float32,
+                    device=preds.device,
+                )
+            for sl, pred, v in zip(slices, preds,
+                                   valid[start:start + batch_size]):
+                if v > 0:  # padding tiles carry weight 0
+                    acc[sl] += pred
     cnt = torch.from_numpy(overlap_counts(spatial, window, positions, valid))
     out = acc / cnt.to(acc.device).clamp_min(1.0)
     if spatial != orig_spatial:

@@ -156,6 +156,15 @@ _SINGLE = {
     "adell_conv3d_wgmma_limits": (
         [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     ),
+    # x, w (TF32 big and small, [2, 27, Cout_pad, Cin]), bias, out, B, D,
+    # H, W, Cin, Cout, tz, ty, tx, stream
+    "adell_conv3d_wgmma_tf32x3": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    ),
+    # Cin, Cout, out[3]: voxels a box, most halo rows, Cout_pad
+    "adell_conv3d_wgmma_tf32x3_limits": (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    ),
     # x, g, workspace, dW, B, D, H, W, Cin, Cout, tz, ty, tx, SMs, stream
     "adell_conv3d_wgrad_bf16": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]

@@ -2,35 +2,44 @@
 3x3x3 stride-1 SAME 3D convolution forward on hand-written Hopper kernels.
 
 Counterpart of ``adell_mri_tpu/ops/pallas/conv.py``: the CUDA kernels in
-``adell_mri_torch/csrc/conv3d_igemm.cu`` replace that module's ``_kernel``
-(the TPU implicit-GEMM conv). Both are implicit GEMMs over M = B*D*H*W
-voxels, N = Cout and K = 27*Cin whose patch matrix never reaches device
-memory, with f32 sums and the bias fused into the epilogue. Three routes,
-chosen by ``conv_route``:
+``adell_mri_torch/csrc/conv3d_igemm.cu`` and ``csrc/conv3d_tf32.cu``
+replace that module's ``_kernel`` (the TPU implicit-GEMM conv). Both are
+implicit GEMMs over M = B*D*H*W voxels, N = Cout and K = 27*Cin whose
+patch matrix never reaches device memory, with f32 sums and the bias fused
+into the epilogue. Four routes, chosen by ``conv_route``:
 
 - ``"narrow"`` (bf16 or f32, one side of at most 4 channels and the other
   of at most 64: the Cin=1 stems, the Cout=1 input gradient, multi-sequence
   stems such as 3->32): bound by bytes, so a block loads its box's input
   halo into shared memory once per vector of channels and sums the 27
   taps with f32 FMA from there, the weight resident beside it;
-- ``"wgmma"`` (bf16, Cin a multiple of 16, Cout of 8: every other conv of
-  the main paths): a block owns a box of output voxels
+- ``"wgmma"`` (bf16, Cin a multiple of 16, Cout of 8: every other bf16
+  conv of the main paths): a block owns a box of output voxels
   (``plan_box``, within the launcher's limits: ``wgmma_box``), loads its
   input halo into shared memory once per channel chunk and runs the 27
   taps from there as ``wgmma`` products with A from registers (``ldmatrix``
   at each row's shifted address) and the weight streamed through a
   ``cp.async`` ring;
-- ``"igemm"`` (the rest: bf16 widths between the two, wide f32 convs): the
-  first kernel, which gathers a patch tile per k-step (WMMA in bf16, FMA in
-  f32).
+- ``"tf32"`` (f32, Cin and Cout multiples of 8: every other f32 conv of the
+  main paths, which run in f32 unless ``--precision bf16`` is given): the
+  same box, halo and ring in ``csrc/conv3d_tf32.cu``, each f32 product
+  taken as three TF32 tensor-core products (3xTF32: big and small TF32
+  parts of both operands, ``small*big + big*small + big*big``), which keeps
+  f32's accuracy; the wrapper prepares the weight once a call, or once a
+  ``same_conv_weights`` block (``tf32_split_weight``: K-major, split and
+  rounded as ``cvt.rna.tf32`` rounds, ``tf32_round``) and takes the box
+  from ``plan_box`` within the launcher's limits (``tf32_limits``);
+- ``"igemm"`` (the rest: bf16 widths between the narrow and wgmma routes,
+  f32 widths that are not multiples of 8): the first kernel, which gathers
+  a patch tile per k-step (WMMA in bf16, FMA in f32).
 
-The source's header says what bounds each on the H100 and what its design
+The sources' headers say what bounds each on the H100 and what its design
 does about that. ``conv3d_igemm`` launches a kernel for CUDA tensors and
 runs the plain version, ``conv3d_igemm_reference``, only for CPU tensors.
 Unlike the TPU kernel it has no shape gate: every Cin/Cout and spatial size
-is taken. Its ``launches`` counts every launch, ``wgmma_launches`` and
-``narrow_launches`` those of the two Hopper routes (``conv3d_igemm_dx``
-likewise).
+is taken. Its ``launches`` counts every launch, ``wgmma_launches``,
+``tf32_launches`` and ``narrow_launches`` those of the three Hopper routes
+(``conv3d_igemm_dx`` likewise).
 
 ``conv3d_igemm_train`` is the differentiable form, mirroring
 ``_conv3d_im2col_bwd`` in ``adell_mri_tpu/ops/conv.py`` for stride 1 and
@@ -64,6 +73,7 @@ Its counters are ``launches`` (the kernel) and ``patch_calls`` (CUDA calls
 of the patch route); CPU tensors count neither.
 """
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -90,13 +100,16 @@ NARROW, MAX_NARROW = 4, 64
 def conv_route(dtype, cin, cout):
     """The kernel a CUDA call takes: ``"narrow"`` when one side has at most
     4 channels and the other at most 64 (either dtype); else ``"wgmma"``
-    for bf16 with Cin a multiple of 16 and Cout a multiple of 8; else
-    ``"igemm"``. The first two are disjoint: Cin <= 4 is no multiple of 16,
-    Cout <= 4 none of 8."""
+    for bf16 with Cin a multiple of 16 and Cout a multiple of 8, and
+    ``"tf32"`` for f32 with Cin and Cout multiples of 8; else ``"igemm"``.
+    Narrow and the two Hopper routes are disjoint: a side of at most 4
+    channels is no multiple of 8."""
     if min(cin, cout) <= NARROW and max(cin, cout) <= MAX_NARROW:
         return "narrow"
     if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
         return "wgmma"
+    if dtype == torch.float32 and cin % 8 == 0 and cout % 8 == 0:
+        return "tf32"
     return "igemm"
 
 
@@ -141,6 +154,114 @@ def wgmma_box(lib, d, h, w, cin, cout, limits="adell_conv3d_wgmma_limits"):
     if rc != 0:
         raise ValueError(f"wgmma_box: no kernel for {cin}->{cout}")
     return plan_box(d, h, w, got[0], got[1])
+
+
+class Tf32Plan(NamedTuple):
+    """The 3xTF32 kernel's layout for Cin -> Cout (``Plan`` in
+    ``csrc/conv3d_tf32.cu``)."""
+
+    ck: int             # channels of a chunk (its halo)
+    nb: int             # N block
+    cout_pad: int       # rows of the prepared weight: Cout in whole N blocks
+    g: int              # taps a ring stage
+    stages: int         # ring stages
+    voxels: int         # output voxels of a box
+    max_halo_rows: int  # the most halo rows that fit beside the ring
+
+
+def tf32_plan(cin, cout):
+    """``Plan`` of ``csrc/conv3d_tf32.cu``, worked out in Python (the card
+    tests hold ``adell_conv3d_wgmma_tf32x3_limits`` to it): a box of 128
+    voxels, a chunk of the largest of 32, 16, 8 channels dividing Cin (halo
+    rows of 4 ck + 16 bytes), an N block of Cout padded to 16, 32 or 64 (a
+    wider Cout in several), G taps a stage (the fewest of 1, 3, 9 whose
+    products G * ck * nb reach 512), a tap's big and small slabs of nb rows
+    of ck f32, four stages each rounded to 1024 bytes, 1024 bytes of
+    alignment, and two halo buffers when Cin has several chunks."""
+    if conv_route(torch.float32, cin, cout) != "tf32":
+        raise ValueError(f"tf32: no kernel for {cin}->{cout}")
+    smem = 232448  # the shared memory a block may have
+    ck = next(c for c in (32, 16, 8) if cin % c == 0)
+    nb = next(n for n in (16, 32, 64) if n >= min(cout, 64))
+    row, tap = 4 * ck + 16, 2 * nb * ck * 4
+    g = next((g for g in (1, 3) if g * ck * nb >= 512), 9)
+    stages = 4
+    ring = stages * (-(-g * tap // 1024) * 1024)
+    bufs = 2 if cin > ck else 1
+    room = (smem - ring - 1024) // bufs // 128 * 128
+    return Tf32Plan(ck, nb, -(-cout // nb) * nb, g, stages, 128,
+                    room // row)
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_limits(lib, cin, cout):
+    """What ``adell_conv3d_wgmma_tf32x3_limits`` gives for Cin -> Cout: the
+    output voxels of a box, the most halo rows that fit beside the weight
+    ring, and Cout_pad, the rows of the prepared weight. Cached, so a
+    launch pays for it once a class."""
+    got = (ctypes.c_int * 3)()
+    rc = lib.adell_conv3d_wgmma_tf32x3_limits(cin, cout, got)
+    if rc != 0:
+        raise ValueError(f"tf32: no kernel for {cin}->{cout}")
+    return tuple(got)
+
+
+def tf32_round(t):
+    """``cvt.rna.tf32.f32`` on an f32 tensor: each value rounded to TF32's
+    10-bit mantissa, to nearest with ties away from zero (adding half a
+    TF32 ulp to the magnitude's bits, a carry into the exponent included),
+    in f32's format with the low 13 bits zero."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split_weight(w, cout_pad):
+    """The 3xTF32 kernel's weight: ``w`` [3,3,3,Cin,Cout] f32 as [2, 27,
+    cout_pad, Cin], K-major (a tap's rows are its output channels, each Cin
+    long, as TF32 ``wgmma`` reads B), big = tf32(w) first, then small =
+    tf32(w - big); rows past Cout are zero. big + small is w within 2^-22
+    of its magnitude."""
+    cin, cout = w.shape[3], w.shape[4]
+    wk = F.pad(w.reshape(27, cin, cout).transpose(1, 2),
+               (0, 0, 0, cout_pad - cout))
+    big = tf32_round(wk)
+    return torch.stack((big, tf32_round(wk - big)))
+
+
+#: the 3xTF32 route's prepared weights while a ``same_conv_weights`` block
+#: is open, by the id of the weight (held, so that the id stays its own);
+#: None outside such a block
+_tf32_weights = None
+
+
+@contextlib.contextmanager
+def same_conv_weights():
+    """Within this block no conv weight changes, so the 3xTF32 route
+    prepares each weight once (``tf32_split_weight``) instead of once a
+    launch: a served case launches each of the flagship U-Net's 29 such
+    convs once a window batch. The sliding window opens it around its
+    micro-batches; a block opened inside another shares the outer one's
+    weights. Nothing is kept after the outermost block."""
+    global _tf32_weights
+    if _tf32_weights is not None:
+        yield
+        return
+    _tf32_weights = {}
+    try:
+        yield
+    finally:
+        _tf32_weights = None
+
+
+def _tf32_weight(w, cout_pad):
+    """``tf32_split_weight(w, cout_pad)``, made once a ``same_conv_weights``
+    block (cout_pad follows from w's shape)."""
+    if _tf32_weights is None:
+        return tf32_split_weight(w, cout_pad)
+    hit = _tf32_weights.get(id(w))
+    if hit is None:
+        hit = _tf32_weights[id(w)] = (w, tf32_split_weight(w, cout_pad))
+    return hit[1]
 
 
 def conv3d_igemm_reference(x, w, bias=None):
@@ -206,6 +327,13 @@ def _launch(x, w, bias):
             box = wgmma_box(lib, d, h, w_sz, cin, cout)
             rc = lib.adell_conv3d_wgmma_bf16(
                 *ptrs, b, d, h, w_sz, cin, cout, *box, stream)
+        elif route == "tf32":
+            voxels, rows, cout_pad = tf32_limits(lib, cin, cout)
+            box = plan_box(d, h, w_sz, voxels, rows)
+            wk = _tf32_weight(w, cout_pad)
+            rc = lib.adell_conv3d_wgmma_tf32x3(
+                ptrs[0], wk.data_ptr(), *ptrs[2:], b, d, h, w_sz, cin, cout,
+                *box, stream)
         elif route == "narrow":
             rc = getattr(lib, _NARROW_LAUNCHERS[x.dtype])(
                 *ptrs, b, d, h, w_sz, cin, cout, stream)
@@ -221,6 +349,7 @@ def _launch(x, w, bias):
 def _count(fn, route):
     fn.launches += route is not None
     fn.wgmma_launches += route == "wgmma"
+    fn.tf32_launches += route == "tf32"
     fn.narrow_launches += route == "narrow"
 
 
@@ -245,9 +374,10 @@ def conv3d_igemm(x, w, bias=None):
 
 
 #: forward launches since the last reset (set to 0 to start a count), and
-#: those of them that took the "wgmma" and the "narrow" route
+#: those of them that took the "wgmma", the "tf32" and the "narrow" route
 conv3d_igemm.launches = 0
 conv3d_igemm.wgmma_launches = 0
+conv3d_igemm.tf32_launches = 0
 conv3d_igemm.narrow_launches = 0
 
 
@@ -264,9 +394,11 @@ def conv3d_igemm_dx(g, w):
     return dx
 
 
-#: backward (dx) launches since the last reset, and the two Hopper routes'
+#: backward (dx) launches since the last reset, and the three Hopper
+#: routes'
 conv3d_igemm_dx.launches = 0
 conv3d_igemm_dx.wgmma_launches = 0
+conv3d_igemm_dx.tf32_launches = 0
 conv3d_igemm_dx.narrow_launches = 0
 
 

@@ -1,18 +1,22 @@
 """
 Where the time of one served case goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_serving [unet|unetr]
+    python -m adell_mri_torch.tools.profile_serving [unet|unetr] \
+        [--precision bf16|32]
 
-Serves the model (bf16, weights from seed 0) over a 256x256x64 case
+Serves the model (bf16 by default, or f32 with ``--precision 32``, the
+CLI's default; weights from seed 0) over a 256x256x64 case
 through ``SegmentationInference`` as ``chip_smoke.py`` does: the flagship
 U-Net with a 128x128x32 window at stride 0.5 in micro-batches of 4, or
 UNETR (``sample_configs/unetr.yaml``) with the whole case as one window.
 After one warm-up case it times three cases with the host clock, then runs
 one more under ``torch.profiler`` and prints the device time by kernel
 group, the device-busy share of a case's wall time, and the top kernels.
-The full table goes to ``chiprun_out/profile_serving_{model}.txt``.
+The full table goes to ``chiprun_out/profile_serving_{model}.txt`` (or
+``--out``).
 """
 
+import argparse
 import json
 import sys
 import time
@@ -27,6 +31,7 @@ from adell_mri_torch.tools.flagship import (
     make_inference,
     make_model,
 )
+from adell_mri_torch.train.precision import compute_dtype
 
 # kernel-name substrings -> group, first match wins (cuDNN's implicit-GEMM
 # conv kernels carry "fprop" or "conv" and also "gemm", so they come first)
@@ -50,12 +55,13 @@ def _self_device_us(evt):
     return float(evt.self_device_time_total)
 
 
-def main(name="unet", out_path=None):
+def main(name="unet", out_path=None, precision="bf16"):
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1
     out_path = out_path or f"chiprun_out/profile_serving_{name}.txt"
-    infer = make_inference(make_model(0, torch.bfloat16, name=name), name)
+    dtype = compute_dtype(precision) or torch.float32
+    infer = make_inference(make_model(0, dtype, name=name), name)
     case = make_case(1)
     with torch.inference_mode():
         infer(case)
@@ -93,6 +99,7 @@ def main(name="unet", out_path=None):
     summary = {
         "device": torch.cuda.get_device_name(0),
         "model": name,
+        "precision": precision,
         "wall_s_per_case": wall,
         "device_busy_s_per_case": device_s,
         "device_busy_share": device_s / min(wall),
@@ -112,4 +119,11 @@ def main(name="unet", out_path=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:2]))
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    parser.add_argument("model", nargs="?", default="unet",
+                        choices=("unet", "unetr"))
+    parser.add_argument("--precision", default="bf16",
+                        help="the CLI's --precision: bf16 or 32")
+    parser.add_argument("--out", help="where the profiler's table goes")
+    args = parser.parse_args()
+    sys.exit(main(args.model, args.out, args.precision))

@@ -1,9 +1,11 @@
 """
 Where the time of one training step goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_train [unet|unetr]
+    python -m adell_mri_torch.tools.profile_train [unet|unetr] \
+        [--precision bf16|32]
 
-Trains the model (f32 master weights from seed 0, bf16 compute, the CLI's
+Trains the model (f32 master weights from seed 0, bf16 compute or, with
+``--precision 32``, f32 compute, the CLI's default; the CLI's
 augmentation, Nesterov SGD) on a batch made on the card, as
 ``chip_smoke.py`` does: the flagship U-Net on 4 volumes of 128x128x32 with
 the dice loss, or UNETR (``sample_configs/unetr.yaml``, dropout 0) on 2
@@ -12,9 +14,10 @@ step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
 device-busy share of a step's wall time, the peak device memory and the
 top kernels. The full table goes to
-``chiprun_out/profile_train_{model}.txt``.
+``chiprun_out/profile_train_{model}.txt`` (or ``--out``).
 """
 
+import argparse
 import json
 import sys
 import time
@@ -139,4 +142,11 @@ def main(name="unet", out_path=None, precision="bf16"):
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:2]))
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    parser.add_argument("model", nargs="?", default="unet",
+                        choices=("unet", "unetr"))
+    parser.add_argument("--precision", default="bf16",
+                        help="the CLI's --precision: bf16 or 32")
+    parser.add_argument("--out", help="where the profiler's table goes")
+    args = parser.parse_args()
+    sys.exit(main(args.model, args.out, args.precision))

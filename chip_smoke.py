@@ -10,25 +10,32 @@ failure:
 2. build: every CUDA source of the port, compiled with ``nvcc`` into
    ``build/adell_kernels/`` (seconds printed); ptxas must report no spill
    and no serialized ``wgmma`` for the Hopper kernels (conv forward and
-   dx, wgrad, attention);
+   dx in bf16 and 3xTF32, wgrad, attention);
 3. kernel vs plain: ``conv3d_igemm`` against ``conv3d_igemm_reference``
-   at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off), in bf16
-   at shapes that reach every route and edge of the wgmma conv (UNETR's
-   256x256x64 16- and 32-channel convs, ragged 7x9x5 volumes at 16->16 and
-   48->24, 256->256, Cin 8 on the igemm route), and in bf16 and f32 at the
-   narrow route's shapes (the U-Net stems and the 32->1 dx, UNETR's 1->16 at
-   B=1 and 2, the multi-sequence stems 3->3, 3->32 and their 32->3 dx,
-   ragged 7x9x5 at 1->16, 3->8 and 24->1; bf16 bit-equal over two runs),
-   each row with its route read from the route counters, with times beside
-   ``F.conv3d`` (cuDNN, a yardstick the port never calls);
+   at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off, as
+   everywhere below), in both at shapes that reach every route and edge
+   of the wgmma and tf32 convs (UNETR's 256x256x64 16- and 32-channel
+   convs, ragged 7x9x5 volumes at 16->16 and 48->24, 256->256, Cin 8: the
+   igemm route in bf16, the tf32 route's chunk of 8 in f32, and in f32
+   24->24 and 8->8 at ragged volumes), and in bf16 and f32 at the narrow
+   route's shapes (the U-Net stems and the 32->1 dx, UNETR's 1->16 at B=1
+   and 2, the multi-sequence stems 3->3, 3->32 and their 32->3 dx, ragged
+   7x9x5 at 1->16, 3->8 and 24->1), each row with its route read from the
+   route counters (f32 within 1e-5 of the output scale; the tf32 route and
+   the bf16 narrow one bit-equal over two runs), with times beside
+   ``F.conv3d`` (cuDNN, a yardstick the port never calls) and the f32 rows
+   beside two bounds: f32 products at the 3xTF32 rate and at the FMA rate;
 4. serving: the flagship U-Net in bf16 from seeded random weights serves
    a 256x256x64 case through ``SegmentationInference`` (window 128x128x32,
    stride 0.5, micro-batch 4: 27 tiles in 7 window batches); the kernel's
    launch count must rise by 31 x 7, 29 x 7 of them on the wgmma route and
    2 x 7 (the two Cin=1 stems) on the narrow route, none on the igemm
-   route; one window batch is compared with the
-   same U-Net on the plain conv path, and every conv shape of that batch is
-   timed against its plain version and its bound;
+   route; then the same in f32, the CLI's default precision (seconds per
+   case after a warm-up case; 29 x 7 launches on the tf32 route, 2 x 7 on
+   the narrow one, none on the igemm one); one window batch is compared
+   with the same U-Net on the plain conv path, and every conv shape of
+   that batch, bf16 and f32, is timed against its plain version, its
+   bounds and the gathered-tile kernel launched straight;
 5. CLI: ``python -m adell_mri_torch segmentation predict --dev cuda
    --precision bf16`` on a two-case synthetic NIfTI cohort;
 6. intensity kernel vs plain: ``intensity_aug`` (K3, and K2 as its B=1
@@ -38,7 +45,7 @@ failure:
 7. conv backward vs plain: for every stride-1 conv shape of the flagship
    forward at B=4, dx/dW/dbias of ``conv3d_igemm_train`` against autograd
    through ``conv3d_igemm_reference``, f32 (TF32 off) and bf16; the dx
-   launches timed against their bound; dW (``conv3d_weight_grad``: the
+   launches timed against their bound, bf16 and f32; dW (``conv3d_weight_grad``: the
    wgrad kernel on 29 of the 31 classes, the patch product on the stems)
    against its plain version (the patch product) within one bf16 ulp and,
    on the kernel, bit-equal over two runs, timed beside the plain version,
@@ -53,7 +60,10 @@ failure:
    and 2 patch products for dW);
    every parameter gets a finite, non-zero
    gradient; ten steps on one batch without augmentation lower the loss;
-   one f32 step matches the plain conv path;
+   in f32, the CLI's default precision, a warm-up step and 3 timed steps
+   with 29 + 29 launches a step on the tf32 route (the stems and the 32->1
+   dx on the narrow one, 31 dW patch products), then one step's loss and
+   gradient norm match the plain conv path;
 9. CLI: ``segmentation train --dev cuda --precision bf16`` on a 4-case
    synthetic cohort at the flagship size (one epoch of 2 steps), then
    ``segmentation predict --dev cuda`` on the checkpoint it wrote;
@@ -80,7 +90,8 @@ failure:
     for dW; one step at the yaml's B=4 with the same launches, its peak
     memory beside B=2's and a finite loss; every parameter gets a finite,
     non-zero gradient; an
-    f32 step (B=1) matches the plain versions in loss and gradient norm;
+    f32 step (B=1; 8 + 8 conv launches on the tf32 route) matches the plain
+    versions in loss and gradient norm;
     ten steps on one batch lower the loss;
 13. CLI: ``segmentation train --segmentation_net_type unetr --dev cuda
     --precision bf16`` with a dropout-0 copy of the yaml on a 4-case
@@ -105,6 +116,9 @@ WORK_DIR = ROOT / "build" / "chip_smoke"
 
 # H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# f32 products on the tensor cores at f32's accuracy: three TF32 products
+# each (3xTF32), a third of the dense TF32 rate of 494.7 TFLOP/s
+PEAK_F32_TF32X3 = 494.7e12 / 3
 PEAK_BYTES = 3.35e12
 CONVS_PER_FORWARD = 31
 # dx launches per training step: every stride-1 conv but the stem's first,
@@ -115,6 +129,9 @@ CONVS_DX_PER_STEP = 30
 # three take the narrow route, and no bf16 conv of a main path the igemm one
 CONVS_WGMMA_PER_FORWARD = 29
 CONVS_DX_WGMMA_PER_STEP = 29
+# in f32 (the CLI's default precision) the same convs take the tf32 route
+CONVS_TF32_PER_FORWARD = 29
+CONVS_DX_TF32_PER_STEP = 29
 CONVS_NARROW_PER_FORWARD = 2
 CONVS_DX_NARROW_PER_STEP = 1
 # dW per training step: the wgrad kernel takes the classes of the wgmma
@@ -123,6 +140,8 @@ CONVS_WGRAD_PER_STEP = 29
 CONVS_WGRAD_PATCHES_PER_STEP = 2
 WINDOW_BATCHES = 7
 TIMED_STEPS = 5
+# f32 U-Net steps timed after the warm-up step
+F32_TIMED_STEPS = 3
 # UNETR (sample_configs/unetr.yaml on 256x256x64): 8 blocks of 8 heads of
 # dim 64 over 2048 tokens; 9 stride-1 3x3x3 convs per forward, all but the
 # one that reads the image with a dx launch in training
@@ -136,6 +155,9 @@ UNETR_CONVS_DX = 8
 # every dx does
 UNETR_CONVS_WGMMA = 8
 UNETR_CONVS_DX_WGMMA = 8
+# in f32 the tf32 route takes the same 8 and 8
+UNETR_CONVS_TF32 = 8
+UNETR_CONVS_DX_TF32 = 8
 UNETR_CONVS_NARROW = 1
 # dW: the wgrad kernel for the 8 convs of 16 channels and more, the patch
 # product for the image's 1->16
@@ -178,25 +200,66 @@ def time_ms(fn, reps=5):
         cycles <<= 2
 
 
-def conv_bound(b, spatial, cin, cout, dtype):
+def conv_bound(b, spatial, cin, cout, dtype, peak=None):
     """Least time for one stride-1 3x3x3 conv: the larger of its bytes
     (x, w, bias read once, out written once) over HBM bandwidth and its
-    FLOPs over the peak rate of the dtype."""
+    FLOPs over ``peak`` (by default the peak rate of the dtype)."""
     vox = b * spatial[0] * spatial[1] * spatial[2]
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = itemsize * (vox * cin + 27 * cin * cout + cout + vox * cout)
     flops = 2 * vox * 27 * cin * cout
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_flops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     bound_by = "bytes" if t_bytes > t_flops else "operations"
     return max(t_bytes, t_flops), bound_by
 
 
-def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
+def conv_bounds(b, spatial, cin, cout, name):
+    """``conv_bound`` of a conv in ``name`` (bf16 or f32) as row keys: f32
+    products at the 3xTF32 rate (``bound_ms``) and at the FMA rate
+    (``bound_fma_ms``)."""
+    if name == "bfloat16":
+        bound, by = conv_bound(b, spatial, cin, cout, name)
+        return dict(bound_ms=bound, bound_by=by)
+    bound, by = conv_bound(b, spatial, cin, cout, name, PEAK_F32_TF32X3)
+    fma, fma_by = conv_bound(b, spatial, cin, cout, name)
+    return dict(bound_ms=bound, bound_by=by, bound_fma_ms=fma,
+                bound_fma_by=fma_by)
+
+
+def igemm_direct(x, w, bias):
+    """The gathered-tile kernel (``conv3d_igemm_{bf16,f32}_kernel``)
+    launched straight through its C entry at a shape the wrappers now route
+    elsewhere, to time it; not counted."""
+    import torch
+
+    from adell_mri_torch.ops.kernels.build import load_library
+
+    lib = load_library()
+    out = torch.empty(x.shape[:4] + (w.shape[-1],), dtype=x.dtype,
+                      device=x.device)
+    fn = (lib.adell_conv3d_igemm_bf16 if x.dtype == torch.bfloat16
+          else lib.adell_conv3d_igemm_f32)
+    rc = fn(x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            *x.shape, w.shape[-1],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the gathered-tile conv kernel: cudaError {rc}")
+    return out
+
+
+def _route_counts(fn):
+    return (fn.wgmma_launches, fn.tf32_launches, fn.narrow_launches)
+
+
+def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5, direct=False):
     """Kernel vs plain on the card at one shape: max abs error, its
-    tolerance, and the times of kernel, plain version and cuDNN. The route
-    is read from the route counters; a bf16 narrow conv runs twice and must
-    give the same bits."""
+    tolerance, and the times of kernel, plain version and cuDNN (in f32
+    with TF32 off); with ``direct`` also the gathered-tile kernel's time at
+    the shape.
+    The route is read from the route counters; a tf32 conv and a bf16
+    narrow conv run twice and must give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -212,30 +275,31 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
     w = (w / (27 * cin) ** 0.5).to(dtype)
     bias = (0.1 * torch.randn(cout, generator=g, device="cuda")).to(dtype)
     route = conv_route(dtype, cin, cout)
-    before = (conv3d_igemm.wgmma_launches, conv3d_igemm.narrow_launches)
+    before = _route_counts(conv3d_igemm)
     got = conv3d_igemm(x, w, bias)
-    taken = (conv3d_igemm.wgmma_launches - before[0],
-             conv3d_igemm.narrow_launches - before[1])
-    if taken != (route == "wgmma", route == "narrow"):
+    taken = tuple(a - b for a, b in zip(_route_counts(conv3d_igemm), before))
+    if taken != (route == "wgmma", route == "tf32", route == "narrow"):
         raise AssertionError(f"{cin}->{cout} {dtype} did not take the "
                              f"{route} route: {taken}")
     want = conv3d_igemm_reference(x, w, bias)
     same = None
-    if route == "narrow" and dtype == torch.bfloat16:
+    if route == "tf32" or (route == "narrow" and dtype == torch.bfloat16):
         same = torch.equal(got, conv3d_igemm(x, w, bias))
         if not same:
-            raise AssertionError(f"{cin}->{cout} bf16 differs between two "
-                                 "runs")
+            raise AssertionError(f"{cin}->{cout} {dtype} differs between "
+                                 "two runs")
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     # bf16: both sides sum exact products in f32 and round once, so they
-    # differ by at most one bf16 ulp (2^-7 relative); f32: summation order
-    # over up to 27*256 terms, 1e-4 of the output scale
-    tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-4) * max(scale, 1.0)
+    # differ by at most one bf16 ulp (2^-7 relative); f32: 1e-5 of the
+    # output scale, f32 sums (3xTF32 on the tf32 route) against the plain
+    # version's in another order, which one TF32 pass (about 3e-4) misses
+    tol = 2.0**-7 * max(scale, 1.0) if dtype == torch.bfloat16 else (
+        1e-5 * scale)
     xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
     name = str(dtype).split(".")[1]
-    bound, bound_by = conv_bound(b, spatial, cin, cout, name)
+    bounds = conv_bounds(b, spatial, cin, cout, name)
     row = dict(
         shape=[b, *spatial, cin, cout], dtype=name, route=route,
         max_abs_err=err, bit_equal=same,
@@ -243,8 +307,12 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
         ms=time_ms(lambda: conv3d_igemm(x, w, bias), reps),
         plain_ms=time_ms(lambda: conv3d_igemm_reference(x, w, bias), reps),
         library_ms=time_ms(lambda: F.conv3d(xc, wc, bias, padding=1), reps),
-        bound_ms=bound, bound_by=bound_by,
+        **bounds,
     )
+    if direct:
+        row["igemm_err"] = float(
+            (igemm_direct(x, w, bias).float() - want.float()).abs().max())
+        row["igemm_ms"] = time_ms(lambda: igemm_direct(x, w, bias), reps)
     log(
         f"  conv {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name} "
         f"({route}): "
@@ -252,7 +320,11 @@ def compare_conv(b, spatial, cin, cout, dtype, seed, reps=5):
         + ("" if same is None else ", bit-equal over two runs")
         + f") kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.3f} ms, F.conv3d {row['library_ms']:.3f} "
-        f"ms, bound {bound:.4f} ms ({bound_by})"
+        f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        + (f", FMA bound {row['bound_fma_ms']:.4f} ms" if "bound_fma_ms"
+           in row else "")
+        + (f"; the gathered-tile kernel {row['igemm_ms']:.3f} ms" if direct
+           else "")
     )
     if not row["ok"]:
         raise AssertionError(f"conv3d_igemm disagrees with plain: {row}")
@@ -321,16 +393,18 @@ def phase_build():
 # the kernels built on wgmma, whose ptxas lines the build phase checks
 HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
                   "flash_bwd_dkv_bf16_kernel", "conv3d_wgmma_bf16_kernel",
-                  "conv3d_wgrad_bf16_kernel")
+                  "conv3d_wgrad_bf16_kernel", "conv3d_wgmma_tf32x3_kernel")
 
 
 def check_hopper_build(build_log):
     """ptxas must keep the Hopper kernels whole: no spilled registers, and
-    no note (C75xx) that it serialized their ``wgmma`` products, which would
-    undo their overlap without failing anything. Every one of them must
-    have its ptxas entries."""
+    no note (C75xx) that it serialized their ``wgmma`` products or injected
+    a wait for their sums, which would undo their overlap without failing
+    anything. Every one of them must have its ptxas entries."""
     lines = build_log.splitlines()
     faults = [ln for ln in lines if "wgmma" in ln and "serialized" in ln]
+    faults += [ln for ln in lines if "(C75" in ln
+               and any(name in ln for name in HOPPER_KERNELS)]
     seen = dict.fromkeys(HOPPER_KERNELS, 0)
     for i, ln in enumerate(lines):
         if "Function properties" not in ln:
@@ -357,7 +431,8 @@ def phase_kernels():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    log("[kernel vs plain] flagship shapes, B=4; the wgmma route's edges")
+    log("[kernel vs plain] flagship shapes, B=4; the edges of the wgmma "
+        "and tf32 routes")
     rows = []
     shapes = [
         (WINDOW, 1, 1), (WINDOW, 1, 32), (WINDOW, 32, 32), (WINDOW, 64, 32),
@@ -366,17 +441,24 @@ def phase_kernels():
     for i, (spatial, cin, cout) in enumerate(shapes):
         for dtype in (torch.bfloat16, torch.float32):
             rows.append(compare_conv(4, spatial, cin, cout, dtype, seed=i))
-    # bf16 only: a 64-channel full-size conv, UNETR's 16-wide full-size
-    # convs, ragged volumes (a chunk of 16 three times, a Cout padded from
-    # 24 to 32), and Cin 8, which takes the igemm route
+    # a 64-channel full-size conv, UNETR's 16-wide full-size convs, ragged
+    # volumes (a chunk of 16 three times, a Cout padded from 24 to 32), and
+    # Cin 8 (bf16: the igemm route; f32: the tf32 route's chunk of 8)
     edges = [
         (4, WINDOW, 64, 64), (1, (256, 256, 64), 32, 16),
         (1, (256, 256, 64), 16, 16), (1, (7, 9, 5), 16, 16),
         (1, (7, 9, 5), 48, 24), (4, WINDOW, 8, 32),
     ]
     for i, (b, spatial, cin, cout) in enumerate(edges):
-        rows.append(compare_conv(b, spatial, cin, cout, torch.bfloat16,
-                                 seed=50 + i))
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(compare_conv(b, spatial, cin, cout, dtype,
+                                     seed=50 + i))
+    # f32 only: the tf32 route's chunks of 8 three times beside an N block
+    # padded from 24 to 32, and of 8 into a block of 16
+    for i, (b, spatial, cin, cout) in enumerate([(2, (3, 5, 7), 24, 24),
+                                                 (1, (7, 9, 5), 8, 8)]):
+        rows.append(compare_conv(b, spatial, cin, cout, torch.float32,
+                                 seed=60 + i))
     # the narrow route in bf16 and f32 (1->1 and 1->32 are above): the
     # Cout = 1 dx of 1->32, UNETR's image conv at B=1 and 2, multi-sequence
     # stems and their dx, ragged volumes
@@ -393,15 +475,20 @@ def phase_kernels():
     return rows
 
 
-def phase_serving(model):
-    """One warm-up case, then the counted case, then two more timed."""
+def phase_serving(model, case=None):
+    """One warm-up case, then the counted case, then two more timed. In
+    bf16 29 x 7 conv launches take the wgmma route, in f32 (the CLI's
+    default precision) the tf32 route; 2 x 7 the narrow one, none the igemm
+    one."""
     import torch
 
     from adell_mri_torch.ops.kernels import conv as kconv
     from adell_mri_torch.tools.flagship import CASE, make_case, make_inference
 
-    case = make_case(1)
+    case = make_case(1) if case is None else case
     infer = make_inference(model)
+    hopper = ("wgmma" if next(model.parameters()).dtype == torch.bfloat16
+              else "tf32")
     secs = []
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -414,26 +501,28 @@ def phase_serving(model):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         launches = kconv.conv3d_igemm.launches
-        wgmma = kconv.conv3d_igemm.wgmma_launches
+        routed = getattr(kconv.conv3d_igemm, f"{hopper}_launches")
         narrow = kconv.conv3d_igemm.narrow_launches
+        counts = _launch_counts()
         for _ in range(2):
             t0 = time.perf_counter()
             infer(case)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
     want = CONVS_PER_FORWARD * WINDOW_BATCHES
-    want_wgmma = CONVS_WGMMA_PER_FORWARD * WINDOW_BATCHES
+    want_routed = CONVS_WGMMA_PER_FORWARD * WINDOW_BATCHES
     want_narrow = CONVS_NARROW_PER_FORWARD * WINDOW_BATCHES
-    igemm = launches - wgmma - narrow
-    log(f"[serving] {'x'.join(map(str, CASE))} case: conv3d_igemm launches "
-        f"{launches} (want {want}), {wgmma} on the wgmma route (want "
-        f"{want_wgmma}), {narrow} on the narrow route (want {want_narrow}),"
+    igemm = launches - routed - narrow
+    log(f"[serving] {'x'.join(map(str, CASE))} case, "
+        f"{'bf16' if hopper == 'wgmma' else 'f32'}: conv3d_igemm launches "
+        f"{launches} (want {want}), {routed} on the {hopper} route (want "
+        f"{want_routed}), {narrow} on the narrow route (want {want_narrow}),"
         f" {igemm} on the igemm route (want 0); warm-up {warm:.3f} s, then "
         f"{', '.join(f'{s:.4f}' for s in secs)} s per case")
-    if (launches, wgmma, narrow) != (want, want_wgmma, want_narrow):
+    if (launches, routed, narrow) != (want, want_routed, want_narrow):
         raise AssertionError(f"conv3d_igemm launched {launches}, "
-                             f"{wgmma} wgmma, {narrow} narrow, not {want}, "
-                             f"{want_wgmma}, {want_narrow}")
+                             f"{routed} {hopper}, {narrow} narrow, not "
+                             f"{want}, {want_routed}, {want_narrow}")
     if tuple(out.shape) != CASE + (1,):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -441,8 +530,8 @@ def phase_serving(model):
     lo, hi = float(out.min()), float(out.max())
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"probabilities outside [0, 1]: {lo}, {hi}")
-    return dict(launches=launches, wgmma_launches=wgmma,
-                narrow_launches=narrow, warmup_s=warm,
+    return dict(launches=launches, **{f"{hopper}_launches": routed},
+                narrow_launches=narrow, counts=counts, warmup_s=warm,
                 seconds_per_case=secs, prob_range=[lo, hi], case=case)
 
 
@@ -521,33 +610,58 @@ def phase_window_batch(model_bf16, case):
     return rows, shapes
 
 
-def phase_path_shapes(shapes):
-    """Every conv shape of one window batch, kernel vs plain, timed."""
-    import torch
-
-    log("[main-path convs] one window batch of 4, bf16")
-    rows = []
-    for i, ((xs, cout), count) in enumerate(sorted(shapes.items())):
-        row = compare_conv(xs[0], xs[1:4], xs[4], cout, torch.bfloat16,
-                           seed=100 + i)
-        row["count"] = count
-        rows.append(row)
-    totals = {
-        k: sum(r[k] * r["count"] for r in rows)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms")
-    }
-    by_bytes = sum(r["bound_ms"] * r["count"] for r in rows
+def sum_rows(rows, count="count", err=("max_abs_err", "tol")):
+    """Times and bounds of ``rows`` summed by their ``count``, what bounds
+    the most of the summed bound, and the worst error against its
+    tolerance."""
+    keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_fma_ms", "igemm_ms") if k in rows[0]]
+    totals = {k: sum(r[k] * r[count] for r in rows) for k in keys}
+    by_bytes = sum(r["bound_ms"] * r[count] for r in rows
                    if r["bound_by"] == "bytes")
     totals["bound_by"] = (
         "bytes" if by_bytes > totals["bound_ms"] / 2 else "operations"
     )
-    worst = max(rows, key=lambda r: r["max_abs_err"] / r["tol"])
-    totals.update(max_abs_err=worst["max_abs_err"], tol=worst["tol"])
-    log(f"  per window batch ({CONVS_PER_FORWARD} convs): kernel "
-        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
-        f"F.conv3d {totals['library_ms']:.3f} ms, bound "
-        f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
-    return rows, totals
+    worst = max(rows, key=lambda r: r[err[0]] / r[err[1]])
+    totals.update(max_abs_err=worst[err[0]], tol=worst[err[1]],
+                  convs=sum(r[count] for r in rows))
+    return totals
+
+
+def phase_path_shapes(shapes):
+    """Every conv shape of one window batch, kernel vs plain, timed beside
+    the gathered-tile kernel, in bf16 and in f32; totals per dtype over all
+    31 and, in f32, over the 29 of the tf32 route."""
+    import torch
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        log(f"[main-path convs] one window batch of 4, {name}")
+        rows = []
+        for i, ((xs, cout), count) in enumerate(sorted(shapes.items())):
+            row = compare_conv(xs[0], xs[1:4], xs[4], cout, dtype,
+                               seed=100 + i, direct=True)
+            row["count"] = count
+            rows.append(row)
+        totals = sum_rows(rows)
+        log(f"  per window batch ({CONVS_PER_FORWARD} convs, {name}): "
+            f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} "
+            f"ms, F.conv3d {totals['library_ms']:.3f} ms, bound "
+            f"{totals['bound_ms']:.4f} ms ({totals['bound_by']}); the "
+            f"gathered-tile kernel {totals['igemm_ms']:.3f} ms")
+        out[name] = (rows, totals)
+    f32_rows = out["float32"][0]
+    tf32 = sum_rows([r for r in f32_rows if r["route"] == "tf32"])
+    if tf32["convs"] != CONVS_TF32_PER_FORWARD:
+        raise AssertionError(f"{tf32['convs']} f32 convs on the tf32 route")
+    log(f"  the {tf32['convs']} tf32-route convs of an f32 window batch: "
+        f"kernel {tf32['ms']:.3f} ms, F.conv3d (TF32 off) "
+        f"{tf32['library_ms']:.3f} ms, bound {tf32['bound_ms']:.4f} ms "
+        f"(3xTF32; FMA {tf32['bound_fma_ms']:.4f} ms), the gathered-tile "
+        f"kernel {tf32['igemm_ms']:.3f} ms, plain {tf32['plain_ms']:.3f} ms")
+    rows, totals = out["bfloat16"]
+    return rows, totals, f32_rows, out["float32"][1], tf32
 
 
 def phase_cli(model):
@@ -796,12 +910,6 @@ def phase_intensity():
     return rows
 
 
-def conv_dx_bound(b, spatial, cin, cout, dtype):
-    """Least time of the dx launch of a cin->cout conv: a cout->cin
-    stride-1 conv of the cotangent."""
-    return conv_bound(b, spatial, cout, cin, dtype)
-
-
 def weight_grad_bound(b, spatial, cin, cout, dtype):
     """Least time of dW for one stride-1 3x3x3 conv: x and the cotangent
     read once and dW written once over HBM bandwidth, against 2 V 27 Cin
@@ -928,7 +1036,8 @@ def dw_totals(rows):
 def phase_conv_backward(shapes):
     """dx/dW/dbias of the Function against autograd through the plain
     version at every stride-1 conv shape of the flagship forward (B=4),
-    the dx launches timed, and dW timed beside cuDNN's and its bound."""
+    the dx launches timed (bf16 and f32), and dW (bf16) timed beside
+    cuDNN's and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -963,11 +1072,15 @@ def phase_conv_backward(shapes):
                 out.extend(torch.autograd.grad(y, leaves, gy))
             torch.cuda.synchronize()
             errs, tols = [], []
-            # f32: summation order only, TF32 off (1e-3 of the scale);
-            # bf16: dx, dW and dbias each round one f32 sum on both sides,
-            # so one ulp, 2^-7 of the scale
-            rel = 1e-3 if dtype == torch.float32 else 2.0**-7
-            for part, gt, wt in zip(("dx", "dw", "db"), got, want):
+            # f32, TF32 off: dx is the forward's kernel (3xTF32 or narrow),
+            # held as phase 3 holds the forward, to 1e-5 of the scale, which
+            # one TF32 pass (3e-4) fails; dW (the patch product) and dbias
+            # differ in summation order only (1e-3 of the scale). bf16: dx,
+            # dW and dbias each round one f32 sum on both sides, so one
+            # ulp, 2^-7 of the scale
+            rels = ((1e-5, 1e-3, 1e-3) if dtype == torch.float32
+                    else (2.0**-7,) * 3)
+            for gt, wt, rel in zip(got, want, rels):
                 scale = max(float(wt.float().abs().max()), 1e-30)
                 err = float((gt.float() - wt.float()).abs().max())
                 errs.append(err)
@@ -977,20 +1090,17 @@ def phase_conv_backward(shapes):
                        dx_route=conv_route(dtype, cout, cin),
                        count=count, dx_count=dx_count,
                        errs=dict(zip(("dx", "dw", "db"), errs)),
-                       tols=dict(zip(("dx", "dw", "db"), tols)), ok=ok)
+                       tols=dict(zip(("dx", "dw", "db"), tols)), ok=ok,
+                       dx_err=errs[0], dx_tol=tols[0])
+            w_rot = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+            gc, wc = gy.permute(0, 4, 1, 2, 3), w_rot.permute(4, 3, 0, 1, 2)
+            row.update(
+                ms=time_ms(lambda: conv3d_igemm_dx(gy, w)),
+                plain_ms=time_ms(lambda: conv3d_igemm_reference(gy, w_rot)),
+                library_ms=time_ms(lambda: F.conv3d(gc, wc, padding=1)),
+                **conv_bounds(b, spatial, cout, cin, name),
+            )
             if dtype == torch.bfloat16:
-                w_rot = w.flip(0, 1, 2).transpose(3, 4).contiguous()
-                gc, wc = gy.permute(0, 4, 1, 2, 3), w_rot.permute(
-                    4, 3, 0, 1, 2)
-                bound, bound_by = conv_dx_bound(b, spatial, cin, cout, name)
-                row.update(
-                    ms=time_ms(lambda: conv3d_igemm_dx(gy, w)),
-                    plain_ms=time_ms(
-                        lambda: conv3d_igemm_reference(gy, w_rot)),
-                    library_ms=time_ms(
-                        lambda: F.conv3d(gc, wc, padding=1)),
-                    bound_ms=bound, bound_by=bound_by,
-                )
                 row.update(time_weight_grad(x, gy, w))
                 row["dw_bound_ms"], row["dw_bound_by"] = weight_grad_bound(
                     b, spatial, cin, cout, name)
@@ -998,27 +1108,26 @@ def phase_conv_backward(shapes):
                 f"(dx {row['dx_route']}): "
                 + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, e, t in
                             zip(("dx", "dw", "db"), errs, tols))
-                + (f"; dx kernel {row['ms']:.3f} ms, plain "
-                   f"{row['plain_ms']:.3f}, F.conv3d {row['library_ms']:.3f},"
-                   f" bound {row['bound_ms']:.4f} ({row['bound_by']})"
-                   if "ms" in row else ""))
+                + f"; dx kernel {row['ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f}, F.conv3d {row['library_ms']:.3f}, "
+                f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
             if "dw_ms" in row:
                 log_dw(row)
             if not ok:
                 raise AssertionError(f"conv backward disagrees: {row}")
             rows.append(row)
-    timed = [r for r in rows if "ms" in r]
-    totals = {
-        k: sum(r[k] * r["dx_count"] for r in timed)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms")
-    }
-    by_bytes = sum(r["bound_ms"] * r["dx_count"] for r in timed
-                   if r["bound_by"] == "bytes")
-    totals["bound_by"] = (
-        "bytes" if by_bytes > totals["bound_ms"] / 2 else "operations"
-    )
-    worst = max(timed, key=lambda r: r["errs"]["dx"] / r["tols"]["dx"])
-    totals.update(max_abs_err=worst["errs"]["dx"], tol=worst["tols"]["dx"])
+    timed = [r for r in rows if r["dtype"] == "bfloat16"]
+    totals = sum_rows(timed, "dx_count", ("dx_err", "dx_tol"))
+    # f32 (the CLI's default precision): all 30 dx launches, and the 29 on
+    # the tf32 route
+    f32 = [r for r in rows if r["dtype"] == "float32"]
+    totals["f32"] = sum_rows(f32, "dx_count", ("dx_err", "dx_tol"))
+    totals["f32_tf32"] = sum_rows(
+        [r for r in f32 if r["dx_route"] == "tf32"], "dx_count",
+        ("dx_err", "dx_tol"))
+    if totals["f32_tf32"]["convs"] != CONVS_DX_TF32_PER_STEP:
+        raise AssertionError(f"{totals['f32_tf32']['convs']} f32 dx "
+                             "launches on the tf32 route")
     # dW of every conv of a step (the stem's first too), and of those the
     # wgrad kernel takes
     totals["dw"] = dw_totals(timed)
@@ -1032,6 +1141,13 @@ def phase_conv_backward(shapes):
         f" {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
         f"F.conv3d {totals['library_ms']:.3f} ms, bound "
         f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
+    for key, what in (("f32", "all 30"), ("f32_tf32", "the 29 of the tf32 "
+                                          "route")):
+        t = totals[key]
+        log(f"  per training step, f32 dx ({what}): kernel {t['ms']:.3f} "
+            f"ms, plain {t['plain_ms']:.3f} ms, F.conv3d (TF32 off) "
+            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"(3xTF32; FMA {t['bound_fma_ms']:.4f} ms)")
     log_dw_totals(totals, "U-Net step's")
     return rows, totals
 
@@ -1082,7 +1198,8 @@ def narrow_step_row(path_rows, bwd_rows):
              if r["route"] == "narrow"]
     parts += [(r, r["dx_count"], r["errs"]["dx"], r["tols"]["dx"])
               for r in bwd_rows
-              if r["dx_route"] == "narrow" and "ms" in r and r["dx_count"]]
+              if r["dx_route"] == "narrow" and r["dtype"] == "bfloat16"
+              and r["dx_count"]]
     row = {k: sum(r[k] * n for r, n, _, _ in parts)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     by_bytes = sum(r["bound_ms"] * n for r, n, _, _ in parts
@@ -1105,10 +1222,9 @@ def _grad_norm(grads):
 def phase_training():
     """The flagship trainer on the card: the gradient repair check, the
     counted and timed steps, a loss that falls, and f32 parity with the
-    plain conv path."""
+    plain conv path, timed after a warm-up step as the bf16 steps are."""
     import torch
 
-    from adell_mri_torch.ops.kernels import conv as kconv
     from adell_mri_torch.tools.flagship import (
         BATCH,
         make_train_batch,
@@ -1154,9 +1270,11 @@ def phase_training():
                 if not k.startswith("flash_")}
     want = dict(conv3d_igemm=CONVS_PER_FORWARD * TIMED_STEPS,
                 conv3d_igemm_wgmma=CONVS_WGMMA_PER_FORWARD * TIMED_STEPS,
+                conv3d_igemm_tf32=0,
                 conv3d_igemm_narrow=CONVS_NARROW_PER_FORWARD * TIMED_STEPS,
                 conv3d_igemm_dx=CONVS_DX_PER_STEP * TIMED_STEPS,
                 conv3d_igemm_dx_wgmma=CONVS_DX_WGMMA_PER_STEP * TIMED_STEPS,
+                conv3d_igemm_dx_tf32=0,
                 conv3d_igemm_dx_narrow=CONVS_DX_NARROW_PER_STEP
                 * TIMED_STEPS,
                 conv3d_weight_grad=CONVS_WGRAD_PER_STEP * TIMED_STEPS,
@@ -1189,23 +1307,59 @@ def phase_training():
         raise AssertionError(f"loss did not fall: {before} -> {after}")
     del tr
 
-    # one f32 step on the kernel against the plain conv path
+    # f32, the CLI's default precision: a warm-up step, then timed steps
+    # with the counts reset just before; then one step's loss and gradients
+    # on the kernels against the plain conv path
     tr = make_trainer(0, None)
     params = [tr.state.params[k] for k in names]
 
-    def f32_counts():
-        return (kconv.conv3d_igemm.launches, kconv.conv3d_igemm_dx.launches,
-                kconv.conv3d_igemm.wgmma_launches
-                + kconv.conv3d_igemm_dx.wgmma_launches,
-                kconv.conv3d_igemm.narrow_launches
-                + kconv.conv3d_igemm_dx.narrow_launches,
-                kconv.conv3d_weight_grad.launches,
-                kconv.conv3d_weight_grad.patch_calls)
+    def f32_step():
+        aug = tr.transforms.augment(gen, batch)
+        tr.state, metrics = tr.train_step(tr.state, aug)
+        return metrics
 
-    counts = f32_counts()
+    t0 = time.perf_counter()
+    f32_step()
+    torch.cuda.synchronize()
+    f32_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    f32_secs, f32_losses = [], []
+    for _ in range(F32_TIMED_STEPS):
+        t0 = time.perf_counter()
+        metrics = f32_step()
+        torch.cuda.synchronize()
+        f32_secs.append(time.perf_counter() - t0)
+        f32_losses.append(float(metrics["loss"]))
+    f32_launches = {k: v for k, v in _launch_counts().items()
+                    if not k.startswith("flash_")}
+    f32_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    f32_med = sorted(f32_secs)[len(f32_secs) // 2]
+    f32_per_step = {k: v / F32_TIMED_STEPS for k, v in f32_launches.items()}
+    # f32 takes the tf32 route where bf16 takes the wgmma one; its stems
+    # and Cout = 1 dx the narrow one; its every dW the patch product
+    f32_want = {k: v // TIMED_STEPS * F32_TIMED_STEPS for k, v in want.items()}
+    f32_want.update(
+        conv3d_igemm_wgmma=0, conv3d_igemm_dx_wgmma=0,
+        conv3d_igemm_tf32=CONVS_TF32_PER_FORWARD * F32_TIMED_STEPS,
+        conv3d_igemm_dx_tf32=CONVS_DX_TF32_PER_STEP * F32_TIMED_STEPS,
+        conv3d_weight_grad=0,
+        conv3d_weight_grad_patches=CONVS_PER_FORWARD * F32_TIMED_STEPS)
+    log(f"[training] f32, B={BATCH} at 128x128x32, augmentation on: warm-up "
+        f"{f32_warm:.3f} s, then {', '.join(f'{s:.4f}' for s in f32_secs)} s "
+        f"per step ({BATCH / f32_med:.2f} volumes/s at the median); launches "
+        f"per step {f32_per_step}; losses {f32_losses}; peak memory "
+        f"{f32_peak_gb:.1f} GB")
+    if f32_launches != f32_want:
+        raise AssertionError(f"f32 launches {f32_launches}, want {f32_want}")
+    if not all(l == l and abs(l) < float("inf") for l in f32_losses):
+        raise AssertionError(f"non-finite f32 loss: {f32_losses}")
+
+    _reset_counts()
     loss_k, _ = tr.loss_and_metrics(tr.state.params, batch)
     grads_k = torch.autograd.grad(loss_k, params)
-    f32_launches = tuple(a - b for a, b in zip(f32_counts(), counts))
+    parity_launches = {k: v for k, v in _launch_counts().items()
+                       if not k.startswith("flash_")}
     with plain_kernels():
         loss_p, _ = tr.loss_and_metrics(tr.state.params, batch)
         grads_p = torch.autograd.grad(loss_p, params)
@@ -1220,19 +1374,21 @@ def phase_training():
     loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     norm_rel = abs(norm_k - norm_p) / norm_p
-    log(f"[training] f32 step, kernel ({f32_launches[0]} forward and "
-        f"{f32_launches[1]} dx launches, {f32_launches[5]} dW patch "
-        f"products) vs plain conv path: loss "
+    log(f"[training] f32 step, kernels ({parity_launches['conv3d_igemm']} "
+        f"forward and {parity_launches['conv3d_igemm_dx']} dx launches, "
+        f"{parity_launches['conv3d_igemm_tf32']} + "
+        f"{parity_launches['conv3d_igemm_dx_tf32']} on the tf32 route; "
+        f"{parity_launches['conv3d_weight_grad_patches']} dW patch products)"
+        f" vs plain conv path: loss "
         f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_rel:.2e}, "
         f"tol 1e-4), gradient norm {norm_k:.6g} vs {norm_p:.6g} (rel "
         f"{norm_rel:.2e}, tol 1e-3); largest gradient difference "
         f"{worst_rel:.2e} of the largest gradient")
-    # f32 never takes the wgmma route; its stems and Cout = 1 dx the narrow;
-    # its every dW the patch product
-    if f32_launches != (CONVS_PER_FORWARD, CONVS_DX_PER_STEP, 0,
-                        CONVS_NARROW_PER_FORWARD + CONVS_DX_NARROW_PER_STEP,
-                        0, CONVS_PER_FORWARD):
-        raise AssertionError(f"f32 step launches {f32_launches}")
+    one_step = {k: v // F32_TIMED_STEPS for k, v in f32_want.items()}
+    one_step["intensity_aug"] = 0
+    if parity_launches != one_step:
+        raise AssertionError(f"f32 step launches {parity_launches}, want "
+                             f"{one_step}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("f32 step disagrees with the plain conv path")
     del tr
@@ -1241,10 +1397,14 @@ def phase_training():
         launches=launches, launches_per_step=per_step, losses=losses,
         peak_memory_gb=peak_gb, n_params=len(names),
         fixed_batch_loss=[before, after],
+        f32=dict(warmup_s=f32_warm, seconds_per_step=f32_secs,
+                 volumes_per_s=BATCH / f32_med, launches=f32_launches,
+                 losses=f32_losses, peak_memory_gb=f32_peak_gb),
         f32_parity=dict(loss=loss_k, plain_loss=loss_p,
                         loss_rel=loss_rel, grad_norm=norm_k,
                         plain_grad_norm=norm_p, grad_norm_rel=norm_rel,
-                        worst_param_rel=worst_rel, launches=f32_launches),
+                        worst_param_rel=worst_rel,
+                        launches=parity_launches),
     )
 
 
@@ -1339,11 +1499,11 @@ def phase_train_cli():
 ATTENTION_PRODUCTS = {"fwd": 2, "bwd_dq": 3, "bwd_dkv": 4}
 
 
-def attention_bound(kind, b, h, nq, nkv, d, dtype):
+def attention_bound(kind, b, h, nq, nkv, d, dtype, peak=None):
     """Least time of one attention kernel: its bytes (every input read
     once, every output written once; the row statistics are f32) over HBM
-    bandwidth against 2 * Nq * Nkv * D FLOPs per product over the peak
-    rate of the dtype."""
+    bandwidth against 2 * Nq * Nkv * D FLOPs per product over ``peak`` (by
+    default the peak rate of the dtype)."""
     itemsize = 2 if dtype == "bfloat16" else 4
     q_t, kv_t, rows = b * h * nq * d, b * h * nkv * d, b * h * nq * 4
     nbytes = {
@@ -1353,7 +1513,7 @@ def attention_bound(kind, b, h, nq, nkv, d, dtype):
     }[kind]
     flops = ATTENTION_PRODUCTS[kind] * 2 * b * h * nq * nkv * d
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_flops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     bound_by = "bytes" if t_bytes > t_flops else "operations"
     return max(t_bytes, t_flops), bound_by
 
@@ -1461,8 +1621,12 @@ def compare_attention(shape, dtype, seed, timed):
             tol=min(checks["dk"][1], checks["dv"][1])),
     }
     for kind, t in times.items():
+        # f32 products at f32's accuracy: 3xTF32 at the least, FMA beside
         t["bound_ms"], t["bound_by"] = attention_bound(
-            kind, b, h, nq, nkv, d, name)
+            kind, b, h, nq, nkv, d, name, None if bf16 else PEAK_F32_TF32X3)
+        if not bf16:
+            t["bound_fma_ms"], t["bound_fma_by"] = attention_bound(
+                kind, b, h, nq, nkv, d, name)
         log(f"    {kind}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
             f"{t['library_ms']:.4f} ms ("
@@ -1510,13 +1674,13 @@ def attention_twice(shape, seed):
 
 
 def phase_attention():
-    """Phase 10. Returns every row and the timed bf16 rows at the serving
-    (B=1) and training (B=2) shapes."""
+    """Phase 10. Returns every row and the timed rows at the serving (B=1)
+    and training (B=2) shapes, by dtype."""
     import torch
 
     log("[attention vs plain] UNETR's shapes, a ragged one, head dim 32, "
         "the edges of the 64-row tiles, B x H of 1 x 1 and 4 x 8")
-    rows, main = [], {}
+    rows, main = [], {"bfloat16": {}, "float32": {}}
     main_shape = (UNETR_HEADS, UNETR_TOKENS, UNETR_TOKENS, UNETR_HEAD_DIM)
     cases = [
         ((1,) + main_shape, True), ((2,) + main_shape, True),
@@ -1539,8 +1703,8 @@ def phase_attention():
         for dtype in (torch.bfloat16, torch.float32):
             row = compare_attention(shape, dtype, 300 + i, timed)
             rows.append(row)
-            if timed and dtype == torch.bfloat16:
-                main[shape[0]] = row["times"]
+            if timed:
+                main[row["dtype"]][shape[0]] = row["times"]
     rows.append(attention_twice((2,) + main_shape, 400))
     rows.append(attention_twice((1, 3, 2050, 2311, 32), 401))
     return rows, main
@@ -1557,9 +1721,11 @@ def _launch_counts():
         flash_attention_bwd_dkv=ka.flash_attention_bwd_dkv.launches,
         conv3d_igemm=kconv.conv3d_igemm.launches,
         conv3d_igemm_wgmma=kconv.conv3d_igemm.wgmma_launches,
+        conv3d_igemm_tf32=kconv.conv3d_igemm.tf32_launches,
         conv3d_igemm_narrow=kconv.conv3d_igemm.narrow_launches,
         conv3d_igemm_dx=kconv.conv3d_igemm_dx.launches,
         conv3d_igemm_dx_wgmma=kconv.conv3d_igemm_dx.wgmma_launches,
+        conv3d_igemm_dx_tf32=kconv.conv3d_igemm_dx.tf32_launches,
         conv3d_igemm_dx_narrow=kconv.conv3d_igemm_dx.narrow_launches,
         conv3d_weight_grad=kconv.conv3d_weight_grad.launches,
         conv3d_weight_grad_patches=kconv.conv3d_weight_grad.patch_calls,
@@ -1578,6 +1744,7 @@ def _reset_counts():
         fn.launches = 0
     for fn in (kconv.conv3d_igemm, kconv.conv3d_igemm_dx):
         fn.wgmma_launches = 0
+        fn.tf32_launches = 0
         fn.narrow_launches = 0
     kconv.conv3d_weight_grad.launches = 0
     kconv.conv3d_weight_grad.patch_calls = 0
@@ -1706,10 +1873,10 @@ def phase_unetr_training():
     per_step = dict(
         flash_attention_fwd=UNETR_BLOCKS, flash_attention_bwd_dq=UNETR_BLOCKS,
         flash_attention_bwd_dkv=UNETR_BLOCKS, conv3d_igemm=UNETR_CONVS,
-        conv3d_igemm_wgmma=UNETR_CONVS_WGMMA,
+        conv3d_igemm_wgmma=UNETR_CONVS_WGMMA, conv3d_igemm_tf32=0,
         conv3d_igemm_narrow=UNETR_CONVS_NARROW,
         conv3d_igemm_dx=UNETR_CONVS_DX,
-        conv3d_igemm_dx_wgmma=UNETR_CONVS_DX_WGMMA,
+        conv3d_igemm_dx_wgmma=UNETR_CONVS_DX_WGMMA, conv3d_igemm_dx_tf32=0,
         conv3d_igemm_dx_narrow=0, conv3d_weight_grad=UNETR_CONVS_WGRAD,
         conv3d_weight_grad_patches=UNETR_CONVS_WGRAD_PATCHES,
         intensity_aug=1,
@@ -1788,11 +1955,14 @@ def phase_unetr_training():
         f"{loss_rel:.2e}, tol 1e-4), gradient norm {norm_k:.6g} vs "
         f"{norm_p:.6g} (rel {norm_rel:.2e}, tol 1e-3); largest gradient "
         f"difference {worst_rel:.2e} of the largest gradient")
-    # f32 never takes the wgmma route, and its dW the patch product; the
-    # image's 1->16 takes the narrow one
+    # f32 takes the tf32 route where bf16 takes the wgmma one, and its dW
+    # the patch product; the image's 1->16 takes the narrow one
     if f32_launches != {**per_step, "intensity_aug": 0,
                         "conv3d_igemm_wgmma": 0,
-                        "conv3d_igemm_dx_wgmma": 0, "conv3d_weight_grad": 0,
+                        "conv3d_igemm_dx_wgmma": 0,
+                        "conv3d_igemm_tf32": UNETR_CONVS_TF32,
+                        "conv3d_igemm_dx_tf32": UNETR_CONVS_DX_TF32,
+                        "conv3d_weight_grad": 0,
                         "conv3d_weight_grad_patches": UNETR_CONVS}:
         raise AssertionError(f"f32 step launches {f32_launches}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
@@ -1929,8 +2099,13 @@ def main():
     kernel_rows = phase_kernels()
     model = make_model(0, torch.bfloat16)
     serving = phase_serving(model)
-    window_rows, shapes = phase_window_batch(model, serving.pop("case"))
-    path_rows, totals = phase_path_shapes(shapes)
+    case = serving.pop("case")
+    # the CLI's default precision, f32
+    serving_f32 = phase_serving(make_model(0, torch.float32), case)
+    serving_f32.pop("case")
+    window_rows, shapes = phase_window_batch(model, case)
+    path_rows, totals, f32_path_rows, f32_totals, tf32_totals = (
+        phase_path_shapes(shapes))
     cli = phase_cli(model)
     intensity_rows = phase_intensity()
     bwd_rows, dx_totals = phase_conv_backward(shapes)
@@ -1951,20 +2126,23 @@ def main():
             "library_ms": library_ms, "per": per,
         }
 
-    # launches of each main path, counted from 0 just before it was driven
+    # launches of each main path, counted from 0 just before it was driven;
+    # the f32 paths are the CLI's default precision
     by_path = {
-        "unet_serving": {"conv3d_igemm": serving["launches"],
-                         "conv3d_igemm_wgmma": serving["wgmma_launches"],
-                         "conv3d_igemm_narrow": serving["narrow_launches"]},
+        "unet_serving": serving["counts"],
+        "unet_serving_f32": serving_f32["counts"],
         "unet_training": training["launches"],
+        "unet_training_f32": training["f32"]["launches"],
         "unetr_serving": unetr_serving["launches"],
         "unetr_training": unetr_training["launches"],
+        "unetr_training_f32": unetr_training["f32_parity"]["launches"],
     }
 
     def launches_of(name):
         paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         return sum(paths.values()), paths
 
+    att16 = attention["bfloat16"]
     k3, k2 = intensity_rows["float32"]["k3"], intensity_rows["float32"]["k2"]
     flash = "adell_mri_torch/csrc/flash_attention.cu"
     pallas_attention = "adell_mri_tpu/ops/pallas/attention.py"
@@ -1973,14 +2151,16 @@ def main():
               "adell_mri_tpu/ops/pallas/conv.py:60",
               launches_of("conv3d_igemm")[0], totals,
               "window batch of 4 at 128x128x32 (the U-Net's 31 convs), "
-              "bf16; launches: the U-Net's served case and 5 training "
-              "steps, UNETR's served case and 3 training steps",
+              "bf16; launches: the U-Net's served case in bf16 and f32, 5 "
+              "bf16 and 3 f32 training steps, UNETR's served case, 3 "
+              "training steps and its f32 step, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
               launches_of("conv3d_igemm_dx")[0], dx_totals,
               "the 30 dx launches of one U-Net training step (B=4 at "
-              "128x128x32), bf16; library: F.conv3d of the cotangent",
+              "128x128x32), bf16; library: F.conv3d of the cotangent; "
+              "launches: every route",
               dx_totals["library_ms"]),
         entry("intensity_aug_batch", "adell_mri_torch/csrc/intensity_aug.cu",
               "adell_mri_tpu/ops/pallas/intensity.py:155",
@@ -1996,43 +2176,48 @@ def main():
               "computes it", None),
         entry("flash_attention_fwd", flash,
               f"{pallas_attention}:49 and :151",
-              launches_of("flash_attention_fwd")[0], attention[1]["fwd"],
+              launches_of("flash_attention_fwd")[0], att16[1]["fwd"],
               "one call at q, k, v [1,8,2048,64] bf16 (UNETR serving; 8 per "
               "case; training runs it at B=2, 8 per step); library: "
               "F.scaled_dot_product_attention forward",
-              attention[1]["fwd"]["library_ms"]),
+              att16[1]["fwd"]["library_ms"]),
         entry("flash_attention_bwd_dq", flash, f"{pallas_attention}:300",
               launches_of("flash_attention_bwd_dq")[0],
-              attention[2]["bwd_dq"],
+              att16[2]["bwd_dq"],
               "one call at [2,8,2048,64] bf16 (UNETR training; 8 per step); "
               "library: F.scaled_dot_product_attention forward + backward, "
               "which also computes dK and dV; library_bwd_ms: that minus "
               "its forward",
-              attention[2]["bwd_dq"]["library_ms"]),
+              att16[2]["bwd_dq"]["library_ms"]),
         entry("flash_attention_bwd_dkv", flash, f"{pallas_attention}:355",
               launches_of("flash_attention_bwd_dkv")[0],
-              attention[2]["bwd_dkv"],
+              att16[2]["bwd_dkv"],
               "one call at [2,8,2048,64] bf16 (UNETR training; 8 per step); "
               "library: F.scaled_dot_product_attention forward + backward, "
               "which also computes dQ; library_bwd_ms: that minus its "
               "forward",
-              attention[2]["bwd_dkv"]["library_ms"]),
+              att16[2]["bwd_dkv"]["library_ms"]),
     ]
     # dQ and dK/dV together are the library's backward alone
     for k in kernels[5:7]:
-        k["library_bwd_ms"] = attention[2][
+        k["library_bwd_ms"] = att16[2][
             k["name"].replace("flash_attention_", "")]["library_bwd_ms"]
     for k in kernels:
         k["launches_by_path"] = launches_of({
             "intensity_aug_batch": "intensity_aug",
         }.get(k["name"], k["name"]))[1]
-    # K1's launches by route: the wgmma kernel, the narrow one and the
-    # gathered-tile one
+    # K1's launches by route: the two wgmma kernels (bf16 and 3xTF32), the
+    # narrow one and the gathered-tile one, which is also timed straight at
+    # the 29 bf16 convs the wgmma route now takes
     for k in kernels[:2]:
-        wgmma = launches_of(k["name"] + "_wgmma")[0]
-        narrow = launches_of(k["name"] + "_narrow")[0]
-        k["launches_by_route"] = {"wgmma": wgmma, "narrow": narrow,
-                                  "igemm": k["launches"] - wgmma - narrow}
+        routes = {r: launches_of(f"{k['name']}_{r}")[0]
+                  for r in ("wgmma", "tf32", "narrow")}
+        routes["igemm"] = k["launches"] - sum(routes.values())
+        k["launches_by_route"] = routes
+    wgmma_totals = sum_rows([r for r in path_rows if r["route"] == "wgmma"])
+    kernels[0]["igemm_bf16"] = {
+        key: wgmma_totals[key] for key in ("convs", "igemm_ms", "ms",
+                                           "library_ms", "bound_ms")}
     # K2 is the B=1 call of K3's kernel: no main path runs it at B=1
     kernels[3]["launches_by_path"] = {
         "intensity_phase": kernels[3]["launches"]}
@@ -2074,11 +2259,64 @@ def main():
     kernels[-1]["unetr_step"] = {
         part: {k: unetr_training["dw_per_step"][part][k] for k in step_keys}
         for part in ("dw_wgmma", "dw")}
+    # K1 in f32 (the CLI's default precision): the 3xTF32 kernel, forward
+    # and dx, against the gathered-tile FMA kernel timed straight at the
+    # same convs
+    tf32_keys = ("convs", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_fma_ms", "igemm_ms", "max_abs_err", "tol")
+    dx_tf32 = dx_totals["f32_tf32"]
+    kernels.append(entry(
+        "conv3d_wgmma_tf32x3", "adell_mri_torch/csrc/conv3d_tf32.cu",
+        "adell_mri_tpu/ops/pallas/conv.py:60",
+        launches_of("conv3d_igemm_tf32")[0]
+        + launches_of("conv3d_igemm_dx_tf32")[0], tf32_totals,
+        "the 29 tf32-route convs of an f32 window batch of 4 at 128x128x32 "
+        "(3xTF32: bound_ms at 494.7/3 TFLOP/s, bound_fma_ms at 67); "
+        "library: F.conv3d with TF32 off; igemm_ms: the gathered-tile FMA "
+        "kernel (conv3d_igemm_f32_kernel) at the same convs; dx_per_step: "
+        "the 29 "
+        "tf32-route dx launches of an f32 U-Net step; launches: forward and "
+        "dx of the f32 served case, 3 f32 U-Net steps and UNETR's f32 step",
+        tf32_totals["library_ms"]))
+    kernels[-1].update(bound_fma_ms=tf32_totals["bound_fma_ms"],
+                       igemm_ms=tf32_totals["igemm_ms"],
+                       dx_per_step={k: dx_tf32[k] for k in tf32_keys
+                                    if k != "igemm_ms"})
+    kernels[-1]["launches_by_path"] = {
+        p: c.get("conv3d_igemm_tf32", 0) + c.get("conv3d_igemm_dx_tf32", 0)
+        for p, c in by_path.items()}
+    # the f32 attention kernels, on UNETR's f32 step (B=1)
+    att32 = attention["float32"]
+    for name, what, b, lines in (
+            ("fwd", "forward", 1, ":49 and :151"), ("bwd_dq", "dQ", 2, ":300"),
+            ("bwd_dkv", "dK/dV", 2, ":355")):
+        t = att32[b][name]
+        kernels.append(entry(
+            f"flash_attention_{name}_f32", flash,
+            f"{pallas_attention}{lines}",
+            launches_of(f"flash_attention_{name}")[1].get(
+                "unetr_training_f32", 0), t,
+            f"the f32 {what} kernel (plain FMA) at [{b},8,2048,64]; bound_ms "
+            "at 3xTF32, bound_fma_ms at 67 TFLOP/s; launches: UNETR's f32 "
+            "step; library: F.scaled_dot_product_attention in f32"
+            + ("" if name == "fwd" else " forward + backward"),
+            t["library_ms"]))
+        kernels[-1]["bound_fma_ms"] = t["bound_fma_ms"]
+        kernels[-1]["launches_by_path"] = {
+            "unetr_training_f32": kernels[-1]["launches"]}
+        if name != "fwd":
+            kernels[-1]["library_bwd_ms"] = t["library_bwd_ms"]
+    # the bf16 attention entries count the bf16 paths only
+    for k in kernels[4:7]:
+        k["launches_by_path"].pop("unetr_training_f32", None)
+        k["launches"] = sum(k["launches_by_path"].values())
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, build_s=build_s,
         kernel_vs_plain=kernel_rows, serving=serving,
-        window_batch=window_rows, main_path_convs=path_rows,
+        serving_f32=serving_f32, window_batch=window_rows,
+        main_path_convs=path_rows, main_path_convs_f32=f32_path_rows,
+        window_batch_f32=f32_totals, window_batch_tf32=tf32_totals,
         cli=cli, intensity=intensity_rows, conv_backward=bwd_rows,
         conv_dx_per_step=dx_totals, training=training, train_cli=train_cli,
         attention=attention_rows, unetr_serving=unetr_serving,

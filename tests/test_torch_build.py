@@ -83,6 +83,30 @@ def test_wgrad_entry_points_have_signatures():
         build.CSRC_DIR / "conv3d_wgrad.cu").read_text()
 
 
+def test_tf32_entry_points_have_signatures():
+    """The 3xTF32 conv's launcher (x, the prepared weight, bias, out, then
+    B, D, H, W, Cin, Cout and the box, then the stream: the bf16 wgmma
+    launcher's arguments) and its limits query (Cin, Cout and the output
+    array of three: voxels a box, most halo rows, Cout_pad) live in their
+    own source, include ``wgmma.cuh``, and are bound with the arguments it
+    declares."""
+    import ctypes
+
+    assert "conv3d_tf32.cu" in {p.name for p in build._sources()}
+    declared = _declared(r"adell_conv3d_wgmma_tf32x3\w*")
+    assert declared == {"adell_conv3d_wgmma_tf32x3": 14,
+                        "adell_conv3d_wgmma_tf32x3_limits": 3}
+    sig = build._SINGLE["adell_conv3d_wgmma_tf32x3"]
+    assert sig == build._SINGLE["adell_conv3d_wgmma_bf16"]
+    assert sig[:4] == [ctypes.c_void_p] * 4 and sig[-1] is ctypes.c_void_p
+    assert sig[4:13] == [ctypes.c_int] * 9
+    limits = build._SINGLE["adell_conv3d_wgmma_tf32x3_limits"]
+    assert limits == [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    source = (build.CSRC_DIR / "conv3d_tf32.cu").read_text()
+    assert '#include "wgmma.cuh"' in source
+    assert "cvt.rna.tf32.f32" in source
+
+
 def test_paired_entry_points_have_signatures():
     """The conv's entry points with a bf16 and an f32 twin are bound with as
     many arguments as the source declares for both: the narrow launcher

@@ -253,15 +253,34 @@ def test_conv_route(dtype, cin, cout):
     """Either dtype with one side of at most 4 channels and the other of at
     most 64 takes the narrow kernel (the stems, the Cout = 1 dx); of the
     rest, bf16 with Cin a multiple of 16 and Cout of 8 takes the wgmma
-    kernel, and the others (Cin 8, Cin 1 with Cout 128, wide f32) the
+    kernel, f32 with Cin and Cout multiples of 8 the 3xTF32 kernel, and the
+    others (bf16 Cin 8, Cin 1 with Cout 128, Cout 3 beside a wide Cin) the
     igemm kernel."""
     if min(cin, cout) <= 4 and max(cin, cout) <= 64:
         want = "narrow"
     elif dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
         want = "wgmma"
+    elif dtype == torch.float32 and cin % 8 == 0 and cout % 8 == 0:
+        want = "tf32"
     else:
         want = "igemm"
     assert kconv.conv_route(dtype, cin, cout) == want
+
+
+@pytest.mark.parametrize("cin,cout,want", [
+    (8, 8, "tf32"), (16, 16, "tf32"), (32, 32, "tf32"), (256, 256, "tf32"),
+    (1, 32, "narrow"), (32, 1, "narrow"), (3, 32, "narrow"),
+    (12, 16, "igemm"), (8, 12, "igemm"),
+])
+def test_conv_route_f32_classes(cin, cout, want):
+    """f32, the CLI's default precision: every conv of the flagship's main
+    paths that is not narrow takes the 3xTF32 kernel; widths that are not
+    multiples of 8 stay on the igemm kernel; bf16 routes as before."""
+    assert kconv.conv_route(torch.float32, cin, cout) == want
+    bf16 = {(8, 8): "igemm", (16, 16): "wgmma", (32, 32): "wgmma",
+            (256, 256): "wgmma", (12, 16): "igemm", (8, 12): "igemm"}
+    assert kconv.conv_route(torch.bfloat16, cin, cout) == bf16.get(
+        (cin, cout), "narrow")
 
 
 def _box_cover(d, h, w, box):
@@ -458,6 +477,338 @@ def test_wgmma_route_counts_nothing_on_the_cpu():
     y.float().sum().backward()
     assert (kconv.conv3d_igemm.wgmma_launches,
             kconv.conv3d_igemm_dx.wgmma_launches) == before
+
+
+# -- the 3xTF32 route: rounding, weight, fragments and decomposition -------
+
+def _tf32_np(a):
+    """``cvt.rna.tf32.f32`` in numpy: half a TF32 ulp added to the
+    magnitude's bits, the low 13 bits cleared."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` keeps 11 significant bits, rounding to nearest with
+    ties away from zero (so a tie of either sign grows in magnitude), with
+    a carry into the exponent, and leaves TF32 values as they are."""
+    one = 1.0
+    ulp = 2.0**-10  # TF32's ulp at 1
+    vals = np.array([
+        one, -one, one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2**-23,
+        one + 3 * ulp / 2, 2 - ulp / 2, 3.0e-39, 0.0, -0.0, 1e30,
+        np.float32(np.pi), -np.float32(np.e),
+    ], np.float32)
+    want = np.array([
+        one, -one, one + ulp, -(one + ulp), one, one + 2 * ulp, 2.0,
+        _tf32_np(np.array([3.0e-39], np.float32))[0], 0.0, -0.0,
+        _tf32_np(np.array([1e30], np.float32))[0],
+        np.float32(3.140625), -np.float32(2.71875),
+    ], np.float32)
+    got = kconv.tf32_round(torch.from_numpy(vals)).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    rng = np.random.default_rng(20)
+    r = (rng.normal(size=4096) * 10.0 ** rng.integers(-30, 30, 4096)
+         ).astype(np.float32)
+    got = kconv.tf32_round(torch.from_numpy(r)).numpy()
+    assert np.array_equal(got, _tf32_np(r))
+    assert not (got.view(np.uint32) & 0x1FFF).any()
+    # within half a TF32 ulp: 2^-11 of the magnitude
+    assert (np.abs(got - r) <= 2.0**-11 * np.abs(r)).all()
+    assert np.array_equal(kconv.tf32_round(torch.from_numpy(got)).numpy(),
+                          got)
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (8, 24), (32, 256),
+                                      (48, 40)])
+def test_tf32_split_weight_layout_and_sum(cin, cout):
+    """The prepared weight is [2, 27, Cout_pad, Cin], K-major (row co of tap
+    t is w[t, :, co]); big and small are TF32 values whose sum is w within
+    2^-21 of its magnitude; rows past Cout are zero. For dx the wrapper
+    prepares the flipped, channel-swapped weight, whose rows are the input
+    channels of w in reversed tap order."""
+    _, w, _ = _inputs(21, (1, 2, 2, 2, cin), cout)
+    cout_pad = kconv.tf32_plan(cin, cout).cout_pad
+    assert cout_pad % 16 == 0 and cout <= cout_pad < cout + 64
+    wk = kconv.tf32_split_weight(torch.from_numpy(w), cout_pad).numpy()
+    assert wk.shape == (2, 27, cout_pad, cin)
+    big, small = wk[:, :, :cout]
+    want = w.reshape(27, cin, cout).transpose(0, 2, 1)
+    assert not (wk.view(np.uint32) & 0x1FFF).any()
+    assert np.array_equal(big, _tf32_np(want))
+    assert (np.abs(big.astype(np.float64) + small - want)
+            <= 2.0**-21 * np.abs(want)).all()
+    assert not wk[:, :, cout:].any()
+    # dx: [27, Cin_pad, Cout] rows are w's input channels, taps reversed
+    w_rot = torch.from_numpy(w).flip(0, 1, 2).transpose(3, 4).contiguous()
+    cin_pad = kconv.tf32_plan(cout, cin).cout_pad
+    dk = kconv.tf32_split_weight(w_rot, cin_pad).numpy()
+    assert dk.shape == (2, 27, cin_pad, cout)
+    assert np.array_equal(dk[0, :, :cin], _tf32_np(w.reshape(27, cin, cout)
+                                                   [::-1]))
+
+
+def test_same_conv_weights_prepares_each_weight_once():
+    """Inside a ``same_conv_weights`` block the 3xTF32 route prepares a
+    weight once and hands the same tensor to every launch that uses it,
+    with ``tf32_split_weight``'s bits; a block opened inside shares it;
+    outside any block, and after the outermost one ends, each launch
+    prepares its own."""
+    _, w1, _ = _inputs(22, (1, 2, 2, 2, 16), 24)
+    _, w2, _ = _inputs(23, (1, 2, 2, 2, 16), 24)
+    w1, w2 = torch.from_numpy(w1), torch.from_numpy(w2)
+    want1 = kconv.tf32_split_weight(w1, 32)
+    assert kconv._tf32_weight(w1, 32) is not kconv._tf32_weight(w1, 32)
+    with kconv.same_conv_weights():
+        first = kconv._tf32_weight(w1, 32)
+        assert torch.equal(first, want1)
+        assert kconv._tf32_weight(w1, 32) is first
+        with kconv.same_conv_weights():
+            assert kconv._tf32_weight(w1, 32) is first
+            other = kconv._tf32_weight(w2, 32)
+        assert kconv._tf32_weight(w2, 32) is other
+        assert torch.equal(other, kconv.tf32_split_weight(w2, 32))
+    assert kconv._tf32_weights is None
+    assert kconv._tf32_weight(w1, 32) is not first
+
+
+def test_sliding_window_opens_same_conv_weights():
+    """The sliding window runs its micro-batches inside one
+    ``same_conv_weights`` block, and closes it when done."""
+    from adell_mri_torch.inference.sliding_window import (
+        sliding_window_inference,
+    )
+
+    seen = []
+
+    def fn(batch):
+        seen.append(kconv._tf32_weights is not None)
+        return batch
+
+    vol = torch.zeros((8, 8, 4, 1))
+    sliding_window_inference(fn, vol, (4, 4, 4), 0.5, batch_size=2)
+    assert len(seen) > 1 and all(seen)
+    assert kconv._tf32_weights is None
+
+
+def test_ldmatrix_gives_the_tf32_a_fragment():
+    """The kernel's A operand: ``ldmatrix.x4`` (b16, not transposed) with
+    lane l naming row (l % 8) + 8 ((l / 8) % 2) of the warp's 16 and the
+    16-byte half l / 16 of a k-step's 32 bytes, as the bf16 kernel does.
+    Read as f32, what lane l gets in register i is element (l / 4 + 8 (i %
+    2), l % 4 + 4 (i / 2)) of the 16 x 8 step, which is wgmma m64nNk8's
+    TF32 A fragment (the PTX ISA's figure for .tf32 A in registers)."""
+    step = np.arange(16 * 8, dtype=np.float32).reshape(16, 8) + 0.5
+    rows = step.view(np.uint16).reshape(16, 16)  # each row: 16 b16 values
+    for lane in range(32):
+        for i in range(4):
+            # matrix i takes its 8 row addresses from lanes 8i .. 8i + 7
+            src = 8 * i + lane // 4
+            row, half = src % 8 + 8 * (src // 8 % 2), src // 16
+            b16 = rows[row, 8 * half + 2 * (lane % 4):][:2]
+            got = b16.view(np.float32)[0]
+            assert got == step[lane // 4 + 8 * (i % 2), lane % 4 + 4 * (i // 2)]
+
+
+def _tf32_limits_lib():
+    """Stands in for the library's ``adell_conv3d_wgmma_tf32x3_limits``,
+    answering with the Python mirror of the shipped build."""
+
+    class Lib:
+        calls = 0
+
+        def adell_conv3d_wgmma_tf32x3_limits(self, cin, cout, out):
+            Lib.calls += 1
+            plan = kconv.tf32_plan(cin, cout)
+            out[0], out[1], out[2] = (plan.voxels, plan.max_halo_rows,
+                                      plan.cout_pad)
+            return 0
+
+    return Lib()
+
+
+def emulate_tf32x3_conv(x, w, bias, passes=3):
+    """The 3xTF32 kernel's arithmetic in numpy: the weight as the wrapper
+    prepares it (``tf32_split_weight``); for each box of ``plan_box`` within
+    the kernel's limits and each channel chunk, the halo (zeros outside the
+    volume) is cut once; each of the 27 taps takes the halo rows shifted by
+    the tap, 8 channels (a k-step) at a time, splits them into TF32 big and
+    small parts (``cvt.rna``) and adds small * big, big * small and big *
+    big (f32 sums); ``passes=1`` is one TF32 product, big * big. Ragged
+    boxes are computed and cropped."""
+    b, d, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    plan = kconv.tf32_plan(cin, cout)
+    voxels, rows, cout_pad = kconv.tf32_limits(_tf32_limits_lib(), cin, cout)
+    tz, ty, tx = kconv.plan_box(d, h, wd, voxels, rows)
+    wk = kconv.tf32_split_weight(torch.from_numpy(w), cout_pad).numpy()
+    ck = plan.ck
+    nz, ny, nx = -(-d // tz), -(-h // ty), -(-wd // tx)
+    xp = np.zeros((b, nz * tz + 2, ny * ty + 2, nx * tx + 2, cin), np.float32)
+    xp[:, 1:d + 1, 1:h + 1, 1:wd + 1] = x
+    out = np.zeros((b, nz * tz, ny * ty, nx * tx, cout_pad), np.float32)
+    for bi in range(b):
+        for z0 in range(0, nz * tz, tz):
+            for y0 in range(0, ny * ty, ty):
+                for x0 in range(0, nx * tx, tx):
+                    acc = np.zeros((tz * ty * tx, cout_pad), np.float32)
+                    for c0 in range(0, cin, ck):
+                        halo = xp[bi, z0:z0 + tz + 2, y0:y0 + ty + 2,
+                                  x0:x0 + tx + 2, c0:c0 + ck]
+                        for t in range(27):
+                            dz, dy, dx = t // 9, t // 3 % 3, t % 3
+                            a = halo[dz:dz + tz, dy:dy + ty,
+                                     dx:dx + tx].reshape(-1, ck)
+                            for k0 in range(c0, c0 + ck, 8):
+                                a8 = a[:, k0 - c0:k0 - c0 + 8]
+                                a_big = _tf32_np(a8)
+                                a_small = _tf32_np(a8 - a_big)
+                                b_big = wk[0, t, :, k0:k0 + 8].T
+                                b_small = wk[1, t, :, k0:k0 + 8].T
+                                if passes == 3:
+                                    acc += a_small @ b_big
+                                    acc += a_big @ b_small
+                                acc += a_big @ b_big
+                    out[bi, z0:z0 + tz, y0:y0 + ty, x0:x0 + tx] = (
+                        acc.reshape(tz, ty, tx, cout_pad))
+    return out[:, :d, :h, :wd, :cout] + bias
+
+
+def _pallas_interpret_conv(x, w):
+    """The TPU kernel (``_kernel``) run in interpret mode on the CPU, f32
+    at the test session's pinned matmul precision."""
+    real = pconv_mod.pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return real(*args, **kwargs)
+
+    pconv_mod.pl.pallas_call = patched
+    try:
+        got = pconv_mod.conv3d_pallas_raw(jnp.asarray(x), jnp.asarray(w))
+    finally:
+        pconv_mod.pl.pallas_call = real
+    assert got is not None, "the TPU kernel does not take this shape"
+    return np.asarray(got)
+
+
+#: (x shape, Cout): ragged volumes with one chunk of 16 and three chunks of
+#: 8 beside an N block padded from 24 to 32 (the JAX conv: XLA's, which the
+#: TPU kernel's gate leaves them to), and a shape the TPU kernel takes (a
+#: 128-wide axis), run through it in interpret mode
+TF32_SHAPES = [((1, 7, 9, 5, 16), 16), ((2, 3, 5, 7, 8), 24),
+               ((1, 3, 128, 8, 8), 16)]
+
+
+def _tf32_case(x_shape, cout):
+    x, w, b = _inputs(22, x_shape, cout)
+    want = kconv.conv3d_igemm_reference(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)
+    ).numpy()
+    if x_shape[2] % 128 == 0:
+        jax_want = _pallas_interpret_conv(x, w) + b
+    else:
+        jax_want = np.asarray(conv3d_xla(jnp.asarray(x), jnp.asarray(w))) + b
+    return x, w, b, want, jax_want
+
+
+@pytest.mark.parametrize("x_shape,cout", TF32_SHAPES, ids=str)
+def test_tf32x3_emulation_matches_reference_and_jax(x_shape, cout):
+    """Three TF32 products keep f32's accuracy: within 1e-5 of the output
+    scale of the plain version and of the JAX conv (f32 sums of nearly the
+    same products in other orders)."""
+    x, w, b, want, jax_want = _tf32_case(x_shape, cout)
+    got = emulate_tf32x3_conv(x, w, b)
+    for ref in (want, jax_want):
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("x_shape,cout", TF32_SHAPES, ids=str)
+def test_one_tf32_pass_fails_the_bound(x_shape, cout):
+    """The check tells the two apart: one TF32 product (what cuDNN's f32
+    conv does by default) misses 1e-5 of the scale by an order of
+    magnitude and more."""
+    x, w, b, want, jax_want = _tf32_case(x_shape, cout)
+    got = emulate_tf32x3_conv(x, w, b, passes=1)
+    for ref in (want, jax_want):
+        assert np.abs(got - ref).max() > 1e-5 * np.abs(ref).max()
+
+
+def test_tf32x3_emulation_of_dx_matches_plain():
+    """dx is the same kernel on the cotangent and the flipped,
+    channel-swapped weight (24 -> 8 here: three chunks of 8)."""
+    x, w, _ = _inputs(23, (2, 3, 5, 7, 8), 24)
+    g = np.random.default_rng(24).normal(size=(2, 3, 5, 7, 24)).astype(
+        np.float32)
+    w_rot = np.ascontiguousarray(w[::-1, ::-1, ::-1].transpose(0, 1, 2, 4, 3))
+    got = emulate_tf32x3_conv(g, w_rot, np.zeros(8, np.float32))
+    want = kconv.conv3d_igemm_dx(torch.from_numpy(g),
+                                 torch.from_numpy(w)).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_tf32_plan_by_hand():
+    """The shipped build's layout, worked out by hand: 32->32 has one chunk
+    of 32 (144-byte halo rows) and four 8 KB stages of one tap (big and
+    small slabs of 32 rows of 128 bytes); 256->256 eight chunks, four N
+    blocks of 64 and four 16 KB stages of one tap beside two halo buffers;
+    32->16 one tap a stage too; 16->16 and 8->24 three; 8->8 nine, as many
+    as the ring's lead allows; 8->24 three chunks of 8 (48-byte rows) and
+    Cout padded to 32."""
+    assert kconv.tf32_plan(32, 32) == (32, 32, 32, 1, 4, 128,
+                                       (232448 - 4 * 8192 - 1024) // 144)
+    assert kconv.tf32_plan(256, 256) == (32, 64, 256, 1, 4, 128,
+                                         (232448 - 4 * 16384 - 1024)
+                                         // 2 // 128 * 128 // 144)
+    assert kconv.tf32_plan(256, 256).max_halo_rows == 576
+    assert kconv.tf32_plan(32, 16)[:5] == (32, 16, 16, 1, 4)
+    assert kconv.tf32_plan(16, 16)[:5] == (16, 16, 16, 3, 4)
+    assert kconv.tf32_plan(8, 8)[:5] == (8, 16, 16, 9, 4)
+    assert kconv.tf32_plan(8, 24)[:5] == (8, 32, 32, 3, 4)
+    for cin, cout in ((4, 32), (12, 16), (8, 12)):
+        with pytest.raises(ValueError):
+            kconv.tf32_plan(cin, cout)
+
+
+@settings(max_examples=40, deadline=None)
+@given(
+    d=st.integers(1, 40), h=st.integers(1, 40), w=st.integers(1, 40),
+    cin=st.integers(1, 32).map(lambda n: 8 * n),
+    cout=st.integers(1, 32).map(lambda n: 8 * n),
+)
+def test_tf32_plan_property(d, h, w, cin, cout):
+    """Every f32 class of the route has a box of the build's voxels whose
+    halo fits its limit and whose grid covers every output voxel once, and
+    its ring and halo buffers fit a block's shared memory."""
+    plan = kconv.tf32_plan(cin, cout)
+    box = kconv.plan_box(d, h, w, plan.voxels, plan.max_halo_rows)
+    tz, ty, tx = box
+    assert tz * ty * tx == plan.voxels
+    assert (_box_cover(d, h, w, box) == 1).all()
+    assert plan.max_halo_rows >= 360
+    stage = -(-plan.g * 2 * plan.nb * plan.ck * 4 // 1024) * 1024
+    bufs = 2 if cin > plan.ck else 1
+    halo = -(-(tz + 2) * (ty + 2) * (tx + 2) * (4 * plan.ck + 16) // 128) * 128
+    assert plan.stages * stage + bufs * halo + 1024 <= 232448
+    assert 27 // plan.g >= plan.stages - 2
+
+
+def test_tf32_route_counts_nothing_on_the_cpu():
+    """On CPU tensors the f32 classes of the route take the plain version,
+    forward and dx, and count no launch."""
+    x, w, b = _inputs(25, (1, 4, 4, 8, 16), 16)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    before = (kconv.conv3d_igemm.tf32_launches,
+              kconv.conv3d_igemm_dx.tf32_launches,
+              kconv.conv3d_igemm.launches, kconv.conv3d_igemm_dx.launches)
+    y = kconv.conv3d_igemm_train(xt.requires_grad_(), wt, bt)
+    y.sum().backward()
+    assert (kconv.conv3d_igemm.tf32_launches,
+            kconv.conv3d_igemm_dx.tf32_launches,
+            kconv.conv3d_igemm.launches,
+            kconv.conv3d_igemm_dx.launches) == before
+    assert torch.equal(y, kconv.conv3d_igemm_reference(xt, wt, bt))
 
 
 # -- the narrow route: its decomposition, emulated -------------------------

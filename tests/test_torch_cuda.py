@@ -4,10 +4,10 @@ The port's CUDA kernels against their plain versions, on the card.
 These tests need a CUDA device and ``nvcc``; elsewhere they skip. Run them
 on the card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_cuda.py`` (the shared conftest imports JAX, which the
-card's machine does not need). Tolerances as in ``chip_smoke.py``: one
-bf16 ulp of the output scale for bf16 (both sides sum in f32 and round
-once), 1e-4 of it for f32; for the gradients one bf16 ulp and 1e-3 in f32
-with TF32 off. The attention kernels: 2e-5 (forward) and 1e-4 (backward)
+card's machine does not need). Tolerances: one bf16 ulp of the output
+scale for bf16 (both sides sum in f32 and round once), 1e-4 of it for f32
+on any route and 1e-5 on the 3xTF32 route, as in ``chip_smoke.py``; for
+the gradients one bf16 ulp and 1e-3 in f32 with TF32 off. The attention kernels: 2e-5 (forward) and 1e-4 (backward)
 of the scale in f32 (summation order); one bf16 ulp (2^-7) of the scale in
 bf16, where kernel and plain version both round p and ds to bf16 once, the
 kernel against its running maximum and the plain version against the final
@@ -134,6 +134,97 @@ def test_wgmma_limits_are_the_launchers(cuda):
     assert lib.adell_conv3d_wgmma_bf16(
         x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 1, 4, 4, 8, 16, 16,
         2, 4, 8, stream) != 0
+
+
+# f32 classes of the tf32 route (B, D, H, W, Cin, Cout): the U-Net's
+# 128x128x32 ones and a level below, UNETR's full-size 32->16 and 16->16,
+# 256->256 at 16x16x4, ragged volumes with chunks of 16, 8 and a padded N
+# block, two N blocks of 128, and a volume smaller than one box
+TF32_SHAPES = [
+    (4, 128, 128, 32, 32, 32), (4, 128, 128, 32, 64, 32),
+    (4, 128, 128, 32, 64, 64), (4, 32, 32, 8, 128, 64),
+    (1, 256, 256, 64, 32, 16), (1, 256, 256, 64, 16, 16),
+    (4, 16, 16, 4, 256, 256), (1, 7, 9, 5, 16, 16), (1, 7, 9, 5, 48, 24),
+    (2, 3, 5, 7, 8, 24), (2, 8, 8, 2, 128, 256), (1, 1, 2, 3, 8, 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=str)
+def test_conv3d_tf32_route_matches_plain(cuda, shape):
+    """The 3xTF32 kernel, forward and dx, within 1e-5 of the output scale of
+    the plain version with TF32 off (one TF32 pass is about 3e-4 off), the
+    same bits over two runs, each launch counted on the tf32 route."""
+    b, d, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((b, d, h, w, cin), generator=g, device=cuda)
+    wt = torch.randn((3, 3, 3, cin, cout), generator=g,
+                     device=cuda) / (27 * cin) ** 0.5
+    bias = torch.randn(cout, generator=g, device=cuda)
+    gy = torch.randn((b, d, h, w, cout), generator=g, device=cuda)
+    before = (kconv.conv3d_igemm.tf32_launches,
+              kconv.conv3d_igemm_dx.tf32_launches)
+    got = kconv.conv3d_igemm(x, wt, bias)
+    dx = kconv.conv3d_igemm_dx(gy, wt)
+    assert (kconv.conv3d_igemm.tf32_launches,
+            kconv.conv3d_igemm_dx.tf32_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert torch.equal(got, kconv.conv3d_igemm(x, wt, bias))
+    assert torch.equal(dx, kconv.conv3d_igemm_dx(gy, wt))
+    w_rot = wt.flip(0, 1, 2).transpose(3, 4).contiguous()
+    for a, r in ((got, kconv.conv3d_igemm_reference(x, wt, bias)),
+                 (dx, kconv.conv3d_igemm_reference(gy, w_rot))):
+        torch.cuda.synchronize()
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+@pytest.mark.gpu
+def test_same_conv_weights_keeps_the_bits(cuda):
+    """Launches inside a ``same_conv_weights`` block, which share one
+    prepared weight, give the bits of a launch outside it."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((2, 16, 16, 8, 32), generator=g, device=cuda)
+    wt = torch.randn((3, 3, 3, 32, 64), generator=g,
+                     device=cuda) / (27 * 32) ** 0.5
+    want = kconv.conv3d_igemm(x, wt)
+    with kconv.same_conv_weights():
+        first = kconv.conv3d_igemm(x, wt)
+        again = kconv.conv3d_igemm(x, wt)
+    assert torch.equal(first, want) and torch.equal(again, want)
+
+
+@pytest.mark.gpu
+def test_tf32_limits_are_the_launchers(cuda):
+    """``adell_conv3d_wgmma_tf32x3_limits`` gives what ``tf32_plan``, the
+    Python mirror of the shipped build, works out (voxels a box, most halo
+    rows, Cout_pad), refuses widths that are not multiples of 8, and the
+    launcher refuses a box of another size; the weight the wrapper prepares
+    on the card has the CPU's bits."""
+    import ctypes
+
+    from adell_mri_torch.ops.kernels.build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 3)()
+    for cin, cout in [(8, 8), (16, 16), (32, 32), (32, 16), (48, 24),
+                      (64, 64), (128, 64), (256, 256), (8, 24), (24, 136)]:
+        assert lib.adell_conv3d_wgmma_tf32x3_limits(cin, cout, got) == 0
+        plan = kconv.tf32_plan(cin, cout)
+        assert list(got) == [plan.voxels, plan.max_halo_rows, plan.cout_pad]
+        assert kconv.tf32_limits(lib, cin, cout) == tuple(got)
+    for cin, cout in [(12, 16), (8, 12), (4, 8)]:
+        assert lib.adell_conv3d_wgmma_tf32x3_limits(cin, cout, got) != 0
+    x = torch.zeros((1, 4, 4, 8, 16), device=cuda)
+    wk = torch.zeros((2, 27, 16, 16), device=cuda)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.adell_conv3d_wgmma_tf32x3(
+        x.data_ptr(), wk.data_ptr(), None, out.data_ptr(), 1, 4, 4, 8, 16,
+        16, 2, 4, 8, stream) != 0
+    w = torch.randn((3, 3, 3, 48, 24), device=cuda)
+    assert torch.equal(kconv.tf32_split_weight(w, 32).cpu(),
+                       kconv.tf32_split_weight(w.cpu(), 32))
 
 
 # chip_smoke.py's narrow rows (B, D, H, W, Cin, Cout): the U-Net stems and
