@@ -153,26 +153,6 @@ __device__ __forceinline__ int opaque(int v) {
   return v;
 }
 
-// cvt.rna.tf32.f32: v rounded to TF32 (nearest, ties away from zero), in
-// f32's format with the low 13 bits zero.
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// The A fragment a (four f32 a thread) split into TF32 big and small parts.
-__device__ __forceinline__ void split(const uint32_t (&a)[4],
-                                      uint32_t (&big)[4],
-                                      uint32_t (&small)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float v = __uint_as_float(a[i]);
-    big[i] = to_tf32(v);
-    small[i] = to_tf32(v - __uint_as_float(big[i]));
-  }
-}
-
 // d (+)= A B for one k-step of 8 channels of one tap: the three TF32
 // products, B the tap's K-major big and small slabs at shared address slab;
 // with fresh, the first overwrites d.

@@ -5,8 +5,8 @@
 //                                      (one function: the VMEM-resident
 //                                      variant only worked around a TPU
 //                                      compile-service fault)
-//   flash_bwd_dq_{bf16,f32}_kernel  <- _bwd_dq_kernel
-//   flash_bwd_dkv_{bf16,f32}_kernel <- _bwd_dkv_kernel
+//   flash_bwd_dq_{bf16,tf32x3}_kernel  <- _bwd_dq_kernel
+//   flash_bwd_dkv_{bf16,tf32x3}_kernel <- _bwd_dkv_kernel
 //
 // q [BH, Nq, D], k and v [BH, Nkv, D], contiguous; Nq may differ from Nkv; no
 // mask, no causal option. Same arithmetic as the Pallas bodies: the products
@@ -20,8 +20,9 @@
 //
 // The TPU kernels walk KV (or Q) along a sequential grid axis and carry their
 // sums in scratch from one grid step to the next. Blocks on this card run in
-// any order, so here a block owns one 64-row tile of its output (query rows
-// for the forward and dQ, key rows for dK/dV) and loops over the other
+// any order, so here a block owns 64-row tiles of its output, one a
+// warpgroup (query rows for the forward and dQ, key rows for dK/dV), and
+// loops over the other
 // sequence inside the block. Every output element has one owner: no atomics,
 // and the result is the same from run to run. The kernels mask their own
 // ragged last tiles: rows past the end are loaded as zeros, score columns
@@ -85,8 +86,10 @@
 // would need them). What bounds it now: three products on the tensor cores
 // and one barrier a tile, as in the forward.
 //
-// The f32 path of all three is plain FMA on shared-memory tiles (no TF32),
-// for exact comparisons and f32 training.
+// In f32 (the CLI's default precision), dQ and dK/dV are 3xTF32 `wgmma`
+// kernels (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel, fed by
+// flash_tf32x3_image_kernel; their section says how and why), and the
+// forward is still plain FMA on shared-memory tiles (flash_fwd_f32_kernel).
 //
 // C interface (loaded with ctypes): each launcher enqueues one kernel on the
 // given stream and returns cudaGetLastError().
@@ -137,18 +140,15 @@ __device__ __forceinline__ void load_tile(T* tile, int ld, const T* g,
 }
 
 // Writes the first rows (< n_rows - row0) of an f32 shared tile to a
-// [n_rows, D] matrix, each row divided by row_div[r] when given.
+// [n_rows, D] matrix, each row divided by row_div[r].
 template <int D, int ROWS>
 __device__ __forceinline__ void store_tile(float* g, int row0, int n_rows,
                                            const float* tile, int ld,
                                            const float* row_div) {
   for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
     int r = idx / D, c = idx % D;
-    if (row0 + r < n_rows) {
-      float v = tile[r * ld + c];
-      if (row_div != nullptr) v = v / row_div[r];
-      g[(size_t)(row0 + r) * D + c] = v;
-    }
+    if (row0 + r < n_rows)
+      g[(size_t)(row0 + r) * D + c] = tile[r * ld + c] / row_div[r];
   }
 }
 
@@ -157,10 +157,9 @@ __device__ __forceinline__ void zero_tile(float* tile, int n) {
 }
 
 // C[M, N] (+)= A[M, K] B[K, N] on f32 tiles in shared memory, by the whole
-// block. TA: A is stored transposed (A(i, k) at A[k * lda + i]); TB likewise
-// (B(k, j) at B[j * ldb + k]). ACC adds to what C holds. One FMA chain per
-// element of C.
-template <int M, int N, int K, bool TA, bool TB, bool ACC>
+// block. TB: B is stored transposed (B(k, j) at B[j * ldb + k]). ACC adds
+// to what C holds. One FMA chain per element of C.
+template <int M, int N, int K, bool TB, bool ACC>
 __device__ __forceinline__ void tile_mma(float* C, int ldc, const float* A,
                                          int lda, const float* B, int ldb) {
   for (int idx = threadIdx.x; idx < M * N; idx += THREADS) {
@@ -168,13 +167,12 @@ __device__ __forceinline__ void tile_mma(float* C, int ldc, const float* A,
     float acc = ACC ? C[i * ldc + j] : 0.f;
 #pragma unroll 8
     for (int k = 0; k < K; ++k)
-      acc = fmaf(TA ? A[k * lda + i] : A[i * lda + k],
-                 TB ? B[j * ldb + k] : B[k * ldb + j], acc);
+      acc = fmaf(A[i * lda + k], TB ? B[j * ldb + k] : B[k * ldb + j], acc);
     C[i * ldc + j] = acc;
   }
 }
 
-// Shared-memory layout of each f32 kernel, in one place for the kernel
+// Shared-memory layout of the f32 forward, in one place for the kernel
 // (which carves it) and the launcher (which asks for its size).
 template <typename T, int D>
 struct Layout {
@@ -188,8 +186,6 @@ struct Layout {
   static constexpr int O_TILE = round128(BQ * OLD * 4);
   static constexpr int ROW = round128(BQ * 4);
   static constexpr int FWD = 3 * IN_TILE + S_TILE + P_TILE + O_TILE + ROW;
-  static constexpr int DQ = 4 * IN_TILE + 2 * S_TILE + P_TILE + O_TILE;
-  static constexpr int DKV = 4 * IN_TILE + 2 * S_TILE + 2 * P_TILE + 2 * O_TILE;
 };
 static_assert(BQ == BK, "the layout sizes Q-side and KV-side tiles alike");
 
@@ -231,7 +227,7 @@ __global__ void __launch_bounds__(THREADS)
     load_tile<T, D, BK>(Ks, L::LD, kb, kv0, n_kv);
     load_tile<T, D, BK>(Vs, L::LD, vb, kv0, n_kv);
     __syncthreads();
-    tile_mma<BQ, BK, D, false, true, false>(Ss, L::SLD, Qs, L::LD, Ks, L::LD);
+    tile_mma<BQ, BK, D, true, false>(Ss, L::SLD, Qs, L::LD, Ks, L::LD);
     __syncthreads();
 
     float* srow = Ss + row * L::SLD;
@@ -256,8 +252,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int c = half; c < D; c += 2) Os[row * L::OLD + c] *= alpha;
     __syncthreads();
 
-    tile_mma<BQ, D, BK, false, false, true>(Os, L::OLD, Ps, L::PLD, Vs,
-                                            L::LD);
+    tile_mma<BQ, D, BK, false, true>(Os, L::OLD, Ps, L::PLD, Vs, L::LD);
     __syncthreads();
   }
 
@@ -270,143 +265,6 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
   store_tile<D, BQ>(out + (size_t)bh * n_q * D, q0, n_q, Os, L::OLD, Ls);
-}
-
-// ------------------------------------------------------------------ dQ ---
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            float* __restrict__ dq, int n_q, int n_kv,
-                            float scale) {
-  using T = float;
-  using L = Layout<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver carve{smem};
-  T* Qs = carve.take<T>(BQ * L::LD);
-  T* dOs = carve.take<T>(BQ * L::LD);
-  T* Ks = carve.take<T>(BK * L::LD);
-  T* Vs = carve.take<T>(BK * L::LD);
-  float* Ss = carve.take<float>(BQ * L::SLD);
-  float* dPs = carve.take<float>(BQ * L::SLD);
-  T* dSs = carve.take<T>(BQ * L::PLD);
-  float* dQs = carve.take<float>(BQ * L::OLD);
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const T* kb = k + (size_t)bh * n_kv * D;
-  const T* vb = v + (size_t)bh * n_kv * D;
-
-  load_tile<T, D, BQ>(Qs, L::LD, q + (size_t)bh * n_q * D, q0, n_q);
-  load_tile<T, D, BQ>(dOs, L::LD, dout + (size_t)bh * n_q * D, q0, n_q);
-  zero_tile(dQs, BQ * L::OLD);
-
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-  const bool row_ok = q0 + row < n_q;
-  const float lse_r = row_ok ? lse[(size_t)bh * n_q + q0 + row] : 0.f;
-  const float delta_r = row_ok ? delta[(size_t)bh * n_q + q0 + row] : 0.f;
-
-  for (int kv0 = 0; kv0 < n_kv; kv0 += BK) {
-    load_tile<T, D, BK>(Ks, L::LD, kb, kv0, n_kv);
-    load_tile<T, D, BK>(Vs, L::LD, vb, kv0, n_kv);
-    __syncthreads();
-    tile_mma<BQ, BK, D, false, true, false>(Ss, L::SLD, Qs, L::LD, Ks, L::LD);
-    tile_mma<BQ, BK, D, false, true, false>(dPs, L::SLD, dOs, L::LD, Vs,
-                                            L::LD);
-    __syncthreads();
-    for (int c = half; c < BK; c += 2) {
-      float ds = 0.f;
-      if (row_ok && kv0 + c < n_kv) {
-        float p = expf(Ss[row * L::SLD + c] * scale - lse_r);
-        ds = p * (dPs[row * L::SLD + c] - delta_r) * scale;
-      }
-      dSs[row * L::PLD + c] = ds;
-    }
-    __syncthreads();
-    tile_mma<BQ, D, BK, false, false, true>(dQs, L::OLD, dSs, L::PLD, Ks,
-                                            L::LD);
-    __syncthreads();
-  }
-  store_tile<D, BQ>(dq + (size_t)bh * n_q * D, q0, n_q, dQs, L::OLD,
-                       nullptr);
-}
-
-// --------------------------------------------------------- dK/dV, f32 ---
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             int n_q, int n_kv, float scale) {
-  using T = float;
-  using L = Layout<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver carve{smem};
-  T* Ks = carve.take<T>(BK * L::LD);
-  T* Vs = carve.take<T>(BK * L::LD);
-  T* Qs = carve.take<T>(BQ * L::LD);
-  T* dOs = carve.take<T>(BQ * L::LD);
-  float* Ss = carve.take<float>(BQ * L::SLD);
-  float* dPs = carve.take<float>(BQ * L::SLD);
-  T* Ps = carve.take<T>(BQ * L::PLD);
-  T* dSs = carve.take<T>(BQ * L::PLD);
-  float* dKs = carve.take<float>(BK * L::OLD);
-  float* dVs = carve.take<float>(BK * L::OLD);
-
-  const int bh = blockIdx.y;
-  const int kv0 = blockIdx.x * BK;
-  const T* qb = q + (size_t)bh * n_q * D;
-  const T* dob = dout + (size_t)bh * n_q * D;
-
-  load_tile<T, D, BK>(Ks, L::LD, k + (size_t)bh * n_kv * D, kv0, n_kv);
-  load_tile<T, D, BK>(Vs, L::LD, v + (size_t)bh * n_kv * D, kv0, n_kv);
-  zero_tile(dKs, BK * L::OLD);
-  zero_tile(dVs, BK * L::OLD);
-
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-
-  for (int q0 = 0; q0 < n_q; q0 += BQ) {
-    load_tile<T, D, BQ>(Qs, L::LD, qb, q0, n_q);
-    load_tile<T, D, BQ>(dOs, L::LD, dob, q0, n_q);
-    __syncthreads();
-    tile_mma<BQ, BK, D, false, true, false>(Ss, L::SLD, Qs, L::LD, Ks, L::LD);
-    tile_mma<BQ, BK, D, false, true, false>(dPs, L::SLD, dOs, L::LD, Vs,
-                                            L::LD);
-    __syncthreads();
-    const bool row_ok = q0 + row < n_q;
-    const float lse_r = row_ok ? lse[(size_t)bh * n_q + q0 + row] : 0.f;
-    const float delta_r = row_ok ? delta[(size_t)bh * n_q + q0 + row] : 0.f;
-    for (int c = half; c < BK; c += 2) {
-      float p = 0.f, ds = 0.f;
-      if (row_ok && kv0 + c < n_kv) {
-        p = expf(Ss[row * L::SLD + c] * scale - lse_r);
-        ds = p * (dPs[row * L::SLD + c] - delta_r) * scale;
-      }
-      Ps[row * L::PLD + c] = p;
-      dSs[row * L::PLD + c] = ds;
-    }
-    __syncthreads();
-    // dv += p^T dO and dk += ds^T q: the tiles hold p and ds as [q, kv]
-    tile_mma<BK, D, BQ, true, false, true>(dVs, L::OLD, Ps, L::PLD, dOs,
-                                           L::LD);
-    tile_mma<BK, D, BQ, true, false, true>(dKs, L::OLD, dSs, L::PLD, Qs,
-                                           L::LD);
-    __syncthreads();
-  }
-  store_tile<D, BK>(dk + (size_t)bh * n_kv * D, kv0, n_kv, dKs, L::OLD,
-                       nullptr);
-  store_tile<D, BK>(dv + (size_t)bh * n_kv * D, kv0, n_kv, dVs, L::OLD,
-                       nullptr);
 }
 
 // ------------------------------------------------------ forward, bf16 ---
@@ -1053,25 +911,531 @@ __global__ void __launch_bounds__(DkvPlan<D>::THREADS)
   }
 }
 
+// ------------------------------------------ dQ and dK/dV, f32 (3xTF32) ---
+
+// The f32 backward on the tensor cores: each f32 product is three TF32
+// `wgmma` products (3xTF32, as csrc/conv3d_tf32.cu): an operand v is split
+// into big = tf32(v) and small = tf32(v - big), and a b is taken as small_a
+// big_b + big_a small_b + big_a big_b. What the bf16 kernels do cannot be
+// carried over as it is, for three reasons, and the design answers each:
+//
+//   - TF32 `wgmma` reads B K-major only (A from registers, or K-major from
+//     shared memory). ds k (dQ) contracts over key rows, p^T dO and ds^T q
+//     (dK/dV) over query rows, so their B operands are the streamed tiles
+//     transposed: K^T, dO^T and Q^T. Of the two ways out, a transposed copy
+//     of each such tile and products swapped so that the tile becomes a
+//     register A operand, the copy is taken: the swap would move p or ds,
+//     big and small, through shared memory instead (as many bytes a tile,
+//     written and read by the threads rather than copied), and at head dim
+//     32 its A would have 32 rows of wgmma's 64.
+//   - The B operands are activations, split anew every call. A small
+//     preparation kernel (flash_tf32x3_image_kernel) writes, for each
+//     streamed tile of 32 rows, an IMAGE of the bytes that one ring stage
+//     holds: every panel big then small, already rounded to TF32 with
+//     cvt.rna (as the conv prepares its weight), in the 128-byte swizzle,
+//     rows past the sequence's end zero. The main kernel copies an image
+//     with plain 16-byte cp.async, no index arithmetic and no masks; its
+//     threads split only the A operands, in registers.
+//   - The f32 sums of a product are not the next product's A fragment:
+//     a thread's sums are columns 2t and 2t + 1 of each group of 8, the
+//     TF32 A fragment takes k = t and t + 4 (t = lane % 4). A sum does not
+//     care about the order of its terms, so the image stores each group of
+//     8 rows of a transposed tile permuted (position p holds row 2p for p <
+//     4, row 2 (p - 4) + 1 for p >= 4), and A fragment register r of k-step
+//     j is sum register 4 j + (0, 2, 1, 3)[r]: no shuffle.
+//
+// Shared memory and registers bound the shapes. A panel (one operand of a
+// streamed tile, 32 rows by D or D rows by 32) is 128 D bytes, big and
+// small twice that: a dQ stage (K, V, K^T) is 48 KB at D = 64, a dK/dV
+// stage (Q, dO, Q^T, dO^T and 32 lse and delta values) 65 KB. Stream tiles
+// of 32 rows (not 64) keep the score tiles at 16 registers a thread and
+// three (dQ) or two (dK/dV) stages in shared memory. The fixed operands
+// (dQ: the block's Q and dO rows; dK/dV: its K and V rows) are A operands:
+// they stay raw in shared memory (rows padded by 4 f32, so that ldmatrix
+// meets no bank conflict) and are split per k-step after an ldmatrix, as
+// the conv splits its A. Each k-step's products are one commit group, and
+// the next k-step's fragments are prepared while it runs (two buffers,
+// wait<1>), so that no more than two k-steps' split fragments are live. A
+// block is two warpgroups of 64 output rows that share the ring.
+//
+// The tensor cores' own f32 sums drop low bits at each product they add
+// (as the conv found), so dq, dk and dv are summed in the tensor cores over
+// SUM_TILES stream tiles (64 rows) at a time, and each such sum is added to
+// f32 register sums rounded to nearest.
+//
+// What bounds them on the H100: operations, at the 3xTF32 rate (494.7 / 3
+// TFLOP/s): at [2, 8, 2048, 64] dQ does 25.8 GFLOP (0.156 ms), dK/dV 34.4
+// (0.208 ms). The images add about 3x (dQ) and 4x (dK/dV) the bytes of
+// the tiles they are made from, read once and written once by the
+// preparation kernel, then read from L2 by every block of the head.
+namespace tf32x3 {
+
+constexpr int NWG = 2;              // warpgroups a block
+constexpr int THREADS = 128 * NWG;  // of the main kernels
+constexpr int ROWS = 64 * NWG;      // output rows a block
+constexpr int TILE = 32;            // rows of a streamed tile
+constexpr int PREP_THREADS = 256;
+// Stream tiles a tensor-core sum of dq, dk and dv takes before it is added
+// to the f32 register sums: on the H100, sums of all 64 tiles at 2048
+// tokens came to about 0.2 of the 1e-4 bound, of 2 or 1 tile to 0.05, in
+// the same time within 1.4 % (PERF.md).
+constexpr int SUM_TILES = 2;
+
+// The bytes of a streamed tile's image, by kernel, and the shared memory
+// of each kernel: the ring of images, then the two raw A operands.
+template <int D>
+struct Plan {
+  static_assert(D == 32 || D == 64, "head dims 32 and 64");
+  static constexpr int PANEL = 128 * D;  // big or small half of a panel
+  static constexpr int SUB = TILE * 128;  // a 32-row sub-tile of a panel
+  // dQ: K and V (32 rows by D), K^T (D rows by 32)
+  static constexpr int DQ_IMAGE = 3 * 2 * PANEL;
+  // dK/dV: Q and dO, Q^T and dO^T, then lse and delta of the 32 rows
+  static constexpr int DKV_ROWS_AT = 4 * 2 * PANEL;
+  static constexpr int DKV_IMAGE = DKV_ROWS_AT + 1024;
+  static constexpr int DQ_STAGES = 3;
+  static constexpr int DKV_STAGES = 2;
+  static constexpr int LDA = D + 4;  // f32 a row of a raw A operand
+  static constexpr int A_BYTES = ROWS * LDA * 4;
+  // 1024 more: the kernel rounds its base up to the swizzle's alignment
+  static constexpr int DQ_SMEM = DQ_STAGES * DQ_IMAGE + 2 * A_BYTES + 1024;
+  static constexpr int DKV_SMEM = DKV_STAGES * DKV_IMAGE + 2 * A_BYTES + 1024;
+  static_assert(DQ_SMEM <= 232448 && DKV_SMEM <= 232448, "shared memory");
+};
+
+// Writes the image of each 32-row tile of the streamed operands a and b
+// ([BH, n, D] f32): kind 0 (dQ: a = K, b = V) panels a, b, a^T; kind 1
+// (dK/dV: a = Q, b = dO) panels a, b, a^T, b^T, then lse and delta.
+// Grid (tiles, BH). A panel is its big half then its small half; a half is
+// sub-tiles of 32 (natural) or D (transposed) rows of 128 bytes whose
+// 16-byte chunks are swizzled (chunk c of row r at c ^ (r % 8)). Rows past
+// n are zeros.
+template <int D>
+__global__ void __launch_bounds__(PREP_THREADS)
+    flash_tf32x3_image_kernel(const float* __restrict__ a,
+                              const float* __restrict__ b,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ image, int n, int kind) {
+  using namespace hopper;
+  using P = Plan<D>;
+  constexpr int CHUNKS = P::PANEL / 16;  // 16-byte chunks of a half
+  const int tile = blockIdx.x, bh = blockIdx.y;
+  const int row0 = tile * TILE;
+  const int bytes = kind == 0 ? P::DQ_IMAGE : P::DKV_IMAGE;
+  unsigned char* out = reinterpret_cast<unsigned char*>(image) +
+                       ((size_t)bh * gridDim.x + tile) * bytes;
+  const float* src_a = a + (size_t)bh * n * D;
+  const float* src_b = b + (size_t)bh * n * D;
+  const int panels = kind == 0 ? 3 : 4;
+  for (int i = threadIdx.x; i < panels * CHUNKS; i += PREP_THREADS) {
+    const int panel = i / CHUNKS, ci = i % CHUNKS;
+    const float* src = panel % 2 ? src_b : src_a;
+    float v[4];
+    if (panel < 2) {
+      // natural: sub-tile ci / 256 holds columns 32 (ci / 256) .. + 31
+      const int r = ci % 256 / 8, c = (ci % 8) ^ (r & 7);
+      const int row = row0 + r, d = 32 * (ci / 256) + 4 * c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = row < n ? src[(size_t)row * D + d + e] : 0.f;
+    } else {
+      // transposed: row d, positions 4 c .. 4 c + 3 of the stream rows,
+      // permuted inside each group of 8
+      const int d = ci / 8, c = (ci % 8) ^ (d & 7);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (c / 2) + 2 * e + c % 2;
+        v[e] = row < n ? src[(size_t)row * D + d] : 0.f;
+      }
+    }
+    float hb[4], hs[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hb[e] = __uint_as_float(to_tf32(v[e]));
+      hs[e] = __uint_as_float(to_tf32(v[e] - hb[e]));
+    }
+    unsigned char* dst = out + panel * 2 * P::PANEL + ci * 16;
+    *reinterpret_cast<float4*>(dst) = make_float4(hb[0], hb[1], hb[2], hb[3]);
+    *reinterpret_cast<float4*>(dst + P::PANEL) =
+        make_float4(hs[0], hs[1], hs[2], hs[3]);
+  }
+  // 32 lse, 32 delta and zeros to the end of the image
+  static_assert(PREP_THREADS * 4 == P::DKV_IMAGE - P::DKV_ROWS_AT, "rows");
+  if (kind == 1) {
+    const int r = threadIdx.x % TILE, row = row0 + r;
+    const float* rows = threadIdx.x < TILE ? lse : delta;
+    reinterpret_cast<float*>(out + P::DKV_ROWS_AT)[threadIdx.x] =
+        threadIdx.x < 2 * TILE && row < n ? rows[(size_t)bh * n + row]
+                                          : 0.f;
+  }
+}
+
+// Copies rows row0 .. row0 + ROWS - 1 of a [n_rows, D] matrix into a raw A
+// operand (rows of LDA f32); rows past n_rows become zeros.
+template <int D>
+__device__ __forceinline__ void load_raw(uint32_t dst, const float* g,
+                                         int row0, int n_rows) {
+  using namespace hopper;
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = row0 + r < n_rows;
+    cp_async_16(dst + (r * Plan<D>::LDA + c * 4) * 4,
+                ok ? g + (size_t)(row0 + r) * D + c * 4 : g, ok);
+  }
+}
+
+// Starts the copy of an image into a ring stage, one group.
+__device__ __forceinline__ void load_image(uint32_t dst, const float* src,
+                                           int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += THREADS)
+    hopper::cp_async_16(dst + 16 * i, src + 4 * i);
+}
+
+// The A fragment of k-step j of a product that takes 64 x 32 sums (s or dp
+// of one warpgroup, 16 registers a thread) as its A operand: register r is
+// sum 4 j + (0, 2, 1, 3)[r], which the image's row permutation matches.
+__device__ __forceinline__ void sums_fragment(const float (&x)[16], int j,
+                                              uint32_t (&a)[4]) {
+  a[0] = __float_as_uint(x[4 * j]);
+  a[1] = __float_as_uint(x[4 * j + 2]);
+  a[2] = __float_as_uint(x[4 * j + 1]);
+  a[3] = __float_as_uint(x[4 * j + 3]);
+}
+
+// d (+)= A B for one k-step: the three TF32 products, B the big and small
+// halves of a panel at shared addresses b_big and b_big + PANEL; with fresh
+// the first overwrites d.
+template <int PANEL, int R>
+__device__ __forceinline__ void products3(float (&d)[R],
+                                          const uint32_t (&big)[4],
+                                          const uint32_t (&small)[4],
+                                          uint32_t b_big, bool fresh) {
+  using namespace hopper;
+  using T = Tile<64>;  // 128-byte rows: 32 f32 of the contraction
+  wgmma_tf32(d, small, T::desc(b_big), fresh ? 0 : 1);
+  wgmma_tf32(d, big, T::desc(b_big + PANEL), 1);
+  wgmma_tf32(d, big, T::desc(b_big), 1);
+}
+
+// Turn u: dq's part of stream tile u (32 key rows). s = q k^T and dp = dO
+// v^T (k-steps of 8 along D, each one group), p and ds from them, then dq
+// += ds k against K^T (k-steps of 8 key rows). Every group is waited for
+// within the turn, so the next turn may overwrite the stage of this one.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const float* __restrict__ image,
+                               float* __restrict__ dq, int n_q, int n_kv,
+                               float scale) {
+  using namespace hopper;
+  using P = Plan<D>;
+  constexpr int STAGES = P::DQ_STAGES, KS = D / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sImg = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = sImg + STAGES * P::DQ_IMAGE;
+  const uint32_t sDo = sQ + P::A_BYTES;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int wrow = wg * 64 + (tid % 128) / 32 * 16;  // warp's first row
+  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int n_tiles = (n_kv + TILE - 1) / TILE;
+  const float* img = image + (size_t)bh * n_tiles * (P::DQ_IMAGE / 4);
+
+  // the first group: the block's Q and dO rows and the first image
+  load_raw<D>(sQ, q + (size_t)bh * n_q * D, q0, n_q);
+  load_raw<D>(sDo, dout + (size_t)bh * n_q * D, q0, n_q);
+  auto load_tile = [&](int u) {
+    if (u < n_tiles)
+      load_image(sImg + u % STAGES * P::DQ_IMAGE,
+                 img + (size_t)u * (P::DQ_IMAGE / 4), P::DQ_IMAGE);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int u = 0; u < STAGES - 1; ++u) load_tile(u);
+
+  // this lane's ldmatrix row of its warp's 16 and half of a k-step
+  const uint32_t a_off =
+      (wrow + (lane & 7) + 8 * ((lane >> 3) & 1)) * P::LDA * 4 +
+      (lane >> 4) * 16;
+  const int r_lo = q0 + wrow + lane / 4, r_hi = r_lo + 8;
+  const int col0 = (lane % 4) * 2;
+  const float* lse_b = lse + (size_t)bh * n_q;
+  const float* delta_b = delta + (size_t)bh * n_q;
+  const float lse_lo = r_lo < n_q ? lse_b[r_lo] * LOG2E : 0.f;
+  const float lse_hi = r_hi < n_q ? lse_b[r_hi] * LOG2E : 0.f;
+  const float del_lo = r_lo < n_q ? delta_b[r_lo] : 0.f;
+  const float del_hi = r_hi < n_q ? delta_b[r_hi] : 0.f;
+  const float c = scale * LOG2E;
+
+  // f32 sums rounded to nearest, and the tensor cores' sum of the current
+  // SUM_TILES tiles
+  float acc[D / 2], part[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[16], dp[16];
+  uint32_t big[2][2][4], small[2][2][4];  // [buffer][operand][register]
+
+  for (int u = 0; u < n_tiles; ++u) {
+    // tile u has landed for every thread, and every warpgroup is done with
+    // tile u - 1, whose stage the next load overwrites
+    cp_async_wait<STAGES - 2>();
+    fence_async_proxy();
+    __syncthreads();
+    load_tile(u + STAGES - 1);
+    const uint32_t st = sImg + u % STAGES * P::DQ_IMAGE;
+
+    // s and dp: panels K (0) and V (1), k-step kk of sub-tile kk / 4
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t raw[4];
+      const int bf = kk & 1;
+      ldmatrix_x4(raw, sQ + a_off + kk * 32);
+      split(raw, big[bf][0], small[bf][0]);
+      ldmatrix_x4(raw, sDo + a_off + kk * 32);
+      split(raw, big[bf][1], small[bf][1]);
+      const uint32_t k_off = kk / 4 * P::SUB + kk % 4 * 32;
+      wg_fence();
+      products3<P::PANEL>(s, big[bf][0], small[bf][0], st + k_off, kk == 0);
+      products3<P::PANEL>(dp, big[bf][1], small[bf][1],
+                          st + 2 * P::PANEL + k_off, kk == 0);
+      wg_commit();
+      wg_wait<1>();
+    }
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // ds in place of dp; key columns past n_kv (the last tile) are zeros
+    const int valid = n_kv - u * TILE;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const bool hi = (i / 2) % 2;
+      const float p = exp2_approx(fmaf(s[i], c, -(hi ? lse_hi : lse_lo)));
+      const float ds = p * (dp[i] - (hi ? del_hi : del_lo)) * scale;
+      dp[i] = (i / 4) * 8 + col0 + (i % 2) < valid ? ds : 0.f;
+    }
+
+    // dq += ds k: panel K^T (2), k-step j of 8 key rows
+    const bool fresh = u % SUM_TILES == 0;
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      uint32_t raw[4];
+      const int bf = j & 1;
+      sums_fragment(dp, j, raw);
+      split(raw, big[bf][0], small[bf][0]);
+      wg_fence();
+      products3<P::PANEL>(part, big[bf][0], small[bf][0],
+                          st + 4 * P::PANEL + j * 32, fresh && j == 0);
+      wg_commit();
+      wg_wait<1>();
+    }
+    wg_wait<0>();
+    reg_fence(part);
+    if (u % SUM_TILES == SUM_TILES - 1 || u == n_tiles - 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dqb = dq + (size_t)bh * n_q * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r_lo < n_q)
+      *reinterpret_cast<float2*>(dqb + (size_t)r_lo * D + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r_hi < n_q)
+      *reinterpret_cast<float2*>(dqb + (size_t)r_hi * D + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Turn t: dk's and dv's part of stream tile t (32 query rows). The
+// transposed scores s^T = k q^T and dp^T = v dO^T, whose rows are the
+// block's key rows, give p^T and ds^T elementwise (lse and delta belong to
+// columns and come with the image), then dv += p^T dO against dO^T and dk
+// += ds^T q against Q^T.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ image,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int n_q, int n_kv,
+                                float scale) {
+  using namespace hopper;
+  using P = Plan<D>;
+  constexpr int STAGES = P::DKV_STAGES, KS = D / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_base = smem_addr(smem_raw);
+  const uint32_t sImg = (raw_base + 1023u) & ~1023u;
+  const uint32_t sK = sImg + STAGES * P::DKV_IMAGE;
+  const uint32_t sV = sK + P::A_BYTES;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int wrow = wg * 64 + (tid % 128) / 32 * 16;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * ROWS;
+  const int n_tiles = (n_q + TILE - 1) / TILE;
+  const float* img = image + (size_t)bh * n_tiles * (P::DKV_IMAGE / 4);
+
+  load_raw<D>(sK, k + (size_t)bh * n_kv * D, kv0, n_kv);
+  load_raw<D>(sV, v + (size_t)bh * n_kv * D, kv0, n_kv);
+  auto load_tile = [&](int t) {
+    if (t < n_tiles)
+      load_image(sImg + t % STAGES * P::DKV_IMAGE,
+                 img + (size_t)t * (P::DKV_IMAGE / 4), P::DKV_IMAGE);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_tile(t);
+
+  const uint32_t a_off =
+      (wrow + (lane & 7) + 8 * ((lane >> 3) & 1)) * P::LDA * 4 +
+      (lane >> 4) * 16;
+  const int col0 = (lane % 4) * 2;
+  const float c = scale * LOG2E;
+
+  float dk_acc[D / 2], dv_acc[D / 2], dk_part[D / 2], dv_part[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float st_acc[16], dpt_acc[16];
+  uint32_t big[2][2][4], small[2][2][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    fence_async_proxy();
+    __syncthreads();
+    load_tile(t + STAGES - 1);
+    const uint32_t st = sImg + t % STAGES * P::DKV_IMAGE;
+
+    // s^T and dp^T: panels Q (0) and dO (1)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t raw[4];
+      const int bf = kk & 1;
+      ldmatrix_x4(raw, sK + a_off + kk * 32);
+      split(raw, big[bf][0], small[bf][0]);
+      ldmatrix_x4(raw, sV + a_off + kk * 32);
+      split(raw, big[bf][1], small[bf][1]);
+      const uint32_t k_off = kk / 4 * P::SUB + kk % 4 * 32;
+      wg_fence();
+      products3<P::PANEL>(st_acc, big[bf][0], small[bf][0], st + k_off,
+                          kk == 0);
+      products3<P::PANEL>(dpt_acc, big[bf][1], small[bf][1],
+                          st + 2 * P::PANEL + k_off, kk == 0);
+      wg_commit();
+      wg_wait<1>();
+    }
+    wg_wait<0>();
+    reg_fence(st_acc);
+    reg_fence(dpt_acc);
+
+    // p^T and ds^T in place; query columns past n_q have zero rows of Q and
+    // dO and lse = delta = 0, so p = 1 and ds = 0 there and they add nothing
+    const float* rows = reinterpret_cast<const float*>(
+        smem_raw + (st + P::DKV_ROWS_AT - raw_base));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 ls = *reinterpret_cast<const float2*>(rows + 8 * j + col0);
+      const float2 de =
+          *reinterpret_cast<const float2*>(rows + TILE + 8 * j + col0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float p = exp2_approx(
+            fmaf(st_acc[i], c, -(e % 2 ? ls.y : ls.x) * LOG2E));
+        st_acc[i] = p;
+        dpt_acc[i] = p * (dpt_acc[i] - (e % 2 ? de.y : de.x)) * scale;
+      }
+    }
+
+    // dv += p^T dO against dO^T (3), dk += ds^T q against Q^T (2)
+    const bool fresh = t % SUM_TILES == 0;
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      uint32_t raw[4];
+      const int bf = j & 1;
+      sums_fragment(st_acc, j, raw);
+      split(raw, big[bf][0], small[bf][0]);
+      sums_fragment(dpt_acc, j, raw);
+      split(raw, big[bf][1], small[bf][1]);
+      wg_fence();
+      products3<P::PANEL>(dv_part, big[bf][0], small[bf][0],
+                          st + 6 * P::PANEL + j * 32, fresh && j == 0);
+      products3<P::PANEL>(dk_part, big[bf][1], small[bf][1],
+                          st + 4 * P::PANEL + j * 32, fresh && j == 0);
+      wg_commit();
+      wg_wait<1>();
+    }
+    wg_wait<0>();
+    reg_fence(dk_part);
+    reg_fence(dv_part);
+    if (t % SUM_TILES == SUM_TILES - 1 || t == n_tiles - 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dk_acc[i] += dk_part[i];
+        dv_acc[i] += dv_part[i];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int r_lo = kv0 + wrow + lane / 4, r_hi = r_lo + 8;
+  float* dkb = dk + (size_t)bh * n_kv * D;
+  float* dvb = dv + (size_t)bh * n_kv * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r_lo < n_kv) {
+      *reinterpret_cast<float2*>(dkb + (size_t)r_lo * D + col) =
+          make_float2(dk_acc[4 * j], dk_acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(dvb + (size_t)r_lo * D + col) =
+          make_float2(dv_acc[4 * j], dv_acc[4 * j + 1]);
+    }
+    if (r_hi < n_kv) {
+      *reinterpret_cast<float2*>(dkb + (size_t)r_hi * D + col) =
+          make_float2(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+      *reinterpret_cast<float2*>(dvb + (size_t)r_hi * D + col) =
+          make_float2(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+    }
+  }
+}
+
+}  // namespace tf32x3
+
+
 // ----------------------------------------------------------- launchers ---
 
-// Grid, block and shared memory of each kernel: all three take the Hopper
-// kernels for bf16 and the shared-memory kernels for f32.
+// Grid, block and shared memory of each kernel: the Hopper kernels for
+// bf16; for f32 the shared-memory forward and the 3xTF32 backward.
 template <typename T, int D>
 struct Launch {
   static constexpr bool HOPPER = std::is_same<T, __nv_bfloat16>::value;
+  using F = tf32x3::Plan<D>;
   static constexpr int FWD_ROWS = HOPPER ? FwdPlan<D>::ROWS : BQ;
   static constexpr int FWD_THREADS = HOPPER ? FwdPlan<D>::THREADS : THREADS;
   static constexpr int FWD_SMEM = HOPPER ? FwdPlan<D>::SMEM : Layout<float, D>::FWD;
-  static constexpr int DQ_ROWS = HOPPER ? DqPlan<D>::ROWS : BQ;
-  static constexpr int DQ_THREADS = HOPPER ? DqPlan<D>::THREADS : THREADS;
-  static constexpr int DQ_SMEM = HOPPER ? DqPlan<D>::SMEM : Layout<float, D>::DQ;
-  static constexpr int DKV_ROWS = HOPPER ? DkvPlan<D>::ROWS : BK;
-  static constexpr int DKV_THREADS = HOPPER ? DkvPlan<D>::THREADS : THREADS;
-  static constexpr int DKV_SMEM = HOPPER ? DkvPlan<D>::SMEM : Layout<float, D>::DKV;
+  static constexpr int DQ_ROWS = HOPPER ? DqPlan<D>::ROWS : tf32x3::ROWS;
+  static constexpr int DQ_THREADS = HOPPER ? DqPlan<D>::THREADS : tf32x3::THREADS;
+  static constexpr int DQ_SMEM = HOPPER ? DqPlan<D>::SMEM : F::DQ_SMEM;
+  static constexpr int DKV_ROWS = HOPPER ? DkvPlan<D>::ROWS : tf32x3::ROWS;
+  static constexpr int DKV_THREADS = HOPPER ? DkvPlan<D>::THREADS : tf32x3::THREADS;
+  static constexpr int DKV_SMEM = HOPPER ? DkvPlan<D>::SMEM : F::DKV_SMEM;
+  // rows of a streamed tile, and bytes of its image (f32 backward only)
+  static constexpr int FWD_TILE = HOPPER ? 64 : BK;
+  static constexpr int DQ_TILE = HOPPER ? 64 : tf32x3::TILE;
+  static constexpr int DKV_TILE = DQ_TILE;
+  static constexpr int DQ_IMAGE = HOPPER ? 0 : F::DQ_IMAGE;
+  static constexpr int DKV_IMAGE = HOPPER ? 0 : F::DKV_IMAGE;
 };
 
-// The kernel of each input type, chosen by overload.
+// The forward kernel of each input type, chosen by overload.
 template <int D>
 auto fwd_kernel(__nv_bfloat16) {
   return flash_fwd_bf16_kernel<D>;
@@ -1079,22 +1443,6 @@ auto fwd_kernel(__nv_bfloat16) {
 template <int D>
 auto fwd_kernel(float) {
   return flash_fwd_f32_kernel<D>;
-}
-template <int D>
-auto dq_kernel(__nv_bfloat16) {
-  return flash_bwd_dq_bf16_kernel<D>;
-}
-template <int D>
-auto dq_kernel(float) {
-  return flash_bwd_dq_f32_kernel<D>;
-}
-template <int D>
-auto dkv_kernel(__nv_bfloat16) {
-  return flash_bwd_dkv_bf16_kernel<D>;
-}
-template <int D>
-auto dkv_kernel(float) {
-  return flash_bwd_dkv_f32_kernel<D>;
 }
 
 template <typename T, int D>
@@ -1114,54 +1462,101 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// The images of the 3xTF32 backward (kind 0: a = K, b = V, n = Nkv; kind
+// 1: a = Q, b = dO, n = Nq, with lse and delta) into image, which holds
+// BH * ceil(n / 32) of them.
+template <int D>
+int launch_image(int kind, const void* a, const void* b, const void* lse,
+                 const void* delta, void* image, int bh, int n,
+                 cudaStream_t st) {
+  if (kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
+  dim3 grid((n + tf32x3::TILE - 1) / tf32x3::TILE, bh);
+  tf32x3::flash_tf32x3_image_kernel<D>
+      <<<grid, tf32x3::PREP_THREADS, 0, st>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(image), n, kind);
+  return (int)cudaGetLastError();
+}
+
+// A kernel's attribute and launch, for the two families of dQ and dK/dV.
+template <typename K, typename... Args>
+int launch_with(K kernel, dim3 grid, int threads, int smem, cudaStream_t st,
+                Args... args) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// dQ; image: the f32 kernel's workspace (unused in bf16), BH * ceil(Nkv /
+// 32) images of K and V, written here before the kernel reads them.
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int bh, int n_q,
-              int n_kv, float scale, cudaStream_t st) {
+              const void* lse, const void* delta, void* dq, void* image,
+              int bh, int n_q, int n_kv, float scale, cudaStream_t st) {
   using L = Launch<T, D>;
-  auto kernel = dq_kernel<D>(T());
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DQ_SMEM);
-  if (rc != cudaSuccess) return (int)rc;
   dim3 grid((n_q + L::DQ_ROWS - 1) / L::DQ_ROWS, bh);
-  kernel<<<grid, L::DQ_THREADS, L::DQ_SMEM, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), n_q, n_kv, scale);
-  return (int)cudaGetLastError();
+  if constexpr (L::HOPPER) {
+    return launch_with(
+        flash_bwd_dq_bf16_kernel<D>, grid, L::DQ_THREADS, L::DQ_SMEM, st,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), n_q, n_kv, scale);
+  } else {
+    const int rc = launch_image<D>(0, k, v, nullptr, nullptr, image, bh, n_kv,
+                                   st);
+    if (rc != 0) return rc;
+    return launch_with(
+        tf32x3::flash_bwd_dq_tf32x3_kernel<D>, grid, L::DQ_THREADS,
+        L::DQ_SMEM, st, static_cast<const float*>(q),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<const float*>(image),
+        static_cast<float*>(dq), n_q, n_kv, scale);
+  }
 }
 
+// dK/dV; image as for dQ, of Q, dO, lse and delta (BH * ceil(Nq / 32)).
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int bh,
-               int n_q, int n_kv, float scale, cudaStream_t st) {
+               const void* lse, const void* delta, void* dk, void* dv,
+               void* image, int bh, int n_q, int n_kv, float scale,
+               cudaStream_t st) {
   using L = Launch<T, D>;
-  auto kernel = dkv_kernel<D>(T());
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DKV_SMEM);
-  if (rc != cudaSuccess) return (int)rc;
   dim3 grid((n_kv + L::DKV_ROWS - 1) / L::DKV_ROWS, bh);
-  kernel<<<grid, L::DKV_THREADS, L::DKV_SMEM, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv, scale);
-  return (int)cudaGetLastError();
+  if constexpr (L::HOPPER) {
+    return launch_with(
+        flash_bwd_dkv_bf16_kernel<D>, grid, L::DKV_THREADS, L::DKV_SMEM, st,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv, scale);
+  } else {
+    const int rc = launch_image<D>(1, q, dout, lse, delta, image, bh, n_q, st);
+    if (rc != 0) return rc;
+    return launch_with(
+        tf32x3::flash_bwd_dkv_tf32x3_kernel<D>, grid, L::DKV_THREADS,
+        L::DKV_SMEM, st, static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(image),
+        static_cast<float*>(dk), static_cast<float*>(dv), n_q, n_kv, scale);
+  }
 }
 
-// out[0..2]: rows of the output a block owns, threads a block, bytes of
-// dynamic shared memory, of kernel kind (0 forward, 1 dQ, 2 dK/dV).
+// out[0..4]: rows of the output a block owns, threads a block, bytes of
+// dynamic shared memory, rows of a streamed tile and bytes of its image (0:
+// the kernel takes none), of kernel kind (0 forward, 1 dQ, 2 dK/dV).
 template <typename T, int D>
 int plan_of(int kind, int* out) {
   using L = Launch<T, D>;
-  const int plans[3][3] = {
-      {L::FWD_ROWS, L::FWD_THREADS, L::FWD_SMEM},
-      {L::DQ_ROWS, L::DQ_THREADS, L::DQ_SMEM},
-      {L::DKV_ROWS, L::DKV_THREADS, L::DKV_SMEM},
+  const int plans[3][5] = {
+      {L::FWD_ROWS, L::FWD_THREADS, L::FWD_SMEM, L::FWD_TILE, 0},
+      {L::DQ_ROWS, L::DQ_THREADS, L::DQ_SMEM, L::DQ_TILE, L::DQ_IMAGE},
+      {L::DKV_ROWS, L::DKV_THREADS, L::DKV_SMEM, L::DKV_TILE, L::DKV_IMAGE},
   };
   if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 3; ++i) out[i] = plans[kind][i];
+  for (int i = 0; i < 5; ++i) out[i] = plans[kind][i];
   return 0;
 }
 
@@ -1187,15 +1582,15 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* m,
 
 template <typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int bh, int n_q,
-           int n_kv, int d, float scale, void* stream) {
+           const void* lse, const void* delta, void* dq, void* image, int bh,
+           int n_q, int n_kv, int d, float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   ADELL_DISPATCH_HEAD_DIM(
       d,
-      (launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, bh, n_q, n_kv, scale,
-                        st)),
-      (launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, bh, n_q, n_kv, scale,
-                        st)))
+      (launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, image, bh, n_q, n_kv,
+                        scale, st)),
+      (launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, image, bh, n_q, n_kv,
+                        scale, st)))
 }
 
 template <typename T>
@@ -1206,19 +1601,23 @@ int plan(int kind, int d, int* out) {
 
 template <typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, int bh,
-            int n_q, int n_kv, int d, float scale, void* stream) {
+            const void* lse, const void* delta, void* dk, void* dv,
+            void* image, int bh, int n_q, int n_kv, int d, float scale,
+            void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   ADELL_DISPATCH_HEAD_DIM(
       d,
-      (launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, n_q, n_kv,
-                         scale, st)),
-      (launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, n_q, n_kv,
-                         scale, st)))
+      (launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, image, bh, n_q,
+                         n_kv, scale, st)),
+      (launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, image, bh, n_q,
+                         n_kv, scale, st)))
 }
 
 }  // namespace
 
+// image: the f32 backward's workspace, BH * ceil(Nkv / 32) (dQ) or BH *
+// ceil(Nq / 32) (dK/dV) images of adell_flash_plan_f32's size; null in
+// bf16.
 #define ADELL_FLASH_ENTRY_POINTS(SUFFIX, T)                                   \
   extern "C" int adell_flash_fwd_##SUFFIX(                                    \
       const void* q, const void* k, const void* v, void* out, void* m,        \
@@ -1227,17 +1626,17 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   }                                                                           \
   extern "C" int adell_flash_bwd_dq_##SUFFIX(                                 \
       const void* q, const void* k, const void* v, const void* dout,          \
-      const void* lse, const void* delta, void* dq, int bh, int n_q,          \
-      int n_kv, int d, float scale, void* stream) {                           \
-    return bwd_dq<T>(q, k, v, dout, lse, delta, dq, bh, n_q, n_kv, d, scale,  \
-                     stream);                                                 \
+      const void* lse, const void* delta, void* dq, void* image, int bh,      \
+      int n_q, int n_kv, int d, float scale, void* stream) {                  \
+    return bwd_dq<T>(q, k, v, dout, lse, delta, dq, image, bh, n_q, n_kv, d,  \
+                     scale, stream);                                          \
   }                                                                           \
   extern "C" int adell_flash_bwd_dkv_##SUFFIX(                                \
       const void* q, const void* k, const void* v, const void* dout,          \
-      const void* lse, const void* delta, void* dk, void* dv, int bh,         \
-      int n_q, int n_kv, int d, float scale, void* stream) {                  \
-    return bwd_dkv<T>(q, k, v, dout, lse, delta, dk, dv, bh, n_q, n_kv, d,    \
-                      scale, stream);                                         \
+      const void* lse, const void* delta, void* dk, void* dv, void* image,    \
+      int bh, int n_q, int n_kv, int d, float scale, void* stream) {          \
+    return bwd_dkv<T>(q, k, v, dout, lse, delta, dk, dv, image, bh, n_q,      \
+                      n_kv, d, scale, stream);                                \
   }                                                                           \
   extern "C" int adell_flash_plan_##SUFFIX(int kind, int d, int* out) {       \
     return plan<T>(kind, d, out);                                             \
@@ -1245,3 +1644,16 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 ADELL_FLASH_ENTRY_POINTS(bf16, __nv_bfloat16)
 ADELL_FLASH_ENTRY_POINTS(f32, float)
+
+// The 3xTF32 backward's preparation alone, for tests: kind 0 writes the
+// images of a = K and b = V (n = Nkv), kind 1 those of a = Q, b = dO, lse
+// and delta (n = Nq), BH * ceil(n / 32) of them.
+extern "C" int adell_flash_image_f32(int kind, const void* a, const void* b,
+                                     const void* lse, const void* delta,
+                                     void* image, int bh, int n, int d,
+                                     void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  ADELL_DISPATCH_HEAD_DIM(
+      d, (launch_image<32>(kind, a, b, lse, delta, image, bh, n, st)),
+      (launch_image<64>(kind, a, b, lse, delta, image, bh, n, st)))
+}

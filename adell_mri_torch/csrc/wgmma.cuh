@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the port's wgmma kernels (attention,
-// conv forward and dx in bf16 and 3xTF32, wgrad): swizzled 64-row tiles in
+// Hopper (sm_90a) building blocks of the port's wgmma kernels (attention in
+// bf16 and the 3xTF32 attention backward, conv forward and dx in bf16 and
+// 3xTF32, wgrad): swizzled 64-row tiles in
 // shared memory, asynchronous copies into them, the matrix
 // descriptors that `wgmma` reads them through, and the warpgroup products
 // themselves as inline PTX.
@@ -408,6 +409,29 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// cvt.rna.tf32.f32: v rounded to TF32 (nearest, ties away from zero), in
+// f32's format with the low 13 bits zero.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// The 3xTF32 split of an A fragment a (four f32 a thread, as bits): big =
+// tf32(v) and small = tf32(v - big), whose products small_a big_b + big_a
+// small_b + big_a big_b keep f32's accuracy (the dropped small_a small_b is
+// 2^-22 of the product).
+__device__ __forceinline__ void split(const uint32_t (&a)[4],
+                                      uint32_t (&big)[4],
+                                      uint32_t (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float v = __uint_as_float(a[i]);
+    big[i] = to_tf32(v);
+    small[i] = to_tf32(v - __uint_as_float(big[i]));
+  }
 }
 
 // Two floats rounded to bf16, lo in the low half.

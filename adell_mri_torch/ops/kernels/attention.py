@@ -17,16 +17,22 @@ q is ``[B, H, Nq, D]``, k and v ``[B, H, Nkv, D]``; ``Nq`` may differ from
 written to device memory. All three are bound by operations on the H100
 (about 1000 FLOP per byte at ``[1, 8, 2048, 64]`` in bf16, against the
 card's ridge of 295): the least times there are 8.7 us, 13.0 us and
-17.4 us at 989 TFLOP/s. A block owns a 64-row tile of its output and loops
-over the other sequence inside the block. In bf16 all three are Hopper
-kernels: warpgroup ``wgmma`` products whose sums, scores, p and ds stay in
-registers (dK/dV on transposed tiles, so it reduces nothing; dQ, which
-reduces nothing either, runs ds k of one tile while p and ds of the next
-are taken), fed by a ``cp.async`` ring of swizzled shared-memory tiles
-with one block barrier a tile. The f32 path of all three is plain FMA on
-shared-memory tiles, kept for exact comparisons. ``launch_plan`` mirrors
-the launchers' grids and shared-memory sizes; the source's header says
-what bounds each design.
+17.4 us at 989 TFLOP/s. A warpgroup owns a 64-row tile of its output
+and loops over the other sequence inside the block. In bf16 all three are
+Hopper kernels: warpgroup ``wgmma`` products whose sums, scores, p and ds
+stay in registers (dK/dV on transposed tiles, so it reduces nothing; dQ,
+which reduces nothing either, runs ds k of one tile while p and ds of the
+next are taken), fed by a ``cp.async`` ring of swizzled shared-memory
+tiles with one block barrier a tile. In f32, the CLI's default precision, dQ
+and dK/dV are 3xTF32 ``wgmma`` kernels: each f32 product is three TF32
+products of operands split into big and small halves, and a preparation
+kernel writes, per streamed tile of 32 rows, the image of a ring stage
+(the tile's operands split, transposed where a product contracts over the
+sequence, swizzled; ``flash_tf32x3_image_reference`` is its plain
+version) into a workspace the wrapper allocates. The f32 forward is plain
+FMA on shared-memory tiles. ``launch_plan`` mirrors the launchers' grids,
+shared-memory sizes and images; the source's header says what bounds each
+design.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch;
 for CPU tensors, and only for them, it runs its plain PyTorch version,
@@ -38,60 +44,71 @@ and the backward launches the two backward kernels.
 """
 
 import torch
+import torch.nn.functional as F
 
 from adell_mri_torch.ops.kernels.build import load_library
-from adell_mri_torch.ops.kernels.conv import _on_card
+from adell_mri_torch.ops.kernels.conv import _on_card, tf32_round
 
 HEAD_DIMS = (32, 64)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _KINDS = ("fwd", "bwd_dq", "bwd_dkv")
 #: most dynamic shared memory a block may ask for on the H100
 MAX_SMEM = 232448
+#: rows of a streamed tile of the f32 (3xTF32) backward
+TF32X3_TILE = 32
 
 
 def launch_plan(stem, dtype, bh, n_q, n_kv, d):
     """What the C launcher of ``adell_flash_{stem}`` does with a shape:
-    ``grid`` (blocks along the sequence the kernel owns, B * H), ``threads``
-    a block and dynamic shared-memory ``smem`` bytes. It repeats the
-    layouts of ``csrc/flash_attention.cu`` (``FwdPlan``, ``DqPlan``,
-    ``DkvPlan``, ``Layout``), whose ``adell_flash_plan_*`` the card tests
-    hold it to.
-    A block owns 64 rows: query rows for ``fwd`` and ``bwd_dq``, key rows
-    for ``bwd_dkv``."""
+    ``grid`` (blocks along the sequence the kernel owns, B * H), ``rows``
+    of it a block owns, ``threads`` a block, dynamic shared-memory
+    ``smem`` bytes, ``tile`` rows of the other sequence a turn streams and
+    ``image`` bytes of a streamed tile's prepared image (0 where the kernel
+    takes none: bf16 and the f32 forward). It repeats the layouts of
+    ``csrc/flash_attention.cu`` (``FwdPlan``, ``DqPlan``, ``DkvPlan``,
+    ``Layout``, ``tf32x3::Plan``), whose ``adell_flash_plan_*`` the card
+    tests hold it to. The owned rows are query rows for ``fwd`` and
+    ``bwd_dq``, key rows for ``bwd_dkv``."""
     if stem not in _KINDS:
         raise ValueError(f"launch_plan: stem must be one of {_KINDS}")
     if d not in HEAD_DIMS or dtype not in _SUFFIX:
         raise ValueError(f"launch_plan: no kernel for D={d}, {dtype}")
-    rows, threads = 64, 128
+    rows, threads, tile, image = 64, 128, 64, 0
     if dtype == torch.bfloat16:
         # wgmma kernels: 64-row swizzled bf16 tiles, 1024 bytes of slack to
         # align them; forward and dQ: a ring of 3 (K, V) stages (Q, and dQ's
         # dO, are in registers); dK/dV: its K and V tiles, a ring of 4
         # (Q, dO) stages and 4 x (lse, delta) rows of 64 f32
-        tile = 64 * d * 2
+        tile_b = 64 * d * 2
         smem = {
-            "fwd": 3 * 2 * tile,
-            "bwd_dq": 3 * 2 * tile,
-            "bwd_dkv": 2 * tile + 4 * (2 * tile + 2 * 64 * 4),
+            "fwd": 3 * 2 * tile_b,
+            "bwd_dq": 3 * 2 * tile_b,
+            "bwd_dkv": 2 * tile_b + 4 * (2 * tile_b + 2 * 64 * 4),
         }[stem] + 1024
-    else:
-        # f32 shared-memory kernels: tiles with rows padded by one value,
-        # score and accumulator tiles, each rounded up to 128 bytes
-        item, pad = 4, 1
-
+    elif stem == "fwd":
+        # the f32 forward on shared-memory tiles: tiles with rows padded by
+        # one value, score and accumulator tiles, each rounded up to 128
+        # bytes
         def r128(n):
             return (n + 127) // 128 * 128
 
-        t_in, t_p = r128(64 * (d + pad) * item), r128(64 * (64 + pad) * item)
-        t_s, t_o, row = r128(64 * 68 * 4), r128(64 * (d + 4) * 4), 256
-        smem = {
-            "fwd": 3 * t_in + t_s + t_p + t_o + row,
-            "bwd_dq": 4 * t_in + 2 * t_s + t_p + t_o,
-            "bwd_dkv": 4 * t_in + 2 * t_s + 2 * t_p + 2 * t_o,
-        }[stem]
+        t_in, t_p = r128(64 * (d + 1) * 4), r128(64 * 65 * 4)
+        t_s, t_o = r128(64 * 68 * 4), r128(64 * (d + 4) * 4)
+        smem = 3 * t_in + t_s + t_p + t_o + 256
+    else:
+        # 3xTF32 backward: two warpgroups of 64 rows; a ring of images of
+        # 32-row tiles (3 for dQ: K, V, K^T; 2 for dK/dV: Q, dO, Q^T, dO^T
+        # and 1024 bytes for lse and delta), each panel 128 d bytes big and
+        # as many small; the block's two raw A operands, rows of d + 4 f32;
+        # 1024 bytes of slack to align the ring
+        rows, threads, tile = 128, 256, TF32X3_TILE
+        panel = 128 * d
+        image, stages = {"bwd_dq": (6 * panel, 3),
+                         "bwd_dkv": (8 * panel + 1024, 2)}[stem]
+        smem = stages * image + 2 * rows * (d + 4) * 4 + 1024
     owned = n_kv if stem == "bwd_dkv" else n_q
     return dict(grid=(-(-owned // rows), bh), rows=rows, threads=threads,
-                smem=smem)
+                smem=smem, tile=tile, image=image)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -138,6 +155,68 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta, scale):
                       dout.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: the image's order of the rows of each group of 8 in a transposed panel:
+#: position p holds row 2p (p < 4) or 2 (p - 4) + 1, so that the f32 sums a
+#: thread holds (columns 2t, 2t + 1) are TF32 A fragments (k = t, t + 4)
+_PERM8 = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _swizzled(x):
+    """``[..., R, 32]`` f32 rows of 128 bytes, as a 128-byte-swizzled tile
+    stores them: chunk c (4 f32) of row r at chunk c ^ (r % 8), flattened
+    to ``[..., R * 32]``."""
+    r = x.shape[-2]
+    rows = torch.arange(r, device=x.device)[:, None]
+    chunks = x.reshape(*x.shape[:-1], 8, 4)
+    # the slot and the chunk it holds are each other's XOR with r % 8
+    held = torch.arange(8, device=x.device)[None, :] ^ (rows % 8)
+    return chunks[..., rows, held, :].reshape(*x.shape[:-2], r * 32)
+
+
+def flash_tf32x3_image_reference(kind, a, b, lse=None, delta=None):
+    """Plain version of ``flash_tf32x3_image_kernel``, which prepares the
+    B operands of the 3xTF32 backward: ``a``, ``b`` f32 ``[B, H, n, D]``
+    (kind 0, dQ: K and V; kind 1, dK/dV: Q and dO, with ``lse`` and
+    ``delta`` f32 ``[B, H, n, 1]``). Returns ``[B * H, tiles, floats]``:
+    for each tile of 32 rows (rows past n zero) the panels a, b, a^T (and
+    b^T for kind 1), each its big half ``tf32(x)`` then its small half
+    ``tf32(x - big)``; a natural panel is D / 32 sub-tiles of 32 rows by
+    32 columns, a transposed one D rows by the 32 tile rows, permuted
+    inside each group of 8 by ``_PERM8``; every sub-tile 128-byte
+    swizzled. Kind 1 ends with the tile's 32 lse, 32 delta and 192
+    zeros."""
+    bsz, h, n, d = a.shape
+    tile = TF32X3_TILE
+    tiles = -(-n // tile)
+
+    def tiled(x):
+        x = F.pad(x.reshape(bsz * h, n, x.shape[-1]),
+                  (0, 0, 0, tiles * tile - n))
+        return x.reshape(bsz * h, tiles, tile, x.shape[-1])
+
+    def natural(x):
+        x = x.reshape(*x.shape[:3], d // 32, 32).transpose(2, 3)
+        return _swizzled(x).flatten(2)
+
+    def transposed(x):
+        pos = torch.arange(tile, device=x.device)
+        perm = pos // 8 * 8 + _PERM8.to(x.device)[pos % 8]
+        return _swizzled(x[:, :, perm].transpose(2, 3))
+
+    xa, xb = tiled(a.float()), tiled(b.float())
+    panels = [natural(xa), natural(xb), transposed(xa)]
+    if kind == 1:
+        panels.append(transposed(xb))
+    parts = []
+    for panel in panels:
+        big = tf32_round(panel)
+        parts += [big, tf32_round(panel - big)]
+    if kind == 1:
+        rows = torch.cat([tiled(lse.float()), tiled(delta.float())], dim=2)
+        parts.append(F.pad(rows.flatten(2), (0, 256 - 2 * tile)))
+    return torch.cat(parts, dim=2)
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -210,11 +289,18 @@ def _launch(stem, q, tensors, n_kv, scale):
     if plan["smem"] > MAX_SMEM:
         raise ValueError(f"flash_attention {stem}: {plan['smem']} bytes of "
                          f"shared memory a block, the card gives {MAX_SMEM}")
+    if stem != "fwd":
+        # the backward's workspace: the f32 kernels' images of the streamed
+        # tiles, written by their preparation kernel (none in bf16)
+        tiles = -(-(n_kv if stem == "bwd_dq" else nq) // plan["tile"])
+        tensors = (*tensors, torch.empty(
+            b * h * tiles * plan["image"] // 4, dtype=torch.float32,
+            device=q.device) if plan["image"] else None)
     fn = getattr(load_library(), f"adell_flash_{stem}_{_SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in tensors), b * h, nq, n_kv, d,
-                float(scale), stream)
+        rc = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                b * h, nq, n_kv, d, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {stem} launch failed: "
                            f"cudaError {rc}")

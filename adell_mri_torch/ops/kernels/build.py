@@ -129,17 +129,19 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p]
     ),
-    # q, k, v, dout, lse, delta, dq, BH, Nq, Nkv, D, scale, stream
+    # q, k, v, dout, lse, delta, dq, image (f32: the workspace; bf16:
+    # null), BH, Nq, Nkv, D, scale, stream
     "adell_flash_bwd_dq": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p]
-    ),
-    # q, k, v, dout, lse, delta, dk, dv, BH, Nq, Nkv, D, scale, stream
-    "adell_flash_bwd_dkv": (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p]
     ),
-    # kind (0 fwd, 1 dq, 2 dkv), D, out[3]: rows a block, threads, smem bytes
+    # q, k, v, dout, lse, delta, dk, dv, image, BH, Nq, Nkv, D, scale, stream
+    "adell_flash_bwd_dkv": (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    ),
+    # kind (0 fwd, 1 dq, 2 dkv), D, out[5]: rows a block, threads, smem
+    # bytes, rows of a streamed tile, bytes of its image (0: none)
     "adell_flash_plan": (
         [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     ),
@@ -177,6 +179,12 @@ _SINGLE = {
     # (WgradPlan)
     "adell_conv3d_wgrad_plan": (
         [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+    ),
+    # kind (0: K, V; 1: Q, dO, lse, delta), a, b, lse, delta, image, BH, n,
+    # D, stream: the 3xTF32 backward's preparation alone
+    "adell_flash_image_f32": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]
     ),
 }
 

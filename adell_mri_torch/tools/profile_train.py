@@ -2,14 +2,15 @@
 Where the time of one training step goes, on the GPU.
 
     python -m adell_mri_torch.tools.profile_train [unet|unetr] \
-        [--precision bf16|32]
+        [--precision bf16|32] [--batch N]
 
 Trains the model (f32 master weights from seed 0, bf16 compute or, with
 ``--precision 32``, f32 compute, the CLI's default; the CLI's
 augmentation, Nesterov SGD) on a batch made on the card, as
 ``chip_smoke.py`` does: the flagship U-Net on 4 volumes of 128x128x32 with
 the dice loss, or UNETR (``sample_configs/unetr.yaml``, dropout 0) on 2
-volumes of 256x256x64 with the yaml's dice + focal loss. After one warm-up
+volumes of 256x256x64 with the yaml's dice + focal loss (``--batch``
+changes the volumes a step). After one warm-up
 step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
 device-busy share of a step's wall time, the peak device memory and the
@@ -39,6 +40,7 @@ GROUPS = (
     ("flash_fwd", "flash_attention_fwd (K4/K5)"),
     ("flash_bwd_dq", "flash_attention_bwd_dq (K6)"),
     ("flash_bwd_dkv", "flash_attention_bwd_dkv (K7)"),
+    ("flash_tf32x3_image", "f32 images of K6 and K7 (their preparation)"),
     ("conv3d_wgrad", "conv3d_wgrad (dW of K1's backward, with its "
      "reduction)"),
     ("conv3d_igemm", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
@@ -67,13 +69,14 @@ def _self_device_us(evt):
     return float(evt.self_device_time_total)
 
 
-def main(name="unet", out_path=None, precision="bf16"):
+def main(name="unet", out_path=None, precision="bf16", batch_size=None):
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     out_path = out_path or f"chiprun_out/profile_train_{name}.txt"
     spec = model_spec(name)
-    batch = make_train_batch(0, batch=spec.train_batch, shape=spec.window)
+    batch_size = batch_size or spec.train_batch
+    batch = make_train_batch(0, batch=batch_size, shape=spec.window)
     tr = make_trainer(0, precision, name=name)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -121,6 +124,7 @@ def main(name="unet", out_path=None, precision="bf16"):
         "device": torch.cuda.get_device_name(0),
         "model": name,
         "precision": precision,
+        "batch": batch_size,
         "wall_s_per_step": wall,
         "profiled_step_wall_s": profiled_wall,
         "device_busy_s_per_step": device_s,
@@ -148,5 +152,7 @@ if __name__ == "__main__":
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")
+    parser.add_argument("--batch", type=int, help="volumes a step (default: "
+                        "the model's training batch, 4 or 2)")
     args = parser.parse_args()
-    sys.exit(main(args.model, args.out, args.precision))
+    sys.exit(main(args.model, args.out, args.precision, args.batch))

@@ -73,8 +73,11 @@ failure:
     serving and training shapes), a ragged shape (Nq 2050, Nkv 2311),
     head dim 32, either sequence at the edges of the 64-row tiles (1, 63,
     64, 65, 127, 128, 129 tokens against 2048) and B x H of 1 x 1 and
-    4 x 8, bf16 and f32; the bf16 forward, dQ and dK/dV bit-equal over two
-    runs; timed beside their bounds, the plain versions and
+    4 x 8, bf16 and f32 (f32 dQ and dK/dV on the 3xTF32 kernels, held to
+    1e-4 of the output scale); the forward, dQ and dK/dV bit-equal over two
+    runs in both types; the f32 backward's preparation kernel bit-equal to
+    its plain version (``flash_tf32x3_image_reference``); timed beside
+    their bounds, the plain versions and
     ``F.scaled_dot_product_attention`` (a yardstick the port never calls:
     forward, forward + backward, and by difference its backward alone);
 11. UNETR serving: ``sample_configs/unetr.yaml`` at full width in bf16
@@ -90,8 +93,10 @@ failure:
     for dW; one step at the yaml's B=4 with the same launches, its peak
     memory beside B=2's and a finite loss; every parameter gets a finite,
     non-zero gradient; an
-    f32 step (B=1; 8 + 8 conv launches on the tf32 route) matches the plain
-    versions in loss and gradient norm;
+    f32 step (B=1; 8 + 8 conv launches on the tf32 route, 8 of each
+    attention kernel, dQ and dK/dV on the 3xTF32 ones) matches the plain
+    versions in loss and gradient norm, then takes a warm-up step and 3
+    timed steps;
     ten steps on one batch lower the loss;
 13. CLI: ``segmentation train --segmentation_net_type unetr --dev cuda
     --precision bf16`` with a dropout-0 copy of the yaml on a 4-case
@@ -392,7 +397,8 @@ def phase_build():
 
 # the kernels built on wgmma, whose ptxas lines the build phase checks
 HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
-                  "flash_bwd_dkv_bf16_kernel", "conv3d_wgmma_bf16_kernel",
+                  "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_tf32x3_kernel",
+                  "flash_bwd_dkv_tf32x3_kernel", "conv3d_wgmma_bf16_kernel",
                   "conv3d_wgrad_bf16_kernel", "conv3d_wgmma_tf32x3_kernel")
 
 
@@ -1640,9 +1646,9 @@ def compare_attention(shape, dtype, seed, timed):
     return row
 
 
-def attention_twice(shape, seed):
-    """The bf16 forward, dQ and dK/dV run twice on the same inputs must give
-    the same bits: every output element has one owner, nothing is atomic."""
+def attention_twice(shape, seed, dtype):
+    """The forward, dQ and dK/dV run twice on the same inputs must give the
+    same bits: every output element has one owner, nothing is atomic."""
     import torch
 
     from adell_mri_torch.ops.kernels import attention as ka
@@ -1650,8 +1656,7 @@ def attention_twice(shape, seed):
     b, h, nq, nkv, d = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (
-        torch.randn((b, h, n, d), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+        torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype)
         for n in (nq, nkv, nkv, nq)
     )
     scale = d ** -0.5
@@ -1665,12 +1670,47 @@ def attention_twice(shape, seed):
                          q, k, v, g, lse, delta, scale)))
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(*runs))
-    log(f"  attention B={b} H={h} Nq={nq} Nkv={nkv} D={d} bfloat16 twice: "
+    name = str(dtype).split(".")[1]
+    log(f"  attention B={b} H={h} Nq={nq} Nkv={nkv} D={d} {name} twice: "
         f"out, m, l, dq, dk, dv bit-equal: {same}")
     if not same:
         raise AssertionError(f"attention kernels differ between two runs at "
-                             f"{shape}")
-    return dict(shape=list(shape), bit_equal=same)
+                             f"{shape} {name}")
+    return dict(shape=list(shape), dtype=name, bit_equal=same)
+
+
+def attention_images(shape, seed):
+    """The 3xTF32 backward's preparation kernel (``adell_flash_image_f32``,
+    which each f32 dQ and dK/dV call launches before its kernel) against
+    its plain version, ``flash_tf32x3_image_reference``: the same bits, of
+    both kinds (K and V for dQ; Q, dO, lse and delta for dK/dV)."""
+    import torch
+
+    from adell_mri_torch.ops.kernels import attention as ka
+    from adell_mri_torch.ops.kernels.build import load_library
+
+    b, h, nq, nkv, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn((b, h, n, d), generator=gen, device="cuda")
+                  for n in (nq, nkv, nkv, nq))
+    lse, delta = (torch.randn((b, h, nq, 1), generator=gen, device="cuda")
+                  for _ in range(2))
+    row = dict(shape=list(shape))
+    for kind, (a, bb, n) in enumerate(((k, v, nkv), (q, g, nq))):
+        want = ka.flash_tf32x3_image_reference(kind, a, bb, lse, delta)
+        got = torch.full_like(want, float("nan"))
+        rc = load_library().adell_flash_image_f32(
+            kind, a.data_ptr(), bb.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), got.data_ptr(), b * h, n, d,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        row[f"kind{kind}_equal"] = rc == 0 and torch.equal(got, want)
+    log(f"  3xTF32 images B={b} H={h} Nq={nq} Nkv={nkv} D={d}: K, V "
+        f"bit-equal to the plain version: {row['kind0_equal']}; Q, dO, lse, "
+        f"delta: {row['kind1_equal']}")
+    if not (row["kind0_equal"] and row["kind1_equal"]):
+        raise AssertionError(f"3xTF32 images differ from plain: {row}")
+    return row
 
 
 def phase_attention():
@@ -1705,8 +1745,11 @@ def phase_attention():
             rows.append(row)
             if timed:
                 main[row["dtype"]][shape[0]] = row["times"]
-    rows.append(attention_twice((2,) + main_shape, 400))
-    rows.append(attention_twice((1, 3, 2050, 2311, 32), 401))
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(attention_twice((2,) + main_shape, 400, dtype))
+        rows.append(attention_twice((1, 3, 2050, 2311, 32), 401, dtype))
+    rows.append(attention_images((2,) + main_shape, 402))
+    rows.append(attention_images((1, 3, 2050, 2311, 32), 403))
     return rows, main
 
 
@@ -1967,6 +2010,29 @@ def phase_unetr_training():
         raise AssertionError(f"f32 step launches {f32_launches}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("f32 step disagrees with the plain versions")
+
+    # the f32 step timed (the CLI's default precision): a warm-up, then
+    # UNETR_TIMED_STEPS steps at B=1, augmentation on
+    def f32_step():
+        aug = tr.transforms.augment(gen, one)
+        tr.state, metrics = tr.train_step(tr.state, aug)
+        return float(metrics["loss"])
+
+    t0 = time.perf_counter()
+    f32_step()
+    torch.cuda.synchronize()
+    f32_warm = time.perf_counter() - t0
+    f32_secs, f32_losses = [], []
+    for _ in range(UNETR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        f32_losses.append(f32_step())
+        torch.cuda.synchronize()
+        f32_secs.append(time.perf_counter() - t0)
+    log(f"[unetr training] f32, B=1, augmentation on: warm-up "
+        f"{f32_warm:.3f} s, then {', '.join(f'{x:.4f}' for x in f32_secs)} "
+        f"s per step; losses {f32_losses}")
+    if not all(abs(x) < float("inf") for x in f32_losses):
+        raise AssertionError(f"non-finite f32 loss: {f32_losses}")
     del tr
     return dict(
         warmup_s=warm, seconds_per_step=secs,
@@ -1980,6 +2046,8 @@ def phase_unetr_training():
                         grad_norm=norm_k, plain_grad_norm=norm_p,
                         grad_norm_rel=norm_rel, worst_param_rel=worst_rel,
                         launches=f32_launches),
+        f32_steps=dict(batch=1, warmup_s=f32_warm, seconds_per_step=f32_secs,
+                       losses=f32_losses),
     )
 
 
@@ -2296,12 +2364,21 @@ def main():
             f"{pallas_attention}{lines}",
             launches_of(f"flash_attention_{name}")[1].get(
                 "unetr_training_f32", 0), t,
-            f"the f32 {what} kernel (plain FMA) at [{b},8,2048,64]; bound_ms "
-            "at 3xTF32, bound_fma_ms at 67 TFLOP/s; launches: UNETR's f32 "
-            "step; library: F.scaled_dot_product_attention in f32"
+            f"the f32 {what} kernel "
+            + ("(plain FMA on shared-memory tiles)" if name == "fwd" else
+               "(3xTF32 wgmma; ms includes its preparation kernel, which "
+               "writes the split, transposed and swizzled images of the "
+               "streamed tiles)")
+            + f" at [{b},8,2048,64]; bound_ms at 3xTF32, bound_fma_ms at 67 "
+            "TFLOP/s; launches: UNETR's f32 step; library: "
+            "F.scaled_dot_product_attention in f32"
             + ("" if name == "fwd" else " forward + backward"),
             t["library_ms"]))
         kernels[-1]["bound_fma_ms"] = t["bound_fma_ms"]
+        kernels[-1]["kernel"] = {
+            "fwd": "flash_fwd_f32_kernel",
+            "bwd_dq": "flash_bwd_dq_tf32x3_kernel",
+            "bwd_dkv": "flash_bwd_dkv_tf32x3_kernel"}[name]
         kernels[-1]["launches_by_path"] = {
             "unetr_training_f32": kernels[-1]["launches"]}
         if name != "fwd":

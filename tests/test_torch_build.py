@@ -46,16 +46,38 @@ def _declared(pattern):
 
 
 def test_single_entry_points_have_signatures():
-    """The conv's Hopper entry points have no f32 twin and are bound by
-    name with as many arguments as the source declares: 14 for the
-    launcher, pointers as pointers."""
+    """The conv's Hopper entry points and the f32 attention backward's
+    preparation have no twin of the other type and are bound by name with
+    as many arguments as the source declares: 14 for the conv launcher,
+    pointers as pointers."""
     import ctypes
 
     sig = build._SINGLE["adell_conv3d_wgmma_bf16"]
     assert len(sig) == 14
     assert sig[:4] == [ctypes.c_void_p] * 4 and sig[-1] is ctypes.c_void_p
-    declared = _declared(r"adell_conv3d_w\w*")
+    declared = _declared(r"adell_conv3d_w\w*|adell_flash_image_f32")
     assert declared == {name: len(s) for name, s in build._SINGLE.items()}
+
+
+def test_flash_entry_points_have_signatures():
+    """The attention entry points, generated for bf16 and f32 by one macro,
+    are bound with as many arguments as it declares: the backward ones
+    take the f32 kernels' workspace after their outputs (null in bf16)."""
+    import ctypes
+    import re
+
+    source = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    declared = {m.group(1): m.group(2).count(",") + 1
+                for m in re.finditer(r'extern "C" int (adell_flash_\w+?)'
+                                     r"_##SUFFIX\(([^)]*)\)", source)}
+    assert declared == {stem: len(sig) for stem, sig
+                        in build._SIGNATURES.items()
+                        if stem.startswith("adell_flash")}
+    assert build._SIGNATURES["adell_flash_bwd_dq"][:8] == [ctypes.c_void_p] * 8
+    assert (build._SIGNATURES["adell_flash_bwd_dkv"][:9]
+            == [ctypes.c_void_p] * 9)
+    image = build._SINGLE["adell_flash_image_f32"]
+    assert image[0] is ctypes.c_int and image[-1] is ctypes.c_void_p
 
 
 def test_wgrad_entry_points_have_signatures():

@@ -8,7 +8,9 @@ card's machine does not need). Tolerances: one bf16 ulp of the output
 scale for bf16 (both sides sum in f32 and round once), 1e-4 of it for f32
 on any route and 1e-5 on the 3xTF32 route, as in ``chip_smoke.py``; for
 the gradients one bf16 ulp and 1e-3 in f32 with TF32 off. The attention kernels: 2e-5 (forward) and 1e-4 (backward)
-of the scale in f32 (summation order); one bf16 ulp (2^-7) of the scale in
+of the scale in f32 (summation order; the backward on 3xTF32 kernels,
+whose preparation kernel is held to its plain version bit for bit); one
+bf16 ulp (2^-7) of the scale in
 bf16, where kernel and plain version both round p and ds to bf16 once, the
 kernel against its running maximum and the plain version against the final
 one.
@@ -670,11 +672,68 @@ def test_launch_plan_is_the_launchers(cuda, d, dtype):
 
     fn = getattr(load_library(), f"adell_flash_plan_{kattn._SUFFIX[dtype]}")
     for kind, stem in enumerate(kattn._KINDS):
-        got = (ctypes.c_int * 3)()
+        got = (ctypes.c_int * 5)()
         assert fn(kind, d, got) == 0
         plan = kattn.launch_plan(stem, dtype, 1, 64, 64, d)
-        assert list(got) == [plan["rows"], plan["threads"], plan["smem"]]
+        assert list(got) == [plan[k] for k in ("rows", "threads", "smem",
+                                               "tile", "image")]
     assert fn(3, d, got) != 0 and fn(0, 48, got) != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 8, 2048, 2048, 64),
+                                   (1, 8, 2050, 2311, 64),
+                                   (1, 3, 2050, 2311, 32)], ids=str)
+def test_flash_attention_f32_backward_on_tf32x3(cuda, shape):
+    """The f32 dQ and dK/dV (3xTF32 kernels) at UNETR's training shape and
+    ragged ones: within 1e-4 of the output scale of the plain versions,
+    one launch each, and the same bits twice."""
+    q, k, v, g = _attention_inputs(shape, torch.float32, cuda, 7)
+    scale = shape[-1] ** -0.5
+    lse, delta = kattn.backward_rows(
+        *kattn.flash_attention_fwd_reference(q, k, v, scale), g)
+    args = (q, k, v, g, lse, delta, scale)
+    before = (kattn.flash_attention_bwd_dq.launches,
+              kattn.flash_attention_bwd_dkv.launches)
+    got = (kattn.flash_attention_bwd_dq(*args),
+           *kattn.flash_attention_bwd_dkv(*args))
+    assert (kattn.flash_attention_bwd_dq.launches,
+            kattn.flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (kattn.flash_attention_bwd_dq_reference(*args),
+            *kattn.flash_attention_bwd_dkv_reference(*args))
+    again = (kattn.flash_attention_bwd_dq(*args),
+             *kattn.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for a, w, b in zip(got, want, again):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        assert _within(a, w, 1e-4)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", kattn.HEAD_DIMS)
+@pytest.mark.parametrize("kind", [0, 1])
+def test_tf32x3_image_kernel_matches_plain(cuda, kind, d):
+    """The f32 backward's preparation kernel writes exactly the bits of
+    ``flash_tf32x3_image_reference``, ragged last tile and (kind 1) lse,
+    delta and the zero tail included."""
+    from adell_mri_torch.ops.kernels.build import load_library
+
+    q, k, v, g = _attention_inputs((2, 3, 70, 97, d), torch.float32, cuda, 8)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    lse, delta = (torch.randn((2, 3, 70, 1), generator=gen, device=cuda)
+                  for _ in range(2))
+    a, b = (k, v) if kind == 0 else (q, g)
+    want = kattn.flash_tf32x3_image_reference(kind, a, b, lse, delta)
+    got = torch.full_like(want, float("nan"))
+    rc = load_library().adell_flash_image_f32(
+        kind, a.data_ptr(), b.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        got.data_ptr(), 6, a.shape[2], d,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
