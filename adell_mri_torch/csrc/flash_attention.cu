@@ -1,7 +1,7 @@
 // Blockwise (flash) softmax attention for Hopper: forward, dQ and dK/dV.
 //
 // Replaces the four TPU kernels of adell_mri_tpu/ops/pallas/attention.py:
-//   flash_fwd_{bf16,f32}_kernel     <- _flash_kernel_vmem and _flash_kernel
+//   flash_fwd_{bf16,tf32x3}_kernel  <- _flash_kernel_vmem and _flash_kernel
 //                                      (one function: the VMEM-resident
 //                                      variant only worked around a TPU
 //                                      compile-service fault)
@@ -86,13 +86,14 @@
 // would need them). What bounds it now: three products on the tensor cores
 // and one barrier a tile, as in the forward.
 //
-// In f32 (the CLI's default precision), dQ and dK/dV are 3xTF32 `wgmma`
-// kernels (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel, fed by
-// flash_tf32x3_image_kernel; their section says how and why), and the
-// forward is still plain FMA on shared-memory tiles (flash_fwd_f32_kernel).
+// In f32 (the CLI's default precision), all three are 3xTF32 `wgmma`
+// kernels (flash_fwd_tf32x3_kernel, flash_bwd_dq_tf32x3_kernel,
+// flash_bwd_dkv_tf32x3_kernel), each fed by flash_tf32x3_image_kernel; their
+// section says how and why.
 //
-// C interface (loaded with ctypes): each launcher enqueues one kernel on the
-// given stream and returns cudaGetLastError().
+// C interface (loaded with ctypes): each launcher enqueues its kernels (the
+// f32 ones the preparation kernel first) on the given stream and returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,169 +104,7 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key/value rows per tile
-constexpr int THREADS = 128;  // 4 warps; two threads share a score row
-constexpr int PAD = 1;   // an odd f32 row length spreads a column over banks
-constexpr int CPAD = 4;  // score and accumulator tiles
 constexpr float NEG = -1e30f;
-
-static_assert(THREADS == 2 * BQ, "two threads per score row");
-
-__host__ __device__ constexpr int round128(int bytes) {
-  return (bytes + 127) / 128 * 128;
-}
-
-// Hands out 128-byte aligned pieces of the block's dynamic shared memory.
-struct Carver {
-  unsigned char* p;
-  template <typename U>
-  __device__ U* take(int n) {
-    U* r = reinterpret_cast<U*>(p);
-    p += round128(n * (int)sizeof(U));
-    return r;
-  }
-};
-
-// Copies ROWS rows of D values, starting at row0 of a [n_rows, D] matrix,
-// into a shared tile with row length ld; rows past n_rows become zeros.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* tile, int ld, const T* g,
-                                          int row0, int n_rows) {
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
-    int r = idx / D, c = idx % D;
-    tile[r * ld + c] =
-        (row0 + r < n_rows) ? g[(size_t)(row0 + r) * D + c] : T(0);
-  }
-}
-
-// Writes the first rows (< n_rows - row0) of an f32 shared tile to a
-// [n_rows, D] matrix, each row divided by row_div[r].
-template <int D, int ROWS>
-__device__ __forceinline__ void store_tile(float* g, int row0, int n_rows,
-                                           const float* tile, int ld,
-                                           const float* row_div) {
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
-    int r = idx / D, c = idx % D;
-    if (row0 + r < n_rows)
-      g[(size_t)(row0 + r) * D + c] = tile[r * ld + c] / row_div[r];
-  }
-}
-
-__device__ __forceinline__ void zero_tile(float* tile, int n) {
-  for (int idx = threadIdx.x; idx < n; idx += THREADS) tile[idx] = 0.f;
-}
-
-// C[M, N] (+)= A[M, K] B[K, N] on f32 tiles in shared memory, by the whole
-// block. TB: B is stored transposed (B(k, j) at B[j * ldb + k]). ACC adds
-// to what C holds. One FMA chain per element of C.
-template <int M, int N, int K, bool TB, bool ACC>
-__device__ __forceinline__ void tile_mma(float* C, int ldc, const float* A,
-                                         int lda, const float* B, int ldb) {
-  for (int idx = threadIdx.x; idx < M * N; idx += THREADS) {
-    const int i = idx / N, j = idx % N;
-    float acc = ACC ? C[i * ldc + j] : 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k)
-      acc = fmaf(A[i * lda + k], TB ? B[j * ldb + k] : B[k * ldb + j], acc);
-    C[i * ldc + j] = acc;
-  }
-}
-
-// Shared-memory layout of the f32 forward, in one place for the kernel
-// (which carves it) and the launcher (which asks for its size).
-template <typename T, int D>
-struct Layout {
-  static constexpr int LD = D + PAD;    // q, k, v, dO tiles
-  static constexpr int PLD = BK + PAD;  // p, ds tiles
-  static constexpr int SLD = BK + CPAD;       // score tiles (f32)
-  static constexpr int OLD = D + CPAD;        // accumulators (f32)
-  static constexpr int IN_TILE = round128(BQ * LD * (int)sizeof(T));
-  static constexpr int P_TILE = round128(BQ * PLD * (int)sizeof(T));
-  static constexpr int S_TILE = round128(BQ * SLD * 4);
-  static constexpr int O_TILE = round128(BQ * OLD * 4);
-  static constexpr int ROW = round128(BQ * 4);
-  static constexpr int FWD = 3 * IN_TILE + S_TILE + P_TILE + O_TILE + ROW;
-};
-static_assert(BQ == BK, "the layout sizes Q-side and KV-side tiles alike");
-
-// ------------------------------------------------------- forward, f32 ---
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out,
-                         float* __restrict__ m_out, float* __restrict__ l_out,
-                         int n_q, int n_kv, float scale) {
-  using T = float;
-  using L = Layout<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver carve{smem};
-  T* Qs = carve.take<T>(BQ * L::LD);
-  T* Ks = carve.take<T>(BK * L::LD);
-  T* Vs = carve.take<T>(BK * L::LD);
-  float* Ss = carve.take<float>(BQ * L::SLD);
-  T* Ps = carve.take<T>(BQ * L::PLD);
-  float* Os = carve.take<float>(BQ * L::OLD);
-  float* Ls = carve.take<float>(BQ);
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const T* qb = q + (size_t)bh * n_q * D;
-  const T* kb = k + (size_t)bh * n_kv * D;
-  const T* vb = v + (size_t)bh * n_kv * D;
-
-  load_tile<T, D, BQ>(Qs, L::LD, qb, q0, n_q);
-  zero_tile(Os, BQ * L::OLD);
-
-  // two neighbouring threads own one score row, columns interleaved
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-  float m_run = NEG, l_run = 0.f;
-
-  for (int kv0 = 0; kv0 < n_kv; kv0 += BK) {
-    load_tile<T, D, BK>(Ks, L::LD, kb, kv0, n_kv);
-    load_tile<T, D, BK>(Vs, L::LD, vb, kv0, n_kv);
-    __syncthreads();
-    tile_mma<BQ, BK, D, true, false>(Ss, L::SLD, Qs, L::LD, Ks, L::LD);
-    __syncthreads();
-
-    float* srow = Ss + row * L::SLD;
-    float mx = NEG;
-    for (int c = half; c < BK; c += 2) {
-      float s = (kv0 + c < n_kv) ? srow[c] * scale : NEG;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
-    for (int c = half; c < BK; c += 2) {
-      float p = expf(srow[c] - m_new);
-      sum += p;
-      Ps[row * L::PLD + c] = p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = expf(m_run - m_new);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    for (int c = half; c < D; c += 2) Os[row * L::OLD + c] *= alpha;
-    __syncthreads();
-
-    tile_mma<BQ, D, BK, false, true>(Os, L::OLD, Ps, L::PLD, Vs, L::LD);
-    __syncthreads();
-  }
-
-  if (half == 0) {
-    Ls[row] = fmaxf(l_run, 1e-30f);
-    if (q0 + row < n_q) {
-      m_out[(size_t)bh * n_q + q0 + row] = m_run;
-      l_out[(size_t)bh * n_q + q0 + row] = l_run;
-    }
-  }
-  __syncthreads();
-  store_tile<D, BQ>(out + (size_t)bh * n_q * D, q0, n_q, Os, L::OLD, Ls);
-}
 
 // ------------------------------------------------------ forward, bf16 ---
 
@@ -306,27 +145,28 @@ struct FwdPlan {
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
 };
 
-// The online softmax of one 64 x 64 score tile held in registers, in two
-// halves. The first takes the new running maximum m (in units of s, the raw
-// q k^T) and returns in a_lo, a_hi what the rows' earlier sums must be
-// scaled by; it shuffles inside the quad, and ptxas ends a wgmma stage at a
-// shuffle, so no product may be in flight here. c = scale * log2(e) > 0;
-// with MASKED, columns from valid_cols on count as minus infinity (the
+// The online softmax of one 64 x N score tile held in registers (R = N / 2
+// a thread: 64 x 64 in bf16, 64 x 32 in the 3xTF32 forward), in two halves.
+// The first takes the new running maximum m (in units of s, the raw q k^T)
+// and returns in a_lo, a_hi what the rows' earlier sums must be scaled by;
+// it shuffles inside the quad, and ptxas ends a wgmma stage at a shuffle,
+// so no product may be in flight here. c = scale * log2(e) > 0; with
+// MASKED, columns from valid_cols on count as minus infinity (the
 // sequence's last tile).
-template <bool MASKED>
-__device__ __forceinline__ void softmax_max(float (&s)[32], float c,
+template <bool MASKED, int R>
+__device__ __forceinline__ void softmax_max(float (&s)[R], float c,
                                             int valid_cols, int col0,
                                             float& m_lo, float& m_hi,
                                             float& a_lo, float& a_hi) {
   using namespace hopper;
   if (MASKED) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < R; ++i)
       if ((i / 4) * 8 + col0 + (i % 2) >= valid_cols) s[i] = NEG;
   }
   float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < R; ++i) {
     if ((i / 2) % 2)
       mx_hi = fmaxf(mx_hi, s[i]);
     else
@@ -345,7 +185,8 @@ __device__ __forceinline__ void softmax_max(float (&s)[32], float c,
 // The second half: s becomes p = exp(scale (s - m)) and l takes this
 // thread's share of the row sums. Plain arithmetic, which may run while a
 // product of other registers is in flight.
-__device__ __forceinline__ void softmax_exp(float (&s)[32], float c,
+template <int R>
+__device__ __forceinline__ void softmax_exp(float (&s)[R], float c,
                                             float m_lo, float m_hi,
                                             float a_lo, float a_hi,
                                             float& l_lo, float& l_hi) {
@@ -353,7 +194,7 @@ __device__ __forceinline__ void softmax_exp(float (&s)[32], float c,
   const float off_lo = -m_lo * c, off_hi = -m_hi * c;
   float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < R; ++i) {
     if ((i / 2) % 2) {
       s[i] = exp2_approx(fmaf(s[i], c, off_hi));
       sum_hi += s[i];
@@ -911,18 +752,19 @@ __global__ void __launch_bounds__(DkvPlan<D>::THREADS)
   }
 }
 
-// ------------------------------------------ dQ and dK/dV, f32 (3xTF32) ---
+// ---------------------------------- forward, dQ and dK/dV, f32 (3xTF32) ---
 
-// The f32 backward on the tensor cores: each f32 product is three TF32
+// The f32 kernels on the tensor cores: each f32 product is three TF32
 // `wgmma` products (3xTF32, as csrc/conv3d_tf32.cu): an operand v is split
 // into big = tf32(v) and small = tf32(v - big), and a b is taken as small_a
 // big_b + big_a small_b + big_a big_b. What the bf16 kernels do cannot be
 // carried over as it is, for three reasons, and the design answers each:
 //
 //   - TF32 `wgmma` reads B K-major only (A from registers, or K-major from
-//     shared memory). ds k (dQ) contracts over key rows, p^T dO and ds^T q
-//     (dK/dV) over query rows, so their B operands are the streamed tiles
-//     transposed: K^T, dO^T and Q^T. Of the two ways out, a transposed copy
+//     shared memory). p v (forward) and ds k (dQ) contract over key rows,
+//     p^T dO and ds^T q (dK/dV) over query rows, so their B operands are
+//     the streamed tiles transposed: V^T, K^T, dO^T and Q^T. Of the two ways
+//     out, a transposed copy
 //     of each such tile and products swapped so that the tile becomes a
 //     register A operand, the copy is taken: the swap would move p or ds,
 //     big and small, through shared memory instead (as many bytes a tile,
@@ -946,11 +788,12 @@ __global__ void __launch_bounds__(DkvPlan<D>::THREADS)
 //
 // Shared memory and registers bound the shapes. A panel (one operand of a
 // streamed tile, 32 rows by D or D rows by 32) is 128 D bytes, big and
-// small twice that: a dQ stage (K, V, K^T) is 48 KB at D = 64, a dK/dV
-// stage (Q, dO, Q^T, dO^T and 32 lse and delta values) 65 KB. Stream tiles
-// of 32 rows (not 64) keep the score tiles at 16 registers a thread and
-// three (dQ) or two (dK/dV) stages in shared memory. The fixed operands
-// (dQ: the block's Q and dO rows; dK/dV: its K and V rows) are A operands:
+// small twice that: a forward stage (K, V^T) is 32 KB at D = 64, a dQ stage
+// (K, V, K^T) 48 KB, a dK/dV stage (Q, dO, Q^T, dO^T and 32 lse and delta
+// values) 65 KB. Stream tiles of 32 rows (not 64) keep the score tiles at
+// 16 registers a thread and three (forward, dQ) or two (dK/dV) stages in
+// shared memory. The fixed operands (the forward's query rows;
+// dQ: the block's Q and dO rows; dK/dV: its K and V rows) are A operands:
 // they stay raw in shared memory (rows padded by 4 f32, so that ldmatrix
 // meets no bank conflict) and are split per k-step after an ldmatrix, as
 // the conv splits its A. Each k-step's products are one commit group, and
@@ -961,13 +804,16 @@ __global__ void __launch_bounds__(DkvPlan<D>::THREADS)
 // The tensor cores' own f32 sums drop low bits at each product they add
 // (as the conv found), so dq, dk and dv are summed in the tensor cores over
 // SUM_TILES stream tiles (64 rows) at a time, and each such sum is added to
-// f32 register sums rounded to nearest.
+// f32 register sums rounded to nearest. The forward's output sums are
+// rescaled by the online softmax every tile, so each tile's p v is a fresh
+// tensor-core sum: acc = acc alpha + part, in f32 registers.
 //
 // What bounds them on the H100: operations, at the 3xTF32 rate (494.7 / 3
-// TFLOP/s): at [2, 8, 2048, 64] dQ does 25.8 GFLOP (0.156 ms), dK/dV 34.4
-// (0.208 ms). The images add about 3x (dQ) and 4x (dK/dV) the bytes of
-// the tiles they are made from, read once and written once by the
-// preparation kernel, then read from L2 by every block of the head.
+// TFLOP/s): at [2, 8, 2048, 64] the forward does 17.2 GFLOP (0.104 ms), dQ
+// 25.8 (0.156 ms), dK/dV 34.4 (0.208 ms). The images add about 2x
+// (forward), 3x (dQ) and 4x (dK/dV) the bytes of the tiles they are made
+// from, read once and written once by the preparation kernel, then read
+// from L2 by every block of the head.
 namespace tf32x3 {
 
 constexpr int NWG = 2;              // warpgroups a block
@@ -982,31 +828,40 @@ constexpr int PREP_THREADS = 256;
 constexpr int SUM_TILES = 2;
 
 // The bytes of a streamed tile's image, by kernel, and the shared memory
-// of each kernel: the ring of images, then the two raw A operands.
+// of each kernel: the ring of images, then the raw A operands (one in the
+// forward, two in the backward).
 template <int D>
 struct Plan {
   static_assert(D == 32 || D == 64, "head dims 32 and 64");
   static constexpr int PANEL = 128 * D;  // big or small half of a panel
   static constexpr int SUB = TILE * 128;  // a 32-row sub-tile of a panel
+  // forward: K (32 rows by D), V^T (D rows by 32)
+  static constexpr int FWD_IMAGE = 2 * 2 * PANEL;
   // dQ: K and V (32 rows by D), K^T (D rows by 32)
   static constexpr int DQ_IMAGE = 3 * 2 * PANEL;
   // dK/dV: Q and dO, Q^T and dO^T, then lse and delta of the 32 rows
   static constexpr int DKV_ROWS_AT = 4 * 2 * PANEL;
   static constexpr int DKV_IMAGE = DKV_ROWS_AT + 1024;
+  // the forward's stages: 2 to 5 gave the same time within 1 % on the
+  // H100 (PERF.md), every block of a head reading the same images from L2
+  static constexpr int FWD_STAGES = 3;
   static constexpr int DQ_STAGES = 3;
   static constexpr int DKV_STAGES = 2;
   static constexpr int LDA = D + 4;  // f32 a row of a raw A operand
   static constexpr int A_BYTES = ROWS * LDA * 4;
   // 1024 more: the kernel rounds its base up to the swizzle's alignment
+  static constexpr int FWD_SMEM = FWD_STAGES * FWD_IMAGE + A_BYTES + 1024;
   static constexpr int DQ_SMEM = DQ_STAGES * DQ_IMAGE + 2 * A_BYTES + 1024;
   static constexpr int DKV_SMEM = DKV_STAGES * DKV_IMAGE + 2 * A_BYTES + 1024;
-  static_assert(DQ_SMEM <= 232448 && DKV_SMEM <= 232448, "shared memory");
+  static_assert(FWD_SMEM <= 232448 && DQ_SMEM <= 232448 &&
+                    DKV_SMEM <= 232448,
+                "shared memory");
 };
 
 // Writes the image of each 32-row tile of the streamed operands a and b
 // ([BH, n, D] f32): kind 0 (dQ: a = K, b = V) panels a, b, a^T; kind 1
-// (dK/dV: a = Q, b = dO) panels a, b, a^T, b^T, then lse and delta.
-// Grid (tiles, BH). A panel is its big half then its small half; a half is
+// (dK/dV: a = Q, b = dO) panels a, b, a^T, b^T, then lse and delta; kind 2
+// (forward: a = K, b = V) panels a, b^T. Grid (tiles, BH). A panel is its big half then its small half; a half is
 // sub-tiles of 32 (natural) or D (transposed) rows of 128 bytes whose
 // 16-byte chunks are swizzled (chunk c of row r at c ^ (r % 8)). Rows past
 // n are zeros.
@@ -1022,17 +877,19 @@ __global__ void __launch_bounds__(PREP_THREADS)
   constexpr int CHUNKS = P::PANEL / 16;  // 16-byte chunks of a half
   const int tile = blockIdx.x, bh = blockIdx.y;
   const int row0 = tile * TILE;
-  const int bytes = kind == 0 ? P::DQ_IMAGE : P::DKV_IMAGE;
+  const int bytes = kind == 0   ? P::DQ_IMAGE
+                    : kind == 1 ? P::DKV_IMAGE
+                                : P::FWD_IMAGE;
   unsigned char* out = reinterpret_cast<unsigned char*>(image) +
                        ((size_t)bh * gridDim.x + tile) * bytes;
   const float* src_a = a + (size_t)bh * n * D;
   const float* src_b = b + (size_t)bh * n * D;
-  const int panels = kind == 0 ? 3 : 4;
+  const int panels = kind == 0 ? 3 : kind == 1 ? 4 : 2;
   for (int i = threadIdx.x; i < panels * CHUNKS; i += PREP_THREADS) {
     const int panel = i / CHUNKS, ci = i % CHUNKS;
     const float* src = panel % 2 ? src_b : src_a;
     float v[4];
-    if (panel < 2) {
+    if (kind == 2 ? panel == 0 : panel < 2) {
       // natural: sub-tile ci / 256 holds columns 32 (ci / 256) .. + 31
       const int r = ci % 256 / 8, c = (ci % 8) ^ (r & 7);
       const int row = row0 + r, d = 32 * (ci / 256) + 4 * c;
@@ -1117,6 +974,143 @@ __device__ __forceinline__ void products3(float (&d)[R],
   wgmma_tf32(d, small, T::desc(b_big), fresh ? 0 : 1);
   wgmma_tf32(d, big, T::desc(b_big + PANEL), 1);
   wgmma_tf32(d, big, T::desc(b_big), 1);
+}
+
+// Turn u: the forward's part of stream tile u (32 key rows). s = q k^T
+// against the K panel (k-steps of 8 along D, each one group), the online
+// softmax of s in registers (row maxima by two quad shuffles, as in the
+// bf16 forward), then p v against the V^T panel (k-steps of 8 key rows)
+// into a fresh tensor-core sum, which the rescaled f32 register sums take.
+// Every group is waited for within the turn, so the next turn may
+// overwrite the stage of this one, and no commit group depends on a branch.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ image,
+                            float* __restrict__ out, float* __restrict__ m_out,
+                            float* __restrict__ l_out, int n_q, int n_kv,
+                            float scale) {
+  using namespace hopper;
+  using P = Plan<D>;
+  constexpr int STAGES = P::FWD_STAGES, KS = D / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sImg = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = sImg + STAGES * P::FWD_IMAGE;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int wrow = wg * 64 + (tid % 128) / 32 * 16;  // warp's first row
+  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int n_tiles = (n_kv + TILE - 1) / TILE;
+  const float* img = image + (size_t)bh * n_tiles * (P::FWD_IMAGE / 4);
+
+  // the first group: the block's query rows and the first image
+  load_raw<D>(sQ, q + (size_t)bh * n_q * D, q0, n_q);
+  auto load_tile = [&](int u) {
+    if (u < n_tiles)
+      load_image(sImg + u % STAGES * P::FWD_IMAGE,
+                 img + (size_t)u * (P::FWD_IMAGE / 4), P::FWD_IMAGE);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int u = 0; u < STAGES - 1; ++u) load_tile(u);
+
+  // this lane's ldmatrix row of its warp's 16 and half of a k-step
+  const uint32_t a_off =
+      (wrow + (lane & 7) + 8 * ((lane >> 3) & 1)) * P::LDA * 4 +
+      (lane >> 4) * 16;
+  const int r_lo = q0 + wrow + lane / 4, r_hi = r_lo + 8;
+  const int col0 = (lane % 4) * 2;
+  const float c = scale * LOG2E;
+
+  // f32 sums rounded to nearest, and the tensor cores' sum of one tile
+  float acc[D / 2], part[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // running maximum of q k^T (unscaled) and this thread's share of the
+  // running sum, for rows r_lo (lo) and r_hi (hi)
+  float m_lo = NEG, m_hi = NEG, l_lo = 0.f, l_hi = 0.f;
+  float s[16];
+  uint32_t big[2][4], small[2][4];  // [buffer][register]
+
+  for (int u = 0; u < n_tiles; ++u) {
+    // tile u has landed for every thread, and every warpgroup is done with
+    // tile u - 1, whose stage the next load overwrites
+    cp_async_wait<STAGES - 2>();
+    fence_async_proxy();
+    __syncthreads();
+    load_tile(u + STAGES - 1);
+    const uint32_t st = sImg + u % STAGES * P::FWD_IMAGE;
+
+    // s: panel K (0), k-step kk of sub-tile kk / 4
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t raw[4];
+      const int bf = kk & 1;
+      ldmatrix_x4(raw, sQ + a_off + kk * 32);
+      split(raw, big[bf], small[bf]);
+      wg_fence();
+      products3<P::PANEL>(s, big[bf], small[bf],
+                          st + kk / 4 * P::SUB + kk % 4 * 32, kk == 0);
+      wg_commit();
+      wg_wait<1>();
+    }
+    wg_wait<0>();
+    reg_fence(s);
+
+    // the bf16 forward's online softmax; key columns past n_kv (the last
+    // tile's zero rows) count as minus infinity, a select in every turn
+    float a_lo, a_hi;
+    softmax_max<true>(s, c, n_kv - u * TILE, col0, m_lo, m_hi, a_lo, a_hi);
+    softmax_exp(s, c, m_lo, m_hi, a_lo, a_hi, l_lo, l_hi);
+
+    // part = p v: panel V^T (1), k-step j of 8 key rows
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      uint32_t raw[4];
+      const int bf = j & 1;
+      sums_fragment(s, j, raw);
+      split(raw, big[bf], small[bf]);
+      wg_fence();
+      products3<P::PANEL>(part, big[bf], small[bf],
+                          st + 2 * P::PANEL + j * 32, j == 0);
+      wg_commit();
+      wg_wait<1>();
+    }
+    wg_wait<0>();
+    reg_fence(part);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      acc[i] = fmaf(acc[i], (i / 2) % 2 ? a_hi : a_lo, part[i]);
+  }
+  cp_async_wait<0>();
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  if (lane % 4 == 0) {
+    if (r_lo < n_q) {
+      m_out[(size_t)bh * n_q + r_lo] = m_lo * scale;
+      l_out[(size_t)bh * n_q + r_lo] = l_lo;
+    }
+    if (r_hi < n_q) {
+      m_out[(size_t)bh * n_q + r_hi] = m_hi * scale;
+      l_out[(size_t)bh * n_q + r_hi] = l_hi;
+    }
+  }
+  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  float* ob = out + (size_t)bh * n_q * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r_lo < n_q)
+      *reinterpret_cast<float2*>(ob + (size_t)r_lo * D + col) =
+          make_float2(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
+    if (r_hi < n_q)
+      *reinterpret_cast<float2*>(ob + (size_t)r_hi * D + col) =
+          make_float2(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi);
+  }
 }
 
 // Turn u: dq's part of stream tile u (32 key rows). s = q k^T and dp = dO
@@ -1412,64 +1406,37 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ----------------------------------------------------------- launchers ---
 
-// Grid, block and shared memory of each kernel: the Hopper kernels for
-// bf16; for f32 the shared-memory forward and the 3xTF32 backward.
+// Grid, block and shared memory of each kernel: the bf16 kernels, or for
+// f32 the 3xTF32 ones.
 template <typename T, int D>
 struct Launch {
-  static constexpr bool HOPPER = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   using F = tf32x3::Plan<D>;
-  static constexpr int FWD_ROWS = HOPPER ? FwdPlan<D>::ROWS : BQ;
-  static constexpr int FWD_THREADS = HOPPER ? FwdPlan<D>::THREADS : THREADS;
-  static constexpr int FWD_SMEM = HOPPER ? FwdPlan<D>::SMEM : Layout<float, D>::FWD;
-  static constexpr int DQ_ROWS = HOPPER ? DqPlan<D>::ROWS : tf32x3::ROWS;
-  static constexpr int DQ_THREADS = HOPPER ? DqPlan<D>::THREADS : tf32x3::THREADS;
-  static constexpr int DQ_SMEM = HOPPER ? DqPlan<D>::SMEM : F::DQ_SMEM;
-  static constexpr int DKV_ROWS = HOPPER ? DkvPlan<D>::ROWS : tf32x3::ROWS;
-  static constexpr int DKV_THREADS = HOPPER ? DkvPlan<D>::THREADS : tf32x3::THREADS;
-  static constexpr int DKV_SMEM = HOPPER ? DkvPlan<D>::SMEM : F::DKV_SMEM;
-  // rows of a streamed tile, and bytes of its image (f32 backward only)
-  static constexpr int FWD_TILE = HOPPER ? 64 : BK;
-  static constexpr int DQ_TILE = HOPPER ? 64 : tf32x3::TILE;
-  static constexpr int DKV_TILE = DQ_TILE;
-  static constexpr int DQ_IMAGE = HOPPER ? 0 : F::DQ_IMAGE;
-  static constexpr int DKV_IMAGE = HOPPER ? 0 : F::DKV_IMAGE;
+  static constexpr int FWD_ROWS = BF16 ? FwdPlan<D>::ROWS : tf32x3::ROWS;
+  static constexpr int FWD_THREADS = BF16 ? FwdPlan<D>::THREADS : tf32x3::THREADS;
+  static constexpr int FWD_SMEM = BF16 ? FwdPlan<D>::SMEM : F::FWD_SMEM;
+  static constexpr int DQ_ROWS = BF16 ? DqPlan<D>::ROWS : tf32x3::ROWS;
+  static constexpr int DQ_THREADS = BF16 ? DqPlan<D>::THREADS : tf32x3::THREADS;
+  static constexpr int DQ_SMEM = BF16 ? DqPlan<D>::SMEM : F::DQ_SMEM;
+  static constexpr int DKV_ROWS = BF16 ? DkvPlan<D>::ROWS : tf32x3::ROWS;
+  static constexpr int DKV_THREADS = BF16 ? DkvPlan<D>::THREADS : tf32x3::THREADS;
+  static constexpr int DKV_SMEM = BF16 ? DkvPlan<D>::SMEM : F::DKV_SMEM;
+  // rows of a streamed tile, and bytes of its image (f32 only)
+  static constexpr int TILE = BF16 ? 64 : tf32x3::TILE;
+  static constexpr int FWD_IMAGE = BF16 ? 0 : F::FWD_IMAGE;
+  static constexpr int DQ_IMAGE = BF16 ? 0 : F::DQ_IMAGE;
+  static constexpr int DKV_IMAGE = BF16 ? 0 : F::DKV_IMAGE;
 };
 
-// The forward kernel of each input type, chosen by overload.
-template <int D>
-auto fwd_kernel(__nv_bfloat16) {
-  return flash_fwd_bf16_kernel<D>;
-}
-template <int D>
-auto fwd_kernel(float) {
-  return flash_fwd_f32_kernel<D>;
-}
-
-template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               void* m, void* l, int bh, int n_q, int n_kv, float scale,
-               cudaStream_t st) {
-  using L = Launch<T, D>;
-  auto kernel = fwd_kernel<D>(T());
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::FWD_SMEM);
-  if (rc != cudaSuccess) return (int)rc;
-  dim3 grid((n_q + L::FWD_ROWS - 1) / L::FWD_ROWS, bh);
-  kernel<<<grid, L::FWD_THREADS, L::FWD_SMEM, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(m),
-      static_cast<float*>(l), n_q, n_kv, scale);
-  return (int)cudaGetLastError();
-}
-
-// The images of the 3xTF32 backward (kind 0: a = K, b = V, n = Nkv; kind
-// 1: a = Q, b = dO, n = Nq, with lse and delta) into image, which holds
-// BH * ceil(n / 32) of them.
+// The images of the 3xTF32 kernels (kind 0, dQ: a = K, b = V, n = Nkv;
+// kind 1, dK/dV: a = Q, b = dO, n = Nq, with lse and delta; kind 2,
+// forward: a = K, b = V, n = Nkv) into image, which holds BH * ceil(n /
+// 32) of them.
 template <int D>
 int launch_image(int kind, const void* a, const void* b, const void* lse,
                  const void* delta, void* image, int bh, int n,
                  cudaStream_t st) {
-  if (kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   dim3 grid((n + tf32x3::TILE - 1) / tf32x3::TILE, bh);
   tf32x3::flash_tf32x3_image_kernel<D>
       <<<grid, tf32x3::PREP_THREADS, 0, st>>>(
@@ -1479,7 +1446,7 @@ int launch_image(int kind, const void* a, const void* b, const void* lse,
   return (int)cudaGetLastError();
 }
 
-// A kernel's attribute and launch, for the two families of dQ and dK/dV.
+// A kernel's attribute and launch, for the two families of each kernel.
 template <typename K, typename... Args>
 int launch_with(K kernel, dim3 grid, int threads, int smem, cudaStream_t st,
                 Args... args) {
@@ -1490,6 +1457,33 @@ int launch_with(K kernel, dim3 grid, int threads, int smem, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
+// The forward; image: the f32 kernel's workspace (unused in bf16), BH *
+// ceil(Nkv / 32) images of K and V, written here before the kernel reads
+// them.
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               void* m, void* l, void* image, int bh, int n_q, int n_kv,
+               float scale, cudaStream_t st) {
+  using L = Launch<T, D>;
+  dim3 grid((n_q + L::FWD_ROWS - 1) / L::FWD_ROWS, bh);
+  if constexpr (L::BF16) {
+    return launch_with(
+        flash_fwd_bf16_kernel<D>, grid, L::FWD_THREADS, L::FWD_SMEM, st,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out),
+        static_cast<float*>(m), static_cast<float*>(l), n_q, n_kv, scale);
+  } else {
+    const int rc = launch_image<D>(2, k, v, nullptr, nullptr, image, bh, n_kv,
+                                   st);
+    if (rc != 0) return rc;
+    return launch_with(
+        tf32x3::flash_fwd_tf32x3_kernel<D>, grid, L::FWD_THREADS,
+        L::FWD_SMEM, st, static_cast<const float*>(q),
+        static_cast<const float*>(image), static_cast<float*>(out),
+        static_cast<float*>(m), static_cast<float*>(l), n_q, n_kv, scale);
+  }
+}
+
 // dQ; image: the f32 kernel's workspace (unused in bf16), BH * ceil(Nkv /
 // 32) images of K and V, written here before the kernel reads them.
 template <typename T, int D>
@@ -1498,7 +1492,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               int bh, int n_q, int n_kv, float scale, cudaStream_t st) {
   using L = Launch<T, D>;
   dim3 grid((n_q + L::DQ_ROWS - 1) / L::DQ_ROWS, bh);
-  if constexpr (L::HOPPER) {
+  if constexpr (L::BF16) {
     return launch_with(
         flash_bwd_dq_bf16_kernel<D>, grid, L::DQ_THREADS, L::DQ_SMEM, st,
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -1526,7 +1520,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                cudaStream_t st) {
   using L = Launch<T, D>;
   dim3 grid((n_kv + L::DKV_ROWS - 1) / L::DKV_ROWS, bh);
-  if constexpr (L::HOPPER) {
+  if constexpr (L::BF16) {
     return launch_with(
         flash_bwd_dkv_bf16_kernel<D>, grid, L::DKV_THREADS, L::DKV_SMEM, st,
         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -1551,9 +1545,9 @@ template <typename T, int D>
 int plan_of(int kind, int* out) {
   using L = Launch<T, D>;
   const int plans[3][5] = {
-      {L::FWD_ROWS, L::FWD_THREADS, L::FWD_SMEM, L::FWD_TILE, 0},
-      {L::DQ_ROWS, L::DQ_THREADS, L::DQ_SMEM, L::DQ_TILE, L::DQ_IMAGE},
-      {L::DKV_ROWS, L::DKV_THREADS, L::DKV_SMEM, L::DKV_TILE, L::DKV_IMAGE},
+      {L::FWD_ROWS, L::FWD_THREADS, L::FWD_SMEM, L::TILE, L::FWD_IMAGE},
+      {L::DQ_ROWS, L::DQ_THREADS, L::DQ_SMEM, L::TILE, L::DQ_IMAGE},
+      {L::DKV_ROWS, L::DKV_THREADS, L::DKV_SMEM, L::TILE, L::DKV_IMAGE},
   };
   if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 5; ++i) out[i] = plans[kind][i];
@@ -1573,11 +1567,15 @@ int plan_of(int kind, int* out) {
 
 template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* out, void* m,
-        void* l, int bh, int n_q, int n_kv, int d, float scale, void* stream) {
+        void* l, void* image, int bh, int n_q, int n_kv, int d, float scale,
+        void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   ADELL_DISPATCH_HEAD_DIM(
-      d, (launch_fwd<T, 32>(q, k, v, out, m, l, bh, n_q, n_kv, scale, st)),
-      (launch_fwd<T, 64>(q, k, v, out, m, l, bh, n_q, n_kv, scale, st)))
+      d,
+      (launch_fwd<T, 32>(q, k, v, out, m, l, image, bh, n_q, n_kv, scale,
+                         st)),
+      (launch_fwd<T, 64>(q, k, v, out, m, l, image, bh, n_q, n_kv, scale,
+                         st)))
 }
 
 template <typename T>
@@ -1615,14 +1613,16 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// image: the f32 backward's workspace, BH * ceil(Nkv / 32) (dQ) or BH *
-// ceil(Nq / 32) (dK/dV) images of adell_flash_plan_f32's size; null in
-// bf16.
+// image: the f32 kernels' workspace, BH * ceil(Nkv / 32) (forward, dQ) or
+// BH * ceil(Nq / 32) (dK/dV) images of adell_flash_plan_f32's size; null
+// in bf16.
 #define ADELL_FLASH_ENTRY_POINTS(SUFFIX, T)                                   \
   extern "C" int adell_flash_fwd_##SUFFIX(                                    \
       const void* q, const void* k, const void* v, void* out, void* m,        \
-      void* l, int bh, int n_q, int n_kv, int d, float scale, void* stream) { \
-    return fwd<T>(q, k, v, out, m, l, bh, n_q, n_kv, d, scale, stream);       \
+      void* l, void* image, int bh, int n_q, int n_kv, int d, float scale,    \
+      void* stream) {                                                         \
+    return fwd<T>(q, k, v, out, m, l, image, bh, n_q, n_kv, d, scale,         \
+                  stream);                                                    \
   }                                                                           \
   extern "C" int adell_flash_bwd_dq_##SUFFIX(                                 \
       const void* q, const void* k, const void* v, const void* dout,          \
@@ -1645,9 +1645,10 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 ADELL_FLASH_ENTRY_POINTS(bf16, __nv_bfloat16)
 ADELL_FLASH_ENTRY_POINTS(f32, float)
 
-// The 3xTF32 backward's preparation alone, for tests: kind 0 writes the
-// images of a = K and b = V (n = Nkv), kind 1 those of a = Q, b = dO, lse
-// and delta (n = Nq), BH * ceil(n / 32) of them.
+// The 3xTF32 kernels' preparation alone, for tests: kind 0 (dQ) and 2
+// (forward) write the images of a = K and b = V (n = Nkv), kind 1 (dK/dV)
+// those of a = Q, b = dO, lse and delta (n = Nq), BH * ceil(n / 32) of
+// them.
 extern "C" int adell_flash_image_f32(int kind, const void* a, const void* b,
                                      const void* lse, const void* delta,
                                      void* image, int bh, int n, int d,

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels (attention in
-// bf16 and the 3xTF32 attention backward, conv forward and dx in bf16 and
-// 3xTF32, wgrad): swizzled 64-row tiles in
+// bf16 and 3xTF32, conv forward and dx in bf16 and 3xTF32, wgrad): swizzled
+// 64-row tiles in
 // shared memory, asynchronous copies into them, the matrix
 // descriptors that `wgmma` reads them through, and the warpgroup products
 // themselves as inline PTX.

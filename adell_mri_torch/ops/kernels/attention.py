@@ -23,16 +23,17 @@ Hopper kernels: warpgroup ``wgmma`` products whose sums, scores, p and ds
 stay in registers (dK/dV on transposed tiles, so it reduces nothing; dQ,
 which reduces nothing either, runs ds k of one tile while p and ds of the
 next are taken), fed by a ``cp.async`` ring of swizzled shared-memory
-tiles with one block barrier a tile. In f32, the CLI's default precision, dQ
-and dK/dV are 3xTF32 ``wgmma`` kernels: each f32 product is three TF32
+tiles with one block barrier a tile. In f32, the CLI's default precision,
+all three are 3xTF32 ``wgmma`` kernels: each f32 product is three TF32
 products of operands split into big and small halves, and a preparation
 kernel writes, per streamed tile of 32 rows, the image of a ring stage
 (the tile's operands split, transposed where a product contracts over the
 sequence, swizzled; ``flash_tf32x3_image_reference`` is its plain
-version) into a workspace the wrapper allocates. The f32 forward is plain
-FMA on shared-memory tiles. ``launch_plan`` mirrors the launchers' grids,
-shared-memory sizes and images; the source's header says what bounds each
-design.
+version) into a workspace the wrapper allocates. The forward keeps its
+online softmax in registers and adds each tile's p v, a fresh tensor-core
+sum, to rescaled f32 register sums. ``launch_plan`` mirrors the launchers'
+grids, shared-memory sizes and images; the source's header says what
+bounds each design.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch;
 for CPU tensors, and only for them, it runs its plain PyTorch version,
@@ -64,10 +65,10 @@ def launch_plan(stem, dtype, bh, n_q, n_kv, d):
     of it a block owns, ``threads`` a block, dynamic shared-memory
     ``smem`` bytes, ``tile`` rows of the other sequence a turn streams and
     ``image`` bytes of a streamed tile's prepared image (0 where the kernel
-    takes none: bf16 and the f32 forward). It repeats the layouts of
+    takes none: bf16). It repeats the layouts of
     ``csrc/flash_attention.cu`` (``FwdPlan``, ``DqPlan``, ``DkvPlan``,
-    ``Layout``, ``tf32x3::Plan``), whose ``adell_flash_plan_*`` the card
-    tests hold it to. The owned rows are query rows for ``fwd`` and
+    ``tf32x3::Plan``), whose ``adell_flash_plan_*`` the card tests hold it
+    to. The owned rows are query rows for ``fwd`` and
     ``bwd_dq``, key rows for ``bwd_dkv``."""
     if stem not in _KINDS:
         raise ValueError(f"launch_plan: stem must be one of {_KINDS}")
@@ -85,27 +86,19 @@ def launch_plan(stem, dtype, bh, n_q, n_kv, d):
             "bwd_dq": 3 * 2 * tile_b,
             "bwd_dkv": 2 * tile_b + 4 * (2 * tile_b + 2 * 64 * 4),
         }[stem] + 1024
-    elif stem == "fwd":
-        # the f32 forward on shared-memory tiles: tiles with rows padded by
-        # one value, score and accumulator tiles, each rounded up to 128
-        # bytes
-        def r128(n):
-            return (n + 127) // 128 * 128
-
-        t_in, t_p = r128(64 * (d + 1) * 4), r128(64 * 65 * 4)
-        t_s, t_o = r128(64 * 68 * 4), r128(64 * (d + 4) * 4)
-        smem = 3 * t_in + t_s + t_p + t_o + 256
     else:
-        # 3xTF32 backward: two warpgroups of 64 rows; a ring of images of
-        # 32-row tiles (3 for dQ: K, V, K^T; 2 for dK/dV: Q, dO, Q^T, dO^T
-        # and 1024 bytes for lse and delta), each panel 128 d bytes big and
-        # as many small; the block's two raw A operands, rows of d + 4 f32;
-        # 1024 bytes of slack to align the ring
+        # 3xTF32: two warpgroups of 64 rows; a ring of images of 32-row
+        # tiles (3 for the forward: K, V^T; 3 for dQ: K, V, K^T; 2 for
+        # dK/dV: Q, dO, Q^T, dO^T and 1024 bytes for lse and delta), each
+        # panel 128 d bytes big and as many small; the block's raw A
+        # operands (the forward's Q; dQ's Q and dO; dK/dV's K and V), rows
+        # of d + 4 f32; 1024 bytes of slack to align the ring
         rows, threads, tile = 128, 256, TF32X3_TILE
         panel = 128 * d
-        image, stages = {"bwd_dq": (6 * panel, 3),
-                         "bwd_dkv": (8 * panel + 1024, 2)}[stem]
-        smem = stages * image + 2 * rows * (d + 4) * 4 + 1024
+        image, stages, operands = {"fwd": (4 * panel, 3, 1),
+                                   "bwd_dq": (6 * panel, 3, 2),
+                                   "bwd_dkv": (8 * panel + 1024, 2, 2)}[stem]
+        smem = stages * image + operands * rows * (d + 4) * 4 + 1024
     owned = n_kv if stem == "bwd_dkv" else n_q
     return dict(grid=(-(-owned // rows), bh), rows=rows, threads=threads,
                 smem=smem, tile=tile, image=image)
@@ -177,11 +170,12 @@ def _swizzled(x):
 
 def flash_tf32x3_image_reference(kind, a, b, lse=None, delta=None):
     """Plain version of ``flash_tf32x3_image_kernel``, which prepares the
-    B operands of the 3xTF32 backward: ``a``, ``b`` f32 ``[B, H, n, D]``
+    B operands of the 3xTF32 kernels: ``a``, ``b`` f32 ``[B, H, n, D]``
     (kind 0, dQ: K and V; kind 1, dK/dV: Q and dO, with ``lse`` and
-    ``delta`` f32 ``[B, H, n, 1]``). Returns ``[B * H, tiles, floats]``:
-    for each tile of 32 rows (rows past n zero) the panels a, b, a^T (and
-    b^T for kind 1), each its big half ``tf32(x)`` then its small half
+    ``delta`` f32 ``[B, H, n, 1]``; kind 2, forward: K and V). Returns
+    ``[B * H, tiles, floats]``: for each tile of 32 rows (rows past n zero)
+    the panels a, b, a^T (and b^T for kind 1; a and b^T for kind 2), each
+    its big half ``tf32(x)`` then its small half
     ``tf32(x - big)``; a natural panel is D / 32 sub-tiles of 32 rows by
     32 columns, a transposed one D rows by the 32 tile rows, permuted
     inside each group of 8 by ``_PERM8``; every sub-tile 128-byte
@@ -206,7 +200,10 @@ def flash_tf32x3_image_reference(kind, a, b, lse=None, delta=None):
         return _swizzled(x[:, :, perm].transpose(2, 3))
 
     xa, xb = tiled(a.float()), tiled(b.float())
-    panels = [natural(xa), natural(xb), transposed(xa)]
+    if kind == 2:
+        panels = [natural(xa), transposed(xb)]
+    else:
+        panels = [natural(xa), natural(xb), transposed(xa)]
     if kind == 1:
         panels.append(transposed(xb))
     parts = []
@@ -289,13 +286,12 @@ def _launch(stem, q, tensors, n_kv, scale):
     if plan["smem"] > MAX_SMEM:
         raise ValueError(f"flash_attention {stem}: {plan['smem']} bytes of "
                          f"shared memory a block, the card gives {MAX_SMEM}")
-    if stem != "fwd":
-        # the backward's workspace: the f32 kernels' images of the streamed
-        # tiles, written by their preparation kernel (none in bf16)
-        tiles = -(-(n_kv if stem == "bwd_dq" else nq) // plan["tile"])
-        tensors = (*tensors, torch.empty(
-            b * h * tiles * plan["image"] // 4, dtype=torch.float32,
-            device=q.device) if plan["image"] else None)
+    # the workspace: the f32 kernels' images of the streamed tiles, written
+    # by their preparation kernel (none in bf16)
+    tiles = -(-(nq if stem == "bwd_dkv" else n_kv) // plan["tile"])
+    tensors = (*tensors, torch.empty(
+        b * h * tiles * plan["image"] // 4, dtype=torch.float32,
+        device=q.device) if plan["image"] else None)
     fn = getattr(load_library(), f"adell_flash_{stem}_{_SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

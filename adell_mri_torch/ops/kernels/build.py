@@ -124,9 +124,10 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     ),
-    # q, k, v, out, m, l, BH, Nq, Nkv, D, scale, stream
+    # q, k, v, out, m, l, image (f32: the workspace; bf16: null), BH, Nq,
+    # Nkv, D, scale, stream
     "adell_flash_fwd": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p]
     ),
     # q, k, v, dout, lse, delta, dq, image (f32: the workspace; bf16:
@@ -180,8 +181,8 @@ _SINGLE = {
     "adell_conv3d_wgrad_plan": (
         [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
     ),
-    # kind (0: K, V; 1: Q, dO, lse, delta), a, b, lse, delta, image, BH, n,
-    # D, stream: the 3xTF32 backward's preparation alone
+    # kind (0 and 2: K, V; 1: Q, dO, lse, delta), a, b, lse, delta, image,
+    # BH, n, D, stream: the 3xTF32 kernels' preparation alone
     "adell_flash_image_f32": (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_void_p]

@@ -34,9 +34,12 @@ from adell_mri_torch.tools.flagship import (
 from adell_mri_torch.train.precision import compute_dtype
 
 # kernel-name substrings -> group, first match wins (cuDNN's implicit-GEMM
-# conv kernels carry "fprop" or "conv" and also "gemm", so they come first)
+# conv kernels carry "fprop" or "conv" and also "gemm", so they come first;
+# in f32 the forward's preparation kernel, which writes the images of K and
+# V, counts with the forward)
 GROUPS = (
     ("flash_fwd", "flash_attention_fwd (K4/K5)"),
+    ("flash_tf32x3_image", "flash_attention_fwd (K4/K5)"),
     ("conv3d_igemm", "conv3d_igemm (stride-1 3x3x3 convs)"),
     ("conv3d_wgmma", "conv3d_igemm (stride-1 3x3x3 convs)"),
     ("conv3d_narrow", "conv3d_igemm (stride-1 3x3x3 convs)"),

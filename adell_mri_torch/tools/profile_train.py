@@ -40,7 +40,8 @@ GROUPS = (
     ("flash_fwd", "flash_attention_fwd (K4/K5)"),
     ("flash_bwd_dq", "flash_attention_bwd_dq (K6)"),
     ("flash_bwd_dkv", "flash_attention_bwd_dkv (K7)"),
-    ("flash_tf32x3_image", "f32 images of K6 and K7 (their preparation)"),
+    ("flash_tf32x3_image", "f32 images of K4/K5, K6 and K7 (their "
+     "preparation)"),
     ("conv3d_wgrad", "conv3d_wgrad (dW of K1's backward, with its "
      "reduction)"),
     ("conv3d_igemm", "conv3d_igemm (K1: stride-1 conv forward and dx)"),

@@ -9,7 +9,8 @@ defaults are the shipped choice. This tool rebuilds the library once per
 variant (one process each, the defines appended to ``build.NVCC_FLAGS``,
 which the build hashes), holds the three kernels against their plain
 versions before it times anything (bf16: one bf16 ulp of the output
-scale; f32: 2e-5 forward, 1e-4 backward, as ``chip_smoke.py``; a variant
+scale; f32: 2e-5 forward, 1e-4 backward, as ``chip_smoke.py``, and the
+forward's m within 1e-4 of its scale and l within 1e-4 relative; a variant
 beyond them is recorded as failed, not timed), then times them at UNETR's
 shapes, q, k, v ``[B, 8, 2048, 64]``, B = 1 and 2. The default is timed
 first and last, so the table shows the run's spread. ``--dtype f32``
@@ -103,6 +104,11 @@ def measure(defines, root=ROOT, dtype="bf16"):
                                      ("dv", dv, w_dv, rel_b)):
             err = float((got.float() - want.float()).abs().max())
             errs[name] = err / (rel * float(want.float().abs().max()))
+        if f32:
+            # the forward's row statistics, as chip_smoke.py holds them
+            errs["m"] = float((m - w_m).abs().max()) / (
+                1e-4 * max(float(w_m.abs().max()), 1.0))
+            errs["l"] = float(((l - w_l) / w_l).abs().max()) / 1e-4
         row["rel_err"][b] = errs
         if not all(e <= 1.0 for e in errs.values()):
             raise AssertionError(f"B={b}: kernels beyond tolerance "

@@ -10,7 +10,8 @@ failure:
 2. build: every CUDA source of the port, compiled with ``nvcc`` into
    ``build/adell_kernels/`` (seconds printed); ptxas must report no spill
    and no serialized ``wgmma`` for the Hopper kernels (conv forward and
-   dx in bf16 and 3xTF32, wgrad, attention);
+   dx in bf16 and 3xTF32, wgrad, attention in bf16 and 3xTF32 with its
+   preparation kernel);
 3. kernel vs plain: ``conv3d_igemm`` against ``conv3d_igemm_reference``
    at the flagship U-Net's shapes (B=4), bf16 and f32 (TF32 off, as
    everywhere below), in both at shapes that reach every route and edge
@@ -51,7 +52,8 @@ failure:
    on the kernel, bit-equal over two runs, timed beside the plain version,
    cuDNN's weight gradient (a yardstick the port never calls) and its
    bound, with the bytes each adds to peak memory, summed per step over
-   the kernel's 29 and all 31;
+   the kernel's 29 and all 31; in f32 (all 31 on the patch product) beside
+   cuDNN's f32 weight gradient (TF32 off) and its 3xTF32 and FMA bounds;
 8. training: the flagship U-Net (seed 0, bf16, augmentation on, B=4 at
    128x128x32) takes one warm-up step and 5 timed steps with the launch
    counts reset just before (per step 29 + 2 of 31 forward and 29 + 1 of 30
@@ -73,10 +75,12 @@ failure:
     serving and training shapes), a ragged shape (Nq 2050, Nkv 2311),
     head dim 32, either sequence at the edges of the 64-row tiles (1, 63,
     64, 65, 127, 128, 129 tokens against 2048) and B x H of 1 x 1 and
-    4 x 8, bf16 and f32 (f32 dQ and dK/dV on the 3xTF32 kernels, held to
-    1e-4 of the output scale); the forward, dQ and dK/dV bit-equal over two
-    runs in both types; the f32 backward's preparation kernel bit-equal to
-    its plain version (``flash_tf32x3_image_reference``); timed beside
+    4 x 8, bf16 and f32 (f32 on the 3xTF32 kernels: the forward held to
+    2e-5 of the output scale, m to 1e-4 of its scale and l to 1e-4
+    relative, dQ and dK/dV to 1e-4 of the output scale); the forward, dQ
+    and dK/dV bit-equal over two runs in both types; the f32 kernels'
+    preparation kernel bit-equal to its plain version
+    (``flash_tf32x3_image_reference``, all three kinds); timed beside
     their bounds, the plain versions and
     ``F.scaled_dot_product_attention`` (a yardstick the port never calls:
     forward, forward + backward, and by difference its backward alone);
@@ -85,7 +89,10 @@ failure:
     ``SegmentationInference``: 8 forward-attention launches and 9 conv
     launches per case (8 on the wgmma route, the image's 1->16 on the narrow
     one); the same case through the kernels' plain versions
-    agrees;
+    agrees (within 5e-2 on a probability); then the same in f32, the CLI's
+    default precision (8 launches of the 3xTF32 forward, 8 convs on the
+    tf32 route and 1 on the narrow one; within 1e-3); seconds per case
+    after a warm-up case;
 12. UNETR training: B=2 whole volumes, bf16, augmentation on, dropout 0:
     a warm-up step and timed steps with 8 forward, 8 dQ and 8 dK/dV
     launches each, 8 + 1 of 9 conv launches on the wgmma + narrow routes and
@@ -395,10 +402,12 @@ def phase_build():
     return secs
 
 
-# the kernels built on wgmma, whose ptxas lines the build phase checks
+# the kernels built on wgmma, and the preparation kernel that feeds the
+# 3xTF32 attention kernels, whose ptxas lines the build phase checks
 HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
-                  "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_tf32x3_kernel",
-                  "flash_bwd_dkv_tf32x3_kernel", "conv3d_wgmma_bf16_kernel",
+                  "flash_bwd_dkv_bf16_kernel", "flash_fwd_tf32x3_kernel",
+                  "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel",
+                  "flash_tf32x3_image_kernel", "conv3d_wgmma_bf16_kernel",
                   "conv3d_wgrad_bf16_kernel", "conv3d_wgmma_tf32x3_kernel")
 
 
@@ -916,15 +925,16 @@ def phase_intensity():
     return rows
 
 
-def weight_grad_bound(b, spatial, cin, cout, dtype):
+def weight_grad_bound(b, spatial, cin, cout, dtype, peak=None):
     """Least time of dW for one stride-1 3x3x3 conv: x and the cotangent
     read once and dW written once over HBM bandwidth, against 2 V 27 Cin
-    Cout FLOP over the peak rate of the dtype."""
+    Cout FLOP over ``peak`` (by default the peak rate of the dtype)."""
     vox = b * spatial[0] * spatial[1] * spatial[2]
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = itemsize * (vox * cin + vox * cout + 27 * cin * cout)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_flops = 2 * vox * 27 * cin * cout / PEAK_FLOPS[dtype] * 1e3
+    t_flops = (2 * vox * 27 * cin * cout / (peak or PEAK_FLOPS[dtype])
+               * 1e3)
     bound_by = "bytes" if t_bytes > t_flops else "operations"
     return max(t_bytes, t_flops), bound_by
 
@@ -933,9 +943,11 @@ def time_weight_grad(x, gy, w):
     """dW of the port (``conv3d_weight_grad``: the wgrad kernel on its
     classes, the patch product on the others), its route read from the
     counters, against its plain version (``conv3d_weight_grad_reference``,
-    the patch product) within one bf16 ulp of the scale and, on the kernel's
+    the patch product) within one bf16 ulp of the scale (f32: 1e-3, the
+    summation-order tolerance of phase 7's f32 dW) and, on the kernel's
     route, bit-equal over two runs; timed beside the plain version and
-    cuDNN's weight gradient, a yardstick the port never calls
+    cuDNN's weight gradient (in f32 with TF32 off), a yardstick the port
+    never calls
     (``aten.convolution_backward`` with output mask (False, True, False) on
     channels-last views), with the bytes each of the port's call and the
     plain version adds to the peak of allocated memory."""
@@ -978,8 +990,8 @@ def time_weight_grad(x, gy, w):
     lib_dw = library().permute(2, 3, 4, 1, 0)
     scale = max(float(want.float().abs().max()), 1e-30)
     err = float((dw.float() - want.float()).abs().max())
-    # both sum exact bf16 products in f32 and round once: one ulp
-    tol = 2.0**-7 * scale
+    # bf16: both sum exact bf16 products in f32 and round once: one ulp
+    tol = (2.0**-7 if x.dtype == torch.bfloat16 else 1e-3) * scale
     row = dict(
         dw_route=route, dw_max_abs_err=err, dw_tol=tol, dw_bit_equal=same,
         dw_ms=time_ms(lambda: conv3d_weight_grad(x, gy)),
@@ -1042,8 +1054,8 @@ def dw_totals(rows):
 def phase_conv_backward(shapes):
     """dx/dW/dbias of the Function against autograd through the plain
     version at every stride-1 conv shape of the flagship forward (B=4),
-    the dx launches timed (bf16 and f32), and dW (bf16) timed beside
-    cuDNN's and its bound."""
+    the dx launches timed (bf16 and f32), and dW (bf16 and f32) timed
+    beside cuDNN's and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1106,10 +1118,17 @@ def phase_conv_backward(shapes):
                 library_ms=time_ms(lambda: F.conv3d(gc, wc, padding=1)),
                 **conv_bounds(b, spatial, cout, cin, name),
             )
-            if dtype == torch.bfloat16:
-                row.update(time_weight_grad(x, gy, w))
-                row["dw_bound_ms"], row["dw_bound_by"] = weight_grad_bound(
-                    b, spatial, cin, cout, name)
+            # dW: bf16 on the wgrad kernel or the patch product; f32 on
+            # the patch product, beside cuDNN's f32 weight gradient and two
+            # bounds, at 3xTF32 (what a tensor-core kernel could reach) and
+            # at FMA's rate
+            row.update(time_weight_grad(x, gy, w))
+            row["dw_bound_ms"], row["dw_bound_by"] = weight_grad_bound(
+                b, spatial, cin, cout, name,
+                None if dtype == torch.bfloat16 else PEAK_F32_TF32X3)
+            if dtype == torch.float32:
+                row["dw_bound_fma_ms"] = weight_grad_bound(
+                    b, spatial, cin, cout, name)[0]
             log(f"  {b}x{'x'.join(map(str, spatial))} {cin}->{cout} {name} "
                 f"(dx {row['dx_route']}): "
                 + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, e, t in
@@ -1139,6 +1158,9 @@ def phase_conv_backward(shapes):
     totals["dw"] = dw_totals(timed)
     totals["dw_wgmma"] = dw_totals(
         [r for r in timed if r["dw_route"] == "wgmma"])
+    totals["dw_f32"] = dw_totals(f32)
+    totals["dw_f32"]["dw_bound_fma_ms"] = sum(
+        r["dw_bound_fma_ms"] * r["count"] for r in f32)
     if (totals["dw"]["convs"], totals["dw_wgmma"]["convs"]) != (
             CONVS_PER_FORWARD, CONVS_WGRAD_PER_STEP):
         raise AssertionError(f"dW classes: {totals['dw']['convs']} convs, "
@@ -1155,6 +1177,11 @@ def phase_conv_backward(shapes):
             f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
             f"(3xTF32; FMA {t['bound_fma_ms']:.4f} ms)")
     log_dw_totals(totals, "U-Net step's")
+    t = totals["dw_f32"]
+    log(f"  dW of the U-Net step's {t['convs']} convs, f32 (the patch "
+        f"product): {t['dw_ms']:.3f} ms, cuDNN (TF32 off) "
+        f"{t['dw_library_ms']:.3f} ms, bound {t['dw_bound_ms']:.4f} ms "
+        f"(3xTF32; FMA {t['dw_bound_fma_ms']:.4f} ms)")
     return rows, totals
 
 
@@ -1680,10 +1707,11 @@ def attention_twice(shape, seed, dtype):
 
 
 def attention_images(shape, seed):
-    """The 3xTF32 backward's preparation kernel (``adell_flash_image_f32``,
-    which each f32 dQ and dK/dV call launches before its kernel) against
-    its plain version, ``flash_tf32x3_image_reference``: the same bits, of
-    both kinds (K and V for dQ; Q, dO, lse and delta for dK/dV)."""
+    """The 3xTF32 kernels' preparation kernel (``adell_flash_image_f32``,
+    which each f32 forward, dQ and dK/dV call launches before its kernel)
+    against its plain version, ``flash_tf32x3_image_reference``: the same
+    bits, of all three kinds (K and V for dQ; Q, dO, lse and delta for
+    dK/dV; K and V^T for the forward)."""
     import torch
 
     from adell_mri_torch.ops.kernels import attention as ka
@@ -1696,7 +1724,8 @@ def attention_images(shape, seed):
     lse, delta = (torch.randn((b, h, nq, 1), generator=gen, device="cuda")
                   for _ in range(2))
     row = dict(shape=list(shape))
-    for kind, (a, bb, n) in enumerate(((k, v, nkv), (q, g, nq))):
+    for kind, (a, bb, n) in enumerate(((k, v, nkv), (q, g, nq),
+                                       (k, v, nkv))):
         want = ka.flash_tf32x3_image_reference(kind, a, bb, lse, delta)
         got = torch.full_like(want, float("nan"))
         rc = load_library().adell_flash_image_f32(
@@ -1707,8 +1736,9 @@ def attention_images(shape, seed):
         row[f"kind{kind}_equal"] = rc == 0 and torch.equal(got, want)
     log(f"  3xTF32 images B={b} H={h} Nq={nq} Nkv={nkv} D={d}: K, V "
         f"bit-equal to the plain version: {row['kind0_equal']}; Q, dO, lse, "
-        f"delta: {row['kind1_equal']}")
-    if not (row["kind0_equal"] and row["kind1_equal"]):
+        f"delta: {row['kind1_equal']}; the forward's K, V^T: "
+        f"{row['kind2_equal']}")
+    if not all(row[f"kind{i}_equal"] for i in range(3)):
         raise AssertionError(f"3xTF32 images differ from plain: {row}")
     return row
 
@@ -1793,9 +1823,10 @@ def _reset_counts():
     kconv.conv3d_weight_grad.patch_calls = 0
 
 
-def phase_unetr_serving():
-    """Phase 11: one warm-up case, the counted case, two more timed, and
-    the same case through the kernels' plain versions."""
+def phase_unetr_serving(dtype):
+    """Phase 11, in bf16 or f32 (the CLI's default precision): one warm-up
+    case, the counted case, two more timed, and the same case through the
+    kernels' plain versions."""
     import torch
 
     from adell_mri_torch.tools.flagship import (
@@ -1805,7 +1836,8 @@ def phase_unetr_serving():
         make_model,
     )
 
-    model = make_model(0, torch.bfloat16, name="unetr")
+    bf16 = dtype == torch.bfloat16
+    model = make_model(0, dtype, name="unetr")
     infer = make_inference(model, "unetr")
     case = make_case(1)
     secs = []
@@ -1829,17 +1861,23 @@ def phase_unetr_serving():
             want = infer(case)
         torch.cuda.synchronize()
     want_launches = dict.fromkeys(launches, 0)
-    want_launches.update(flash_attention_fwd=UNETR_BLOCKS,
-                         conv3d_igemm=UNETR_CONVS,
-                         conv3d_igemm_wgmma=UNETR_CONVS_WGMMA,
-                         conv3d_igemm_narrow=UNETR_CONVS_NARROW)
+    # f32 convs take the tf32 route where bf16 ones take the wgmma one
+    want_launches.update({
+        "flash_attention_fwd": UNETR_BLOCKS, "conv3d_igemm": UNETR_CONVS,
+        "conv3d_igemm_narrow": UNETR_CONVS_NARROW,
+        "conv3d_igemm_wgmma" if bf16 else "conv3d_igemm_tf32":
+            UNETR_CONVS_WGMMA if bf16 else UNETR_CONVS_TF32})
     err = float((out - want).abs().max())
     lo, hi = float(out.min()), float(out.max())
     # bf16: one-ulp rounding flips in 8 attention blocks and 9 convs,
     # renormalised by layer and instance norms, move a probability by well
-    # under 5e-2 (the U-Net's window-batch tolerance)
-    tol = 5e-2
-    log(f"[unetr serving] {'x'.join(map(str, CASE))} case, one window: "
+    # under 5e-2 (the U-Net's window-batch tolerance); f32: the kernels
+    # hold 2e-5 (attention) and 1e-5 (convs) of their scales against the
+    # plain versions, which leaves a probability far inside the U-Net's f32
+    # window-batch tolerance, 1e-3
+    tol = 5e-2 if bf16 else 1e-3
+    log(f"[unetr serving] {'bf16' if bf16 else 'f32'}, "
+        f"{'x'.join(map(str, CASE))} case, one window: "
         f"launches {launches}; warm-up {warm:.3f} s, then "
         f"{', '.join(f'{s:.4f}' for s in secs)} s per case; kernels vs "
         f"plain versions: max abs err {err:.3g} (tol {tol})")
@@ -2180,7 +2218,9 @@ def main():
     training = phase_training()
     train_cli = phase_train_cli()
     attention_rows, attention = phase_attention()
-    unetr_serving = phase_unetr_serving()
+    unetr_serving = phase_unetr_serving(torch.bfloat16)
+    # the CLI's default precision, f32
+    unetr_serving_f32 = phase_unetr_serving(torch.float32)
     unetr_training = phase_unetr_training()
     unetr_cli = phase_unetr_cli()
 
@@ -2202,6 +2242,7 @@ def main():
         "unet_training": training["launches"],
         "unet_training_f32": training["f32"]["launches"],
         "unetr_serving": unetr_serving["launches"],
+        "unetr_serving_f32": unetr_serving_f32["launches"],
         "unetr_training": unetr_training["launches"],
         "unetr_training_f32": unetr_training["f32_parity"]["launches"],
     }
@@ -2323,6 +2364,12 @@ def main():
                  "dw_bound_ms", "dw_max_abs_err", "dw_tol", "dw_peak_bytes",
                  "dw_plain_peak_bytes")
     kernels[-1]["step_all_dw"] = {k: dw_all[k] for k in step_keys}
+    # f32 dW of a U-Net step (all 31 on the patch product), beside cuDNN's
+    # f32 weight gradient (TF32 off) and the 3xTF32 and FMA bounds
+    kernels[-1]["f32_step_dw"] = {
+        k: dx_totals["dw_f32"][k] for k in (
+            "convs", "dw_ms", "dw_library_ms", "dw_bound_ms",
+            "dw_bound_fma_ms")}
     # UNETR's step at B=2: the kernel's 8 dW and all 9
     kernels[-1]["unetr_step"] = {
         part: {k: unetr_training["dw_per_step"][part][k] for k in step_keys}
@@ -2344,7 +2391,8 @@ def main():
         "kernel (conv3d_igemm_f32_kernel) at the same convs; dx_per_step: "
         "the 29 "
         "tf32-route dx launches of an f32 U-Net step; launches: forward and "
-        "dx of the f32 served case, 3 f32 U-Net steps and UNETR's f32 step",
+        "dx of the f32 served cases (U-Net, UNETR), 3 f32 U-Net steps and "
+        "UNETR's f32 step",
         tf32_totals["library_ms"]))
     kernels[-1].update(bound_fma_ms=tf32_totals["bound_fma_ms"],
                        igemm_ms=tf32_totals["igemm_ms"],
@@ -2353,39 +2401,38 @@ def main():
     kernels[-1]["launches_by_path"] = {
         p: c.get("conv3d_igemm_tf32", 0) + c.get("conv3d_igemm_dx_tf32", 0)
         for p, c in by_path.items()}
-    # the f32 attention kernels, on UNETR's f32 step (B=1)
+    # the f32 attention kernels (3xTF32 wgmma, each after its preparation
+    # kernel), on UNETR's f32 paths: the forward on the served case and the
+    # step (B=1), dQ and dK/dV on the step
+    f32_paths = ("unetr_serving_f32", "unetr_training_f32")
     att32 = attention["float32"]
     for name, what, b, lines in (
             ("fwd", "forward", 1, ":49 and :151"), ("bwd_dq", "dQ", 2, ":300"),
             ("bwd_dkv", "dK/dV", 2, ":355")):
         t = att32[b][name]
+        paths = {p: n for p, n in launches_of(f"flash_attention_{name}")[1]
+                 .items() if p in f32_paths}
         kernels.append(entry(
             f"flash_attention_{name}_f32", flash,
-            f"{pallas_attention}{lines}",
-            launches_of(f"flash_attention_{name}")[1].get(
-                "unetr_training_f32", 0), t,
-            f"the f32 {what} kernel "
-            + ("(plain FMA on shared-memory tiles)" if name == "fwd" else
-               "(3xTF32 wgmma; ms includes its preparation kernel, which "
-               "writes the split, transposed and swizzled images of the "
-               "streamed tiles)")
-            + f" at [{b},8,2048,64]; bound_ms at 3xTF32, bound_fma_ms at 67 "
-            "TFLOP/s; launches: UNETR's f32 step; library: "
-            "F.scaled_dot_product_attention in f32"
+            f"{pallas_attention}{lines}", sum(paths.values()), t,
+            f"the f32 {what} kernel (3xTF32 wgmma; ms includes its "
+            "preparation kernel, which writes the split, transposed and "
+            f"swizzled images of the streamed tiles) at [{b},8,2048,64]; "
+            "bound_ms at 3xTF32, bound_fma_ms at 67 TFLOP/s; launches: "
+            + ("UNETR's f32 served case and f32 step" if name == "fwd"
+               else "UNETR's f32 step")
+            + "; library: F.scaled_dot_product_attention in f32"
             + ("" if name == "fwd" else " forward + backward"),
             t["library_ms"]))
         kernels[-1]["bound_fma_ms"] = t["bound_fma_ms"]
-        kernels[-1]["kernel"] = {
-            "fwd": "flash_fwd_f32_kernel",
-            "bwd_dq": "flash_bwd_dq_tf32x3_kernel",
-            "bwd_dkv": "flash_bwd_dkv_tf32x3_kernel"}[name]
-        kernels[-1]["launches_by_path"] = {
-            "unetr_training_f32": kernels[-1]["launches"]}
+        kernels[-1]["kernel"] = f"flash_{name}_tf32x3_kernel"
+        kernels[-1]["launches_by_path"] = paths
         if name != "fwd":
             kernels[-1]["library_bwd_ms"] = t["library_bwd_ms"]
     # the bf16 attention entries count the bf16 paths only
     for k in kernels[4:7]:
-        k["launches_by_path"].pop("unetr_training_f32", None)
+        for path in f32_paths:
+            k["launches_by_path"].pop(path, None)
         k["launches"] = sum(k["launches_by_path"].values())
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
@@ -2397,6 +2444,7 @@ def main():
         cli=cli, intensity=intensity_rows, conv_backward=bwd_rows,
         conv_dx_per_step=dx_totals, training=training, train_cli=train_cli,
         attention=attention_rows, unetr_serving=unetr_serving,
+        unetr_serving_f32=unetr_serving_f32,
         unetr_training=unetr_training, unetr_cli=unetr_cli,
         kernels=kernels, total_s=time.perf_counter() - t_start,
     ), indent=1))

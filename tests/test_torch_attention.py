@@ -192,11 +192,12 @@ def test_check_refuses_a_scale_that_is_not_positive(scale):
 
 
 # (stem, dtype, D) -> dynamic shared memory of a block, from the layouts of
-# csrc/flash_attention.cu worked out by hand; the f32 backward (3xTF32):
-# a ring of images of 32-row tiles (dQ: 3 stages of K, V and K^T, each
-# panel 128 D bytes big and as many small; dK/dV: 2 stages of Q, dO, Q^T,
-# dO^T and 1024 bytes of lse and delta), two raw A operands of 128 rows of
-# D + 4 f32, 1024 bytes of alignment
+# csrc/flash_attention.cu worked out by hand; f32 (3xTF32): a ring of
+# images of 32-row tiles (forward: 3 stages of K and V^T, each panel 128 D
+# bytes big and as many small; dQ: 3 stages of K, V and K^T; dK/dV: 2
+# stages of Q, dO, Q^T, dO^T and 1024 bytes of lse and delta), raw A
+# operands of 128 rows of D + 4 f32 (one in the forward, two in the
+# backward), 1024 bytes of alignment
 PLAN_SMEM = {
     ("fwd", torch.bfloat16, 64): 3 * 2 * 8192 + 1024,
     ("fwd", torch.bfloat16, 32): 3 * 2 * 4096 + 1024,
@@ -205,14 +206,15 @@ PLAN_SMEM = {
     ("bwd_dq", torch.bfloat16, 64): 3 * 2 * 8192 + 1024,
     ("bwd_dq", torch.bfloat16, 32): 3 * 2 * 4096 + 1024,
     ("bwd_dq", torch.float32, 64): 3 * 6 * 8192 + 2 * 128 * 68 * 4 + 1024,
-    ("fwd", torch.float32, 64): 101632,
+    ("fwd", torch.float32, 64): 3 * 4 * 8192 + 128 * 68 * 4 + 1024,
     ("bwd_dkv", torch.float32, 64): (2 * (8 * 8192 + 1024)
                                      + 2 * 128 * 68 * 4 + 1024),
 }
 # (stem, dtype) -> rows a block owns, threads, rows of a streamed tile and
-# bytes of its image at D = 64: two warpgroups and 32-row images for the
-# f32 backward, one warpgroup and 64-row tiles elsewhere
+# bytes of its image at D = 64: two warpgroups and 32-row images in f32,
+# one warpgroup and 64-row tiles in bf16
 PLAN_BLOCK = {
+    ("fwd", torch.float32): (128, 256, 32, 4 * 8192),
     ("bwd_dq", torch.float32): (128, 256, 32, 6 * 8192),
     ("bwd_dkv", torch.float32): (128, 256, 32, 8 * 8192 + 1024),
 }
@@ -254,7 +256,7 @@ def test_launch_plan_refuses_what_has_no_kernel(bad):
         tattn.launch_plan(**args)
 
 
-# -- the 3xTF32 backward (f32): its arithmetic, emulated in numpy ------------
+# -- the 3xTF32 kernels (f32): their arithmetic, emulated in numpy -----------
 #
 # The CUDA kernels run only on the card; what they compute is pinned here:
 # the preparation's images (through ``flash_tf32x3_image_reference``, the
@@ -262,7 +264,8 @@ def test_launch_plan_refuses_what_has_no_kernel(bad):
 # to bit for bit), what ``wgmma`` reads from them through a 128-byte
 # swizzle descriptor, the A fragments the kernels make of their f32 sums,
 # the three TF32 products and the tensor-core sums of SUM_TILES stream
-# tiles added to f32 sums. Products of TF32 values are exact in float64, so
+# tiles (one tile in the forward, whose sums are rescaled every tile) added
+# to f32 sums. Products of TF32 values are exact in float64, so
 # an ideal tensor-core sum is the float64 sum rounded once to f32.
 
 TILE = tattn.TF32X3_TILE
@@ -408,6 +411,72 @@ def emulate_bwd_dkv(q, k, v, g, lse, delta, scale, passes=3):
     return dk, dv
 
 
+def emulate_fwd(q, k, v, scale, passes=3):
+    """(out, m, l) of ``flash_fwd_tf32x3_kernel``, numpy f32 ``[B, H, N,
+    D]`` in: per stream tile, s = q k^T against the image's K panel, key
+    columns past Nkv at -1e30, the online softmax (row maxima of the
+    unscaled s, ``exp2`` with scale log2(e) folded in), then p v against
+    the V^T panel with p handed over through the sums' fragment map, a
+    fresh tensor-core sum added to the rescaled f32 sums."""
+    b, h, nq, d = q.shape
+    nkv = k.shape[2]
+    img = tattn.flash_tf32x3_image_reference(
+        2, torch.from_numpy(k), torch.from_numpy(v)).numpy()
+    half = 32 * d
+    c = np.float32(scale * np.log2(np.e))
+    out = np.zeros((b * h, nq, d), np.float32)
+    rows = np.zeros((2, b * h, nq, 1), np.float32)  # m, l
+    qf = q.reshape(b * h, nq, d)
+    for bh in range(b * h):
+        for r0 in range(0, nq, 64):  # a warpgroup's rows
+            qw = _rows_of(qf[bh], r0)
+            m = np.full((64, 1), -1e30, np.float32)
+            l = np.zeros((64, 1), np.float32)
+            acc = np.zeros((64, d), np.float32)
+            for u in range(img.shape[1]):
+                im = img[bh, u]
+                kp = [_read_panel(im[i * half:(i + 1) * half], 32, d)
+                      for i in (0, 1)]
+                vt = [_read_panel(im[i * half:(i + 1) * half], d, 32)
+                      for i in (2, 3)]
+                s = _products(qw, kp[0], kp[1], passes).astype(np.float32)
+                s[:, nkv - u * TILE:] = np.float32(-1e30)
+                m_new = np.maximum(m, s.max(axis=1, keepdims=True))
+                alpha = np.exp2((m - m_new) * c)
+                p = np.exp2(s * c - m_new * c)
+                l = l * alpha + p.sum(axis=1, keepdims=True)
+                part = _products(_fragment_operand(p), vt[0], vt[1], passes)
+                acc = acc * alpha + part.astype(np.float32)
+                m = m_new
+            n = min(64, nq - r0)
+            out[bh, r0:r0 + n] = (acc / np.maximum(l, 1e-30))[:n]
+            rows[0, bh, r0:r0 + n] = (m * np.float32(scale))[:n]
+            rows[1, bh, r0:r0 + n] = l[:n]
+    return (out.reshape(q.shape), *rows.reshape(2, b, h, nq, 1))
+
+
+def _jax_forward(shape, seed):
+    """Inputs, ``_flash_fwd_tiled``'s (out, m, l) and the port's plain
+    version's, all numpy."""
+    q, k, v, _ = make_inputs(shape, seed)
+    scale = shape[-1] ** -0.5
+    want = [np.asarray(x) for x in
+            jattn._flash_fwd_tiled(*map(jnp.asarray, (q, k, v)), scale)]
+    plain = [x.numpy() for x in tattn.flash_attention_fwd_reference(
+        *map(torch.from_numpy, (q, k, v)), scale)]
+    return (q, k, v, scale), want, plain
+
+
+def _fwd_errors(got, want):
+    """Each of out, m, l over chip_smoke.py's f32 forward tolerance: out
+    within 2e-5 and m within 1e-4 of their scales (floored at 1), l within
+    1e-4 relative."""
+    (out, m, l), (w_out, w_m, w_l) = got, want
+    return (np.abs(out - w_out).max() / (2e-5 * max(np.abs(w_out).max(), 1)),
+            np.abs(m - w_m).max() / (1e-4 * max(np.abs(w_m).max(), 1)),
+            np.abs((l - w_l) / w_l).max() / 1e-4)
+
+
 def _jax_backward(shape, seed):
     """Inputs, the JAX forward's rows, ``_flash_bwd_pallas``'s (dq, dk,
     dv) and the port's plain versions', all numpy."""
@@ -459,6 +528,31 @@ def test_tf32x3_backward_emulation_matches_jax_and_plain(interpret_pallas,
         assert _held(g_, p_, floor), (name, rel_err(g_, p_))
 
 
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("shape", TF32X3_SHAPES, ids=str)
+def test_tf32x3_forward_emulation_matches_jax_and_plain(interpret_pallas,
+                                                        shape, d):
+    """The 3xTF32 forward's arithmetic (the kind-2 image, swizzled reads,
+    three TF32 products, the online softmax, p's A fragments, one tile's
+    tensor-core sum a turn added to rescaled f32 sums) against
+    ``_flash_kernel`` in interpret mode and the port's plain version."""
+    args, want, plain = _jax_forward(shape + (d,), 20 + d)
+    got = emulate_fwd(*args)
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape
+        assert np.isfinite(g_).all()
+    assert max(_fwd_errors(got, want)) <= 1.0, _fwd_errors(got, want)
+    assert max(_fwd_errors(got, plain)) <= 1.0, _fwd_errors(got, plain)
+
+
+def test_one_tf32_pass_does_not_hold_the_forward_bound(interpret_pallas):
+    """Why three products in the forward: big * big alone misses 2e-5 of
+    the output scale where 3xTF32 holds it."""
+    args, _, plain = _jax_forward((1, 2, 130, 97, 64), 25)
+    assert _fwd_errors(emulate_fwd(*args, passes=1), plain)[0] > 1.0
+    assert _fwd_errors(emulate_fwd(*args), plain)[0] <= 1.0
+
+
 def test_one_tf32_pass_does_not_hold_the_bound(interpret_pallas):
     """Why three products: big * big alone (one TF32 pass, 2^-11 of each
     operand) misses 1e-4 of the scale where 3xTF32 holds it."""
@@ -468,11 +562,12 @@ def test_one_tf32_pass_does_not_hold_the_bound(interpret_pallas):
     assert not any(_held(g_, p_, floor) for g_, p_ in zip(one, plain))
 
 
-@pytest.mark.parametrize("kind", [0, 1])
+@pytest.mark.parametrize("kind", [0, 1, 2])
 @pytest.mark.parametrize("d", [32, 64])
 def test_tf32x3_image_layout(kind, d):
     """``flash_tf32x3_image_reference``: per 32-row tile the panels a, b,
-    a^T (and b^T, then lse and delta, for kind 1), each big = tf32(x) then
+    a^T (and b^T, then lse and delta, for kind 1; a and b^T for kind 2, the
+    forward's), each big = tf32(x) then
     small = tf32(x - big), which sum to x within 2^-21 of its magnitude;
     read through the swizzle, a natural panel is the tile, a transposed one
     the tile transposed with the rows of each group of 8 in the order 0, 2,
@@ -485,18 +580,20 @@ def test_tf32x3_image_layout(kind, d):
                   for _ in range(2))
     img = tattn.flash_tf32x3_image_reference(
         kind, *map(torch.from_numpy, (a, b_, lse, delta))).numpy()
-    plan = tattn.launch_plan("bwd_dkv" if kind else "bwd_dq",
+    plan = tattn.launch_plan(("bwd_dq", "bwd_dkv", "fwd")[kind],
                              torch.float32, 2, n, n, d)
     assert img.shape == (2, 3, plan["image"] // 4)
     half = 32 * d
     perm = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+    panels = [[(a, False), (b_, False), (a, True)],
+              [(a, False), (b_, False), (a, True), (b_, True)],
+              [(a, False), (b_, True)]][kind]
     for bh in range(2):
         for t in range(3):
             im = img[bh, t]
-            assert not (im.view(np.uint32)[:8 * half] & 0x1FFF).any()
-            for i, (x, trans) in enumerate(
-                    [(a, False), (b_, False), (a, True), (b_, True)]
-                    [:3 + kind]):
+            assert not (im.view(np.uint32)[:2 * len(panels) * half]
+                        & 0x1FFF).any()
+            for i, (x, trans) in enumerate(panels):
                 tile = _rows_of(x.reshape(2, n, d)[bh], 32 * t, 32)
                 if trans:
                     tile = tile.reshape(4, 8, d)[:, perm].reshape(32, d).T
@@ -508,7 +605,7 @@ def test_tf32x3_image_layout(kind, d):
                 assert np.array_equal(big, _tf32(tile))
                 assert (np.abs(big.astype(np.float64) + small - tile)
                         <= 2.0**-21 * np.abs(tile)).all()
-            if kind:
+            if kind == 1:
                 rows = im[8 * half:]
                 for j, x in enumerate((lse, delta)):
                     want = _rows_of(x.reshape(2, n)[bh], 32 * t, 32)

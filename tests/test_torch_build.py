@@ -61,8 +61,8 @@ def test_single_entry_points_have_signatures():
 
 def test_flash_entry_points_have_signatures():
     """The attention entry points, generated for bf16 and f32 by one macro,
-    are bound with as many arguments as it declares: the backward ones
-    take the f32 kernels' workspace after their outputs (null in bf16)."""
+    are bound with as many arguments as it declares: each takes the f32
+    kernels' workspace after its outputs (null in bf16)."""
     import ctypes
     import re
 
@@ -73,6 +73,7 @@ def test_flash_entry_points_have_signatures():
     assert declared == {stem: len(sig) for stem, sig
                         in build._SIGNATURES.items()
                         if stem.startswith("adell_flash")}
+    assert build._SIGNATURES["adell_flash_fwd"][:7] == [ctypes.c_void_p] * 7
     assert build._SIGNATURES["adell_flash_bwd_dq"][:8] == [ctypes.c_void_p] * 8
     assert (build._SIGNATURES["adell_flash_bwd_dkv"][:9]
             == [ctypes.c_void_p] * 9)

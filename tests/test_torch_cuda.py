@@ -8,7 +8,7 @@ card's machine does not need). Tolerances: one bf16 ulp of the output
 scale for bf16 (both sides sum in f32 and round once), 1e-4 of it for f32
 on any route and 1e-5 on the 3xTF32 route, as in ``chip_smoke.py``; for
 the gradients one bf16 ulp and 1e-3 in f32 with TF32 off. The attention kernels: 2e-5 (forward) and 1e-4 (backward)
-of the scale in f32 (summation order; the backward on 3xTF32 kernels,
+of the scale in f32 (summation order; all three on 3xTF32 kernels,
 whose preparation kernel is held to its plain version bit for bit); one
 bf16 ulp (2^-7) of the scale in
 bf16, where kernel and plain version both round p and ds to bf16 once, the
@@ -712,10 +712,38 @@ def test_flash_attention_f32_backward_on_tf32x3(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 8, 2048, 2048, 64),
+                                   (2, 8, 2048, 2048, 64),
+                                   (1, 8, 2050, 2311, 64),
+                                   (1, 3, 2050, 2311, 32),
+                                   (1, 2, 65, 1, 64)], ids=str)
+def test_flash_attention_f32_forward_on_tf32x3(cuda, shape):
+    """The f32 forward (3xTF32 kernel after its preparation kernel) at
+    UNETR's shapes and ragged ones: out within 2e-5 of the output scale of
+    the plain version, m within 1e-4 of its scale, l within 1e-4 relative,
+    one launch, and the same bits twice."""
+    q, k, v, _ = _attention_inputs(shape, torch.float32, cuda, 10)
+    scale = shape[-1] ** -0.5
+    before = kattn.flash_attention_fwd.launches
+    got = kattn.flash_attention_fwd(q, k, v, scale)
+    assert kattn.flash_attention_fwd.launches == before + 1
+    want = kattn.flash_attention_fwd_reference(q, k, v, scale)
+    again = kattn.flash_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    (out, m, l), (w_out, w_m, w_l) = got, want
+    assert out.dtype == m.dtype == l.dtype == torch.float32
+    assert _within(out, w_out, 2e-5, 1.0)
+    assert _within(m, w_m, 1e-4, 1.0)
+    assert float(((l - w_l) / w_l).abs().max()) <= 1e-4
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", kattn.HEAD_DIMS)
-@pytest.mark.parametrize("kind", [0, 1])
+@pytest.mark.parametrize("kind", [0, 1, 2])
 def test_tf32x3_image_kernel_matches_plain(cuda, kind, d):
-    """The f32 backward's preparation kernel writes exactly the bits of
+    """The f32 kernels' preparation kernel writes exactly the bits of
     ``flash_tf32x3_image_reference``, ragged last tile and (kind 1) lse,
     delta and the zero tail included."""
     from adell_mri_torch.ops.kernels.build import load_library
@@ -724,7 +752,7 @@ def test_tf32x3_image_kernel_matches_plain(cuda, kind, d):
     gen = torch.Generator(device=cuda).manual_seed(9)
     lse, delta = (torch.randn((2, 3, 70, 1), generator=gen, device=cuda)
                   for _ in range(2))
-    a, b = (k, v) if kind == 0 else (q, g)
+    a, b = (q, g) if kind == 1 else (k, v)
     want = kattn.flash_tf32x3_image_reference(kind, a, b, lse, delta)
     got = torch.full_like(want, float("nan"))
     rc = load_library().adell_flash_image_f32(
