@@ -5,6 +5,8 @@ Counterpart of ``adell_mri_tpu/__main__.py`` for the modes ported so far.
 """
 
 import importlib
+import logging
+import os
 import sys
 
 supported_modes = ["segmentation"]
@@ -15,6 +17,12 @@ def main(arguments=None):
     if len(arguments) == 0 or arguments[0] == "help":
         print(f"\n\tSupported modes: {supported_modes}")
         return
+    if not logging.getLogger().handlers:
+        # progress (epochs, resume, early stopping) to standard error
+        logging.basicConfig(
+            level=os.environ.get("ADELL_LOG_LEVEL", "INFO"),
+            format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        )
     mode = arguments[0]
     if mode not in supported_modes:
         raise NotImplementedError(

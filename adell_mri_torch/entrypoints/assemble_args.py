@@ -120,6 +120,29 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     ),
     "monitor": dict(default="val_loss", help="Metric to monitor"),
     "metric_path": dict(default="metrics.csv", help="CSV metrics output path"),
+    "early_stopping": dict(
+        default=None, type=int, help="Early stopping patience"
+    ),
+    "swa": dict(
+        action="store_true",
+        help="Stochastic weight averaging (equal-weight running average of "
+        "params over the last quarter of training; validated on)",
+    ),
+    "check_nan_loss": dict(
+        action="store_true",
+        help="NaN-loss forensics: check loss finiteness each step and dump "
+        "the in-flight batch to .npz before raising (costs a host sync)",
+    ),
+    "resume_from_last": dict(
+        action="store_true", help="Resume from last checkpoint"
+    ),
+    "sliding_window_val": dict(
+        action="store_true",
+        help="Validate whole volumes with overlap-averaged sliding-window "
+        "inference at the training crop size",
+    ),
+    "picai_eval": dict(action="store_true", help="Lesion-level PI-CAI eval"),
+    "test_ids": dict(default=None, nargs="+", help="Test IDs"),
     # parsed, not ported yet
     "skip_keys": dict(default=None, nargs="+", help="not ported yet"),
     "feature_keys": dict(default=None, nargs="+", help="not ported yet"),
@@ -143,14 +166,10 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     "validation_samples_per_epoch": dict(
         default=None, type=int, help="not ported yet"
     ),
-    "sliding_window_val": dict(action="store_true", help="not ported yet"),
     "accumulate_grad_batches": dict(
         default=1, type=int, help="not ported yet"
     ),
-    "check_nan_loss": dict(action="store_true", help="not ported yet"),
-    "early_stopping": dict(default=None, type=int, help="not ported yet"),
     "constant_ratio": dict(default=None, type=float, help="not ported yet"),
-    "resume_from_last": dict(action="store_true", help="not ported yet"),
     "logger_type": dict(default=None, help="not ported yet"),
     "project_name": dict(default=None, help="not ported yet"),
     "summary_name": dict(default=None, help="not ported yet"),
@@ -162,8 +181,6 @@ argument_factory: Dict[str, Dict[str, Any]] = {
         action="store_true", help="not ported yet"
     ),
     "deep_supervision": dict(action="store_true", help="not ported yet"),
-    "picai_eval": dict(action="store_true", help="not ported yet"),
-    "swa": dict(action="store_true", help="not ported yet"),
     "profile_dir": dict(default=None, help="not ported yet"),
     "semi_supervised": dict(action="store_true", help="not ported yet"),
     "semi_sl_weight": dict(type=float, default=0.01, help="not ported yet"),

@@ -1,9 +1,13 @@
-"""Segmentation mode dispatch (so far: ``train``, ``predict``)."""
+"""Segmentation mode dispatch: ``train``, ``predict``, ``test`` and
+``test_from_predictions``."""
 
 import importlib
 
 supported_modes = {
     "predict": "adell_mri_torch.entrypoints.segmentation.predict",
+    "test": "adell_mri_torch.entrypoints.segmentation.test",
+    "test_from_predictions":
+        "adell_mri_torch.entrypoints.segmentation.test_from_predictions",
     "train": "adell_mri_torch.entrypoints.segmentation.train",
 }
 

@@ -5,11 +5,12 @@ Counterpart of ``adell_mri_tpu/entrypoints/segmentation/predict.py`` for
 unconditioned 3D checkpoints: the network (``net_type``: U-Net or UNETR)
 and the transforms are rebuilt from the checkpoint's metadata, the volume
 runs through the sliding window (UNETR takes the whole volume as one
-window: its positional embedding fixes the size), flip
-TTA and checkpoint ensembling, the prediction is resampled back to the
-source geometry and written as NIfTI in the background. Conditioned and
-2D checkpoints, ``--mc_iterations`` and ``--extract_lesions`` are not
-ported yet and raise.
+window: its positional embedding fixes the size), flip TTA and checkpoint
+ensembling, the prediction is resampled back to the source geometry and
+written as NIfTI in the background; ``--extract_lesions`` writes the
+lesion-candidate map (dynamic threshold) in place of the probability map.
+Conditioned and 2D checkpoints and ``--mc_iterations`` are not ported yet
+and raise.
 """
 
 import glob
@@ -26,6 +27,7 @@ from adell_mri_torch.data.nifti import reorient_from_ras
 from adell_mri_torch.data.writer import AsyncNiftiWriter
 from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.eval.lesion import extract_lesion_candidates
 from adell_mri_torch.inference import SegmentationInference
 from adell_mri_torch.train.checkpoints import CheckpointManager
 from adell_mri_torch.train.precision import compute_dtype
@@ -154,13 +156,12 @@ def main(arguments):
     )
     parser.add_argument(
         "--extract_lesions", action="store_true",
-        help="lesion-candidate maps (not ported yet)",
+        help="write lesion-candidate maps (dynamic threshold) instead of "
+        "probabilities",
     )
     args = parser.parse_args(arguments)
     if args.mc_iterations:
         raise NotImplementedError("--mc_iterations is not ported yet")
-    if args.extract_lesions:
-        raise NotImplementedError("--extract_lesions is not ported yet")
 
     device = use_device(args.dev)
     dtype = compute_dtype(args.precision) or torch.float32
@@ -263,7 +264,12 @@ def main(arguments):
                     out_cls = reorient_from_ras(out_cls, orig_affine)
                 affine = orig_affine
             out_path = os.path.join(args.output_path, f"{pid}_prob.nii.gz")
-            if args.prediction_type == "probability":
+            if args.extract_lesions:
+                cand_map, _, _ = extract_lesion_candidates(
+                    out, threshold="dynamic"
+                )
+                writer.put(out_path, cand_map.astype(np.float32), affine)
+            elif args.prediction_type == "probability":
                 writer.put(out_path, out.astype(np.float32), affine)
             elif out_cls is not None:
                 writer.put(out_path, out_cls.astype(np.uint8), affine)

@@ -9,10 +9,16 @@ a checkpoint directory per fold whose ``metadata.json`` lets
 
 Ported: the 3D U-Net and UNETR (``--segmentation_net_type unet``,
 ``unetr`` or ``monai_unetr``; UNETR is built for the ``--pad_size``
-volume), whole-volume training (crop size = volume size), dropout drawn
-from a generator seeded with ``--seed``, the augmentation flags intensity,
-noise, affine, shear and flip, sgd/adam/adamw under cosine annealing with
-warmup, bf16 or f32 compute. Every other flag is parsed and raises
+volume), whole-volume training or, for the U-Net, pos/neg crops of
+``--random_crop_size`` from the padded volume, dropout drawn from a
+generator seeded with ``--seed``, the augmentation flags intensity, noise,
+affine, shear and flip, sgd/adam/adamw under cosine annealing with warmup,
+bf16 or f32 compute, ``--swa`` (validation on the weight average of the
+last quarter of the steps), ``--check_nan_loss``, ``--early_stopping``,
+``--resume_from_last`` (a finished fold is skipped, an interrupted one
+continues from its last epoch), ``--sliding_window_val`` (whole volumes
+stitched from crop-size windows) and ``--picai_eval`` (V_AP, V_AUC,
+V_score each validation). Every other flag is parsed and raises
 ``NotImplementedError`` when given a value other than its default.
 """
 
@@ -30,10 +36,12 @@ from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
 from adell_mri_torch.data.samplers import RandomSampler
 from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.eval.callbacks import LesionEvalCallback
 from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.checkpoints import CheckpointManager
 from adell_mri_torch.train.logging_utils import MetricLogger
 from adell_mri_torch.train.loop import TrainLoop
+from adell_mri_torch.train.nan_guard import NaNGuard
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.precision import compute_dtype
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
@@ -41,6 +49,7 @@ from adell_mri_torch.train.state import TrainState
 from adell_mri_torch.train.steps import (
     make_eval_step,
     make_segmentation_step,
+    make_sliding_window_eval_step,
     make_train_step,
 )
 from adell_mri_torch.transforms.host import (
@@ -94,6 +103,12 @@ ARG_KEYS = [
     "monitor",
     "metric_path",
     "segmentation_net_type",
+    "swa",
+    "check_nan_loss",
+    "early_stopping",
+    "resume_from_last",
+    "sliding_window_val",
+    "picai_eval",
 ]
 UNPORTED_KEYS = [
     "skip_keys",
@@ -110,12 +125,8 @@ UNPORTED_KEYS = [
     "resize_size",
     "lr_encoder",
     "validation_samples_per_epoch",
-    "sliding_window_val",
     "accumulate_grad_batches",
-    "check_nan_loss",
-    "early_stopping",
     "constant_ratio",
-    "resume_from_last",
     "logger_type",
     "project_name",
     "summary_name",
@@ -125,8 +136,6 @@ UNPORTED_KEYS = [
     "delete_checkpoints",
     "bottleneck_classification",
     "deep_supervision",
-    "picai_eval",
-    "swa",
     "profile_dir",
     "semi_supervised",
     "semi_sl_weight",
@@ -232,9 +241,13 @@ def main(arguments):
     if base_size is None:
         raise ValueError("one of --pad_size/--crop_size is required")
     crop_size = args.random_crop_size or args.crop_size
-    if crop_size is not None and tuple(crop_size) != tuple(base_size):
+    if (args.segmentation_net_type != "unet" and crop_size
+            and tuple(crop_size) != tuple(base_size)):
+        # UNETR's positional embedding fixes its input size, and predict,
+        # test and whole-volume validation run it at --pad_size
         raise NotImplementedError(
-            "random crops smaller than the volume are not ported yet"
+            "random crops smaller than the volume are ported for the unet "
+            "net type only"
         )
     if int(net_cfg.get("spatial_dimensions", 3)) != 3:
         raise NotImplementedError("2D networks are not ported yet")
@@ -256,6 +269,8 @@ def main(arguments):
             target_size=base_size,
             adc_keys=args.adc_keys or (),
             positive_labels=positive_labels,
+            crop_size=(crop_size if crop_size and list(crop_size)
+                       != list(base_size) else None),
             # segmentation training: rotation-only affine, flips on all
             # three axes (the reference's seg factory)
             augmentations=AugmentPolicy.from_flags(
@@ -316,6 +331,9 @@ def main(arguments):
                 weight_decay=weight_decay, clip_norm=args.gradient_clip_val,
                 params=params,
             ),
+            # SWA averages the last quarter of the steps
+            swa_start_step=(int(0.75 * args.max_epochs * steps_per_epoch)
+                            if args.swa else None),
         )
         ckpt = CheckpointManager(
             args.checkpoint_dir,
@@ -343,14 +361,29 @@ def main(arguments):
                 "net_type": args.segmentation_net_type,
             },
         )
-        ckpt.begin_run()
+        ckpt.begin_run(resume=args.resume_from_last)
+        if (args.resume_from_last
+                and ckpt.status(args.max_epochs) == "finished"):
+            logger.info("fold %d already finished; skipping", fold_idx)
+            continue
         step_kwargs = dict(n_classes=args.n_classes, precision=args.precision)
         train_step = make_train_step(
             make_segmentation_step(model, loss_fn, train=True, **step_kwargs)
         )
-        eval_step = make_eval_step(
-            make_segmentation_step(model, loss_fn, train=False, **step_kwargs)
-        )
+        if args.sliding_window_val and transforms.crop_size is not None:
+            eval_step = make_sliding_window_eval_step(
+                model, loss_fn, crop_size, **step_kwargs
+            )
+        else:
+            eval_step = make_eval_step(
+                make_segmentation_step(model, loss_fn, train=False,
+                                       **step_kwargs)
+            )
+        callbacks = []
+        if args.picai_eval:
+            callbacks.append(LesionEvalCallback(
+                lambda params, x: whole_volume_forward(model, params, x)
+            ))
         loop = TrainLoop(
             train_step=train_step,
             eval_step=eval_step,
@@ -358,16 +391,36 @@ def main(arguments):
             device=device,
             max_epochs=args.max_epochs,
             check_val_every_n_epoch=args.check_val_every_n_epoch,
+            early_stopping=args.early_stopping,
             monitor=args.monitor,
+            mode=mode,
             ckpt_manager=ckpt,
             metric_logger=metric_logger,
             seed=args.seed + fold_idx,
+            eval_on_ema=args.swa,
+            callbacks=callbacks,
+            nan_guard=(NaNGuard(dump_dir=args.checkpoint_dir or ".")
+                       if args.check_nan_loss else None),
             steps_per_epoch=args.steps_per_epoch,
         )
-        state, history = loop.fit(state, train_loader, val_loader)
+        start_epoch = 0
+        if args.resume_from_last:
+            state, start_epoch = ckpt.resume(state)
+            if start_epoch:
+                logger.info("fold %d: resuming from epoch %d", fold_idx,
+                            start_epoch)
+        state, history = loop.fit(state, train_loader, val_loader,
+                                  start_epoch=start_epoch)
         final = history[-1] if history else {}
         metric_logger.log_metrics(
             final, step=args.max_epochs, fold=fold_idx, phase="final"
         )
         logger.info("fold %d done: %s", fold_idx,
                     json.dumps(final, default=float))
+
+
+def whole_volume_forward(model, params, x):
+    """The f32 probabilities of ``x`` [B, *S, C] through ``model`` with
+    ``params``, in eval mode (the lesion callback's forward)."""
+    model.eval()
+    return torch.func.functional_call(model, params, (x,))

@@ -9,18 +9,26 @@ holds ``metadata.json`` (``network_config``, ``transform_arguments``,
 Training keeps in ``model.pt`` the weights of the best monitored epoch
 (the latest, until a monitored value exists), the ones ``best.json``
 names, so prediction serves what the JAX package's ``best_step`` would.
-Reading the JAX package's orbax directories needs JAX and is not done
-here; a JAX UNet's parameters come in through ``interop/from_flax.py``.
+``last.pt`` holds the state at the end of the latest epoch (parameters,
+optimizer buffers, step, epoch, the EMA/SWA shadow and the schedule's
+position), from which ``resume`` continues an interrupted run and
+``status`` tells a finished fold. Reading the JAX package's orbax
+directories needs JAX and is not done here; a JAX UNet's parameters come
+in through ``interop/from_flax.py``.
 """
 
 import json
+import logging
 import math
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+logger = logging.getLogger(__name__)
+
 MODEL_FILE = "model.pt"
+LAST_FILE = "last.pt"
 
 
 class CheckpointManager:
@@ -39,12 +47,16 @@ class CheckpointManager:
         if metadata is not None:
             self.save_metadata(metadata)
 
-    def begin_run(self):
-        """A fresh training run drops a ``best.json`` left by an earlier
-        run, which would otherwise win every comparison."""
-        path = os.path.join(self.dir, "best.json")
-        if os.path.exists(path):
-            os.remove(path)
+    def begin_run(self, resume: bool = False):
+        """A fresh training run drops the ``best.json`` and ``last.pt`` of
+        an earlier run: the old best would win every comparison, and the
+        old state would be resumed. A resumed run keeps both."""
+        if resume:
+            return
+        for name in ("best.json", LAST_FILE):
+            path = os.path.join(self.dir, name)
+            if os.path.exists(path):
+                os.remove(path)
 
     def save_metadata(self, metadata: Dict[str, Any]):
         if self.monitor is not None:
@@ -62,6 +74,12 @@ class CheckpointManager:
         with open(path) as f:
             return json.load(f)
 
+    @staticmethod
+    def _atomic_save(obj, path: str):
+        tmp = path + ".tmp"
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+
     def save(
         self,
         state_dict: Dict[str, torch.Tensor],
@@ -70,9 +88,8 @@ class CheckpointManager:
     ):
         """Writes the weights and, with ``value``, records them as best."""
         os.makedirs(self.dir, exist_ok=True)
-        tmp = os.path.join(self.dir, MODEL_FILE + ".tmp")
-        torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
-        os.replace(tmp, os.path.join(self.dir, MODEL_FILE))
+        self._atomic_save({k: v.detach().cpu() for k, v in state_dict.items()},
+                          os.path.join(self.dir, MODEL_FILE))
         if value is not None:
             with open(os.path.join(self.dir, "best.json"), "w") as f:
                 json.dump({"step": step, "value": float(value)}, f)
@@ -116,3 +133,57 @@ class CheckpointManager:
                 "checkpoints; JAX orbax directories are not read yet)"
             )
         return torch.load(path, map_location="cpu", weights_only=True)
+
+    # -- the last state, for resume ------------------------------------------
+
+    def save_last(self, state, epoch: int):
+        """Writes ``state`` (a ``TrainState``) as the end of ``epoch``."""
+        def host(tree):
+            return None if tree is None else {
+                k: v.detach().cpu() for k, v in tree.items()}
+
+        os.makedirs(self.dir, exist_ok=True)
+        self._atomic_save({
+            "epoch": int(epoch),
+            "step": int(state.step),
+            "params": host(state.params),
+            "ema_params": host(state.ema_params),
+            "optimizer": state.tx.opt.state_dict(),
+            "schedule_step": int(state.tx.count),
+        }, os.path.join(self.dir, LAST_FILE))
+
+    def _load_last(self, mmap: bool = False) -> Optional[Dict[str, Any]]:
+        path = os.path.join(self.dir, LAST_FILE)
+        if not os.path.exists(path):
+            return None
+        return torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=mmap)
+
+    def status(self, max_epochs: int) -> str:
+        """``"fresh"`` (no last state), ``"finished"`` (its epoch reached
+        ``max_epochs``) or ``"resume"``."""
+        last = self._load_last(mmap=True)
+        if last is None:
+            return "fresh"
+        return "finished" if last["epoch"] >= max_epochs else "resume"
+
+    def resume(self, state) -> Tuple[Any, int]:
+        """Restores the last state into ``state`` in place: parameters,
+        optimizer buffers, step, schedule position and the shadow.
+        Returns ``(state, start_epoch)``; a fold with no last state
+        returns ``(state, 0)`` unchanged."""
+        last = self._load_last()
+        if last is None:
+            return state, 0
+        with torch.no_grad():
+            for k, v in state.params.items():
+                v.copy_(last["params"][k])
+            if state.ema_params is not None and last["ema_params"]:
+                for k, v in state.ema_params.items():
+                    v.copy_(last["ema_params"][k])
+        state.tx.opt.load_state_dict(last["optimizer"])
+        state.tx.count = int(last["schedule_step"])
+        state.step = int(last["step"])
+        logger.info("resumed from epoch %d (step %d)", last["epoch"],
+                    state.step)
+        return state, int(last["epoch"])

@@ -2,10 +2,10 @@
 Host-side deterministic preprocessing for training and prediction.
 
 The port's own copy of ``resample_to_spec``, ``area_resize``,
-``center_crop_pad``, the spacing-inference helpers and ``make_load_fn``
-from ``adell_mri_tpu/transforms/host.py``. The resample is one
-``scipy.ndimage.map_coordinates`` call per volume (the JAX package's scipy
-path; its optional native resampler is not used).
+``center_crop_pad``, ``precompute_fg_indices``, the spacing-inference
+helpers and ``make_load_fn`` from ``adell_mri_tpu/transforms/host.py``.
+The resample is one ``scipy.ndimage.map_coordinates`` call per volume (the
+JAX package's scipy path; its optional native resampler is not used).
 """
 
 import logging
@@ -82,6 +82,28 @@ def resample_to_spec(
     ).astype(np.float32)
 
 
+def precompute_fg_indices(
+    label: np.ndarray, max_fg: int = 4096, seed: int = 0
+) -> Tuple[np.ndarray, int]:
+    """Foreground voxel coordinates for the pos/neg crop, padded to
+    ``max_fg`` rows so that every sample has the same shape; a label with
+    more foreground voxels keeps ``max_fg`` of them, drawn without
+    replacement from ``seed``. Returns (indices [max_fg, ndim] int32, the
+    number of valid rows)."""
+    ndim = label.ndim
+    fg = np.argwhere(label > 0)
+    n = len(fg)
+    if n == 0:
+        return np.zeros((max_fg, ndim), np.int32), 0
+    if n > max_fg:
+        rng = np.random.default_rng(seed)
+        fg = fg[rng.choice(n, size=max_fg, replace=False)]
+        n = max_fg
+    out = np.zeros((max_fg, ndim), np.int32)
+    out[:n] = fg
+    return out, n
+
+
 def area_resize(vol: np.ndarray, out_shape: Sequence[int]) -> np.ndarray:
     """Adaptive-average ("area") resize, as torch's
     ``interpolate(mode="area")``: output cell i averages source indices
@@ -144,14 +166,16 @@ def make_load_fn(
     target_size: Optional[Sequence[int]] = None,
     adc_keys: Sequence[str] = (),
     positive_labels: Sequence[int] = (1,),
+    max_fg: int = 4096,
 ):
     """The cached, deterministic part of a training sample: each image key
     read, RAS-oriented, resampled once to (``target_spacing``,
     ``target_size``) and min-max scaled (ADC keys conditionally rescaled
     instead), stacked channels-last; the label keys resampled with
     nearest, combined by max and binarized by ``positive_labels`` (the
-    JAX trainer's label mode). 4D inputs, resize and the foreground
-    indices of random crops are not ported yet."""
+    JAX trainer's label mode), with their foreground indices for the
+    pos/neg crop (``fg_indices``, ``n_fg``). 4D inputs and resize are not
+    ported yet."""
     label_keys = list(label_keys or [])
 
     def read(path):
@@ -187,6 +211,9 @@ def make_load_fn(
             lab = np.isin(np.round(lab).astype(np.int32),
                           np.asarray(positive_labels))
             sample["label"] = lab.astype(np.float32)
+            fg, n_fg = precompute_fg_indices(sample["label"], max_fg)
+            sample["fg_indices"] = fg
+            sample["n_fg"] = np.int32(n_fg)
         return sample
 
     return load_fn

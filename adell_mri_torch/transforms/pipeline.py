@@ -6,12 +6,13 @@ and ``SegmentationTransforms`` in ``adell_mri_tpu/transforms/pipeline.py``.
 ``load_fn()`` is the deterministic host part, run once per volume and
 cached; ``augment(generator, batch)`` carries all randomness on the
 device: per sample one gather warp with the affine and the flips folded
-into one matrix, Gibbs ringing, then one fused intensity kernel over the
-whole batch.
+into one matrix, Gibbs ringing and, with ``crop_size``, a pos/neg crop
+(its foreground centres mapped through the inverse of the warp), then one
+fused intensity kernel over the whole batch.
 
 Ported flags: ``intensity``, ``noise``, ``affine``, ``shear``, ``flip``.
-``rbf``, ``blur``, ``distort``, ``lowres``, ``trivial``, random crops and
-resize are not ported yet and raise ``NotImplementedError``.
+``rbf``, ``blur``, ``distort``, ``lowres``, ``trivial`` and resize are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from dataclasses import dataclass, field
@@ -83,7 +84,9 @@ def _gate(generator, prob: float, device):
 
 def _augment_one(generator, image, label, policy: AugmentPolicy):
     """One sample: image [*S, C], label [*S] or None. One warp for all
-    geometry (label with nearest), then Gibbs ringing. Dtypes are kept."""
+    geometry (label with nearest), then Gibbs ringing. Dtypes are kept.
+    Returns the image, the label and the matrix mapping output voxel ->
+    input voxel of the geometric ops (None when none ran)."""
     policy.check_ported()
     ndim = image.dim() - 1
     shape = tuple(image.shape[:-1])
@@ -91,6 +94,7 @@ def _augment_one(generator, image, label, policy: AugmentPolicy):
     in_dtype = image.dtype
     label_dtype = None if label is None else label.dtype
     fold_flip = policy.flip and (policy.affine or policy.shear) and ndim == 3
+    geom = None
     if policy.affine or policy.shear:
         # each op fires with prob per sample; a sample where it does not
         # warps with the exact identity
@@ -114,6 +118,7 @@ def _augment_one(generator, image, label, policy: AugmentPolicy):
                 generator, mat, shape, policy.flip_axes,
                 prob=policy.flip_prob,
             )
+        geom = mat
         image = S.warp_affine(image, mat)
         if label is not None:
             label = S.warp_affine(label[..., None], mat, method="nearest")
@@ -121,8 +126,11 @@ def _augment_one(generator, image, label, policy: AugmentPolicy):
     if policy.flip and not fold_flip:
         # image and label flip with the same draws
         state = generator.get_state()
-        image = S.random_flip(generator, image, policy.flip_axes,
-                              prob=policy.flip_prob)
+        image, flip_mat = S.random_flip_with_matrix(
+            generator, image, policy.flip_axes, ndim, prob=policy.flip_prob
+        )
+        # the flip follows the warp in output space
+        geom = flip_mat if geom is None else geom @ flip_mat
         if label is not None:
             generator.set_state(state)
             label = S.random_flip(generator, label, policy.flip_axes,
@@ -137,7 +145,18 @@ def _augment_one(generator, image, label, policy: AugmentPolicy):
     image = image.to(in_dtype)
     if label is not None:
         label = label.to(label_dtype)
-    return image, label
+    return image, label, geom
+
+
+def fg_through_geometry(fg, geom, shape: Sequence[int]):
+    """Foreground voxels of the pre-warp label, ``fg`` [N, ndim], where
+    the warp that samples its input at ``geom @ o`` puts them: at
+    ``inv(geom) @ p``, rounded and clipped into ``shape``."""
+    nd = len(shape)
+    inv = torch.linalg.inv_ex(geom.float())[0]
+    pts = fg.float() @ inv[:nd, :nd].T + inv[:nd, nd]
+    hi = torch.tensor(shape, device=fg.device) - 1
+    return torch.minimum(torch.round(pts).long().clamp_min(0), hi).int()
 
 
 def _batch_intensity(generator, image, policy: AugmentPolicy):
@@ -163,7 +182,9 @@ def _batch_intensity(generator, image, policy: AugmentPolicy):
 @dataclass
 class SegmentationTransforms:
     """Host load (read -> RAS -> spacing -> scale -> size), then device
-    augmentation of whole volumes (no random crop)."""
+    augmentation; with ``crop_size`` each sample is cut to a pos/neg crop
+    (``pos_ratio`` of them centred on a foreground voxel) after its warp
+    and before the batch's intensity pass."""
 
     image_keys: Sequence[str] = ("image",)
     label_keys: Sequence[str] = ("label",)
@@ -172,6 +193,9 @@ class SegmentationTransforms:
     adc_keys: Sequence[str] = ()
     positive_labels: Sequence[int] = (1,)
     augmentations: AugmentPolicy = field(default_factory=AugmentPolicy)
+    crop_size: Optional[Sequence[int]] = None
+    pos_ratio: float = 0.5
+    max_fg: int = 4096
 
     def __post_init__(self):
         self.augmentations.check_ported()
@@ -184,19 +208,42 @@ class SegmentationTransforms:
             target_size=self.target_size,
             adc_keys=self.adc_keys,
             positive_labels=self.positive_labels,
+            max_fg=self.max_fg,
         )
 
     def augment(self, generator, batch: Dict) -> Dict:
         """``batch["image"]`` [B, *S, C] and ``batch["label"]`` [B, *S] on
-        the device; draws from ``generator`` (on the same device)."""
-        pairs = [
-            _augment_one(generator, img, lab, self.augmentations)
-            for img, lab in zip(batch["image"], batch["label"])
-        ]
+        the device; draws from ``generator`` (on the same device). A crop
+        takes ``batch["fg_indices"]`` [B, max_fg, 3] and ``batch["n_fg"]``
+        [B] (the load function's), and drops them from the batch."""
+        images, labels = [], []
+        for i, (img, lab) in enumerate(zip(batch["image"], batch["label"])):
+            img, lab, geom = _augment_one(
+                generator, img, lab, self.augmentations
+            )
+            if self.crop_size is not None:
+                fg, n_fg = self._fg(batch, i, img)
+                if geom is not None:
+                    fg = fg_through_geometry(fg, geom, img.shape[:-1])
+                img, lab, _ = S.pos_neg_crop(
+                    generator, img, lab, tuple(self.crop_size), fg, n_fg,
+                    self.pos_ratio,
+                )
+            images.append(img)
+            labels.append(lab)
         out = dict(batch)
         out["image"] = _batch_intensity(
-            generator, torch.stack([p[0] for p in pairs]),
-            self.augmentations,
+            generator, torch.stack(images), self.augmentations
         )
-        out["label"] = torch.stack([p[1] for p in pairs])
+        out["label"] = torch.stack(labels)
+        out.pop("fg_indices", None)
+        out.pop("n_fg", None)
         return out
+
+    def _fg(self, batch: Dict, i: int, image):
+        if "fg_indices" in batch:
+            return batch["fg_indices"][i], batch["n_fg"][i]
+        # no foreground indices: every crop is uniform
+        zeros = torch.zeros((self.max_fg, image.dim() - 1), dtype=torch.int32,
+                            device=image.device)
+        return zeros, torch.zeros((), dtype=torch.int32, device=image.device)

@@ -3,7 +3,8 @@ Device-side spatial augmentation: one affine warp as a gather.
 
 Counterpart of the gather path of ``adell_mri_tpu/transforms/spatial.py``
 (``sample_volume``, ``affine_coords``, ``warp_affine``, the matrix
-builders, ``random_flip``, ``random_flip_with_matrix``, ``compose_flips``).
+builders, ``random_flip``, ``random_flip_with_matrix``, ``compose_flips``)
+and its crops (``dynamic_crop``, ``random_crop``, ``pos_neg_crop``).
 The JAX package's separable shear warp serves only its TPU; off the TPU it
 takes this gather path, and so does the port. All geometry composes into
 one homogeneous matrix mapping output voxel -> input voxel, applied by one
@@ -238,3 +239,97 @@ def compose_flips(
     realizes the flips and no separate pass over the volume is needed."""
     gates = _bernoulli(generator, prob, len(axes), matrix.device)
     return matrix @ _flip_matrix(gates, shape, axes)
+
+
+# -- crops --------------------------------------------------------------------
+
+
+def dynamic_crop(vol, start, size: Sequence[int]):
+    """The ``size`` box of ``vol`` [*S, ...] at ``start`` (ints or an int
+    tensor on the volume's device, read without a host sync). As in
+    ``jax.lax.dynamic_slice`` a negative start counts from the end and the
+    box is clamped into the volume. A gather."""
+    ndim = len(size)
+    for d in range(ndim):
+        if size[d] > vol.shape[d]:
+            raise ValueError(
+                f"crop {tuple(size)} exceeds the volume "
+                f"{tuple(vol.shape[:ndim])}"
+            )
+    dev = vol.device
+    start = torch.as_tensor(start, device=dev).long().reshape(ndim)
+    dims = torch.tensor(vol.shape[:ndim], device=dev)
+    start = torch.where(start < 0, start + dims, start)
+    start = torch.minimum(start.clamp_min(0),
+                          dims - torch.tensor(size, device=dev))
+    idx = []
+    for d in range(ndim):
+        shape = [1] * ndim
+        shape[d] = size[d]
+        idx.append((start[d] + torch.arange(size[d], device=dev))
+                   .reshape(shape))
+    return vol[tuple(idx)]
+
+
+def _crop_maxs(shape: Sequence[int], size: Sequence[int], device):
+    return torch.tensor(
+        [max(int(shape[d]) - int(size[d]), 0) for d in range(len(size))],
+        device=device,
+    )
+
+
+def _uniform_start(generator, shape, size, device):
+    """A start uniform over ``[0, max]`` on each axis."""
+    maxs = _crop_maxs(shape, size, device)
+    u = torch.rand((len(size),), generator=generator, device=device)
+    return torch.minimum(torch.floor(u * (maxs + 1)).long(), maxs)
+
+
+def random_crop(generator, vol, size: Sequence[int], start=None):
+    """Uniform random crop of fixed ``size``; ``start`` replaces the draw."""
+    if start is None:
+        start = _uniform_start(generator, vol.shape[:len(size)], size,
+                               vol.device)
+    return dynamic_crop(vol, start, size)
+
+
+def fg_centred_start(centre, shape: Sequence[int], size: Sequence[int]):
+    """The start that centres a ``size`` crop on ``centre``, clipped into
+    the volume."""
+    maxs = _crop_maxs(shape, size, centre.device)
+    half = torch.tensor([s // 2 for s in size], device=centre.device)
+    return torch.minimum((centre.long() - half).clamp_min(0), maxs)
+
+
+def pos_neg_crop(
+    generator,
+    vol,
+    label,
+    size: Sequence[int],
+    fg_indices,
+    n_fg,
+    pos_ratio: float = 0.5,
+    start=None,
+):
+    """RandCropByPosNegLabeld's analogue: with probability ``pos_ratio``
+    the crop centres on a foreground voxel drawn from ``fg_indices``
+    [max_fg, ndim] (its first ``n_fg`` rows valid), else its start is
+    uniform; a label with no foreground always crops uniformly. ``start``
+    replaces the draws. Returns (image crop, label crop, start); the label
+    keeps its rank."""
+    ndim = len(size)
+    dev = vol.device
+    shape = vol.shape[:ndim]
+    if start is None:
+        uniform = _uniform_start(generator, shape, size, dev)
+        n_fg = torch.as_tensor(n_fg, device=dev)
+        u = torch.rand((), generator=generator, device=dev)
+        idx = torch.floor(u * n_fg.clamp_min(1)).long()
+        idx = torch.minimum(idx, n_fg.clamp_min(1) - 1)
+        centre = torch.as_tensor(fg_indices, device=dev)[idx]
+        use_fg = (torch.rand((), generator=generator, device=dev)
+                  < pos_ratio) & (n_fg > 0)
+        start = torch.where(use_fg, fg_centred_start(centre, shape, size),
+                            uniform)
+    return dynamic_crop(vol, start, size), dynamic_crop(label, start,
+                                                        size), start

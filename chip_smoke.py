@@ -108,7 +108,26 @@ failure:
 13. CLI: ``segmentation train --segmentation_net_type unetr --dev cuda
     --precision bf16`` with a dropout-0 copy of the yaml on a 4-case
     cohort at 256x256x64 (one epoch of 2 steps at B=2), then ``segmentation
-    predict`` on what it wrote.
+    predict`` on what it wrote;
+14. the flagship pipeline: a seeded 6-case cohort at 256x256x64 (two
+    cases lesion-free, all in training), then, with the U-Net at full
+    width: crop steps (bf16, B=4 pos/neg crops of 128x128x32 through
+    ``TrainLoop`` and the augmentation, each launching what phase 8's step
+    launches, every crop 128x128x32), timed with the NaN guard off and on
+    in turns; ``segmentation train`` (f32, the CLI's default) with
+    ``--random_crop_size 128 128 32 --swa --check_nan_loss
+    --early_stopping 2 --sliding_window_val --picai_eval`` for 2 epochs,
+    then ``--resume_from_last --max_epochs 3`` (it must log that it
+    resumed at epoch 2 and write epoch 3); ``segmentation test
+    --picai_eval`` in f32 and bf16 (31 K1 launches a case, one
+    whole-volume forward; Dice and IoU within 1e-3 in f32 and 5e-2 in bf16
+    of the plain path's whole-volume forward of the same checkpoint; AP,
+    AUROC and score finite), with its seconds a case and peak memory;
+    ``segmentation predict`` with and without ``--extract_lesions`` (the
+    candidate map equal to the candidates of the probability map) and
+    ``segmentation test_from_predictions`` on its outputs (Dice equal to a
+    numpy Dice of the files). The CLIs run in this process, so the launch
+    counts are read around each.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -2182,6 +2201,450 @@ def phase_unetr_cli():
     return dict(train_s=train_s, predict_s=predict_s, metric_rows=rows)
 
 
+# -- the flagship pipeline ---------------------------------------------------
+
+PIPELINE_CASES = 6
+PIPELINE_LESION_FREE = 2
+# crop steps an epoch when the crop step is counted and timed
+CROP_STEPS = 4
+# turns of the crop step without and with the NaN guard
+GUARD_TURNS = 4
+# whole-volume test forwards, kernels against the plain path: 1e-3 in f32
+# and 5e-2 in bf16 on the probabilities (max abs difference; the
+# tolerances of phases 4 and 11) and on the test CLI's Dice and IoU
+TEST_TOL = {"f32": 1e-3, "bf16": 5e-2}
+
+
+def _pipeline_cohort(work, case, lesion_free):
+    """NIfTIs at ``case`` (uncompressed, so that writing them is quick):
+    per case one or two bright ellipsoids (the mask) over noise, none for
+    ``lesion_free``."""
+    import numpy as np
+
+    from adell_mri_torch.data.nifti import write_nifti
+
+    rng = np.random.default_rng(7)
+    affine = np.diag([-0.5, -0.5, 3.0, 1.0])
+    axes = [np.arange(s, dtype=np.float32) for s in case]
+    ds = {}
+    for i in range(PIPELINE_CASES):
+        pid = f"case_{i}"
+        mask = np.zeros(case, np.float32)
+        if pid not in lesion_free:
+            for _ in range(int(rng.integers(1, 3))):
+                centre = np.asarray(case) * rng.uniform(0.25, 0.75, 3)
+                radii = np.asarray(case) * rng.uniform(0.06, 0.12)
+                dist = sum(
+                    (((a - c) / r) ** 2).reshape(
+                        [-1 if j == d else 1 for j in range(3)])
+                    for d, (a, c, r) in enumerate(zip(axes, centre, radii)))
+                mask[dist <= 1.0] = 1.0
+        img = (100 + 80 * mask + 10 * rng.standard_normal(
+            case, dtype=np.float32)).astype(np.float32)
+        paths = {}
+        for key, data in (("image", img), ("mask", mask.astype(np.uint8))):
+            paths[key] = str(work / f"{pid}_{key}.nii")
+            write_nifti(paths[key], data, affine)
+        ds[pid] = paths
+    (work / "ds.json").write_text(json.dumps(ds))
+    return ds
+
+
+class _crop_shapes:
+    """Within the block every augmented batch's image shape is recorded
+    (``SegmentationTransforms.augment`` read, not changed)."""
+
+    def __enter__(self):
+        from adell_mri_torch.transforms.pipeline import SegmentationTransforms
+
+        self.shapes, self.real = [], SegmentationTransforms.augment
+        real, shapes = self.real, self.shapes
+
+        def augment(tr, generator, batch):
+            out = real(tr, generator, batch)
+            shapes.append(tuple(out["image"].shape))
+            return out
+
+        SegmentationTransforms.augment = augment
+        return self
+
+    def __exit__(self, *exc):
+        from adell_mri_torch.transforms.pipeline import SegmentationTransforms
+
+        SegmentationTransforms.augment = self.real
+        return False
+
+
+def _cli(args, counts=True):
+    """One in-process run of ``python -m adell_mri_torch`` with the launch
+    counts set to 0 just before it: (seconds, standard output, counts)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from adell_mri_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_main(list(args))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return secs, out.getvalue(), _launch_counts()
+
+
+def _last_json(text):
+    return json.loads([ln for ln in text.splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def _crop_step(ds, pids, case, window, smi):
+    """The flagship trainer (bf16) on pos/neg crops: a batch of 4 padded
+    volumes through ``TrainLoop`` and ``SegmentationTransforms.augment``,
+    counted against phase 8's step and timed with the NaN guard off and
+    on, in turns."""
+    import torch
+
+    from adell_mri_torch.data.loader import safe_collate
+    from adell_mri_torch.tools.flagship import AUGMENT_FLAGS, make_trainer
+    from adell_mri_torch.train.loop import TrainLoop
+    from adell_mri_torch.train.nan_guard import NaNGuard
+    from adell_mri_torch.transforms.pipeline import (
+        AugmentPolicy,
+        SegmentationTransforms,
+    )
+
+    transforms = SegmentationTransforms(
+        image_keys=["image"], label_keys=["mask"],
+        target_spacing=[0.5, 0.5, 3.0], target_size=case, crop_size=window,
+        augmentations=AugmentPolicy.from_flags(
+            AUGMENT_FLAGS, scale_range=0.0, flip_axes=(0, 1, 2)))
+    load = transforms.load_fn()
+    t0 = time.perf_counter()
+    batch = safe_collate([load({**ds[p], "identifier": p}) for p in pids])
+    load_s = time.perf_counter() - t0
+    loader = [batch] * CROP_STEPS
+    tr = make_trainer(0, "bf16", device="cuda")
+    loops = {
+        # the augment is looked up at each call, so _crop_shapes sees it
+        guard: TrainLoop(tr.train_step,
+                         augment_fn=lambda g, b: transforms.augment(g, b),
+                         device="cuda", max_epochs=1, nan_guard=(
+                             NaNGuard(str(WORK_DIR / "nan_dumps"))
+                             if guard else None))
+        for guard in (False, True)}
+
+    def epoch(guard):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, hist = loops[guard].fit(tr.state, loader)
+        torch.cuda.synchronize()
+        if not all(abs(v) < float("inf") for v in hist[0].values()):
+            raise AssertionError(f"non-finite crop-step metrics {hist}")
+        return (time.perf_counter() - t0) / CROP_STEPS
+
+    warmup_s = epoch(False) * CROP_STEPS
+    with _crop_shapes() as shapes:
+        _reset_counts()
+        epoch(False)
+        counts = {k: v for k, v in _launch_counts().items()
+                  if not k.startswith("flash_")}
+    want = dict(conv3d_igemm=CONVS_PER_FORWARD,
+                conv3d_igemm_wgmma=CONVS_WGMMA_PER_FORWARD,
+                conv3d_igemm_tf32=0,
+                conv3d_igemm_narrow=CONVS_NARROW_PER_FORWARD,
+                conv3d_igemm_dx=CONVS_DX_PER_STEP,
+                conv3d_igemm_dx_wgmma=CONVS_DX_WGMMA_PER_STEP,
+                conv3d_igemm_dx_tf32=0,
+                conv3d_igemm_dx_narrow=CONVS_DX_NARROW_PER_STEP,
+                conv3d_weight_grad=CONVS_WGRAD_PER_STEP,
+                conv3d_weight_grad_patches=CONVS_WGRAD_PATCHES_PER_STEP,
+                intensity_aug=1)
+    want = {k: v * CROP_STEPS for k, v in want.items()}
+    crop = (len(pids),) + tuple(window) + (1,)
+    if counts != want or set(shapes.shapes) != {crop}:
+        raise AssertionError(f"crop steps launched {counts}, want {want} "
+                             f"(phase 8's step); crops {set(shapes.shapes)}")
+    secs = {False: [], True: []}
+    for turn in range(GUARD_TURNS):
+        for guard in ((False, True) if turn % 2 == 0 else (True, False)):
+            secs[guard].append(epoch(guard))
+    log(f"[flagship] {smi}: crop step (bf16, B={len(pids)} pos/neg crops "
+        f"of {'x'.join(map(str, window))} from "
+        f"{'x'.join(map(str, case))}, host batch copy and augmentation "
+        f"included), s a step in turns: without the NaN guard "
+        f"{', '.join(f'{s:.4f}' for s in secs[False])}; with it "
+        f"{', '.join(f'{s:.4f}' for s in secs[True])}; launches a step "
+        f"{ {k: v // CROP_STEPS for k, v in counts.items()} }")
+    del tr, loops
+    return dict(counts=counts, seconds_without_guard=secs[False],
+                seconds_with_guard=secs[True], crop_shape=list(crop),
+                load_s=load_s, warmup_s=warmup_s)
+
+
+def _plain_metrics(ckpt, ds, pids, precision):
+    """The test CLI's whole-volume forward of the same checkpoint on each
+    loaded case, once on the kernels and once on the plain path: the plain
+    path's mean Dice and IoU, and the largest difference between the two
+    probability maps over all cases."""
+    import numpy as np
+    import torch
+
+    from adell_mri_torch.config.factories import get_segmentation_network
+    from adell_mri_torch.train.checkpoints import CheckpointManager
+    from adell_mri_torch.transforms.pipeline import SegmentationTransforms
+
+    mngr = CheckpointManager(str(ckpt), name="segmentation", fold=0)
+    meta = mngr.load_metadata()
+    t_args = meta["transform_arguments"]
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    model = get_segmentation_network(
+        "unet", meta["network_config"], n_classes=2,
+        image_size=t_args["target_size"])
+    model.load_state_dict(mngr.load_state_dict())
+    model = model.to(device="cuda", dtype=dtype).eval()
+    load = SegmentationTransforms(
+        image_keys=["image"], label_keys=["mask"],
+        target_spacing=t_args["target_spacing"],
+        target_size=t_args["target_size"]).load_fn()
+    dices, ious, errs, ranges = [], [], [], []
+    with torch.inference_mode():
+        for pid in pids:
+            sample = load({**ds[pid], "identifier": pid})
+            x = torch.from_numpy(sample["image"]).to("cuda", dtype)[None]
+            got = model(x)[0].float()
+            with plain_kernels():
+                want = model(x)[0].float()
+            if got.shape != want.shape or not bool(
+                    torch.isfinite(got).all()):
+                raise AssertionError(f"{pid}: kernel forward {got.shape}, "
+                                     f"plain {want.shape}, or non-finite")
+            errs.append(float((got - want).abs().max()))
+            ranges.append((float(want.min()), float(want.max())))
+            # binary: one sigmoid channel, thresholded at 0.5 (in numpy
+            # here, not through the port's metrics)
+            p = want.cpu().numpy()[..., 0] > 0.5
+            t = np.asarray(sample["label"]) > 0.5
+            inter, union = (p & t).sum(), (p | t).sum()
+            dices.append(1.0 if union == 0
+                         else float(2 * inter / (p.sum() + t.sum())))
+            ious.append(1.0 if union == 0 else float(inter / union))
+    return dict(dice=float(np.mean(dices)), iou=float(np.mean(ious)),
+                prob_err=max(errs), prob_errs=errs, prob_ranges=ranges)
+
+
+def phase_flagship_pipeline(smi, case=None, window=None):
+    """Phase 14: the flagship U-Net at full width through the whole
+    segmentation pipeline on a seeded 6-case cohort at 256x256x64."""
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from adell_mri_torch.data.nifti import read_nifti, reorient_to_ras
+    from adell_mri_torch.entrypoints.segmentation.train import get_folds
+    from adell_mri_torch.eval.lesion import extract_lesion_candidates
+    from adell_mri_torch.tools.flagship import CASE, FLAGSHIP, WINDOW
+
+    case = tuple(case or CASE)
+    window = tuple(window or WINDOW)
+    work = WORK_DIR / "flagship_pipeline"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pids = [f"case_{i}" for i in range(PIPELINE_CASES)]
+    train_pids, val_pids = get_folds(pids, 1, 0)[0]
+    # the lesion-free cases train; the validation case has a lesion
+    lesion_free = train_pids[:PIPELINE_LESION_FREE]
+    t0 = time.perf_counter()
+    ds = _pipeline_cohort(work, case, lesion_free)
+    cohort_s = time.perf_counter() - t0
+    (work / "unet.json").write_text(json.dumps(
+        {**FLAGSHIP, "n_channels": 1, "loss_fn": {"dice": {}}}))
+    out = {"cohort_s": cohort_s, "val_pids": val_pids,
+           "lesion_free": lesion_free}
+
+    t0 = time.perf_counter()
+    out["crop_step"] = _crop_step(ds, train_pids[:4], case, window, smi)
+    out["crop_step"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    ckpt = work / "ckpt"
+    fold = ckpt / "segmentation_fold0"
+    metrics_csv = work / "metrics.csv"
+    train_args = [
+        "segmentation", "train", "--dataset_json", str(work / "ds.json"),
+        "--image_keys", "image", "--mask_keys", "mask", "--config_file",
+        str(work / "unet.json"), "--pad_size", *map(str, case),
+        "--random_crop_size", *map(str, window), "--target_spacing", "0.5",
+        "0.5", "3.0", "--batch_size", "4", "--n_folds", "1", "--augment",
+        "intensity", "noise", "affine", "flip", "--swa", "--check_nan_loss",
+        "--early_stopping", "2", "--sliding_window_val", "--picai_eval",
+        "--dev", "cuda", "--seed", "0", "--checkpoint_dir", str(ckpt),
+        "--metric_path", str(metrics_csv),
+    ]
+    with _crop_shapes() as shapes:
+        train_s, _, train_counts = _cli(train_args + ["--max_epochs", "2"])
+    last = torch.load(fold / "last.pt", map_location="cpu",
+                      weights_only=True)
+    rows = metrics_csv.read_text().splitlines()
+    if (last["epoch"] != 2 or last["ema_params"] is None
+            or not any(r.startswith("V_AP,") for r in rows)
+            or set(shapes.shapes) != {(4,) + window + (1,)}):
+        raise AssertionError(
+            f"train: last epoch {last['epoch']}, SWA shadow "
+            f"{last['ema_params'] is not None}, crops {set(shapes.shapes)}, "
+            f"metric rows {rows[:3]}...")
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    train_logger = logging.getLogger(
+        "adell_mri_torch.entrypoints.segmentation.train")
+    train_logger.addHandler(handler)
+    try:
+        resume_s, _, resume_counts = _cli(
+            train_args + ["--max_epochs", "3", "--resume_from_last"])
+    finally:
+        train_logger.removeHandler(handler)
+    last = torch.load(fold / "last.pt", map_location="cpu",
+                      weights_only=True)
+    if ("fold 0: resuming from epoch 2" not in records
+            or last["epoch"] != 3):
+        raise AssertionError(f"resume: logged {records}, last epoch "
+                             f"{last['epoch']} (want 3)")
+    torch.cuda.empty_cache()
+    out.update(train_s=train_s, resume_s=resume_s,
+               train_counts=train_counts, resume_counts=resume_counts,
+               resume_log=records)
+
+    test = {}
+    for precision in ("f32", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        secs, text, counts = _cli([
+            "segmentation", "test", "--dataset_json", str(work / "ds.json"),
+            "--checkpoint_dir", str(ckpt), "--dev", "cuda", "--picai_eval",
+            "--precision", "32" if precision == "f32" else "bf16",
+            "--metric_path", str(work / f"test_{precision}.csv")])
+        peak = torch.cuda.max_memory_allocated()
+        res = _last_json(text)
+        t0 = time.perf_counter()
+        plain = _plain_metrics(ckpt, ds, pids, precision)
+        plain_s = time.perf_counter() - t0
+        dice, iou = plain["dice"], plain["iou"]
+        err = max(abs(res["dice"] - dice), abs(res["iou"] - iou))
+        tol = TEST_TOL[precision]
+        test[precision] = dict(result=res, seconds=secs,
+                               seconds_per_case=secs / res["n_cases"],
+                               peak_bytes=peak, counts=counts,
+                               plain_dice=dice, plain_iou=iou,
+                               plain_s=plain_s, max_abs_err=err,
+                               prob_max_abs_err=plain["prob_err"],
+                               prob_errs=plain["prob_errs"],
+                               prob_ranges=plain["prob_ranges"], tol=tol)
+        log(f"[flagship] test {precision}: whole-volume probabilities, "
+            f"kernels vs plain path, max abs err per case "
+            f"{', '.join(f'{e:.3g}' for e in plain['prob_errs'])} (tol "
+            f"{tol}); plain range {plain['prob_ranges']}")
+        if (res["n_cases"] != PIPELINE_CASES
+                or counts["conv3d_igemm"]
+                != CONVS_PER_FORWARD * PIPELINE_CASES
+                or not plain["prob_err"] <= tol
+                or not err <= tol
+                or not all(np.isfinite(res[k])
+                           for k in ("AP", "auroc", "score"))):
+            raise AssertionError(
+                f"test {precision}: {res}, plain dice {dice} iou {iou}, "
+                f"probabilities max abs err {plain['prob_err']} "
+                f"(tolerance {tol}), K1 launches "
+                f"{counts['conv3d_igemm']} for {res['n_cases']} cases "
+                f"(want {CONVS_PER_FORWARD} a case)")
+        torch.cuda.empty_cache()
+    out["test"] = test
+
+    served = val_pids + [p for p in pids if p not in val_pids][:1]
+    preds = {}
+    for kind, extra in (("prob", []), ("lesions", ["--extract_lesions"])):
+        secs, _, counts = _cli([
+            "segmentation", "predict", "--dataset_json",
+            str(work / "ds.json"), "--checkpoint_dir", str(ckpt),
+            "--output_path", str(work / f"pred_{kind}"), "--dev", "cuda",
+            "--sliding_window_size", *map(str, window), "--prediction_ids",
+            *served, *extra])
+        preds[kind] = dict(seconds=secs, counts=counts)
+    pred_ds = {}
+    for pid in served:
+        prob_path = work / "pred_prob" / f"{pid}_prob.nii.gz"
+        prob = read_nifti(str(prob_path)).data
+        cand = read_nifti(str(work / "pred_lesions" / f"{pid}_prob.nii.gz"))
+        want = extract_lesion_candidates(prob, threshold="dynamic")[0]
+        if not np.array_equal(cand.data, want):
+            raise AssertionError(f"{pid}: --extract_lesions map differs "
+                                 "from the candidates of the probability "
+                                 "map")
+        pred_ds[pid] = {**ds[pid], "pred": str(prob_path)}
+    (work / "ds_pred.json").write_text(json.dumps(pred_ds))
+    tfp_s, text, _ = _cli([
+        "segmentation", "test_from_predictions", "--dataset_json",
+        str(work / "ds_pred.json"), "--ground_truth_key", "mask",
+        "--prediction_key", "pred", "--prediction_mode", "probs",
+        "--picai_eval"])
+    agg = _last_json(text)
+    dices = []
+    for pid in served:
+        p = reorient_to_ras(read_nifti(pred_ds[pid]["pred"])).data > 0.5
+        t = reorient_to_ras(read_nifti(pred_ds[pid]["mask"])).data > 0.5
+        denom = p.sum() + t.sum()
+        dices.append(1.0 if denom == 0 else 2 * (p & t).sum() / denom)
+    if abs(agg["dice"] - float(np.mean(dices))) > 1e-9:
+        raise AssertionError(f"test_from_predictions dice {agg['dice']}, "
+                             f"numpy {np.mean(dices)}")
+    out.update(predict=preds, test_from_predictions=dict(
+        seconds=tfp_s, aggregate=agg, numpy_dice=float(np.mean(dices))))
+
+    # one whole-volume forward on the kernels, after a warm-up
+    from adell_mri_torch.config.factories import get_segmentation_network
+    from adell_mri_torch.train.checkpoints import CheckpointManager
+
+    model = get_segmentation_network("unet", FLAGSHIP, n_classes=2)
+    model.load_state_dict(CheckpointManager(
+        str(ckpt), name="segmentation", fold=0).load_state_dict())
+    model = model.to("cuda").eval()
+    x = torch.rand((1,) + case + (1,), device="cuda")
+    fwd = []
+    with torch.inference_mode():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            fwd.append(time.perf_counter() - t0)
+    out["test_forward_s"] = fwd[1:]
+    del model
+    torch.cuda.empty_cache()
+    t32, t16 = test["f32"], test["bf16"]
+    log(f"[flagship] {smi}: test f32 {t32['seconds_per_case']:.3f} s a case "
+        f"(CLI wall / {t32['result']['n_cases']} cases, host load "
+        f"included), whole-volume forward "
+        f"{', '.join(f'{s:.4f}' for s in fwd[1:])} s, peak memory "
+        f"{t32['peak_bytes'] / 1e9:.2f} GB; bf16 "
+        f"{t16['seconds_per_case']:.3f} s a case, peak "
+        f"{t16['peak_bytes'] / 1e9:.2f} GB")
+    log(f"[flagship] {smi}: train (2 epochs) {train_s:.2f} s, resume (epoch "
+        f"3) {resume_s:.2f} s, test f32 {t32['seconds']:.2f} s, bf16 "
+        f"{t16['seconds']:.2f} s, predict {preds['prob']['seconds']:.2f} "
+        f"and {preds['lesions']['seconds']:.2f} s with --extract_lesions, "
+        f"test_from_predictions {tfp_s:.2f} s (in process, one build)")
+    log(f"[flagship] test f32 {t32['result']} (plain dice "
+        f"{t32['plain_dice']:.6f}, iou {t32['plain_iou']:.6f}); bf16 "
+        f"{t16['result']} (plain {t16['plain_dice']:.6f}, "
+        f"{t16['plain_iou']:.6f}); test_from_predictions {agg}")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2199,10 +2662,19 @@ def main():
     from adell_mri_torch.tools.flagship import make_model
 
     t_start = time.perf_counter()
+    # wall seconds of each phase, by its number
+    phase_s, last = {}, [t_start]
+
+    def lap(*phases):
+        now = time.perf_counter()
+        phase_s["+".join(map(str, phases))] = now - last[0]
+        last[0] = now
 
     kind, smi = phase_device()
     build_s = phase_build()
+    lap(1, 2)
     kernel_rows = phase_kernels()
+    lap(3)
     model = make_model(0, torch.bfloat16)
     serving = phase_serving(model)
     case = serving.pop("case")
@@ -2212,17 +2684,30 @@ def main():
     window_rows, shapes = phase_window_batch(model, case)
     path_rows, totals, f32_path_rows, f32_totals, tf32_totals = (
         phase_path_shapes(shapes))
+    lap(4)
     cli = phase_cli(model)
+    lap(5)
     intensity_rows = phase_intensity()
+    lap(6)
     bwd_rows, dx_totals = phase_conv_backward(shapes)
+    lap(7)
     training = phase_training()
+    lap(8)
     train_cli = phase_train_cli()
+    lap(9)
     attention_rows, attention = phase_attention()
+    lap(10)
     unetr_serving = phase_unetr_serving(torch.bfloat16)
     # the CLI's default precision, f32
     unetr_serving_f32 = phase_unetr_serving(torch.float32)
+    lap(11)
     unetr_training = phase_unetr_training()
+    lap(12)
     unetr_cli = phase_unetr_cli()
+    lap(13)
+    pipeline = phase_flagship_pipeline(smi)
+    lap(14)
+    log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
         return {
@@ -2245,6 +2730,16 @@ def main():
         "unetr_serving_f32": unetr_serving_f32["launches"],
         "unetr_training": unetr_training["launches"],
         "unetr_training_f32": unetr_training["f32_parity"]["launches"],
+        # phase 14: crop steps (bf16), the train CLI and its resume (f32),
+        # test in f32 and bf16, predict with and without --extract_lesions
+        "flagship_crop_steps": pipeline["crop_step"]["counts"],
+        "flagship_train_f32": pipeline["train_counts"],
+        "flagship_resume_f32": pipeline["resume_counts"],
+        "flagship_test_f32": pipeline["test"]["f32"]["counts"],
+        "flagship_test_bf16": pipeline["test"]["bf16"]["counts"],
+        "flagship_predict_f32": pipeline["predict"]["prob"]["counts"],
+        "flagship_predict_lesions_f32":
+            pipeline["predict"]["lesions"]["counts"],
     }
 
     def launches_of(name):
@@ -2262,7 +2757,8 @@ def main():
               "window batch of 4 at 128x128x32 (the U-Net's 31 convs), "
               "bf16; launches: the U-Net's served case in bf16 and f32, 5 "
               "bf16 and 3 f32 training steps, UNETR's served case, 3 "
-              "training steps and its f32 step, every route",
+              "training steps and its f32 step, phase 14's crop steps, "
+              "train, resume, test and predict runs, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -2446,6 +2942,8 @@ def main():
         attention=attention_rows, unetr_serving=unetr_serving,
         unetr_serving_f32=unetr_serving_f32,
         unetr_training=unetr_training, unetr_cli=unetr_cli,
+        flagship_pipeline=pipeline, launches_by_path=by_path,
+        phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,
     ), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

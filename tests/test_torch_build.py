@@ -207,3 +207,27 @@ def test_compile_puts_csrc_on_the_include_path(tmp_path, monkeypatch):
         assert f"-I {csrc}" in ln and "arch=compute_90a,code=sm_90a" in ln
     assert "-shared" in lines[-1] and "-lcuda" not in lines[-1]
     assert (out / build.LIB_NAME).exists()
+
+
+def test_sass_loop_counts_the_widest_backward_branch():
+    """``tools/sass_loop.py`` reads a cuobjdump listing: the loop body runs
+    from the target of the branch that jumps furthest back to it."""
+    from adell_mri_torch.tools.sass_loop import loop_body, parse_functions
+
+    listing = "\n".join([
+        "        Function : _ZN12_GLOBAL__N_120intensity_aug_kernelIfLb1ELb1EEEv",
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;  /* 0x0 */",
+        "        /*0010*/              @P0 EXIT ;                   /* 0x0 */",
+        "        /*0020*/                   FADD R3, R4, R5 ;       /* 0x0 */",
+        "        /*0030*/              @!P1 BRA 0x50 ;              /* 0x0 */",
+        "        /*0040*/                   FMUL R3, R3, R3 ;       /* 0x0 */",
+        "        /*0050*/              @P3 BRA 0x40 ;               /* 0x0 */",
+        "        /*0060*/              @P2 BRA 0x20 ;               /* 0x0 */",
+        "        /*0070*/                   EXIT ;                  /* 0x0 */",
+        "        Function : other",
+        "        /*0000*/                   EXIT ;                  /* 0x0 */",
+    ])
+    funcs = parse_functions(listing)
+    assert [len(v) for v in funcs.values()] == [8, 1]
+    body = loop_body(next(iter(funcs.values())))
+    assert [a for a, _ in body] == [0x20, 0x30, 0x40, 0x50, 0x60]

@@ -769,3 +769,38 @@ def test_flash_attention_rejects_a_scale_that_is_not_positive(cuda):
     q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="positive finite scale"):
         kattn.flash_attention_fwd(q, q, q, scale=0.0)
+
+
+@pytest.mark.gpu
+def test_crop_augment_on_card_launches_k3_once(cuda):
+    """The pos/neg crop on the card: the same crop as on the CPU at an
+    injected start, and one K3 launch over the cropped batch."""
+    from adell_mri_torch.transforms import pipeline as tpipe
+    from adell_mri_torch.transforms import spatial as tS
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vol = torch.rand((64, 64, 32, 1), generator=g, device=cuda)
+    start = torch.tensor([5, 30, 9], device=cuda)
+    torch.testing.assert_close(
+        tS.dynamic_crop(vol, start, (32, 32, 16)).cpu(),
+        tS.dynamic_crop(vol.cpu(), start.cpu(), (32, 32, 16)), rtol=0,
+        atol=0)
+    label = (vol[..., 0] > 0.9).float()
+    fg = torch.nonzero(label)[:64].int()
+    n_fg = torch.tensor([fg.shape[0]] * 2, device=cuda, dtype=torch.int32)
+    fg = torch.nn.functional.pad(fg, (0, 0, 0, 64 - fg.shape[0]))
+    tr = tpipe.SegmentationTransforms(
+        augmentations=tpipe.AugmentPolicy.from_flags(
+            ["intensity", "noise", "affine", "flip"], scale_range=0.0,
+            flip_axes=(0, 1, 2)),
+        crop_size=(32, 32, 16), max_fg=64)
+    before = kint.intensity_aug.launches
+    out = tr.augment(g, {"image": vol[None].expand(2, -1, -1, -1, -1),
+                         "label": label[None].expand(2, -1, -1, -1),
+                         "fg_indices": fg[None].expand(2, -1, -1),
+                         "n_fg": n_fg})
+    torch.cuda.synchronize()
+    assert kint.intensity_aug.launches == before + 1
+    assert tuple(out["image"].shape) == (2, 32, 32, 16, 1)
+    assert tuple(out["label"].shape) == (2, 32, 32, 16)
+    assert bool(torch.isfinite(out["image"]).all())

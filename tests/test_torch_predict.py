@@ -278,7 +278,7 @@ def test_predict_cuda_without_gpu_raises(cohort, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "flags", [["--mc_iterations", "2"], ["--extract_lesions"]]
+    "flags", [["--mc_iterations", "2"], ["--mc_iterations", "1"]]
 )
 def test_predict_unported_flags_raise(cohort, flags):
     root, ds_path = cohort["root"], cohort["ds_path"]

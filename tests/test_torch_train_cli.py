@@ -66,8 +66,8 @@ def test_train_then_predict_on_cpu(cohort):
     cli_main(["segmentation", "train", *_train_args(cohort, ckpt,
                                                     "--dev", "cpu")])
     fold = ckpt / "segmentation_fold0"
-    assert sorted(os.listdir(fold)) == ["best.json", "metadata.json",
-                                        "model.pt"]
+    assert sorted(os.listdir(fold)) == ["best.json", "last.pt",
+                                        "metadata.json", "model.pt"]
     meta = json.loads((fold / "metadata.json").read_text())
     # the fields the JAX trainer writes, so that predict can rebuild
     assert {"network_config", "transform_arguments", "train_pids",
@@ -140,6 +140,21 @@ def test_unetr_train_then_predict_on_cpu(cohort):
         assert pred.min() >= 0.0 and pred.max() <= 1.0
 
 
+def test_unetr_random_crops_raise(cohort):
+    """UNETR's positional embedding fixes its input size, and predict,
+    test and whole-volume validation run it at ``--pad_size``: crops
+    smaller than the volume are refused before anything is built."""
+    (cohort / "unetr_crop.yaml").write_text(json.dumps(UNETR_CONFIG))
+    ckpt = cohort / "ckpt_unetr_crop"
+    args = _train_args(cohort, ckpt, "--dev", "cpu",
+                       "--segmentation_net_type", "unetr",
+                       "--random_crop_size", "8", "8", "8")
+    args[args.index("--config_file") + 1] = str(cohort / "unetr_crop.yaml")
+    with pytest.raises(NotImplementedError, match="unet net type only"):
+        ttrain.main(args)
+    assert not (ckpt / "segmentation_fold0").exists()
+
+
 def test_train_unknown_net_type_raises(cohort):
     with pytest.raises(NotImplementedError, match="unetr"):
         ttrain.main(_train_args(cohort, cohort / "ckpt_y", "--dev", "cpu",
@@ -154,10 +169,10 @@ def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--deep_supervision"], ["--swa"], ["--random_crop_size", "8", "8",
-                                         "4"],
+    [["--deep_supervision"], ["--semi_supervised"],
+     ["--accumulate_grad_batches", "2"],
      ["--augment", "blur"], ["--optimizer", "lamb"],
-     ["--resize_size", "8", "8", "4"], ["--early_stopping", "3"]],
+     ["--resize_size", "8", "8", "4"], ["--delete_checkpoints"]],
 )
 def test_train_unported_flags_raise(cohort, flags):
     with pytest.raises(NotImplementedError):
