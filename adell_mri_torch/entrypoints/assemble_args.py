@@ -88,7 +88,8 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     "start_decay": dict(default=None, type=float, help="When decay starts"),
     "augment": dict(
         default=[], nargs="+",
-        help="Augmentation flags (ported: intensity noise affine shear flip)",
+        help="Augmentation flags (intensity noise rbf affine shear flip "
+        "blur distort lowres trivial)",
     ),
     "dropout_param": dict(default=0.0, type=float, help="Dropout parameter"),
     "batch_size": dict(type=int, default=None, help="Batch size"),
@@ -143,33 +144,58 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     ),
     "picai_eval": dict(action="store_true", help="Lesion-level PI-CAI eval"),
     "test_ids": dict(default=None, nargs="+", help="Test IDs"),
+    "filter_on_keys": dict(
+        default=[], nargs="+",
+        help="Filter expressions (key=value, key!=value, key>value, "
+        "key<value, key(in)a,b, key(match)s, key(!match)s)",
+    ),
+    "filter_is_optional": dict(
+        action="store_true", help="Entries without a filtered key pass it"
+    ),
+    "possible_labels": dict(
+        default=None, nargs="+",
+        help="All possible labels (sets the class count)",
+    ),
+    "excluded_ids": dict(
+        default=None, nargs="+", help="IDs excluded from the dataset"
+    ),
+    "excluded_ids_from_training_data": dict(
+        default=None, nargs="+",
+        help="IDs excluded from the training split only",
+    ),
+    "cache_dir": dict(
+        default=None, help="Disk cache directory for preprocessed volumes"
+    ),
+    "subsample_size": dict(
+        default=None, type=int, help="Subsample dataset size"
+    ),
+    "subsample_training_data": dict(
+        default=None, type=float,
+        help="Subsamples the training data by this fraction",
+    ),
+    "folds": dict(
+        default=None, nargs="+",
+        help="Explicit folds: each the validation IDs (a file or a "
+        "comma-separated list)",
+    ),
+    "validation_samples_per_epoch": dict(
+        default=None, type=int,
+        help="Number of validation samples per epoch",
+    ),
+    "constant_ratio": dict(
+        default=None, type=float,
+        help="Share of the non-kept class sampled each epoch",
+    ),
     # parsed, not ported yet
     "skip_keys": dict(default=None, nargs="+", help="not ported yet"),
     "feature_keys": dict(default=None, nargs="+", help="not ported yet"),
-    "filter_on_keys": dict(default=[], nargs="+", help="not ported yet"),
-    "filter_is_optional": dict(action="store_true", help="not ported yet"),
-    "possible_labels": dict(default=None, nargs="+", help="not ported yet"),
-    "excluded_ids": dict(default=None, nargs="+", help="not ported yet"),
-    "excluded_ids_from_training_data": dict(
-        default=None, nargs="+", help="not ported yet"
-    ),
-    "cache_dir": dict(default=None, help="not ported yet"),
-    "subsample_size": dict(default=None, type=int, help="not ported yet"),
-    "subsample_training_data": dict(
-        default=None, type=float, help="not ported yet"
-    ),
-    "folds": dict(default=None, nargs="+", help="not ported yet"),
     "resize_size": dict(
         default=None, nargs="+", type=int, help="not ported yet"
     ),
     "lr_encoder": dict(default=None, type=float, help="not ported yet"),
-    "validation_samples_per_epoch": dict(
-        default=None, type=int, help="not ported yet"
-    ),
     "accumulate_grad_batches": dict(
         default=1, type=int, help="not ported yet"
     ),
-    "constant_ratio": dict(default=None, type=float, help="not ported yet"),
     "logger_type": dict(default=None, help="not ported yet"),
     "project_name": dict(default=None, help="not ported yet"),
     "summary_name": dict(default=None, help="not ported yet"),

@@ -11,8 +11,14 @@ Ported: the 3D U-Net and UNETR (``--segmentation_net_type unet``,
 ``unetr`` or ``monai_unetr``; UNETR is built for the ``--pad_size``
 volume), whole-volume training or, for the U-Net, pos/neg crops of
 ``--random_crop_size`` from the padded volume, dropout drawn from a
-generator seeded with ``--seed``, the augmentation flags intensity, noise,
-affine, shear and flip, sgd/adam/adamw under cosine annealing with warmup,
+generator seeded with ``--seed``, every augmentation flag (intensity,
+noise, rbf, affine, shear, flip, blur, distort, lowres, trivial), the
+data selection (``--filter_on_keys`` with ``--filter_is_optional``,
+``--excluded_ids``, ``--subsample_size``, ``--folds``,
+``--excluded_ids_from_training_data``, ``--subsample_training_data``,
+``--constant_ratio``, ``--validation_samples_per_epoch``, ``--cache_dir``,
+``--possible_labels`` for the class count), sgd/adam/adamw under cosine
+annealing with warmup,
 bf16 or f32 compute, ``--swa`` (validation on the weight average of the
 last quarter of the steps), ``--check_nan_loss``, ``--early_stopping``,
 ``--resume_from_last`` (a finished fold is skipped, an interrupted one
@@ -31,11 +37,15 @@ import torch
 
 from adell_mri_torch.config.factories import get_segmentation_network
 from adell_mri_torch.config.parsing import parse_config_unet
-from adell_mri_torch.data import Dataset
+from adell_mri_torch.data.dataset import Dataset, parse_ids
 from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
-from adell_mri_torch.data.samplers import RandomSampler
+from adell_mri_torch.data.samplers import (
+    PartiallyRandomSampler,
+    RandomSampler,
+)
 from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.entrypoints.cli_utils import filter_training_pids
 from adell_mri_torch.eval.callbacks import LesionEvalCallback
 from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.checkpoints import CheckpointManager
@@ -109,10 +119,6 @@ ARG_KEYS = [
     "resume_from_last",
     "sliding_window_val",
     "picai_eval",
-]
-UNPORTED_KEYS = [
-    "skip_keys",
-    "feature_keys",
     "filter_on_keys",
     "filter_is_optional",
     "possible_labels",
@@ -122,11 +128,15 @@ UNPORTED_KEYS = [
     "subsample_size",
     "subsample_training_data",
     "folds",
+    "validation_samples_per_epoch",
+    "constant_ratio",
+]
+UNPORTED_KEYS = [
+    "skip_keys",
+    "feature_keys",
     "resize_size",
     "lr_encoder",
-    "validation_samples_per_epoch",
     "accumulate_grad_batches",
-    "constant_ratio",
     "logger_type",
     "project_name",
     "summary_name",
@@ -169,9 +179,19 @@ def kfold_split(n: int, n_folds: int, seed: int):
         yield np.flatnonzero(~test), np.flatnonzero(test)
 
 
-def get_folds(pids: List[str], n_folds: int, seed: int, val_fraction=None):
+def get_folds(pids: List[str], n_folds: int, seed: int, explicit=None,
+              val_fraction=None):
     """K-fold split; with ``n_folds <= 1`` one split whose validation share
-    is ``val_fraction`` (0.2 by default)."""
+    is ``val_fraction`` (0.2 by default). ``explicit`` (``--folds``: one
+    ID list, file or comma-separated string per fold) gives each fold's
+    validation IDs instead; the rest of ``pids`` trains."""
+    if explicit:
+        folds = []
+        for val_ids in parse_ids(explicit, "nested_list"):
+            val_set = set(val_ids)
+            folds.append(([p for p in pids if p not in val_set],
+                          [p for p in pids if p in val_set]))
+        return folds
     pids_arr = np.asarray(pids)
     if n_folds <= 1:
         idx = np.random.default_rng(seed).permutation(len(pids_arr))
@@ -204,18 +224,29 @@ def main(arguments):
     device = use_device(args.dev)
     compute_dtype(args.precision)  # an unknown precision fails here
 
-    data = Dataset(args.dataset_json)
+    data = Dataset(args.dataset_json, seed=args.seed)
     label_keys = list(args.mask_keys or [])
-    presence = list(args.image_keys) + label_keys
-    pids = [
-        p for p in data.keys() if all(k in data[p] for k in presence)
-    ]
-    if not pids:
+    data.apply_filters(
+        presence_keys=list(args.image_keys) + label_keys,
+        filter_on_keys=args.filter_on_keys,
+        filter_is_optional=args.filter_is_optional,
+    )
+    if args.excluded_ids:
+        data.subsample_dataset(excluded_key_list=args.excluded_ids)
+    if args.subsample_size:
+        data.subsample_dataset(subsample_size=args.subsample_size)
+    if len(data) == 0:
         raise ValueError("no samples left after filtering")
+    pids = list(data.keys())
 
+    # --possible_labels sets the class count (binary up to two labels)
+    n_classes = args.n_classes
+    if args.possible_labels:
+        n = len(args.possible_labels)
+        n_classes = 2 if n <= 2 else n
     config, loss_fn = parse_config_unet(
         args.config_file, n_keys=len(args.image_keys),
-        n_classes=args.n_classes,
+        n_classes=n_classes,
         loss_param_overrides={"gamma": args.loss_gamma, "lam": args.loss_comb},
     )
     net_cfg = config["network"]
@@ -231,7 +262,7 @@ def main(arguments):
     target_spacing = args.target_spacing
     if target_spacing is None:
         spacings = spacing_values_from_dataset_json(
-            {p: data[p] for p in pids}, args.image_keys[0], n=32
+            data.dataset, args.image_keys[0], n=32
         )
         if spacings:
             target_spacing = get_spacing_quantile(spacings)
@@ -252,12 +283,20 @@ def main(arguments):
     if int(net_cfg.get("spatial_dimensions", 3)) != 3:
         raise NotImplementedError("2D networks are not ported yet")
 
-    folds = get_folds(pids, args.n_folds, args.seed, args.val_from_train)
+    folds = get_folds(pids, args.n_folds, args.seed, args.folds,
+                      val_fraction=args.val_from_train)
     metric_logger = MetricLogger(csv_path=args.metric_path)
     positive_labels = [int(x) for x in (args.positive_labels or [1])]
     mode = "min" if "loss" in args.monitor else "max"
 
     for fold_idx, (train_pids, val_pids) in enumerate(folds):
+        train_pids = filter_training_pids(
+            train_pids,
+            excluded=args.excluded_ids_from_training_data,
+            subsample_fraction=args.subsample_training_data,
+            seed=args.seed,
+            fold_idx=fold_idx,
+        )
         logger.info(
             "fold %d: %d train / %d val", fold_idx, len(train_pids),
             len(val_pids),
@@ -276,19 +315,28 @@ def main(arguments):
             augmentations=AugmentPolicy.from_flags(
                 args.augment, scale_range=0.0, flip_axes=(0, 1, 2)
             ),
+            seed=args.seed + fold_idx,
         )
         load_fn = transforms.load_fn()
-
-        def datalist(keys):
-            return [{**data[k], "identifier": k} for k in keys]
-
-        train_ds = CachedVolumeDataset(
-            datalist(train_pids), load_fn, cache_rate=args.cache_rate
-        )
-        val_ds = CachedVolumeDataset(
-            datalist(val_pids), load_fn, cache_rate=args.cache_rate
-        )
-        sampler = RandomSampler(len(train_ds), seed=args.seed)
+        train_list = data.to_datalist(train_pids)
+        cache = dict(cache_rate=args.cache_rate, cache_dir=args.cache_dir,
+                     cache_fingerprint=repr(transforms))
+        train_ds = CachedVolumeDataset(train_list, load_fn, **cache)
+        val_ds = CachedVolumeDataset(data.to_datalist(val_pids), load_fn,
+                                     **cache)
+        if args.constant_ratio is not None:
+            # the class of an entry whose mask is a path (as in every
+            # dataset file) is 1, as in the JAX package: every case is kept
+            labels = [
+                int(any(np.asarray(e.get(k, 0)).max() > 0
+                        for k in label_keys))
+                if not isinstance(e.get(label_keys[0], None), str) else 1
+                for e in train_list
+            ]
+            sampler = PartiallyRandomSampler(
+                labels, non_keep_ratio=args.constant_ratio, seed=args.seed)
+        else:
+            sampler = RandomSampler(len(train_ds), seed=args.seed)
         if args.samples_per_epoch is not None:
             sampler.set_n_samples(args.samples_per_epoch)
         elif (args.dataset_iterations_per_epoch or 1.0) != 1.0:
@@ -299,14 +347,20 @@ def main(arguments):
             train_ds, sampler=sampler, batch_size=batch_size,
             drop_last=True, prefetch=max(args.n_workers, 2),
         )
+        val_sampler, val_len = None, len(val_ds)
+        if args.validation_samples_per_epoch is not None:
+            val_len = args.validation_samples_per_epoch
+            val_sampler = RandomSampler(len(val_ds), seed=args.seed + 7,
+                                        n_samples=val_len)
         val_loader = DataLoader(
-            val_ds, batch_size=max(1, min(batch_size, len(val_ds))),
+            val_ds, sampler=val_sampler,
+            batch_size=max(1, min(batch_size, val_len)),
             drop_last=True, prefetch=1,
         )
 
         torch.manual_seed(args.seed)
         model = get_segmentation_network(
-            args.segmentation_net_type, net_cfg, n_classes=args.n_classes,
+            args.segmentation_net_type, net_cfg, n_classes=n_classes,
             image_size=base_size,
         ).to(device)
         seed_dropout(
@@ -357,7 +411,7 @@ def main(arguments):
                 },
                 "train_pids": train_pids,
                 "val_pids": val_pids,
-                "n_classes": args.n_classes,
+                "n_classes": n_classes,
                 "net_type": args.segmentation_net_type,
             },
         )
@@ -366,7 +420,7 @@ def main(arguments):
                 and ckpt.status(args.max_epochs) == "finished"):
             logger.info("fold %d already finished; skipping", fold_idx)
             continue
-        step_kwargs = dict(n_classes=args.n_classes, precision=args.precision)
+        step_kwargs = dict(n_classes=n_classes, precision=args.precision)
         train_step = make_train_step(
             make_segmentation_step(model, loss_fn, train=True, **step_kwargs)
         )
@@ -411,6 +465,12 @@ def main(arguments):
                             start_epoch)
         state, history = loop.fit(state, train_loader, val_loader,
                                   start_epoch=start_epoch)
+        if args.cache_dir is not None:
+            logger.info(
+                "fold %d: disk cache %d read, %d written", fold_idx,
+                train_ds.disk_reads + val_ds.disk_reads,
+                train_ds.disk_writes + val_ds.disk_writes,
+            )
         final = history[-1] if history else {}
         metric_logger.log_metrics(
             final, step=args.max_epochs, fold=fold_idx, phase="final"

@@ -2,17 +2,23 @@
 Segmentation transform factory: cached host load, device augmentation.
 
 Counterpart of ``AugmentPolicy``, ``_augment_one``, ``_batch_intensity``
-and ``SegmentationTransforms`` in ``adell_mri_tpu/transforms/pipeline.py``.
-``load_fn()`` is the deterministic host part, run once per volume and
-cached; ``augment(generator, batch)`` carries all randomness on the
-device: per sample one gather warp with the affine and the flips folded
-into one matrix, Gibbs ringing and, with ``crop_size``, a pos/neg crop
-(its foreground centres mapped through the inverse of the warp), then one
-fused intensity kernel over the whole batch.
+and ``SegmentationTransforms`` in ``adell_mri_tpu/transforms/pipeline.py``,
+with every flag of the JAX package: ``intensity``, ``noise``, ``rbf``,
+``affine``, ``shear``, ``flip``, ``blur``, ``distort``, ``lowres`` and
+``trivial``. ``load_fn()`` is the deterministic host part, run once per
+volume and cached; ``augment(generator, batch)`` carries all randomness on
+the device: per sample one gather warp with the affine, the flips and the
+elastic displacement folded in, Gibbs ringing, the bias field, blur, low
+resolution and one TrivialAugment op, and with ``crop_size`` a pos/neg crop
+(its foreground centres mapped through the inverse of the warp's matrix),
+then one fused intensity kernel over the whole batch.
 
-Ported flags: ``intensity``, ``noise``, ``affine``, ``shear``, ``flip``.
-``rbf``, ``blur``, ``distort``, ``lowres``, ``trivial`` and resize are not
-ported yet and raise ``NotImplementedError``.
+A sample's augmentation is a draw (``draw_augment``: every gate and random
+parameter, on the device) and a deterministic core (``apply_augment``), so
+that a test can hand the core JAX's draws. As in the JAX package every
+gated op is computed for every sample and selected by its gate
+(``torch.where`` on a device bool: the host never waits for the card), and
+the workhorse moves the image only, not the label.
 """
 
 from dataclasses import dataclass, field
@@ -23,27 +29,36 @@ import torch
 from adell_mri_torch.ops.kernels.intensity import fused_intensity_aug_batch
 from adell_mri_torch.transforms import intensity as I
 from adell_mri_torch.transforms import spatial as S
+from adell_mri_torch.transforms.augment import AugmentationWorkhorse
 from adell_mri_torch.transforms.host import make_load_fn
 
-_UNPORTED_FLAGS = ("rbf", "blur", "distort", "lowres", "trivial")
+FLAGS = ("intensity", "noise", "rbf", "affine", "shear", "flip", "blur",
+         "distort", "lowres", "trivial")
+# the ranges of the JAX package's _augment_one: Gibbs keeps this share of
+# the spectrum (MONAI's alpha (0.3, 0.6) is the truncated share), blur
+# sigma, low-resolution zoom, and the bias and elastic coarse grids
+GIBBS_ALPHA = (0.4, 0.7)
+BLUR_SIGMA = (0.25, 1.5)
+LOWRES_ZOOM = (0.8, 1.2)
+COARSE_GRID = 4
+BIAS_MAGNITUDE = 0.3
 
 
 @dataclass
 class AugmentPolicy:
     """Flag set and ranges of the augmentation, the JAX package's values
-    (the reference's ``get_augmentations_unet``). The ranges of the
-    unported ops (distortion, low resolution, blur) are not carried."""
+    (the reference's ``get_augmentations_unet``)."""
 
     intensity: bool = True
     noise: bool = True  # Rician + Gibbs
-    rbf: bool = False
+    rbf: bool = False  # bias field
     affine: bool = True
     shear: bool = False
     flip: bool = True
     blur: bool = False
-    distort: bool = False
-    lowres: bool = False
-    trivial: bool = False
+    distort: bool = False  # elastic displacement in the warp
+    lowres: bool = False  # simulated low resolution
+    trivial: bool = False  # one TrivialAugment op per sample
     # per-op fire probability per sample (the reference's prob=0.2)
     prob: float = 0.2
     rotate_range: Tuple[float, float, float] = (
@@ -59,50 +74,52 @@ class AugmentPolicy:
     shift_delta: float = 0.1
     std_shift: bool = True  # shift = factor * std(x)
     noise_std: float = 0.02
+    distort_prob: float = 0.2
+    distort_magnitude: float = 2.0  # voxels
+    lowres_prob: float = 0.2
+    blur_prob: float = 0.1  # RandGaussianSmoothd's default
     flip_prob: float = 0.25  # per axis
     flip_axes: Tuple[int, ...] = (0,)
 
     @classmethod
     def from_flags(cls, flags: Sequence[str], **kw) -> "AugmentPolicy":
         flags = set(flags or [])
-        names = ("intensity", "noise", "rbf", "affine", "shear", "flip",
-                 "blur", "distort", "lowres", "trivial")
-        return cls(**{n: n in flags for n in names}, **kw)
-
-    def check_ported(self):
-        unported = [f for f in _UNPORTED_FLAGS if getattr(self, f)]
-        if unported:
-            raise NotImplementedError(
-                f"augmentations {unported} are not ported yet (the port "
-                "has intensity, noise, affine, shear, flip)"
-            )
+        return cls(**{n: n in flags for n in FLAGS}, **kw)
 
 
 def _gate(generator, prob: float, device):
     return torch.rand((), generator=generator, device=device) < prob
 
 
-def _augment_one(generator, image, label, policy: AugmentPolicy):
-    """One sample: image [*S, C], label [*S] or None. One warp for all
-    geometry (label with nearest), then Gibbs ringing. Dtypes are kept.
-    Returns the image, the label and the matrix mapping output voxel ->
-    input voxel of the geometric ops (None when none ran)."""
-    policy.check_ported()
+def _folds_flips(policy: AugmentPolicy, ndim: int) -> bool:
+    # flips fold into the warp's matrix only when an affine or shear warp
+    # runs anyway
+    return policy.flip and (policy.affine or policy.shear) and ndim == 3
+
+
+def draw_augment(generator, image, policy: AugmentPolicy,
+                 workhorse: Optional[AugmentationWorkhorse] = None) -> Dict:
+    """Every random draw of one sample's augmentation (``image`` [*S, C]
+    gives the shape and the device): the gates (device bools), the warp's
+    matrix (output voxel -> input voxel, flips folded in), the elastic
+    grid, the flip gates that are not folded, Gibbs' alpha, the bias grid,
+    the blur sigma, the low-resolution zoom and the workhorse's picks."""
     ndim = image.dim() - 1
     shape = tuple(image.shape[:-1])
     dev = image.device
-    in_dtype = image.dtype
-    label_dtype = None if label is None else label.dtype
-    fold_flip = policy.flip and (policy.affine or policy.shear) and ndim == 3
-    geom = None
-    if policy.affine or policy.shear:
-        # each op fires with prob per sample; a sample where it does not
-        # warps with the exact identity
+    d = {}
+    if policy.distort:
+        d["do_distort"] = _gate(generator, policy.distort_prob, dev)
+        d["elastic_grid"] = S.draw_elastic_grid(
+            generator, ndim, COARSE_GRID, policy.distort_magnitude, dev)
+    if policy.affine or policy.shear or policy.distort:
+        # each op fires with prob per sample; a sample where none does
+        # warps with the exact identity (distort alone warps too)
         do_aff = _gate(generator, policy.prob, dev).float()
         do_shear = _gate(generator, policy.prob, dev).float()
-        rot = torch.as_tensor(policy.rotate_range, device=dev)
-        scl = torch.as_tensor(policy.scale_range, device=dev)
-        trn = torch.as_tensor(policy.translate_range, device=dev)
+        rot = S.host_vector(policy.rotate_range, dev)
+        scl = S._per_axis(policy.scale_range, ndim, dev)
+        trn = S._per_axis(policy.translate_range, ndim, dev)
         mat = S.random_affine_matrix(
             generator,
             shape,
@@ -113,39 +130,94 @@ def _augment_one(generator, image, label, policy: AugmentPolicy):
             translate_range=trn * do_aff,
             device=dev,
         )
-        if fold_flip:
-            mat = S.compose_flips(
-                generator, mat, shape, policy.flip_axes,
-                prob=policy.flip_prob,
-            )
-        geom = mat
-        image = S.warp_affine(image, mat)
+        if _folds_flips(policy, ndim):
+            gates = S._bernoulli(generator, policy.flip_prob,
+                                 len(policy.flip_axes), dev)
+            mat = mat @ S._flip_matrix(gates, shape, policy.flip_axes)
+        d["matrix"] = mat
+    if policy.flip and not _folds_flips(policy, ndim):
+        d["flip_gates"] = S._bernoulli(generator, policy.flip_prob,
+                                       len(policy.flip_axes), dev)
+    if policy.noise:
+        d["do_gibbs"] = _gate(generator, policy.prob, dev)
+        d["gibbs_alpha"] = I._uniform(generator, *GIBBS_ALPHA, dev)
+    if policy.rbf:
+        d["do_rbf"] = _gate(generator, policy.prob, dev)
+        d["bias_grid"] = I.draw_bias_grid(generator, image, COARSE_GRID,
+                                          BIAS_MAGNITUDE)
+    if policy.blur:
+        d["do_blur"] = _gate(generator, policy.blur_prob, dev)
+        d["blur_sigma"] = I._uniform(generator, *BLUR_SIGMA, dev)
+    if policy.lowres:
+        d["do_lowres"] = _gate(generator, policy.lowres_prob, dev)
+        d["lowres_zoom"] = I._uniform(generator, *LOWRES_ZOOM, dev)
+    if policy.trivial and workhorse is not None:
+        d["trivial"] = workhorse.draw(generator, image)
+    return d
+
+
+def apply_augment(image, label, policy: AugmentPolicy, draws: Dict,
+                  workhorse: Optional[AugmentationWorkhorse] = None):
+    """One sample's augmentation from its ``draws``, in the JAX package's
+    order: the warp (image linear, label nearest, the gated elastic
+    displacement added to both), the flips not folded into it, Gibbs, the
+    bias field, blur, low resolution, then the workhorse on the image.
+    Image [*S, C] and label [*S] (or None) keep their dtypes. Returns them
+    and the matrix mapping output voxel -> input voxel of the geometric
+    ops, without the displacement (None when no geometry ran)."""
+    shape = tuple(image.shape[:-1])
+    in_dtype = image.dtype
+    label_dtype = None if label is None else label.dtype
+    geom = None
+    if "matrix" in draws:
+        displacement = None
+        if "elastic_grid" in draws:
+            displacement = (S.elastic_displacement(draws["elastic_grid"],
+                                                   shape)
+                            * draws["do_distort"])
+        geom = draws["matrix"]
+        image = S.warp_affine(image, geom, displacement=displacement)
         if label is not None:
-            label = S.warp_affine(label[..., None], mat, method="nearest")
-            label = label[..., 0]
-    if policy.flip and not fold_flip:
-        # image and label flip with the same draws
-        state = generator.get_state()
-        image, flip_mat = S.random_flip_with_matrix(
-            generator, image, policy.flip_axes, ndim, prob=policy.flip_prob
-        )
+            label = S.warp_affine(label[..., None], geom, method="nearest",
+                                  displacement=displacement)[..., 0]
+    if "flip_gates" in draws:
         # the flip follows the warp in output space
+        gates, axes = draws["flip_gates"], policy.flip_axes
+        image = S.apply_flips(image, gates, axes)
+        flip_mat = S._flip_matrix(gates, shape, axes)
         geom = flip_mat if geom is None else geom @ flip_mat
         if label is not None:
-            generator.set_state(state)
-            label = S.random_flip(generator, label, policy.flip_axes,
-                                  prob=policy.flip_prob)
+            label = S.apply_flips(label, gates, axes)
     if policy.noise:
-        # MONAI alpha (0.3, 0.6) is the truncated share; ours is the
-        # retained share
-        do_gibbs = _gate(generator, policy.prob, dev)
+        image = torch.where(draws["do_gibbs"],
+                            I.truncate_kspace(image, draws["gibbs_alpha"]),
+                            image)
+    if policy.rbf:
+        image = torch.where(draws["do_rbf"],
+                            I.apply_bias_field(image, draws["bias_grid"]),
+                            image)
+    if policy.blur:
+        image = torch.where(draws["do_blur"],
+                            I.gaussian_smooth(image, draws["blur_sigma"]),
+                            image)
+    if policy.lowres:
         image = torch.where(
-            do_gibbs, I.gibbs_ringing(generator, image, (0.4, 0.7)), image
-        )
+            draws["do_lowres"],
+            I.low_resolution_at(image, draws["lowres_zoom"]), image)
+    if "trivial" in draws:
+        image = workhorse.apply(image, draws["trivial"])
     image = image.to(in_dtype)
     if label is not None:
         label = label.to(label_dtype)
     return image, label, geom
+
+
+def _augment_one(generator, image, label, policy: AugmentPolicy,
+                 workhorse: Optional[AugmentationWorkhorse] = None):
+    """One sample: image [*S, C], label [*S] or None; ``apply_augment`` of
+    ``draw_augment``."""
+    draws = draw_augment(generator, image, policy, workhorse)
+    return apply_augment(image, label, policy, draws, workhorse)
 
 
 def fg_through_geometry(fg, geom, shape: Sequence[int]):
@@ -196,9 +268,12 @@ class SegmentationTransforms:
     crop_size: Optional[Sequence[int]] = None
     pos_ratio: float = 0.5
     max_fg: int = 4096
+    # seeds the workhorse's host choice of op (not part of the cache key)
+    seed: int = field(default=0, repr=False)
 
     def __post_init__(self):
-        self.augmentations.check_ported()
+        # built at the first batch, for its number of spatial axes
+        self.workhorse = None
 
     def load_fn(self):
         return make_load_fn(
@@ -216,10 +291,13 @@ class SegmentationTransforms:
         the device; draws from ``generator`` (on the same device). A crop
         takes ``batch["fg_indices"]`` [B, max_fg, 3] and ``batch["n_fg"]``
         [B] (the load function's), and drops them from the batch."""
+        if self.augmentations.trivial and self.workhorse is None:
+            self.workhorse = AugmentationWorkhorse(
+                ndim=batch["image"].dim() - 2, seed=self.seed)
         images, labels = [], []
         for i, (img, lab) in enumerate(zip(batch["image"], batch["label"])):
             img, lab, geom = _augment_one(
-                generator, img, lab, self.augmentations
+                generator, img, lab, self.augmentations, self.workhorse
             )
             if self.crop_size is not None:
                 fg, n_fg = self._fg(batch, i, img)

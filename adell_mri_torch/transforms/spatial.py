@@ -2,9 +2,10 @@
 Device-side spatial augmentation: one affine warp as a gather.
 
 Counterpart of the gather path of ``adell_mri_tpu/transforms/spatial.py``
-(``sample_volume``, ``affine_coords``, ``warp_affine``, the matrix
-builders, ``random_flip``, ``random_flip_with_matrix``, ``compose_flips``)
-and its crops (``dynamic_crop``, ``random_crop``, ``pos_neg_crop``).
+(``sample_volume``, ``affine_coords``, ``warp_affine`` with its elastic
+``displacement``, ``random_elastic_displacement``, the matrix builders,
+``random_flip``, ``random_flip_with_matrix``, ``compose_flips``) and its
+crops (``dynamic_crop``, ``random_crop``, ``pos_neg_crop``).
 The JAX package's separable shear warp serves only its TPU; off the TPU it
 takes this gather path, and so does the port. All geometry composes into
 one homogeneous matrix mapping output voxel -> input voxel, applied by one
@@ -12,13 +13,26 @@ trilinear (or nearest) gather.
 
 Volumes are channels-last ``[*S, C]``; matrices are (ndim+1)^2 in voxel
 units. Random draws come from an explicit ``torch.Generator`` on the
-volume's device.
+volume's device. Small constants reach the card by an asynchronous copy
+(``host_vector``), so the augmentation makes the host wait for the card
+nowhere.
 """
 
-import math
 from typing import Optional, Sequence
 
 import torch
+
+from adell_mri_torch.models.layers.multi_resolution import resize_volume
+
+
+def host_vector(values, device=None):
+    """A f32 vector of host numbers on ``device``, copied without making
+    the host wait for the card (a pageable copy is staged before the call
+    returns)."""
+    t = torch.tensor(values, dtype=torch.float32)
+    if device is None or torch.device(device).type == "cpu":
+        return t
+    return t.to(device, non_blocking=True)
 
 
 def sample_volume(vol, coords, method: str = "linear", cval: float = 0.0):
@@ -55,27 +69,29 @@ def sample_volume(vol, coords, method: str = "linear", cval: float = 0.0):
             out = out + vol[tuple(idx)] * w[..., None]
     return torch.where(
         in_bounds[..., None], out,
-        torch.as_tensor(cval, dtype=vol.dtype, device=vol.device),
+        torch.full((), cval, dtype=vol.dtype, device=vol.device),
     )
 
 
 def affine_coords(matrix, out_shape: Sequence[int]):
     """Homogeneous matrix -> input coordinates [ndim, *out_shape] of every
-    output voxel."""
+    output voxel, each ``((m0 i + m1 j) + m2 k) + m3`` in that order (no
+    matrix product, whose order each library picks: the card and the CPU
+    give the same bits)."""
     ndim = len(out_shape)
-    n_vox = math.prod(int(s) for s in out_shape)
-    dev = matrix.device
-    grids = torch.meshgrid(
-        *[torch.arange(s, dtype=torch.float32, device=dev)
-          for s in out_shape],
-        indexing="ij",
-    )
-    flat = torch.stack(
-        [g.reshape(-1) for g in grids]
-        + [torch.ones((n_vox,), dtype=torch.float32, device=dev)]
-    )
-    mapped = matrix.float() @ flat
-    return mapped[:ndim].reshape((ndim,) + tuple(out_shape))
+    m = matrix.float()
+    axes = [
+        torch.arange(s, dtype=torch.float32, device=m.device).reshape(
+            [-1 if a == d else 1 for a in range(ndim)])
+        for d, s in enumerate(out_shape)
+    ]
+    rows = []
+    for r in range(ndim):
+        c = m[r, 0] * axes[0]
+        for d in range(1, ndim):
+            c = c + m[r, d] * axes[d]
+        rows.append((c + m[r, ndim]).expand(tuple(out_shape)))
+    return torch.stack(rows)
 
 
 def warp_affine(
@@ -84,12 +100,43 @@ def warp_affine(
     out_shape: Optional[Sequence[int]] = None,
     method: str = "linear",
     cval: float = 0.0,
+    displacement=None,
 ):
-    """Output voxel o samples the input at ``matrix @ o``. (The JAX
-    package's elastic ``displacement`` is not ported yet.)"""
+    """Output voxel o samples the input at ``matrix @ o +
+    displacement[:, o]``; ``displacement`` [ndim, *out_shape] is in
+    voxels (f32)."""
     out_shape = tuple(out_shape or vol.shape[:-1])
     coords = affine_coords(matrix, out_shape)
+    if displacement is not None:
+        coords = coords + displacement.float()
     return sample_volume(vol, coords, method=method, cval=cval)
+
+
+def draw_elastic_grid(generator, ndim: int, grid_size: int = 4,
+                      magnitude=2.0, device=None):
+    """The coarse displacement grid [ndim, g, ..., g] of
+    ``random_elastic_displacement``: normal draws times ``magnitude``."""
+    return torch.randn((ndim,) + (grid_size,) * ndim, generator=generator,
+                       device=device) * magnitude
+
+
+def elastic_displacement(coarse, out_shape: Sequence[int]):
+    """The coarse grid [ndim, g, ..., g] cubic-resized to the displacement
+    field [ndim, *out_shape] (f32)."""
+    return resize_volume(coarse.float(),
+                         (coarse.shape[0],) + tuple(out_shape), "cubic")
+
+
+def random_elastic_displacement(generator, out_shape: Sequence[int],
+                                grid_size: int = 4, magnitude=2.0,
+                                device=None):
+    """A smooth random displacement field [ndim, *out_shape] in voxels
+    (Rand3DElasticd's analogue): a coarse normal grid, cubic-resized."""
+    return elastic_displacement(
+        draw_elastic_grid(generator, len(out_shape), grid_size, magnitude,
+                          device),
+        out_shape,
+    )
 
 
 # -- matrix builders ----------------------------------------------------------
@@ -104,15 +151,18 @@ def _homogeneous(ndim: int, linear, translation):
 
 def center_matrix(shape: Sequence[int], sign: float = 1.0, device=None):
     ndim = len(shape)
-    c = torch.tensor([(s - 1) / 2.0 for s in shape], device=device)
-    return _homogeneous(ndim, torch.eye(ndim, device=device), sign * c)
+    c = host_vector([sign * (s - 1) / 2.0 for s in shape], device)
+    return _homogeneous(ndim, torch.eye(ndim, device=device), c)
 
 
 def rotation_matrix(ndim: int, angles):
     """angles: [1] for 2D, [3] for 3D (about each axis pair);
-    rot = Rx @ Ry @ Rz."""
+    rot = Rx @ Ry @ Rz. Cosine and sine are taken in f64 and rounded to
+    f32, so the card's and the CPU's libraries, which may differ in the
+    last f32 bit, give the same matrix."""
     dev = angles.device
-    c, s = torch.cos(angles), torch.sin(angles)
+    c = torch.cos(angles.double()).float()
+    s = torch.sin(angles.double()).float()
     if ndim == 2:
         rot = torch.stack([torch.stack([c[0], -s[0]]),
                            torch.stack([s[0], c[0]])])
@@ -149,7 +199,11 @@ def scale_shear_matrix(ndim: int, scales, shears=None):
 
 def _per_axis(v, n: int, device):
     """Scalar or per-axis bounds (tensor, list or number) as a [n] tensor."""
-    v = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    if isinstance(v, torch.Tensor):
+        v = v.to(device=device, dtype=torch.float32)
+    else:
+        v = host_vector(v, device)
+    v = v.reshape(-1)
     return (v[:n] if v.numel() > 1 else v).expand(n)
 
 
@@ -181,7 +235,7 @@ def random_affine_matrix(
     )
     trans = _uniform(
         generator, _per_axis(translate_range, ndim, device), device
-    ) * torch.tensor(shape, dtype=torch.float32, device=device)
+    ) * host_vector(list(shape), device)
     m = (
         center_matrix(shape, +1.0, device)
         @ rotation_matrix(ndim, angles)
@@ -199,12 +253,17 @@ def _bernoulli(generator, prob: float, n: int, device):
     return torch.rand((n,), generator=generator, device=device) < prob
 
 
-def random_flip(generator, vol, axes: Sequence[int], prob: float = 0.5):
-    """Flips each spatial axis in ``axes`` with probability ``prob``."""
-    gates = _bernoulli(generator, prob, len(axes), vol.device)
+def apply_flips(vol, gates, axes: Sequence[int]):
+    """Flips each axis ``axes[i]`` of ``vol`` where ``gates[i]`` is set."""
     for i, ax in enumerate(axes):
         vol = torch.where(gates[i], torch.flip(vol, dims=(ax,)), vol)
     return vol
+
+
+def random_flip(generator, vol, axes: Sequence[int], prob: float = 0.5):
+    """Flips each spatial axis in ``axes`` with probability ``prob``."""
+    return apply_flips(vol, _bernoulli(generator, prob, len(axes),
+                                       vol.device), axes)
 
 
 def random_flip_with_matrix(
@@ -213,9 +272,8 @@ def random_flip_with_matrix(
     """``random_flip`` that also returns the reflection matrix mapping
     output voxel -> input voxel."""
     gates = _bernoulli(generator, prob, len(axes), vol.device)
-    for i, ax in enumerate(axes):
-        vol = torch.where(gates[i], torch.flip(vol, dims=(ax,)), vol)
-    return vol, _flip_matrix(gates, vol.shape[:ndim], axes)
+    return (apply_flips(vol, gates, axes),
+            _flip_matrix(gates, vol.shape[:ndim], axes))
 
 
 def _flip_matrix(gates, shape: Sequence[int], axes: Sequence[int]):

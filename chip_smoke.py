@@ -127,7 +127,27 @@ failure:
     candidate map equal to the candidates of the probability map) and
     ``segmentation test_from_predictions`` on its outputs (Dice equal to a
     numpy Dice of the files). The CLIs run in this process, so the launch
-    counts are read around each.
+    counts are read around each;
+15. the full augmentation: every new op (the cubic and nearest resizes,
+    the elastic warp of an image and of a label, Gibbs, bias field, blur,
+    low resolution, each of the 27 TrivialAugment ops at magnitudes 0.25
+    and 1) on one 256x256x64x1 volume on the card against the same op on
+    the CPU with the same host draws, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (f32 within 1e-5 of the
+    output's scale, the spike 1e-4; bf16 within 2 bf16 ulps of the f32 CPU
+    result cast to bf16; labels equal but for voxels sampled within 1e-4
+    of a half-integer, at most 0.1 %), each timed; the draws and a whole
+    prob-1 sample on the card without a host sync; phase 14's crop step
+    with its four flags and with all ten, bf16 and f32, in turns (the same
+    launches a step, peak memory), a fixed batch's loss lower after six
+    ten-flag steps, every gradient finite and every weight's non-zero
+    (a conv bias before an instance norm has an exact gradient of 0); 200
+    prob-1 samples whose TrivialAugment picks cover the 27 ops;
+    ``segmentation
+    train`` with the ten flags, ``--folds``, ``--constant_ratio``,
+    ``--excluded_ids_from_training_data``, ``--cache_dir`` and
+    ``--validation_samples_per_epoch`` on phase 14's cohort (2 epochs of
+    one step), run twice: the second reads every sample from the cache.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -2301,6 +2321,26 @@ def _last_json(text):
                        if ln.startswith("{")][-1])
 
 
+def _step_want(precision):
+    """The launches of one U-Net training step (phase 8's) in ``precision``:
+    bf16 on the wgmma route and the wgrad kernel, f32 on the tf32 route and
+    the patch product; the stems and the 32->1 dx narrow; one K3."""
+    bf16 = precision == "bf16"
+    return dict(
+        conv3d_igemm=CONVS_PER_FORWARD,
+        conv3d_igemm_wgmma=CONVS_WGMMA_PER_FORWARD if bf16 else 0,
+        conv3d_igemm_tf32=0 if bf16 else CONVS_TF32_PER_FORWARD,
+        conv3d_igemm_narrow=CONVS_NARROW_PER_FORWARD,
+        conv3d_igemm_dx=CONVS_DX_PER_STEP,
+        conv3d_igemm_dx_wgmma=CONVS_DX_WGMMA_PER_STEP if bf16 else 0,
+        conv3d_igemm_dx_tf32=0 if bf16 else CONVS_DX_TF32_PER_STEP,
+        conv3d_igemm_dx_narrow=CONVS_DX_NARROW_PER_STEP,
+        conv3d_weight_grad=CONVS_WGRAD_PER_STEP if bf16 else 0,
+        conv3d_weight_grad_patches=(CONVS_WGRAD_PATCHES_PER_STEP if bf16
+                                    else CONVS_PER_FORWARD),
+        intensity_aug=1)
+
+
 def _crop_step(ds, pids, case, window, smi):
     """The flagship trainer (bf16) on pos/neg crops: a batch of 4 padded
     volumes through ``TrainLoop`` and ``SegmentationTransforms.augment``,
@@ -2352,18 +2392,7 @@ def _crop_step(ds, pids, case, window, smi):
         epoch(False)
         counts = {k: v for k, v in _launch_counts().items()
                   if not k.startswith("flash_")}
-    want = dict(conv3d_igemm=CONVS_PER_FORWARD,
-                conv3d_igemm_wgmma=CONVS_WGMMA_PER_FORWARD,
-                conv3d_igemm_tf32=0,
-                conv3d_igemm_narrow=CONVS_NARROW_PER_FORWARD,
-                conv3d_igemm_dx=CONVS_DX_PER_STEP,
-                conv3d_igemm_dx_wgmma=CONVS_DX_WGMMA_PER_STEP,
-                conv3d_igemm_dx_tf32=0,
-                conv3d_igemm_dx_narrow=CONVS_DX_NARROW_PER_STEP,
-                conv3d_weight_grad=CONVS_WGRAD_PER_STEP,
-                conv3d_weight_grad_patches=CONVS_WGRAD_PATCHES_PER_STEP,
-                intensity_aug=1)
-    want = {k: v * CROP_STEPS for k, v in want.items()}
+    want = {k: v * CROP_STEPS for k, v in _step_want("bf16").items()}
     crop = (len(pids),) + tuple(window) + (1,)
     if counts != want or set(shapes.shapes) != {crop}:
         raise AssertionError(f"crop steps launched {counts}, want {want} "
@@ -2645,6 +2674,447 @@ def phase_flagship_pipeline(smi, case=None, window=None):
     return out
 
 
+# -- the full augmentation ---------------------------------------------------
+
+# phase 15's per-op checks, the card against the CPU on the same draws: f32
+# within 1e-5 of the output's scale (the k-space spike 1e-4 of max|out|),
+# bf16 within 2 bf16 ulps of the f32 CPU result cast to bf16, an ulp taken
+# at |ref| but no smaller than at 2^-10 of the output's scale (values that
+# cancel to near zero keep the f32 error of the scale); nearest-warped
+# labels equal except voxels sampled within 1e-4 of a half-integer, at most
+# 0.1 % of them
+AUG_F32_TOL = 1e-5
+AUG_SPIKE_TOL = 1e-4
+AUG_BF16_ULPS = 2
+AUG_ULP_FLOOR = 2.0 ** -10
+LABEL_HALF_TOL = 1e-4
+LABEL_FLIP_SHARE = 1e-3
+AUG_MAGNITUDES = (0.25, 1.0)
+# ten-flag steps after which the loss of one fixed ten-flag batch must have
+# fallen, at this learning rate (each step's own batch is drawn afresh, so
+# its loss is noisy)
+LOSS_STEPS = 6
+LOSS_LR = 0.2
+# prob-1 calls whose workhorse picks must cover the 27 ops (seed 0 of the
+# host generator covers them, the rarest 3 times)
+HISTOGRAM_CALLS = 200
+# turns of the four- and ten-flag crop steps
+FLAG_TURNS = 3
+
+
+def _bf16_ulps(got, ref, scale):
+    """Largest |got - ref| in bf16 ulps of ``ref``, |ref| floored at
+    ``AUG_ULP_FLOOR * scale``."""
+    import torch
+
+    r = ref.float().abs().clamp_min(AUG_ULP_FLOOR * scale)
+    ulp = torch.exp2(torch.floor(torch.log2(r)) - 7)
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def _aug_op_cases(x, label):
+    """(name, host inputs, function, spike) of every op phase 15 holds on
+    the volume ``x`` [*S, 1] and its ``label`` [*S]: the resizes, the
+    elastic warp (image, label), the pipeline's Gibbs, bias field, blur and
+    low resolution, and each workhorse op at each magnitude. The draws are
+    made on the host from a seed; the first input is the volume, except
+    for the resizes."""
+    import torch
+
+    from adell_mri_torch.models.layers.multi_resolution import resize_volume
+    from adell_mri_torch.transforms import augment as A
+    from adell_mri_torch.transforms import intensity as I
+    from adell_mri_torch.transforms import spatial as S
+
+    case = tuple(x.shape[:-1])
+    g = torch.Generator().manual_seed(15)
+    grid = torch.randn((3, 4, 4, 4), generator=g) * 2.0
+    mat = S.random_affine_matrix(g, case, rotate_range=(0.39, 0.39, 0.2),
+                                 shear_range=0.1)
+    keep = (torch.rand((8, 8, 8, 1), generator=g) > 0.2).float()
+
+    def warp(vol, m, grd, method="linear"):
+        out = S.warp_affine(vol, m, method=method,
+                            displacement=S.elastic_displacement(grd, case))
+        return out.to(vol.dtype)
+
+    cases = [
+        ("resize_cubic", (grid,),
+         lambda c: resize_volume(c, (3,) + case, "cubic"), False),
+        ("resize_nearest", (keep,),
+         lambda k: resize_volume(k, case + (1,), "nearest"), False),
+        ("elastic_warp", (x, mat, grid), warp, False),
+        ("elastic_warp_label", (label[..., None], mat, grid),
+         lambda v, m, grd: warp(v, m, grd, "nearest"), False),
+        ("gibbs", (x, torch.tensor(0.55)), I.truncate_kspace, False),
+        ("bias_field", (x, torch.randn((4, 4, 4, 1), generator=g) * 0.3),
+         I.apply_bias_field, False),
+        ("blur", (x, torch.tensor(1.1)), I.gaussian_smooth, False),
+        ("lowres", (x, torch.tensor(0.85)), I.low_resolution_at, False),
+    ]
+    wh = A.AugmentationWorkhorse(ndim=3)
+    for name, op in zip(wh.names, wh.ops):
+        draws = op.draw(g, x)
+        for mag in AUG_MAGNITUDES:
+            cases.append((
+                f"{name}@{mag}", (x, torch.tensor(mag)) + tuple(draws),
+                op.core, name == "spike_noise"))
+    return cases
+
+
+def _label_flips(got, want, mat, grid, case):
+    """Voxels where the card's nearest-warped label differs from the
+    CPU's, and how many of them are not sampled within LABEL_HALF_TOL of a
+    half-integer (coordinates from the CPU)."""
+    import torch
+
+    from adell_mri_torch.transforms import spatial as S
+
+    coords = S.affine_coords(mat, case) + S.elastic_displacement(grid, case)
+    frac = (coords - torch.floor(coords) - 0.5).abs()
+    near = (frac < LABEL_HALF_TOL).any(0)
+    diff = (got.cpu() != want)[..., 0]
+    return int(diff.sum()), int((diff & ~near).sum())
+
+
+def _op_ms(fn):
+    """``time_ms`` of ``fn``, of one call where five queued calls fill the
+    card's launch queue (a warp launches about 150 kernels, and the host
+    blocks when the queue is full)."""
+    try:
+        return time_ms(fn)
+    except RuntimeError:
+        return time_ms(fn, reps=1)
+
+
+def _aug_ops_on_card(x, label, smi):
+    """Each op of ``_aug_op_cases`` on the card against the CPU, f32 and
+    bf16, run under ``set_sync_debug_mode("error")`` (with each op's draw
+    on the card and one whole prob-1 ``_augment_one``), then timed. ``x``
+    [*S, 1] and ``label`` [*S] are a loaded case of the cohort."""
+    import torch
+
+    from adell_mri_torch.transforms import augment as A
+    from adell_mri_torch.transforms import pipeline as P
+
+    case = tuple(x.shape[:-1])
+    rows, faults = [], []
+    for name, args, fn, spike in _aug_op_cases(x, label):
+        vol = name not in ("resize_cubic", "resize_nearest")
+        for dtype in ((torch.float32, torch.bfloat16) if vol
+                      else (torch.float32,)):
+            if name == "elastic_warp_label" and dtype != torch.float32:
+                continue
+            cpu_args = ((args[0].to(dtype),) + args[1:]) if vol else args
+            ref = fn(*((cpu_args[0].float(),) + cpu_args[1:]))
+            gpu_args = tuple(a.to("cuda") for a in cpu_args)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fn(*gpu_args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            scale = max(float(ref.abs().max()), 1e-30)
+            row = dict(name=name, dtype=str(dtype).split(".")[-1],
+                       shape=list(got.shape),
+                       ms=_op_ms(lambda: fn(*gpu_args)))
+            if got.dtype != dtype or got.shape != ref.shape:
+                faults.append(f"{name} {dtype}: {got.dtype} {got.shape}")
+            if name == "elastic_warp_label":
+                flips, far = _label_flips(got, ref, args[1], args[2], case)
+                row.update(label_flips=flips, flips_far_from_half=far,
+                           tol=LABEL_FLIP_SHARE * got.numel())
+                if far or flips > row["tol"]:
+                    faults.append(f"{name}: {flips} flips, {far} away from "
+                                  "a half-integer")
+            elif dtype == torch.float32:
+                tol = (AUG_SPIKE_TOL if spike else AUG_F32_TOL) * scale
+                err = float((got.cpu() - ref).abs().max())
+                row.update(max_abs_err=err, tol=tol, scale=scale)
+                if not err <= tol:
+                    faults.append(f"{name} f32: {err:.3g} > {tol:.3g}")
+            else:
+                ulps = _bf16_ulps(got.cpu(), ref.to(dtype), scale)
+                row.update(max_ulps=ulps, tol=AUG_BF16_ULPS)
+                if not ulps <= AUG_BF16_ULPS:
+                    faults.append(f"{name} bf16: {ulps:.3g} ulps")
+            rows.append(row)
+    # the draws on the card and a whole prob-1 sample, also without a sync
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, label = x.to("cuda"), label.to("cuda")
+    wh = A.AugmentationWorkhorse(ndim=3)
+    policy = P.AugmentPolicy.from_flags(
+        P.FLAGS, prob=1.0, distort_prob=1.0, lowres_prob=1.0, blur_prob=1.0,
+        scale_range=0.0, flip_axes=(0, 1, 2))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for op in wh.ops:
+            op.draw(gen, x)
+        img, lab, _ = P._augment_one(gen, x, label, policy, wh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not bool(torch.isfinite(img).all()):
+        faults.append("a prob-1 sample is not finite")
+    worst32 = max((r for r in rows if "max_abs_err" in r),
+                  key=lambda r: r["max_abs_err"] / r["tol"])
+    worst16 = max((r for r in rows if "max_ulps" in r),
+                  key=lambda r: r["max_ulps"])
+    log(f"[augment] {smi}: {len(rows)} op checks at "
+        f"{'x'.join(map(str, case))}x1 under set_sync_debug_mode('error'); "
+        f"f32 worst {worst32['name']} {worst32['max_abs_err']:.3g} "
+        f"(tol {worst32['tol']:.3g}); bf16 worst {worst16['name']} "
+        f"{worst16['max_ulps']:.3g} ulps")
+    for r in rows:
+        log(f"  {r['name']:<24} {r['dtype']:<9} {r['ms']:.4f} ms " + ", ".join(
+            f"{k} {r[k]:.3g}" for k in ("max_abs_err", "max_ulps",
+                                        "label_flips") if k in r))
+    if faults:
+        raise AssertionError("augmentation ops on the card: "
+                             + "; ".join(faults))
+    return rows
+
+
+def _flag_steps(batch, case, window, precision, smi):
+    """The flagship crop step with phase 14's four flags and with all ten,
+    in turns, launches counted (the same a step), peak memory read; then
+    every parameter's gradient through a ten-flag batch finite and every
+    weight's non-zero, and that batch's loss lower after six ten-flag
+    steps. (A conv bias that an instance norm follows has a gradient of
+    exactly zero in exact arithmetic; only rounding leaves it non-zero, and
+    in f32 the stem's one bias has read exactly 0.)"""
+    import torch
+
+    from adell_mri_torch.tools.flagship import AUGMENT_FLAGS, make_trainer
+    from adell_mri_torch.train.loop import TrainLoop
+    from adell_mri_torch.transforms.pipeline import (
+        FLAGS,
+        AugmentPolicy,
+        SegmentationTransforms,
+    )
+
+    def transforms(flags):
+        return SegmentationTransforms(
+            image_keys=["image"], label_keys=["mask"], target_size=case,
+            crop_size=window, seed=0, augmentations=AugmentPolicy.from_flags(
+                flags, scale_range=0.0, flip_axes=(0, 1, 2)))
+
+    tfs = {"four": transforms(AUGMENT_FLAGS), "ten": transforms(FLAGS)}
+    loader = [batch] * CROP_STEPS
+    tr = make_trainer(0, precision, device="cuda")
+    loops = {n: TrainLoop(tr.train_step, augment_fn=t.augment,
+                          device="cuda", max_epochs=1)
+             for n, t in tfs.items()}
+
+    def epoch(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, hist = loops[n].fit(tr.state, loader)
+        torch.cuda.synchronize()
+        if not all(abs(v) < float("inf") for v in hist[0].values()):
+            raise AssertionError(f"non-finite {n}-flag metrics {hist}")
+        return (time.perf_counter() - t0) / CROP_STEPS
+
+    out = {}
+    for n in tfs:
+        epoch(n)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        epoch(n)
+        counts = {k: v for k, v in _launch_counts().items()
+                  if not k.startswith("flash_")}
+        out[n] = dict(counts=counts, seconds=[],
+                      peak_bytes=torch.cuda.max_memory_allocated())
+    want = {k: v * CROP_STEPS for k, v in _step_want(precision).items()}
+    if out["ten"]["counts"] != want or out["four"]["counts"] != want:
+        raise AssertionError(
+            f"{precision} crop steps launched {out['ten']['counts']} (ten "
+            f"flags), {out['four']['counts']} (four), want {want}")
+    for turn in range(FLAG_TURNS):
+        for n in (("four", "ten") if turn % 2 == 0 else ("ten", "four")):
+            out[n]["seconds"].append(epoch(n))
+    del loops, tr
+
+    # a loss that falls, and the gradients
+    tr = make_trainer(1, precision, device="cuda", learning_rate=LOSS_LR)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev_batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()
+                 if hasattr(v, "dtype") and v.dtype.kind != "U"}
+    names = list(tr.state.params)
+    fixed = tfs["ten"].augment(gen, dev_batch)
+    loss, _ = tr.loss_and_metrics(tr.state.params, fixed)
+    grads = torch.autograd.grad(loss, [tr.state.params[k] for k in names])
+    bad = [k for k, gr in zip(names, grads)
+           if not bool(torch.isfinite(gr).all())
+           or (k.endswith(".weight") and float(gr.abs().max()) == 0)]
+    before = float(loss.detach())
+    del grads, loss
+    losses = []
+    for _ in range(LOSS_STEPS):
+        tr.state, metrics = tr.train_step(tr.state,
+                                          tfs["ten"].augment(gen, dev_batch))
+        losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        after = float(tr.loss_and_metrics(tr.state.params, fixed)[0])
+    del tr, fixed
+    out.update(losses=losses, fixed_batch_loss=[before, after],
+               bad_gradients=bad, n_parameters=len(names))
+    if (bad or not all(abs(v) < float("inf") for v in losses + [after])
+            or not after < before):
+        raise AssertionError(f"{precision} ten-flag steps: losses {losses}, "
+                             f"fixed batch {before} -> {after}, non-finite "
+                             f"gradients or zero weight gradients {bad}")
+    med = {n: sorted(out[n]["seconds"])[FLAG_TURNS // 2] for n in tfs}
+    log(f"[augment] {smi}: crop step ({precision}, B={batch['image'].shape[0]}"
+        f" pos/neg crops of {'x'.join(map(str, window))} from "
+        f"{'x'.join(map(str, case))}), s a step in turns: four flags "
+        f"{', '.join(f'{s:.4f}' for s in out['four']['seconds'])}; ten "
+        f"{', '.join(f'{s:.4f}' for s in out['ten']['seconds'])} (median "
+        f"{med['ten'] / med['four']:.2f}x); peak "
+        f"{out['four']['peak_bytes'] / 1e9:.2f} and "
+        f"{out['ten']['peak_bytes'] / 1e9:.2f} GB; launches a step "
+        f"{ {k: v // CROP_STEPS for k, v in out['ten']['counts'].items()} }; "
+        f"ten-flag losses {', '.join(f'{v:.4f}' for v in losses)}, a fixed "
+        f"batch's {before:.5f} -> {after:.5f}; "
+        f"{len(names)} gradients finite, every weight's non-zero")
+    return out
+
+
+def _workhorse_histogram(case):
+    """HISTOGRAM_CALLS prob-1 samples at ``case`` through
+    ``draw_augment`` and ``apply_augment``: the op each picked, and every
+    output finite."""
+    import torch
+
+    from adell_mri_torch.transforms import augment as A
+    from adell_mri_torch.transforms import pipeline as P
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand(case + (1,), device="cuda", generator=gen)
+    label = (x[..., 0] > 0.7).float()
+    wh = A.AugmentationWorkhorse(ndim=3, seed=0)
+    policy = P.AugmentPolicy.from_flags(
+        P.FLAGS, prob=1.0, distort_prob=1.0, lowres_prob=1.0, blur_prob=1.0,
+        scale_range=0.0, flip_axes=(0, 1, 2))
+    picks, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HISTOGRAM_CALLS):
+        draws = P.draw_augment(gen, x, policy, wh)
+        picks.append(draws["trivial"][0][0])
+        img, _, _ = P.apply_augment(x, label, policy, draws, wh)
+        finite &= torch.isfinite(img).all()
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / HISTOGRAM_CALLS
+    hist = {name: picks.count(i) for i, name in enumerate(wh.names)}
+    if min(hist.values()) == 0 or not bool(finite):
+        raise AssertionError(f"workhorse picks {hist}, finite {bool(finite)}")
+    log(f"[augment] {HISTOGRAM_CALLS} prob-1 samples at "
+        f"{'x'.join(map(str, case))}: {secs:.4f} s a sample; every op "
+        f"picked, {min(hist.values())} to {max(hist.values())} times")
+    return dict(histogram=hist, seconds_per_sample=secs)
+
+
+def phase_full_augmentation(smi, case=None, window=None):
+    """Phase 15: every augmentation flag on the card, on phase 14's cohort
+    and shapes; then ``segmentation train`` with every data key, twice, so
+    that the second run reads the disk cache."""
+    import logging
+    import shutil
+
+    import torch
+
+    from adell_mri_torch.data.loader import safe_collate
+    from adell_mri_torch.entrypoints.segmentation.train import get_folds
+    from adell_mri_torch.tools.flagship import CASE, WINDOW
+    from adell_mri_torch.transforms.pipeline import (
+        FLAGS,
+        SegmentationTransforms,
+    )
+
+    case = tuple(case or CASE)
+    window = tuple(window or WINDOW)
+    work = WORK_DIR / "flagship_pipeline"
+    ds = json.loads((work / "ds.json").read_text())
+    pids = sorted(ds)
+    load = SegmentationTransforms(
+        image_keys=["image"], label_keys=["mask"],
+        target_spacing=[0.5, 0.5, 3.0], target_size=case,
+        crop_size=window).load_fn()
+    train_pids, val_pids = get_folds(pids, 1, 0)[0]
+    # the per-op checks on the validation case (it has a lesion)
+    sample = load({**ds[val_pids[0]], "identifier": val_pids[0]})
+    out = {"ops": _aug_ops_on_card(torch.from_numpy(sample["image"]),
+                                   torch.from_numpy(sample["label"]), smi)}
+    torch.cuda.empty_cache()
+
+    batch = safe_collate([load({**ds[p], "identifier": p})
+                          for p in train_pids[:4]])
+    out["steps"] = {p: _flag_steps(batch, case, window, p, smi)
+                    for p in ("bf16", "f32")}
+    torch.cuda.empty_cache()
+    out["workhorse"] = _workhorse_histogram(case)
+    torch.cuda.empty_cache()
+
+    cache = work / "cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    excluded = train_pids[0]
+    args = [
+        "segmentation", "train", "--dataset_json", str(work / "ds.json"),
+        "--image_keys", "image", "--mask_keys", "mask", "--config_file",
+        str(work / "unet.json"), "--pad_size", *map(str, case),
+        "--random_crop_size", *map(str, window), "--target_spacing", "0.5",
+        "0.5", "3.0", "--batch_size", "2", "--augment", *FLAGS,
+        "--folds", ",".join(val_pids), "--constant_ratio", "0.5",
+        "--excluded_ids_from_training_data", excluded, "--cache_dir",
+        str(cache), "--validation_samples_per_epoch", "1", "--max_epochs",
+        "2", "--steps_per_epoch", "1", "--dev", "cuda", "--seed", "0",
+        "--metric_path", str(work / "metrics_ten.csv"),
+    ]
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    train_logger = logging.getLogger(
+        "adell_mri_torch.entrypoints.segmentation.train")
+    train_logger.addHandler(handler)
+    runs = []
+    try:
+        for run in range(2):
+            ckpt = work / f"ckpt_ten_{run}"
+            records.clear()
+            secs, _, counts = _cli(args + ["--checkpoint_dir", str(ckpt)])
+            meta = json.loads(
+                (ckpt / "segmentation_fold0" / "metadata.json").read_text())
+            cached = [m for m in records if "disk cache" in m]
+            runs.append(dict(seconds=secs, counts=counts, cache_log=cached,
+                             train_pids=meta["train_pids"],
+                             val_pids=meta["val_pids"]))
+    finally:
+        train_logger.removeHandler(handler)
+    first, second = runs
+    want_train = [p for p in pids if p not in val_pids and p != excluded]
+    if (first["train_pids"] != want_train
+            or first["val_pids"] != val_pids
+            or second["train_pids"] != want_train
+            or not first["cache_log"] or not second["cache_log"]
+            or first["cache_log"][0].endswith(" 0 written")
+            or not second["cache_log"][0].endswith(" 0 written")
+            or " 0 read" in second["cache_log"][0]
+            or not first["counts"]["conv3d_igemm"]
+            or not first["counts"]["intensity_aug"]):
+        raise AssertionError(f"train CLI with the data keys: {runs}, want "
+                             f"train {want_train}, val {val_pids}")
+    out["train_cli"] = runs
+    log(f"[augment] {smi}: train CLI, ten flags, --folds, --constant_ratio, "
+        f"--excluded_ids_from_training_data, --cache_dir, "
+        f"--validation_samples_per_epoch: {first['seconds']:.2f} s then "
+        f"{second['seconds']:.2f} s ({first['cache_log'][0]}; "
+        f"{second['cache_log'][0]}); train {first['train_pids']}, val "
+        f"{first['val_pids']}")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2707,6 +3177,8 @@ def main():
     lap(13)
     pipeline = phase_flagship_pipeline(smi)
     lap(14)
+    augmentation = phase_full_augmentation(smi)
+    lap(15)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -2740,6 +3212,13 @@ def main():
         "flagship_predict_f32": pipeline["predict"]["prob"]["counts"],
         "flagship_predict_lesions_f32":
             pipeline["predict"]["lesions"]["counts"],
+        # phase 15: crop steps with four and with ten flags, bf16 and f32,
+        # and the train CLI with every data key, then again from the cache
+        **{f"augment_crop_steps_{n}_flags_{p}": augmentation["steps"][p][n][
+            "counts"] for p in ("bf16", "f32") for n in ("four", "ten")},
+        "augment_train_cli_f32": augmentation["train_cli"][0]["counts"],
+        "augment_train_cli_cached_f32":
+            augmentation["train_cli"][1]["counts"],
     }
 
     def launches_of(name):
@@ -2758,7 +3237,8 @@ def main():
               "bf16; launches: the U-Net's served case in bf16 and f32, 5 "
               "bf16 and 3 f32 training steps, UNETR's served case, 3 "
               "training steps and its f32 step, phase 14's crop steps, "
-              "train, resume, test and predict runs, every route",
+              "train, resume, test and predict runs, phase 15's four- and "
+              "ten-flag crop steps and train runs, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -2942,7 +3422,8 @@ def main():
         attention=attention_rows, unetr_serving=unetr_serving,
         unetr_serving_f32=unetr_serving_f32,
         unetr_training=unetr_training, unetr_cli=unetr_cli,
-        flagship_pipeline=pipeline, launches_by_path=by_path,
+        flagship_pipeline=pipeline, full_augmentation=augmentation,
+        launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,
     ), indent=1))

@@ -171,7 +171,7 @@ def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
     "flags",
     [["--deep_supervision"], ["--semi_supervised"],
      ["--accumulate_grad_batches", "2"],
-     ["--augment", "blur"], ["--optimizer", "lamb"],
+     ["--lr_encoder", "0.1"], ["--optimizer", "lamb"],
      ["--resize_size", "8", "8", "4"], ["--delete_checkpoints"]],
 )
 def test_train_unported_flags_raise(cohort, flags):
