@@ -204,9 +204,9 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     "log_model": dict(action="store_true", help="not ported yet"),
     "delete_checkpoints": dict(action="store_true", help="not ported yet"),
     "bottleneck_classification": dict(
-        action="store_true", help="not ported yet"
+        action="store_true", help="Bottleneck classification head"
     ),
-    "deep_supervision": dict(action="store_true", help="not ported yet"),
+    "deep_supervision": dict(action="store_true", help="Deep supervision"),
     "profile_dir": dict(default=None, help="not ported yet"),
     "semi_supervised": dict(action="store_true", help="not ported yet"),
     "semi_sl_weight": dict(type=float, default=0.01, help="not ported yet"),

@@ -2,7 +2,8 @@
 ``python -m adell_mri_torch segmentation predict``.
 
 Counterpart of ``adell_mri_tpu/entrypoints/segmentation/predict.py`` for
-unconditioned 3D checkpoints: the network (``net_type``: U-Net or UNETR)
+unconditioned 3D checkpoints: the network (``net_type``: U-Net, UNETR or
+SWIN-UNet, run without the heads of ``models/segmentation/heads.py``)
 and the transforms are rebuilt from the checkpoint's metadata, the volume
 runs through the sliding window (UNETR takes the whole volume as one
 window: its positional embedding fixes the size), flip TTA and checkpoint
@@ -205,7 +206,7 @@ def main(arguments):
         models.append(model.to(device=device, dtype=dtype).eval())
 
     def base_fn(model, x):
-        return model(x.to(dtype)).float()
+        return model(x.to(dtype), heads=False).float()
 
     # the CLI flag is a float: values <= 1 are window fractions, values > 1
     # absolute voxels (int-typed downstream)

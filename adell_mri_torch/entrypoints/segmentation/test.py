@@ -117,7 +117,7 @@ def main(arguments):
         sample = load_fn({**data[pid], "identifier": pid})
         x = torch.from_numpy(sample["image"]).to(device=device, dtype=dtype)
         with torch.inference_mode():
-            prob_full = model(x[None])[0].float().cpu().numpy()
+            prob_full = model(x[None], heads=False)[0].float().cpu().numpy()
         lab = sample["label"]
         dice, iou, prob = case_metrics(prob_full, lab, n_classes)
         dices.append(dice)

@@ -7,10 +7,12 @@ dataset JSON -> config -> folds -> per fold [transforms -> cached dataset
 a checkpoint directory per fold whose ``metadata.json`` lets
 ``segmentation predict`` rebuild the model and the transforms.
 
-Ported: the 3D U-Net and UNETR (``--segmentation_net_type unet``,
-``unetr`` or ``monai_unetr``; UNETR is built for the ``--pad_size``
-volume), whole-volume training or, for the U-Net, pos/neg crops of
-``--random_crop_size`` from the padded volume, dropout drawn from a
+Ported: the 3D U-Net, UNETR and SWIN-UNet (``--segmentation_net_type
+unet``, ``unetr``, ``monai_unetr``, ``swin`` or ``monai_swin``; UNETR is
+built for the ``--pad_size`` volume), ``--deep_supervision`` and
+``--bottleneck_classification`` for all three, whole-volume training or,
+for the U-Net and SWIN-UNet, pos/neg crops of ``--random_crop_size`` from
+the padded volume, dropout drawn from a
 generator seeded with ``--seed``, every augmentation flag (intensity,
 noise, rbf, affine, shear, flip, blur, distort, lowres, trivial), the
 data selection (``--filter_on_keys`` with ``--filter_is_optional``,
@@ -73,7 +75,7 @@ from adell_mri_torch.transforms.pipeline import (
 
 logger = logging.getLogger(__name__)
 
-NET_TYPES = ("unet", "unetr", "monai_unetr")
+NET_TYPES = ("unet", "unetr", "monai_unetr", "swin", "monai_swin")
 ARG_KEYS = [
     "dataset_json",
     "image_keys",
@@ -130,6 +132,8 @@ ARG_KEYS = [
     "folds",
     "validation_samples_per_epoch",
     "constant_ratio",
+    "bottleneck_classification",
+    "deep_supervision",
 ]
 UNPORTED_KEYS = [
     "skip_keys",
@@ -144,8 +148,6 @@ UNPORTED_KEYS = [
     "tracking_uri",
     "log_model",
     "delete_checkpoints",
-    "bottleneck_classification",
-    "deep_supervision",
     "profile_dir",
     "semi_supervised",
     "semi_sl_weight",
@@ -256,8 +258,8 @@ def main(arguments):
     weight_decay = train_cfg.get("weight_decay", 0.0)
     if args.dropout_param:
         net_cfg["dropout_param"] = args.dropout_param
-    net_cfg["bottleneck_classification"] = False
-    net_cfg["deep_supervision"] = False
+    net_cfg["bottleneck_classification"] = args.bottleneck_classification
+    net_cfg["deep_supervision"] = args.deep_supervision
 
     target_spacing = args.target_spacing
     if target_spacing is None:
@@ -272,13 +274,13 @@ def main(arguments):
     if base_size is None:
         raise ValueError("one of --pad_size/--crop_size is required")
     crop_size = args.random_crop_size or args.crop_size
-    if (args.segmentation_net_type != "unet" and crop_size
+    if ("unetr" in args.segmentation_net_type and crop_size
             and tuple(crop_size) != tuple(base_size)):
         # UNETR's positional embedding fixes its input size, and predict,
         # test and whole-volume validation run it at --pad_size
         raise NotImplementedError(
             "random crops smaller than the volume are ported for the unet "
-            "net type only"
+            "and swin net types only"
         )
     if int(net_cfg.get("spatial_dimensions", 3)) != 3:
         raise NotImplementedError("2D networks are not ported yet")
@@ -421,18 +423,17 @@ def main(arguments):
             logger.info("fold %d already finished; skipping", fold_idx)
             continue
         step_kwargs = dict(n_classes=n_classes, precision=args.precision)
-        train_step = make_train_step(
-            make_segmentation_step(model, loss_fn, train=True, **step_kwargs)
-        )
+        train_step = make_train_step(make_segmentation_step(
+            model, loss_fn, train=True, **step_kwargs
+        ))
         if args.sliding_window_val and transforms.crop_size is not None:
             eval_step = make_sliding_window_eval_step(
                 model, loss_fn, crop_size, **step_kwargs
             )
         else:
-            eval_step = make_eval_step(
-                make_segmentation_step(model, loss_fn, train=False,
-                                       **step_kwargs)
-            )
+            eval_step = make_eval_step(make_segmentation_step(
+                model, loss_fn, train=False, **step_kwargs
+            ))
         callbacks = []
         if args.picai_eval:
             callbacks.append(LesionEvalCallback(
@@ -481,6 +482,7 @@ def main(arguments):
 
 def whole_volume_forward(model, params, x):
     """The f32 probabilities of ``x`` [B, *S, C] through ``model`` with
-    ``params``, in eval mode (the lesion callback's forward)."""
+    ``params``, in eval mode and without its heads (the lesion callback's
+    forward)."""
     model.eval()
-    return torch.func.functional_call(model, params, (x,))
+    return torch.func.functional_call(model, params, (x,), {"heads": False})

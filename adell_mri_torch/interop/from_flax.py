@@ -1,24 +1,28 @@
 """
-Moves a JAX UNet's or UNETR's parameters into the port.
+Moves a JAX UNet's, UNETR's or SWINUNet's parameters into the port.
 
 The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
 ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
 UNETR's ``LinearEmbedding_0``, ``TransformerBlockStack_0/block_{i}``,
-``proj_{i}_{u}``, ``bn_proj``, ``dec_{i}/ConvTranspose_0``), so each flax
-leaf ``a/b/kernel`` becomes the port key ``a.b.weight``, ``a/b/bias``
-becomes ``a.b.bias``, a LayerNorm's ``a/b/scale`` becomes ``a.b.weight``,
-and the token parameters (``pos_embedding``, ``class_token``,
-``registers``) keep their names. Only the layouts change:
+``proj_{i}_{u}``, ``bn_proj``, ``dec_{i}/ConvTranspose_0``; SWIN-UNet's
+``SWINTransformerBlockStack_0/{Conv_0,merge{s},stage{s}_block{b}}``; the
+heads ``bottleneck_classifier``, ``ds_conv_{i}``, ``ds_out_{i}``), so each
+flax leaf ``a/b/kernel`` becomes the port key ``a.b.weight``,
+``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's ``a/b/scale`` becomes
+``a.b.weight``, and the token parameters (``pos_embedding``,
+``class_token``, ``registers``) keep their names. Only the layouts change:
 
 - a 3D conv kernel ``[kd,kh,kw,Cin,Cout]`` stays as it is (the port's
-  ``Conv3d`` and its kernel read that layout);
+  ``Conv3d`` and its kernel read that layout), the patchify and merge
+  convs' too;
 - a 1x1 conv kernel ``[1,1,1,Cin,Cout]`` or a Dense kernel ``[Cin,Cout]``
   becomes ``[Cout,Cin]`` (the port's ``Pointwise``);
 - a transposed conv kernel (a module named ``up_{i}``, ``proj_{i}_{u}``
   or ``ConvTranspose_{i}``) is spatially FLIPPED, since flax's
   ConvTranspose applies its kernel flipped
   (``adell_mri_tpu/ops/conv.py:conv_transpose_block``), and becomes
-  ``[Cin,kd,kh,kw,Cout]``.
+  ``[Cin,kd,kh,kw,Cout]``; an attention block's ``proj`` Dense is not one
+  of them.
 
 Instance norm has no parameters, so it has no keys on either side.
 """

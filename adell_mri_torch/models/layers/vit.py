@@ -3,15 +3,18 @@ Vision transformer layers.
 
 Counterpart of ``adell_mri_tpu/models/layers/vit.py``:
 ``sinusoidal_positions``, ``MultiHeadAttention``, ``TransformerBlock``,
-``TransformerBlockStack``, ``LinearEmbedding`` and ``ViT``. Submodule and
+``TransformerBlockStack``, ``LinearEmbedding``, ``ViT`` and the SWIN
+classes (``window_partition``, ``window_unpartition``,
+``swin_attention_mask``, ``SWINTransformerBlock``,
+``SWINTransformerBlockStack``). Submodule and
 parameter names keep the JAX tree paths (``q``, ``k``, ``v``, ``proj``,
 ``q_norm``, ``k_norm``, ``LayerNorm_{0,1}``, ``MultiHeadAttention_0``,
 ``Dense_{i}``, ``block_{i}``, ``Conv_0``, ``embed_norm``,
 ``pos_embedding``, ``class_token``, ``registers``), so
 ``interop/from_flax.py`` maps a JAX checkpoint key for key. flax modules
 learn their input sizes at the first call; these take them as constructor
-arguments. Every LayerNorm has eps 1e-5. ``FactorizedViT``, ``SeqPool``,
-the SWIN classes and ``SliceLinearEmbedding`` are not ported yet.
+arguments. Every LayerNorm has eps 1e-5. ``FactorizedViT``, ``SeqPool``
+and ``SliceLinearEmbedding`` are not ported yet.
 """
 
 import math
@@ -378,3 +381,177 @@ class ViT(nn.Module):
         return self.TransformerBlockStack_0(
             self.LinearEmbedding_0(x), return_at=return_at
         )
+
+
+# -- SWIN ---------------------------------------------------------------------
+
+
+def window_partition(x, window: Sequence[int]):
+    """``[B, *S, C]`` -> (``[B * nW, prod(window), C]``, the window grid):
+    windows batch-major, then in row-major grid order."""
+    b, spatial, c = x.shape[0], tuple(x.shape[1:-1]), x.shape[-1]
+    ndim = len(spatial)
+    grid = [s // w for s, w in zip(spatial, window)]
+    shape = [b]
+    for g, w in zip(grid, window):
+        shape += [g, w]
+    order = (
+        [0]
+        + [1 + 2 * d for d in range(ndim)]
+        + [2 + 2 * d for d in range(ndim)]
+        + [1 + 2 * ndim]
+    )
+    y = x.reshape(shape + [c]).permute(order)
+    return y.reshape(b * math.prod(grid), math.prod(window), c), grid
+
+
+def window_unpartition(y, grid, window, spatial):
+    """The inverse of ``window_partition``."""
+    ndim = len(spatial)
+    c = y.shape[-1]
+    b = y.shape[0] // math.prod(grid)
+    y = y.reshape([b] + list(grid) + list(window) + [c])
+    order = [0]
+    for d in range(ndim):
+        order += [1 + d, 1 + ndim + d]
+    order += [1 + 2 * ndim]
+    return y.permute(order).reshape([b] + list(spatial) + [c])
+
+
+def swin_attention_mask(spatial, window, shift, device=None):
+    """``[nW, N, N]`` f32 additive bias (0 or -1e9) that keeps tokens from
+    attending across the boundaries the cyclic shift wrapped: tokens of
+    one window attend to each other only when they came from the same
+    region of the unshifted volume."""
+    import itertools
+
+    import numpy as np
+
+    img = np.zeros(tuple(spatial), np.float32)
+    regions = []
+    for s, w, sh in zip(spatial, window, shift):
+        regions.append(
+            [slice(0, s)] if sh == 0
+            else [slice(0, s - w), slice(s - w, s - sh), slice(s - sh, s)]
+        )
+    for i, combo in enumerate(itertools.product(*regions)):
+        img[combo] = i
+    ids, _ = window_partition(
+        torch.from_numpy(img).to(device)[None, ..., None], window
+    )
+    ids = ids[..., 0]
+    same = ids[:, :, None] == ids[:, None, :]
+    return torch.where(same, 0.0, -1e9).to(torch.float32)
+
+
+class SWINTransformerBlock(nn.Module):
+    """Windowed attention block, shifted by half a window when ``shift``.
+    The window is clamped to the input per axis; a shift applies only
+    along axes the window does not span (there it would only add the wrap
+    mask). The input is zero-padded to window multiples after the first
+    LayerNorm, and the padded tokens take part in attention unmasked, as
+    in the JAX package. Dropout applies to the attention probabilities
+    only. The wrap mask, tiled over the batch, is built once per input
+    shape and device and kept."""
+
+    def __init__(self, dim: int, window_size: Sequence[int], n_heads: int,
+                 shift: bool = False, mlp_ratio: float = 4.0,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.window_size = tuple(window_size)
+        self.shift = shift
+        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
+        self.MultiHeadAttention_0 = MultiHeadAttention(
+            dim, n_heads, dropout=dropout
+        )
+        self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-5)
+        hidden = int(dim * mlp_ratio)
+        self.Dense_0 = _dense(dim, hidden)
+        self.Dense_1 = _dense(hidden, dim)
+        self._bias = {}
+
+    def attention_bias(self, b, padded, window, shift, device):
+        """The mask of ``swin_attention_mask`` tiled batch-major to
+        ``[B * nW, 1, N, N]``, the order of ``window_partition``."""
+        key = (b, padded, window, shift, device)
+        if key not in self._bias:
+            mask = swin_attention_mask(padded, window, shift, device)
+            self._bias[key] = mask[:, None].repeat(b, 1, 1, 1)
+        return self._bias[key]
+
+    def forward(self, x):
+        spatial = tuple(x.shape[1:-1])
+        window = tuple(min(w, s) for w, s in zip(self.window_size, spatial))
+        shift = tuple(
+            w // 2 if (self.shift and w < s) else 0
+            for w, s in zip(window, spatial)
+        )
+        dims = tuple(range(1, x.dim() - 1))
+        y = self.LayerNorm_0(x)
+        pad = tuple((-s) % w for s, w in zip(spatial, window))
+        if any(pad):
+            y = F.pad(y, [0, 0] + [v for p in reversed(pad) for v in (0, p)])
+        padded = tuple(y.shape[1:-1])
+        bias = None
+        if any(shift):
+            y = torch.roll(y, [-s for s in shift], dims)
+            bias = self.attention_bias(x.shape[0], padded, window, shift,
+                                       x.device)
+        windows, grid = window_partition(y, window)
+        y = self.MultiHeadAttention_0(windows, bias=bias)
+        y = window_unpartition(y, grid, window, padded)
+        if any(shift):
+            y = torch.roll(y, list(shift), dims)
+        if any(pad):
+            y = y[(slice(None),) + tuple(slice(0, s) for s in spatial)]
+        x = x + y
+        y = self.Dense_1(F.gelu(self.Dense_0(self.LayerNorm_1(x))))
+        return x + y
+
+
+class SWINTransformerBlockStack(nn.Module):
+    """Hierarchical SWIN encoder: the patchify conv (``Conv_0``, kernel ==
+    stride == ``patch_size``, VALID), then per stage ``depths[s]`` blocks
+    (odd ones shifted) and, between stages, a 2x2x2 stride-2 VALID merge
+    conv (``merge{s}``) that doubles the width. 3D only. Returns the last
+    stage's output and every stage's output (``feats``); ``widths`` holds
+    their channel counts."""
+
+    def __init__(self, in_channels: int, embed_dim: int = 48,
+                 depths: Sequence[int] = (2, 2, 2),
+                 n_heads: Sequence[int] = (3, 6, 12),
+                 window_size: Sequence[int] = (4, 4, 4),
+                 patch_size: Sequence[int] = (2, 2, 2),
+                 dropout: float = 0.0):
+        super().__init__()
+        p = tuple(int(v) for v in patch_size)[:3]
+        self.Conv_0 = Conv3d(in_channels, embed_dim, p, strides=p,
+                             padding="VALID")
+        self.depths = list(zip(depths, n_heads))
+        self.widths = []
+        dim = embed_dim
+        for stage, (depth, heads) in enumerate(self.depths):
+            for blk in range(depth):
+                block = SWINTransformerBlock(
+                    dim, tuple(window_size)[:3], heads, shift=blk % 2 == 1,
+                    dropout=dropout,
+                )
+                self.add_module(f"stage{stage}_block{blk}", block)
+            self.widths.append(dim)
+            if stage < len(self.depths) - 1:
+                self.add_module(f"merge{stage}", Conv3d(
+                    dim, 2 * dim, (2, 2, 2), strides=(2, 2, 2),
+                    padding="VALID",
+                ))
+                dim *= 2
+
+    def forward(self, x):
+        x = self.Conv_0(x)
+        feats = []
+        for stage, (depth, _) in enumerate(self.depths):
+            for blk in range(depth):
+                x = getattr(self, f"stage{stage}_block{blk}")(x)
+            feats.append(x)
+            if stage < len(self.depths) - 1:
+                x = getattr(self, f"merge{stage}")(x)
+        return x, feats

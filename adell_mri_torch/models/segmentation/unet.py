@@ -4,10 +4,11 @@ Config-driven U-Net, the configurations the port serves so far.
 Counterpart of ``adell_mri_tpu/models/segmentation/unet.py`` (``UNet``,
 ``_ConvUnit``, ``_final_layer``) for 3D inputs with ``conv_type="regular"``,
 ``link_type="residual"`` and ``upscale_type="transpose"``: the flagship
-configuration. Submodule names keep the JAX tree paths (``enc_{i}``,
-``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``)
-so ``interop/from_flax.py`` maps a JAX checkpoint key for key. Every other
-option raises ``NotImplementedError``.
+configuration, with or without bottleneck classification and deep
+supervision (``heads.py``). Submodule names keep the JAX tree paths
+(``enc_{i}``, ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``,
+``Conv_0/Conv_1``) so ``interop/from_flax.py`` maps a JAX checkpoint key
+for key. Every other option raises ``NotImplementedError``.
 """
 
 from typing import Any, Dict, Optional, Sequence
@@ -18,6 +19,7 @@ import torch.nn as nn
 from adell_mri_torch.models.layers.adn import get_adn_fn
 from adell_mri_torch.models.layers.blocks import _tuple, apply_adn
 from adell_mri_torch.models.layers.res_blocks import ResidualBlock
+from adell_mri_torch.models.segmentation.heads import add_heads, with_heads
 from adell_mri_torch.ops.conv import Conv3d, ConvTranspose3d, Pointwise
 
 
@@ -52,10 +54,8 @@ _SUPPORTED = {
     "conv_type": "regular",
     "link_type": "residual",
     "upscale_type": "transpose",
-    "bottleneck_classification": False,
     "skip_conditioning": None,
     "feature_conditioning": None,
-    "deep_supervision": False,
     "encoder_only": False,
     "semi_supervised": False,
     "encoder_structure": None,
@@ -65,7 +65,8 @@ _SUPPORTED = {
 class UNet(nn.Module):
     """Takes and returns channels-last ``[B, D, H, W, C]``. The output is
     the sigmoid (n_classes == 2, one channel) or softmax of the logits, or
-    the logits themselves with ``return_logits=True``."""
+    the logits themselves with ``return_logits=True``; with the heads'
+    outputs when a head is on, unless ``heads=False`` (``heads.py``)."""
 
     def __init__(
         self,
@@ -99,10 +100,8 @@ class UNet(nn.Module):
             "conv_type": conv_type,
             "link_type": link_type,
             "upscale_type": upscale_type,
-            "bottleneck_classification": bottleneck_classification,
             "skip_conditioning": skip_conditioning,
             "feature_conditioning": feature_conditioning,
-            "deep_supervision": deep_supervision,
             "encoder_only": encoder_only,
             "semi_supervised": semi_supervised,
             "encoder_structure": encoder_structure,
@@ -141,9 +140,13 @@ class UNet(nn.Module):
         d0 = depth[0]
         self.Conv_0 = Conv3d(d0, d0, _tuple(3, 3))
         self.final_adn = adn_fn(d0)
-        self.Conv_1 = Pointwise(d0, n_classes if n_classes > 2 else 1)
+        n_out = n_classes if n_classes > 2 else 1
+        self.Conv_1 = Pointwise(d0, n_out)
+        add_heads(self, adn_fn, n_out, depth[-1], depth[-2::-1],
+                  bottleneck_classification, deep_supervision)
 
-    def forward(self, x, return_logits: bool = False):
+    def forward(self, x, return_logits: bool = False,
+                heads: bool = True):
         encoding_out = []
         curr = x
         for i in range(self.n_levels):
@@ -151,6 +154,7 @@ class UNet(nn.Module):
             encoding_out.append(curr)
             if i < self.n_levels - 1:
                 curr = getattr(self, f"enc_ds_{i}")(curr)
+        bottleneck, deep_outputs = curr, []
         for i in range(self.n_levels - 1):
             encoded = getattr(self, f"link_{i}")(encoding_out[-i - 2])
             curr = getattr(self, f"up_{i}")(curr)
@@ -162,8 +166,10 @@ class UNet(nn.Module):
                     "sizes divisible by the product of the strides)"
                 )
             curr = getattr(self, f"dec_{i}")(torch.cat([curr, encoded], -1))
+            deep_outputs.append(curr)
         y = apply_adn(self.final_adn, self.Conv_0(curr))
         y = self.Conv_1(y)
-        if return_logits:
-            return y
-        return torch.softmax(y, -1) if self.n_classes > 2 else torch.sigmoid(y)
+        if not return_logits:
+            y = (torch.softmax(y, -1) if self.n_classes > 2
+                 else torch.sigmoid(y))
+        return with_heads(self, y, bottleneck, deep_outputs, heads)

@@ -1,18 +1,20 @@
 """
-Transformer segmentation: UNETR.
+Transformer segmentation: UNETR and SWIN-UNet.
 
-Counterpart of ``UNETR``, ``_DecoderStage`` and ``tokens_to_volume`` in
-``adell_mri_tpu/models/segmentation/unetr.py``: a ViT encoder whose
-intermediate token maps become U-Net skips through ladders of transposed
-convs, and a conv decoder. Submodule names keep the JAX tree paths
-(``LinearEmbedding_0``, ``TransformerBlockStack_0/block_{i}``, ``Conv_0``,
-``proj_{i}_{u}``, ``bn_proj``, ``dec_{i}/ConvTranspose_0``,
-``dec_{i}/Conv_{0,1}``, ``Conv_1``) so ``interop/from_flax.py`` maps a JAX
-checkpoint key for key. The positional embedding fixes the token count, so
-the model is built for one ``image_size``. 3D only; ``skip_conditioning``,
-``feature_conditioning``, ``bottleneck_classification`` and
-``deep_supervision`` raise ``NotImplementedError``; ``SWINUNet`` and
-``UNETRRef`` are not ported yet.
+Counterpart of ``UNETR``, ``SWINUNet``, ``_DecoderStage`` and
+``tokens_to_volume`` in ``adell_mri_tpu/models/segmentation/unetr.py``:
+UNETR, a ViT encoder whose intermediate token maps become U-Net skips
+through ladders of transposed convs, and SWIN-UNet, a hierarchical SWIN
+encoder whose stage outputs are the skips; both with a conv decoder.
+Submodule names keep the JAX tree paths (``LinearEmbedding_0``,
+``TransformerBlockStack_0/block_{i}``, ``SWINTransformerBlockStack_0``,
+``Conv_0``, ``proj_{i}_{u}``, ``bn_proj``, ``dec_{i}/ConvTranspose_0``,
+``dec_{i}/Conv_{0,1}``, ``Conv_1``, the heads of ``heads.py``) so
+``interop/from_flax.py`` maps a JAX checkpoint key for key. UNETR's
+positional embedding fixes the token count, so it is built for one
+``image_size``; SWIN-UNet takes any size. 3D only; ``skip_conditioning``
+and ``feature_conditioning`` raise ``NotImplementedError``; ``UNETRRef``
+is not ported yet.
 """
 
 import math
@@ -26,8 +28,10 @@ from adell_mri_torch.models.layers.blocks import _tuple, apply_adn
 from adell_mri_torch.models.layers.multi_resolution import resize_like
 from adell_mri_torch.models.layers.vit import (
     LinearEmbedding,
+    SWINTransformerBlockStack,
     TransformerBlockStack,
 )
+from adell_mri_torch.models.segmentation.heads import add_heads, with_heads
 from adell_mri_torch.ops.conv import Conv3d, ConvTranspose3d, Pointwise
 
 
@@ -68,15 +72,23 @@ class _DecoderStage(nn.Module):
 _UNPORTED = {
     "skip_conditioning": None,
     "feature_conditioning": None,
-    "bottleneck_classification": False,
-    "deep_supervision": False,
 }
+
+
+def _reject_unported(net, **given):
+    for key, want in _UNPORTED.items():
+        if given[key] != want:
+            raise NotImplementedError(
+                f"{net} {key}={given[key]!r} is not ported yet (see "
+                "ROADMAP.md)"
+            )
 
 
 class UNETR(nn.Module):
     """Takes and returns channels-last ``[B, *image_size, C]``. The output
     is the sigmoid (n_classes == 2, one channel) or softmax of the logits,
-    or the logits themselves with ``return_logits=True``."""
+    or the logits themselves with ``return_logits=True``; with the heads'
+    outputs when a head is on, unless ``heads=False`` (``heads.py``)."""
 
     def __init__(
         self,
@@ -100,18 +112,8 @@ class UNETR(nn.Module):
         deep_supervision: bool = False,
     ):
         super().__init__()
-        given = {
-            "skip_conditioning": skip_conditioning,
-            "feature_conditioning": feature_conditioning,
-            "bottleneck_classification": bottleneck_classification,
-            "deep_supervision": deep_supervision,
-        }
-        for key, want in _UNPORTED.items():
-            if given[key] != want:
-                raise NotImplementedError(
-                    f"UNETR {key}={given[key]!r} is not ported yet (see "
-                    "ROADMAP.md)"
-                )
+        _reject_unported("UNETR", skip_conditioning=skip_conditioning,
+                         feature_conditioning=feature_conditioning)
         spatial = tuple(int(s) for s in image_size)
         if spatial_dimensions != 3 or len(spatial) != 3:
             raise NotImplementedError(
@@ -167,6 +169,7 @@ class UNETR(nn.Module):
         self.bn_proj = Pointwise(embed_dim, curr_ch)
         self.adn_bn = adn(curr_ch)
         curr_shape = self.grid
+        decoder_channels = []
         for i in range(n_inter, -1, -1):
             out_ch = max(f * 2 ** i, f)
             upsample = skip_shapes[i] != curr_shape
@@ -174,10 +177,15 @@ class UNETR(nn.Module):
                 curr_ch, skip_channels[i], out_ch, adn, upsample=upsample
             ))
             curr_ch, curr_shape = out_ch, skip_shapes[i]
+            decoder_channels.append(out_ch)
         self.n_skips = n_inter + 1
-        self.Conv_1 = Pointwise(curr_ch, n_classes if n_classes > 2 else 1)
+        n_out = n_classes if n_classes > 2 else 1
+        self.Conv_1 = Pointwise(curr_ch, n_out)
+        add_heads(self, adn, n_out, embed_dim, decoder_channels,
+                  bottleneck_classification, deep_supervision)
 
-    def forward(self, x, return_logits: bool = False):
+    def forward(self, x, return_logits: bool = False,
+                heads: bool = True):
         if tuple(x.shape[1:-1]) != self.spatial:
             raise ValueError(
                 f"this UNETR was built for inputs of {self.spatial}, got "
@@ -197,14 +205,100 @@ class UNETR(nn.Module):
             if tuple(vol.shape[1:-1]) != target:
                 vol = resize_like(vol, target)
             skips.append(vol)
-        curr = apply_adn(
-            self.adn_bn, self.bn_proj(tokens_to_volume(tokens, self.grid))
-        )
+        bottleneck = tokens_to_volume(tokens, self.grid)
+        curr = apply_adn(self.adn_bn, self.bn_proj(bottleneck))
+        deep_outputs = []
         for i in range(self.n_skips - 1, -1, -1):
             curr = getattr(self, f"dec_{i}")(curr, skips[i])
-        if tuple(curr.shape[1:-1]) != self.spatial:
-            curr = resize_like(curr, self.spatial)
-        y = self.Conv_1(curr)
-        if return_logits:
-            return y
-        return torch.softmax(y, -1) if self.n_classes > 2 else torch.sigmoid(y)
+            deep_outputs.append(curr)
+        return with_heads(
+            self, _final(self, curr, self.spatial, return_logits),
+            bottleneck, deep_outputs, heads,
+        )
+
+
+def _final(model, curr, spatial, return_logits):
+    """``model.Conv_1`` on ``curr`` resized to ``spatial``, activated
+    unless ``return_logits``."""
+    if tuple(curr.shape[1:-1]) != tuple(spatial):
+        curr = resize_like(curr, tuple(spatial))
+    y = model.Conv_1(curr)
+    if return_logits:
+        return y
+    return torch.softmax(y, -1) if model.n_classes > 2 else torch.sigmoid(y)
+
+
+class SWINUNet(nn.Module):
+    """SWIN encoder + conv decoder (``sample_configs/unet-swin.yaml``):
+    the stack's stage outputs are the skips under a full-resolution stem
+    skip (``Conv_0``, 3x3x3 to ``embed_dim``, with its ADN), and each
+    ``dec_{i}`` upsamples by a transposed conv, resizes to its skip where
+    the sizes differ, and applies two 3x3x3 convs. Takes channels-last
+    ``[B, *S, C]`` of any size (no positional embedding), 3D only; the
+    output is as UNETR's."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        spatial_dimensions: int = 3,
+        n_classes: int = 2,
+        embed_dim: int = 24,
+        depths: Sequence[int] = (2, 2, 2),
+        n_heads: Sequence[int] = (3, 6, 12),
+        window_size: Sequence[int] = (4, 4, 4),
+        patch_size: Sequence[int] = (2, 2, 2),
+        norm_type: str = "instance",
+        activation_fn: str = "swish",
+        dropout_param: float = 0.0,
+        skip_conditioning: Optional[int] = None,
+        feature_conditioning: Optional[int] = None,
+        feature_conditioning_params: Optional[dict] = None,
+        bottleneck_classification: bool = False,
+        deep_supervision: bool = False,
+    ):
+        super().__init__()
+        _reject_unported("SWINUNet", skip_conditioning=skip_conditioning,
+                         feature_conditioning=feature_conditioning)
+        if spatial_dimensions != 3:
+            raise NotImplementedError(
+                f"SWINUNet is ported for 3D inputs, got spatial_dimensions="
+                f"{spatial_dimensions}"
+            )
+        self.n_classes = n_classes
+        adn = get_adn_fn(norm_type, activation_fn, dropout_param)
+        self.SWINTransformerBlockStack_0 = SWINTransformerBlockStack(
+            in_channels, embed_dim=embed_dim, depths=depths, n_heads=n_heads,
+            window_size=window_size, patch_size=patch_size,
+            dropout=dropout_param,
+        )
+        widths = self.SWINTransformerBlockStack_0.widths
+        f = embed_dim
+        self.Conv_0 = Conv3d(in_channels, f, _tuple(3, 3))
+        self.adn_z0 = adn(f)
+        skip_channels = [f] + widths[:-1]
+        curr_ch, decoder_channels = widths[-1], []
+        for i in range(len(skip_channels) - 1, -1, -1):
+            out_ch = max(skip_channels[i], f)
+            self.add_module(f"dec_{i}", _DecoderStage(
+                curr_ch, skip_channels[i], out_ch, adn
+            ))
+            curr_ch = out_ch
+            decoder_channels.append(out_ch)
+        self.n_skips = len(skip_channels)
+        n_out = n_classes if n_classes > 2 else 1
+        self.Conv_1 = Pointwise(curr_ch, n_out)
+        add_heads(self, adn, n_out, widths[-1], decoder_channels,
+                  bottleneck_classification, deep_supervision)
+
+    def forward(self, x, return_logits: bool = False,
+                heads: bool = True):
+        bottleneck, feats = self.SWINTransformerBlockStack_0(x)
+        skips = [apply_adn(self.adn_z0, self.Conv_0(x))] + feats[:-1]
+        curr, deep_outputs = bottleneck, []
+        for i in range(self.n_skips - 1, -1, -1):
+            curr = getattr(self, f"dec_{i}")(curr, skips[i])
+            deep_outputs.append(curr)
+        return with_heads(
+            self, _final(self, curr, x.shape[1:-1], return_logits),
+            bottleneck, deep_outputs, heads,
+        )

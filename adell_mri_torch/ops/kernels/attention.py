@@ -41,7 +41,10 @@ which repeats the kernel's arithmetic (products in the input type summed
 in f32, ``p`` and ``ds`` rounded to the input type before their second
 product). ``flash_attention`` is the differentiable form, mirroring the
 JAX package's ``custom_vjp``: the forward saves ``(q, k, v, out, m, l)``
-and the backward launches the two backward kernels.
+and the backward launches the two backward kernels. It takes any head dim
+up to 64, as the JAX function takes any: q, k and v are zero-padded to the
+next of ``HEAD_DIMS`` (the scale stays the unpadded D's) and the output
+and gradients sliced back.
 """
 
 import torch
@@ -369,34 +372,65 @@ def backward_rows(out, m, l, dout):
     return lse, delta
 
 
+def padded_head_dim(d):
+    """The kernels' head dim that serves a head dim of ``d``: the least of
+    ``HEAD_DIMS`` not below it; None above them."""
+    return next((h for h in HEAD_DIMS if d <= h), None)
+
+
+def _pad_head(x, dp):
+    """``x`` zero-padded along its last axis to ``dp``: zero columns of q,
+    k and v change neither q k^T nor the kept columns of the output."""
+    return x if x.shape[-1] == dp else F.pad(x, (0, dp - x.shape[-1]))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, dp):
+        d = q.shape[-1]
+        q, k, v = (_pad_head(t, dp) for t in (q, k, v))
         out, m, l = flash_attention_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.scale = scale
-        return out
+        ctx.scale, ctx.d = scale, d
+        return out if dp == d else out[..., :d].contiguous()
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, m, l = ctx.saved_tensors
-        g = g.to(q.dtype).contiguous()
+        d = ctx.d
+        g = _pad_head(g.to(q.dtype), q.shape[-1]).contiguous()
         lse, delta = backward_rows(out, m, l, g)
         dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, ctx.scale)
         dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+        return dq[..., :d], dk[..., :d], dv[..., :d], None, None
 
 
 def flash_attention(q, k, v, scale=None):
     """Softmax attention without the N x N matrix in device memory, with a
     gradient. q ``[B, H, Nq, D]``, k and v ``[B, H, Nkv, D]``, contiguous,
-    one type (bf16 or f32), D in ``HEAD_DIMS``; ``scale`` defaults to
-    ``D ** -0.5``."""
+    one type (bf16 or f32); ``scale`` defaults to ``D ** -0.5``. A head
+    dim below one of ``HEAD_DIMS`` runs the kernels on q, k and v
+    zero-padded to it (with the unpadded D's scale), and the output and
+    gradients are sliced back; a head dim above them raises on CUDA
+    tensors (there is no kernel variant for it) and takes the plain
+    version on CPU tensors."""
+    d = q.shape[-1]
     if scale is None:
-        scale = q.shape[-1] ** -0.5
+        scale = d ** -0.5
+    dp = padded_head_dim(d)
+    if dp is None:
+        if q.device.type == "cuda":
+            raise NotImplementedError(
+                f"flash_attention has kernels for head dims up to "
+                f"{HEAD_DIMS[-1]}, got {d} (a D = 128 variant is ROADMAP "
+                "Queue 2 work)"
+            )
+        dp = d
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v)
     )
     if not needs_grad:
-        return flash_attention_fwd(q, k, v, scale)[0]
-    return _FlashAttention.apply(q, k, v, scale)
+        out = flash_attention_fwd(
+            *(_pad_head(t, dp) for t in (q, k, v)), scale)[0]
+        return out if dp == d else out[..., :d]
+    return _FlashAttention.apply(q, k, v, scale, dp)

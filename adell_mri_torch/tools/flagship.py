@@ -17,9 +17,17 @@ fixes the token count). Training: 2 whole volumes, the yaml's dice + focal
 loss, and ``dropout_rate`` 0: with dropout on, attention in training mode
 leaves the kernels for the materialised softmax, as in the JAX package.
 
-Both train with the CLI's augmentation (``--augment intensity noise affine
+``"swin"``, ``sample_configs/unet-swin.yaml`` as it stands (patch 4,
+window 8x8x8, embeddings 32, 64, 128 and 256, 8 heads a stage), dropout
+0 unless asked for. Serving: as the U-Net's (SWIN-UNet takes any input
+size). Training: 2 volumes of 128x128x32, the yaml's dice + focal loss.
+
+All train with the CLI's augmentation (``--augment intensity noise affine
 flip``: rotation-only affine, flips on all three axes), Nesterov SGD
 (momentum 0.99) under cosine annealing, bf16 or f32 compute.
+``overrides`` change keys of a model's network config (e.g. the yaml's
+dropout, or ``deep_supervision``; the trainer's step takes the heads the
+model carries).
 """
 
 from dataclasses import dataclass
@@ -66,6 +74,8 @@ UNETR_YAML = (
     Path(__file__).resolve().parents[2] / "sample_configs" / "unetr.yaml"
 )
 UNETR_BATCH = 2
+SWIN_YAML = UNETR_YAML.with_name("unet-swin.yaml")
+SWIN_BATCH = 2
 
 
 @dataclass(frozen=True)
@@ -78,15 +88,20 @@ class ModelSpec:
     train_batch: int
 
 
-def model_spec(name: str) -> ModelSpec:
+def model_spec(name: str, overrides: dict = None) -> ModelSpec:
+    overrides = overrides or {}
     if name == "unet":
-        return ModelSpec("unet", FLAGSHIP, {"dice": {}}, WINDOW, BATCH, BATCH)
-    if name == "unetr":
-        config, _ = parse_config_unet(str(UNETR_YAML))
-        network = {**config["network"], "dropout_rate": 0.0}
-        return ModelSpec("unetr", network, config["training"]["loss_fn"],
-                         CASE, 1, UNETR_BATCH)
-    raise ValueError(f"unknown model {name!r}: 'unet' or 'unetr'")
+        return ModelSpec("unet", {**FLAGSHIP, **overrides}, {"dice": {}},
+                         WINDOW, BATCH, BATCH)
+    if name in ("unetr", "swin"):
+        yaml_path, window, serve, train = (
+            (UNETR_YAML, CASE, 1, UNETR_BATCH) if name == "unetr"
+            else (SWIN_YAML, WINDOW, BATCH, SWIN_BATCH))
+        config, _ = parse_config_unet(str(yaml_path))
+        network = {**config["network"], "dropout_rate": 0.0, **overrides}
+        return ModelSpec(name, network, config["training"]["loss_fn"],
+                         window, serve, train)
+    raise ValueError(f"unknown model {name!r}: 'unet', 'unetr' or 'swin'")
 
 
 def _network(spec: ModelSpec):
@@ -96,10 +111,12 @@ def _network(spec: ModelSpec):
     )
 
 
-def make_model(seed: int, dtype, device="cuda", name: str = "unet"):
+def make_model(seed: int, dtype, device="cuda", name: str = "unet",
+               overrides: dict = None):
     """The model with weights drawn from ``seed``, in eval mode."""
     torch.manual_seed(seed)
-    return _network(model_spec(name)).to(device=device, dtype=dtype).eval()
+    return _network(model_spec(name, overrides)).to(
+        device=device, dtype=dtype).eval()
 
 
 def make_case(seed: int, device="cuda"):
@@ -111,7 +128,7 @@ def make_inference(model, name: str = "unet"):
     spec = model_spec(name)
     dtype = next(model.parameters()).dtype
     return SegmentationInference(
-        lambda m, x: m(x.to(dtype)).float(), [model],
+        lambda m, x: m(x.to(dtype), heads=False).float(), [model],
         sliding_window_size=spec.window, stride=0.5,
         batch_size=spec.serve_batch,
     )
@@ -153,10 +170,10 @@ class Trainer:
 
 def make_trainer(seed: int, precision: str, device="cuda",
                  learning_rate: float = 1e-3, t_max: int = 100,
-                 name: str = "unet"):
+                 name: str = "unet", overrides: dict = None):
     """The model (f32 master weights from ``seed``) with its train and
     eval steps, optimizer and augmentation."""
-    spec = model_spec(name)
+    spec = model_spec(name, overrides)
     torch.manual_seed(seed)
     model = _network(spec).to(device)
     loss_fn = build_compound_loss(spec.loss, n_classes=2)

@@ -1,16 +1,17 @@
 """
 Where the time of one training step goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_train [unet|unetr] \
+    python -m adell_mri_torch.tools.profile_train [unet|unetr|swin] \
         [--precision bf16|32] [--batch N]
 
 Trains the model (f32 master weights from seed 0, bf16 compute or, with
 ``--precision 32``, f32 compute, the CLI's default; the CLI's
 augmentation, Nesterov SGD) on a batch made on the card, as
 ``chip_smoke.py`` does: the flagship U-Net on 4 volumes of 128x128x32 with
-the dice loss, or UNETR (``sample_configs/unetr.yaml``, dropout 0) on 2
-volumes of 256x256x64 with the yaml's dice + focal loss (``--batch``
-changes the volumes a step). After one warm-up
+the dice loss, UNETR (``sample_configs/unetr.yaml``, dropout 0) on 2
+volumes of 256x256x64 or SWIN-UNet (``sample_configs/unet-swin.yaml``,
+dropout 0) on 2 volumes of 128x128x32, both with their yaml's dice +
+focal loss (``--batch`` changes the volumes a step). After one warm-up
 step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
 device-busy share of a step's wall time, the peak device memory and the
@@ -61,6 +62,7 @@ GROUPS = (
     ("reduce_kernel", "reductions (norm statistics, sums)"),
     ("index", "gathers (warp)"),
     ("layer_norm", "layer norms"),
+    ("softmax", "softmax (materialised window attention)"),
     ("elementwise", "elementwise (norms, swish, casts, the stems' patch "
      "copies)"),
 )
@@ -149,7 +151,7 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("model", nargs="?", default="unet",
-                        choices=("unet", "unetr"))
+                        choices=("unet", "unetr", "swin"))
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")

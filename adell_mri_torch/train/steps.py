@@ -2,10 +2,10 @@
 Train and eval steps of the segmentation trainer.
 
 Counterpart of ``make_segmentation_step``, ``make_train_step`` and
-``make_eval_step`` in ``adell_mri_tpu/train/steps.py``, for the flagship
-options: no deep supervision, no bottleneck classification, no
-conditioning; and the sliding-window validation step of the JAX
-segmentation trainer (``--sliding_window_val``). A step runs the model as
+``make_eval_step`` in ``adell_mri_tpu/train/steps.py``, with deep
+supervision and bottleneck classification and without conditioning; and
+the sliding-window validation step of the JAX segmentation trainer
+(``--sliding_window_val``). A step runs the model as
 a function of its parameters (``torch.func.functional_call``) under the
 mixed-precision policy, so the f32 master parameters receive the
 gradients. ``train`` puts the model in training or eval mode for the call
@@ -19,7 +19,13 @@ import torch
 import torch.nn.functional as F
 
 from adell_mri_torch.inference.sliding_window import sliding_window_inference
-from adell_mri_torch.models.segmentation.losses import CompoundLoss
+from adell_mri_torch.models.layers.multi_resolution import resize_volume
+from adell_mri_torch.models.segmentation.heads import prediction_of
+from adell_mri_torch.models.segmentation.losses import (
+    CompoundLoss,
+    binary_cross_entropy,
+    cat_cross_entropy,
+)
 from adell_mri_torch.train.precision import (
     cast_floats,
     compute_dtype,
@@ -30,8 +36,8 @@ from adell_mri_torch.train.precision import (
 def make_segmentation_step(
     model,
     loss_fn: CompoundLoss,
-    deep_supervision: bool = False,
-    bottleneck_classification: bool = False,
+    deep_supervision: Optional[bool] = None,
+    bottleneck_classification: Optional[bool] = None,
     n_classes: int = 2,
     train: bool = True,
     precision: Optional[str] = None,
@@ -39,12 +45,30 @@ def make_segmentation_step(
     """Returns ``loss_and_metrics(params, batch) -> (loss, metrics)``.
     Batch keys: ``image`` [B, *S, C], ``label`` [B, *S] (or [B, *S, 1]).
     Metrics: ``loss``, the soft ``dice`` and ``loss_{name}`` per member
-    loss (``dice_c{k}`` per class when multiclass)."""
-    if deep_supervision or bottleneck_classification:
-        raise NotImplementedError(
-            "deep supervision and bottleneck classification are not ported "
-            "yet"
-        )
+    loss (``dice_c{k}`` per class when multiclass). The heads are the
+    model's own (``heads.py``): deep supervision adds each decoder
+    output's loss against the labels resized to it by nearest, the i-th of
+    t weighted ``1 / 2**(t - i) / (t + 1)``; bottleneck classification
+    adds the cross entropy of the bottleneck classifier against the label
+    maximum (``loss_class_loss``). ``deep_supervision`` and
+    ``bottleneck_classification`` are the JAX signature's flags: given,
+    each must match the model."""
+    has = {flag: bool(getattr(model, flag, False))
+           for flag in ("deep_supervision", "bottleneck_classification")}
+    for flag, asked in (("deep_supervision", deep_supervision),
+                        ("bottleneck_classification",
+                         bottleneck_classification)):
+        if asked is not None and bool(asked) != has[flag]:
+            raise ValueError(
+                f"{flag.replace('_', ' ')} "
+                + ("asked of a model built without its head" if asked
+                   else "turned off for a model built with its head")
+            )
+    deep_supervision = has["deep_supervision"]
+    bottleneck_classification = has["bottleneck_classification"]
+    class_loss_fn = (
+        cat_cross_entropy if n_classes > 2 else binary_cross_entropy
+    )
 
     def forward(params, x):
         return torch.func.functional_call(model, params, (x,))
@@ -53,12 +77,38 @@ def make_segmentation_step(
 
     def loss_and_metrics(params, batch):
         model.train(train)
-        prediction = apply_fn(params, batch["image"])
-        return segmentation_loss_and_metrics(
+        out = apply_fn(params, batch["image"])
+        prediction = prediction_of(out)
+        y = torch.round(batch["label"].float())
+        loss, metrics = segmentation_loss_and_metrics(
             prediction, batch["label"], loss_fn, n_classes
         )
+        if deep_supervision:
+            deep_outputs = out[2]
+            t = len(deep_outputs)
+            for i, o in enumerate(deep_outputs):
+                ds_loss, _ = loss_fn(o, _resize_to(y, o.shape[1:-1]))
+                loss = loss + ds_loss / (2 ** (t - i)) / (t + 1)
+        if bottleneck_classification:
+            y_class = y.reshape(y.shape[0], -1).amax(dim=1)
+            act = (lambda z: torch.softmax(z, -1)) if n_classes > 2 else (
+                torch.sigmoid)
+            class_loss = class_loss_fn(act(out[1]), y_class)
+            loss = loss + class_loss
+            metrics["loss_class_loss"] = class_loss
+        metrics["loss"] = loss
+        return loss, metrics
 
     return loss_and_metrics
+
+
+def _resize_to(y, spatial_shape):
+    """Labels [B, *S] or [B, *S, 1] resized to ``spatial_shape`` by nearest:
+    they hold class ids."""
+    tail = tuple(y.shape[1 + len(spatial_shape):])
+    return resize_volume(
+        y, (y.shape[0],) + tuple(spatial_shape) + tail, "nearest"
+    )
 
 
 def segmentation_loss_and_metrics(prediction, label, loss_fn: CompoundLoss,
@@ -124,7 +174,8 @@ def make_sliding_window_eval_step(
         def fn(tiles):
             if dtype is not None:
                 tiles = tiles.to(dtype)
-            return torch.func.functional_call(model, params, (tiles,))
+            return torch.func.functional_call(model, params, (tiles,),
+                                              {"heads": False})
 
         with torch.no_grad():
             prediction = torch.stack([

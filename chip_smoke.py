@@ -147,7 +147,33 @@ failure:
     train`` with the ten flags, ``--folds``, ``--constant_ratio``,
     ``--excluded_ids_from_training_data``, ``--cache_dir`` and
     ``--validation_samples_per_epoch`` on phase 14's cohort (2 epochs of
-    one step), run twice: the second reads every sample from the cache.
+    one step), run twice: the second reads every sample from the cache;
+16. SWIN-UNet and the flash head-dim repair: ``flash_attention`` at q, k,
+    v [1,8,2048,16] and [1,8,2048,48] (the D=32 and D=64 kernels on
+    zero-padded inputs), bf16 and f32, forward and backward against the
+    plain versions at the unpadded head dim (the plain backward on the
+    plain forward's rows) with phase 10's tolerances, timed beside the pad
+    alone; UNETR (``sample_configs/unetr.yaml`` with
+    32 heads of 16) serving one case with 8 forward-attention launches
+    (within 5e-2 of the plain path); SWIN-UNet
+    (``sample_configs/unet-swin.yaml``) serving the 256x256x64 case as
+    phase 4 serves the U-Net, bf16 and f32 (9 x 7 K1 launches: 7 narrow,
+    56 wgmma or tf32; within 5e-2 and 1e-3 of the plain path; seconds a
+    case, device share, peak memory); its 9 conv classes against
+    ``F.conv3d``; dx, dW and dbias at every stride-1 conv shape of a
+    training step with deep supervision (B=2) against autograd through
+    the plain version, f32 and bf16, at phase 7's tolerances, each call's
+    routes read from the counters; training at B=2 on 128x128x32, bf16 and f32 (per step 9
+    K1, 8 dx, 8 wgrad + 1 patch product, f32 9 patch products, 1 K3;
+    gradients finite and every weight's non-zero; the f32 loss within
+    1e-4 and gradient norm within 1e-3 of the plain path at dropout 0; a
+    falling loss; with ``deep_supervision`` and
+    ``bottleneck_classification`` 4 more K1, dx and dW; steps at the
+    yaml's dropout 0.1), with seconds a step, device share and peak
+    memory; ``segmentation train --segmentation_net_type swin`` (f32, crops
+    of 128x128x32), without and with both heads, then ``predict`` and
+    ``test`` on each checkpoint (with the heads, the same K1 launches as
+    without: inference runs no head).
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -1090,6 +1116,49 @@ def dw_totals(rows):
     return out
 
 
+def conv_backward_errors(xs, cout, dtype, seed):
+    """dx, dW and dbias of ``conv3d_igemm_train`` (K1's forward and dx, the
+    port's dW) against autograd through the plain version
+    (``conv3d_igemm_reference``) at input shape ``xs`` and ``cout``, on
+    inputs drawn from ``seed``: the inputs ``(x, w, bias, gy)``, the max
+    abs errors of dx, dW and dbias and their tolerances."""
+    import torch
+
+    from adell_mri_torch.ops.kernels.conv import (
+        conv3d_igemm_reference,
+        conv3d_igemm_train,
+    )
+
+    b, spatial, cin = xs[0], xs[1:4], xs[4]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(xs, generator=g, device="cuda").to(dtype)
+    w = torch.randn((3, 3, 3, cin, cout), generator=g, device="cuda")
+    w = (w / (27 * cin) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(cout, generator=g, device="cuda")).to(dtype)
+    gy = torch.randn((b, *spatial, cout), generator=g,
+                     device="cuda").to(dtype)
+    got, want = [], []
+    for fn, out in ((conv3d_igemm_train, got),
+                    (conv3d_igemm_reference, want)):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        y = fn(*leaves)
+        out.extend(torch.autograd.grad(y, leaves, gy))
+    torch.cuda.synchronize()
+    errs, tols = [], []
+    # f32, TF32 off: dx is the forward's kernel (3xTF32 or narrow), held as
+    # phase 3 holds the forward, to 1e-5 of the scale, which one TF32 pass
+    # (3e-4) fails; dW (the patch product) and dbias differ in summation
+    # order only (1e-3 of the scale). bf16: dx, dW and dbias each round one
+    # f32 sum on both sides, so one ulp, 2^-7 of the scale
+    rels = ((1e-5, 1e-3, 1e-3) if dtype == torch.float32
+            else (2.0**-7,) * 3)
+    for gt, wt, rel in zip(got, want, rels):
+        scale = max(float(wt.float().abs().max()), 1e-30)
+        errs.append(float((gt.float() - wt.float()).abs().max()))
+        tols.append(rel * scale)
+    return (x, w, bias, gy), errs, tols
+
+
 def phase_conv_backward(shapes):
     """dx/dW/dbias of the Function against autograd through the plain
     version at every stride-1 conv shape of the flagship forward (B=4),
@@ -1101,7 +1170,6 @@ def phase_conv_backward(shapes):
     from adell_mri_torch.ops.kernels.conv import (
         conv3d_igemm_dx,
         conv3d_igemm_reference,
-        conv3d_igemm_train,
         conv_route,
     )
 
@@ -1113,35 +1181,8 @@ def phase_conv_backward(shapes):
         dx_count = count - (1 if cin == 1 and cout == 1 else 0)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
-            g = torch.Generator(device="cuda").manual_seed(200 + i)
-            x = torch.randn(xs, generator=g, device="cuda").to(dtype)
-            w = torch.randn((3, 3, 3, cin, cout), generator=g, device="cuda")
-            w = (w / (27 * cin) ** 0.5).to(dtype)
-            bias = (0.1 * torch.randn(cout, generator=g,
-                                      device="cuda")).to(dtype)
-            gy = torch.randn((b, *spatial, cout), generator=g,
-                             device="cuda").to(dtype)
-            got, want = [], []
-            for fn, out in ((conv3d_igemm_train, got),
-                            (conv3d_igemm_reference, want)):
-                leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
-                y = fn(*leaves)
-                out.extend(torch.autograd.grad(y, leaves, gy))
-            torch.cuda.synchronize()
-            errs, tols = [], []
-            # f32, TF32 off: dx is the forward's kernel (3xTF32 or narrow),
-            # held as phase 3 holds the forward, to 1e-5 of the scale, which
-            # one TF32 pass (3e-4) fails; dW (the patch product) and dbias
-            # differ in summation order only (1e-3 of the scale). bf16: dx,
-            # dW and dbias each round one f32 sum on both sides, so one
-            # ulp, 2^-7 of the scale
-            rels = ((1e-5, 1e-3, 1e-3) if dtype == torch.float32
-                    else (2.0**-7,) * 3)
-            for gt, wt, rel in zip(got, want, rels):
-                scale = max(float(wt.float().abs().max()), 1e-30)
-                err = float((gt.float() - wt.float()).abs().max())
-                errs.append(err)
-                tols.append(rel * scale)
+            (x, w, bias, gy), errs, tols = conv_backward_errors(
+                xs, cout, dtype, 200 + i)
             ok = all(e <= t for e, t in zip(errs, tols))
             row = dict(shape=[b, *spatial, cin, cout], dtype=name,
                        dx_route=conv_route(dtype, cout, cin),
@@ -2235,10 +2276,10 @@ GUARD_TURNS = 4
 TEST_TOL = {"f32": 1e-3, "bf16": 5e-2}
 
 
-def _pipeline_cohort(work, case, lesion_free):
-    """NIfTIs at ``case`` (uncompressed, so that writing them is quick):
-    per case one or two bright ellipsoids (the mask) over noise, none for
-    ``lesion_free``."""
+def _pipeline_cohort(work, case, lesion_free, n_cases=PIPELINE_CASES):
+    """``n_cases`` NIfTIs at ``case`` (uncompressed, so that writing them is
+    quick): per case one or two bright ellipsoids (the mask) over noise,
+    none for ``lesion_free``."""
     import numpy as np
 
     from adell_mri_torch.data.nifti import write_nifti
@@ -2247,7 +2288,7 @@ def _pipeline_cohort(work, case, lesion_free):
     affine = np.diag([-0.5, -0.5, 3.0, 1.0])
     axes = [np.arange(s, dtype=np.float32) for s in case]
     ds = {}
-    for i in range(PIPELINE_CASES):
+    for i in range(n_cases):
         pid = f"case_{i}"
         mask = np.zeros(case, np.float32)
         if pid not in lesion_free:
@@ -3115,6 +3156,587 @@ def phase_full_augmentation(smi, case=None, window=None):
     return out
 
 
+# -- phase 16: SWIN-UNet and the flash head-dim repair -----------------------
+
+# the repaired flash dispatch's head dims (zero-padded to 32 and 64) and the
+# UNETR served with 32 heads of 16 in place of the yaml's 8 of 64
+FLASH_PAD_DIMS = (16, 48)
+UNETR_PADDED_HEADS = 32
+# SWIN-UNet (sample_configs/unet-swin.yaml) at 128x128x32: the stem 1->32
+# (narrow route) and 8 decoder convs (wgmma in bf16, tf32 in f32) a
+# forward; a step's dx of the 8 decoder convs, their 8 dW on the wgrad
+# kernel in bf16 and the stem's on the patch product (f32: all 9 on it);
+# deep supervision adds 4 ds_conv of each
+SWIN_CONVS = 9
+SWIN_CONVS_NARROW = 1
+SWIN_CONVS_DX = 8
+SWIN_DS_CONVS = 4
+SWIN_TIMED_STEPS = 3
+SWIN_CLI_CASES = 4
+
+
+def _swin_want(precision, ds=False, step=True):
+    """Launches of one SWIN-UNet forward (``step=False``) or training step
+    in ``precision``, with or without the deep-supervision convs."""
+    bf16 = precision == "bf16"
+    extra = SWIN_DS_CONVS if ds else 0
+    wide = SWIN_CONVS - SWIN_CONVS_NARROW + extra
+    dx = (SWIN_CONVS_DX + extra) if step else 0
+    want = dict.fromkeys(_launch_counts(), 0)
+    want.update(
+        conv3d_igemm=SWIN_CONVS + extra,
+        conv3d_igemm_wgmma=wide if bf16 else 0,
+        conv3d_igemm_tf32=0 if bf16 else wide,
+        conv3d_igemm_narrow=SWIN_CONVS_NARROW,
+        conv3d_igemm_dx=dx,
+        conv3d_igemm_dx_wgmma=dx if bf16 else 0,
+        conv3d_igemm_dx_tf32=0 if bf16 else dx,
+    )
+    if step:
+        want.update(
+            conv3d_weight_grad=wide if bf16 else 0,
+            conv3d_weight_grad_patches=(SWIN_CONVS_NARROW if bf16
+                                        else SWIN_CONVS + extra),
+            intensity_aug=1)
+    return want
+
+
+def _device_share(fn):
+    """(device-busy seconds, wall seconds) of one call of ``fn`` under
+    ``torch.profiler``: the kernels' own device time over the host clock
+    around the call, which ends in a synchronise."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(float(e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return busy, wall
+
+
+def _flash_repair():
+    """Phase 16 (a): ``flash_attention`` at head dims 16 and 48 (the
+    kernels' 32 and 64, zero-padded) against the plain versions at the
+    unpadded head dim, bf16 and f32, with phase 10's tolerances; the pad
+    copy's cost; then UNETR served with head dim 16 on the forward
+    kernel."""
+    import torch
+
+    from adell_mri_torch.ops.kernels import attention as ka
+    from adell_mri_torch.tools.flagship import (
+        CASE,
+        make_case,
+        make_inference,
+        make_model,
+    )
+
+    rows = []
+    for d in FLASH_PAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            gen = torch.Generator(device="cuda").manual_seed(d)
+            q, k, v, g = (torch.randn((1, 8, 2048, d), generator=gen,
+                                      device="cuda").to(dtype)
+                          for _ in range(4))
+            scale = d ** -0.5
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = ka.flash_attention(*leaves)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+            out = out.detach()
+            # the plain side is the plain forward and backward at the
+            # unpadded head dim, the backward on the plain forward's rows
+            # as in phase 10: nothing of it comes from a kernel
+            dp = ka.padded_head_dim(d)
+            padded = [ka._pad_head(t, dp) for t in (q, k, v)]
+            w_out, w_m, w_l = ka.flash_attention_fwd_reference(q, k, v, scale)
+            lse, delta = ka.backward_rows(w_out, w_m, w_l, g)
+            w_dq = ka.flash_attention_bwd_dq_reference(q, k, v, g, lse,
+                                                       delta, scale)
+            w_dk, w_dv = ka.flash_attention_bwd_dkv_reference(
+                q, k, v, g, lse, delta, scale)
+            torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            rel_f, rel_b = (2.0**-7, 2.0**-7) if bf16 else (2e-5, 1e-4)
+            checks = {}
+            for n, got, want, rel in (("out", out, w_out, rel_f),
+                                      ("dq", dq, w_dq, rel_b),
+                                      ("dk", dk, w_dk, rel_b),
+                                      ("dv", dv, w_dv, rel_b)):
+                if got.shape != want.shape:
+                    raise AssertionError(f"D={d} {n}: {tuple(got.shape)}")
+                scale_n = max(float(want.float().abs().max()),
+                              1.0 if n == "out" else 1e-30)
+                checks[n] = (float((got.float() - want.float()).abs().max()),
+                             rel * scale_n)
+            with torch.no_grad():
+                ms = time_ms(lambda: ka.flash_attention(q, k, v))
+                kernel_ms = time_ms(lambda: ka.flash_attention_fwd(
+                    *padded, scale))
+                pad_ms = time_ms(lambda: [ka._pad_head(t, dp)
+                                          for t in (q, k, v)])
+            row = dict(d=d, padded_d=dp, dtype=name,
+                       errs={n: e for n, (e, _) in checks.items()},
+                       tols={n: t for n, (_, t) in checks.items()},
+                       ms=ms, kernel_ms=kernel_ms, pad_ms=pad_ms)
+            rows.append(row)
+            log(f"[flash repair] [1,8,2048,{d}] {name} on the D={dp} "
+                "kernels: " + ", ".join(
+                    f"{n} {e:.3g} (tol {t:.3g})"
+                    for n, (e, t) in checks.items())
+                + f"; forward {ms:.4f} ms, of it the kernel on padded "
+                f"inputs {kernel_ms:.4f} ms; the pad of q, k, v alone "
+                f"{pad_ms:.4f} ms")
+            if not all(e <= t for e, t in checks.values()):
+                raise AssertionError(f"padded flash disagrees: {row}")
+
+    overrides = {"n_heads": UNETR_PADDED_HEADS}
+    model = make_model(0, torch.bfloat16, name="unetr", overrides=overrides)
+    head_dim = model.TransformerBlockStack_0.block_0.MultiHeadAttention_0
+    if head_dim.head_dim != 16:
+        raise AssertionError(f"UNETR head dim {head_dim.head_dim}")
+    infer = make_inference(model, "unetr")
+    case = make_case(1)
+    with torch.inference_mode():
+        infer(case)
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = infer(case)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        with plain_kernels():
+            want = infer(case)
+    err = float((got - want).abs().max())
+    log(f"[flash repair] UNETR (unetr.yaml, {UNETR_PADDED_HEADS} heads of "
+        f"16), bf16, one {'x'.join(map(str, CASE))} case: launches "
+        f"{launches}; kernels vs "
+        f"plain versions: max abs err {err:.3g} (tol 5e-2)")
+    if launches["flash_attention_fwd"] != UNETR_BLOCKS:
+        raise AssertionError(f"head dim 16: launches {launches}")
+    if not err <= 5e-2:
+        raise AssertionError(f"UNETR at head dim 16 disagrees: {err}")
+    del model, infer
+    return dict(rows=rows, unetr=dict(launches=launches, max_abs_err=err,
+                                      tol=5e-2))
+
+
+def _swin_serving(dtype, smi):
+    """Phase 16 (b): SWIN-UNet serves the 256x256x64 case (window
+    128x128x32, stride 0.5, micro-batch 4), launches counted, seconds a
+    case, device share and peak memory, against the plain path."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        CASE,
+        make_case,
+        make_inference,
+        make_model,
+    )
+
+    bf16 = dtype == torch.bfloat16
+    precision = "bf16" if bf16 else "32"
+    model = make_model(0, dtype, name="swin")
+    infer = make_inference(model, "swin")
+    case = make_case(1)
+    secs = []
+    with torch.inference_mode():
+        infer(case)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = infer(case)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for _ in range(2):
+            t0 = time.perf_counter()
+            infer(case)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        busy, wall = _device_share(lambda: infer(case))
+        with plain_kernels():
+            want = infer(case)
+        torch.cuda.synchronize()
+    per = _swin_want(precision, step=False)
+    want_launches = {k: v * WINDOW_BATCHES for k, v in per.items()}
+    err = float((out - want).abs().max())
+    lo, hi = float(out.min()), float(out.max())
+    # as phases 4 and 11: bf16 rounding flips renormalised by the layer and
+    # instance norms, within 5e-2; f32 within 1e-3
+    tol = 5e-2 if bf16 else 1e-3
+    log(f"[swin serving] {smi}: {precision}, "
+        f"{'x'.join(map(str, CASE))} case, {WINDOW_BATCHES} window batches: "
+        f"launches {launches}; {', '.join(f'{s:.4f}' for s in secs)} s per "
+        f"case; device busy {busy:.4f} of {wall:.4f} s "
+        f"({100 * busy / wall:.1f} %); peak {peak_gb:.2f} GB; kernels vs "
+        f"plain path: max abs err {err:.3g} (tol {tol})")
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches}, want {want_launches}")
+    if tuple(out.shape) != CASE + (1,) or not bool(torch.isfinite(out).all()
+                                                  ) or lo < 0 or hi > 1:
+        raise AssertionError(f"SWIN output {tuple(out.shape)} [{lo}, {hi}]")
+    if not err <= tol:
+        raise AssertionError(f"SWIN-UNet disagrees with its plain path: {err}")
+    del model, infer
+    return dict(launches=launches, seconds_per_case=secs, device_busy_s=busy,
+                wall_s=wall, peak_memory_gb=peak_gb, max_abs_err=err, tol=tol)
+
+
+def _swin_conv_classes():
+    """The stride-1 3x3x3 conv classes of one SWIN-UNet window batch of 4,
+    each kernel against its plain version and timed beside ``F.conv3d`` in
+    bf16 and f32 (phase 3's ``compare_conv``)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import WINDOW, make_model
+
+    shapes = {}
+    model = make_model(0, torch.bfloat16, name="swin")
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        conv_recorder(shapes))
+    try:
+        with torch.inference_mode():
+            model(torch.rand((4,) + WINDOW + (1,), device="cuda",
+                             dtype=torch.bfloat16))
+    finally:
+        hook.remove()
+    del model
+    if sum(shapes.values()) != SWIN_CONVS:
+        raise AssertionError(f"SWIN forward ran {shapes}")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        log(f"[swin convs] one window batch of 4, {name}")
+        rows = []
+        for i, ((xs, cout), count) in enumerate(sorted(shapes.items())):
+            row = compare_conv(xs[0], xs[1:4], xs[4], cout, dtype,
+                               seed=300 + i)
+            row["count"] = count
+            rows.append(row)
+        totals = sum_rows(rows)
+        log(f"  per window batch ({totals['convs']} convs, {name}): kernel "
+            f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
+            f"F.conv3d {totals['library_ms']:.3f} ms, bound "
+            f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
+        out[name] = dict(rows=rows, totals=totals)
+    return out
+
+
+def _swin_conv_backward():
+    """Phase 16 (b): dx, dW and dbias of every stride-1 3x3x3 conv shape of
+    a SWIN-UNet training step with deep supervision (B=2 at 128x128x32:
+    the stem, the 8 decoder convs and the 4 ``ds_conv``), each against
+    autograd through its plain version as phase 7 holds the flagship's
+    (``conv_backward_errors``), f32 and bf16, with the routes each call
+    took read from the counters."""
+    import torch
+
+    from adell_mri_torch.ops.kernels.conv import conv_route, wgrad_route
+    from adell_mri_torch.tools.flagship import SWIN_BATCH, WINDOW, make_model
+
+    shapes = {}
+    model = make_model(0, torch.float32, name="swin",
+                       overrides={"deep_supervision": True})
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        conv_recorder(shapes))
+    try:
+        with torch.inference_mode():
+            model(torch.rand((SWIN_BATCH,) + WINDOW + (1,), device="cuda"))
+    finally:
+        hook.remove()
+    del model
+    if sum(shapes.values()) != SWIN_CONVS + SWIN_DS_CONVS:
+        raise AssertionError(f"SWIN step's convs {shapes}")
+    log(f"[swin conv backward vs plain] the step's shapes, B={SWIN_BATCH}")
+
+    def routed(counter, route):
+        return {counter: 1, **({} if route == "igemm"
+                               else {f"{counter}_{route}": 1})}
+
+    rows = []
+    for i, ((xs, cout), count) in enumerate(sorted(shapes.items())):
+        cin = xs[4]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            dw_route = wgrad_route(dtype, cin, cout)
+            want = {**routed("conv3d_igemm", conv_route(dtype, cin, cout)),
+                    **routed("conv3d_igemm_dx", conv_route(dtype, cout, cin)),
+                    ("conv3d_weight_grad" if dw_route == "wgmma"
+                     else "conv3d_weight_grad_patches"): 1}
+            before = _launch_counts()
+            _, errs, tols = conv_backward_errors(xs, cout, dtype, 400 + i)
+            taken = {k: n - before[k] for k, n in _launch_counts().items()
+                     if n != before[k]}
+            row = dict(shape=list(xs) + [cout], dtype=name, count=count,
+                       dx_route=conv_route(dtype, cout, cin),
+                       dw_route=dw_route, launches=taken,
+                       errs=dict(zip(("dx", "dw", "db"), errs)),
+                       tols=dict(zip(("dx", "dw", "db"), tols)))
+            log(f"  {'x'.join(map(str, xs[:4]))} {cin}->{cout} x{count} "
+                f"{name} (dx {row['dx_route']}, dW {dw_route}): "
+                + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, e, t in
+                            zip(("dx", "dw", "db"), errs, tols)))
+            if taken != want:
+                raise AssertionError(f"routes {taken}, want {want}: {row}")
+            if not all(e <= t for e, t in zip(errs, tols)):
+                raise AssertionError(f"SWIN conv backward disagrees: {row}")
+            rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _swin_training(smi):
+    """Phase 16 (b): SWIN-UNet training steps at B=2 on 128x128x32, the
+    yaml's loss, the CLI's augmentation: launches, seconds a step, device
+    share and peak memory in bf16 and f32; gradients finite and every
+    weight's non-zero; f32 loss and gradient norm against the plain path
+    (dropout 0); a falling loss; deep supervision's launches; steps at the
+    yaml's dropout 0.1."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        SWIN_BATCH,
+        WINDOW,
+        make_train_batch,
+        make_trainer,
+    )
+
+    batch = make_train_batch(0, batch=SWIN_BATCH, shape=WINDOW)
+    out = {}
+    for precision in ("bf16", "32"):
+        tr = make_trainer(0, precision, name="swin")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        names = list(tr.state.params)
+        params = [tr.state.params[k] for k in names]
+        loss, _ = tr.loss_and_metrics(tr.state.params,
+                                      tr.transforms.augment(gen, batch))
+        grads = torch.autograd.grad(loss, params)
+        bad = [k for k, gr in zip(names, grads)
+               if not bool(torch.isfinite(gr).all())
+               or (k.endswith(".weight") and float(gr.abs().max()) == 0)]
+        if bad:
+            raise AssertionError(f"{precision}: zero or non-finite "
+                                 f"gradients {bad}")
+        del grads, loss
+        parity = None
+        if precision == "32":
+            loss_k, _ = tr.loss_and_metrics(tr.state.params, batch)
+            grads_k = torch.autograd.grad(loss_k, params)
+            with plain_kernels():
+                loss_p, _ = tr.loss_and_metrics(tr.state.params, batch)
+                grads_p = torch.autograd.grad(loss_p, params)
+            norm_k, norm_p = _grad_norm(grads_k), _grad_norm(grads_p)
+            loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+            parity = dict(loss=loss_k, plain_loss=loss_p,
+                          loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+                          grad_norm=norm_k, plain_grad_norm=norm_p,
+                          grad_norm_rel=abs(norm_k - norm_p) / norm_p)
+            del grads_k, grads_p
+            log(f"[swin training] f32 step (B={SWIN_BATCH}), kernels vs "
+                f"plain path: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
+                f"{parity['loss_rel']:.2e}, tol 1e-4), gradient norm "
+                f"{norm_k:.6g} vs {norm_p:.6g} (rel "
+                f"{parity['grad_norm_rel']:.2e}, tol 1e-3)")
+            if not (parity["loss_rel"] <= 1e-4
+                    and parity["grad_norm_rel"] <= 1e-3):
+                raise AssertionError("f32 SWIN step disagrees with plain")
+
+        def step():
+            aug = tr.transforms.augment(gen, batch)
+            tr.state, metrics = tr.train_step(tr.state, aug)
+            return float(metrics["loss"])
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        secs, losses = [], []
+        for _ in range(SWIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy, wall = _device_share(step)
+        want = {k: v * SWIN_TIMED_STEPS
+                for k, v in _swin_want(precision).items()}
+        log(f"[swin training] {smi}: {precision}, B={SWIN_BATCH} at "
+            f"{'x'.join(map(str, WINDOW))}, augmentation on, dropout 0: "
+            f"{', '.join(f'{x:.4f}' for x in secs)} s per step; device busy "
+            f"{busy:.4f} of {wall:.4f} s ({100 * busy / wall:.1f} %); peak "
+            f"{peak_gb:.2f} GB; launches in {SWIN_TIMED_STEPS} steps "
+            f"{launches}; losses {losses}; {len(names)} gradients finite, "
+            "every weight's non-zero")
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+        if not all(abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"non-finite loss {losses}")
+        out[precision] = dict(seconds_per_step=secs, losses=losses,
+                              launches=launches, peak_memory_gb=peak_gb,
+                              device_busy_s=busy, wall_s=wall,
+                              parity=parity)
+        del tr
+
+    tr = make_trainer(0, "bf16", learning_rate=1e-2, name="swin")
+    before = float(tr.eval_step(tr.state.params, batch)["loss"])
+    for _ in range(10):
+        tr.state, _ = tr.train_step(tr.state, batch)
+    after = float(tr.eval_step(tr.state.params, batch)["loss"])
+    log(f"[swin training] ten steps on one batch (bf16, no augmentation, "
+        f"lr 1e-2): loss {before:.5f} -> {after:.5f}")
+    if not after < before:
+        raise AssertionError(f"loss did not fall: {before} -> {after}")
+    out["fixed_batch_loss"] = [before, after]
+    del tr
+
+    # both heads on: deep supervision's convs, the class loss
+    heads = {"deep_supervision": True, "bottleneck_classification": True}
+    for precision in ("bf16", "32"):
+        tr = make_trainer(0, precision, name="swin", overrides=heads)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tr.train_step(tr.state, tr.transforms.augment(gen, batch))
+        torch.cuda.synchronize()
+        _reset_counts()
+        tr.state, metrics = tr.train_step(tr.state,
+                                          tr.transforms.augment(gen, batch))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        want = _swin_want(precision, ds=True)
+        log(f"[swin training] {precision} step with --deep_supervision "
+            f"--bottleneck_classification: loss {float(metrics['loss']):.5f}"
+            f", class loss {float(metrics['loss_class_loss']):.5f}; "
+            f"launches {launches}")
+        if launches != want:
+            raise AssertionError(f"heads launches {launches}, want {want}")
+        out[f"heads_{precision}"] = dict(
+            launches=launches, loss=float(metrics["loss"]),
+            class_loss=float(metrics["loss_class_loss"]))
+        del tr
+
+    # the yaml's dropout (0.1): attention and the ADNs drop in training
+    for precision in ("bf16", "32"):
+        tr = make_trainer(0, precision, name="swin",
+                          overrides={"dropout_rate": 0.1})
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        losses = []
+        for _ in range(2):
+            tr.state, metrics = tr.train_step(
+                tr.state, tr.transforms.augment(gen, batch))
+            losses.append(float(metrics["loss"]))
+        log(f"[swin training] {precision}, dropout 0.1: losses {losses}")
+        if not all(abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"dropout 0.1 losses {losses}")
+        out[f"dropout_{precision}"] = losses
+        del tr
+    return out
+
+
+def _swin_cli(smi):
+    """Phase 16 (c): ``segmentation train --segmentation_net_type swin``
+    (f32, the yaml, random crops of 128x128x32 from 256x256x64 volumes, 3
+    training cases and 1 validation case: one epoch of one step at B=2
+    and one whole-volume validation forward), without and with the two
+    heads, then
+    ``predict`` (sliding window) and ``test`` on each checkpoint, in this
+    process so the launches are read around each."""
+    import numpy as np
+
+    from adell_mri_torch.data.nifti import read_nifti
+    from adell_mri_torch.tools.flagship import CASE, SWIN_YAML, WINDOW
+
+    work = WORK_DIR / "swin_cli"
+    work.mkdir(parents=True)
+    ds = _pipeline_cohort(work, CASE, (), n_cases=SWIN_CLI_CASES)
+    out = {}
+    for tag, heads in (("plain", []), ("heads", [
+            "--deep_supervision", "--bottleneck_classification"])):
+        ckpt = work / f"ckpt_{tag}"
+        train_s, _, train_counts = _cli([
+            "segmentation", "train", "--segmentation_net_type", "swin",
+            "--dataset_json", str(work / "ds.json"), "--image_keys",
+            "image", "--mask_keys", "mask", "--config_file", str(SWIN_YAML),
+            "--pad_size", *map(str, CASE), "--random_crop_size",
+            *map(str, WINDOW), "--target_spacing", "0.5", "0.5", "3.0",
+            "--batch_size", "2", "--max_epochs", "1", "--n_folds", "1",
+            "--augment", "intensity", "noise",
+            "affine", "flip", "--dev", "cuda", "--seed", "0",
+            "--checkpoint_dir", str(ckpt), "--metric_path",
+            str(work / f"metrics_{tag}.csv"), *heads])
+        fold = ckpt / "segmentation_fold0"
+        meta = json.loads((fold / "metadata.json").read_text())
+        if (meta["net_type"] != "swin"
+                or meta["network_config"]["deep_supervision"] != bool(heads)):
+            raise AssertionError(f"swin train wrote {meta}")
+        pred = work / f"pred_{tag}"
+        predict_s, _, predict_counts = _cli([
+            "segmentation", "predict", "--dataset_json",
+            str(work / "ds.json"), "--checkpoint_dir", str(ckpt),
+            "--output_path", str(pred), "--dev", "cuda",
+            "--sliding_window_size", *map(str, WINDOW)])
+        for pid in ds:
+            img = read_nifti(str(pred / f"{pid}_prob.nii.gz")).data
+            if (img.shape != CASE or not np.isfinite(img).all()
+                    or img.min() < 0 or img.max() > 1):
+                raise AssertionError(f"{pid}: {img.shape} [{img.min()}, "
+                                     f"{img.max()}]")
+        test_s, text, test_counts = _cli([
+            "segmentation", "test", "--dataset_json", str(work / "ds.json"),
+            "--checkpoint_dir", str(ckpt), "--dev", "cuda",
+            "--metric_path", str(work / f"test_{tag}.csv")])
+        result = _last_json(text)
+        if result["n_cases"] != SWIN_CLI_CASES or not 0 <= result["dice"] <= 1:
+            raise AssertionError(f"swin test: {result}")
+        # f32: every wide conv on the tf32 route, none on the igemm one
+        for name, counts in (("train", train_counts),
+                             ("predict", predict_counts),
+                             ("test", test_counts)):
+            wide = counts["conv3d_igemm"] - counts["conv3d_igemm_narrow"]
+            if not counts["conv3d_igemm_tf32"] == wide > 0:
+                raise AssertionError(f"{tag} {name} launches {counts}")
+        log(f"[swin cli] {smi}: {tag}: train (f32, one step at B=2 and "
+            f"one validation case) {train_s:.2f} s, launches {train_counts}"
+            f"; predict "
+            f"{len(ds)} cases {predict_s:.2f} s ({predict_counts}); test "
+            f"{test_s:.2f} s ({test_counts}): {result}")
+        # inference runs no head: the same launches as without them
+        if tag == "heads" and (predict_counts, test_counts) != (
+                out["plain"]["predict_counts"], out["plain"]["test_counts"]):
+            raise AssertionError(f"predict or test ran the heads: "
+                                 f"{predict_counts}, {test_counts}")
+        out[tag] = dict(train_s=train_s, predict_s=predict_s, test_s=test_s,
+                        train_counts=train_counts,
+                        predict_counts=predict_counts,
+                        test_counts=test_counts, test=result)
+    return out
+
+
+def phase_swin(smi):
+    """Phase 16: the flash head-dim repair, SWIN-UNet served and trained at
+    the yaml's width against the plain path, its conv classes, its
+    CLIs."""
+    t0 = time.perf_counter()
+    import torch
+
+    out = dict(flash=_flash_repair())
+    out["serving"] = {"bf16": _swin_serving(torch.bfloat16, smi),
+                      "f32": _swin_serving(torch.float32, smi)}
+    out["convs"] = _swin_conv_classes()
+    out["conv_backward"] = _swin_conv_backward()
+    out["training"] = _swin_training(smi)
+    out["cli"] = _swin_cli(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[swin] phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3179,6 +3801,8 @@ def main():
     lap(14)
     augmentation = phase_full_augmentation(smi)
     lap(15)
+    swin = phase_swin(smi)
+    lap(16)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -3219,6 +3843,18 @@ def main():
         "augment_train_cli_f32": augmentation["train_cli"][0]["counts"],
         "augment_train_cli_cached_f32":
             augmentation["train_cli"][1]["counts"],
+        # phase 16: UNETR at head dim 16 (bf16), SWIN-UNet's served case
+        # and steps (bf16, f32, with the heads) and its CLIs (f32)
+        "unetr_head_dim_16": swin["flash"]["unetr"]["launches"],
+        "swin_serving": swin["serving"]["bf16"]["launches"],
+        "swin_serving_f32": swin["serving"]["f32"]["launches"],
+        "swin_training": swin["training"]["bf16"]["launches"],
+        "swin_training_f32": swin["training"]["32"]["launches"],
+        "swin_heads_step": swin["training"]["heads_bf16"]["launches"],
+        "swin_heads_step_f32": swin["training"]["heads_32"]["launches"],
+        **{f"swin_{what}_{tag}_f32": swin["cli"][tag][f"{what}_counts"]
+           for tag in ("plain", "heads")
+           for what in ("train", "predict", "test")},
     }
 
     def launches_of(name):
@@ -3238,7 +3874,9 @@ def main():
               "bf16 and 3 f32 training steps, UNETR's served case, 3 "
               "training steps and its f32 step, phase 14's crop steps, "
               "train, resume, test and predict runs, phase 15's four- and "
-              "ten-flag crop steps and train runs, every route",
+              "ten-flag crop steps and train runs, phase 16's SWIN-UNet "
+              "served cases, steps and CLI runs and UNETR at head dim 16, "
+              "every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -3263,8 +3901,9 @@ def main():
               f"{pallas_attention}:49 and :151",
               launches_of("flash_attention_fwd")[0], att16[1]["fwd"],
               "one call at q, k, v [1,8,2048,64] bf16 (UNETR serving; 8 per "
-              "case; training runs it at B=2, 8 per step); library: "
-              "F.scaled_dot_product_attention forward",
+              "case; training runs it at B=2, 8 per step; phase 16's UNETR "
+              "at head dim 16 runs it at D=32 on zero-padded inputs, 8 per "
+              "case); library: F.scaled_dot_product_attention forward",
               att16[1]["fwd"]["library_ms"]),
         entry("flash_attention_bwd_dq", flash, f"{pallas_attention}:300",
               launches_of("flash_attention_bwd_dq")[0],
@@ -3367,8 +4006,8 @@ def main():
         "kernel (conv3d_igemm_f32_kernel) at the same convs; dx_per_step: "
         "the 29 "
         "tf32-route dx launches of an f32 U-Net step; launches: forward and "
-        "dx of the f32 served cases (U-Net, UNETR), 3 f32 U-Net steps and "
-        "UNETR's f32 step",
+        "dx of the f32 served cases (U-Net, UNETR, SWIN-UNet), 3 f32 U-Net "
+        "steps, UNETR's f32 step and SWIN-UNet's f32 steps and CLI runs",
         tf32_totals["library_ms"]))
     kernels[-1].update(bound_fma_ms=tf32_totals["bound_fma_ms"],
                        igemm_ms=tf32_totals["igemm_ms"],
@@ -3423,6 +4062,7 @@ def main():
         unetr_serving_f32=unetr_serving_f32,
         unetr_training=unetr_training, unetr_cli=unetr_cli,
         flagship_pipeline=pipeline, full_augmentation=augmentation,
+        swin=swin,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,

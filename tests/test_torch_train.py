@@ -161,7 +161,9 @@ def test_wrap_apply_casts_in_and_out():
 
 
 def test_unported_step_options_raise(step_pair):
-    with pytest.raises(NotImplementedError):
+    """Deep supervision is ported; asked of a model built without its
+    heads, the step refuses at construction."""
+    with pytest.raises(ValueError, match="without its head"):
         tsteps.make_segmentation_step(
             step_pair["model"], None, deep_supervision=True
         )

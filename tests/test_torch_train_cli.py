@@ -150,7 +150,8 @@ def test_unetr_random_crops_raise(cohort):
                        "--segmentation_net_type", "unetr",
                        "--random_crop_size", "8", "8", "8")
     args[args.index("--config_file") + 1] = str(cohort / "unetr_crop.yaml")
-    with pytest.raises(NotImplementedError, match="unet net type only"):
+    with pytest.raises(NotImplementedError,
+                       match="unet and swin net types only"):
         ttrain.main(args)
     assert not (ckpt / "segmentation_fold0").exists()
 
@@ -158,7 +159,7 @@ def test_unetr_random_crops_raise(cohort):
 def test_train_unknown_net_type_raises(cohort):
     with pytest.raises(NotImplementedError, match="unetr"):
         ttrain.main(_train_args(cohort, cohort / "ckpt_y", "--dev", "cpu",
-                                "--segmentation_net_type", "swin"))
+                                "--segmentation_net_type", "unetpp"))
 
 
 def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
@@ -169,7 +170,7 @@ def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--deep_supervision"], ["--semi_supervised"],
+    [["--remat"], ["--semi_supervised"],
      ["--accumulate_grad_batches", "2"],
      ["--lr_encoder", "0.1"], ["--optimizer", "lamb"],
      ["--resize_size", "8", "8", "4"], ["--delete_checkpoints"]],

@@ -104,7 +104,7 @@ def test_unet_bf16_forward_runs(pair):
         {"link_type": "identity"},
         {"upscale_type": "upsample"},
         {"conv_type": "resnet"},
-        {"deep_supervision": True},
+        {"encoder_only": True},
         {"spatial_dimensions": 2},
         {"norm_type": "batch"},
     ],

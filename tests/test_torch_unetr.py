@@ -245,8 +245,8 @@ def test_tokens_to_volume():
     [
         {"skip_conditioning": 1},
         {"feature_conditioning": 2},
-        {"bottleneck_classification": True},
-        {"deep_supervision": True},
+        {"norm_type": "batch"},
+        {"norm_type": "group"},
         {"spatial_dimensions": 2},
     ],
 )
@@ -264,6 +264,7 @@ def test_factory_net_types():
     with pytest.raises(ValueError, match="image_size"):
         tfactories.get_segmentation_network("unetr", CONFIG)
     with pytest.raises(NotImplementedError):
-        tfactories.get_segmentation_network("swin", CONFIG, image_size=SIZE)
+        tfactories.get_segmentation_network("unetpp", CONFIG,
+                                            image_size=SIZE)
     with pytest.raises(ValueError, match="built for"):
         UNETR(SIZE)(torch.zeros((1, 16, 16, 16, 1)))
