@@ -9,7 +9,7 @@ import logging
 import os
 import sys
 
-supported_modes = ["segmentation"]
+supported_modes = ["segmentation", "classification"]
 
 
 def main(arguments=None):

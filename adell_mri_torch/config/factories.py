@@ -1,18 +1,21 @@
 """
 Network factory: config dict + net-type string -> the port's module.
 
-Counterpart of ``get_segmentation_network`` in
-``adell_mri_tpu/config/factories.py``, for ``net_type`` "unet", "unetr",
-"monai_unetr", "swin" and "monai_swin"; the same config keys, fallbacks
-and defaults reach the port's ``UNet``, ``UNETR`` and ``SWINUNet``, which
-raise for the options they do not serve yet. A flax module learns its
-input size at the first call; the port's UNETR needs it when it is built
-(``image_size``), and UNETR and SWIN-UNet need ``n_channels`` from the
-config.
+Counterpart of ``get_segmentation_network`` and
+``get_classification_network`` in ``adell_mri_tpu/config/factories.py``,
+for the segmentation ``net_type`` "unet", "unetr", "monai_unetr", "swin"
+and "monai_swin" and the classification ``net_type`` "cat" and "resnet"
+(CatNet); the same config keys, fallbacks and defaults reach the port's
+``UNet``, ``UNETR``, ``SWINUNet`` and ``CatNet``, which raise for the
+options they do not serve yet. A flax module learns its input size and
+channels at the first call; the port's UNETR needs the size when it is
+built (``image_size``), UNETR and SWIN-UNet need ``n_channels`` from the
+config, and CatNet its ``in_channels`` (one per image key).
 """
 
 from typing import Any, Dict, Optional, Sequence
 
+from adell_mri_torch.models.classification.nets import CatNet
 from adell_mri_torch.models.segmentation.unet import UNet
 from adell_mri_torch.models.segmentation.unetr import UNETR, SWINUNet
 
@@ -136,4 +139,45 @@ def get_segmentation_network(
     raise NotImplementedError(
         f"segmentation net_type {net_type!r} is not ported yet (the port "
         "has 'unet', 'unetr', 'monai_unetr', 'swin' and 'monai_swin')"
+    )
+
+
+CLASSIFICATION_NET_TYPES = ("cat", "resnet")
+
+
+def get_classification_network(
+    net_type: str,
+    network_config: Dict[str, Any],
+    n_classes: int = 2,
+    in_channels: int = 1,
+):
+    """CatNet for ``net_type`` "cat" and its alias "resnet", with the JAX
+    factory's keys and defaults (``resnet_structure``,
+    ``maxpool_structure``, ``res_type`` "resnet", ``batch_ensemble`` 0,
+    ``norm_type`` "batch", ``act_fn`` (or ``activation_fn``) "swish",
+    ``dropout_param``, ``classification_structure``, ``gaussian_process``,
+    which raises)."""
+    if net_type not in CLASSIFICATION_NET_TYPES:
+        raise NotImplementedError(
+            f"classification net_type {net_type!r} is not ported yet (the "
+            "port has 'cat' and 'resnet')"
+        )
+    cfg = dict(network_config)
+    mp = cfg.get("maxpool_structure")
+    return CatNet(
+        in_channels=in_channels,
+        spatial_dimensions=cfg.get("spatial_dimensions", 3),
+        n_classes=n_classes,
+        resnet_structure=[tuple(s) for s in cfg.get(
+            "resnet_structure", ((64, 128, 5, 2), (128, 256, 3, 5)))],
+        maxpool_structure=[
+            tuple(s) if isinstance(s, (list, tuple)) else s for s in mp
+        ] if mp else None,
+        res_type=cfg.get("res_type", "resnet"),
+        batch_ensemble=cfg.get("batch_ensemble", 0),
+        norm_type=cfg.get("norm_type", "batch"),
+        act_fn=cfg.get("act_fn", cfg.get("activation_fn", "swish")),
+        dropout_param=cfg.get("dropout_param", 0.0),
+        classification_structure=cfg.get("classification_structure"),
+        gp_head=bool(cfg.get("gaussian_process", False)),
     )

@@ -1,9 +1,10 @@
 """
-Network-config parsing for U-Net training.
+Network-config parsing for U-Net and classifier training.
 
-Counterpart of ``load_yaml``, ``build_compound_loss``, ``parse_config_unet``
-and ``_TRAINING_KEYS`` in ``adell_mri_tpu/config/parsing.py``: a config file
-holds hyperparameters and a ``loss_fn`` mapping of loss name -> params that
+Counterpart of ``load_yaml``, ``build_compound_loss``, ``parse_config_unet``,
+``parse_config_cat`` and ``_TRAINING_KEYS`` in
+``adell_mri_tpu/config/parsing.py``: a config file holds hyperparameters
+and, for a U-Net, a ``loss_fn`` mapping of loss name -> params that
 becomes a ``CompoundLoss``.
 """
 
@@ -79,3 +80,14 @@ def parse_config_unet(
         "training": training_config,
         "n_classes": n_classes,
     }, loss
+
+
+def parse_config_cat(config_file: str) -> Dict[str, Any]:
+    """A classifier config split into ``network`` and ``training`` keys."""
+    config = load_yaml(config_file)
+    return {
+        "network": {k: v for k, v in config.items()
+                    if k not in _TRAINING_KEYS},
+        "training": {k: v for k, v in config.items()
+                     if k in _TRAINING_KEYS},
+    }

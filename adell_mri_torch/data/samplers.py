@@ -1,12 +1,13 @@
 """
 Index samplers of the train loop.
 
-The port's own copy of ``PartiallyRandomSampler`` and ``RandomSampler``
-from ``adell_mri_tpu/data/samplers.py``: numpy generators seeded the same
-way, so that the same seed gives the same index sequence.
+The port's own copy of ``PartiallyRandomSampler``, ``WeightedSampler``,
+``RandomSampler`` and ``class_weights_from_labels`` from
+``adell_mri_tpu/data/samplers.py``: numpy generators seeded the same way,
+so that the same seed gives the same index sequence.
 """
 
-from typing import Iterator, Sequence
+from typing import Iterator, List, Sequence
 
 import numpy as np
 
@@ -61,6 +62,36 @@ class PartiallyRandomSampler:
             return self.n_samples
         return len(self.keep_list) + int(
             len(self.non_keep_list) * self.non_keep_ratio)
+
+
+class WeightedSampler:
+    """``n_samples`` indices an epoch (one a weight by default), drawn with
+    replacement in proportion to ``weights``."""
+
+    def __init__(self, weights: Sequence[float], n_samples: int = None,
+                 seed: int = 42):
+        self.weights = np.asarray(weights, dtype=np.float64)
+        self.weights = self.weights / self.weights.sum()
+        self.n_samples = n_samples or len(self.weights)
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[int]:
+        yield from self.rng.choice(
+            len(self.weights), size=self.n_samples, p=self.weights
+        ).tolist()
+
+    def __len__(self) -> int:
+        return self.n_samples
+
+
+def class_weights_from_labels(labels: List) -> np.ndarray:
+    """Inverse-frequency weights, one a sample: ``n / (n_classes *
+    count(label))``, labels compared as strings."""
+    labels = [str(x) for x in labels]
+    uniq, counts = np.unique(labels, return_counts=True)
+    freq = dict(zip(uniq.tolist(), counts.tolist()))
+    n = len(labels)
+    return np.asarray([n / (len(uniq) * freq[x]) for x in labels])
 
 
 class RandomSampler:

@@ -186,7 +186,45 @@ argument_factory: Dict[str, Dict[str, Any]] = {
         default=None, type=float,
         help="Share of the non-kept class sampled each epoch",
     ),
+    # classification
+    "label_keys": dict(
+        default=None, nargs="+", help="Label keys in dataset JSON"
+    ),
+    "label_groups": dict(
+        default=None, nargs="+", help="Label groups for classification"
+    ),
+    "label_smoothing": dict(default=None, type=float, help="Label smoothing"),
+    "mixup_alpha": dict(default=None, type=float, help="Alpha for mixup"),
+    "partial_mixup": dict(
+        default=None, type=float, help="Fraction for partial mixup"
+    ),
+    "class_weights": dict(
+        default=None, nargs="+", type=float, help="Class weights"
+    ),
+    "weighted_sampling": dict(
+        action="store_true", help="Class-weighted sampling"
+    ),
+    "correct_classification_bias": dict(
+        action="store_true", help="Set output bias to log-odds"
+    ),
+    "classification_net_type": dict(
+        default="cat",
+        choices=["cat", "ord", "vgg", "vit", "factorized_vit", "unet",
+                 "resnet", "convnext", "convnext_backbone", "convnext_v2"],
+        help="Classification architecture",
+    ),
     # parsed, not ported yet
+    "clinical_feature_keys": dict(
+        default=None, nargs="+", help="not ported yet"
+    ),
+    "image_masking": dict(action="store_true", help="not ported yet"),
+    "image_crop_from_mask": dict(action="store_true", help="not ported yet"),
+    "calibration_ids": dict(default=None, nargs="+", help="not ported yet"),
+    "conformal_alpha": dict(default=0.2, type=float, help="not ported yet"),
+    "one_to_one": dict(action="store_true", help="not ported yet"),
+    "ensemble": dict(
+        default=None, choices=["mean", "median"], help="not ported yet"
+    ),
     "skip_keys": dict(default=None, nargs="+", help="not ported yet"),
     "feature_keys": dict(default=None, nargs="+", help="not ported yet"),
     "resize_size": dict(

@@ -1,0 +1,388 @@
+"""
+``python -m adell_mri_torch classification train``.
+
+Counterpart of ``adell_mri_tpu/entrypoints/classification/train.py``:
+dataset JSON -> config (``parse_config_cat``) -> folds, stratified by the
+class label -> per fold [transforms -> cached dataset -> sampler ->
+loaders -> network -> optimizer and schedule -> fit], with a checkpoint
+directory per fold whose ``metadata.json`` lets ``classification test``
+and ``predict`` rebuild the model and the transforms.
+
+Ported: CatNet with a ResNet backbone (``--classification_net_type cat``
+or ``resnet``; batch norm, whose running statistics the state carries and
+the checkpoints keep, and batch ensembles), binary and multiclass labels
+(``--positive_labels``, ``--possible_labels``, ``--label_groups``,
+``--n_classes``), ``--pad_size`` or ``--crop_size`` and
+``--random_crop_size``, every augmentation flag at the classifier's
+ranges (probability 0.1, flips over the first two axes, rotation of
+pi/16 about the first, scale 0.1, 0.1, 0.05, a translation of 4, 4 and 1
+voxels), ``--label_smoothing``, ``--mixup_alpha``, ``--partial_mixup``,
+``--class_weights``, ``--weighted_sampling``,
+``--correct_classification_bias``, sgd/adam/adamw under cosine annealing
+with warmup, bf16 or f32 compute, ``--swa``, ``--early_stopping``,
+``--resume_from_last``, ``--steps_per_epoch`` and the data selection
+flags. Every other flag is parsed and raises ``NotImplementedError`` when
+given a value other than its default.
+"""
+
+import json
+import logging
+
+import numpy as np
+import torch
+
+from adell_mri_torch.config.factories import (
+    CLASSIFICATION_NET_TYPES,
+    get_classification_network,
+)
+from adell_mri_torch.config.parsing import parse_config_cat
+from adell_mri_torch.data.dataset import Dataset
+from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
+from adell_mri_torch.data.samplers import (
+    RandomSampler,
+    WeightedSampler,
+    class_weights_from_labels,
+)
+from adell_mri_torch.device import use_device
+from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.entrypoints.cli_utils import (
+    derive_n_classes,
+    filter_training_pids,
+    parse_label_groups,
+    stratification_labels,
+)
+from adell_mri_torch.entrypoints.segmentation.train import get_folds
+from adell_mri_torch.eval.callbacks import ClassificationMetricsCallback
+from adell_mri_torch.models.classification.losses import (
+    binary_logistic_loss,
+    cross_entropy_loss,
+)
+from adell_mri_torch.models.layers.dropout import seed_dropout
+from adell_mri_torch.train.batch_preprocessing import BatchPreprocessing
+from adell_mri_torch.train.checkpoints import (
+    CheckpointManager,
+    correct_classification_bias,
+)
+from adell_mri_torch.train.logging_utils import MetricLogger
+from adell_mri_torch.train.loop import TrainLoop
+from adell_mri_torch.train.optim import get_optimizer
+from adell_mri_torch.train.precision import compute_dtype
+from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
+from adell_mri_torch.train.state import TrainState
+from adell_mri_torch.train.steps import (
+    make_classification_step,
+    make_eval_step,
+    make_train_step,
+)
+from adell_mri_torch.transforms.pipeline import (
+    AugmentPolicy,
+    ClassificationTransforms,
+)
+
+logger = logging.getLogger(__name__)
+
+ARG_KEYS = [
+    "dataset_json",
+    "image_keys",
+    ("label_keys", "label_keys", dict(nargs=None, default="label")),
+    "adc_keys",
+    "filter_on_keys",
+    "possible_labels",
+    "positive_labels",
+    "label_groups",
+    "cache_rate",
+    "cache_dir",
+    "subsample_size",
+    "subsample_training_data",
+    "excluded_ids_from_training_data",
+    "n_folds",
+    "folds",
+    "target_spacing",
+    "pad_size",
+    "crop_size",
+    "random_crop_size",
+    "config_file",
+    "dev",
+    "n_workers",
+    "seed",
+    "max_epochs",
+    "warmup_steps",
+    "n_classes",
+    "augment",
+    "label_smoothing",
+    "mixup_alpha",
+    "partial_mixup",
+    "dropout_param",
+    "batch_size",
+    "learning_rate",
+    "optimizer",
+    "precision",
+    "gradient_clip_val",
+    "check_val_every_n_epoch",
+    "early_stopping",
+    "class_weights",
+    "weighted_sampling",
+    "checkpoint_dir",
+    "checkpoint_name",
+    "resume_from_last",
+    "monitor",
+    "metric_path",
+    "correct_classification_bias",
+    "classification_net_type",
+    "swa",
+    "steps_per_epoch",
+]
+UNPORTED_KEYS = [
+    "clinical_feature_keys",
+    "mask_keys",
+    "image_masking",
+    "image_crop_from_mask",
+    "resize_size",
+    "accumulate_grad_batches",
+    "logger_type",
+    "project_name",
+    "summary_name",
+    "summary_dir",
+    "tracking_uri",
+    "log_model",
+    "checkpoint",
+    "exclude_from_state_dict",
+    "freeze_regex",
+    "not_freeze_regex",
+    "calibration_ids",
+    "conformal_alpha",
+]
+
+
+def label_arguments(args, n_classes: int):
+    """The label mapping of the transforms (and of ``metadata.json``):
+    ``positive_labels`` binarize a binary task with enumerable labels,
+    ``possible_labels`` index the values otherwise, ``label_groups``
+    group them."""
+    return dict(
+        positive_labels=(list(args.positive_labels)
+                         if args.positive_labels and n_classes == 2
+                         and args.possible_labels else None),
+        possible_labels=(list(args.possible_labels)
+                         if args.possible_labels and not args.positive_labels
+                         else None),
+        label_groups=parse_label_groups(args.label_groups),
+    )
+
+
+def main(arguments):
+    parser = Parser(prog="adell classification train")
+    parser.add_argument_by_key(ARG_KEYS + UNPORTED_KEYS)
+    args = parser.parse_args(arguments)
+    parser.reject_unported(args, UNPORTED_KEYS)
+    net_type = args.classification_net_type
+    if net_type not in CLASSIFICATION_NET_TYPES:
+        raise NotImplementedError(
+            f"--classification_net_type {net_type} is not ported yet (the "
+            f"port has {', '.join(CLASSIFICATION_NET_TYPES)})"
+        )
+    device = use_device(args.dev)
+    compute_dtype(args.precision)  # an unknown precision fails here
+    label_key = args.label_keys
+
+    data = Dataset(args.dataset_json, seed=args.seed)
+    data.apply_filters(
+        presence_keys=list(args.image_keys) + [label_key],
+        filter_on_keys=args.filter_on_keys,
+        possible_labels=args.possible_labels,
+        label_keys=label_key if args.possible_labels else None,
+    )
+    if args.subsample_size:
+        data.subsample_dataset(subsample_size=args.subsample_size,
+                               strata_key=label_key)
+    if len(data) == 0:
+        raise ValueError("no samples left after filtering")
+
+    config = parse_config_cat(args.config_file)
+    net_cfg, train_cfg = config["network"], config["training"]
+    batch_size = args.batch_size or train_cfg.get("batch_size", 4)
+    learning_rate = args.learning_rate or train_cfg.get("learning_rate", 1e-3)
+    weight_decay = train_cfg.get("weight_decay", 0.0)
+    if args.dropout_param:
+        net_cfg["dropout_param"] = args.dropout_param
+
+    base_size = args.pad_size or args.crop_size
+    if base_size is None:
+        raise ValueError("one of --pad_size/--crop_size is required")
+    crop_size = args.random_crop_size
+
+    pids = list(data.keys())
+    folds = get_folds(
+        pids, args.n_folds, args.seed, args.folds,
+        labels=stratification_labels(data, pids, label_key, args.n_folds,
+                                     args.folds),
+    )
+    metric_logger = MetricLogger(csv_path=args.metric_path)
+    mode = "min" if "loss" in args.monitor else "max"
+
+    n_classes = derive_n_classes(args)
+    labels_args = label_arguments(args, n_classes)
+    if n_classes > 2:
+        weights = (np.asarray(args.class_weights, np.float32)
+                   if args.class_weights else None)
+
+        def loss_fn(logits, y):
+            return cross_entropy_loss(logits, y, weight=weights)
+    else:
+        w = args.class_weights[0] if args.class_weights else None
+
+        def loss_fn(logits, y):
+            return binary_logistic_loss(logits, y, weight=w)
+
+    batch_prep = None
+    if args.mixup_alpha or args.label_smoothing:
+        batch_prep = BatchPreprocessing(
+            label_smoothing_param=args.label_smoothing,
+            mixup_alpha=args.mixup_alpha,
+            partial_mixup_fraction=args.partial_mixup,
+            seed=args.seed,
+            n_classes=n_classes,
+        )
+
+    for fold_idx, (train_pids, val_pids) in enumerate(folds):
+        train_pids = filter_training_pids(
+            train_pids,
+            excluded=args.excluded_ids_from_training_data,
+            subsample_fraction=args.subsample_training_data,
+            seed=args.seed,
+            fold_idx=fold_idx,
+        )
+        logger.info("fold %d: %d train / %d val", fold_idx, len(train_pids),
+                    len(val_pids))
+        transforms = ClassificationTransforms(
+            image_keys=args.image_keys,
+            label_key=label_key,
+            target_spacing=args.target_spacing,
+            target_size=base_size,
+            crop_size=crop_size,
+            adc_keys=args.adc_keys or (),
+            augmentations=AugmentPolicy.classification(
+                args.augment, crop_size or base_size),
+            seed=args.seed + fold_idx,
+            **labels_args,
+        )
+        load_fn = transforms.load_fn()
+        train_list = data.to_datalist(train_pids)
+        cache = dict(cache_rate=args.cache_rate, cache_dir=args.cache_dir,
+                     cache_fingerprint=repr(transforms))
+        train_ds = CachedVolumeDataset(train_list, load_fn, **cache)
+        val_ds = CachedVolumeDataset(data.to_datalist(val_pids), load_fn,
+                                     **cache)
+        if args.weighted_sampling:
+            sampler = WeightedSampler(
+                class_weights_from_labels([e[label_key] for e in train_list]),
+                seed=args.seed)
+        else:
+            sampler = RandomSampler(len(train_ds), seed=args.seed)
+        train_loader = DataLoader(
+            train_ds, sampler=sampler, batch_size=batch_size,
+            drop_last=True, prefetch=max(args.n_workers, 2),
+        )
+        val_loader = DataLoader(
+            val_ds, batch_size=max(1, min(batch_size, len(val_ds))),
+            drop_last=True, prefetch=1,
+        )
+
+        torch.manual_seed(args.seed)
+        model = get_classification_network(
+            net_type, net_cfg, n_classes=n_classes,
+            in_channels=len(args.image_keys),
+        ).to(device)
+        seed_dropout(
+            model,
+            torch.Generator(device=device).manual_seed(args.seed + fold_idx),
+        )
+        if args.correct_classification_bias and n_classes <= 2:
+            correct_classification_bias(
+                dict(model.named_parameters()),
+                [float(e[label_key]) for e in train_list])
+
+        steps_per_epoch = max(len(train_loader), 1)
+        if args.steps_per_epoch:
+            steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
+        schedule = cosine_annealing_with_warmup(
+            learning_rate, t_max=args.max_epochs * steps_per_epoch,
+            n_warmup_steps=args.warmup_steps,
+        )
+        state = TrainState.create(
+            model,
+            lambda params: get_optimizer(
+                args.optimizer, learning_rate=schedule,
+                weight_decay=weight_decay, clip_norm=args.gradient_clip_val,
+                params=params,
+            ),
+            # SWA averages the last quarter of the steps
+            swa_start_step=(int(0.75 * args.max_epochs * steps_per_epoch)
+                            if args.swa else None),
+        )
+        ckpt = CheckpointManager(
+            args.checkpoint_dir,
+            name=args.checkpoint_name or "classification",
+            fold=fold_idx,
+            monitor=args.monitor,
+            mode=mode,
+            metadata={
+                "network_config": net_cfg,
+                "transform_arguments": {
+                    "image_keys": list(args.image_keys),
+                    "label_key": label_key,
+                    "target_spacing": args.target_spacing,
+                    "target_size": list(base_size),
+                    "resize_size": None,
+                    "clinical_feature_keys": [],
+                    **labels_args,
+                    "adc_keys": list(args.adc_keys or ()),
+                    "mask_key": None,
+                    "image_masking": False,
+                    "image_crop_from_mask": False,
+                },
+                "train_pids": train_pids,
+                "val_pids": val_pids,
+                "n_classes": n_classes,
+                "net_type": net_type,
+                "clinical_feature_means": None,
+                "clinical_feature_stds": None,
+            },
+        )
+        ckpt.begin_run(resume=args.resume_from_last)
+        if (args.resume_from_last
+                and ckpt.status(args.max_epochs) == "finished"):
+            logger.info("fold %d already finished; skipping", fold_idx)
+            continue
+        step_kwargs = dict(n_classes=n_classes, precision=args.precision)
+        loop = TrainLoop(
+            train_step=make_train_step(make_classification_step(
+                model, loss_fn, train=True,
+                batch_preprocessing=batch_prep, **step_kwargs)),
+            eval_step=make_eval_step(make_classification_step(
+                model, loss_fn, train=False, **step_kwargs)),
+            augment_fn=transforms.augment,
+            device=device,
+            max_epochs=args.max_epochs,
+            check_val_every_n_epoch=args.check_val_every_n_epoch,
+            early_stopping=args.early_stopping,
+            monitor=args.monitor,
+            mode=mode,
+            ckpt_manager=ckpt,
+            metric_logger=metric_logger,
+            seed=args.seed + fold_idx,
+            eval_on_ema=args.swa,
+            callbacks=[ClassificationMetricsCallback(model, n_classes)],
+            steps_per_epoch=args.steps_per_epoch,
+        )
+        start_epoch = 0
+        if args.resume_from_last:
+            state, start_epoch = ckpt.resume(state)
+            if start_epoch:
+                logger.info("fold %d: resuming from epoch %d", fold_idx,
+                            start_epoch)
+        state, history = loop.fit(state, train_loader, val_loader,
+                                  start_epoch=start_epoch)
+        final = history[-1] if history else {}
+        logger.info("fold %d done: %s", fold_idx,
+                    json.dumps(final, default=float))

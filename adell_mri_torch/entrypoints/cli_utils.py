@@ -1,13 +1,50 @@
 """
 Helpers of the entry points.
 
-The port's own copy of ``derive_n_classes`` and ``filter_training_pids``
-from ``adell_mri_tpu/entrypoints/cli_utils.py``.
+The port's own copy of ``derive_n_classes``, ``filter_training_pids``,
+``parse_label_groups`` and ``stratification_labels`` from
+``adell_mri_tpu/entrypoints/cli_utils.py``.
 """
 
+import logging
+from collections import Counter
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+def parse_label_groups(label_groups):
+    """``--label_groups "0,1" "2,3"`` -> [["0", "1"], ["2", "3"]]."""
+    if not label_groups:
+        return None
+    return [g.split(",") if isinstance(g, str) else list(g)
+            for g in label_groups]
+
+
+def stratification_labels(data, pids, label_key, n_folds, explicit_folds):
+    """The class labels (as strings) that stratify the folds, or None:
+    with explicit folds or ``n_folds <= 1``, when an ID lacks the label,
+    or when the rarest class has fewer members than ``n_folds`` (then the
+    folds are unstratified, with a warning)."""
+    if n_folds <= 1 or explicit_folds:
+        return None
+    try:
+        labels = [str(data[p][label_key]) for p in pids]
+    except (KeyError, TypeError):
+        logger.warning("cannot stratify folds: some ids lack the label key "
+                       "%r; falling back to unstratified folds", label_key)
+        return None
+    if not labels:
+        return None
+    smallest = min(Counter(labels).values())
+    if smallest < n_folds:
+        logger.warning("cannot stratify folds: the rarest class has %d "
+                       "member(s) < n_folds=%d; falling back to "
+                       "unstratified folds", smallest, n_folds)
+        return None
+    return labels
 
 
 def derive_n_classes(args) -> int:

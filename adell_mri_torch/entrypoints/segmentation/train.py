@@ -181,12 +181,42 @@ def kfold_split(n: int, n_folds: int, seed: int):
         yield np.flatnonzero(~test), np.flatnonzero(test)
 
 
+def stratified_kfold_split(labels, n_folds: int, seed: int):
+    """Shuffled stratified K-fold over ``labels``: the splits of
+    scikit-learn's ``StratifiedKFold(n_folds, shuffle=True,
+    random_state=seed)``, which the JAX package uses. Classes are numbered
+    by first appearance; each class's members are dealt to the folds in
+    the round-robin counts of the sorted labels, the fold numbers shuffled
+    per class by one ``RandomState(seed)``."""
+    _, first, inverse = np.unique(np.asarray(labels), return_index=True,
+                                  return_inverse=True)
+    _, class_perm = np.unique(first, return_inverse=True)
+    encoded = class_perm[inverse.reshape(-1)]
+    n_classes = len(first)
+    if np.all(n_folds > np.bincount(encoded)):
+        raise ValueError(f"{n_folds} folds need more members in a class")
+    ordered = np.sort(encoded)
+    allocation = np.asarray([
+        np.bincount(ordered[i::n_folds], minlength=n_classes)
+        for i in range(n_folds)
+    ])
+    rng = np.random.RandomState(seed)
+    test_folds = np.empty(len(encoded), dtype=np.int64)
+    for k in range(n_classes):
+        folds_for_class = np.arange(n_folds).repeat(allocation[:, k])
+        rng.shuffle(folds_for_class)
+        test_folds[encoded == k] = folds_for_class
+    for i in range(n_folds):
+        yield np.flatnonzero(test_folds != i), np.flatnonzero(test_folds == i)
+
+
 def get_folds(pids: List[str], n_folds: int, seed: int, explicit=None,
-              val_fraction=None):
+              val_fraction=None, labels=None):
     """K-fold split; with ``n_folds <= 1`` one split whose validation share
     is ``val_fraction`` (0.2 by default). ``explicit`` (``--folds``: one
     ID list, file or comma-separated string per fold) gives each fold's
-    validation IDs instead; the rest of ``pids`` trains."""
+    validation IDs instead; the rest of ``pids`` trains. ``labels`` (one a
+    pid) stratifies the K folds by class, as the classifiers' are."""
     if explicit:
         folds = []
         for val_ids in parse_ids(explicit, "nested_list"):
@@ -207,9 +237,10 @@ def get_folds(pids: List[str], n_folds: int, seed: int, explicit=None,
             "--val_from_train only applies with --n_folds <= 1; k-fold "
             "validation splits are 1/n_folds"
         )
+    splits = (kfold_split(len(pids_arr), n_folds, seed) if labels is None
+              else stratified_kfold_split(labels, n_folds, seed))
     return [
-        (pids_arr[tr].tolist(), pids_arr[va].tolist())
-        for tr, va in kfold_split(len(pids_arr), n_folds, seed)
+        (pids_arr[tr].tolist(), pids_arr[va].tolist()) for tr, va in splits
     ]
 
 

@@ -1,10 +1,13 @@
 """
-Lesion evaluation of every validation epoch.
+Evaluation of every validation epoch.
 
-Counterpart of ``LesionEvalCallback`` in ``adell_mri_tpu/eval/callbacks.py``
+Counterpart of ``LesionEvalCallback`` and ``ClassificationMetricsCallback``
+in ``adell_mri_tpu/eval/callbacks.py``. The lesion callback
 (``--picai_eval``): a forward of its own over each validation batch keeps
 the foreground probability maps on the host, and the epoch's end computes
-the PI-CAI metrics over them (V_AP, V_AUC, V_score).
+the PI-CAI metrics over them (V_AP, V_AUC, V_score). The classification
+callback: a forward of its own keeps each case's probabilities, and the
+epoch's end computes ``binary_metrics`` or ``multiclass_metrics`` (V_*).
 """
 
 from typing import Callable, Dict, Optional
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from adell_mri_torch.eval.lesion import evaluate
+from adell_mri_torch.eval.metrics import binary_metrics, multiclass_metrics
 
 
 def foreground_probability(pred: torch.Tensor) -> torch.Tensor:
@@ -71,3 +75,45 @@ class LesionEvalCallback:
         self._preds, self._labels = [], []
         out = {"V_AP": m.AP, "V_AUC": m.auroc, "V_score": m.score}
         return {k: float(v) for k, v in out.items() if np.isfinite(v)} or None
+
+
+class ClassificationMetricsCallback:
+    """``model`` runs in eval mode on each validation batch with the
+    weights the loop validates (the running statistics among them; the
+    JAX callback applies the parameters alone, so its batch norms take
+    the batch's statistics); at most ``max_cases`` cases are kept.
+    ``on_validation_end`` returns the finite metrics, ``V_``-prefixed."""
+
+    def __init__(self, model, n_classes: int = 2, max_cases: int = 4096):
+        self.model = model
+        self.n_classes = n_classes
+        self.max_cases = max_cases
+        self._probs = []
+        self._labels = []
+
+    def on_validation_batch(self, params, batch: Dict, metrics: Dict):
+        if len(self._probs) >= self.max_cases:
+            return
+        self.model.eval()
+        with torch.no_grad():
+            logits = torch.func.functional_call(self.model, params,
+                                                (batch["image"],)).float()
+        probs = (torch.softmax(logits, -1) if self.n_classes > 2
+                 else torch.sigmoid(logits[..., 0]))
+        probs = probs.cpu().numpy()
+        labels = batch["label"].float().cpu().numpy().reshape(-1)
+        for i in range(probs.shape[0]):
+            if len(self._probs) >= self.max_cases:
+                break
+            self._probs.append(probs[i])
+            self._labels.append(labels[i])
+
+    def on_validation_end(self, params) -> Optional[Dict[str, float]]:
+        if not self._probs:
+            return None
+        probs, labels = np.stack(self._probs), np.asarray(self._labels)
+        self._probs, self._labels = [], []
+        m = (multiclass_metrics(probs, labels) if self.n_classes > 2
+             else binary_metrics(probs, labels))
+        return {f"V_{k}": float(v) for k, v in m.items()
+                if np.isfinite(v)} or None

@@ -1,16 +1,22 @@
 """
-Moves a JAX UNet's, UNETR's or SWINUNet's parameters into the port.
+Moves a JAX UNet's, UNETR's, SWINUNet's or CatNet's parameters (and a
+CatNet's ``batch_stats``) into the port.
 
 The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
 ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
 UNETR's ``LinearEmbedding_0``, ``TransformerBlockStack_0/block_{i}``,
 ``proj_{i}_{u}``, ``bn_proj``, ``dec_{i}/ConvTranspose_0``; SWIN-UNet's
 ``SWINTransformerBlockStack_0/{Conv_0,merge{s},stage{s}_block{b}}``; the
-heads ``bottleneck_classifier``, ``ds_conv_{i}``, ``ds_out_{i}``), so each
-flax leaf ``a/b/kernel`` becomes the port key ``a.b.weight``,
-``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's ``a/b/scale`` becomes
-``a.b.weight``, and the token parameters (``pos_embedding``,
-``class_token``, ``registers``) keep their names. Only the layouts change:
+heads ``bottleneck_classifier``, ``ds_conv_{i}``, ``ds_out_{i}``;
+CatNet's ``ResNetBackbone_0/{Conv_0,Conv_1,ResidualBlock_{i},
+BatchEnsembleConv_{s}}``, ``Dense_{i}`` and every ``ActDropNorm_{i}/
+GlobalBatchNorm_0``), so each flax leaf ``a/b/kernel`` becomes the port
+key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
+batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token
+parameters (``pos_embedding``, ``class_token``, ``registers``) and a batch
+ensemble's ``r`` and ``s`` keep their names; the ``batch_stats``
+collection's ``a/b/mean`` and ``a/b/var`` become the batch norms'
+buffers ``a.b.mean`` and ``a.b.var``. Only the layouts change:
 
 - a 3D conv kernel ``[kd,kh,kw,Cin,Cout]`` stays as it is (the port's
   ``Conv3d`` and its kernel read that layout), the patchify and merge
@@ -45,7 +51,8 @@ def _flatten(tree: Mapping, prefix=()):
 
 # the modules that are transposed convs, by the name that owns the kernel
 _TRANSPOSED = re.compile(r"^(up_\d+|proj_\d+_\d+|ConvTranspose_\d+)$")
-_TOKEN_PARAMS = ("pos_embedding", "class_token", "registers")
+# leaves that keep their names: the token parameters, a batch ensemble's
+_KEPT_NAMES = ("pos_embedding", "class_token", "registers", "r", "s")
 
 
 def _convert_kernel(path, k: np.ndarray) -> np.ndarray:
@@ -59,10 +66,18 @@ def _convert_kernel(path, k: np.ndarray) -> np.ndarray:
     return k
 
 
-def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``params``: the flax ``params`` tree (nested dict of arrays).
-    Returns the port's ``state_dict`` (float32 CPU tensors)."""
+def from_flax(params: Mapping, batch_stats: Mapping = None
+              ) -> Dict[str, torch.Tensor]:
+    """``params``: the flax ``params`` tree (nested dict of arrays);
+    ``batch_stats``: the running statistics' collection, when the model
+    has batch norms. Returns the port's ``state_dict`` (float32 CPU
+    tensors)."""
     state = {}
+    for path, leaf in _flatten(batch_stats or {}):
+        if path[-1] not in ("mean", "var"):
+            raise KeyError(f"no port counterpart for {'/'.join(path)}")
+        state[".".join(path)] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32, order="C"))
     for path, leaf in _flatten(params):
         name = path[-1]
         if name == "kernel":
@@ -71,7 +86,7 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             arr, key = leaf, "bias"
         elif name == "scale":
             arr, key = leaf, "weight"
-        elif name in _TOKEN_PARAMS:
+        elif name in _KEPT_NAMES:
             arr, key = leaf, name
         else:
             raise KeyError(f"no port counterpart for {'/'.join(path)}")

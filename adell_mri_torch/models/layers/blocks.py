@@ -1,9 +1,16 @@
 """
-Small shared helpers of the model layers.
+Small building blocks of the model layers.
 
-Counterpart of ``_tuple`` and ``apply_adn`` in
-``adell_mri_tpu/models/layers/blocks.py``.
+Counterpart of ``_tuple``, ``apply_adn``, ``GlobalPooling``, ``max_pool``
+and ``MLP`` in ``adell_mri_tpu/models/layers/blocks.py``, on
+channels-last tensors.
 """
+
+from typing import Sequence, Union
+
+import torch.nn as nn
+
+from adell_mri_torch.ops.conv import Pointwise
 
 
 def _tuple(v, n: int):
@@ -16,3 +23,73 @@ def _tuple(v, n: int):
 
 def apply_adn(adn, x):
     return x if adn is None else adn(x)
+
+
+class GlobalPooling(nn.Module):
+    """Pooling over the spatial axes of ``[B, *S, C]``: max (the default,
+    every classifier head's) or mean."""
+
+    def __init__(self, mode: str = "max"):
+        super().__init__()
+        if mode not in ("max", "mean", "average"):
+            raise NotImplementedError(f"pooling mode {mode!r}")
+        self.mode = mode
+
+    def forward(self, x):
+        axes = tuple(range(1, x.dim() - 1))
+        if self.mode == "max":
+            return x.amax(dim=axes)
+        return x.mean(dim=axes)
+
+
+def max_pool(x, window: Union[int, Sequence[int]]):
+    """Max pooling of ``[B, *S, C]`` with VALID padding and the stride of
+    the window (flax's ``max_pool`` as the JAX ``max_pool`` calls it): a
+    trailing remainder shorter than the window is dropped."""
+    spatial = tuple(x.shape[1:-1])
+    w = _tuple(window, len(spatial))
+    out = [n // k for n, k in zip(spatial, w)]
+    x = x[(slice(None),) + tuple(slice(0, o * k) for o, k in zip(out, w))]
+    shape = [x.shape[0]]
+    for o, k in zip(out, w):
+        shape += [o, k]
+    x = x.reshape(shape + [x.shape[-1]])
+    return x.amax(dim=tuple(range(2, 2 * len(spatial) + 1, 2)))
+
+
+def add_mlp(module: nn.Module, in_features: int, hidden_dims: Sequence[int],
+            out_dim: int, adn_fn=None) -> int:
+    """Registers on ``module`` Dense layers of ``hidden_dims``, each
+    followed by ``adn_fn(width)``, then a Dense layer to ``out_dim``, under
+    the JAX tree's names (``Dense_{i}``, ``ActDropNorm_{i}``); returns the
+    number of hidden layers, which ``run_mlp`` takes."""
+    for i, h in enumerate(hidden_dims):
+        module.add_module(f"Dense_{i}", Pointwise(in_features, h))
+        if adn_fn is not None:
+            module.add_module(f"ActDropNorm_{i}", adn_fn(h))
+        in_features = h
+    module.add_module(f"Dense_{len(hidden_dims)}",
+                      Pointwise(in_features, out_dim))
+    return len(hidden_dims)
+
+
+def run_mlp(module: nn.Module, n_hidden: int, x):
+    """The forward of the layers ``add_mlp`` registered on ``module``."""
+    for i in range(n_hidden):
+        x = apply_adn(getattr(module, f"ActDropNorm_{i}", None),
+                      getattr(module, f"Dense_{i}")(x))
+    return getattr(module, f"Dense_{n_hidden}")(x)
+
+
+class MLP(nn.Module):
+    """Dense layers of ``hidden_dims``, each followed by ``adn_fn(width)``,
+    then a Dense layer to ``out_dim`` (``add_mlp``)."""
+
+    def __init__(self, in_features: int, hidden_dims: Sequence[int],
+                 out_dim: int, adn_fn=None):
+        super().__init__()
+        self.n_hidden = add_mlp(self, in_features, hidden_dims, out_dim,
+                                adn_fn)
+
+    def forward(self, x):
+        return run_mlp(self, self.n_hidden, x)

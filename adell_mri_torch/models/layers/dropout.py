@@ -4,9 +4,10 @@ Dropout that draws from an explicit generator.
 The JAX package threads a PRNG key to every ``nn.Dropout``. Here each
 ``Dropout`` module holds a ``torch.Generator`` living on the device of the
 tensors it masks; ``seed_dropout`` hands one generator to every dropout
-layer of a model, so a training run's masks follow from its seed and not
-from the process-wide generator. Without one the layer draws from the
-device's default generator.
+layer of a model (and to every other layer that draws in training, such
+as a batch ensemble's member choice), so a training run's draws follow
+from its seed and not from the process-wide generator. Without one the
+layer draws from the device's default generator.
 """
 
 import torch
@@ -38,9 +39,10 @@ class Dropout(nn.Module):
 
 
 def seed_dropout(model: nn.Module, generator: torch.Generator) -> int:
-    """Gives ``generator`` to every ``Dropout`` of ``model``; returns how
-    many there are."""
-    layers = [m for m in model.modules() if isinstance(m, Dropout)]
+    """Gives ``generator`` to every layer of ``model`` that draws from one
+    (a ``generator`` attribute: ``Dropout``, ``BatchEnsembleConv``);
+    returns how many there are."""
+    layers = [m for m in model.modules() if hasattr(m, "generator")]
     for layer in layers:
         layer.generator = generator
     return len(layers)

@@ -1,0 +1,85 @@
+"""
+Config-driven ResNet backbone.
+
+Counterpart of ``ResNetBackbone`` in
+``adell_mri_tpu/models/layers/res_net.py``: ``structure`` is a list of
+(channels, inter_channels, kernel_size, n_blocks) stages and
+``maxpool_structure`` each stage's pool window; the stem is a 7^3 conv,
+ADN, a 3^3 conv, ADN and a max-pool of 2; a stage is ``max(n_blocks, 2)``
+bottleneck residual blocks (the first changing the width to the stage's),
+then, with ``batch_ensemble > 0``, a 1x1 batch-ensemble conv, then its
+pool. Module names are the JAX tree's: ``Conv_0``, ``ActDropNorm_0``,
+``Conv_1``, ``ActDropNorm_1``, ``ResidualBlock_{i}`` counted over every
+stage, ``BatchEnsembleConv_{s}``. Only ``res_type`` "resnet" is ported.
+"""
+
+from typing import Optional, Sequence, Tuple
+
+import torch.nn as nn
+
+from adell_mri_torch.models.layers.batch_ensemble import BatchEnsembleConv
+from adell_mri_torch.models.layers.blocks import apply_adn, max_pool
+from adell_mri_torch.models.layers.res_blocks import ResidualBlock
+from adell_mri_torch.ops.conv import Conv3d
+
+
+class ResNetBackbone(nn.Module):
+    def __init__(
+        self,
+        in_channels: int,
+        structure: Sequence[Tuple[int, int, int, int]],
+        maxpool_structure: Optional[Sequence] = None,
+        adn_fn=None,
+        res_type: str = "resnet",
+        batch_ensemble: int = 0,
+    ):
+        super().__init__()
+        if res_type != "resnet":
+            raise NotImplementedError(
+                f"res_type {res_type!r} is not ported yet (the port has "
+                "'resnet')"
+            )
+        mp = list(maxpool_structure or [2] * len(structure))
+        if len(mp) != len(structure):
+            # zip would drop trailing stages and train a smaller network
+            raise ValueError(
+                f"maxpool_structure has {len(mp)} entries for "
+                f"{len(structure)} backbone stages"
+            )
+        self.pools = mp
+
+        def adn(features):
+            return adn_fn(features) if adn_fn else None
+
+        f = structure[0][0]
+        self.Conv_0 = Conv3d(in_channels, f, (7, 7, 7))
+        self.ActDropNorm_0 = adn(f)
+        self.Conv_1 = Conv3d(f, f, (3, 3, 3))
+        self.ActDropNorm_1 = adn(f)
+        self.stages = []
+        in_ch, block_idx = f, 0
+        for stage_idx, (channels, inter, k, n_blocks) in enumerate(structure):
+            names = []
+            for _ in range(max(n_blocks, 2)):
+                name = f"ResidualBlock_{block_idx}"
+                self.add_module(name, ResidualBlock(
+                    in_ch, k, channels, adn_fn, inter_channels=inter))
+                names.append(name)
+                in_ch, block_idx = channels, block_idx + 1
+            if batch_ensemble > 0:
+                name = f"BatchEnsembleConv_{stage_idx}"
+                self.add_module(name, BatchEnsembleConv(
+                    channels, batch_ensemble, channels, adn_fn))
+                names.append(name)
+            self.stages.append(names)
+        self.output_features = structure[-1][0]
+
+    def forward(self, x):
+        x = apply_adn(self.ActDropNorm_0, self.Conv_0(x))
+        x = apply_adn(self.ActDropNorm_1, self.Conv_1(x))
+        x = max_pool(x, 2)
+        for names, pool in zip(self.stages, self.pools):
+            for name in names:
+                x = getattr(self, name)(x)
+            x = max_pool(x, pool)
+        return x

@@ -59,6 +59,8 @@ _SUPPORTED = {
     "encoder_only": False,
     "semi_supervised": False,
     "encoder_structure": None,
+    # the segmentation steps carry no batch-norm statistics
+    "norm_type": "instance",
 }
 
 
@@ -105,6 +107,7 @@ class UNet(nn.Module):
             "encoder_only": encoder_only,
             "semi_supervised": semi_supervised,
             "encoder_structure": encoder_structure,
+            "norm_type": norm_type,
         }
         for key, want in _SUPPORTED.items():
             if given[key] != want:

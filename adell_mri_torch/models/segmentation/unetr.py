@@ -72,6 +72,8 @@ class _DecoderStage(nn.Module):
 _UNPORTED = {
     "skip_conditioning": None,
     "feature_conditioning": None,
+    # the segmentation steps carry no batch-norm statistics
+    "norm_type": "instance",
 }
 
 
@@ -113,7 +115,8 @@ class UNETR(nn.Module):
     ):
         super().__init__()
         _reject_unported("UNETR", skip_conditioning=skip_conditioning,
-                         feature_conditioning=feature_conditioning)
+                         feature_conditioning=feature_conditioning,
+                         norm_type=norm_type)
         spatial = tuple(int(s) for s in image_size)
         if spatial_dimensions != 3 or len(spatial) != 3:
             raise NotImplementedError(
@@ -258,7 +261,8 @@ class SWINUNet(nn.Module):
     ):
         super().__init__()
         _reject_unported("SWINUNet", skip_conditioning=skip_conditioning,
-                         feature_conditioning=feature_conditioning)
+                         feature_conditioning=feature_conditioning,
+                         norm_type=norm_type)
         if spatial_dimensions != 3:
             raise NotImplementedError(
                 f"SWINUNet is ported for 3D inputs, got spatial_dimensions="

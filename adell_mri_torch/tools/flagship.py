@@ -22,9 +22,16 @@ window 8x8x8, embeddings 32, 64, 128 and 256, 8 heads a stage), dropout
 0 unless asked for. Serving: as the U-Net's (SWIN-UNet takes any input
 size). Training: 2 volumes of 128x128x32, the yaml's dice + focal loss.
 
+``"catnet"``, the classifier of ``sample_configs/classification-cat-
+resnet.yaml`` as it stands (four ResNet stages, batch ensembles of 4,
+batch norm): trained at the yaml's 16 crops of 128x128x32 with binary
+labels (``make_catnet_batch``; ``make_catnet_trainer``), the binary
+logistic loss and the classifier's ranges of the CLI's augmentation.
+
 All train with the CLI's augmentation (``--augment intensity noise affine
-flip``: rotation-only affine, flips on all three axes), Nesterov SGD
-(momentum 0.99) under cosine annealing, bf16 or f32 compute.
+flip``: for the segmentation nets rotation-only affine, flips on all
+three axes), Nesterov SGD (momentum 0.99) under cosine annealing, bf16 or
+f32 compute.
 ``overrides`` change keys of a model's network config (e.g. the yaml's
 dropout, or ``deep_supervision``; the trainer's step takes the heads the
 model carries).
@@ -32,26 +39,36 @@ model carries).
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
-from adell_mri_torch.config.factories import get_segmentation_network
+from adell_mri_torch.config.factories import (
+    get_classification_network,
+    get_segmentation_network,
+)
 from adell_mri_torch.config.parsing import (
     build_compound_loss,
+    parse_config_cat,
     parse_config_unet,
 )
 from adell_mri_torch.inference import SegmentationInference
+from adell_mri_torch.models.classification.losses import (
+    binary_logistic_loss,
+)
+from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
 from adell_mri_torch.train.state import TrainState
 from adell_mri_torch.train.steps import (
+    make_classification_step,
     make_eval_step,
     make_segmentation_step,
     make_train_step,
 )
 from adell_mri_torch.transforms.pipeline import (
     AugmentPolicy,
+    ClassificationTransforms,
     SegmentationTransforms,
 )
 
@@ -76,6 +93,8 @@ UNETR_YAML = (
 UNETR_BATCH = 2
 SWIN_YAML = UNETR_YAML.with_name("unet-swin.yaml")
 SWIN_BATCH = 2
+CATNET_YAML = UNETR_YAML.with_name("classification-cat-resnet.yaml")
+CATNET_BATCH = 16
 
 
 @dataclass(frozen=True)
@@ -165,7 +184,8 @@ class Trainer:
     train_step: Callable
     eval_step: Callable
     loss_and_metrics: Callable
-    transforms: SegmentationTransforms
+    transforms: Any  # SegmentationTransforms or ClassificationTransforms
+    model: torch.nn.Module
 
 
 def make_trainer(seed: int, precision: str, device="cuda",
@@ -190,4 +210,56 @@ def make_trainer(seed: int, precision: str, device="cuda",
         )
     )
     return Trainer(state, make_train_step(lm), make_eval_step(eval_lm), lm,
-                   transforms)
+                   transforms, model)
+
+
+def make_catnet(seed: int, device="cuda"):
+    """CatNet of the yaml with f32 weights drawn from ``seed``, in
+    training mode."""
+    torch.manual_seed(seed)
+    network = parse_config_cat(str(CATNET_YAML))["network"]
+    return get_classification_network("cat", network).to(device)
+
+
+def make_catnet_batch(seed: int, device="cuda", batch=CATNET_BATCH,
+                      shape=WINDOW):
+    """A learnable classification batch on the card: noise around 0.3 and,
+    in the positives (every other sample, label 1), a bright ellipsoid at
+    a random centre; min-max scaled as the loader scales images. image
+    [B, *shape, 1], label [B]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    label = (torch.arange(batch, device=device) % 2).float()
+    grid = torch.stack(torch.meshgrid(
+        *[torch.arange(s, device=device, dtype=torch.float32)
+          for s in shape], indexing="ij"), -1)
+    size = torch.tensor(shape, device=device, dtype=torch.float32)
+    centres = size * (0.35 + 0.3 * torch.rand((batch, 3), generator=g,
+                                              device=device))
+    dist = (((grid[None] - centres[:, None, None, None]) / (size / 6)) ** 2)
+    blob = (dist.sum(-1) <= 1.0).float() * label[:, None, None, None]
+    image = 0.3 + 0.4 * blob + 0.1 * torch.randn(
+        (batch,) + tuple(shape), generator=g, device=device)
+    lo = image.amin(dim=(1, 2, 3), keepdim=True)
+    hi = image.amax(dim=(1, 2, 3), keepdim=True)
+    return {"image": ((image - lo) / (hi - lo))[..., None], "label": label}
+
+
+def make_catnet_trainer(seed: int, precision: str, device="cuda",
+                        learning_rate: float = 1e-3, t_max: int = 100):
+    """CatNet (f32 master weights from ``seed``, its members and dropout
+    drawn from a generator seeded alike) with its train and eval steps,
+    Nesterov SGD and the classification CLI's augmentation policy
+    (``AugmentPolicy.classification``)."""
+    model = make_catnet(seed, device)
+    seed_dropout(model, torch.Generator(device=device).manual_seed(seed))
+    schedule = cosine_annealing_with_warmup(learning_rate, t_max=t_max)
+    state = TrainState.create(
+        model, lambda p: get_optimizer("sgd", schedule, params=p))
+    lm = make_classification_step(model, binary_logistic_loss,
+                                  precision=precision)
+    eval_lm = make_classification_step(model, binary_logistic_loss,
+                                       train=False, precision=precision)
+    transforms = ClassificationTransforms(
+        augmentations=AugmentPolicy.classification(AUGMENT_FLAGS, WINDOW))
+    return Trainer(state, make_train_step(lm), make_eval_step(eval_lm), lm,
+                   transforms, model)

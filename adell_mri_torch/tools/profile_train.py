@@ -1,7 +1,7 @@
 """
 Where the time of one training step goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_train [unet|unetr|swin] \
+    python -m adell_mri_torch.tools.profile_train [unet|unetr|swin|catnet] \
         [--precision bf16|32] [--batch N]
 
 Trains the model (f32 master weights from seed 0, bf16 compute or, with
@@ -11,7 +11,9 @@ augmentation, Nesterov SGD) on a batch made on the card, as
 the dice loss, UNETR (``sample_configs/unetr.yaml``, dropout 0) on 2
 volumes of 256x256x64 or SWIN-UNet (``sample_configs/unet-swin.yaml``,
 dropout 0) on 2 volumes of 128x128x32, both with their yaml's dice +
-focal loss (``--batch`` changes the volumes a step). After one warm-up
+focal loss, or CatNet (``sample_configs/classification-cat-resnet.yaml``)
+on 16 crops of 128x128x32 with binary labels and the classifier's
+augmentation (``--batch`` changes the volumes a step). After one warm-up
 step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
 device-busy share of a step's wall time, the peak device memory and the
@@ -30,6 +32,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from adell_mri_torch.tools.flagship import (
+    CATNET_BATCH,
+    make_catnet_batch,
+    make_catnet_trainer,
     make_train_batch,
     make_trainer,
     model_spec,
@@ -50,10 +55,10 @@ GROUPS = (
     ("conv3d_narrow", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
     ("intensity_aug", "intensity_aug (K3: fused intensity augmentation)"),
     ("fft", "FFT (Gibbs ringing)"),
-    ("fprop", "cuDNN convs (stride-2, forward and backward)"),
-    ("dgrad", "cuDNN convs (stride-2, forward and backward)"),
-    ("wgrad", "cuDNN convs (stride-2, forward and backward)"),
-    ("conv", "cuDNN convs (stride-2, forward and backward)"),
+    ("fprop", "cuDNN convs (stride-2, 5^3, 7^3; forward and backward)"),
+    ("dgrad", "cuDNN convs (stride-2, 5^3, 7^3; forward and backward)"),
+    ("wgrad", "cuDNN convs (stride-2, 5^3, 7^3; forward and backward)"),
+    ("conv", "cuDNN convs (stride-2, 5^3, 7^3; forward and backward)"),
     ("gemm", "matmuls (the stems' dW patch products, transposed convs, "
      "1x1)"),
     ("nvjet", "matmuls (the stems' dW patch products, transposed convs, "
@@ -77,10 +82,15 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     out_path = out_path or f"chiprun_out/profile_train_{name}.txt"
-    spec = model_spec(name)
-    batch_size = batch_size or spec.train_batch
-    batch = make_train_batch(0, batch=batch_size, shape=spec.window)
-    tr = make_trainer(0, precision, name=name)
+    if name == "catnet":
+        batch_size = batch_size or CATNET_BATCH
+        batch = make_catnet_batch(0, batch=batch_size)
+        tr = make_catnet_trainer(0, precision)
+    else:
+        spec = model_spec(name)
+        batch_size = batch_size or spec.train_batch
+        batch = make_train_batch(0, batch=batch_size, shape=spec.window)
+        tr = make_trainer(0, precision, name=name)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def step():
@@ -151,11 +161,11 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("model", nargs="?", default="unet",
-                        choices=("unet", "unetr", "swin"))
+                        choices=("unet", "unetr", "swin", "catnet"))
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")
     parser.add_argument("--batch", type=int, help="volumes a step (default: "
-                        "the model's training batch, 4 or 2)")
+                        "the model's training batch, 4, 2 or 16)")
     args = parser.parse_args()
     sys.exit(main(args.model, args.out, args.precision, args.batch))

@@ -10,9 +10,9 @@ Training keeps in ``model.pt`` the weights of the best monitored epoch
 (the latest, until a monitored value exists), the ones ``best.json``
 names, so prediction serves what the JAX package's ``best_step`` would.
 ``last.pt`` holds the state at the end of the latest epoch (parameters,
-optimizer buffers, step, epoch, the EMA/SWA shadow and the schedule's
-position), from which ``resume`` continues an interrupted run and
-``status`` tells a finished fold. Reading the JAX package's orbax
+batch-norm running statistics, optimizer buffers, step, epoch, the
+EMA/SWA shadow and the schedule's position), from which ``resume``
+continues an interrupted run and ``status`` tells a finished fold. Reading the JAX package's orbax
 directories needs JAX and is not done here; a JAX UNet's parameters come
 in through ``interop/from_flax.py``.
 """
@@ -21,8 +21,9 @@ import json
 import logging
 import math
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
@@ -148,6 +149,7 @@ class CheckpointManager:
             "step": int(state.step),
             "params": host(state.params),
             "ema_params": host(state.ema_params),
+            "variables": host(state.variables),
             "optimizer": state.tx.opt.state_dict(),
             "schedule_step": int(state.tx.count),
         }, os.path.join(self.dir, LAST_FILE))
@@ -169,7 +171,8 @@ class CheckpointManager:
 
     def resume(self, state) -> Tuple[Any, int]:
         """Restores the last state into ``state`` in place: parameters,
-        optimizer buffers, step, schedule position and the shadow.
+        running statistics, optimizer buffers, step, schedule position and
+        the shadow.
         Returns ``(state, start_epoch)``; a fold with no last state
         returns ``(state, 0)`` unchanged."""
         last = self._load_last()
@@ -181,9 +184,33 @@ class CheckpointManager:
             if state.ema_params is not None and last["ema_params"]:
                 for k, v in state.ema_params.items():
                     v.copy_(last["ema_params"][k])
+        state.variables = {k: last["variables"][k].to(v.device)
+                           for k, v in state.variables.items()}
         state.tx.opt.load_state_dict(last["optimizer"])
         state.tx.count = int(last["schedule_step"])
         state.step = int(last["step"])
         logger.info("resumed from epoch %d (step %d)", last["epoch"],
                     state.step)
         return state, int(last["epoch"])
+
+
+def correct_classification_bias(params: Dict[str, torch.Tensor],
+                                labels: Sequence,
+                                positive=1) -> Optional[str]:
+    """Sets the classifier's output bias, in place, to the log-odds of
+    ``positive`` among ``labels`` (clipped to [1e-6, 1 - 1e-6]), so that
+    the network starts calibrated. The output bias is the last 1-d
+    ``bias`` of at most 16 entries in ``params``' order, as the JAX
+    package takes it in its tree's order. Returns its name (None when
+    there is none)."""
+    p = float(np.mean(np.asarray(labels) == positive))
+    p = min(max(p, 1e-6), 1 - 1e-6)
+    names = [k for k, v in params.items()
+             if k.endswith("bias") and v.dim() == 1 and v.shape[0] <= 16]
+    if not names:
+        logger.warning("no classification bias found; skipping")
+        return None
+    with torch.no_grad():
+        params[names[-1]].fill_(float(np.log(p / (1 - p))))
+    logger.info("set %s to log-odds of %.4f", names[-1], p)
+    return names[-1]

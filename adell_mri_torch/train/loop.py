@@ -104,6 +104,9 @@ class TrainLoop:
             if self.eval_on_ema and state.ema_params is not None
             else state.params
         )
+        # the shadow averages the parameters only: the running statistics
+        # are the state's in either case, as in the JAX loop
+        params = {**params, **getattr(state, "variables", {})}
         sums: Dict[str, torch.Tensor] = {}
         n_samples = 0
         for batch in loader:

@@ -3,18 +3,22 @@ Train state.
 
 Counterpart of ``TrainState`` in ``adell_mri_tpu/train/state.py``: the
 step count, the f32 master parameters (the model's own ``nn.Parameter``s,
-by name), the optimizer and, optionally, the stochastic weight average of
-the parameters (``ema_params``: an equal-weight running mean from
-``swa_start_step`` on), updated after every optimizer step. The JAX
-package's EMA mode is used only by ``--semi_supervised``, which is not
-ported yet.
+by name), the optimizer, the batch norms' running statistics
+(``variables``, the JAX state's ``batch_stats`` collection: empty for a
+model without batch norm) and, optionally, the stochastic weight average
+of the parameters (``ema_params``: an equal-weight running mean from
+``swa_start_step`` on), updated after every optimizer step. As in the JAX
+package the average covers the parameters only; the statistics are the
+latest step's. The JAX package's EMA mode is used only by
+``--semi_supervised``, which is not ported yet.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
 
+from adell_mri_torch.models.layers.adn import batch_stats
 from adell_mri_torch.train.ema import ema_update, swa_decay_at
 from adell_mri_torch.train.optim import Optimizer
 
@@ -26,29 +30,47 @@ class TrainState:
     tx: Optimizer
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     swa_start_step: int = 0
+    variables: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     @classmethod
     def create(cls, model, tx_factory,
                swa_start_step: Optional[int] = None) -> "TrainState":
         """``tx_factory(params) -> Optimizer`` over the model's
         parameters; with ``swa_start_step`` a shadow copy of them keeps
-        their stochastic weight average from that step on."""
+        their stochastic weight average from that step on. The running
+        statistics start as the model's own."""
         params = dict(model.named_parameters())
-        if swa_start_step is None:
-            return cls(step=0, params=params, tx=tx_factory(params))
-        ema = {k: v.detach().clone() for k, v in params.items()}
-        return cls(step=0, params=params, tx=tx_factory(params),
-                   ema_params=ema, swa_start_step=swa_start_step)
+        state = cls(step=0, params=params, tx=tx_factory(params),
+                    variables=(batch_stats(model)
+                               if isinstance(model, torch.nn.Module)
+                               else {}))
+        if swa_start_step is not None:
+            state.ema_params = {k: v.detach().clone()
+                                for k, v in params.items()}
+            state.swa_start_step = swa_start_step
+        return state
 
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
-        """Updates the parameters in place, then the shadow, and counts
+    def apply_gradients(self, grads: Dict[str, torch.Tensor],
+                        variables: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> "TrainState":
+        """Updates the parameters in place, then the shadow, takes the
+        step's running statistics (``variables``, when given) and counts
         the step."""
         self.tx.step(grads, self.params)
         if self.ema_params is not None:
             ema_update(self.ema_params, self.params,
                        swa_decay_at(self.step, self.swa_start_step))
+        if variables:
+            self.variables = {**self.variables, **variables}
         self.step += 1
         return self
 
+    def weights(self, params: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """``params`` (the state's by default, or e.g. its shadow) with the
+        running statistics: what a step or a forward takes."""
+        return {**(self.params if params is None else params),
+                **self.variables}
+
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        return {k: v.detach() for k, v in self.params.items()}
+        return {k: v.detach() for k, v in self.weights().items()}

@@ -1,16 +1,23 @@
 """
-Train and eval steps of the segmentation trainer.
+Train and eval steps of the segmentation and classification trainers.
 
-Counterpart of ``make_segmentation_step``, ``make_train_step`` and
-``make_eval_step`` in ``adell_mri_tpu/train/steps.py``, with deep
-supervision and bottleneck classification and without conditioning; and
-the sliding-window validation step of the JAX segmentation trainer
+Counterpart of ``make_segmentation_step``, ``make_classification_step``,
+``make_train_step`` and ``make_eval_step`` in
+``adell_mri_tpu/train/steps.py``, with deep supervision and bottleneck
+classification and without conditioning; and the sliding-window
+validation step of the JAX segmentation trainer
 (``--sliding_window_val``). A step runs the model as
 a function of its parameters (``torch.func.functional_call``) under the
 mixed-precision policy, so the f32 master parameters receive the
 gradients. ``train`` puts the model in training or eval mode for the call
 (dropout; a model's ``Dropout`` layers draw from the generator
 ``models/layers/dropout.py:seed_dropout`` gave them).
+
+A step's ``params`` are the model's weights by ``state_dict`` name, with
+the batch norms' running statistics among them when the model has any
+(``TrainState.weights``): a classification training step returns the
+updated statistics in ``metrics["_variables"]``, which ``make_train_step``
+carries into the state, and an eval step normalizes by them.
 """
 
 from typing import Callable, Dict, Optional
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from adell_mri_torch.inference.sliding_window import sliding_window_inference
+from adell_mri_torch.models.layers.adn import batch_stats, pop_batch_stats
 from adell_mri_torch.models.layers.multi_resolution import resize_volume
 from adell_mri_torch.models.segmentation.heads import prediction_of
 from adell_mri_torch.models.segmentation.losses import (
@@ -97,6 +105,52 @@ def make_segmentation_step(
             loss = loss + class_loss
             metrics["loss_class_loss"] = class_loss
         metrics["loss"] = loss
+        return loss, metrics
+
+    return loss_and_metrics
+
+
+def make_classification_step(
+    model,
+    loss_fn: Callable,
+    n_classes: int = 2,
+    train: bool = True,
+    batch_preprocessing=None,
+    precision: Optional[str] = None,
+):
+    """Returns ``loss_and_metrics(params, batch) -> (loss, metrics)``,
+    ``loss_fn(logits, labels) -> scalar``. Batch keys: ``image`` [B, *S, C]
+    and ``label`` [B]. In training ``batch_preprocessing`` (mixup, label
+    smoothing) runs first. The weights and the input go to the compute
+    dtype and the running statistics stay f32, as the JAX step closes over
+    its ``batch_stats``. Metrics: ``loss`` and ``acc`` (sigmoid above 0.5
+    against labels above 0.5; argmax when multiclass, of the soft targets
+    too), and in training the updated statistics in ``_variables``."""
+    stat_names = set(batch_stats(model))
+    dtype = compute_dtype(precision)
+
+    def loss_and_metrics(params, batch):
+        model.train(train)
+        x, y = batch["image"], batch["label"]
+        if batch_preprocessing is not None and train:
+            x, y = batch_preprocessing(x, y)
+        if dtype is not None:
+            params = {k: v if k in stat_names else cast_floats(v, dtype)
+                      for k, v in params.items()}
+            x = x.to(dtype)
+        logits = torch.func.functional_call(model, params, (x,)).float()
+        new_stats = pop_batch_stats(model) if train else {}
+        loss = loss_fn(logits, y)
+        if n_classes > 2:
+            y_idx = y.argmax(-1) if y.dim() == logits.dim() else y.long()
+            acc = (logits.argmax(-1) == y_idx).float().mean()
+        else:
+            prob = torch.sigmoid(logits[..., 0] if logits.dim() > 1
+                                 else logits)
+            acc = ((prob > 0.5) == (y > 0.5)).float().mean()
+        metrics = {"loss": loss, "acc": acc}
+        if new_stats:
+            metrics["_variables"] = new_stats
         return loss, metrics
 
     return loss_and_metrics
@@ -196,14 +250,18 @@ def _detached(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def make_train_step(loss_and_metrics: Callable):
     """``train_step(state, batch) -> (state, metrics)``: value and gradient
-    of the loss with respect to ``state.params``, then one optimizer
-    update."""
+    of the loss with respect to ``state.params`` (the step sees the
+    running statistics beside them), then one optimizer update; the
+    statistics a step returns in ``metrics["_variables"]`` go into the
+    state."""
 
     def train_step(state, batch):
-        loss, metrics = loss_and_metrics(state.params, batch)
+        loss, metrics = loss_and_metrics(state.weights(), batch)
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
-        state = state.apply_gradients(dict(zip(names, grads)))
+        state = state.apply_gradients(dict(zip(names, grads)),
+                                      variables=metrics.pop("_variables",
+                                                            None))
         return state, _detached(metrics)
 
     return train_step

@@ -1,8 +1,10 @@
 """
-Segmentation transform factory: cached host load, device augmentation.
+Segmentation and classification transform factories: cached host load,
+device augmentation.
 
-Counterpart of ``AugmentPolicy``, ``_augment_one``, ``_batch_intensity``
-and ``SegmentationTransforms`` in ``adell_mri_tpu/transforms/pipeline.py``,
+Counterpart of ``AugmentPolicy``, ``_augment_one``, ``_batch_intensity``,
+``SegmentationTransforms`` and ``ClassificationTransforms`` in
+``adell_mri_tpu/transforms/pipeline.py``,
 with every flag of the JAX package: ``intensity``, ``noise``, ``rbf``,
 ``affine``, ``shear``, ``flip``, ``blur``, ``distort``, ``lowres`` and
 ``trivial``. ``load_fn()`` is the deterministic host part, run once per
@@ -10,8 +12,9 @@ volume and cached; ``augment(generator, batch)`` carries all randomness on
 the device: per sample one gather warp with the affine, the flips and the
 elastic displacement folded in, Gibbs ringing, the bias field, blur, low
 resolution and one TrivialAugment op, and with ``crop_size`` a pos/neg crop
-(its foreground centres mapped through the inverse of the warp's matrix),
-then one fused intensity kernel over the whole batch.
+(its foreground centres mapped through the inverse of the warp's matrix;
+a classifier's crop is uniform), then one fused intensity kernel over the
+whole batch.
 
 A sample's augmentation is a draw (``draw_augment``: every gate and random
 parameter, on the device) and a deterministic core (``apply_augment``), so
@@ -21,6 +24,7 @@ gated op is computed for every sample and selected by its gate
 the workhorse moves the image only, not the label.
 """
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -31,6 +35,7 @@ from adell_mri_torch.transforms import intensity as I
 from adell_mri_torch.transforms import spatial as S
 from adell_mri_torch.transforms.augment import AugmentationWorkhorse
 from adell_mri_torch.transforms.host import make_load_fn
+from adell_mri_torch.transforms.labels import label_operator
 
 FLAGS = ("intensity", "noise", "rbf", "affine", "shear", "flip", "blur",
          "distort", "lowres", "trivial")
@@ -85,6 +90,21 @@ class AugmentPolicy:
     def from_flags(cls, flags: Sequence[str], **kw) -> "AugmentPolicy":
         flags = set(flags or [])
         return cls(**{n: n in flags for n in FLAGS}, **kw)
+
+    @classmethod
+    def classification(cls, flags: Sequence[str],
+                       shape: Sequence[int]) -> "AugmentPolicy":
+        """The classification CLI's policy (the JAX ``classification
+        train``'s): probability 0.1, flips over the first two axes, a
+        rotation of pi/16 about the first, scale 0.1, 0.1, 0.05 and a
+        translation of 4, 4 and 1 voxels as a share of ``shape``, the
+        augmented shape."""
+        return cls.from_flags(
+            flags, prob=0.1, flip_axes=(0, 1),
+            rotate_range=(math.pi / 16, 0.0, 0.0),
+            scale_range=(0.1, 0.1, 0.05),
+            translate_range=tuple(v / s for v, s in zip((4.0, 4.0, 1.0),
+                                                         shape)))
 
 
 def _gate(generator, prob: float, device):
@@ -325,3 +345,83 @@ class SegmentationTransforms:
         zeros = torch.zeros((self.max_fg, image.dim() - 1), dtype=torch.int32,
                             device=image.device)
         return zeros, torch.zeros((), dtype=torch.int32, device=image.device)
+
+
+@dataclass
+class ClassificationTransforms:
+    """Host load of the images (read -> RAS -> spacing -> scale -> size)
+    and of the scalar class label, then device augmentation of the images:
+    per sample ``_augment_one``, then with ``crop_size`` a uniform random
+    crop, then the batch's intensity pass.
+
+    The label follows the JAX package's precedence: ``label_groups`` (a
+    class a group), else ``positive_labels`` (1 for those, else 0), else
+    ``possible_labels`` (their index), else the value as a float. An
+    entry without ``label_key`` loads without a label (prediction).
+    Masking and cropping by a mask, resizing and clinical features are
+    not ported yet."""
+
+    image_keys: Sequence[str] = ("image",)
+    label_key: Optional[str] = "label"
+    target_spacing: Optional[Sequence[float]] = None
+    target_size: Optional[Sequence[int]] = None
+    crop_size: Optional[Sequence[int]] = None
+    adc_keys: Sequence[str] = ()
+    augmentations: AugmentPolicy = field(default_factory=AugmentPolicy)
+    positive_labels: Optional[Sequence] = None
+    possible_labels: Optional[Sequence] = None
+    label_groups: Optional[Sequence[Sequence]] = None
+    # seeds the workhorse's host choice of op (not part of the cache key)
+    seed: int = field(default=0, repr=False)
+
+    def __post_init__(self):
+        # built at the first batch, for its number of spatial axes
+        self.workhorse = None
+
+    def label_of(self, value):
+        if self.label_groups is not None:
+            return label_operator(value, self.possible_labels or (),
+                                  label_groups=self.label_groups)
+        if self.positive_labels is not None:
+            return str(value) in {str(v) for v in self.positive_labels}
+        if self.possible_labels is not None:
+            return label_operator(value, self.possible_labels)
+        return float(value)
+
+    def load_fn(self):
+        import numpy as np
+
+        base = make_load_fn(
+            image_keys=self.image_keys,
+            target_spacing=self.target_spacing,
+            target_size=self.target_size,
+            adc_keys=self.adc_keys,
+        )
+
+        def load(entry):
+            sample = base(entry)
+            if self.label_key is not None and self.label_key in entry:
+                sample["label"] = np.float32(
+                    self.label_of(entry[self.label_key]))
+            return sample
+
+        return load
+
+    def augment(self, generator, batch: Dict) -> Dict:
+        """``batch["image"]`` [B, *S, C] on the device; draws from
+        ``generator`` (on the same device). The labels pass through."""
+        if self.augmentations.trivial and self.workhorse is None:
+            self.workhorse = AugmentationWorkhorse(
+                ndim=batch["image"].dim() - 2, seed=self.seed)
+        images = []
+        for img in batch["image"]:
+            img, _, _ = _augment_one(generator, img, None,
+                                     self.augmentations, self.workhorse)
+            if self.crop_size is not None:
+                img = S.random_crop(generator, img, tuple(self.crop_size))
+            images.append(img)
+        out = dict(batch)
+        out["image"] = _batch_intensity(
+            generator, torch.stack(images), self.augmentations
+        )
+        return out

@@ -173,13 +173,31 @@ failure:
     memory; ``segmentation train --segmentation_net_type swin`` (f32, crops
     of 128x128x32), without and with both heads, then ``predict`` and
     ``test`` on each checkpoint (with the heads, the same K1 launches as
-    without: inference runs no head).
+    without: inference runs no head);
+17. CatNet (``sample_configs/classification-cat-resnet.yaml`` as it
+    stands: four ResNet stages, batch ensembles of 4, batch norm) on
+    128x128x32 crops: served in eval with running statistics at B=2, bf16
+    and f32 (8 K1 a forward, wgmma or tf32; sigmoid probabilities within
+    5e-2 and 1e-3 of the plain path; the f32 forward again with cuDNN's
+    default TF32, as the CLI runs its F.conv3d layers, the difference
+    logged); its four K1 classes at B=16 (the stem's 32->32 at 128x128x32,
+    128->128 at 32x32x8, 256->256 at 16x16x4, 512->512 at 8x8x2): forward,
+    dx, dW and dbias against the plain versions at phases 3 and 7's
+    tolerances, each route read from the counters, times beside cuDNN and
+    the bounds; training at B=16, bf16 and f32 (per step 8 K1, 8 dx, dW on
+    6 wgrad launches + 2 patch products in bf16 and 8 patch products in
+    f32, 1 K3), the f32 loss within 1e-4, gradient norm within 1e-3 and
+    running statistics within 1e-5 of the plain path, seconds a step,
+    device share and peak memory, ten bf16 steps with a falling loss;
+    ``classification train`` (f32), ``test`` (one JSON line with AUC) and
+    ``predict`` on a 6-case cohort, in this process.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -869,6 +887,38 @@ def _check_noise(name, got, want, clean):
                 plain_std=sw, tol_std=tol_std)
 
 
+def _k3_against_plain(name, x, par0, par, seed):
+    """K3 on ``x`` against its plain version: with ``par0`` (every sigma
+    0) without noise and with either noise switched on, within 1e-5 (f32:
+    libm-level differences of log/exp only) or one bf16 ulp of the
+    output's scale (both round one f32 result); with ``par`` (noisy
+    samples) by the noise's moments (``_check_noise``). Returns the clean
+    output, the tolerance, the error and the moments."""
+    import torch
+
+    from adell_mri_torch.ops.kernels import intensity as ki
+
+    clean = ki.intensity_aug_reference(seed, x, par0, False, False)
+    scale = max(float(clean.float().abs().max()), 1.0)
+    tol = 1e-5 if x.dtype == torch.float32 else 2.0**-7 * scale
+    errs = []
+    for noise, rician in ((False, False), (True, True), (True, False)):
+        got = ki.intensity_aug(seed, x, par0, rician=rician, noise=noise)
+        torch.cuda.synchronize()
+        errs.append(float((got.float() - clean.float()).abs().max()))
+    err = max(errs)
+    log(f"  K3 {name} sigma=0: max abs err {err:.3g} (tol {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"intensity_aug {name} sigma=0: {errs}")
+    moments = {}
+    for rician in (True, False):
+        kind = "rician" if rician else "gaussian"
+        got = ki.intensity_aug(seed, x, par, rician=rician, noise=True)
+        want = ki.intensity_aug_reference(5, x, par, rician, True)
+        moments[kind] = _check_noise(f"K3 {name} {kind}", got, want, clean)
+    return clean, tol, err, moments
+
+
 def phase_intensity():
     """K3 (and K2 as its B=1 call) against the plain version at the
     flagship batch, bf16 and f32."""
@@ -900,29 +950,9 @@ def phase_intensity():
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         x = x32.to(dtype)
-        par0 = par_for(zero)
-        clean = ki.intensity_aug_reference(seed, x, par0, False, False)
-        scale = max(float(clean.float().abs().max()), 1.0)
-        # f32: libm-level differences of log/exp only; bf16: both round
-        # one f32 result, one ulp of the output scale apart at most
-        tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * scale
-        errs = []
-        for noise, rician in ((False, False), (True, True), (True, False)):
-            got = ki.intensity_aug(seed, x, par0, rician=rician, noise=noise)
-            torch.cuda.synchronize()
-            errs.append(float((got.float() - clean.float()).abs().max()))
-        err = max(errs)
-        log(f"  K3 {name} sigma=0: max abs err {err:.3g} (tol {tol:.3g})")
-        if not err <= tol:
-            raise AssertionError(f"intensity_aug {name} sigma=0: {errs}")
         par = par_for(noisy)
-        moments = {}
-        for rician in (True, False):
-            kind = "rician" if rician else "gaussian"
-            got = ki.intensity_aug(seed, x, par, rician=rician, noise=True)
-            want = ki.intensity_aug_reference(5, x, par, rician, True)
-            moments[kind] = _check_noise(f"K3 {name} {kind}", got, want,
-                                         clean)
+        _, tol, err, moments = _k3_against_plain(name, x, par_for(zero),
+                                                 par, seed)
         # one sample without noise beside noisy ones, on data with
         # negative voxels: the Rician magnitude must not rectify it
         xn = (x32 - 0.5).to(dtype)
@@ -3737,6 +3767,623 @@ def phase_swin(smi):
     return out
 
 
+# -- phase 17: CatNet, the CLI's default classifier -----------------------------
+
+# a prostate crop (tools/flagship.py's WINDOW); the yaml's batch; the
+# served micro-batch
+CATNET_SHAPE = (128, 128, 32)
+CATNET_BATCH = 16
+CATNET_SERVE_BATCH = 2
+# the stride-1 3x3x3 convs of a CatNet forward: the stem's Conv_1 (32->32
+# at 128x128x32) and the 3x3x3 bottleneck convs of stages 2-4 (3 at
+# 128->128, 32x32x8; 2 at 256->256, 16x16x4; 2 at 512->512, 8x8x2): the
+# wgmma route in bf16, tf32 in f32; a step's 8 dx alike; dW on the wgrad
+# kernel in bf16 but for the two 512->512 (Cout > 256: the patch product),
+# all 8 on the patch product in f32. The 7^3 stem and stage 1's 5^3 convs
+# are F.conv3d.
+CATNET_CONVS = 8
+CATNET_WGRAD_PATCHES_BF16 = 2
+CATNET_CLASSES = (
+    ((CATNET_BATCH,) + CATNET_SHAPE + (32,), 32, 1),
+    ((CATNET_BATCH, 32, 32, 8, 128), 128, 3),
+    ((CATNET_BATCH, 16, 16, 4, 256), 256, 2),
+    ((CATNET_BATCH, 8, 8, 2, 512), 512, 2),
+)
+CATNET_TIMED_STEPS = 3
+CATNET_CLI_CASES = 6
+CATNET_CLI_BATCH = 2
+
+
+def _catnet_want(precision, step=True):
+    """Launches of one CatNet forward (``step=False``) or training step in
+    ``precision``."""
+    bf16 = precision == "bf16"
+    want = dict.fromkeys(_launch_counts(), 0)
+    want.update(conv3d_igemm=CATNET_CONVS,
+                conv3d_igemm_wgmma=CATNET_CONVS if bf16 else 0,
+                conv3d_igemm_tf32=0 if bf16 else CATNET_CONVS)
+    if step:
+        want.update(
+            conv3d_igemm_dx=CATNET_CONVS,
+            conv3d_igemm_dx_wgmma=CATNET_CONVS if bf16 else 0,
+            conv3d_igemm_dx_tf32=0 if bf16 else CATNET_CONVS,
+            conv3d_weight_grad=(CATNET_CONVS - CATNET_WGRAD_PATCHES_BF16
+                                if bf16 else 0),
+            conv3d_weight_grad_patches=(CATNET_WGRAD_PATCHES_BF16 if bf16
+                                        else CATNET_CONVS),
+            intensity_aug=1)
+    return want
+
+
+def _catnet_weights(model, dtype):
+    """The model's weights by name, the parameters in ``dtype`` and the
+    running statistics f32 (the port's precision policy)."""
+    from adell_mri_torch.models.layers.adn import batch_stats
+
+    stats = set(batch_stats(model))
+    return {k: v if k in stats else v.to(dtype)
+            for k, v in model.state_dict().items()}
+
+
+def _cudnn_kernels(fn):
+    """The device kernels of ``fn()`` that are not the port's own (no
+    ``conv3d_`` in the name) and hold "conv", "gemm", "fprop" or "xmma" in
+    their names: cuDNN's convolutions and cuBLAS's products, under the
+    profiler. A TF32 one carries "tf32" in its name (e.g.
+    ``sm80_xmma_fprop_implicit_gemm_tf32f32_...``), an f32 FMA one
+    "f32f32" and "ffma"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({
+        e.key for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and "conv3d_" not in e.key
+        and any(t in e.key.lower() for t in ("conv", "gemm", "fprop",
+                                             "xmma"))})
+
+
+def _cudnn_tf32_reading(forward, logits, feats, stem):
+    """The f32 CatNet forward with cuDNN's TF32 on (set on
+    ``torch.backends.cudnn.allow_tf32`` and restored after), as a process
+    that has not turned it off runs it, against ``logits`` and ``feats``
+    (TF32 off): how far the probabilities, the pooled features and the
+    output of ``stem()`` (the 7^3 stem conv alone) move, and the names of
+    cuDNN's kernels either way. Fails if a kernel named for TF32 runs with
+    TF32 off: the f32 checks would not be f32."""
+    import torch
+
+    kernels_off = _cudnn_kernels(forward)
+    stem_off = stem()
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        kernels_on = _cudnn_kernels(forward)
+        on_logits = forward()
+        on_feats = forward(return_features=True)
+        stem_on = stem()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    if any("tf32" in k.lower() for k in kernels_off):
+        raise AssertionError(f"TF32 kernels with TF32 off: {kernels_off}")
+    return dict(
+        probabilities=float((torch.sigmoid(on_logits)
+                             - torch.sigmoid(logits)).abs().max()),
+        features=float((on_feats - feats).abs().max())
+        / max(float(feats.abs().max()), 1e-30),
+        stem=float((stem_on - stem_off).abs().max())
+        / max(float(stem_off.abs().max()), 1e-30),
+        kernels_off=kernels_off, kernels_on=kernels_on)
+
+
+def _catnet_serving(smi, tf32_defaults):
+    """Phase 17 (a): CatNet in eval, with running statistics from two
+    training forwards, on B=2 crops in bf16 and f32: launches (8 K1 a
+    forward, by route), seconds a forward, peak memory, sigmoid
+    probabilities against the plain path (f32 within 1e-3, bf16 5e-2, as
+    phases 4 and 11), with TF32 off for cuDNN and matmuls (phase 3's
+    switches); then the f32 forward with cuDNN's TF32 on, the CLI's
+    default, for the F.conv3d layers (the 7^3 stem and stage 1's 5^3
+    convs), against TF32 off (``_cudnn_tf32_reading``)."""
+    import torch
+
+    from adell_mri_torch.models.layers.adn import pop_batch_stats
+    from adell_mri_torch.tools.flagship import make_catnet, make_catnet_batch
+
+    model = make_catnet(0)
+    batch = make_catnet_batch(1, batch=4, shape=CATNET_SHAPE)
+    with torch.no_grad():
+        model.train()
+        buffers = dict(model.named_buffers())
+        for _ in range(2):
+            model(batch["image"])
+            for k, v in pop_batch_stats(model).items():
+                buffers[k].copy_(v)
+    model.eval()
+    x = batch["image"][:CATNET_SERVE_BATCH]
+    out = {"tf32_defaults": tf32_defaults}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        precision = "bf16" if bf16 else "32"
+        weights = _catnet_weights(model, dtype)
+
+        def forward(**kwargs):
+            return torch.func.functional_call(
+                model, weights, (x.to(dtype),), kwargs).float()
+
+        secs = []
+        with torch.inference_mode():
+            forward()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            logits = forward()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = _launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            for _ in range(2):
+                t0 = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            feats = forward(return_features=True)
+            with plain_kernels():
+                plain = forward()
+                plain_feats = forward(return_features=True)
+            tf32 = None if bf16 else _cudnn_tf32_reading(
+                forward, logits, feats,
+                lambda: model.ResNetBackbone_0.Conv_0(x.float()))
+        probs, want = torch.sigmoid(logits), torch.sigmoid(plain)
+        err = float((probs - want).abs().max())
+        tol = 5e-2 if bf16 else 1e-3
+        # the pooled backbone features too, relative to their scale: a
+        # random network's probabilities move little with its input
+        feat_err = float((feats - plain_feats).abs().max()) / max(
+            float(plain_feats.abs().max()), 1e-30)
+        log(f"[catnet serving] {smi}: {precision}, B={CATNET_SERVE_BATCH} "
+            f"at {'x'.join(map(str, CATNET_SHAPE))}: launches {launches}; "
+            f"{', '.join(f'{s:.4f}' for s in secs)} s a forward; peak "
+            f"{peak_gb:.2f} GB; probabilities {probs.flatten().tolist()}, "
+            f"kernels vs plain path max abs err {err:.3g} (tol {tol}), "
+            f"pooled features {feat_err:.3g} of their scale (tol {tol})"
+            + ("" if tf32 is None else
+               f"; with cuDNN's TF32 on (the CLI's default {tf32_defaults}) "
+               f"the probabilities move {tf32['probabilities']:.3g}, the "
+               f"pooled features {tf32['features']:.3g} and the stem "
+               f"conv's output {tf32['stem']:.3g} of their scales; "
+               f"cuDNN's kernels with TF32 off {tf32['kernels_off']}, on "
+               f"{tf32['kernels_on']}"))
+        if launches != _catnet_want(precision, step=False):
+            raise AssertionError(f"launches {launches}")
+        if tuple(logits.shape) != (CATNET_SERVE_BATCH, 1) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"CatNet logits {tuple(logits.shape)}")
+        if not (err <= tol and feat_err <= tol):
+            raise AssertionError(f"CatNet disagrees with its plain path: "
+                                 f"{err}, features {feat_err}")
+        out[precision] = dict(launches=launches, seconds=secs,
+                              peak_memory_gb=peak_gb, max_abs_err=err,
+                              feature_rel_err=feat_err,
+                              tol=tol, probabilities=probs.tolist(),
+                              cudnn_tf32=tf32)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _catnet_conv_classes():
+    """Phase 17 (b): the stride-1 3x3x3 conv classes of a CatNet step at
+    B=16, bf16 and f32: the forward (phase 3's ``compare_conv``: error,
+    two runs bit-equal on the tf32 route, times beside F.conv3d and the
+    bound), dx, dW and dbias against autograd through the plain version
+    (phase 7's ``conv_backward_errors``), each call's route read from the
+    counters, and dx and dW timed beside cuDNN's and their bounds."""
+    import torch
+
+    from adell_mri_torch.ops.kernels.conv import (
+        conv3d_igemm_dx,
+        conv_route,
+        wgrad_route,
+    )
+
+    def routed(counter, route):
+        return {counter: 1, **({} if route == "igemm"
+                               else {f"{counter}_{route}": 1})}
+
+    rows = []
+    for i, (xs, cout, count) in enumerate(CATNET_CLASSES):
+        b, spatial, cin = xs[0], xs[1:4], xs[4]
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            row = compare_conv(b, spatial, cin, cout, dtype, seed=500 + i)
+            dw_route = wgrad_route(dtype, cin, cout)
+            want = {**routed("conv3d_igemm", conv_route(dtype, cin, cout)),
+                    **routed("conv3d_igemm_dx", conv_route(dtype, cout, cin)),
+                    ("conv3d_weight_grad" if dw_route == "wgmma"
+                     else "conv3d_weight_grad_patches"): 1}
+            before = _launch_counts()
+            (x, w, _, gy), errs, tols = conv_backward_errors(
+                xs, cout, dtype, 520 + i)
+            taken = {k: n - before[k] for k, n in _launch_counts().items()
+                     if n != before[k]}
+            if taken != want:
+                raise AssertionError(f"routes {taken}, want {want}")
+            if not all(e <= t for e, t in zip(errs, tols)):
+                raise AssertionError(f"CatNet conv backward disagrees: "
+                                     f"{errs} {tols}")
+            gc, xc = gy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3)
+            wc = w.permute(4, 3, 0, 1, 2)
+            dx_bound, dx_by = conv_bound(b, spatial, cout, cin, name,
+                                         None if dtype == torch.bfloat16
+                                         else PEAK_F32_TF32X3)
+            row.update(
+                count=count, dx_route=conv_route(dtype, cout, cin),
+                errs=dict(zip(("dx", "dw", "db"), errs)),
+                tols=dict(zip(("dx", "dw", "db"), tols)),
+                dx_ms=time_ms(lambda: conv3d_igemm_dx(gy, w)),
+                dx_library_ms=time_ms(
+                    lambda: torch.ops.aten.convolution_backward(
+                        gc, xc, wc, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                        False, [0, 0, 0], 1, [True, False, False])[0]),
+                dx_bound_ms=dx_bound, dx_bound_by=dx_by,
+                **time_weight_grad(x, gy, w))
+            row["dw_bound_ms"], row["dw_bound_by"] = weight_grad_bound(
+                b, spatial, cin, cout, name,
+                None if dtype == torch.bfloat16 else PEAK_F32_TF32X3)
+            log(f"    x{count}: dx ({row['dx_route']}) err "
+                f"{errs[0]:.3g} (tol {tols[0]:.3g}) {row['dx_ms']:.4f} ms, "
+                f"cuDNN {row['dx_library_ms']:.4f} ms, bound "
+                f"{dx_bound:.4f} ms; dbias err {errs[2]:.3g} (tol "
+                f"{tols[2]:.3g})")
+            log_dw(row)
+            rows.append(row)
+            del x, w, gy, gc, xc, wc
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _stats_errors(got, want):
+    """The running statistics ``got`` against ``want`` (by name, each a
+    batch norm's ``.mean`` or ``.var``): the largest error as a share of
+    its layer's scale (the variance's largest value; for the mean, the
+    larger of its largest magnitude and the layer's largest standard
+    deviation, the spread its error is made in), the layer it is in, and
+    the largest error as a share of each statistic's own largest
+    magnitude."""
+    worst, where, own = 0.0, None, 0.0
+    for k, v in want.items():
+        layer = k.rsplit(".", 1)[0]
+        var_max = float(want[layer + ".var"].abs().max())
+        scale = (var_max if k.endswith(".var")
+                 else max(float(v.abs().max()), var_max ** 0.5))
+        err = float((got[k] - v).abs().max())
+        own = max(own, err / max(float(v.abs().max()), 1e-30))
+        if err / scale > worst:
+            worst, where = err / scale, k
+    return worst, where, own
+
+
+def _catnet_batch_stats(tr, batch):
+    """Each batch norm's batch statistics in a training forward of the
+    CatNet step on ``batch``, on the kernels and on the plain path (f32,
+    the step's own forward) and on the plain path in f64 (the reference;
+    the members and dropout masks drawn alike on all three). They are
+    recovered from the running statistics the forward returns, from a zero
+    prior: those are 0.1 x the batch's, rounded once, and ``(new - 0.9
+    prior) / 0.1`` in f64 divides no rounding of the prior's share. Per
+    layer and statistic, as shares of the layer's scale (the reference's
+    largest batch standard deviation for the mean, its largest batch
+    variance for the variance): kernels against plain, and each against
+    the reference."""
+    import torch
+
+    from adell_mri_torch.models.layers.adn import pop_batch_stats
+    from adell_mri_torch.models.layers.dropout import seed_dropout
+
+    prior = {k: torch.zeros_like(v) for k, v in tr.state.variables.items()}
+    weights = {**tr.state.weights(), **prior}
+    runs = {}
+    with torch.no_grad():
+        for name, ctx in (("kernels", contextlib.nullcontext),
+                          ("plain", plain_kernels), ("f64", plain_kernels)):
+            seed_dropout(tr.model, torch.Generator(
+                device="cuda").manual_seed(9))
+            with ctx():
+                if name == "f64":
+                    tr.model.train()
+                    torch.func.functional_call(
+                        tr.model, {k: v.double() for k, v in weights.items()},
+                        (batch["image"].double(),))
+                    runs[name] = pop_batch_stats(tr.model)
+                else:
+                    runs[name] = tr.loss_and_metrics(
+                        weights, batch)[1]["_variables"]
+
+    def recovered(name, k):
+        return (runs[name][k].double() - 0.9 * prior[k].double()) / (1 - 0.9)
+
+    rows = []
+    for k in runs["f64"]:
+        if not k.endswith(".mean"):
+            continue
+        layer = k[: -len(".mean")]
+        var = recovered("f64", layer + ".var")
+        scale = dict(mean=float(var.max()) ** 0.5, var=float(var.max()))
+        row = dict(layer=layer)
+        for stat in ("mean", "var"):
+            got = {n: recovered(n, f"{layer}.{stat}")
+                   for n in ("kernels", "plain", "f64")}
+            row[stat] = {
+                f"{a}_{b}": float((got[a] - got[b]).abs().max())
+                / scale[stat]
+                for a, b in (("kernels", "plain"), ("kernels", "f64"),
+                             ("plain", "f64"))}
+        rows.append(row)
+    return rows
+
+
+def _catnet_intensity(images):
+    """K3 against its plain version (``_k3_against_plain``) at the shapes
+    CatNet's paths give it, the step's B=16 and the CLI's B=2 at
+    128x128x32, in f32 (the main path's) and bf16, with the classification
+    policy's ranges: gamma drawn in its range, a shift of up to 0.1 of
+    each sample's standard deviation, sigma 0 or the policy's noise."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import AUGMENT_FLAGS
+    from adell_mri_torch.transforms.pipeline import AugmentPolicy
+
+    policy = AugmentPolicy.classification(AUGMENT_FLAGS, CATNET_SHAPE)
+    dev = images.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    seed = torch.tensor([4321], dtype=torch.int64, device=dev)
+    out = {}
+    for b in (CATNET_BATCH, CATNET_CLI_BATCH):
+        x32 = images[:b].contiguous()
+        red = tuple(range(1, x32.dim()))
+        u = torch.rand((3, b), generator=g, device=dev)
+        lo_g, hi_g = policy.gamma_range
+        gamma = lo_g + (hi_g - lo_g) * u[0]
+        scale = 1.0 + policy.scale_delta * (2 * u[1] - 1)
+        shift = (policy.shift_delta * (2 * u[2] - 1)
+                 * x32.std(dim=red, correction=0))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            lo, hi = x.float().amin(dim=red), x.float().amax(dim=red)
+
+            def par_for(sigma):
+                return torch.stack(
+                    [lo, hi, gamma, scale, shift,
+                     torch.full((b,), sigma, device=dev)], dim=1
+                ).contiguous()
+
+            name = (f"{str(dtype).split('.')[1]} "
+                    f"[{b},{','.join(map(str, CATNET_SHAPE))},1]")
+            _, tol, err, moments = _k3_against_plain(
+                name, x, par_for(0.0), par_for(policy.noise_std), seed)
+            out[name] = dict(max_abs_err=err, tol=tol, moments=moments)
+    return out
+
+
+def _catnet_training(smi):
+    """Phase 17 (c): K3 against its plain version at the step's and the
+    CLI's shapes (``_catnet_intensity``); CatNet training steps at B=16 on
+    128x128x32 in bf16 and f32: the f32 loss, gradient norm and running
+    statistics against the plain path (1e-4, 1e-3, 1e-5 of the layer's
+    running scale; the members and dropout masks drawn alike on both),
+    and each batch norm's batch statistics (``_catnet_batch_stats``: the
+    kernels against the plain path within 1e-5 of the layer's scale
+    beyond the plain path's own distance from the f64 reference), launches
+    by route, seconds a step with the augmentation, device share and peak
+    memory; ten bf16 steps on one batch with a falling loss."""
+    import torch
+
+    from adell_mri_torch.models.layers.dropout import seed_dropout
+    from adell_mri_torch.tools.flagship import (
+        AUGMENT_FLAGS,
+        make_catnet_batch,
+        make_catnet_trainer,
+    )
+
+    batch = make_catnet_batch(2, batch=CATNET_BATCH, shape=CATNET_SHAPE)
+    out = dict(intensity=_catnet_intensity(batch["image"]))
+    for precision in ("bf16", "32"):
+        tr = make_catnet_trainer(0, precision)
+        state, model = tr.state, tr.model
+        names = list(state.params)
+        params = [state.params[k] for k in names]
+        parity = None
+        if precision == "32":
+            runs = []
+            for ctx in (contextlib.nullcontext, plain_kernels):
+                seed_dropout(model, torch.Generator(
+                    device="cuda").manual_seed(9))
+                with ctx():
+                    loss, metrics = tr.loss_and_metrics(state.weights(),
+                                                        batch)
+                    grads = torch.autograd.grad(loss, params)
+                runs.append((float(loss.detach()), _grad_norm(grads),
+                             metrics["_variables"]))
+                del grads, loss
+            (loss_k, norm_k, stats_k), (loss_p, norm_p, stats_p) = runs
+            stats_err, worst, own_err = _stats_errors(stats_k, stats_p)
+            rows = _catnet_batch_stats(tr, batch)
+            # kernels against plain within 1e-5 of the layer's scale beyond
+            # the plain path's own distance from the f64 reference
+            excess = [(r[st]["kernels_plain"] - r[st]["plain_f64"], st,
+                       r["layer"]) for r in rows for st in ("mean", "var")]
+            top = {st: max(rows, key=lambda r, st=st: r[st]["kernels_plain"])
+                   for st in ("mean", "var")}
+            parity = dict(loss=loss_k, plain_loss=loss_p,
+                          loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+                          grad_norm=norm_k, plain_grad_norm=norm_p,
+                          grad_norm_rel=abs(norm_k - norm_p) / norm_p,
+                          stats_rel=stats_err, stats_worst=worst,
+                          stats_rel_own_max=own_err, batch_stats=rows)
+            log(f"[catnet training] f32 step (B={CATNET_BATCH}), kernels vs "
+                f"plain path: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
+                f"{parity['loss_rel']:.2e}, tol 1e-4), gradient norm "
+                f"{norm_k:.6g} vs {norm_p:.6g} (rel "
+                f"{parity['grad_norm_rel']:.2e}, tol 1e-3), running "
+                f"statistics {stats_err:.2e} of their layer's scale (tol "
+                f"1e-5; worst {worst}; against each statistic's own largest "
+                f"magnitude {own_err:.2e}); batch statistics of "
+                f"{len(rows)} batch norms, shares of the layer's scale, "
+                f"kernels vs plain (tol 1e-5 beyond plain vs f64): "
+                + "; ".join(
+                    f"{st} at most {top[st][st]['kernels_plain']:.2e} "
+                    f"({top[st]['layer']}: plain vs f64 "
+                    f"{top[st][st]['plain_f64']:.2e}, kernels vs f64 "
+                    f"{top[st][st]['kernels_f64']:.2e})"
+                    for st in ("mean", "var"))
+                + f"; largest excess {max(excess)[0]:.2e} ({max(excess)[1]}"
+                f" of {max(excess)[2]})")
+            if not (parity["loss_rel"] <= 1e-4
+                    and parity["grad_norm_rel"] <= 1e-3
+                    and stats_err <= 1e-5
+                    and max(excess)[0] <= 1e-5):
+                raise AssertionError("f32 CatNet step disagrees with plain")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def step():
+            aug = tr.transforms.augment(gen, batch)
+            tr.state, metrics = tr.train_step(tr.state, aug)
+            return float(metrics["loss"])
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        secs, losses = [], []
+        for _ in range(CATNET_TIMED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy, wall = _device_share(step)
+        want = {k: v * CATNET_TIMED_STEPS
+                for k, v in _catnet_want(precision).items()}
+        log(f"[catnet training] {smi}: {precision}, B={CATNET_BATCH} at "
+            f"{'x'.join(map(str, CATNET_SHAPE))}, augmentation "
+            f"{' '.join(AUGMENT_FLAGS)}: "
+            f"{', '.join(f'{x:.4f}' for x in secs)} s per step; device busy "
+            f"{busy:.4f} of {wall:.4f} s ({100 * busy / wall:.1f} %); peak "
+            f"{peak_gb:.2f} GB; launches in {CATNET_TIMED_STEPS} steps "
+            f"{launches}; losses {losses}")
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+        if not all(abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"non-finite loss {losses}")
+        out[precision] = dict(seconds_per_step=secs, losses=losses,
+                              launches=launches, peak_memory_gb=peak_gb,
+                              device_busy_s=busy, wall_s=wall,
+                              parity=parity)
+        del tr, state, model, params
+        torch.cuda.empty_cache()
+
+    tr = make_catnet_trainer(0, "bf16", learning_rate=1e-2)
+    losses = []
+    for _ in range(10):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+        losses.append(float(metrics["loss"]))
+    log(f"[catnet training] ten steps on one batch (bf16, no augmentation, "
+        f"lr 1e-2): losses {', '.join(f'{x:.5f}' for x in losses)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    out["fixed_batch_losses"] = losses
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _catnet_cli(smi):
+    """Phase 17 (d): ``classification train`` (f32, the yaml, 5 training
+    cases at B=2 for 2 epochs and 1 validation case), then ``test`` and
+    ``predict`` on its checkpoint, on 6 cases at 128x128x32 (3 with
+    bright ellipsoids, label 1), in this process so the launches are read
+    around each."""
+    from adell_mri_torch.tools.flagship import AUGMENT_FLAGS, CATNET_YAML
+
+    work = WORK_DIR / "catnet_cli"
+    work.mkdir(parents=True)
+    negatives = ("case_1", "case_3", "case_5")
+    ds = _pipeline_cohort(work, CATNET_SHAPE, negatives,
+                          n_cases=CATNET_CLI_CASES)
+    for pid, entry in ds.items():
+        entry["label"] = int(pid not in negatives)
+    (work / "ds.json").write_text(json.dumps(ds))
+    ckpt = work / "ckpt"
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda",
+              "--checkpoint_dir", str(ckpt)]
+    train_s, _, train_counts = _cli([
+        "classification", "train", *common, "--image_keys", "image",
+        "--config_file", str(CATNET_YAML),
+        "--pad_size", *map(str, CATNET_SHAPE),
+        "--target_spacing", "0.5", "0.5", "3.0",
+        "--batch_size", str(CATNET_CLI_BATCH),
+        "--max_epochs", "2", "--n_folds", "1", "--augment", *AUGMENT_FLAGS,
+        "--seed", "0", "--metric_path", str(work / "metrics.csv")])
+    meta = json.loads((ckpt / "classification_fold0" /
+                       "metadata.json").read_text())
+    if meta["net_type"] != "cat" or meta["network_config"][
+            "batch_ensemble"] != 4:
+        raise AssertionError(f"classification train wrote {meta}")
+    test_s, text, test_counts = _cli([
+        "classification", "test", *common,
+        "--metric_path", str(work / "test.csv")])
+    result = _last_json(text)
+    if result["n_cases"] != CATNET_CLI_CASES or not 0 <= result["auc"] <= 1:
+        raise AssertionError(f"classification test: {result}")
+    pred = work / "pred.json"
+    predict_s, _, predict_counts = _cli([
+        "classification", "predict", *common, "--output_path", str(pred)])
+    probs = json.loads(pred.read_text())
+    if sorted(probs) != sorted(ds) or not all(
+            0 <= p <= 1 for p in probs.values()):
+        raise AssertionError(f"classification predict: {probs}")
+    # f32: every K1 on the tf32 route; the training steps augment (K3)
+    for name, counts in (("train", train_counts), ("test", test_counts),
+                         ("predict", predict_counts)):
+        if not counts["conv3d_igemm_tf32"] == counts["conv3d_igemm"] > 0:
+            raise AssertionError(f"{name} launches {counts}")
+    if not (train_counts["intensity_aug"] > 0
+            and test_counts["conv3d_igemm"]
+            == CATNET_CONVS * CATNET_CLI_CASES
+            == predict_counts["conv3d_igemm"]):
+        raise AssertionError(f"launches {train_counts} {test_counts} "
+                             f"{predict_counts}")
+    log(f"[catnet cli] {smi}: train (f32, 2 epochs of 2 steps at B=2 and "
+        f"one validation case) {train_s:.2f} s, launches {train_counts}; "
+        f"test {test_s:.2f} s ({test_counts}): {result}; predict "
+        f"{len(probs)} cases {predict_s:.2f} s ({predict_counts}): {probs}")
+    return dict(train_s=train_s, test_s=test_s, predict_s=predict_s,
+                train_counts=train_counts, test_counts=test_counts,
+                predict_counts=predict_counts, test=result,
+                predictions=probs)
+
+
+def phase_catnet(smi, tf32_defaults):
+    """Phase 17: CatNet (``classification-cat-resnet.yaml``) served and
+    trained at the yaml's width and depth against the plain path, its K1
+    classes at B=16, its CLIs."""
+    t0 = time.perf_counter()
+    out = dict(serving=_catnet_serving(smi, tf32_defaults))
+    out["convs"] = _catnet_conv_classes()
+    out["training"] = _catnet_training(smi)
+    out["cli"] = _catnet_cli(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[catnet] phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3762,6 +4409,10 @@ def main():
         phase_s["+".join(map(str, phases))] = now - last[0]
         last[0] = now
 
+    # what the CLI runs with: phase 3 turns TF32 off for the rest of the
+    # script
+    tf32_defaults = dict(cudnn=torch.backends.cudnn.allow_tf32,
+                         matmul=torch.backends.cuda.matmul.allow_tf32)
     kind, smi = phase_device()
     build_s = phase_build()
     lap(1, 2)
@@ -3803,6 +4454,8 @@ def main():
     lap(15)
     swin = phase_swin(smi)
     lap(16)
+    catnet = phase_catnet(smi, tf32_defaults)
+    lap(17)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -3855,6 +4508,14 @@ def main():
         **{f"swin_{what}_{tag}_f32": swin["cli"][tag][f"{what}_counts"]
            for tag in ("plain", "heads")
            for what in ("train", "predict", "test")},
+        # phase 17: CatNet served (B=2) and trained (B=16) in bf16 and f32,
+        # and its CLIs (f32)
+        "catnet_serving": catnet["serving"]["bf16"]["launches"],
+        "catnet_serving_f32": catnet["serving"]["32"]["launches"],
+        "catnet_training": catnet["training"]["bf16"]["launches"],
+        "catnet_training_f32": catnet["training"]["32"]["launches"],
+        **{f"catnet_{what}_f32": catnet["cli"][f"{what}_counts"]
+           for what in ("train", "test", "predict")},
     }
 
     def launches_of(name):
@@ -3876,7 +4537,7 @@ def main():
               "train, resume, test and predict runs, phase 15's four- and "
               "ten-flag crop steps and train runs, phase 16's SWIN-UNet "
               "served cases, steps and CLI runs and UNETR at head dim 16, "
-              "every route",
+              "phase 17's CatNet forwards, steps and CLI runs, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -3938,6 +4599,19 @@ def main():
                   for r in ("wgmma", "tf32", "narrow")}
         routes["igemm"] = k["launches"] - sum(routes.values())
         k["launches_by_route"] = routes
+    # phase 17: CatNet's 8 K1 convs of a B=16 step's forward, dx and dW,
+    # per precision (K1 routes: wgmma in bf16, tf32 in f32)
+    catnet_rows = {d: [r for r in catnet["convs"] if r["dtype"] == d]
+                   for d in ("bfloat16", "float32")}
+    kernels[0]["catnet_step_forward"] = {
+        d: sum_rows(rows) for d, rows in catnet_rows.items()}
+    kernels[1]["catnet_step_dx"] = {
+        d: {"convs": sum(r["count"] for r in rows),
+            "ms": sum(r["dx_ms"] * r["count"] for r in rows),
+            "library_ms": sum(r["dx_library_ms"] * r["count"]
+                              for r in rows),
+            "bound_ms": sum(r["dx_bound_ms"] * r["count"] for r in rows)}
+        for d, rows in catnet_rows.items()}
     wgmma_totals = sum_rows([r for r in path_rows if r["route"] == "wgmma"])
     kernels[0]["igemm_bf16"] = {
         key: wgmma_totals[key] for key in ("convs", "igemm_ms", "ms",
@@ -3979,6 +4653,10 @@ def main():
                  "dw_bound_ms", "dw_max_abs_err", "dw_tol", "dw_peak_bytes",
                  "dw_plain_peak_bytes")
     kernels[-1]["step_all_dw"] = {k: dw_all[k] for k in step_keys}
+    # CatNet's 8 dW of a B=16 step: bf16 6 on the kernel and the two
+    # 512->512 on the patch product; f32 all 8 on the patch product
+    kernels[-1]["catnet_step_dw"] = {
+        d: dw_totals(rows) for d, rows in catnet_rows.items()}
     # f32 dW of a U-Net step (all 31 on the patch product), beside cuDNN's
     # f32 weight gradient (TF32 off) and the 3xTF32 and FMA bounds
     kernels[-1]["f32_step_dw"] = {
@@ -4006,8 +4684,9 @@ def main():
         "kernel (conv3d_igemm_f32_kernel) at the same convs; dx_per_step: "
         "the 29 "
         "tf32-route dx launches of an f32 U-Net step; launches: forward and "
-        "dx of the f32 served cases (U-Net, UNETR, SWIN-UNet), 3 f32 U-Net "
-        "steps, UNETR's f32 step and SWIN-UNet's f32 steps and CLI runs",
+        "dx of the f32 served cases (U-Net, UNETR, SWIN-UNet, CatNet), 3 "
+        "f32 U-Net steps, UNETR's f32 step, SWIN-UNet's and CatNet's f32 "
+        "steps and CLI runs",
         tf32_totals["library_ms"]))
     kernels[-1].update(bound_fma_ms=tf32_totals["bound_fma_ms"],
                        igemm_ms=tf32_totals["igemm_ms"],
@@ -4062,7 +4741,7 @@ def main():
         unetr_serving_f32=unetr_serving_f32,
         unetr_training=unetr_training, unetr_cli=unetr_cli,
         flagship_pipeline=pipeline, full_augmentation=augmentation,
-        swin=swin,
+        swin=swin, catnet=catnet,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,

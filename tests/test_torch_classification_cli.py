@@ -1,0 +1,291 @@
+"""
+The port's classification entry points on the CPU.
+
+``classification train --dev cpu`` trains the tiny CatNet (two stages,
+batch ensembles of 2, batch norm) on a 6-case 16x16x8 synthetic cohort
+and writes checkpoints whose metadata carries what the JAX trainer
+records; ``classification test`` and ``predict`` serve them. The port's
+``test`` and ``predict`` on a checkpoint agree with the JAX CLI's on a
+JAX checkpoint of the same weights and running statistics within 1e-4
+(f32 forwards of a few layers; the metrics are ranks and shares).
+``--dev`` defaults to cuda and raises where there is no GPU; flags that
+are not ported raise ``NotImplementedError``.
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from adell_mri_tpu.__main__ import main as jax_main
+from adell_mri_tpu.config.factories import (
+    get_classification_network as jget_network,
+)
+from adell_mri_tpu.train.checkpoints import CheckpointManager as JaxCkpt
+from adell_mri_torch.__main__ import main as cli_main
+from adell_mri_torch.data import nifti as tnifti
+from adell_mri_torch.entrypoints.classification import predict as tpredict
+from adell_mri_torch.entrypoints.classification import test as ttest
+from adell_mri_torch.entrypoints.classification import train as ttrain
+from adell_mri_torch.interop.from_flax import from_flax
+from adell_mri_torch.train.checkpoints import CheckpointManager
+from test_torch_unet import random_flax_params
+
+LPS = np.diag([-1.0, -1.0, 2.0, 1.0])
+SHAPE = (16, 16, 8)
+N_CASES = 6
+TOL = 1e-4
+NETWORK = {"resnet_structure": [[8, 16, 3, 1], [16, 32, 3, 1]],
+           "maxpool_structure": [[2, 2, 2], [2, 2, 1]],
+           "batch_ensemble": 2, "res_type": "resnet"}
+GRADES = ["a", "b", "c", "a", "c", "b"]
+
+
+@pytest.fixture(scope="module")
+def cohort(tmp_path_factory):
+    """Six cases: a bright block in the positives (label 1), noise
+    elsewhere; a string ``grade`` for the multiclass runs."""
+    root = tmp_path_factory.mktemp("cls_cohort")
+    rng = np.random.default_rng(0)
+    ds = {}
+    for i in range(N_CASES):
+        label = i % 2
+        img = rng.normal(size=SHAPE).astype(np.float32)
+        if label:
+            img[4:10, 5:12, 2:6] += 3.0
+        path = str(root / f"case_{i}_T2.nii.gz")
+        tnifti.write_nifti(path, img, LPS)
+        ds[f"case_{i}"] = {"T2": path, "label": label, "grade": GRADES[i]}
+    (root / "ds.json").write_text(json.dumps(ds))
+    (root / "cat.yaml").write_text(yaml.safe_dump(
+        {**NETWORK, "learning_rate": 0.01, "batch_size": 2}))
+    return root
+
+
+def _train_args(root, ckpt, *extra):
+    return [
+        "--dataset_json", str(root / "ds.json"), "--image_keys", "T2",
+        "--config_file", str(root / "cat.yaml"),
+        "--pad_size", *map(str, SHAPE), "--target_spacing", "1", "1", "2",
+        "--max_epochs", "2", "--n_folds", "1", "--dev", "cpu",
+        "--checkpoint_dir", str(ckpt), "--metric_path",
+        str(ckpt / "metrics.csv"), *extra,
+    ]
+
+
+def _last_json(out: str):
+    return json.loads([ln for ln in out.splitlines()
+                       if ln.startswith(("{", "["))][-1])
+
+
+def test_train_test_predict_on_cpu(cohort, capsys, caplog):
+    """Binary: crops, augmentation, mixup, label smoothing, class weights,
+    the bias correction, SWA, early stopping; then a resume; then test
+    and predict on what it wrote."""
+    ckpt = cohort / "ckpt_bin"
+    extra = ["--random_crop_size", "12", "12", "8",
+             "--augment", "intensity", "noise", "affine", "flip",
+             "--mixup_alpha", "0.4", "--partial_mixup", "0.5",
+             "--label_smoothing", "0.1", "--class_weights", "2.0",
+             "--correct_classification_bias", "--swa",
+             "--early_stopping", "5", "--seed", "3"]
+    cli_main(["classification", "train", *_train_args(cohort, ckpt, *extra)])
+    fold = ckpt / "classification_fold0"
+    assert sorted(os.listdir(fold)) == ["best.json", "last.pt",
+                                        "metadata.json", "model.pt"]
+    meta = json.loads((fold / "metadata.json").read_text())
+    assert meta["net_type"] == "cat" and meta["n_classes"] == 2
+    assert meta["network_config"]["batch_ensemble"] == 2
+    assert meta["transform_arguments"]["target_size"] == list(SHAPE)
+    assert meta["transform_arguments"]["label_key"] == "label"
+    assert len(meta["train_pids"]) + len(meta["val_pids"]) == N_CASES
+    state = torch.load(fold / "model.pt", weights_only=True)
+    stats = [k for k in state if k.endswith(".mean")]
+    assert stats and any(float(state[k].abs().max()) > 0 for k in stats)
+    last = torch.load(fold / "last.pt", weights_only=True)
+    assert last["epoch"] == 2 and set(last["variables"]) == {
+        k for k in state if k.endswith((".mean", ".var"))}
+    rows = (ckpt / "metrics.csv").read_text()
+    assert "val_loss" in rows and "acc" in rows
+
+    caplog.set_level("INFO")
+    cli_main(["classification", "train", *_train_args(cohort, ckpt, *extra),
+              "--resume_from_last", "--max_epochs", "3"])
+    assert "fold 0: resuming from epoch 2" in caplog.text
+    assert torch.load(fold / "last.pt", weights_only=True)["epoch"] == 3
+
+    capsys.readouterr()
+    cli_main(["classification", "test", "--dataset_json",
+              str(cohort / "ds.json"), "--checkpoint_dir", str(ckpt),
+              "--dev", "cpu", "--metric_path", str(ckpt / "test.csv")])
+    result = _last_json(capsys.readouterr().out)
+    assert result["n_cases"] == N_CASES
+    assert 0.0 <= result["auc"] <= 1.0 and "f1" in result
+    out = cohort / "pred_bin.json"
+    cli_main(["classification", "predict", "--dataset_json",
+              str(cohort / "ds.json"), "--checkpoint_dir", str(ckpt),
+              "--dev", "cpu", "--output_path", str(out)])
+    printed = _last_json(capsys.readouterr().out)
+    preds = json.loads(out.read_text())
+    assert preds == printed and sorted(preds) == sorted(
+        f"case_{i}" for i in range(N_CASES))
+    assert all(0.0 <= v <= 1.0 for v in preds.values())
+
+
+def test_multiclass_train_and_serve_on_cpu(cohort, capsys):
+    """Multiclass string labels (``--possible_labels``) under bf16 with
+    stratified folds, weighted sampling, class weights and adamw; test
+    takes the multiclass metrics, predict the softmax, the logits and the
+    pooled features, and two ID groups give the list of records."""
+    ckpt = cohort / "ckpt_multi"
+    cli_main(["classification", "train", *_train_args(
+        cohort, ckpt, "--label_keys", "grade", "--possible_labels", "a",
+        "b", "c", "--n_folds", "2", "--weighted_sampling",
+        "--class_weights", "1.0", "2.0", "1.0", "--optimizer", "adamw",
+        "--precision", "bf16", "--batch_size", "2", "--max_epochs", "1")])
+    for k in range(2):
+        meta = json.loads((ckpt / f"classification_fold{k}" /
+                           "metadata.json").read_text())
+        assert meta["n_classes"] == 3
+        assert meta["transform_arguments"]["possible_labels"] == [
+            "a", "b", "c"]
+    capsys.readouterr()
+    cli_main(["classification", "test", "--dataset_json",
+              str(cohort / "ds.json"), "--checkpoint_dir", str(ckpt),
+              "--dev", "cpu", "--precision", "bf16", "--metric_path",
+              str(ckpt / "test.csv")])
+    result = _last_json(capsys.readouterr().out)
+    assert result["n_cases"] == N_CASES and "precision_c2" in result
+    for kind, check in (
+            ("probability", lambda v: len(v) == 3
+             and abs(sum(v) - 1.0) < 1e-5),
+            ("logit", lambda v: len(v) == 3),
+            ("features", lambda v: len(v) == 16)):
+        out = cohort / f"pred_{kind}.json"
+        cli_main(["classification", "predict", "--dataset_json",
+                  str(cohort / "ds.json"), "--checkpoint_dir", str(ckpt),
+                  "--dev", "cpu", "--prediction_type", kind,
+                  "--output_path", str(out)])
+        preds = json.loads(out.read_text())
+        assert len(preds) == N_CASES and all(map(check, preds.values()))
+    out = cohort / "pred_groups.json"
+    cli_main(["classification", "predict", "--dataset_json",
+              str(cohort / "ds.json"), "--checkpoint_dir", str(ckpt),
+              "--dev", "cpu", "--prediction_ids", "case_0,case_1",
+              "case_2", "--output_path", str(out)])
+    records = json.loads(out.read_text())
+    assert [r["prediction_ids"] for r in records] == [
+        ["case_0", "case_1"], ["case_2"]]
+    assert records[0]["checkpoint"].endswith("classification_fold0")
+
+
+def _checkpoints(root, n_classes):
+    """The same seeded weights and running statistics as a JAX checkpoint
+    and a port one."""
+    metadata = {
+        "network_config": NETWORK,
+        "transform_arguments": {
+            "image_keys": ["T2"],
+            "label_key": "label" if n_classes == 2 else "grade",
+            "target_spacing": [1.0, 1.0, 2.0],
+            "target_size": list(SHAPE), "adc_keys": [],
+            "possible_labels": None if n_classes == 2 else ["a", "b", "c"],
+        },
+        "n_classes": n_classes,
+        "net_type": "cat",
+    }
+    jm = jget_network("cat", NETWORK, n_classes=n_classes)
+    x = jnp.asarray(np.random.default_rng(1).uniform(
+        size=(4,) + SHAPE + (1,)).astype(np.float32))
+    params = jax.tree.map(jnp.asarray, random_flax_params(
+        jm, x, seed=30 + n_classes))
+    bs = jm.init(jax.random.PRNGKey(0), x)["batch_stats"]
+    for i in range(4):
+        _, upd = jm.apply({"params": params, "batch_stats": bs}, x,
+                          train=True, mutable=["batch_stats"],
+                          rngs={"dropout": jax.random.PRNGKey(i),
+                                "ensemble": jax.random.PRNGKey(i)})
+        bs = upd["batch_stats"]
+    jdir = root / f"jax_ckpt_{n_classes}"
+    jck = JaxCkpt(str(jdir), name="classification", fold=0,
+                  metadata=metadata)
+    jck.save(1, {"params": params, "batch_stats": bs},
+             metrics={"val_loss": 0.5})
+    jck.wait()
+    tdir = root / f"torch_ckpt_{n_classes}"
+    CheckpointManager(str(tdir), name="classification", fold=0,
+                      metadata=metadata).save(from_flax(params, bs), step=1,
+                                              value=0.5)
+    return jdir, tdir
+
+
+@pytest.mark.parametrize("n_classes", [2, 3])
+def test_test_and_predict_match_jax(cohort, capsys, n_classes):
+    jdir, tdir = _checkpoints(cohort, n_classes)
+    common = ["--dataset_json", str(cohort / "ds.json"), "--dev", "cpu"]
+    jax_main(["classification", "test", *common, "--checkpoint_dir",
+              str(jdir), "--metric_path", str(cohort / "m_jax.csv")])
+    want = _last_json(capsys.readouterr().out)
+    cli_main(["classification", "test", *common, "--checkpoint_dir",
+              str(tdir), "--metric_path", str(cohort / "m_torch.csv")])
+    got = _last_json(capsys.readouterr().out)
+    assert set(got) == set(want) and got["n_cases"] == N_CASES
+    assert got.pop("checkpoint").endswith("classification_fold0")
+    want.pop("checkpoint")
+    for k, v in want.items():
+        if isinstance(v, float) and np.isnan(v):
+            assert np.isnan(got[k]), k
+        else:
+            assert abs(got[k] - v) <= TOL, (k, got[k], v)
+    jout, tout = cohort / "jpred.json", cohort / "tpred.json"
+    jax_main(["classification", "predict", *common, "--checkpoint_dir",
+              str(jdir), "--output_path", str(jout)])
+    cli_main(["classification", "predict", *common, "--checkpoint_dir",
+              str(tdir), "--output_path", str(tout)])
+    want, got = json.loads(jout.read_text()), json.loads(tout.read_text())
+    assert set(got) == set(want)
+    for pid, v in want.items():
+        np.testing.assert_allclose(got[pid], v, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--clinical_feature_keys", "age"], ["--image_masking"],
+     ["--image_crop_from_mask"], ["--mask_keys", "T2"],
+     ["--resize_size", "8", "8", "4"], ["--accumulate_grad_batches", "2"],
+     ["--checkpoint", "x"], ["--freeze_regex", "Dense"],
+     ["--calibration_ids", "case_0"], ["--logger_type", "wandb"],
+     ["--classification_net_type", "vit"]],
+)
+def test_train_unported_flags_raise(cohort, flags):
+    with pytest.raises(NotImplementedError):
+        ttrain.main(_train_args(cohort, cohort / "ckpt_x", *flags))
+
+
+@pytest.mark.parametrize(
+    "entry, flags",
+    [(ttest, ["--checkpoint", "x"]), (ttest, ["--one_to_one"]),
+     (tpredict, ["--ensemble", "mean"]), (tpredict, ["--one_to_one"]),
+     (tpredict, ["--prediction_type", "set"])],
+)
+def test_serving_unported_flags_raise(cohort, entry, flags):
+    _, tdir = _checkpoints(cohort, 2)
+    args = ["--dataset_json", str(cohort / "ds.json"), "--dev", "cpu",
+            "--checkpoint_dir", str(tdir), *flags]
+    if entry is tpredict:
+        args += ["--output_path", str(cohort / "unused.json")]
+    with pytest.raises(NotImplementedError):
+        entry.main(args)
+
+
+def test_dev_defaults_to_cuda(cohort, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _train_args(cohort, cohort / "ckpt_cuda")
+    i = args.index("--dev")
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        ttrain.main(args[:i] + args[i + 2:])
