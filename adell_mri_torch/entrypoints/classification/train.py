@@ -241,7 +241,8 @@ def main(arguments):
             mixup_alpha=args.mixup_alpha,
             partial_mixup_fraction=args.partial_mixup,
             seed=args.seed,
-            n_classes=n_classes,
+            # the JAX CLI passes --n_classes, not the derived class count
+            n_classes=args.n_classes,
         )
 
     for fold_idx, (train_pids, val_pids) in enumerate(folds):

@@ -30,6 +30,7 @@ from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
 from adell_mri_torch.eval.lesion import extract_lesion_candidates
 from adell_mri_torch.inference import SegmentationInference
+from adell_mri_torch.models.layers.adn import statistics_to_f32
 from adell_mri_torch.train.checkpoints import CheckpointManager
 from adell_mri_torch.train.precision import compute_dtype
 from adell_mri_torch.transforms.host import (
@@ -203,7 +204,8 @@ def main(arguments):
             image_size=t_args.get("target_size"),
         )
         model.load_state_dict(m.load_state_dict())
-        models.append(model.to(device=device, dtype=dtype).eval())
+        models.append(statistics_to_f32(
+            model.to(device=device, dtype=dtype)).eval())
 
     def base_fn(model, x):
         return model(x.to(dtype), heads=False).float()

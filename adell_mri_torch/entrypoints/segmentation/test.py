@@ -24,6 +24,7 @@ from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
 from adell_mri_torch.eval import evaluate as picai_evaluate
 from adell_mri_torch.eval.metrics import dice_score, iou_score
+from adell_mri_torch.models.layers.adn import statistics_to_f32
 from adell_mri_torch.train.checkpoints import CheckpointManager
 from adell_mri_torch.train.logging_utils import MetricLogger
 from adell_mri_torch.train.precision import compute_dtype
@@ -96,7 +97,7 @@ def main(arguments):
         net_type, net_cfg, n_classes=n_classes, image_size=size
     )
     model.load_state_dict(mngr.load_state_dict())
-    model = model.to(device=device, dtype=dtype).eval()
+    model = statistics_to_f32(model.to(device=device, dtype=dtype)).eval()
 
     load_fn = SegmentationTransforms(
         image_keys=image_keys,

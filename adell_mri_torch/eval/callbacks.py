@@ -17,6 +17,7 @@ import torch
 
 from adell_mri_torch.eval.lesion import evaluate
 from adell_mri_torch.eval.metrics import binary_metrics, multiclass_metrics
+from adell_mri_torch.models.layers.adn import batch_statistics_mode
 
 
 def foreground_probability(pred: torch.Tensor) -> torch.Tensor:
@@ -78,11 +79,13 @@ class LesionEvalCallback:
 
 
 class ClassificationMetricsCallback:
-    """``model`` runs in eval mode on each validation batch with the
-    weights the loop validates (the running statistics among them; the
-    JAX callback applies the parameters alone, so its batch norms take
-    the batch's statistics); at most ``max_cases`` cases are kept.
-    ``on_validation_end`` returns the finite metrics, ``V_``-prefixed."""
+    """``model`` runs in eval mode (no dropout) on each validation batch
+    with the weights the loop validates, its batch norms normalizing by
+    the batch's own statistics (``batch_statistics_mode``: (0, 1) where a
+    feature has one element) and leaving the running averages alone, as
+    the JAX callback's forward with the parameters alone does; at most
+    ``max_cases`` cases are kept. ``on_validation_end`` returns the finite
+    metrics, ``V_``-prefixed."""
 
     def __init__(self, model, n_classes: int = 2, max_cases: int = 4096):
         self.model = model
@@ -95,7 +98,7 @@ class ClassificationMetricsCallback:
         if len(self._probs) >= self.max_cases:
             return
         self.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), batch_statistics_mode(self.model):
             logits = torch.func.functional_call(self.model, params,
                                                 (batch["image"],)).float()
         probs = (torch.softmax(logits, -1) if self.n_classes > 2

@@ -28,9 +28,13 @@ buffers ``a.b.mean`` and ``a.b.var``. Only the layouts change:
   ConvTranspose applies its kernel flipped
   (``adell_mri_tpu/ops/conv.py:conv_transpose_block``), and becomes
   ``[Cin,kd,kh,kw,Cout]``; an attention block's ``proj`` Dense is not one
-  of them.
+  of them, nor is a 1x1 kernel (the U-Net's ``upsample`` ``up_{i}``, or a
+  stride-1 transposed conv), which the port holds as a ``Pointwise``;
+- a depthwise kernel ``[kd,kh,kw,1,C]`` stays as it is (``DwConv``).
 
-Instance norm has no parameters, so it has no keys on either side.
+A prelu ADN's ``prelu``, GRN's ``gamma`` and LayerScale's
+``layer_scale`` keep their names. Instance norm without affine
+parameters has no keys on either side.
 """
 
 import re
@@ -51,12 +55,15 @@ def _flatten(tree: Mapping, prefix=()):
 
 # the modules that are transposed convs, by the name that owns the kernel
 _TRANSPOSED = re.compile(r"^(up_\d+|proj_\d+_\d+|ConvTranspose_\d+)$")
-# leaves that keep their names: the token parameters, a batch ensemble's
-_KEPT_NAMES = ("pos_embedding", "class_token", "registers", "r", "s")
+# leaves that keep their names: the token parameters, a batch ensemble's,
+# a prelu ADN's slope, GRN's gamma, LayerScale's scale
+_KEPT_NAMES = ("pos_embedding", "class_token", "registers", "r", "s",
+               "prelu", "gamma", "layer_scale")
 
 
 def _convert_kernel(path, k: np.ndarray) -> np.ndarray:
-    if len(path) >= 2 and _TRANSPOSED.match(path[-2]):
+    if (len(path) >= 2 and _TRANSPOSED.match(path[-2])
+            and not all(s == 1 for s in k.shape[:-2])):
         k = np.flip(k, axis=tuple(range(k.ndim - 2)))
         return np.moveaxis(k, -2, 0)
     if k.ndim == 2:

@@ -9,6 +9,7 @@ channels-last tensors.
 from typing import Sequence, Union
 
 import torch.nn as nn
+import torch.nn.functional as F
 
 from adell_mri_torch.ops.conv import Pointwise
 
@@ -42,12 +43,25 @@ class GlobalPooling(nn.Module):
         return x.mean(dim=axes)
 
 
-def max_pool(x, window: Union[int, Sequence[int]]):
-    """Max pooling of ``[B, *S, C]`` with VALID padding and the stride of
-    the window (flax's ``max_pool`` as the JAX ``max_pool`` calls it): a
-    trailing remainder shorter than the window is dropped."""
+def max_pool(x, window: Union[int, Sequence[int]], padding: str = "VALID"):
+    """Max pooling of ``[B, *S, C]`` with the stride of the window (flax's
+    ``max_pool`` as the JAX package calls it). "VALID" drops a trailing
+    remainder shorter than the window; "SAME" gives ``ceil(n / k)``
+    outputs, padding as XLA does (``total // 2`` low, the rest high, at
+    most ``k - 1`` in all) with -inf, which no window takes."""
     spatial = tuple(x.shape[1:-1])
     w = _tuple(window, len(spatial))
+    if padding == "SAME":
+        pads = []
+        for n, k in zip(spatial, w):
+            total = -(-n // k) * k - n
+            pads.append((total // 2, total - total // 2))
+        if any(p for lo_hi in pads for p in lo_hi):
+            flat = [0, 0] + [p for lo_hi in reversed(pads) for p in lo_hi]
+            x = F.pad(x, flat, value=float("-inf"))
+            spatial = tuple(x.shape[1:-1])
+    elif padding != "VALID":
+        raise NotImplementedError(f"max_pool padding {padding!r}")
     out = [n // k for n, k in zip(spatial, w)]
     x = x[(slice(None),) + tuple(slice(0, o * k) for o, k in zip(out, w))]
     shape = [x.shape[0]]

@@ -1,8 +1,8 @@
 """
-Resizing of channels-last feature maps.
+Resizing of channels-last feature maps, and ASPP.
 
-Counterpart of ``resize_like`` in
-``adell_mri_tpu/models/layers/multi_resolution.py``, which is
+Counterpart of ``resize_like`` and ``AtrousSpatialPyramidPooling`` in
+``adell_mri_tpu/models/layers/multi_resolution.py``; ``resize_like`` is
 ``jax.image.resize``. Its ``linear`` method is separable and ANTIALIASED:
 along an axis that shrinks, the triangle kernel is widened by the shrink
 factor, so a 2x shrink weighs four neighbours (1/8, 3/8, 3/8, 1/8,
@@ -25,6 +25,10 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+from adell_mri_torch.models.layers.blocks import apply_adn
+from adell_mri_torch.ops.conv import Conv3d, Pointwise
 
 
 def _resize_weights(n_in: int, n_out: int, kernel, device=None,
@@ -62,11 +66,32 @@ def _keys_cubic(x):
     return torch.where(x >= 2.0, 0.0, out)
 
 
-def cubic_resize_weights(n_in: int, n_out: int):
+def cubic_resize_weights(n_in: int, n_out: int, device=None):
     """``[n_in, n_out]`` f32 weights of ``jax.image.resize``'s cubic
     resize of one axis (its sample positions: ``1 / (out / in)``)."""
-    return _resize_weights(n_in, n_out, _keys_cubic,
+    return _resize_weights(n_in, n_out, _keys_cubic, device,
                            inv_scale=1.0 / (n_out / n_in))
+
+
+def _lanczos(radius: float):
+    def kernel(x):
+        y = radius * torch.sin(np.pi * x) * torch.sin(np.pi * x / radius)
+        out = torch.where(
+            x > 1e-3, y / torch.where(x != 0, np.pi ** 2 * x * x, 1.0), 1.0)
+        return torch.where(x > radius, 0.0, out)
+
+    return kernel
+
+
+def lanczos_resize_weights(radius: int):
+    """The ``[n_in, n_out]`` weights function of ``jax.image.resize``'s
+    ``lanczos{radius}`` resize of one axis."""
+
+    def weights(n_in: int, n_out: int, device=None):
+        return _resize_weights(n_in, n_out, _lanczos(float(radius)), device,
+                               inv_scale=1.0 / (n_out / n_in))
+
+    return weights
 
 
 def nearest_resize_index(n_in: int, n_out: int, device=None):
@@ -139,19 +164,32 @@ def resize_volume(x, shape, method: str = "linear"):
     return x
 
 
+# the method names ``jax.image.resize`` takes, by the weights of each
+_RESIZE_LIKE = {
+    **dict.fromkeys(("linear", "bilinear", "trilinear", "triangle"),
+                    linear_resize_weights),
+    **dict.fromkeys(("cubic", "bicubic", "tricubic"), cubic_resize_weights),
+    "lanczos3": lanczos_resize_weights(3),
+    "lanczos5": lanczos_resize_weights(5),
+}
+
+
 def resize_like(x, target_shape_spatial, method: str = "linear"):
     """Resizes the spatial axes of channels-last ``x`` ``[B, *S, C]`` to
-    ``target_shape_spatial`` with ``method`` "linear" (antialiased) or
-    "nearest". Axes whose size stays are left alone."""
+    ``target_shape_spatial`` with ``method``: "nearest", or any other name
+    ``jax.image.resize`` takes ("linear" and its aliases, "cubic" and its
+    aliases, "lanczos3", "lanczos5"), antialiased as there. Axes whose
+    size stays are left alone."""
     target = tuple(int(t) for t in target_shape_spatial)
     if len(target) != x.dim() - 2:
         raise ValueError(
             f"target {target} does not fit the spatial axes of "
             f"{tuple(x.shape)}"
         )
-    if method not in ("linear", "nearest"):
+    if method not in _RESIZE_LIKE and method != "nearest":
         raise NotImplementedError(
-            f"resize method {method!r} is not ported (linear, nearest)"
+            f"resize method {method!r} is not ported (nearest, "
+            f"{', '.join(_RESIZE_LIKE)})"
         )
     for axis, n_out in enumerate(target, start=1):
         n_in = x.shape[axis]
@@ -161,8 +199,49 @@ def resize_like(x, target_shape_spatial, method: str = "linear"):
             x = x.index_select(axis, nearest_resize_index(n_in, n_out,
                                                           x.device))
         else:
-            w = linear_resize_weights(n_in, n_out, x.device).to(x.dtype)
+            w = _RESIZE_LIKE[method](n_in, n_out, x.device).to(x.dtype)
             x = torch.movedim(
                 torch.tensordot(x, w, dims=([axis], [0])), -1, axis
             )
     return x
+
+
+
+class AtrousSpatialPyramidPooling(nn.Module):
+    """ASPP (the JAX package's ``AtrousSpatialPyramidPooling``): per rate a
+    3^3 conv at that dilation and an ADN, a branch of the spatial mean
+    through a 1x1 conv broadcast back, all concatenated, then a 1x1
+    projection and an ADN. Names are the flax tree's: ``Conv_{i}`` for the
+    dilated convs, then the pooled branch's and the projection's;
+    ``ActDropNorm_{i}`` in call order. The dilated convs are ``F.conv3d``,
+    as XLA computes them in the JAX package."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 rates=(1, 2, 4), adn_fn=None):
+        super().__init__()
+        self.n_rates = len(rates)
+        for i, rate in enumerate(rates):
+            self.add_module(f"Conv_{i}", Conv3d(
+                in_channels, out_channels, (3, 3, 3),
+                dilation=(rate,) * 3))
+            self.add_module(f"ActDropNorm_{i}",
+                            adn_fn(out_channels) if adn_fn else None)
+        n = self.n_rates
+        self.add_module(f"Conv_{n}", Pointwise(in_channels, out_channels))
+        self.add_module(f"Conv_{n + 1}",
+                        Pointwise(out_channels * (n + 1), out_channels))
+        self.add_module(f"ActDropNorm_{n}",
+                        adn_fn(out_channels) if adn_fn else None)
+
+    def forward(self, x):
+        n = self.n_rates
+        branches = [
+            apply_adn(getattr(self, f"ActDropNorm_{i}"),
+                      getattr(self, f"Conv_{i}")(x))
+            for i in range(n)
+        ]
+        g = x.mean(dim=tuple(range(1, x.dim() - 1)), keepdim=True)
+        g = getattr(self, f"Conv_{n}")(g)
+        branches.append(g.expand(x.shape[:-1] + (g.shape[-1],)))
+        y = getattr(self, f"Conv_{n + 1}")(torch.cat(branches, -1))
+        return apply_adn(getattr(self, f"ActDropNorm_{n}"), y)

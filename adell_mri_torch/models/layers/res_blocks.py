@@ -1,19 +1,25 @@
 """
 Residual blocks.
 
-Counterpart of ``ResidualBlock`` in
+Counterpart of ``ResidualBlock`` and ``ConvNeXtBlock`` in
 ``adell_mri_tpu/models/layers/res_blocks.py``. Without ``inter_channels``
 (the UNet's residual link): two kxk convs with an ADN between them, the
 skip added, an optional 1x1 projection, then the trailing ADN. With it
 (the ResNet backbone's bottleneck): 1x1 to ``inter_channels``, ADN, kxk,
 ADN, 1x1 back to the input width, the skip added, the 1x1 projection when
-the width changes, then the trailing ADN.
+the width changes, then the trailing ADN. ``ConvNeXtBlock``: a depthwise
+7^3 conv, flax's LayerNorm, the two Dense layers around a GELU (flax's,
+the tanh approximation), GRN (v2) or LayerScale (v1), the skip added, and
+a 1x1 conv + GELU where the width changes.
 """
 
 import torch.nn as nn
+import torch.nn.functional as F
 
+from adell_mri_torch.models.layers.adn import LayerNorm
 from adell_mri_torch.models.layers.blocks import _tuple, apply_adn
-from adell_mri_torch.ops.conv import Conv3d, Pointwise
+from adell_mri_torch.models.layers.regularization import GRN, LayerScale
+from adell_mri_torch.ops.conv import Conv3d, DwConv, Pointwise
 
 
 class ResidualBlock(nn.Module):
@@ -63,3 +69,40 @@ class ResidualBlock(nn.Module):
         if proj is not None:
             out = proj(out)
         return apply_adn(getattr(self, self.out_adn), out)
+
+
+class ConvNeXtBlock(nn.Module):
+    """Module names are the JAX tree's: ``Conv_0`` (the depthwise conv),
+    ``LayerNorm_0``, ``Dense_0``, ``Dense_1``, ``GRN_0`` or
+    ``LayerScale_0``, ``Conv_1`` (the projection)."""
+
+    def __init__(self, in_channels: int, out_channels: int = None,
+                 kernel_size: int = 7, inter_channels: int = None,
+                 v2: bool = False, layer_scale_init: float = 1e-6):
+        super().__init__()
+        out_channels = out_channels or in_channels
+        inter = inter_channels or 4 * in_channels
+        self.Conv_0 = DwConv(in_channels, _tuple(kernel_size, 3))
+        self.LayerNorm_0 = LayerNorm(in_channels, 1e-6)
+        self.Dense_0 = Pointwise(in_channels, inter)
+        self.Dense_1 = Pointwise(inter, in_channels)
+        if v2:
+            self.GRN_0 = GRN(inter)
+        else:
+            self.LayerScale_0 = LayerScale(in_channels, layer_scale_init)
+        self.v2 = v2
+        self.Conv_1 = (Pointwise(in_channels, out_channels)
+                       if in_channels != out_channels else None)
+
+    def forward(self, x):
+        y = self.LayerNorm_0(self.Conv_0(x))
+        y = F.gelu(self.Dense_0(y), approximate="tanh")
+        if self.v2:
+            y = self.GRN_0(y)
+        y = self.Dense_1(y)
+        if not self.v2:
+            y = self.LayerScale_0(y)
+        out = y + x
+        if self.Conv_1 is not None:
+            out = F.gelu(self.Conv_1(out), approximate="tanh")
+        return out

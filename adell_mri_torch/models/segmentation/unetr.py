@@ -72,7 +72,8 @@ class _DecoderStage(nn.Module):
 _UNPORTED = {
     "skip_conditioning": None,
     "feature_conditioning": None,
-    # the segmentation steps carry no batch-norm statistics
+    # the ADN has every norm, but no other is held against the JAX
+    # UNETR and SWIN-UNet yet
     "norm_type": "instance",
 }
 

@@ -11,9 +11,10 @@ over. Here:
   (``conv3d_igemm_train``; the plain version on CPU tensors);
 - any other conv (the strided downsample convs with their explicit
   symmetric pads, the kernel == stride VALID patchify conv of the
-  transformer embedding, other kernel sizes) is ``F.conv3d`` on a
-  channels-last view, as the JAX package computes them outside any Pallas
-  kernel;
+  transformer embedding, other kernel sizes, dilated convs) is
+  ``F.conv3d`` on a channels-last view, as the JAX package computes them
+  outside any Pallas kernel; so is the depthwise conv (``DwConv``, the
+  JAX package's ``TpuDwConv``: no Pallas kernel either);
 - the kernel == stride transposed conv is one matmul plus a depth-to-space
   rearrange;
 - a 1x1 conv is a plain product over the channel axis (``Pointwise``).
@@ -38,12 +39,12 @@ from adell_mri_torch.ops.kernels.conv import conv3d_igemm_train
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
 
-def _same_pads(spatial, k, strides):
+def _same_pads(spatial, k, strides, dilation=(1, 1, 1)):
     """TF/XLA SAME: output ceil(n/s), the odd pad on the high side."""
     pads = []
-    for n, kk, s in zip(spatial, k, strides):
+    for n, kk, s, r in zip(spatial, k, strides, dilation):
         out = -(-n // s)
-        total = max((out - 1) * s + kk - n, 0)
+        total = max((out - 1) * s + (kk - 1) * r + 1 - n, 0)
         pads.append((total // 2, total - total // 2))
     return pads
 
@@ -56,15 +57,17 @@ def lecun_normal_(w, fan_in: int):
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
-def conv3d(x, w, bias=None, strides=(1, 1, 1), padding: Padding = "SAME"):
-    """x [B,D,H,W,Cin], w [kd,kh,kw,Cin,Cout]; ``padding`` is "SAME",
-    "VALID" (none) or per-axis (low, high) pairs."""
+def conv3d(x, w, bias=None, strides=(1, 1, 1), padding: Padding = "SAME",
+           dilation=(1, 1, 1), groups: int = 1):
+    """x [B,D,H,W,Cin], w [kd,kh,kw,Cin/groups,Cout]; ``padding`` is
+    "SAME", "VALID" (none) or per-axis (low, high) pairs."""
     k = tuple(w.shape[:3])
-    strides = tuple(strides)
-    if k == (3, 3, 3) and strides == (1, 1, 1) and padding == "SAME":
+    strides, dilation = tuple(strides), tuple(dilation)
+    if (k == (3, 3, 3) and strides == (1, 1, 1) and padding == "SAME"
+            and dilation == (1, 1, 1) and groups == 1):
         return conv3d_igemm_train(x.contiguous(), w, bias)
     if padding == "SAME":
-        pads = _same_pads(x.shape[1:4], k, strides)
+        pads = _same_pads(x.shape[1:4], k, strides, dilation)
     elif padding == "VALID":
         pads = [(0, 0)] * 3
     else:
@@ -73,7 +76,8 @@ def conv3d(x, w, bias=None, strides=(1, 1, 1), padding: Padding = "SAME"):
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]
     if any(flat):
         xc = F.pad(xc, flat)
-    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), bias, stride=strides)
+    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), bias, stride=strides,
+                 dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 4, 1)
 
 
@@ -88,10 +92,12 @@ class Conv3d(nn.Module):
         kernel_size: Sequence[int],
         strides: Sequence[int] = (1, 1, 1),
         padding: Padding = "SAME",
+        dilation: Sequence[int] = (1, 1, 1),
     ):
         super().__init__()
         self.strides = tuple(strides)
         self.padding = padding
+        self.dilation = tuple(dilation)
         self.weight = nn.Parameter(
             torch.empty(tuple(kernel_size) + (in_channels, out_channels))
         )
@@ -99,7 +105,29 @@ class Conv3d(nn.Module):
         lecun_normal_(self.weight, in_channels * self.weight.shape[:3].numel())
 
     def forward(self, x):
-        return conv3d(x, self.weight, self.bias, self.strides, self.padding)
+        return conv3d(x, self.weight, self.bias, self.strides, self.padding,
+                      self.dilation)
+
+
+class DwConv(nn.Module):
+    """Channels-last depthwise 3D conv (the port's ``TpuDwConv``): one
+    ``[kd,kh,kw]`` filter a channel, weight ``[kd,kh,kw,1,C]`` (flax's
+    grouped-conv layout), bias ``[C]``; a grouped ``F.conv3d``."""
+
+    def __init__(self, channels: int, kernel_size: Sequence[int],
+                 strides: Sequence[int] = (1, 1, 1),
+                 padding: Padding = "SAME"):
+        super().__init__()
+        self.strides = tuple(strides)
+        self.padding = padding
+        self.weight = nn.Parameter(
+            torch.empty(tuple(kernel_size) + (1, channels)))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        lecun_normal_(self.weight, self.weight.shape[:3].numel())
+
+    def forward(self, x):
+        return conv3d(x, self.weight, self.bias, self.strides, self.padding,
+                      groups=self.weight.shape[-1])
 
 
 def conv_transpose_block(x, w, bias):

@@ -22,6 +22,11 @@ window 8x8x8, embeddings 32, 64, 128 and 256, 8 heads a stage), dropout
 0 unless asked for. Serving: as the U-Net's (SWIN-UNet takes any input
 size). Training: 2 volumes of 128x128x32, the yaml's dice + focal loss.
 
+``"resnet"``, ``sample_configs/u-net-3d-resnet.yaml`` as it stands
+(``conv_type: resnet``, depth 32, 32, 64, 128, 256, dropout 0.15 unless
+overridden): served as the flagship U-Net; trained at the yaml's batch
+of 2 volumes of 128x128x32 with its dice + focal loss.
+
 ``"catnet"``, the classifier of ``sample_configs/classification-cat-
 resnet.yaml`` as it stands (four ResNet stages, batch ensembles of 4,
 batch norm): trained at the yaml's 16 crops of 128x128x32 with binary
@@ -56,6 +61,7 @@ from adell_mri_torch.inference import SegmentationInference
 from adell_mri_torch.models.classification.losses import (
     binary_logistic_loss,
 )
+from adell_mri_torch.models.layers.adn import statistics_to_f32
 from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
@@ -93,6 +99,8 @@ UNETR_YAML = (
 UNETR_BATCH = 2
 SWIN_YAML = UNETR_YAML.with_name("unet-swin.yaml")
 SWIN_BATCH = 2
+RESNET_YAML = UNETR_YAML.with_name("u-net-3d-resnet.yaml")
+RESNET_BATCH = 2
 CATNET_YAML = UNETR_YAML.with_name("classification-cat-resnet.yaml")
 CATNET_BATCH = 16
 
@@ -112,6 +120,11 @@ def model_spec(name: str, overrides: dict = None) -> ModelSpec:
     if name == "unet":
         return ModelSpec("unet", {**FLAGSHIP, **overrides}, {"dice": {}},
                          WINDOW, BATCH, BATCH)
+    if name == "resnet":
+        config, _ = parse_config_unet(str(RESNET_YAML))
+        return ModelSpec("unet", {**config["network"], **overrides},
+                         config["training"]["loss_fn"], WINDOW, BATCH,
+                         RESNET_BATCH)
     if name in ("unetr", "swin"):
         yaml_path, window, serve, train = (
             (UNETR_YAML, CASE, 1, UNETR_BATCH) if name == "unetr"
@@ -120,7 +133,8 @@ def model_spec(name: str, overrides: dict = None) -> ModelSpec:
         network = {**config["network"], "dropout_rate": 0.0, **overrides}
         return ModelSpec(name, network, config["training"]["loss_fn"],
                          window, serve, train)
-    raise ValueError(f"unknown model {name!r}: 'unet', 'unetr' or 'swin'")
+    raise ValueError(f"unknown model {name!r}: 'unet', 'resnet', 'unetr' "
+                     "or 'swin'")
 
 
 def _network(spec: ModelSpec):
@@ -132,10 +146,11 @@ def _network(spec: ModelSpec):
 
 def make_model(seed: int, dtype, device="cuda", name: str = "unet",
                overrides: dict = None):
-    """The model with weights drawn from ``seed``, in eval mode."""
+    """The model with weights drawn from ``seed``, in eval mode (running
+    statistics f32, as the CLI holds them)."""
     torch.manual_seed(seed)
-    return _network(model_spec(name, overrides)).to(
-        device=device, dtype=dtype).eval()
+    return statistics_to_f32(_network(model_spec(name, overrides)).to(
+        device=device, dtype=dtype)).eval()
 
 
 def make_case(seed: int, device="cuda"):

@@ -1,13 +1,14 @@
 """
 Where the time of one served case goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_serving [unet|unetr|swin] \
+    python -m adell_mri_torch.tools.profile_serving [unet|resnet|unetr|swin] \
         [--precision bf16|32]
 
 Serves the model (bf16 by default, or f32 with ``--precision 32``, the
 CLI's default; weights from seed 0) over a 256x256x64 case
 through ``SegmentationInference`` as ``chip_smoke.py`` does: the flagship
-U-Net or SWIN-UNet (``sample_configs/unet-swin.yaml``) with a 128x128x32
+U-Net, the resnet U-Net (``sample_configs/u-net-3d-resnet.yaml``) or
+SWIN-UNet (``sample_configs/unet-swin.yaml``) with a 128x128x32
 window at stride 0.5 in micro-batches of 4, or UNETR
 (``sample_configs/unetr.yaml``) with the whole case as one window.
 After one warm-up case it times three cases with the host clock, then runs
@@ -126,7 +127,7 @@ def main(name="unet", out_path=None, precision="bf16"):
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("model", nargs="?", default="unet",
-                        choices=("unet", "unetr", "swin"))
+                        choices=("unet", "resnet", "unetr", "swin"))
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")

@@ -1,8 +1,8 @@
 """
 Where the time of one training step goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_train [unet|unetr|swin|catnet] \
-        [--precision bf16|32] [--batch N]
+    python -m adell_mri_torch.tools.profile_train \
+        [unet|resnet|unetr|swin|catnet] [--precision bf16|32] [--batch N]
 
 Trains the model (f32 master weights from seed 0, bf16 compute or, with
 ``--precision 32``, f32 compute, the CLI's default; the CLI's
@@ -161,7 +161,8 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("model", nargs="?", default="unet",
-                        choices=("unet", "unetr", "swin", "catnet"))
+                        choices=("unet", "resnet", "unetr", "swin",
+                                 "catnet"))
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")

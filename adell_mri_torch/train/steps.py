@@ -15,9 +15,10 @@ gradients. ``train`` puts the model in training or eval mode for the call
 
 A step's ``params`` are the model's weights by ``state_dict`` name, with
 the batch norms' running statistics among them when the model has any
-(``TrainState.weights``): a classification training step returns the
-updated statistics in ``metrics["_variables"]``, which ``make_train_step``
-carries into the state, and an eval step normalizes by them.
+(``TrainState.weights``): a segmentation or classification training step
+returns the updated statistics in ``metrics["_variables"]``, which
+``make_train_step`` carries into the state, and an eval step normalizes
+by them. The precision policy casts the weights, never the statistics.
 """
 
 from typing import Callable, Dict, Optional
@@ -34,11 +35,7 @@ from adell_mri_torch.models.segmentation.losses import (
     binary_cross_entropy,
     cat_cross_entropy,
 )
-from adell_mri_torch.train.precision import (
-    cast_floats,
-    compute_dtype,
-    wrap_apply,
-)
+from adell_mri_torch.train.precision import cast_floats, compute_dtype
 
 
 def make_segmentation_step(
@@ -78,14 +75,12 @@ def make_segmentation_step(
         cat_cross_entropy if n_classes > 2 else binary_cross_entropy
     )
 
-    def forward(params, x):
-        return torch.func.functional_call(model, params, (x,))
-
-    apply_fn = wrap_apply(forward, precision)
+    forward = _forward_fn(model, precision)
 
     def loss_and_metrics(params, batch):
         model.train(train)
-        out = apply_fn(params, batch["image"])
+        out = forward(params, batch["image"])
+        new_stats = pop_batch_stats(model) if train else {}
         prediction = prediction_of(out)
         y = torch.round(batch["label"].float())
         loss, metrics = segmentation_loss_and_metrics(
@@ -105,9 +100,34 @@ def make_segmentation_step(
             loss = loss + class_loss
             metrics["loss_class_loss"] = class_loss
         metrics["loss"] = loss
+        if new_stats:
+            metrics["_variables"] = new_stats
         return loss, metrics
 
     return loss_and_metrics
+
+
+def _forward_fn(model, precision: Optional[str]):
+    """``forward(params, x)``: ``model`` as a function of its weights and
+    running statistics, the weights and ``x`` in the compute dtype and the
+    statistics f32 (as the JAX steps keep ``batch_stats`` outside the
+    precision policy's cast), float outputs back in f32."""
+    stat_names = set(batch_stats(model))
+    dtype = compute_dtype(precision)
+
+    def cast(params):
+        return params if dtype is None else {
+            k: v if k in stat_names else cast_floats(v, dtype)
+            for k, v in params.items()}
+
+    def forward(params, x, **kwargs):
+        # casting weights cast already is a no-op (``.to`` of their dtype)
+        x = x if dtype is None else x.to(dtype)
+        out = torch.func.functional_call(model, cast(params), (x,), kwargs)
+        return cast_floats(out, torch.float32)
+
+    forward.cast = cast
+    return forward
 
 
 def make_classification_step(
@@ -126,19 +146,14 @@ def make_classification_step(
     its ``batch_stats``. Metrics: ``loss`` and ``acc`` (sigmoid above 0.5
     against labels above 0.5; argmax when multiclass, of the soft targets
     too), and in training the updated statistics in ``_variables``."""
-    stat_names = set(batch_stats(model))
-    dtype = compute_dtype(precision)
+    forward = _forward_fn(model, precision)
 
     def loss_and_metrics(params, batch):
         model.train(train)
         x, y = batch["image"], batch["label"]
         if batch_preprocessing is not None and train:
             x, y = batch_preprocessing(x, y)
-        if dtype is not None:
-            params = {k: v if k in stat_names else cast_floats(v, dtype)
-                      for k, v in params.items()}
-            x = x.to(dtype)
-        logits = torch.func.functional_call(model, params, (x,)).float()
+        logits = forward(params, x)
         new_stats = pop_batch_stats(model) if train else {}
         loss = loss_fn(logits, y)
         if n_classes > 2:
@@ -218,18 +233,14 @@ def make_sliding_window_eval_step(
     held together for the loss and the soft Dice, which are taken over the
     whole batch as the JAX step takes them (4 x 256x256x64 f32 is 64 MiB
     at one output channel)."""
-    dtype = compute_dtype(precision)
+    forward = _forward_fn(model, precision)
 
     def eval_step(params, batch):
         model.eval()
-        if dtype is not None:
-            params = cast_floats(params, dtype)
+        params = forward.cast(params)
 
         def fn(tiles):
-            if dtype is not None:
-                tiles = tiles.to(dtype)
-            return torch.func.functional_call(model, params, (tiles,),
-                                              {"heads": False})
+            return forward(params, tiles, heads=False)
 
         with torch.no_grad():
             prediction = torch.stack([

@@ -190,7 +190,31 @@ failure:
     running statistics within 1e-5 of the plain path, seconds a step,
     device share and peak memory, ten bf16 steps with a falling loss;
     ``classification train`` (f32), ``test`` (one JSON line with AUC) and
-    ``predict`` on a 6-case cohort, in this process.
+    ``predict`` on a 6-case cohort, in this process;
+18. the U-Net's option space: ``sample_configs/u-net-3d-resnet.yaml`` as
+    it stands (``conv_type: resnet``, depth 32 to 256, dropout 0.15)
+    serving phase 4's case in bf16 and f32 (launches against the K1 calls
+    of one window batch, recorded, times 7; within 5e-2 and 1e-3 of the
+    plain path; seconds a case, device share, peak memory); its K1
+    classes (the stem's 1->1 pair on the narrow route, 32->32 at
+    128x128x32, 64x64x16 and 32x32x8, the bottlenecks' 64->64 and
+    128->128, the decoder's) against their plain versions, forward at
+    B=4 and dx, dW, dbias at the step's B=2, at phases 3 and 7's
+    tolerances, the routes read from the counters, the tf32 and narrow
+    ones bit-equal over two runs; training at the yaml's B=2 on
+    128x128x32 with the CLI's augmentation, bf16 and f32 (3 timed steps,
+    launches against the recorded calls, gradients finite and every
+    weight's non-zero, the f32 loss within 1e-4 and gradient norm within
+    1e-3 of the plain path with the same dropout draws, ten bf16 steps
+    with a falling loss); ``segmentation train``, ``predict``,
+    ``test_from_predictions`` and ``test`` (f32 and bf16) on a 6-case
+    256x256x64 cohort; the CLI's U-Net
+    defaults (identity links, upsampling decoder) at the flagship's width
+    with instance and with batch norm, and each other conv type (sae,
+    depthwise, convnext, convnextv2, asp) and link type (conv, attention)
+    at depth 16, 32, 64 with the ADN's other norms, prelu and uout: one
+    f32 step against the plain path (loss, gradient norm, running
+    statistics within 1e-5) and one served case each.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -4384,6 +4408,591 @@ def phase_catnet(smi, tf32_defaults):
     return out
 
 
+# -- phase 18: the U-Net's option space ---------------------------------------
+
+RESNET_TIMED_STEPS = 3
+RESNET_CLI_CASES = 6
+# the other conv and link types at a small depth, on the flagship's keys;
+# the ADN's other norms, prelu and uout ride along
+OPTION_DEPTH = dict(depth=[16, 32, 64], kernel_sizes=[3, 3, 3],
+                    strides=[2, 2, 2])
+OPTION_VARIANTS = {
+    "sae_prelu": dict(conv_type="sae", activation_fn="prelu"),
+    "depthwise_uout": dict(conv_type="depthwise", dropout_type="uout",
+                           dropout_param=0.1),
+    "convnext_group": dict(conv_type="convnext", norm_type="group"),
+    "convnextv2_layer": dict(conv_type="convnextv2", norm_type="layer"),
+    "asp_instance_affine": dict(conv_type="asp",
+                                norm_type="instance_affine"),
+    "link_conv": dict(link_type="conv"),
+    "link_attention_upsample": dict(link_type="attention",
+                                    upscale_type="upsample",
+                                    interpolation="nearest"),
+}
+# the CLI's U-Net defaults: a yaml without the two keys builds identity
+# links and an upsampling decoder (config/factories.py)
+CLI_DEFAULTS = {"link_type": "identity", "upscale_type": "upsample"}
+
+
+class _k1_calls:
+    """Within the block every stride-1 SAME 3x3x3 undilated conv (K1's
+    class) that a forward runs is recorded as (input shape, Cout, whether its input
+    takes a gradient: the step then launches its dx)."""
+
+    def __enter__(self):
+        import torch
+
+        import adell_mri_torch.ops.conv as conv_mod
+
+        self.calls = []
+
+        def record(module, inputs):
+            # a depthwise conv of one channel is an ordinary conv: K1's
+            # gate takes it as ops/conv.py:conv3d takes every conv
+            if not (isinstance(module, conv_mod.Conv3d) or (
+                    isinstance(module, conv_mod.DwConv)
+                    and module.weight.shape[-1] == 1)):
+                return
+            w = module.weight
+            if (tuple(w.shape[:3]) == (3, 3, 3)
+                    and module.strides == (1, 1, 1)
+                    and module.padding == "SAME"
+                    and getattr(module, "dilation", (1, 1, 1)) == (1, 1, 1)):
+                self.calls.append((tuple(inputs[0].shape), int(w.shape[-1]),
+                                   bool(inputs[0].requires_grad)))
+
+        self.hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            record)
+        return self
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+        return False
+
+
+def _calls_want(calls, dtype, step):
+    """The launches ``calls`` (``_k1_calls``) make in ``dtype``: K1 by
+    ``conv_route``; in a step also its dx where the input takes a
+    gradient, dW on ``wgrad_route`` and one K3."""
+    from adell_mri_torch.ops.kernels.conv import conv_route, wgrad_route
+
+    want = dict.fromkeys(_launch_counts(), 0)
+
+    def add(counter, route):
+        want[counter] += 1
+        if route != "igemm":
+            want[f"{counter}_{route}"] += 1
+
+    for xs, cout, needs_dx in calls:
+        cin = xs[-1]
+        add("conv3d_igemm", conv_route(dtype, cin, cout))
+        if step:
+            if needs_dx:
+                add("conv3d_igemm_dx", conv_route(dtype, cout, cin))
+            want["conv3d_weight_grad" if wgrad_route(dtype, cin, cout)
+                 == "wgmma" else "conv3d_weight_grad_patches"] += 1
+    if step:
+        want["intensity_aug"] = 1
+    return want
+
+
+def _scaled(want, n):
+    return {k: v * n for k, v in want.items()}
+
+
+def _option_serving(smi, dtype, name="unet", overrides=None, tag="resnet",
+                    model=None):
+    """The 256x256x64 case served as phase 4 serves it (window 128x128x32,
+    stride 0.5, micro-batch 4: 7 window batches) with the U-Net ``name``
+    and ``overrides`` (or ``model``): launches against those of one window
+    batch times 7, seconds a case, device share and peak memory; the same
+    case through the plain path within 5e-2 (bf16) or 1e-3 (f32)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        CASE,
+        WINDOW,
+        make_case,
+        make_inference,
+        make_model,
+    )
+
+    bf16 = dtype == torch.bfloat16
+    precision = "bf16" if bf16 else "32"
+    model = model if model is not None else make_model(
+        0, dtype, name=name, overrides=overrides)
+    infer = make_inference(model, name)
+    case = make_case(1)
+    with torch.inference_mode(), _k1_calls() as rec:
+        model(torch.zeros((4,) + WINDOW + (1,), device="cuda", dtype=dtype),
+              heads=False)
+    want = _scaled(_calls_want(rec.calls, dtype, step=False), WINDOW_BATCHES)
+    secs = []
+    with torch.inference_mode():
+        infer(case)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = infer(case)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for _ in range(2):
+            t0 = time.perf_counter()
+            infer(case)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        busy, wall = _device_share(lambda: infer(case))
+        with plain_kernels():
+            plain = infer(case)
+        torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    lo, hi = float(out.min()), float(out.max())
+    tol = 5e-2 if bf16 else 1e-3
+    log(f"[options serving] {smi}: {tag}, {precision}: "
+        f"{len(rec.calls)} K1 convs a window batch; launches {launches}; "
+        f"{', '.join(f'{s:.4f}' for s in secs)} s per case; device busy "
+        f"{busy:.4f} of {wall:.4f} s ({100 * busy / wall:.1f} %); peak "
+        f"{peak_gb:.2f} GB; kernels vs plain path: max abs err {err:.3g} "
+        f"(tol {tol})")
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
+    if tuple(out.shape) != CASE + (1,) or not bool(
+            torch.isfinite(out).all()) or lo < 0 or hi > 1:
+        raise AssertionError(f"{tag} output {tuple(out.shape)} [{lo}, {hi}]")
+    if not err <= tol:
+        raise AssertionError(f"{tag} disagrees with its plain path: {err}")
+    del model, infer
+    torch.cuda.empty_cache()
+    return dict(launches=launches, convs_per_window_batch=len(rec.calls),
+                seconds_per_case=secs, device_busy_s=busy, wall_s=wall,
+                peak_memory_gb=peak_gb, max_abs_err=err, tol=tol)
+
+
+def _seeded(tr, seed=0):
+    """The trainer's model's dropout and uout layers handed a generator
+    seeded with ``seed``: two calls draw the same masks."""
+    import torch
+
+    from adell_mri_torch.models.layers.dropout import seed_dropout
+
+    seed_dropout(tr.model, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _option_step_parity(tr, batch, tag):
+    """One f32 step's loss, gradient norm and running statistics on the
+    kernels against the plain path, with the same dropout draws: loss
+    within 1e-4, gradient norm within 1e-3 (relative), statistics within
+    1e-5 of each layer's scale."""
+    import torch
+
+    names = list(tr.state.params)
+    params = [tr.state.params[k] for k in names]
+    got = []
+    for plain in (False, True):
+        _seeded(tr)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            loss, metrics = tr.loss_and_metrics(tr.state.weights(), batch)
+            grads = torch.autograd.grad(loss, params)
+        got.append((float(loss.detach()), _grad_norm(grads),
+                    metrics.get("_variables", {})))
+        del grads
+    (loss_k, norm_k, stats_k), (loss_p, norm_p, stats_p) = got
+    stats_err = max([float((stats_k[k] - v).abs().max())
+                     / max(float(v.abs().max()), 1e-30)
+                     for k, v in stats_p.items()] or [0.0])
+    out = dict(loss=loss_k, plain_loss=loss_p,
+               loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+               grad_norm=norm_k, plain_grad_norm=norm_p,
+               grad_norm_rel=abs(norm_k - norm_p) / norm_p,
+               stats=len(stats_p), stats_rel=stats_err)
+    log(f"  {tag}: f32 step, kernels vs plain path: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f} (rel {out['loss_rel']:.2e}, tol 1e-4), gradient norm "
+        f"{norm_k:.6g} vs {norm_p:.6g} (rel {out['grad_norm_rel']:.2e}, "
+        f"tol 1e-3)" + (f", {len(stats_p)} running statistics within "
+                        f"{stats_err:.2e} of their scale (tol 1e-5)"
+                        if stats_p else ""))
+    if not (out["loss_rel"] <= 1e-4 and out["grad_norm_rel"] <= 1e-3
+            and stats_err <= 1e-5 and set(stats_k) == set(stats_p)):
+        raise AssertionError(f"{tag}: f32 step disagrees with plain: {out}")
+    return out
+
+
+def _option_step(tr, batch, gen, precision, tag, n=1):
+    """``n`` training steps (the CLI's augmentation) counted from 0 against
+    the launches the recorded K1 calls of the step make; seconds each."""
+    import torch
+
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    with _k1_calls() as rec:
+        tr.state, _ = tr.train_step(tr.state, tr.transforms.augment(
+            gen, batch))
+    torch.cuda.synchronize()
+    want = _scaled(_calls_want(rec.calls, dtype, step=True), n)
+    _reset_counts()
+    secs, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tr.state, metrics = tr.train_step(tr.state, tr.transforms.augment(
+            gen, batch))
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    if launches != want:
+        raise AssertionError(f"{tag} step launches {launches}, want {want}")
+    if not all(abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    return dict(launches=launches, k1_convs=len(rec.calls),
+                dx=sum(c[2] for c in rec.calls), seconds_per_step=secs,
+                losses=losses)
+
+
+def _resnet_conv_classes():
+    """The resnet U-Net's K1 classes: each class of a served window batch
+    (B=4) against its plain version in bf16 and f32 (phase 3's
+    ``compare_conv``: the route from the counters, the tf32 and the narrow
+    bf16 convs bit-equal over two runs), and dx, dW and dbias of each
+    class of a B=2 training step against autograd through the plain
+    version (phase 7's tolerances; dx bit-equal over two runs on the tf32
+    and narrow routes), each call's routes read from the counters."""
+    import torch
+
+    from adell_mri_torch.ops.kernels.conv import (
+        conv3d_igemm_train,
+        conv_route,
+        wgrad_route,
+    )
+    from adell_mri_torch.tools.flagship import (
+        RESNET_BATCH,
+        WINDOW,
+        make_model,
+    )
+
+    model = make_model(0, torch.float32, name="resnet")
+    with torch.inference_mode(), _k1_calls() as rec:
+        model(torch.zeros((4,) + WINDOW + (1,), device="cuda"))
+    serve = {}
+    for xs, cout, _ in rec.calls:
+        serve[(xs, cout)] = serve.get((xs, cout), 0) + 1
+    model.train()
+    with _k1_calls() as rec:
+        model(torch.rand((RESNET_BATCH,) + WINDOW + (1,), device="cuda"))
+    step = {}
+    for xs, cout, _ in rec.calls:
+        step[(xs, cout)] = step.get((xs, cout), 0) + 1
+    del model
+    torch.cuda.empty_cache()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        log(f"[resnet convs] one window batch of 4, {name}")
+        rows = []
+        for i, ((xs, cout), count) in enumerate(sorted(serve.items())):
+            row = compare_conv(xs[0], xs[1:4], xs[4], cout, dtype,
+                               seed=500 + i)
+            row["count"] = count
+            rows.append(row)
+        totals = sum_rows(rows)
+        log(f"  per window batch ({totals['convs']} convs, {name}): kernel "
+            f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
+            f"F.conv3d {totals['library_ms']:.3f} ms, bound "
+            f"{totals['bound_ms']:.4f} ms ({totals['bound_by']})")
+        out[name] = dict(rows=rows, totals=totals)
+    log(f"[resnet conv backward vs plain] the step's classes, "
+        f"B={RESNET_BATCH}")
+
+    def routed(counter, route):
+        return {counter: 1, **({} if route == "igemm"
+                               else {f"{counter}_{route}": 1})}
+
+    bwd = []
+    for i, ((xs, cout), count) in enumerate(sorted(step.items())):
+        cin = xs[4]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            dx_route = conv_route(dtype, cout, cin)
+            dw_route = wgrad_route(dtype, cin, cout)
+            want = {**routed("conv3d_igemm", conv_route(dtype, cin, cout)),
+                    **routed("conv3d_igemm_dx", dx_route),
+                    ("conv3d_weight_grad" if dw_route == "wgmma"
+                     else "conv3d_weight_grad_patches"): 1}
+            before = _launch_counts()
+            inputs, errs, tols = conv_backward_errors(xs, cout, dtype,
+                                                      600 + i)
+            taken = {k: n - before[k] for k, n in _launch_counts().items()
+                     if n != before[k]}
+            x, w, bias, gy = inputs
+            twice = []
+            for _ in range(2):
+                leaf = x.clone().requires_grad_()
+                twice.append(torch.autograd.grad(
+                    conv3d_igemm_train(leaf, w, bias), leaf, gy)[0])
+            same = torch.equal(*twice)
+            row = dict(shape=list(xs) + [cout], dtype=name, count=count,
+                       dx_route=dx_route, dw_route=dw_route,
+                       launches=taken, dx_bit_equal=same,
+                       errs=dict(zip(("dx", "dw", "db"), errs)),
+                       tols=dict(zip(("dx", "dw", "db"), tols)))
+            log(f"  {'x'.join(map(str, xs[:4]))} {cin}->{cout} x{count} "
+                f"{name} (dx {dx_route}, dW {dw_route}): "
+                + ", ".join(f"{k} err {e:.3g} (tol {t:.3g})" for k, e, t in
+                            zip(("dx", "dw", "db"), errs, tols))
+                + f"; dx bit-equal over two runs: {same}")
+            if taken != want:
+                raise AssertionError(f"routes {taken}, want {want}: {row}")
+            if not all(e <= t for e, t in zip(errs, tols)):
+                raise AssertionError(f"resnet conv backward disagrees: {row}")
+            if not same and (dx_route == "tf32" or (
+                    dx_route == "narrow" and dtype == torch.bfloat16)):
+                raise AssertionError(f"dx differs between two runs: {row}")
+            bwd.append(row)
+            del inputs, twice
+    torch.cuda.empty_cache()
+    out["backward"] = bwd
+    return out
+
+
+def _resnet_training(smi):
+    """``u-net-3d-resnet.yaml`` trained at its B=2 on 128x128x32 with its
+    dropout (0.15) and loss, the CLI's augmentation, bf16 and f32: a
+    warm-up step, then 3 steps with the launches counted from 0 (K1, dx,
+    dW and K3 as the recorded K1 calls of a step make them), seconds a
+    step, device share and peak memory; every gradient finite and every
+    weight's non-zero; the f32 loss and gradient norm against the plain
+    path with the same dropout draws; ten bf16 steps on one batch without
+    augmentation lower the loss."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        RESNET_BATCH,
+        WINDOW,
+        make_train_batch,
+        make_trainer,
+    )
+
+    batch = make_train_batch(0, batch=RESNET_BATCH, shape=WINDOW)
+    out = {}
+    for precision in ("bf16", "32"):
+        tr = make_trainer(0, precision, name="resnet")
+        _seeded(tr)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        names = list(tr.state.params)
+        loss, _ = tr.loss_and_metrics(tr.state.params,
+                                      tr.transforms.augment(gen, batch))
+        grads = torch.autograd.grad(loss, [tr.state.params[k]
+                                           for k in names])
+        bad = [k for k, gr in zip(names, grads)
+               if not bool(torch.isfinite(gr).all())
+               or (k.endswith(".weight") and float(gr.abs().max()) == 0)]
+        if bad:
+            raise AssertionError(f"{precision}: zero or non-finite "
+                                 f"gradients {bad}")
+        del grads, loss
+        parity = (_option_step_parity(tr, batch, "resnet")
+                  if precision == "32" else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = _option_step(tr, batch, gen, precision, "resnet",
+                             n=RESNET_TIMED_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        def step():
+            tr.state, _ = tr.train_step(tr.state, tr.transforms.augment(
+                gen, batch))
+
+        busy, wall = _device_share(step)
+        log(f"[resnet training] {smi}: {precision}, B={RESNET_BATCH} at "
+            f"{'x'.join(map(str, WINDOW))}, augmentation on, dropout 0.15: "
+            f"{', '.join(f'{x:.4f}' for x in steps['seconds_per_step'])} s "
+            f"per step; device busy {busy:.4f} of {wall:.4f} s "
+            f"({100 * busy / wall:.1f} %); peak {peak_gb:.2f} GB; "
+            f"{steps['k1_convs']} K1 and {steps['dx']} dx a step; launches "
+            f"in {RESNET_TIMED_STEPS} steps {steps['launches']}; losses "
+            f"{steps['losses']}; {len(names)} gradients finite, every "
+            "weight's non-zero")
+        out[precision] = dict(steps, peak_memory_gb=peak_gb,
+                              device_busy_s=busy, wall_s=wall, parity=parity)
+        del tr
+        torch.cuda.empty_cache()
+    tr = make_trainer(0, "bf16", learning_rate=1e-2, name="resnet",
+                      overrides={"dropout_param": 0.0})
+    before = float(tr.eval_step(tr.state.params, batch)["loss"])
+    for _ in range(10):
+        tr.state, _ = tr.train_step(tr.state, batch)
+    after = float(tr.eval_step(tr.state.params, batch)["loss"])
+    log(f"[resnet training] ten steps on one batch (bf16, no augmentation, "
+        f"dropout 0, lr 1e-2): loss {before:.5f} -> {after:.5f}")
+    if not after < before:
+        raise AssertionError(f"loss did not fall: {before} -> {after}")
+    out["fixed_batch_loss"] = [before, after]
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resnet_cli(smi):
+    """``segmentation train`` with ``u-net-3d-resnet.yaml`` as it stands
+    (f32, random crops of 128x128x32 from 256x256x64 volumes, B=2, one
+    epoch, the CLI's augmentation), then ``predict`` (sliding window),
+    ``test_from_predictions`` on its files and ``test`` on its
+    checkpoint, on 6 cases, in this process so the launches are read
+    around each; ``test`` again with ``--precision bf16``."""
+    import numpy as np
+
+    from adell_mri_torch.data.nifti import read_nifti
+    from adell_mri_torch.tools.flagship import (
+        AUGMENT_FLAGS,
+        CASE,
+        RESNET_YAML,
+        WINDOW,
+    )
+
+    work = WORK_DIR / "resnet_cli"
+    work.mkdir(parents=True)
+    ds = _pipeline_cohort(work, CASE, (), n_cases=RESNET_CLI_CASES)
+    ckpt = work / "ckpt"
+    train_s, _, train_counts = _cli([
+        "segmentation", "train", "--dataset_json", str(work / "ds.json"),
+        "--image_keys", "image", "--mask_keys", "mask", "--config_file",
+        str(RESNET_YAML), "--pad_size", *map(str, CASE),
+        "--random_crop_size", *map(str, WINDOW), "--target_spacing", "0.5",
+        "0.5", "3.0", "--batch_size", "2", "--max_epochs", "1",
+        "--n_folds", "1", "--augment",
+        *AUGMENT_FLAGS, "--dev", "cuda", "--seed", "0", "--checkpoint_dir",
+        str(ckpt), "--metric_path", str(work / "metrics.csv")])
+    meta = json.loads((ckpt / "segmentation_fold0" /
+                       "metadata.json").read_text())
+    if meta["network_config"]["conv_type"] != "resnet":
+        raise AssertionError(f"train wrote {meta}")
+    pred = work / "pred"
+    predict_s, _, predict_counts = _cli([
+        "segmentation", "predict", "--dataset_json", str(work / "ds.json"),
+        "--checkpoint_dir", str(ckpt), "--output_path", str(pred), "--dev",
+        "cuda", "--sliding_window_size", *map(str, WINDOW)])
+    for pid in ds:
+        img = read_nifti(str(pred / f"{pid}_prob.nii.gz")).data
+        if (img.shape != CASE or not np.isfinite(img).all()
+                or img.min() < 0 or img.max() > 1):
+            raise AssertionError(f"{pid}: {img.shape} [{img.min()}, "
+                                 f"{img.max()}]")
+    pred_ds = {pid: {**entry, "pred": str(pred / f"{pid}_prob.nii.gz")}
+               for pid, entry in ds.items()}
+    (work / "ds_pred.json").write_text(json.dumps(pred_ds))
+    tfp_s, text, _ = _cli([
+        "segmentation", "test_from_predictions", "--dataset_json",
+        str(work / "ds_pred.json"), "--ground_truth_key", "mask",
+        "--prediction_key", "pred", "--prediction_mode", "probs"])
+    from_predictions = _last_json(text)
+    if not 0 <= from_predictions["dice"] <= 1:
+        raise AssertionError(f"test_from_predictions: {from_predictions}")
+    tests = {}
+    for precision in ("32", "bf16"):
+        secs, text, counts = _cli([
+            "segmentation", "test", "--dataset_json", str(work / "ds.json"),
+            "--checkpoint_dir", str(ckpt), "--dev", "cuda", "--precision",
+            precision, "--metric_path", str(work / f"test_{precision}.csv")])
+        result = _last_json(text)
+        if (result["n_cases"] != RESNET_CLI_CASES
+                or not 0 <= result["dice"] <= 1):
+            raise AssertionError(f"resnet test: {result}")
+        tests[precision] = dict(seconds=secs, counts=counts, result=result)
+    for name, counts in (("train", train_counts),
+                         ("predict", predict_counts),
+                         ("test", tests["32"]["counts"])):
+        wide = counts["conv3d_igemm"] - counts["conv3d_igemm_narrow"]
+        if not counts["conv3d_igemm_tf32"] == wide > 0:
+            raise AssertionError(f"resnet {name} launches {counts}")
+    bf = tests["bf16"]["counts"]
+    if not bf["conv3d_igemm_wgmma"] == (bf["conv3d_igemm"]
+                                        - bf["conv3d_igemm_narrow"]) > 0:
+        raise AssertionError(f"resnet bf16 test launches {bf}")
+    log(f"[resnet cli] {smi}: train (f32, one epoch at B=2) {train_s:.2f} "
+        f"s, launches {train_counts}; predict {len(ds)} cases "
+        f"{predict_s:.2f} s ({predict_counts}); test_from_predictions "
+        f"{tfp_s:.2f} s: {from_predictions}; test f32 "
+        f"{tests['32']['seconds']:.2f} s ({tests['32']['counts']}): "
+        f"{tests['32']['result']}; test bf16 {tests['bf16']['seconds']:.2f} "
+        f"s: {tests['bf16']['result']}")
+    return dict(train_s=train_s, predict_s=predict_s, train_counts=train_counts,
+                predict_counts=predict_counts, test=tests,
+                test_from_predictions=dict(seconds=tfp_s,
+                                           result=from_predictions))
+
+
+def _option_variants(smi):
+    """The CLI's U-Net defaults (identity links, upsampling decoder) at the
+    flagship's full width, with instance norm and with batch norm (f32, the
+    CLI's default): a served case and a step against the plain path (the
+    batch-norm net serves with the statistics its step moved); then each
+    other conv and link type at depth 16, 32, 64 (``OPTION_VARIANTS``),
+    served and stepped once against the plain path. Biases and GRN's
+    gamma are drawn from the seed too: at 0, a convnextv2 unit on the
+    one-channel image has NaN gradients, in the JAX package as in the port
+    (GRN's square root at 0 behind a LayerNorm over one channel)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        WINDOW,
+        make_train_batch,
+        make_trainer,
+    )
+
+    out = {}
+    batch = make_train_batch(0, batch=2, shape=WINDOW)
+    variants = {"defaults": dict(CLI_DEFAULTS),
+                "defaults_batch_norm": dict(CLI_DEFAULTS, norm_type="batch"),
+                **{k: dict(OPTION_DEPTH, **v)
+                   for k, v in OPTION_VARIANTS.items()}}
+    for tag, overrides in variants.items():
+        tr = make_trainer(0, "32", overrides=overrides)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.no_grad():
+            for name, p in tr.state.params.items():
+                if name.endswith((".bias", ".gamma")):
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen,
+                                             device=p.device))
+        parity = _option_step_parity(tr, batch, tag)
+        _seeded(tr)
+        step = _option_step(tr, batch, gen, "32", tag)
+        model = tr.model.eval()
+        model.load_state_dict({k: v.detach() for k, v in
+                               tr.state.state_dict().items()})
+        serving = _option_serving(smi, torch.float32, overrides=overrides,
+                                  tag=tag, model=model)
+        log(f"[options] {tag}: step {step['seconds_per_step'][0]:.4f} s, "
+            f"{step['k1_convs']} K1 and {step['dx']} dx, launches "
+            f"{step['launches']}; served case "
+            f"{serving['seconds_per_case'][-1]:.4f} s")
+        out[tag] = dict(overrides=overrides, parity=parity, step=step,
+                        serving=serving)
+        del tr, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_unet_options(smi):
+    """Phase 18: ``u-net-3d-resnet.yaml`` served, trained and run through
+    the CLIs at full width against the plain path, its K1 classes; the
+    CLI's U-Net defaults and batch norm at full width; each other conv and
+    link type at a small depth."""
+    t0 = time.perf_counter()
+    import torch
+
+    out = dict(serving={
+        "bf16": _option_serving(smi, torch.bfloat16, name="resnet"),
+        "f32": _option_serving(smi, torch.float32, name="resnet")})
+    out["convs"] = _resnet_conv_classes()
+    out["training"] = _resnet_training(smi)
+    out["cli"] = _resnet_cli(smi)
+    out["variants"] = _option_variants(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[unet options] phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -4456,6 +5065,8 @@ def main():
     lap(16)
     catnet = phase_catnet(smi, tf32_defaults)
     lap(17)
+    options = phase_unet_options(smi)
+    lap(18)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -4516,6 +5127,21 @@ def main():
         "catnet_training_f32": catnet["training"]["32"]["launches"],
         **{f"catnet_{what}_f32": catnet["cli"][f"{what}_counts"]
            for what in ("train", "test", "predict")},
+        # phase 18: u-net-3d-resnet.yaml served (bf16, f32) and trained (3
+        # steps each), its CLIs; the CLI's U-Net defaults with instance and
+        # batch norm, and each other conv and link type: a step and a
+        # served case each (f32)
+        "resnet_serving": options["serving"]["bf16"]["launches"],
+        "resnet_serving_f32": options["serving"]["f32"]["launches"],
+        "resnet_training": options["training"]["bf16"]["launches"],
+        "resnet_training_f32": options["training"]["32"]["launches"],
+        "resnet_train_f32": options["cli"]["train_counts"],
+        "resnet_predict_f32": options["cli"]["predict_counts"],
+        "resnet_test_f32": options["cli"]["test"]["32"]["counts"],
+        "resnet_test_bf16": options["cli"]["test"]["bf16"]["counts"],
+        **{f"unet_{tag}_{what}_f32": v[what]["launches"]
+           for tag, v in options["variants"].items()
+           for what in ("step", "serving")},
     }
 
     def launches_of(name):
@@ -4537,7 +5163,9 @@ def main():
               "train, resume, test and predict runs, phase 15's four- and "
               "ten-flag crop steps and train runs, phase 16's SWIN-UNet "
               "served cases, steps and CLI runs and UNETR at head dim 16, "
-              "phase 17's CatNet forwards, steps and CLI runs, every route",
+              "phase 17's CatNet forwards, steps and CLI runs, phase 18's "
+              "resnet U-Net served cases, steps and CLI runs and the other "
+              "U-Net options' steps and served cases, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -4612,6 +5240,9 @@ def main():
                               for r in rows),
             "bound_ms": sum(r["dx_bound_ms"] * r["count"] for r in rows)}
         for d, rows in catnet_rows.items()}
+    # phase 18: the resnet U-Net's K1 convs of one window batch of 4
+    kernels[0]["resnet_window_batch"] = {
+        d: options["convs"][d]["totals"] for d in ("bfloat16", "float32")}
     wgmma_totals = sum_rows([r for r in path_rows if r["route"] == "wgmma"])
     kernels[0]["igemm_bf16"] = {
         key: wgmma_totals[key] for key in ("convs", "igemm_ms", "ms",
@@ -4686,7 +5317,8 @@ def main():
         "tf32-route dx launches of an f32 U-Net step; launches: forward and "
         "dx of the f32 served cases (U-Net, UNETR, SWIN-UNet, CatNet), 3 "
         "f32 U-Net steps, UNETR's f32 step, SWIN-UNet's and CatNet's f32 "
-        "steps and CLI runs",
+        "steps and CLI runs, phase 18's f32 resnet U-Net cases, steps and "
+        "CLI runs and the option variants' steps and cases",
         tf32_totals["library_ms"]))
     kernels[-1].update(bound_fma_ms=tf32_totals["bound_fma_ms"],
                        igemm_ms=tf32_totals["igemm_ms"],
@@ -4741,7 +5373,7 @@ def main():
         unetr_serving_f32=unetr_serving_f32,
         unetr_training=unetr_training, unetr_cli=unetr_cli,
         flagship_pipeline=pipeline, full_augmentation=augmentation,
-        swin=swin, catnet=catnet,
+        swin=swin, catnet=catnet, unet_options=options,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,

@@ -191,16 +191,29 @@ def test_fresh_statistics_are_the_one_element_fallback():
 
 
 def test_batch_adn_needs_features_and_segmentation_nets_refuse_it():
+    """A batch ADN needs its width, an unknown norm raises; a batch-norm
+    U-Net's training step carries its statistics out
+    (``metrics["_variables"]``, tests/test_torch_unet_step.py holds them
+    against the JAX step), while UNETR and SWIN-UNet still refuse batch
+    norm."""
     with pytest.raises(ValueError, match="feature count"):
         tadn.ActDropNorm(None, norm_fn="batch")
     with pytest.raises(NotImplementedError):
-        tadn.ActDropNorm(4, norm_fn="group")
+        tadn.ActDropNorm(4, norm_fn="weight_standardised")
     adn = tadn.get_adn_fn("batch", "gelu", 0.1)(6)
     assert set(adn.state_dict()) == {
         "GlobalBatchNorm_0.weight", "GlobalBatchNorm_0.bias",
         "GlobalBatchNorm_0.mean", "GlobalBatchNorm_0.var"}
-    # the segmentation steps carry no statistics: SWIN-UNet (like the U-Net
-    # and UNETR, tests/test_torch_{unet,unetr}.py) refuses batch norm
+    from adell_mri_torch.config.parsing import build_compound_loss
+    from adell_mri_torch.train.steps import make_segmentation_step
+
+    net = tfactories.get_segmentation_network(
+        "unet", {"norm_type": "batch", "depth": [4, 8]})
+    x = torch.from_numpy(_x((2, 8, 8, 4, 1), seed=30))
+    lm = make_segmentation_step(net, build_compound_loss({"dice": {}}, 2))
+    _, metrics = lm(dict(net.state_dict()), {
+        "image": x, "label": (x[..., 0] > 0).float()})
+    assert set(metrics["_variables"]) == set(tadn.batch_stats(net))
     with pytest.raises(NotImplementedError, match="norm_type"):
         tfactories.get_segmentation_network("swin", {"norm_type": "batch"})
 

@@ -67,5 +67,7 @@ def test_resize_like_refuses_bad_arguments():
     x = torch.zeros((1, 4, 4, 4, 1))
     with pytest.raises(ValueError):
         resize_like(x, (2, 2))
+    # cubic and lanczos are ported (tests/test_torch_unet_options.py);
+    # a name jax.image.resize does not take still raises
     with pytest.raises(NotImplementedError):
-        resize_like(x, (2, 2, 2), method="cubic")
+        resize_like(x, (2, 2, 2), method="area")

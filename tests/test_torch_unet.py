@@ -101,12 +101,12 @@ def test_unet_bf16_forward_runs(pair):
 @pytest.mark.parametrize(
     "option",
     [
-        {"link_type": "identity"},
-        {"upscale_type": "upsample"},
-        {"conv_type": "resnet"},
+        {"skip_conditioning": 1},
+        {"semi_supervised": True},
+        {"conv_type": "sae_ref"},
         {"encoder_only": True},
         {"spatial_dimensions": 2},
-        {"norm_type": "batch"},
+        {"encoder_structure": [[16, 16, 3, 1]]},
     ],
 )
 def test_unported_options_raise(option):
