@@ -4,18 +4,26 @@ Network factory: config dict + net-type string -> the port's module.
 Counterpart of ``get_segmentation_network`` and
 ``get_classification_network`` in ``adell_mri_tpu/config/factories.py``,
 for the segmentation ``net_type`` "unet", "unetr", "monai_unetr", "swin"
-and "monai_swin" and the classification ``net_type`` "cat" and "resnet"
-(CatNet); the same config keys, fallbacks and defaults reach the port's
-``UNet``, ``UNETR``, ``SWINUNet`` and ``CatNet``, which raise for the
-options they do not serve yet. A flax module learns its input size and
-channels at the first call; the port's UNETR needs the size when it is
-built (``image_size``), UNETR and SWIN-UNet need ``n_channels`` from the
-config, and CatNet its ``in_channels`` (one per image key).
+and "monai_swin" and the classification ``net_type`` "vgg", "cat",
+"resnet" and "convnext" (CatNet), "convnext_backbone" and "convnext_v2"
+(the standalone ConvNeXt), each wrapped in a ``HybridClassifier`` when
+clinical features are given; the same config keys, fallbacks and
+defaults reach the port's ``UNet``, ``UNETR``, ``SWINUNet``, ``VGG``,
+``CatNet`` and ``ConvNeXt``, which raise for the options they do not serve
+yet. A flax module learns its input size and channels at the first call;
+the port's UNETR needs the size when it is built (``image_size``), UNETR
+and SWIN-UNet need ``n_channels`` from the config, and the classifiers
+their ``in_channels`` (one per image key).
 """
 
 from typing import Any, Dict, Optional, Sequence
 
-from adell_mri_torch.models.classification.nets import CatNet
+from adell_mri_torch.models.classification.nets import (
+    VGG,
+    CatNet,
+    HybridClassifier,
+)
+from adell_mri_torch.models.layers.conv_next import ConvNeXt
 from adell_mri_torch.models.segmentation.unet import UNet
 from adell_mri_torch.models.segmentation.unetr import UNETR, SWINUNet
 
@@ -142,7 +150,12 @@ def get_segmentation_network(
     )
 
 
-CLASSIFICATION_NET_TYPES = ("cat", "resnet")
+CLASSIFICATION_NET_TYPES = ("vgg", "cat", "resnet", "convnext",
+                            "convnext_backbone", "convnext_v2")
+
+
+def _structure(cfg, default):
+    return [tuple(s) for s in cfg.get("resnet_structure", default)]
 
 
 def get_classification_network(
@@ -150,34 +163,77 @@ def get_classification_network(
     network_config: Dict[str, Any],
     n_classes: int = 2,
     in_channels: int = 1,
+    clinical_feature_means: Optional[Sequence[float]] = None,
+    clinical_feature_stds: Optional[Sequence[float]] = None,
 ):
-    """CatNet for ``net_type`` "cat" and its alias "resnet", with the JAX
-    factory's keys and defaults (``resnet_structure``,
-    ``maxpool_structure``, ``res_type`` "resnet", ``batch_ensemble`` 0,
-    ``norm_type`` "batch", ``act_fn`` (or ``activation_fn``) "swish",
-    ``dropout_param``, ``classification_structure``, ``gaussian_process``,
-    which raises)."""
+    """The JAX factory's networks, keys and defaults: ``vgg`` (VGG:
+    ``first_depth`` 16, ``n_blocks`` 4, ``norm_type`` "batch"); ``cat``,
+    ``resnet`` and ``convnext`` (CatNet: ``resnet_structure``,
+    ``maxpool_structure``, ``res_type`` "resnet", or "convnext" for the
+    net type ``convnext``, ``batch_ensemble`` 0, ``norm_type`` "batch",
+    ``act_fn`` (or ``activation_fn``) "swish", ``dropout_param``,
+    ``classification_structure``, ``gaussian_process``, which raises);
+    ``convnext_backbone`` and ``convnext_v2`` (ConvNeXt: ``resnet_structure``
+    ((64, 64, 7, 2), (128, 128, 7, 2)), ``first_layer_stride`` 4,
+    ``maxpool_structure``, ``downsample`` "conv"). With
+    ``clinical_feature_means`` (and ``clinical_feature_stds``) the network
+    is built headless inside a ``HybridClassifier`` over that many
+    tabular features."""
     if net_type not in CLASSIFICATION_NET_TYPES:
         raise NotImplementedError(
             f"classification net_type {net_type!r} is not ported yet (the "
-            "port has 'cat' and 'resnet')"
+            f"port has {', '.join(map(repr, CLASSIFICATION_NET_TYPES))})"
         )
     cfg = dict(network_config)
-    mp = cfg.get("maxpool_structure")
-    return CatNet(
-        in_channels=in_channels,
-        spatial_dimensions=cfg.get("spatial_dimensions", 3),
-        n_classes=n_classes,
-        resnet_structure=[tuple(s) for s in cfg.get(
-            "resnet_structure", ((64, 128, 5, 2), (128, 256, 3, 5)))],
-        maxpool_structure=[
-            tuple(s) if isinstance(s, (list, tuple)) else s for s in mp
-        ] if mp else None,
-        res_type=cfg.get("res_type", "resnet"),
-        batch_ensemble=cfg.get("batch_ensemble", 0),
-        norm_type=cfg.get("norm_type", "batch"),
-        act_fn=cfg.get("act_fn", cfg.get("activation_fn", "swish")),
-        dropout_param=cfg.get("dropout_param", 0.0),
-        classification_structure=cfg.get("classification_structure"),
-        gp_head=bool(cfg.get("gaussian_process", False)),
-    )
+    headless = clinical_feature_means is not None
+    sd = cfg.get("spatial_dimensions", 3)
+    if net_type == "vgg":
+        net = VGG(
+            in_channels=in_channels,
+            spatial_dimensions=sd,
+            n_classes=n_classes,
+            first_depth=cfg.get("first_depth", 16),
+            n_blocks=cfg.get("n_blocks", 4),
+            norm_type=cfg.get("norm_type", "batch"),
+            feature_extraction=headless,
+        )
+    elif net_type in ("convnext_backbone", "convnext_v2"):
+        net = ConvNeXt(
+            in_channels=in_channels,
+            structure=_structure(cfg, ((64, 64, 7, 2), (128, 128, 7, 2))),
+            n_classes=n_classes,
+            first_layer_stride=cfg.get("first_layer_stride", 4),
+            maxpool_structure=cfg.get("maxpool_structure"),
+            v2=net_type == "convnext_v2",
+            downsample=cfg.get("downsample", "conv"),
+            feature_extraction=headless,
+        )
+    else:
+        mp = cfg.get("maxpool_structure")
+        net = CatNet(
+            in_channels=in_channels,
+            spatial_dimensions=sd,
+            n_classes=n_classes,
+            resnet_structure=_structure(
+                cfg, ((64, 128, 5, 2), (128, 256, 3, 5))),
+            maxpool_structure=[
+                tuple(s) if isinstance(s, (list, tuple)) else s for s in mp
+            ] if mp else None,
+            res_type=cfg.get(
+                "res_type",
+                "convnext" if net_type == "convnext" else "resnet"),
+            batch_ensemble=cfg.get("batch_ensemble", 0),
+            norm_type=cfg.get("norm_type", "batch"),
+            act_fn=cfg.get("act_fn", cfg.get("activation_fn", "swish")),
+            dropout_param=cfg.get("dropout_param", 0.0),
+            classification_structure=cfg.get("classification_structure"),
+            gp_head=bool(cfg.get("gaussian_process", False)),
+            feature_extraction=headless,
+        )
+    if headless:
+        net = HybridClassifier(
+            net, len(clinical_feature_means), n_classes=n_classes,
+            tab_mean=list(clinical_feature_means),
+            tab_std=list(clinical_feature_stds),
+        )
+    return net

@@ -13,7 +13,11 @@ case) writes the JAX CLI's ``{id: value}`` map, several write its list of
 records (``iteration``, ``prediction_ids``, ``checkpoint``,
 ``predictions``), to ``--output_path`` and to standard output.
 ``--precision bf16`` casts the weights and the inputs; the running
-statistics stay f32, as in the JAX package. Several checkpoints,
+statistics stay f32, as in the JAX package. A checkpoint trained with
+clinical features rebuilds its ``HybridClassifier`` (the features'
+mean and standard deviation from ``metadata.json``) and feeds each case's
+``features``; it has no ``features`` prediction type, as the JAX one
+has none. Several checkpoints,
 ``--one_to_one``, ``--ensemble`` and conformal sets are not ported yet.
 """
 
@@ -74,12 +78,11 @@ def load_classifier(args, device) -> Classifier:
     )
     metadata = mngr.load_metadata()
     t_args = metadata.get("transform_arguments", {})
-    if (t_args.get("clinical_feature_keys") or t_args.get("image_masking")
-            or t_args.get("image_crop_from_mask")
+    if (t_args.get("image_masking") or t_args.get("image_crop_from_mask")
             or t_args.get("resize_size")):
         raise NotImplementedError(
-            "checkpoints with clinical features, mask-based masking or "
-            "cropping or a resize are not ported yet"
+            "checkpoints with mask-based masking or cropping or a resize "
+            "are not ported yet"
         )
     image_keys = args.image_keys or t_args.get("image_keys", ["image"])
     model = get_classification_network(
@@ -87,6 +90,8 @@ def load_classifier(args, device) -> Classifier:
         metadata.get("network_config", {}),
         n_classes=metadata.get("n_classes", args.n_classes),
         in_channels=len(image_keys),
+        clinical_feature_means=metadata.get("clinical_feature_means"),
+        clinical_feature_stds=metadata.get("clinical_feature_stds"),
     )
     model.load_state_dict(mngr.load_state_dict())
     model = model.to(device).eval()
@@ -101,15 +106,22 @@ def load_classifier(args, device) -> Classifier:
         positive_labels=t_args.get("positive_labels"),
         possible_labels=t_args.get("possible_labels"),
         label_groups=t_args.get("label_groups"),
+        clinical_feature_keys=t_args.get("clinical_feature_keys") or (),
     )
     return Classifier(model, metadata, transforms, dtype, mngr.dir)
 
 
-def forward(clf: Classifier, image, device, **kwargs):
-    """The f32 output of one case's ``image`` [*S, C] (numpy)."""
-    x = torch.from_numpy(image).to(device=device, dtype=clf.dtype)
+def forward(clf: Classifier, sample, device, **kwargs):
+    """The f32 output of one loaded case: its ``image`` [*S, C] and, for a
+    hybrid classifier, its ``features`` [F] (numpy), in the compute
+    dtype."""
+    inputs = [sample["image"]]
+    if clf.transforms.clinical_feature_keys:
+        inputs.append(sample["features"])
+    inputs = [torch.from_numpy(a).to(device=device, dtype=clf.dtype)[None]
+              for a in inputs]
     with torch.inference_mode():
-        return clf.model(x[None], **kwargs)[0].float().cpu()
+        return clf.model(*inputs, **kwargs)[0].float().cpu()
 
 
 def main(arguments):
@@ -129,6 +141,12 @@ def main(arguments):
         )
     device = use_device(args.dev)
     clf = load_classifier(args, device)
+    if (prediction_type == "features"
+            and clf.transforms.clinical_feature_keys):
+        raise ValueError(
+            "--prediction_type features is not supported by a classifier "
+            "with clinical features (HybridClassifier takes no "
+            "return_features)")
     n_classes = clf.metadata.get("n_classes", args.n_classes)
     load_fn = clf.transforms.load_fn()
 
@@ -140,8 +158,8 @@ def main(arguments):
               else {})
 
     def predict_one(pid):
-        out = forward(clf, load_fn({**data[pid], "identifier": pid})[
-            "image"], device, **kwargs)
+        out = forward(clf, load_fn({**data[pid], "identifier": pid}),
+                      device, **kwargs)
         if prediction_type in ("logit", "features"):
             return out.tolist()
         if n_classes == 2:

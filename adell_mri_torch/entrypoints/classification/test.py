@@ -10,7 +10,9 @@ probabilities against their mapped labels, with ``n_cases``, go to the
 metric CSV and to one JSON line on standard output, with ``iteration``
 and ``checkpoint`` (the fold directory). Each ``--test_ids`` entry is a
 group of IDs (a file or a comma-separated list): one group (or none:
-every case) prints its metrics, several print a list of them. Several checkpoints and
+every case) prints its metrics, several print a list of them. A
+checkpoint trained with clinical features feeds each case's
+``features`` to its ``HybridClassifier``. Several checkpoints and
 ``--one_to_one`` are not ported yet.
 """
 
@@ -66,7 +68,7 @@ def main(arguments):
         probs, targets = [], []
         for pid in group:
             sample = load_fn({**data[pid], "identifier": pid})
-            logits = forward(clf, sample["image"], device)
+            logits = forward(clf, sample, device)
             probs.append(float(torch.sigmoid(logits[0])) if n_classes == 2
                          else torch.softmax(logits, -1).numpy())
             targets.append(float(sample["label"]))

@@ -8,9 +8,17 @@ loaders -> network -> optimizer and schedule -> fit], with a checkpoint
 directory per fold whose ``metadata.json`` lets ``classification test``
 and ``predict`` rebuild the model and the transforms.
 
-Ported: CatNet with a ResNet backbone (``--classification_net_type cat``
-or ``resnet``; batch norm, whose running statistics the state carries and
-the checkpoints keep, and batch ensembles), binary and multiclass labels
+Ported: VGG (``--classification_net_type vgg``), CatNet with every
+``res_type`` (``cat``, ``resnet`` or ``convnext``; batch norm, whose
+running statistics the state carries and the checkpoints keep, and batch
+ensembles), the standalone ConvNeXt (``convnext_backbone``,
+``convnext_v2``), ``--clinical_feature_keys`` (the network headless in a
+``HybridClassifier``, the features standardised by their mean and
+standard deviation over the dataset, which ``metadata.json`` keeps; the
+step applies the parameters alone, as the JAX CLI's does with features:
+its batch norms normalise by each batch and the running statistics stay
+at their initial (0, 1), which ``test`` and ``predict`` then normalise
+by), binary and multiclass labels
 (``--positive_labels``, ``--possible_labels``, ``--label_groups``,
 ``--n_classes``), ``--pad_size`` or ``--crop_size`` and
 ``--random_crop_size``, every augmentation flag at the classifier's
@@ -57,6 +65,7 @@ from adell_mri_torch.models.classification.losses import (
     binary_logistic_loss,
     cross_entropy_loss,
 )
+from adell_mri_torch.models.layers.adn import batch_statistics_mode
 from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.batch_preprocessing import BatchPreprocessing
 from adell_mri_torch.train.checkpoints import (
@@ -80,6 +89,25 @@ from adell_mri_torch.transforms.pipeline import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def parameters_alone(loss_and_metrics, model, train: bool):
+    """The JAX CLI's step with clinical features, which applies the
+    parameters alone: ``loss_and_metrics`` (``make_classification_step``)
+    with the batch norms normalising by each batch in training and in
+    eval (``batch_statistics_mode``; ``(0, 1)`` where a feature has one
+    element) and no statistics returned, so the state keeps the ones it
+    started with."""
+
+    def step(params, batch):
+        if not train:
+            with batch_statistics_mode(model):
+                return loss_and_metrics(params, batch)
+        loss, metrics = loss_and_metrics(params, batch)
+        metrics.pop("_variables", None)
+        return loss, metrics
+
+    return step
 
 ARG_KEYS = [
     "dataset_json",
@@ -131,9 +159,9 @@ ARG_KEYS = [
     "classification_net_type",
     "swa",
     "steps_per_epoch",
+    "clinical_feature_keys",
 ]
 UNPORTED_KEYS = [
-    "clinical_feature_keys",
     "mask_keys",
     "image_masking",
     "image_crop_from_mask",
@@ -206,6 +234,16 @@ def main(arguments):
     if args.dropout_param:
         net_cfg["dropout_param"] = args.dropout_param
 
+    # the HybridClassifier's standardisation: over every case that has
+    # all the features, the population standard deviation
+    feat_keys = list(args.clinical_feature_keys or [])
+    feat_means = feat_stds = None
+    if feat_keys:
+        mat = np.asarray([[float(data[k][fk]) for fk in feat_keys]
+                          for k in data
+                          if all(fk in data[k] for fk in feat_keys)])
+        feat_means, feat_stds = mat.mean(0).tolist(), mat.std(0).tolist()
+
     base_size = args.pad_size or args.crop_size
     if base_size is None:
         raise ValueError("one of --pad_size/--crop_size is required")
@@ -265,6 +303,7 @@ def main(arguments):
             augmentations=AugmentPolicy.classification(
                 args.augment, crop_size or base_size),
             seed=args.seed + fold_idx,
+            clinical_feature_keys=feat_keys,
             **labels_args,
         )
         load_fn = transforms.load_fn()
@@ -293,6 +332,8 @@ def main(arguments):
         model = get_classification_network(
             net_type, net_cfg, n_classes=n_classes,
             in_channels=len(args.image_keys),
+            clinical_feature_means=feat_means,
+            clinical_feature_stds=feat_stds,
         ).to(device)
         seed_dropout(
             model,
@@ -335,7 +376,7 @@ def main(arguments):
                     "target_spacing": args.target_spacing,
                     "target_size": list(base_size),
                     "resize_size": None,
-                    "clinical_feature_keys": [],
+                    "clinical_feature_keys": feat_keys,
                     **labels_args,
                     "adc_keys": list(args.adc_keys or ()),
                     "mask_key": None,
@@ -346,8 +387,8 @@ def main(arguments):
                 "val_pids": val_pids,
                 "n_classes": n_classes,
                 "net_type": net_type,
-                "clinical_feature_means": None,
-                "clinical_feature_stds": None,
+                "clinical_feature_means": feat_means,
+                "clinical_feature_stds": feat_stds,
             },
         )
         ckpt.begin_run(resume=args.resume_from_last)
@@ -355,13 +396,20 @@ def main(arguments):
                 and ckpt.status(args.max_epochs) == "finished"):
             logger.info("fold %d already finished; skipping", fold_idx)
             continue
-        step_kwargs = dict(n_classes=n_classes, precision=args.precision)
+        step_kwargs = dict(
+            n_classes=n_classes, precision=args.precision,
+            feature_key="features" if feat_keys else None)
+        train_lm = make_classification_step(
+            model, loss_fn, train=True, batch_preprocessing=batch_prep,
+            **step_kwargs)
+        eval_lm = make_classification_step(model, loss_fn, train=False,
+                                           **step_kwargs)
+        if feat_keys:
+            train_lm = parameters_alone(train_lm, model, train=True)
+            eval_lm = parameters_alone(eval_lm, model, train=False)
         loop = TrainLoop(
-            train_step=make_train_step(make_classification_step(
-                model, loss_fn, train=True,
-                batch_preprocessing=batch_prep, **step_kwargs)),
-            eval_step=make_eval_step(make_classification_step(
-                model, loss_fn, train=False, **step_kwargs)),
+            train_step=make_train_step(train_lm),
+            eval_step=make_eval_step(eval_lm),
             augment_fn=transforms.augment,
             device=device,
             max_epochs=args.max_epochs,
@@ -373,7 +421,9 @@ def main(arguments):
             metric_logger=metric_logger,
             seed=args.seed + fold_idx,
             eval_on_ema=args.swa,
-            callbacks=[ClassificationMetricsCallback(model, n_classes)],
+            callbacks=[ClassificationMetricsCallback(
+                model, n_classes,
+                feature_key="features" if feat_keys else None)],
             steps_per_epoch=args.steps_per_epoch,
         )
         start_epoch = 0

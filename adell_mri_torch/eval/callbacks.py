@@ -84,13 +84,16 @@ class ClassificationMetricsCallback:
     the batch's own statistics (``batch_statistics_mode``: (0, 1) where a
     feature has one element) and leaving the running averages alone, as
     the JAX callback's forward with the parameters alone does; at most
-    ``max_cases`` cases are kept. ``on_validation_end`` returns the finite
-    metrics, ``V_``-prefixed."""
+    ``max_cases`` cases are kept. ``feature_key``: the batch key of the
+    model's second input (a ``HybridClassifier``'s tabular features).
+    ``on_validation_end`` returns the finite metrics, ``V_``-prefixed."""
 
-    def __init__(self, model, n_classes: int = 2, max_cases: int = 4096):
+    def __init__(self, model, n_classes: int = 2, max_cases: int = 4096,
+                 feature_key: Optional[str] = None):
         self.model = model
         self.n_classes = n_classes
         self.max_cases = max_cases
+        self.feature_key = feature_key
         self._probs = []
         self._labels = []
 
@@ -98,9 +101,12 @@ class ClassificationMetricsCallback:
         if len(self._probs) >= self.max_cases:
             return
         self.model.eval()
+        inputs = (batch["image"],)
+        if self.feature_key and self.feature_key in batch:
+            inputs += (batch[self.feature_key],)
         with torch.no_grad(), batch_statistics_mode(self.model):
             logits = torch.func.functional_call(self.model, params,
-                                                (batch["image"],)).float()
+                                                inputs).float()
         probs = (torch.softmax(logits, -1) if self.n_classes > 2
                  else torch.sigmoid(logits[..., 0]))
         probs = probs.cpu().numpy()

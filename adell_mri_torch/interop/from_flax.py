@@ -1,6 +1,6 @@
 """
-Moves a JAX UNet's, UNETR's, SWINUNet's or CatNet's parameters (and a
-CatNet's ``batch_stats``) into the port.
+Moves a JAX UNet's, UNETR's, SWINUNet's, CatNet's, VGG's, ConvNeXt's or
+HybridClassifier's parameters (and their ``batch_stats``) into the port.
 
 The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
 ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
@@ -8,9 +8,14 @@ UNETR's ``LinearEmbedding_0``, ``TransformerBlockStack_0/block_{i}``,
 ``proj_{i}_{u}``, ``bn_proj``, ``dec_{i}/ConvTranspose_0``; SWIN-UNet's
 ``SWINTransformerBlockStack_0/{Conv_0,merge{s},stage{s}_block{b}}``; the
 heads ``bottleneck_classifier``, ``ds_conv_{i}``, ``ds_out_{i}``;
-CatNet's ``ResNetBackbone_0/{Conv_0,Conv_1,ResidualBlock_{i},
-BatchEnsembleConv_{s}}``, ``Dense_{i}`` and every ``ActDropNorm_{i}/
-GlobalBatchNorm_0``), so each flax leaf ``a/b/kernel`` becomes the port
+CatNet's ``ResNetBackbone_0/{Conv_0,Conv_1,ResidualBlock_{i}
+(ResNeXtBlock_{i}, ConvNeXtBlock_{i}),BatchEnsembleConv_{s}}``,
+``Dense_{i}`` and every ``ActDropNorm_{i}/GlobalBatchNorm_0``; VGG's
+``VGGConvolution_{i}/{Conv_0,Conv_1}`` and ``MLP_0/Dense_{i}``;
+ConvNeXt's ``backbone/{stem_conv,stem_norm,down_norm_{s},down_conv_{s},
+stage{s}_block{b}}``, ``head_norm`` and ``head``; HybridClassifier's
+``convolutional_module`` (the headless network) and ``Dense_0/1``), so
+each flax leaf ``a/b/kernel`` becomes the port
 key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
 batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token
 parameters (``pos_embedding``, ``class_token``, ``registers``) and a batch
@@ -30,7 +35,9 @@ buffers ``a.b.mean`` and ``a.b.var``. Only the layouts change:
   ``[Cin,kd,kh,kw,Cout]``; an attention block's ``proj`` Dense is not one
   of them, nor is a 1x1 kernel (the U-Net's ``upsample`` ``up_{i}``, or a
   stride-1 transposed conv), which the port holds as a ``Pointwise``;
-- a depthwise kernel ``[kd,kh,kw,1,C]`` stays as it is (``DwConv``).
+- a depthwise kernel ``[kd,kh,kw,1,C]`` stays as it is (``DwConv``), and
+  so does a grouped one ``[kd,kh,kw,Cin/g,Cout]`` (the ResNeXt block's,
+  ``Conv3d`` with ``groups``: flax and torch order the groups alike).
 
 A prelu ADN's ``prelu``, GRN's ``gamma`` and LayerScale's
 ``layer_scale`` keep their names. Instance norm without affine

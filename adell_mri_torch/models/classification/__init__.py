@@ -1,5 +1,13 @@
-"""Classification models of the port: CatNet with a ResNet backbone."""
+"""Classification models of the port: VGG, CatNet (every ``res_type``),
+the standalone ConvNeXt, and the tabular and hybrid classifiers."""
 
-from adell_mri_torch.models.classification.nets import CatNet
+from adell_mri_torch.models.classification.nets import (
+    VGG,
+    CatNet,
+    HybridClassifier,
+    TabularClassifier,
+)
+from adell_mri_torch.models.layers.conv_next import ConvNeXt
 
-__all__ = ["CatNet"]
+__all__ = ["VGG", "CatNet", "ConvNeXt", "HybridClassifier",
+           "TabularClassifier"]

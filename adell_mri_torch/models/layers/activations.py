@@ -14,6 +14,7 @@ import torch.nn.functional as F
 activation_factory: Dict[str, Callable] = {
     # the exact (erf) GELU, torch's default and the JAX registry's
     "gelu": F.gelu,
+    "relu": F.relu,
     "sigmoid": torch.sigmoid,
     "silu": F.silu,
     "swish": F.silu,

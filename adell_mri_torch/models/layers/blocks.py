@@ -1,9 +1,9 @@
 """
 Small building blocks of the model layers.
 
-Counterpart of ``_tuple``, ``apply_adn``, ``GlobalPooling``, ``max_pool``
-and ``MLP`` in ``adell_mri_tpu/models/layers/blocks.py``, on
-channels-last tensors.
+Counterpart of ``_tuple``, ``apply_adn``, ``GlobalPooling``, ``max_pool``,
+``MLP`` and ``VGGConvolution`` in ``adell_mri_tpu/models/layers/blocks.py``,
+on channels-last tensors.
 """
 
 from typing import Sequence, Union
@@ -11,7 +11,8 @@ from typing import Sequence, Union
 import torch.nn as nn
 import torch.nn.functional as F
 
-from adell_mri_torch.ops.conv import Pointwise
+from adell_mri_torch.models.layers.adn import get_adn_fn
+from adell_mri_torch.ops.conv import Conv3d, Pointwise
 
 
 def _tuple(v, n: int):
@@ -107,3 +108,26 @@ class MLP(nn.Module):
 
     def forward(self, x):
         return run_mlp(self, self.n_hidden, x)
+
+
+class VGGConvolution(nn.Module):
+    """A 3x3x3 SAME conv to ``first_depth`` channels and one to twice that,
+    each followed by an ADN (``norm_fn``, ``act_fn``, no dropout), then a
+    SAME max-pool of 2 (a spatial size of 1 stays 1). Both convs are K1's
+    class. Module names are the JAX tree's: ``Conv_0``, ``ActDropNorm_0``,
+    ``Conv_1``, ``ActDropNorm_1``."""
+
+    def __init__(self, in_channels: int, first_depth: int,
+                 norm_fn: str = "batch", act_fn: str = "relu"):
+        super().__init__()
+        d = first_depth
+        adn = get_adn_fn(norm_fn, act_fn)
+        self.Conv_0 = Conv3d(in_channels, d, (3, 3, 3))
+        self.ActDropNorm_0 = adn(d)
+        self.Conv_1 = Conv3d(d, 2 * d, (3, 3, 3))
+        self.ActDropNorm_1 = adn(2 * d)
+
+    def forward(self, x):
+        x = apply_adn(self.ActDropNorm_0, self.Conv_0(x))
+        x = apply_adn(self.ActDropNorm_1, self.Conv_1(x))
+        return max_pool(x, 2, padding="SAME")

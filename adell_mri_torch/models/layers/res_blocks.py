@@ -1,8 +1,9 @@
 """
 Residual blocks.
 
-Counterpart of ``ResidualBlock`` and ``ConvNeXtBlock`` in
-``adell_mri_tpu/models/layers/res_blocks.py``. Without ``inter_channels``
+Counterpart of ``ResidualBlock``, ``ResNeXtBlock``, ``ConvNeXtBlock`` and
+``RES_BLOCK_REGISTRY`` in ``adell_mri_tpu/models/layers/res_blocks.py``.
+``ResidualBlock`` without ``inter_channels``
 (the UNet's residual link): two kxk convs with an ADN between them, the
 skip added, an optional 1x1 projection, then the trailing ADN. With it
 (the ResNet backbone's bottleneck): 1x1 to ``inter_channels``, ADN, kxk,
@@ -10,7 +11,9 @@ ADN, 1x1 back to the input width, the skip added, the 1x1 projection when
 the width changes, then the trailing ADN. ``ConvNeXtBlock``: a depthwise
 7^3 conv, flax's LayerNorm, the two Dense layers around a GELU (flax's,
 the tanh approximation), GRN (v2) or LayerScale (v1), the skip added, and
-a 1x1 conv + GELU where the width changes.
+a 1x1 conv + GELU where the width changes. ``ResNeXtBlock``: the
+bottleneck with a grouped kxk conv (``min(n_splits, inter)`` groups, the
+inner width rounded down to a multiple of them).
 """
 
 import torch.nn as nn
@@ -106,3 +109,66 @@ class ConvNeXtBlock(nn.Module):
         if self.Conv_1 is not None:
             out = F.gelu(self.Conv_1(out), approximate="tanh")
         return out
+
+
+class ResNeXtBlock(nn.Module):
+    """Module names are the JAX tree's: ``Conv_0`` (1x1 to the inner
+    width), ``ActDropNorm_0``, ``Conv_1`` (the grouped kxk conv, a grouped
+    ``F.conv3d``), ``ActDropNorm_1``, ``Conv_2`` (1x1 back), ``Conv_3``
+    (the projection, where the width changes), ``ActDropNorm_2``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        kernel_size: int = 3,
+        out_channels: int = None,
+        adn_fn=None,
+        inter_channels: int = None,
+        n_splits: int = 16,
+    ):
+        super().__init__()
+        out_channels = out_channels or in_channels
+        inter = inter_channels or in_channels
+        groups = min(n_splits, inter)
+        inter = (inter // groups) * groups or groups
+
+        def adn(features):
+            return adn_fn(features) if adn_fn else None
+
+        self.Conv_0 = Pointwise(in_channels, inter)
+        self.ActDropNorm_0 = adn(inter)
+        self.Conv_1 = Conv3d(inter, inter, _tuple(kernel_size, 3),
+                             groups=groups)
+        self.ActDropNorm_1 = adn(inter)
+        self.Conv_2 = Pointwise(inter, in_channels)
+        self.Conv_3 = (Pointwise(in_channels, out_channels)
+                       if in_channels != out_channels else None)
+        self.ActDropNorm_2 = adn(out_channels)
+
+    def forward(self, x):
+        y = apply_adn(self.ActDropNorm_0, self.Conv_0(x))
+        y = apply_adn(self.ActDropNorm_1, self.Conv_1(y))
+        out = self.Conv_2(y) + x
+        if self.Conv_3 is not None:
+            out = self.Conv_3(out)
+        return apply_adn(self.ActDropNorm_2, out)
+
+
+def _convnext(v2: bool):
+    def ctor(in_channels, kernel_size, out_channels, adn_fn=None,
+             inter_channels=None):
+        # the JAX block accepts adn_fn and ignores it
+        return ConvNeXtBlock(in_channels, out_channels, kernel_size,
+                             inter_channels, v2=v2)
+
+    return ctor
+
+
+#: res_type -> ``ctor(in_channels, kernel_size, out_channels, adn_fn,
+#: inter_channels)``; the ResNet backbone names each block by its class
+RES_BLOCK_REGISTRY = {
+    "resnet": ResidualBlock,
+    "resnext": ResNeXtBlock,
+    "convnext": _convnext(False),
+    "convnextv2": _convnext(True),
+}

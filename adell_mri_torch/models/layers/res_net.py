@@ -6,11 +6,15 @@ Counterpart of ``ResNetBackbone`` in
 (channels, inter_channels, kernel_size, n_blocks) stages and
 ``maxpool_structure`` each stage's pool window; the stem is a 7^3 conv,
 ADN, a 3^3 conv, ADN and a max-pool of 2; a stage is ``max(n_blocks, 2)``
-bottleneck residual blocks (the first changing the width to the stage's),
-then, with ``batch_ensemble > 0``, a 1x1 batch-ensemble conv, then its
-pool. Module names are the JAX tree's: ``Conv_0``, ``ActDropNorm_0``,
-``Conv_1``, ``ActDropNorm_1``, ``ResidualBlock_{i}`` counted over every
-stage, ``BatchEnsembleConv_{s}``. Only ``res_type`` "resnet" is ported.
+blocks of ``res_type`` (``RES_BLOCK_REGISTRY``: "resnet" bottleneck
+residual blocks, "resnext", "convnext" or "convnextv2"; the first changes
+the width to the stage's; a ConvNeXt block takes the stage's kernel, per
+axis where the config gives a list, and no ADN), then, with
+``batch_ensemble > 0``, a 1x1 batch-ensemble conv, then its pool. Module
+names are the JAX tree's: ``Conv_0``, ``ActDropNorm_0``, ``Conv_1``,
+``ActDropNorm_1``, ``ResidualBlock_{i}`` (``ResNeXtBlock_{i}``,
+``ConvNeXtBlock_{i}``) counted over every stage,
+``BatchEnsembleConv_{s}``.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -19,7 +23,7 @@ import torch.nn as nn
 
 from adell_mri_torch.models.layers.batch_ensemble import BatchEnsembleConv
 from adell_mri_torch.models.layers.blocks import apply_adn, max_pool
-from adell_mri_torch.models.layers.res_blocks import ResidualBlock
+from adell_mri_torch.models.layers.res_blocks import RES_BLOCK_REGISTRY
 from adell_mri_torch.ops.conv import Conv3d
 
 
@@ -34,11 +38,10 @@ class ResNetBackbone(nn.Module):
         batch_ensemble: int = 0,
     ):
         super().__init__()
-        if res_type != "resnet":
-            raise NotImplementedError(
-                f"res_type {res_type!r} is not ported yet (the port has "
-                "'resnet')"
-            )
+        if res_type not in RES_BLOCK_REGISTRY:
+            raise KeyError(f"res_type {res_type!r}: one of "
+                           f"{', '.join(RES_BLOCK_REGISTRY)}")
+        block = RES_BLOCK_REGISTRY[res_type]
         mp = list(maxpool_structure or [2] * len(structure))
         if len(mp) != len(structure):
             # zip would drop trailing stages and train a smaller network
@@ -61,9 +64,9 @@ class ResNetBackbone(nn.Module):
         for stage_idx, (channels, inter, k, n_blocks) in enumerate(structure):
             names = []
             for _ in range(max(n_blocks, 2)):
-                name = f"ResidualBlock_{block_idx}"
-                self.add_module(name, ResidualBlock(
-                    in_ch, k, channels, adn_fn, inter_channels=inter))
+                module = block(in_ch, k, channels, adn_fn, inter)
+                name = f"{type(module).__name__}_{block_idx}"
+                self.add_module(name, module)
                 names.append(name)
                 in_ch, block_idx = channels, block_idx + 1
             if batch_ensemble > 0:

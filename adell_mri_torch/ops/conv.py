@@ -17,7 +17,8 @@ over. Here:
   JAX package's ``TpuDwConv``: no Pallas kernel either);
 - the kernel == stride transposed conv is one matmul plus a depth-to-space
   rearrange;
-- a 1x1 conv is a plain product over the channel axis (``Pointwise``).
+- a 1x1 conv is a plain product over the channel axis (``Pointwise``);
+- a grouped conv (the ResNeXt block's) is a grouped ``F.conv3d``.
 
 Tensors are channels-last ``[B, D, H, W, C]``. Weights are stored in the
 layout each path reads without a copy: ``Conv3d.weight`` is
@@ -82,8 +83,10 @@ def conv3d(x, w, bias=None, strides=(1, 1, 1), padding: Padding = "SAME",
 
 
 class Conv3d(nn.Module):
-    """Channels-last 3D conv with a ``[kd,kh,kw,Cin,Cout]`` weight (the
-    port's ``TpuConv``)."""
+    """Channels-last 3D conv with a ``[kd,kh,kw,Cin/groups,Cout]`` weight
+    (the port's ``TpuConv``; with ``groups`` flax's grouped ``nn.Conv``,
+    whose kernel layout is torch's: output channel ``o`` reads the
+    ``o // (Cout / groups)``-th block of ``Cin / groups`` inputs)."""
 
     def __init__(
         self,
@@ -93,20 +96,21 @@ class Conv3d(nn.Module):
         strides: Sequence[int] = (1, 1, 1),
         padding: Padding = "SAME",
         dilation: Sequence[int] = (1, 1, 1),
+        groups: int = 1,
     ):
         super().__init__()
         self.strides = tuple(strides)
         self.padding = padding
         self.dilation = tuple(dilation)
-        self.weight = nn.Parameter(
-            torch.empty(tuple(kernel_size) + (in_channels, out_channels))
-        )
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(
+            tuple(kernel_size) + (in_channels // groups, out_channels)))
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        lecun_normal_(self.weight, in_channels * self.weight.shape[:3].numel())
+        lecun_normal_(self.weight, self.weight.shape[:4].numel())
 
     def forward(self, x):
         return conv3d(x, self.weight, self.bias, self.strides, self.padding,
-                      self.dilation)
+                      self.dilation, self.groups)
 
 
 class DwConv(nn.Module):

@@ -32,6 +32,13 @@ resnet.yaml`` as it stands (four ResNet stages, batch ensembles of 4,
 batch norm): trained at the yaml's 16 crops of 128x128x32 with binary
 labels (``make_catnet_batch``; ``make_catnet_trainer``), the binary
 logistic loss and the classifier's ranges of the CLI's augmentation.
+The other classifiers (``CLASSIFIERS``) go through the same helpers:
+``"catnet_convnext"`` (``classification-cat-convnext.yaml``: four stages
+of ConvNeXt blocks, batch ensembles of 4; the yaml's 16 crops), ``"vgg"``
+(``vggnet-net.yaml``: the factory's VGG, first depth 16, four blocks,
+batch norm; the yaml's 16 crops) and ``"convnext"`` (the standalone
+ConvNeXt at the factory's defaults, ``convnext_backbone``; no yaml, so
+the CLI's default batch of 4 crops).
 
 All train with the CLI's augmentation (``--augment intensity noise affine
 flip``: for the segmentation nets rotation-only affine, flips on all
@@ -61,7 +68,10 @@ from adell_mri_torch.inference import SegmentationInference
 from adell_mri_torch.models.classification.losses import (
     binary_logistic_loss,
 )
-from adell_mri_torch.models.layers.adn import statistics_to_f32
+from adell_mri_torch.models.layers.adn import (
+    pop_batch_stats,
+    statistics_to_f32,
+)
 from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
@@ -103,6 +113,15 @@ RESNET_YAML = UNETR_YAML.with_name("u-net-3d-resnet.yaml")
 RESNET_BATCH = 2
 CATNET_YAML = UNETR_YAML.with_name("classification-cat-resnet.yaml")
 CATNET_BATCH = 16
+# name -> (the CLI's --classification_net_type, the yaml or None for the
+# factory's defaults, the training batch: the yaml's, else the CLI's 4)
+CLASSIFIERS = {
+    "catnet": ("cat", CATNET_YAML, CATNET_BATCH),
+    "catnet_convnext": (
+        "cat", UNETR_YAML.with_name("classification-cat-convnext.yaml"), 16),
+    "vgg": ("vgg", UNETR_YAML.with_name("vggnet-net.yaml"), 16),
+    "convnext": ("convnext_backbone", None, 4),
+}
 
 
 @dataclass(frozen=True)
@@ -228,12 +247,29 @@ def make_trainer(seed: int, precision: str, device="cuda",
                    transforms, model)
 
 
-def make_catnet(seed: int, device="cuda"):
-    """CatNet of the yaml with f32 weights drawn from ``seed``, in
-    training mode."""
+def make_catnet(seed: int, device="cuda", name: str = "catnet"):
+    """The classifier ``name`` (``CLASSIFIERS``) with f32 weights drawn
+    from ``seed``, in training mode."""
+    net_type, yaml_path, _ = CLASSIFIERS[name]
     torch.manual_seed(seed)
-    network = parse_config_cat(str(CATNET_YAML))["network"]
-    return get_classification_network("cat", network).to(device)
+    network = (parse_config_cat(str(yaml_path))["network"] if yaml_path
+               else {})
+    return get_classification_network(net_type, network).to(device)
+
+
+def make_served_classifier(seed: int, device="cuda", name: str = "catnet"):
+    """The classifier ``name`` (``make_catnet``) in eval mode, with the
+    running statistics of two training forwards on 4 crops of 128x128x32
+    (``make_catnet_batch(seed + 1)``): a served model's statistics."""
+    model = make_catnet(seed, device, name)
+    crops = make_catnet_batch(seed + 1, device, batch=4)["image"]
+    with torch.no_grad():
+        buffers = dict(model.named_buffers())
+        for _ in range(2):
+            model(crops)
+            for k, v in pop_batch_stats(model).items():
+                buffers[k].copy_(v)
+    return model.eval()
 
 
 def make_catnet_batch(seed: int, device="cuda", batch=CATNET_BATCH,
@@ -260,12 +296,13 @@ def make_catnet_batch(seed: int, device="cuda", batch=CATNET_BATCH,
 
 
 def make_catnet_trainer(seed: int, precision: str, device="cuda",
-                        learning_rate: float = 1e-3, t_max: int = 100):
-    """CatNet (f32 master weights from ``seed``, its members and dropout
-    drawn from a generator seeded alike) with its train and eval steps,
-    Nesterov SGD and the classification CLI's augmentation policy
-    (``AugmentPolicy.classification``)."""
-    model = make_catnet(seed, device)
+                        learning_rate: float = 1e-3, t_max: int = 100,
+                        name: str = "catnet"):
+    """The classifier ``name`` (f32 master weights from ``seed``, its
+    members and dropout drawn from a generator seeded alike) with its
+    train and eval steps, Nesterov SGD and the classification CLI's
+    augmentation policy (``AugmentPolicy.classification``)."""
+    model = make_catnet(seed, device, name)
     seed_dropout(model, torch.Generator(device=device).manual_seed(seed))
     schedule = cosine_annealing_with_warmup(learning_rate, t_max=t_max)
     state = TrainState.create(

@@ -1,7 +1,8 @@
 """
 Where the time of one served case goes, on the GPU.
 
-    python -m adell_mri_torch.tools.profile_serving [unet|resnet|unetr|swin] \
+    python -m adell_mri_torch.tools.profile_serving \
+        [unet|resnet|unetr|swin|catnet|catnet_convnext|vgg|convnext] \
         [--precision bf16|32]
 
 Serves the model (bf16 by default, or f32 with ``--precision 32``, the
@@ -10,10 +11,12 @@ through ``SegmentationInference`` as ``chip_smoke.py`` does: the flagship
 U-Net, the resnet U-Net (``sample_configs/u-net-3d-resnet.yaml``) or
 SWIN-UNet (``sample_configs/unet-swin.yaml``) with a 128x128x32
 window at stride 0.5 in micro-batches of 4, or UNETR
-(``sample_configs/unetr.yaml``) with the whole case as one window.
-After one warm-up case it times three cases with the host clock, then runs
-one more under ``torch.profiler`` and prints the device time by kernel
-group, the device-busy share of a case's wall time, and the top kernels.
+(``sample_configs/unetr.yaml``) with the whole case as one window; or a
+classifier (``tools/flagship.py``'s ``CLASSIFIERS``, eval mode, the
+running statistics of two training forwards) on a micro-batch of 2
+crops of 128x128x32. After one warm-up case it times three cases with
+the host clock, then runs one more under ``torch.profiler`` and prints
+the device time by kernel group, the device-busy share of a case's wall time, and the top kernels.
 The full table goes to ``chiprun_out/profile_serving_{model}.txt`` (or
 ``--out``).
 """
@@ -29,9 +32,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from adell_mri_torch.tools.flagship import (
+    CLASSIFIERS,
     make_case,
+    make_catnet_batch,
     make_inference,
     make_model,
+    make_served_classifier,
 )
 from adell_mri_torch.train.precision import compute_dtype
 
@@ -47,6 +53,7 @@ GROUPS = (
     ("conv3d_narrow", "conv3d_igemm (stride-1 3x3x3 convs)"),
     ("CatArrayBatchedCopy", "concatenation"),
     ("reduce_kernel", "reductions (instance-norm statistics)"),
+    ("depthwise", "depthwise convs (ConvNeXt blocks)"),
     ("fprop", "cuDNN convs (stride-2 downsampling)"),
     ("conv", "cuDNN convs (stride-2 downsampling)"),
     ("gemm", "matmuls (transposed convs, 1x1)"),
@@ -61,14 +68,28 @@ def _self_device_us(evt):
     return float(evt.self_device_time_total)
 
 
+def classifier_forward(name, dtype, batch=2):
+    """``(forward, crops)``: the classifier ``name`` served
+    (``make_served_classifier``), its parameters in ``dtype`` and its
+    running statistics f32, and ``batch`` crops of 128x128x32."""
+    model = make_served_classifier(0, name=name)
+    for p in model.parameters():
+        p.data = p.data.to(dtype)
+    crops = make_catnet_batch(1, batch=4)["image"][:batch]
+    return (lambda x: model(x.to(dtype)).float()), crops
+
+
 def main(name="unet", out_path=None, precision="bf16"):
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1
     out_path = out_path or f"chiprun_out/profile_serving_{name}.txt"
     dtype = compute_dtype(precision) or torch.float32
-    infer = make_inference(make_model(0, dtype, name=name), name)
-    case = make_case(1)
+    if name in CLASSIFIERS:
+        infer, case = classifier_forward(name, dtype)
+    else:
+        infer = make_inference(make_model(0, dtype, name=name), name)
+        case = make_case(1)
     with torch.inference_mode():
         infer(case)
         torch.cuda.synchronize()
@@ -127,7 +148,8 @@ def main(name="unet", out_path=None, precision="bf16"):
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("model", nargs="?", default="unet",
-                        choices=("unet", "resnet", "unetr", "swin"))
+                        choices=("unet", "resnet", "unetr", "swin",
+                                 *CLASSIFIERS))
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")

@@ -2,7 +2,8 @@
 Where the time of one training step goes, on the GPU.
 
     python -m adell_mri_torch.tools.profile_train \
-        [unet|resnet|unetr|swin|catnet] [--precision bf16|32] [--batch N]
+        [unet|resnet|unetr|swin|catnet|catnet_convnext|vgg|convnext] \
+        [--precision bf16|32] [--batch N]
 
 Trains the model (f32 master weights from seed 0, bf16 compute or, with
 ``--precision 32``, f32 compute, the CLI's default; the CLI's
@@ -11,9 +12,12 @@ augmentation, Nesterov SGD) on a batch made on the card, as
 the dice loss, UNETR (``sample_configs/unetr.yaml``, dropout 0) on 2
 volumes of 256x256x64 or SWIN-UNet (``sample_configs/unet-swin.yaml``,
 dropout 0) on 2 volumes of 128x128x32, both with their yaml's dice +
-focal loss, or CatNet (``sample_configs/classification-cat-resnet.yaml``)
-on 16 crops of 128x128x32 with binary labels and the classifier's
-augmentation (``--batch`` changes the volumes a step). After one warm-up
+focal loss, or a classifier (``tools/flagship.py``'s ``CLASSIFIERS``:
+CatNet with ``sample_configs/classification-cat-resnet.yaml`` or
+``classification-cat-convnext.yaml``, VGG with ``vggnet-net.yaml``, each
+on 16 crops of 128x128x32, or the standalone ConvNeXt at the factory's
+defaults on 4) with binary labels and the classifier's augmentation
+(``--batch`` changes the volumes a step). After one warm-up
 step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
 device-busy share of a step's wall time, the peak device memory and the
@@ -32,7 +36,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from adell_mri_torch.tools.flagship import (
-    CATNET_BATCH,
+    CLASSIFIERS,
     make_catnet_batch,
     make_catnet_trainer,
     make_train_batch,
@@ -55,6 +59,8 @@ GROUPS = (
     ("conv3d_narrow", "conv3d_igemm (K1: stride-1 conv forward and dx)"),
     ("intensity_aug", "intensity_aug (K3: fused intensity augmentation)"),
     ("fft", "FFT (Gibbs ringing)"),
+    ("depthwise", "depthwise convs (ConvNeXt blocks; forward and "
+     "backward)"),
     ("fprop", "cuDNN convs (stride-2, 5^3, 7^3; forward and backward)"),
     ("dgrad", "cuDNN convs (stride-2, 5^3, 7^3; forward and backward)"),
     ("wgrad", "cuDNN convs (stride-2, 5^3, 7^3; forward and backward)"),
@@ -82,10 +88,10 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     out_path = out_path or f"chiprun_out/profile_train_{name}.txt"
-    if name == "catnet":
-        batch_size = batch_size or CATNET_BATCH
+    if name in CLASSIFIERS:
+        batch_size = batch_size or CLASSIFIERS[name][2]
         batch = make_catnet_batch(0, batch=batch_size)
-        tr = make_catnet_trainer(0, precision)
+        tr = make_catnet_trainer(0, precision, name=name)
     else:
         spec = model_spec(name)
         batch_size = batch_size or spec.train_batch
@@ -162,7 +168,7 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("model", nargs="?", default="unet",
                         choices=("unet", "resnet", "unetr", "swin",
-                                 "catnet"))
+                                 *CLASSIFIERS))
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")

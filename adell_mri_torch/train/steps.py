@@ -108,9 +108,9 @@ def make_segmentation_step(
 
 
 def _forward_fn(model, precision: Optional[str]):
-    """``forward(params, x)``: ``model`` as a function of its weights and
-    running statistics, the weights and ``x`` in the compute dtype and the
-    statistics f32 (as the JAX steps keep ``batch_stats`` outside the
+    """``forward(params, *inputs)``: ``model`` as a function of its weights
+    and running statistics, the weights and the inputs in the compute dtype
+    and the statistics f32 (as the JAX steps keep ``batch_stats`` outside the
     precision policy's cast), float outputs back in f32."""
     stat_names = set(batch_stats(model))
     dtype = compute_dtype(precision)
@@ -120,10 +120,11 @@ def _forward_fn(model, precision: Optional[str]):
             k: v if k in stat_names else cast_floats(v, dtype)
             for k, v in params.items()}
 
-    def forward(params, x, **kwargs):
+    def forward(params, *inputs, **kwargs):
         # casting weights cast already is a no-op (``.to`` of their dtype)
-        x = x if dtype is None else x.to(dtype)
-        out = torch.func.functional_call(model, cast(params), (x,), kwargs)
+        if dtype is not None:
+            inputs = tuple(t.to(dtype) for t in inputs)
+        out = torch.func.functional_call(model, cast(params), inputs, kwargs)
         return cast_floats(out, torch.float32)
 
     forward.cast = cast
@@ -137,13 +138,16 @@ def make_classification_step(
     train: bool = True,
     batch_preprocessing=None,
     precision: Optional[str] = None,
+    feature_key: Optional[str] = None,
 ):
     """Returns ``loss_and_metrics(params, batch) -> (loss, metrics)``,
     ``loss_fn(logits, labels) -> scalar``. Batch keys: ``image`` [B, *S, C]
-    and ``label`` [B]. In training ``batch_preprocessing`` (mixup, label
-    smoothing) runs first. The weights and the input go to the compute
-    dtype and the running statistics stay f32, as the JAX step closes over
-    its ``batch_stats``. Metrics: ``loss`` and ``acc`` (sigmoid above 0.5
+    and ``label`` [B]; with ``feature_key`` the model's second input, the
+    tabular features [B, F] (a ``HybridClassifier``). In training
+    ``batch_preprocessing`` (mixup, label smoothing) runs first, on the
+    images and labels. The weights and the inputs go to the compute dtype
+    and the running statistics stay f32, as the JAX step closes over its
+    ``batch_stats``. Metrics: ``loss`` and ``acc`` (sigmoid above 0.5
     against labels above 0.5; argmax when multiclass, of the soft targets
     too), and in training the updated statistics in ``_variables``."""
     forward = _forward_fn(model, precision)
@@ -153,7 +157,8 @@ def make_classification_step(
         x, y = batch["image"], batch["label"]
         if batch_preprocessing is not None and train:
             x, y = batch_preprocessing(x, y)
-        logits = forward(params, x)
+        inputs = (x, batch[feature_key]) if feature_key else (x,)
+        logits = forward(params, *inputs)
         new_stats = pop_batch_stats(model) if train else {}
         loss = loss_fn(logits, y)
         if n_classes > 2:

@@ -358,8 +358,10 @@ class ClassificationTransforms:
     class a group), else ``positive_labels`` (1 for those, else 0), else
     ``possible_labels`` (their index), else the value as a float. An
     entry without ``label_key`` loads without a label (prediction).
-    Masking and cropping by a mask, resizing and clinical features are
-    not ported yet."""
+    ``clinical_feature_keys``: the entry's values at these keys, each
+    through ``float``, as ``features`` (float32 [F]), the tabular input
+    of a ``HybridClassifier``. Masking and cropping by a mask and resizing
+    are not ported yet."""
 
     image_keys: Sequence[str] = ("image",)
     label_key: Optional[str] = "label"
@@ -371,6 +373,7 @@ class ClassificationTransforms:
     positive_labels: Optional[Sequence] = None
     possible_labels: Optional[Sequence] = None
     label_groups: Optional[Sequence[Sequence]] = None
+    clinical_feature_keys: Sequence[str] = ()
     # seeds the workhorse's host choice of op (not part of the cache key)
     seed: int = field(default=0, repr=False)
 
@@ -403,6 +406,10 @@ class ClassificationTransforms:
             if self.label_key is not None and self.label_key in entry:
                 sample["label"] = np.float32(
                     self.label_of(entry[self.label_key]))
+            if self.clinical_feature_keys:
+                sample["features"] = np.asarray(
+                    [float(entry[k]) for k in self.clinical_feature_keys],
+                    np.float32)
             return sample
 
         return load

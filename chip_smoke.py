@@ -3915,20 +3915,14 @@ def _catnet_serving(smi, tf32_defaults):
     convs), against TF32 off (``_cudnn_tf32_reading``)."""
     import torch
 
-    from adell_mri_torch.models.layers.adn import pop_batch_stats
-    from adell_mri_torch.tools.flagship import make_catnet, make_catnet_batch
+    from adell_mri_torch.tools.flagship import (
+        make_catnet_batch,
+        make_served_classifier,
+    )
 
-    model = make_catnet(0)
-    batch = make_catnet_batch(1, batch=4, shape=CATNET_SHAPE)
-    with torch.no_grad():
-        model.train()
-        buffers = dict(model.named_buffers())
-        for _ in range(2):
-            model(batch["image"])
-            for k, v in pop_batch_stats(model).items():
-                buffers[k].copy_(v)
-    model.eval()
-    x = batch["image"][:CATNET_SERVE_BATCH]
+    model = make_served_classifier(0)
+    x = make_catnet_batch(1, batch=4, shape=CATNET_SHAPE)["image"][
+        :CATNET_SERVE_BATCH]
     out = {"tf32_defaults": tf32_defaults}
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
@@ -4001,9 +3995,10 @@ def _catnet_serving(smi, tf32_defaults):
     return out
 
 
-def _catnet_conv_classes():
+def _catnet_conv_classes(classes=CATNET_CLASSES, seed=500):
     """Phase 17 (b): the stride-1 3x3x3 conv classes of a CatNet step at
-    B=16, bf16 and f32: the forward (phase 3's ``compare_conv``: error,
+    B=16 (or ``classes``: (input shape, Cout, count) each), bf16 and f32:
+    the forward (phase 3's ``compare_conv``: error,
     two runs bit-equal on the tf32 route, times beside F.conv3d and the
     bound), dx, dW and dbias against autograd through the plain version
     (phase 7's ``conv_backward_errors``), each call's route read from the
@@ -4021,11 +4016,11 @@ def _catnet_conv_classes():
                                else {f"{counter}_{route}": 1})}
 
     rows = []
-    for i, (xs, cout, count) in enumerate(CATNET_CLASSES):
+    for i, (xs, cout, count) in enumerate(classes):
         b, spatial, cin = xs[0], xs[1:4], xs[4]
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
-            row = compare_conv(b, spatial, cin, cout, dtype, seed=500 + i)
+            row = compare_conv(b, spatial, cin, cout, dtype, seed=seed + i)
             dw_route = wgrad_route(dtype, cin, cout)
             want = {**routed("conv3d_igemm", conv_route(dtype, cin, cout)),
                     **routed("conv3d_igemm_dx", conv_route(dtype, cout, cin)),
@@ -4033,7 +4028,7 @@ def _catnet_conv_classes():
                      else "conv3d_weight_grad_patches"): 1}
             before = _launch_counts()
             (x, w, _, gy), errs, tols = conv_backward_errors(
-                xs, cout, dtype, 520 + i)
+                xs, cout, dtype, seed + 20 + i)
             taken = {k: n - before[k] for k, n in _launch_counts().items()
                      if n != before[k]}
             if taken != want:
@@ -4093,9 +4088,9 @@ def _stats_errors(got, want):
     return worst, where, own
 
 
-def _catnet_batch_stats(tr, batch):
+def _step_batch_stats(tr, batch):
     """Each batch norm's batch statistics in a training forward of the
-    CatNet step on ``batch``, on the kernels and on the plain path (f32,
+    step of ``tr`` on ``batch``, on the kernels and on the plain path (f32,
     the step's own forward) and on the plain path in f64 (the reference;
     the members and dropout masks drawn alike on all three). They are
     recovered from the running statistics the forward returns, from a zero
@@ -4201,14 +4196,13 @@ def _catnet_training(smi):
     128x128x32 in bf16 and f32: the f32 loss, gradient norm and running
     statistics against the plain path (1e-4, 1e-3, 1e-5 of the layer's
     running scale; the members and dropout masks drawn alike on both),
-    and each batch norm's batch statistics (``_catnet_batch_stats``: the
+    and each batch norm's batch statistics (``_step_batch_stats``: the
     kernels against the plain path within 1e-5 of the layer's scale
     beyond the plain path's own distance from the f64 reference), launches
     by route, seconds a step with the augmentation, device share and peak
     memory; ten bf16 steps on one batch with a falling loss."""
     import torch
 
-    from adell_mri_torch.models.layers.dropout import seed_dropout
     from adell_mri_torch.tools.flagship import (
         AUGMENT_FLAGS,
         make_catnet_batch,
@@ -4219,60 +4213,8 @@ def _catnet_training(smi):
     out = dict(intensity=_catnet_intensity(batch["image"]))
     for precision in ("bf16", "32"):
         tr = make_catnet_trainer(0, precision)
-        state, model = tr.state, tr.model
-        names = list(state.params)
-        params = [state.params[k] for k in names]
-        parity = None
-        if precision == "32":
-            runs = []
-            for ctx in (contextlib.nullcontext, plain_kernels):
-                seed_dropout(model, torch.Generator(
-                    device="cuda").manual_seed(9))
-                with ctx():
-                    loss, metrics = tr.loss_and_metrics(state.weights(),
-                                                        batch)
-                    grads = torch.autograd.grad(loss, params)
-                runs.append((float(loss.detach()), _grad_norm(grads),
-                             metrics["_variables"]))
-                del grads, loss
-            (loss_k, norm_k, stats_k), (loss_p, norm_p, stats_p) = runs
-            stats_err, worst, own_err = _stats_errors(stats_k, stats_p)
-            rows = _catnet_batch_stats(tr, batch)
-            # kernels against plain within 1e-5 of the layer's scale beyond
-            # the plain path's own distance from the f64 reference
-            excess = [(r[st]["kernels_plain"] - r[st]["plain_f64"], st,
-                       r["layer"]) for r in rows for st in ("mean", "var")]
-            top = {st: max(rows, key=lambda r, st=st: r[st]["kernels_plain"])
-                   for st in ("mean", "var")}
-            parity = dict(loss=loss_k, plain_loss=loss_p,
-                          loss_rel=abs(loss_k - loss_p) / abs(loss_p),
-                          grad_norm=norm_k, plain_grad_norm=norm_p,
-                          grad_norm_rel=abs(norm_k - norm_p) / norm_p,
-                          stats_rel=stats_err, stats_worst=worst,
-                          stats_rel_own_max=own_err, batch_stats=rows)
-            log(f"[catnet training] f32 step (B={CATNET_BATCH}), kernels vs "
-                f"plain path: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
-                f"{parity['loss_rel']:.2e}, tol 1e-4), gradient norm "
-                f"{norm_k:.6g} vs {norm_p:.6g} (rel "
-                f"{parity['grad_norm_rel']:.2e}, tol 1e-3), running "
-                f"statistics {stats_err:.2e} of their layer's scale (tol "
-                f"1e-5; worst {worst}; against each statistic's own largest "
-                f"magnitude {own_err:.2e}); batch statistics of "
-                f"{len(rows)} batch norms, shares of the layer's scale, "
-                f"kernels vs plain (tol 1e-5 beyond plain vs f64): "
-                + "; ".join(
-                    f"{st} at most {top[st][st]['kernels_plain']:.2e} "
-                    f"({top[st]['layer']}: plain vs f64 "
-                    f"{top[st][st]['plain_f64']:.2e}, kernels vs f64 "
-                    f"{top[st][st]['kernels_f64']:.2e})"
-                    for st in ("mean", "var"))
-                + f"; largest excess {max(excess)[0]:.2e} ({max(excess)[1]}"
-                f" of {max(excess)[2]})")
-            if not (parity["loss_rel"] <= 1e-4
-                    and parity["grad_norm_rel"] <= 1e-3
-                    and stats_err <= 1e-5
-                    and max(excess)[0] <= 1e-5):
-                raise AssertionError("f32 CatNet step disagrees with plain")
+        parity = (_step_parity(tr, batch, "catnet")
+                  if precision == "32" else None)
         gen = torch.Generator(device="cuda").manual_seed(0)
 
         def step():
@@ -4310,7 +4252,7 @@ def _catnet_training(smi):
                               launches=launches, peak_memory_gb=peak_gb,
                               device_busy_s=busy, wall_s=wall,
                               parity=parity)
-        del tr, state, model, params
+        del tr
         torch.cuda.empty_cache()
 
     tr = make_catnet_trainer(0, "bf16", learning_rate=1e-2)
@@ -4437,14 +4379,16 @@ CLI_DEFAULTS = {"link_type": "identity", "upscale_type": "upsample"}
 class _k1_calls:
     """Within the block every stride-1 SAME 3x3x3 undilated conv (K1's
     class) that a forward runs is recorded as (input shape, Cout, whether its input
-    takes a gradient: the step then launches its dx)."""
+    takes a gradient: the step then launches its dx); ``kinds`` holds
+    each call's (input dtype, whether autograd records it: a training
+    step's)."""
 
     def __enter__(self):
         import torch
 
         import adell_mri_torch.ops.conv as conv_mod
 
-        self.calls = []
+        self.calls, self.kinds = [], []
 
         def record(module, inputs):
             # a depthwise conv of one channel is an ordinary conv: K1's
@@ -4457,9 +4401,11 @@ class _k1_calls:
             if (tuple(w.shape[:3]) == (3, 3, 3)
                     and module.strides == (1, 1, 1)
                     and module.padding == "SAME"
-                    and getattr(module, "dilation", (1, 1, 1)) == (1, 1, 1)):
+                    and getattr(module, "dilation", (1, 1, 1)) == (1, 1, 1)
+                    and getattr(module, "groups", 1) == 1):
                 self.calls.append((tuple(inputs[0].shape), int(w.shape[-1]),
                                    bool(inputs[0].requires_grad)))
+                self.kinds.append((inputs[0].dtype, torch.is_grad_enabled()))
 
         self.hook = torch.nn.modules.module.register_module_forward_pre_hook(
             record)
@@ -4493,6 +4439,21 @@ def _calls_want(calls, dtype, step):
                  == "wgmma" else "conv3d_weight_grad_patches"] += 1
     if step:
         want["intensity_aug"] = 1
+    return want
+
+
+def _recorded_want(rec):
+    """The launches the calls ``rec`` (``_k1_calls``) recorded make, each
+    on its own dtype's routes: those autograd recorded as a training
+    step's (K1, dx where the input takes a gradient, dW; ``intensity_aug``
+    then 1, not a count of steps), the others as forwards alone."""
+    want = dict.fromkeys(_launch_counts(), 0)
+    groups = {}
+    for call, kind in zip(rec.calls, rec.kinds):
+        groups.setdefault(kind, []).append(call)
+    for (dtype, step), calls in groups.items():
+        for k, v in _calls_want(calls, dtype, step).items():
+            want[k] = max(want[k], v) if k == "intensity_aug" else want[k] + v
     return want
 
 
@@ -4579,45 +4540,6 @@ def _seeded(tr, seed=0):
     from adell_mri_torch.models.layers.dropout import seed_dropout
 
     seed_dropout(tr.model, torch.Generator(device="cuda").manual_seed(seed))
-
-
-def _option_step_parity(tr, batch, tag):
-    """One f32 step's loss, gradient norm and running statistics on the
-    kernels against the plain path, with the same dropout draws: loss
-    within 1e-4, gradient norm within 1e-3 (relative), statistics within
-    1e-5 of each layer's scale."""
-    import torch
-
-    names = list(tr.state.params)
-    params = [tr.state.params[k] for k in names]
-    got = []
-    for plain in (False, True):
-        _seeded(tr)
-        with plain_kernels() if plain else contextlib.nullcontext():
-            loss, metrics = tr.loss_and_metrics(tr.state.weights(), batch)
-            grads = torch.autograd.grad(loss, params)
-        got.append((float(loss.detach()), _grad_norm(grads),
-                    metrics.get("_variables", {})))
-        del grads
-    (loss_k, norm_k, stats_k), (loss_p, norm_p, stats_p) = got
-    stats_err = max([float((stats_k[k] - v).abs().max())
-                     / max(float(v.abs().max()), 1e-30)
-                     for k, v in stats_p.items()] or [0.0])
-    out = dict(loss=loss_k, plain_loss=loss_p,
-               loss_rel=abs(loss_k - loss_p) / abs(loss_p),
-               grad_norm=norm_k, plain_grad_norm=norm_p,
-               grad_norm_rel=abs(norm_k - norm_p) / norm_p,
-               stats=len(stats_p), stats_rel=stats_err)
-    log(f"  {tag}: f32 step, kernels vs plain path: loss {loss_k:.7f} vs "
-        f"{loss_p:.7f} (rel {out['loss_rel']:.2e}, tol 1e-4), gradient norm "
-        f"{norm_k:.6g} vs {norm_p:.6g} (rel {out['grad_norm_rel']:.2e}, "
-        f"tol 1e-3)" + (f", {len(stats_p)} running statistics within "
-                        f"{stats_err:.2e} of their scale (tol 1e-5)"
-                        if stats_p else ""))
-    if not (out["loss_rel"] <= 1e-4 and out["grad_norm_rel"] <= 1e-3
-            and stats_err <= 1e-5 and set(stats_k) == set(stats_p)):
-        raise AssertionError(f"{tag}: f32 step disagrees with plain: {out}")
-    return out
 
 
 def _option_step(tr, batch, gen, precision, tag, n=1):
@@ -4791,7 +4713,7 @@ def _resnet_training(smi):
             raise AssertionError(f"{precision}: zero or non-finite "
                                  f"gradients {bad}")
         del grads, loss
-        parity = (_option_step_parity(tr, batch, "resnet")
+        parity = (_step_parity(tr, batch, "resnet")
                   if precision == "32" else None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4954,7 +4876,7 @@ def _option_variants(smi):
                 if name.endswith((".bias", ".gamma")):
                     p.add_(0.1 * torch.randn(p.shape, generator=gen,
                                              device=p.device))
-        parity = _option_step_parity(tr, batch, tag)
+        parity = _step_parity(tr, batch, tag)
         _seeded(tr)
         step = _option_step(tr, batch, gen, "32", tag)
         model = tr.model.eval()
@@ -4990,6 +4912,364 @@ def phase_unet_options(smi):
     out["variants"] = _option_variants(smi)
     out["seconds"] = time.perf_counter() - t0
     log(f"[unet options] phase 18: {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 19: the sample configs' other classifiers --------------------------
+
+# served micro-batch and training batches as phase 17's; the standalone
+# ConvNeXt has no yaml, so it trains at the CLI's default batch of 4
+CLASSIFIER_NAMES = ("vgg", "catnet_convnext", "convnext")
+CLASSIFIER_TIMED_STEPS = 3
+# the ConvNeXt CatNet's bf16 B=16 step takes 17.2-17.3 s on an NVIDIA H100
+# 80GB HBM3 at 700 W (nearly all of it cuDNN's input gradient of the
+# depthwise convs, F.conv3d), so it is timed once
+CLASSIFIER_SLOW_BF16 = ("catnet_convnext",)
+CLINICAL_KEYS = ("age", "psa")
+
+
+def _vgg_classes(first_depth=16, n_blocks=4, batch=16):
+    """VGG's stride-1 3x3x3 convs (``vggnet-net.yaml``: the factory's
+    first depth 16 and four blocks) at the yaml's B=16 on 128x128x32, as
+    (input shape, Cout, count): each block's two convs at its input's
+    size, the stem's 1->16 on the narrow route, the rest on wgmma (bf16)
+    or tf32 (f32)."""
+    classes, cin = [], 1
+    for i in range(n_blocks):
+        d = first_depth * 2 ** i
+        xs = (batch,) + tuple(n // 2 ** i for n in CATNET_SHAPE)
+        classes += [(xs + (cin,), d, 1), (xs + (d,), 2 * d, 1)]
+        cin = 2 * d
+    return tuple(classes)
+
+
+VGG_CLASSES = _vgg_classes()
+
+
+def _classifier_serving(smi, name):
+    """Phase 19 (a): the classifier ``name`` (``tools/flagship.py``'s
+    ``CLASSIFIERS``) in eval, with the running statistics of two training
+    forwards, on B=2 crops of 128x128x32 in bf16 and f32: launches against
+    those the K1 calls of the forward make (``_k1_calls``), seconds a
+    forward, device share, peak memory, and the probabilities and pooled
+    features against the plain path (bf16 5e-2, f32 1e-3, as phase 17)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        make_catnet_batch,
+        make_served_classifier,
+    )
+
+    model = make_served_classifier(0, name=name)
+    x = make_catnet_batch(1, batch=4, shape=CATNET_SHAPE)["image"][
+        :CATNET_SERVE_BATCH]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        precision = "bf16" if bf16 else "32"
+        weights = _catnet_weights(model, dtype)
+
+        def forward(**kwargs):
+            return torch.func.functional_call(
+                model, weights, (x.to(dtype),), kwargs).float()
+
+        with torch.inference_mode():
+            with _k1_calls() as rec:
+                forward()
+            torch.cuda.synchronize()
+            want = _calls_want(rec.calls, dtype, step=False)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            secs = []
+            t0 = time.perf_counter()
+            logits = forward()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = _launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            for _ in range(2):
+                t0 = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            busy, wall = _device_share(forward)
+            feats = forward(return_features=True)
+            with plain_kernels():
+                plain = forward()
+                plain_feats = forward(return_features=True)
+        err = float((torch.sigmoid(logits) - torch.sigmoid(plain))
+                    .abs().max())
+        feat_err = float((feats - plain_feats).abs().max()) / max(
+            float(plain_feats.abs().max()), 1e-30)
+        tol = 5e-2 if bf16 else 1e-3
+        log(f"[classifiers serving] {smi}: {name}, {precision}, "
+            f"B={CATNET_SERVE_BATCH} at {'x'.join(map(str, CATNET_SHAPE))}: "
+            f"{len(rec.calls)} K1 convs a forward; launches {launches}; "
+            f"{', '.join(f'{s:.4f}' for s in secs)} s a forward; device "
+            f"busy {busy:.4f} of {wall:.4f} s ({100 * busy / wall:.1f} %); "
+            f"peak {peak_gb:.2f} GB; probabilities "
+            f"{torch.sigmoid(logits).flatten().tolist()}, kernels vs plain "
+            f"path max abs err {err:.3g} (tol {tol}), pooled features "
+            f"{feat_err:.3g} of their scale (tol {tol})")
+        if launches != want:
+            raise AssertionError(f"{name} launches {launches}, want {want}")
+        if tuple(logits.shape) != (CATNET_SERVE_BATCH, 1) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{name} logits {tuple(logits.shape)}")
+        if not (err <= tol and feat_err <= tol):
+            raise AssertionError(f"{name} disagrees with its plain path: "
+                                 f"{err}, features {feat_err}")
+        out[precision] = dict(launches=launches, k1_convs=len(rec.calls),
+                              seconds=secs, device_busy_s=busy, wall_s=wall,
+                              peak_memory_gb=peak_gb, max_abs_err=err,
+                              feature_rel_err=feat_err, tol=tol)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_parity(tr, batch, tag):
+    """One f32 step on the kernels against the plain path with the same
+    members and dropout masks: loss within 1e-4 and gradient norm within
+    1e-3 (relative); where the model has batch norms, the running
+    statistics within 1e-5 of their layer's scale (``_stats_errors``) and
+    each batch norm's batch statistics within 1e-5 of the layer's scale
+    beyond the plain path's own distance from f64 (``_step_batch_stats``).
+    Phases 17, 18 and 19 hold their f32 steps so."""
+    import torch
+
+    params = [tr.state.params[k] for k in tr.state.params]
+    runs = []
+    for ctx in (contextlib.nullcontext, plain_kernels):
+        _seeded(tr, 9)
+        with ctx():
+            loss, metrics = tr.loss_and_metrics(tr.state.weights(), batch)
+            grads = torch.autograd.grad(loss, params)
+        runs.append((float(loss.detach()), _grad_norm(grads),
+                     metrics.get("_variables", {})))
+        del grads, loss
+    (loss_k, norm_k, stats_k), (loss_p, norm_p, stats_p) = runs
+    out = dict(loss=loss_k, plain_loss=loss_p,
+               loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+               grad_norm=norm_k, plain_grad_norm=norm_p,
+               grad_norm_rel=abs(norm_k - norm_p) / norm_p,
+               stats=len(stats_p))
+    excess = [(0.0, None, None)]
+    if stats_p:
+        out["stats_rel"], out["stats_worst"], out["stats_rel_own_max"] = (
+            _stats_errors(stats_k, stats_p))
+        out["batch_stats"] = rows = _step_batch_stats(tr, batch)
+        excess = [(r[st]["kernels_plain"] - r[st]["plain_f64"], st,
+                   r["layer"]) for r in rows for st in ("mean", "var")]
+        out["batch_stats_excess"] = max(excess)[0]
+    log(f"  {tag}: f32 step, kernels vs plain path: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f} (rel {out['loss_rel']:.2e}, tol 1e-4), gradient norm "
+        f"{norm_k:.6g} vs {norm_p:.6g} (rel {out['grad_norm_rel']:.2e}, tol "
+        f"1e-3)" + (f"; {len(stats_p)} running statistics within "
+                    f"{out['stats_rel']:.2e} of their layer's scale (tol "
+                    f"1e-5; worst {out['stats_worst']}); batch statistics "
+                    f"largest excess over plain vs f64 {max(excess)[0]:.2e}"
+                    f" ({max(excess)[1]} of {max(excess)[2]}, tol 1e-5)"
+                    if stats_p else ""))
+    if not (out["loss_rel"] <= 1e-4 and out["grad_norm_rel"] <= 1e-3
+            and out.get("stats_rel", 0.0) <= 1e-5
+            and max(excess)[0] <= 1e-5 and set(stats_k) == set(stats_p)):
+        raise AssertionError(f"{tag}: f32 step disagrees with plain: {out}")
+    return out
+
+
+def _classifier_training(smi, name):
+    """Phase 19 (b): the classifier ``name`` trained at its batch
+    (``CLASSIFIERS``: the yaml's 16, the standalone ConvNeXt the CLI's 4)
+    on 128x128x32 crops with the CLI's augmentation: the f32 step against
+    the plain path (``_step_parity``), then 3 bf16 steps and 1
+    f32 step with the launches counted from 0 against those the recorded
+    K1 calls of a step make (``_option_step``: K1, dx, dW, K3), seconds a
+    step, device share and peak memory (``CLASSIFIER_SLOW_BF16``: one
+    bf16 step timed)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        CLASSIFIERS,
+        make_catnet_batch,
+        make_catnet_trainer,
+    )
+
+    b = CLASSIFIERS[name][2]
+    batch = make_catnet_batch(2, batch=b, shape=CATNET_SHAPE)
+    out = {}
+    for precision in ("32", "bf16"):
+        tr = make_catnet_trainer(0, precision, name=name)
+        parity = (_step_parity(tr, batch, name)
+                  if precision == "32" else None)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = (CLASSIFIER_TIMED_STEPS if precision == "bf16"
+                 and name not in CLASSIFIER_SLOW_BF16 else 1)
+        steps = _option_step(tr, batch, gen, precision, name, n=timed)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        def step():
+            tr.state, _ = tr.train_step(tr.state, tr.transforms.augment(
+                gen, batch))
+
+        busy, wall = _device_share(step)
+        log(f"[classifiers training] {smi}: {name}, {precision}, B={b} at "
+            f"{'x'.join(map(str, CATNET_SHAPE))}, augmentation on: "
+            f"{', '.join(f'{x:.4f}' for x in steps['seconds_per_step'])} s "
+            f"per step; device busy {busy:.4f} of {wall:.4f} s "
+            f"({100 * busy / wall:.1f} %); peak {peak_gb:.2f} GB; "
+            f"{steps['k1_convs']} K1 and {steps['dx']} dx a step; launches "
+            f"{steps['launches']}; losses {steps['losses']}")
+        out[precision] = dict(steps, peak_memory_gb=peak_gb,
+                              device_busy_s=busy, wall_s=wall, parity=parity,
+                              batch=b)
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _clinical_cli(smi, name, precision, work, ds_path):
+    """``classification train`` (the yaml of ``name``, ``--precision``,
+    ``--clinical_feature_keys age psa``, one epoch at B=2 with the CLI's
+    augmentation), then ``test`` and ``predict`` on its checkpoint, in
+    this process, each under ``torch.profiler`` (``_device_share``) with
+    the launch counts set to 0 just before it: wall seconds, device share,
+    peak memory, launches."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import AUGMENT_FLAGS, CLASSIFIERS
+
+    net_type, yaml_path, _ = CLASSIFIERS[name]
+    ckpt = work / f"ckpt_{name}"
+    common = ["--dataset_json", str(ds_path), "--dev", "cuda",
+              "--checkpoint_dir", str(ckpt), "--precision", precision]
+    runs = {}
+    for what, args in (
+            ("train", [
+                "classification", "train", *common, "--image_keys", "image",
+                "--classification_net_type", net_type,
+                "--config_file", str(yaml_path),
+                "--pad_size", *map(str, CATNET_SHAPE),
+                "--target_spacing", "0.5", "0.5", "3.0",
+                "--batch_size", str(CATNET_CLI_BATCH), "--max_epochs", "1",
+                "--n_folds", "1", "--augment", *AUGMENT_FLAGS, "--seed", "0",
+                "--clinical_feature_keys", *CLINICAL_KEYS,
+                "--metric_path", str(work / f"metrics_{name}.csv")]),
+            ("test", ["classification", "test", *common, "--metric_path",
+                      str(work / f"test_{name}.csv")]),
+            ("predict", ["classification", "predict", *common,
+                         "--output_path", str(work / f"pred_{name}.json")])):
+        got = []
+        torch.cuda.reset_peak_memory_stats()
+        with _k1_calls() as rec:
+            busy, wall = _device_share(lambda: got.append(_cli(args)))
+        secs, text, counts = got[0]
+        runs[what] = dict(seconds=secs, device_busy_s=busy, wall_s=wall,
+                          peak_memory_gb=torch.cuda.max_memory_allocated()
+                          / 1e9, counts=counts, text=text,
+                          want=_recorded_want(rec))
+    meta = json.loads((ckpt / "classification_fold0" /
+                       "metadata.json").read_text())
+    result = _last_json(runs["test"].pop("text"))
+    probs = json.loads((work / f"pred_{name}.json").read_text())
+    runs["train"].pop("text")
+    runs["predict"].pop("text")
+    if (meta["transform_arguments"]["clinical_feature_keys"]
+            != list(CLINICAL_KEYS) or len(meta["clinical_feature_means"])
+            != len(CLINICAL_KEYS)):
+        raise AssertionError(f"{name} train wrote {meta}")
+    if result["n_cases"] != CATNET_CLI_CASES or not 0 <= result["auc"] <= 1:
+        raise AssertionError(f"{name} test: {result}")
+    if len(probs) != CATNET_CLI_CASES or not all(
+            0 <= p <= 1 for p in probs.values()):
+        raise AssertionError(f"{name} predict: {probs}")
+    # each recorded K1 call on its own dtype's route: the training steps'
+    # with their dx and dW, the validation callback's (f32 master weights,
+    # as the JAX callback applies them: a bf16 run's callback takes the
+    # tf32 route), test's and predict's forwards alone; K3 in the steps
+    for what, run in runs.items():
+        c, want = run["counts"], run.pop("want")
+        steps = want.pop("intensity_aug")
+        if not (c["conv3d_igemm"] > 0 and (c["intensity_aug"] > 0) == (
+                steps > 0) and {k: v for k, v in c.items()
+                                if k != "intensity_aug"} == want):
+            raise AssertionError(f"{name} {what} launches {c}, want {want}")
+    t = runs["train"]["counts"]
+    if not (t["conv3d_igemm_dx"] > 0 and t["conv3d_weight_grad"]
+            + t["conv3d_weight_grad_patches"] > 0
+            and t["conv3d_igemm_" + ("tf32" if precision == "32"
+                                     else "wgmma")] > 0):
+        raise AssertionError(f"{name} train launches {t}")
+    if runs["test"]["counts"]["conv3d_igemm"] != runs["predict"]["counts"][
+            "conv3d_igemm"]:
+        raise AssertionError(f"{name} test and predict launches differ")
+    log(f"[classifiers cli] {smi}: {name}, {precision}, clinical features "
+        f"{', '.join(CLINICAL_KEYS)} (means {meta['clinical_feature_means']},"
+        f" stds {meta['clinical_feature_stds']}): "
+        + "; ".join(f"{what} {r['seconds']:.2f} s under the profiler, "
+                    f"device busy {r['device_busy_s']:.2f} s "
+                    f"({100 * r['device_busy_s'] / r['wall_s']:.1f} %), peak "
+                    f"{r['peak_memory_gb']:.2f} GB, launches {r['counts']}"
+                    for what, r in runs.items())
+        + f"; test {result}; predictions {probs}")
+    return dict(runs, test_result=result, predictions=probs,
+                feature_means=meta["clinical_feature_means"],
+                feature_stds=meta["clinical_feature_stds"])
+
+
+def _classifier_clis(smi):
+    """Phase 19 (d): the clinical-feature CLIs on 6 cases at 128x128x32 (3
+    with bright ellipsoids, label 1; age and psa drawn from a seed): the
+    ConvNeXt CatNet in f32 (the CLI's default) and VGG in bf16."""
+    import numpy as np
+
+    work = WORK_DIR / "classifier_cli"
+    work.mkdir(parents=True)
+    negatives = ("case_1", "case_3", "case_5")
+    ds = _pipeline_cohort(work, CATNET_SHAPE, negatives,
+                          n_cases=CATNET_CLI_CASES)
+    rng = np.random.default_rng(19)
+    for pid, entry in ds.items():
+        entry["label"] = int(pid not in negatives)
+        entry["age"] = float(rng.uniform(45, 80))
+        entry["psa"] = float(rng.uniform(2, 20))
+    ds_path = work / "ds_clinical.json"
+    ds_path.write_text(json.dumps(ds))
+    return {name: _clinical_cli(smi, name, precision, work, ds_path)
+            for name, precision in (("catnet_convnext", "32"),
+                                    ("vgg", "bf16"))}
+
+
+def phase_classifiers(smi):
+    """Phase 19: VGG (``vggnet-net.yaml``), the ConvNeXt CatNet
+    (``classification-cat-convnext.yaml``) and the standalone ConvNeXt
+    served and trained at full width against the plain path, VGG's K1
+    classes, and the CLIs with clinical features."""
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(part):
+        now = time.perf_counter()
+        laps[part] = now - last[0]
+        last[0] = now
+
+    out = {}
+    for name in CLASSIFIER_NAMES:
+        out[name] = dict(serving=_classifier_serving(smi, name))
+        lap(f"{name}_serving")
+    log("[classifiers] VGG's K1 classes at B=16")
+    out["vgg"]["convs"] = _catnet_conv_classes(VGG_CLASSES, seed=700)
+    lap("vgg_convs")
+    for name in CLASSIFIER_NAMES:
+        out[name]["training"] = _classifier_training(smi, name)
+        lap(f"{name}_training")
+    out["cli"] = _classifier_clis(smi)
+    lap("cli")
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = laps
+    log(f"[classifiers] phase 19: {out['seconds']:.1f} s ({laps})")
     return out
 
 
@@ -5067,6 +5347,8 @@ def main():
     lap(17)
     options = phase_unet_options(smi)
     lap(18)
+    classifiers = phase_classifiers(smi)
+    lap(19)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -5142,6 +5424,19 @@ def main():
         **{f"unet_{tag}_{what}_f32": v[what]["launches"]
            for tag, v in options["variants"].items()
            for what in ("step", "serving")},
+        # phase 19: VGG, the ConvNeXt CatNet and the standalone ConvNeXt
+        # served (B=2) and trained (3 bf16 steps, 1 f32 step) in bf16 and
+        # f32, and the CLIs with clinical features (the ConvNeXt CatNet in
+        # f32, VGG in bf16)
+        **{f"{name}_{what}{'' if p == 'bf16' else '_f32'}":
+           classifiers[name][what][p]["launches"]
+           for name in CLASSIFIER_NAMES for what in ("serving", "training")
+           for p in ("bf16", "32")},
+        **{f"{name}_clinical_{what}_{precision}":
+           classifiers["cli"][name][what]["counts"]
+           for name, precision in (("catnet_convnext", "f32"),
+                                   ("vgg", "bf16"))
+           for what in ("train", "test", "predict")},
     }
 
     def launches_of(name):
@@ -5165,7 +5460,9 @@ def main():
               "served cases, steps and CLI runs and UNETR at head dim 16, "
               "phase 17's CatNet forwards, steps and CLI runs, phase 18's "
               "resnet U-Net served cases, steps and CLI runs and the other "
-              "U-Net options' steps and served cases, every route",
+              "U-Net options' steps and served cases, phase 19's VGG and "
+              "ConvNeXt CatNet forwards, steps and clinical-feature CLI "
+              "runs, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -5240,6 +5537,19 @@ def main():
                               for r in rows),
             "bound_ms": sum(r["dx_bound_ms"] * r["count"] for r in rows)}
         for d, rows in catnet_rows.items()}
+    # phase 19: VGG's 8 K1 convs of a B=16 step's forward and dx, per
+    # precision (the stem on the narrow route; wgmma in bf16, tf32 in f32)
+    vgg_rows = {d: [r for r in classifiers["vgg"]["convs"]
+                    if r["dtype"] == d] for d in ("bfloat16", "float32")}
+    kernels[0]["vgg_step_forward"] = {
+        d: sum_rows(rows) for d, rows in vgg_rows.items()}
+    kernels[1]["vgg_step_dx"] = {
+        d: {"convs": sum(r["count"] for r in rows),
+            "ms": sum(r["dx_ms"] * r["count"] for r in rows),
+            "library_ms": sum(r["dx_library_ms"] * r["count"]
+                              for r in rows),
+            "bound_ms": sum(r["dx_bound_ms"] * r["count"] for r in rows)}
+        for d, rows in vgg_rows.items()}
     # phase 18: the resnet U-Net's K1 convs of one window batch of 4
     kernels[0]["resnet_window_batch"] = {
         d: options["convs"][d]["totals"] for d in ("bfloat16", "float32")}
@@ -5288,6 +5598,8 @@ def main():
     # 512->512 on the patch product; f32 all 8 on the patch product
     kernels[-1]["catnet_step_dw"] = {
         d: dw_totals(rows) for d, rows in catnet_rows.items()}
+    kernels[-1]["vgg_step_dw"] = {
+        d: dw_totals(rows) for d, rows in vgg_rows.items()}
     # f32 dW of a U-Net step (all 31 on the patch product), beside cuDNN's
     # f32 weight gradient (TF32 off) and the 3xTF32 and FMA bounds
     kernels[-1]["f32_step_dw"] = {
@@ -5374,6 +5686,7 @@ def main():
         unetr_training=unetr_training, unetr_cli=unetr_cli,
         flagship_pipeline=pipeline, full_augmentation=augmentation,
         swin=swin, catnet=catnet, unet_options=options,
+        classifiers=classifiers,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,

@@ -415,16 +415,35 @@ def test_catnet_features_and_unported_options():
         _close(tm.eval()(torch.from_numpy(x), return_features=True),
                np.asarray(want), 1e-5)
     for cfg, match in (({"gaussian_process": True}, "Gaussian"),
-                       ({"res_type": "resnext"}, "res_type"),
                        ({"spatial_dimensions": 2}, "2D")):
         with pytest.raises(NotImplementedError, match=match):
             tfactories.get_classification_network("cat", {**TINY, **cfg})
     with pytest.raises(NotImplementedError, match="not ported"):
         tfactories.get_classification_network("vit", TINY)
-    with pytest.raises(NotImplementedError, match="feature_extraction"):
-        from adell_mri_torch.models.classification import CatNet
+    # res_type resnext and feature_extraction (a headless CatNet, the
+    # network a HybridClassifier wraps) are ported: eval features and
+    # logits against the JAX network's (f32, 1e-5)
+    from adell_mri_tpu.models.classification.nets import CatNet as JaxCatNet
+    from adell_mri_torch.models.classification import CatNet
 
-        CatNet(feature_extraction=True)
+    resnext = {**TINY, "res_type": "resnext"}
+    jm = jfactories.get_classification_network("cat", resnext)
+    params = random_flax_params(jm, jnp.asarray(x), seed=16)
+    bs = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["batch_stats"]
+    tm = tfactories.get_classification_network("cat", resnext)
+    tm.load_state_dict(from_flax(params, bs))
+    with torch.no_grad():
+        _close(tm.eval()(torch.from_numpy(x)), np.asarray(jm.apply(
+            {"params": params, "batch_stats": bs}, jnp.asarray(x))), 1e-5)
+    structure = [tuple(s) for s in TINY["resnet_structure"]]
+    jm = JaxCatNet(resnet_structure=structure, feature_extraction=True)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    tm = CatNet(resnet_structure=structure, feature_extraction=True)
+    tm.load_state_dict(from_flax(v["params"], v["batch_stats"]))
+    assert not any(k.startswith("Dense_") for k in tm.state_dict())
+    with torch.no_grad():
+        _close(tm.eval()(torch.from_numpy(x)),
+               np.asarray(jm.apply(v, jnp.asarray(x))), 1e-5)
 
 
 def test_yaml_tree_matches_jax():

@@ -10,6 +10,15 @@ JAX checkpoint of the same weights and running statistics within 1e-4
 (f32 forwards of a few layers; the metrics are ranks and shares).
 ``--dev`` defaults to cuda and raises where there is no GPU; flags that
 are not ported raise ``NotImplementedError``.
+
+With ``--clinical_feature_keys`` (two numeric features of the cohort) the
+JAX CLI and the port's train, from the same initial weights (the JAX
+CLI's init, moved into the port's network), then test and predict on
+what each wrote: the checkpoints' metadata, the test metrics and the
+probabilities agree within ``TOL``. Both steps apply the parameters
+alone, so the batch norms normalise by each batch in training and the
+checkpoints keep the initial (0, 1) statistics that test and predict
+normalise by.
 """
 
 import json
@@ -26,6 +35,7 @@ from adell_mri_tpu.__main__ import main as jax_main
 from adell_mri_tpu.config.factories import (
     get_classification_network as jget_network,
 )
+from adell_mri_tpu.entrypoints.classification import train as jtrain
 from adell_mri_tpu.train.checkpoints import CheckpointManager as JaxCkpt
 from adell_mri_torch.__main__ import main as cli_main
 from adell_mri_torch.data import nifti as tnifti
@@ -44,6 +54,8 @@ NETWORK = {"resnet_structure": [[8, 16, 3, 1], [16, 32, 3, 1]],
            "maxpool_structure": [[2, 2, 2], [2, 2, 1]],
            "batch_ensemble": 2, "res_type": "resnet"}
 GRADES = ["a", "b", "c", "a", "c", "b"]
+AGES = [61.0, 55.5, 70.0, 48.0, 66.5, 59.0]
+PSA = [4.2, 7.9, 12.5, 3.1, 9.6, 5.5]
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +72,8 @@ def cohort(tmp_path_factory):
             img[4:10, 5:12, 2:6] += 3.0
         path = str(root / f"case_{i}_T2.nii.gz")
         tnifti.write_nifti(path, img, LPS)
-        ds[f"case_{i}"] = {"T2": path, "label": label, "grade": GRADES[i]}
+        ds[f"case_{i}"] = {"T2": path, "label": label, "grade": GRADES[i],
+                           "age": AGES[i], "psa": PSA[i]}
     (root / "ds.json").write_text(json.dumps(ds))
     (root / "cat.yaml").write_text(yaml.safe_dump(
         {**NETWORK, "learning_rate": 0.01, "batch_size": 2}))
@@ -255,12 +268,15 @@ def test_test_and_predict_match_jax(cohort, capsys, n_classes):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--clinical_feature_keys", "age"], ["--image_masking"],
+    [["--image_masking"],
      ["--image_crop_from_mask"], ["--mask_keys", "T2"],
      ["--resize_size", "8", "8", "4"], ["--accumulate_grad_batches", "2"],
      ["--checkpoint", "x"], ["--freeze_regex", "Dense"],
      ["--calibration_ids", "case_0"], ["--logger_type", "wandb"],
-     ["--classification_net_type", "vit"]],
+     ["--classification_net_type", "vit"],
+     ["--classification_net_type", "ord"],
+     ["--classification_net_type", "factorized_vit"],
+     ["--classification_net_type", "unet"]],
 )
 def test_train_unported_flags_raise(cohort, flags):
     with pytest.raises(NotImplementedError):
@@ -289,3 +305,91 @@ def test_dev_defaults_to_cuda(cohort, monkeypatch):
     i = args.index("--dev")
     with pytest.raises(RuntimeError, match="--dev cpu"):
         ttrain.main(args[:i] + args[i + 2:])
+
+
+# net id -> (--classification_net_type, network config); the CatNet has no
+# batch ensembles: the JAX CLI's step with features hands its model a
+# dropout stream only, and a batch-ensemble CatNet stops there at its
+# first step (flax's InvalidRngError, no "ensemble" stream)
+HYBRID_NETS = {
+    "cat_convnext": ("convnext", {
+        "resnet_structure": [[8, 16, [5, 5, 3], 1], [16, 32, 3, 1]],
+        "maxpool_structure": [[2, 2, 2], [2, 2, 1]]}),
+    "vgg": ("vgg", {"first_depth": 4, "n_blocks": 2}),
+}
+
+
+@pytest.mark.parametrize("net", list(HYBRID_NETS))
+def test_clinical_features_match_jax_cli(cohort, capsys, monkeypatch, net):
+    """``--clinical_feature_keys age psa``: the JAX and the port's
+    ``classification train`` (f32, two epochs, no augmentation) from the
+    JAX CLI's initial weights, then each side's ``test`` and ``predict``
+    on its own checkpoint: metadata, metrics and probabilities within
+    ``TOL``; the saved statistics are the initial (0, 1) on both sides;
+    ``--prediction_type features`` raises on both sides."""
+    net_type, network = HYBRID_NETS[net]
+    (cohort / f"{net}.yaml").write_text(yaml.safe_dump(
+        {**network, "learning_rate": 0.01, "batch_size": 2}))
+    mat = np.asarray([AGES, PSA]).T
+    means, stds = mat.mean(0).tolist(), mat.std(0).tolist()
+    jm = jget_network(net_type, network, clinical_feature_means=means,
+                      clinical_feature_stds=stds)
+    init = jm.init({"params": jax.random.PRNGKey(0)},
+                   np.zeros((1,) + SHAPE + (1,), np.float32),
+                   np.zeros((1, 2), np.float32))
+    build = ttrain.get_classification_network
+
+    def from_jax_init(*args, **kwargs):
+        model = build(*args, **kwargs)
+        model.load_state_dict(from_flax(init["params"],
+                                        init.get("batch_stats")))
+        return model
+
+    monkeypatch.setattr(ttrain, "get_classification_network", from_jax_init)
+    root = {}
+    for side, main in (("jax", jtrain.main), ("torch", ttrain.main)):
+        root[side] = cohort / f"hybrid_{net}_{side}"
+        main(_train_args(cohort, root[side]) + [
+            "--config_file", str(cohort / f"{net}.yaml"),
+            "--classification_net_type", net_type,
+            "--clinical_feature_keys", "age", "psa", "--seed", "0"])
+    metas = {side: json.loads((d / "classification_fold0" / "metadata.json")
+                              .read_text()) for side, d in root.items()}
+    for key in ("net_type", "n_classes", "train_pids", "val_pids"):
+        assert metas["torch"][key] == metas["jax"][key], key
+    for key in ("clinical_feature_means", "clinical_feature_stds"):
+        np.testing.assert_allclose(metas["torch"][key], metas["jax"][key],
+                                   rtol=1e-12)
+    assert metas["torch"]["transform_arguments"][
+        "clinical_feature_keys"] == ["age", "psa"]
+    state = torch.load(root["torch"] / "classification_fold0" / "model.pt",
+                       weights_only=True)
+    stats = [k for k in state if k.endswith((".mean", ".var"))]
+    assert stats and all(torch.equal(state[k], torch.full_like(
+        state[k], float(k.endswith(".var")))) for k in stats)
+    common = ["--dataset_json", str(cohort / "ds.json"), "--dev", "cpu"]
+    out = {}
+    for side, main in (("jax", jax_main), ("torch", cli_main)):
+        capsys.readouterr()
+        main(["classification", "test", *common, "--checkpoint_dir",
+              str(root[side]), "--metric_path", str(root[side] / "t.csv")])
+        test = _last_json(capsys.readouterr().out)
+        test.pop("checkpoint")
+        pred = root[side] / "pred.json"
+        main(["classification", "predict", *common, "--checkpoint_dir",
+              str(root[side]), "--output_path", str(pred)])
+        out[side] = (test, json.loads(pred.read_text()))
+        with pytest.raises(ValueError, match="features"):
+            main(["classification", "predict", *common, "--checkpoint_dir",
+                  str(root[side]), "--prediction_type", "features",
+                  "--output_path", str(pred)])
+    (want, want_p), (got, got_p) = out["jax"], out["torch"]
+    assert set(got) == set(want) and got["n_cases"] == N_CASES
+    for k, v in want.items():
+        if isinstance(v, float) and np.isnan(v):
+            assert np.isnan(got[k]), k
+        else:
+            assert abs(got[k] - v) <= TOL, (k, got[k], v)
+    assert set(got_p) == set(want_p)
+    for pid, v in want_p.items():
+        np.testing.assert_allclose(got_p[pid], v, atol=TOL, rtol=0)
