@@ -9,7 +9,7 @@ import logging
 import os
 import sys
 
-supported_modes = ["segmentation", "classification"]
+supported_modes = ["segmentation", "classification", "ssl"]
 
 
 def main(arguments=None):

@@ -1,19 +1,23 @@
 """
 Network factory: config dict + net-type string -> the port's module.
 
-Counterpart of ``get_segmentation_network`` and
-``get_classification_network`` in ``adell_mri_tpu/config/factories.py``,
+Counterpart of ``get_segmentation_network``,
+``get_classification_network`` and ``get_ssl_network`` in
+``adell_mri_tpu/config/factories.py``,
 for the segmentation ``net_type`` "unet", "unetr", "monai_unetr", "swin"
 and "monai_swin" and the classification ``net_type`` "vgg", "cat",
 "resnet" and "convnext" (CatNet), "convnext_backbone" and "convnext_v2"
 (the standalone ConvNeXt), each wrapped in a ``HybridClassifier`` when
-clinical features are given; the same config keys, fallbacks and
+clinical features are given, and the self-supervised ``ssl_method``
+"ijepa" and the two-view methods (``SSL_TWO_VIEW``); the same config
+keys, fallbacks and
 defaults reach the port's ``UNet``, ``UNETR``, ``SWINUNet``, ``VGG``,
 ``CatNet`` and ``ConvNeXt``, which raise for the options they do not serve
 yet. A flax module learns its input size and channels at the first call;
 the port's UNETR needs the size when it is built (``image_size``), UNETR
-and SWIN-UNet need ``n_channels`` from the config, and the classifiers
-their ``in_channels`` (one per image key).
+and SWIN-UNet need ``n_channels`` from the config, the classifiers and
+the self-supervised networks their ``in_channels`` (one per image key),
+and I-JEPA its ``image_size``.
 """
 
 from typing import Any, Dict, Optional, Sequence
@@ -26,6 +30,7 @@ from adell_mri_torch.models.classification.nets import (
 from adell_mri_torch.models.layers.conv_next import ConvNeXt
 from adell_mri_torch.models.segmentation.unet import UNet
 from adell_mri_torch.models.segmentation.unetr import UNETR, SWINUNet
+from adell_mri_torch.models.ssl.nets import IJEPA, NonContrastiveWrapper
 
 
 def _unet_kwargs(cfg: Dict[str, Any], n_classes: int) -> Dict[str, Any]:
@@ -237,3 +242,79 @@ def get_classification_network(
             tab_std=list(clinical_feature_stds),
         )
     return net
+
+
+#: the two-view methods of ``ssl train`` the port runs
+SSL_TWO_VIEW = ("vicreg", "barlow_twins", "simclr", "ntxent", "simsiam",
+                "byol")
+SSL_METHODS = SSL_TWO_VIEW + ("ijepa",)
+
+
+def get_ssl_network(
+    ssl_method: str,
+    network_config: Dict[str, Any],
+    in_channels: int = 1,
+    image_size: Optional[Sequence[int]] = None,
+):
+    """The JAX factory's networks, keys and defaults: ``ijepa`` (IJEPA:
+    ``patch_size`` (4, 4, 4), ``embed_dim`` 192, ``n_blocks`` 4,
+    ``n_heads`` 4, ``predictor_dim`` 96, ``predictor_blocks`` 2; built for
+    ``image_size``); the two-view methods (a ``NonContrastiveWrapper``
+    over CatNet with ``feature_extraction``), reading
+    ``sample_configs/ssl-resnet.yaml``'s nested ``backbone_args``
+    (``structure``, ``maxpool_structure``, ``res_type``, ``spatial_dim``),
+    ``projection_head_args`` and ``prediction_head_args`` (``structure``)
+    and their flat spellings (``backbone_structure`` or
+    ``resnet_structure``, ``maxpool_structure``, ``res_type``,
+    ``spatial_dimensions``, ``projection_head`` or ``projection_dims``,
+    ``prediction_head`` or ``prediction_dims``; the flat ones win), with
+    ``norm_type`` (or ``norm_fn``) "batch" and ``dropout_param``. CatNet
+    takes its default swish: like the JAX factory this one passes no
+    ``act_fn``."""
+    cfg = dict(network_config)
+    if ssl_method == "ijepa":
+        if image_size is None:
+            raise ValueError("ijepa needs image_size: its positional "
+                             "embedding fixes the token count")
+        return IJEPA(
+            in_channels=in_channels,
+            image_size=tuple(image_size),
+            patch_size=tuple(cfg.get("patch_size", (4, 4, 4))),
+            embed_dim=cfg.get("embed_dim", 192),
+            n_blocks=cfg.get("n_blocks", 4),
+            n_heads=cfg.get("n_heads", 4),
+            predictor_dim=cfg.get("predictor_dim", 96),
+            predictor_blocks=cfg.get("predictor_blocks", 2),
+        )
+    if ssl_method not in SSL_TWO_VIEW:
+        raise NotImplementedError(
+            f"ssl_method {ssl_method!r} is not ported yet (ROADMAP Queue 1, "
+            f"item 4; the port has {', '.join(SSL_METHODS)})"
+        )
+    ba = cfg.get("backbone_args") or {}
+    pja = cfg.get("projection_head_args") or {}
+    pda = cfg.get("prediction_head_args") or {}
+    structure = cfg.get("backbone_structure", cfg.get(
+        "resnet_structure",
+        ba.get("structure", ((32, 64, 3, 2), (64, 128, 3, 2)))))
+    maxpool = cfg.get("maxpool_structure", ba.get("maxpool_structure"))
+    backbone = CatNet(
+        in_channels=in_channels,
+        spatial_dimensions=cfg.get("spatial_dimensions",
+                                   ba.get("spatial_dim", 3)),
+        resnet_structure=[tuple(s) for s in structure],
+        maxpool_structure=[
+            tuple(s) if isinstance(s, (list, tuple)) else s for s in maxpool
+        ] if maxpool else None,
+        res_type=cfg.get("res_type", ba.get("res_type", "resnet")),
+        norm_type=cfg.get("norm_type", cfg.get("norm_fn", "batch")),
+        dropout_param=cfg.get("dropout_param", 0.0),
+        feature_extraction=True,
+    )
+    return NonContrastiveWrapper(
+        backbone,
+        projection_dims=tuple(cfg.get("projection_head", cfg.get(
+            "projection_dims", pja.get("structure", (512, 128))))),
+        prediction_dims=tuple(cfg.get("prediction_head", cfg.get(
+            "prediction_dims", pda.get("structure", (64, 128))))),
+    )

@@ -2,12 +2,13 @@
 Network-config parsing for U-Net and classifier training.
 
 Counterpart of ``load_yaml``, ``build_compound_loss``, ``parse_config_unet``,
-``parse_config_cat`` and ``_TRAINING_KEYS`` in
+``parse_config_cat``, ``parse_config_ssl`` and ``_TRAINING_KEYS`` in
 ``adell_mri_tpu/config/parsing.py``: a config file holds hyperparameters
 and, for a U-Net, a ``loss_fn`` mapping of loss name -> params that
 becomes a ``CompoundLoss``.
 """
 
+import copy
 import inspect
 from typing import Any, Dict, Tuple
 
@@ -85,6 +86,24 @@ def parse_config_unet(
 def parse_config_cat(config_file: str) -> Dict[str, Any]:
     """A classifier config split into ``network`` and ``training`` keys."""
     config = load_yaml(config_file)
+    return {
+        "network": {k: v for k, v in config.items()
+                    if k not in _TRAINING_KEYS},
+        "training": {k: v for k, v in config.items()
+                     if k in _TRAINING_KEYS},
+    }
+
+
+def parse_config_ssl(config_file: str, dropout_param: float = 0.0,
+                     n_keys: int = 1, is_ijepa: bool = False
+                     ) -> Dict[str, Any]:
+    """A self-supervised config split into ``network`` and ``training``
+    keys, with ``dropout_param`` set and, but for I-JEPA, ``n_channels``
+    scaled by the number of image keys."""
+    config = copy.deepcopy(load_yaml(config_file))
+    config["dropout_param"] = dropout_param
+    if not is_ijepa:
+        config["n_channels"] = int(config.get("n_channels", 1)) * n_keys
     return {
         "network": {k: v for k, v in config.items()
                     if k not in _TRAINING_KEYS},

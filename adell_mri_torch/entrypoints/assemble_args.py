@@ -213,6 +213,30 @@ argument_factory: Dict[str, Dict[str, Any]] = {
                  "resnet", "convnext", "convnext_backbone", "convnext_v2"],
         help="Classification architecture",
     ),
+    # self-supervised learning
+    "ssl_method": dict(
+        default="vicreg",
+        choices=["simsiam", "byol", "vicreg", "vicregl", "barlow_twins",
+                 "simclr", "dino", "ibot", "mae", "ijepa"],
+        help="SSL method",
+    ),
+    "ema": dict(action="store_true", help="EMA teacher"),
+    "ema_decay": dict(
+        default=None, type=float,
+        help="EMA decay for teacher/shadow params (default: per-method)",
+    ),
+    "stop_gradient": dict(
+        action="store_true", help="Stop gradient on target branch"
+    ),
+    "n_local_crops": dict(
+        default=0, type=int,
+        help="DINO multi-crop: number of extra small student views",
+    ),
+    "sample_channels": dict(
+        default=None, type=int,
+        help="Randomly keep this many channels of each 4D (multi-channel) "
+        "image key at load time",
+    ),
     # parsed, not ported yet
     "clinical_feature_keys": dict(
         default=None, nargs="+", help="not ported yet"

@@ -1,6 +1,7 @@
 """
-Moves a JAX UNet's, UNETR's, SWINUNet's, CatNet's, VGG's, ConvNeXt's or
-HybridClassifier's parameters (and their ``batch_stats``) into the port.
+Moves a JAX UNet's, UNETR's, SWINUNet's, CatNet's, VGG's, ConvNeXt's,
+HybridClassifier's, NonContrastiveWrapper's or IJEPA's parameters (and
+their ``batch_stats``) into the port.
 
 The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
 ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
@@ -14,11 +15,16 @@ CatNet's ``ResNetBackbone_0/{Conv_0,Conv_1,ResidualBlock_{i}
 ``VGGConvolution_{i}/{Conv_0,Conv_1}`` and ``MLP_0/Dense_{i}``;
 ConvNeXt's ``backbone/{stem_conv,stem_norm,down_norm_{s},down_conv_{s},
 stage{s}_block{b}}``, ``head_norm`` and ``head``; HybridClassifier's
-``convolutional_module`` (the headless network) and ``Dense_0/1``), so
+``convolutional_module`` (the headless network) and ``Dense_0/1``;
+NonContrastiveWrapper's ``backbone`` (CatNet with ``feature_extraction``),
+``proj_{i}``, ``proj_norm`` and ``pred_{i}``; IJEPA's ``embed``,
+``ctx_mask_token``, ``context_encoder``, ``ctx2pred``, ``predictor``,
+``pred_out`` and ``target_encoder``), so
 each flax leaf ``a/b/kernel`` becomes the port
 key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
 batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token
-parameters (``pos_embedding``, ``class_token``, ``registers``) and a batch
+parameters (``pos_embedding``, ``class_token``, ``registers``,
+``ctx_mask_token``) and a batch
 ensemble's ``r`` and ``s`` keep their names; the ``batch_stats``
 collection's ``a/b/mean`` and ``a/b/var`` become the batch norms'
 buffers ``a.b.mean`` and ``a.b.var``. Only the layouts change:
@@ -65,7 +71,7 @@ _TRANSPOSED = re.compile(r"^(up_\d+|proj_\d+_\d+|ConvTranspose_\d+)$")
 # leaves that keep their names: the token parameters, a batch ensemble's,
 # a prelu ADN's slope, GRN's gamma, LayerScale's scale
 _KEPT_NAMES = ("pos_embedding", "class_token", "registers", "r", "s",
-               "prelu", "gamma", "layer_scale")
+               "prelu", "gamma", "layer_scale", "ctx_mask_token")
 
 
 def _convert_kernel(path, k: np.ndarray) -> np.ndarray:

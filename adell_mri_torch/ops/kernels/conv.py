@@ -402,21 +402,77 @@ conv3d_igemm_dx.tf32_launches = 0
 conv3d_igemm_dx.narrow_launches = 0
 
 
-def conv3d_weight_grad_reference(x, g):
+#: bytes the patch tensor of one product of the patch route may take
+PATCH_BUDGET = 2 << 30
+
+
+def _patch_bytes(dtype) -> int:
+    """Bytes a patch element takes in a chunked product: the patch tensor
+    itself and, for a dtype narrower than f32, its f32 copy."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return size + 4 if size < 4 else size
+
+
+def patch_chunks(shape, dtype, budget=PATCH_BUDGET):
+    """The chunks whose patch tensors stay within ``budget`` bytes, for x
+    of ``shape`` [B,D,H,W,Cin]: ``(b0, b1, z0, z1)`` takes samples
+    ``b0:b1``, planes ``z0:z1`` of each. One chunk (the whole batch) where
+    its patch tensor fits; else whole samples, each chunk's patch tensor
+    and its f32 copy (``_patch_bytes``) within the budget; where one
+    sample alone exceeds it, a chunk is a slab of D-planes of one sample
+    (cut from the padded input with its one-plane halo)."""
+    b, d, h, w_sz, cin = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    if b * d * h * w_sz * 27 * cin * size <= budget:
+        return [(0, b, 0, d)]
+    plane = h * w_sz * 27 * cin * _patch_bytes(dtype)
+    if d * plane <= budget:
+        n = budget // (d * plane)
+        return [(i, min(i + n, b), 0, d) for i in range(0, b, n)]
+    p = max(1, budget // plane)
+    return [(i, i + 1, z, min(z + p, d))
+            for i in range(b) for z in range(0, d, p)]
+
+
+def _patches(xp, cin):
+    """The patch tensor [V, 27*Cin] of a padded input [B,D+2,H+2,W+2,Cin]:
+    [B,D,H,W,Cin,3,3,3] -> [B,D,H,W,3,3,3,Cin], so k = tap*Cin + ci, the
+    row-major flattening of the weight."""
+    return (xp.unfold(1, 3, 1).unfold(2, 3, 1).unfold(3, 3, 1)
+            .permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(-1, 27 * cin))
+
+
+def patch_sums(x, g, chunks):
+    """The sums [27*Cin, Cout] of the patch products over ``chunks``
+    (``patch_chunks``), in f32 (f64 for f64 inputs): each chunk's product
+    summed there, the chunks added in order."""
+    cin, cout = x.shape[-1], g.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    dw = torch.zeros((27 * cin, cout), dtype=acc, device=x.device)
+    for b0, b1, z0, z1 in chunks:
+        patches = _patches(xp[b0:b1, z0:z1 + 2], cin)
+        # bf16 products are exact in f32 and summed there
+        dw += torch.matmul(patches.t().to(acc),
+                           g[b0:b1, z0:z1].reshape(-1, cout).to(acc))
+    return dw
+
+
+def conv3d_weight_grad_reference(x, g, budget=PATCH_BUDGET):
     """Plain version of dW [3,3,3,Cin,Cout] of the stride-1 SAME conv: the
     padded input's patch tensor [V, 27*Cin] contracted with ``g`` [V, Cout]
-    over the voxels in one product (f32 accumulation rounded once to x's
-    dtype). The patch tensor is transient: 27x the input, 3.6 GB at the
-    flagship's 32-channel top level in bf16."""
-    b, d, h, w_sz, cin = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
-    # [B,D,H,W,Cin,3,3,3] -> [B,D,H,W,3,3,3,Cin]: k = tap*Cin + ci, the
-    # row-major flattening of the weight
-    patches = (
-        xp.unfold(1, 3, 1).unfold(2, 3, 1).unfold(3, 3, 1)
-        .permute(0, 1, 2, 3, 5, 6, 7, 4)
-        .reshape(-1, 27 * cin)
-    )
+    over the voxels (f32 accumulation rounded once to x's dtype). The
+    patch tensor is transient and 27x the input, so the contraction runs
+    in chunks whose patch tensors stay within ``budget`` bytes
+    (``patch_sums`` over ``patch_chunks``). A bf16 batch whose patch
+    tensor fits takes one bf16 product instead (the tensor cores'), which
+    sums in f32 inside the library."""
+    cin, cout = x.shape[-1], g.shape[-1]
+    chunks = patch_chunks(tuple(x.shape), x.dtype, budget)
+    if len(chunks) > 1 or x.element_size() >= 4:
+        return patch_sums(x, g, chunks).to(x.dtype).reshape(
+            3, 3, 3, cin, cout)
+    patches = _patches(F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)), cin)
     # bf16 products summed in f32 and rounded once, as the JAX package's
     # preferred_element_type=f32: cuBLAS may otherwise reduce its split-K
     # partial sums in bf16
@@ -424,10 +480,10 @@ def conv3d_weight_grad_reference(x, g):
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
     try:
-        dw = torch.matmul(patches.t(), g.reshape(-1, g.shape[-1]))
+        dw = torch.matmul(patches.t(), g.reshape(-1, cout))
     finally:
         matmul.allow_bf16_reduced_precision_reduction = reduced
-    return dw.reshape(3, 3, 3, cin, g.shape[-1])
+    return dw.reshape(3, 3, 3, cin, cout)
 
 
 def wgrad_route(dtype, cin, cout):

@@ -40,10 +40,20 @@ batch norm; the yaml's 16 crops) and ``"convnext"`` (the standalone
 ConvNeXt at the factory's defaults, ``convnext_backbone``; no yaml, so
 the CLI's default batch of 4 crops).
 
-All train with the CLI's augmentation (``--augment intensity noise affine
-flip``: for the segmentation nets rotation-only affine, flips on all
-three axes), Nesterov SGD (momentum 0.99) under cosine annealing, bf16 or
-f32 compute.
+``"ssl"``, ``sample_configs/ssl-resnet.yaml`` as it stands (the two-view
+methods' CatNet backbone: four ResNet stages of 64 to 512, batch norm;
+projection 1024, 512, 256; prediction 512, 256): pretrained on the yaml's
+28 volumes of 128x128x32 (``make_ssl_batch``), each step two views of
+96x96x24 a volume (``SSLTransforms``), AdamW at the yaml's rate and
+decay with the norms and biases not decayed (``make_ssl_trainer``; the
+method ``vicreg`` by default, ``byol`` with its EMA teacher). ``"ijepa"``,
+I-JEPA at the factory's defaults (patch 4, embedding 192, 4 blocks of 4
+heads, predictor 96 x 2) on the whole 128x128x32 volume: 8192 tokens.
+
+The supervised models train with the CLI's augmentation (``--augment
+intensity noise affine flip``: for the segmentation nets rotation-only
+affine, flips on all three axes), Nesterov SGD (momentum 0.99) under
+cosine annealing, bf16 or f32 compute.
 ``overrides`` change keys of a model's network config (e.g. the yaml's
 dropout, or ``deep_supervision``; the trainer's step takes the heads the
 model carries).
@@ -58,10 +68,12 @@ import torch
 from adell_mri_torch.config.factories import (
     get_classification_network,
     get_segmentation_network,
+    get_ssl_network,
 )
 from adell_mri_torch.config.parsing import (
     build_compound_loss,
     parse_config_cat,
+    parse_config_ssl,
     parse_config_unet,
 )
 from adell_mri_torch.inference import SegmentationInference
@@ -75,6 +87,11 @@ from adell_mri_torch.models.layers.adn import (
 from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
+from adell_mri_torch.train.ssl_steps import (
+    make_ijepa_step,
+    make_ssl_train_step,
+    make_two_view_step,
+)
 from adell_mri_torch.train.state import TrainState
 from adell_mri_torch.train.steps import (
     make_classification_step,
@@ -86,6 +103,7 @@ from adell_mri_torch.transforms.pipeline import (
     AugmentPolicy,
     ClassificationTransforms,
     SegmentationTransforms,
+    SSLTransforms,
 )
 
 FLAGSHIP = dict(
@@ -113,6 +131,10 @@ RESNET_YAML = UNETR_YAML.with_name("u-net-3d-resnet.yaml")
 RESNET_BATCH = 2
 CATNET_YAML = UNETR_YAML.with_name("classification-cat-resnet.yaml")
 CATNET_BATCH = 16
+SSL_YAML = UNETR_YAML.with_name("ssl-resnet.yaml")
+SSL_SHAPE = (128, 128, 32)
+SSL_VIEW = (96, 96, 24)
+SSL_T_MAX = 100  # the schedule's and the EMA ramp's length in steps
 # name -> (the CLI's --classification_net_type, the yaml or None for the
 # factory's defaults, the training batch: the yaml's, else the CLI's 4)
 CLASSIFIERS = {
@@ -315,3 +337,78 @@ def make_catnet_trainer(seed: int, precision: str, device="cuda",
         augmentations=AugmentPolicy.classification(AUGMENT_FLAGS, WINDOW))
     return Trainer(state, make_train_step(lm), make_eval_step(eval_lm), lm,
                    transforms, model)
+
+
+def ssl_training_config(method: str = "vicreg"):
+    """(network config, training config) of ``ssl-resnet.yaml``: the
+    network keys for the two-view methods; I-JEPA takes the factory's
+    defaults and the yaml's training keys (batch 28, rate 0.01, decay
+    0.001)."""
+    config = parse_config_ssl(str(SSL_YAML), is_ijepa=method == "ijepa")
+    network = {} if method == "ijepa" else config["network"]
+    return network, config["training"]
+
+
+def make_ssl_model(seed: int, method: str = "vicreg", device="cuda"):
+    """The network of ``method`` with f32 weights drawn from ``seed``, in
+    training mode."""
+    torch.manual_seed(seed)
+    network, _ = ssl_training_config(method)
+    return get_ssl_network(method, network, image_size=SSL_SHAPE).to(device)
+
+
+def make_served_ssl(seed: int, device="cuda"):
+    """The two-view network (``make_ssl_model``) in eval mode, with the
+    running statistics of two training forwards on 4 volumes of
+    128x128x32 (``make_ssl_batch(seed + 1)``): a served encoder."""
+    model = make_ssl_model(seed, device=device)
+    volumes = make_ssl_batch(seed + 1, device, batch=4)["image"]
+    with torch.no_grad():
+        buffers = dict(model.named_buffers())
+        for _ in range(2):
+            model(volumes, ret="representation")
+            for k, v in pop_batch_stats(model).items():
+                buffers[k].copy_(v)
+    return model.eval()
+
+
+def make_ssl_batch(seed: int, device="cuda", batch=None, shape=SSL_SHAPE):
+    """``batch`` (the yaml's 28 by default) volumes on the card: noise
+    around 0.3 with a bright ellipsoid in every other one, min-max scaled
+    as the loader scales images; ``image`` [B, *shape, 1]."""
+    if batch is None:
+        batch = ssl_training_config()[1]["batch_size"]
+    return {"image": make_catnet_batch(seed, device, batch, shape)["image"]}
+
+
+def make_ssl_trainer(seed: int, precision: str, method: str = "vicreg",
+                     device="cuda", learning_rate=None):
+    """``method``'s network (``make_ssl_model``) with its train step
+    (``make_two_view_step`` or ``make_ijepa_step``, whose masks draw from
+    a generator seeded with ``seed``), AdamW at the yaml's rate (or
+    ``learning_rate``) and decay with the norms and biases not decayed,
+    under cosine annealing over ``SSL_T_MAX`` steps, and for ``byol`` and
+    ``ijepa`` the EMA shadow (decay 0.996 ramped to 1 over the same
+    steps); ``transforms`` are the views' (``SSLTransforms``, 96x96x24
+    crops), None for I-JEPA, which reads the volume itself."""
+    model = make_ssl_model(seed, method, device)
+    _, training = ssl_training_config(method)
+    schedule = cosine_annealing_with_warmup(
+        learning_rate or training["learning_rate"], t_max=SSL_T_MAX)
+    use_ema = method in ("byol", "ijepa")
+    state = TrainState.create(
+        model, lambda p: get_optimizer(
+            "adamw", schedule, weight_decay=training["weight_decay"],
+            params=p, exclude_norms_from_decay=True, model=model),
+        with_ema=use_ema, ema_decay=0.996, ema_final_decay=1.0,
+        ema_n_steps=SSL_T_MAX)
+    if method == "ijepa":
+        lm = make_ijepa_step(model, precision, generator=torch.Generator(
+            device=device).manual_seed(seed))
+        transforms = None
+    else:
+        lm = make_two_view_step(model, method=method, ema_teacher=use_ema,
+                                precision=precision)
+        transforms = SSLTransforms(crop_size=SSL_VIEW, seed=seed)
+    return Trainer(state, make_ssl_train_step(lm), None, lm, transforms,
+                   model)

@@ -3,7 +3,8 @@ Segmentation and classification transform factories: cached host load,
 device augmentation.
 
 Counterpart of ``AugmentPolicy``, ``_augment_one``, ``_batch_intensity``,
-``SegmentationTransforms`` and ``ClassificationTransforms`` in
+``SegmentationTransforms``, ``ClassificationTransforms`` and
+``SSLTransforms`` (3D; see its docstring) in
 ``adell_mri_tpu/transforms/pipeline.py``,
 with every flag of the JAX package: ``intensity``, ``noise``, ``rbf``,
 ``affine``, ``shear``, ``flip``, ``blur``, ``distort``, ``lowres`` and
@@ -28,6 +29,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from adell_mri_torch.ops.kernels.intensity import fused_intensity_aug_batch
@@ -431,4 +433,117 @@ class ClassificationTransforms:
         out["image"] = _batch_intensity(
             generator, torch.stack(images), self.augmentations
         )
+        return out
+
+
+def crop_matrix(shape: Sequence[int], crop_size: Sequence[int], zoom,
+                position):
+    """The output-voxel -> input-volume matrix of a scaled crop: a
+    ``crop_size`` view of a ``shape`` volume at ``zoom`` (a 0-dim f32
+    tensor), centred, then moved by ``position`` ([ndim] in [-1, 1)) times
+    the half slack on each axis, so that it stays in bounds."""
+    ndim = len(shape)
+    dev = zoom.device
+    mat = (S.center_matrix(shape, +1.0, dev)
+           @ S.scale_shear_matrix(ndim, zoom.float().expand(ndim).clone())
+           @ S.center_matrix(crop_size, -1.0, dev))
+    half_slack = (S.host_vector(list(shape), dev)
+                  - zoom * S.host_vector(list(crop_size), dev)) / 2.0
+    shift = position * half_slack.clamp_min(0.0)
+    mat = mat.clone()
+    mat[:ndim, ndim] = mat[:ndim, ndim] + shift
+    return mat
+
+
+@dataclass
+class SSLTransforms:
+    """Two augmented views of each volume for the two-view methods.
+
+    The host load is ``make_load_fn``'s (read, RAS, spacing, min-max
+    scale, ``target_size``). On the device, each view of each sample is a
+    TrivialAugment pass of ``n_transforms`` ops from the 27-op registry,
+    then, with ``crop_size``, a random scaled crop at a random position
+    (``crop_matrix``: zoom uniform in ``scaled_crop_range``) resampled
+    through ``warp_affine``; ``view1`` for every sample, then ``view2``.
+    ``image`` is kept at the base size. A view is a draw (``draw_view``)
+    and a deterministic core (``view``), so that a test can hand the core
+    the JAX package's draws. 2D slices, VICRegL's crop matrices
+    (``expose_boxes``), DINO's local crops (``n_local_crops``) and
+    ``sample_channels`` are not ported yet, nor are 4D inputs."""
+
+    image_keys: Sequence[str] = ("image",)
+    target_spacing: Optional[Sequence[float]] = None
+    target_size: Optional[Sequence[int]] = None
+    crop_size: Optional[Sequence[int]] = None
+    adc_keys: Sequence[str] = ()
+    sample_channels: Optional[int] = None
+    slice_2d: bool = False
+    n_transforms: int = 3
+    scaled_crop_range: Tuple[float, float] = (0.6, 1.0)
+    n_local_crops: int = 0
+    expose_boxes: bool = False
+    # seeds the workhorse's host choice of op (not part of the cache key)
+    seed: int = field(default=0, repr=False)
+
+    def __post_init__(self):
+        unported = [name for name, on in (
+            ("slice_2d (2D SSL)", self.slice_2d),
+            ("expose_boxes (VICRegL)", self.expose_boxes),
+            ("n_local_crops (DINO)", self.n_local_crops > 0),
+            ("sample_channels", self.sample_channels is not None)) if on]
+        if unported:
+            raise NotImplementedError(
+                f"SSLTransforms: {', '.join(unported)} not ported yet "
+                "(ROADMAP Queue 1, item 4)")
+        self.workhorse = None
+
+    def load_fn(self):
+        return make_load_fn(
+            image_keys=self.image_keys,
+            target_spacing=self.target_spacing,
+            target_size=self.target_size,
+            adc_keys=self.adc_keys,
+        )
+
+    def _workhorse(self, ndim: int) -> AugmentationWorkhorse:
+        if self.workhorse is None:
+            self.workhorse = AugmentationWorkhorse(
+                n_transforms=self.n_transforms, ndim=ndim, seed=self.seed)
+        return self.workhorse
+
+    def draw_view(self, generator, image):
+        """One view's draws for ``image`` [*S, C]: the workhorse's picks
+        and, with ``crop_size``, (zoom, position) uniforms in [0, 1)."""
+        ndim = image.dim() - 1
+        picks = self._workhorse(ndim).draw(generator, image)
+        if self.crop_size is None:
+            return picks, None
+        u = torch.rand((ndim + 1,), generator=generator,
+                       device=image.device)
+        return picks, (u[0], u[1:])
+
+    def view(self, image, picks, crop=None):
+        """The view of ``image`` the draws make: zoom ``lo + u (hi - lo)``
+        and position ``2 u - 1``, in f32 as ``jax.random.uniform`` maps
+        its draws."""
+        ndim = image.dim() - 1
+        image = self._workhorse(ndim).apply(image, picks)
+        if crop is None:
+            return image
+        u_zoom, u_pos = crop
+        lo, hi = (np.float32(v) for v in self.scaled_crop_range)
+        zoom = (u_zoom.float() * float(hi - lo) + float(lo)).clamp_min(
+            float(lo))
+        position = (u_pos.float() * 2.0 - 1.0).clamp_min(-1.0)
+        mat = crop_matrix(image.shape[:-1], self.crop_size, zoom, position)
+        return S.warp_affine(image, mat, out_shape=tuple(self.crop_size))
+
+    def augment(self, generator, batch: Dict) -> Dict:
+        """``batch["image"]`` [B, *S, C] on the device; adds ``view1`` and
+        ``view2`` [B, *crop, C], drawing from ``generator``."""
+        out = dict(batch)
+        for name in ("view1", "view2"):
+            out[name] = torch.stack([
+                self.view(img, *self.draw_view(generator, img))
+                for img in batch["image"]])
         return out

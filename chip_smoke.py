@@ -214,7 +214,33 @@ failure:
     depthwise, convnext, convnextv2, asp) and link type (conv, attention)
     at depth 16, 32, 64 with the ADN's other norms, prelu and uout: one
     f32 step against the plain path (loss, gradient norm, running
-    statistics within 1e-5) and one served case each.
+    statistics within 1e-5) and one served case each;
+20. self-supervised pretraining: ``sample_configs/ssl-resnet.yaml`` (the
+    two-view methods' CatNet backbone) and I-JEPA at the factory's
+    defaults, from seeded weights on seeded 128x128x32 volumes: the
+    two-view step's four K1 classes at B=28 (the stem's 64->64 at
+    96x96x24, 128->128, 256->256, 512->512) against the plain versions
+    as phase 17 holds its classes; ``flash_attention`` at I-JEPA's head
+    dims 48 and 24 (8192 tokens, the D=64 and D=32 kernels on padded
+    inputs) against the plain versions at B=2 with phase 10's tolerances,
+    each kernel timed at B=28 beside its bound and
+    ``F.scaled_dot_product_attention``; VICReg at the yaml's B=28 on
+    views of 96x96x24 (``SSLTransforms``) in f32 and bf16 (the f32 step
+    against the plain path with ``_step_parity`` at the largest batch it
+    fits, every gradient finite and each weight's non-zero but the
+    prediction head's, which VICReg does not reach; a warm-up and 3
+    timed steps with the launches of the recorded K1 calls, no K3; peak
+    memory; ten bf16 steps on one batch of views with a falling loss);
+    a BYOL step with its EMA teacher in f32 and bf16 (the shadow a plain
+    ``ema_update`` at ``ema_decay_at`` within 1e-6); I-JEPA at B=28
+    (8192 tokens), the f32 step against the plain path at B=2 with one
+    mask, then f32 and bf16 steps with 10 forward, 6 dQ and 6 dK/dV
+    attention launches each; ``ssl predict_folder``'s representation at
+    B=1 in bf16 and f32 (within 5e-2 and 1e-3 of the plain path); ``ssl
+    train`` (VICReg f32 and bf16, BYOL ``--ema`` bf16, I-JEPA bf16) on a
+    6-case cohort at ``--batch_size 3`` and ``ssl predict_folder`` on the
+    VICReg checkpoint, their launches against the K1 calls recorded
+    around each.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -295,7 +321,8 @@ def time_ms(fn, reps=5):
     """Device ms of one call of ``fn``: the calls are queued behind a
     spinning kernel, so the events time the card's work and not the host's
     dispatch. The spin grows until the host has queued every call before
-    the card reaches the first event."""
+    the card reaches the first event; where ``reps`` calls fill the launch
+    queue, one call is timed."""
     import torch
 
     fn()
@@ -314,6 +341,11 @@ def time_ms(fn, reps=5):
         if queued:
             return start.elapsed_time(end) / reps
         if cycles >= 1 << 30:
+            if reps > 1:
+                # the calls' launches fill the launch queue (about 1024
+                # entries: a chunked patch product launches hundreds), so
+                # the host waits on the sleeping card: time one call
+                return time_ms(fn, reps=1)
             raise RuntimeError("time_ms: the host did not get ahead of the "
                                "card; fn waits on the card")
         cycles <<= 2
@@ -5044,7 +5076,10 @@ def _step_parity(tr, batch, tag):
         _seeded(tr, 9)
         with ctx():
             loss, metrics = tr.loss_and_metrics(tr.state.weights(), batch)
-            grads = torch.autograd.grad(loss, params)
+            # a leaf the loss does not reach (VICReg's prediction head,
+            # I-JEPA's target encoder) has no gradient on either path
+            grads = [g for g in torch.autograd.grad(
+                loss, params, allow_unused=True) if g is not None]
         runs.append((float(loss.detach()), _grad_norm(grads),
                      metrics.get("_variables", {})))
         del grads, loss
@@ -5273,6 +5308,611 @@ def phase_classifiers(smi):
     return out
 
 
+# -- phase 20: self-supervised pretraining ------------------------------------
+
+SSL_TIMED_STEPS = 3
+SSL_LOSS_STEPS = 10
+SSL_LOSS_LR = 1e-3
+SSL_BATCH = 28
+# the f32 step parity runs the two-view step at the yaml's 28 (a plain
+# path out of memory there fails the phase); I-JEPA's plain attention
+# materialises [B, 4, 8192, 8192] f32 scores (2.1 GB a layer at B=2, 30 GB
+# at 28), so it is held at B=2
+IJEPA_PARITY_BATCH = 2
+SSL_CLI_CASES = 6
+SSL_CLI_BATCH = 3
+SSL_CLI_SHAPE = (128, 128, 32)
+SSL_CLI_CROP = (96, 96, 24)
+# I-JEPA's head dims (encoders 192 / 4, predictor 96 / 4) at 8192 tokens:
+# checked against the plain versions at B=2, timed at the yaml's 28
+SSL_FLASH_DIMS = (48, 24)
+SSL_FLASH_TOKENS = 8192
+SSL_FLASH_HEADS = 4
+SSL_FLASH_CHECK_BATCH = 2
+# the K1 classes of a two-view forward at B=28 on 96x96x24 views: the
+# stem's 64->64 and each bottleneck's 3x3x3 (input shape, Cout, count)
+SSL_CLASSES = (
+    ((SSL_BATCH, 96, 96, 24, 64), 64, 1),
+    ((SSL_BATCH, 24, 24, 12, 128), 128, 2),
+    ((SSL_BATCH, 12, 12, 12, 256), 256, 2),
+    ((SSL_BATCH, 6, 6, 6, 512), 512, 2),
+)
+
+
+def _ijepa_flash_want(model, steps=1):
+    """The attention launches of ``steps`` I-JEPA steps: a forward a block
+    of the context encoder, the predictor and the target encoder (run
+    without gradient), dQ and dK/dV a block of the first two."""
+    trained = model.context_encoder.n_blocks + model.predictor.n_blocks
+    return {"flash_attention_fwd": steps * (
+                trained + model.target_encoder.n_blocks),
+            "flash_attention_bwd_dq": steps * trained,
+            "flash_attention_bwd_dkv": steps * trained}
+
+
+def _ssl_want(rec, flash=None):
+    """The launches of the K1 calls ``rec`` recorded (``_recorded_want``:
+    K1, dx where the input takes a gradient, dW in a training step;
+    forwards alone without gradient, the teachers'), with no K3 (the
+    views take no intensity chain), and ``flash``."""
+    want = _recorded_want(rec)
+    want["intensity_aug"] = 0
+    want.update(flash or {})
+    return want
+
+
+def _ssl_input(tr, batch, gen):
+    """A step's batch: the two views of ``batch`` (``SSLTransforms``), or
+    the volumes themselves for I-JEPA."""
+    return batch if tr.transforms is None else tr.transforms.augment(
+        gen, batch)
+
+
+def _ssl_steps(tr, batch, gen, tag, n):
+    """A recorded warm-up step, then ``n`` steps counted from 0 against
+    the launches the recorded calls make (I-JEPA: its attention's);
+    seconds and losses a step."""
+    import torch
+
+    with _k1_calls() as rec:
+        tr.state, _ = tr.train_step(tr.state, _ssl_input(tr, batch, gen))
+    torch.cuda.synchronize()
+    flash = (_ijepa_flash_want(tr.model) if tr.transforms is None
+             else None)
+    want = _scaled(_ssl_want(rec, flash), n)
+    _reset_counts()
+    secs, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tr.state, metrics = tr.train_step(tr.state,
+                                          _ssl_input(tr, batch, gen))
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    if launches != want:
+        raise AssertionError(f"{tag} step launches {launches}, want {want}")
+    if not all(abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    return dict(launches=launches, k1_convs=len(rec.calls),
+                dx=sum(c[2] for c in rec.calls), seconds_per_step=secs,
+                losses=losses)
+
+
+def _ssl_gradients(tr, views, unreached_prefix):
+    """Every parameter's gradient of one kernel step: finite, each weight's
+    non-zero, and none for the leaves the loss does not reach (VICReg's
+    prediction head, ``unreached_prefix``), which the step hands zeros."""
+    import torch
+
+    names = list(tr.state.params)
+    loss, _ = tr.loss_and_metrics(tr.state.weights(), views)
+    grads = torch.autograd.grad(loss, [tr.state.params[k] for k in names],
+                                allow_unused=True)
+    unreached = [k for k, g in zip(names, grads) if g is None]
+    bad = [k for k, g in zip(names, grads)
+           if g is not None and not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in zip(names, grads) if g is not None
+            and k.endswith(".weight") and not bool((g != 0).any())]
+    want = [k for k in names if k.startswith(unreached_prefix)]
+    if bad or zero or unreached != want:
+        raise AssertionError(f"gradients: non-finite {bad}, zero weights "
+                             f"{zero}, unreached {unreached} (want {want})")
+    return dict(n_params=len(names), unreached=unreached)
+
+
+def _ssl_two_view(smi):
+    """Phase 20 (a): VICReg on ``ssl-resnet.yaml`` at the yaml's B=28,
+    views of 96x96x24 cropped from 128x128x32 volumes, f32 then bf16: the
+    f32 step against the plain path at B=28 (``_step_parity``: the
+    running statistics and each batch norm's batch statistics included)
+    and every gradient
+    (``_ssl_gradients``); a warm-up and 3 timed steps with the launches
+    of the recorded K1 calls, peak memory and device share; in bf16 ten
+    steps on one batch of views with a falling loss."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import make_ssl_batch, make_ssl_trainer
+
+    batch = make_ssl_batch(2)
+    out = {}
+    for precision in ("32", "bf16"):
+        tr = make_ssl_trainer(0, precision)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        parity = grads = None
+        if precision == "32":
+            views = tr.transforms.augment(gen, batch)
+            # the statistics' f64 forward reads "image": the view1 forward
+            views["image"] = views["view1"]
+            parity = dict(_step_parity(tr, views, f"vicreg B={SSL_BATCH}"),
+                          batch=SSL_BATCH)
+            grads = _ssl_gradients(tr, views, "pred_")
+            del views
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = _ssl_steps(tr, batch, gen, f"vicreg {precision}",
+                           SSL_TIMED_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        def step():
+            tr.state, _ = tr.train_step(tr.state, tr.transforms.augment(
+                gen, batch))
+
+        busy, wall = _device_share(step)
+        log(f"[ssl vicreg] {smi}: {precision}, B={SSL_BATCH} views of "
+            "96x96x24 from 128x128x32: "
+            f"{', '.join(f'{x:.4f}' for x in steps['seconds_per_step'])} s "
+            f"per step; device busy {busy:.4f} of {wall:.4f} s "
+            f"({100 * busy / wall:.1f} %); peak {peak_gb:.2f} GB; "
+            f"{steps['k1_convs']} K1 and {steps['dx']} dx a step; launches "
+            f"{steps['launches']}; losses {steps['losses']}")
+        out[precision] = dict(steps, peak_memory_gb=peak_gb,
+                              device_busy_s=busy, wall_s=wall,
+                              parity=parity, gradients=grads)
+        del tr
+        torch.cuda.empty_cache()
+    tr = make_ssl_trainer(0, "bf16", learning_rate=SSL_LOSS_LR)
+    views = tr.transforms.augment(
+        torch.Generator(device="cuda").manual_seed(1), batch)
+    losses = []
+    for _ in range(SSL_LOSS_STEPS):
+        tr.state, metrics = tr.train_step(tr.state, views)
+        losses.append(float(metrics["loss"]))
+    log(f"[ssl vicreg] bf16, {SSL_LOSS_STEPS} steps on one batch of views "
+        f"at lr {SSL_LOSS_LR}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"vicreg loss did not fall: {losses}")
+    out["loss_steps"] = losses
+    del tr, views, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssl_byol(smi):
+    """Phase 20 (b): BYOL with its EMA teacher at B=28, f32 then bf16: a
+    warm-up step, then one step with the launches of its recorded K1
+    calls (the teacher's forwards on the shadow: forward launches alone),
+    and the shadow after it equal to a plain ``ema_update`` of the one
+    before towards the new parameters at ``ema_decay_at`` of the step
+    count before its increment (1e-6 of each leaf's scale)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import make_ssl_batch, make_ssl_trainer
+    from adell_mri_torch.train.ema import ema_decay_at, ema_update
+
+    batch = make_ssl_batch(2)
+    out = {}
+    for precision in ("32", "bf16"):
+        tr = make_ssl_trainer(0, precision, "byol")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        views = tr.transforms.augment(gen, batch)
+        # a first step moves the parameters away from the shadow
+        tr.state, _ = tr.train_step(tr.state, views)
+        st = tr.state
+        before = {k: v.clone() for k, v in st.ema_params.items()}
+        decay = ema_decay_at(st.step, st.ema_decay, st.ema_final_decay,
+                             st.ema_n_steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with _k1_calls() as rec:
+            t0 = time.perf_counter()
+            tr.state, metrics = tr.train_step(tr.state, views)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = _ssl_want(rec)
+        with torch.no_grad():
+            shadow = ema_update(before, tr.state.params, decay)
+            err = max(float((tr.state.ema_params[k] - v).abs().max())
+                      / max(float(v.abs().max()), 1e-30)
+                      for k, v in shadow.items())
+            moved = max(float((tr.state.ema_params[k] - tr.state.params[k])
+                              .abs().max()) for k in shadow)
+        loss = float(metrics["loss"])
+        log(f"[ssl byol] {smi}: {precision}, B={SSL_BATCH}: {secs:.4f} s a "
+            f"step, peak {peak_gb:.2f} GB, loss {loss:.6f}; decay "
+            f"{decay:.6f}; shadow vs plain ema_update {err:.3g} (tol 1e-6); "
+            f"shadow to parameters {moved:.3g}; launches {launches}")
+        if launches != want:
+            raise AssertionError(f"byol launches {launches}, want {want}")
+        if not (err <= 1e-6 and moved > 0):
+            raise AssertionError(f"byol shadow {err}, {moved}")
+        out[precision] = dict(seconds=secs, peak_memory_gb=peak_gb,
+                              launches=launches, decay=decay,
+                              shadow_rel_err=err, tol=1e-6, loss=loss)
+        del tr, views
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssl_ijepa(smi):
+    """Phase 20 (c): I-JEPA at the factory's defaults on B=28 volumes of
+    128x128x32 (8192 tokens), f32 then bf16: the f32 step against the
+    plain path at B=2 with one mask (the plain attention materialises
+    the scores), then a warm-up and 3 timed steps with 10 forward, 6 dQ
+    and 6 dK/dV attention launches each, peak memory and device share."""
+    import torch
+
+    from adell_mri_torch.models.ssl.masking import block_masking
+    from adell_mri_torch.tools.flagship import make_ssl_batch, make_ssl_trainer
+
+    batch = make_ssl_batch(3)
+    out = {}
+    for precision in ("32", "bf16"):
+        tr = make_ssl_trainer(0, precision, "ijepa")
+        parity = None
+        if precision == "32":
+            mask = block_masking(
+                torch.Generator(device="cuda").manual_seed(5), tr.model.grid)
+            parity = _step_parity(tr, {
+                "image": batch["image"][:IJEPA_PARITY_BATCH], "mask": mask},
+                f"ijepa B={IJEPA_PARITY_BATCH}")
+            parity["batch"] = IJEPA_PARITY_BATCH
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = _ssl_steps(tr, batch, None, f"ijepa {precision}",
+                           SSL_TIMED_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        def step():
+            tr.state, _ = tr.train_step(tr.state, batch)
+
+        busy, wall = _device_share(step)
+        log(f"[ssl ijepa] {smi}: {precision}, B={SSL_BATCH} at 128x128x32 "
+            f"({SSL_FLASH_TOKENS} tokens): "
+            f"{', '.join(f'{x:.4f}' for x in steps['seconds_per_step'])} s "
+            f"per step; device busy {busy:.4f} of {wall:.4f} s "
+            f"({100 * busy / wall:.1f} %); peak {peak_gb:.2f} GB; launches "
+            f"{steps['launches']}; losses {steps['losses']}")
+        out[precision] = dict(steps, peak_memory_gb=peak_gb,
+                              device_busy_s=busy, wall_s=wall,
+                              parity=parity)
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssl_serving(smi):
+    """Phase 20 (d): ``ssl predict_folder``'s representation (the eval
+    backbone's pooled features, running statistics of two training
+    forwards) at B=1 on 128x128x32, bf16 and f32: launches against the
+    recorded K1 calls, seconds, device share, peak memory, and the
+    features against the plain path within 5e-2 and 1e-3 of their
+    scale."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import make_served_ssl, make_ssl_batch
+
+    model = make_served_ssl(0)
+    x = make_ssl_batch(4, batch=1)["image"]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        precision = "bf16" if bf16 else "32"
+        weights = _catnet_weights(model, dtype)
+
+        def forward():
+            return torch.func.functional_call(
+                model, weights, (x.to(dtype),),
+                {"ret": "representation"}).float()
+
+        with torch.inference_mode():
+            with _k1_calls() as rec:
+                forward()
+            torch.cuda.synchronize()
+            want = _ssl_want(rec)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            secs = []
+            t0 = time.perf_counter()
+            feats = forward()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = _launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            for _ in range(2):
+                t0 = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            busy, wall = _device_share(forward)
+            with plain_kernels():
+                plain = forward()
+        err = float((feats - plain).abs().max()) / max(
+            float(plain.abs().max()), 1e-30)
+        tol = 5e-2 if bf16 else 1e-3
+        log(f"[ssl serving] {smi}: {precision}, B=1 at 128x128x32: "
+            f"{len(rec.calls)} K1 convs; launches {launches}; "
+            f"{', '.join(f'{s:.4f}' for s in secs)} s a case; device busy "
+            f"{busy:.4f} of {wall:.4f} s ({100 * busy / wall:.1f} %); peak "
+            f"{peak_gb:.2f} GB; representation {tuple(feats.shape)} vs "
+            f"plain path {err:.3g} of its scale (tol {tol})")
+        if launches != want:
+            raise AssertionError(f"ssl serving launches {launches}, want "
+                                 f"{want}")
+        if tuple(feats.shape) != (1, model.backbone.n_features) or not bool(
+                torch.isfinite(feats).all()) or not err <= tol:
+            raise AssertionError(f"ssl representation {tuple(feats.shape)}"
+                                 f", err {err}")
+        out[precision] = dict(launches=launches, k1_convs=len(rec.calls),
+                              seconds=secs, device_busy_s=busy, wall_s=wall,
+                              peak_memory_gb=peak_gb, rel_err=err, tol=tol)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssl_flash():
+    """Phase 20 (e): ``flash_attention`` at I-JEPA's head dims (48 on the
+    D=64 kernels, 24 on the D=32 ones, zero-padded) and 8192 tokens, bf16
+    and f32: forward and backward against the plain versions at the
+    unpadded head dim at B=2 (phase 10's tolerances), then each kernel
+    timed on the padded inputs at the yaml's B=28 beside its bound (the
+    unpadded work) and ``F.scaled_dot_product_attention`` (forward, and
+    forward + backward)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from adell_mri_torch.ops.kernels import attention as ka
+
+    rows = []
+    h, n = SSL_FLASH_HEADS, SSL_FLASH_TOKENS
+    for d in SSL_FLASH_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            bf16 = dtype == torch.bfloat16
+            gen = torch.Generator(device="cuda").manual_seed(d)
+            q, k, v, g = (torch.randn((SSL_FLASH_CHECK_BATCH, h, n, d),
+                                      generator=gen, device="cuda")
+                          .to(dtype) for _ in range(4))
+            scale = d ** -0.5
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            got = ka.flash_attention(*leaves)
+            grads = torch.autograd.grad(got, leaves, g)
+            w_out, w_m, w_l = ka.flash_attention_fwd_reference(q, k, v,
+                                                               scale)
+            lse, delta = ka.backward_rows(w_out, w_m, w_l, g)
+            w_dq = ka.flash_attention_bwd_dq_reference(q, k, v, g, lse,
+                                                       delta, scale)
+            w_dk, w_dv = ka.flash_attention_bwd_dkv_reference(
+                q, k, v, g, lse, delta, scale)
+            rel_f, rel_b = (2.0**-7, 2.0**-7) if bf16 else (2e-5, 1e-4)
+            checks = {}
+            for part, a, b, rel in (("out", got.detach(), w_out, rel_f),
+                                    ("dq", grads[0], w_dq, rel_b),
+                                    ("dk", grads[1], w_dk, rel_b),
+                                    ("dv", grads[2], w_dv, rel_b)):
+                s = max(float(b.float().abs().max()), 1e-30)
+                checks[part] = (float((a.float() - b.float()).abs().max()),
+                                rel * s)
+            del q, k, v, g, leaves, got, grads, w_out, w_dq, w_dk, w_dv
+            torch.cuda.empty_cache()
+            # timed at the yaml's batch, each kernel on the padded inputs
+            dp = ka.padded_head_dim(d)
+            q, k, v, g = (torch.randn((SSL_BATCH, h, n, d), generator=gen,
+                                      device="cuda").to(dtype)
+                          for _ in range(4))
+            qp, kp, vp, gp = (ka._pad_head(t, dp) for t in (q, k, v, g))
+            # the library without its materialising fallback, which needs
+            # 30 GB a score matrix here
+            fused = sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                 SDPBackend.EFFICIENT_ATTENTION])
+            with torch.no_grad():
+                out, m, l = ka.flash_attention_fwd(qp, kp, vp, scale)
+                lse, delta = ka.backward_rows(out, m, l, gp)
+                ms = {
+                    "fwd": time_ms(lambda: ka.flash_attention_fwd(
+                        qp, kp, vp, scale)),
+                    "bwd_dq": time_ms(lambda: ka.flash_attention_bwd_dq(
+                        qp, kp, vp, gp, lse, delta, scale)),
+                    "bwd_dkv": time_ms(lambda: ka.flash_attention_bwd_dkv(
+                        qp, kp, vp, gp, lse, delta, scale)),
+                }
+                with fused:
+                    lib_fwd = time_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v))
+            lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+
+            def library_both():
+                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                  SDPBackend.EFFICIENT_ATTENTION]):
+                    o = F.scaled_dot_product_attention(lq, lk, lv)
+                torch.autograd.grad(o, [lq, lk, lv], g)
+
+            lib_both = time_ms(library_both)
+            peak = None if bf16 else PEAK_F32_TF32X3
+            bounds = {kind: attention_bound(kind, SSL_BATCH, h, n, n, d,
+                                            name, peak) for kind in ms}
+            row = dict(d=d, padded_d=dp, dtype=name,
+                       check_batch=SSL_FLASH_CHECK_BATCH, batch=SSL_BATCH,
+                       heads=h, tokens=n,
+                       errs={p: e for p, (e, _) in checks.items()},
+                       tols={p: t for p, (_, t) in checks.items()},
+                       ms=ms, bound_ms={kk: b[0] for kk, b in bounds.items()},
+                       bound_by={kk: b[1] for kk, b in bounds.items()},
+                       library_fwd_ms=lib_fwd, library_fwd_bwd_ms=lib_both,
+                       library_bwd_ms=lib_both - lib_fwd)
+            rows.append(row)
+            log(f"[ssl flash] [{SSL_FLASH_CHECK_BATCH},{h},{n},{d}] {name} "
+                f"on the D={dp} kernels: " + ", ".join(
+                    f"{p} {e:.3g} (tol {t:.3g})"
+                    for p, (e, t) in checks.items())
+                + f"; at B={SSL_BATCH}: " + ", ".join(
+                    f"{kk} {ms[kk]:.4f} ms (bound {bounds[kk][0]:.4f} ms, "
+                    f"{bounds[kk][1]})" for kk in ms)
+                + f"; F.scaled_dot_product_attention forward "
+                f"{lib_fwd:.4f} ms, forward + backward {lib_both:.4f} ms")
+            if not all(e <= t for e, t in checks.values()):
+                raise AssertionError(f"I-JEPA flash disagrees: {row}")
+            del q, k, v, g, qp, kp, vp, gp, lq, lk, lv, out, m, l, lse, delta
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _ssl_cli(smi):
+    """Phase 20 (f): ``ssl train`` on a seeded 6-case 128x128x32 cohort at
+    ``--batch_size 3`` (one epoch of 2 steps; with ``drop_last`` the
+    yaml's 28 gives none on 6 cases): VICReg in f32 and bf16 on
+    ``--random_crop_size 96 96 24``, BYOL with ``--ema`` in bf16, I-JEPA
+    in bf16 on the whole volume; then ``ssl predict_folder`` on the f32
+    VICReg checkpoint. In this process, each under ``torch.profiler``
+    with the launch counts set to 0 just before it, against the launches
+    of the K1 calls recorded around it (I-JEPA: 10 forward, 6 dQ and 6
+    dK/dV attention launches a step)."""
+    import os
+
+    import torch
+
+    from adell_mri_torch.tools.flagship import SSL_YAML
+
+    work = WORK_DIR / "ssl_cli"
+    work.mkdir(parents=True)
+    ds = _pipeline_cohort(work, SSL_CLI_SHAPE, (), n_cases=SSL_CLI_CASES)
+    folder = work / "folder"
+    folder.mkdir()
+    for entry in ds.values():
+        os.symlink(entry["image"], folder / os.path.basename(entry["image"]))
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda",
+              "--image_keys", "image", "--config_file", str(SSL_YAML),
+              "--pad_size", *map(str, SSL_CLI_SHAPE),
+              "--target_spacing", "0.5", "0.5", "3.0",
+              "--batch_size", str(SSL_CLI_BATCH), "--max_epochs", "1",
+              "--seed", "0"]
+    crop = ["--random_crop_size", *map(str, SSL_CLI_CROP)]
+    runs = {}
+    steps = SSL_CLI_CASES // SSL_CLI_BATCH
+    for tag, method, precision, extra in (
+            ("vicreg_f32", "vicreg", "32", crop),
+            ("vicreg_bf16", "vicreg", "bf16", crop),
+            ("byol_bf16", "byol", "bf16", crop + ["--ema"]),
+            ("ijepa_bf16", "ijepa", "bf16", [])):
+        args = ["ssl", "train", *common, "--ssl_method", method,
+                "--precision", precision, "--checkpoint_dir",
+                str(work / f"ckpt_{tag}"), "--metric_path",
+                str(work / f"metrics_{tag}.csv"), *extra]
+        runs[tag] = _ssl_cli_run(args, method, steps)
+    feats_path = work / "features.json"
+    runs["predict_folder_f32"] = _ssl_cli_run(
+        ["ssl", "predict_folder", "--checkpoint_dir",
+         str(work / "ckpt_vicreg_f32"), "--input_folder", str(folder),
+         "--output_path", str(feats_path), "--dev", "cuda"], "vicreg", 0)
+    meta = json.loads((work / "ckpt_vicreg_f32" / "ssl_vicreg_fold0" /
+                       "metadata.json").read_text())
+    if meta["ssl_method"] != "vicreg" or meta["transform_arguments"][
+            "crop_size"] != list(SSL_CLI_CROP):
+        raise AssertionError(f"ssl train wrote {meta}")
+    feats = json.loads(feats_path.read_text())
+    if len(feats) != SSL_CLI_CASES or not all(
+            len(v["features"]) == 512 and all(
+                abs(f) < float("inf") for f in v["features"])
+            for v in feats.values()):
+        raise AssertionError(f"predict_folder wrote {len(feats)} cases")
+    for tag, run in runs.items():
+        c = run["counts"]
+        if not (c == run["want"] and (c["conv3d_igemm"] > 0 or tag.startswith(
+                "ijepa")) and c["intensity_aug"] == 0):
+            raise AssertionError(f"ssl {tag} launches {c}, want "
+                                 f"{run['want']}")
+        run.pop("want")
+    for tag in ("vicreg_f32", "vicreg_bf16", "byol_bf16"):
+        c = runs[tag]["counts"]
+        route = "tf32" if tag.endswith("f32") else "wgmma"
+        if not (c["conv3d_igemm_dx"] > 0 and c[f"conv3d_igemm_{route}"] > 0
+                and c["conv3d_weight_grad"] + c["conv3d_weight_grad_patches"]
+                > 0):
+            raise AssertionError(f"ssl {tag} launches {c}")
+    log(f"[ssl cli] {smi}: " + "; ".join(
+        f"{tag} {r['seconds']:.2f} s under the profiler, device busy "
+        f"{r['device_busy_s']:.2f} s "
+        f"({100 * r['device_busy_s'] / r['wall_s']:.1f} %), peak "
+        f"{r['peak_memory_gb']:.2f} GB, launches {r['counts']}"
+        for tag, r in runs.items())
+        + f"; features of {len(feats)} cases, 512 each")
+    return dict(runs, metadata_keys=sorted(meta),
+                features_cases=len(feats))
+
+
+def _ssl_cli_run(args, method, steps):
+    """One CLI run (``_cli``) under ``_device_share`` with its K1 calls
+    recorded: seconds, device share, peak memory, counts and the
+    launches they should be."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import make_ssl_model
+
+    got = []
+    torch.cuda.reset_peak_memory_stats()
+    with _k1_calls() as rec:
+        busy, wall = _device_share(lambda: got.append(_cli(args)))
+    secs, _, counts = got[0]
+    flash = (_ijepa_flash_want(make_ssl_model(0, "ijepa", "cpu"), steps)
+             if method == "ijepa" else None)
+    return dict(seconds=secs, device_busy_s=busy, wall_s=wall,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                counts=counts, want=_ssl_want(rec, flash))
+
+
+def phase_ssl(smi):
+    """Phase 20: self-supervised pretraining on ``ssl-resnet.yaml`` (VICReg
+    and BYOL with its EMA teacher) and I-JEPA at full width, the served
+    representation, the SSL K1 classes and I-JEPA's attention shapes, and
+    the ``ssl`` CLIs."""
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(part):
+        now = time.perf_counter()
+        laps[part] = now - last[0]
+        last[0] = now
+
+    out = {}
+    log(f"[ssl] the two-view step's K1 classes at B={SSL_BATCH}")
+    out["convs"] = _catnet_conv_classes(SSL_CLASSES, seed=800)
+    lap("convs")
+    out["flash"] = _ssl_flash()
+    lap("flash")
+    out["two_view"] = _ssl_two_view(smi)
+    lap("two_view")
+    out["byol"] = _ssl_byol(smi)
+    lap("byol")
+    out["ijepa"] = _ssl_ijepa(smi)
+    lap("ijepa")
+    out["serving"] = _ssl_serving(smi)
+    lap("serving")
+    out["cli"] = _ssl_cli(smi)
+    lap("cli")
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = laps
+    log(f"[ssl] phase 20: {out['seconds']:.1f} s ({laps})")
+    return out
+
+
+
 def main():
     try:
         import torch
@@ -5349,6 +5989,8 @@ def main():
     lap(18)
     classifiers = phase_classifiers(smi)
     lap(19)
+    ssl = phase_ssl(smi)
+    lap(20)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -5437,6 +6079,21 @@ def main():
            for name, precision in (("catnet_convnext", "f32"),
                                    ("vgg", "bf16"))
            for what in ("train", "test", "predict")},
+        # phase 20: VICReg (3 steps each) and I-JEPA (3 steps each) at B=28
+        # in bf16 and f32, a BYOL step in each, the served representation
+        # (bf16, f32), and the ssl CLIs
+        "ssl_vicreg_training": ssl["two_view"]["bf16"]["launches"],
+        "ssl_vicreg_training_f32": ssl["two_view"]["32"]["launches"],
+        "ssl_byol_step": ssl["byol"]["bf16"]["launches"],
+        "ssl_byol_step_f32": ssl["byol"]["32"]["launches"],
+        "ssl_ijepa_training": ssl["ijepa"]["bf16"]["launches"],
+        "ssl_ijepa_training_f32": ssl["ijepa"]["32"]["launches"],
+        "ssl_serving": ssl["serving"]["bf16"]["launches"],
+        "ssl_serving_f32": ssl["serving"]["32"]["launches"],
+        **{f"ssl_train_{tag}": ssl["cli"][tag]["counts"]
+           for tag in ("vicreg_f32", "vicreg_bf16", "byol_bf16",
+                       "ijepa_bf16")},
+        "ssl_predict_folder_f32": ssl["cli"]["predict_folder_f32"]["counts"],
     }
 
     def launches_of(name):
@@ -5462,7 +6119,8 @@ def main():
               "resnet U-Net served cases, steps and CLI runs and the other "
               "U-Net options' steps and served cases, phase 19's VGG and "
               "ConvNeXt CatNet forwards, steps and clinical-feature CLI "
-              "runs, every route",
+              "runs, phase 20's VICReg, BYOL and served SSL forwards and "
+              "steps and the ssl CLIs, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -5550,6 +6208,24 @@ def main():
                               for r in rows),
             "bound_ms": sum(r["dx_bound_ms"] * r["count"] for r in rows)}
         for d, rows in vgg_rows.items()}
+    # phase 20: the two-view step's 7 K1 convs of a B=28 forward, dx and
+    # dW, per precision (wgmma in bf16, tf32 in f32; dW: bf16 wgrad at
+    # 64/128/256, the patch product at 512 and in f32)
+    ssl_rows = {d: [r for r in ssl["convs"] if r["dtype"] == d]
+                for d in ("bfloat16", "float32")}
+    kernels[0]["ssl_step_forward"] = {
+        d: sum_rows(rows) for d, rows in ssl_rows.items()}
+    kernels[0]["ssl_stem_64"] = {
+        d: {k: rows[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "max_abs_err", "tol")}
+        for d, rows in ssl_rows.items()}
+    kernels[1]["ssl_step_dx"] = {
+        d: {"convs": sum(r["count"] for r in rows),
+            "ms": sum(r["dx_ms"] * r["count"] for r in rows),
+            "library_ms": sum(r["dx_library_ms"] * r["count"]
+                              for r in rows),
+            "bound_ms": sum(r["dx_bound_ms"] * r["count"] for r in rows)}
+        for d, rows in ssl_rows.items()}
     # phase 18: the resnet U-Net's K1 convs of one window batch of 4
     kernels[0]["resnet_window_batch"] = {
         d: options["convs"][d]["totals"] for d in ("bfloat16", "float32")}
@@ -5600,6 +6276,8 @@ def main():
         d: dw_totals(rows) for d, rows in catnet_rows.items()}
     kernels[-1]["vgg_step_dw"] = {
         d: dw_totals(rows) for d, rows in vgg_rows.items()}
+    kernels[-1]["ssl_step_dw"] = {
+        d: dw_totals(rows) for d, rows in ssl_rows.items()}
     # f32 dW of a U-Net step (all 31 on the patch product), beside cuDNN's
     # f32 weight gradient (TF32 off) and the 3xTF32 and FMA bounds
     kernels[-1]["f32_step_dw"] = {
@@ -5642,7 +6320,8 @@ def main():
     # the f32 attention kernels (3xTF32 wgmma, each after its preparation
     # kernel), on UNETR's f32 paths: the forward on the served case and the
     # step (B=1), dQ and dK/dV on the step
-    f32_paths = ("unetr_serving_f32", "unetr_training_f32")
+    f32_paths = ("unetr_serving_f32", "unetr_training_f32",
+                 "ssl_ijepa_training_f32")
     att32 = attention["float32"]
     for name, what, b, lines in (
             ("fwd", "forward", 1, ":49 and :151"), ("bwd_dq", "dQ", 2, ":300"),
@@ -5672,6 +6351,25 @@ def main():
         for path in f32_paths:
             k["launches_by_path"].pop(path, None)
         k["launches"] = sum(k["launches_by_path"].values())
+    # phase 20: each attention kernel at I-JEPA's shapes ([28,4,8192,48]
+    # and [28,4,8192,24] on the D=64 and D=32 kernels), by dtype
+    flash_kernels = {k["name"]: k for k in kernels
+                     if k["name"].startswith("flash_attention_")}
+    for row in ssl["flash"]:
+        for stem in ("fwd", "bwd_dq", "bwd_dkv"):
+            name = f"flash_attention_{stem}" + (
+                "" if row["dtype"] == "bfloat16" else "_f32")
+            flash_kernels[name].setdefault("ijepa_shapes", []).append(dict(
+                shape=[row["batch"], row["heads"], row["tokens"], row["d"]],
+                padded_d=row["padded_d"], ms=row["ms"][stem],
+                bound_ms=row["bound_ms"][stem],
+                bound_by=row["bound_by"][stem],
+                library_ms=(row["library_fwd_ms"] if stem == "fwd"
+                            else row["library_fwd_bwd_ms"]),
+                library_bwd_ms=row["library_bwd_ms"],
+                max_abs_err=(row["errs"]["out"] if stem == "fwd" else
+                             row["errs"]["dq"] if stem == "bwd_dq" else
+                             max(row["errs"]["dk"], row["errs"]["dv"]))))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, build_s=build_s,
@@ -5686,7 +6384,7 @@ def main():
         unetr_training=unetr_training, unetr_cli=unetr_cli,
         flagship_pipeline=pipeline, full_augmentation=augmentation,
         swin=swin, catnet=catnet, unet_options=options,
-        classifiers=classifiers,
+        classifiers=classifiers, ssl=ssl,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,
@@ -5696,7 +6394,7 @@ def main():
     print(json.dumps({
         "ok": True,
         "device": {
-            "platform": "gpu", "kind": kind,
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
         },
     }))

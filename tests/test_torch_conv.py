@@ -156,8 +156,8 @@ def test_weight_grad_sums_bf16_in_f32(monkeypatch, reduced):
                         reduced)
     monkeypatch.setattr(torch, "matmul", spy)
     x, _, _ = _inputs(10, (1, 4, 4, 4, 2), 3)
-    g = torch.ones((1, 4, 4, 4, 3))
-    dw = kconv.conv3d_weight_grad(torch.from_numpy(x), g)
+    g = torch.ones((1, 4, 4, 4, 3), dtype=torch.bfloat16)
+    dw = kconv.conv3d_weight_grad(torch.from_numpy(x).bfloat16(), g)
     assert dw.shape == (3, 3, 3, 2, 3)
     assert seen == [False]
     assert matmul.allow_bf16_reduced_precision_reduction is reduced
@@ -1173,6 +1173,97 @@ def test_wgrad_emulation_matches_reference_and_jax_bf16(x_shape, cout):
     jax_want = _jax_dw(xb.float().numpy(), gb.float().numpy(), jnp.bfloat16)
     for ref in (want, jax_want):
         assert np.abs(got - ref).max() <= 2.0**-7 * np.abs(ref).max()
+
+
+# the patch route's chunks: (x shape, Cout, budget in patch elements of
+# one D-plane of one sample, the split it forces)
+PATCH_CHUNK_CASES = [
+    ((8, 4, 5, 6, 8), 16, 2 * 4, "samples"),   # two samples a chunk
+    ((2, 5, 4, 3, 16), 8, 2, "slabs"),          # two planes a chunk
+    ((1, 7, 3, 4, 4), 8, 2, "slabs"),           # 2 + 2 + 2 + 1 planes
+    ((2, 3, 4, 5, 8), 8, 10 ** 6, "whole"),
+]
+
+
+def _plane_bytes(shape, dtype):
+    """A chunked product's bytes for one D-plane of one sample (the bf16
+    whole batch's one product takes a third of that, having no f32
+    copy: the cases' budgets are below it)."""
+    return shape[2] * shape[3] * 27 * shape[4] * kconv._patch_bytes(dtype)
+
+
+def _within_one_ulp(a, b, scale):
+    """bf16 ``a`` and ``b``, each the rounding of f32 sums that differ by
+    at most 1e-6 of ``scale``: one bf16 ulp (2^-7 of the power of two at
+    or below the larger) apart, plus that difference."""
+    m = np.maximum(np.abs(a), np.abs(b))
+    ulp = 2.0 ** (np.floor(np.log2(np.where(m > 0, m, 1.0))) - 7)
+    return bool((np.abs(a - b) <= ulp + 1e-6 * scale).all())
+
+
+@pytest.mark.parametrize("x_shape,cout,planes,split", PATCH_CHUNK_CASES,
+                         ids=[c[3] + str(c[0]) for c in PATCH_CHUNK_CASES])
+def test_patch_chunks_cover_the_batch_within_the_budget(x_shape, cout,
+                                                        planes, split):
+    """Each (sample, plane) is in exactly one chunk; a chunk's patch
+    tensor fits the budget; whole samples where one fits, else slabs of
+    planes of one sample."""
+    for dtype in (torch.float32, torch.bfloat16):
+        budget = planes * _plane_bytes(x_shape, dtype)
+        chunks = kconv.patch_chunks(x_shape, dtype, budget)
+        b, d = x_shape[:2]
+        seen = np.zeros((b, d), int)
+        for b0, b1, z0, z1 in chunks:
+            seen[b0:b1, z0:z1] += 1
+            assert (b1 - b0) * (z1 - z0) * _plane_bytes(
+                x_shape, dtype) <= budget
+            if split == "slabs":
+                assert b1 - b0 == 1
+            else:
+                assert (z0, z1) == (0, d)
+        assert (seen == 1).all()
+        assert (len(chunks) == 1) == (split == "whole")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("x_shape,cout,planes,split", PATCH_CHUNK_CASES,
+                         ids=[c[3] + str(c[0]) for c in PATCH_CHUNK_CASES])
+def test_chunked_patch_product_matches_single_product(x_shape, cout, planes,
+                                                      split, dtype):
+    """The f32 sums of the chunked product (by samples, or by slabs of
+    planes cut with their halo) against the whole batch's, within 1e-6
+    relative; the rounded dW against the JAX VJP's (f32 1e-5 of the
+    scale, bf16 one bf16 ulp 2^-7, as the emulation tests hold them) and
+    against the plain version at the default budget: in f32 the one
+    chunk within 1e-6, in bf16 the single bf16 product (f32 sums in the
+    library, rounded once) within one bf16 ulp of each element plus
+    1e-6 of the scale."""
+    x, g = (torch.from_numpy(a).to(dtype)
+            for a in _wgrad_inputs(23, x_shape, cout))
+    budget = planes * _plane_bytes(x_shape, dtype)
+    chunks = kconv.patch_chunks(x_shape, dtype, budget)
+    whole = [(0, x_shape[0], 0, x_shape[1])]
+    got = kconv.patch_sums(x, g, chunks)
+    want = kconv.patch_sums(x, g, whole)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    dw = kconv.conv3d_weight_grad_reference(x, g, budget=budget)
+    assert dw.dtype == dtype and dw.shape == (3, 3, 3, x_shape[-1], cout)
+    jax_want = _jax_dw(x.float().numpy(), g.float().numpy(),
+                       jnp.float32 if dtype == torch.float32
+                       else jnp.bfloat16)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert np.abs(dw.float().numpy() - jax_want).max() <= tol * np.abs(
+        jax_want).max()
+    single = kconv.conv3d_weight_grad_reference(x, g)
+    assert single.dtype == dtype
+    scale = float(single.float().abs().max())
+    if dtype == torch.float32:
+        assert float((dw - single).abs().max()) <= 1e-6 * scale
+    else:
+        assert _within_one_ulp(dw.float().numpy(), single.float().numpy(),
+                               scale)
 
 
 def test_weight_grad_takes_plain_path_on_cpu():
