@@ -5,19 +5,20 @@ Counterpart of ``get_segmentation_network``,
 ``get_classification_network`` and ``get_ssl_network`` in
 ``adell_mri_tpu/config/factories.py``,
 for the segmentation ``net_type`` "unet", "unetr", "monai_unetr", "swin"
-and "monai_swin" and the classification ``net_type`` "vgg", "cat",
-"resnet" and "convnext" (CatNet), "convnext_backbone" and "convnext_v2"
-(the standalone ConvNeXt), each wrapped in a ``HybridClassifier`` when
-clinical features are given, and the self-supervised ``ssl_method``
-"ijepa" and the two-view methods (``SSL_TWO_VIEW``); the same config
-keys, fallbacks and
-defaults reach the port's ``UNet``, ``UNETR``, ``SWINUNet``, ``VGG``,
-``CatNet`` and ``ConvNeXt``, which raise for the options they do not serve
-yet. A flax module learns its input size and channels at the first call;
-the port's UNETR needs the size when it is built (``image_size``), UNETR
-and SWIN-UNet need ``n_channels`` from the config, the classifiers and
-the self-supervised networks their ``in_channels`` (one per image key),
-and I-JEPA its ``image_size``.
+and "monai_swin", every classification ``net_type`` of the JAX CLI
+(``CLASSIFICATION_NET_TYPES``), each wrapped in a ``HybridClassifier``
+when clinical features are given, and the self-supervised
+``ssl_method`` "ijepa" and the two-view methods (``SSL_TWO_VIEW``); the
+same config keys, fallbacks and defaults reach the port's ``UNet``,
+``UNETR``, ``SWINUNet``, ``VGG``, ``CatNet``, ``ConvNeXt``, ``OrdNet``,
+``UNetEncoderClassifier``, ``ViTClassifier`` and
+``FactorizedViTClassifier``, which raise for the options they do not
+serve yet. A flax module learns its input size and channels at the first
+call; the port's UNETR, the two ViT classifiers and I-JEPA need the size
+when they are built (``image_size``: the learnt positional embedding
+fixes the token count), UNETR and SWIN-UNet need ``n_channels`` from the
+config, the classifiers and the self-supervised networks their
+``in_channels`` (one per image key).
 """
 
 from typing import Any, Dict, Optional, Sequence
@@ -25,8 +26,13 @@ from typing import Any, Dict, Optional, Sequence
 from adell_mri_torch.models.classification.nets import (
     VGG,
     CatNet,
+    FactorizedViTClassifier,
     HybridClassifier,
+    OrdNet,
+    UNetEncoderClassifier,
+    ViTClassifier,
 )
+from adell_mri_torch.models.layers.adn import get_adn_fn
 from adell_mri_torch.models.layers.conv_next import ConvNeXt
 from adell_mri_torch.models.segmentation.unet import UNet
 from adell_mri_torch.models.segmentation.unetr import UNETR, SWINUNet
@@ -155,8 +161,12 @@ def get_segmentation_network(
     )
 
 
-CLASSIFICATION_NET_TYPES = ("vgg", "cat", "resnet", "convnext",
+#: every choice of the JAX CLI's ``--classification_net_type``
+CLASSIFICATION_NET_TYPES = ("cat", "ord", "vgg", "vit", "factorized_vit",
+                            "unet", "resnet", "convnext",
                             "convnext_backbone", "convnext_v2")
+#: the net types built for one input size
+SIZED_NET_TYPES = ("vit", "factorized_vit")
 
 
 def _structure(cfg, default):
@@ -170,6 +180,7 @@ def get_classification_network(
     in_channels: int = 1,
     clinical_feature_means: Optional[Sequence[float]] = None,
     clinical_feature_stds: Optional[Sequence[float]] = None,
+    image_size: Optional[Sequence[int]] = None,
 ):
     """The JAX factory's networks, keys and defaults: ``vgg`` (VGG:
     ``first_depth`` 16, ``n_blocks`` 4, ``norm_type`` "batch"); ``cat``,
@@ -180,15 +191,34 @@ def get_classification_network(
     ``classification_structure``, ``gaussian_process``, which raises);
     ``convnext_backbone`` and ``convnext_v2`` (ConvNeXt: ``resnet_structure``
     ((64, 64, 7, 2), (128, 128, 7, 2)), ``first_layer_stride`` 4,
-    ``maxpool_structure``, ``downsample`` "conv"). With
-    ``clinical_feature_means`` (and ``clinical_feature_stds``) the network
-    is built headless inside a ``HybridClassifier`` over that many
-    tabular features."""
+    ``maxpool_structure``, ``downsample`` "conv"); ``ord`` (OrdNet:
+    ``resnet_structure``, ``norm_type`` "batch", ``dropout_param``; no
+    ``maxpool_structure``, ``res_type``, batch ensembles or ``act_fn``
+    reach it, so relu); ``vit`` (ViTClassifier: ``patch_size`` (4, 4, 4),
+    ``embed_dim`` | ``attention_dim`` | ``embedding_size`` 256,
+    ``mlp_structure`` exactly as given, else ``mlp_ratio`` 4,
+    ``n_blocks`` | ``number_of_blocks`` 4, ``n_heads`` |
+    ``number_of_attention_heads`` 4, ``dropout_param`` | ``dropout_rate``
+    0, ``use_class_token`` True, ``use_seq_pool``, ``moe_experts`` (which
+    raises), ``embed_method`` "linear", ``embed_norm``);
+    ``factorized_vit`` (``patch_size`` (4, 4), ``embed_dim`` |
+    ``embedding_size`` 256, ``n_blocks`` 4, ``n_heads`` 4,
+    ``dropout_param`` | ``dropout_rate``); ``unet`` (the U-Net of the
+    segmentation factory's keys, ``encoder_only``, under a head of
+    ``(depth[-1],) * 3`` with a 1-d ADN of ``norm_fn`` "batch", gelu and
+    ``dropout_param``). The two ViT classifiers are built for
+    ``image_size``. With ``clinical_feature_means`` (and
+    ``clinical_feature_stds``) the network is built headless inside a
+    ``HybridClassifier`` over that many tabular features."""
     if net_type not in CLASSIFICATION_NET_TYPES:
         raise NotImplementedError(
             f"classification net_type {net_type!r} is not ported yet (the "
             f"port has {', '.join(map(repr, CLASSIFICATION_NET_TYPES))})"
         )
+    if net_type in SIZED_NET_TYPES and image_size is None:
+        raise ValueError(
+            f"net_type {net_type!r} needs image_size: its positional "
+            "embedding fixes the token count")
     cfg = dict(network_config)
     headless = clinical_feature_means is not None
     sd = cfg.get("spatial_dimensions", 3)
@@ -211,6 +241,64 @@ def get_classification_network(
             maxpool_structure=cfg.get("maxpool_structure"),
             v2=net_type == "convnext_v2",
             downsample=cfg.get("downsample", "conv"),
+            feature_extraction=headless,
+        )
+    elif net_type == "ord":
+        net = OrdNet(
+            in_channels=in_channels,
+            spatial_dimensions=sd,
+            n_classes=n_classes,
+            resnet_structure=_structure(
+                cfg, ((64, 128, 5, 2), (128, 256, 3, 5))),
+            norm_type=cfg.get("norm_type", "batch"),
+            dropout_param=cfg.get("dropout_param", 0.0),
+            feature_extraction=headless,
+        )
+    elif net_type == "vit":
+        mlp = cfg.get("mlp_structure")
+        net = ViTClassifier(
+            in_channels=in_channels,
+            image_size=tuple(image_size),
+            patch_size=tuple(cfg.get("patch_size", (4, 4, 4))),
+            n_classes=n_classes,
+            embed_dim=cfg.get("embed_dim", cfg.get(
+                "attention_dim", cfg.get("embedding_size", 256))),
+            mlp_structure=tuple(mlp) if mlp else None,
+            mlp_ratio=cfg.get("mlp_ratio", 4.0),
+            n_blocks=cfg.get("n_blocks", cfg.get("number_of_blocks", 4)),
+            n_heads=cfg.get("n_heads",
+                            cfg.get("number_of_attention_heads", 4)),
+            dropout_param=cfg.get("dropout_param",
+                                  cfg.get("dropout_rate", 0.0)),
+            use_class_token=cfg.get("use_class_token", True),
+            use_seq_pool=cfg.get("use_seq_pool", False),
+            moe_experts=cfg.get("moe_experts", 0),
+            embed_method=cfg.get("embed_method", "linear"),
+            embed_norm=bool(cfg.get("embed_norm", False)),
+            feature_extraction=headless,
+        )
+    elif net_type == "factorized_vit":
+        net = FactorizedViTClassifier(
+            in_channels=in_channels,
+            image_size=tuple(image_size),
+            patch_size=tuple(cfg.get("patch_size", (4, 4))),
+            n_classes=n_classes,
+            embed_dim=cfg.get("embed_dim", cfg.get("embedding_size", 256)),
+            n_blocks=cfg.get("n_blocks", 4),
+            n_heads=cfg.get("n_heads", 4),
+            dropout_param=cfg.get("dropout_param",
+                                  cfg.get("dropout_rate", 0.0)),
+            feature_extraction=headless,
+        )
+    elif net_type == "unet":
+        kwargs = {**_unet_kwargs(cfg, n_classes), "in_channels": in_channels}
+        last = kwargs["depth"][-1]
+        net = UNetEncoderClassifier(
+            UNet(**kwargs, encoder_only=True), last, n_classes=n_classes,
+            head_structure=(last,) * 3,
+            head_adn_fn=get_adn_fn(cfg.get("norm_fn", "batch"), "gelu",
+                                   cfg.get("dropout_param", 0.0),
+                                   spatial_dim=1),
             feature_extraction=headless,
         )
     else:

@@ -241,8 +241,10 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     "clinical_feature_keys": dict(
         default=None, nargs="+", help="not ported yet"
     ),
-    "image_masking": dict(action="store_true", help="not ported yet"),
-    "image_crop_from_mask": dict(action="store_true", help="not ported yet"),
+    "image_masking": dict(action="store_true",
+                          help="Mask image with mask key"),
+    "image_crop_from_mask": dict(
+        action="store_true", help="Crop image from mask bounding box"),
     "calibration_ids": dict(default=None, nargs="+", help="not ported yet"),
     "conformal_alpha": dict(default=0.2, type=float, help="not ported yet"),
     "one_to_one": dict(action="store_true", help="not ported yet"),

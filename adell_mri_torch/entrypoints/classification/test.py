@@ -5,8 +5,9 @@ Counterpart of ``adell_mri_tpu/entrypoints/classification/test.py``: the
 network (running statistics included) and the transforms are rebuilt
 from the checkpoint (``predict.load_classifier``), each test case runs
 through one forward in eval mode, and ``binary_metrics`` (the sigmoid of
-the one logit) or ``multiclass_metrics`` (the softmax) of the cases'
-probabilities against their mapped labels, with ``n_cases``, go to the
+the one logit) or ``multiclass_metrics`` (the softmax, or OrdNet's class
+probabilities from its cumulative logits) of the cases' probabilities
+against their mapped labels, with ``n_cases``, go to the
 metric CSV and to one JSON line on standard output, with ``iteration``
 and ``checkpoint`` (the fold directory). Each ``--test_ids`` entry is a
 group of IDs (a file or a comma-separated list): one group (or none:
@@ -19,15 +20,16 @@ checkpoint trained with clinical features feeds each case's
 import json
 
 import numpy as np
-import torch
 
 from adell_mri_torch.data import Dataset
 from adell_mri_torch.data.dataset import parse_ids
 from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
 from adell_mri_torch.entrypoints.classification.predict import (
+    class_probabilities,
     forward,
     load_classifier,
+    net_type_of,
 )
 from adell_mri_torch.eval.metrics import binary_metrics, multiclass_metrics
 from adell_mri_torch.train.logging_utils import MetricLogger
@@ -56,6 +58,7 @@ def main(arguments):
     device = use_device(args.dev)
     clf = load_classifier(args, device)
     n_classes = clf.metadata.get("n_classes", args.n_classes)
+    net_type = net_type_of(args, clf.metadata)
     load_fn = clf.transforms.load_fn()
 
     data = Dataset(args.dataset_json)
@@ -68,9 +71,8 @@ def main(arguments):
         probs, targets = [], []
         for pid in group:
             sample = load_fn({**data[pid], "identifier": pid})
-            logits = forward(clf, sample, device)
-            probs.append(float(torch.sigmoid(logits[0])) if n_classes == 2
-                         else torch.softmax(logits, -1).numpy())
+            probs.append(class_probabilities(
+                forward(clf, sample, device), n_classes, net_type))
             targets.append(float(sample["label"]))
         metric_fn = binary_metrics if n_classes == 2 else multiclass_metrics
         results = metric_fn(np.asarray(probs), np.asarray(targets))

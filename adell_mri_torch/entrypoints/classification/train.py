@@ -8,11 +8,17 @@ loaders -> network -> optimizer and schedule -> fit], with a checkpoint
 directory per fold whose ``metadata.json`` lets ``classification test``
 and ``predict`` rebuild the model and the transforms.
 
-Ported: VGG (``--classification_net_type vgg``), CatNet with every
-``res_type`` (``cat``, ``resnet`` or ``convnext``; batch norm, whose
-running statistics the state carries and the checkpoints keep, and batch
-ensembles), the standalone ConvNeXt (``convnext_backbone``,
-``convnext_v2``), ``--clinical_feature_keys`` (the network headless in a
+Ported: every ``--classification_net_type``: VGG (``vgg``), CatNet
+with every ``res_type`` (``cat``, ``resnet`` or ``convnext``; batch norm,
+whose running statistics the state carries and the checkpoints keep, and
+batch ensembles), the standalone ConvNeXt (``convnext_backbone``,
+``convnext_v2``), OrdNet (``ord``: the ordinal sigmoidal loss over its
+cumulative logits, the callback's class probabilities from them), the
+U-Net encoder classifier (``unet``: the config's U-Net keys) and the two
+ViT classifiers (``vit``, ``factorized_vit``: built for the size the
+model sees, the random crop's or the base size); ``--mask_keys`` with
+``--image_masking`` and ``--image_crop_from_mask``;
+``--clinical_feature_keys`` (the network headless in a
 ``HybridClassifier``, the features standardised by their mean and
 standard deviation over the dataset, which ``metadata.json`` keeps; the
 step applies the parameters alone, as the JAX CLI's does with features:
@@ -39,10 +45,7 @@ import logging
 import numpy as np
 import torch
 
-from adell_mri_torch.config.factories import (
-    CLASSIFICATION_NET_TYPES,
-    get_classification_network,
-)
+from adell_mri_torch.config.factories import get_classification_network
 from adell_mri_torch.config.parsing import parse_config_cat
 from adell_mri_torch.data.dataset import Dataset
 from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
@@ -64,6 +67,7 @@ from adell_mri_torch.eval.callbacks import ClassificationMetricsCallback
 from adell_mri_torch.models.classification.losses import (
     binary_logistic_loss,
     cross_entropy_loss,
+    ordinal_sigmoidal_loss,
 )
 from adell_mri_torch.models.layers.adn import batch_statistics_mode
 from adell_mri_torch.models.layers.dropout import seed_dropout
@@ -160,11 +164,11 @@ ARG_KEYS = [
     "swa",
     "steps_per_epoch",
     "clinical_feature_keys",
-]
-UNPORTED_KEYS = [
     "mask_keys",
     "image_masking",
     "image_crop_from_mask",
+]
+UNPORTED_KEYS = [
     "resize_size",
     "accumulate_grad_batches",
     "logger_type",
@@ -204,11 +208,6 @@ def main(arguments):
     args = parser.parse_args(arguments)
     parser.reject_unported(args, UNPORTED_KEYS)
     net_type = args.classification_net_type
-    if net_type not in CLASSIFICATION_NET_TYPES:
-        raise NotImplementedError(
-            f"--classification_net_type {net_type} is not ported yet (the "
-            f"port has {', '.join(CLASSIFICATION_NET_TYPES)})"
-        )
     device = use_device(args.dev)
     compute_dtype(args.precision)  # an unknown precision fails here
     label_key = args.label_keys
@@ -260,7 +259,14 @@ def main(arguments):
 
     n_classes = derive_n_classes(args)
     labels_args = label_arguments(args, n_classes)
-    if n_classes > 2:
+    mask_args = dict(mask_key=(args.mask_keys or [None])[0],
+                     image_masking=bool(args.image_masking),
+                     image_crop_from_mask=bool(args.image_crop_from_mask))
+    if net_type == "ord":
+
+        def loss_fn(logits, y):
+            return ordinal_sigmoidal_loss(logits, y, n_classes)
+    elif n_classes > 2:
         weights = (np.asarray(args.class_weights, np.float32)
                    if args.class_weights else None)
 
@@ -305,6 +311,7 @@ def main(arguments):
             seed=args.seed + fold_idx,
             clinical_feature_keys=feat_keys,
             **labels_args,
+            **mask_args,
         )
         load_fn = transforms.load_fn()
         train_list = data.to_datalist(train_pids)
@@ -334,6 +341,7 @@ def main(arguments):
             in_channels=len(args.image_keys),
             clinical_feature_means=feat_means,
             clinical_feature_stds=feat_stds,
+            image_size=crop_size or base_size,
         ).to(device)
         seed_dropout(
             model,
@@ -379,9 +387,7 @@ def main(arguments):
                     "clinical_feature_keys": feat_keys,
                     **labels_args,
                     "adc_keys": list(args.adc_keys or ()),
-                    "mask_key": None,
-                    "image_masking": False,
-                    "image_crop_from_mask": False,
+                    **mask_args,
                 },
                 "train_pids": train_pids,
                 "val_pids": val_pids,
@@ -423,7 +429,8 @@ def main(arguments):
             eval_on_ema=args.swa,
             callbacks=[ClassificationMetricsCallback(
                 model, n_classes,
-                feature_key="features" if feat_keys else None)],
+                feature_key="features" if feat_keys else None,
+                ordinal=net_type == "ord")],
             steps_per_epoch=args.steps_per_epoch,
         )
         start_epoch = 0

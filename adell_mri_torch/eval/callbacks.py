@@ -8,6 +8,8 @@ the foreground probability maps on the host, and the epoch's end computes
 the PI-CAI metrics over them (V_AP, V_AUC, V_score). The classification
 callback: a forward of its own keeps each case's probabilities, and the
 epoch's end computes ``binary_metrics`` or ``multiclass_metrics`` (V_*).
+An ordinal network's cumulative-threshold logits become class
+probabilities through ``ordinal_to_class_probs``.
 """
 
 from typing import Callable, Dict, Optional
@@ -17,6 +19,9 @@ import torch
 
 from adell_mri_torch.eval.lesion import evaluate
 from adell_mri_torch.eval.metrics import binary_metrics, multiclass_metrics
+from adell_mri_torch.models.classification.losses import (
+    ordinal_to_class_probs,
+)
 from adell_mri_torch.models.layers.adn import batch_statistics_mode
 
 
@@ -86,14 +91,18 @@ class ClassificationMetricsCallback:
     the JAX callback's forward with the parameters alone does; at most
     ``max_cases`` cases are kept. ``feature_key``: the batch key of the
     model's second input (a ``HybridClassifier``'s tabular features).
-    ``on_validation_end`` returns the finite metrics, ``V_``-prefixed."""
+    ``ordinal``: the model emits ``n_classes - 1`` cumulative-threshold
+    logits (OrdNet), whose class probabilities take the multiclass
+    metrics, two classes too. ``on_validation_end`` returns the finite
+    metrics, ``V_``-prefixed."""
 
     def __init__(self, model, n_classes: int = 2, max_cases: int = 4096,
-                 feature_key: Optional[str] = None):
+                 feature_key: Optional[str] = None, ordinal: bool = False):
         self.model = model
         self.n_classes = n_classes
         self.max_cases = max_cases
         self.feature_key = feature_key
+        self.ordinal = ordinal
         self._probs = []
         self._labels = []
 
@@ -107,8 +116,12 @@ class ClassificationMetricsCallback:
         with torch.no_grad(), batch_statistics_mode(self.model):
             logits = torch.func.functional_call(self.model, params,
                                                 inputs).float()
-        probs = (torch.softmax(logits, -1) if self.n_classes > 2
-                 else torch.sigmoid(logits[..., 0]))
+        if self.ordinal:
+            probs = ordinal_to_class_probs(logits)
+        elif self.n_classes > 2:
+            probs = torch.softmax(logits, -1)
+        else:
+            probs = torch.sigmoid(logits[..., 0])
         probs = probs.cpu().numpy()
         labels = batch["label"].float().cpu().numpy().reshape(-1)
         for i in range(probs.shape[0]):
@@ -122,7 +135,8 @@ class ClassificationMetricsCallback:
             return None
         probs, labels = np.stack(self._probs), np.asarray(self._labels)
         self._probs, self._labels = [], []
-        m = (multiclass_metrics(probs, labels) if self.n_classes > 2
+        m = (multiclass_metrics(probs, labels)
+             if self.n_classes > 2 or self.ordinal
              else binary_metrics(probs, labels))
         return {f"V_{k}": float(v) for k, v in m.items()
                 if np.isfinite(v)} or None

@@ -1,7 +1,8 @@
 """
 Moves a JAX UNet's, UNETR's, SWINUNet's, CatNet's, VGG's, ConvNeXt's,
-HybridClassifier's, NonContrastiveWrapper's or IJEPA's parameters (and
-their ``batch_stats``) into the port.
+OrdNet's, UNetEncoderClassifier's, ViTClassifier's,
+FactorizedViTClassifier's, HybridClassifier's, NonContrastiveWrapper's or
+IJEPA's parameters (and their ``batch_stats``) into the port.
 
 The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
 ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
@@ -16,6 +17,12 @@ CatNet's ``ResNetBackbone_0/{Conv_0,Conv_1,ResidualBlock_{i}
 ConvNeXt's ``backbone/{stem_conv,stem_norm,down_norm_{s},down_conv_{s},
 stage{s}_block{b}}``, ``head_norm`` and ``head``; HybridClassifier's
 ``convolutional_module`` (the headless network) and ``Dense_0/1``;
+OrdNet's ``ResNetBackbone_0``, ``Dense_0``, the bias-free ``Dense_1``,
+``threshold_bias`` and ``threshold_bias_scale``; UNetEncoderClassifier's
+``unet`` (the encoder alone: ``enc_{i}``, ``enc_ds_{i}``) and ``MLP_0``;
+the ViT classifiers' ``ViT_0/{LinearEmbedding_0,TransformerBlockStack_0}``
+or ``FactorizedViT_0/{LinearEmbedding_0,within_slice,between_slice,
+slice_class_token}``, ``SeqPool_0`` and ``MLP_0``;
 NonContrastiveWrapper's ``backbone`` (CatNet with ``feature_extraction``),
 ``proj_{i}``, ``proj_norm`` and ``pred_{i}``; IJEPA's ``embed``,
 ``ctx_mask_token``, ``context_encoder``, ``ctx2pred``, ``predictor``,
@@ -24,7 +31,8 @@ each flax leaf ``a/b/kernel`` becomes the port
 key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
 batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token
 parameters (``pos_embedding``, ``class_token``, ``registers``,
-``ctx_mask_token``) and a batch
+``ctx_mask_token``, ``slice_class_token``), OrdNet's thresholds and a
+batch
 ensemble's ``r`` and ``s`` keep their names; the ``batch_stats``
 collection's ``a/b/mean`` and ``a/b/var`` become the batch norms'
 buffers ``a.b.mean`` and ``a.b.var``. Only the layouts change:
@@ -69,9 +77,10 @@ def _flatten(tree: Mapping, prefix=()):
 # the modules that are transposed convs, by the name that owns the kernel
 _TRANSPOSED = re.compile(r"^(up_\d+|proj_\d+_\d+|ConvTranspose_\d+)$")
 # leaves that keep their names: the token parameters, a batch ensemble's,
-# a prelu ADN's slope, GRN's gamma, LayerScale's scale
+# a prelu ADN's slope, GRN's gamma, LayerScale's scale, OrdNet's thresholds
 _KEPT_NAMES = ("pos_embedding", "class_token", "registers", "r", "s",
-               "prelu", "gamma", "layer_scale", "ctx_mask_token")
+               "prelu", "gamma", "layer_scale", "ctx_mask_token",
+               "slice_class_token", "threshold_bias", "threshold_bias_scale")
 
 
 def _convert_kernel(path, k: np.ndarray) -> np.ndarray:

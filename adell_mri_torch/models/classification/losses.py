@@ -1,7 +1,9 @@
 """
 Classification losses.
 
-Counterpart of ``binary_logistic_loss`` and ``cross_entropy_loss`` in
+Counterpart of ``binary_logistic_loss``, ``cross_entropy_loss``,
+``ordinal_sigmoidal_loss``, ``ordinal_prediction_to_class`` and
+``ordinal_to_class_probs`` in
 ``adell_mri_tpu/models/classification/losses.py``.
 """
 
@@ -42,3 +44,38 @@ def cross_entropy_loss(logits, labels, weight=None,
         w = torch.as_tensor(weight, dtype=oh.dtype, device=oh.device)
         per = per * (oh * w).sum(-1)
     return per.mean()
+
+
+def ordinal_sigmoidal_loss(logits, labels, n_classes: int, weight=None):
+    """Binary cross entropy of the cumulative-threshold logits [B, n-1]
+    against the target ``k``'s thresholds (the first ``k`` positive),
+    summed over the thresholds and averaged over the batch; ``weight``
+    [n] weighs each sample by its class."""
+    k = labels.long()
+    thresholds = torch.arange(n_classes - 1, device=logits.device)
+    target = (thresholds[None, :] < k[:, None]).to(logits.dtype)
+    per = F.binary_cross_entropy_with_logits(logits, target,
+                                             reduction="none")
+    if weight is not None:
+        w = torch.as_tensor(weight, dtype=per.dtype, device=per.device)
+        per = per * w[k][:, None]
+    return per.sum(-1).mean()
+
+
+def ordinal_prediction_to_class(logits):
+    """The predicted class: the number of thresholds whose sigmoid is
+    above 0.5."""
+    return (torch.sigmoid(logits) > 0.5).sum(-1)
+
+
+def ordinal_to_class_probs(logits):
+    """Cumulative-threshold logits [..., n-1] (``P(y > k)``) -> class
+    probabilities [..., n]: ``P(y = k) = P(y > k-1) - P(y > k)`` with
+    ``P(y > -1) = 1`` and ``P(y > n-1) = 0``, clamped at 1e-9 and
+    renormalised (unordered thresholds can make a difference
+    negative)."""
+    cum = torch.sigmoid(logits)
+    upper = torch.cat([torch.ones_like(cum[..., :1]), cum], -1)
+    lower = torch.cat([cum, torch.zeros_like(cum[..., :1])], -1)
+    p = (upper - lower).clamp_min(1e-9)
+    return p / p.sum(-1, keepdim=True)

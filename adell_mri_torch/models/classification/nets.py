@@ -1,8 +1,10 @@
 """
 Classification networks.
 
-Counterpart of ``VGG``, ``CatNet``, ``TabularClassifier`` and
-``HybridClassifier`` in ``adell_mri_tpu/models/classification/nets.py``.
+Counterpart of ``VGG``, ``CatNet``, ``OrdNet``,
+``UNetEncoderClassifier``, ``ViTClassifier``, ``FactorizedViTClassifier``,
+``TabularClassifier`` and ``HybridClassifier`` in
+``adell_mri_tpu/models/classification/nets.py``.
 
 - ``VGG`` (``vggnet-net.yaml``): ``n_blocks`` ``VGGConvolution`` blocks of
   width ``first_depth * 2**i`` (``VGGConvolution_{i}``), a global max
@@ -15,6 +17,22 @@ Counterpart of ``VGG``, ``CatNet``, ``TabularClassifier`` and
   ``res_type``, a global max pool, then ``[d] * 3`` Dense layers (``d``
   the backbone's output width, or ``classification_structure``) with the
   same 1-d ADN, then the output Dense layer.
+- ``OrdNet``: the ResNet backbone (relu ADNs by default, no batch
+  ensembles, the default pools of 2), a global max pool, Dense, relu and
+  a bias-free Dense to one score; ``n_classes - 1`` cumulative logits
+  ``score + threshold_bias * threshold_bias_scale``, the biases
+  initialised to ``n-1, ..., 1`` and the scale to ``1 / (n-1)``
+  (``return_only_pre_bias``: the score alone).
+- ``UNetEncoderClassifier``: a U-Net built ``encoder_only`` (``unet``:
+  only ``enc_{i}`` and ``enc_ds_{i}``, as flax creates no decoder when the
+  JAX module returns at the bottleneck), a global max pool of the
+  bottleneck, then ``MLP_0`` with the head's own 1-d ADN.
+- ``ViTClassifier``: ``ViT_0`` (built for one image size: the learnt
+  positional embedding fixes the token count), pooled by ``SeqPool_0``
+  (``use_seq_pool``), else the class token, else the token mean, then
+  ``MLP_0``: one Dense layer of ``embed_dim`` with a 1-d layer-norm, exact
+  GELU ADN, then the output layer. ``FactorizedViTClassifier``: the same
+  head on the class token of ``FactorizedViT_0``.
 - ``TabularClassifier``: tabular features standardised by a stored mean
   and standard deviation (floored at 1e-6), then one Dense layer.
 - ``HybridClassifier``: a headless image network's pooled features beside
@@ -25,7 +43,11 @@ the losses. Inputs and feature maps are channels-last. With
 ``feature_extraction`` a network builds no head and returns its pooled
 features (``n_features`` wide), as the JAX one does when a
 ``HybridClassifier`` calls it with ``return_features``: flax then never
-creates the head, so the tree has none. The Gaussian-process head is not
+creates the head, so the tree has none. The JAX ``OrdNet``,
+``UNetEncoderClassifier`` and the two ViT classifiers take no
+``return_features``, so a JAX ``HybridClassifier`` over them stops at
+its first call; the port's return the features their head takes (the
+pooled backbone, bottleneck or tokens). The Gaussian-process head is not
 ported yet.
 """
 
@@ -44,7 +66,8 @@ from adell_mri_torch.models.layers.blocks import (
     run_mlp,
 )
 from adell_mri_torch.models.layers.res_net import ResNetBackbone
-from adell_mri_torch.ops.conv import Pointwise
+from adell_mri_torch.models.layers.vit import FactorizedViT, SeqPool, ViT
+from adell_mri_torch.ops.conv import Pointwise, lecun_normal_
 
 
 def out_features(n_classes: int) -> int:
@@ -135,6 +158,157 @@ class VGG(nn.Module):
         for i in range(self.n_blocks):
             x = getattr(self, f"VGGConvolution_{i}")(x)
         feats = self.pool(x)
+        if return_features or self.MLP_0 is None:
+            return feats
+        return self.MLP_0(feats)
+
+
+class OrdNet(nn.Module):
+    def __init__(
+        self,
+        in_channels: int = 1,
+        spatial_dimensions: int = 3,
+        n_classes: int = 3,
+        resnet_structure: Sequence[Tuple[int, int, int, int]] = (
+            (64, 128, 5, 2),
+            (128, 256, 3, 5),
+        ),
+        maxpool_structure: Optional[Sequence] = None,
+        norm_type: str = "batch",
+        act_fn: str = "relu",
+        dropout_param: float = 0.0,
+        feature_extraction: bool = False,
+    ):
+        super().__init__()
+        if spatial_dimensions != 3:
+            raise NotImplementedError("2D classifiers are not ported yet")
+        self.ResNetBackbone_0 = ResNetBackbone(
+            in_channels, [tuple(s) for s in resnet_structure],
+            maxpool_structure=maxpool_structure,
+            adn_fn=get_adn_fn(norm_type, act_fn, dropout_param),
+        )
+        self.pool = GlobalPooling()
+        d = self.n_features = self.ResNetBackbone_0.output_features
+        self.head = not feature_extraction
+        if self.head:
+            self.Dense_0 = Pointwise(d, d)
+            self.Dense_1 = nn.Linear(d, 1, bias=False)
+            lecun_normal_(self.Dense_1.weight, d)
+            self.threshold_bias = nn.Parameter(torch.arange(
+                n_classes - 1, 0, -1, dtype=torch.float32))
+            self.threshold_bias_scale = nn.Parameter(
+                torch.tensor(1.0 / (n_classes - 1)))
+
+    def forward(self, x, return_only_pre_bias: bool = False,
+                return_features: bool = False):
+        feats = self.pool(self.ResNetBackbone_0(x))
+        if return_features or not self.head:
+            return feats
+        score = self.Dense_1(F.relu(self.Dense_0(feats)))
+        if return_only_pre_bias:
+            return score
+        bias = self.threshold_bias * self.threshold_bias_scale
+        return score + bias.to(score.dtype)[None, :]
+
+
+class UNetEncoderClassifier(nn.Module):
+    """``unet``: a ``UNet`` built ``encoder_only`` (its ``depth[-1]``-wide
+    bottleneck is pooled); ``head_adn_fn``: the head's 1-d ADN."""
+
+    def __init__(self, unet: nn.Module, n_features: int, n_classes: int = 2,
+                 head_structure: Sequence[int] = (256,), head_adn_fn=None,
+                 feature_extraction: bool = False):
+        super().__init__()
+        self.unet = unet
+        self.pool = GlobalPooling()
+        self.n_features = n_features
+        self.MLP_0 = None if feature_extraction else MLP(
+            n_features, tuple(head_structure), out_features(n_classes),
+            head_adn_fn or get_adn_fn("batch", "gelu", 0.0, spatial_dim=1))
+
+    def forward(self, x, return_features: bool = False):
+        feats = self.pool(self.unet(x))
+        if return_features or self.MLP_0 is None:
+            return feats
+        return self.MLP_0(feats)
+
+
+def _vit_head(embed_dim: int, n_classes: int) -> MLP:
+    return MLP(embed_dim, (embed_dim,), out_features(n_classes),
+               get_adn_fn("layer", "gelu", 0.0, spatial_dim=1))
+
+
+class ViTClassifier(nn.Module):
+    def __init__(
+        self,
+        in_channels: int = 1,
+        image_size: Sequence[int] = (128, 128, 32),
+        patch_size: Sequence[int] = (4, 4, 4),
+        n_classes: int = 2,
+        embed_dim: int = 256,
+        n_blocks: int = 4,
+        n_heads: int = 4,
+        dropout_param: float = 0.0,
+        use_class_token: bool = True,
+        use_seq_pool: bool = False,
+        moe_experts: int = 0,
+        embed_method: str = "linear",
+        mlp_ratio: float = 4.0,
+        embed_norm: bool = False,
+        mlp_structure: Optional[Sequence[int]] = None,
+        feature_extraction: bool = False,
+    ):
+        super().__init__()
+        self.ViT_0 = ViT(
+            in_channels, image_size, patch_size, embed_dim=embed_dim,
+            n_blocks=n_blocks, n_heads=n_heads, mlp_ratio=mlp_ratio,
+            dropout=dropout_param, embed_method=embed_method,
+            use_class_token=use_class_token, moe_experts=moe_experts,
+            embed_norm=embed_norm, mlp_structure=mlp_structure,
+        )
+        self.use_class_token = use_class_token
+        self.SeqPool_0 = SeqPool(embed_dim) if use_seq_pool else None
+        self.n_features = embed_dim
+        self.MLP_0 = (None if feature_extraction
+                      else _vit_head(embed_dim, n_classes))
+
+    def forward(self, x, return_features: bool = False):
+        tokens = self.ViT_0(x)
+        if self.SeqPool_0 is not None:
+            feats = self.SeqPool_0(tokens)
+        elif self.use_class_token:
+            feats = tokens[:, 0]
+        else:
+            feats = tokens.mean(1)
+        if return_features or self.MLP_0 is None:
+            return feats
+        return self.MLP_0(feats)
+
+
+class FactorizedViTClassifier(nn.Module):
+    def __init__(
+        self,
+        in_channels: int = 1,
+        image_size: Sequence[int] = (128, 128, 32),
+        patch_size: Sequence[int] = (4, 4),
+        n_classes: int = 2,
+        embed_dim: int = 256,
+        n_blocks: int = 4,
+        n_heads: int = 4,
+        dropout_param: float = 0.0,
+        feature_extraction: bool = False,
+    ):
+        super().__init__()
+        self.FactorizedViT_0 = FactorizedViT(
+            in_channels, image_size, patch_size, embed_dim=embed_dim,
+            n_blocks=n_blocks, n_heads=n_heads, dropout=dropout_param,
+        )
+        self.n_features = embed_dim
+        self.MLP_0 = (None if feature_extraction
+                      else _vit_head(embed_dim, n_classes))
+
+    def forward(self, x, return_features: bool = False):
+        feats = self.FactorizedViT_0(x)[:, 0]
         if return_features or self.MLP_0 is None:
             return feats
         return self.MLP_0(feats)

@@ -3,18 +3,20 @@ Vision transformer layers.
 
 Counterpart of ``adell_mri_tpu/models/layers/vit.py``:
 ``sinusoidal_positions``, ``MultiHeadAttention``, ``TransformerBlock``,
-``TransformerBlockStack``, ``LinearEmbedding``, ``ViT`` and the SWIN
-classes (``window_partition``, ``window_unpartition``,
-``swin_attention_mask``, ``SWINTransformerBlock``,
+``TransformerBlockStack``, ``LinearEmbedding``, ``SeqPool``, ``ViT``,
+``FactorizedViT`` and the SWIN classes (``window_partition``,
+``window_unpartition``, ``swin_attention_mask``, ``SWINTransformerBlock``,
 ``SWINTransformerBlockStack``). Submodule and
 parameter names keep the JAX tree paths (``q``, ``k``, ``v``, ``proj``,
 ``q_norm``, ``k_norm``, ``LayerNorm_{0,1}``, ``MultiHeadAttention_0``,
 ``Dense_{i}``, ``block_{i}``, ``Conv_0``, ``embed_norm``,
-``pos_embedding``, ``class_token``, ``registers``), so
+``pos_embedding``, ``class_token``, ``registers``, ``SeqPool``'s
+``Dense_0``, ``FactorizedViT``'s ``within_slice``, ``between_slice`` and
+``slice_class_token``), so
 ``interop/from_flax.py`` maps a JAX checkpoint key for key. flax modules
 learn their input sizes at the first call; these take them as constructor
-arguments. Every LayerNorm has eps 1e-5. ``FactorizedViT``, ``SeqPool``
-and ``SliceLinearEmbedding`` are not ported yet.
+arguments. Every LayerNorm has eps 1e-5. ``SliceLinearEmbedding`` is not
+ported yet.
 """
 
 import math
@@ -344,6 +346,19 @@ class LinearEmbedding(nn.Module):
         return tokens
 
 
+class SeqPool(nn.Module):
+    """Attention-weighted pooling of tokens ``[B, N, E]`` -> ``[B, E]``: a
+    Dense layer scores each token, a softmax over the tokens weighs
+    them."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.Dense_0 = _dense(dim, 1)
+
+    def forward(self, x):
+        return (x * torch.softmax(self.Dense_0(x), dim=1)).sum(1)
+
+
 class ViT(nn.Module):
     """Embedding + transformer stack."""
 
@@ -381,6 +396,66 @@ class ViT(nn.Module):
         return self.TransformerBlockStack_0(
             self.LinearEmbedding_0(x), return_at=return_at
         )
+
+
+class FactorizedViT(nn.Module):
+    """Attention within each slice, then between the slices: ``[B, H, W, D,
+    C]`` -> tokens ``[B, D (+1), E]``. Each of the ``D`` slices is embedded
+    by a 2D linear ``LinearEmbedding`` of ``patch_size[:2]`` with a class
+    token and goes through ``n_blocks // 2 or 1`` blocks
+    (``within_slice``); each slice's class token, plus the sinusoidal
+    position of its slice, is a token of the second stack of ``n_blocks -
+    n_blocks // 2 or 1`` blocks (``between_slice``), behind a learnt
+    ``slice_class_token`` when ``use_class_token``. Built for the slices'
+    ``spatial`` size (H, W) and ``in_channels``; any number of slices.
+    The slice positions are added in the tokens' dtype (the JAX package
+    adds f32 ones, which promote a bf16 input of the second stack to
+    f32)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        spatial: Sequence[int],
+        patch_size: Sequence[int],
+        embed_dim: int = 256,
+        n_blocks: int = 4,
+        n_heads: int = 4,
+        mlp_ratio: float = 4.0,
+        dropout: float = 0.0,
+        use_class_token: bool = True,
+    ):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.LinearEmbedding_0 = LinearEmbedding(
+            in_channels, tuple(spatial)[:2], tuple(patch_size)[:2],
+            embed_dim=embed_dim, use_class_token=True,
+        )
+        self.within_slice = TransformerBlockStack(
+            embed_dim, n_blocks // 2 or 1, n_heads, mlp_ratio, dropout)
+        self.slice_class_token = (
+            _token_param(1, 1, embed_dim) if use_class_token else None)
+        self.between_slice = TransformerBlockStack(
+            embed_dim, n_blocks - n_blocks // 2 or 1, n_heads, mlp_ratio,
+            dropout)
+        self._positions = {}
+
+    def slice_positions(self, d: int, device) -> torch.Tensor:
+        key = (d, device)
+        if key not in self._positions:
+            self._positions[key] = sinusoidal_positions(
+                d, self.embed_dim)[None].to(device)
+        return self._positions[key]
+
+    def forward(self, x):
+        b, h, w, d, c = x.shape
+        slices = x.permute(0, 3, 1, 2, 4).reshape(b * d, h, w, c)
+        tokens = self.within_slice(self.LinearEmbedding_0(slices))
+        rep = tokens[:, 0].reshape(b, d, self.embed_dim)
+        rep = rep + self.slice_positions(d, x.device).to(rep.dtype)
+        if self.slice_class_token is not None:
+            rep = torch.cat([self.slice_class_token.to(rep.dtype).expand(
+                b, -1, -1), rep], dim=1)
+        return self.between_slice(rep)
 
 
 # -- SWIN ---------------------------------------------------------------------

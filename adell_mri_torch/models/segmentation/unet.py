@@ -13,12 +13,15 @@ without bottleneck classification and deep supervision (``heads.py``).
 Submodule names keep the JAX tree paths (``enc_{i}``, ``enc_ds_{i}``,
 ``link_{i}``, ``link_adn_{i}``, ``up_{i}``, ``dec_{i}``,
 ``Conv_0/Conv_1``, and inside a unit flax's auto names) so
-``interop/from_flax.py`` maps a JAX checkpoint key for key. 2D,
-skip/feature conditioning, ``encoder_only``, ``semi_supervised``,
-``encoder_structure`` and the ``_ref`` conv types raise
-``NotImplementedError``. The links keep the skip's width, so the JAX
-``link_proj_{i}`` (needed only when conditioning widens the skip) never
-arises.
+``interop/from_flax.py`` maps a JAX checkpoint key for key. With
+``encoder_only`` the U-Net is its encoder (``enc_{i}``, ``enc_ds_{i}``)
+and returns the bottleneck: the tree the JAX module has when it returns
+there (``return_bottleneck``, ``encoder_only``), since flax creates the
+decoder's and the heads' parameters only when they run. 2D,
+skip/feature conditioning, ``semi_supervised``, ``encoder_structure`` and
+the ``_ref`` conv types raise ``NotImplementedError``. The links keep the
+skip's width, so the JAX ``link_proj_{i}`` (needed only when
+conditioning widens the skip) never arises.
 """
 
 from typing import Any, Dict, Optional, Sequence
@@ -148,7 +151,6 @@ _UNPORTED = {
     "spatial_dimensions": 3,
     "skip_conditioning": None,
     "feature_conditioning": None,
-    "encoder_only": False,
     "semi_supervised": False,
     "encoder_structure": None,
 }
@@ -158,7 +160,8 @@ class UNet(nn.Module):
     """Takes and returns channels-last ``[B, D, H, W, C]``. The output is
     the sigmoid (n_classes == 2, one channel) or softmax of the logits, or
     the logits themselves with ``return_logits=True``; with the heads'
-    outputs when a head is on, unless ``heads=False`` (``heads.py``). The
+    outputs when a head is on, unless ``heads=False`` (``heads.py``); with
+    ``encoder_only``, the bottleneck ``[B, *S', depth[-1]]``. The
     defaults are the JAX module's but for ``spatial_dimensions`` (3: 2D
     is not ported)."""
 
@@ -193,7 +196,6 @@ class UNet(nn.Module):
             "spatial_dimensions": spatial_dimensions,
             "skip_conditioning": skip_conditioning,
             "feature_conditioning": feature_conditioning,
-            "encoder_only": encoder_only,
             "semi_supervised": semi_supervised,
             "encoder_structure": encoder_structure,
         }
@@ -228,6 +230,9 @@ class UNet(nn.Module):
                 self.add_module(f"enc_ds_{i}", _ConvUnit(
                     d, d, ks[i], st[i], conv_type, adn_fn))
             in_ch = d
+        self.encoder_only = encoder_only
+        if encoder_only:
+            return
         curr_ch = depth[-1]
         self.up_strides = []
         dec_ct = _DECODER_CONV.get(conv_type, conv_type)
@@ -279,6 +284,8 @@ class UNet(nn.Module):
             encoding_out.append(curr)
             if i < self.n_levels - 1:
                 curr = getattr(self, f"enc_ds_{i}")(curr)
+        if self.encoder_only:
+            return curr
         bottleneck, deep_outputs = curr, []
         for i, s in enumerate(self.up_strides):
             encoded = self._link(i, curr, encoding_out[-i - 2])

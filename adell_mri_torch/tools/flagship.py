@@ -38,7 +38,20 @@ of ConvNeXt blocks, batch ensembles of 4; the yaml's 16 crops), ``"vgg"``
 (``vggnet-net.yaml``: the factory's VGG, first depth 16, four blocks,
 batch norm; the yaml's 16 crops) and ``"convnext"`` (the standalone
 ConvNeXt at the factory's defaults, ``convnext_backbone``; no yaml, so
-the CLI's default batch of 4 crops).
+the CLI's default batch of 4 crops), ``"vit"``
+(``classification-vit.yaml`` as it stands: 16x16x4 patches, 768 wide, 10
+blocks of 12 heads, MLP [1024], dropout 0.1; built for, served and
+trained on whole 256x256x64 volumes: 4096 patch tokens and the class
+token, at or above the count from which attention takes the flash
+kernels, in batches of 2; ``overrides`` of ``{"dropout_rate": 0}`` keep
+a training step on the kernels), ``"vit_crops"`` (the same yaml on
+128x128x32 crops at the CLI's default batch of 4: 513 tokens, the
+materialised softmax), ``"factorized_vit"`` (the factory's defaults:
+4x4 patches a slice, 256 wide, 4 blocks of 4 heads; the CLI's batch of
+4), ``"ord"`` (OrdNet over ``classification-cat-resnet.yaml``'s
+structure with 3 classes and the ordinal sigmoidal loss; the yaml's 16
+crops) and ``"unet_classifier"`` (the U-Net encoder classifier of
+``u-net-3d-resnet.yaml``; the yaml's 2 crops).
 
 ``"ssl"``, ``sample_configs/ssl-resnet.yaml`` as it stands (the two-view
 methods' CatNet backbone: four ResNet stages of 64 to 512, batch norm;
@@ -79,6 +92,8 @@ from adell_mri_torch.config.parsing import (
 from adell_mri_torch.inference import SegmentationInference
 from adell_mri_torch.models.classification.losses import (
     binary_logistic_loss,
+    cross_entropy_loss,
+    ordinal_sigmoidal_loss,
 )
 from adell_mri_torch.models.layers.adn import (
     pop_batch_stats,
@@ -143,7 +158,21 @@ CLASSIFIERS = {
         "cat", UNETR_YAML.with_name("classification-cat-convnext.yaml"), 16),
     "vgg": ("vgg", UNETR_YAML.with_name("vggnet-net.yaml"), 16),
     "convnext": ("convnext_backbone", None, 4),
+    "vit": ("vit", UNETR_YAML.with_name("classification-vit.yaml"), 2),
+    "vit_crops": ("vit", UNETR_YAML.with_name("classification-vit.yaml"),
+                  4),
+    "factorized_vit": ("factorized_vit", None, 4),
+    "ord": ("ord", CATNET_YAML, CATNET_BATCH),
+    "unet_classifier": ("unet", RESNET_YAML, RESNET_BATCH),
 }
+# the classifiers' input size where it is not WINDOW, and their number of
+# classes where it is not 2
+CLASSIFIER_SHAPES = {"vit": CASE}
+CLASSIFIER_CLASSES = {"ord": 3}
+
+
+def classifier_shape(name: str) -> tuple:
+    return CLASSIFIER_SHAPES.get(name, WINDOW)
 
 
 @dataclass(frozen=True)
@@ -269,22 +298,30 @@ def make_trainer(seed: int, precision: str, device="cuda",
                    transforms, model)
 
 
-def make_catnet(seed: int, device="cuda", name: str = "catnet"):
-    """The classifier ``name`` (``CLASSIFIERS``) with f32 weights drawn
-    from ``seed``, in training mode."""
+def make_catnet(seed: int, device="cuda", name: str = "catnet",
+                overrides: dict = None):
+    """The classifier ``name`` (``CLASSIFIERS``; ``overrides`` change keys
+    of its network config) with f32 weights drawn from ``seed``, in
+    training mode, built for ``classifier_shape(name)``."""
     net_type, yaml_path, _ = CLASSIFIERS[name]
     torch.manual_seed(seed)
     network = (parse_config_cat(str(yaml_path))["network"] if yaml_path
                else {})
-    return get_classification_network(net_type, network).to(device)
+    return get_classification_network(
+        net_type, {**network, **(overrides or {})},
+        n_classes=CLASSIFIER_CLASSES.get(name, 2),
+        image_size=classifier_shape(name)).to(device)
 
 
 def make_served_classifier(seed: int, device="cuda", name: str = "catnet"):
     """The classifier ``name`` (``make_catnet``) in eval mode, with the
-    running statistics of two training forwards on 4 crops of 128x128x32
-    (``make_catnet_batch(seed + 1)``): a served model's statistics."""
+    running statistics of two training forwards on 4 inputs of its size
+    (``make_catnet_batch(seed + 1)``; 2 at 256x256x64): a served model's
+    statistics."""
     model = make_catnet(seed, device, name)
-    crops = make_catnet_batch(seed + 1, device, batch=4)["image"]
+    shape = classifier_shape(name)
+    crops = make_catnet_batch(seed + 1, device, batch=4 if shape == WINDOW
+                              else 2, shape=shape)["image"]
     with torch.no_grad():
         buffers = dict(model.named_buffers())
         for _ in range(2):
@@ -295,13 +332,14 @@ def make_served_classifier(seed: int, device="cuda", name: str = "catnet"):
 
 
 def make_catnet_batch(seed: int, device="cuda", batch=CATNET_BATCH,
-                      shape=WINDOW):
+                      shape=WINDOW, n_classes: int = 2):
     """A learnable classification batch on the card: noise around 0.3 and,
-    in the positives (every other sample, label 1), a bright ellipsoid at
-    a random centre; min-max scaled as the loader scales images. image
-    [B, *shape, 1], label [B]."""
+    in the positives (label ``i % n_classes`` of sample ``i`` above 0), an
+    ellipsoid at a random centre, the brighter the higher the label;
+    min-max scaled as the loader scales images. image [B, *shape, 1],
+    label [B]."""
     g = torch.Generator(device=device).manual_seed(seed)
-    label = (torch.arange(batch, device=device) % 2).float()
+    label = (torch.arange(batch, device=device) % n_classes).float()
     grid = torch.stack(torch.meshgrid(
         *[torch.arange(s, device=device, dtype=torch.float32)
           for s in shape], indexing="ij"), -1)
@@ -309,7 +347,8 @@ def make_catnet_batch(seed: int, device="cuda", batch=CATNET_BATCH,
     centres = size * (0.35 + 0.3 * torch.rand((batch, 3), generator=g,
                                               device=device))
     dist = (((grid[None] - centres[:, None, None, None]) / (size / 6)) ** 2)
-    blob = (dist.sum(-1) <= 1.0).float() * label[:, None, None, None]
+    blob = (dist.sum(-1) <= 1.0).float() * (
+        label / (n_classes - 1))[:, None, None, None]
     image = 0.3 + 0.4 * blob + 0.1 * torch.randn(
         (batch,) + tuple(shape), generator=g, device=device)
     lo = image.amin(dim=(1, 2, 3), keepdim=True)
@@ -317,24 +356,40 @@ def make_catnet_batch(seed: int, device="cuda", batch=CATNET_BATCH,
     return {"image": ((image - lo) / (hi - lo))[..., None], "label": label}
 
 
+def classifier_loss(name: str):
+    """The loss ``classification train`` takes for ``name``: the ordinal
+    sigmoidal loss for OrdNet, else the binary logistic or the cross
+    entropy by the number of classes."""
+    n_classes = CLASSIFIER_CLASSES.get(name, 2)
+    if CLASSIFIERS[name][0] == "ord":
+        return lambda logits, y: ordinal_sigmoidal_loss(logits, y,
+                                                        n_classes)
+    return binary_logistic_loss if n_classes == 2 else cross_entropy_loss
+
+
 def make_catnet_trainer(seed: int, precision: str, device="cuda",
                         learning_rate: float = 1e-3, t_max: int = 100,
-                        name: str = "catnet"):
+                        name: str = "catnet", overrides: dict = None):
     """The classifier ``name`` (f32 master weights from ``seed``, its
-    members and dropout drawn from a generator seeded alike) with its
-    train and eval steps, Nesterov SGD and the classification CLI's
-    augmentation policy (``AugmentPolicy.classification``)."""
-    model = make_catnet(seed, device, name)
+    members and dropout drawn from a generator seeded alike; ``overrides``
+    as ``make_catnet``) with its train and eval steps on its loss
+    (``classifier_loss``), Nesterov SGD and the classification CLI's
+    augmentation policy (``AugmentPolicy.classification``) at its
+    size."""
+    model = make_catnet(seed, device, name, overrides)
     seed_dropout(model, torch.Generator(device=device).manual_seed(seed))
     schedule = cosine_annealing_with_warmup(learning_rate, t_max=t_max)
     state = TrainState.create(
         model, lambda p: get_optimizer("sgd", schedule, params=p))
-    lm = make_classification_step(model, binary_logistic_loss,
+    loss_fn, n_classes = classifier_loss(name), CLASSIFIER_CLASSES.get(
+        name, 2)
+    lm = make_classification_step(model, loss_fn, n_classes=n_classes,
                                   precision=precision)
-    eval_lm = make_classification_step(model, binary_logistic_loss,
+    eval_lm = make_classification_step(model, loss_fn, n_classes=n_classes,
                                        train=False, precision=precision)
     transforms = ClassificationTransforms(
-        augmentations=AugmentPolicy.classification(AUGMENT_FLAGS, WINDOW))
+        augmentations=AugmentPolicy.classification(
+            AUGMENT_FLAGS, classifier_shape(name)))
     return Trainer(state, make_train_step(lm), make_eval_step(eval_lm), lm,
                    transforms, model)
 

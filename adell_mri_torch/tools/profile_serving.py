@@ -2,7 +2,8 @@
 Where the time of one served case goes, on the GPU.
 
     python -m adell_mri_torch.tools.profile_serving \
-        [unet|resnet|unetr|swin|catnet|catnet_convnext|vgg|convnext] \
+        [unet|resnet|unetr|swin|catnet|catnet_convnext|vgg|convnext|vit|
+         vit_crops|factorized_vit|ord|unet_classifier] \
         [--precision bf16|32]
 
 Serves the model (bf16 by default, or f32 with ``--precision 32``, the
@@ -14,7 +15,8 @@ window at stride 0.5 in micro-batches of 4, or UNETR
 (``sample_configs/unetr.yaml``) with the whole case as one window; or a
 classifier (``tools/flagship.py``'s ``CLASSIFIERS``, eval mode, the
 running statistics of two training forwards) on a micro-batch of 2
-crops of 128x128x32. After one warm-up case it times three cases with
+crops of 128x128x32, or for ``vit`` 2 volumes of 256x256x64 (4097
+tokens: the flash kernels). After one warm-up case it times three cases with
 the host clock, then runs one more under ``torch.profiler`` and prints
 the device time by kernel group, the device-busy share of a case's wall time, and the top kernels.
 The full table goes to ``chiprun_out/profile_serving_{model}.txt`` (or
@@ -33,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from adell_mri_torch.tools.flagship import (
     CLASSIFIERS,
+    classifier_shape,
     make_case,
     make_catnet_batch,
     make_inference,
@@ -71,11 +74,14 @@ def _self_device_us(evt):
 def classifier_forward(name, dtype, batch=2):
     """``(forward, crops)``: the classifier ``name`` served
     (``make_served_classifier``), its parameters in ``dtype`` and its
-    running statistics f32, and ``batch`` crops of 128x128x32."""
+    running statistics f32, and ``batch`` inputs of its size
+    (``classifier_shape``: crops of 128x128x32, the ViT's whole
+    256x256x64 volumes)."""
     model = make_served_classifier(0, name=name)
     for p in model.parameters():
         p.data = p.data.to(dtype)
-    crops = make_catnet_batch(1, batch=4)["image"][:batch]
+    crops = make_catnet_batch(1, batch=4, shape=classifier_shape(name))[
+        "image"][:batch]
     return (lambda x: model(x.to(dtype)).float()), crops
 
 

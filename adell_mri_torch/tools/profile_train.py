@@ -2,7 +2,8 @@
 Where the time of one training step goes, on the GPU.
 
     python -m adell_mri_torch.tools.profile_train \
-        [unet|resnet|unetr|swin|catnet|catnet_convnext|vgg|convnext] \
+        [unet|resnet|unetr|swin|catnet|catnet_convnext|vgg|convnext|vit|
+         vit_crops|factorized_vit|ord|unet_classifier] \
         [--precision bf16|32] [--batch N]
 
 Trains the model (f32 master weights from seed 0, bf16 compute or, with
@@ -15,8 +16,14 @@ dropout 0) on 2 volumes of 128x128x32, both with their yaml's dice +
 focal loss, or a classifier (``tools/flagship.py``'s ``CLASSIFIERS``:
 CatNet with ``sample_configs/classification-cat-resnet.yaml`` or
 ``classification-cat-convnext.yaml``, VGG with ``vggnet-net.yaml``, each
-on 16 crops of 128x128x32, or the standalone ConvNeXt at the factory's
-defaults on 4) with binary labels and the classifier's augmentation
+on 16 crops of 128x128x32, the standalone ConvNeXt at the factory's
+defaults on 4, the ViT classifier of ``classification-vit.yaml`` on 2
+volumes of 256x256x64 with dropout 0, so that attention takes the flash
+kernels, or on 4 crops of 128x128x32 with its dropout 0.1
+(``vit_crops``), the factorized ViT at the factory's defaults on 4,
+OrdNet on ``classification-cat-resnet.yaml``'s structure with 3 classes
+on 16, the U-Net encoder classifier of ``u-net-3d-resnet.yaml`` on 2)
+with binary labels (OrdNet's three) and the classifier's augmentation
 (``--batch`` changes the volumes a step). After one warm-up
 step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
@@ -36,7 +43,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from adell_mri_torch.tools.flagship import (
+    CLASSIFIER_CLASSES,
     CLASSIFIERS,
+    classifier_shape,
     make_catnet_batch,
     make_catnet_trainer,
     make_train_batch,
@@ -90,8 +99,12 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
     out_path = out_path or f"chiprun_out/profile_train_{name}.txt"
     if name in CLASSIFIERS:
         batch_size = batch_size or CLASSIFIERS[name][2]
-        batch = make_catnet_batch(0, batch=batch_size)
-        tr = make_catnet_trainer(0, precision, name=name)
+        batch = make_catnet_batch(
+            0, batch=batch_size, shape=classifier_shape(name),
+            n_classes=CLASSIFIER_CLASSES.get(name, 2))
+        tr = make_catnet_trainer(
+            0, precision, name=name,
+            overrides={"dropout_rate": 0.0} if name == "vit" else None)
     else:
         spec = model_spec(name)
         batch_size = batch_size or spec.train_batch

@@ -37,7 +37,11 @@ from adell_mri_torch.transforms import intensity as I
 from adell_mri_torch.transforms import spatial as S
 from adell_mri_torch.transforms.augment import AugmentationWorkhorse
 from adell_mri_torch.transforms.host import make_load_fn
-from adell_mri_torch.transforms.labels import label_operator
+from adell_mri_torch.transforms.labels import (
+    convex_hull,
+    crop_from_mask,
+    label_operator,
+)
 
 FLAGS = ("intensity", "noise", "rbf", "affine", "shear", "flip", "blur",
          "distort", "lowres", "trivial")
@@ -362,8 +366,12 @@ class ClassificationTransforms:
     entry without ``label_key`` loads without a label (prediction).
     ``clinical_feature_keys``: the entry's values at these keys, each
     through ``float``, as ``features`` (float32 [F]), the tabular input
-    of a ``HybridClassifier``. Masking and cropping by a mask and resizing
-    are not ported yet."""
+    of a ``HybridClassifier``. ``mask_key``: a mask loaded beside the
+    images (nearest, binarised at 1); ``image_masking`` multiplies the
+    images by its slice-wise convex hull, ``image_crop_from_mask`` crops
+    them to its bounding box with a 16-voxel margin and pads or crops
+    that back to ``target_size`` about its centre (masking first). The
+    mask itself leaves the sample. Resizing is not ported yet."""
 
     image_keys: Sequence[str] = ("image",)
     label_key: Optional[str] = "label"
@@ -376,6 +384,9 @@ class ClassificationTransforms:
     possible_labels: Optional[Sequence] = None
     label_groups: Optional[Sequence[Sequence]] = None
     clinical_feature_keys: Sequence[str] = ()
+    mask_key: Optional[str] = None
+    image_masking: bool = False
+    image_crop_from_mask: bool = False
     # seeds the workhorse's host choice of op (not part of the cache key)
     seed: int = field(default=0, repr=False)
 
@@ -398,6 +409,7 @@ class ClassificationTransforms:
 
         base = make_load_fn(
             image_keys=self.image_keys,
+            label_keys=[self.mask_key] if self.mask_key else None,
             target_spacing=self.target_spacing,
             target_size=self.target_size,
             adc_keys=self.adc_keys,
@@ -405,6 +417,17 @@ class ClassificationTransforms:
 
         def load(entry):
             sample = base(entry)
+            if self.mask_key:
+                mask = sample.pop("label")
+                sample.pop("fg_indices")
+                sample.pop("n_fg")
+                if self.image_masking:
+                    sample["image"] = (sample["image"]
+                                       * convex_hull(mask)[..., None])
+                if self.image_crop_from_mask:
+                    sample["image"] = crop_from_mask(
+                        sample["image"], mask, output_size=self.target_size,
+                        margin=16)
             if self.label_key is not None and self.label_key in entry:
                 sample["label"] = np.float32(
                     self.label_of(entry[self.label_key]))

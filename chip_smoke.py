@@ -240,7 +240,29 @@ failure:
     train`` (VICReg f32 and bf16, BYOL ``--ema`` bf16, I-JEPA bf16) on a
     6-case cohort at ``--batch_size 3`` and ``ssl predict_folder`` on the
     VICReg checkpoint, their launches against the K1 calls recorded
-    around each.
+    around each;
+21. the classification CLI's last four net types, from seeded weights:
+    the ViT classifier (``classification-vit.yaml``: 10 blocks of 12
+    heads of 64, 768 wide) served at B=2 on 256x256x64 (4097 tokens: 10
+    K4/K5 launches a forward) in bf16 and f32 against the plain path
+    (5e-2, 1e-3), a B=2 step there on the yaml with dropout 0 (10
+    forward, 10 dQ, 10 dK/dV launches and a K3 a step; f32 against the
+    plain path with ``_step_parity``; five bf16 steps on one batch lower
+    the loss), the yaml's own dropout 0.1 at B=4 on 128x128x32 crops
+    (513 tokens on the materialised softmax: no attention launch); K4-K7
+    at [2,12,4097,64] against their plain versions, timed beside
+    ``F.scaled_dot_product_attention`` and their bounds; the factorized
+    ViT (the factory's defaults), OrdNet (``classification-cat-
+    resnet.yaml``'s structure, 3 classes) and the U-Net encoder
+    classifier (``u-net-3d-resnet.yaml``) served at B=2 and trained at
+    their batch on 128x128x32 as phase 19 serves and trains (K1, dx, dW
+    from the recorded calls); ``classification train``, ``test`` and
+    ``predict`` of each net type on 6 cases (the ViT on 256x256x64 with
+    dropout 0, OrdNet on three grades with ``--prediction_type
+    pre_bias``, the U-Net encoder classifier with a gland mask a case,
+    ``--mask_keys``,
+    ``--image_masking`` and ``--image_crop_from_mask``), their launches
+    against the K1 and flash calls recorded around each.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -4574,9 +4596,10 @@ def _seeded(tr, seed=0):
     seed_dropout(tr.model, torch.Generator(device="cuda").manual_seed(seed))
 
 
-def _option_step(tr, batch, gen, precision, tag, n=1):
+def _option_step(tr, batch, gen, precision, tag, n=1, extra=None):
     """``n`` training steps (the CLI's augmentation) counted from 0 against
-    the launches the recorded K1 calls of the step make; seconds each."""
+    the launches the recorded K1 calls of the step make, and ``extra``
+    launches a step (the attention kernels'); seconds each."""
     import torch
 
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
@@ -4584,7 +4607,10 @@ def _option_step(tr, batch, gen, precision, tag, n=1):
         tr.state, _ = tr.train_step(tr.state, tr.transforms.augment(
             gen, batch))
     torch.cuda.synchronize()
-    want = _scaled(_calls_want(rec.calls, dtype, step=True), n)
+    want = _calls_want(rec.calls, dtype, step=True)
+    for k, v in (extra or {}).items():
+        want[k] += v
+    want = _scaled(want, n)
     _reset_counts()
     secs, losses = [], []
     for _ in range(n):
@@ -4957,6 +4983,13 @@ CLASSIFIER_TIMED_STEPS = 3
 # 80GB HBM3 at 700 W (nearly all of it cuDNN's input gradient of the
 # depthwise convs, F.conv3d), so it is timed once
 CLASSIFIER_SLOW_BF16 = ("catnet_convnext",)
+# since phase 21 joined the script, the ConvNeXt CatNet trains at a third of
+# the yaml's depth (its four stages' widths, kernels and pools, 2, 2, 3 and
+# 2 blocks instead of 6, 6, 9 and 6), to keep the script within its time
+# limit; it is served at the yaml's depth
+CLASSIFIER_TRAIN_OVERRIDES = {"catnet_convnext": {"resnet_structure": [
+    [32, 64, [7, 7, 5], 2], [64, 128, [7, 7, 5], 2],
+    [128, 256, [5, 5, 3], 3], [256, 512, 3, 2]]}}
 CLINICAL_KEYS = ("age", "psa")
 
 
@@ -4978,23 +5011,33 @@ def _vgg_classes(first_depth=16, n_blocks=4, batch=16):
 VGG_CLASSES = _vgg_classes()
 
 
-def _classifier_serving(smi, name):
-    """Phase 19 (a): the classifier ``name`` (``tools/flagship.py``'s
+def _classifier_serving(smi, name, flash=None):
+    """Phase 19 (a), 21: the classifier ``name`` (``tools/flagship.py``'s
     ``CLASSIFIERS``) in eval, with the running statistics of two training
-    forwards, on B=2 crops of 128x128x32 in bf16 and f32: launches against
-    those the K1 calls of the forward make (``_k1_calls``), seconds a
-    forward, device share, peak memory, and the probabilities and pooled
-    features against the plain path (bf16 5e-2, f32 1e-3, as phase 17)."""
+    forwards, on B=2 inputs of its size (crops of 128x128x32, the ViT's
+    whole 256x256x64 volumes) in bf16 and f32: launches against those the
+    K1 calls of the forward make (``_k1_calls``) and ``flash`` (the
+    attention kernels' launches a forward), seconds a forward, device
+    share, peak memory, and the probabilities and pooled features against
+    the plain path (bf16 5e-2, f32 1e-3, as phase 17)."""
     import torch
 
     from adell_mri_torch.tools.flagship import (
+        CLASSIFIER_CLASSES,
+        CLASSIFIERS,
+        classifier_shape,
         make_catnet_batch,
         make_served_classifier,
     )
 
     model = make_served_classifier(0, name=name)
-    x = make_catnet_batch(1, batch=4, shape=CATNET_SHAPE)["image"][
+    shape = classifier_shape(name)
+    x = make_catnet_batch(1, batch=4, shape=shape)["image"][
         :CATNET_SERVE_BATCH]
+    # OrdNet's n - 1 cumulative logits; one logit for two classes
+    n_classes = CLASSIFIER_CLASSES.get(name, 2)
+    n_out = (n_classes - 1 if CLASSIFIERS[name][0] == "ord"
+             else 1 if n_classes == 2 else n_classes)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
@@ -5010,6 +5053,8 @@ def _classifier_serving(smi, name):
                 forward()
             torch.cuda.synchronize()
             want = _calls_want(rec.calls, dtype, step=False)
+            for k, v in (flash or {}).items():
+                want[k] += v
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             secs = []
@@ -5035,7 +5080,7 @@ def _classifier_serving(smi, name):
             float(plain_feats.abs().max()), 1e-30)
         tol = 5e-2 if bf16 else 1e-3
         log(f"[classifiers serving] {smi}: {name}, {precision}, "
-            f"B={CATNET_SERVE_BATCH} at {'x'.join(map(str, CATNET_SHAPE))}: "
+            f"B={CATNET_SERVE_BATCH} at {'x'.join(map(str, shape))}: "
             f"{len(rec.calls)} K1 convs a forward; launches {launches}; "
             f"{', '.join(f'{s:.4f}' for s in secs)} s a forward; device "
             f"busy {busy:.4f} of {wall:.4f} s ({100 * busy / wall:.1f} %); "
@@ -5045,7 +5090,7 @@ def _classifier_serving(smi, name):
             f"{feat_err:.3g} of their scale (tol {tol})")
         if launches != want:
             raise AssertionError(f"{name} launches {launches}, want {want}")
-        if tuple(logits.shape) != (CATNET_SERVE_BATCH, 1) or not bool(
+        if tuple(logits.shape) != (CATNET_SERVE_BATCH, n_out) or not bool(
                 torch.isfinite(logits).all()):
             raise AssertionError(f"{name} logits {tuple(logits.shape)}")
         if not (err <= tol and feat_err <= tol):
@@ -5060,14 +5105,16 @@ def _classifier_serving(smi, name):
     return out
 
 
-def _step_parity(tr, batch, tag):
+def _step_parity(tr, batch, tag, batch_stats_tol=1e-5):
     """One f32 step on the kernels against the plain path with the same
     members and dropout masks: loss within 1e-4 and gradient norm within
     1e-3 (relative); where the model has batch norms, the running
     statistics within 1e-5 of their layer's scale (``_stats_errors``) and
-    each batch norm's batch statistics within 1e-5 of the layer's scale
-    beyond the plain path's own distance from f64 (``_step_batch_stats``).
-    Phases 17, 18 and 19 hold their f32 steps so."""
+    each batch norm's batch statistics within ``batch_stats_tol`` of the
+    layer's scale beyond the plain path's own distance from f64
+    (``_step_batch_stats``). Phases 17 to 21 hold their f32 steps so, at
+    1e-5 but for phase 21's U-Net encoder classifier
+    (``BATCH_STATS_TOL``)."""
     import torch
 
     params = [tr.state.params[k] for k in tr.state.params]
@@ -5104,45 +5151,58 @@ def _step_parity(tr, batch, tag):
                     f"{out['stats_rel']:.2e} of their layer's scale (tol "
                     f"1e-5; worst {out['stats_worst']}); batch statistics "
                     f"largest excess over plain vs f64 {max(excess)[0]:.2e}"
-                    f" ({max(excess)[1]} of {max(excess)[2]}, tol 1e-5)"
+                    f" ({max(excess)[1]} of {max(excess)[2]}, tol "
+                    f"{batch_stats_tol:g})"
                     if stats_p else ""))
     if not (out["loss_rel"] <= 1e-4 and out["grad_norm_rel"] <= 1e-3
             and out.get("stats_rel", 0.0) <= 1e-5
-            and max(excess)[0] <= 1e-5 and set(stats_k) == set(stats_p)):
+            and max(excess)[0] <= batch_stats_tol
+            and set(stats_k) == set(stats_p)):
         raise AssertionError(f"{tag}: f32 step disagrees with plain: {out}")
     return out
 
 
-def _classifier_training(smi, name):
-    """Phase 19 (b): the classifier ``name`` trained at its batch
-    (``CLASSIFIERS``: the yaml's 16, the standalone ConvNeXt the CLI's 4)
-    on 128x128x32 crops with the CLI's augmentation: the f32 step against
-    the plain path (``_step_parity``), then 3 bf16 steps and 1
-    f32 step with the launches counted from 0 against those the recorded
-    K1 calls of a step make (``_option_step``: K1, dx, dW, K3), seconds a
-    step, device share and peak memory (``CLASSIFIER_SLOW_BF16``: one
-    bf16 step timed)."""
+def _classifier_training(smi, name, overrides=None, flash=None,
+                         parity_batch=None, batch_stats_tol=1e-5):
+    """Phase 19 (b), 21: the classifier ``name`` trained at its batch
+    (``CLASSIFIERS``: the yaml's 16 or 2, else the CLI's 4) on inputs of
+    its size (crops of 128x128x32, the ViT's 256x256x64 volumes) with the
+    CLI's augmentation and ``overrides`` of its config: the f32 step
+    against the plain path (``_step_parity``, ``batch_stats_tol``;
+    on ``parity_batch`` samples where given), then 3 bf16 steps and 1 f32 step with the launches
+    counted from 0 against those the recorded K1 calls of a step make
+    (``_option_step``: K1, dx, dW, K3) and ``flash`` (the attention
+    kernels' a step), seconds a step, device share and peak memory
+    (``CLASSIFIER_SLOW_BF16``: one bf16 step timed)."""
     import torch
 
     from adell_mri_torch.tools.flagship import (
+        CLASSIFIER_CLASSES,
         CLASSIFIERS,
+        classifier_shape,
         make_catnet_batch,
         make_catnet_trainer,
     )
 
     b = CLASSIFIERS[name][2]
-    batch = make_catnet_batch(2, batch=b, shape=CATNET_SHAPE)
+    shape = classifier_shape(name)
+    n_classes = CLASSIFIER_CLASSES.get(name, 2)
+    batch = make_catnet_batch(2, batch=b, shape=shape, n_classes=n_classes)
+    parity_inputs = batch if parity_batch is None else make_catnet_batch(
+        2, batch=parity_batch, shape=shape, n_classes=n_classes)
     out = {}
     for precision in ("32", "bf16"):
-        tr = make_catnet_trainer(0, precision, name=name)
-        parity = (_step_parity(tr, batch, name)
+        tr = make_catnet_trainer(0, precision, name=name,
+                                 overrides=overrides)
+        parity = (_step_parity(tr, parity_inputs, name, batch_stats_tol)
                   if precision == "32" else None)
         gen = torch.Generator(device="cuda").manual_seed(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         timed = (CLASSIFIER_TIMED_STEPS if precision == "bf16"
                  and name not in CLASSIFIER_SLOW_BF16 else 1)
-        steps = _option_step(tr, batch, gen, precision, name, n=timed)
+        steps = _option_step(tr, batch, gen, precision, name, n=timed,
+                             extra=flash)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
         def step():
@@ -5151,7 +5211,7 @@ def _classifier_training(smi, name):
 
         busy, wall = _device_share(step)
         log(f"[classifiers training] {smi}: {name}, {precision}, B={b} at "
-            f"{'x'.join(map(str, CATNET_SHAPE))}, augmentation on: "
+            f"{'x'.join(map(str, shape))}, augmentation on: "
             f"{', '.join(f'{x:.4f}' for x in steps['seconds_per_step'])} s "
             f"per step; device busy {busy:.4f} of {wall:.4f} s "
             f"({100 * busy / wall:.1f} %); peak {peak_gb:.2f} GB; "
@@ -5298,7 +5358,8 @@ def phase_classifiers(smi):
     out["vgg"]["convs"] = _catnet_conv_classes(VGG_CLASSES, seed=700)
     lap("vgg_convs")
     for name in CLASSIFIER_NAMES:
-        out[name]["training"] = _classifier_training(smi, name)
+        out[name]["training"] = _classifier_training(
+            smi, name, overrides=CLASSIFIER_TRAIN_OVERRIDES.get(name))
         lap(f"{name}_training")
     out["cli"] = _classifier_clis(smi)
     lap("cli")
@@ -5913,6 +5974,342 @@ def phase_ssl(smi):
 
 
 
+# -- phase 21: the classification CLI's last four net types -------------------
+
+VIT_BLOCKS = 10  # classification-vit.yaml: 10 blocks of 12 heads of 64
+VIT_HEADS = 12
+VIT_HEAD_DIM = 64
+VIT_TOKENS = 4097  # 256x256x64 in 16x16x4 patches and the class token
+VIT_LOSS_STEPS = 5
+# each kernel a forward (served, or a block's forward in a step) and a step
+VIT_FLASH_FORWARD = {"flash_attention_fwd": VIT_BLOCKS}
+VIT_FLASH_STEP = {"flash_attention_fwd": VIT_BLOCKS,
+                  "flash_attention_bwd_dq": VIT_BLOCKS,
+                  "flash_attention_bwd_dkv": VIT_BLOCKS}
+NEW_CLASSIFIERS = ("factorized_vit", "ord", "unet_classifier")
+# the U-Net encoder classifier's f32 step is held against the plain path on
+# 4 samples, its steps timed at the yaml's 2: with two samples its head's
+# batch norms set every feature to +-1 whatever the two values' distance,
+# and the step is ill-conditioned (on an NVIDIA H100 80GB HBM3 at 700 W: a
+# gradient norm of 2.8e5, the kernels 7.6e-4 in loss and 25 % in gradient
+# norm off the plain path; at 4 samples a norm of 201, 1.5e-6 and 6.4e-5)
+PARITY_BATCH = {"unet_classifier": 4}
+# its head normalises the pooled output of 14 K1 convs (3xTF32, each within
+# 1e-5 of its scale) and instance norms over those 4 samples: the served
+# pooled features already differ from the plain path's by 1.6e-5 of their
+# scale in f32, and the plain path's own batch variances there lie 1.45e-5
+# of the layer's scale from f64 (NVIDIA H100 80GB HBM3, 700 W), above the
+# 1e-5 the other classifiers' heads meet; so their excess over that
+# distance is held at 5e-5
+BATCH_STATS_TOL = {"unet_classifier": 5e-5}
+NEW_CLI_CASES = 6
+NEW_CLI_BATCH = 2
+
+
+class _flash_calls:
+    """Within the block every ``MultiHeadAttention`` forward that takes
+    the flash branch (no bias: the ViT blocks pass none; no active
+    dropout; ``[B, N, C]`` with at least ``FLASH_MIN_TOKENS`` tokens) is
+    recorded as whether autograd records it (a training step's, which
+    then launches its dQ and dK/dV)."""
+
+    def __enter__(self):
+        import torch
+
+        import adell_mri_torch.models.layers.vit as vit_mod
+
+        self.calls = []
+
+        def record(module, inputs):
+            if not isinstance(module, vit_mod.MultiHeadAttention):
+                return
+            q_in = inputs[0]
+            dropping = module.dropout is not None and module.training
+            if (module.use_flash and not dropping and q_in.dim() == 3
+                    and q_in.shape[1] >= vit_mod.FLASH_MIN_TOKENS):
+                self.calls.append(torch.is_grad_enabled() and (
+                    q_in.requires_grad or module.q.weight.requires_grad))
+
+        self.hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            record)
+        return self
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+        return False
+
+    def want(self):
+        steps = sum(self.calls)
+        return {"flash_attention_fwd": len(self.calls),
+                "flash_attention_bwd_dq": steps,
+                "flash_attention_bwd_dkv": steps}
+
+
+def _vit_attention():
+    """K4-K7 at the ViT classifier's shape, q, k, v [2,12,4097,64] (the
+    last 64-row tile of q and of k and v holds one row), in bf16 and f32:
+    against their plain versions and timed beside them,
+    ``F.scaled_dot_product_attention`` and the bound (phase 10's
+    ``compare_attention``)."""
+    import torch
+
+    shape = (CATNET_SERVE_BATCH, VIT_HEADS, VIT_TOKENS, VIT_TOKENS,
+             VIT_HEAD_DIM)
+    log(f"[vit attention] q, k, v [{CATNET_SERVE_BATCH},{VIT_HEADS},"
+        f"{VIT_TOKENS},{VIT_HEAD_DIM}]")
+    return {str(dtype).split(".")[1]: compare_attention(shape, dtype, 2100,
+                                                        timed=True)
+            for dtype in (torch.bfloat16, torch.float32)}
+
+
+def _vit_loss_steps(smi):
+    """``VIT_LOSS_STEPS`` bf16 steps of the dropout-0 ViT classifier on one
+    B=2 batch of 256x256x64 volumes without augmentation: finite losses,
+    the last below the first."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        classifier_shape,
+        make_catnet_batch,
+        make_catnet_trainer,
+    )
+
+    batch = make_catnet_batch(3, batch=CATNET_SERVE_BATCH,
+                              shape=classifier_shape("vit"))
+    tr = make_catnet_trainer(0, "bf16", name="vit",
+                             overrides={"dropout_rate": 0.0})
+    losses = []
+    for _ in range(VIT_LOSS_STEPS):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    log(f"[vit loss] {smi}: bf16, B={CATNET_SERVE_BATCH} at 256x256x64, "
+        f"one batch, no augmentation: losses {losses}")
+    if not (all(abs(x) < float("inf") for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"vit bf16 steps do not lower the loss: "
+                             f"{losses}")
+    del tr
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _new_cli(smi, tag, train_args, common, work, predict_types):
+    """``classification train`` (``train_args``), then ``test`` and
+    ``predict`` (each of ``predict_types``) on its checkpoint, in this
+    process, each under ``torch.profiler`` (``_device_share``) with the
+    launch counts set to 0 just before it: wall seconds, device share,
+    peak memory and launches, the launches held against those of the K1
+    calls (``_k1_calls``: K1, dx and dW in a step) and the flash calls
+    (``_flash_calls``) each run recorded, with K3 in the train run
+    alone."""
+    import torch
+
+    runs = {}
+    jobs = [("train", ["classification", "train", *common, *train_args]),
+            ("test", ["classification", "test", *common, "--metric_path",
+                      str(work / f"test_{tag}.csv")])]
+    jobs += [(f"predict_{kind}", [
+        "classification", "predict", *common, "--prediction_type", kind,
+        "--output_path", str(work / f"pred_{tag}_{kind}.json")])
+        for kind in predict_types]
+    for what, args in jobs:
+        got = []
+        torch.cuda.reset_peak_memory_stats()
+        with _k1_calls() as rec, _flash_calls() as frec:
+            busy, wall = _device_share(lambda: got.append(_cli(args)))
+        secs, text, counts = got[0]
+        want = _recorded_want(rec)
+        want.update(frec.want())
+        # K3 in the train run's steps (--augment intensity), whether or not
+        # the network runs K1
+        want.pop("intensity_aug")
+        if not ((counts["intensity_aug"] > 0) == (what == "train") and {
+                k: v for k, v in counts.items() if k != "intensity_aug"}
+                == want):
+            raise AssertionError(f"{tag} {what} launches {counts}, want "
+                                 f"{want} and K3 {what == 'train'}")
+        runs[what] = dict(seconds=secs, device_busy_s=busy, wall_s=wall,
+                          peak_memory_gb=torch.cuda.max_memory_allocated()
+                          / 1e9, counts=counts, text=text,
+                          flash_calls=len(frec.calls))
+    result = _last_json(runs["test"]["text"])
+    for run in runs.values():
+        run.pop("text")
+    preds = {kind: json.loads((work / f"pred_{tag}_{kind}.json").read_text())
+             for kind in predict_types}
+    return runs, result, preds
+
+
+def _new_clis(smi):
+    """Phase 21 (e): ``classification train``, ``test`` and ``predict``
+    for each new net type on 6 seeded cases (3 with bright ellipsoids,
+    label 1; their masks): the ViT classifier on a copy of
+    ``classification-vit.yaml`` with dropout 0 at 256x256x64 in f32 (the
+    flash kernels in train, test and predict), the factorized ViT at the
+    factory's defaults in bf16, OrdNet on
+    ``classification-cat-resnet.yaml`` with three grades in f32
+    (``--prediction_type pre_bias`` too) and the U-Net encoder classifier
+    on ``u-net-3d-resnet.yaml`` in bf16 with ``--mask_keys gland
+    --image_masking --image_crop_from_mask`` (a centred ellipsoid a case),
+    all at B=2 for one epoch
+    with the CLI's augmentation, 128x128x32 but the ViT's."""
+    import yaml
+
+    from adell_mri_torch.tools.flagship import (
+        AUGMENT_FLAGS,
+        CASE,
+        CATNET_YAML,
+        CLASSIFIERS,
+        RESNET_YAML,
+    )
+
+    import numpy as np
+
+    from adell_mri_torch.data.nifti import write_nifti
+
+    work = WORK_DIR / "new_classifier_cli"
+    work.mkdir(parents=True)
+    negatives = ("case_1", "case_3", "case_5")
+    cohorts = {}
+    for shape in (CATNET_SHAPE, CASE):
+        d = work / "x".join(map(str, shape))
+        d.mkdir()
+        ds = _pipeline_cohort(d, shape, negatives, n_cases=NEW_CLI_CASES)
+        # a gland mask for every case (masking by an empty lesion mask
+        # would zero the whole image): a centred ellipsoid over half of
+        # each axis, shifted a voxel a case, as the cohort's affine has it
+        axes = np.meshgrid(*[np.arange(n, dtype=np.float32) for n in shape],
+                           indexing="ij")
+        for i, (pid, entry) in enumerate(sorted(ds.items())):
+            entry["label"] = int(pid not in negatives)
+            entry["grade"] = i % 3
+            gland = sum(((a - n / 2 - i) / (n / 4)) ** 2
+                        for a, n in zip(axes, shape)) <= 1.0
+            entry["gland"] = str(d / f"{pid}_gland.nii")
+            write_nifti(entry["gland"], gland.astype(np.uint8),
+                        np.diag([-0.5, -0.5, 3.0, 1.0]))
+        (d / "ds_cls.json").write_text(json.dumps(ds))
+        cohorts[shape] = d / "ds_cls.json"
+    vit_yaml = work / "vit_dropout0.yaml"
+    vit_cfg = yaml.safe_load(CLASSIFIERS["vit"][1].read_text())
+    vit_yaml.write_text(yaml.safe_dump({**vit_cfg, "dropout_rate": 0.0}))
+    # the factory's defaults: a config of no network key
+    factorized_yaml = work / "factorized_vit.yaml"
+    factorized_yaml.write_text(yaml.safe_dump({"learning_rate": 1e-3}))
+    jobs = {
+        "vit": ("vit", vit_yaml, CASE, "32", [], ["probability"]),
+        "factorized_vit": ("factorized_vit", factorized_yaml, CATNET_SHAPE,
+                           "bf16", [], ["probability"]),
+        "ord": ("ord", CATNET_YAML, CATNET_SHAPE, "32",
+                ["--label_keys", "grade", "--possible_labels", "0", "1",
+                 "2"], ["probability", "pre_bias"]),
+        "unet": ("unet", RESNET_YAML, CATNET_SHAPE, "bf16",
+                 ["--mask_keys", "gland", "--image_masking",
+                  "--image_crop_from_mask"], ["probability"]),
+    }
+    out = {}
+    for tag, (net_type, yaml_path, shape, precision, extra,
+              kinds) in jobs.items():
+        ckpt = work / f"ckpt_{tag}"
+        common = ["--dataset_json", str(cohorts[shape]), "--dev", "cuda",
+                  "--checkpoint_dir", str(ckpt), "--precision", precision]
+        train_args = [
+            "--image_keys", "image", "--classification_net_type", net_type,
+            "--config_file", str(yaml_path),
+            "--pad_size", *map(str, shape),
+            "--target_spacing", "0.5", "0.5", "3.0",
+            "--batch_size", str(NEW_CLI_BATCH), "--max_epochs", "1",
+            "--n_folds", "1", "--augment", *AUGMENT_FLAGS, "--seed", "0",
+            "--metric_path", str(work / f"metrics_{tag}.csv"), *extra]
+        runs, result, preds = _new_cli(smi, tag, train_args, common, work,
+                                       kinds)
+        meta = json.loads((ckpt / "classification_fold0" /
+                           "metadata.json").read_text())
+        n_classes = 3 if tag == "ord" else 2
+        t_args = meta["transform_arguments"]
+        if (meta["net_type"] != net_type or meta["n_classes"] != n_classes
+                or t_args["image_masking"] != (tag == "unet")
+                or t_args["image_crop_from_mask"] != (tag == "unet")):
+            raise AssertionError(f"{tag} train wrote {meta}")
+        if result["n_cases"] != NEW_CLI_CASES or not 0 <= result["auc"] <= 1:
+            raise AssertionError(f"{tag} test: {result}")
+        probs = preds["probability"]
+        ok = len(probs) == NEW_CLI_CASES and all(
+            (abs(sum(v) - 1) < 1e-4 and len(v) == 3) if n_classes == 3
+            else 0 <= v <= 1 for v in probs.values())
+        if "pre_bias" in preds:
+            ok = ok and all(len(v) == 1 and abs(v[0]) < float("inf")
+                            for v in preds["pre_bias"].values())
+        if not ok:
+            raise AssertionError(f"{tag} predict: {preds}")
+        t = runs["train"]["counts"]
+        if tag == "vit" and not (t["flash_attention_bwd_dq"] > 0 and runs[
+                "test"]["counts"]["flash_attention_fwd"]
+                == VIT_BLOCKS * NEW_CLI_CASES):
+            raise AssertionError(f"vit CLI launches {runs}")
+        if tag in ("ord", "unet") and not (
+                t["conv3d_igemm"] > 0 and t["conv3d_igemm_dx"] > 0
+                and t["conv3d_weight_grad"]
+                + t["conv3d_weight_grad_patches"] > 0):
+            raise AssertionError(f"{tag} train launches {t}")
+        log(f"[new classifiers cli] {smi}: {tag} ({net_type}, {precision}"
+            f", {'x'.join(map(str, shape))}): "
+            + "; ".join(f"{what} {r['seconds']:.2f} s under the profiler, "
+                        f"device busy {r['device_busy_s']:.2f} s "
+                        f"({100 * r['device_busy_s'] / r['wall_s']:.1f} %), "
+                        f"peak {r['peak_memory_gb']:.2f} GB, launches "
+                        f"{r['counts']}" for what, r in runs.items())
+            + f"; test {result}; predictions {preds}")
+        out[tag] = dict(runs, test_result=result, predictions=preds,
+                        precision=precision)
+    return out
+
+
+def phase_new_classifiers(smi):
+    """Phase 21: the classification CLI's last four net types at full
+    width: the ViT classifier (``classification-vit.yaml``) served on
+    256x256x64 (4097 tokens: 10 forward launches), trained there with
+    dropout 0 (10 forward, 10 dQ, 10 dK/dV launches a step; f32 against
+    the plain path, bf16 steps lowering the loss) and with its own dropout
+    0.1 at B=4 on 128x128x32 crops (513 tokens, the materialised softmax:
+    no attention launch); K4-K7 at [2,12,4097,64]; the factorized ViT,
+    OrdNet and the U-Net encoder classifier served at B=2 and trained at
+    their batch on 128x128x32 (K1, dx, dW); the CLIs."""
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(part):
+        now = time.perf_counter()
+        laps[part] = now - last[0]
+        last[0] = now
+
+    out = {"vit": dict(serving=_classifier_serving(
+        smi, "vit", flash=VIT_FLASH_FORWARD))}
+    lap("vit_serving")
+    out["vit"]["training"] = _classifier_training(
+        smi, "vit", overrides={"dropout_rate": 0.0}, flash=VIT_FLASH_STEP)
+    out["vit"]["loss_steps"] = _vit_loss_steps(smi)
+    lap("vit_training")
+    out["vit_crops"] = dict(training=_classifier_training(smi, "vit_crops"))
+    lap("vit_crops_training")
+    out["attention"] = _vit_attention()
+    lap("vit_attention")
+    for name in NEW_CLASSIFIERS:
+        out[name] = dict(serving=_classifier_serving(smi, name),
+                         training=_classifier_training(
+                             smi, name, parity_batch=PARITY_BATCH.get(name),
+                             batch_stats_tol=BATCH_STATS_TOL.get(name,
+                                                                 1e-5)))
+        lap(name)
+    out["cli"] = _new_clis(smi)
+    lap("cli")
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = laps
+    log(f"[new classifiers] phase 21: {out['seconds']:.1f} s ({laps})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -5991,6 +6388,8 @@ def main():
     lap(19)
     ssl = phase_ssl(smi)
     lap(20)
+    new_classifiers = phase_new_classifiers(smi)
+    lap(21)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -6094,6 +6493,23 @@ def main():
            for tag in ("vicreg_f32", "vicreg_bf16", "byol_bf16",
                        "ijepa_bf16")},
         "ssl_predict_folder_f32": ssl["cli"]["predict_folder_f32"]["counts"],
+        # phase 21: the ViT classifier served (B=2, 256x256x64) and trained
+        # with dropout 0 there (3 bf16 steps and its 5 on one batch, 1 f32
+        # step) and with its dropout 0.1 on crops; the factorized ViT,
+        # OrdNet and the U-Net encoder classifier served (B=2) and trained
+        # (3 bf16 steps, 1 f32 step); the CLIs of the four net types
+        **{f"{name}_{what}{'' if p == 'bf16' else '_f32'}":
+           new_classifiers[name][what][p]["launches"]
+           for name in ("vit",) + NEW_CLASSIFIERS
+           for what in ("serving", "training") for p in ("bf16", "32")},
+        **{f"vit_crops_training{'' if p == 'bf16' else '_f32'}":
+           new_classifiers["vit_crops"]["training"][p]["launches"]
+           for p in ("bf16", "32")},
+        **{f"{tag}_cli_{what}_{'f32' if run['precision'] == '32' else 'bf16'}":
+           run[what]["counts"]
+           for tag, run in new_classifiers["cli"].items()
+           for what in run if what == "train" or what == "test"
+           or what.startswith("predict_")},
     }
 
     def launches_of(name):
@@ -6120,7 +6536,8 @@ def main():
               "U-Net options' steps and served cases, phase 19's VGG and "
               "ConvNeXt CatNet forwards, steps and clinical-feature CLI "
               "runs, phase 20's VICReg, BYOL and served SSL forwards and "
-              "steps and the ssl CLIs, every route",
+              "steps and the ssl CLIs, phase 21's OrdNet and U-Net encoder "
+              "classifier forwards, steps and CLI runs, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -6321,7 +6738,9 @@ def main():
     # kernel), on UNETR's f32 paths: the forward on the served case and the
     # step (B=1), dQ and dK/dV on the step
     f32_paths = ("unetr_serving_f32", "unetr_training_f32",
-                 "ssl_ijepa_training_f32")
+                 "ssl_ijepa_training_f32", "vit_serving_f32",
+                 "vit_training_f32", "vit_cli_train_f32", "vit_cli_test_f32",
+                 "vit_cli_predict_probability_f32")
     att32 = attention["float32"]
     for name, what, b, lines in (
             ("fwd", "forward", 1, ":49 and :151"), ("bwd_dq", "dQ", 2, ":300"),
@@ -6370,6 +6789,20 @@ def main():
                 max_abs_err=(row["errs"]["out"] if stem == "fwd" else
                              row["errs"]["dq"] if stem == "bwd_dq" else
                              max(row["errs"]["dk"], row["errs"]["dv"]))))
+    # phase 21: each attention kernel at the ViT classifier's shape
+    # [2,12,4097,64], by dtype
+    for dtype, row in new_classifiers["attention"].items():
+        for stem, t in row["times"].items():
+            name = f"flash_attention_{stem}" + (
+                "" if dtype == "bfloat16" else "_f32")
+            flash_kernels[name]["vit_shape"] = dict(
+                shape=[CATNET_SERVE_BATCH, VIT_HEADS, VIT_TOKENS,
+                       VIT_HEAD_DIM],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "max_abs_err", "tol")},
+                **({"library_bwd_ms": t["library_bwd_ms"]}
+                   if stem != "fwd" else {}))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, build_s=build_s,
@@ -6384,7 +6817,7 @@ def main():
         unetr_training=unetr_training, unetr_cli=unetr_cli,
         flagship_pipeline=pipeline, full_augmentation=augmentation,
         swin=swin, catnet=catnet, unet_options=options,
-        classifiers=classifiers, ssl=ssl,
+        classifiers=classifiers, ssl=ssl, new_classifiers=new_classifiers,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,

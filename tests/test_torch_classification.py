@@ -419,7 +419,8 @@ def test_catnet_features_and_unported_options():
         with pytest.raises(NotImplementedError, match=match):
             tfactories.get_classification_network("cat", {**TINY, **cfg})
     with pytest.raises(NotImplementedError, match="not ported"):
-        tfactories.get_classification_network("vit", TINY)
+        tfactories.get_classification_network(
+            "vit", {"moe_experts": 2}, image_size=SHAPE)
     # res_type resnext and feature_extraction (a headless CatNet, the
     # network a HybridClassifier wraps) are ported: eval features and
     # logits against the JAX network's (f32, 1e-5)

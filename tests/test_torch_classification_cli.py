@@ -11,6 +11,16 @@ JAX checkpoint of the same weights and running statistics within 1e-4
 ``--dev`` defaults to cuda and raises where there is no GPU; flags that
 are not ported raise ``NotImplementedError``.
 
+The four net types ``vit``, ``factorized_vit``, ``ord`` (three grades)
+and ``unet``: the port's ``test`` and ``predict`` (probabilities,
+``--prediction_type pre_bias``, the ``features`` refusal) against the
+JAX CLI's on the same seeded weights within ``TOL``, then the port's
+``train``, ``test`` and ``predict`` on the cohort, one run with
+``--mask_keys``, ``--image_masking`` and ``--image_crop_from_mask``;
+the masking and cropping of the port's ``ClassificationTransforms``
+against the JAX one's, and the port's CLIs on a masked checkpoint
+against the JAX CLI's.
+
 With ``--clinical_feature_keys`` (two numeric features of the cohort) the
 JAX CLI and the port's train, from the same initial weights (the JAX
 CLI's init, moved into the port's network), then test and predict on
@@ -268,15 +278,13 @@ def test_test_and_predict_match_jax(cohort, capsys, n_classes):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--image_masking"],
-     ["--image_crop_from_mask"], ["--mask_keys", "T2"],
+    [["--exclude_from_state_dict", "Dense"],
+     ["--not_freeze_regex", "Dense"], ["--conformal_alpha", "0.1"],
      ["--resize_size", "8", "8", "4"], ["--accumulate_grad_batches", "2"],
      ["--checkpoint", "x"], ["--freeze_regex", "Dense"],
      ["--calibration_ids", "case_0"], ["--logger_type", "wandb"],
-     ["--classification_net_type", "vit"],
-     ["--classification_net_type", "ord"],
-     ["--classification_net_type", "factorized_vit"],
-     ["--classification_net_type", "unet"]],
+     ["--project_name", "p"], ["--summary_name", "s"],
+     ["--tracking_uri", "file:x"], ["--log_model"]],
 )
 def test_train_unported_flags_raise(cohort, flags):
     with pytest.raises(NotImplementedError):
@@ -393,3 +401,228 @@ def test_clinical_features_match_jax_cli(cohort, capsys, monkeypatch, net):
     assert set(got_p) == set(want_p)
     for pid, v in want_p.items():
         np.testing.assert_allclose(got_p[pid], v, atol=TOL, rtol=0)
+
+
+# net type -> (network config, number of classes); tiny widths
+NEW_NETS = {
+    "vit": ({"patch_size": [4, 4, 2], "embedding_size": 32,
+             "number_of_blocks": 2, "n_heads": 2, "mlp_structure": [24],
+             "dropout_rate": 0.1}, 2),
+    "factorized_vit": ({"patch_size": [4, 4], "embed_dim": 32,
+                        "n_blocks": 2, "n_heads": 2}, 2),
+    "ord": ({"resnet_structure": [[8, 16, 3, 1], [16, 32, 3, 1]]}, 3),
+    "unet": ({"depth": [8, 16, 32], "conv_type": "resnet",
+              "link_type": "residual", "norm_type": "instance",
+              "dropout_param": 0.1}, 2),
+}
+
+
+@pytest.fixture(scope="module")
+def masked(cohort):
+    """A mask for each case (a box and one stray voxel, so the hull is no
+    box) and a dataset JSON that names them."""
+    ds = json.loads((cohort / "ds.json").read_text())
+    for i, pid in enumerate(sorted(ds)):
+        mask = np.zeros(SHAPE, np.float32)
+        mask[3 + i % 2:12, 4:11, 2:6] = 1.0
+        mask[5, 1 + i % 3, 3] = 1.0
+        path = str(cohort / f"{pid}_mask.nii.gz")
+        tnifti.write_nifti(path, mask, LPS)
+        ds[pid]["mask"] = path
+    (cohort / "ds_mask.json").write_text(json.dumps(ds))
+    return cohort / "ds_mask.json"
+
+
+def _net_checkpoints(root, tag, net_type, network, n_classes, seed,
+                     **t_args):
+    """A JAX checkpoint and a port one of the same seeded weights (and
+    running statistics drawn from the seed, where there are batch
+    norms), with the metadata ``classification train`` writes."""
+    metadata = {
+        "network_config": network,
+        "transform_arguments": {
+            "image_keys": ["T2"],
+            "label_key": "label" if n_classes == 2 else "grade",
+            "target_spacing": [1.0, 1.0, 2.0],
+            "target_size": list(SHAPE), "adc_keys": [],
+            "possible_labels": None if n_classes == 2 else ["a", "b", "c"],
+            **t_args,
+        },
+        "n_classes": n_classes,
+        "net_type": net_type,
+    }
+    jm = jget_network(net_type, network, n_classes=n_classes)
+    x = jnp.zeros((1,) + SHAPE + (1,))
+    params = jax.tree.map(jnp.asarray, random_flax_params(jm, x, seed=seed))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x)
+    rng = np.random.default_rng(seed + 1)
+    bs = jax.tree.map(lambda t: jnp.asarray(rng.uniform(
+        0.5, 1.5, t.shape).astype(np.float32)),
+        shapes.get("batch_stats", {}))
+    jdir, tdir = root / f"jax_{tag}", root / f"torch_{tag}"
+    jck = JaxCkpt(str(jdir), name="classification", fold=0,
+                  metadata=metadata)
+    jck.save(1, {"params": params, **({"batch_stats": bs} if bs else {})},
+             metrics={"val_loss": 0.5})
+    jck.wait()
+    CheckpointManager(str(tdir), name="classification", fold=0,
+                      metadata=metadata).save(from_flax(params, bs), step=1,
+                                              value=0.5)
+    return jdir, tdir
+
+
+def _both_serve(capsys, ds_json, jdir, tdir, out_dir, *extra):
+    """``test`` and ``predict`` (with ``extra``) of the JAX CLI on
+    ``jdir`` and the port's on ``tdir``: their metrics and predictions
+    within ``TOL``."""
+    common = ["--dataset_json", str(ds_json), "--dev", "cpu"]
+    results = {}
+    for side, main, d in (("jax", jax_main, jdir), ("torch", cli_main,
+                                                   tdir)):
+        capsys.readouterr()
+        main(["classification", "test", *common, "--checkpoint_dir", str(d),
+              "--metric_path", str(out_dir / f"m_{side}.csv")])
+        test = _last_json(capsys.readouterr().out)
+        test.pop("checkpoint")
+        pred = out_dir / f"p_{side}.json"
+        main(["classification", "predict", *common, "--checkpoint_dir",
+              str(d), "--output_path", str(pred), *extra])
+        results[side] = (test, json.loads(pred.read_text()))
+    (want, want_p), (got, got_p) = results["jax"], results["torch"]
+    assert set(got) == set(want) and got["n_cases"] == N_CASES
+    for k, v in want.items():
+        if isinstance(v, float) and np.isnan(v):
+            assert np.isnan(got[k]), k
+        else:
+            assert abs(got[k] - v) <= TOL, (k, got[k], v)
+    assert set(got_p) == set(want_p)
+    for pid, v in want_p.items():
+        np.testing.assert_allclose(got_p[pid], v, atol=TOL, rtol=0)
+    return got_p
+
+
+@pytest.mark.parametrize("net_type", list(NEW_NETS))
+def test_new_net_types_match_jax_cli(cohort, capsys, net_type):
+    """``test`` and ``predict`` of each new net type against the JAX
+    CLI's on the same weights: ``ord`` on three grades (its class
+    probabilities from the cumulative logits; ``--prediction_type
+    pre_bias`` the score on both sides), the others binary
+    (``pre_bias`` falls back to probabilities on both sides); both sides
+    refuse ``--prediction_type features`` for these net types."""
+    network, n_classes = NEW_NETS[net_type]
+    jdir, tdir = _net_checkpoints(cohort, net_type, net_type, network,
+                                  n_classes, seed=80)
+    out = cohort / f"serve_{net_type}"
+    out.mkdir()
+    probs = _both_serve(capsys, cohort / "ds.json", jdir, tdir, out)
+    if n_classes == 3:
+        assert all(len(v) == 3 and abs(sum(v) - 1) < 1e-5
+                   for v in probs.values())
+    pre_bias = _both_serve(capsys, cohort / "ds.json", jdir, tdir, out,
+                           "--prediction_type", "pre_bias")
+    if net_type == "ord":
+        assert all(len(v) == 1 for v in pre_bias.values())
+    else:
+        assert pre_bias == pytest.approx(probs, abs=1e-6)
+    for main, d in ((jax_main, jdir), (cli_main, tdir)):
+        with pytest.raises(ValueError, match="return_features"):
+            main(["classification", "predict", "--dataset_json",
+                  str(cohort / "ds.json"), "--dev", "cpu",
+                  "--checkpoint_dir", str(d), "--prediction_type",
+                  "features", "--output_path", str(out / "f.json")])
+
+
+@pytest.mark.parametrize("masking, cropping", [(True, False), (False, True),
+                                               (True, True)])
+def test_mask_transforms_match_jax(masked, masking, cropping):
+    """``ClassificationTransforms`` with a mask key: the images multiplied
+    by the mask's slice-wise convex hull, cropped to its bounding box with
+    a 16-voxel margin and back to the target size, or both; the port's
+    load equals the JAX one's (f32, 1e-6), the mask gone from the
+    sample."""
+    from adell_mri_tpu.transforms import (
+        ClassificationTransforms as JaxTransforms,
+    )
+    from adell_mri_torch.transforms.pipeline import ClassificationTransforms
+
+    ds = json.loads(masked.read_text())
+    kwargs = dict(image_keys=["T2"], label_key="label",
+                  target_spacing=[1.0, 1.0, 2.0], target_size=[12, 12, 6],
+                  mask_key="mask", image_masking=masking,
+                  image_crop_from_mask=cropping)
+    jload = JaxTransforms(**kwargs).load_fn()
+    tload = ClassificationTransforms(**kwargs).load_fn()
+    for pid in sorted(ds)[:3]:
+        entry = {**ds[pid], "identifier": pid}
+        want, got = jload(dict(entry)), tload(dict(entry))
+        assert got["image"].shape == (12, 12, 6, 1)
+        np.testing.assert_allclose(got["image"], want["image"], atol=1e-6,
+                                   rtol=0)
+        assert got["label"] == want["label"]
+        assert not {"fg_indices", "n_fg"} & set(got)
+
+
+def test_masked_checkpoint_matches_jax_cli(masked, capsys):
+    """A CatNet checkpoint trained with ``--mask_keys mask
+    --image_masking --image_crop_from_mask``: the port's ``test`` and
+    ``predict`` against the JAX CLI's on the same weights."""
+    mask_args = dict(mask_key="mask", image_masking=True,
+                     image_crop_from_mask=True)
+    jdir, tdir = _net_checkpoints(masked.parent, "masked", "cat", NETWORK,
+                                  2, seed=90, **mask_args)
+    out = masked.parent / "serve_masked"
+    out.mkdir()
+    _both_serve(capsys, masked, jdir, tdir, out)
+
+
+@pytest.mark.parametrize("net_type", list(NEW_NETS))
+def test_new_net_types_train_and_serve_on_cpu(cohort, masked, capsys,
+                                              net_type):
+    """``classification train`` (one epoch), ``test`` and ``predict``
+    for each new net type on the CPU; ``unet`` with ``--mask_keys``,
+    ``--image_masking`` and ``--image_crop_from_mask``, which
+    ``metadata.json`` keeps and serving repeats; ``ord`` on three grades
+    with ``--prediction_type pre_bias``."""
+    network, n_classes = NEW_NETS[net_type]
+    ckpt = cohort / f"ckpt_{net_type}"
+    (cohort / f"{net_type}.yaml").write_text(yaml.safe_dump(
+        {**network, "learning_rate": 0.01, "batch_size": 2}))
+    extra = ["--config_file", str(cohort / f"{net_type}.yaml"),
+             "--classification_net_type", net_type, "--max_epochs", "1"]
+    ds_json = cohort / "ds.json"
+    if n_classes == 3:
+        extra += ["--label_keys", "grade", "--possible_labels", "a", "b",
+                  "c"]
+    if net_type == "unet":
+        ds_json = masked
+        extra += ["--mask_keys", "mask", "--image_masking",
+                  "--image_crop_from_mask"]
+    args = _train_args(cohort, ckpt, *extra)
+    args[args.index("--dataset_json") + 1] = str(ds_json)
+    cli_main(["classification", "train", *args])
+    meta = json.loads((ckpt / "classification_fold0" / "metadata.json")
+                      .read_text())
+    assert meta["net_type"] == net_type and meta["n_classes"] == n_classes
+    t_args = meta["transform_arguments"]
+    assert (t_args["mask_key"], t_args["image_masking"],
+            t_args["image_crop_from_mask"]) == (
+        ("mask", True, True) if net_type == "unet" else (None, False,
+                                                        False))
+    common = ["--dataset_json", str(ds_json), "--dev", "cpu",
+              "--checkpoint_dir", str(ckpt)]
+    capsys.readouterr()
+    cli_main(["classification", "test", *common, "--metric_path",
+              str(ckpt / "test.csv")])
+    result = _last_json(capsys.readouterr().out)
+    assert result["n_cases"] == N_CASES
+    assert ("precision_c2" in result) == (n_classes == 3)
+    out = ckpt / "pred.json"
+    cli_main(["classification", "predict", *common, "--output_path",
+              str(out), "--prediction_type", "pre_bias"])
+    preds = json.loads(out.read_text())
+    assert len(preds) == N_CASES
+    if net_type == "ord":
+        assert all(len(v) == 1 and np.isfinite(v[0])
+                   for v in preds.values())
+    else:
+        assert all(0.0 <= v <= 1.0 for v in preds.values())

@@ -104,7 +104,7 @@ def test_unet_bf16_forward_runs(pair):
         {"skip_conditioning": 1},
         {"semi_supervised": True},
         {"conv_type": "sae_ref"},
-        {"encoder_only": True},
+        {"feature_conditioning": 2},
         {"spatial_dimensions": 2},
         {"encoder_structure": [[16, 16, 3, 1]]},
     ],
