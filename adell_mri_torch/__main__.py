@@ -9,7 +9,8 @@ import logging
 import os
 import sys
 
-supported_modes = ["segmentation", "classification", "ssl"]
+supported_modes = ["segmentation", "classification", "classification_ensemble",
+                   "ssl"]
 
 
 def main(arguments=None):

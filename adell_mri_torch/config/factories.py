@@ -181,6 +181,7 @@ def get_classification_network(
     clinical_feature_means: Optional[Sequence[float]] = None,
     clinical_feature_stds: Optional[Sequence[float]] = None,
     image_size: Optional[Sequence[int]] = None,
+    feature_extraction: bool = False,
 ):
     """The JAX factory's networks, keys and defaults: ``vgg`` (VGG:
     ``first_depth`` 16, ``n_blocks`` 4, ``norm_type`` "batch"); ``cat``,
@@ -209,7 +210,10 @@ def get_classification_network(
     ``dropout_param``). The two ViT classifiers are built for
     ``image_size``. With ``clinical_feature_means`` (and
     ``clinical_feature_stds``) the network is built headless inside a
-    ``HybridClassifier`` over that many tabular features."""
+    ``HybridClassifier`` over that many tabular features; with
+    ``feature_extraction`` it is built headless alone (an ensemble's
+    member: the JAX ensembles call their members with
+    ``return_features``, so flax creates no head)."""
     if net_type not in CLASSIFICATION_NET_TYPES:
         raise NotImplementedError(
             f"classification net_type {net_type!r} is not ported yet (the "
@@ -220,7 +224,8 @@ def get_classification_network(
             f"net_type {net_type!r} needs image_size: its positional "
             "embedding fixes the token count")
     cfg = dict(network_config)
-    headless = clinical_feature_means is not None
+    hybrid = clinical_feature_means is not None
+    headless = hybrid or feature_extraction
     sd = cfg.get("spatial_dimensions", 3)
     if net_type == "vgg":
         net = VGG(
@@ -323,7 +328,7 @@ def get_classification_network(
             gp_head=bool(cfg.get("gaussian_process", False)),
             feature_extraction=headless,
         )
-    if headless:
+    if hybrid:
         net = HybridClassifier(
             net, len(clinical_feature_means), n_classes=n_classes,
             tab_mean=list(clinical_feature_means),
@@ -343,6 +348,7 @@ def get_ssl_network(
     network_config: Dict[str, Any],
     in_channels: int = 1,
     image_size: Optional[Sequence[int]] = None,
+    feature_extraction: bool = False,
 ):
     """The JAX factory's networks, keys and defaults: ``ijepa`` (IJEPA:
     ``patch_size`` (4, 4, 4), ``embed_dim`` 192, ``n_blocks`` 4,

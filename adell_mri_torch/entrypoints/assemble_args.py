@@ -245,20 +245,26 @@ argument_factory: Dict[str, Dict[str, Any]] = {
                           help="Mask image with mask key"),
     "image_crop_from_mask": dict(
         action="store_true", help="Crop image from mask bounding box"),
-    "calibration_ids": dict(default=None, nargs="+", help="not ported yet"),
-    "conformal_alpha": dict(default=0.2, type=float, help="not ported yet"),
-    "one_to_one": dict(action="store_true", help="not ported yet"),
+    "calibration_ids": dict(
+        default=None, nargs="+",
+        help="Held-out IDs for conformal calibration after training"),
+    "conformal_alpha": dict(default=0.2, type=float,
+                            help="Conformal miscoverage level alpha"),
+    "one_to_one": dict(action="store_true",
+                       help="One checkpoint per ID group"),
     "ensemble": dict(
-        default=None, choices=["mean", "median"], help="not ported yet"
+        default=None, choices=["mean", "median"],
+        help="Ensembles the predictions of the checkpoints"
     ),
     "skip_keys": dict(default=None, nargs="+", help="not ported yet"),
     "feature_keys": dict(default=None, nargs="+", help="not ported yet"),
     "resize_size": dict(
-        default=None, nargs="+", type=int, help="not ported yet"
+        default=None, nargs="+", type=int,
+        help="Scale each volume to this size after the spacing"
     ),
     "lr_encoder": dict(default=None, type=float, help="not ported yet"),
     "accumulate_grad_batches": dict(
-        default=1, type=int, help="not ported yet"
+        default=1, type=int, help="Gradient accumulation steps"
     ),
     "logger_type": dict(default=None, help="not ported yet"),
     "project_name": dict(default=None, help="not ported yet"),
@@ -282,10 +288,14 @@ argument_factory: Dict[str, Dict[str, Any]] = {
         default=None, nargs="+", help="not ported yet"
     ),
     "exclude_from_state_dict": dict(
-        default=None, nargs="+", help="not ported yet"
+        default=None, nargs="+", help="Exclude regexes on ckpt load"
     ),
-    "freeze_regex": dict(default=None, nargs="+", help="not ported yet"),
-    "not_freeze_regex": dict(default=None, nargs="+", help="not ported yet"),
+    "freeze_regex": dict(default=None, nargs="+",
+                         help="Freeze params matching regex"),
+    "not_freeze_regex": dict(default=None, nargs="+",
+                             help="Never freeze params matching regex"),
+    "config_files": dict(default=None, nargs="+",
+                         help="Network YAML configs"),
 }
 
 

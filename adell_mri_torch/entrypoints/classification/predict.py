@@ -2,47 +2,65 @@
 ``python -m adell_mri_torch classification predict``.
 
 Counterpart of ``adell_mri_tpu/entrypoints/classification/predict.py``:
-the network and the transforms are rebuilt from the checkpoint's
-``metadata.json`` and its weights (running statistics included) from
-``model.pt``; each case is one forward of its ``target_size`` volume in
-eval mode. ``--prediction_type probability`` (the sigmoid of a binary
-model, else the softmax, or for OrdNet the class probabilities of its
-cumulative logits, ``ordinal_to_class_probs``), ``logit`` or
-``features`` (the pooled backbone features; the JAX CLI refuses it for
-``ord``, ``unet``, ``vit`` and ``factorized_vit``, whose modules take no
-``return_features``, and so does this one); ``pre_bias`` returns
-OrdNet's score before its thresholds and falls back to probabilities
-for every other net, as the JAX CLI does. The two ViT classifiers are
-built for the checkpoint's ``target_size``. A checkpoint trained with
-``--mask_keys`` and ``--image_masking`` or ``--image_crop_from_mask``
-masks or crops each case by its mask. One ``--prediction_ids`` group (or
-none: every case) writes the JAX CLI's ``{id: value}`` map, several write
-its list of
-records (``iteration``, ``prediction_ids``, ``checkpoint``,
-``predictions``), to ``--output_path`` and to standard output.
-``--precision bf16`` casts the weights and the inputs; the running
-statistics stay f32, as in the JAX package. A checkpoint trained with
-clinical features rebuilds its ``HybridClassifier`` (the features'
+the network and the transforms are rebuilt from ``--checkpoint_dir``'s
+``metadata.json`` (a ``--resize_size`` run's cases are scaled as in
+training), the weights (running statistics included) come from its
+``model.pt`` or from each ``--checkpoint`` run directory's; each case is
+one forward of its ``target_size`` volume in eval mode.
+``--prediction_type probability`` (the sigmoid of a binary model, else
+the softmax, or for OrdNet the class probabilities of its cumulative
+logits, ``ordinal_to_class_probs``), ``logit``, ``features`` (the pooled
+backbone features; the JAX CLI refuses it for ``ord``, ``unet``, ``vit``
+and ``factorized_vit``, whose modules take no ``return_features``, and
+so does this one), ``set`` (the conformal prediction set of each case, as
+class indices, from the ``q_hat`` that ``train --calibration_ids`` wrote
+to the default ``--checkpoint_dir``'s ``conformal.json``, for every
+checkpoint, as the JAX CLI reads it); ``pre_bias`` returns OrdNet's score
+before its thresholds and falls back to probabilities for every other
+net, as the JAX CLI does. The two ViT classifiers are built for the
+checkpoint's ``target_size``. A checkpoint trained with ``--mask_keys``
+and ``--image_masking`` or ``--image_crop_from_mask`` masks or crops each
+case by its mask. Where any checkpoint has a ``gp_covariance.npy`` (a GP
+head, ``train`` fitted it), the logits of every checkpoint take the
+mean-field correction (``predictive_logits``; a checkpoint without one
+takes a zero covariance, which leaves its logits as they are), except
+for ``features`` and ``pre_bias``. The JAX CLI's records
+(``prediction_utils.run_prediction_matrix``): one checkpoint, one
+``--prediction_ids`` group and no ``--one_to_one`` or ``--ensemble``
+write its ``{id: value}`` map, anything else its list of records
+(``iteration``, ``prediction_ids``, ``checkpoint``, ``predictions``),
+with ``--ensemble mean|median`` an aggregate record last (not of sets),
+to ``--output_path`` and to standard output. ``--precision bf16`` casts
+the weights and the inputs; the running statistics and a GP head's
+random features stay f32, as in the JAX package. A checkpoint trained
+with clinical features rebuilds its ``HybridClassifier`` (the features'
 mean and standard deviation from ``metadata.json``) and feeds each case's
 ``features``; it has no ``features`` or ``pre_bias`` prediction type, as
-the JAX one has none. Several checkpoints,
-``--one_to_one``, ``--ensemble`` and conformal sets are not ported yet.
+the JAX one has none.
 """
 
 import json
 import logging
-from typing import NamedTuple
+import os
+from typing import Dict, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from adell_mri_torch.config.factories import get_classification_network
+from adell_mri_torch.data import Dataset
+from adell_mri_torch.device import use_device
+from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.entrypoints.prediction_utils import (
+    prediction_id_groups,
+    resolve_checkpoint_variables,
+    run_prediction_matrix,
+)
 from adell_mri_torch.models.classification.losses import (
     ordinal_to_class_probs,
 )
-from adell_mri_torch.data import Dataset
-from adell_mri_torch.data.dataset import parse_ids
-from adell_mri_torch.device import use_device
-from adell_mri_torch.entrypoints.assemble_args import Parser
+from adell_mri_torch.models.layers.conformal import AdaptivePredictionSets
+from adell_mri_torch.models.layers.gaussian_process import predictive_logits
 from adell_mri_torch.train.checkpoints import CheckpointManager
 from adell_mri_torch.train.precision import compute_dtype
 from adell_mri_torch.transforms.pipeline import ClassificationTransforms
@@ -55,18 +73,21 @@ ARG_KEYS = [
     "prediction_ids",
     "checkpoint_dir",
     "checkpoint_name",
+    "checkpoint",
+    "one_to_one",
+    "ensemble",
     "n_classes",
     "output_path",
     ("prediction_type", "prediction_type", dict(
         help="probability|logit|features|pre_bias (OrdNet only; else "
-        "probability)")),
+        "probability)|set (conformal prediction sets; needs a calibrated "
+        "checkpoint)")),
     "dev",
     "seed",
     "classification_net_type",
     "precision",
 ]
-UNPORTED_KEYS = ["checkpoint", "one_to_one", "ensemble"]
-PREDICTION_TYPES = ("probability", "logit", "features", "pre_bias")
+PREDICTION_TYPES = ("probability", "logit", "features", "pre_bias", "set")
 # the JAX modules of these net types take no return_features
 NO_FEATURES = {"ord": "OrdNet", "unet": "UNetEncoderClassifier",
                "vit": "ViTClassifier",
@@ -79,13 +100,17 @@ class Classifier(NamedTuple):
     transforms: ClassificationTransforms
     dtype: torch.dtype
     dir: str  # the fold directory, the JAX CLI's checkpoint label
+    # (label, weights on the device) of each checkpoint to serve
+    checkpoints: List[Tuple[str, Dict[str, torch.Tensor]]]
 
 
 def load_classifier(args, device) -> Classifier:
     """The classifier of ``--checkpoint_dir``'s fold 0: the model in eval
-    mode on ``device``, its parameters in the compute dtype and its
-    running statistics f32; the transforms rebuild the training run's
-    loading and label mapping."""
+    mode on ``device`` and the transforms that rebuild the training run's
+    loading and label mapping, from its metadata; the weights of each
+    ``--checkpoint`` (else of that fold), the parameters in the compute
+    dtype and the buffers (running statistics, a GP head's random
+    features) f32."""
     dtype = compute_dtype(args.precision) or torch.float32
     mngr = CheckpointManager(
         args.checkpoint_dir, name=args.checkpoint_name or "classification",
@@ -93,9 +118,6 @@ def load_classifier(args, device) -> Classifier:
     )
     metadata = mngr.load_metadata()
     t_args = metadata.get("transform_arguments", {})
-    if t_args.get("resize_size"):
-        raise NotImplementedError(
-            "checkpoints trained with a resize are not ported yet")
     image_keys = args.image_keys or t_args.get("image_keys", ["image"])
     model = get_classification_network(
         net_type_of(args, metadata),
@@ -106,15 +128,27 @@ def load_classifier(args, device) -> Classifier:
         clinical_feature_stds=metadata.get("clinical_feature_stds"),
         image_size=t_args.get("target_size"),
     )
-    model.load_state_dict(mngr.load_state_dict())
     model = model.to(device).eval()
-    for p in model.parameters():
-        p.data = p.data.to(dtype)
+    names = {k for k, _ in model.named_parameters()}
+    expected = set(model.state_dict())
+
+    def on_device(label, state):
+        missing = expected - set(state)
+        if missing:
+            raise KeyError(f"{label}: no {sorted(missing)[0]} in its weights")
+        return {k: v.to(device, dtype if k in names else torch.float32)
+                for k, v in state.items()}
+
+    checkpoints = [
+        (label, on_device(label, state)) for label, state in
+        resolve_checkpoint_variables(getattr(args, "checkpoint", None), mngr)
+    ]
     transforms = ClassificationTransforms(
         image_keys=image_keys,
         label_key=t_args.get("label_key", "label"),
         target_spacing=t_args.get("target_spacing"),
         target_size=tuple(t_args.get("target_size")),
+        resize_size=t_args.get("resize_size"),
         adc_keys=t_args.get("adc_keys") or (),
         positive_labels=t_args.get("positive_labels"),
         possible_labels=t_args.get("possible_labels"),
@@ -124,7 +158,8 @@ def load_classifier(args, device) -> Classifier:
         image_masking=bool(t_args.get("image_masking")),
         image_crop_from_mask=bool(t_args.get("image_crop_from_mask")),
     )
-    return Classifier(model, metadata, transforms, dtype, mngr.dir)
+    return Classifier(model, metadata, transforms, dtype, mngr.dir,
+                      checkpoints)
 
 
 def net_type_of(args, metadata) -> str:
@@ -142,30 +177,54 @@ def class_probabilities(logits, n_classes: int, net_type: str):
     return torch.softmax(logits, -1).numpy()
 
 
-def forward(clf: Classifier, sample, device, **kwargs):
-    """The f32 output of one loaded case: its ``image`` [*S, C] and, for a
-    hybrid classifier, its ``features`` [F] (numpy), in the compute
-    dtype."""
+def forward(clf: Classifier, weights, sample, device, **kwargs):
+    """The f32 output of one loaded case under ``weights`` (a
+    checkpoint's): its ``image`` [*S, C] and, for a hybrid classifier, its
+    ``features`` [F] (numpy), in the compute dtype. With ``return_phi``
+    (a GP head) the pair of logits and random features."""
     inputs = [sample["image"]]
     if clf.transforms.clinical_feature_keys:
         inputs.append(sample["features"])
-    inputs = [torch.from_numpy(a).to(device=device, dtype=clf.dtype)[None]
-              for a in inputs]
+    inputs = tuple(torch.from_numpy(a).to(device=device, dtype=clf.dtype)
+                   [None] for a in inputs)
     with torch.inference_mode():
-        return clf.model(*inputs, **kwargs)[0].float().cpu()
+        out = torch.func.functional_call(clf.model, weights, inputs, kwargs)
+    if isinstance(out, tuple):
+        return tuple(o[0].float().cpu() for o in out)
+    return out[0].float().cpu()
+
+
+def gp_covariances(checkpoints) -> Dict[str, torch.Tensor]:
+    """Each checkpoint's ``gp_covariance.npy`` (f32), a zero matrix of the
+    same size where one lacks it; empty when none has one."""
+    covs = {label: (np.load(os.path.join(label, "gp_covariance.npy"))
+                    if os.path.exists(os.path.join(label,
+                                                   "gp_covariance.npy"))
+                    else None)
+            for label, _ in checkpoints}
+    found = [c for c in covs.values() if c is not None]
+    if not found:
+        return {}
+    d = found[0].shape[0]
+    return {label: torch.from_numpy(np.asarray(
+        c if c is not None else np.zeros((d, d)), np.float32))
+        for label, c in covs.items()}
 
 
 def main(arguments):
     parser = Parser(prog="adell classification predict")
-    parser.add_argument_by_key(ARG_KEYS + UNPORTED_KEYS)
+    parser.add_argument_by_key(ARG_KEYS)
     args = parser.parse_args(arguments)
-    parser.reject_unported(args, UNPORTED_KEYS)
     prediction_type = args.prediction_type
     if prediction_type not in PREDICTION_TYPES:
         raise NotImplementedError(
             f"--prediction_type {prediction_type} is not ported yet (the "
             f"port has {', '.join(PREDICTION_TYPES)})"
         )
+    if args.ensemble is not None and prediction_type == "set":
+        raise ValueError(
+            "--ensemble cannot aggregate --prediction_type set outputs; "
+            "ensemble the probabilities instead and calibrate on them")
     device = use_device(args.dev)
     clf = load_classifier(args, device)
     net_type = net_type_of(args, clf.metadata)
@@ -185,29 +244,52 @@ def main(arguments):
                 f"--prediction_type {prediction_type} is not supported by "
                 f"net_type {net_type!r} ({module} takes no "
                 f"{next(iter(kwargs))})")
+    covs = gp_covariances(clf.checkpoints)
+    if covs and kwargs:
+        logger.info(
+            "gp_covariance.npy present but --prediction_type %s requests "
+            "raw outputs; skipping the GP correction", prediction_type)
+        covs = {}
+    aps = None
+    if prediction_type == "set":
+        conf_path = os.path.join(clf.dir, "conformal.json")
+        if not os.path.exists(conf_path):
+            raise FileNotFoundError(
+                f"--prediction_type set needs {conf_path}; train with "
+                "--calibration_ids first")
+        with open(conf_path) as f:
+            conf = json.load(f)
+        aps = AdaptivePredictionSets(alpha=conf.get("alpha", 0.2))
+        aps.q_hat = conf["q_hat"]
     n_classes = clf.metadata.get("n_classes", args.n_classes)
     load_fn = clf.transforms.load_fn()
-
     data = Dataset(args.dataset_json)
-    groups = (parse_ids(list(args.prediction_ids), "nested_list")
-              if args.prediction_ids else [list(data.keys())])
-    groups = [[pid for pid in g if pid in data.dataset] for g in groups]
+    groups = prediction_id_groups(args.prediction_ids, data)
 
-    def predict_one(pid):
-        out = forward(clf, load_fn({**data[pid], "identifier": pid}),
-                      device, **kwargs)
-        if prediction_type != "probability":
+    def predict_one(weights, pid, label):
+        sample = load_fn({**data[pid], "identifier": pid})
+        if covs:
+            logits, phi = forward(clf, weights, sample, device,
+                                  return_phi=True)
+            out = predictive_logits(logits[None], phi[None],
+                                    covs[label])[0]
+        else:
+            out = forward(clf, weights, sample, device, **kwargs)
+        if prediction_type in ("logit", "features", "pre_bias"):
             return out.tolist()
         probs = class_probabilities(out, n_classes, net_type)
+        if prediction_type == "set":
+            row = [1.0 - probs, probs] if n_classes == 2 else probs
+            members = aps(np.asarray([row]))[0]
+            return [int(i) for i in np.nonzero(members)[0]]
         return probs if n_classes == 2 else probs.tolist()
 
-    records = [
-        {"iteration": i, "prediction_ids": list(group),
-         "checkpoint": clf.dir,
-         "predictions": {pid: predict_one(pid) for pid in group}}
-        for i, group in enumerate(groups)
-    ]
-    out = records[0]["predictions"] if len(records) == 1 else records
+    records = run_prediction_matrix(groups, clf.checkpoints, predict_one,
+                                    one_to_one=args.one_to_one,
+                                    ensemble=args.ensemble)
+    legacy = (not args.checkpoint and args.ensemble is None
+              and not args.one_to_one and len(groups) == 1)
+    out = records[0]["predictions"] if legacy else records
     with open(args.output_path, "w") as f:
         json.dump(out, f)
     print(json.dumps(out))

@@ -34,20 +34,43 @@ voxels), ``--label_smoothing``, ``--mixup_alpha``, ``--partial_mixup``,
 ``--class_weights``, ``--weighted_sampling``,
 ``--correct_classification_bias``, sgd/adam/adamw under cosine annealing
 with warmup, bf16 or f32 compute, ``--swa``, ``--early_stopping``,
-``--resume_from_last``, ``--steps_per_epoch`` and the data selection
-flags. Every other flag is parsed and raises ``NotImplementedError`` when
-given a value other than its default.
+``--resume_from_last``, ``--steps_per_epoch``, the data selection
+flags and ``--resize_size`` (each volume scaled after the spacing, before
+the crop or pad to ``--pad_size``, the base size where that is not
+given). ``--checkpoint`` warm-starts every fold from earlier runs' best
+weights (``{dir}/{name}_fold0``, or the same without the suffix: the
+parameters whose JAX tree paths and shapes match and that no
+``--exclude_from_state_dict`` regex names; running statistics stay the
+new model's). ``--freeze_regex`` (less ``--not_freeze_regex``) gives the
+parameters whose JAX tree paths match no update at all.
+``--accumulate_grad_batches k`` applies the mean gradient of k steps once
+every k (the schedule runs over ``steps_per_epoch // k`` updates an
+epoch; the running statistics move at every step). A config with
+``gaussian_process: true`` builds CatNet's GP head: after the fold's
+best weights are restored, its covariance is fitted over the train
+loader's batches and saved as ``gp_covariance.npy`` beside the weights,
+which ``predict`` then applies. ``--calibration_ids`` (left out of the
+folds) calibrates ``AdaptivePredictionSets`` at ``--conformal_alpha``
+on those cases, one at a time, into ``conformal.json`` (``q_hat``,
+``alpha``, ``n_calibration``). The covariance fit and the calibration
+apply the parameters alone, as the JAX CLI's do: their batch norms
+normalise by each batch (one case's statistics in the calibration, and
+(0, 1) in the head's 1-d norms), not by the running statistics that
+``test`` and ``predict`` serve with. The logger flags are parsed and
+raise ``NotImplementedError`` when given a value other than their
+default.
 """
 
 import json
 import logging
+import os
 
 import numpy as np
 import torch
 
 from adell_mri_torch.config.factories import get_classification_network
 from adell_mri_torch.config.parsing import parse_config_cat
-from adell_mri_torch.data.dataset import Dataset
+from adell_mri_torch.data.dataset import Dataset, parse_ids
 from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
 from adell_mri_torch.data.samplers import (
     RandomSampler,
@@ -70,15 +93,24 @@ from adell_mri_torch.models.classification.losses import (
     ordinal_sigmoidal_loss,
 )
 from adell_mri_torch.models.layers.adn import batch_statistics_mode
+from adell_mri_torch.models.layers.conformal import AdaptivePredictionSets
+from adell_mri_torch.models.layers.gaussian_process import fit_covariance
 from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.batch_preprocessing import BatchPreprocessing
 from adell_mri_torch.train.checkpoints import (
+    MODEL_FILE,
     CheckpointManager,
     correct_classification_bias,
+    freeze_mask_by_regex,
+    load_params_into,
 )
 from adell_mri_torch.train.logging_utils import MetricLogger
 from adell_mri_torch.train.loop import TrainLoop
-from adell_mri_torch.train.optim import get_optimizer
+from adell_mri_torch.train.optim import (
+    accumulate_gradients,
+    freeze_wrap,
+    get_optimizer,
+)
 from adell_mri_torch.train.precision import compute_dtype
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
 from adell_mri_torch.train.state import TrainState
@@ -113,6 +145,75 @@ def parameters_alone(loss_and_metrics, model, train: bool):
 
     return step
 
+
+def warm_start(model, ck_path: str, exclude=None):
+    """Loads into ``model``'s parameters those of the best weights of the
+    run ``ck_path`` (``{dir}/{name}_fold0``; the suffix is optional, as in
+    the JAX CLI) that ``load_params_into`` matches, leaving out the JAX
+    tree paths ``exclude`` names."""
+    src = CheckpointManager(os.path.dirname(ck_path) or ".",
+                            name=os.path.basename(ck_path).replace(
+                                "_fold0", ""), fold=0)
+    if not os.path.exists(os.path.join(src.dir, MODEL_FILE)):
+        logger.warning("warm start: no %s in %s; skipped", MODEL_FILE,
+                       src.dir)
+        return
+    skipped = load_params_into(dict(model.named_parameters()),
+                               src.load_state_dict(), exclude or ())
+    logger.info("warm start from %s (%d skipped)", ck_path, len(skipped))
+
+
+def _params_alone(model, *inputs, **kwargs):
+    """The f32 forward of the JAX CLI's ``apply({"params": ...})`` in
+    eval: batch norms by each batch's statistics."""
+    with torch.no_grad(), batch_statistics_mode(model):
+        return model(*inputs, **kwargs)
+
+
+def fit_gp_covariance(model, loader, device, out_dir: str):
+    """The GP head's covariance (``fit_covariance``) over the random
+    features of ``loader``'s batches, to ``gp_covariance.npy``."""
+    phis = [_params_alone(model, torch.from_numpy(b["image"]).to(device),
+                          return_phi=True)[1] for b in loader]
+    if phis:
+        cov = fit_covariance(torch.cat(phis))
+        np.save(os.path.join(out_dir, "gp_covariance.npy"),
+                cov.cpu().numpy())
+        logger.info("GP covariance fitted over %d batches", len(phis))
+
+
+def calibrate(model, data, calibration_ids, load_fn, device,
+              n_classes: int, alpha: float, features: bool, out_dir: str):
+    """``AdaptivePredictionSets`` at ``alpha`` on the calibration cases,
+    one forward each (the softmax, or the sigmoid's two classes), to
+    ``conformal.json``."""
+    pids = [p for p in parse_ids(calibration_ids, "list")
+            if p in data.dataset]
+    probs, labels = [], []
+    for entry in data.to_datalist(pids):
+        sample = load_fn(entry)
+        inputs = [torch.from_numpy(sample["image"])[None].to(device)]
+        if features:
+            inputs.append(torch.from_numpy(sample["features"])[None]
+                          .to(device))
+        logits = _params_alone(model, *inputs)[0].float().cpu()
+        if n_classes == 2:
+            p1 = float(torch.sigmoid(logits[0]))
+            probs.append([1.0 - p1, p1])
+        else:
+            probs.append(torch.softmax(logits, -1).tolist())
+        labels.append(int(sample["label"]))
+    if not probs:
+        return
+    aps = AdaptivePredictionSets(alpha=alpha).calibrate(
+        np.asarray(probs), np.asarray(labels))
+    with open(os.path.join(out_dir, "conformal.json"), "w") as f:
+        json.dump({"q_hat": aps.q_hat, "alpha": aps.alpha,
+                   "n_calibration": len(probs)}, f)
+    logger.info("conformal calibrated on %d cases (q_hat=%.4f)", len(probs),
+                aps.q_hat)
+
+
 ARG_KEYS = [
     "dataset_json",
     "image_keys",
@@ -132,6 +233,7 @@ ARG_KEYS = [
     "target_spacing",
     "pad_size",
     "crop_size",
+    "resize_size",
     "random_crop_size",
     "config_file",
     "dev",
@@ -149,6 +251,7 @@ ARG_KEYS = [
     "learning_rate",
     "optimizer",
     "precision",
+    "accumulate_grad_batches",
     "gradient_clip_val",
     "check_val_every_n_epoch",
     "early_stopping",
@@ -160,29 +263,28 @@ ARG_KEYS = [
     "monitor",
     "metric_path",
     "correct_classification_bias",
+    "checkpoint",
+    "exclude_from_state_dict",
+    "freeze_regex",
+    "not_freeze_regex",
     "classification_net_type",
     "swa",
     "steps_per_epoch",
+    "calibration_ids",
+    "conformal_alpha",
     "clinical_feature_keys",
     "mask_keys",
     "image_masking",
     "image_crop_from_mask",
 ]
+# the experiment loggers: the port writes the metric CSV alone
 UNPORTED_KEYS = [
-    "resize_size",
-    "accumulate_grad_batches",
     "logger_type",
     "project_name",
     "summary_name",
     "summary_dir",
     "tracking_uri",
     "log_model",
-    "checkpoint",
-    "exclude_from_state_dict",
-    "freeze_regex",
-    "not_freeze_regex",
-    "calibration_ids",
-    "conformal_alpha",
 ]
 
 
@@ -243,12 +345,16 @@ def main(arguments):
                           if all(fk in data[k] for fk in feat_keys)])
         feat_means, feat_stds = mat.mean(0).tolist(), mat.std(0).tolist()
 
-    base_size = args.pad_size or args.crop_size
+    base_size = args.pad_size or args.resize_size or args.crop_size
     if base_size is None:
-        raise ValueError("one of --pad_size/--crop_size is required")
+        raise ValueError(
+            "one of --pad_size/--resize_size/--crop_size is required")
     crop_size = args.random_crop_size
 
     pids = list(data.keys())
+    if args.calibration_ids:
+        calib_set = set(parse_ids(args.calibration_ids, "list"))
+        pids = [p for p in pids if p not in calib_set]
     folds = get_folds(
         pids, args.n_folds, args.seed, args.folds,
         labels=stratification_labels(data, pids, label_key, args.n_folds,
@@ -304,6 +410,7 @@ def main(arguments):
             label_key=label_key,
             target_spacing=args.target_spacing,
             target_size=base_size,
+            resize_size=args.resize_size,
             crop_size=crop_size,
             adc_keys=args.adc_keys or (),
             augmentations=AugmentPolicy.classification(
@@ -351,21 +458,35 @@ def main(arguments):
             correct_classification_bias(
                 dict(model.named_parameters()),
                 [float(e[label_key]) for e in train_list])
+        for ck_path in args.checkpoint or []:
+            warm_start(model, ck_path, args.exclude_from_state_dict)
 
         steps_per_epoch = max(len(train_loader), 1)
         if args.steps_per_epoch:
             steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
+        # the optimizer and its schedule advance once per accumulation
         schedule = cosine_annealing_with_warmup(
-            learning_rate, t_max=args.max_epochs * steps_per_epoch,
+            learning_rate,
+            t_max=args.max_epochs * max(
+                1, steps_per_epoch // max(1, args.accumulate_grad_batches)),
             n_warmup_steps=args.warmup_steps,
         )
-        state = TrainState.create(
-            model,
-            lambda params: get_optimizer(
+
+        def make_tx(params):
+            tx = get_optimizer(
                 args.optimizer, learning_rate=schedule,
                 weight_decay=weight_decay, clip_norm=args.gradient_clip_val,
                 params=params,
-            ),
+            )
+            if args.freeze_regex or args.not_freeze_regex:
+                tx = freeze_wrap(tx, freeze_mask_by_regex(
+                    params, args.freeze_regex or (),
+                    args.not_freeze_regex or ()))
+            return accumulate_gradients(tx, args.accumulate_grad_batches)
+
+        state = TrainState.create(
+            model,
+            make_tx,
             # SWA averages the last quarter of the steps
             swa_start_step=(int(0.75 * args.max_epochs * steps_per_epoch)
                             if args.swa else None),
@@ -383,7 +504,8 @@ def main(arguments):
                     "label_key": label_key,
                     "target_spacing": args.target_spacing,
                     "target_size": list(base_size),
-                    "resize_size": None,
+                    "resize_size": (list(args.resize_size)
+                                    if args.resize_size else None),
                     "clinical_feature_keys": feat_keys,
                     **labels_args,
                     "adc_keys": list(args.adc_keys or ()),
@@ -444,3 +566,19 @@ def main(arguments):
         final = history[-1] if history else {}
         logger.info("fold %d done: %s", fold_idx,
                     json.dumps(final, default=float))
+        gp = bool(net_cfg.get("gaussian_process")) and not feat_keys
+        if not (gp or args.calibration_ids):
+            continue
+        # fitted on the weights test and predict serve: the best epoch's
+        if os.path.exists(os.path.join(ckpt.dir, MODEL_FILE)):
+            best = ckpt.load_state_dict()
+            with torch.no_grad():
+                for k, v in state.params.items():
+                    v.copy_(best[k])
+        model.eval()
+        if gp:
+            fit_gp_covariance(model, train_loader, device, ckpt.dir)
+        if args.calibration_ids:
+            calibrate(model, data, args.calibration_ids, load_fn, device,
+                      n_classes, args.conformal_alpha, bool(feat_keys),
+                      ckpt.dir)

@@ -26,7 +26,9 @@ slice_class_token}``, ``SeqPool_0`` and ``MLP_0``;
 NonContrastiveWrapper's ``backbone`` (CatNet with ``feature_extraction``),
 ``proj_{i}``, ``proj_norm`` and ``pred_{i}``; IJEPA's ``embed``,
 ``ctx_mask_token``, ``context_encoder``, ``ctx2pred``, ``predictor``,
-``pred_out`` and ``target_encoder``), so
+``pred_out`` and ``target_encoder``; CatNet's Gaussian-process head
+``gp/beta``; GenericEnsemble's and AveragingEnsemble's
+``networks_{i}`` and the fusion head's ``Dense_{i}``), so
 each flax leaf ``a/b/kernel`` becomes the port
 key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
 batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token
@@ -59,7 +61,7 @@ parameters has no keys on either side.
 """
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,12 +97,18 @@ def _convert_kernel(path, k: np.ndarray) -> np.ndarray:
     return k
 
 
-def from_flax(params: Mapping, batch_stats: Mapping = None
+def from_flax(params: Mapping, batch_stats: Mapping = None,
+              gp_features: Optional[Tuple[np.ndarray, np.ndarray]] = None
               ) -> Dict[str, torch.Tensor]:
     """``params``: the flax ``params`` tree (nested dict of arrays);
     ``batch_stats``: the running statistics' collection, when the model
-    has batch norms. Returns the port's ``state_dict`` (float32 CPU
-    tensors)."""
+    has batch norms; ``gp_features``: ``(w, b)``, the random Fourier
+    features that a JAX ``GaussianProcessLayer`` draws inside its call
+    (``normal(PRNGKey(0), (in, n)) / length_scale`` and ``uniform(
+    PRNGKey(1), (n,), maxval=2 pi)``), which the port's layer keeps as
+    the buffers ``w`` and ``b`` beside its ``beta``; every GP head of the
+    tree (a ``gp/beta`` kernel) needs them. Returns the port's
+    ``state_dict`` (float32 CPU tensors)."""
     state = {}
     for path, leaf in _flatten(batch_stats or {}):
         if path[-1] not in ("mean", "var"):
@@ -122,4 +130,23 @@ def from_flax(params: Mapping, batch_stats: Mapping = None
         state[".".join(path[:-1] + (key,))] = torch.from_numpy(
             np.array(arr, dtype=np.float32, order="C")  # owned copy
         )
+        if path[-3:-1] == ("gp", "beta"):
+            if gp_features is None:
+                raise ValueError(
+                    f"{'/'.join(path)}: a Gaussian-process head needs its "
+                    "random features (gp_features)")
+            for name, arr in zip(("w", "b"), gp_features):
+                state[".".join(path[:-2] + (name,))] = torch.from_numpy(
+                    np.array(arr, dtype=np.float32, order="C"))
     return state
+
+
+def flax_path(name: str, tensor: torch.Tensor) -> str:
+    """The JAX tree path of the port's parameter ``name`` (``from_flax``
+    read backwards): the dots become slashes and a ``weight`` becomes
+    ``scale`` where it is 1-d (every norm's, and nothing else's) and
+    ``kernel`` otherwise."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "scale" if tensor.dim() == 1 else "kernel"
+    return "/".join(parts)

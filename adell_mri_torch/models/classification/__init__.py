@@ -1,13 +1,16 @@
-"""Classification models of the port: VGG, CatNet (every ``res_type``),
-the standalone ConvNeXt, and the tabular and hybrid classifiers."""
+"""Classification models of the port: VGG, CatNet (every ``res_type``,
+the Gaussian-process head), the standalone ConvNeXt, the tabular and
+hybrid classifiers and the two ensembles."""
 
 from adell_mri_torch.models.classification.nets import (
     VGG,
+    AveragingEnsemble,
     CatNet,
+    GenericEnsemble,
     HybridClassifier,
     TabularClassifier,
 )
 from adell_mri_torch.models.layers.conv_next import ConvNeXt
 
-__all__ = ["VGG", "CatNet", "ConvNeXt", "HybridClassifier",
-           "TabularClassifier"]
+__all__ = ["VGG", "AveragingEnsemble", "CatNet", "ConvNeXt",
+           "GenericEnsemble", "HybridClassifier", "TabularClassifier"]

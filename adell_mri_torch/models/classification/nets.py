@@ -47,8 +47,15 @@ creates the head, so the tree has none. The JAX ``OrdNet``,
 ``UNetEncoderClassifier`` and the two ViT classifiers take no
 ``return_features``, so a JAX ``HybridClassifier`` over them stops at
 its first call; the port's return the features their head takes (the
-pooled backbone, bottleneck or tokens). The Gaussian-process head is not
-ported yet.
+pooled backbone, bottleneck or tokens).
+
+CatNet's ``gp_head`` (``gaussian_process`` in a config) puts a
+``GaussianProcessLayer`` named ``gp`` after the hidden layers in place of
+the output Dense layer; ``forward(..., return_phi=True)`` returns its
+random features beside the logits. ``GenericEnsemble`` fuses the pooled
+features of member networks (``networks_{i}``, each built with
+``feature_extraction``) by concatenation or mean into a ``(64,)`` relu
+head; ``AveragingEnsemble`` averages the members' logits.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -58,6 +65,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from adell_mri_torch.models.layers.adn import get_adn_fn
+from adell_mri_torch.models.layers.gaussian_process import (
+    GaussianProcessLayer,
+)
 from adell_mri_torch.models.layers.blocks import (
     MLP,
     GlobalPooling,
@@ -97,11 +107,6 @@ class CatNet(nn.Module):
         super().__init__()
         if spatial_dimensions != 3:
             raise NotImplementedError("2D classifiers are not ported yet")
-        if gp_head:
-            raise NotImplementedError(
-                "the Gaussian-process head (gaussian_process) is not ported "
-                "yet"
-            )
         self.n_classes = n_classes
         self.ResNetBackbone_0 = ResNetBackbone(
             in_channels,
@@ -115,16 +120,30 @@ class CatNet(nn.Module):
         d = self.n_features = self.ResNetBackbone_0.output_features
         hidden = (list(classification_structure)
                   if classification_structure is not None else [d] * 3)
-        # the head's layers on CatNet itself, as in the JAX tree
+        # the head's layers on CatNet itself, as in the JAX tree; the GP
+        # head takes the place of the output Dense layer
+        self.gp = None
         self.n_hidden = None if feature_extraction else add_mlp(
-            self, d, hidden, out_features(n_classes),
+            self, d, hidden, None if gp_head else out_features(n_classes),
             get_adn_fn("batch", "gelu", 0.1))
+        if gp_head and not feature_extraction:
+            self.gp = GaussianProcessLayer(hidden[-1] if hidden else d,
+                                           out_features(n_classes))
 
-    def forward(self, x, return_features: bool = False):
+    def forward(self, x, return_features: bool = False,
+                return_phi: bool = False):
+        """Logits; with ``return_features`` the pooled features; with
+        ``return_phi`` (a GP head) ``(logits, phi)``, phi the head's random
+        features (what the JAX module sows as ``intermediates``)."""
         feats = self.pool(self.ResNetBackbone_0(x))
         if return_features or self.n_hidden is None:
             return feats
-        return run_mlp(self, self.n_hidden, feats)
+        y = run_mlp(self, self.n_hidden, feats)
+        if self.gp is None:
+            if return_phi:
+                raise ValueError("return_phi needs a Gaussian-process head")
+            return y
+        return self.gp(y, return_phi=return_phi)
 
 
 class VGG(nn.Module):
@@ -379,3 +398,53 @@ class HybridClassifier(nn.Module):
         dtype = torch.promote_types(img.dtype, x_tab.dtype)
         feats = torch.cat([img.to(dtype), x_tab.to(dtype)], -1)
         return _dense(self.Dense_1, F.relu(_dense(self.Dense_0, feats)))
+
+
+class GenericEnsemble(nn.Module):
+    """``networks``: member networks built with ``feature_extraction``
+    (``n_features`` each), kept as ``networks_{i}`` as in the JAX tree;
+    their pooled features fused by ``fusion`` "concat" or "mean", then
+    Dense layers of ``head_structure`` with relu, then the output
+    layer."""
+
+    def __init__(self, networks: Sequence[nn.Module], n_classes: int = 2,
+                 fusion: str = "concat",
+                 head_structure: Sequence[int] = (64,)):
+        super().__init__()
+        if fusion not in ("concat", "mean"):
+            raise ValueError(f"unknown fusion {fusion!r} (concat, mean)")
+        self.n_networks = len(networks)
+        self.fusion = fusion
+        for i, net in enumerate(networks):
+            self.add_module(f"networks_{i}", net)
+        widths = [net.n_features for net in networks]
+        width = sum(widths) if fusion == "concat" else widths[0]
+        self.n_hidden = len(head_structure)
+        for i, h in enumerate(list(head_structure)
+                              + [out_features(n_classes)]):
+            self.add_module(f"Dense_{i}", Pointwise(width, h))
+            width = h
+
+    def forward(self, x):
+        feats = [getattr(self, f"networks_{i}")(x, return_features=True)
+                 for i in range(self.n_networks)]
+        f = (torch.cat(feats, -1) if self.fusion == "concat"
+             else sum(feats) / len(feats))
+        for i in range(self.n_hidden):
+            f = F.relu(_dense(getattr(self, f"Dense_{i}"), f))
+        return _dense(getattr(self, f"Dense_{self.n_hidden}"), f)
+
+
+class AveragingEnsemble(nn.Module):
+    """The mean of the member networks' (``networks_{i}``) outputs."""
+
+    def __init__(self, networks: Sequence[nn.Module]):
+        super().__init__()
+        self.n_networks = len(networks)
+        for i, net in enumerate(networks):
+            self.add_module(f"networks_{i}", net)
+
+    def forward(self, x):
+        outs = [getattr(self, f"networks_{i}")(x)
+                for i in range(self.n_networks)]
+        return sum(outs) / len(outs)

@@ -6,7 +6,7 @@ Counterpart of ``_tuple``, ``apply_adn``, ``GlobalPooling``, ``max_pool``,
 on channels-last tensors.
 """
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch.nn as nn
 import torch.nn.functional as F
@@ -73,18 +73,20 @@ def max_pool(x, window: Union[int, Sequence[int]], padding: str = "VALID"):
 
 
 def add_mlp(module: nn.Module, in_features: int, hidden_dims: Sequence[int],
-            out_dim: int, adn_fn=None) -> int:
+            out_dim: Optional[int], adn_fn=None) -> int:
     """Registers on ``module`` Dense layers of ``hidden_dims``, each
-    followed by ``adn_fn(width)``, then a Dense layer to ``out_dim``, under
-    the JAX tree's names (``Dense_{i}``, ``ActDropNorm_{i}``); returns the
-    number of hidden layers, which ``run_mlp`` takes."""
+    followed by ``adn_fn(width)``, then a Dense layer to ``out_dim`` (none
+    when it is None), under the JAX tree's names (``Dense_{i}``,
+    ``ActDropNorm_{i}``); returns the number of hidden layers, which
+    ``run_mlp`` takes."""
     for i, h in enumerate(hidden_dims):
         module.add_module(f"Dense_{i}", Pointwise(in_features, h))
         if adn_fn is not None:
             module.add_module(f"ActDropNorm_{i}", adn_fn(h))
         in_features = h
-    module.add_module(f"Dense_{len(hidden_dims)}",
-                      Pointwise(in_features, out_dim))
+    if out_dim is not None:
+        module.add_module(f"Dense_{len(hidden_dims)}",
+                          Pointwise(in_features, out_dim))
     return len(hidden_dims)
 
 
@@ -93,7 +95,8 @@ def run_mlp(module: nn.Module, n_hidden: int, x):
     for i in range(n_hidden):
         x = apply_adn(getattr(module, f"ActDropNorm_{i}", None),
                       getattr(module, f"Dense_{i}")(x))
-    return getattr(module, f"Dense_{n_hidden}")(x)
+    out = getattr(module, f"Dense_{n_hidden}", None)
+    return x if out is None else out(x)
 
 
 class MLP(nn.Module):

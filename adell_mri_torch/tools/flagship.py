@@ -50,8 +50,11 @@ materialised softmax), ``"factorized_vit"`` (the factory's defaults:
 4x4 patches a slice, 256 wide, 4 blocks of 4 heads; the CLI's batch of
 4), ``"ord"`` (OrdNet over ``classification-cat-resnet.yaml``'s
 structure with 3 classes and the ordinal sigmoidal loss; the yaml's 16
-crops) and ``"unet_classifier"`` (the U-Net encoder classifier of
-``u-net-3d-resnet.yaml``; the yaml's 2 crops).
+crops), ``"unet_classifier"`` (the U-Net encoder classifier of
+``u-net-3d-resnet.yaml``; the yaml's 2 crops) and ``"catnet_gp"``
+(``classification-cat-resnet.yaml`` with ``gaussian_process: true``
+(``CLASSIFIER_OVERRIDES``): the GP head in place of the output layer;
+the yaml's 16 crops).
 
 ``"ssl"``, ``sample_configs/ssl-resnet.yaml`` as it stands (the two-view
 methods' CatNet backbone: four ResNet stages of 64 to 512, batch norm;
@@ -164,7 +167,10 @@ CLASSIFIERS = {
     "factorized_vit": ("factorized_vit", None, 4),
     "ord": ("ord", CATNET_YAML, CATNET_BATCH),
     "unet_classifier": ("unet", RESNET_YAML, RESNET_BATCH),
+    "catnet_gp": ("cat", CATNET_YAML, CATNET_BATCH),
 }
+# keys that a classifier's yaml does not hold
+CLASSIFIER_OVERRIDES = {"catnet_gp": {"gaussian_process": True}}
 # the classifiers' input size where it is not WINDOW, and their number of
 # classes where it is not 2
 CLASSIFIER_SHAPES = {"vit": CASE}
@@ -308,7 +314,8 @@ def make_catnet(seed: int, device="cuda", name: str = "catnet",
     network = (parse_config_cat(str(yaml_path))["network"] if yaml_path
                else {})
     return get_classification_network(
-        net_type, {**network, **(overrides or {})},
+        net_type, {**network, **CLASSIFIER_OVERRIDES.get(name, {}),
+                   **(overrides or {})},
         n_classes=CLASSIFIER_CLASSES.get(name, 2),
         image_size=classifier_shape(name)).to(device)
 

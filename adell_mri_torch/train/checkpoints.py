@@ -11,20 +11,30 @@ Training keeps in ``model.pt`` the weights of the best monitored epoch
 names, so prediction serves what the JAX package's ``best_step`` would.
 ``last.pt`` holds the state at the end of the latest epoch (parameters,
 batch-norm running statistics, optimizer buffers, step, epoch, the
-EMA/SWA shadow and the schedule's position), from which ``resume``
-continues an interrupted run and ``status`` tells a finished fold. Reading the JAX package's orbax
-directories needs JAX and is not done here; a JAX UNet's parameters come
-in through ``interop/from_flax.py``.
+EMA/SWA shadow, the schedule's position and, with gradient
+accumulation, the micro-step and the running mean), from which
+``resume`` continues an interrupted run and ``status`` tells a finished
+fold. Reading the JAX package's orbax directories needs JAX and is not
+done here; a JAX UNet's parameters come in through
+``interop/from_flax.py``.
+
+``load_params_into`` (warm starts) and ``freeze_mask_by_regex`` are the
+JAX functions of those names on the port's parameters, matched by their
+JAX tree paths (``from_flax.flax_path``), so that a regex written for
+the JAX CLI picks the same leaves.
 """
 
 import json
 import logging
 import math
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from adell_mri_torch.interop.from_flax import flax_path
 
 logger = logging.getLogger(__name__)
 
@@ -152,6 +162,8 @@ class CheckpointManager:
             "variables": host(state.variables),
             "optimizer": state.tx.opt.state_dict(),
             "schedule_step": int(state.tx.count),
+            "accumulator": (state.tx.accumulator_state()
+                            if state.tx.every > 1 else None),
         }, os.path.join(self.dir, LAST_FILE))
 
     def _load_last(self, mmap: bool = False) -> Optional[Dict[str, Any]]:
@@ -178,6 +190,10 @@ class CheckpointManager:
         last = self._load_last()
         if last is None:
             return state, 0
+        if last.get("accumulator") is not None:
+            state.tx.load_accumulator_state(
+                last["accumulator"],
+                next(iter(state.params.values())).device)
         with torch.no_grad():
             for k, v in state.params.items():
                 v.copy_(last["params"][k])
@@ -214,3 +230,57 @@ def correct_classification_bias(params: Dict[str, torch.Tensor],
         params[names[-1]].fill_(float(np.log(p / (1 - p))))
     logger.info("set %s to log-odds of %.4f", names[-1], p)
     return names[-1]
+
+
+# the leaves of a port state dict that are buffers, not parameters: the
+# batch norms' running statistics and the GP head's random features
+_BUFFER_LEAVES = ("mean", "var", "w", "b")
+
+
+def load_params_into(
+    params: Dict[str, torch.Tensor],
+    loaded: Dict[str, torch.Tensor],
+    exclude_patterns: Sequence[str] = (),
+) -> List[str]:
+    """Copies, in place, the parameters of the state dict ``loaded`` (a
+    port checkpoint's ``model.pt``; its buffers are left out, as the JAX
+    function takes the checkpoint's ``params`` alone) into ``params``
+    (``named_parameters``), matched by JAX tree path (``flax_path``): a
+    loaded parameter whose path matches one of ``exclude_patterns``
+    (``re.search``), is not in ``params`` or differs in shape is skipped.
+    Returns the skipped paths, in ``loaded``'s order (the counterpart of
+    ``load_params_into`` in ``adell_mri_tpu/train/checkpoints.py``)."""
+    by_path = {flax_path(k, v): v for k, v in params.items()}
+    excl = [re.compile(p) for p in exclude_patterns]
+    skipped = []
+    with torch.no_grad():
+        for name, value in loaded.items():
+            if name.rsplit(".", 1)[-1] in _BUFFER_LEAVES:
+                continue
+            path = flax_path(name, value)
+            target = by_path.get(path)
+            if (any(e.search(path) for e in excl) or target is None
+                    or target.shape != value.shape):
+                skipped.append(path)
+                continue
+            target.copy_(value)
+    return skipped
+
+
+def freeze_mask_by_regex(
+    params: Dict[str, torch.Tensor],
+    freeze_patterns: Sequence[str] = (),
+    not_freeze_patterns: Sequence[str] = (),
+) -> Dict[str, bool]:
+    """True (trainable) for each parameter unless its JAX tree path
+    matches one of ``freeze_patterns`` and none of
+    ``not_freeze_patterns`` (``re.search``), as the JAX function marks
+    its tree."""
+    frz = [re.compile(p) for p in freeze_patterns]
+    keep = [re.compile(p) for p in not_freeze_patterns]
+    mask = {}
+    for name, value in params.items():
+        path = flax_path(name, value)
+        mask[name] = not (any(p.search(path) for p in frz)
+                          and not any(p.search(path) for p in keep))
+    return mask

@@ -15,6 +15,10 @@ the leaves ``wd_mask`` marks, the JAX package's rule on the JAX tree's
 names (no leaf whose path holds ``bias``, ``scale``, ``norm``,
 ``embedding_cls`` or ``pos_embed``): the optimizer then holds two
 parameter groups, the decayed leaves and the others at weight decay 0.
+
+``accumulate_gradients`` and ``freeze_wrap`` are the counterparts of the
+JAX functions of those names (``optax.MultiSteps`` and a
+``multi_transform`` with ``set_to_zero`` on the frozen leaves).
 """
 
 from typing import Callable, Dict, Optional, Union
@@ -22,26 +26,63 @@ from typing import Callable, Dict, Optional, Union
 import torch
 import torch.nn as nn
 
+from adell_mri_torch.interop.from_flax import flax_path
+
 Schedule = Union[float, Callable]
 
 
 class Optimizer:
     """A ``torch.optim`` optimizer with a per-step schedule and optional
-    global-norm clipping; ``step(grads)`` applies one update."""
+    global-norm clipping; ``step(grads)`` applies one update.
+
+    ``every`` > 1 (``accumulate_gradients``) accumulates: each call adds
+    its gradients to a running mean (Welford's update, as
+    ``optax.MultiSteps``) and every ``every``-th call applies that mean,
+    so the inner optimizer, its moments and the schedule (``count``)
+    advance once per ``every`` calls. ``frozen`` (``freeze_wrap``) names
+    parameters that get no update at all: no gradient step, no weight
+    decay and no optimizer state, as ``optax.set_to_zero`` gives them;
+    the clipping norm runs over the others, as ``optax.multi_transform``
+    hands the inner transform those alone."""
 
     def __init__(self, opt, learning_rate: Schedule, clip_norm=None):
         self.opt = opt
         self.learning_rate = learning_rate
         self.clip_norm = clip_norm
         self.count = 0
+        self.every = 1
+        self.mini_step = 0
+        self.acc_grads: Optional[Dict[str, torch.Tensor]] = None
+        self.frozen: frozenset = frozenset()
 
     def lr(self, step: int) -> float:
         lr = self.learning_rate
         return float(lr(step)) if callable(lr) else float(lr)
 
+    def _accumulate(self, grads: Dict[str, torch.Tensor]):
+        """The mean to apply, or None while the micro-steps go on."""
+        if self.acc_grads is None:
+            self.acc_grads = {k: torch.zeros_like(g)
+                              for k, g in grads.items()}
+        n = self.mini_step
+        for k, g in grads.items():
+            acc = self.acc_grads[k]
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.every
+        if self.mini_step:
+            return None
+        mean = self.acc_grads
+        self.acc_grads = None
+        return mean
+
     def step(self, grads: Dict[str, torch.Tensor], params):
         """``grads`` and ``params`` are dicts with the same keys."""
-        gs = [grads[k] for k in params]
+        if self.every > 1:
+            grads = self._accumulate(grads)
+            if grads is None:
+                return
+        names = [k for k in params if k not in self.frozen]
+        gs = [grads[k] for k in names]
         if self.clip_norm is not None:
             norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g.float()) for g in gs])
@@ -50,8 +91,9 @@ class Optimizer:
                 norm > self.clip_norm, self.clip_norm / norm, 1.0
             )
             gs = [g * scale.to(g.dtype) for g in gs]
-        for p, g in zip(params.values(), gs):
-            p.grad = g
+        # a parameter without a gradient is left alone by torch.optim
+        for k, g in zip(names, gs):
+            params[k].grad = g
         lr = self.lr(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -60,31 +102,48 @@ class Optimizer:
             p.grad = None
         self.count += 1
 
+    def accumulator_state(self) -> Dict:
+        """What resuming needs of the accumulation: the micro-step and the
+        running mean."""
+        return {"mini_step": self.mini_step,
+                "acc_grads": None if self.acc_grads is None else {
+                    k: v.detach().cpu() for k, v in self.acc_grads.items()}}
+
+    def load_accumulator_state(self, state: Dict, device=None):
+        self.mini_step = int(state["mini_step"])
+        acc = state["acc_grads"]
+        self.acc_grads = None if acc is None else {
+            k: v.to(device) for k, v in acc.items()}
+
+
+def accumulate_gradients(tx: Optimizer, every: int) -> Optimizer:
+    """``tx`` applying the mean of ``every`` calls' gradients once every
+    ``every`` calls (``optax.MultiSteps``; no change when ``every`` <=
+    1)."""
+    tx.every = max(int(every or 1), 1)
+    return tx
+
+
+def freeze_wrap(tx: Optimizer, trainable_mask: Dict[str, bool]
+                ) -> Optimizer:
+    """``tx`` leaving the parameters whose mask entry is False untouched
+    (``freeze_mask_by_regex``)."""
+    tx.frozen = frozenset(k for k, t in trainable_mask.items() if not t)
+    return tx
+
 
 _NO_DECAY_TOKENS = ("bias", "scale", "norm", "embedding_cls", "pos_embed")
 
 
-def _jax_leaf(module: nn.Module, leaf: str) -> str:
-    """The JAX tree's name of ``module``'s parameter ``leaf``: a norm's
-    ``weight`` is flax's ``scale``, any other ``weight`` a ``kernel``."""
-    if leaf != "weight":
-        return leaf
-    is_norm = isinstance(module, (nn.LayerNorm, nn.GroupNorm)) or any(
-        "Norm" in c.__name__ for c in type(module).__mro__)
-    return "scale" if is_norm else "kernel"
-
-
 def wd_mask(model: nn.Module) -> Dict[str, bool]:
     """True for the parameters (by ``named_parameters`` name) that take
-    weight decay: those whose JAX tree path, lower-cased, holds none of
-    ``_NO_DECAY_TOKENS``."""
-    mask = {}
-    for mod_name, module in model.named_modules():
-        for leaf, _ in module.named_parameters(recurse=False):
-            name = f"{mod_name}.{leaf}" if mod_name else leaf
-            path = "/".join(name.split(".")[:-1] + [_jax_leaf(module, leaf)])
-            mask[name] = not any(t in path.lower() for t in _NO_DECAY_TOKENS)
-    return mask
+    weight decay: those whose JAX tree path (``flax_path``), lower-cased,
+    holds none of ``_NO_DECAY_TOKENS``."""
+    return {
+        name: not any(t in flax_path(name, p).lower()
+                      for t in _NO_DECAY_TOKENS)
+        for name, p in model.named_parameters()
+    }
 
 
 def get_optimizer(

@@ -13,7 +13,8 @@ self-supervised teachers; decay ``ema_decay_at`` of the step count before
 the step's increment, ``ema_decay`` ramped to ``ema_final_decay`` over
 ``ema_n_steps``, as the JAX state's "ema" mode). As in the JAX package
 the shadow covers the parameters only; the statistics are the latest
-step's.
+step's. ``constants`` are the model's other persistent buffers (a GP
+head's random features): outside a step's weights, in ``state_dict``.
 """
 
 from dataclasses import dataclass, field
@@ -38,6 +39,9 @@ class TrainState:
     ema_decay: float = 0.99
     ema_final_decay: Optional[float] = None
     ema_n_steps: Optional[int] = None
+    # the model's other persistent buffers (a GP head's random features):
+    # fixed, outside a step's weights, kept in the checkpoints
+    constants: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     @classmethod
     def create(cls, model, tx_factory,
@@ -53,10 +57,13 @@ class TrainState:
         if with_ema and swa_start_step is not None:
             raise ValueError("a state keeps one shadow: SWA or EMA")
         params = dict(model.named_parameters())
+        variables = (batch_stats(model) if isinstance(model, torch.nn.Module)
+                     else {})
+        constants = {k: v for k, v in model.state_dict().items()
+                     if k not in params and k not in variables
+                     } if isinstance(model, torch.nn.Module) else {}
         state = cls(step=0, params=params, tx=tx_factory(params),
-                    variables=(batch_stats(model)
-                               if isinstance(model, torch.nn.Module)
-                               else {}),
+                    variables=variables, constants=constants,
                     ema_mode="ema" if with_ema else "swa",
                     ema_decay=ema_decay, ema_final_decay=ema_final_decay,
                     ema_n_steps=ema_n_steps)
@@ -95,4 +102,5 @@ class TrainState:
                 **self.variables}
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        return {k: v.detach() for k, v in self.weights().items()}
+        return {k: v.detach()
+                for k, v in {**self.weights(), **self.constants}.items()}

@@ -2,7 +2,7 @@
 Host-side deterministic preprocessing for training and prediction.
 
 The port's own copy of ``resample_to_spec``, ``area_resize``,
-``center_crop_pad``, ``precompute_fg_indices``, the spacing-inference
+``nearest_resize``, ``center_crop_pad``, ``precompute_fg_indices``, the spacing-inference
 helpers and ``make_load_fn`` from ``adell_mri_tpu/transforms/host.py``.
 The resample is one ``scipy.ndimage.map_coordinates`` call per volume (the
 JAX package's scipy path; its optional native resampler is not used).
@@ -143,6 +143,17 @@ def area_resize(vol: np.ndarray, out_shape: Sequence[int]) -> np.ndarray:
     return (out / count).astype(np.float32)
 
 
+def nearest_resize(vol: np.ndarray, out_shape: Sequence[int]) -> np.ndarray:
+    """Nearest-neighbour resize of the leading ``len(out_shape)`` axes,
+    source index ``floor(i * in / out)`` (torch's ``nearest``)."""
+    idx = tuple(
+        np.minimum(np.floor(np.arange(o) * vol.shape[ax] / o),
+                   vol.shape[ax] - 1).astype(np.int64)
+        for ax, o in enumerate(out_shape)
+    )
+    return vol[np.ix_(*idx)]
+
+
 def center_crop_pad(vol: np.ndarray, target: Sequence[int]) -> np.ndarray:
     """Center crop/pad of the leading len(target) axes."""
     for ax, t in enumerate(int(t) for t in target):
@@ -167,6 +178,7 @@ def make_load_fn(
     adc_keys: Sequence[str] = (),
     positive_labels: Sequence[int] = (1,),
     max_fg: int = 4096,
+    resize_size: Optional[Sequence[int]] = None,
 ):
     """The cached, deterministic part of a training sample: each image key
     read, RAS-oriented, resampled once to (``target_spacing``,
@@ -174,8 +186,11 @@ def make_load_fn(
     instead), stacked channels-last; the label keys resampled with
     nearest, combined by max and binarized by ``positive_labels`` (the
     JAX trainer's label mode), with their foreground indices for the
-    pos/neg crop (``fg_indices``, ``n_fg``). 4D inputs and resize are not
-    ported yet."""
+    pos/neg crop (``fg_indices``, ``n_fg``). With ``resize_size`` each
+    volume is resampled to the spacing alone, scaled to ``resize_size``
+    (``area_resize``; labels ``nearest_resize``), then centre-cropped or
+    padded to ``target_size``, the JAX order. 4D inputs are not ported
+    yet."""
     label_keys = list(label_keys or [])
 
     def read(path):
@@ -186,11 +201,20 @@ def make_load_fn(
             )
         return img
 
+    def spatial(img, resize, interp_order=1):
+        if resize_size is None:
+            return resample_to_spec(img, target_spacing, target_size,
+                                    interp_order=interp_order)
+        vol = resize(resample_to_spec(img, target_spacing, None,
+                                      interp_order=interp_order),
+                     resize_size)
+        return vol if target_size is None else center_crop_pad(
+            vol, target_size)
+
     def load_fn(entry: Dict) -> Dict:
         channels = []
         for key in image_keys:
-            vol = resample_to_spec(read(entry[key]), target_spacing,
-                                   target_size)
+            vol = spatial(read(entry[key]), area_resize)
             if key in adc_keys:
                 if vol.max() > 1e3:
                     vol = vol * ADC_FACTOR
@@ -204,8 +228,7 @@ def make_load_fn(
         }
         if label_keys:
             lab = np.stack([
-                resample_to_spec(read(entry[key]), target_spacing,
-                                 target_size, interp_order=0)
+                spatial(read(entry[key]), nearest_resize, interp_order=0)
                 for key in label_keys
             ]).max(axis=0)
             lab = np.isin(np.round(lab).astype(np.int32),

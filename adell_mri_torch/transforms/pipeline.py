@@ -371,12 +371,15 @@ class ClassificationTransforms:
     images by its slice-wise convex hull, ``image_crop_from_mask`` crops
     them to its bounding box with a 16-voxel margin and pads or crops
     that back to ``target_size`` about its centre (masking first). The
-    mask itself leaves the sample. Resizing is not ported yet."""
+    mask itself leaves the sample. ``resize_size`` scales each volume
+    after the spacing (area for the images, nearest for the mask) before
+    the crop or pad to ``target_size``, as the JAX load does."""
 
     image_keys: Sequence[str] = ("image",)
     label_key: Optional[str] = "label"
     target_spacing: Optional[Sequence[float]] = None
     target_size: Optional[Sequence[int]] = None
+    resize_size: Optional[Sequence[int]] = None
     crop_size: Optional[Sequence[int]] = None
     adc_keys: Sequence[str] = ()
     augmentations: AugmentPolicy = field(default_factory=AugmentPolicy)
@@ -413,6 +416,7 @@ class ClassificationTransforms:
             target_spacing=self.target_spacing,
             target_size=self.target_size,
             adc_keys=self.adc_keys,
+            resize_size=self.resize_size,
         )
 
         def load(entry):

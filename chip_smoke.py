@@ -262,7 +262,31 @@ failure:
     pre_bias``, the U-Net encoder classifier with a gland mask a case,
     ``--mask_keys``,
     ``--image_masking`` and ``--image_crop_from_mask``), their launches
-    against the K1 and flash calls recorded around each.
+    against the K1 and flash calls recorded around each;
+22. the classification CLI's remaining flags and the
+    ``classification_ensemble`` mode, from seeded weights: CatNet with
+    the GP head (``classification-cat-resnet.yaml`` with
+    ``gaussian_process: true``) served at B=2 (8 K1 a forward) and trained
+    at B=16 on 128x128x32 as phase 19 serves and trains (f32 against the
+    plain path with ``_step_parity``); its covariance fitted over 3
+    batches of 16 with the parameters alone, on the kernels against the
+    plain path and a host f64 fit, and ``predictive_logits`` of the
+    served crops against the plain path (corrected logits and variances,
+    1e-3 of their scale); two micro-steps of gradient accumulation (one
+    update) and one step with the backbone frozen, the parameters' moves
+    against the plain path (their difference 1e-3 of their norm, or 4
+    times the move a 1e-6 input perturbation gives the plain path where
+    larger, over the leaves whose gradient is above rounding level) and
+    the frozen leaves bit-equal; ``classification
+    train`` with ``--calibration_ids``, ``--accumulate_grad_batches 2`` and
+    ``--resize_size``, a second run warm-started from it with
+    ``--freeze_regex``, ``test`` of both with ``--one_to_one``,
+    ``predict`` of both with ``--ensemble mean`` (again on the plain
+    path, 1e-3) and with ``--prediction_type set``; ``classification_
+    ensemble train``, ``test`` and ``predict`` on two full-width CatNet
+    members (predict again on the plain path); every CLI run's launches
+    against the K1 calls recorded around it, K3 in the training runs
+    with the augmentation and nowhere else.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -6310,6 +6334,462 @@ def phase_new_classifiers(smi):
     return out
 
 
+# -- phase 22: the GP head, warm starts, accumulation, ensembles -------------
+
+GP_NAME = "catnet_gp"
+GP_COV_BATCHES = 3
+# the CLI runs' cohort: 2 of 6 cases calibrate and stay out of the folds
+GP_CALIBRATION = "case_4,case_5"
+GP_RESIZE = (112, 112, 28)
+ENSEMBLE_MEMBERS = 2
+# an f32 quantity of the kernels against the plain path (phases 4 and 17's
+# probability tolerance), as a share of its scale
+GP_F32_TOL = 1e-3
+# a leaf's gradient at rounding level: its largest element below this
+# share of the largest of all (the CPU tests' rule)
+ROUNDING_GRADIENT = 1e-5
+# the input perturbation that measures how far f32 rounding can move the
+# GP CatNet's gradient (about a 3xTF32 product's error, a share of the
+# input's spread), and the multiple of that move the kernels' path may
+# take (its K1 route rounds in 8 forward and 8 dx convs a step)
+PERTURBATION = 1e-6
+SPREAD_FACTOR = 4
+
+
+def _gp_covariance(smi):
+    """Phase 22 (b): the GP CatNet's covariance fitted on the card as
+    ``classification train`` fits it (the parameters alone: each batch's
+    statistics, f32) over ``GP_COV_BATCHES`` batches of B=16 at
+    128x128x32, on the kernels and on the plain path, and in f64 on the
+    host from the kernels' features; ``predictive_logits`` of the served
+    B=2 crops (running statistics) with each covariance: the corrected
+    logits and the predictive variances ``phi cov phi`` each against the
+    plain path's as a share of their own scale (the served logits are
+    small, so their probabilities lie within about 1e-3 of 0.5 whatever
+    the correction). The K1 launches of the fit against those its
+    recorded calls make."""
+    import torch
+
+    from adell_mri_torch.models.layers.adn import batch_statistics_mode
+    from adell_mri_torch.models.layers.gaussian_process import (
+        fit_covariance,
+        predictive_logits,
+    )
+    from adell_mri_torch.tools.flagship import (
+        make_catnet_batch,
+        make_served_classifier,
+    )
+
+    model = make_served_classifier(0, name=GP_NAME)
+    batches = [make_catnet_batch(30 + i, batch=CATNET_BATCH,
+                                 shape=CATNET_SHAPE)["image"]
+               for i in range(GP_COV_BATCHES)]
+    x = make_catnet_batch(1, batch=4, shape=CATNET_SHAPE)["image"][
+        :CATNET_SERVE_BATCH]
+
+    def fit():
+        with torch.no_grad(), batch_statistics_mode(model):
+            phis = torch.cat([model(b, return_phi=True)[1]
+                              for b in batches])
+        return fit_covariance(phis), phis
+
+    def served(cov):
+        with torch.no_grad():
+            logits, phi = model(x, return_phi=True)
+        var = ((phi.double() @ cov.double()) * phi.double()).sum(-1)
+        return logits, predictive_logits(logits, phi, cov), var
+
+    def share(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _k1_calls() as rec:
+        cov, phis = fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = _recorded_want(rec)
+    logits, corrected, var = served(cov)
+    with plain_kernels():
+        cov_p, _ = fit()
+        logits_p, corrected_p, var_p = served(cov_p)
+    cov64 = fit_covariance(phis.double().cpu())
+    errs = dict(
+        covariance=share(cov, cov_p),
+        covariance_f64=share(cov.double().cpu(), cov64),
+        corrected_logits=share(corrected, corrected_p),
+        variance=share(var, var_p))
+    shrink = (corrected / logits).flatten().tolist()
+    log(f"[gp] {smi}: covariance over {GP_COV_BATCHES} batches of "
+        f"B={CATNET_BATCH} at {'x'.join(map(str, CATNET_SHAPE))} (f32, the "
+        f"parameters alone) {fit_s:.3f} s, launches {launches}; kernels vs "
+        f"plain {errs['covariance']:.3g} of its scale, card vs host f64 "
+        f"{errs['covariance_f64']:.3g} (tol {GP_F32_TOL}); served B=2 "
+        f"logits {logits.flatten().tolist()} times {shrink} after the "
+        f"mean-field correction (variances {var.tolist()}); kernels vs "
+        f"plain, as a share of their scale: corrected logits "
+        f"{errs['corrected_logits']:.3g}, variances "
+        f"{errs['variance']:.3g} (tol {GP_F32_TOL})")
+    if launches != want or launches["conv3d_igemm_tf32"] != (
+            CATNET_CONVS * GP_COV_BATCHES):
+        raise AssertionError(f"GP fit launches {launches}, want {want}")
+    if not (all(v <= GP_F32_TOL for v in errs.values())
+            and bool(torch.isfinite(cov).all())
+            and all(0 < s < 1 for s in shrink)):
+        raise AssertionError(f"GP covariance: {errs}, shrink {shrink}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, fit_s=fit_s, errors=errs, tol=GP_F32_TOL,
+                shrink=shrink, variances=var.tolist())
+
+
+def _update_parity(tag, setup, batch, steps, want_updates):
+    """``steps`` f32 training steps (no augmentation) of a fresh GP CatNet
+    trainer (Nesterov SGD: a move is linear in the gradients), its
+    optimizer changed by ``setup(tr)``, on the kernels and on the plain
+    path with the same members and dropout masks, and on the plain path
+    again with the input moved by ``PERTURBATION`` of its spread: the
+    launches of the kernels' run against those its recorded K1 calls
+    make, the optimizer's update count, and the difference of the
+    parameters' moves from the plain path's as a share of their norm,
+    over the leaves whose gradient on the plain path is above rounding
+    level (the largest element of the sum of the gradients the optimizer
+    was handed at least ``ROUNDING_GRADIENT`` of the largest of all; the
+    biases ahead of the batch norms, whose true gradient is zero, fall
+    below it and are reported). The bound is ``GP_F32_TOL``, or
+    ``SPREAD_FACTOR`` times the share by which the perturbed input moves
+    the plain path's moves where that is larger: at B=16 this network's
+    f32 gradient moves by 3.5e-3 of its norm under such a perturbation,
+    so no two f32 paths agree within 1e-3 there. The parameters
+    ``setup`` froze bit-equal to their start on all three."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import make_catnet_trainer
+
+    image = batch["image"]
+    noise = torch.randn(image.shape, device=image.device, dtype=image.dtype,
+                        generator=torch.Generator(
+                            device=image.device).manual_seed(5))
+    perturbed = dict(batch, image=image + PERTURBATION * image.std()
+                     * noise)
+    runs = {}
+    for path, ctx, b in (("kernels", contextlib.nullcontext, batch),
+                         ("plain", plain_kernels, batch),
+                         ("perturbed", plain_kernels, perturbed)):
+        tr = make_catnet_trainer(0, "32", name=GP_NAME)
+        frozen = setup(tr.state.tx, tr.state.params)
+        start = {k: v.detach().clone() for k, v in tr.state.params.items()}
+        handed = {k: torch.zeros_like(v) for k, v in start.items()}
+        step = tr.state.tx.step
+
+        def recording(grads, params, step=step, handed=handed):
+            for k, g in grads.items():
+                handed[k] += g.detach()
+            return step(grads, params)
+
+        tr.state.tx.step = recording
+        torch.cuda.synchronize()
+        _reset_counts()
+        with ctx(), _k1_calls() as rec:
+            for i in range(steps):
+                _seeded(tr, 9 + i)
+                tr.state, _ = tr.train_step(tr.state, b)
+        torch.cuda.synchronize()
+        want = dict(_recorded_want(rec), intensity_aug=0)
+        runs[path] = dict(
+            launches=_launch_counts(), want=want, updates=tr.state.tx.count,
+            moves={k: v.detach() - start[k]
+                   for k, v in tr.state.params.items()},
+            handed={k: float(g.abs().max()) for k, g in handed.items()},
+            frozen_equal=all(torch.equal(tr.state.params[k], start[k])
+                             for k in frozen), frozen=len(frozen))
+        del tr
+        torch.cuda.empty_cache()
+    k, p, q = runs["kernels"], runs["plain"], runs["perturbed"]
+    largest = max(p["handed"].values())
+    held = [n for n, g in p["handed"].items()
+            if g >= ROUNDING_GRADIENT * largest]
+    excluded = sorted(set(p["handed"]) - set(held))
+
+    def share(a, b):
+        """||a - b|| / ||b|| of the moves over the held leaves, and the
+        leaves that add most to the difference."""
+        diff = {n: float(((a[n] - b[n]).double() ** 2).sum()) for n in held}
+        norm = sum(float((b[n].double() ** 2).sum()) for n in held) ** 0.5
+        return (sum(diff.values()) ** 0.5 / norm, norm,
+                sorted(diff, key=diff.get, reverse=True)[:3])
+
+    rel, norm_p, worst = share(k["moves"], p["moves"])
+    spread = share(q["moves"], p["moves"])[0]
+    bound = max(GP_F32_TOL, SPREAD_FACTOR * spread)
+    log(f"  {tag}: {steps} f32 steps at B={CATNET_BATCH}: {k['updates']} "
+        f"update(s), launches {k['launches']}; the parameters' moves over "
+        f"{len(held)} leaves, kernels vs plain: difference {rel:.3g} of "
+        f"the plain moves' norm {norm_p:.6g} (largest in {worst}); the "
+        f"plain path's moves on the input moved by {PERTURBATION} of its "
+        f"spread: {spread:.3g}; bound {bound:.3g}; {len(excluded)} leaves "
+        f"left out, their gradient below {ROUNDING_GRADIENT} of the "
+        f"largest {largest:.6g}: {excluded}; {k['frozen']} frozen leaves "
+        f"unchanged: "
+        f"{all(r['frozen_equal'] for r in runs.values())}")
+    if not (k["launches"] == k["want"] and k["updates"] == p["updates"]
+            == q["updates"] == want_updates and rel <= bound and norm_p > 0
+            and all(r["frozen_equal"] for r in runs.values())):
+        raise AssertionError(f"{tag}: {rel} (bound {bound}), "
+                             f"{k['launches']} vs {k['want']}, updates "
+                             f"{k['updates']}")
+    return dict(launches=k["launches"], updates=k["updates"],
+                plain_move_norm=norm_p, move_difference=rel,
+                perturbed_move_difference=spread, bound=bound,
+                held=len(held), excluded=excluded, frozen=k["frozen"])
+
+
+def _gp_optimizer_steps(smi):
+    """Phase 22 (c): two micro-steps of ``accumulate_gradients(k=2)`` (one
+    update), and one step with the backbone frozen (``freeze_wrap`` of
+    ``freeze_mask_by_regex(["ResNetBackbone_0"])``), against the plain
+    path (``_update_parity``)."""
+    from adell_mri_torch.tools.flagship import make_catnet_batch
+    from adell_mri_torch.train.checkpoints import freeze_mask_by_regex
+    from adell_mri_torch.train.optim import accumulate_gradients, freeze_wrap
+
+    batch = make_catnet_batch(2, batch=CATNET_BATCH, shape=CATNET_SHAPE)
+
+    def accumulate(tx, params):
+        accumulate_gradients(tx, 2)
+        return []
+
+    def freeze(tx, params):
+        mask = freeze_mask_by_regex(params, ["ResNetBackbone_0"])
+        freeze_wrap(tx, mask)
+        return [k for k, t in mask.items() if not t]
+
+    return dict(accumulation=_update_parity("accumulation", accumulate,
+                                            batch, 2, 1),
+                frozen=_update_parity("frozen backbone", freeze, batch, 1,
+                                      1))
+
+
+def _counted_cli(args):
+    """``_cli`` with the K1 calls recorded around it: (seconds, standard
+    output, launches, the launches those calls make)."""
+    with _k1_calls() as rec:
+        secs, text, counts = _cli(args)
+    return secs, text, counts, _recorded_want(rec)
+
+
+def _check_cli_launches(tag, counts, want, steps):
+    """Every K1, dx and dW launch the recorded calls make, and K3 where
+    training steps with the augmentation ran (``steps``) and nowhere
+    else."""
+    want = dict(want, intensity_aug=counts["intensity_aug"])
+    if not (counts["conv3d_igemm"] > 0 and counts == want
+            and (counts["intensity_aug"] > 0) == steps):
+        raise AssertionError(f"{tag} launches {counts}, want {want}")
+
+
+def _gp_clis(smi):
+    """Phase 22 (d): on 6 cases at 128x128x32 (3 with bright ellipsoids,
+    label 1), f32: ``classification train`` of the GP CatNet with
+    ``--calibration_ids`` (2 cases), ``--accumulate_grad_batches 2`` and
+    ``--resize_size``, 2 epochs at B=2 with the augmentation; a second
+    run warm-started from it (``--checkpoint``) with ``--freeze_regex
+    ResNetBackbone_0``, 1 epoch; ``test`` of both with ``--one_to_one`` on
+    two ID groups; ``predict`` of both with ``--ensemble mean`` (the GP
+    correction from each run's covariance), again on the plain path
+    (within ``GP_F32_TOL``), and ``--prediction_type set``. Each run's
+    launches against those of the K1 calls recorded around it."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from adell_mri_torch.tools.flagship import AUGMENT_FLAGS, CATNET_YAML
+
+    work = WORK_DIR / "gp_cli"
+    work.mkdir(parents=True)
+    negatives = ("case_1", "case_3", "case_5")
+    ds = _pipeline_cohort(work, CATNET_SHAPE, negatives,
+                          n_cases=CATNET_CLI_CASES)
+    for pid, entry in ds.items():
+        entry["label"] = int(pid not in negatives)
+    (work / "ds.json").write_text(json.dumps(ds))
+    config = yaml.safe_load(CATNET_YAML.read_text())
+    gp_yaml = work / "gp.yaml"
+    gp_yaml.write_text(yaml.safe_dump({**config, "gaussian_process": True}))
+    runs, out = [work / "run_1", work / "run_2"], {}
+    folds = [str(r / "classification_fold0") for r in runs]
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda"]
+    train = ["classification", "train", *common, "--image_keys", "image",
+             "--config_file", str(gp_yaml),
+             "--pad_size", *map(str, CATNET_SHAPE),
+             "--target_spacing", "0.5", "0.5", "3.0",
+             "--batch_size", str(CATNET_CLI_BATCH), "--n_folds", "1",
+             "--augment", *AUGMENT_FLAGS, "--seed", "0"]
+    for tag, args, steps in (
+            ("train", train + [
+                "--checkpoint_dir", str(runs[0]), "--max_epochs", "2",
+                "--resize_size", *map(str, GP_RESIZE),
+                "--accumulate_grad_batches", "2",
+                "--calibration_ids", GP_CALIBRATION,
+                "--metric_path", str(work / "m1.csv")], True),
+            ("warm_start", train + [
+                "--checkpoint_dir", str(runs[1]), "--max_epochs", "1",
+                "--checkpoint", folds[0], "--freeze_regex",
+                "ResNetBackbone_0", "--metric_path", str(work / "m2.csv")],
+             True),
+            ("test", ["classification", "test", *common, "--checkpoint_dir",
+                      str(runs[0]), "--checkpoint", *folds, "--one_to_one",
+                      "--test_ids", "case_0,case_1,case_2",
+                      "case_3,case_4,case_5", "--metric_path",
+                      str(work / "t.csv")], False),
+            ("predict_ensemble", ["classification", "predict", *common,
+                                  "--checkpoint_dir", str(runs[0]),
+                                  "--checkpoint", *folds, "--ensemble",
+                                  "mean", "--output_path",
+                                  str(work / "ens.json")], False),
+            ("predict_set", ["classification", "predict", *common,
+                             "--checkpoint_dir", str(runs[0]),
+                             "--prediction_type", "set", "--output_path",
+                             str(work / "set.json")], False)):
+        secs, text, counts, want = _counted_cli(args)
+        _check_cli_launches(f"gp {tag}", counts, want, steps)
+        out[tag] = dict(seconds=secs, counts=counts)
+        if tag == "test":
+            out[tag]["results"] = json.loads(
+                [ln for ln in text.splitlines() if ln.startswith("[")][-1])
+    meta = json.loads((runs[0] / "classification_fold0" / "metadata.json")
+                      .read_text())
+    cov = [np.load(Path(f) / "gp_covariance.npy") for f in folds]
+    conf = json.loads((Path(folds[0]) / "conformal.json").read_text())
+    weights = [torch.load(Path(f) / "model.pt", weights_only=True)
+               for f in folds]
+    frozen = [k for k in weights[1] if k.startswith("ResNetBackbone_0.")
+              and not k.endswith((".mean", ".var"))]
+    ens = json.loads((work / "ens.json").read_text())
+    sets = json.loads((work / "set.json").read_text())
+    with plain_kernels():
+        _cli(["classification", "predict", *common, "--checkpoint_dir",
+              str(runs[0]), "--checkpoint", *folds, "--ensemble", "mean",
+              "--output_path", str(work / "ens_plain.json")])
+    plain = json.loads((work / "ens_plain.json").read_text())
+    err = max(abs(r["predictions"][pid] - q["predictions"][pid])
+              for r, q in zip(ens, plain) for pid in r["predictions"])
+    calib = set(GP_CALIBRATION.split(","))
+    checks = dict(
+        metadata=meta["transform_arguments"]["resize_size"] == list(
+            GP_RESIZE) and not calib & set(meta["train_pids"]
+                                           + meta["val_pids"]),
+        covariance=all(c.shape == (256, 256) and np.isfinite(c).all()
+                       and np.allclose(c, c.T, atol=1e-5) for c in cov),
+        conformal=conf["n_calibration"] == 2 and 0 < conf["q_hat"] <= 1,
+        frozen=bool(frozen) and all(torch.equal(weights[0][k],
+                                                weights[1][k])
+                                    for k in frozen),
+        test=[r["iteration"] for r in out["test"]["results"]] == [0, 1],
+        ensemble=len(ens) == 3 and ens[-1]["checkpoint"] == "ensemble"
+        and err <= GP_F32_TOL,
+        sets=sorted(sets) == sorted(ds) and all(
+            v and set(v) <= {0, 1} for v in sets.values()))
+    log(f"[gp cli] {smi}: "
+        + "; ".join(f"{tag} {r['seconds']:.2f} s, launches {r['counts']}"
+                    for tag, r in out.items())
+        + f"; conformal {conf}; {len(frozen)} frozen leaves kept; ensemble "
+        f"record {ens[-1]['predictions']}, kernels vs plain path {err:.3g} "
+        f"(tol {GP_F32_TOL}); sets {sets}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"gp CLIs: {checks}")
+    return dict(runs=out, conformal=conf, ensemble=ens[-1], sets=sets,
+                ensemble_plain_err=err)
+
+
+def _ensemble_clis(smi):
+    """Phase 22 (e): ``classification_ensemble train`` (f32) of
+    ``ENSEMBLE_MEMBERS`` CatNets of ``classification-cat-resnet.yaml``
+    as it stands (batch ensembles of 4, batch norm; the parameters alone
+    in every step) on the phase's 6 cases, 2 epochs at B=2, then
+    ``test`` and ``predict``, and ``predict`` again on the plain path
+    (within ``GP_F32_TOL``); the launches against those of the recorded
+    K1 calls, no K3 (the ensemble trains without augmentation)."""
+    from adell_mri_torch.tools.flagship import CATNET_YAML
+
+    work = WORK_DIR / "gp_cli"
+    ck = work / "ensemble"
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda",
+              "--checkpoint_dir", str(ck)]
+    out = {}
+    for tag, args in (
+            ("train", ["classification_ensemble", "train", *common,
+                       "--image_keys", "image", "--config_files",
+                       *[str(CATNET_YAML)] * ENSEMBLE_MEMBERS,
+                       "--pad_size", *map(str, CATNET_SHAPE),
+                       "--target_spacing", "0.5", "0.5", "3.0",
+                       "--batch_size", str(CATNET_CLI_BATCH),
+                       "--max_epochs", "2", "--seed", "0", "--metric_path",
+                       str(work / "me.csv")]),
+            ("test", ["classification_ensemble", "test", *common,
+                      "--metric_path", str(work / "te.csv")]),
+            ("predict", ["classification_ensemble", "predict", *common,
+                         "--output_path", str(work / "pe.json")])):
+        secs, text, counts, want = _counted_cli(args)
+        _check_cli_launches(f"ensemble {tag}", counts, want, False)
+        out[tag] = dict(seconds=secs, counts=counts)
+        if tag == "test":
+            out[tag]["results"] = _last_json(text)
+    probs = json.loads((work / "pe.json").read_text())
+    with plain_kernels():
+        _cli(["classification_ensemble", "predict", *common,
+              "--output_path", str(work / "pe_plain.json")])
+    plain = json.loads((work / "pe_plain.json").read_text())
+    err = max(abs(probs[k] - plain[k]) for k in probs)
+    meta = json.loads((ck / "ensemble_fold0" / "metadata.json").read_text())
+    log(f"[ensemble cli] {smi}: "
+        + "; ".join(f"{tag} {r['seconds']:.2f} s, launches {r['counts']}"
+                    for tag, r in out.items())
+        + f"; test {out['test']['results']}; predictions {probs}, kernels "
+        f"vs plain path {err:.3g} (tol {GP_F32_TOL})")
+    if not (meta["n_members"] == ENSEMBLE_MEMBERS
+            and all(c["batch_ensemble"] == 4 for c in meta["member_configs"])
+            and out["test"]["results"]["n_cases"] == CATNET_CLI_CASES
+            and len(probs) == CATNET_CLI_CASES and err <= GP_F32_TOL
+            and all(0 <= p <= 1 for p in probs.values())):
+        raise AssertionError(f"ensemble CLIs: {meta}, {out}, {err}")
+    return dict(runs=out, predictions=probs, plain_err=err)
+
+
+def phase_gp_ensemble(smi):
+    """Phase 22: the classification CLI's remaining flags and the
+    ``classification_ensemble`` mode at the yaml's width: the GP CatNet
+    served (B=2) and trained (B=16) as phase 19 serves and trains, its
+    covariance and mean-field correction, accumulation and freezing, the
+    CLIs, the ensemble's CLIs."""
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(part):
+        now = time.perf_counter()
+        laps[part] = now - last[0]
+        last[0] = now
+
+    out = dict(serving=_classifier_serving(smi, GP_NAME))
+    lap("serving")
+    out["training"] = _classifier_training(smi, GP_NAME)
+    lap("training")
+    out["covariance"] = _gp_covariance(smi)
+    lap("covariance")
+    out["optimizer"] = _gp_optimizer_steps(smi)
+    lap("optimizer")
+    out["cli"] = _gp_clis(smi)
+    lap("cli")
+    out["ensemble_cli"] = _ensemble_clis(smi)
+    lap("ensemble_cli")
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = laps
+    log(f"[gp and ensembles] phase 22: {out['seconds']:.1f} s ({laps})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -6390,6 +6870,8 @@ def main():
     lap(20)
     new_classifiers = phase_new_classifiers(smi)
     lap(21)
+    gp_ensemble = phase_gp_ensemble(smi)
+    lap(22)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -6510,6 +6992,21 @@ def main():
            for tag, run in new_classifiers["cli"].items()
            for what in run if what == "train" or what == "test"
            or what.startswith("predict_")},
+        # phase 22: the GP CatNet served (B=2) and trained (3 bf16 steps, 1
+        # f32 step at B=16), its covariance fitted over 3 batches, two
+        # accumulated micro-steps and a frozen step (f32), its CLIs (f32:
+        # train, the warm-started run, test, predict with --ensemble and
+        # with sets) and the ensemble's CLIs (f32)
+        **{f"catnet_gp_{what}{'' if p == 'bf16' else '_f32'}":
+           gp_ensemble[what][p]["launches"]
+           for what in ("serving", "training") for p in ("bf16", "32")},
+        "catnet_gp_covariance_f32": gp_ensemble["covariance"]["launches"],
+        **{f"catnet_gp_{what}_f32": run["launches"]
+           for what, run in gp_ensemble["optimizer"].items()},
+        **{f"{tag}_{what}_f32": run["counts"]
+           for part, tag in (("cli", "gp_cli"),
+                             ("ensemble_cli", "ensemble_cli"))
+           for what, run in gp_ensemble[part]["runs"].items()},
     }
 
     def launches_of(name):
@@ -6537,7 +7034,10 @@ def main():
               "ConvNeXt CatNet forwards, steps and clinical-feature CLI "
               "runs, phase 20's VICReg, BYOL and served SSL forwards and "
               "steps and the ssl CLIs, phase 21's OrdNet and U-Net encoder "
-              "classifier forwards, steps and CLI runs, every route",
+              "classifier forwards, steps and CLI runs, phase 22's GP "
+              "CatNet forwards, steps, covariance fit, accumulated and "
+              "frozen steps and CLI runs and the ensemble's CLI runs, "
+              "every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -6818,6 +7318,7 @@ def main():
         flagship_pipeline=pipeline, full_augmentation=augmentation,
         swin=swin, catnet=catnet, unet_options=options,
         classifiers=classifiers, ssl=ssl, new_classifiers=new_classifiers,
+        gp_ensemble=gp_ensemble,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,

@@ -276,31 +276,51 @@ def test_test_and_predict_match_jax(cohort, capsys, n_classes):
         np.testing.assert_allclose(got[pid], v, atol=TOL, rtol=0)
 
 
+# what the port still refuses: the experiment loggers, and networks it
+# has not ported (the 2D classifiers, ViT's mixture of experts), each a
+# config written beside the cohort's
+_2D = {"spatial_dimensions": 2}
+_MOE = {"patch_size": [4, 4, 2], "embedding_size": 32, "n_heads": 2,
+        "number_of_blocks": 1, "moe_experts": 2}
+
+
 @pytest.mark.parametrize(
-    "flags",
-    [["--exclude_from_state_dict", "Dense"],
-     ["--not_freeze_regex", "Dense"], ["--conformal_alpha", "0.1"],
-     ["--resize_size", "8", "8", "4"], ["--accumulate_grad_batches", "2"],
-     ["--checkpoint", "x"], ["--freeze_regex", "Dense"],
-     ["--calibration_ids", "case_0"], ["--logger_type", "wandb"],
-     ["--project_name", "p"], ["--summary_name", "s"],
-     ["--tracking_uri", "file:x"], ["--log_model"]],
+    "flags, network",
+    [(["--logger_type", "wandb"], None), (["--logger_type", "mlflow"], None),
+     (["--project_name", "p"], None), (["--summary_name", "s"], None),
+     (["--summary_dir", "d"], None), (["--tracking_uri", "file:x"], None),
+     (["--log_model"], None), ([], {**NETWORK, **_2D}),
+     (["--classification_net_type", "vgg"], _2D),
+     (["--classification_net_type", "ord"], _2D),
+     (["--classification_net_type", "convnext"], {**NETWORK, **_2D}),
+     (["--classification_net_type", "vit"], _MOE),
+     (["--logger_type", "wandb", "--log_model"], None)],
 )
-def test_train_unported_flags_raise(cohort, flags):
+def test_train_unported_flags_raise(cohort, flags, network):
+    if network is not None:
+        path = cohort / f"unported_{abs(hash(str(network)))}.yaml"
+        path.write_text(yaml.safe_dump(network))
+        flags = flags + ["--config_file", str(path)]
     with pytest.raises(NotImplementedError):
         ttrain.main(_train_args(cohort, cohort / "ckpt_x", *flags))
 
 
 @pytest.mark.parametrize(
-    "entry, flags",
-    [(ttest, ["--checkpoint", "x"]), (ttest, ["--one_to_one"]),
-     (tpredict, ["--ensemble", "mean"]), (tpredict, ["--one_to_one"]),
-     (tpredict, ["--prediction_type", "set"])],
+    "entry, net_type, network",
+    [(ttest, "cat", {**NETWORK, **_2D}), (tpredict, "cat", {**NETWORK, **_2D}),
+     (ttest, "vgg", _2D), (tpredict, "ord", _2D), (tpredict, "vit", _MOE)],
 )
-def test_serving_unported_flags_raise(cohort, entry, flags):
-    _, tdir = _checkpoints(cohort, 2)
+def test_serving_unported_flags_raise(cohort, entry, net_type, network):
+    """A checkpoint of a network the port has not ported (its metadata is
+    enough: the network is built before its weights are read)."""
+    root = cohort / f"unported_{net_type}_{entry.__name__.split('.')[-1]}"
+    CheckpointManager(str(root), name="classification", fold=0, metadata={
+        "network_config": network, "n_classes": 2, "net_type": net_type,
+        "transform_arguments": {"image_keys": ["T2"],
+                                "target_spacing": [1.0, 1.0, 2.0],
+                                "target_size": list(SHAPE)}})
     args = ["--dataset_json", str(cohort / "ds.json"), "--dev", "cpu",
-            "--checkpoint_dir", str(tdir), *flags]
+            "--checkpoint_dir", str(root)]
     if entry is tpredict:
         args += ["--output_path", str(cohort / "unused.json")]
     with pytest.raises(NotImplementedError):

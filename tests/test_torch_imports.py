@@ -59,6 +59,15 @@ def test_port_import_loads_no_jax():
         "import adell_mri_torch.models.layers.vit\n"
         "import adell_mri_torch.models.segmentation.unetr\n"
         "import adell_mri_torch.interop.from_flax\n"
+        "import adell_mri_torch.entrypoints.classification.train\n"
+        "import adell_mri_torch.entrypoints.classification.predict\n"
+        "import adell_mri_torch.entrypoints.classification_ensemble.train\n"
+        "import adell_mri_torch.entrypoints.classification_ensemble.test\n"
+        "import adell_mri_torch.entrypoints.classification_ensemble"
+        ".predict\n"
+        "import adell_mri_torch.entrypoints.prediction_utils\n"
+        "import adell_mri_torch.models.layers.gaussian_process\n"
+        "import adell_mri_torch.models.layers.conformal\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
