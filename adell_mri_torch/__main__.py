@@ -10,7 +10,7 @@ import os
 import sys
 
 supported_modes = ["segmentation", "classification", "classification_ensemble",
-                   "ssl"]
+                   "classification_mil", "ssl"]
 
 
 def main(arguments=None):

@@ -2,10 +2,13 @@
 Network-config parsing for U-Net and classifier training.
 
 Counterpart of ``load_yaml``, ``build_compound_loss``, ``parse_config_unet``,
-``parse_config_cat``, ``parse_config_ssl`` and ``_TRAINING_KEYS`` in
+``parse_config_cat``, ``parse_config_ssl``, ``parse_config_2d_classifier_3d``
+and ``_TRAINING_KEYS`` in
 ``adell_mri_tpu/config/parsing.py``: a config file holds hyperparameters
 and, for a U-Net, a ``loss_fn`` mapping of loss name -> params that
-becomes a ``CompoundLoss``.
+becomes a ``CompoundLoss``. ``resnet_encoder_config`` is what
+``segmentation train --res_config_file`` adds to the U-Net's keys (the
+JAX CLI does it inline).
 """
 
 import copy
@@ -109,4 +112,35 @@ def parse_config_ssl(config_file: str, dropout_param: float = 0.0,
                     if k not in _TRAINING_KEYS},
         "training": {k: v for k, v in config.items()
                      if k in _TRAINING_KEYS},
+    }
+
+
+def parse_config_2d_classifier_3d(config_file: str,
+                                  mil_method: str = "standard"
+                                  ) -> Dict[str, Any]:
+    """The MIL mode's yaml: ``mil_method`` (the yaml's, else the CLI's)
+    joins the network keys."""
+    config = load_yaml(config_file)
+    config["mil_method"] = config.get("mil_method", mil_method)
+    return {"network": {k: v for k, v in config.items()
+                        if k not in _TRAINING_KEYS},
+            "training": {k: v for k, v in config.items()
+                         if k in _TRAINING_KEYS}}
+
+
+def resnet_encoder_config(ssl_config):
+    """The U-Net keys that graft the ResNet backbone of an SSL yaml's
+    ``backbone_args`` (or of the yaml itself) as the encoder."""
+    ba = ssl_config.get("backbone_args", ssl_config)
+    structure = [list(s) for s in ba["structure"]]
+    pools = ba.get("maxpool_structure", [2] * len(structure))
+    depth = [structure[0][0]] + [s[0] for s in structure]
+    return {
+        "encoder_structure": structure,
+        "depth": depth,
+        "kernel_sizes": [3] * len(depth),
+        # the stem's pool of 2, then the stages'
+        "strides": [2] + [list(m) if isinstance(m, (list, tuple)) else m
+                          for m in pools],
+        "res_type": ba.get("res_type", "resnet"),
     }

@@ -102,7 +102,7 @@ from adell_mri_torch.train.checkpoints import (
     CheckpointManager,
     correct_classification_bias,
     freeze_mask_by_regex,
-    load_params_into,
+    warm_start,
 )
 from adell_mri_torch.train.logging_utils import MetricLogger
 from adell_mri_torch.train.loop import TrainLoop
@@ -144,23 +144,6 @@ def parameters_alone(loss_and_metrics, model, train: bool):
         return loss, metrics
 
     return step
-
-
-def warm_start(model, ck_path: str, exclude=None):
-    """Loads into ``model``'s parameters those of the best weights of the
-    run ``ck_path`` (``{dir}/{name}_fold0``; the suffix is optional, as in
-    the JAX CLI) that ``load_params_into`` matches, leaving out the JAX
-    tree paths ``exclude`` names."""
-    src = CheckpointManager(os.path.dirname(ck_path) or ".",
-                            name=os.path.basename(ck_path).replace(
-                                "_fold0", ""), fold=0)
-    if not os.path.exists(os.path.join(src.dir, MODEL_FILE)):
-        logger.warning("warm start: no %s in %s; skipped", MODEL_FILE,
-                       src.dir)
-        return
-    skipped = load_params_into(dict(model.named_parameters()),
-                               src.load_state_dict(), exclude or ())
-    logger.info("warm start from %s (%d skipped)", ck_path, len(skipped))
 
 
 def _params_alone(model, *inputs, **kwargs):

@@ -1,0 +1,22 @@
+"""MIL classification mode dispatch: ``train``, ``test`` and ``predict``."""
+
+import importlib
+
+supported_modes = {
+    "predict": "adell_mri_torch.entrypoints.classification_mil.predict",
+    "test": "adell_mri_torch.entrypoints.classification_mil.test",
+    "train": "adell_mri_torch.entrypoints.classification_mil.train",
+}
+
+
+def main(arguments):
+    if len(arguments) == 0 or arguments[0] in ("help", "--help", "-h"):
+        print(f"\n\tSupported modes: {sorted(supported_modes)}")
+        return
+    mode = arguments[0]
+    if mode not in supported_modes:
+        raise NotImplementedError(
+            f"\n\tMode {mode} not supported (yet)\n\t"
+            f"Supported modes: {sorted(supported_modes)}"
+        )
+    importlib.import_module(supported_modes[mode]).main(arguments[1:])

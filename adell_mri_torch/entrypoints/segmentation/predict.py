@@ -6,12 +6,13 @@ unconditioned 3D checkpoints: the network (``net_type``: U-Net, UNETR or
 SWIN-UNet, run without the heads of ``models/segmentation/heads.py``)
 and the transforms are rebuilt from the checkpoint's metadata, the volume
 runs through the sliding window (UNETR takes the whole volume as one
-window: its positional embedding fixes the size), flip TTA and checkpoint
+window: its positional embedding fixes the size), flip TTA, MC dropout
+(``--mc_iterations``: the mean of that many training-mode forwards, the
+dropout drawn from generators seeded with ``--seed``) and checkpoint
 ensembling, the prediction is resampled back to the source geometry and
 written as NIfTI in the background; ``--extract_lesions`` writes the
 lesion-candidate map (dynamic threshold) in place of the probability map.
-Conditioned and 2D checkpoints and ``--mc_iterations`` are not ported yet
-and raise.
+Conditioned and 2D checkpoints are not ported yet and raise.
 """
 
 import glob
@@ -31,6 +32,7 @@ from adell_mri_torch.entrypoints.assemble_args import Parser
 from adell_mri_torch.eval.lesion import extract_lesion_candidates
 from adell_mri_torch.inference import SegmentationInference
 from adell_mri_torch.models.layers.adn import statistics_to_f32
+from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.checkpoints import CheckpointManager
 from adell_mri_torch.train.precision import compute_dtype
 from adell_mri_torch.transforms.host import (
@@ -58,6 +60,7 @@ ARG_KEYS = [
     "prediction_type",
     "segmentation_net_type",
     "precision",
+    "seed",
 ]
 
 
@@ -162,8 +165,6 @@ def main(arguments):
         "probabilities",
     )
     args = parser.parse_args(arguments)
-    if args.mc_iterations:
-        raise NotImplementedError("--mc_iterations is not ported yet")
 
     device = use_device(args.dev)
     dtype = compute_dtype(args.precision) or torch.float32
@@ -197,18 +198,26 @@ def main(arguments):
     else:
         managers = [mngr]
     models = []
-    for m in managers:
+    for i, m in enumerate(managers):
         # UNETR is built for the volume size it was trained at
         model = get_segmentation_network(
             net_type, net_cfg, n_classes=n_classes,
             image_size=t_args.get("target_size"),
         )
         model.load_state_dict(m.load_state_dict())
-        models.append(statistics_to_f32(
-            model.to(device=device, dtype=dtype)).eval())
+        model = statistics_to_f32(model.to(device=device, dtype=dtype))
+        seed_dropout(model, torch.Generator(device=device).manual_seed(
+            args.seed + i))
+        models.append(model.eval())
 
-    def base_fn(model, x):
-        return model(x.to(dtype), heads=False).float()
+    def base_fn(model, x, mc=False):
+        # MC dropout: a training-mode forward, as the JAX CLI applies its
+        # model with train=True and a dropout key
+        model.train(mc)
+        try:
+            return model(x.to(dtype), heads=False).float()
+        finally:
+            model.eval()
 
     # the CLI flag is a float: values <= 1 are window fractions, values > 1
     # absolute voxels (int-typed downstream)
@@ -221,6 +230,7 @@ def main(arguments):
         sliding_window_size=args.sliding_window_size,
         stride=sw_stride,
         flip=args.flip_tta,
+        mc_iterations=args.mc_iterations,
     )
 
     data = Dataset(args.dataset_json)

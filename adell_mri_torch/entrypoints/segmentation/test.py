@@ -9,8 +9,9 @@ and IoU (per foreground class on the argmax map when ``n_classes > 2``)
 and, with ``--picai_eval``, the lesion-level AP, AUROC and PI-CAI score
 (validation postprocess ``y > 0.1``) go to the metric CSV and to one JSON
 line on standard output. ``--precision bf16`` casts the weights and the
-inputs; the probabilities return to f32 before the metrics. Conditioned,
-2D and resized checkpoints are not ported yet and raise.
+inputs; the probabilities return to f32 before the metrics. A checkpoint
+trained with ``--resize_size`` loads its cases resized as it trained.
+Conditioned and 2D checkpoints are not ported yet and raise.
 """
 
 import json
@@ -89,8 +90,6 @@ def main(arguments):
         raise NotImplementedError(
             "conditioned checkpoints (skip/feature keys) are not ported yet"
         )
-    if t_args.get("resize_size"):
-        raise NotImplementedError("--resize_size is not ported yet")
     size = tuple(t_args.get("target_size"))
 
     model = get_segmentation_network(
@@ -104,6 +103,7 @@ def main(arguments):
         label_keys=label_keys,
         target_spacing=t_args.get("target_spacing"),
         target_size=size,
+        resize_size=t_args.get("resize_size"),
         # the training run's intensity and label semantics
         adc_keys=t_args.get("adc_keys") or (),
         positive_labels=t_args.get("positive_labels") or (1,),

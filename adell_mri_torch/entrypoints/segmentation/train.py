@@ -26,8 +26,20 @@ last quarter of the steps), ``--check_nan_loss``, ``--early_stopping``,
 ``--resume_from_last`` (a finished fold is skipped, an interrupted one
 continues from its last epoch), ``--sliding_window_val`` (whole volumes
 stitched from crop-size windows) and ``--picai_eval`` (V_AP, V_AUC,
-V_score each validation). Every other flag is parsed and raises
-``NotImplementedError`` when given a value other than its default.
+V_score each validation). Fine-tuning: ``--res_config_file`` (an SSL
+yaml's ``backbone_args``) makes the U-Net's encoder that ResNet backbone
+(``encoder_structure``, ``depth`` ``[stem_f, *stage_channels]``, kernels
+of 3, strides ``[2, *maxpool_structure]``, its ``res_type``),
+``--encoder_checkpoint`` loads it from a port run (``subtree_warm_start``),
+``--checkpoint`` with ``--exclude_from_state_dict`` warm-starts the whole
+network (``warm_start``), ``--lr_encoder`` scales the updates of
+``^(enc_|encoder_backbone)`` by its ratio to the learning rate
+(``lr_scale_by_regex``), ``--freeze_regex``/``--not_freeze_regex`` freeze
+leaves, ``--accumulate_grad_batches k`` applies the mean of k steps'
+gradients (the schedule counts optimizer steps) and ``--resize_size``
+scales each volume after the spacing. Every other flag is parsed and
+raises ``NotImplementedError`` when given a value other than its
+default.
 """
 
 import json
@@ -38,7 +50,11 @@ import numpy as np
 import torch
 
 from adell_mri_torch.config.factories import get_segmentation_network
-from adell_mri_torch.config.parsing import parse_config_unet
+from adell_mri_torch.config.parsing import (
+    load_yaml,
+    parse_config_unet,
+    resnet_encoder_config,
+)
 from adell_mri_torch.data.dataset import Dataset, parse_ids
 from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
 from adell_mri_torch.data.samplers import (
@@ -50,11 +66,22 @@ from adell_mri_torch.entrypoints.assemble_args import Parser
 from adell_mri_torch.entrypoints.cli_utils import filter_training_pids
 from adell_mri_torch.eval.callbacks import LesionEvalCallback
 from adell_mri_torch.models.layers.dropout import seed_dropout
-from adell_mri_torch.train.checkpoints import CheckpointManager
+from adell_mri_torch.train.checkpoints import (
+    ENCODER_SOURCES,
+    CheckpointManager,
+    freeze_mask_by_regex,
+    subtree_warm_start,
+    warm_start,
+)
 from adell_mri_torch.train.logging_utils import MetricLogger
 from adell_mri_torch.train.loop import TrainLoop
 from adell_mri_torch.train.nan_guard import NaNGuard
-from adell_mri_torch.train.optim import get_optimizer
+from adell_mri_torch.train.optim import (
+    accumulate_gradients,
+    freeze_wrap,
+    get_optimizer,
+    lr_scale_by_regex,
+)
 from adell_mri_torch.train.precision import compute_dtype
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
 from adell_mri_torch.train.state import TrainState
@@ -134,13 +161,19 @@ ARG_KEYS = [
     "constant_ratio",
     "bottleneck_classification",
     "deep_supervision",
+    "resize_size",
+    "lr_encoder",
+    "accumulate_grad_batches",
+    "checkpoint",
+    "res_config_file",
+    "encoder_checkpoint",
+    "exclude_from_state_dict",
+    "freeze_regex",
+    "not_freeze_regex",
 ]
 UNPORTED_KEYS = [
     "skip_keys",
     "feature_keys",
-    "resize_size",
-    "lr_encoder",
-    "accumulate_grad_batches",
     "logger_type",
     "project_name",
     "summary_name",
@@ -154,13 +187,10 @@ UNPORTED_KEYS = [
     "missing_to_empty",
     "remat",
     "remat_policy",
-    "checkpoint",
-    "res_config_file",
-    "encoder_checkpoint",
-    "exclude_from_state_dict",
-    "freeze_regex",
-    "not_freeze_regex",
 ]
+
+# the encoder a --res_config_file grafts, whose updates --lr_encoder scales
+ENCODER_REGEX = r"^(enc_|encoder_backbone)"
 
 
 def kfold_split(n: int, n_folds: int, seed: int):
@@ -291,6 +321,15 @@ def main(arguments):
         net_cfg["dropout_param"] = args.dropout_param
     net_cfg["bottleneck_classification"] = args.bottleneck_classification
     net_cfg["deep_supervision"] = args.deep_supervision
+    if args.res_config_file:
+        if args.segmentation_net_type != "unet":
+            raise NotImplementedError(
+                "--res_config_file applies to the unet net type")
+        net_cfg.update(resnet_encoder_config(load_yaml(args.res_config_file)))
+    if args.encoder_checkpoint and "encoder_structure" not in net_cfg:
+        raise ValueError(
+            "--encoder_checkpoint needs a ResNet encoder: pass "
+            "--res_config_file (or encoder_structure in the network yaml)")
 
     target_spacing = args.target_spacing
     if target_spacing is None:
@@ -301,9 +340,10 @@ def main(arguments):
             target_spacing = get_spacing_quantile(spacings)
             logger.info("inferred target spacing: %s", target_spacing)
 
-    base_size = args.pad_size or args.crop_size
+    base_size = args.pad_size or args.resize_size or args.crop_size
     if base_size is None:
-        raise ValueError("one of --pad_size/--crop_size is required")
+        raise ValueError(
+            "one of --pad_size/--resize_size/--crop_size is required")
     crop_size = args.random_crop_size or args.crop_size
     if ("unetr" in args.segmentation_net_type and crop_size
             and tuple(crop_size) != tuple(base_size)):
@@ -339,6 +379,7 @@ def main(arguments):
             label_keys=label_keys,
             target_spacing=target_spacing,
             target_size=base_size,
+            resize_size=args.resize_size,
             adc_keys=args.adc_keys or (),
             positive_labels=positive_labels,
             crop_size=(crop_size if crop_size and list(crop_size)
@@ -400,24 +441,45 @@ def main(arguments):
             model,
             torch.Generator(device=device).manual_seed(args.seed + fold_idx),
         )
+        for ck_path in args.checkpoint or []:
+            warm_start(model, ck_path, args.exclude_from_state_dict)
+        for ck_path in args.encoder_checkpoint or []:
+            subtree_warm_start(model, ck_path, "encoder_backbone",
+                               ENCODER_SOURCES)
 
         steps_per_epoch = max(len(train_loader), 1)
         if args.steps_per_epoch:
             steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
+        # the schedule advances once per optimizer step, every
+        # --accumulate_grad_batches steps
+        sched_steps = max(
+            1, steps_per_epoch // max(1, args.accumulate_grad_batches))
         schedule = cosine_annealing_with_warmup(
             learning_rate,
-            t_max=args.max_epochs * steps_per_epoch,
-            n_warmup_steps=args.warmup_steps * steps_per_epoch
+            t_max=args.max_epochs * sched_steps,
+            n_warmup_steps=args.warmup_steps * sched_steps
             if args.warmup_steps >= 1 else args.warmup_steps,
             start_decay=args.start_decay,
         )
-        state = TrainState.create(
-            model,
-            lambda params: get_optimizer(
+
+        def make_tx(params):
+            tx = get_optimizer(
                 args.optimizer, learning_rate=schedule,
                 weight_decay=weight_decay, clip_norm=args.gradient_clip_val,
                 params=params,
-            ),
+            )
+            if args.lr_encoder is not None and learning_rate > 0:
+                tx = lr_scale_by_regex(tx, params, {
+                    ENCODER_REGEX: args.lr_encoder / learning_rate})
+            if args.freeze_regex or args.not_freeze_regex:
+                tx = freeze_wrap(tx, freeze_mask_by_regex(
+                    params, args.freeze_regex or (),
+                    args.not_freeze_regex or ()))
+            return accumulate_gradients(tx, args.accumulate_grad_batches)
+
+        state = TrainState.create(
+            model,
+            make_tx,
             # SWA averages the last quarter of the steps
             swa_start_step=(int(0.75 * args.max_epochs * steps_per_epoch)
                             if args.swa else None),
@@ -437,7 +499,8 @@ def main(arguments):
                     "label_keys": label_keys,
                     "target_spacing": target_spacing,
                     "target_size": list(base_size),
-                    "resize_size": None,
+                    "resize_size": (list(args.resize_size)
+                                    if args.resize_size else None),
                     "crop_size": list(crop_size) if crop_size else None,
                     "adc_keys": list(args.adc_keys or ()),
                     "positive_labels": positive_labels,

@@ -3,8 +3,7 @@ Test-time augmentation and composed inference.
 
 Counterpart of ``adell_mri_tpu/inference/tta.py``: ``FlippedInference``,
 ``TensorListReduction`` and ``SegmentationInference``, composing the
-sliding window, flip TTA and checkpoint ensembling. MC-dropout is not
-ported yet (the flagship has no dropout) and raises.
+sliding window, flip TTA, MC dropout and checkpoint ensembling.
 """
 
 from typing import Callable, List, Optional, Sequence
@@ -43,15 +42,21 @@ class TensorListReduction:
 
 
 class SegmentationInference:
-    """Per-checkpoint model -> [sliding window] -> [flip TTA] -> mean.
+    """Per-checkpoint model -> [MC-dropout repeats] -> [sliding window]
+    -> [flip TTA] -> mean.
 
     Args:
-        base_inference_function: ``(params, x) -> probs`` on a batch of
-            windows or volumes; ``params`` is one entry of
-            ``checkpoint_params`` (for the port, a model).
+        base_inference_function: ``(params, x, mc=False) -> probs`` on a
+            batch of windows or volumes; ``params`` is one entry of
+            ``checkpoint_params`` (for the port, a model); ``mc=True``
+            asks for a training-mode forward (dropout drawn, batch norms
+            on the batch's statistics), as the JAX package applies its
+            model with ``train=True`` and a dropout key.
         checkpoint_params: the ensemble's members.
         sliding_window_size: enables windowed inference when set.
         stride, flip: as the CLI exposes them.
+        mc_iterations: with a count, each window batch (or volume) is the
+            mean of that many ``mc=True`` forwards (MC dropout).
     """
 
     def __init__(
@@ -64,11 +69,8 @@ class SegmentationInference:
         mc_iterations: Optional[int] = None,
         batch_size: int = 4,
     ):
-        if mc_iterations:
-            raise NotImplementedError(
-                "MC-dropout inference (mc_iterations) is not ported yet"
-            )
         self.base_fn = base_inference_function
+        self.mc_iterations = mc_iterations
         self.checkpoint_params = list(checkpoint_params)
         self.sliding_window_size = sliding_window_size
         self.flip = flip
@@ -77,11 +79,20 @@ class SegmentationInference:
         if sliding_window_size is not None:
             self.sw = SlidingWindowSegmentation(
                 sliding_window_size,
-                self.base_fn,
+                self._member_fn,
                 stride=stride,
                 batch_size=batch_size,
                 with_params=True,
             )
+
+    def _member_fn(self, params, x):
+        """One member's probabilities: the mean of ``mc_iterations``
+        training-mode forwards, or one eval forward."""
+        if not self.mc_iterations:
+            return self.base_fn(params, x)
+        preds = [self.base_fn(params, x, mc=True)
+                 for _ in range(self.mc_iterations)]
+        return sum(preds) / len(preds)
 
     def __call__(self, vol: torch.Tensor) -> torch.Tensor:
         """vol [*S, C], one case; returns [*S, C_out] in f32."""
@@ -91,7 +102,7 @@ class SegmentationInference:
             if self.sw is not None:
                 fn = lambda x, _p=params: self.sw(x, _p)  # noqa: E731
             else:
-                fn = lambda x, _p=params: self.base_fn(  # noqa: E731
+                fn = lambda x, _p=params: self._member_fn(  # noqa: E731
                     _p, x[None]
                 )[0]
             if self.flip:

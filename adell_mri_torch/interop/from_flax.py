@@ -1,8 +1,10 @@
 """
-Moves a JAX UNet's, UNETR's, SWINUNet's, CatNet's, VGG's, ConvNeXt's,
-OrdNet's, UNetEncoderClassifier's, ViTClassifier's,
-FactorizedViTClassifier's, HybridClassifier's, NonContrastiveWrapper's or
-IJEPA's parameters (and their ``batch_stats``) into the port.
+Moves a JAX UNet's (with a ResNet encoder too), UNETR's, SWINUNet's,
+CatNet's, VGG's and OrdNet's (2D or 3D), ConvNeXt's,
+UNetEncoderClassifier's, ViTClassifier's, FactorizedViTClassifier's,
+HybridClassifier's, NonContrastiveWrapper's, IJEPA's,
+MultipleInstanceClassifier's or TransformableTransformer's parameters
+(and their ``batch_stats``) into the port.
 
 The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
 ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
@@ -28,7 +30,10 @@ NonContrastiveWrapper's ``backbone`` (CatNet with ``feature_extraction``),
 ``ctx_mask_token``, ``context_encoder``, ``ctx2pred``, ``predictor``,
 ``pred_out`` and ``target_encoder``; CatNet's Gaussian-process head
 ``gp/beta``; GenericEnsemble's and AveragingEnsemble's
-``networks_{i}`` and the fusion head's ``Dense_{i}``), so
+``networks_{i}`` and the fusion head's ``Dense_{i}``; the U-Net's ResNet
+encoder ``encoder_backbone`` (a ``ResNetBackbone``'s tree); the MIL
+models' slice encoder ``module/VGG_0``, ``MILAttention_0/{V,U,w}``,
+``TransformerBlockStack_0``, ``SeqPool_0`` and ``Dense_{i}``), so
 each flax leaf ``a/b/kernel`` becomes the port
 key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
 batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token
@@ -41,7 +46,7 @@ buffers ``a.b.mean`` and ``a.b.var``. Only the layouts change:
 
 - a 3D conv kernel ``[kd,kh,kw,Cin,Cout]`` stays as it is (the port's
   ``Conv3d`` and its kernel read that layout), the patchify and merge
-  convs' too;
+  convs' too, and so does a 2D one ``[kh,kw,Cin,Cout]``;
 - a 1x1 conv kernel ``[1,1,1,Cin,Cout]`` or a Dense kernel ``[Cin,Cout]``
   becomes ``[Cout,Cin]`` (the port's ``Pointwise``);
 - a transposed conv kernel (a module named ``up_{i}``, ``proj_{i}_{u}``

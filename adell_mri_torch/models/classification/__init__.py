@@ -1,7 +1,13 @@
 """Classification models of the port: VGG, CatNet (every ``res_type``,
 the Gaussian-process head), the standalone ConvNeXt, the tabular and
-hybrid classifiers and the two ensembles."""
+hybrid classifiers, the two ensembles and the MIL models over 2D slice
+encoders."""
 
+from adell_mri_torch.models.classification.mil import (
+    MILAttention,
+    MultipleInstanceClassifier,
+    TransformableTransformer,
+)
 from adell_mri_torch.models.classification.nets import (
     VGG,
     AveragingEnsemble,
@@ -13,4 +19,6 @@ from adell_mri_torch.models.classification.nets import (
 from adell_mri_torch.models.layers.conv_next import ConvNeXt
 
 __all__ = ["VGG", "AveragingEnsemble", "CatNet", "ConvNeXt",
-           "GenericEnsemble", "HybridClassifier", "TabularClassifier"]
+           "GenericEnsemble", "HybridClassifier", "MILAttention",
+           "MultipleInstanceClassifier", "TabularClassifier",
+           "TransformableTransformer"]

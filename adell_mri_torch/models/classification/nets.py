@@ -38,6 +38,15 @@ Counterpart of ``VGG``, ``CatNet``, ``OrdNet``,
 - ``HybridClassifier``: a headless image network's pooled features beside
   the standardised tabular features, then Dense, relu, Dense.
 
+``VGG``, ``CatNet`` and ``OrdNet`` take ``spatial_dimensions`` as the JAX
+modules do, where it changes nothing but the ADNs' layer-norm epsilon
+(1D only): a JAX module's convs take the rank of its input, so the
+classification CLI's volumes make a ``spatial_dimensions: 2`` network a
+3D one in both packages. The port builds its weights before any input,
+so it takes that rank as ``ndim`` (3, or 2 for the MIL slice encoder's
+slices); a CatNet whose ``maxpool_structure`` lists another number of
+axes fails where it is built, as the JAX one fails at its first call.
+
 The output is one logit (binary) or ``n_classes``; activations live in
 the losses. Inputs and feature maps are channels-last. With
 ``feature_extraction`` a network builds no head and returns its pooled
@@ -103,10 +112,9 @@ class CatNet(nn.Module):
         classification_structure: Optional[Sequence[int]] = None,
         feature_extraction: bool = False,
         gp_head: bool = False,
+        ndim: int = 3,
     ):
         super().__init__()
-        if spatial_dimensions != 3:
-            raise NotImplementedError("2D classifiers are not ported yet")
         self.n_classes = n_classes
         self.ResNetBackbone_0 = ResNetBackbone(
             in_channels,
@@ -115,6 +123,7 @@ class CatNet(nn.Module):
             adn_fn=get_adn_fn(norm_type, act_fn, dropout_param),
             res_type=res_type,
             batch_ensemble=batch_ensemble,
+            ndim=ndim,
         )
         self.pool = GlobalPooling()
         d = self.n_features = self.ResNetBackbone_0.output_features
@@ -157,15 +166,14 @@ class VGG(nn.Module):
         norm_type: str = "batch",
         classification_structure: Sequence[int] = (512, 512, 512),
         feature_extraction: bool = False,
+        ndim: int = 3,
     ):
         super().__init__()
-        if spatial_dimensions != 3:
-            raise NotImplementedError("2D classifiers are not ported yet")
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             d = first_depth * 2 ** i
             self.add_module(f"VGGConvolution_{i}", VGGConvolution(
-                in_channels, d, norm_fn=norm_type))
+                in_channels, d, norm_fn=norm_type, ndim=ndim))
             in_channels = 2 * d
         self.n_features = in_channels
         self.pool = GlobalPooling()
@@ -197,14 +205,14 @@ class OrdNet(nn.Module):
         act_fn: str = "relu",
         dropout_param: float = 0.0,
         feature_extraction: bool = False,
+        ndim: int = 3,
     ):
         super().__init__()
-        if spatial_dimensions != 3:
-            raise NotImplementedError("2D classifiers are not ported yet")
         self.ResNetBackbone_0 = ResNetBackbone(
             in_channels, [tuple(s) for s in resnet_structure],
             maxpool_structure=maxpool_structure,
             adn_fn=get_adn_fn(norm_type, act_fn, dropout_param),
+            ndim=ndim,
         )
         self.pool = GlobalPooling()
         d = self.n_features = self.ResNetBackbone_0.output_features

@@ -117,17 +117,19 @@ class VGGConvolution(nn.Module):
     """A 3x3x3 SAME conv to ``first_depth`` channels and one to twice that,
     each followed by an ADN (``norm_fn``, ``act_fn``, no dropout), then a
     SAME max-pool of 2 (a spatial size of 1 stays 1). Both convs are K1's
-    class. Module names are the JAX tree's: ``Conv_0``, ``ActDropNorm_0``,
-    ``Conv_1``, ``ActDropNorm_1``."""
+    class. With ``ndim`` 2 (the JAX block takes the rank of its input)
+    the convs are 3x3 and the pool 2x2. Module names are the JAX tree's:
+    ``Conv_0``, ``ActDropNorm_0``, ``Conv_1``, ``ActDropNorm_1``."""
 
     def __init__(self, in_channels: int, first_depth: int,
-                 norm_fn: str = "batch", act_fn: str = "relu"):
+                 norm_fn: str = "batch", act_fn: str = "relu",
+                 ndim: int = 3):
         super().__init__()
         d = first_depth
         adn = get_adn_fn(norm_fn, act_fn)
-        self.Conv_0 = Conv3d(in_channels, d, (3, 3, 3))
+        self.Conv_0 = Conv3d(in_channels, d, (3,) * ndim)
         self.ActDropNorm_0 = adn(d)
-        self.Conv_1 = Conv3d(d, 2 * d, (3, 3, 3))
+        self.Conv_1 = Conv3d(d, 2 * d, (3,) * ndim)
         self.ActDropNorm_1 = adn(2 * d)
 
     def forward(self, x):

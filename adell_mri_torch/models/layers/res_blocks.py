@@ -13,7 +13,9 @@ the width changes, then the trailing ADN. ``ConvNeXtBlock``: a depthwise
 the tanh approximation), GRN (v2) or LayerScale (v1), the skip added, and
 a 1x1 conv + GELU where the width changes. ``ResNeXtBlock``: the
 bottleneck with a grouped kxk conv (``min(n_splits, inter)`` groups, the
-inner width rounded down to a multiple of them).
+inner width rounded down to a multiple of them). ``ndim`` is the number of
+spatial axes of the input (3, or 2 for the 2D networks), which the JAX
+blocks read from their input.
 """
 
 import torch.nn as nn
@@ -33,10 +35,11 @@ class ResidualBlock(nn.Module):
         out_channels: int = None,
         adn_fn=None,
         inter_channels: int = None,
+        ndim: int = 3,
     ):
         super().__init__()
         out_channels = out_channels or in_channels
-        k = _tuple(kernel_size, 3)
+        k = _tuple(kernel_size, ndim)
 
         def adn(features):
             return adn_fn(features) if adn_fn else None
@@ -81,11 +84,12 @@ class ConvNeXtBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int = None,
                  kernel_size: int = 7, inter_channels: int = None,
-                 v2: bool = False, layer_scale_init: float = 1e-6):
+                 v2: bool = False, layer_scale_init: float = 1e-6,
+                 ndim: int = 3):
         super().__init__()
         out_channels = out_channels or in_channels
         inter = inter_channels or 4 * in_channels
-        self.Conv_0 = DwConv(in_channels, _tuple(kernel_size, 3))
+        self.Conv_0 = DwConv(in_channels, _tuple(kernel_size, ndim))
         self.LayerNorm_0 = LayerNorm(in_channels, 1e-6)
         self.Dense_0 = Pointwise(in_channels, inter)
         self.Dense_1 = Pointwise(inter, in_channels)
@@ -125,6 +129,7 @@ class ResNeXtBlock(nn.Module):
         adn_fn=None,
         inter_channels: int = None,
         n_splits: int = 16,
+        ndim: int = 3,
     ):
         super().__init__()
         out_channels = out_channels or in_channels
@@ -137,7 +142,7 @@ class ResNeXtBlock(nn.Module):
 
         self.Conv_0 = Pointwise(in_channels, inter)
         self.ActDropNorm_0 = adn(inter)
-        self.Conv_1 = Conv3d(inter, inter, _tuple(kernel_size, 3),
+        self.Conv_1 = Conv3d(inter, inter, _tuple(kernel_size, ndim),
                              groups=groups)
         self.ActDropNorm_1 = adn(inter)
         self.Conv_2 = Pointwise(inter, in_channels)
@@ -156,16 +161,17 @@ class ResNeXtBlock(nn.Module):
 
 def _convnext(v2: bool):
     def ctor(in_channels, kernel_size, out_channels, adn_fn=None,
-             inter_channels=None):
+             inter_channels=None, ndim=3):
         # the JAX block accepts adn_fn and ignores it
         return ConvNeXtBlock(in_channels, out_channels, kernel_size,
-                             inter_channels, v2=v2)
+                             inter_channels, v2=v2, ndim=ndim)
 
     return ctor
 
 
 #: res_type -> ``ctor(in_channels, kernel_size, out_channels, adn_fn,
-#: inter_channels)``; the ResNet backbone names each block by its class
+#: inter_channels, ndim=...)``; the ResNet backbone names each block by
+#: its class
 RES_BLOCK_REGISTRY = {
     "resnet": ResidualBlock,
     "resnext": ResNeXtBlock,

@@ -14,7 +14,13 @@ axis where the config gives a list, and no ADN), then, with
 names are the JAX tree's: ``Conv_0``, ``ActDropNorm_0``, ``Conv_1``,
 ``ActDropNorm_1``, ``ResidualBlock_{i}`` (``ResNeXtBlock_{i}``,
 ``ConvNeXtBlock_{i}``) counted over every stage,
-``BatchEnsembleConv_{s}``.
+``BatchEnsembleConv_{s}``. ``ndim`` is the number of spatial axes of the
+input (3, or 2 for the 2D networks), which the JAX module reads from its
+input; a pool given per axis must have that many entries (the JAX module
+fails at its first call on a list of another length, this one when it is
+built). ``forward(x, return_intermediate=True)`` also returns each
+stage's output before its pool, with ``return_stem`` the stem's (before
+its pool of 2) first: the U-Net encoder's skips.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -22,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch.nn as nn
 
 from adell_mri_torch.models.layers.batch_ensemble import BatchEnsembleConv
-from adell_mri_torch.models.layers.blocks import apply_adn, max_pool
+from adell_mri_torch.models.layers.blocks import _tuple, apply_adn, max_pool
 from adell_mri_torch.models.layers.res_blocks import RES_BLOCK_REGISTRY
 from adell_mri_torch.ops.conv import Conv3d
 
@@ -36,6 +42,7 @@ class ResNetBackbone(nn.Module):
         adn_fn=None,
         res_type: str = "resnet",
         batch_ensemble: int = 0,
+        ndim: int = 3,
     ):
         super().__init__()
         if res_type not in RES_BLOCK_REGISTRY:
@@ -49,22 +56,23 @@ class ResNetBackbone(nn.Module):
                 f"maxpool_structure has {len(mp)} entries for "
                 f"{len(structure)} backbone stages"
             )
-        self.pools = mp
+        # the JAX module's max_pool takes _tuple(window, ndim)
+        self.pools = [_tuple(p, ndim) for p in mp]
 
         def adn(features):
             return adn_fn(features) if adn_fn else None
 
         f = structure[0][0]
-        self.Conv_0 = Conv3d(in_channels, f, (7, 7, 7))
+        self.Conv_0 = Conv3d(in_channels, f, (7,) * ndim)
         self.ActDropNorm_0 = adn(f)
-        self.Conv_1 = Conv3d(f, f, (3, 3, 3))
+        self.Conv_1 = Conv3d(f, f, (3,) * ndim)
         self.ActDropNorm_1 = adn(f)
         self.stages = []
         in_ch, block_idx = f, 0
         for stage_idx, (channels, inter, k, n_blocks) in enumerate(structure):
             names = []
             for _ in range(max(n_blocks, 2)):
-                module = block(in_ch, k, channels, adn_fn, inter)
+                module = block(in_ch, k, channels, adn_fn, inter, ndim=ndim)
                 name = f"{type(module).__name__}_{block_idx}"
                 self.add_module(name, module)
                 names.append(name)
@@ -77,12 +85,17 @@ class ResNetBackbone(nn.Module):
             self.stages.append(names)
         self.output_features = structure[-1][0]
 
-    def forward(self, x):
+    def forward(self, x, return_intermediate: bool = False,
+                return_stem: bool = False):
         x = apply_adn(self.ActDropNorm_0, self.Conv_0(x))
         x = apply_adn(self.ActDropNorm_1, self.Conv_1(x))
+        intermediates = [x] if return_stem else []
         x = max_pool(x, 2)
         for names, pool in zip(self.stages, self.pools):
             for name in names:
                 x = getattr(self, name)(x)
+            intermediates.append(x)
             x = max_pool(x, pool)
+        if return_intermediate:
+            return x, intermediates
         return x

@@ -17,9 +17,16 @@ Submodule names keep the JAX tree paths (``enc_{i}``, ``enc_ds_{i}``,
 ``encoder_only`` the U-Net is its encoder (``enc_{i}``, ``enc_ds_{i}``)
 and returns the bottleneck: the tree the JAX module has when it returns
 there (``return_bottleneck``, ``encoder_only``), since flax creates the
-decoder's and the heads' parameters only when they run. 2D,
-skip/feature conditioning, ``semi_supervised``, ``encoder_structure`` and
-the ``_ref`` conv types raise ``NotImplementedError``. The links keep the
+decoder's and the heads' parameters only when they run. With
+``encoder_structure`` (a list of (channels, inter_channels, kernel_size,
+n_blocks) stages: the SSL backbone's) the encoder is a ``ResNetBackbone``
+under ``encoder_backbone`` with ``res_type`` blocks, the U-Net's ADN and
+the pools ``strides[1:]``; its skips are the stem's output and each
+stage's before its pool, the last of which is the bottleneck, so
+``depth`` must be ``[stem_f, *stage_channels]`` and the decoder goes up
+by ``strides[-2::-1]`` (``strides[0]`` the stem's pool of 2). 2D,
+skip/feature conditioning, ``semi_supervised`` and the ``_ref`` conv
+types raise ``NotImplementedError``. The links keep the
 skip's width, so the JAX ``link_proj_{i}`` (needed only when
 conditioning widens the skip) never arises.
 """
@@ -39,6 +46,7 @@ from adell_mri_torch.models.layers.res_blocks import (
     ConvNeXtBlock,
     ResidualBlock,
 )
+from adell_mri_torch.models.layers.res_net import ResNetBackbone
 from adell_mri_torch.models.layers.self_attention import (
     ConcurrentSqueezeAndExcite,
     SelfAttentionBlock,
@@ -152,7 +160,6 @@ _UNPORTED = {
     "skip_conditioning": None,
     "feature_conditioning": None,
     "semi_supervised": False,
-    "encoder_structure": None,
 }
 
 
@@ -197,7 +204,6 @@ class UNet(nn.Module):
             "skip_conditioning": skip_conditioning,
             "feature_conditioning": feature_conditioning,
             "semi_supervised": semi_supervised,
-            "encoder_structure": encoder_structure,
         }
         for key, want in _UNPORTED.items():
             if given[key] != want:
@@ -222,8 +228,20 @@ class UNet(nn.Module):
             norm_type, activation_fn, dropout_param, dropout_type
         )
 
+        self.resnet_encoder = encoder_structure is not None
+        if self.resnet_encoder:
+            structure = [tuple(s) for s in encoder_structure]
+            want = [structure[0][0]] + [s[0] for s in structure]
+            if depth != want:
+                raise ValueError(
+                    "with encoder_structure, depth must be [stem_f, "
+                    f"*stage_channels] = {want}, got {depth}")
+            self.encoder_backbone = ResNetBackbone(
+                in_channels, structure,
+                maxpool_structure=[_tuple(s, 3) for s in st[1:]],
+                adn_fn=adn_fn, res_type=res_type)
         in_ch = in_channels
-        for i, d in enumerate(depth):
+        for i, d in enumerate([] if self.resnet_encoder else depth):
             self.add_module(f"enc_{i}", _ConvUnit(in_ch, d, ks[i], 1,
                                                   conv_type, adn_fn))
             if i < len(depth) - 1:
@@ -277,13 +295,18 @@ class UNet(nn.Module):
 
     def forward(self, x, return_logits: bool = False,
                 heads: bool = True):
-        encoding_out = []
-        curr = x
-        for i in range(self.n_levels):
-            curr = getattr(self, f"enc_{i}")(curr)
-            encoding_out.append(curr)
-            if i < self.n_levels - 1:
-                curr = getattr(self, f"enc_ds_{i}")(curr)
+        if self.resnet_encoder:
+            _, encoding_out = self.encoder_backbone(
+                x, return_intermediate=True, return_stem=True)
+            curr = encoding_out[-1]
+        else:
+            encoding_out = []
+            curr = x
+            for i in range(self.n_levels):
+                curr = getattr(self, f"enc_{i}")(curr)
+                encoding_out.append(curr)
+                if i < self.n_levels - 1:
+                    curr = getattr(self, f"enc_ds_{i}")(curr)
         if self.encoder_only:
             return curr
         bottleneck, deep_outputs = curr, []

@@ -1,5 +1,5 @@
 """
-3D convolution modules of the port.
+3D (and 2D) convolution modules of the port.
 
 Counterpart of ``adell_mri_tpu/ops/conv.py`` (``TpuConv``,
 ``TpuConvTranspose``, ``conv_transpose_block``). The JAX package picks
@@ -18,7 +18,10 @@ over. Here:
 - the kernel == stride transposed conv is one matmul plus a depth-to-space
   rearrange;
 - a 1x1 conv is a plain product over the channel axis (``Pointwise``);
-- a grouped conv (the ResNeXt block's) is a grouped ``F.conv3d``.
+- a grouped conv (the ResNeXt block's) is a grouped ``F.conv3d``;
+- a 2D conv (a two-tap ``kernel_size``: the 2D classifiers and the MIL
+  slice encoder) is ``F.conv2d`` on a channels-last view, as the JAX
+  package computes its 2D convs with XLA's conv and never with Pallas.
 
 Tensors are channels-last ``[B, D, H, W, C]``. Weights are stored in the
 layout each path reads without a copy: ``Conv3d.weight`` is
@@ -60,33 +63,38 @@ def lecun_normal_(w, fan_in: int):
 
 def conv3d(x, w, bias=None, strides=(1, 1, 1), padding: Padding = "SAME",
            dilation=(1, 1, 1), groups: int = 1):
-    """x [B,D,H,W,Cin], w [kd,kh,kw,Cin/groups,Cout]; ``padding`` is
-    "SAME", "VALID" (none) or per-axis (low, high) pairs."""
-    k = tuple(w.shape[:3])
-    strides, dilation = tuple(strides), tuple(dilation)
+    """x [B,D,H,W,Cin], w [kd,kh,kw,Cin/groups,Cout] (or, in 2D, x
+    [B,H,W,Cin] and w [kh,kw,Cin/groups,Cout]); ``padding`` is "SAME",
+    "VALID" (none) or per-axis (low, high) pairs."""
+    nd = w.dim() - 2
+    k = tuple(w.shape[:nd])
+    strides, dilation = tuple(strides)[:nd], tuple(dilation)[:nd]
     if (k == (3, 3, 3) and strides == (1, 1, 1) and padding == "SAME"
             and dilation == (1, 1, 1) and groups == 1):
         return conv3d_igemm_train(x.contiguous(), w, bias)
     if padding == "SAME":
-        pads = _same_pads(x.shape[1:4], k, strides, dilation)
+        pads = _same_pads(x.shape[1:-1], k, strides, dilation)
     elif padding == "VALID":
-        pads = [(0, 0)] * 3
+        pads = [(0, 0)] * nd
     else:
         pads = [tuple(p) for p in padding]
-    xc = x.permute(0, 4, 1, 2, 3)
+    xc = x.movedim(-1, 1)
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]
     if any(flat):
         xc = F.pad(xc, flat)
-    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), bias, stride=strides,
-                 dilation=dilation, groups=groups)
-    return y.permute(0, 2, 3, 4, 1)
+    conv = F.conv3d if nd == 3 else F.conv2d
+    y = conv(xc, w.permute(nd + 1, nd, *range(nd)), bias, stride=strides,
+             dilation=dilation, groups=groups)
+    return y.movedim(1, -1)
 
 
 class Conv3d(nn.Module):
     """Channels-last 3D conv with a ``[kd,kh,kw,Cin/groups,Cout]`` weight
     (the port's ``TpuConv``; with ``groups`` flax's grouped ``nn.Conv``,
     whose kernel layout is torch's: output channel ``o`` reads the
-    ``o // (Cout / groups)``-th block of ``Cin / groups`` inputs)."""
+    ``o // (Cout / groups)``-th block of ``Cin / groups`` inputs). A
+    two-tap ``kernel_size`` makes it the 2D conv, weight ``[kh,kw,Cin/
+    groups,Cout]``, on ``[B, H, W, C]``."""
 
     def __init__(
         self,
@@ -106,7 +114,7 @@ class Conv3d(nn.Module):
         self.weight = nn.Parameter(torch.empty(
             tuple(kernel_size) + (in_channels // groups, out_channels)))
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        lecun_normal_(self.weight, self.weight.shape[:4].numel())
+        lecun_normal_(self.weight, self.weight.shape[:-1].numel())
 
     def forward(self, x):
         return conv3d(x, self.weight, self.bias, self.strides, self.padding,
@@ -116,7 +124,8 @@ class Conv3d(nn.Module):
 class DwConv(nn.Module):
     """Channels-last depthwise 3D conv (the port's ``TpuDwConv``): one
     ``[kd,kh,kw]`` filter a channel, weight ``[kd,kh,kw,1,C]`` (flax's
-    grouped-conv layout), bias ``[C]``; a grouped ``F.conv3d``."""
+    grouped-conv layout), bias ``[C]``; a grouped ``F.conv3d`` (with a
+    two-tap ``kernel_size``, ``F.conv2d``)."""
 
     def __init__(self, channels: int, kernel_size: Sequence[int],
                  strides: Sequence[int] = (1, 1, 1),
@@ -127,7 +136,7 @@ class DwConv(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(tuple(kernel_size) + (1, channels)))
         self.bias = nn.Parameter(torch.zeros(channels))
-        lecun_normal_(self.weight, self.weight.shape[:3].numel())
+        lecun_normal_(self.weight, self.weight.shape[:-2].numel())
 
     def forward(self, x):
         return conv3d(x, self.weight, self.bias, self.strides, self.padding,

@@ -56,6 +56,22 @@ crops), ``"unet_classifier"`` (the U-Net encoder classifier of
 (``CLASSIFIER_OVERRIDES``): the GP head in place of the output layer;
 the yaml's 16 crops).
 
+``"encoder_unet"``, the flagship U-Net fine-tuned from a self-supervised
+encoder: ``segmentation train --res_config_file
+sample_configs/ssl-resnet.yaml`` grafts that yaml's backbone (four ResNet
+stages of 64 to 512, pools 2x2x1, 2x2x1, 2x2x2, 2x2x2) as the encoder
+(depth 64, 64, 128, 256, 512; strides 2, then the pools), with the
+backbone's batch norm; the rest is the flagship's (residual links,
+transposed upsampling, swish). Served and trained as the flagship U-Net.
+
+``make_mil_model``: the ``classification_mil`` CLI's model for
+``sample_configs/transformable-transformer.yaml`` (``--mil_method
+standard`` or ``transformer``: a 2D VGG slice encoder of first depth 16
+and 3 blocks, instance norm, then the attention head or 2 transformer
+blocks of 16 heads over 64-wide slice tokens), on the CLI's batch of 4
+volumes of 256x256x64 (``MIL_BATCH``, ``CASE``): 256 slices of 256x256
+a step, 64 tokens a volume.
+
 ``"ssl"``, ``sample_configs/ssl-resnet.yaml`` as it stands (the two-view
 methods' CatNet backbone: four ResNet stages of 64 to 512, batch norm;
 projection 1024, 512, 256; prediction 512, 256): pretrained on the yaml's
@@ -88,9 +104,12 @@ from adell_mri_torch.config.factories import (
 )
 from adell_mri_torch.config.parsing import (
     build_compound_loss,
+    load_yaml,
+    parse_config_2d_classifier_3d,
     parse_config_cat,
     parse_config_ssl,
     parse_config_unet,
+    resnet_encoder_config,
 )
 from adell_mri_torch.inference import SegmentationInference
 from adell_mri_torch.models.classification.losses import (
@@ -153,6 +172,8 @@ SSL_YAML = UNETR_YAML.with_name("ssl-resnet.yaml")
 SSL_SHAPE = (128, 128, 32)
 SSL_VIEW = (96, 96, 24)
 SSL_T_MAX = 100  # the schedule's and the EMA ramp's length in steps
+MIL_YAML = UNETR_YAML.with_name("transformable-transformer.yaml")
+MIL_BATCH = 4  # the classification_mil CLI's default batch
 # name -> (the CLI's --classification_net_type, the yaml or None for the
 # factory's defaults, the training batch: the yaml's, else the CLI's 4)
 CLASSIFIERS = {
@@ -196,6 +217,11 @@ def model_spec(name: str, overrides: dict = None) -> ModelSpec:
     if name == "unet":
         return ModelSpec("unet", {**FLAGSHIP, **overrides}, {"dice": {}},
                          WINDOW, BATCH, BATCH)
+    if name == "encoder_unet":
+        network = {**FLAGSHIP, "norm_type": "batch",
+                   **resnet_encoder_config(load_yaml(str(SSL_YAML))),
+                   **overrides}
+        return ModelSpec("unet", network, {"dice": {}}, WINDOW, BATCH, BATCH)
     if name == "resnet":
         config, _ = parse_config_unet(str(RESNET_YAML))
         return ModelSpec("unet", {**config["network"], **overrides},
@@ -209,8 +235,8 @@ def model_spec(name: str, overrides: dict = None) -> ModelSpec:
         network = {**config["network"], "dropout_rate": 0.0, **overrides}
         return ModelSpec(name, network, config["training"]["loss_fn"],
                          window, serve, train)
-    raise ValueError(f"unknown model {name!r}: 'unet', 'resnet', 'unetr' "
-                     "or 'swin'")
+    raise ValueError(f"unknown model {name!r}: 'unet', 'encoder_unet', "
+                     "'resnet', 'unetr' or 'swin'")
 
 
 def _network(spec: ModelSpec):
@@ -474,3 +500,32 @@ def make_ssl_trainer(seed: int, precision: str, method: str = "vicreg",
         transforms = SSLTransforms(crop_size=SSL_VIEW, seed=seed)
     return Trainer(state, make_ssl_train_step(lm), None, lm, transforms,
                    model)
+
+
+def make_mil_model(seed: int, method: str = "standard", device="cuda"):
+    """The MIL model of ``--mil_method method`` for ``MIL_YAML`` (binary),
+    f32 weights drawn from ``seed``, in eval mode."""
+    from adell_mri_torch.entrypoints.classification_mil.train import (
+        build_mil_model,
+    )
+
+    config = parse_config_2d_classifier_3d(str(MIL_YAML), mil_method=method)
+    torch.manual_seed(seed)
+    return build_mil_model(config["network"], method, 2).to(device).eval()
+
+
+def make_mil_trainer(seed: int, precision: str, method: str = "standard",
+                     device="cuda", learning_rate: float = 1e-3,
+                     t_max: int = 100):
+    """``make_mil_model`` with the CLI's step (the binary logistic loss, no
+    augmentation) and optimizer (Nesterov SGD under cosine annealing)."""
+    model = make_mil_model(seed, method, device)
+    schedule = cosine_annealing_with_warmup(learning_rate, t_max=t_max)
+    state = TrainState.create(
+        model, lambda p: get_optimizer("sgd", schedule, params=p))
+    lm = make_classification_step(model, binary_logistic_loss, 2,
+                                  precision=precision)
+    eval_lm = make_classification_step(model, binary_logistic_loss, 2,
+                                       train=False, precision=precision)
+    return Trainer(state, make_train_step(lm), make_eval_step(eval_lm), lm,
+                   None, model)

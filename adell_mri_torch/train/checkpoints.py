@@ -21,7 +21,9 @@ done here; a JAX UNet's parameters come in through
 ``load_params_into`` (warm starts) and ``freeze_mask_by_regex`` are the
 JAX functions of those names on the port's parameters, matched by their
 JAX tree paths (``from_flax.flax_path``), so that a regex written for
-the JAX CLI picks the same leaves.
+the JAX CLI picks the same leaves. ``warm_start`` is the CLIs'
+``--checkpoint`` on them, and ``subtree_warm_start`` their
+``--encoder_checkpoint`` and ``--module_paths``.
 """
 
 import json
@@ -284,3 +286,91 @@ def freeze_mask_by_regex(
         mask[name] = not (any(p.search(path) for p in frz)
                           and not any(p.search(path) for p in keep))
     return mask
+
+
+def run_manager(ck_path: str) -> CheckpointManager:
+    """The run ``{dir}/{name}_fold0`` (the suffix is optional, as in the
+    JAX CLIs)."""
+    return CheckpointManager(os.path.dirname(ck_path) or ".",
+                             name=os.path.basename(ck_path).replace(
+                                 "_fold0", ""), fold=0)
+
+
+def warm_start(model: torch.nn.Module, ck_path: str,
+               exclude: Optional[Sequence[str]] = None):
+    """Loads into ``model``'s parameters those of the best weights of the
+    run ``ck_path`` that ``load_params_into`` matches, leaving out the JAX
+    tree paths ``exclude`` names (``--checkpoint``,
+    ``--exclude_from_state_dict``)."""
+    src = run_manager(ck_path)
+    if not os.path.exists(os.path.join(src.dir, MODEL_FILE)):
+        logger.warning("warm start: no %s in %s; skipped", MODEL_FILE,
+                       src.dir)
+        return
+    skipped = load_params_into(dict(model.named_parameters()),
+                               src.load_state_dict(), exclude or ())
+    logger.info("warm start from %s (%d skipped)", ck_path, len(skipped))
+
+
+REFERENCE_SUFFIXES = (".pt", ".pth", ".ckpt")
+
+
+# the encoder's subtree in a source run: a U-Net's, a CatNet's, one level
+# down (the self-supervised wrapper's ``backbone.ResNetBackbone_0``), else
+# the whole tree
+ENCODER_SOURCES = ("encoder_backbone", "ResNetBackbone_0",
+                   "*.ResNetBackbone_0", "")
+
+
+def _subtree(state: Dict[str, torch.Tensor], sources: Sequence[str]
+             ) -> Dict[str, torch.Tensor]:
+    """The first non-empty subtree of ``state`` under the prefixes
+    ``sources``, tried in order: ``*`` stands for any top-level name, and
+    ``""`` for the whole tree."""
+    heads = sorted({k.split(".")[0] for k in state})
+    for source in sources:
+        for prefix in ([source.replace("*", h, 1) for h in heads]
+                       if "*" in source else [source]):
+            prefix = f"{prefix}." if prefix else ""
+            sub = {k[len(prefix):]: v for k, v in state.items()
+                   if k.startswith(prefix)}
+            if sub:
+                return sub
+    return {}
+
+
+def subtree_warm_start(model: torch.nn.Module, ck_path: str, target: str,
+                       sources: Sequence[str], required: bool = True) -> int:
+    """Loads the first subtree of ``sources`` (``_subtree``) in the best
+    weights of the run ``ck_path`` into ``model``'s subtree ``target``:
+    parameters only, the running statistics staying the new model's, as
+    the JAX CLIs load a checkpoint's ``params``. Returns the number of
+    leaves loaded. Where ``required`` (``--encoder_checkpoint``), a load
+    that matched no leaf raises and a reference torch checkpoint is
+    refused (importing one is ROADMAP Queue 1 item 10); else
+    (``--module_paths``) both only warn, as the JAX CLI does."""
+    if required and ck_path.endswith(REFERENCE_SUFFIXES):
+        raise NotImplementedError(
+            f"{ck_path}: importing a reference torch checkpoint into "
+            f"{target} is not ported yet (ROADMAP Queue 1 item 10); pass a "
+            "run directory of the port")
+    src = run_manager(ck_path)
+    if not os.path.exists(os.path.join(src.dir, MODEL_FILE)):
+        logger.warning("warm start of %s: no %s in %s; skipped", target,
+                       MODEL_FILE, src.dir)
+        return 0
+    loaded = {f"{target}.{k}": v for k, v in
+              _subtree(src.load_state_dict(), sources).items()}
+    skipped = load_params_into(dict(model.named_parameters()), loaded)
+    n_params = sum(k.rsplit(".", 1)[-1] not in _BUFFER_LEAVES
+                   for k in loaded)
+    n_loaded = n_params - len(skipped)
+    if n_loaded == 0:
+        message = (f"warm start of {target} from {ck_path} matched no "
+                   "parameters: wrong structure for this model?")
+        if required:
+            raise ValueError(message)
+        logger.warning(message)
+    logger.info("warm start of %s from %s (%d loaded, %d skipped)", target,
+                ck_path, n_loaded, len(skipped))
+    return n_loaded

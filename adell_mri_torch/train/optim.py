@@ -16,10 +16,14 @@ names (no leaf whose path holds ``bias``, ``scale``, ``norm``,
 ``embedding_cls`` or ``pos_embed``): the optimizer then holds two
 parameter groups, the decayed leaves and the others at weight decay 0.
 
-``accumulate_gradients`` and ``freeze_wrap`` are the counterparts of the
-JAX functions of those names (``optax.MultiSteps`` and a
-``multi_transform`` with ``set_to_zero`` on the frozen leaves).
+``accumulate_gradients``, ``freeze_wrap`` and ``lr_scale_by_regex`` are
+the counterparts of the JAX functions of those names (``optax.MultiSteps``,
+a ``multi_transform`` with ``set_to_zero`` on the frozen leaves, and one
+with ``optax.scale`` on the leaves a regex names, chained after the
+optimizer).
 """
+
+import re
 
 from typing import Callable, Dict, Optional, Union
 
@@ -96,7 +100,7 @@ class Optimizer:
             params[k].grad = g
         lr = self.lr(self.count)
         for group in self.opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_scale", 1.0)
         self.opt.step()
         for p in params.values():
             p.grad = None
@@ -129,6 +133,35 @@ def freeze_wrap(tx: Optimizer, trainable_mask: Dict[str, bool]
     """``tx`` leaving the parameters whose mask entry is False untouched
     (``freeze_mask_by_regex``)."""
     tx.frozen = frozenset(k for k, t in trainable_mask.items() if not t)
+    return tx
+
+
+def lr_scale_by_regex(tx: Optimizer, params: Dict[str, torch.Tensor],
+                      patterns: Dict[str, float]) -> Optimizer:
+    """``tx`` with the update of each parameter whose JAX tree path
+    (``flax_path``) the first matching regex of ``patterns``
+    (``re.search``) names scaled by that regex's factor: its parameter
+    group's rate times the factor, which scales the whole update (the
+    step and the decay) of sgd, adam and adamw as ``optax.scale`` after
+    the optimizer does. Call it on a fresh optimizer."""
+    compiled = [(re.compile(p), float(f)) for p, f in patterns.items()]
+    path_of = {id(v): flax_path(k, v) for k, v in params.items()}
+
+    def scale(p):
+        path = path_of.get(id(p), "")
+        return next((f for pat, f in compiled if pat.search(path)), 1.0)
+
+    groups = []
+    for group in tx.opt.param_groups:
+        by_scale: Dict[float, list] = {}
+        for p in group["params"]:
+            by_scale.setdefault(scale(p) * group.get("lr_scale", 1.0),
+                                []).append(p)
+        for factor, members in by_scale.items():
+            groups.append({**group, "params": members, "lr_scale": factor})
+    tx.opt.param_groups = []
+    for group in groups:
+        tx.opt.add_param_group(group)
     return tx
 
 

@@ -294,6 +294,9 @@ class SegmentationTransforms:
     crop_size: Optional[Sequence[int]] = None
     pos_ratio: float = 0.5
     max_fg: int = 4096
+    # scales each volume after the spacing, before the pad/crop to
+    # target_size (``make_load_fn``)
+    resize_size: Optional[Sequence[int]] = None
     # seeds the workhorse's host choice of op (not part of the cache key)
     seed: int = field(default=0, repr=False)
 
@@ -310,6 +313,7 @@ class SegmentationTransforms:
             adc_keys=self.adc_keys,
             positive_labels=self.positive_labels,
             max_fg=self.max_fg,
+            resize_size=self.resize_size,
         )
 
     def augment(self, generator, batch: Dict) -> Dict:

@@ -2305,7 +2305,8 @@ def phase_unetr_cli():
     """Phase 13: a 4-case cohort at 256x256x64 through ``segmentation train
     --segmentation_net_type unetr --dev cuda`` with a dropout-0 copy of
     ``sample_configs/unetr.yaml`` (one epoch of 2 steps at B=2), then
-    ``segmentation predict --dev cuda`` on the checkpoint it wrote."""
+    ``segmentation predict --dev cuda`` of one case on the checkpoint it
+    wrote."""
     import numpy as np
     import yaml
 
@@ -2374,12 +2375,14 @@ def phase_unetr_cli():
         raise AssertionError(f"train wrote {sorted(os.listdir(fold))}, "
                              f"net_type {meta.get('net_type')}")
     pred = work / "pred"
+    # one case: predict's path is the same for each, and writing a
+    # 256x256x64 NIfTI on the host took most of the 52 s four cases took
     predict_s = run([
         "predict", "--dataset_json", str(work / "ds.json"),
         "--checkpoint_dir", str(ckpt), "--output_path", str(pred),
-        "--dev", "cuda", "--precision", "bf16",
+        "--dev", "cuda", "--precision", "bf16", "--prediction_ids", "case_0",
     ], "unetr predict")
-    for pid in ds:
+    for pid in ["case_0"]:
         img = read_nifti(str(pred / f"{pid}_prob.nii.gz"))
         ok = (img.data.shape == CASE and np.isfinite(img.data).all()
               and img.data.min() >= 0.0 and img.data.max() <= 1.0)
@@ -2389,7 +2392,7 @@ def phase_unetr_cli():
     rows = (work / "metrics.csv").read_text().splitlines()
     log(f"[unetr cli] train --segmentation_net_type unetr --dev cuda "
         f"--precision bf16: 1 epoch of 2 steps at B=2 in {train_s:.2f} s; "
-        f"predict on its checkpoint: 4 cases in {predict_s:.2f} s (process "
+        f"predict on its checkpoint: 1 case in {predict_s:.2f} s (process "
         f"start, import and build included); {len(rows) - 1} metric rows")
     return dict(train_s=train_s, predict_s=predict_s, metric_rows=rows)
 
@@ -3341,8 +3344,9 @@ def _device_share(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: with the host's ops traced too, sorting
+    # a CLI run's events took seconds a call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5129,37 +5133,109 @@ def _classifier_serving(smi, name, flash=None):
     return out
 
 
+# an f32 quantity of the kernels against the plain path (phases 4 and 17's
+# probability tolerance), as a share of its scale
+GP_F32_TOL = 1e-3
+# a leaf's gradient at rounding level: its largest element below this
+# share of the largest of all (the CPU tests' rule)
+ROUNDING_GRADIENT = 1e-5
+# the input perturbation that measures how far f32 rounding can move a
+# step's gradient (about a 3xTF32 product's error, a share of the input's
+# spread; at B=16 the GP CatNet's moves by 3.5e-3 of its norm), and the
+# multiple of that move the kernels' path may take (its K1 route rounds
+# in every forward and dx conv of the step)
+PERTURBATION = 1e-6
+SPREAD_FACTOR = 4
+
+
+def _perturbed(batch):
+    """``batch`` with each of its images (``image``, ``view1``, ``view2``)
+    moved by ``PERTURBATION`` of its spread (seeded noise, one seed a
+    key)."""
+    import torch
+
+    out = dict(batch)
+    for i, key in enumerate(k for k in ("image", "view1", "view2")
+                            if k in batch):
+        x = batch[key]
+        noise = torch.randn(x.shape, device=x.device, dtype=x.dtype,
+                            generator=torch.Generator(
+                                device=x.device).manual_seed(5 + i))
+        out[key] = x + PERTURBATION * x.std() * noise
+    return out
+
+
+def _direction(kernels, plain, perturbed, handed):
+    """How far the kernels' path moves a step's leaves (``kernels``: name
+    -> a gradient or a parameter move) from the plain path's (``plain``),
+    against how far the plain path moves them itself when its input is
+    ``_perturbed`` (``perturbed``): over the leaves whose plain-path
+    gradient (``handed``: name -> its largest element) is at least
+    ``ROUNDING_GRADIENT`` of the largest, ``||kernels - plain|| /
+    ||plain||`` and the same share of ``perturbed``; the bound is
+    ``GP_F32_TOL`` or ``SPREAD_FACTOR`` times that share, whichever is
+    larger."""
+    largest = max(handed.values())
+    held = [n for n, g in handed.items() if g >= ROUNDING_GRADIENT * largest]
+
+    def share(a, b):
+        """||a - b|| / ||b|| over the held leaves, the norm of b and the
+        leaves that add most to the difference."""
+        diff = {n: float(((a[n] - b[n]).double() ** 2).sum()) for n in held}
+        norm = sum(float((b[n].double() ** 2).sum()) for n in held) ** 0.5
+        return (sum(diff.values()) ** 0.5 / norm, norm,
+                sorted(diff, key=diff.get, reverse=True)[:3])
+
+    rel, norm_p, worst = share(kernels, plain)
+    spread = share(perturbed, plain)[0]
+    return dict(move_difference=rel, plain_move_norm=norm_p, worst=worst,
+                perturbed_move_difference=spread,
+                bound=max(GP_F32_TOL, SPREAD_FACTOR * spread),
+                held=len(held), excluded=sorted(set(handed) - set(held)),
+                largest_gradient=largest)
+
+
 def _step_parity(tr, batch, tag, batch_stats_tol=1e-5):
     """One f32 step on the kernels against the plain path with the same
     members and dropout masks: loss within 1e-4 and gradient norm within
-    1e-3 (relative); where the model has batch norms, the running
+    1e-3 (relative); the gradient's direction by ``_direction`` (the
+    kernels' gradient against the plain path's, within 1e-3 of its norm
+    or 4 times the move a 1e-6 perturbation of the input gives the plain
+    path's, over the leaves above rounding level); where the model has
+    batch norms, the running
     statistics within 1e-5 of their layer's scale (``_stats_errors``) and
     each batch norm's batch statistics within ``batch_stats_tol`` of the
     layer's scale beyond the plain path's own distance from f64
-    (``_step_batch_stats``). Phases 17 to 21 hold their f32 steps so, at
-    1e-5 but for phase 21's U-Net encoder classifier
+    (``_step_batch_stats``). Phases 17 to 21 and 23 hold their f32 steps
+    so, at 1e-5 but for phase 21's U-Net encoder classifier
     (``BATCH_STATS_TOL``)."""
     import torch
 
-    params = [tr.state.params[k] for k in tr.state.params]
+    names = list(tr.state.params)
+    params = [tr.state.params[k] for k in names]
     runs = []
-    for ctx in (contextlib.nullcontext, plain_kernels):
+    for ctx, b in ((contextlib.nullcontext, batch), (plain_kernels, batch),
+                   (plain_kernels, _perturbed(batch))):
         _seeded(tr, 9)
         with ctx():
-            loss, metrics = tr.loss_and_metrics(tr.state.weights(), batch)
+            loss, metrics = tr.loss_and_metrics(tr.state.weights(), b)
             # a leaf the loss does not reach (VICReg's prediction head,
             # I-JEPA's target encoder) has no gradient on either path
-            grads = [g for g in torch.autograd.grad(
-                loss, params, allow_unused=True) if g is not None]
-        runs.append((float(loss.detach()), _grad_norm(grads),
-                     metrics.get("_variables", {})))
+            grads = {n: g.detach() for n, g in zip(names, torch.autograd.grad(
+                loss, params, allow_unused=True)) if g is not None}
+        runs.append((float(loss.detach()), _grad_norm(list(grads.values())),
+                     metrics.get("_variables", {}), grads))
         del grads, loss
-    (loss_k, norm_k, stats_k), (loss_p, norm_p, stats_p) = runs
+    (loss_k, norm_k, stats_k, grads_k), (loss_p, norm_p, stats_p,
+                                         grads_p) = runs[:2]
+    direction = _direction(grads_k, grads_p, runs[2][3], {
+        n: float(g.abs().max()) for n, g in grads_p.items()})
+    del runs
     out = dict(loss=loss_k, plain_loss=loss_p,
                loss_rel=abs(loss_k - loss_p) / abs(loss_p),
                grad_norm=norm_k, plain_grad_norm=norm_p,
                grad_norm_rel=abs(norm_k - norm_p) / norm_p,
-               stats=len(stats_p))
+               stats=len(stats_p), direction=direction)
     excess = [(0.0, None, None)]
     if stats_p:
         out["stats_rel"], out["stats_worst"], out["stats_rel_own_max"] = (
@@ -5171,14 +5247,24 @@ def _step_parity(tr, batch, tag, batch_stats_tol=1e-5):
     log(f"  {tag}: f32 step, kernels vs plain path: loss {loss_k:.7f} vs "
         f"{loss_p:.7f} (rel {out['loss_rel']:.2e}, tol 1e-4), gradient norm "
         f"{norm_k:.6g} vs {norm_p:.6g} (rel {out['grad_norm_rel']:.2e}, tol "
-        f"1e-3)" + (f"; {len(stats_p)} running statistics within "
-                    f"{out['stats_rel']:.2e} of their layer's scale (tol "
-                    f"1e-5; worst {out['stats_worst']}); batch statistics "
-                    f"largest excess over plain vs f64 {max(excess)[0]:.2e}"
-                    f" ({max(excess)[1]} of {max(excess)[2]}, tol "
-                    f"{batch_stats_tol:g})"
-                    if stats_p else ""))
+        f"1e-3); gradient direction over {direction['held']} leaves: "
+        f"difference {direction['move_difference']:.3g} of the plain "
+        f"gradient's norm (largest in {direction['worst']}), the plain "
+        f"path's on the input moved by {PERTURBATION} of its spread "
+        f"{direction['perturbed_move_difference']:.3g}, bound "
+        f"{direction['bound']:.3g}; {len(direction['excluded'])} leaves "
+        f"below {ROUNDING_GRADIENT} of the largest gradient "
+        f"{direction['largest_gradient']:.6g} left out"
+        + (f"; {len(stats_p)} running statistics within "
+           f"{out['stats_rel']:.2e} of their layer's scale (tol "
+           f"1e-5; worst {out['stats_worst']}); batch statistics "
+           f"largest excess over plain vs f64 {max(excess)[0]:.2e}"
+           f" ({max(excess)[1]} of {max(excess)[2]}, tol "
+           f"{batch_stats_tol:g})"
+           if stats_p else ""))
     if not (out["loss_rel"] <= 1e-4 and out["grad_norm_rel"] <= 1e-3
+            and direction["move_difference"] <= direction["bound"]
+            and direction["plain_move_norm"] > 0
             and out.get("stats_rel", 0.0) <= 1e-5
             and max(excess)[0] <= batch_stats_tol
             and set(stats_k) == set(stats_p)):
@@ -5862,8 +5948,9 @@ def _ssl_flash():
 def _ssl_cli(smi):
     """Phase 20 (f): ``ssl train`` on a seeded 6-case 128x128x32 cohort at
     ``--batch_size 3`` (one epoch of 2 steps; with ``drop_last`` the
-    yaml's 28 gives none on 6 cases): VICReg in f32 and bf16 on
-    ``--random_crop_size 96 96 24``, BYOL with ``--ema`` in bf16, I-JEPA
+    yaml's 28 gives none on 6 cases): VICReg in f32 on
+    ``--random_crop_size 96 96 24`` (phase 23's encoder checkpoint), BYOL
+    with ``--ema`` in bf16, I-JEPA
     in bf16 on the whole volume; then ``ssl predict_folder`` on the f32
     VICReg checkpoint. In this process, each under ``torch.profiler``
     with the launch counts set to 0 just before it, against the launches
@@ -5891,9 +5978,11 @@ def _ssl_cli(smi):
     crop = ["--random_crop_size", *map(str, SSL_CLI_CROP)]
     runs = {}
     steps = SSL_CLI_CASES // SSL_CLI_BATCH
+    # VICReg's bf16 CLI run is not repeated: BYOL's holds the CLI's bf16
+    # path, VICReg's f32 run the method's, and the bf16 VICReg steps
+    # (``_ssl_two_view``) the method's bf16 step
     for tag, method, precision, extra in (
             ("vicreg_f32", "vicreg", "32", crop),
-            ("vicreg_bf16", "vicreg", "bf16", crop),
             ("byol_bf16", "byol", "bf16", crop + ["--ema"]),
             ("ijepa_bf16", "ijepa", "bf16", [])):
         args = ["ssl", "train", *common, "--ssl_method", method,
@@ -5924,7 +6013,7 @@ def _ssl_cli(smi):
             raise AssertionError(f"ssl {tag} launches {c}, want "
                                  f"{run['want']}")
         run.pop("want")
-    for tag in ("vicreg_f32", "vicreg_bf16", "byol_bf16"):
+    for tag in ("vicreg_f32", "byol_bf16"):
         c = runs[tag]["counts"]
         route = "tf32" if tag.endswith("f32") else "wgmma"
         if not (c["conv3d_igemm_dx"] > 0 and c[f"conv3d_igemm_{route}"] > 0
@@ -6342,18 +6431,6 @@ GP_COV_BATCHES = 3
 GP_CALIBRATION = "case_4,case_5"
 GP_RESIZE = (112, 112, 28)
 ENSEMBLE_MEMBERS = 2
-# an f32 quantity of the kernels against the plain path (phases 4 and 17's
-# probability tolerance), as a share of its scale
-GP_F32_TOL = 1e-3
-# a leaf's gradient at rounding level: its largest element below this
-# share of the largest of all (the CPU tests' rule)
-ROUNDING_GRADIENT = 1e-5
-# the input perturbation that measures how far f32 rounding can move the
-# GP CatNet's gradient (about a 3xTF32 product's error, a share of the
-# input's spread), and the multiple of that move the kernels' path may
-# take (its K1 route rounds in 8 forward and 8 dx convs a step)
-PERTURBATION = 1e-6
-SPREAD_FACTOR = 4
 
 
 def _gp_covariance(smi):
@@ -6468,12 +6545,7 @@ def _update_parity(tag, setup, batch, steps, want_updates):
 
     from adell_mri_torch.tools.flagship import make_catnet_trainer
 
-    image = batch["image"]
-    noise = torch.randn(image.shape, device=image.device, dtype=image.dtype,
-                        generator=torch.Generator(
-                            device=image.device).manual_seed(5))
-    perturbed = dict(batch, image=image + PERTURBATION * image.std()
-                     * noise)
+    perturbed = _perturbed(batch)
     runs = {}
     for path, ctx, b in (("kernels", contextlib.nullcontext, batch),
                          ("plain", plain_kernels, batch),
@@ -6508,25 +6580,14 @@ def _update_parity(tag, setup, batch, steps, want_updates):
         del tr
         torch.cuda.empty_cache()
     k, p, q = runs["kernels"], runs["plain"], runs["perturbed"]
-    largest = max(p["handed"].values())
-    held = [n for n, g in p["handed"].items()
-            if g >= ROUNDING_GRADIENT * largest]
-    excluded = sorted(set(p["handed"]) - set(held))
-
-    def share(a, b):
-        """||a - b|| / ||b|| of the moves over the held leaves, and the
-        leaves that add most to the difference."""
-        diff = {n: float(((a[n] - b[n]).double() ** 2).sum()) for n in held}
-        norm = sum(float((b[n].double() ** 2).sum()) for n in held) ** 0.5
-        return (sum(diff.values()) ** 0.5 / norm, norm,
-                sorted(diff, key=diff.get, reverse=True)[:3])
-
-    rel, norm_p, worst = share(k["moves"], p["moves"])
-    spread = share(q["moves"], p["moves"])[0]
-    bound = max(GP_F32_TOL, SPREAD_FACTOR * spread)
+    d = _direction(k["moves"], p["moves"], q["moves"], p["handed"])
+    rel, norm_p, worst = d["move_difference"], d["plain_move_norm"], d["worst"]
+    spread, bound, excluded = (d["perturbed_move_difference"], d["bound"],
+                               d["excluded"])
+    largest = d["largest_gradient"]
     log(f"  {tag}: {steps} f32 steps at B={CATNET_BATCH}: {k['updates']} "
         f"update(s), launches {k['launches']}; the parameters' moves over "
-        f"{len(held)} leaves, kernels vs plain: difference {rel:.3g} of "
+        f"{d['held']} leaves, kernels vs plain: difference {rel:.3g} of "
         f"the plain moves' norm {norm_p:.6g} (largest in {worst}); the "
         f"plain path's moves on the input moved by {PERTURBATION} of its "
         f"spread: {spread:.3g}; bound {bound:.3g}; {len(excluded)} leaves "
@@ -6543,7 +6604,7 @@ def _update_parity(tag, setup, batch, steps, want_updates):
     return dict(launches=k["launches"], updates=k["updates"],
                 plain_move_norm=norm_p, move_difference=rel,
                 perturbed_move_difference=spread, bound=bound,
-                held=len(held), excluded=excluded, frozen=k["frozen"])
+                held=d["held"], excluded=excluded, frozen=k["frozen"])
 
 
 def _gp_optimizer_steps(smi):
@@ -6790,6 +6851,463 @@ def phase_gp_ensemble(smi):
     return out
 
 
+# -- phase 23: the U-Net fine-tuned from an SSL-pretrained encoder ------------
+
+FINETUNE_NAME = "encoder_unet"
+FINETUNE_TIMED_STEPS = 3
+FINETUNE_CLI_CASES = 6
+FINETUNE_CLI_BATCH = 2
+FINETUNE_RESIZE = (112, 112, 28)
+# the stem's first conv stays as the SSL run left it
+FINETUNE_FROZEN = "encoder_backbone/Conv_0"
+FINETUNE_LR_ENCODER = "0.0001"
+
+
+def _finetune_training(smi):
+    """Phase 23 (b): the encoder U-Net trained at the flagship's B=4 on
+    128x128x32 with the CLI's augmentation, f32 and bf16: the f32 step
+    against the plain path (``_step_parity``), then 3 bf16 steps and 1
+    f32 step with the launches counted from 0 against those the recorded
+    K1 calls of a step make (``_option_step``: K1, dx, dW, K3), seconds a
+    step, device share and peak memory; K3 against its plain version at
+    the batch's shape (``_k3_against_plain``, sigma 0 and the noise's
+    moments)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        BATCH,
+        WINDOW,
+        make_train_batch,
+        make_trainer,
+    )
+
+    batch = make_train_batch(0, batch=BATCH, shape=WINDOW)
+    out = {}
+    for precision in ("32", "bf16"):
+        tr = make_trainer(0, precision, name=FINETUNE_NAME)
+        parity = (_step_parity(tr, batch, FINETUNE_NAME)
+                  if precision == "32" else None)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = _option_step(tr, batch, gen, precision, FINETUNE_NAME,
+                             n=FINETUNE_TIMED_STEPS if precision == "bf16"
+                             else 1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        def step():
+            tr.state, _ = tr.train_step(tr.state, tr.transforms.augment(
+                gen, batch))
+
+        busy, wall = _device_share(step)
+        log(f"[finetune training] {smi}: {precision}, B={BATCH} at "
+            f"{'x'.join(map(str, WINDOW))}, augmentation on: "
+            f"{', '.join(f'{x:.4f}' for x in steps['seconds_per_step'])} s "
+            f"per step; device busy {busy:.4f} of {wall:.4f} s "
+            f"({100 * busy / wall:.1f} %); peak {peak_gb:.2f} GB; "
+            f"{steps['k1_convs']} K1 and {steps['dx']} dx a step; launches "
+            f"{steps['launches']}; losses {steps['losses']}")
+        out[precision] = dict(steps, peak_memory_gb=peak_gb,
+                              device_busy_s=busy, wall_s=wall, parity=parity)
+        del tr
+        torch.cuda.empty_cache()
+    out["intensity"] = _finetune_intensity(batch["image"])
+    return out
+
+
+def _finetune_intensity(images):
+    """K3 against its plain version at the encoder U-Net's step shape
+    ([4,128,128,32,1], f32 and bf16) with the segmentation policy's
+    ranges (gamma in its range, a shift of up to its share of each
+    sample's standard deviation, sigma 0 or its noise)."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import AUGMENT_FLAGS
+    from adell_mri_torch.transforms.pipeline import AugmentPolicy
+
+    policy = AugmentPolicy.from_flags(AUGMENT_FLAGS, scale_range=0.0,
+                                      flip_axes=(0, 1, 2))
+    dev = images.device
+    b = images.shape[0]
+    red = tuple(range(1, images.dim()))
+    u = torch.rand((3, b), generator=torch.Generator(device=dev).manual_seed(
+        12), device=dev)
+    lo_g, hi_g = policy.gamma_range
+    par_draws = (lo_g + (hi_g - lo_g) * u[0],
+                 1.0 + policy.scale_delta * (2 * u[1] - 1),
+                 policy.shift_delta * (2 * u[2] - 1)
+                 * images.std(dim=red, correction=0))
+    seed = torch.tensor([1234], dtype=torch.int64, device=dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = images.to(dtype).contiguous()
+        lo, hi = x.float().amin(dim=red), x.float().amax(dim=red)
+
+        def par_for(sigma):
+            return torch.stack([lo, hi, *par_draws,
+                                torch.full((b,), sigma, device=dev)],
+                               dim=1).contiguous()
+
+        name = (f"{str(dtype).split('.')[1]} "
+                f"[{b},{','.join(map(str, x.shape[1:-1]))},1]")
+        _, tol, err, moments = _k3_against_plain(
+            name, x, par_for(0.0), par_for(policy.noise_std), seed)
+        out[name] = dict(max_abs_err=err, tol=tol, moments=moments)
+    return out
+
+
+def _finetune_clis(smi, encoder):
+    """Phase 23 (c): on 6 cases at 128x128x32, ``segmentation train`` of
+    the U-Net with ``--res_config_file sample_configs/ssl-resnet.yaml
+    --encoder_checkpoint`` (phase 20's f32 VICReg run), ``--lr_encoder``,
+    ``--freeze_regex encoder_backbone/Conv_0`` and
+    ``--accumulate_grad_batches 2``, one epoch of 2 steps at B=2 (one
+    update): in bf16 with the intensity augmentation, and in f32 with
+    ``--resize_size``; ``predict --mc_iterations 2`` and ``test`` (the
+    cases resized as in training) on the f32 run. In this process, each
+    run's launches counted from 0 against those its recorded K1 calls
+    make (K3 where the augmentation ran). The warm start loads a
+    non-zero number of leaves, the frozen ones stay bit-equal to the SSL
+    checkpoint's, the rest of the encoder moves."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from adell_mri_torch.data.nifti import read_nifti
+    from adell_mri_torch.tools.flagship import (
+        FLAGSHIP,
+        SSL_YAML,
+        WINDOW,
+        make_model,
+    )
+    from adell_mri_torch.train.checkpoints import (
+        ENCODER_SOURCES,
+        subtree_warm_start,
+    )
+
+    work = WORK_DIR / "finetune_cli"
+    work.mkdir(parents=True)
+    ds = _pipeline_cohort(work, WINDOW, (), n_cases=FINETUNE_CLI_CASES)
+    unet_yaml = work / "unet.yaml"
+    unet_yaml.write_text(yaml.safe_dump(
+        {**FLAGSHIP, "norm_type": "batch", "learning_rate": 0.01,
+         "loss_fn": {"dice": {}}}))
+    loaded = subtree_warm_start(
+        make_model(0, torch.float32, name=FINETUNE_NAME), str(encoder),
+        "encoder_backbone", ENCODER_SOURCES)
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda"]
+    train = ["segmentation", "train", *common, "--image_keys", "image",
+             "--mask_keys", "mask", "--config_file", str(unet_yaml),
+             "--pad_size", *map(str, WINDOW), "--target_spacing", "0.5",
+             "0.5", "3.0", "--batch_size", str(FINETUNE_CLI_BATCH),
+             "--n_folds", "1", "--max_epochs", "1", "--seed", "0",
+             "--res_config_file", str(SSL_YAML), "--encoder_checkpoint",
+             str(encoder), "--lr_encoder", FINETUNE_LR_ENCODER,
+             "--freeze_regex", FINETUNE_FROZEN,
+             "--accumulate_grad_batches", "2"]
+    runs = {p: work / f"run_{p}" for p in ("bf16", "f32")}
+    pred = work / "pred"
+    out = {}
+    for tag, args, steps in (
+            ("train_bf16", train + [
+                "--precision", "bf16", "--augment", "intensity", "noise",
+                "--checkpoint_dir", str(runs["bf16"]),
+                "--metric_path", str(work / "m_bf16.csv")], True),
+            ("train_f32", train + [
+                "--resize_size", *map(str, FINETUNE_RESIZE),
+                "--checkpoint_dir", str(runs["f32"]),
+                "--metric_path", str(work / "m_f32.csv")], False),
+            ("predict_mc_f32", ["segmentation", "predict", *common,
+                            "--checkpoint_dir", str(runs["f32"]),
+                            "--output_path", str(pred), "--mc_iterations",
+                            "2", "--prediction_ids", "case_0", "case_1"],
+             False),
+            ("test_resized_f32", ["segmentation", "test", *common,
+                              "--checkpoint_dir", str(runs["f32"]),
+                              "--metric_path", str(work / "t.csv")],
+             False)):
+        secs, text, counts, want = _counted_cli(args)
+        _check_cli_launches(f"finetune {tag}", counts, want, steps)
+        out[tag] = dict(seconds=secs, counts=counts)
+        if tag == "test_resized_f32":
+            out[tag]["result"] = _last_json(text)
+    source = torch.load(encoder / "model.pt", weights_only=True)
+    checks = {"loaded": loaded}
+    for p, run in runs.items():
+        got = torch.load(run / "segmentation_fold0" / "model.pt",
+                         weights_only=True)
+
+        def kept(k):
+            """The leaf ``k`` of the encoder as the SSL run left it."""
+            return torch.equal(got[k], source[k.replace(
+                "encoder_backbone.", "backbone.ResNetBackbone_0.")])
+
+        frozen = [k for k in got if k.startswith("encoder_backbone.Conv_0.")]
+        moved = [k for k in got if k.startswith("encoder_backbone.Residual")
+                 and k.endswith(".weight")]
+        checks[p] = dict(frozen=len(frozen),
+                         frozen_equal=all(kept(k) for k in frozen),
+                         moved=sum(not kept(k) for k in moved))
+    meta = json.loads((runs["f32"] / "segmentation_fold0" / "metadata.json")
+                      .read_text())
+    probs = [read_nifti(str(pred / f"case_{i}_prob.nii.gz")).data
+             for i in range(2)]
+    result = out["test_resized_f32"]["result"]
+    ok = (loaded > 0 and all(checks[p]["frozen"] == 2
+                             and checks[p]["frozen_equal"]
+                             and checks[p]["moved"] > 0 for p in runs)
+          and meta["transform_arguments"]["resize_size"] == list(
+              FINETUNE_RESIZE)
+          and meta["network_config"]["strides"] == [
+              2, [2, 2, 1], [2, 2, 1], [2, 2, 2], [2, 2, 2]]
+          and all(q.shape == WINDOW and np.isfinite(q).all()
+                  and 0 <= q.min() and q.max() <= 1 for q in probs)
+          and result["n_cases"] == FINETUNE_CLI_CASES
+          and 0 <= result["dice"] <= 1
+          and out["train_bf16"]["counts"]["intensity_aug"] > 0)
+    log(f"[finetune cli] {smi}: encoder warm start from {encoder.name} "
+        f"loads {loaded} leaves; " + "; ".join(
+            f"{tag} {r['seconds']:.2f} s, launches {r['counts']}"
+            for tag, r in out.items())
+        + f"; frozen and moved leaves {checks}; test {result}")
+    if not ok:
+        raise AssertionError(f"finetune CLIs: {checks}, {result}, "
+                             f"{meta['network_config']}")
+    return dict(out, checks=checks, ds_cases=len(ds))
+
+
+def phase_finetune(smi, encoder):
+    """Phase 23: the U-Net fine-tuned from an SSL-pretrained ResNet encoder
+    (``encoder_unet``: ``ssl-resnet.yaml``'s backbone under
+    ``encoder_backbone``) at the flagship's window: served (bf16, f32) as
+    phase 18 serves, trained (bf16, f32) with the f32 step against the
+    plain path, K3 at its batch, and ``segmentation train`` from phase
+    20's SSL checkpoint with the fine-tuning flags, ``predict
+    --mc_iterations`` and ``test`` on a resized run."""
+    import torch
+
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(part):
+        now = time.perf_counter()
+        laps[part] = now - last[0]
+        last[0] = now
+
+    out = dict(serving={p: _option_serving(smi, dtype, name=FINETUNE_NAME,
+                                           tag=FINETUNE_NAME)
+                        for p, dtype in (("bf16", torch.bfloat16),
+                                         ("32", torch.float32))})
+    lap("serving")
+    out["training"] = _finetune_training(smi)
+    lap("training")
+    out["cli"] = _finetune_clis(smi, encoder)
+    lap("cli")
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = laps
+    log(f"[finetune] phase 23: {out['seconds']:.1f} s ({laps})")
+    return out
+
+
+# -- phase 24: classification_mil ---------------------------------------------
+
+MIL_METHODS = ("standard", "transformer")
+MIL_SERVE_BATCH = 2
+MIL_TIMED_STEPS = 3
+MIL_CLI_CASES = 6
+MIL_CLI_BATCH = 2
+
+
+def _mil_paths(smi):
+    """Phase 24 (a): each MIL model of ``transformable-transformer.yaml``
+    (the CLI's defaults: a 2D VGG slice encoder, instance norm) served at
+    B=2 and trained at the CLI's B=4 on 256x256x64 volumes (128 and 256
+    slices of 256x256 through the encoder, 64 tokens a volume), bf16 and
+    f32: no hand kernel launches (the 2D convs are ``F.conv2d``, as XLA's
+    conv computes them in the JAX package, and 64 tokens are below
+    ``FLASH_MIN_TOKENS``), seconds a forward and a step, device share and
+    peak memory; the bf16 forward within 5e-2 of the f32 one's
+    probabilities; the losses finite."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import (
+        CASE,
+        MIL_BATCH,
+        make_catnet_batch,
+        make_mil_trainer,
+    )
+
+    batch = make_catnet_batch(3, batch=MIL_BATCH, shape=CASE)
+    served = batch["image"][:MIL_SERVE_BATCH]
+    zero = dict.fromkeys(_launch_counts(), 0)
+    out = {}
+    for method in MIL_METHODS:
+        probs = {}
+        for precision in ("32", "bf16"):
+            dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+            tr = make_mil_trainer(0, precision, method)
+            model = tr.model
+            weights = {k: v.to(dtype) for k, v in tr.state.params.items()}
+            with torch.inference_mode():
+                torch.func.functional_call(model.eval(), weights,
+                                           (served.to(dtype),))
+                torch.cuda.synchronize()
+                _reset_counts()
+                t0 = time.perf_counter()
+                logits = torch.func.functional_call(
+                    model, weights, (served.to(dtype),))
+                torch.cuda.synchronize()
+                serve_s = time.perf_counter() - t0
+            serve_launches = _launch_counts()
+            probs[precision] = torch.sigmoid(logits.float())
+            tr.state, _ = tr.train_step(tr.state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            secs, losses = [], []
+            for _ in range(MIL_TIMED_STEPS):
+                t0 = time.perf_counter()
+                tr.state, metrics = tr.train_step(tr.state, batch)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            launches = _launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+            def step():
+                tr.state, _ = tr.train_step(tr.state, batch)
+
+            busy, wall = _device_share(step)
+            log(f"[mil] {smi}: {method}, {precision}: served B="
+                f"{MIL_SERVE_BATCH} at {'x'.join(map(str, CASE))} in "
+                f"{serve_s:.4f} s; B={MIL_BATCH} steps "
+                f"{', '.join(f'{x:.4f}' for x in secs)} s; device busy "
+                f"{busy:.4f} of {wall:.4f} s ({100 * busy / wall:.1f} %); "
+                f"peak {peak_gb:.2f} GB; losses {losses}; launches "
+                f"{launches}")
+            if not (launches == zero and serve_launches == zero
+                    and all(abs(x) < float("inf") for x in losses)):
+                raise AssertionError(f"mil {method} {precision}: launches "
+                                     f"{launches}, losses {losses}")
+            out[f"{method}_{precision}"] = dict(
+                serve_s=serve_s, seconds_per_step=secs, losses=losses,
+                launches=launches, serve_launches=serve_launches,
+                peak_memory_gb=peak_gb, device_busy_s=busy, wall_s=wall)
+            del tr, model, weights
+            torch.cuda.empty_cache()
+        err = float((probs["bf16"] - probs["32"]).abs().max())
+        log(f"[mil] {method}: bf16 vs f32 served probabilities {err:.3g} "
+            "(tol 5e-2)")
+        if not err <= 5e-2:
+            raise AssertionError(f"mil {method}: bf16 vs f32 {err}")
+        out[f"{method}_bf16_vs_f32"] = err
+    return out
+
+
+def _mil_clis(smi):
+    """Phase 24 (b): on 6 cases at 256x256x64 (3 with bright ellipsoids,
+    label 1), ``classification_mil train`` with
+    ``transformable-transformer.yaml`` for each ``--mil_method`` (one
+    epoch at B=2), a second ``standard`` run warm-started from the first
+    (``--module_paths``) with ``--freeze_module``; ``test`` of each,
+    ``predict`` of both standard runs with ``--ensemble mean`` and of the
+    transformer in bf16. In this process: no hand kernel launches; the
+    frozen slice encoder bit-equal to the first run's; the metrics and
+    the probabilities finite."""
+    import math
+
+    import torch
+
+    from adell_mri_torch.tools.flagship import CASE, MIL_YAML
+
+    work = WORK_DIR / "mil_cli"
+    work.mkdir(parents=True)
+    negatives = ("case_1", "case_3", "case_5")
+    ds = _pipeline_cohort(work, CASE, negatives, n_cases=MIL_CLI_CASES)
+    for pid, entry in ds.items():
+        entry["label"] = int(pid not in negatives)
+    (work / "ds.json").write_text(json.dumps(ds))
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda"]
+    runs = {t: work / f"run_{t}" for t in
+            ("standard", "transformer", "frozen")}
+    folds = {t: str(r / "mil_fold0") for t, r in runs.items()}
+
+    def train(tag, method, *extra):
+        return ["classification_mil", "train", *common, "--image_keys",
+                "image", "--config_file", str(MIL_YAML), "--pad_size",
+                *map(str, CASE), "--target_spacing", "0.5", "0.5", "3.0",
+                "--batch_size", str(MIL_CLI_BATCH), "--n_folds", "1",
+                "--max_epochs", "1", "--seed", "0", "--mil_method", method,
+                "--checkpoint_dir", str(runs[tag]), "--metric_path",
+                str(work / f"m_{tag}.csv"), *extra]
+
+    out, zero = {}, dict.fromkeys(_launch_counts(), 0)
+    for tag, args in (
+            ("train_standard", train("standard", "standard")),
+            ("train_transformer", train("transformer", "transformer")),
+            ("train_frozen", train("frozen", "standard", "--module_paths",
+                                   folds["standard"], "--freeze_module")),
+            ("test_standard", ["classification_mil", "test", *common,
+                               "--checkpoint_dir", str(runs["standard"]),
+                               "--metric_path", str(work / "t1.csv")]),
+            ("test_transformer", ["classification_mil", "test", *common,
+                                  "--checkpoint_dir",
+                                  str(runs["transformer"]),
+                                  "--metric_path", str(work / "t2.csv")]),
+            ("predict_ensemble", ["classification_mil", "predict", *common,
+                                  "--checkpoint_dir", str(runs["standard"]),
+                                  "--checkpoint", folds["standard"],
+                                  folds["frozen"], "--ensemble", "mean",
+                                  "--output_path", str(work / "ens.json")]),
+            ("predict_bf16", ["classification_mil", "predict", *common,
+                              "--checkpoint_dir", str(runs["transformer"]),
+                              "--precision", "bf16", "--output_path",
+                              str(work / "bf16.json")])):
+        secs, text, counts = _cli(args)
+        if counts != zero:
+            raise AssertionError(f"mil {tag} launches {counts}")
+        out[tag] = dict(seconds=secs, counts=counts)
+        if tag.startswith("test"):
+            out[tag]["result"] = _last_json(text)
+    weights = {t: torch.load(Path(folds[t]) / "model.pt", weights_only=True)
+               for t in ("standard", "frozen")}
+    module = [k for k in weights["frozen"] if k.startswith("module.")]
+    ens = json.loads((work / "ens.json").read_text())
+    bf16 = json.loads((work / "bf16.json").read_text())
+    checks = dict(
+        frozen=len(module) == 12 and all(torch.equal(
+            weights["standard"][k], weights["frozen"][k]) for k in module),
+        tests=all(out[t]["result"]["n_cases"] == MIL_CLI_CASES
+                  for t in ("test_standard", "test_transformer")),
+        ensemble=len(ens) == 3 and all(
+            0 <= v <= 1 for r in ens for v in r["predictions"].values()),
+        bf16=len(bf16) == MIL_CLI_CASES and all(
+            0 <= v <= 1 and not math.isnan(v) for v in bf16.values()))
+    log(f"[mil cli] {smi}: " + "; ".join(
+        f"{tag} {r['seconds']:.2f} s" + (f" {r['result']}" if "result" in r
+                                         else "")
+        for tag, r in out.items()) + f"; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"mil CLIs: {checks}")
+    return dict(out, checks=checks)
+
+
+def phase_mil(smi):
+    """Phase 24: ``classification_mil`` on
+    ``transformable-transformer.yaml``: both MIL models served and
+    trained in bf16 and f32, and the mode's CLIs."""
+    t0 = time.perf_counter()
+    out = dict(paths=_mil_paths(smi))
+    t1 = time.perf_counter()
+    out["cli"] = _mil_clis(smi)
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = {"paths": t1 - t0,
+                              "cli": out["seconds"] - (t1 - t0)}
+    log(f"[mil] phase 24: {out['seconds']:.1f} s "
+        f"({out['seconds_by_part']})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -6872,6 +7390,12 @@ def main():
     lap(21)
     gp_ensemble = phase_gp_ensemble(smi)
     lap(22)
+    # phase 20's f32 VICReg run on ssl-resnet.yaml is the encoder checkpoint
+    finetune = phase_finetune(smi, WORK_DIR / "ssl_cli" / "ckpt_vicreg_f32"
+                              / "ssl_vicreg_fold0")
+    lap(23)
+    mil = phase_mil(smi)
+    lap(24)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -6972,8 +7496,7 @@ def main():
         "ssl_serving": ssl["serving"]["bf16"]["launches"],
         "ssl_serving_f32": ssl["serving"]["32"]["launches"],
         **{f"ssl_train_{tag}": ssl["cli"][tag]["counts"]
-           for tag in ("vicreg_f32", "vicreg_bf16", "byol_bf16",
-                       "ijepa_bf16")},
+           for tag in ("vicreg_f32", "byol_bf16", "ijepa_bf16")},
         "ssl_predict_folder_f32": ssl["cli"]["predict_folder_f32"]["counts"],
         # phase 21: the ViT classifier served (B=2, 256x256x64) and trained
         # with dropout 0 there (3 bf16 steps and its 5 on one batch, 1 f32
@@ -7007,6 +7530,21 @@ def main():
            for part, tag in (("cli", "gp_cli"),
                              ("ensemble_cli", "ensemble_cli"))
            for what, run in gp_ensemble[part]["runs"].items()},
+        # phase 23: the encoder U-Net served (bf16, f32) and trained (3
+        # bf16 steps, 1 f32 step), its CLIs (train in bf16 and f32, predict
+        # with MC dropout and test in f32)
+        **{f"encoder_unet_{what}{'' if p == 'bf16' else '_f32'}":
+           finetune[what][p]["launches"]
+           for what in ("serving", "training") for p in ("bf16", "32")},
+        **{f"finetune_{tag}": run["counts"]
+           for tag, run in finetune["cli"].items()
+           if isinstance(run, dict) and "counts" in run},
+        # phase 24: the MIL models served and trained (bf16, f32) and the
+        # classification_mil CLIs, which launch no hand kernel
+        **{f"mil_{tag}": run["launches"]
+           for tag, run in mil["paths"].items() if isinstance(run, dict)},
+        **{f"mil_cli_{tag}": run["counts"]
+           for tag, run in mil["cli"].items() if tag != "checks"},
     }
 
     def launches_of(name):
@@ -7037,6 +7575,7 @@ def main():
               "classifier forwards, steps and CLI runs, phase 22's GP "
               "CatNet forwards, steps, covariance fit, accumulated and "
               "frozen steps and CLI runs and the ensemble's CLI runs, "
+              "phase 23's encoder U-Net served cases, steps and CLI runs, "
               "every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
@@ -7318,7 +7857,7 @@ def main():
         flagship_pipeline=pipeline, full_augmentation=augmentation,
         swin=swin, catnet=catnet, unet_options=options,
         classifiers=classifiers, ssl=ssl, new_classifiers=new_classifiers,
-        gp_ensemble=gp_ensemble,
+        gp_ensemble=gp_ensemble, finetune=finetune, mil=mil,
         launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,

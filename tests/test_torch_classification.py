@@ -414,10 +414,14 @@ def test_catnet_features_and_unported_options():
     with torch.no_grad():
         _close(tm.eval()(torch.from_numpy(x), return_features=True),
                np.asarray(want), 1e-5)
-    for net_type, cfg in (("vgg", {}), ("cat", TINY)):
-        with pytest.raises(NotImplementedError, match="2D"):
-            tfactories.get_classification_network(
-                net_type, {**cfg, "spatial_dimensions": 2})
+    # spatial_dimensions 2 builds networks of the input's rank, 3D for
+    # volumes, as the JAX modules are (their convs take the input's rank)
+    for net_type, cfg, conv in (
+            ("vgg", {}, "VGGConvolution_0.Conv_0.weight"),
+            ("cat", TINY, "ResNetBackbone_0.Conv_0.weight")):
+        net = tfactories.get_classification_network(
+            net_type, {**cfg, "spatial_dimensions": 2})
+        assert net.state_dict()[conv].dim() == 5
     with pytest.raises(NotImplementedError, match="not ported"):
         tfactories.get_classification_network(
             "vit", {"moe_experts": 2}, image_size=SHAPE)

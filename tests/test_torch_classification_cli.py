@@ -277,9 +277,11 @@ def test_test_and_predict_match_jax(cohort, capsys, n_classes):
 
 
 # what the port still refuses: the experiment loggers, and networks it
-# has not ported (the 2D classifiers, ViT's mixture of experts), each a
-# config written beside the cohort's
+# has not ported (a 2D or conditioned U-Net encoder, activations of the
+# JAX registry it lacks, ViT's mixture of experts), each a config written
+# beside the cohort's
 _2D = {"spatial_dimensions": 2}
+_ELU = {**NETWORK, "act_fn": "elu"}
 _MOE = {"patch_size": [4, 4, 2], "embedding_size": 32, "n_heads": 2,
         "number_of_blocks": 1, "moe_experts": 2}
 
@@ -289,10 +291,10 @@ _MOE = {"patch_size": [4, 4, 2], "embedding_size": 32, "n_heads": 2,
     [(["--logger_type", "wandb"], None), (["--logger_type", "mlflow"], None),
      (["--project_name", "p"], None), (["--summary_name", "s"], None),
      (["--summary_dir", "d"], None), (["--tracking_uri", "file:x"], None),
-     (["--log_model"], None), ([], {**NETWORK, **_2D}),
-     (["--classification_net_type", "vgg"], _2D),
-     (["--classification_net_type", "ord"], _2D),
-     (["--classification_net_type", "convnext"], {**NETWORK, **_2D}),
+     (["--log_model"], None), ([], _ELU),
+     (["--classification_net_type", "unet"], _2D),
+     (["--classification_net_type", "unet"], {"feature_conditioning": 2}),
+     (["--classification_net_type", "convnext"], _ELU),
      (["--classification_net_type", "vit"], _MOE),
      (["--logger_type", "wandb", "--log_model"], None)],
 )
@@ -307,8 +309,8 @@ def test_train_unported_flags_raise(cohort, flags, network):
 
 @pytest.mark.parametrize(
     "entry, net_type, network",
-    [(ttest, "cat", {**NETWORK, **_2D}), (tpredict, "cat", {**NETWORK, **_2D}),
-     (ttest, "vgg", _2D), (tpredict, "ord", _2D), (tpredict, "vit", _MOE)],
+    [(ttest, "unet", _2D), (tpredict, "unet", _2D), (ttest, "cat", _ELU),
+     (tpredict, "cat", _ELU), (tpredict, "vit", _MOE)],
 )
 def test_serving_unported_flags_raise(cohort, entry, net_type, network):
     """A checkpoint of a network the port has not ported (its metadata is

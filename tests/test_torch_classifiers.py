@@ -424,17 +424,17 @@ def test_tree_matches_jax(which, hybrid):
 # net type -> an option of it the port does not serve yet (None: every
 # option the JAX factory reads is ported)
 UNPORTED_OPTIONS = {
-    "ord": {"spatial_dimensions": 2},
+    "ord": None,
     "vit": {"moe_experts": 2},
     "factorized_vit": None,
-    "unet": {"encoder_structure": [[16, 16, 3, 1]]},
+    "unet": {"spatial_dimensions": 2},
 }
 
 
 @pytest.mark.parametrize("net_type", list(UNPORTED_OPTIONS))
 def test_unported_net_types_raise(net_type):
     """Every net type of the JAX CLI is ported; the options of these four
-    that are not (2D, mixture-of-experts blocks, a ResNet encoder) raise,
+    that are not (mixture-of-experts blocks, a 2D U-Net encoder) raise,
     and so does a net type the JAX CLI does not have."""
     if UNPORTED_OPTIONS[net_type] is not None:
         with pytest.raises(NotImplementedError, match="not ported"):

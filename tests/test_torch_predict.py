@@ -278,12 +278,25 @@ def test_predict_cuda_without_gpu_raises(cohort, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "flags", [["--mc_iterations", "2"], ["--mc_iterations", "1"]]
+    "flags", [["--checkpoint_name", "conditioned"],
+              ["--checkpoint_name", "flat"]]
 )
 def test_predict_unported_flags_raise(cohort, flags):
+    """What predict still refuses: a conditioned checkpoint (skip keys)
+    and a 2D one (every flag of predict is ported)."""
     root, ds_path = cohort["root"], cohort["ds_path"]
+    src = CheckpointManager(str(root / "torch_ckpt"), name="segmentation")
+    meta = src.load_metadata()
+    CheckpointManager(str(root / "torch_ckpt"), name="conditioned",
+                      metadata={**meta, "transform_arguments": {
+                          **meta["transform_arguments"],
+                          "skip_keys": ["T2"]}})
+    CheckpointManager(str(root / "torch_ckpt"), name="flat", metadata={
+        **meta, "network_config": {**meta["network_config"],
+                                   "spatial_dimensions": 2}})
     with pytest.raises(NotImplementedError):
         tpredict.main([
             "--dataset_json", ds_path, "--checkpoint_dir",
-            str(root / "torch_ckpt"), "--dev", "cpu", *flags,
+            str(root / "torch_ckpt"), "--dev", "cpu",
+            "--output_path", str(root / "unported"), *flags,
         ])

@@ -171,9 +171,9 @@ def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
 @pytest.mark.parametrize(
     "flags",
     [["--remat"], ["--semi_supervised"],
-     ["--accumulate_grad_batches", "2"],
-     ["--lr_encoder", "0.1"], ["--optimizer", "lamb"],
-     ["--resize_size", "8", "8", "4"], ["--delete_checkpoints"]],
+     ["--missing_to_empty", "mask"],
+     ["--skip_keys", "T2"], ["--optimizer", "lamb"],
+     ["--logger_type", "wandb"], ["--delete_checkpoints"]],
 )
 def test_train_unported_flags_raise(cohort, flags):
     with pytest.raises(NotImplementedError):

@@ -106,7 +106,7 @@ def test_unet_bf16_forward_runs(pair):
         {"conv_type": "sae_ref"},
         {"feature_conditioning": 2},
         {"spatial_dimensions": 2},
-        {"encoder_structure": [[16, 16, 3, 1]]},
+        {"conv_type": "depthwise_ref"},
     ],
 )
 def test_unported_options_raise(option):
