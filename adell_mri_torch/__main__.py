@@ -10,7 +10,8 @@ import os
 import sys
 
 supported_modes = ["segmentation", "classification", "classification_ensemble",
-                   "classification_mil", "ssl"]
+                   "classification_mil", "classification_deconfounder",
+                   "ssl"]
 
 
 def main(arguments=None):

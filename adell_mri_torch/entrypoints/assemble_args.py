@@ -43,6 +43,10 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     "prediction_type": dict(
         default="probability", help="probability (else a thresholded mask)"
     ),
+    "exclude_surrogate_variables": dict(
+        action="store_true",
+        help="Excludes deconfounder surrogate predictions from the output",
+    ),
     "segmentation_net_type": dict(
         default="unet",
         choices=["unet", "unetpp", "brunet", "unetr", "swin", "monai_unetr",
@@ -266,12 +270,17 @@ argument_factory: Dict[str, Dict[str, Any]] = {
     "accumulate_grad_batches": dict(
         default=1, type=int, help="Gradient accumulation steps"
     ),
-    "logger_type": dict(default=None, help="not ported yet"),
-    "project_name": dict(default=None, help="not ported yet"),
-    "summary_name": dict(default=None, help="not ported yet"),
-    "summary_dir": dict(default="summaries", help="not ported yet"),
-    "tracking_uri": dict(default=None, help="not ported yet"),
-    "log_model": dict(action="store_true", help="not ported yet"),
+    "logger_type": dict(
+        default=None,
+        help="wandb | mlflow: a tracker beside the metric CSV (when installed)"
+    ),
+    "project_name": dict(default=None, help="Tracker project name"),
+    "summary_name": dict(default=None, help="Tracker run name"),
+    "summary_dir": dict(default="summaries",
+                        help="Directory of the wandb run files"),
+    "tracking_uri": dict(default=None, help="MLflow tracking URI"),
+    "log_model": dict(action="store_true",
+                      help="Upload each checkpoint to the tracker"),
     "delete_checkpoints": dict(action="store_true", help="not ported yet"),
     "bottleneck_classification": dict(
         action="store_true", help="Bottleneck classification head"

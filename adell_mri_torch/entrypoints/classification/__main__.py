@@ -1,4 +1,5 @@
-"""Classification mode dispatch: ``train``, ``test`` and ``predict``."""
+"""Classification mode dispatch: ``train``, ``test``, ``predict`` and
+``model_to_export`` (also under the spelling ``model_to_torchscript``)."""
 
 import importlib
 
@@ -6,6 +7,10 @@ supported_modes = {
     "predict": "adell_mri_torch.entrypoints.classification.predict",
     "test": "adell_mri_torch.entrypoints.classification.test",
     "train": "adell_mri_torch.entrypoints.classification.train",
+    "model_to_export":
+        "adell_mri_torch.entrypoints.classification.model_to_export",
+    "model_to_torchscript":
+        "adell_mri_torch.entrypoints.classification.model_to_export",
 }
 
 

@@ -56,9 +56,13 @@ on those cases, one at a time, into ``conformal.json`` (``q_hat``,
 apply the parameters alone, as the JAX CLI's do: their batch norms
 normalise by each batch (one case's statistics in the calibration, and
 (0, 1) in the head's 1-d norms), not by the running statistics that
-``test`` and ``predict`` serve with. The logger flags are parsed and
-raise ``NotImplementedError`` when given a value other than their
-default.
+``test`` and ``predict`` serve with. The experiment loggers'
+flags (``--logger_type`` wandb or mlflow, ``--project_name``,
+``--summary_name``, ``--summary_dir``, ``--tracking_uri``,
+``--log_model``) go to ``MetricLogger``: the metric CSV is always
+written, the tracker too where its package is installed (without it, a
+warning, then the CSV alone). An installed wandb needs an account and
+network access.
 """
 
 import json
@@ -104,7 +108,7 @@ from adell_mri_torch.train.checkpoints import (
     freeze_mask_by_regex,
     warm_start,
 )
-from adell_mri_torch.train.logging_utils import MetricLogger
+from adell_mri_torch.train.logging_utils import metric_logger_of
 from adell_mri_torch.train.loop import TrainLoop
 from adell_mri_torch.train.optim import (
     accumulate_gradients,
@@ -259,9 +263,6 @@ ARG_KEYS = [
     "mask_keys",
     "image_masking",
     "image_crop_from_mask",
-]
-# the experiment loggers: the port writes the metric CSV alone
-UNPORTED_KEYS = [
     "logger_type",
     "project_name",
     "summary_name",
@@ -289,9 +290,8 @@ def label_arguments(args, n_classes: int):
 
 def main(arguments):
     parser = Parser(prog="adell classification train")
-    parser.add_argument_by_key(ARG_KEYS + UNPORTED_KEYS)
+    parser.add_argument_by_key(ARG_KEYS)
     args = parser.parse_args(arguments)
-    parser.reject_unported(args, UNPORTED_KEYS)
     net_type = args.classification_net_type
     device = use_device(args.dev)
     compute_dtype(args.precision)  # an unknown precision fails here
@@ -343,7 +343,7 @@ def main(arguments):
         labels=stratification_labels(data, pids, label_key, args.n_folds,
                                      args.folds),
     )
-    metric_logger = MetricLogger(csv_path=args.metric_path)
+    metric_logger = metric_logger_of(args)
     mode = "min" if "loss" in args.monitor else "max"
 
     n_classes = derive_n_classes(args)
@@ -547,6 +547,8 @@ def main(arguments):
         state, history = loop.fit(state, train_loader, val_loader,
                                   start_epoch=start_epoch)
         final = history[-1] if history else {}
+        if args.log_model:
+            metric_logger.log_artifact(ckpt.dir)
         logger.info("fold %d done: %s", fold_idx,
                     json.dumps(final, default=float))
         gp = bool(net_cfg.get("gaussian_process")) and not feat_keys

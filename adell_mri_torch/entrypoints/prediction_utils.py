@@ -53,6 +53,17 @@ def get_ensemble_prediction(
     return ens
 
 
+def sample_cache_is_reused(groups: Sequence[Sequence[str]],
+                           n_checkpoints: int, one_to_one: bool) -> bool:
+    """True when a case's loaded sample would serve more than once:
+    several checkpoints for each group, or an ID in several groups (one
+    checkpoint over one group would only hold every volume in memory)."""
+    if not one_to_one and n_checkpoints > 1:
+        return True
+    all_pids = [pid for g in groups for pid in g]
+    return len(set(all_pids)) < len(all_pids)
+
+
 def manager_for_checkpoint_path(path: str) -> CheckpointManager:
     """The manager of a ``--checkpoint`` entry: a run directory
     ``{root}/{name}_fold{k}`` (a trailing slash is allowed)."""

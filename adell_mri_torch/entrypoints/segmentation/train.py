@@ -37,9 +37,11 @@ network (``warm_start``), ``--lr_encoder`` scales the updates of
 (``lr_scale_by_regex``), ``--freeze_regex``/``--not_freeze_regex`` freeze
 leaves, ``--accumulate_grad_batches k`` applies the mean of k steps'
 gradients (the schedule counts optimizer steps) and ``--resize_size``
-scales each volume after the spacing. Every other flag is parsed and
-raises ``NotImplementedError`` when given a value other than its
-default.
+scales each volume after the spacing. The experiment loggers' flags go
+to ``MetricLogger`` (``train/logging_utils.py``: the CSV always, wandb
+or MLflow where installed; with ``--log_model`` each fold's checkpoint
+directory is uploaded). Every other flag is parsed and raises
+``NotImplementedError`` when given a value other than its default.
 """
 
 import json
@@ -73,7 +75,7 @@ from adell_mri_torch.train.checkpoints import (
     subtree_warm_start,
     warm_start,
 )
-from adell_mri_torch.train.logging_utils import MetricLogger
+from adell_mri_torch.train.logging_utils import metric_logger_of
 from adell_mri_torch.train.loop import TrainLoop
 from adell_mri_torch.train.nan_guard import NaNGuard
 from adell_mri_torch.train.optim import (
@@ -170,16 +172,16 @@ ARG_KEYS = [
     "exclude_from_state_dict",
     "freeze_regex",
     "not_freeze_regex",
-]
-UNPORTED_KEYS = [
-    "skip_keys",
-    "feature_keys",
     "logger_type",
     "project_name",
     "summary_name",
     "summary_dir",
     "tracking_uri",
     "log_model",
+]
+UNPORTED_KEYS = [
+    "skip_keys",
+    "feature_keys",
     "delete_checkpoints",
     "profile_dir",
     "semi_supervised",
@@ -358,7 +360,7 @@ def main(arguments):
 
     folds = get_folds(pids, args.n_folds, args.seed, args.folds,
                       val_fraction=args.val_from_train)
-    metric_logger = MetricLogger(csv_path=args.metric_path)
+    metric_logger = metric_logger_of(args)
     positive_labels = [int(x) for x in (args.positive_labels or [1])]
     mode = "min" if "loss" in args.monitor else "max"
 
@@ -570,6 +572,8 @@ def main(arguments):
         metric_logger.log_metrics(
             final, step=args.max_epochs, fold=fold_idx, phase="final"
         )
+        if args.log_model:
+            metric_logger.log_artifact(ckpt.dir)
         logger.info("fold %d done: %s", fold_idx,
                     json.dumps(final, default=float))
 

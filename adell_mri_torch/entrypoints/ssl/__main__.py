@@ -1,7 +1,7 @@
 """Self-supervised mode dispatch: ``train`` (and its old spelling
-``train_3d``) and ``predict_folder``. ``train_2d``, ``model_to_export``
-and ``model_to_torchscript`` are not ported yet (ROADMAP Queue 1, item
-4)."""
+``train_3d``), ``predict_folder`` and ``model_to_export`` (also under
+the spelling ``model_to_torchscript``). ``train_2d`` is not ported yet
+(ROADMAP Queue 1, item 4)."""
 
 import importlib
 
@@ -9,8 +9,10 @@ supported_modes = {
     "predict_folder": "adell_mri_torch.entrypoints.ssl.predict_folder",
     "train": "adell_mri_torch.entrypoints.ssl.train",
     "train_3d": "adell_mri_torch.entrypoints.ssl.train",
+    "model_to_export": "adell_mri_torch.entrypoints.ssl.model_to_export",
+    "model_to_torchscript": "adell_mri_torch.entrypoints.ssl.model_to_export",
 }
-unported_modes = ("train_2d", "model_to_export", "model_to_torchscript")
+unported_modes = ("train_2d",)
 
 
 def main(arguments):

@@ -20,11 +20,13 @@ Ported: the two-view methods (``vicreg``, ``barlow_twins``, ``simclr``,
 ``ijepa``, in bf16 or f32, on 3D volumes. I-JEPA reads the base-size
 image, unaugmented, as the JAX step does, so the port draws no views for
 it. Refused with ``NotImplementedError``: the other methods, 2D
-backbones (``train_2d``), ``--sample_channels``, the experiment loggers,
+backbones (``train_2d``), ``--sample_channels``,
 and ``ijepa`` with a ``--random_crop_size`` other than the base size (the
 JAX CLI builds the network at the crop size and steps it at the base
 size, so its first step fails on the positional embedding's shape; ROADMAP
-Queue 3).
+Queue 3). ``--logger_type``, ``--project_name`` and ``--summary_name``
+go to ``MetricLogger`` as the JAX CLI passes them: the CSV always, wandb
+or MLflow where installed.
 """
 
 import json
@@ -40,7 +42,7 @@ from adell_mri_torch.data.samplers import RandomSampler
 from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
 from adell_mri_torch.train.checkpoints import CheckpointManager
-from adell_mri_torch.train.logging_utils import MetricLogger
+from adell_mri_torch.train.logging_utils import metric_logger_of
 from adell_mri_torch.train.loop import TrainLoop
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.precision import compute_dtype
@@ -90,17 +92,18 @@ ARG_KEYS = [
     "stop_gradient",
     "n_local_crops",
     "sample_channels",
+    "logger_type",
+    "project_name",
+    "summary_name",
 ]
-UNPORTED_KEYS = ["logger_type", "project_name", "summary_name"]
 #: methods whose teacher is always the EMA shadow
 EMA_METHODS = ("byol", "ijepa")
 
 
 def main(arguments):
     parser = Parser(prog="adell ssl train")
-    parser.add_argument_by_key(ARG_KEYS + UNPORTED_KEYS)
+    parser.add_argument_by_key(ARG_KEYS)
     args = parser.parse_args(arguments)
-    parser.reject_unported(args, UNPORTED_KEYS)
     method = args.ssl_method
     if method not in SSL_METHODS:
         raise NotImplementedError(
@@ -227,7 +230,7 @@ def main(arguments):
         device=device,
         max_epochs=args.max_epochs,
         ckpt_manager=ckpt,
-        metric_logger=MetricLogger(csv_path=args.metric_path),
+        metric_logger=metric_logger_of(args),
         monitor=args.monitor,
         seed=args.seed,
     )

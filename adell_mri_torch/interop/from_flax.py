@@ -3,8 +3,10 @@ Moves a JAX UNet's (with a ResNet encoder too), UNETR's, SWINUNet's,
 CatNet's, VGG's and OrdNet's (2D or 3D), ConvNeXt's,
 UNetEncoderClassifier's, ViTClassifier's, FactorizedViTClassifier's,
 HybridClassifier's, NonContrastiveWrapper's, IJEPA's,
-MultipleInstanceClassifier's or TransformableTransformer's parameters
-(and their ``batch_stats``) into the port.
+MultipleInstanceClassifier's, TransformableTransformer's,
+DeconfoundedNet's, SegCatNet's, ResNet's (and ProjectionHead's) or
+SliceLinearEmbedding's parameters (and their ``batch_stats``) into the
+port.
 
 The port's module names keep the JAX tree paths (the U-Net's ``enc_{i}``,
 ``enc_ds_{i}``, ``link_{i}``, ``up_{i}``, ``dec_{i}``, ``Conv_0/Conv_1``;
@@ -33,7 +35,15 @@ NonContrastiveWrapper's ``backbone`` (CatNet with ``feature_extraction``),
 ``networks_{i}`` and the fusion head's ``Dense_{i}``; the U-Net's ResNet
 encoder ``encoder_backbone`` (a ``ResNetBackbone``'s tree); the MIL
 models' slice encoder ``module/VGG_0``, ``MILAttention_0/{V,U,w}``,
-``TransformerBlockStack_0``, ``SeqPool_0`` and ``Dense_{i}``), so
+``TransformerBlockStack_0``, ``SeqPool_0`` and ``Dense_{i}``;
+DeconfoundedNet's ``backbone`` (a CatNet with ``feature_extraction``),
+``conf_proj``, ``cls_proj``, ``classifier``, ``cat_conf_{i}`` and
+``cont_conf``; ResNet's ``ResNetBackbone_0``, ``ProjectionHead_{i}/
+{Dense_{j},ActDropNorm_{j}}`` and ``LayerNorm_0``; SegCatNet's ``unet``,
+``final_layer_classifier`` (a ResNet), ``bottleneck_classifier`` (a
+ProjectionHead) and the bias-free ``final_layer_linear``,
+``bottleneck_linear`` and ``weighted_average``; SliceLinearEmbedding's
+``embed``, ``pos_embedding`` and ``class_token``), so
 each flax leaf ``a/b/kernel`` becomes the port
 key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
 batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token

@@ -1,8 +1,12 @@
 """Classification models of the port: VGG, CatNet (every ``res_type``,
 the Gaussian-process head), the standalone ConvNeXt, the tabular and
-hybrid classifiers, the two ensembles and the MIL models over 2D slice
-encoders."""
+hybrid classifiers, the two ensembles, the MIL models over 2D slice
+encoders, SegCatNet and the deconfounded classifier."""
 
+from adell_mri_torch.models.classification.deconfounded import (
+    DeconfoundedNet,
+    correlation_penalty,
+)
 from adell_mri_torch.models.classification.mil import (
     MILAttention,
     MultipleInstanceClassifier,
@@ -14,11 +18,13 @@ from adell_mri_torch.models.classification.nets import (
     CatNet,
     GenericEnsemble,
     HybridClassifier,
+    SegCatNet,
     TabularClassifier,
 )
 from adell_mri_torch.models.layers.conv_next import ConvNeXt
 
 __all__ = ["VGG", "AveragingEnsemble", "CatNet", "ConvNeXt",
-           "GenericEnsemble", "HybridClassifier", "MILAttention",
-           "MultipleInstanceClassifier", "TabularClassifier",
-           "TransformableTransformer"]
+           "DeconfoundedNet", "GenericEnsemble", "HybridClassifier",
+           "MILAttention", "MultipleInstanceClassifier", "SegCatNet",
+           "TabularClassifier", "TransformableTransformer",
+           "correlation_penalty"]

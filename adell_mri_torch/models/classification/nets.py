@@ -1,7 +1,7 @@
 """
 Classification networks.
 
-Counterpart of ``VGG``, ``CatNet``, ``OrdNet``,
+Counterpart of ``VGG``, ``CatNet``, ``OrdNet``, ``SegCatNet``,
 ``UNetEncoderClassifier``, ``ViTClassifier``, ``FactorizedViTClassifier``,
 ``TabularClassifier`` and ``HybridClassifier`` in
 ``adell_mri_tpu/models/classification/nets.py``.
@@ -84,7 +84,11 @@ from adell_mri_torch.models.layers.blocks import (
     add_mlp,
     run_mlp,
 )
-from adell_mri_torch.models.layers.res_net import ResNetBackbone
+from adell_mri_torch.models.layers.res_net import (
+    ProjectionHead,
+    ResNet,
+    ResNetBackbone,
+)
 from adell_mri_torch.models.layers.vit import FactorizedViT, SeqPool, ViT
 from adell_mri_torch.ops.conv import Pointwise, lecun_normal_
 
@@ -263,6 +267,53 @@ class UNetEncoderClassifier(nn.Module):
 def _vit_head(embed_dim: int, n_classes: int) -> MLP:
     return MLP(embed_dim, (embed_dim,), out_features(n_classes),
                get_adn_fn("layer", "gelu", 0.0, spatial_dim=1))
+
+
+class SegCatNet(nn.Module):
+    """Classifies from a frozen U-Net's features (``unet``, its
+    ``return_features`` forward; both feature maps pass through
+    ``.detach()``, the JAX module's ``stop_gradient``, so no gradient
+    reaches the U-Net): a ``ResNet`` over the final features
+    (``final_layer_classifier``: stages (d, 2d, 3, 2), (2d, 2d, 3, 2),
+    (4d, 4d, 3, 2) with d the final features' width, pools of 2, batch
+    norm, swish and dropout 0.1 ADNs, prediction head [4d] * 3) and a
+    ``ProjectionHead`` over the bottleneck (``bottleneck_classifier``,
+    [db, 2db, 4db, 2db, db]), each followed by a bias-free Dense layer to
+    the outputs (``final_layer_linear``, ``bottleneck_linear``), combined
+    by a bias-free Dense layer (``weighted_average``). The heads' ADNs are
+    1-d."""
+
+    def __init__(self, unet: nn.Module, n_classes: int = 2):
+        super().__init__()
+        self.unet = unet
+        d, db = unet.depth[0], unet.depth[-1]
+        nc = out_features(n_classes)
+        head_adn = get_adn_fn("batch", "swish", 0.1, spatial_dim=1)
+        self.final_layer_classifier = ResNet(
+            d, ((d, 2 * d, 3, 2), (2 * d, 2 * d, 3, 2), (4 * d, 4 * d, 3, 2)),
+            maxpool_structure=(2, 2, 2),
+            adn_fn=get_adn_fn("batch", "swish", 0.1), head_adn_fn=head_adn,
+            res_type="resnet", prediction_head_structure=(4 * d,) * 3)
+        self.final_layer_linear = _bias_free(4 * d, nc)
+        self.bottleneck_classifier = ProjectionHead(
+            db, (db, 2 * db, 4 * db, 2 * db, db), head_adn)
+        self.bottleneck_linear = _bias_free(db, nc)
+        self.weighted_average = _bias_free(2 * nc, nc)
+
+    def forward(self, x):
+        _, final_features, bottleneck = self.unet(x, return_features=True)
+        class_fl = self.final_layer_linear(self.final_layer_classifier(
+            final_features.detach(), ret="prediction"))
+        class_bn = self.bottleneck_linear(
+            self.bottleneck_classifier(bottleneck.detach()))
+        return self.weighted_average(torch.cat([class_fl, class_bn], -1))
+
+
+def _bias_free(in_features: int, out_features_: int) -> nn.Linear:
+    """flax's ``Dense(use_bias=False)``: a lecun-normal kernel."""
+    layer = nn.Linear(in_features, out_features_, bias=False)
+    lecun_normal_(layer.weight, in_features)
+    return layer
 
 
 class ViTClassifier(nn.Module):

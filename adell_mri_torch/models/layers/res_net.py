@@ -21,6 +21,17 @@ fails at its first call on a list of another length, this one when it is
 built). ``forward(x, return_intermediate=True)`` also returns each
 stage's output before its pool, with ``return_stem`` the stem's (before
 its pool of 2) first: the U-Net encoder's skips.
+
+``ProjectionHead`` and ``ResNet`` are the JAX module's of those names:
+the head is Dense layers of ``structure`` (``Dense_{i}``), each hidden
+one followed by its ADN (``ActDropNorm_{i}``), over the max-pooled input
+where that is spatial; ``ResNet`` is the backbone (``ResNetBackbone_0``),
+a global max pool (the representation), then an optional projection head
+(``ProjectionHead_0``) followed by its LayerNorm (``LayerNorm_0``, eps
+1e-6: flax's default), kept outside the head as the JAX module keeps it,
+and an optional prediction head over the projection (the next
+``ProjectionHead_{i}``); ``forward(x, ret)`` returns the
+``"representation"``, ``"projection"`` or ``"prediction"``.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -28,7 +39,14 @@ from typing import Optional, Sequence, Tuple
 import torch.nn as nn
 
 from adell_mri_torch.models.layers.batch_ensemble import BatchEnsembleConv
-from adell_mri_torch.models.layers.blocks import _tuple, apply_adn, max_pool
+from adell_mri_torch.models.layers.blocks import (
+    GlobalPooling,
+    _tuple,
+    add_mlp,
+    apply_adn,
+    max_pool,
+    run_mlp,
+)
 from adell_mri_torch.models.layers.res_blocks import RES_BLOCK_REGISTRY
 from adell_mri_torch.ops.conv import Conv3d
 
@@ -99,3 +117,78 @@ class ResNetBackbone(nn.Module):
         if return_intermediate:
             return x, intermediates
         return x
+
+
+class ProjectionHead(nn.Module):
+    """Dense layers of ``structure``, the hidden ones each followed by
+    ``adn_fn(width)`` (none without it), over ``[B, F]`` or the max pool
+    of a spatial ``[B, *S, F]``."""
+
+    def __init__(self, in_features: int, structure: Sequence[int],
+                 adn_fn=None):
+        super().__init__()
+        structure = list(structure)
+        self.pool = GlobalPooling()
+        self.n_hidden = add_mlp(self, in_features, structure[:-1],
+                                structure[-1], adn_fn)
+
+    def forward(self, x):
+        if x.dim() > 2:
+            x = self.pool(x)
+        return run_mlp(self, self.n_hidden, x)
+
+
+RETURNS = ("representation", "projection", "prediction")
+
+
+class ResNet(nn.Module):
+    """The backbone, its max-pooled representation and the projection and
+    prediction heads; ``head_adn_fn`` is the heads' (1-d) ADN."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        backbone_structure: Sequence[Tuple[int, int, int, int]],
+        maxpool_structure: Optional[Sequence] = None,
+        adn_fn=None,
+        head_adn_fn=None,
+        res_type: str = "resnet",
+        projection_head_structure: Optional[Sequence[int]] = None,
+        prediction_head_structure: Optional[Sequence[int]] = None,
+        batch_ensemble: int = 0,
+        ndim: int = 3,
+    ):
+        super().__init__()
+        self.ResNetBackbone_0 = ResNetBackbone(
+            in_channels, [tuple(s) for s in backbone_structure],
+            maxpool_structure=maxpool_structure, adn_fn=adn_fn,
+            res_type=res_type, batch_ensemble=batch_ensemble, ndim=ndim)
+        self.pool = GlobalPooling()
+        width = self.ResNetBackbone_0.output_features
+        heads = 0
+        self.proj = self.pred = None
+        if projection_head_structure is not None:
+            self.proj = f"ProjectionHead_{heads}"
+            self.add_module(self.proj, ProjectionHead(
+                width, projection_head_structure, head_adn_fn))
+            heads, width = heads + 1, projection_head_structure[-1]
+            self.LayerNorm_0 = nn.LayerNorm(width, eps=1e-6)
+        if prediction_head_structure is not None:
+            self.pred = f"ProjectionHead_{heads}"
+            self.add_module(self.pred, ProjectionHead(
+                width, prediction_head_structure, head_adn_fn))
+            width = prediction_head_structure[-1]
+        self.output_features = width
+
+    def forward(self, x, ret: str = "projection"):
+        if ret not in RETURNS:
+            raise ValueError(f"ret must be one of {RETURNS}, not {ret!r}")
+        # every head runs whatever ``ret`` asks for, as in the JAX module,
+        # so that a training forward moves every head's running statistics
+        rep = self.pool(self.ResNetBackbone_0(x))
+        proj = rep
+        if self.proj is not None:
+            proj = self.LayerNorm_0(getattr(self, self.proj)(rep))
+        pred = proj if self.pred is None else getattr(self, self.pred)(proj)
+        return {"representation": rep, "projection": proj,
+                "prediction": pred}[ret]

@@ -15,8 +15,9 @@ parameter names keep the JAX tree paths (``q``, ``k``, ``v``, ``proj``,
 ``slice_class_token``), so
 ``interop/from_flax.py`` maps a JAX checkpoint key for key. flax modules
 learn their input sizes at the first call; these take them as constructor
-arguments. Every LayerNorm has eps 1e-5. ``SliceLinearEmbedding`` is not
-ported yet.
+arguments. Every LayerNorm has eps 1e-5. ``SliceLinearEmbedding`` (the
+2.5D transformers' per-slice embedding: ``embed``, ``pos_embedding``,
+``class_token``) takes the slice size ``(H, W)`` for its positions.
 """
 
 import math
@@ -630,3 +631,73 @@ class SWINTransformerBlockStack(nn.Module):
             if stage < len(self.depths) - 1:
                 x = getattr(self, f"merge{stage}")(x)
         return x, feats
+
+
+class SliceLinearEmbedding(nn.Module):
+    """Per-slice patch embedding: ``[B, H, W, D, C]`` -> per-slice token
+    sequences ``[B, D, n_patches (+1), E]``. Each of the D slices is cut
+    into ``(ph, pw)`` patches, embedded by one Dense layer over the
+    flattened patch (``embed_method="linear"``) or by a 2D conv of kernel
+    and stride ``(ph, pw)`` (``"convolutional"``), both named ``embed``;
+    every slice gets the same positions, learnt (``pos_embedding``,
+    normal(0.02)) or sinusoidal, then, with ``use_class_token``, one
+    shared class token (``class_token``, zeros) in front. ``E`` is
+    ``embed_dim``, or ``ph * pw * C``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        image_size: Sequence[int],
+        patch_size: Sequence[int],
+        embed_dim: Optional[int] = None,
+        embed_method: str = "linear",
+        use_class_token: bool = False,
+        learnable_embedding: bool = True,
+        dropout: float = 0.0,
+    ):
+        super().__init__()
+        h, w = tuple(image_size)[:2]
+        ph, pw = tuple(patch_size)[:2]
+        self.patch = (ph, pw)
+        self.embed_method = embed_method
+        dim = self.embed_dim = embed_dim or ph * pw * in_channels
+        if embed_method == "convolutional":
+            self.embed = Conv3d(in_channels, dim, (ph, pw), strides=(ph, pw))
+            n = -(-h // ph) * -(-w // pw)
+        else:
+            self.embed = _dense(ph * pw * in_channels, dim)
+            n = (h // ph) * (w // pw)
+        self.n_patches = n
+        if learnable_embedding:
+            self.pos_embedding = nn.Parameter(
+                nn.init.normal_(torch.empty(1, n, dim), std=0.02))
+        else:
+            self.pos_embedding = None
+            self.register_buffer(
+                "positions", sinusoidal_positions(n, dim)[None],
+                persistent=False)
+        self.class_token = (nn.Parameter(torch.zeros(1, 1, dim))
+                            if use_class_token else None)
+        self.dropout = Dropout(dropout) if dropout > 0 else None
+
+    def forward(self, x):
+        b, h, w, d, c = x.shape
+        ph, pw = self.patch
+        slices = x.permute(0, 3, 1, 2, 4).reshape(b * d, h, w, c)
+        if self.embed_method == "convolutional":
+            tok = self.embed(slices).reshape(b * d, -1, self.embed_dim)
+        else:
+            gh, gw = h // ph, w // pw
+            tok = slices.reshape(b * d, gh, ph, gw, pw, c)
+            tok = tok.permute(0, 1, 3, 2, 4, 5).reshape(
+                b * d, gh * gw, ph * pw * c)
+            tok = self.embed(tok)
+        pos = (self.pos_embedding if self.pos_embedding is not None
+               else self.positions)
+        tok = tok + pos.to(tok.dtype)
+        if self.class_token is not None:
+            tok = torch.cat([self.class_token.to(tok.dtype).expand(
+                b * d, -1, -1), tok], dim=1)
+        if self.dropout is not None:
+            tok = self.dropout(tok)
+        return tok.reshape(b, d, tok.shape[1], self.embed_dim)

@@ -168,9 +168,10 @@ class UNet(nn.Module):
     the sigmoid (n_classes == 2, one channel) or softmax of the logits, or
     the logits themselves with ``return_logits=True``; with the heads'
     outputs when a head is on, unless ``heads=False`` (``heads.py``); with
-    ``encoder_only``, the bottleneck ``[B, *S', depth[-1]]``. The
-    defaults are the JAX module's but for ``spatial_dimensions`` (3: 2D
-    is not ported)."""
+    ``encoder_only``, the bottleneck ``[B, *S', depth[-1]]``; with
+    ``return_features`` the output, the final features and the
+    bottleneck. The defaults are the JAX module's but for
+    ``spatial_dimensions`` (3: 2D is not ported)."""
 
     def __init__(
         self,
@@ -223,7 +224,7 @@ class UNet(nn.Module):
         self.link_type, self.upscale_type = link_type, upscale_type
         self.interpolation = interpolation
         depth, ks, st = list(depth), list(kernel_sizes), list(strides)
-        self.n_levels = len(depth)
+        self.n_levels, self.depth = len(depth), depth
         adn_fn = get_adn_fn(
             norm_type, activation_fn, dropout_param, dropout_type
         )
@@ -294,7 +295,11 @@ class UNet(nn.Module):
         return link(skip)
 
     def forward(self, x, return_logits: bool = False,
-                heads: bool = True):
+                heads: bool = True, return_features: bool = False):
+        """With ``return_features``, ``(output, final_features,
+        bottleneck)``: the output (no heads' outputs beside it), the last
+        decoder unit's features before the final conv and the encoder's
+        last level, as the JAX module returns them."""
         if self.resnet_encoder:
             _, encoding_out = self.encoder_backbone(
                 x, return_intermediate=True, return_stem=True)
@@ -326,4 +331,6 @@ class UNet(nn.Module):
         if not return_logits:
             y = (torch.softmax(y, -1) if self.n_classes > 2
                  else torch.sigmoid(y))
+        if return_features:
+            return y, curr, bottleneck
         return with_heads(self, y, bottleneck, deep_outputs, heads)

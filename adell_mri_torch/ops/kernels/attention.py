@@ -45,7 +45,15 @@ and the backward launches the two backward kernels. It takes any head dim
 up to 64, as the JAX function takes any: q, k and v are zero-padded to the
 next of ``HEAD_DIMS`` (the scale stays the unpadded D's) and the output
 and gradients sliced back.
+
+The forward is also the op ``torch.ops.adell.flash_attention_fwd``
+(``torch.library.custom_op``; its implementation is
+``flash_attention_fwd``, its fake gives the three outputs' shapes and
+types), which ``torch.export`` records by name; ``flash_attention`` calls
+through it wherever no gradient is asked for.
 """
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -327,6 +335,20 @@ def flash_attention_fwd(q, k, v, scale=None):
 flash_attention_fwd.launches = 0
 
 
+@torch.library.custom_op("adell::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as an op that ``torch.export`` records."""
+    return flash_attention_fwd(q, k, v, scale)
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, scale):
+    rows = q.new_empty(q.shape[:3] + (1,), dtype=torch.float32)
+    return torch.empty_like(q), rows, torch.empty_like(rows)
+
+
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale):
     """dQ from the forward's logsumexp rows ``lse = m + log(l)`` and
     ``delta = rowsum(dout * out)``, both f32 ``[B, H, Nq, 1]``."""
@@ -413,7 +435,8 @@ def flash_attention(q, k, v, scale=None):
     zero-padded to it (with the unpadded D's scale), and the output and
     gradients are sliced back; a head dim above them raises on CUDA
     tensors (there is no kernel variant for it) and takes the plain
-    version on CPU tensors."""
+    version on CPU tensors. Without a gradient, the forward alone through
+    the op ``adell::flash_attention_fwd``."""
     d = q.shape[-1]
     if scale is None:
         scale = d ** -0.5
@@ -430,7 +453,7 @@ def flash_attention(q, k, v, scale=None):
         t.requires_grad for t in (q, k, v)
     )
     if not needs_grad:
-        out = flash_attention_fwd(
-            *(_pad_head(t, dp) for t in (q, k, v)), scale)[0]
+        out = flash_attention_fwd_op(
+            *(_pad_head(t, dp) for t in (q, k, v)), float(scale))[0]
         return out if dp == d else out[..., :d]
     return _FlashAttention.apply(q, k, v, scale, dp)

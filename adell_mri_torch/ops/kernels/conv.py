@@ -71,12 +71,22 @@ dW (``conv3d_weight_grad``) has two routes, chosen by ``wgrad_route``:
 
 Its counters are ``launches`` (the kernel) and ``patch_calls`` (CUDA calls
 of the patch route); CPU tensors count neither.
+
+The forward is also the op ``torch.ops.adell.conv3d_igemm`` (a
+``torch.library.custom_op`` whose implementation is ``conv3d_igemm``, so
+a CUDA tensor launches the routed kernel and a CPU tensor takes the plain
+version, and whose fake gives the output's shape and type), which
+``torch.export`` records by name where a ``ctypes`` launch on a data
+pointer cannot be traced. ``conv3d_igemm_train`` calls through the op
+wherever no gradient is asked for, so a trace under ``no_grad`` (the
+exporter's, ``train/export.py``) records it and the live paths launch
+and count as the op's implementation does.
 """
 
 import contextlib
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -276,7 +286,7 @@ def conv3d_igemm_reference(x, w, bias=None):
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def _check(x, w, bias):
+def _check_shapes(x, w, bias):
     if x.dim() != 5:
         raise ValueError(f"x must be [B,D,H,W,Cin], got {tuple(x.shape)}")
     cin = x.shape[-1]
@@ -285,14 +295,18 @@ def _check(x, w, bias):
             f"w must be [3,3,3,{cin},Cout] for x {tuple(x.shape)}, got "
             f"{tuple(w.shape)}"
         )
+    if bias is not None and tuple(bias.shape) != (w.shape[-1],):
+        raise ValueError(
+            f"bias must be [{w.shape[-1]}], got {tuple(bias.shape)}"
+        )
+
+
+def _check(x, w, bias):
+    _check_shapes(x, w, bias)
     if x.dtype not in _LAUNCHERS:
         raise TypeError(f"conv3d_igemm takes bf16 or f32, got {x.dtype}")
     tensors = [("x", x), ("w", w)]
     if bias is not None:
-        if tuple(bias.shape) != (w.shape[-1],):
-            raise ValueError(
-                f"bias must be [{w.shape[-1]}], got {tuple(bias.shape)}"
-            )
         tensors.append(("bias", bias))
     for name, t in tensors:
         if t.dtype != x.dtype:
@@ -670,11 +684,25 @@ class _Conv3dIgemm(torch.autograd.Function):
         return dx, dw, db
 
 
+@torch.library.custom_op("adell::conv3d_igemm", mutates_args=())
+def conv3d_igemm_op(x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``conv3d_igemm`` as an op that ``torch.export`` records."""
+    return conv3d_igemm(x, w, bias)
+
+
+@conv3d_igemm_op.register_fake
+def _(x, w, bias):
+    _check_shapes(x, w, bias)
+    return x.new_empty((*x.shape[:4], w.shape[-1]))
+
+
 def conv3d_igemm_train(x, w, bias=None):
-    """``conv3d_igemm`` with a gradient: K1 for the forward and for dx."""
+    """``conv3d_igemm`` with a gradient: K1 for the forward and for dx.
+    Without a gradient, the op ``adell::conv3d_igemm``."""
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, w, bias)
     )
     if not needs_grad:
-        return conv3d_igemm(x, w, bias)
+        return conv3d_igemm_op(x, w, bias)
     return _Conv3dIgemm.apply(x, w, bias)

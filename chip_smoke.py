@@ -55,14 +55,14 @@ failure:
    the kernel's 29 and all 31; in f32 (all 31 on the patch product) beside
    cuDNN's f32 weight gradient (TF32 off) and its 3xTF32 and FMA bounds;
 8. training: the flagship U-Net (seed 0, bf16, augmentation on, B=4 at
-   128x128x32) takes one warm-up step and 5 timed steps with the launch
+   128x128x32) takes one warm-up step and 3 timed steps with the launch
    counts reset just before (per step 29 + 2 of 31 forward and 29 + 1 of 30
    dx launches on the wgmma + narrow routes: the stems and the dx of 1->32,
    whose output has one channel, take the narrow one; 29 wgrad launches
    and 2 patch products for dW);
    every parameter gets a finite, non-zero
    gradient; ten steps on one batch without augmentation lower the loss;
-   in f32, the CLI's default precision, a warm-up step and 3 timed steps
+   in f32, the CLI's default precision, a warm-up step and 2 timed steps
    with 29 + 29 launches a step on the tf32 route (the stems and the 32->1
    dx on the narrow one, 31 dW patch products), then one step's loss and
    gradient norm match the plain conv path;
@@ -202,12 +202,12 @@ failure:
     B=4 and dx, dW, dbias at the step's B=2, at phases 3 and 7's
     tolerances, the routes read from the counters, the tf32 and narrow
     ones bit-equal over two runs; training at the yaml's B=2 on
-    128x128x32 with the CLI's augmentation, bf16 and f32 (3 timed steps,
+    128x128x32 with the CLI's augmentation, bf16 and f32 (2 timed steps,
     launches against the recorded calls, gradients finite and every
     weight's non-zero, the f32 loss within 1e-4 and gradient norm within
     1e-3 of the plain path with the same dropout draws, ten bf16 steps
     with a falling loss); ``segmentation train``, ``predict``,
-    ``test_from_predictions`` and ``test`` (f32 and bf16) on a 6-case
+    ``test_from_predictions`` and ``test`` (f32 and bf16) on a 4-case
     256x256x64 cohort; the CLI's U-Net
     defaults (identity links, upsampling decoder) at the flagship's width
     with instance and with batch norm, and each other conv type (sae,
@@ -228,7 +228,7 @@ failure:
     views of 96x96x24 (``SSLTransforms``) in f32 and bf16 (the f32 step
     against the plain path with ``_step_parity`` at the largest batch it
     fits, every gradient finite and each weight's non-zero but the
-    prediction head's, which VICReg does not reach; a warm-up and 3
+    prediction head's, which VICReg does not reach; a warm-up and 2
     timed steps with the launches of the recorded K1 calls, no K3; peak
     memory; ten bf16 steps on one batch of views with a falling loss);
     a BYOL step with its EMA teacher in f32 and bf16 (the shadow a plain
@@ -257,7 +257,7 @@ failure:
     classifier (``u-net-3d-resnet.yaml``) served at B=2 and trained at
     their batch on 128x128x32 as phase 19 serves and trains (K1, dx, dW
     from the recorded calls); ``classification train``, ``test`` and
-    ``predict`` of each net type on 6 cases (the ViT on 256x256x64 with
+    ``predict`` of each net type on 4 cases (the ViT on 256x256x64 with
     dropout 0, OrdNet on three grades with ``--prediction_type
     pre_bias``, the U-Net encoder classifier with a gland mask a case,
     ``--mask_keys``,
@@ -287,6 +287,22 @@ failure:
     members (predict again on the plain path); every CLI run's launches
     against the K1 calls recorded around it, K3 in the training runs
     with the augmentation and nowhere else.
+23.–24. the U-Net with ``ssl-resnet.yaml``'s encoder and its fine-tuning
+    CLIs; both MIL models and the ``classification_mil`` CLIs;
+25. the deconfounder network over ``classification-cat-resnet.yaml``
+    (two categorical confounders of 3 and 2 classes, one continuous)
+    served at B=2 and stepped at B=16 on 128x128x32 in bf16 and f32
+    against the plain path (``_step_parity`` for the f32 step), 8 K1 a
+    forward; SegCatNet over the flagship U-Net at B=2, served against the
+    plain path and stepped with every U-Net parameter left bit-equal and
+    the heads moved; ``classification_deconfounder train``, ``test`` and
+    ``predict`` (again on the plain path, 1e-3) on phase 17's cohort and
+    ``classification train --logger_type wandb`` (the warning and the
+    metric CSV); ``ssl model_to_export`` of phase 20's VICReg checkpoint
+    and ``classification model_to_export`` of phase 17's CatNet and
+    phase 21's ViT classifier (4097 tokens), each artifact loaded and run
+    on the card against the live model (f32, 1e-5) with the same K1 and
+    flash launches.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -296,6 +312,7 @@ and ``{"ok": true, "device": {...}}``. Details go to
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -330,9 +347,9 @@ CONVS_DX_NARROW_PER_STEP = 1
 CONVS_WGRAD_PER_STEP = 29
 CONVS_WGRAD_PATCHES_PER_STEP = 2
 WINDOW_BATCHES = 7
-TIMED_STEPS = 5
+TIMED_STEPS = 3
 # f32 U-Net steps timed after the warm-up step
-F32_TIMED_STEPS = 3
+F32_TIMED_STEPS = 2
 # UNETR (sample_configs/unetr.yaml on 256x256x64): 8 blocks of 8 heads of
 # dim 64 over 2048 tokens; 9 stride-1 3x3x3 convs per forward, all but the
 # one that reads the image with a dx launch in training
@@ -354,7 +371,7 @@ UNETR_CONVS_NARROW = 1
 # product for the image's 1->16
 UNETR_CONVS_WGRAD = 8
 UNETR_CONVS_WGRAD_PATCHES = 1
-UNETR_TIMED_STEPS = 3
+UNETR_TIMED_STEPS = 2
 # sequence lengths around the attention kernels' 64-row tiles
 ATTENTION_TILE_EDGES = (1, 63, 64, 65, 127, 128, 129)
 
@@ -1656,7 +1673,8 @@ def phase_training():
 def phase_train_cli():
     """A 4-case cohort at the flagship size through ``segmentation train
     --dev cuda`` (one epoch of 2 steps at B=4), then ``segmentation
-    predict --dev cuda`` on the checkpoint it wrote."""
+    predict --dev cuda`` on the checkpoint it wrote, both in this process
+    (phase 5 starts the CLI as a process of its own)."""
     import numpy as np
 
     from adell_mri_torch.data.nifti import read_nifti, write_nifti
@@ -1676,31 +1694,17 @@ def phase_train_cli():
         img = 100 + 80 * mask + 10 * rng.normal(size=WINDOW)
         paths = {}
         for key, data in (("image", img.astype(np.float32)), ("mask", mask)):
-            paths[key] = str(work / f"case_{i}_{key}.nii.gz")
+            paths[key] = str(work / f"case_{i}_{key}.nii")
             write_nifti(paths[key], data, affine)
         ds[f"case_{i}"] = paths
     (work / "ds.json").write_text(json.dumps(ds))
     # JSON is YAML
     (work / "unet.json").write_text(json.dumps(
         {**FLAGSHIP, "n_channels": 1, "loss_fn": {"dice": {}}}))
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
-
-    def run(args, what):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "adell_mri_torch", "segmentation", *args],
-            cwd=ROOT, capture_output=True, text=True, timeout=600, env=env,
-        )
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            log(proc.stdout[-3000:])
-            log(proc.stderr[-6000:])
-            raise RuntimeError(f"{what} CLI exited {proc.returncode}")
-        return secs
 
     ckpt = work / "ckpt"
-    train_s = run([
-        "train", "--dataset_json", str(work / "ds.json"),
+    train_s = _cli([
+        "segmentation", "train", "--dataset_json", str(work / "ds.json"),
         "--image_keys", "image", "--mask_keys", "mask",
         "--config_file", str(work / "unet.json"),
         "--pad_size", *map(str, WINDOW), "--target_spacing", "0.5", "0.5",
@@ -1710,18 +1714,18 @@ def phase_train_cli():
         "flip", "--precision", "bf16", "--dev", "cuda", "--seed", "0",
         "--checkpoint_dir", str(ckpt), "--metric_path",
         str(work / "metrics.csv"),
-    ], "train")
+    ])[0]
     fold = ckpt / "segmentation_fold0"
     meta = json.loads((fold / "metadata.json").read_text())
     if not (fold / "model.pt").is_file() or meta["n_classes"] != 2:
         raise AssertionError(f"train wrote {sorted(os.listdir(fold))}")
     pred = work / "pred"
-    predict_s = run([
-        "predict", "--dataset_json", str(work / "ds.json"),
+    predict_s = _cli([
+        "segmentation", "predict", "--dataset_json", str(work / "ds.json"),
         "--checkpoint_dir", str(ckpt), "--output_path", str(pred),
         "--dev", "cuda", "--precision", "bf16", "--sliding_window_size",
         *map(str, WINDOW),
-    ], "predict")
+    ])[0]
     for pid in ds:
         img = read_nifti(str(pred / f"{pid}_prob.nii.gz"))
         ok = (img.data.shape == WINDOW and np.isfinite(img.data).all()
@@ -1732,8 +1736,7 @@ def phase_train_cli():
     rows = (work / "metrics.csv").read_text().splitlines()
     log(f"[cli] train --dev cuda --precision bf16: 1 epoch of 2 steps at "
         f"B=4 in {train_s:.2f} s; predict on its checkpoint: 4 cases in "
-        f"{predict_s:.2f} s (process start, import and build included); "
-        f"{len(rows) - 1} metric rows")
+        f"{predict_s:.2f} s (in this process); {len(rows) - 1} metric rows")
     return dict(train_s=train_s, predict_s=predict_s, metric_rows=rows)
 
 
@@ -2306,7 +2309,7 @@ def phase_unetr_cli():
     --segmentation_net_type unetr --dev cuda`` with a dropout-0 copy of
     ``sample_configs/unetr.yaml`` (one epoch of 2 steps at B=2), then
     ``segmentation predict --dev cuda`` of one case on the checkpoint it
-    wrote."""
+    wrote, both in this process."""
     import numpy as np
     import yaml
 
@@ -2332,7 +2335,7 @@ def phase_unetr_cli():
             CASE, dtype=np.float32)).astype(np.float32)
         paths = {}
         for key, data in (("image", img), ("mask", mask)):
-            paths[key] = str(work / f"case_{i}_{key}.nii.gz")
+            paths[key] = str(work / f"case_{i}_{key}.nii")
             write_nifti(paths[key], data, affine)
         ds[f"case_{i}"] = paths
     (work / "ds.json").write_text(json.dumps(ds))
@@ -2340,24 +2343,10 @@ def phase_unetr_cli():
     # with dropout on, attention in training mode leaves the kernels
     config["dropout_rate"] = 0.0
     (work / "unetr.yaml").write_text(yaml.safe_dump(config))
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
-
-    def run(args, what):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "adell_mri_torch", "segmentation", *args],
-            cwd=ROOT, capture_output=True, text=True, timeout=600, env=env,
-        )
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            log(proc.stdout[-3000:])
-            log(proc.stderr[-6000:])
-            raise RuntimeError(f"{what} CLI exited {proc.returncode}")
-        return secs
 
     ckpt = work / "ckpt"
-    train_s = run([
-        "train", "--segmentation_net_type", "unetr",
+    train_s = _cli([
+        "segmentation", "train", "--segmentation_net_type", "unetr",
         "--dataset_json", str(work / "ds.json"),
         "--image_keys", "image", "--mask_keys", "mask",
         "--config_file", str(work / "unetr.yaml"),
@@ -2368,7 +2357,7 @@ def phase_unetr_cli():
         "flip", "--precision", "bf16", "--dev", "cuda", "--seed", "0",
         "--checkpoint_dir", str(ckpt), "--metric_path",
         str(work / "metrics.csv"),
-    ], "unetr train")
+    ])[0]
     fold = ckpt / "segmentation_fold0"
     meta = json.loads((fold / "metadata.json").read_text())
     if not (fold / "model.pt").is_file() or meta["net_type"] != "unetr":
@@ -2377,11 +2366,11 @@ def phase_unetr_cli():
     pred = work / "pred"
     # one case: predict's path is the same for each, and writing a
     # 256x256x64 NIfTI on the host took most of the 52 s four cases took
-    predict_s = run([
-        "predict", "--dataset_json", str(work / "ds.json"),
+    predict_s = _cli([
+        "segmentation", "predict", "--dataset_json", str(work / "ds.json"),
         "--checkpoint_dir", str(ckpt), "--output_path", str(pred),
         "--dev", "cuda", "--precision", "bf16", "--prediction_ids", "case_0",
-    ], "unetr predict")
+    ])[0]
     for pid in ["case_0"]:
         img = read_nifti(str(pred / f"{pid}_prob.nii.gz"))
         ok = (img.data.shape == CASE and np.isfinite(img.data).all()
@@ -2392,8 +2381,8 @@ def phase_unetr_cli():
     rows = (work / "metrics.csv").read_text().splitlines()
     log(f"[unetr cli] train --segmentation_net_type unetr --dev cuda "
         f"--precision bf16: 1 epoch of 2 steps at B=2 in {train_s:.2f} s; "
-        f"predict on its checkpoint: 1 case in {predict_s:.2f} s (process "
-        f"start, import and build included); {len(rows) - 1} metric rows")
+        f"predict on its checkpoint: 1 case in {predict_s:.2f} s (in this "
+        f"process); {len(rows) - 1} metric rows")
     return dict(train_s=train_s, predict_s=predict_s, metric_rows=rows)
 
 
@@ -2404,7 +2393,7 @@ PIPELINE_LESION_FREE = 2
 # crop steps an epoch when the crop step is counted and timed
 CROP_STEPS = 4
 # turns of the crop step without and with the NaN guard
-GUARD_TURNS = 4
+GUARD_TURNS = 2
 # whole-volume test forwards, kernels against the plain path: 1e-3 in f32
 # and 5e-2 in bf16 on the probabilities (max abs difference; the
 # tolerances of phases 4 and 11) and on the test CLI's Dice and IoU
@@ -2875,7 +2864,7 @@ LOSS_LR = 0.2
 # host generator covers them, the rarest 3 times)
 HISTOGRAM_CALLS = 200
 # turns of the four- and ten-flag crop steps
-FLAG_TURNS = 3
+FLAG_TURNS = 2
 
 
 def _bf16_ulps(got, ref, scale):
@@ -3141,7 +3130,7 @@ def _flag_steps(batch, case, window, precision, smi):
         raise AssertionError(f"{precision} ten-flag steps: losses {losses}, "
                              f"fixed batch {before} -> {after}, non-finite "
                              f"gradients or zero weight gradients {bad}")
-    med = {n: sorted(out[n]["seconds"])[FLAG_TURNS // 2] for n in tfs}
+    med = {n: statistics.median(out[n]["seconds"]) for n in tfs}
     log(f"[augment] {smi}: crop step ({precision}, B={batch['image'].shape[0]}"
         f" pos/neg crops of {'x'.join(map(str, window))} from "
         f"{'x'.join(map(str, case))}), s a step in turns: four flags "
@@ -3306,7 +3295,7 @@ SWIN_CONVS = 9
 SWIN_CONVS_NARROW = 1
 SWIN_CONVS_DX = 8
 SWIN_DS_CONVS = 4
-SWIN_TIMED_STEPS = 3
+SWIN_TIMED_STEPS = 2
 SWIN_CLI_CASES = 4
 
 
@@ -3351,8 +3340,12 @@ def _device_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(float(e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
+    # summed over the profiler's raw events: key_averages() builds an event
+    # tree in Python first, which took up to 15 s after a CLI run of many
+    # kernels for the same sum
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_async()) / 1e9
     return busy, wall
 
 
@@ -3895,7 +3888,7 @@ CATNET_CLASSES = (
     ((CATNET_BATCH, 16, 16, 4, 256), 256, 2),
     ((CATNET_BATCH, 8, 8, 2, 512), 512, 2),
 )
-CATNET_TIMED_STEPS = 3
+CATNET_TIMED_STEPS = 2
 CATNET_CLI_CASES = 6
 CATNET_CLI_BATCH = 2
 
@@ -4434,8 +4427,8 @@ def phase_catnet(smi, tf32_defaults):
 
 # -- phase 18: the U-Net's option space ---------------------------------------
 
-RESNET_TIMED_STEPS = 3
-RESNET_CLI_CASES = 6
+RESNET_TIMED_STEPS = 2
+RESNET_CLI_CASES = 4
 # the other conv and link types at a small depth, on the flagship's keys;
 # the ADN's other norms, prelu and uout ride along
 OPTION_DEPTH = dict(depth=[16, 32, 64], kernel_sizes=[3, 3, 3],
@@ -4582,11 +4575,6 @@ def _option_serving(smi, dtype, name="unet", overrides=None, tag="resnet",
         secs.append(time.perf_counter() - t0)
         launches = _launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        for _ in range(2):
-            t0 = time.perf_counter()
-            infer(case)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
         busy, wall = _device_share(lambda: infer(case))
         with plain_kernels():
             plain = infer(case)
@@ -4766,7 +4754,7 @@ def _resnet_conv_classes():
 def _resnet_training(smi):
     """``u-net-3d-resnet.yaml`` trained at its B=2 on 128x128x32 with its
     dropout (0.15) and loss, the CLI's augmentation, bf16 and f32: a
-    warm-up step, then 3 steps with the launches counted from 0 (K1, dx,
+    warm-up step, then 2 steps with the launches counted from 0 (K1, dx,
     dW and K3 as the recorded K1 calls of a step make them), seconds a
     step, device share and peak memory; every gradient finite and every
     weight's non-zero; the f32 loss and gradient norm against the plain
@@ -4846,7 +4834,7 @@ def _resnet_cli(smi):
     (f32, random crops of 128x128x32 from 256x256x64 volumes, B=2, one
     epoch, the CLI's augmentation), then ``predict`` (sliding window),
     ``test_from_predictions`` on its files and ``test`` on its
-    checkpoint, on 6 cases, in this process so the launches are read
+    checkpoint, on 4 cases, in this process so the launches are read
     around each; ``test`` again with ``--precision bf16``."""
     import numpy as np
 
@@ -5006,7 +4994,7 @@ def phase_unet_options(smi):
 # served micro-batch and training batches as phase 17's; the standalone
 # ConvNeXt has no yaml, so it trains at the CLI's default batch of 4
 CLASSIFIER_NAMES = ("vgg", "catnet_convnext", "convnext")
-CLASSIFIER_TIMED_STEPS = 3
+CLASSIFIER_TIMED_STEPS = 2
 # the ConvNeXt CatNet's bf16 B=16 step takes 17.2-17.3 s on an NVIDIA H100
 # 80GB HBM3 at 700 W (nearly all of it cuDNN's input gradient of the
 # depthwise convs, F.conv3d), so it is timed once
@@ -5279,7 +5267,7 @@ def _classifier_training(smi, name, overrides=None, flash=None,
     its size (crops of 128x128x32, the ViT's 256x256x64 volumes) with the
     CLI's augmentation and ``overrides`` of its config: the f32 step
     against the plain path (``_step_parity``, ``batch_stats_tol``;
-    on ``parity_batch`` samples where given), then 3 bf16 steps and 1 f32 step with the launches
+    on ``parity_batch`` samples where given), then 2 bf16 steps and 1 f32 step with the launches
     counted from 0 against those the recorded K1 calls of a step make
     (``_option_step``: K1, dx, dW, K3) and ``flash`` (the attention
     kernels' a step), seconds a step, device share and peak memory
@@ -5481,7 +5469,7 @@ def phase_classifiers(smi):
 
 # -- phase 20: self-supervised pretraining ------------------------------------
 
-SSL_TIMED_STEPS = 3
+SSL_TIMED_STEPS = 2
 SSL_LOSS_STEPS = 10
 SSL_LOSS_LR = 1e-3
 SSL_BATCH = 28
@@ -5598,7 +5586,7 @@ def _ssl_two_view(smi):
     f32 step against the plain path at B=28 (``_step_parity``: the
     running statistics and each batch norm's batch statistics included)
     and every gradient
-    (``_ssl_gradients``); a warm-up and 3 timed steps with the launches
+    (``_ssl_gradients``); a warm-up and 2 timed steps with the launches
     of the recorded K1 calls, peak memory and device share; in bf16 ten
     steps on one batch of views with a falling loss."""
     import torch
@@ -5723,7 +5711,7 @@ def _ssl_ijepa(smi):
     """Phase 20 (c): I-JEPA at the factory's defaults on B=28 volumes of
     128x128x32 (8192 tokens), f32 then bf16: the f32 step against the
     plain path at B=2 with one mask (the plain attention materialises
-    the scores), then a warm-up and 3 timed steps with 10 forward, 6 dQ
+    the scores), then a warm-up and 2 timed steps with 10 forward, 6 dQ
     and 6 dK/dV attention launches each, peak memory and device share."""
     import torch
 
@@ -6115,7 +6103,7 @@ PARITY_BATCH = {"unet_classifier": 4}
 # 1e-5 the other classifiers' heads meet; so their excess over that
 # distance is held at 5e-5
 BATCH_STATS_TOL = {"unet_classifier": 5e-5}
-NEW_CLI_CASES = 6
+NEW_CLI_CASES = 4
 NEW_CLI_BATCH = 2
 
 
@@ -6256,7 +6244,7 @@ def _new_cli(smi, tag, train_args, common, work, predict_types):
 
 def _new_clis(smi):
     """Phase 21 (e): ``classification train``, ``test`` and ``predict``
-    for each new net type on 6 seeded cases (3 with bright ellipsoids,
+    for each new net type on 4 seeded cases (2 with bright ellipsoids,
     label 1; their masks): the ViT classifier on a copy of
     ``classification-vit.yaml`` with dropout 0 at 256x256x64 in f32 (the
     flash kernels in train, test and predict), the factorized ViT at the
@@ -6854,7 +6842,7 @@ def phase_gp_ensemble(smi):
 # -- phase 23: the U-Net fine-tuned from an SSL-pretrained encoder ------------
 
 FINETUNE_NAME = "encoder_unet"
-FINETUNE_TIMED_STEPS = 3
+FINETUNE_TIMED_STEPS = 2
 FINETUNE_CLI_CASES = 6
 FINETUNE_CLI_BATCH = 2
 FINETUNE_RESIZE = (112, 112, 28)
@@ -6866,7 +6854,7 @@ FINETUNE_LR_ENCODER = "0.0001"
 def _finetune_training(smi):
     """Phase 23 (b): the encoder U-Net trained at the flagship's B=4 on
     128x128x32 with the CLI's augmentation, f32 and bf16: the f32 step
-    against the plain path (``_step_parity``), then 3 bf16 steps and 1
+    against the plain path (``_step_parity``), then 2 bf16 steps and 1
     f32 step with the launches counted from 0 against those the recorded
     K1 calls of a step make (``_option_step``: K1, dx, dW, K3), seconds a
     step, device share and peak memory; K3 against its plain version at
@@ -7113,8 +7101,8 @@ def phase_finetune(smi, encoder):
 
 MIL_METHODS = ("standard", "transformer")
 MIL_SERVE_BATCH = 2
-MIL_TIMED_STEPS = 3
-MIL_CLI_CASES = 6
+MIL_TIMED_STEPS = 2
+MIL_CLI_CASES = 4
 MIL_CLI_BATCH = 2
 
 
@@ -7205,7 +7193,7 @@ def _mil_paths(smi):
 
 
 def _mil_clis(smi):
-    """Phase 24 (b): on 6 cases at 256x256x64 (3 with bright ellipsoids,
+    """Phase 24 (b): on 4 cases at 256x256x64 (2 with bright ellipsoids,
     label 1), ``classification_mil train`` with
     ``transformable-transformer.yaml`` for each ``--mil_method`` (one
     epoch at B=2), a second ``standard`` run warm-started from the first
@@ -7308,6 +7296,580 @@ def phase_mil(smi):
     return out
 
 
+# -- phase 25: the deconfounder, SegCatNet, the exporters ---------------------
+
+DECONF_CATS = (3, 2)   # classes of the two categorical confounders
+DECONF_FEATURES = 64   # the CLI's --n_features_deconfounder default
+DECONF_CLI_BATCH = 2
+SEGCAT_BATCH = 2
+EXPORT_BATCH = 2
+LOGGER_WARNING = "wandb not installed; falling back to CSV only"
+# the served deconfounder's and SegCatNet's logits (and surrogates) on the
+# kernels against the plain path, as a share of their scale: about 3.5
+# and 2 times the largest readings on an H100 80GB HBM3 at 700 W (f32
+# 6.4e-6 to 1.4e-5; bf16 1.7e-2 to 1.06e-1, the largest on the 3-class
+# surrogate, a few bf16 steps of its small logits)
+SERVED_LOGIT_TOL = {"bf16": 2e-1, "32": 5e-5}
+
+
+def _deconf_batch(seed, batch):
+    """``make_catnet_batch`` at 128x128x32 with the two categorical
+    confounders (``DECONF_CATS`` classes) and one continuous one, drawn
+    from ``seed`` on the card."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import make_catnet_batch
+
+    out = make_catnet_batch(seed, batch=batch, shape=CATNET_SHAPE)
+    g = torch.Generator(device="cuda").manual_seed(seed + 50)
+    for i, n in enumerate(DECONF_CATS):
+        out[f"cat_conf_{i}"] = torch.randint(0, n, (batch,), generator=g,
+                                             device="cuda")
+    out["cont_conf"] = torch.randn((batch, 1), generator=g, device="cuda")
+    return out
+
+
+def _deconf_trainer(precision):
+    """The deconfounder CLI's model over ``classification-cat-resnet.yaml``
+    (``build_deconfounder_model``: its ``resnet_structure``, instance norm,
+    the default pools; 2 categorical confounders of 3 and 2 classes, 1
+    continuous) from seed 0, with the CLI's step (the parameters alone,
+    ``--deconfounder_weight`` 1) in ``precision`` and AdamW."""
+    import torch
+
+    from adell_mri_torch.config.parsing import parse_config_cat
+    from adell_mri_torch.entrypoints.classification.train import (
+        parameters_alone,
+    )
+    from adell_mri_torch.entrypoints.classification_deconfounder.train import (
+        build_deconfounder_model,
+        make_deconfounder_step,
+    )
+    from adell_mri_torch.tools.flagship import CATNET_YAML, Trainer
+    from adell_mri_torch.train.optim import get_optimizer
+    from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
+    from adell_mri_torch.train.state import TrainState
+    from adell_mri_torch.train.steps import make_eval_step, make_train_step
+
+    torch.manual_seed(0)
+    model = build_deconfounder_model(
+        parse_config_cat(str(CATNET_YAML))["network"], DECONF_CATS, 1, 2,
+        n_features=DECONF_FEATURES).cuda()
+    schedule = cosine_annealing_with_warmup(1e-3, t_max=100)
+    state = TrainState.create(
+        model, lambda p: get_optimizer("adamw", learning_rate=schedule,
+                                       params=p))
+
+    def step(train):
+        return parameters_alone(make_deconfounder_step(
+            model, 2, 1.0, train, precision), model, train)
+
+    return Trainer(state, make_train_step(step(True)),
+                   make_eval_step(step(False)), step(True), None, model)
+
+
+def _against_plain(forward, tol):
+    """``forward()`` (f32 outputs: the logit, then any surrogates' logits
+    or values) on the kernels and on the plain path: each output's largest
+    difference as a share of the plain output's largest magnitude. The
+    logits themselves, not their sigmoid or softmax: an untrained network's
+    logits are small, and its probabilities would flatten their
+    differences."""
+    import torch
+
+    with torch.inference_mode():
+        got = forward()
+        with plain_kernels():
+            want = forward()
+    got, want = ([got], [want]) if torch.is_tensor(got) else (got, want)
+    errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+    if not max(errs) <= tol:
+        raise AssertionError(f"kernels vs plain path {errs} (tol {tol})")
+    return errs, got
+
+
+def _deconfounder_paths(smi):
+    """Phase 25 (a): the deconfounder network served at B=2 (bf16, f32:
+    the logit and the surrogates' logits and value against the plain path
+    as a share of their scale, ``SERVED_LOGIT_TOL``;
+    ``CATNET_CONVS`` K1 launches a forward) and trained at the yaml's B=16
+    on 128x128x32: the f32 step against the plain path (``_step_parity``),
+    then one step in each precision with its launches held to the K1 calls
+    it records (K1, dx, dW; no augmentation, so no K3), seconds, device
+    share and peak memory."""
+    import torch
+
+    out = {}
+    serve = _deconf_batch(1, SEGCAT_BATCH)["image"]
+    batch = _deconf_batch(2, CATNET_BATCH)
+    for precision in ("32", "bf16"):
+        dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+        tr = _deconf_trainer(precision)
+        model = tr.model.eval()
+        weights = {k: v.to(dtype) for k, v in model.state_dict().items()}
+
+        def forward():
+            logits, cats, cont, _ = torch.func.functional_call(
+                model, weights, (serve.to(dtype),))
+            return [t.float() for t in (logits, *cats, cont)]
+
+        with torch.inference_mode():
+            forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with _k1_calls() as rec, torch.inference_mode():
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = _calls_want(rec.calls, dtype, step=False)
+        if not (launches == want and len(rec.calls) == CATNET_CONVS):
+            raise AssertionError(f"deconfounder forward launches {launches}, "
+                                 f"want {want}")
+        tol = SERVED_LOGIT_TOL[precision]
+        errs, _ = _against_plain(forward, tol)
+        serving = dict(launches=launches, seconds=secs, peak_memory_gb=peak,
+                       errors=errs, tol=tol)
+        parity = (_step_parity(tr, batch, "deconfounder")
+                  if precision == "32" else None)
+        tr.model.train()
+        with _k1_calls() as rec:
+            tr.state, _ = tr.train_step(tr.state, batch)
+        want = _calls_want(rec.calls, dtype, step=True)
+        want["intensity_aug"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        tr.state, metrics = tr.train_step(tr.state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        step_peak = torch.cuda.max_memory_allocated() / 1e9
+        if launches != want or not abs(loss) < float("inf"):
+            raise AssertionError(f"deconfounder step launches {launches}, "
+                                 f"want {want}; loss {loss}")
+
+        def one_step():
+            tr.state, _ = tr.train_step(tr.state, batch)
+
+        busy, wall = _device_share(one_step)
+        log(f"[deconfounder] {smi}: {precision}: served B={SEGCAT_BATCH} "
+            f"{secs:.4f} s, peak {peak:.2f} GB, launches "
+            f"{serving['launches']}, kernels vs plain {errs} of their "
+            f"scale (tol {tol}); step B={CATNET_BATCH} "
+            f"{step_s:.4f} s, device busy {busy:.4f} of {wall:.4f} s "
+            f"({100 * busy / wall:.1f} %), peak {step_peak:.2f} GB, "
+            f"launches {launches}, loss {loss:.5f}, decorrelation "
+            f"{float(metrics['decorrelation']):.5f}")
+        out[precision] = dict(
+            serving=serving, parity=parity,
+            training=dict(launches=launches, seconds_per_step=[step_s],
+                          loss=loss, peak_memory_gb=step_peak,
+                          device_busy_s=busy, wall_s=wall))
+        del tr, model, weights
+        torch.cuda.empty_cache()
+    return out
+
+
+def _segcatnet_paths(smi):
+    """Phase 25 (b): SegCatNet over the flagship U-Net (``FLAGSHIP``, seed
+    0) at B=2 on 128x128x32: served in bf16 and f32 against the plain path
+    (the logit as a share of its scale, ``SERVED_LOGIT_TOL``) with the
+    launches of its recorded K1 calls (the U-Net's 31 and the ResNet
+    tower's); one f32 step (binary logistic loss, Adam over every
+    parameter) whose launches are the U-Net calls' forwards and the
+    tower's forward, dx and dW, after which every U-Net parameter has no
+    gradient and is bit-equal and every head parameter whose gradient is
+    above rounding level (``ROUNDING_GRADIENT`` of the largest) has
+    moved."""
+    import torch
+    import torch.nn.functional as F
+
+    from adell_mri_torch.models.classification.nets import SegCatNet
+    from adell_mri_torch.models.segmentation.unet import UNet
+    from adell_mri_torch.tools.flagship import FLAGSHIP, make_catnet_batch
+
+    torch.manual_seed(0)
+    model = SegCatNet(UNet(**FLAGSHIP)).cuda()
+    batch = make_catnet_batch(3, batch=SEGCAT_BATCH, shape=CATNET_SHAPE)
+    x = batch["image"]
+    out = {}
+    model.eval()
+    with _k1_calls() as unet_rec, torch.inference_mode():
+        model.unet(x, return_features=True)
+    n_unet = len(unet_rec.calls)
+    for precision in ("32", "bf16"):
+        dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+        weights = _catnet_weights(model, dtype)
+
+        def forward():
+            return torch.func.functional_call(
+                model, weights, (x.to(dtype),)).float()
+
+        with torch.inference_mode():
+            forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with _k1_calls() as rec, torch.inference_mode():
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = _calls_want(rec.calls, dtype, step=False)
+        if launches != want or len(rec.calls) <= n_unet:
+            raise AssertionError(f"segcatnet forward launches {launches}, "
+                                 f"want {want}")
+        tol = SERVED_LOGIT_TOL[precision]
+        errs, _ = _against_plain(forward, tol)
+        out[precision] = dict(launches=launches, seconds=secs,
+                              peak_memory_gb=peak, errors=errs, tol=tol,
+                              k1_calls=len(rec.calls), unet_calls=n_unet)
+        log(f"[segcatnet] {smi}: {precision} served B={SEGCAT_BATCH}: "
+            f"{secs:.4f} s, peak {peak:.2f} GB, {len(rec.calls)} K1 calls "
+            f"({n_unet} the U-Net's), launches {launches}, kernels vs "
+            f"plain {errs} of its scale (tol {tol})")
+    model.train()
+    unet_before = {k: v.detach().clone()
+                   for k, v in model.unet.named_parameters()}
+    heads_before = {k: v.detach().clone() for k, v in model.named_parameters()
+                    if not k.startswith("unet.")}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _k1_calls() as rec:
+        t0 = time.perf_counter()
+        logits = model(x)[:, 0]
+        loss = F.binary_cross_entropy_with_logits(logits, batch["label"])
+        loss.backward()
+        opt.step()
+        loss = float(loss.detach())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = _calls_want(rec.calls[:n_unet], torch.float32, step=False)
+    for k, v in _calls_want(rec.calls[n_unet:], torch.float32,
+                            step=True).items():
+        want[k] += v
+    want["intensity_aug"] = 0
+    grads = [k for k, p in model.unet.named_parameters()
+             if p.grad is not None]
+    moved_unet = [k for k, p in model.unet.named_parameters()
+                  if not torch.equal(p.detach(), unet_before[k])]
+    params = dict(model.named_parameters())
+    moved = [k for k, v in heads_before.items()
+             if not torch.equal(params[k].detach(), v)]
+    # the head parameters whose gradient is above rounding level must move
+    largest = max(float(params[k].grad.abs().max()) for k in heads_before
+                  if params[k].grad is not None)
+    live = [k for k in heads_before if params[k].grad is not None
+            and float(params[k].grad.abs().max())
+            >= ROUNDING_GRADIENT * largest]
+    log(f"[segcatnet] {smi}: f32 step B={SEGCAT_BATCH}: {secs:.4f} s, peak "
+        f"{peak:.2f} GB, launches {launches}, loss {loss:.5f}; U-Net "
+        f"parameters with a gradient {len(grads)}, moved {len(moved_unet)} "
+        f"of {len(unet_before)}; head parameters moved {len(moved)} of "
+        f"{len(heads_before)} ({len(live)} with a gradient above "
+        f"{ROUNDING_GRADIENT} of the largest)")
+    if launches != want:
+        raise AssertionError(f"segcatnet step launches {launches}, want "
+                             f"{want}")
+    if grads or moved_unet or not live or set(live) - set(moved):
+        raise AssertionError(f"segcatnet step: U-Net gradients {grads}, "
+                             f"moved {moved_unet}; heads moved {moved}")
+    out["step_f32"] = dict(launches=launches, seconds=secs,
+                           peak_memory_gb=peak, loss=loss,
+                           unet_parameters=len(unet_before),
+                           heads_moved=len(moved),
+                           heads_parameters=len(heads_before))
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _deconfounder_clis(smi):
+    """Phase 25 (c): on phase 17's 6 cases at 128x128x32, with a
+    categorical confounder of 3 values and one of 2 and a continuous one:
+    ``classification_deconfounder train`` (the yaml, f32, one epoch at B=2
+    and one validation case), ``test`` and ``predict`` on its checkpoint,
+    then ``predict`` again on the plain path (the probabilities and the
+    continuous surrogates within 1e-3); ``classification train
+    --logger_type wandb`` (the yaml, one epoch at B=2) warns and writes
+    its metric CSV. Where wandb is installed its ``init`` needs an
+    account and the network, which a smoke run must not use, so the run
+    hides it (``sys.modules["wandb"] = None``: the import fails, as where
+    it is not installed). Every run's launches against the K1 calls
+    recorded around it, no K3 (no augmentation)."""
+    import logging
+
+    from adell_mri_torch.tools.flagship import CATNET_YAML
+
+    work = WORK_DIR / "deconfounder_cli"
+    work.mkdir(parents=True)
+    ds = json.loads((WORK_DIR / "catnet_cli" / "ds.json").read_text())
+    for i, pid in enumerate(sorted(ds)):
+        ds[pid].update(scanner="abc"[i % 3], site="xy"[i // 3 % 2],
+                       age=50.0 + 3 * i)
+    (work / "ds.json").write_text(json.dumps(ds))
+    ckpt = work / "ckpt"
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda",
+              "--checkpoint_dir", str(ckpt)]
+    runs = {}
+    runs["train"] = _counted_cli([
+        "classification_deconfounder", "train", *common,
+        "--image_keys", "image", "--cat_confounder_keys", "scanner", "site",
+        "--cont_confounder_keys", "age", "--config_file", str(CATNET_YAML),
+        "--pad_size", *map(str, CATNET_SHAPE),
+        "--target_spacing", "0.5", "0.5", "3.0",
+        "--batch_size", str(DECONF_CLI_BATCH), "--max_epochs", "1",
+        "--n_folds", "1", "--seed", "0",
+        "--metric_path", str(work / "metrics.csv")])
+    meta = json.loads((ckpt / "deconfounder_fold0" / "metadata.json")
+                      .read_text())
+    if meta["cat_confounder_cards"] != list(DECONF_CATS) or meta[
+            "n_features_deconfounder"] != DECONF_FEATURES:
+        raise AssertionError(f"deconfounder train wrote {meta}")
+    runs["test"] = _counted_cli([
+        "classification_deconfounder", "test", *common,
+        "--metric_path", str(work / "test.csv")])
+    result = _last_json(runs["test"][1])
+    if result["n_cases"] != CATNET_CLI_CASES or not 0 <= result["auc"] <= 1:
+        raise AssertionError(f"deconfounder test: {result}")
+    preds = {}
+    for tag in ("predict", "predict_plain"):
+        path = work / f"{tag}.json"
+        ctx = plain_kernels if tag == "predict_plain" else (
+            contextlib.nullcontext)
+        with ctx():
+            runs[tag] = _counted_cli([
+                "classification_deconfounder", "predict", *common,
+                "--output_path", str(path)])
+        preds[tag] = json.loads(path.read_text())
+    got, want = preds["predict"], preds["predict_plain"]
+    errs = [max(abs(got[p]["prediction"] - want[p]["prediction"]),
+                *(abs(a - b) for a, b in zip(got[p]["cont_surrogates"],
+                                             want[p]["cont_surrogates"])))
+            for p in want]
+    agree = sum(got[p]["cat_surrogates"] == want[p]["cat_surrogates"]
+                for p in want)
+    if sorted(got) != sorted(ds) or not max(errs) <= 1e-3 or not all(
+            0 <= v["prediction"] <= 1 and len(v["cat_surrogates"]) == 2
+            for v in got.values()):
+        raise AssertionError(f"deconfounder predict {got} vs plain {want}")
+    handler = logging.Handler(logging.WARNING)
+    warned = []
+    handler.emit = lambda record: warned.append(record.getMessage())
+    metric_log = logging.getLogger("adell_mri_torch.train.logging_utils")
+    metric_log.addHandler(handler)
+    hidden = sys.modules.get("wandb", False)
+    sys.modules["wandb"] = None
+    try:
+        runs["logger_train"] = _counted_cli([
+            "classification", "train", *common[:4],
+            "--checkpoint_dir", str(work / "ckpt_logger"),
+            "--image_keys", "image", "--config_file", str(CATNET_YAML),
+            "--pad_size", *map(str, CATNET_SHAPE),
+            "--target_spacing", "0.5", "0.5", "3.0",
+            "--batch_size", str(DECONF_CLI_BATCH), "--max_epochs", "1",
+            "--n_folds", "1", "--seed", "0", "--logger_type", "wandb",
+            "--metric_path", str(work / "metrics_logger.csv")])
+    finally:
+        metric_log.removeHandler(handler)
+        if hidden is False:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = hidden
+    rows = (work / "metrics_logger.csv").read_text().splitlines()
+    if warned != [LOGGER_WARNING] or len(rows) < 2:
+        raise AssertionError(f"--logger_type wandb: warnings {warned}, "
+                             f"{len(rows)} CSV lines")
+    out = {}
+    for tag, (secs, _, counts, want_counts) in runs.items():
+        if tag == "predict_plain":
+            if counts["conv3d_igemm"]:
+                raise AssertionError(f"plain predict launched {counts}")
+        else:
+            _check_cli_launches(f"deconfounder {tag}", counts, want_counts,
+                                steps=False)
+        out[tag] = dict(seconds=secs, counts=counts)
+    log(f"[deconfounder cli] {smi}: " + "; ".join(
+        f"{tag} {r['seconds']:.2f} s, launches {r['counts']}"
+        for tag, r in out.items())
+        + f"; test {result}; predictions vs plain path max {max(errs):.3g} "
+        f"(tol 1e-3), categorical surrogates agree in {agree} of "
+        f"{len(want)}; --logger_type wandb warned {warned} and wrote "
+        f"{len(rows) - 1} metric rows")
+    return dict(runs=out, test_result=result, predict_vs_plain=max(errs),
+                cat_surrogates_agree=agree, logger_warnings=warned,
+                logger_csv_rows=len(rows) - 1)
+
+
+def _served_export(tag, args, build, x, flash=0):
+    """``args`` (an exporter CLI) writes an artifact, which is loaded here
+    and run on ``x``: its output against the live model's (``build()``,
+    its forward as the artifact's) within 1e-5 of their scale (f32), its
+    launches equal to the live model's, which equal those of the live
+    model's recorded K1 calls and ``flash`` attention forwards; the
+    export itself launches nothing."""
+    import torch
+
+    from adell_mri_torch.train.export import adell_ops, load_exported
+
+    secs, _, counts = _cli(args)
+    if any(counts.values()):
+        raise AssertionError(f"{tag} export launched {counts}")
+    path = args[args.index("--output_path") + 1]
+    load_s = time.perf_counter()
+    fn, meta = load_exported(path)
+    ops = adell_ops(torch.export.load(path))
+    load_s = time.perf_counter() - load_s
+    live = build()
+    with torch.inference_mode():
+        fn(x)
+        live(x)
+    torch.cuda.synchronize()
+    _reset_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got = fn(x)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    _reset_counts()
+    with _k1_calls() as rec, torch.inference_mode():
+        t0 = time.perf_counter()
+        want = live(x)
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+    live_launches = _launch_counts()
+    calls_want = _calls_want(rec.calls, torch.float32, step=False)
+    calls_want["flash_attention_fwd"] = flash
+    err = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                1e-30)
+    log(f"[export] {tag}: export {secs:.2f} s ({os.path.getsize(path)} "
+        f"bytes, ops {ops}), load {load_s:.2f} s; artifact {run_s:.4f} s, "
+        f"live {live_s:.4f} s a forward of {tuple(x.shape)}; launches "
+        f"{launches}, live {live_launches}; artifact vs live "
+        f"{err:.3g} of the scale (tol 1e-5); sidecar {sorted(meta)}")
+    if not (launches == live_launches == calls_want and err <= 1e-5
+            and list(meta["input_shape"]) == list(x.shape)
+            and (launches["conv3d_igemm"] > 0 or flash)):
+        raise AssertionError(f"{tag} artifact: launches {launches}, live "
+                             f"{live_launches}, want {calls_want}; error "
+                             f"{err}; sidecar {meta}")
+    return dict(export_s=secs, load_s=load_s, seconds=run_s,
+                live_seconds=live_s, launches=launches, max_rel_err=err,
+                ops=ops, bytes=os.path.getsize(path))
+
+
+def _exports(smi):
+    """Phase 25 (d): ``ssl model_to_export`` of phase 20's f32 VICReg
+    checkpoint and ``classification model_to_export`` of phase 17's
+    CatNet (``model_to_torchscript``, the other spelling; the parameters
+    alone, as the JAX exporter applies them: batch statistics of the
+    batch) and of phase 21's ViT classifier at 256x256x64 (4097 tokens),
+    each at B=2 in f32 on the card (``_served_export``)."""
+    import torch
+
+    from adell_mri_torch.config.factories import (
+        get_classification_network,
+        get_ssl_network,
+    )
+    from adell_mri_torch.models.layers.adn import batch_statistics_mode
+    from adell_mri_torch.tools.flagship import CASE, make_catnet_batch
+    from adell_mri_torch.train.checkpoints import CheckpointManager
+
+    work = WORK_DIR / "exports"
+    work.mkdir(parents=True)
+    out = {}
+
+    def loaded(root, name, make):
+        mngr = CheckpointManager(str(root), name=name, fold=0)
+        meta = mngr.load_metadata()
+        model = make(meta)
+        model.load_state_dict(mngr.load_state_dict())
+        return model.cuda().eval()
+
+    ssl_root = WORK_DIR / "ssl_cli" / "ckpt_vicreg_f32"
+    out["ssl"] = _served_export(
+        "ssl vicreg", ["ssl", "model_to_export", "--checkpoint_dir",
+                       str(ssl_root), "--output_path",
+                       str(work / "ssl.pt2"), "--batch_size",
+                       str(EXPORT_BATCH), "--dev", "cuda"],
+        lambda: loaded(ssl_root, "ssl_vicreg", lambda m: get_ssl_network(
+            "vicreg", m["network_config"], image_size=tuple(
+                m["transform_arguments"]["target_size"]))),
+        make_catnet_batch(6, batch=EXPORT_BATCH, shape=SSL_CLI_SHAPE)[
+            "image"])
+
+    def classifier(root, shape):
+        model = loaded(root, "classification",
+                       lambda m: get_classification_network(
+                           m["net_type"], m["network_config"],
+                           n_classes=m["n_classes"], image_size=shape))
+
+        def forward(x):
+            with batch_statistics_mode(model):
+                return model(x)
+
+        return forward
+
+    for tag, root, shape, flash, mode in (
+            ("catnet", WORK_DIR / "catnet_cli" / "ckpt", CATNET_SHAPE, 0,
+             "model_to_torchscript"),
+            ("vit", WORK_DIR / "new_classifier_cli" / "ckpt_vit", CASE,
+             VIT_BLOCKS, "model_to_export")):
+        out[tag] = _served_export(
+            f"classification {tag}", [
+                "classification", mode, "--checkpoint_dir", str(root),
+                "--output_path", str(work / f"{tag}.pt2"), "--batch_size",
+                str(EXPORT_BATCH), "--dev", "cuda"],
+            lambda root=root, shape=shape: classifier(root, shape),
+            make_catnet_batch(7, batch=EXPORT_BATCH, shape=shape)["image"],
+            flash=flash)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_deconfounder_export(smi):
+    """Phase 25: the deconfounder network and SegCatNet at full width, the
+    ``classification_deconfounder`` CLIs and the experiment logger's CSV
+    fallback, and the exported artifacts of an SSL encoder, a CatNet and
+    the ViT classifier run on the card."""
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(part):
+        now = time.perf_counter()
+        laps[part] = now - last[0]
+        last[0] = now
+
+    out = {"deconfounder": _deconfounder_paths(smi)}
+    lap("deconfounder")
+    out["segcatnet"] = _segcatnet_paths(smi)
+    lap("segcatnet")
+    out["cli"] = _deconfounder_clis(smi)
+    lap("cli")
+    out["exports"] = _exports(smi)
+    lap("exports")
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = laps
+    log(f"[deconfounder, segcatnet, export] phase 25: "
+        f"{out['seconds']:.1f} s ({laps})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -7396,6 +7958,8 @@ def main():
     lap(23)
     mil = phase_mil(smi)
     lap(24)
+    deconf = phase_deconfounder_export(smi)
+    lap(25)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -7472,7 +8036,7 @@ def main():
            for tag, v in options["variants"].items()
            for what in ("step", "serving")},
         # phase 19: VGG, the ConvNeXt CatNet and the standalone ConvNeXt
-        # served (B=2) and trained (3 bf16 steps, 1 f32 step) in bf16 and
+        # served (B=2) and trained (2 bf16 steps, 1 f32 step) in bf16 and
         # f32, and the CLIs with clinical features (the ConvNeXt CatNet in
         # f32, VGG in bf16)
         **{f"{name}_{what}{'' if p == 'bf16' else '_f32'}":
@@ -7484,7 +8048,7 @@ def main():
            for name, precision in (("catnet_convnext", "f32"),
                                    ("vgg", "bf16"))
            for what in ("train", "test", "predict")},
-        # phase 20: VICReg (3 steps each) and I-JEPA (3 steps each) at B=28
+        # phase 20: VICReg (2 steps each) and I-JEPA (2 steps each) at B=28
         # in bf16 and f32, a BYOL step in each, the served representation
         # (bf16, f32), and the ssl CLIs
         "ssl_vicreg_training": ssl["two_view"]["bf16"]["launches"],
@@ -7499,10 +8063,10 @@ def main():
            for tag in ("vicreg_f32", "byol_bf16", "ijepa_bf16")},
         "ssl_predict_folder_f32": ssl["cli"]["predict_folder_f32"]["counts"],
         # phase 21: the ViT classifier served (B=2, 256x256x64) and trained
-        # with dropout 0 there (3 bf16 steps and its 5 on one batch, 1 f32
+        # with dropout 0 there (2 bf16 steps and its 5 on one batch, 1 f32
         # step) and with its dropout 0.1 on crops; the factorized ViT,
         # OrdNet and the U-Net encoder classifier served (B=2) and trained
-        # (3 bf16 steps, 1 f32 step); the CLIs of the four net types
+        # (2 bf16 steps, 1 f32 step); the CLIs of the four net types
         **{f"{name}_{what}{'' if p == 'bf16' else '_f32'}":
            new_classifiers[name][what][p]["launches"]
            for name in ("vit",) + NEW_CLASSIFIERS
@@ -7515,7 +8079,7 @@ def main():
            for tag, run in new_classifiers["cli"].items()
            for what in run if what == "train" or what == "test"
            or what.startswith("predict_")},
-        # phase 22: the GP CatNet served (B=2) and trained (3 bf16 steps, 1
+        # phase 22: the GP CatNet served (B=2) and trained (2 bf16 steps, 1
         # f32 step at B=16), its covariance fitted over 3 batches, two
         # accumulated micro-steps and a frozen step (f32), its CLIs (f32:
         # train, the warm-started run, test, predict with --ensemble and
@@ -7530,7 +8094,7 @@ def main():
            for part, tag in (("cli", "gp_cli"),
                              ("ensemble_cli", "ensemble_cli"))
            for what, run in gp_ensemble[part]["runs"].items()},
-        # phase 23: the encoder U-Net served (bf16, f32) and trained (3
+        # phase 23: the encoder U-Net served (bf16, f32) and trained (2
         # bf16 steps, 1 f32 step), its CLIs (train in bf16 and f32, predict
         # with MC dropout and test in f32)
         **{f"encoder_unet_{what}{'' if p == 'bf16' else '_f32'}":
@@ -7545,6 +8109,23 @@ def main():
            for tag, run in mil["paths"].items() if isinstance(run, dict)},
         **{f"mil_cli_{tag}": run["counts"]
            for tag, run in mil["cli"].items() if tag != "checks"},
+        # phase 25: the deconfounder network served (B=2) and stepped
+        # (B=16), SegCatNet served (B=2) and stepped (f32), the
+        # classification_deconfounder CLIs and the logger's train run (f32),
+        # and the exported artifacts run on the card (f32, B=2)
+        **{f"{name}_{what}{'' if p == 'bf16' else '_f32'}":
+           deconf["deconfounder"][p][what]["launches"]
+           for name, what in (("deconfounder", "serving"),
+                              ("deconfounder", "training"))
+           for p in ("bf16", "32")},
+        "segcatnet_serving": deconf["segcatnet"]["bf16"]["launches"],
+        "segcatnet_serving_f32": deconf["segcatnet"]["32"]["launches"],
+        "segcatnet_step_f32": deconf["segcatnet"]["step_f32"]["launches"],
+        **{f"deconfounder_cli_{tag}_f32": run["counts"]
+           for tag, run in deconf["cli"]["runs"].items()
+           if tag != "predict_plain"},
+        **{f"{tag}_export_f32": run["launches"]
+           for tag, run in deconf["exports"].items()},
     }
 
     def launches_of(name):
@@ -7560,8 +8141,8 @@ def main():
               "adell_mri_tpu/ops/pallas/conv.py:60",
               launches_of("conv3d_igemm")[0], totals,
               "window batch of 4 at 128x128x32 (the U-Net's 31 convs), "
-              "bf16; launches: the U-Net's served case in bf16 and f32, 5 "
-              "bf16 and 3 f32 training steps, UNETR's served case, 3 "
+              "bf16; launches: the U-Net's served case in bf16 and f32, 3 "
+              "bf16 and 2 f32 training steps, UNETR's served case, 2 "
               "training steps and its f32 step, phase 14's crop steps, "
               "train, resume, test and predict runs, phase 15's four- and "
               "ten-flag crop steps and train runs, phase 16's SWIN-UNet "
@@ -7576,7 +8157,9 @@ def main():
               "CatNet forwards, steps, covariance fit, accumulated and "
               "frozen steps and CLI runs and the ensemble's CLI runs, "
               "phase 23's encoder U-Net served cases, steps and CLI runs, "
-              "every route",
+              "phase 25's deconfounder and SegCatNet forwards and steps, "
+              "deconfounder and logger CLI runs and the exported SSL "
+              "encoder's and CatNet's artifacts, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -7779,7 +8362,7 @@ def main():
     f32_paths = ("unetr_serving_f32", "unetr_training_f32",
                  "ssl_ijepa_training_f32", "vit_serving_f32",
                  "vit_training_f32", "vit_cli_train_f32", "vit_cli_test_f32",
-                 "vit_cli_predict_probability_f32")
+                 "vit_cli_predict_probability_f32", "vit_export_f32")
     att32 = attention["float32"]
     for name, what, b, lines in (
             ("fwd", "forward", 1, ":49 and :151"), ("bwd_dq", "dQ", 2, ":300"),
@@ -7858,7 +8441,7 @@ def main():
         swin=swin, catnet=catnet, unet_options=options,
         classifiers=classifiers, ssl=ssl, new_classifiers=new_classifiers,
         gp_ensemble=gp_ensemble, finetune=finetune, mil=mil,
-        launches_by_path=by_path,
+        deconfounder_export=deconf, launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,
     ), indent=1))

@@ -8,8 +8,10 @@ records; ``classification test`` and ``predict`` serve them. The port's
 ``test`` and ``predict`` on a checkpoint agree with the JAX CLI's on a
 JAX checkpoint of the same weights and running statistics within 1e-4
 (f32 forwards of a few layers; the metrics are ranks and shares).
-``--dev`` defaults to cuda and raises where there is no GPU; flags that
-are not ported raise ``NotImplementedError``.
+``--dev`` defaults to cuda and raises where there is no GPU; networks
+that are not ported raise ``NotImplementedError``. Each experiment logger
+flag gives the metric logger the JAX CLI's arguments, with which both
+packages' loggers write the same CSV and warn alike.
 
 The four net types ``vit``, ``factorized_vit``, ``ord`` (three grades)
 and ``unet``: the port's ``test`` and ``predict`` (probabilities,
@@ -54,6 +56,7 @@ from adell_mri_torch.entrypoints.classification import test as ttest
 from adell_mri_torch.entrypoints.classification import train as ttrain
 from adell_mri_torch.interop.from_flax import from_flax
 from adell_mri_torch.train.checkpoints import CheckpointManager
+from test_torch_logging import compare_loggers, logger_arguments
 from test_torch_unet import random_flax_params
 
 LPS = np.diag([-1.0, -1.0, 2.0, 1.0])
@@ -276,10 +279,33 @@ def test_test_and_predict_match_jax(cohort, capsys, n_classes):
         np.testing.assert_allclose(got[pid], v, atol=TOL, rtol=0)
 
 
-# what the port still refuses: the experiment loggers, and networks it
-# has not ported (a 2D or conditioned U-Net encoder, activations of the
-# JAX registry it lacks, ViT's mixture of experts), each a config written
-# beside the cohort's
+@pytest.mark.parametrize("flags", [
+    ["--logger_type", "wandb"], ["--logger_type", "mlflow"],
+    ["--project_name", "p"], ["--summary_name", "s"],
+    ["--summary_dir", "d"], ["--tracking_uri", "file:x"], ["--log_model"],
+    ["--logger_type", "wandb", "--log_model"]])
+def test_train_logger_flags(cohort, flags, monkeypatch, tmp_path):
+    """Each experiment logger flag: both CLIs build their metric logger
+    with the same arguments, and with those both packages' loggers write
+    the same CSV and warn alike (neither tracker is installed)."""
+
+    def run(tag, flags):
+        # both stop before anything is written
+        args = _train_args(cohort, tmp_path / "ckpt", *flags)
+        if tag == "jax":
+            jax_main(["classification", "train", *args])
+        else:
+            ttrain.main(args)
+
+    seen = logger_arguments(monkeypatch, jtrain, flags, run)
+    assert seen["port"] == seen["jax"]
+    _, warned = compare_loggers(seen["port"], tmp_path, artifact=cohort)
+    assert len(warned) == ("--logger_type" in flags)
+
+
+# what the port still refuses: networks it has not ported (a 2D or
+# conditioned U-Net encoder, activations of the JAX registry it lacks,
+# ViT's mixture of experts), each a config written beside the cohort's
 _2D = {"spatial_dimensions": 2}
 _ELU = {**NETWORK, "act_fn": "elu"}
 _MOE = {"patch_size": [4, 4, 2], "embedding_size": 32, "n_heads": 2,
@@ -288,15 +314,11 @@ _MOE = {"patch_size": [4, 4, 2], "embedding_size": 32, "n_heads": 2,
 
 @pytest.mark.parametrize(
     "flags, network",
-    [(["--logger_type", "wandb"], None), (["--logger_type", "mlflow"], None),
-     (["--project_name", "p"], None), (["--summary_name", "s"], None),
-     (["--summary_dir", "d"], None), (["--tracking_uri", "file:x"], None),
-     (["--log_model"], None), ([], _ELU),
+    [([], _ELU),
      (["--classification_net_type", "unet"], _2D),
      (["--classification_net_type", "unet"], {"feature_conditioning": 2}),
      (["--classification_net_type", "convnext"], _ELU),
-     (["--classification_net_type", "vit"], _MOE),
-     (["--logger_type", "wandb", "--log_model"], None)],
+     (["--classification_net_type", "vit"], _MOE)],
 )
 def test_train_unported_flags_raise(cohort, flags, network):
     if network is not None:

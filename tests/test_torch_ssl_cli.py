@@ -12,10 +12,15 @@ one op, so that its augmentation compiles in seconds: the registry plays
 no part in what is compared); its parameters and statistics pass through
 ``from_flax`` into a port checkpoint, and the port's ``ssl
 predict_folder`` JSON equals the JAX CLI's within 1.5e-4 (features
-rounded to 4 decimals). The refusals raise ``NotImplementedError`` with
-a message; the two JAX CLI paths that fail (I-JEPA with a random crop
-other than the base size; ``predict_folder`` on an I-JEPA checkpoint)
-are pinned beside the port's refusal.
+rounded to 4 decimals); ``ssl model_to_export`` (and
+``model_to_torchscript``) of that checkpoint in both packages write the
+same sidecar, and the port's artifact gives the JAX artifact's output and
+the live port model's within 1e-5; ``--logger_type wandb`` gives the
+metric logger the JAX CLI's arguments. The refusals raise
+``NotImplementedError`` with a message; the three JAX CLI paths that
+fail (I-JEPA with a random crop other than the base size;
+``predict_folder`` and ``model_to_export`` on an I-JEPA checkpoint) are
+pinned beside the port's refusal.
 """
 
 import csv
@@ -36,8 +41,16 @@ from adell_mri_tpu.transforms import augment as jA
 from adell_mri_tpu.transforms import pipeline as jpipe
 from adell_mri_torch.__main__ import main as cli_main
 from adell_mri_torch.data import nifti as tnifti
+from adell_mri_tpu.entrypoints.ssl import train as jssl_train
+from adell_mri_tpu.train.export import load_exported as jload_exported
+from adell_mri_torch.config.factories import (
+    get_ssl_network as tget_ssl_network,
+)
 from adell_mri_torch.interop.from_flax import from_flax
 from adell_mri_torch.train.checkpoints import CheckpointManager
+from adell_mri_torch.train.export import adell_ops, load_exported
+from test_torch_classification import _close
+from test_torch_logging import compare_loggers, logger_arguments
 
 LPS = np.diag([-1.0, -1.0, 2.0, 1.0])
 SHAPE = (20, 20, 10)
@@ -161,14 +174,16 @@ def _small_registry(monkeypatch):
             n_transforms, ndim))
 
 
-def test_predict_folder_matches_jax(cohort, monkeypatch):
-    """The JAX CLI's checkpoint served by both CLIs: the same files, each
-    feature within 1.5e-4 (4-decimal rounding on both sides)."""
-    _small_registry(monkeypatch)
-    jdir = cohort / "jax_ckpt"
-    jax_main(["ssl", "train", *_train_args(
-        cohort, jdir, "--random_crop_size", *map(str, CROP),
-        "--max_epochs", "1")])
+@pytest.fixture(scope="module")
+def jax_vicreg(cohort):
+    """The JAX CLI's VICReg checkpoint (one epoch) and a port checkpoint
+    of its parameters and statistics."""
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        _small_registry(monkeypatch)
+        jdir = cohort / "jax_ckpt"
+        jax_main(["ssl", "train", *_train_args(
+            cohort, jdir, "--random_crop_size", *map(str, CROP),
+            "--max_epochs", "1")])
     jck = JaxCkpt(str(jdir), name="ssl_vicreg", fold=0)
     restored = jck.restore(jck.best_step())
     meta = jck.load_metadata()
@@ -177,6 +192,13 @@ def test_predict_folder_matches_jax(cohort, monkeypatch):
                       metadata=meta).save(from_flax(
                           restored["params"],
                           restored["variables"]["batch_stats"]))
+    return jdir, tdir
+
+
+def test_predict_folder_matches_jax(cohort, jax_vicreg):
+    """The JAX CLI's checkpoint served by both CLIs: the same files, each
+    feature within 1.5e-4 (4-decimal rounding on both sides)."""
+    jdir, tdir = jax_vicreg
     jout, tout = cohort / "jax_features.json", cohort / "features.json"
     common = ["--input_folder", str(cohort / "folder"), "--dev", "cpu"]
     jax_main(["ssl", "predict_folder", "--checkpoint_dir", str(jdir),
@@ -198,16 +220,64 @@ def test_predict_folder_matches_jax(cohort, monkeypatch):
     (["train", "--ssl_method", "mae"], "ROADMAP"),
     (["train", "--ssl_method", "vicregl"], "ROADMAP"),
     (["train", "--sample_channels", "2"], "sample_channels"),
-    (["train", "--logger_type", "wandb"], "not ported"),
     (["train_2d"], "train_2d"),
-    (["model_to_export"], "model_to_export"),
-    (["model_to_torchscript"], "model_to_torchscript"),
 ])
 def test_refusals(cohort, args, match):
     ckpt = cohort / "ckpt_refused"
     rest = _train_args(cohort, ckpt) if args[0] == "train" else []
     with pytest.raises(NotImplementedError, match=match):
         cli_main(["ssl", *args, *rest])
+
+
+@pytest.mark.parametrize("args", [
+    ["train", "--logger_type", "wandb"], ["model_to_export"],
+    ["model_to_torchscript"]])
+def test_ported_modes_match_jax(cohort, jax_vicreg, args, monkeypatch,
+                                tmp_path):
+    """``train --logger_type wandb``: both CLIs build their metric logger
+    with the same arguments, with which both packages' loggers write the
+    same CSV and give the same warning (wandb is not installed).
+    ``model_to_export`` and its spelling ``model_to_torchscript`` on the
+    JAX CLI's checkpoint (both CLIs, B=2): the same sidecar, and the port's
+    artifact, which records the K1 op, gives the live port model's output
+    and the JAX artifact's within 1e-5 of their scale (f32)."""
+    jdir, tdir = jax_vicreg
+    if args[0] == "train":
+
+        def run(tag, flags):
+            train_args = _train_args(cohort, tmp_path / "ckpt", *flags[1:])
+            (jax_main if tag == "jax" else cli_main)(
+                ["ssl", "train", *train_args])
+
+        seen = logger_arguments(monkeypatch, jssl_train, args, run)
+        assert seen["port"] == seen["jax"]
+        _, warned = compare_loggers(seen["port"], tmp_path)
+        assert warned == ["wandb not installed; falling back to CSV only"]
+        return
+    jpath, tpath = tmp_path / "jax.bin", tmp_path / "port.pt2"
+    jax_main(["ssl", args[0], "--checkpoint_dir", str(jdir),
+              "--output_path", str(jpath), "--batch_size", "2"])
+    cli_main(["ssl", args[0], "--checkpoint_dir", str(tdir),
+              "--output_path", str(tpath), "--batch_size", "2",
+              "--dev", "cpu"])
+    jfn, jmeta = jload_exported(str(jpath))
+    tfn, tmeta = load_exported(str(tpath))
+    assert tmeta == jmeta
+    assert tmeta["input_shape"] == [2, *SHAPE, 1]
+    assert adell_ops(torch.export.load(str(tpath))) == {
+        "adell.conv3d_igemm.default": 5}
+    x = np.random.default_rng(7).normal(size=(2, *SHAPE, 1)).astype(
+        np.float32)
+    want = np.asarray(jfn(x))
+    got = tfn(torch.from_numpy(x))
+    mngr = CheckpointManager(str(tdir), name="ssl_vicreg", fold=0)
+    model = tget_ssl_network("vicreg", mngr.load_metadata()[
+        "network_config"], image_size=SHAPE)
+    model.load_state_dict(mngr.load_state_dict())
+    with torch.no_grad():
+        live = model.eval()(torch.from_numpy(x))
+    _close(got, want, 1e-5)
+    _close(got, live, 1e-5)
 
 
 def test_ijepa_with_a_random_crop_fails_in_jax_and_is_refused(cohort,
@@ -226,11 +296,9 @@ def test_ijepa_with_a_random_crop_fails_in_jax_and_is_refused(cohort,
         cli_main(["ssl", "train", *args])
 
 
-def test_ijepa_predict_folder_fails_in_jax_and_is_refused(cohort):
-    """The JAX CLI asks I-JEPA for ``ret="representation"``, a keyword
-    ``IJEPA.__call__`` does not take (its ``init`` without a masking
-    stream passes in this flax, which falls back to the params stream);
-    the port refuses an I-JEPA checkpoint."""
+def _ijepa_checkpoints(cohort, tag):
+    """A JAX I-JEPA checkpoint (seeded init) and a port checkpoint
+    directory of its metadata: the refusals read no weights."""
     meta = {"network_config": IJEPA, "ssl_method": "ijepa",
             "transform_arguments": {"image_keys": ["image"],
                                     "target_size": list(SHAPE),
@@ -239,11 +307,35 @@ def test_ijepa_predict_folder_fails_in_jax_and_is_refused(cohort):
     params = jm.init({"params": jax.random.PRNGKey(0),
                       "masking": jax.random.PRNGKey(1)},
                      np.zeros((1,) + SHAPE + (1,), np.float32))["params"]
-    jdir, tdir = cohort / "jax_ijepa", cohort / "torch_ijepa"
+    jdir, tdir = cohort / f"jax_{tag}", cohort / f"torch_{tag}"
     jck = JaxCkpt(str(jdir), name="ssl_ijepa", fold=0, metadata=meta)
     jck.save(1, {"params": params}, metrics={})
     jck.wait()
     CheckpointManager(str(tdir), name="ssl_ijepa", fold=0, metadata=meta)
+    return jdir, tdir
+
+
+def test_ijepa_model_to_export_fails_in_jax_and_is_refused(cohort,
+                                                           tmp_path):
+    """The JAX exporter applies I-JEPA without the masking stream its
+    forward draws from; the port refuses an I-JEPA checkpoint."""
+    jdir, tdir = _ijepa_checkpoints(cohort, "ijepa_export")
+    common = ["--ssl_method", "ijepa", "--output_path",
+              str(tmp_path / "unused")]
+    with pytest.raises(flax.errors.InvalidRngError, match="masking"):
+        jax_main(["ssl", "model_to_export", "--checkpoint_dir", str(jdir),
+                  *common])
+    with pytest.raises(NotImplementedError, match="I-JEPA"):
+        cli_main(["ssl", "model_to_export", "--checkpoint_dir", str(tdir),
+                  "--dev", "cpu", *common])
+
+
+def test_ijepa_predict_folder_fails_in_jax_and_is_refused(cohort):
+    """The JAX CLI asks I-JEPA for ``ret="representation"``, a keyword
+    ``IJEPA.__call__`` does not take (its ``init`` without a masking
+    stream passes in this flax, which falls back to the params stream);
+    the port refuses an I-JEPA checkpoint."""
+    jdir, tdir = _ijepa_checkpoints(cohort, "ijepa")
     common = ["--input_folder", str(cohort / "folder"), "--dev", "cpu",
               "--output_path", str(cohort / "unused.json"),
               "--ssl_method", "ijepa"]

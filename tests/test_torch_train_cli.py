@@ -5,7 +5,8 @@ The port's training entry point on the CPU.
 synthetic cohort and writes a checkpoint whose metadata carries what the
 JAX package's trainer records; ``segmentation predict --dev cpu`` serves
 it. ``--dev`` defaults to cuda and raises where there is no GPU; flags
-that are not ported raise ``NotImplementedError``.
+that are not ported raise ``NotImplementedError``; the experiment logger
+flag gives the metric logger the JAX CLI's arguments.
 """
 
 import csv
@@ -16,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from adell_mri_tpu.__main__ import main as jax_main
+from adell_mri_tpu.entrypoints.segmentation import train as jtrain
 from adell_mri_torch.__main__ import main as cli_main
 from adell_mri_torch.data import nifti as tnifti
 from adell_mri_torch.entrypoints.segmentation import train as ttrain
+from test_torch_logging import compare_loggers, logger_arguments
 
 LPS = np.diag([-1.0, -1.0, 2.0, 1.0])
 CONFIG = {
@@ -168,12 +172,33 @@ def test_train_dev_defaults_to_cuda(cohort, monkeypatch):
         ttrain.main(_train_args(cohort, cohort / "ckpt_cuda"))
 
 
+@pytest.mark.parametrize("flags", [["--logger_type", "wandb"]])
+def test_train_logger_flags(cohort, flags, monkeypatch, tmp_path):
+    """The experiment logger flag: both CLIs build their metric logger
+    with the same arguments, with which both packages' loggers write the
+    same CSV and give the same warning (wandb is not installed)."""
+
+    def run(tag, flags):
+        # both stop before anything is written
+        args = _train_args(cohort, tmp_path / "ckpt", "--dev", "cpu",
+                           *flags)
+        if tag == "jax":
+            jax_main(["segmentation", "train", *args])
+        else:
+            ttrain.main(args)
+
+    seen = logger_arguments(monkeypatch, jtrain, flags, run)
+    assert seen["port"] == seen["jax"]
+    _, warned = compare_loggers(seen["port"], tmp_path)
+    assert warned == ["wandb not installed; falling back to CSV only"]
+
+
 @pytest.mark.parametrize(
     "flags",
     [["--remat"], ["--semi_supervised"],
      ["--missing_to_empty", "mask"],
      ["--skip_keys", "T2"], ["--optimizer", "lamb"],
-     ["--logger_type", "wandb"], ["--delete_checkpoints"]],
+     ["--delete_checkpoints"]],
 )
 def test_train_unported_flags_raise(cohort, flags):
     with pytest.raises(NotImplementedError):
