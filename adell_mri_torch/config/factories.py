@@ -8,15 +8,17 @@ for the segmentation ``net_type`` "unet", "unetr", "monai_unetr", "swin"
 and "monai_swin", every classification ``net_type`` of the JAX CLI
 (``CLASSIFICATION_NET_TYPES``), each wrapped in a ``HybridClassifier``
 when clinical features are given, and the self-supervised
-``ssl_method`` "ijepa" and the two-view methods (``SSL_TWO_VIEW``); the
+``ssl_method`` of the JAX CLI (``SSL_METHODS``); the
 same config keys, fallbacks and defaults reach the port's ``UNet``,
 ``UNETR``, ``SWINUNet``, ``VGG``, ``CatNet``, ``ConvNeXt``, ``OrdNet``,
-``UNetEncoderClassifier``, ``ViTClassifier`` and
-``FactorizedViTClassifier``, which raise for the options they do not
-serve yet. A flax module learns its input size and channels at the first
-call; the port's UNETR, the two ViT classifiers and I-JEPA need the size
-when they are built (``image_size``: the learnt positional embedding
-fixes the token count), UNETR and SWIN-UNet need ``n_channels`` from the
+``UNetEncoderClassifier``, ``ViTClassifier``,
+``FactorizedViTClassifier`` and the self-supervised networks, which raise
+for the options they do not serve yet. A flax module learns its input
+size and channels at the first call; the port's UNETR, the two ViT
+classifiers and I-JEPA need the size when they are built (``image_size``:
+the learnt positional embedding fixes the token count), DINO and iBOT
+their global views' size (the size of their buffered positions), UNETR
+and SWIN-UNet need ``n_channels`` from the
 config, the classifiers and the self-supervised networks their
 ``in_channels`` (one per image key).
 """
@@ -36,7 +38,13 @@ from adell_mri_torch.models.layers.adn import get_adn_fn
 from adell_mri_torch.models.layers.conv_next import ConvNeXt
 from adell_mri_torch.models.segmentation.unet import UNet
 from adell_mri_torch.models.segmentation.unetr import UNETR, SWINUNet
-from adell_mri_torch.models.ssl.nets import IJEPA, NonContrastiveWrapper
+from adell_mri_torch.models.ssl.nets import (
+    DINO,
+    IBOT,
+    IJEPA,
+    NonContrastiveWrapper,
+    ViTMaskedAutoEncoder,
+)
 
 
 def _unet_kwargs(cfg: Dict[str, Any], n_classes: int) -> Dict[str, Any]:
@@ -340,7 +348,9 @@ def get_classification_network(
 #: the two-view methods of ``ssl train`` the port runs
 SSL_TWO_VIEW = ("vicreg", "barlow_twins", "simclr", "ntxent", "simsiam",
                 "byol")
-SSL_METHODS = SSL_TWO_VIEW + ("ijepa",)
+#: the ViT methods
+SSL_VIT = ("dino", "ibot", "mae")
+SSL_METHODS = SSL_TWO_VIEW + ("vicregl",) + SSL_VIT + ("ijepa",)
 
 
 def get_ssl_network(
@@ -353,7 +363,13 @@ def get_ssl_network(
     """The JAX factory's networks, keys and defaults: ``ijepa`` (IJEPA:
     ``patch_size`` (4, 4, 4), ``embed_dim`` 192, ``n_blocks`` 4,
     ``n_heads`` 4, ``predictor_dim`` 96, ``predictor_blocks`` 2; built for
-    ``image_size``); the two-view methods (a ``NonContrastiveWrapper``
+    ``image_size``); ``dino`` and ``ibot`` (the same ViT keys and
+    defaults, ``out_dim`` 4096, ``hidden_dim`` 512, ``bottleneck_dim`` 128,
+    iBOT's ``n_mask_blocks`` 4; built for ``image_size``, the global
+    views'); ``mae`` (``decoder_dim`` 96, ``decoder_blocks`` 2,
+    ``mask_ratio`` 0.75); ``vicregl`` (the two-view wrapper without its
+    prediction head, which the JAX tree of a ``ret="local"`` network
+    lacks); the two-view methods (a ``NonContrastiveWrapper``
     over CatNet with ``feature_extraction``), reading
     ``sample_configs/ssl-resnet.yaml``'s nested ``backbone_args``
     (``structure``, ``maxpool_structure``, ``res_type``, ``spatial_dim``),
@@ -380,11 +396,34 @@ def get_ssl_network(
             predictor_dim=cfg.get("predictor_dim", 96),
             predictor_blocks=cfg.get("predictor_blocks", 2),
         )
-    if ssl_method not in SSL_TWO_VIEW:
-        raise NotImplementedError(
-            f"ssl_method {ssl_method!r} is not ported yet (ROADMAP Queue 1, "
-            f"item 4; the port has {', '.join(SSL_METHODS)})"
+    vit = dict(
+        in_channels=in_channels,
+        patch_size=tuple(cfg.get("patch_size", (4, 4, 4))),
+        embed_dim=cfg.get("embed_dim", 192),
+        n_blocks=cfg.get("n_blocks", 4),
+        n_heads=cfg.get("n_heads", 4),
+    )
+    if ssl_method in ("dino", "ibot"):
+        if image_size is None:
+            raise ValueError(f"{ssl_method} needs image_size (its global "
+                             "views' size)")
+        head = dict(out_dim=cfg.get("out_dim", 4096),
+                    hidden_dim=cfg.get("hidden_dim", 512),
+                    bottleneck_dim=cfg.get("bottleneck_dim", 128))
+        if ssl_method == "dino":
+            return DINO(image_size=tuple(image_size), **vit, **head)
+        return IBOT(image_size=tuple(image_size), **vit, **head,
+                    n_mask_blocks=cfg.get("n_mask_blocks", 4))
+    if ssl_method == "mae":
+        return ViTMaskedAutoEncoder(
+            **vit,
+            decoder_dim=cfg.get("decoder_dim", 96),
+            decoder_blocks=cfg.get("decoder_blocks", 2),
+            mask_ratio=cfg.get("mask_ratio", 0.75),
         )
+    if ssl_method not in SSL_TWO_VIEW + ("vicregl",):
+        raise ValueError(f"unknown ssl_method {ssl_method!r} (one of "
+                         f"{', '.join(SSL_METHODS)})")
     ba = cfg.get("backbone_args") or {}
     pja = cfg.get("projection_head_args") or {}
     pda = cfg.get("prediction_head_args") or {}
@@ -409,6 +448,7 @@ def get_ssl_network(
         backbone,
         projection_dims=tuple(cfg.get("projection_head", cfg.get(
             "projection_dims", pja.get("structure", (512, 128))))),
-        prediction_dims=tuple(cfg.get("prediction_head", cfg.get(
-            "prediction_dims", pda.get("structure", (64, 128))))),
+        prediction_dims=() if ssl_method == "vicregl" else tuple(
+            cfg.get("prediction_head", cfg.get(
+                "prediction_dims", pda.get("structure", (64, 128))))),
     )

@@ -9,9 +9,11 @@ checkpoint's ``metadata.json`` rebuilds the network; each ``.nii.gz`` and
 resampled to the checkpoint's spacing and size, min-max scaled and encoded
 in f32 (``ret="representation"``: the backbone's pooled features); the
 JSON maps each file name to ``{"features": [...]}`` rounded to 4
-decimals. An I-JEPA checkpoint is refused: the JAX CLI initialises I-JEPA
-without the masking stream it needs and asks it for a return mode it does
-not take (ROADMAP Queue 3). 4D volumes are not ported yet.
+decimals. A VICRegL checkpoint serves the same pooled features. I-JEPA,
+DINO, iBOT and MAE checkpoints are refused: the JAX CLI asks each for
+``ret="representation"``, a keyword none of their ``__call__``s takes, and
+fails with a ``TypeError`` (ROADMAP Queue 3). 4D volumes are not ported
+yet.
 """
 
 import glob
@@ -26,9 +28,14 @@ from adell_mri_torch.data.nifti import read_nifti, reorient_to_ras
 from adell_mri_torch.device import use_device
 from adell_mri_torch.entrypoints.assemble_args import Parser
 from adell_mri_torch.train.checkpoints import CheckpointManager
+from adell_mri_torch.train.ssl_steps import without_centres
 from adell_mri_torch.transforms.host import resample_to_spec
 
 logger = logging.getLogger(__name__)
+
+#: the methods whose networks the JAX CLI cannot ask for a representation
+REFUSED = {"ijepa": "an I-JEPA", "dino": "a DINO", "ibot": "an iBOT",
+           "mae": "an MAE"}
 
 ARG_KEYS = [
     "checkpoint_dir",
@@ -55,12 +62,11 @@ def main(arguments):
     )
     metadata = mngr.load_metadata()
     method = metadata.get("ssl_method", args.ssl_method)
-    if method == "ijepa":
+    if method in REFUSED:
         raise NotImplementedError(
-            "ssl predict_folder on an I-JEPA checkpoint: the JAX CLI "
-            "initialises I-JEPA without its masking stream and asks it for "
-            "ret='representation', which IJEPA does not take (ROADMAP "
-            "Queue 3)")
+            f"ssl predict_folder on {REFUSED[method]} checkpoint: the JAX "
+            "CLI asks the network for ret='representation', which its "
+            "__call__ does not take (ROADMAP Queue 3)")
     net_cfg = metadata.get("network_config", {})
     t_args = metadata.get("transform_arguments", {})
     size = tuple(t_args.get("target_size") or (64, 64, 32))
@@ -70,7 +76,7 @@ def main(arguments):
 
     model = get_ssl_network(method, net_cfg, in_channels=n_channels,
                             image_size=size)
-    model.load_state_dict(mngr.load_state_dict())
+    model.load_state_dict(without_centres(mngr.load_state_dict()))
     model = model.to(device).eval()
 
     paths = sorted(

@@ -13,14 +13,20 @@ EMA teacher for ``byol`` and ``ijepa`` or with ``--ema`` (decay
 ``ssl_{method}`` by default) holds ``metadata.json`` with
 ``network_config``, ``ssl_method`` and ``transform_arguments``, the
 latest epoch's weights (no validation: nothing is monitored) and the last
-state for ``--resume_from_last``.
+state for ``--resume_from_last``. DINO's centre and iBOT's two centres
+(zeros of the config's ``out_dim``, 4096 by default, at the start) ride
+in the state's variables, so both files keep them and a resume restores
+them.
 
 Ported: the two-view methods (``vicreg``, ``barlow_twins``, ``simclr``,
-``simsiam``, ``byol``; ``--stop_gradient``) on a conv backbone and
-``ijepa``, in bf16 or f32, on 3D volumes. I-JEPA reads the base-size
-image, unaugmented, as the JAX step does, so the port draws no views for
-it. Refused with ``NotImplementedError``: the other methods, 2D
-backbones (``train_2d``), ``--sample_channels``,
+``simsiam``, ``byol``; ``--stop_gradient``) and ``vicregl`` (views with
+their crop matrices) on a conv backbone, ``dino`` (EMA teacher;
+``--n_local_crops`` local crops a sample), ``ibot`` (EMA teacher; block
+masks drawn from a generator seeded with ``--seed`` + 1), ``mae`` (its
+masking noise from that generator) and ``ijepa``, in bf16 or f32, on 3D
+volumes. MAE and I-JEPA read the base-size image, unaugmented, as the
+JAX steps do, so the port draws no views for them. Refused with
+``NotImplementedError``: 2D backbones (``train_2d``), ``--sample_channels``,
 and ``ijepa`` with a ``--random_crop_size`` other than the base size (the
 JAX CLI builds the network at the crop size and steps it at the base
 size, so its first step fails on the positional embedding's shape; ROADMAP
@@ -34,7 +40,7 @@ import logging
 
 import torch
 
-from adell_mri_torch.config.factories import SSL_METHODS, get_ssl_network
+from adell_mri_torch.config.factories import get_ssl_network
 from adell_mri_torch.config.parsing import parse_config_ssl
 from adell_mri_torch.data.dataset import Dataset
 from adell_mri_torch.data.loader import CachedVolumeDataset, DataLoader
@@ -48,9 +54,11 @@ from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.precision import compute_dtype
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
 from adell_mri_torch.train.ssl_steps import (
-    make_ijepa_step,
+    EMA_METHODS,
+    IMAGE_METHODS,
+    initial_centres,
+    make_method_step,
     make_ssl_train_step,
-    make_two_view_step,
 )
 from adell_mri_torch.train.state import TrainState
 from adell_mri_torch.transforms.pipeline import SSLTransforms
@@ -96,8 +104,6 @@ ARG_KEYS = [
     "project_name",
     "summary_name",
 ]
-#: methods whose teacher is always the EMA shadow
-EMA_METHODS = ("byol", "ijepa")
 
 
 def main(arguments):
@@ -105,10 +111,6 @@ def main(arguments):
     parser.add_argument_by_key(ARG_KEYS)
     args = parser.parse_args(arguments)
     method = args.ssl_method
-    if method not in SSL_METHODS:
-        raise NotImplementedError(
-            f"--ssl_method {method} is not ported yet (ROADMAP Queue 1, item "
-            f"4; the port has {', '.join(SSL_METHODS)})")
     device = use_device(args.dev)
     compute_dtype(args.precision)  # an unknown precision fails here
 
@@ -152,6 +154,9 @@ def main(arguments):
         crop_size=crop_size,
         adc_keys=args.adc_keys or (),
         sample_channels=args.sample_channels,
+        # VICRegL matches local features by their position in the volume
+        expose_boxes=method == "vicregl",
+        n_local_crops=args.n_local_crops if method == "dino" else 0,
         seed=args.seed,
     )
     ds = CachedVolumeDataset(
@@ -191,16 +196,12 @@ def main(arguments):
         ema_final_decay=1.0,
         ema_n_steps=n_steps,
     )
-    if method == "ijepa":
-        lm = make_ijepa_step(
-            model, precision=args.precision,
-            generator=torch.Generator(device=device).manual_seed(
-                args.seed + 1))
-    else:
-        lm = make_two_view_step(
-            model, method=method, ema_teacher=use_ema,
-            stop_gradient=bool(args.stop_gradient),
-            precision=args.precision)
+    state.variables.update(initial_centres(
+        method, net_cfg.get("out_dim", 4096), device))
+    lm = make_method_step(
+        model, method, precision=args.precision,
+        generator=torch.Generator(device=device).manual_seed(args.seed + 1),
+        ema_teacher=use_ema, stop_gradient=bool(args.stop_gradient))
     ckpt = CheckpointManager(
         args.checkpoint_dir,
         name=args.checkpoint_name or f"ssl_{method}",
@@ -226,7 +227,7 @@ def main(arguments):
         return
     loop = TrainLoop(
         train_step=make_ssl_train_step(lm),
-        augment_fn=None if method == "ijepa" else transforms.augment,
+        augment_fn=None if method in IMAGE_METHODS else transforms.augment,
         device=device,
         max_epochs=args.max_epochs,
         ckpt_manager=ckpt,

@@ -2,7 +2,8 @@
 Moves a JAX UNet's (with a ResNet encoder too), UNETR's, SWINUNet's,
 CatNet's, VGG's and OrdNet's (2D or 3D), ConvNeXt's,
 UNetEncoderClassifier's, ViTClassifier's, FactorizedViTClassifier's,
-HybridClassifier's, NonContrastiveWrapper's, IJEPA's,
+HybridClassifier's, NonContrastiveWrapper's, IJEPA's, DINO's, IBOT's,
+ViTMaskedAutoEncoder's,
 MultipleInstanceClassifier's, TransformableTransformer's,
 DeconfoundedNet's, SegCatNet's, ResNet's (and ProjectionHead's) or
 SliceLinearEmbedding's parameters (and their ``batch_stats``) into the
@@ -30,7 +31,11 @@ slice_class_token}``, ``SeqPool_0`` and ``MLP_0``;
 NonContrastiveWrapper's ``backbone`` (CatNet with ``feature_extraction``),
 ``proj_{i}``, ``proj_norm`` and ``pred_{i}``; IJEPA's ``embed``,
 ``ctx_mask_token``, ``context_encoder``, ``ctx2pred``, ``predictor``,
-``pred_out`` and ``target_encoder``; CatNet's Gaussian-process head
+``pred_out`` and ``target_encoder``; DINO's and IBOT's ``embed``,
+``encoder`` and ``head/{Dense_{i},prototypes}`` and IBOT's
+``mask_token``; ViTMaskedAutoEncoder's ``patch_embed``, ``encoder``,
+``enc2dec``, ``mask_token``, ``decoder`` and ``reconstruct``; CatNet's
+Gaussian-process head
 ``gp/beta``; GenericEnsemble's and AveragingEnsemble's
 ``networks_{i}`` and the fusion head's ``Dense_{i}``; the U-Net's ResNet
 encoder ``encoder_backbone`` (a ``ResNetBackbone``'s tree); the MIL
@@ -48,7 +53,9 @@ each flax leaf ``a/b/kernel`` becomes the port
 key ``a.b.weight``, ``a/b/bias`` becomes ``a.b.bias``, a LayerNorm's or a
 batch norm's ``a/b/scale`` becomes ``a.b.weight``, and the token
 parameters (``pos_embedding``, ``class_token``, ``registers``,
-``ctx_mask_token``, ``slice_class_token``), OrdNet's thresholds and a
+``ctx_mask_token``, ``slice_class_token``, ``mask_token``), the DINO
+head's ``prototypes`` ([bottleneck, out_dim], as the JAX head multiplies
+by them), OrdNet's thresholds and a
 batch
 ensemble's ``r`` and ``s`` keep their names; the ``batch_stats``
 collection's ``a/b/mean`` and ``a/b/var`` become the batch norms'
@@ -97,7 +104,8 @@ _TRANSPOSED = re.compile(r"^(up_\d+|proj_\d+_\d+|ConvTranspose_\d+)$")
 # a prelu ADN's slope, GRN's gamma, LayerScale's scale, OrdNet's thresholds
 _KEPT_NAMES = ("pos_embedding", "class_token", "registers", "r", "s",
                "prelu", "gamma", "layer_scale", "ctx_mask_token",
-               "slice_class_token", "threshold_bias", "threshold_bias_scale")
+               "slice_class_token", "threshold_bias", "threshold_bias_scale",
+               "mask_token", "prototypes")
 
 
 def _convert_kernel(path, k: np.ndarray) -> np.ndarray:

@@ -144,11 +144,16 @@ class CatNet(nn.Module):
                                            out_features(n_classes))
 
     def forward(self, x, return_features: bool = False,
-                return_phi: bool = False):
+                return_phi: bool = False, return_feature_map: bool = False):
         """Logits; with ``return_features`` the pooled features; with
-        ``return_phi`` (a GP head) ``(logits, phi)``, phi the head's random
-        features (what the JAX module sows as ``intermediates``)."""
-        feats = self.pool(self.ResNetBackbone_0(x))
+        ``return_feature_map`` the backbone's feature map ``[B, *g, F]``
+        before the pooling (VICRegL's local features); with ``return_phi``
+        (a GP head) ``(logits, phi)``, phi the head's random features (what
+        the JAX module sows as ``intermediates``)."""
+        fmap = self.ResNetBackbone_0(x)
+        if return_feature_map:
+            return fmap
+        feats = self.pool(fmap)
         if return_features or self.n_hidden is None:
             return feats
         y = run_mlp(self, self.n_hidden, feats)

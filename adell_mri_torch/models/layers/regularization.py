@@ -1,7 +1,8 @@
 """
 Regularization layers.
 
-Counterpart of ``UOut``, ``GRN`` and ``LayerScale`` in
+Counterpart of ``UOut``, ``L2NormalizationLayer``, ``GRN`` and
+``LayerScale`` in
 ``adell_mri_tpu/models/layers/regularization.py``, on channels-last
 tensors. ``UOut`` draws from an explicit generator, as the port's
 ``Dropout`` does (``models/layers/dropout.py:seed_dropout`` hands it one).
@@ -32,6 +33,18 @@ class UOut(nn.Module):
 
     def extra_repr(self):
         return f"beta={self.beta}"
+
+
+class L2NormalizationLayer(nn.Module):
+    """Unit norm along the last axis, the norm held at ``eps`` at least."""
+
+    def __init__(self, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        return x / torch.linalg.vector_norm(
+            x, dim=-1, keepdim=True).clamp_min(self.eps)
 
 
 class GRN(nn.Module):

@@ -20,6 +20,7 @@ arguments. Every LayerNorm has eps 1e-5. ``SliceLinearEmbedding`` (the
 ``class_token``) takes the slice size ``(H, W)`` for its positions.
 """
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -49,6 +50,28 @@ def sinusoidal_positions(n: int, dim: int) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(pos * div)[:, : pe[:, 0::2].shape[1]]
     pe[:, 1::2] = torch.cos(pos * div)[:, : pe[:, 1::2].shape[1]]
     return pe
+
+
+@functools.lru_cache(maxsize=None)
+def sinusoidal_positions_on(n: int, dim: int, device) -> torch.Tensor:
+    """``sinusoidal_positions(n, dim)[None]`` on ``device``, computed once
+    for each token count, width and device."""
+    return sinusoidal_positions(n, dim)[None].to(device)
+
+
+def patchify(x, patch: Sequence[int]) -> torch.Tensor:
+    """``[B, *S, C]`` -> ``[B, N, prod(patch) C]``: the non-overlapping
+    patches in grid order, each flattened as ``(*patch, C)``."""
+    b, ndim = x.shape[0], x.dim() - 2
+    grid = [s // p for s, p in zip(x.shape[1:-1], patch)]
+    shape = [b]
+    for g, p in zip(grid, patch):
+        shape += [g, p]
+    # [B, g0, p0, g1, p1, (g2, p2), C] -> [B, g..., p..., C]
+    order = ([0] + [1 + 2 * d for d in range(ndim)]
+             + [2 + 2 * d for d in range(ndim)] + [1 + 2 * ndim])
+    y = x.reshape(shape + [x.shape[-1]]).permute(order)
+    return y.reshape(b, math.prod(grid), -1)
 
 
 def _dense(in_features: int, out_features: int) -> nn.Linear:
@@ -230,9 +253,12 @@ class TransformerBlockStack(nn.Module):
 
 class LinearEmbedding(nn.Module):
     """Patchify + embed + [class token] + [registers] + positional
-    embedding: ``[B, *S, C]`` -> tokens ``[B, N(+extra), E]``. The
+    embedding: ``[B, *S, C]`` -> tokens ``[B, N(+extra), E]``. A learnt
     positional embedding fixes the token count, so the module is built for
-    one ``spatial`` size and one ``in_channels``. ``embed_method``
+    one ``spatial`` size and one ``in_channels``; the sinusoidal positions
+    (``learnable_embedding=False``) follow the token count of each input,
+    as the JAX module computes them per call (DINO's global views and
+    local crops share one module). ``embed_method``
     "convolutional" (3D only: a kernel == stride VALID conv) or "linear"
     (patches flattened as ``(*patch, C)``, any rank)."""
 
@@ -302,6 +328,13 @@ class LinearEmbedding(nn.Module):
         )
         self.dropout = Dropout(dropout) if dropout > 0 else None
 
+    def positions(self, n: int, device) -> torch.Tensor:
+        """The sinusoidal positions of ``n`` tokens: the buffer built for
+        ``spatial``, or ``sinusoidal_positions_on`` for another count."""
+        if n == self.sinusoidal.shape[1]:
+            return self.sinusoidal
+        return sinusoidal_positions_on(n, self.embed_dim, device)
+
     @staticmethod
     def n_patches(spatial, patch_size):
         return math.prod(s // p for s, p in zip(spatial, patch_size))
@@ -315,25 +348,13 @@ class LinearEmbedding(nn.Module):
         elif self.embed_method == "convolutional":
             tokens = self.Conv_0(x).reshape(b, -1, self.embed_dim)
         else:
-            ndim = len(self.grid)
-            shape = [b]
-            for g, pi in zip(self.grid, self.patch):
-                shape += [g, pi]
-            y = x.reshape(shape + [x.shape[-1]])
-            # [B, g0, p0, g1, p1, (g2, p2), C] -> [B, g..., p..., C]
-            order = (
-                [0]
-                + [1 + 2 * d for d in range(ndim)]
-                + [2 + 2 * d for d in range(ndim)]
-                + [1 + 2 * ndim]
-            )
-            y = y.permute(order).reshape(b, math.prod(self.grid), -1)
+            y = patchify(x, self.patch)
             if self.embed_norm is not None:
                 y = self.embed_norm(y)
             tokens = self.Dense_0(y)
         pos = (
             self.pos_embedding if hasattr(self, "pos_embedding")
-            else self.sinusoidal
+            else self.positions(tokens.shape[1], tokens.device)
         )
         tokens = tokens + pos.to(tokens.dtype)
         extra = [
@@ -438,21 +459,14 @@ class FactorizedViT(nn.Module):
         self.between_slice = TransformerBlockStack(
             embed_dim, n_blocks - n_blocks // 2 or 1, n_heads, mlp_ratio,
             dropout)
-        self._positions = {}
-
-    def slice_positions(self, d: int, device) -> torch.Tensor:
-        key = (d, device)
-        if key not in self._positions:
-            self._positions[key] = sinusoidal_positions(
-                d, self.embed_dim)[None].to(device)
-        return self._positions[key]
 
     def forward(self, x):
         b, h, w, d, c = x.shape
         slices = x.permute(0, 3, 1, 2, 4).reshape(b * d, h, w, c)
         tokens = self.within_slice(self.LinearEmbedding_0(slices))
         rep = tokens[:, 0].reshape(b, d, self.embed_dim)
-        rep = rep + self.slice_positions(d, x.device).to(rep.dtype)
+        rep = rep + sinusoidal_positions_on(
+            d, self.embed_dim, x.device).to(rep.dtype)
         if self.slice_class_token is not None:
             rep = torch.cat([self.slice_class_token.to(rep.dtype).expand(
                 b, -1, -1), rep], dim=1)

@@ -1,8 +1,15 @@
 """
-Block masking of a token grid (I-JEPA's target blocks).
+Token masking: MAE's random masking and the block masking of a token
+grid (I-JEPA's target blocks, iBOT's per-sample masks).
 
-Counterpart of ``block_masking`` in ``adell_mri_tpu/models/ssl/masking.py``
-with the same static-extent rule: each of ``n_blocks`` blocks takes, per
+Counterpart of ``random_masking`` and ``block_masking`` in
+``adell_mri_tpu/models/ssl/masking.py``. ``random_masking`` keeps
+``max(1, int(n * (1 - ratio)))`` tokens of each sample: those of the
+lowest noise, in the order of a stable argsort of the noise (the order
+``jnp.argsort`` gives), with the permutation that restores the token
+order; the noise is uniform in [0, 1), drawn from a generator or given
+(a test hands it the JAX package's draws). ``block_masking`` has the
+same static-extent rule as the JAX function: each of ``n_blocks`` blocks takes, per
 axis, an extent of ``grid * f`` tokens (at least one), ``f`` uniform
 between ``block_scale[0] ** (1 / ndim)`` and ``block_scale[1] ** (1 /
 ndim)``, at a start uniform over the positions where it fits; the mask is
@@ -11,9 +18,30 @@ their union. The draws (``draw_block_masks``, two sets of uniforms in
 (``block_mask``), so that a test can hand it the JAX package's draws.
 """
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+def random_masking(tokens, mask_ratio: float = 0.75, noise=None,
+                   generator: Optional[torch.Generator] = None):
+    """``tokens`` [B, N, E] -> (visible tokens [B, n_keep, E], mask [B, N]
+    f32 with 1 = masked, restore [B, N], the index of each token in the
+    shuffled order). ``noise`` [B, N], else drawn from ``generator``."""
+    b, n, e = tokens.shape
+    n_keep = max(1, int(n * (1 - mask_ratio)))
+    if noise is None:
+        noise = torch.rand((b, n), generator=generator,
+                           device=generator.device)
+    noise = noise.to(tokens.device)
+    shuffle = torch.argsort(noise, dim=1, stable=True)
+    restore = torch.argsort(shuffle, dim=1, stable=True)
+    visible = torch.gather(
+        tokens, 1, shuffle[:, :n_keep, None].expand(-1, -1, e))
+    shuffled = torch.cat([torch.zeros((b, n_keep), device=tokens.device),
+                          torch.ones((b, n - n_keep), device=tokens.device)],
+                         dim=1)
+    return visible, torch.gather(shuffled, 1, restore), restore
 
 
 def draw_block_masks(generator: torch.Generator, n_blocks: int, ndim: int):

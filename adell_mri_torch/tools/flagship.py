@@ -125,9 +125,11 @@ from adell_mri_torch.models.layers.dropout import seed_dropout
 from adell_mri_torch.train.optim import get_optimizer
 from adell_mri_torch.train.schedules import cosine_annealing_with_warmup
 from adell_mri_torch.train.ssl_steps import (
-    make_ijepa_step,
+    EMA_METHODS,
+    IMAGE_METHODS,
+    initial_centres,
+    make_method_step,
     make_ssl_train_step,
-    make_two_view_step,
 )
 from adell_mri_torch.train.state import TrainState
 from adell_mri_torch.train.steps import (
@@ -172,6 +174,7 @@ SSL_YAML = UNETR_YAML.with_name("ssl-resnet.yaml")
 SSL_SHAPE = (128, 128, 32)
 SSL_VIEW = (96, 96, 24)
 SSL_T_MAX = 100  # the schedule's and the EMA ramp's length in steps
+SSL_LOCAL_CROPS = 4  # DINO's local crops a sample, 48x48x12
 MIL_YAML = UNETR_YAML.with_name("transformable-transformer.yaml")
 MIL_BATCH = 4  # the classification_mil CLI's default batch
 # name -> (the CLI's --classification_net_type, the yaml or None for the
@@ -439,10 +442,11 @@ def ssl_training_config(method: str = "vicreg"):
 
 def make_ssl_model(seed: int, method: str = "vicreg", device="cuda"):
     """The network of ``method`` with f32 weights drawn from ``seed``, in
-    training mode."""
+    training mode: built for the views (DINO, iBOT) or the volume."""
     torch.manual_seed(seed)
     network, _ = ssl_training_config(method)
-    return get_ssl_network(method, network, image_size=SSL_SHAPE).to(device)
+    size = SSL_VIEW if method in ("dino", "ibot") else SSL_SHAPE
+    return get_ssl_network(method, network, image_size=size).to(device)
 
 
 def make_served_ssl(seed: int, device="cuda"):
@@ -472,32 +476,35 @@ def make_ssl_batch(seed: int, device="cuda", batch=None, shape=SSL_SHAPE):
 def make_ssl_trainer(seed: int, precision: str, method: str = "vicreg",
                      device="cuda", learning_rate=None):
     """``method``'s network (``make_ssl_model``) with its train step
-    (``make_two_view_step`` or ``make_ijepa_step``, whose masks draw from
-    a generator seeded with ``seed``), AdamW at the yaml's rate (or
+    (``make_method_step``: the masks and noise draw from a generator
+    seeded with ``seed``), AdamW at the yaml's rate (or
     ``learning_rate``) and decay with the norms and biases not decayed,
-    under cosine annealing over ``SSL_T_MAX`` steps, and for ``byol`` and
-    ``ijepa`` the EMA shadow (decay 0.996 ramped to 1 over the same
-    steps); ``transforms`` are the views' (``SSLTransforms``, 96x96x24
-    crops), None for I-JEPA, which reads the volume itself."""
+    under cosine annealing over ``SSL_T_MAX`` steps, for ``EMA_METHODS``
+    the EMA shadow (decay 0.996 ramped to 1 over the same steps), DINO's
+    and iBOT's centres (zeros); ``transforms`` are the views'
+    (``SSLTransforms``, 96x96x24 crops; VICRegL's with their matrices,
+    DINO's with ``SSL_LOCAL_CROPS`` local crops), None for MAE and I-JEPA,
+    which read the volume itself."""
     model = make_ssl_model(seed, method, device)
-    _, training = ssl_training_config(method)
+    network, training = ssl_training_config(method)
     schedule = cosine_annealing_with_warmup(
         learning_rate or training["learning_rate"], t_max=SSL_T_MAX)
-    use_ema = method in ("byol", "ijepa")
+    use_ema = method in EMA_METHODS
     state = TrainState.create(
         model, lambda p: get_optimizer(
             "adamw", schedule, weight_decay=training["weight_decay"],
             params=p, exclude_norms_from_decay=True, model=model),
         with_ema=use_ema, ema_decay=0.996, ema_final_decay=1.0,
         ema_n_steps=SSL_T_MAX)
-    if method == "ijepa":
-        lm = make_ijepa_step(model, precision, generator=torch.Generator(
-            device=device).manual_seed(seed))
-        transforms = None
-    else:
-        lm = make_two_view_step(model, method=method, ema_teacher=use_ema,
-                                precision=precision)
-        transforms = SSLTransforms(crop_size=SSL_VIEW, seed=seed)
+    state.variables.update(initial_centres(
+        method, network.get("out_dim", 4096), device))
+    lm = make_method_step(
+        model, method, precision,
+        generator=torch.Generator(device=device).manual_seed(seed),
+        ema_teacher=use_ema)
+    transforms = None if method in IMAGE_METHODS else SSLTransforms(
+        crop_size=SSL_VIEW, seed=seed, expose_boxes=method == "vicregl",
+        n_local_crops=SSL_LOCAL_CROPS if method == "dino" else 0)
     return Trainer(state, make_ssl_train_step(lm), None, lm, transforms,
                    model)
 

@@ -3,7 +3,7 @@ Where the time of one training step goes, on the GPU.
 
     python -m adell_mri_torch.tools.profile_train \
         [unet|resnet|unetr|swin|catnet|catnet_convnext|vgg|convnext|vit|
-         vit_crops|factorized_vit|ord|unet_classifier] \
+         vit_crops|factorized_vit|ord|unet_classifier|ssl_<method>] \
         [--precision bf16|32] [--batch N]
 
 Trains the model (f32 master weights from seed 0, bf16 compute or, with
@@ -23,9 +23,11 @@ kernels, or on 4 crops of 128x128x32 with its dropout 0.1
 (``vit_crops``), the factorized ViT at the factory's defaults on 4,
 OrdNet on ``classification-cat-resnet.yaml``'s structure with 3 classes
 on 16, the U-Net encoder classifier of ``u-net-3d-resnet.yaml`` on 2)
-with binary labels (OrdNet's three) and the classifier's augmentation
-(``--batch`` changes the volumes a step). After one warm-up
-step it times three steps with the host clock, then runs one more under
+with binary labels (OrdNet's three) and the classifier's augmentation,
+or a self-supervised ``--ssl_method`` (``ssl_vicreg``, ``ssl_dino``, ...:
+``tools/flagship.py``'s ``make_ssl_trainer`` on ``ssl-resnet.yaml``'s 28
+volumes of 128x128x32, with its views) (``--batch`` changes the volumes a
+step). After one warm-up step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
 device-busy share of a step's wall time, the peak device memory and the
 top kernels. The full table goes to
@@ -42,12 +44,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from adell_mri_torch.config.factories import SSL_METHODS
 from adell_mri_torch.tools.flagship import (
     CLASSIFIER_CLASSES,
     CLASSIFIERS,
     classifier_shape,
     make_catnet_batch,
     make_catnet_trainer,
+    make_ssl_batch,
+    make_ssl_trainer,
     make_train_batch,
     make_trainer,
     model_spec,
@@ -97,7 +102,11 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     out_path = out_path or f"chiprun_out/profile_train_{name}.txt"
-    if name in CLASSIFIERS:
+    if name.startswith("ssl_"):
+        batch = make_ssl_batch(0, batch=batch_size)
+        batch_size = batch["image"].shape[0]
+        tr = make_ssl_trainer(0, precision, name[len("ssl_"):])
+    elif name in CLASSIFIERS:
         batch_size = batch_size or CLASSIFIERS[name][2]
         batch = make_catnet_batch(
             0, batch=batch_size, shape=classifier_shape(name),
@@ -113,7 +122,8 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def step():
-        aug = tr.transforms.augment(gen, batch)
+        aug = (batch if tr.transforms is None
+               else tr.transforms.augment(gen, batch))
         tr.state, _ = tr.train_step(tr.state, aug)
 
     step()
@@ -181,11 +191,12 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("model", nargs="?", default="unet",
                         choices=("unet", "resnet", "unetr", "swin",
-                                 *CLASSIFIERS))
+                                 *CLASSIFIERS,
+                                 *(f"ssl_{m}" for m in SSL_METHODS)))
     parser.add_argument("--precision", default="bf16",
                         help="the CLI's --precision: bf16 or 32")
     parser.add_argument("--out", help="where the profiler's table goes")
     parser.add_argument("--batch", type=int, help="volumes a step (default: "
-                        "the model's training batch, 4, 2 or 16)")
+                        "the model's training batch, 4, 2, 16 or 28)")
     args = parser.parse_args()
     sys.exit(main(args.model, args.out, args.precision, args.batch))

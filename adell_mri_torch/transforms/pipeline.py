@@ -35,7 +35,11 @@ import torch
 from adell_mri_torch.ops.kernels.intensity import fused_intensity_aug_batch
 from adell_mri_torch.transforms import intensity as I
 from adell_mri_torch.transforms import spatial as S
-from adell_mri_torch.transforms.augment import AugmentationWorkhorse
+from adell_mri_torch.transforms.augment import (
+    AugmentationWorkhorse,
+    generic_augments,
+    mri_specific_augments,
+)
 from adell_mri_torch.transforms.host import make_load_fn
 from adell_mri_torch.transforms.labels import (
     convex_hull,
@@ -53,6 +57,9 @@ BLUR_SIGMA = (0.25, 1.5)
 LOWRES_ZOOM = (0.8, 1.2)
 COARSE_GRID = 4
 BIAS_MAGNITUDE = 0.3
+# DINO's local crops: zoom range (the JAX SSLTransforms' local_crop_range
+# default, which no caller changes); their size is half the view's
+LOCAL_CROP_RANGE = (0.3, 0.6)
 
 
 @dataclass
@@ -488,7 +495,8 @@ def crop_matrix(shape: Sequence[int], crop_size: Sequence[int], zoom,
 
 @dataclass
 class SSLTransforms:
-    """Two augmented views of each volume for the two-view methods.
+    """Two augmented views of each volume for the two-view methods, VICRegL
+    and DINO.
 
     The host load is ``make_load_fn``'s (read, RAS, spacing, min-max
     scale, ``target_size``). On the device, each view of each sample is a
@@ -496,10 +504,17 @@ class SSLTransforms:
     then, with ``crop_size``, a random scaled crop at a random position
     (``crop_matrix``: zoom uniform in ``scaled_crop_range``) resampled
     through ``warp_affine``; ``view1`` for every sample, then ``view2``.
-    ``image`` is kept at the base size. A view is a draw (``draw_view``)
-    and a deterministic core (``view``), so that a test can hand the core
-    the JAX package's draws. 2D slices, VICRegL's crop matrices
-    (``expose_boxes``), DINO's local crops (``n_local_crops``) and
+    ``image`` is kept at the base size. With ``expose_boxes`` (VICRegL)
+    each view's output-voxel -> input-volume matrix comes as
+    ``view{1,2}_mat`` [B, ndim + 1, ndim + 1] (the identity without
+    ``crop_size``) and the registry is cut to the ops that move no voxel
+    (``generic_augments`` and ``mri_specific_augments``), so that the
+    matrix is the view's only geometry. With ``n_local_crops`` (DINO) each
+    sample also gets that many local crops, ``local_crops`` [B, n, *small,
+    C]: a TrivialAugment pass and a scaled crop of half the view's size at
+    a zoom uniform in ``LOCAL_CROP_RANGE``. A view is a draw (``draw_view``) and a
+    deterministic core (``view``, ``view_and_matrix``), so that a test can
+    hand the core the JAX package's draws. 2D slices and
     ``sample_channels`` are not ported yet, nor are 4D inputs."""
 
     image_keys: Sequence[str] = ("image",)
@@ -519,8 +534,6 @@ class SSLTransforms:
     def __post_init__(self):
         unported = [name for name, on in (
             ("slice_2d (2D SSL)", self.slice_2d),
-            ("expose_boxes (VICRegL)", self.expose_boxes),
-            ("n_local_crops (DINO)", self.n_local_crops > 0),
             ("sample_channels", self.sample_channels is not None)) if on]
         if unported:
             raise NotImplementedError(
@@ -538,43 +551,71 @@ class SSLTransforms:
 
     def _workhorse(self, ndim: int) -> AugmentationWorkhorse:
         if self.workhorse is None:
+            names = (list(generic_augments) + list(mri_specific_augments)
+                     if self.expose_boxes else None)
             self.workhorse = AugmentationWorkhorse(
-                n_transforms=self.n_transforms, ndim=ndim, seed=self.seed)
+                names, n_transforms=self.n_transforms, ndim=ndim,
+                seed=self.seed)
         return self.workhorse
 
-    def draw_view(self, generator, image):
-        """One view's draws for ``image`` [*S, C]: the workhorse's picks
-        and, with ``crop_size``, (zoom, position) uniforms in [0, 1)."""
+    def local_size(self, image_shape) -> Tuple[int, ...]:
+        """The local crops' size for an ``image`` [*S, C]: half the
+        view's."""
+        return tuple(max(1, s // 2) for s in (self.crop_size
+                                              or image_shape[:-1]))
+
+    def draw_view(self, generator, image, local: bool = False):
+        """One view's draws for ``image`` [*S, C] (a local crop's with
+        ``local``): the workhorse's picks and, where the view is cropped,
+        (zoom, position) uniforms in [0, 1)."""
         ndim = image.dim() - 1
         picks = self._workhorse(ndim).draw(generator, image)
-        if self.crop_size is None:
+        if self.crop_size is None and not local:
             return picks, None
         u = torch.rand((ndim + 1,), generator=generator,
                        device=image.device)
         return picks, (u[0], u[1:])
 
-    def view(self, image, picks, crop=None):
-        """The view of ``image`` the draws make: zoom ``lo + u (hi - lo)``
-        and position ``2 u - 1``, in f32 as ``jax.random.uniform`` maps
-        its draws."""
+    def view_and_matrix(self, image, picks, crop=None, local: bool = False):
+        """(the view of ``image`` the draws make, its output-voxel ->
+        input-volume matrix): zoom ``lo + u (hi - lo)`` and position ``2 u
+        - 1``, in f32 as ``jax.random.uniform`` maps its draws."""
         ndim = image.dim() - 1
         image = self._workhorse(ndim).apply(image, picks)
         if crop is None:
-            return image
+            return image, torch.eye(ndim + 1, device=image.device)
+        size = self.local_size(image.shape) if local else tuple(
+            self.crop_size)
         u_zoom, u_pos = crop
-        lo, hi = (np.float32(v) for v in self.scaled_crop_range)
+        lo, hi = (np.float32(v) for v in (
+            LOCAL_CROP_RANGE if local else self.scaled_crop_range))
         zoom = (u_zoom.float() * float(hi - lo) + float(lo)).clamp_min(
             float(lo))
         position = (u_pos.float() * 2.0 - 1.0).clamp_min(-1.0)
-        mat = crop_matrix(image.shape[:-1], self.crop_size, zoom, position)
-        return S.warp_affine(image, mat, out_shape=tuple(self.crop_size))
+        mat = crop_matrix(image.shape[:-1], size, zoom, position)
+        return S.warp_affine(image, mat, out_shape=size), mat
+
+    def view(self, image, picks, crop=None, local: bool = False):
+        """The view of ``image`` the draws make (``view_and_matrix``)."""
+        return self.view_and_matrix(image, picks, crop, local)[0]
 
     def augment(self, generator, batch: Dict) -> Dict:
         """``batch["image"]`` [B, *S, C] on the device; adds ``view1`` and
-        ``view2`` [B, *crop, C], drawing from ``generator``."""
+        ``view2`` [B, *crop, C] (with ``expose_boxes`` their matrices, with
+        ``n_local_crops`` the local crops), drawing from ``generator``."""
         out = dict(batch)
         for name in ("view1", "view2"):
-            out[name] = torch.stack([
-                self.view(img, *self.draw_view(generator, img))
-                for img in batch["image"]])
+            views = [self.view_and_matrix(img, *self.draw_view(generator,
+                                                               img))
+                     for img in batch["image"]]
+            out[name] = torch.stack([v for v, _ in views])
+            if self.expose_boxes:
+                out[f"{name}_mat"] = torch.stack([m for _, m in views])
+        if self.n_local_crops > 0:
+            out["local_crops"] = torch.stack([
+                torch.stack([
+                    self.view(img, *self.draw_view(generator, img,
+                                                   local=True), local=True)
+                    for img in batch["image"]])
+                for _ in range(self.n_local_crops)], dim=1)
         return out

@@ -302,7 +302,17 @@ failure:
     and ``classification model_to_export`` of phase 17's CatNet and
     phase 21's ViT classifier (4097 tokens), each artifact loaded and run
     on the card against the live model (f32, 1e-5) with the same K1 and
-    flash launches.
+    flash launches;
+26. VICRegL (K1, dx and dW: 14 K1 forwards a step), DINO with 4 local
+    crops and iBOT (16 flash forwards, 8 dQ and 8 dK/dV a step at 3456
+    tokens) and MAE (6 of each: 2048 visible tokens, 8192 in the
+    decoder) on ``ssl-resnet.yaml``'s training settings at B=28, f32 and
+    bf16: the f32 step against the plain path at B=2 (loss, gradient norm
+    and direction, DINO's and iBOT's centres), a warm-up and 2 timed
+    steps with their launches, peak memory and the device's busy share;
+    ``ssl train`` of DINO with ``--n_local_crops 2`` (bf16) and of
+    VICRegL (f32) on 4 volumes, each run's launches against the K1 and
+    flash calls recorded around it.
 
 The last lines of standard output are a ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Details go to
@@ -7870,6 +7880,240 @@ def phase_deconfounder_export(smi):
     return out
 
 
+# -- phase 26: VICRegL, DINO with local crops, iBOT and MAE --------------------
+
+SSL_NEW_METHODS = ("vicregl", "dino", "ibot", "mae")
+SSL_NEW_PARITY_BATCH = 2
+SSL_NEW_TIMED_STEPS = 2
+SSL_NEW_CLI_CASES = 4
+SSL_NEW_CLI_BATCH = 2
+# the attention launches of one step (forward, dQ, dK/dV): DINO and iBOT
+# run the teacher's two views (forwards alone) and the student's two (with
+# gradient) through 4 blocks at 3456 tokens (DINO's 432-token local crops
+# take the materialised softmax); MAE its 4 encoder blocks at 2048 visible
+# tokens and 2 decoder blocks at 8192
+SSL_NEW_FLASH = {"dino": (16, 8, 8), "ibot": (16, 8, 8), "mae": (6, 6, 6)}
+# K1 forwards of one VICRegL step: the backbone's 7 convs on each view
+SSL_VICREGL_K1 = 14
+
+
+def _method_batch(tr, method, volumes, gen):
+    """A step's batch for ``method`` from ``volumes`` (``image``): the
+    views (with their matrices for VICRegL, DINO's local crops), or the
+    volumes for MAE; iBOT's masks and MAE's noise drawn into it, so that
+    the kernels' and the plain path's runs of one batch take the same
+    draws."""
+    import torch
+
+    from adell_mri_torch.models.layers.vit import patchify
+
+    if method == "mae":
+        n = patchify(volumes["image"][:1], tr.model.patch).shape[1]
+        return {"image": volumes["image"], "noise": torch.rand(
+            (volumes["image"].shape[0], n), generator=gen, device="cuda")}
+    batch = tr.transforms.augment(gen, volumes)
+    if method == "ibot":
+        for i in ("1", "2"):
+            batch[f"masks{i}"] = tr.model.draw_masks(batch[f"view{i}"], gen)
+    return batch
+
+
+def _centred_parity(tr, batch, tag):
+    """``_step_parity`` of a step whose metrics carry DINO's or iBOT's
+    centres: the step's new centres on the kernels within 1e-4 of their
+    scale of the plain path's, beside the loss, gradient norm and
+    direction."""
+    import dataclasses
+
+    seen = []
+
+    def loss_and_metrics(params, b, ema_params=None):
+        loss, metrics = tr.loss_and_metrics(params, b, ema_params)
+        metrics = dict(metrics)
+        seen.append(metrics.pop("_variables", {}))
+        return loss, metrics
+
+    out = _step_parity(dataclasses.replace(
+        tr, loss_and_metrics=loss_and_metrics), batch, tag)
+    errs = {k: float((v - seen[1][k]).abs().max()) / max(
+        float(seen[1][k].abs().max()), 1e-30) for k, v in seen[0].items()}
+    log(f"  {tag}: centres vs plain path {errs} of their scale (tol 1e-4)")
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"{tag}: centres disagree with plain: {errs}")
+    out["centres_rel"] = errs
+    return out
+
+
+def _method_steps(smi, method):
+    """Phase 26 (a): ``method`` on ``ssl-resnet.yaml``'s training settings
+    (B=28; views of 96x96x24 from 128x128x32 volumes, DINO with 4 local
+    crops of 48x48x12; MAE on the volumes), f32 then bf16: the f32 step
+    against the plain path at B=2 (``_step_parity``; DINO's and iBOT's
+    centres too), then, on one batch of views, a recorded warm-up step
+    and 2 timed steps with the launches of the recorded K1 and flash calls
+    (pinned: ``SSL_VICREGL_K1``, ``SSL_NEW_FLASH``), peak memory and the
+    device's busy share of the second timed step."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import make_ssl_batch, make_ssl_trainer
+
+    volumes = make_ssl_batch(26)
+    out = {}
+    for precision in ("32", "bf16"):
+        tr = make_ssl_trainer(0, precision, method)
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        parity = None
+        if precision == "32":
+            small = {"image": volumes["image"][:SSL_NEW_PARITY_BATCH]}
+            parity = _centred_parity(
+                tr, _method_batch(tr, method, small, gen),
+                f"{method} B={SSL_NEW_PARITY_BATCH}")
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = _method_batch(tr, method, volumes, gen)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        with _k1_calls() as rec, _flash_calls() as frec:
+            tr.state, _ = tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        flash = frec.want()
+        pinned = dict(zip(flash, SSL_NEW_FLASH.get(method, (0, 0, 0))))
+        k1 = len(rec.calls)
+        if flash != pinned or k1 != (SSL_VICREGL_K1 if method == "vicregl"
+                                     else 0):
+            raise AssertionError(f"{method}: a step records {flash} flash "
+                                 f"and {k1} K1 calls, want {pinned}")
+        want = _scaled(_ssl_want(rec, flash), SSL_NEW_TIMED_STEPS)
+        _reset_counts()
+        losses = []
+
+        def step():
+            tr.state, metrics = tr.train_step(tr.state, batch)
+            losses.append(float(metrics["loss"]))
+
+        # the last timed step runs under the profiler (the device alone is
+        # traced) and gives the busy share
+        secs = []
+        for _ in range(SSL_NEW_TIMED_STEPS - 1):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        busy, wall = _device_share(step)
+        secs.append(wall)
+        launches = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        centres = {k: float(v.abs().max()) for k, v in
+                   tr.state.variables.items() if "center" in k}
+        log(f"[ssl {method}] {smi}: {precision}, B={SSL_BATCH}: "
+            f"{', '.join(f'{x:.4f}' for x in secs)} s per step (the batch's "
+            f"views drawn once, {batch_s:.3f} s); device busy {busy:.4f} of "
+            f"{wall:.4f} s ({100 * busy / wall:.1f} %); peak {peak_gb:.2f} "
+            f"GB; {k1} K1 and {sum(c[2] for c in rec.calls)} dx a step, "
+            f"flash {flash}; launches {launches}; losses {losses}; largest "
+            f"centre element {centres}")
+        if launches != want:
+            raise AssertionError(f"{method} {precision} step launches "
+                                 f"{launches}, want {want}")
+        if not all(abs(x) < float("inf") for x in losses) or not all(
+                0 < v < float("inf") for v in centres.values()):
+            raise AssertionError(f"{method}: losses {losses}, centres "
+                                 f"{centres}")
+        out[precision] = dict(
+            launches=launches, k1_convs=k1, flash_per_step=flash,
+            seconds_per_step=secs, batch_s=batch_s, losses=losses,
+            peak_memory_gb=peak_gb, device_busy_s=busy, wall_s=wall,
+            parity=parity)
+        del tr, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _method_clis(smi):
+    """Phase 26 (b): ``ssl train`` in this process on a seeded 4-case
+    128x128x32 cohort at ``--batch_size 2`` (one epoch of 2 steps on
+    ``--random_crop_size 96 96 24``): DINO with ``--n_local_crops 2`` in
+    bf16 and VICRegL in f32, each under ``torch.profiler`` with the
+    launch counts set to 0 just before it, against the launches of the K1
+    and flash calls recorded around it; the checkpoints hold DINO's centre
+    and VICRegL's untouched running statistics."""
+    import torch
+
+    from adell_mri_torch.tools.flagship import SSL_YAML
+
+    work = WORK_DIR / "ssl_methods_cli"
+    work.mkdir(parents=True)
+    _pipeline_cohort(work, SSL_CLI_SHAPE, (), n_cases=SSL_NEW_CLI_CASES)
+    common = ["--dataset_json", str(work / "ds.json"), "--dev", "cuda",
+              "--image_keys", "image", "--config_file", str(SSL_YAML),
+              "--pad_size", *map(str, SSL_CLI_SHAPE),
+              "--target_spacing", "0.5", "0.5", "3.0",
+              "--batch_size", str(SSL_NEW_CLI_BATCH), "--max_epochs", "1",
+              "--seed", "0", "--random_crop_size", *map(str, SSL_CLI_CROP)]
+    runs = {}
+    for tag, method, precision, extra in (
+            ("dino_bf16", "dino", "bf16", ["--n_local_crops", "2"]),
+            ("vicregl_f32", "vicregl", "32", [])):
+        ckpt = work / f"ckpt_{tag}"
+        args = ["ssl", "train", *common, "--ssl_method", method,
+                "--precision", precision, "--checkpoint_dir", str(ckpt),
+                "--metric_path", str(work / f"metrics_{tag}.csv"), *extra]
+        got = []
+        torch.cuda.reset_peak_memory_stats()
+        with _k1_calls() as rec, _flash_calls() as frec:
+            busy, wall = _device_share(lambda: got.append(_cli(args)))
+        secs, _, counts = got[0]
+        want = _ssl_want(rec, frec.want())
+        last = torch.load(ckpt / f"ssl_{method}_fold0" / "last.pt",
+                          weights_only=True)
+        variables = last["variables"]
+        kept = (float(variables["dino_center"].abs().max()) > 0
+                if method == "dino" else all(
+                    bool((v == (0.0 if k.endswith(".mean") else 1.0)).all())
+                    for k, v in variables.items()))
+        runs[tag] = dict(seconds=secs, device_busy_s=busy, wall_s=wall,
+                         peak_memory_gb=torch.cuda.max_memory_allocated()
+                         / 1e9, counts=counts, step=last["step"])
+        if not (counts == want and last["step"] == SSL_NEW_CLI_CASES //
+                SSL_NEW_CLI_BATCH and kept):
+            raise AssertionError(f"ssl {tag}: launches {counts}, want "
+                                 f"{want}; step {last['step']}; variables "
+                                 f"as expected {kept}")
+        flash_on = counts["flash_attention_fwd"] > 0
+        k1_on = counts["conv3d_igemm"] > 0 and counts[
+            "conv3d_igemm_dx"] > 0
+        if not (flash_on if method == "dino" else k1_on):
+            raise AssertionError(f"ssl {tag}: no kernel launched {counts}")
+    log(f"[ssl methods cli] {smi}: " + "; ".join(
+        f"{tag} {r['seconds']:.2f} s under the profiler, device busy "
+        f"{r['device_busy_s']:.2f} s "
+        f"({100 * r['device_busy_s'] / r['wall_s']:.1f} %), peak "
+        f"{r['peak_memory_gb']:.2f} GB, launches {r['counts']}"
+        for tag, r in runs.items()))
+    return runs
+
+
+def phase_ssl_methods(smi):
+    """Phase 26: VICRegL, DINO with local crops, iBOT and MAE at full
+    width on ``ssl-resnet.yaml``'s training settings, f32 and bf16, and
+    the ``ssl train`` CLI for DINO and VICRegL."""
+    t0 = time.perf_counter()
+    out = {"seconds_by_part": {}}
+    for method in SSL_NEW_METHODS:
+        t = time.perf_counter()
+        out[method] = _method_steps(smi, method)
+        out["seconds_by_part"][method] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["cli"] = _method_clis(smi)
+    out["seconds_by_part"]["cli"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[ssl methods] phase 26: {out['seconds']:.1f} s "
+        f"({out['seconds_by_part']})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -7960,6 +8204,8 @@ def main():
     lap(24)
     deconf = phase_deconfounder_export(smi)
     lap(25)
+    ssl_methods = phase_ssl_methods(smi)
+    lap(26)
     log(f"[phases] wall s: {phase_s}")
 
     def entry(name, source, replaces, launches, row, per, library_ms):
@@ -8126,6 +8372,14 @@ def main():
            if tag != "predict_plain"},
         **{f"{tag}_export_f32": run["launches"]
            for tag, run in deconf["exports"].items()},
+        # phase 26: VICRegL, DINO, iBOT and MAE at B=28 (2 steps each in
+        # bf16 and f32) and the ssl train CLI for DINO (bf16) and VICRegL
+        # (f32)
+        **{f"ssl_{m}_training{'' if p == 'bf16' else '_f32'}":
+           ssl_methods[m][p]["launches"]
+           for m in SSL_NEW_METHODS for p in ("bf16", "32")},
+        **{f"ssl_train_{tag}": run["counts"]
+           for tag, run in ssl_methods["cli"].items()},
     }
 
     def launches_of(name):
@@ -8159,7 +8413,8 @@ def main():
               "phase 23's encoder U-Net served cases, steps and CLI runs, "
               "phase 25's deconfounder and SegCatNet forwards and steps, "
               "deconfounder and logger CLI runs and the exported SSL "
-              "encoder's and CatNet's artifacts, every route",
+              "encoder's and CatNet's artifacts, phase 26's VICRegL steps "
+              "and CLI run, every route",
               totals["library_ms"]),
         entry("conv3d_igemm_dx", "adell_mri_torch/csrc/conv3d_igemm.cu",
               "adell_mri_tpu/ops/pallas/conv.py:60",
@@ -8360,7 +8615,8 @@ def main():
     # kernel), on UNETR's f32 paths: the forward on the served case and the
     # step (B=1), dQ and dK/dV on the step
     f32_paths = ("unetr_serving_f32", "unetr_training_f32",
-                 "ssl_ijepa_training_f32", "vit_serving_f32",
+                 "ssl_ijepa_training_f32", "ssl_dino_training_f32",
+                 "ssl_ibot_training_f32", "ssl_mae_training_f32", "vit_serving_f32",
                  "vit_training_f32", "vit_cli_train_f32", "vit_cli_test_f32",
                  "vit_cli_predict_probability_f32", "vit_export_f32")
     att32 = attention["float32"]
@@ -8441,7 +8697,8 @@ def main():
         swin=swin, catnet=catnet, unet_options=options,
         classifiers=classifiers, ssl=ssl, new_classifiers=new_classifiers,
         gp_ensemble=gp_ensemble, finetune=finetune, mil=mil,
-        deconfounder_export=deconf, launches_by_path=by_path,
+        deconfounder_export=deconf, ssl_methods=ssl_methods,
+        launches_by_path=by_path,
         phase_s=phase_s,
         kernels=kernels, total_s=time.perf_counter() - t_start,
     ), indent=1))

@@ -261,9 +261,16 @@ def test_wrapper_matches_jax(ret, train):
 
 
 def test_wrapper_refuses_local_features():
+    """VICRegL's ``ret="local"`` is served (the pair of the normed
+    projection and the map of projections; held against JAX in
+    ``tests/test_torch_ssl_methods.py``); a ``ret`` the wrapper does not
+    know is refused."""
     tm = _wrapper(0)[3]
-    with pytest.raises(NotImplementedError, match="VICRegL"):
-        tm(torch.zeros((1,) + VIEW + (1,)), ret="local")
+    proj, local = tm(torch.zeros((1,) + VIEW + (1,)), ret="local")
+    assert proj.shape == (1, 16) and local.shape[0] == 1 and (
+        local.shape[-1] == 16 and local.dim() == 5)
+    with pytest.raises(ValueError, match="ret must be one of"):
+        tm(torch.zeros((1,) + VIEW + (1,)), ret="global")
 
 
 def test_factory_reads_the_yaml_and_refuses_other_methods():
@@ -274,8 +281,10 @@ def test_factory_reads_the_yaml_and_refuses_other_methods():
     assert names["proj_0.weight"].shape == (1024, 512)
     assert names["pred_1.weight"].shape == (256, 512)
     assert tm.backbone.n_features == 512
-    for method in ("dino", "ibot", "mae", "vicregl"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the four methods added since are built (tests/test_torch_ssl_methods
+    # .py); an unknown method is refused
+    for method in ("swav", "moco"):
+        with pytest.raises(ValueError, match="unknown ssl_method"):
             tfactories.get_ssl_network(method, cfg)
 
 
@@ -425,7 +434,12 @@ def test_ssl_views_on_the_port_and_refusals():
     assert out["image"] is batch["image"]
     assert not torch.equal(out["view1"], out["view2"])
     assert torch.isfinite(out["view1"]).all()
-    for kw in (dict(slice_2d=True), dict(expose_boxes=True),
-               dict(n_local_crops=2), dict(sample_channels=2)):
+    for kw in (dict(slice_2d=True), dict(sample_channels=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             tpipe.SSLTransforms(**kw)
+    # VICRegL's matrices and DINO's local crops are served
+    boxes = tpipe.SSLTransforms(crop_size=(12, 12, 6), expose_boxes=True,
+                                n_local_crops=2).augment(
+        torch.Generator().manual_seed(0), batch)
+    assert boxes["view1_mat"].shape == (3, 4, 4)
+    assert boxes["local_crops"].shape == (3, 2, 6, 6, 3, 1)

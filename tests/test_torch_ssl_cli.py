@@ -215,10 +215,14 @@ def test_predict_folder_matches_jax(cohort, jax_vicreg):
 
 
 @pytest.mark.parametrize("args, match", [
-    (["train", "--ssl_method", "dino"], "ROADMAP"),
-    (["train", "--ssl_method", "ibot"], "ROADMAP"),
-    (["train", "--ssl_method", "mae"], "ROADMAP"),
-    (["train", "--ssl_method", "vicregl"], "ROADMAP"),
+    (["train", "--ssl_method", "dino", "--sample_channels", "2"],
+     "sample_channels"),
+    (["train", "--ssl_method", "ibot", "--sample_channels", "2"],
+     "sample_channels"),
+    (["train", "--ssl_method", "mae", "--sample_channels", "2"],
+     "sample_channels"),
+    (["train", "--ssl_method", "vicregl", "--sample_channels", "2"],
+     "sample_channels"),
     (["train", "--sample_channels", "2"], "sample_channels"),
     (["train_2d"], "train_2d"),
 ])
