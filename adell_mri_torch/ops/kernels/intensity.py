@@ -10,8 +10,9 @@ Philox generator inside the kernel, keyed by a seed drawn on the device.
 
 ``intensity_aug`` launches the kernel for CUDA tensors and runs the plain
 version, ``intensity_aug_reference``, only for CPU tensors. The plain
-version draws its noise with ``torch.randn``, so the two agree exactly on
-the noise-free part and in distribution on the noise.
+version draws the kernel's own stream (``philox_normals``: Philox4x32-10
+in torch integer arithmetic, the kernel's counter layout, uniform map and
+Box-Muller), so the two agree element by element, noise included.
 
 ``fused_intensity_aug_batch`` draws the per-sample parameters and gates
 and computes lo/hi (and the std under ``std_shift``) with torch
@@ -33,10 +34,84 @@ _VEC = {torch.bfloat16: 8, torch.float32: 4}
 _SEED_MAX = 2**62
 
 
+_MASK32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+#: float32(2 pi): the Box-Muller angle is 2 pi u2
+_TWO_PI = 6.2831854820251465
+
+
+def _mulhilo(m: int, c):
+    """High and low words of the 32x32->64 product of the constant ``m``
+    and int64 words ``c`` in [0, 2^32): ``m`` in 16-bit halves, so that
+    no partial product reaches 2^63."""
+    p_lo = c * (m & 0xFFFF)
+    p_hi = c * (m >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Random123): ``counter`` int64 [..., 4] and ``key``
+    int64 [..., 2], 32-bit words in int64, broadcast against each other;
+    returns the four output words as int64 [..., 4]."""
+    c0, c1, c2, c3 = counter.unbind(-1)
+    k0, k1 = key.unbind(-1)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W[0]) & _MASK32
+        k1 = (k1 + PHILOX_W[1]) & _MASK32
+    return torch.stack(torch.broadcast_tensors(c0, c1, c2, c3), -1)
+
+
+def philox_key(seed, device):
+    """The kernel's Philox key of ``seed`` (an int or a one-element int64
+    tensor): its low and high 32-bit words, int64 [2] on ``device``."""
+    s = torch.as_tensor(seed, dtype=torch.int64).reshape(-1)[:1].to(device)
+    return torch.cat([s & _MASK32, (s >> 32) & _MASK32])
+
+
+def uniform01(bits):
+    """32-bit words (int64) -> f32 uniforms in [0, 1) through the
+    mantissa: ``(bits >> 9) | 1.0f``, minus 1, as the kernel."""
+    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return one - 1.0
+
+
+def philox_uniforms(seed, batch: int, groups: int, draw: int, device):
+    """The kernel's uniforms, f32 [batch, groups, 4]: ``uniform01`` of the
+    words of the Philox call at counter (group, 0, sample, draw) with
+    ``philox_key(seed)``."""
+    g = torch.arange(groups, dtype=torch.int64, device=device)
+    s = torch.arange(batch, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    counter = torch.stack(torch.broadcast_tensors(
+        g[None, :], zero, s[:, None], zero + draw), -1)
+    return uniform01(philox4x32_10(counter, philox_key(seed, device)))
+
+
+def philox_normals(seed, batch: int, n: int, draw: int, device):
+    """The kernel's standard normals, f32 [batch, n]: element e of sample
+    b is normal e % 4 of the Philox call at counter (e // 4, 0, b, draw);
+    its uniforms (u0, u1, u2, u3) give the Box-Muller pairs (u0, u1) and
+    (u2, u3), the first of a pair clamped at 1e-12, each pair sqrt(-2 ln
+    u) times (cos, sin) of 2 pi u'."""
+    groups = -(-n // 4)
+    u = philox_uniforms(seed, batch, groups, draw, device)
+    rad = torch.sqrt(-2.0 * torch.log(u[..., 0::2].clamp_min(1e-12)))
+    angle = u[..., 1::2] * _TWO_PI
+    normals = torch.stack([rad * torch.cos(angle), rad * torch.sin(angle)],
+                          -1)
+    return normals.reshape(batch, groups * 4)[:, :n]
+
+
 def intensity_aug_reference(seed, x, par, rician: bool, noise: bool):
     """Plain PyTorch version of the kernel: x [B, ...], par [B, 6] =
     (lo, hi, gamma, scale, shift, sigma); f32 arithmetic, output in x's
-    dtype. ``seed`` (int or one-element tensor) seeds ``torch.randn``."""
+    dtype. ``seed`` (an int or the kernel's one-element int64 tensor) is
+    the Philox key of the kernel's noise (``philox_normals``)."""
     b = x.shape[0]
     xf = x.float().reshape(b, -1)
     lo, hi, gamma, scale, shift, sigma = par.float().t().unsqueeze(-1)
@@ -45,10 +120,10 @@ def intensity_aug_reference(seed, x, par, rician: bool, noise: bool):
     unit = torch.exp(gamma * torch.log(unit))
     out = (unit * span + lo) * scale + shift
     if noise:
-        g = torch.Generator(device=x.device).manual_seed(int(seed))
-        n1 = torch.randn(out.shape, generator=g, device=x.device)
+        n = xf.shape[1]
+        n1 = philox_normals(seed, b, n, 0, x.device)
         if rician:
-            n2 = torch.randn(out.shape, generator=g, device=x.device)
+            n2 = philox_normals(seed, b, n, 1, x.device)
             mag = torch.sqrt((out + sigma * n1) ** 2 + (sigma * n2) ** 2)
             out = torch.where(sigma > 0, mag, out)
         else:
@@ -64,6 +139,11 @@ def _check(x, par, seed):
             f"x must be [B, ...] with B > 0, got {tuple(x.shape)}"
         )
     n = x[0].numel()
+    if x.shape[0] > 65535 or n >= 2**31:
+        raise ValueError(
+            f"intensity_aug takes at most 65535 samples of fewer than 2^31 "
+            f"elements, got {x.shape[0]} of {n}"
+        )
     if n % _VEC[x.dtype]:
         raise ValueError(
             f"intensity_aug needs a per-sample element count that is a "

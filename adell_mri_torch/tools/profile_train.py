@@ -30,7 +30,12 @@ volumes of 128x128x32, with its views) (``--batch`` changes the volumes a
 step). After one warm-up step it times three steps with the host clock, then runs one more under
 ``torch.profiler`` and prints the device time by kernel group, the
 device-busy share of a step's wall time, the peak device memory and the
-top kernels. The full table goes to
+top kernels. Where the step augments with the intensity pass
+(``transforms/pipeline.py:_batch_intensity``: parameter draws, the
+min/max and std reductions, the seed, one K3 launch), the summary's
+``intensity_pass`` gives that pass's kernel launches, their device us and
+K3's share of them in the profiled step, and the host us it takes to
+issue in the timed steps. The full table goes to
 ``chiprun_out/profile_train_{model}.txt`` (or ``--out``).
 """
 
@@ -42,7 +47,7 @@ from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from adell_mri_torch.config.factories import SSL_METHODS
 from adell_mri_torch.tools.flagship import (
@@ -97,6 +102,68 @@ def _self_device_us(evt):
     return float(evt.self_device_time_total)
 
 
+INTENSITY_RANGE = "intensity pass"
+
+
+class _IntensityPass:
+    """Stands in for ``pipeline._batch_intensity`` while the tool runs:
+    each call runs under the profiler range ``INTENSITY_RANGE`` and its
+    host seconds are kept (nothing waits on the card in between)."""
+
+    def __init__(self):
+        from adell_mri_torch.transforms import pipeline
+
+        self.pipeline, self.inner = pipeline, pipeline._batch_intensity
+        self.host_s = []
+        pipeline._batch_intensity = self
+
+    def __call__(self, generator, image, policy):
+        t0 = time.perf_counter()
+        with record_function(INTENSITY_RANGE):
+            out = self.inner(generator, image, policy)
+        self.host_s.append(time.perf_counter() - t0)
+        return out
+
+    def restore(self):
+        self.pipeline._batch_intensity = self.inner
+
+
+def _subtree_kernels(evt):
+    return [*evt.kernels,
+            *(k for c in evt.cpu_children for k in _subtree_kernels(c))]
+
+
+def intensity_pass_stats(prof, host_s):
+    """The intensity pass of the profiled step: its calls, the kernels
+    launched under its range (count, device us, the distinct names), K3's
+    launches and device us (a ctypes launch has no torch op to hang from:
+    found on the device timeline inside the range's span), the span from
+    the range's first device activity to its last, and the host us a call
+    took in the timed steps."""
+    events = prof.events()
+    ranges = [e for e in events if e.name == INTENSITY_RANGE]
+    cpu = [r for r in ranges if r.device_type == DeviceType.CPU]
+    spans = [r for r in ranges if r.device_type != DeviceType.CPU]
+    kernels = [k for r in cpu for k in _subtree_kernels(r)]
+    # without the range on the device timeline, the step's one pass holds
+    # every K3 launch of the profile
+    k3 = [e for e in events
+          if e.device_type == DeviceType.CUDA and "intensity_aug" in e.name
+          and (not spans or any(r.time_range.start <= e.time_range.start
+                                <= r.time_range.end for r in spans))]
+    k3_us = sum(e.time_range.elapsed_us() for e in k3)
+    return {
+        "calls": len(cpu),
+        "launches": len(kernels) + len(k3),
+        "device_us": sum(k.duration for k in kernels) + k3_us,
+        "k3_launches": len(k3),
+        "k3_device_us": k3_us,
+        "span_us": sum(r.time_range.elapsed_us() for r in spans),
+        "kernels": sorted({k.name[:60] for k in kernels}),
+        "host_us": [t * 1e6 for t in host_s],
+    }
+
+
 def main(name="unet", out_path=None, precision="bf16", batch_size=None):
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -120,6 +187,7 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
         batch = make_train_batch(0, batch=batch_size, shape=spec.window)
         tr = make_trainer(0, precision, name=name)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    intensity = _IntensityPass()
 
     def step():
         aug = (batch if tr.transforms is None
@@ -136,6 +204,7 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_s = intensity.host_s[-3:]
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
@@ -143,6 +212,7 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
         step()
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
+    intensity.restore()
     # kernels only: a CPU-side op also reports the device time of the
     # kernels it launched, so summing both would count that time twice
     events = [
@@ -178,6 +248,8 @@ def main(name="unet", out_path=None, precision="bf16", batch_size=None):
             [e.key[:80], _self_device_us(e) / 1e3, e.count] for e in top
         ],
     }
+    if host_s:
+        summary["intensity_pass"] = intensity_pass_stats(prof, host_s)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     Path(out_path).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=50))

@@ -5,18 +5,23 @@ Issue bound of the intensity kernel (K2/K3) from its SASS.
 (``ops/kernels/build.py``), disassembles it with ``cuobjdump -sass`` and,
 for ``intensity_aug_kernel<float,true,true>`` and
 ``<__nv_bfloat16,true,true>`` (the Rician path), counts the instructions
-of the grid-stride loop's body: from the target of the widest backward
-branch to that branch. One iteration handles one vector (4 f32 or 8 bf16
-elements), and a warp issues one instruction for 32 iterations, so the
-issue bound of a call over ``--elements`` elements is
+of the chunk loop's body: from the target of the widest backward branch
+to that branch. One iteration handles one 16-byte vector (4 f32 or 8
+bf16 elements), and a warp issues one instruction for 32 iterations, so
+the issue bound of a call over ``--elements`` elements is
 
-    instructions x elements / (per vector x 32) warp instructions
+    instructions x elements / (per iteration x 32) warp instructions
     / (SMs x 4 schedulers x SM clock),
 
-at the card's maximum SM clock (``nvidia-smi clocks.max.sm``). Prints the
+at the card's maximum SM clock (``nvidia-smi clocks.max.sm``); the
+instructions outside the loop (parameters, the Philox key schedule) run
+once per thread and are counted in ``function_instructions``. Prints the
 counts and the bounds, with the card's name and power limit, and writes
-them to ``chiprun_out/sass_loop.json``. Needs the card and the CUDA
-toolkit's ``cuobjdump``.
+them to ``chiprun_out/sass_loop.json`` (or ``--out``), the loop's SASS
+included. ``--library`` reads another build, for example the older
+checkout's kernel that ``tools/time_intensity.py --compare`` compiles
+(``build/intensity_compare/libintensity_other.so``). Needs the card and
+the CUDA toolkit's ``cuobjdump``.
 """
 
 import argparse
@@ -77,6 +82,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--elements", type=int, default=4 * 128 * 128 * 32,
                         help="elements of the call (chip_smoke's K3 call)")
+    parser.add_argument("--library", help="the shared library to read "
+                        "(default: this checkout's build)")
+    parser.add_argument("--out", default="sass_loop.json",
+                        help="file name under chiprun_out/")
     args = parser.parse_args(argv)
 
     import torch
@@ -85,10 +94,14 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("sass_loop: no CUDA device")
-    build.load_library()
+    if args.library:
+        library = Path(args.library)
+    else:
+        build.load_library()
+        library = build.BUILD_DIR / build.LIB_NAME
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
-        [tool, "-sass", str(build.BUILD_DIR / build.LIB_NAME)],
+        [tool, "-sass", str(library)],
         check=True, capture_output=True, text=True, timeout=300).stdout
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
@@ -123,10 +136,11 @@ def main(argv=None):
               f"a loop iteration ({n / per_iter:.1f} an element); "
               f"issue bound at {args.elements} elements {bound_ms:.5f} ms")
     out = dict(device=name, power_limit_w=power, sm_clock_mhz=clock_mhz,
-               sms=sms, elements=args.elements, kernels=rows)
+               sms=sms, elements=args.elements, library=str(library),
+               kernels=rows)
     out_dir = Path(__file__).resolve().parents[2] / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "sass_loop.json").write_text(json.dumps(out, indent=1))
+    (out_dir / args.out).write_text(json.dumps(out, indent=1))
     return out
 
 

@@ -41,8 +41,11 @@ failure:
    --precision bf16`` on a two-case synthetic NIfTI cohort;
 6. intensity kernel vs plain: ``intensity_aug`` (K3, and K2 as its B=1
    call) against ``intensity_aug_reference`` at [4,128,128,32,1], bf16
-   and f32: the noise-free chain exactly, the noise by its moments, the
-   sigma=0 sample of a Rician call not rectified; timed against its bound;
+   and f32: the noise-free chain and the noisy output element by element
+   (the plain version draws the kernel's Philox stream), bit-equal over
+   two runs, the noise's moments, the sigma=0 sample of a Rician call not
+   rectified; every mode (noise off, Gaussian, Rician, and K2) timed with
+   L2 warm and cold against its bound;
 7. conv backward vs plain: for every stride-1 conv shape of the flagship
    forward at B=4, dx/dW/dbias of ``conv3d_igemm_train`` against autograd
    through ``conv3d_igemm_reference``, f32 (TF32 off) and bf16; the dx
@@ -391,37 +394,18 @@ def log(*args):
 
 
 def time_ms(fn, reps=5):
-    """Device ms of one call of ``fn``: the calls are queued behind a
-    spinning kernel, so the events time the card's work and not the host's
-    dispatch. The spin grows until the host has queued every call before
-    the card reaches the first event; where ``reps`` calls fill the launch
-    queue, one call is timed."""
-    import torch
+    """``adell_mri_torch.tools.timing.time_ms``, imported at the call so
+    that importing this script imports nothing of the package."""
+    from adell_mri_torch.tools import timing
 
-    fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 21
-    while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        queued = not start.query()
-        torch.cuda.synchronize()
-        if queued:
-            return start.elapsed_time(end) / reps
-        if cycles >= 1 << 30:
-            if reps > 1:
-                # the calls' launches fill the launch queue (about 1024
-                # entries: a chunked patch product launches hundreds), so
-                # the host waits on the sleeping card: time one call
-                return time_ms(fn, reps=1)
-            raise RuntimeError("time_ms: the host did not get ahead of the "
-                               "card; fn waits on the card")
-        cycles <<= 2
+    return timing.time_ms(fn, reps)
+
+
+def time_cold_ms(fn, reps=20, dirty=False):
+    """``adell_mri_torch.tools.timing.time_cold_ms``."""
+    from adell_mri_torch.tools import timing
+
+    return timing.time_cold_ms(fn, reps, dirty)
 
 
 def conv_bound(b, spatial, cin, cout, dtype, peak=None):
@@ -997,11 +981,11 @@ def _noise_moments(out, clean):
 
 
 def _check_noise(name, got, want, clean):
-    """The noise of the kernel (Philox) and of the plain version
-    (torch.randn) are different draws of one distribution: their means
-    must agree within 6 standard errors of a difference of two means, and
-    their standard deviations within 1 % (about 20 standard errors at 2M
-    elements, still far below a wrong sigma or a wrong normal)."""
+    """The noise of the kernel and of the plain version (one Philox
+    stream): their means must agree within 6 standard errors of a
+    difference of two means, and their standard deviations within 1 %
+    (the element-by-element check is the strict one; this one reads a
+    wrong sigma or a wrong normal in the moments)."""
     mg, sg = _noise_moments(got, clean)
     mw, sw = _noise_moments(want, clean)
     n = got.numel()
@@ -1016,20 +1000,55 @@ def _check_noise(name, got, want, clean):
                 plain_std=sw, tol_std=tol_std)
 
 
+def _intensity_tol(out):
+    """1e-5 in f32 (approximate special functions against libm's) and one
+    bf16 ulp of the output's scale in bf16 (both round one f32 result)."""
+    import torch
+
+    if out.dtype == torch.float32:
+        return 1e-5
+    return 2.0**-7 * max(float(out.float().abs().max()), 1.0)
+
+
+def _noisy_against_plain(name, x, par, seed, rician):
+    """One noisy call of the kernel against the plain version with the
+    same seed, element by element (``_intensity_tol``), and against a
+    second run of itself, bit for bit. Returns the output, the plain
+    one, the error and the tolerance."""
+    import torch
+
+    from adell_mri_torch.ops.kernels import intensity as ki
+
+    got = ki.intensity_aug(seed, x, par, rician=rician, noise=True)
+    again = ki.intensity_aug(seed, x, par, rician=rician, noise=True)
+    want = ki.intensity_aug_reference(seed, x, par, rician, True)
+    torch.cuda.synchronize()
+    tol = _intensity_tol(want)
+    err = float((got.float() - want.float()).abs().max())
+    kind = "rician" if rician else "gaussian"
+    log(f"  {name} {kind}: max abs err {err:.3g} (tol {tol:.3g}) against "
+        f"the plain Philox stream")
+    if not err <= tol:
+        raise AssertionError(f"intensity_aug {name} {kind}: err {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"intensity_aug {name} {kind}: two runs differ")
+    return got, want, err, tol
+
+
 def _k3_against_plain(name, x, par0, par, seed):
     """K3 on ``x`` against its plain version: with ``par0`` (every sigma
-    0) without noise and with either noise switched on, within 1e-5 (f32:
-    libm-level differences of log/exp only) or one bf16 ulp of the
-    output's scale (both round one f32 result); with ``par`` (noisy
-    samples) by the noise's moments (``_check_noise``). Returns the clean
-    output, the tolerance, the error and the moments."""
+    0) without noise and with either noise switched on, and with ``par``
+    (noisy samples) with either noise, element by element within
+    ``_intensity_tol`` (the plain version draws the kernel's Philox
+    stream), bit-equal over two runs, and by the noise's moments
+    (``_check_noise``). Returns the clean output, the tolerance, the
+    largest error and the moments."""
     import torch
 
     from adell_mri_torch.ops.kernels import intensity as ki
 
     clean = ki.intensity_aug_reference(seed, x, par0, False, False)
-    scale = max(float(clean.float().abs().max()), 1.0)
-    tol = 1e-5 if x.dtype == torch.float32 else 2.0**-7 * scale
+    tol = _intensity_tol(clean)
     errs = []
     for noise, rician in ((False, False), (True, True), (True, False)):
         got = ki.intensity_aug(seed, x, par0, rician=rician, noise=noise)
@@ -1042,15 +1061,38 @@ def _k3_against_plain(name, x, par0, par, seed):
     moments = {}
     for rician in (True, False):
         kind = "rician" if rician else "gaussian"
-        got = ki.intensity_aug(seed, x, par, rician=rician, noise=True)
-        want = ki.intensity_aug_reference(5, x, par, rician, True)
-        moments[kind] = _check_noise(f"K3 {name} {kind}", got, want, clean)
+        got, want, err_n, tol_n = _noisy_against_plain(f"K3 {name}", x, par,
+                                                       seed, rician)
+        moments[kind] = dict(
+            _check_noise(f"K3 {name} {kind}", got, want, clean),
+            max_abs_err=err_n, tol=tol_n)
+        err = max(err, err_n)
     return clean, tol, err, moments
+
+
+# the modes of the kernel: (name, noise, rician)
+INTENSITY_MODES = (("off", False, False), ("gaussian", True, False),
+                   ("rician", True, True))
+
+
+def _time_intensity(x, par, seed, noise, rician, sigma):
+    """One mode of the kernel timed with L2 warm (``time_ms``: repeated
+    calls on the same tensors, as the main path finds ``x`` after the
+    warp that wrote it) and cold (``time_cold_ms``), beside its bound."""
+    from adell_mri_torch.ops.kernels import intensity as ki
+
+    def fn():
+        ki.intensity_aug(seed, x, par, rician=rician, noise=noise)
+
+    bound, bound_by = intensity_bound(x, sigma if noise else sigma * 0,
+                                      rician)
+    return dict(warm_ms=time_ms(fn, 20), cold_ms=time_cold_ms(fn, 20),
+                bound_ms=bound, bound_by=bound_by)
 
 
 def phase_intensity():
     """K3 (and K2 as its B=1 call) against the plain version at the
-    flagship batch, bf16 and f32."""
+    flagship batch, bf16 and f32; every mode timed warm and cold."""
     import torch
 
     from adell_mri_torch.ops.kernels import intensity as ki
@@ -1091,7 +1133,9 @@ def phase_intensity():
                             torch.ones_like(lon), torch.zeros_like(lon),
                             torch.tensor([0.0, 0.02, 0.02, 0.02],
                                          device=dev)], dim=1).contiguous()
-        got = ki.intensity_aug(seed, xn, parn, rician=True, noise=True)
+        got, _, errn, _ = _noisy_against_plain(
+            f"K3 {name} sigma=0 sample beside noisy ones", xn, parn, seed,
+            True)
         cleann = ki.intensity_aug_reference(seed, xn, parn, False, False)
         torch.cuda.synchronize()
         err0 = float((got[0].float() - cleann[0].float()).abs().max())
@@ -1103,13 +1147,18 @@ def phase_intensity():
             )
         log(f"  K3 {name} sigma=0 sample beside noisy ones: err {err0:.3g},"
             f" min {float(got[0].min()):.3f} (kept negative)")
-        # the main path's call: Rician, every sample noisy (the most work)
-        bound, bound_by = intensity_bound(x, noisy, True)
-        t = time_ms(lambda: ki.intensity_aug(seed, x, par, True, True), 20)
-        tp = time_ms(lambda: ki.intensity_aug_reference(5, x, par, True,
+        # every mode, every sample noisy where the mode has noise; the main
+        # path's call is Rician
+        modes = {mode: _time_intensity(x, par, seed, noise, rician, noisy)
+                 for mode, noise, rician in INTENSITY_MODES}
+        for mode, m in modes.items():
+            log(f"  K3 {name} {mode}: kernel warm {m['warm_ms']:.5f} ms, "
+                f"cold {m['cold_ms']:.5f} ms, bound {m['bound_ms']:.5f} ms "
+                f"({m['bound_by']})")
+        tp = time_ms(lambda: ki.intensity_aug_reference(seed, x, par, True,
                                                         True), 5)
-        log(f"  K3 {name}: kernel {t:.4f} ms, plain {tp:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound_by})")
+        rician = modes["rician"]
+        log(f"  K3 {name}: plain {tp:.4f} ms")
         # K2: the scalar call on one volume
         x1 = x[0]
         p1 = dict(lo=float(lo[0]), hi=float(hi[0]), gamma=1.3, scale=0.95,
@@ -1126,24 +1175,38 @@ def phase_intensity():
         got1n = ki.fused_intensity_aug(7, x1, sigma=0.02, rician=True, **p1)
         par1n = par1.clone()
         par1n[0, 5] = 0.02
-        want1n = ki.intensity_aug_reference(9, x1[None], par1n, True,
+        want1n = ki.intensity_aug_reference(7, x1[None], par1n, True,
                                             True)[0]
+        torch.cuda.synchronize()
+        err1n = float((got1n.float() - want1n.float()).abs().max())
+        if not err1n <= _intensity_tol(want1n):
+            raise AssertionError(f"fused_intensity_aug {name} rician: "
+                                 f"{err1n}")
+        if not torch.equal(got1n, ki.fused_intensity_aug(
+                7, x1, sigma=0.02, rician=True, **p1)):
+            raise AssertionError(f"fused_intensity_aug {name} rician: two "
+                                 f"runs differ")
         m1 = _check_noise(f"K2 {name} rician", got1n, want1n, clean1)
-        b1, b1_by = intensity_bound(x1[None], par1n[:, 5], True)
         # the kernel alone: the scalar call's packing of its parameters
         # into device tensors is host work and copies, not the kernel
-        t1 = time_ms(lambda: ki.intensity_aug(seed, x1[None], par1n, True,
-                                              True), 20)
+        k2 = _time_intensity(x1[None], par1n, seed, True, True,
+                             par1n[:, 5])
         tp1 = time_ms(lambda: ki.intensity_aug_reference(
-            9, x1[None], par1n, True, True), 5)
+            seed, x1[None], par1n, True, True), 5)
+        err1 = max(err1, err1n)
         log(f"  K2 {name} (B=1): err {err1:.3g} (tol {tol:.3g}), kernel "
-            f"{t1:.4f} ms, plain {tp1:.4f} ms, bound {b1:.4f} ms ({b1_by})")
+            f"warm {k2['warm_ms']:.5f} ms, cold {k2['cold_ms']:.5f} ms, "
+            f"plain {tp1:.4f} ms, bound {k2['bound_ms']:.5f} ms "
+            f"({k2['bound_by']})")
         rows[name] = dict(
-            k3=dict(max_abs_err=err, tol=tol, moments=moments,
-                    sigma0_sample_err=err0, ms=t, plain_ms=tp,
-                    bound_ms=bound, bound_by=bound_by),
-            k2=dict(max_abs_err=err1, tol=tol, moments=m1, ms=t1,
-                    plain_ms=tp1, bound_ms=b1, bound_by=b1_by),
+            k3=dict(max_abs_err=max(err, errn), tol=tol, moments=moments,
+                    sigma0_sample_err=err0, ms=rician["cold_ms"],
+                    warm_ms=rician["warm_ms"], plain_ms=tp,
+                    bound_ms=rician["bound_ms"],
+                    bound_by=rician["bound_by"], modes=modes),
+            k2=dict(max_abs_err=err1, tol=tol, moments=m1,
+                    ms=k2["cold_ms"], warm_ms=k2["warm_ms"], plain_ms=tp1,
+                    bound_ms=k2["bound_ms"], bound_by=k2["bound_by"]),
         )
     rows["k2_launches"] = ki.fused_intensity_aug.launches
     return rows
@@ -8216,6 +8279,7 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": library_ms, "per": per,
+            **({"warm_ms": row["warm_ms"]} if "warm_ms" in row else {}),
         }
 
     # launches of each main path, counted from 0 just before it was driven;
@@ -8427,12 +8491,14 @@ def main():
               "adell_mri_tpu/ops/pallas/intensity.py:155",
               launches_of("intensity_aug")[0], k3,
               "one call at [4,128,128,32,1] f32, Rician, every sample "
-              "noisy; no single PyTorch call computes it", None),
+              "noisy, L2 cold (warm_ms: L2 warm); no single PyTorch call "
+              "computes it", None),
         entry("intensity_aug", "adell_mri_torch/csrc/intensity_aug.cu",
               "adell_mri_tpu/ops/pallas/intensity.py:49",
               intensity_rows["k2_launches"], k2,
               "the B=1 call of the same kernel at [128,128,32,1] f32, "
-              "Rician; launches: the B=1 calls of phase 6 (the training "
+              "Rician, L2 cold (warm_ms: L2 warm); launches: the B=1 calls "
+              "of phase 6 (the training "
               "path runs the kernel at B=4 only); no single PyTorch call "
               "computes it", None),
         entry("flash_attention_fwd", flash,

@@ -5,8 +5,9 @@ The same numpy volumes, matrices, angles and gates go through both sides;
 random gates are injected where the two frameworks' generators would
 differ. The plain intensity chain is held against the TPU kernel run in
 interpret mode with its noise off (as ``tests/test_pallas_ops.py`` runs
-it), and the noise by its moments. Tolerance 1e-5 on unit-scale f32 data
-unless stated.
+it), and the noise by its moments; the plain version's Philox stream
+(the CUDA kernel's) against Random123's known answers and Python's
+integers. Tolerance 1e-5 on unit-scale f32 data unless stated.
 """
 
 import dataclasses
@@ -278,6 +279,90 @@ def test_rician_sigma_zero_sample_is_not_rectified():
     clean = tint.intensity_aug(torch.tensor([4]), xt, pt, noise=False)
     np.testing.assert_array_equal(out[0].numpy(), clean[0].numpy())
     assert float(out[0].min()) < 0 and float(out[1:].min()) >= 0
+
+
+# -- the kernel's Philox stream in the plain version --------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _philox_py(counter, key):
+    """Philox4x32-10 on Python integers, the oracle of the torch one."""
+    c, (k0, k1) = list(counter), key
+    for _ in range(10):
+        p0 = 0xD2511F53 * c[0]
+        p1 = 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k0, p1 & _M32, (p0 >> 32) ^ c[3] ^ k1,
+             p0 & _M32]
+        k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+    return c
+
+
+@pytest.mark.parametrize("counter, key, want", [
+    ((0, 0, 0, 0), (0, 0), "6627e8d5 e169c58d bc57ac4c 9b00dbd8"),
+    ((_M32,) * 4, (_M32,) * 2, "408f276d 41c83b0e a20bc7c6 6d5451fd"),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0), "d16cfe09 94fdcceb 5001e420 24126ea1"),
+], ids=["zeros", "ones", "pi"])
+def test_philox_known_answers(counter, key, want):
+    """Random123's known answers for Philox4x32-10."""
+    got = tint.philox4x32_10(torch.tensor(counter), torch.tensor(key))
+    assert " ".join(f"{int(w):08x}" for w in got) == want
+    assert " ".join(f"{w:08x}" for w in _philox_py(counter, key)) == want
+
+
+def test_philox_matches_python_integers():
+    """The torch Philox (16-bit halves in int64) against Python's
+    unbounded integers on random counters and keys."""
+    rng = np.random.default_rng(20)
+    counters = rng.integers(0, 2**32, (64, 4), dtype=np.uint64)
+    keys = rng.integers(0, 2**32, (64, 2), dtype=np.uint64)
+    got = tint.philox4x32_10(torch.from_numpy(counters.astype(np.int64)),
+                             torch.from_numpy(keys.astype(np.int64)))
+    want = [_philox_py([int(w) for w in c], [int(w) for w in k])
+            for c, k in zip(counters, keys)]
+    assert got.tolist() == want
+
+
+def test_philox_normals_follow_the_kernel_layout():
+    """Element e of sample b, draw d: normal e % 4 of Philox at (e // 4,
+    0, b, d) keyed by the seed's two words, Box-Muller (cos, sin of 2 pi
+    u2) in float64 here;
+    the seed as an int and as the kernel's int64 tensor give one stream."""
+    seed = 2**40 + 12345
+    got = tint.philox_normals(torch.tensor([seed]), 3, 37, 1, "cpu")
+    assert torch.equal(got, tint.philox_normals(seed, 3, 37, 1, "cpu"))
+    key = (seed & _M32, seed >> 32)
+    for b, e in ((0, 0), (0, 5), (1, 36), (2, 17), (2, 3)):
+        r = _philox_py((e // 4, 0, b, 1), key)
+        p = (e % 4) // 2
+        u1 = max(float(np.float32((r[2 * p] >> 9) / 2**23)), 1e-12)
+        u2 = (r[2 * p + 1] >> 9) / 2**23
+        rad = np.sqrt(-2 * np.log(u1))
+        angle = 2 * np.pi * u2
+        want = rad * (np.cos(angle) if e % 2 == 0 else np.sin(angle))
+        assert abs(float(got[b, e]) - want) < 1e-5
+
+
+def test_philox_normals_are_distinct():
+    """No two (sample, element, draw) share a Box-Muller pair: a counter
+    that collided would hand two voxels the same noise. A pair is two
+    23-bit uniforms, so a chance collision among these 6144 pairs has
+    odds of about 1e-6."""
+    u = torch.stack([tint.philox_uniforms(torch.tensor([9]), 3, 1024, d,
+                                          "cpu") for d in (0, 1)])
+    k = (u * 2**23).long().reshape(-1, 2)
+    pairs = k[:, 0] * 2**23 + k[:, 1]
+    assert pairs.unique().numel() == pairs.numel() == 2 * 3 * 1024 * 2
+    # each normal of an element is built from its own pair
+    n = [tint.philox_normals(torch.tensor([9]), 3, 4096, d, "cpu")
+         for d in (0, 1)]
+    x = np.full((3, 4096), 2.0, np.float32)
+    par = np.tile(np.float32([[0.0, 4.0, 1.0, 1.0, 0.0, 0.1]]), (3, 1))
+    out = tint.intensity_aug(torch.tensor([9]), torch.from_numpy(x),
+                             torch.from_numpy(par), rician=True)
+    want = torch.sqrt((2.0 + 0.1 * n[0]) ** 2 + (0.1 * n[1]) ** 2)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
 
 
 # -- pipeline ----------------------------------------------------------------

@@ -513,6 +513,17 @@ def test_intensity_aug_matches_plain(cuda, dtype):
     assert float(noisy[1:].min()) >= 0
     resid = (noisy[1:].float() - clean[1:].float()).abs()
     assert 0 < float(resid.mean()) < 0.2
+    # the plain version draws the kernel's Philox stream: the noisy output
+    # element by element, both noises, and bit-equal over two runs
+    for rician in (True, False):
+        got = kint.intensity_aug(seed, x, par, rician=rician)
+        again = kint.intensity_aug(seed, x, par, rician=rician)
+        want = kint.intensity_aug_reference(seed, x, par, rician, True)
+        torch.cuda.synchronize()
+        tol_n = 1e-5 if dtype == torch.float32 else 2.0**-7 * max(
+            float(want.float().abs().max()), 1.0)
+        assert float((got.float() - want.float()).abs().max()) <= tol_n
+        assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -524,6 +535,10 @@ def test_intensity_aug_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         kint.intensity_aug(seed, torch.zeros((1, 8), device=cuda),
                            torch.zeros((2, 6), device=cuda))
+    # the grid's y dimension holds the samples: at most 65535
+    with pytest.raises(ValueError, match="65535"):
+        kint.intensity_aug(seed, torch.zeros((65536, 4), device=cuda),
+                           torch.zeros((65536, 6), device=cuda))
 
 
 # (B, H, Nq, Nkv, D): tile multiples, ragged Nq != Nkv, head dim 32, tiny;

@@ -42,7 +42,10 @@ def test_prediction_sets_match_jax(n, c, alpha, seed, ties):
     assert got.q_hat == want.q_hat
     test = probs[::-1].copy()
     np.testing.assert_array_equal(got(test), want(test))
-    assert got(test)[np.arange(n), test.argmax(1)].all()
+    # some class of each row's top probability is in its set (with ties
+    # that need not be the one argmax picks)
+    top = test == test.max(1, keepdims=True)
+    assert (got(test) & top).any(1).all()
 
 
 def test_prediction_sets_need_calibration():
